@@ -1,0 +1,66 @@
+"""CLI: `python -m ggrmcp_tpu_torch sidecar --model NAME --port N
+[--device cpu] [--seed S]`.
+
+Serves Generate / GenerateStream / GetModelInfo / GetServingStats over
+gRPC with random weights drawn from `--seed` (no checkpoint loading in
+this package yet). Runs on CUDA unless `--device cpu` is given. Put the
+reference gateway in front of it:
+`python -m ggrmcp_tpu gateway --grpc-port N`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import asyncio
+import logging
+import sys
+
+from ggrmcp_tpu_torch.core.config import ServingConfig
+from ggrmcp_tpu_torch.models.llama import CONFIGS
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="ggrmcp_tpu_torch",
+        description="PyTorch/CUDA serving sidecar (gRPC)",
+    )
+    sub = parser.add_subparsers(dest="command", required=True)
+    sc = sub.add_parser("sidecar", help="run the generate sidecar")
+    sc.add_argument("--model", default="tiny-llama", choices=sorted(CONFIGS))
+    sc.add_argument("--port", type=int, default=50051, help="gRPC port")
+    sc.add_argument(
+        "--device", default=None,
+        help="torch device (default cuda; 'cpu' only when asked)",
+    )
+    sc.add_argument("--seed", type=int, default=0, help="random-weight seed")
+    sc.add_argument("--log-level", default="info")
+    return parser
+
+
+async def _serve(args: argparse.Namespace) -> None:
+    from ggrmcp_tpu_torch.serving.sidecar import Sidecar
+
+    sidecar = Sidecar(
+        ServingConfig(model=args.model, port=args.port),
+        seed=args.seed, device=args.device,
+    )
+    await sidecar.start()
+    try:
+        await sidecar.server.wait_for_termination()
+    finally:
+        await sidecar.stop()
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    logging.basicConfig(
+        level=getattr(logging, args.log_level.upper(), logging.INFO),
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+    )
+    if args.command == "sidecar":
+        asyncio.run(_serve(args))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

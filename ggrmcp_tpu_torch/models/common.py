@@ -1,0 +1,103 @@
+"""Shared model building blocks: config base, RMSNorm, initializers.
+
+Port of `ggrmcp_tpu/models/common.py`. Parameters are plain dicts of
+tensors with per-layer weights STACKED along a leading layer axis
+([L, in, out]), the reference's layout, so weights cross between the
+two packages without transposes (models/convert.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+Params = dict[str, Any]
+
+_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise ValueError(f"unsupported dtype {name!r}") from None
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str = "model"
+    vocab_size: int = 32000
+    hidden_dim: int = 512
+    num_layers: int = 4
+    num_heads: int = 8
+    head_dim: int = 64
+    max_seq_len: int = 2048
+    dtype: str = "bfloat16"
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+
+def rms_norm(
+    x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5
+) -> torch.Tensor:
+    """RMSNorm with the reference's cast order: normalize in float32,
+    cast to the input dtype, THEN multiply by the weight."""
+    x32 = x.float()
+    scale = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    return (x32 * scale).to(x.dtype) * weight
+
+
+def _trunc_normal(
+    shape: tuple[int, ...], scale: float, dtype: torch.dtype,
+    generator: torch.Generator, device: torch.device,
+) -> torch.Tensor:
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (t * scale).to(dtype)
+
+
+def init_dense(
+    in_dim: int, out_dim: int, dtype: torch.dtype,
+    generator: torch.Generator, device: torch.device,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Truncated-normal fan-in init (±2σ), stored in the model dtype —
+    the reference's scales; the values differ from JAX's draws."""
+    scale = scale if scale is not None else in_dim ** -0.5
+    return _trunc_normal((in_dim, out_dim), scale, dtype, generator, device)
+
+
+def init_stacked(
+    num_layers: int, shape: tuple[int, ...], dtype: torch.dtype,
+    generator: torch.Generator, device: torch.device, scale: float,
+) -> torch.Tensor:
+    """One stacked parameter for all layers: [L, *shape]. Drawn one
+    layer at a time so the float32 scratch stays one layer's size."""
+    out = torch.empty((num_layers, *shape), dtype=dtype, device=device)
+    for layer in range(num_layers):
+        out[layer] = _trunc_normal(shape, scale, dtype, generator, device)
+    return out
+
+
+def _leaves(params: Params):
+    for value in params.values():
+        if isinstance(value, dict):
+            yield from _leaves(value)
+        else:
+            yield value
+
+
+def count_params(params: Params) -> int:
+    return sum(t.numel() for t in _leaves(params))
+
+
+def param_bytes(params: Params) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(params))

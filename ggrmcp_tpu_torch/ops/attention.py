@@ -1,0 +1,281 @@
+"""Attention ops: the plain reference path, the FlashAttention kernel's
+plain version and wrapper, and the dispatcher.
+
+Port of `ggrmcp_tpu/ops/attention.py`. Layout is [batch, seq, heads,
+head_dim]; K/V may carry fewer (KV) heads (GQA).
+
+- `attention_ref` — masked softmax in float32 (the counterpart of
+  `attention_xla`): grouped GQA for decode-shaped queries
+  (sq <= GQA_GROUPED_MAX_SQ), K/V repeated for longer ones.
+- `flash_attention_ref` — the plain PyTorch version of the kernel's
+  function (float32 throughout, rows with no valid key → 0).
+- `flash_attention` — the wrapper of the hand-written CUDA kernel
+  (`csrc/flash_attention.cu`). A CPU tensor takes `flash_attention_ref`;
+  a CUDA tensor launches the kernel or raises — never a fallback.
+- `attention` — the dispatcher: every query longer than
+  GQA_GROUPED_MAX_SQ without ring positions (every admission prefill
+  and chunk) goes to `flash_attention`; decode stays on `attention_ref`,
+  as decode never reaches Pallas in the reference.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ggrmcp_tpu_torch.ops import _build
+
+NEG_INF = -1e30
+
+# Decode-shaped GQA calls (sq at or below this) contract grouped.
+GQA_GROUPED_MAX_SQ = 8
+
+
+def attention_ref(
+    q: torch.Tensor,  # [B, Sq, H, D]
+    k: torch.Tensor,  # [B, Sk, H or KVH, D]
+    v: torch.Tensor,  # [B, Sk, H or KVH, D]
+    causal: bool = True,
+    q_offset: Optional[torch.Tensor] = None,  # [B] absolute pos of q[0]
+    kv_len: Optional[torch.Tensor] = None,  # [B] valid kv length
+    window: Optional[int] = None,
+    k_positions: Optional[torch.Tensor] = None,  # [B, Sk]; < 0 = unwritten
+) -> torch.Tensor:
+    """Masked softmax attention; scores and products in float32, the
+    softmax weights cast to v's dtype before the PV product (the
+    reference's cast point). Fully masked rows get uniform weights over
+    all keys, exactly like the reference's masked softmax."""
+    if window is not None and not causal:
+        raise ValueError("sliding window requires causal")
+    if k_positions is not None and (not causal or q_offset is None):
+        raise ValueError("k_positions requires causal + q_offset")
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    grouped = kvh != h and sq <= GQA_GROUPED_MAX_SQ
+    if kvh != h and not grouped:
+        k = k.repeat_interleave(h // kvh, dim=2)
+        v = v.repeat_interleave(h // kvh, dim=2)
+    scale = d ** -0.5
+    if grouped:
+        g = h // kvh
+        qg = q.float().reshape(b, sq, kvh, g, d)
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()).reshape(
+            b, h, sq, sk
+        ) * scale
+    else:
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    dev = q.device
+    mask = None
+    if causal:
+        q_pos = torch.arange(sq, device=dev)[:, None]  # [Sq, 1]
+        if q_offset is not None:
+            q_pos = q_offset.to(dev).long()[:, None, None] + q_pos[None]
+        if k_positions is not None:
+            k_pos = k_positions.long()[:, None, :]  # [B, 1, Sk]
+            causal_mask = (q_pos >= k_pos) & (k_pos >= 0)
+        else:
+            k_pos = torch.arange(sk, device=dev)[None, :]  # [1, Sk]
+            causal_mask = q_pos >= k_pos
+        if window is not None:
+            causal_mask = causal_mask & (k_pos > q_pos - window)
+        mask = causal_mask if causal_mask.dim() == 3 else causal_mask[None]
+    if kv_len is not None:
+        kl = kv_len.to(dev).long()[:, None, None]
+        if k_positions is not None:
+            valid = k_positions.long()[:, None, :] < kl
+        else:
+            valid = torch.arange(sk, device=dev)[None, None, :] < kl
+        mask = valid if mask is None else mask & valid
+    if mask is not None:
+        scores = torch.where(
+            mask[:, None, :, :], scores, torch.full_like(scores, NEG_INF)
+        )
+    weights = torch.softmax(scores, dim=-1).to(v.dtype).float()
+    if grouped:
+        g = h // kvh
+        wg = weights.reshape(b, kvh, g, sq, sk)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", wg, v.float()).reshape(
+            b, sq, h, d
+        )
+    else:
+        out = torch.einsum("bhqk,bkhd->bqhd", weights, v.float())
+    return out.to(q.dtype)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # [B, Sq, H, D]
+    k: torch.Tensor,  # [B, Sk, KVH, D]
+    v: torch.Tensor,  # [B, Sk, KVH, D]
+    causal: bool = True,
+    q_offset: Optional[torch.Tensor] = None,
+    kv_len: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: float32 scores, softmax
+    and PV product; mask k < kv_len (and causal / window); rows with no
+    valid key are written as 0; output in q's dtype."""
+    if window is not None and not causal:
+        raise ValueError("sliding window requires causal")
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    dev = q.device
+    kf = k.float().repeat_interleave(h // kvh, dim=2)
+    vf = v.float().repeat_interleave(h // kvh, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float() * d ** -0.5, kf)
+    if q_offset is None:
+        q_offset = torch.zeros(b, dtype=torch.int32, device=dev)
+    if kv_len is None:
+        kv_len = torch.full((b,), sk, dtype=torch.int32, device=dev)
+    k_pos = torch.arange(sk, device=dev)[None, None, :]  # [1, 1, Sk]
+    mask = k_pos < kv_len.long()[:, None, None]  # [B, 1, Sk]
+    if causal:
+        q_pos = (
+            q_offset.long()[:, None, None]
+            + torch.arange(sq, device=dev)[None, :, None]
+        )  # [B, Sq, 1]
+        mask = mask & (q_pos >= k_pos)
+        if window is not None:
+            mask = mask & (k_pos > q_pos - window)
+    mask = mask.expand(b, sq, sk)[:, None]  # [B, 1, Sq, Sk]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    weights = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", weights, vf)
+    live = mask.any(dim=-1)[:, 0, :, None, None]  # [B, Sq, 1, 1]
+    return torch.where(live, out, torch.zeros_like(out)).to(q.dtype)
+
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (32, 64, 128)
+_LL = ctypes.c_longlong
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+
+
+def _kernel_layout_ok(t: torch.Tensor) -> bool:
+    """Can the kernel read `t` through its strides as it is?"""
+    if t.stride(-1) != 1:
+        return False
+    if t.dtype == torch.bfloat16:
+        return t.data_ptr() % 16 == 0 and all(
+            s % 8 == 0 for s in t.stride()[:3]
+        )
+    return True
+
+
+def _kernel_fn():
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [_PTR] * 6 + [_INT] * 6 + [_LL] * 12 + [_INT] * 3 + [_PTR]
+        )
+        fn.restype = _INT
+    return fn
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, Sq, H, D]
+    k: torch.Tensor,  # [B, Sk, KVH, D]
+    v: torch.Tensor,  # [B, Sk, KVH, D]
+    causal: bool = True,
+    q_offset: Optional[torch.Tensor] = None,  # [B] int32
+    kv_len: Optional[torch.Tensor] = None,  # [B] int32
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """FlashAttention over [B, S, H, D] with native GQA. CPU tensors run
+    `flash_attention_ref`. CUDA tensors launch the kernel on the current
+    stream and bump `flash_attention.launches`; anything the kernel does
+    not take raises.
+
+    Strides: q/k/v are passed as strided views — the per-layer slice of
+    a [L, B, S_max, KVH, D] cache is not contiguous. The head_dim stride
+    must be 1, and for bfloat16 (whose kernel copies 16-byte pieces of
+    rows) the data pointer must be 16-byte aligned and the other strides
+    multiples of 8; a tensor that breaks this is made contiguous first."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(
+            q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
+            window=window,
+        )
+    if window is not None and not causal:
+        raise ValueError("sliding window requires causal")
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: q, k, v on different devices")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"flash_attention: bad shapes q {tuple(q.shape)} "
+            f"k {tuple(k.shape)} v {tuple(v.shape)}"
+        )
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError("flash_attention: q and k/v disagree on B or D")
+    if h % kvh != 0:
+        raise ValueError(f"q heads {h} not a multiple of kv heads {kvh}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(
+            f"flash_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
+            f"the kernel takes float32 or bfloat16, all alike"
+        )
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {d} not in {_HEAD_DIMS}")
+    if q_offset is None:
+        q_offset = torch.zeros(b, dtype=torch.int32, device=q.device)
+    if kv_len is None:
+        kv_len = torch.full((b,), sk, dtype=torch.int32, device=q.device)
+    for name, t in (("q_offset", q_offset), ("kv_len", kv_len)):
+        if t.dtype != torch.int32 or t.device != q.device or t.shape != (b,):
+            raise ValueError(
+                f"flash_attention: {name} must be int32 [{b}] on {q.device}"
+            )
+    q_offset, kv_len = q_offset.contiguous(), kv_len.contiguous()
+    q, k, v = (t if _kernel_layout_ok(t) else t.contiguous() for t in (q, k, v))
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    if sq == 0:
+        return out
+    fn = _kernel_fn()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q_offset.data_ptr(), kv_len.data_ptr(),
+        b, sq, sk, h, kvh, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        int(causal), int(window or 0), _DTYPE_CODES[q.dtype], stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def attention(
+    q: torch.Tensor,  # [B, Sq, H, D]
+    k: torch.Tensor,  # [B, Sk, KVH, D]
+    v: torch.Tensor,  # [B, Sk, KVH, D]
+    causal: bool = True,
+    q_offset: Optional[torch.Tensor] = None,
+    kv_len: Optional[torch.Tensor] = None,
+    window: Optional[int] = None,
+    k_positions: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Prefill-shaped queries (sq > GQA_GROUPED_MAX_SQ) without ring
+    positions take `flash_attention` — the kernel on a CUDA tensor, its
+    plain version on a CPU tensor; everything else takes
+    `attention_ref`. No minimum length: the H100 crossover is not
+    measured yet."""
+    if k_positions is None and q.shape[1] > GQA_GROUPED_MAX_SQ:
+        return flash_attention(
+            q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
+            window=window,
+        )
+    return attention_ref(
+        q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
+        window=window, k_positions=k_positions,
+    )
