@@ -8,12 +8,16 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases, any failure exits non-zero and prints no result:
 
 1. card: nvidia-smi's name and power limit, torch and CUDA versions;
-2. build: the FlashAttention kernel from ggrmcp_tpu_torch/ops/csrc;
+2. build: the FlashAttention kernels from ggrmcp_tpu_torch/ops/csrc, with
+   ptxas's report of every kernel (registers, spills, shared memory);
+   the bf16 kernels must not spill, setmaxnreg must not be ignored and
+   their wgmma must not be serialised;
 3. kernel vs plain: `flash_attention` against `flash_attention_ref` at
    the shapes the serving path gives it at llama3-8b width (H=32, KVH=8,
-   D=128, bf16) plus a windowed, a non-causal, an H=KVH, a ragged and a
-   float32 case, with the kernel's, the plain version's and the SDPA
-   yardstick's times and the card's bound for each;
+   D=128, bf16) and at llama-1b width (D=64), plus a windowed, a
+   non-causal, an H=KVH, a ragged and a float32 case, with the kernel's
+   and the SDPA yardstick's times (median and spread of 5 runs of 10
+   launches), the plain version's time and the card's bound for each;
 4. reference: tiny-llama (float32) on the card against the same weights
    on the CPU, and one llama3-8b prefill with the kernel against the
    same prefill through the plain version;
@@ -31,6 +35,7 @@ from __future__ import annotations
 import asyncio
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -83,6 +88,14 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cuda_ms_spread(torch, fn, runs: int = 5, reps: int = 10) -> dict:
+    """Median, min and max over `runs` runs of `cuda_ms` (`reps`
+    launches each, one warm-up before the first)."""
+    times = sorted(cuda_ms(torch, fn, reps, warmup=1 if i == 0 else 0)
+                   for i in range(runs))
+    return dict(ms=times[runs // 2], min=times[0], max=times[-1])
+
+
 # -- phase 3: kernel vs plain ----------------------------------------------
 
 # name, b, sq, sk, h, kvh, d, causal, q_offset, kv_len, window, dtype,
@@ -94,6 +107,8 @@ CASES = [
      "fused admission, full pool, smallest bucket"),
     ("fused_32x512", 32, 512, 512, 32, 8, 128, True, 0, 512, None,
      "bfloat16", "fused admission, full pool, largest bucket"),
+    ("fused_32x512_d64", 32, 512, 512, 32, 8, 64, True, 0, 512, None,
+     "bfloat16", "llama-1b geometry (D=64), fused admission, full pool"),
     ("chunk_4x512_at_2560", 4, 512, 4096, 32, 8, 128, True, 2560, 3072,
      None, "bfloat16",
      "chunked admission, 6th chunk, strided view of a 4096 mini cache"),
@@ -109,6 +124,10 @@ CASES = [
      "tiny-llama geometry in float32"),
 ]
 HEADLINE = "fused_32x512"
+DESIGN = ("bf16: TMA-fed wgmma (m64n128k16 S = Q K^T from shared memory, "
+          "P V with P in registers), 1 producer + 2 consumer warpgroups, "
+          "128 x 128 tiles, 2-stage mbarrier ring, persistent blocks; "
+          "float32: CUDA cores")
 
 
 def _valid_mask(torch, b, sq, sk, causal, q_offset, kv_len, window, dev):
@@ -158,7 +177,9 @@ def kernel_cases(torch, tatt, dev) -> list[dict]:
               f"kernel vs plain {name}: |err| exceeds {atol} + {rtol}|ref| "
               f"by {excess - atol} (max abs err {err})")
 
-        ms = cuda_ms(torch, lambda: tatt.flash_attention(q, k, v, **kw), 10)
+        kernel_t = cuda_ms_spread(
+            torch, lambda: tatt.flash_attention(q, k, v, **kw))
+        ms = kernel_t["ms"]
         plain_ms = cuda_ms(
             torch, lambda: tatt.flash_attention_ref(q, k, v, **kw), 2)
         torch.cuda.empty_cache()
@@ -185,7 +206,8 @@ def kernel_cases(torch, tatt, dev) -> list[dict]:
 
             def lib():
                 return F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
-        library_ms = cuda_ms(torch, lib, 10)
+        library_t = cuda_ms_spread(torch, lib)
+        library_ms = library_t["ms"]
         del mask, qt, kt, vt
         torch.cuda.empty_cache()
 
@@ -201,20 +223,55 @@ def kernel_cases(torch, tatt, dev) -> list[dict]:
             name=name, what=what, dtype=dtype_name,
             shape=dict(b=b, sq=sq, sk=sk, h=h, kvh=kvh, d=d, causal=causal,
                        q_offset=off, kv_len=kvl, window=window),
-            max_abs_err=err, atol=atol, rtol=rtol, ms=ms, plain_ms=plain_ms,
-            library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
+            max_abs_err=err, atol=atol, rtol=rtol, ms=ms,
+            ms_min=kernel_t["min"], ms_max=kernel_t["max"], plain_ms=plain_ms,
+            library_ms=library_ms, library_ms_min=library_t["min"],
+            library_ms_max=library_t["max"], bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             gflop=flops / 1e9, mbytes=nbytes / 1e6,
             tflops=flops / (ms * 1e-3) / 1e12,
         )
-        log(f"  {name:22s} err {err:.2e} kernel {ms:9.3f} ms  plain "
-            f"{plain_ms:9.3f} ms  sdpa {library_ms:8.3f} ms  bound "
+        log(f"  {name:22s} err {err:.2e} kernel {ms:.4f} ms "
+            f"[{kernel_t['min']:.4f}, {kernel_t['max']:.4f}]  plain "
+            f"{plain_ms:9.3f} ms  sdpa {library_ms:.4f} ms "
+            f"[{library_t['min']:.4f}, {library_t['max']:.4f}]  bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']})  "
             f"{row['tflops']:.1f} TFLOP/s")
         results.append(row)
         del q, k, v
         torch.cuda.empty_cache()
     return results
+
+
+# -- phase 2: the build's ptxas report ----------------------------------------
+
+BF16_KERNEL = "flash_fwd_wg_kernel"
+
+
+def ptxas_report(log_text: str) -> None:
+    """Print ptxas's lines for every kernel of the library (registers,
+    spills, warnings and C75xx notes) and hold the bf16 kernels to no
+    spills, an honoured setmaxnreg (C7508 says it was ignored) and
+    pipelined wgmma (C7514 says ptxas serialised them)."""
+    check(bool(log_text), "no ptxas report for the kernel library")
+    check("C7508" not in log_text, "ptxas ignored setmaxnreg (C7508)")
+    check("C7514" not in log_text,
+          "ptxas serialised the wgmma instructions (C7514)")
+    kernel, bf16 = "", set()
+    for raw in log_text.splitlines():
+        line = raw.strip()
+        if "Function properties for" in line:
+            kernel = line.split()[-1]
+            short = re.search(r"flash_fwd_\w*?kernelILi\d+", kernel)
+            log(f"  ptxas: {short.group(0) if short else kernel}")
+        elif any(w in line for w in ("registers", "spill", "warning",
+                                     "(C75")):
+            log(f"  ptxas:   {line}")
+        if BF16_KERNEL in kernel and "spill" in line:
+            bf16.add(kernel)
+            check("0 bytes spill stores, 0 bytes spill loads" in line,
+                  f"bf16 kernel {kernel} spills: {line}")
+    check(len(bf16) == 3, f"ptxas reported {len(bf16)} bf16 kernels, not 3")
 
 
 # -- phase 4: reference checks ------------------------------------------------
@@ -468,9 +525,7 @@ def main() -> int:
         _build.load("flash_attention")
         log(f"[2/5] build: flash_attention.cu in "
             f"{time.perf_counter() - t:.1f} s")
-        for line in _build.build_log.get("flash_attention", "").splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+        ptxas_report(_build.build_log.get("flash_attention", ""))
 
         log(f"[3/5] kernel vs plain (|err| <= atol + rtol |plain|: {TOL})")
         cases = kernel_cases(torch, tatt, dev)
@@ -495,6 +550,8 @@ def main() -> int:
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
+        ms_min=head["ms_min"], ms_max=head["ms_max"],
+        design=DESIGN,
     )]
     log(json.dumps({"cases": cases}))
     log(f"total {time.perf_counter() - t_start:.1f} s")

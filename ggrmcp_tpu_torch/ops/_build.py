@@ -3,9 +3,11 @@
 Each `csrc/*.cu` source has a plain C interface and is compiled by
 `nvcc` into a shared library under `build/kernels/` at the root of the
 checkout (git-ignored), then loaded with ctypes. The library's file
-name carries a hash of the source and the flags, so an edited source
-is rebuilt and a stale library is never loaded. Nothing here runs at
-import time: the first wrapper call on a CUDA tensor builds.
+name carries a hash of the source, of every header under `csrc/` (what
+a source may include) and of the flags (include and link flags among
+them), so an edited source or header is rebuilt and a stale library is
+never loaded. Nothing here runs at import time: the first wrapper call
+on a CUDA tensor builds.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+HEADER_SUFFIXES = (".cuh", ".h")  # what a csrc source may include
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -28,8 +31,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
-# What nvcc printed for each library built in this process (ptxas
-# resource usage).
+# What nvcc printed for each library loaded in this process (ptxas
+# resource usage), kept beside the library as `<library>.log`.
 build_log: dict[str, str] = {}
 
 
@@ -47,11 +50,17 @@ def _nvcc() -> str:
     )
 
 
-def library_path(name: str) -> Path:
-    """Where `csrc/<name>.cu` builds to for the current source + flags."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+def library_path(
+    name: str, csrc: Path = CSRC, flags: tuple[str, ...] = NVCC_FLAGS
+) -> Path:
+    """Where `<csrc>/<name>.cu` builds to for the current source, headers
+    and flags."""
+    digest = hashlib.sha256()
+    headers = sorted(p for p in csrc.iterdir() if p.suffix in HEADER_SUFFIXES)
+    for path in (csrc / f"{name}.cu", *headers):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    digest.update("\0".join(flags).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> Path:
@@ -71,9 +80,14 @@ def build(name: str) -> Path:
             f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
-    os.replace(tmp, out)
     build_log[name] = proc.stdout + proc.stderr
+    _log_path(out).write_text(build_log[name])  # before the library shows
+    os.replace(tmp, out)
     return out
+
+
+def _log_path(library: Path) -> Path:
+    return library.with_name(f"{library.name}.log")
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -81,6 +95,9 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+            path = build(name)
+            if name not in build_log and _log_path(path).exists():
+                build_log[name] = _log_path(path).read_text()
+            lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
         return lib

@@ -153,15 +153,45 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 
 
+def _kernel_strides(t: torch.Tensor) -> tuple[int, int, int]:
+    """Element strides of batch, seq and heads as the kernel takes them.
+    A dimension of size 1 is never stepped, so torch may give it any
+    stride; it gets the packed one, which TMA accepts."""
+    b, s, h, d = t.shape
+    sb, ss, sh = t.stride()[:3]
+    if h == 1:
+        sh = d
+    if s == 1:
+        ss = sh * h
+    if b == 1:
+        sb = ss * s
+    return sb, ss, sh
+
+
 def _kernel_layout_ok(t: torch.Tensor) -> bool:
-    """Can the kernel read `t` through its strides as it is?"""
+    """Can the kernel read `t` through its strides as it is? The
+    head_dim stride must be 1. For bfloat16, whose tensor maps TMA reads,
+    also TMA's rules: a 16-byte-aligned base, and byte strides (those of
+    `_kernel_strides`) that are positive multiples of 16 below 2**40."""
     if t.stride(-1) != 1:
         return False
-    if t.dtype == torch.bfloat16:
-        return t.data_ptr() % 16 == 0 and all(
-            s % 8 == 0 for s in t.stride()[:3]
-        )
-    return True
+    if t.dtype != torch.bfloat16:
+        return True
+    es = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        0 < s * es < 2 ** 40 and s * es % 16 == 0 for s in _kernel_strides(t)
+    )
+
+
+def _launch_error(err: int) -> str:
+    """What a nonzero return of `flash_attention_fwd` means."""
+    if err == -1:
+        return "dtype, head_dim or shape not supported by the kernel"
+    if err == -2:
+        return "the driver has no cuTensorMapEncodeTiled"
+    if err <= -1000:
+        return f"tensor map encoding failed (CUresult {-1000 - err})"
+    return f"CUDA error {err}"
 
 
 def _kernel_fn():
@@ -190,10 +220,9 @@ def flash_attention(
     not take raises.
 
     Strides: q/k/v are passed as strided views — the per-layer slice of
-    a [L, B, S_max, KVH, D] cache is not contiguous. The head_dim stride
-    must be 1, and for bfloat16 (whose kernel copies 16-byte pieces of
-    rows) the data pointer must be 16-byte aligned and the other strides
-    multiples of 8; a tensor that breaks this is made contiguous first."""
+    a [L, B, S_max + 1, KVH, D] cache is not contiguous. A view that
+    `_kernel_layout_ok` refuses (for bfloat16, one that TMA cannot
+    address) is copied first."""
     if q.device.type == "cpu":
         return flash_attention_ref(
             q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
@@ -233,7 +262,13 @@ def flash_attention(
                 f"flash_attention: {name} must be int32 [{b}] on {q.device}"
             )
     q_offset, kv_len = q_offset.contiguous(), kv_len.contiguous()
-    q, k, v = (t if _kernel_layout_ok(t) else t.contiguous() for t in (q, k, v))
+    # A refused view is copied (a contiguous one too: its base may be
+    # misaligned, which .contiguous() would keep).
+    q, k, v = (
+        t if _kernel_layout_ok(t)
+        else t.clone(memory_format=torch.contiguous_format)
+        for t in (q, k, v)
+    )
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if sq == 0:
         return out
@@ -243,11 +278,14 @@ def flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         q_offset.data_ptr(), kv_len.data_ptr(),
         b, sq, sk, h, kvh, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        *_kernel_strides(q), *_kernel_strides(k), *_kernel_strides(v),
+        *_kernel_strides(out),
         int(causal), int(window or 0), _DTYPE_CODES[q.dtype], stream,
     )
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: error {err}")
+        raise RuntimeError(
+            f"flash_attention kernel launch failed: {_launch_error(err)}"
+        )
     flash_attention.launches += 1
     return out
 

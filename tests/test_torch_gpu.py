@@ -76,14 +76,9 @@ CASES = [
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize(
-    "name,shape,causal,q_off,kv_len,window", CASES, ids=[c[0] for c in CASES]
-)
-def test_kernel_matches_plain(cuda, dtype, name, shape, causal, q_off,
-                              kv_len, window):
-    q, k, v = _qkv(61, *shape, cuda, dtype)
+def _check_against_plain(cuda, dtype, shape, causal, q_off, kv_len, window,
+                         seed=61):
+    q, k, v = _qkv(seed, *shape, cuda, dtype)
     kw = dict(causal=causal, window=window, q_offset=_i32(q_off, cuda),
               kv_len=_i32(kv_len, cuda))
     before = tatt.flash_attention.launches
@@ -93,8 +88,83 @@ def test_kernel_matches_plain(cuda, dtype, name, shape, causal, q_off,
     assert tatt.flash_attention.launches == before + 1
     assert out.dtype == dtype and out.shape == q.shape
     _assert_close(out, ref)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize(
+    "name,shape,causal,q_off,kv_len,window", CASES, ids=[c[0] for c in CASES]
+)
+def test_kernel_matches_plain(cuda, dtype, name, shape, causal, q_off,
+                              kv_len, window):
+    out = _check_against_plain(cuda, dtype, shape, causal, q_off, kv_len,
+                               window)
     if name == "dead_row":
         assert not out[0].any()
+
+
+# The bf16 kernel's tile geometry: 128 query rows x 128 keys per tile,
+# persistent blocks (one per SM, 132 on an H100), D = 32 (64-byte
+# swizzle), 64 and 128 (128-byte swizzle).
+# (name, (b, sq, sk, h, kvh, d), causal, q_offset, kv_len, window)
+TILE_CASES = [
+    ("d64", (2, 256, 256, 8, 2, 64), True, None, None, None),
+    ("d128", (2, 256, 256, 8, 2, 128), True, None, None, None),
+    ("d32", (2, 300, 333, 8, 2, 32), True, [5, 20], [305, 320], None),
+    ("sq129", (1, 129, 129, 4, 2, 128), True, None, None, None),
+    ("sq255_sk300", (2, 255, 300, 4, 1, 64), True, [45, 0], [300, 255],
+     None),
+    ("sq300_non_causal", (2, 300, 129, 4, 4, 128), False, None, [129, 77],
+     None),
+    ("kv_len_mid_tile", (2, 64, 512, 8, 2, 128), True, [200, 330],
+     [264, 394], None),
+    ("window_below_tile", (1, 384, 384, 4, 2, 128), True, None, None, 50),
+    ("window_cached_mid_tile", (2, 200, 700, 4, 2, 64), True, [300, 410],
+     [500, 610], 77),
+    ("more_tiles_than_sms", (4, 1024, 1024, 16, 4, 128), True, None, None,
+     None),
+    ("more_tiles_than_sms_non_causal", (3, 640, 700, 12, 4, 64), False,
+     None, None, None),
+    ("more_tiles_than_sms_d32", (2, 1000, 1000, 16, 8, 32), True, None,
+     None, None),
+]
+
+
+@pytest.mark.parametrize(
+    "name,shape,causal,q_off,kv_len,window", TILE_CASES,
+    ids=[c[0] for c in TILE_CASES],
+)
+def test_bf16_kernel_tile_geometry(cuda, name, shape, causal, q_off, kv_len,
+                                   window):
+    _check_against_plain(cuda, torch.bfloat16, shape, causal, q_off, kv_len,
+                         window)
+
+
+def test_bf16_kernel_repeats_bitwise(cuda):
+    """Back-to-back launches at the fused-admission shape (llama3-8b
+    geometry, 4096 tiles over the persistent blocks) give the same bits
+    every time: the barrier rings carry no state from one tile or launch
+    into the next."""
+    q, k, v = _qkv(17, 32, 512, 512, 32, 8, 128, cuda, torch.bfloat16)
+    first = tatt.flash_attention(q, k, v)
+    before = tatt.flash_attention.launches
+    for _ in range(10):
+        outs = [tatt.flash_attention(q, k, v) for _ in range(20)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(out, first) for out in outs)
+    assert tatt.flash_attention.launches == before + 200
+    _assert_close(first, tatt.flash_attention_ref(q, k, v))
+
+
+def test_bf16_kernel_dead_rows(cuda):
+    """Rows with no valid key inside tiles that have live rows: with
+    kv_len 100 and a window of 50, rows at positions >= 149 see no key;
+    batch row 1 (kv_len 0) is dead throughout."""
+    out = _check_against_plain(cuda, torch.bfloat16, (2, 300, 300, 4, 2, 128),
+                               True, None, [100, 0], 50)
+    assert not out[0, 149:].any() and out[0, :149].abs().sum() > 0
+    assert not out[1].any()
 
 
 def test_kernel_reads_strided_cache_views(cuda):
@@ -114,12 +184,46 @@ def test_kernel_reads_strided_cache_views(cuda):
     _assert_close(out, ref)
 
 
-def test_kernel_copies_views_it_cannot_read(cuda):
-    """A bf16 view whose rows are not 16-byte aligned (head_dim sliced
-    out of a wider tensor) is made contiguous by the wrapper first."""
+@pytest.mark.parametrize("d,s_max", [(128, 4096), (64, 1024)])
+def test_kernel_reads_strided_cache_views_at_tile_edges(cuda, d, s_max):
+    """The model's chunked-admission operands at serving geometry: K/V
+    are [:, :S_max] of a [B, S_max + 1, KVH, D] cache, kv_len and
+    q_offset fall inside 128-key tiles, and TMA must neither read the
+    scratch position nor need a copy."""
     dtype = torch.bfloat16
-    wide = torch.randn((2, 128, 4, 72), device=cuda).to(dtype)
-    q = wide[..., 4:68]
+    q, _, _ = _qkv(9, 2, 300, 1, 8, 2, d, cuda, dtype)
+    cache_k, cache_v = (
+        torch.randn((2, s_max + 1, 2, d), device=cuda).to(dtype)
+        for _ in range(2)
+    )
+    cache_k[:, s_max] = cache_v[:, s_max] = float("nan")  # scratch slot
+    k, v = cache_k[:, :s_max], cache_v[:, :s_max]
+    assert not k.is_contiguous() and tatt._kernel_layout_ok(k)
+    kw = dict(q_offset=_i32([s_max - 300, 1000], cuda),
+              kv_len=_i32([s_max, 1300], cuda))
+    before = tatt.flash_attention.launches
+    out = tatt.flash_attention(q, k, v, **kw)
+    ref = tatt.flash_attention_ref(q, k.contiguous(), v.contiguous(), **kw)
+    torch.cuda.synchronize()
+    assert tatt.flash_attention.launches == before + 1
+    assert torch.isfinite(out.float()).all()
+    _assert_close(out, ref)
+
+
+@pytest.mark.parametrize("view", ["sliced_head_dim", "offset_base"])
+def test_kernel_copies_views_it_cannot_read(cuda, view):
+    """A bf16 view the kernel's tensor maps cannot address is copied by
+    the wrapper first: head_dim sliced out of a wider tensor (rows not
+    16-byte aligned), or a contiguous view whose base sits 8 bytes into
+    an allocation (which .contiguous() would keep)."""
+    dtype = torch.bfloat16
+    if view == "sliced_head_dim":
+        wide = torch.randn((2, 128, 4, 72), device=cuda).to(dtype)
+        q = wide[..., 4:68]
+    else:
+        flat = torch.randn(2 * 128 * 4 * 64 + 4, device=cuda).to(dtype)
+        q = flat[4:].view(2, 128, 4, 64)
+        assert q.is_contiguous()
     assert q.data_ptr() % 16 != 0
     k, v = (torch.randn((2, 128, 2, 64), device=cuda).to(dtype)
             for _ in range(2))
