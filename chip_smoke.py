@@ -24,7 +24,18 @@ Phases, any failure exits non-zero and prints no result:
 5. serve: the port's gRPC sidecar with llama3-8b (seeded random bf16
    weights, default BatchingConfig) answers concurrent Generate calls
    through both admission routes, one GenerateStream and GetModelInfo;
-   the kernel's launch count must rise during this phase.
+   the kernel's launch count must rise during this phase;
+6. embed: an embed sidecar with bert-base (seeded random bf16 weights)
+   answers Embed on texts at the [32, 128] and [32, 512] buckets, on
+   token ids with trailing pads, with mean, cls and max pooling, and
+   GetModelInfo; every call launches the kernel once a layer, every
+   vector has unit norm and matches the same weights in float32 through
+   the plain path;
+7. HF checkpoint: a checkpoint of llama3-8b's width cut to 2 layers,
+   written in two safetensors files under an index, loads onto the card
+   bit for bit with bounded host memory, and a sidecar started on it
+   answers a greedy Generate with the tokens of an engine on the loaded
+   weights.
 
 The last lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -33,9 +44,11 @@ The last lines are the kernels JSON line, the card line, and
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -122,6 +135,11 @@ CASES = [
      "bfloat16", "Sq = Sk = 300, no tile multiple"),
     ("f32_tiny_2x256", 2, 256, 256, 8, 4, 32, True, 0, 256, None, "float32",
      "tiny-llama geometry in float32"),
+    # kv_len None: ragged, each row's length drawn from 17 to S.
+    ("bert_32x128", 32, 128, 128, 12, 12, 64, False, 0, None, None,
+     "bfloat16", "bert-base embed batch, S=128 bucket, ragged rows"),
+    ("bert_32x512", 32, 512, 512, 12, 12, 64, False, 0, None, None,
+     "bfloat16", "bert-base embed batch, S=512 bucket, ragged rows"),
 ]
 HEADLINE = "fused_32x512"
 DESIGN = ("bf16: TMA-fed wgmma (m64n128k16 S = Q K^T from shared memory, "
@@ -151,7 +169,15 @@ def kernel_cases(torch, tatt, dev) -> list[dict]:
          what) in CASES:
         dtype = getattr(torch, dtype_name)
         q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
-        if name.startswith("chunk"):
+        if name.startswith("bert"):
+            # The encoder's operands: q, k and v are strided views of one
+            # fused [B, S, 3 H D] projection, read without a copy.
+            qkv = torch.randn((b, sq, 3 * h * d), generator=gen,
+                              device=dev).to(dtype)
+            q, k, v = (t.reshape(b, sq, h, d) for t in qkv.chunk(3, dim=-1))
+            check(all(tatt._kernel_layout_ok(t) for t in (q, k, v)),
+                  f"{name}: the kernel would copy the split q/k/v views")
+        elif name.startswith("chunk"):
             # The model's operand: [:, :S_max] of a [B, S_max + 1, ...]
             # per-layer cache slice (not contiguous).
             kc, vc = (torch.randn((b, sk + 1, kvh, d), generator=gen,
@@ -161,7 +187,12 @@ def kernel_cases(torch, tatt, dev) -> list[dict]:
             k, v = (torch.randn((b, sk, kvh, d), generator=gen,
                                 device=dev).to(dtype) for _ in range(2))
         q_offset = torch.full((b,), off, dtype=torch.int32, device=dev)
-        kv_len = torch.full((b,), kvl, dtype=torch.int32, device=dev)
+        if kvl is None:
+            kv_len = torch.randint(17, sk + 1, (b,), generator=gen,
+                                   device=dev, dtype=torch.int32)
+        else:
+            kv_len = torch.full((b,), kvl, dtype=torch.int32, device=dev)
+        full = bool((kv_len == sk).all())
         kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len,
                   window=window)
 
@@ -190,10 +221,10 @@ def kernel_cases(torch, tatt, dev) -> list[dict]:
                            window, dev)
         pairs = int(mask.sum().item())
         keys = int(mask.any(dim=1).sum().item())
-        plain_causal = causal and off == 0 and kvl == sk and sq == sk and (
+        plain_causal = causal and off == 0 and full and sq == sk and (
             not window)
         sdpa_kw = (dict(is_causal=True) if plain_causal
-                   else dict(attn_mask=mask[:, None]) if causal or kvl < sk
+                   else dict(attn_mask=mask[:, None]) if causal or not full
                    else {})
         try:
             def lib():
@@ -222,7 +253,9 @@ def kernel_cases(torch, tatt, dev) -> list[dict]:
         row = dict(
             name=name, what=what, dtype=dtype_name,
             shape=dict(b=b, sq=sq, sk=sk, h=h, kvh=kvh, d=d, causal=causal,
-                       q_offset=off, kv_len=kvl, window=window),
+                       q_offset=off, window=window,
+                       kv_len=kvl if kvl is not None else
+                       f"ragged {kv_len.min().item()}-{kv_len.max().item()}"),
             max_abs_err=err, atol=atol, rtol=rtol, ms=ms,
             ms_min=kernel_t["min"], ms_max=kernel_t["max"], plain_ms=plain_ms,
             library_ms=library_ms, library_ms_min=library_t["min"],
@@ -487,6 +520,370 @@ async def serve_phase(torch, tatt, dev) -> dict:
     return res
 
 
+# -- phase 6: embed -----------------------------------------------------------
+
+EMBED_MODEL = "bert-base"
+# Vectors of the kernel path (bf16) against the plain path in float32 on
+# the same weights: bf16 rounding through 12 post-norm layers moves a
+# unit vector by a few 1e-3 at most, a cosine of 0.999 or more.
+EMBED_MIN_COSINE = 0.999
+
+
+def _texts(n: int, longest: int, seed: int) -> list[str]:
+    """`n` ASCII texts of 17 to `longest` bytes (one of exactly
+    `longest`); the byte tokenizer gives one id per byte."""
+    import numpy as np
+
+    lengths = np.random.default_rng(seed).integers(17, longest + 1, n)
+    lengths[0] = longest
+    return [_prompt_text(int(m) + 1, seed + i) for i, m in enumerate(lengths)]
+
+
+def _plain_embed(tatt, bert_mod, engine, token_lists, pooling):
+    """The same weights in float32 on the card, every attention through
+    the kernel's plain version."""
+    import dataclasses
+
+    from ggrmcp_tpu_torch.serving.engine import EmbeddingEngine
+
+    cfg = dataclasses.replace(engine.cfg, dtype="float32")
+    params = {k: ({n: t.float() for n, t in v.items()}
+                  if isinstance(v, dict) else v.float())
+              for k, v in engine.params.items()}
+    kernel_attention = bert_mod.attention
+    bert_mod.attention = lambda q, k, v, **kw: tatt.flash_attention_ref(
+        q, k, v, **kw)
+    try:
+        return EmbeddingEngine(cfg, params=params, device=engine.device
+                               ).embed(token_lists, pooling)
+    finally:
+        bert_mod.attention = kernel_attention
+
+
+async def embed_phase(torch, tatt, dev) -> dict:
+    import grpc.aio
+    import numpy as np
+
+    from ggrmcp_tpu_torch.core.config import ServingConfig
+    from ggrmcp_tpu_torch.models import bert as bert_mod
+    from ggrmcp_tpu_torch.rpc.pb import serving_pb2
+    from ggrmcp_tpu_torch.serving import tensors
+    from ggrmcp_tpu_torch.serving.sidecar import Sidecar
+
+    cfg = bert_mod.CONFIGS[EMBED_MODEL]
+    torch.cuda.reset_peak_memory_stats()
+    sidecar = Sidecar(ServingConfig(model=EMBED_MODEL), seed=SEED, device=dev)
+    engine = sidecar.embedding
+    batches = dict(texts_32x128=_texts(32, 128, 1),
+                   texts_32x512=_texts(32, 500, 2))
+    rng = np.random.default_rng(3)
+    ids = np.zeros((8, 256), np.int32)  # trailing pads
+    for row, n in enumerate(rng.integers(1, 257, 8)):
+        ids[row, :n] = rng.integers(1000, cfg.vocab_size, n)
+    calls = [(name, texts, "mean") for name, texts in batches.items()]
+    calls += [(f"texts_32x512_{p}", batches["texts_32x512"], p)
+              for p in ("cls", "max")]
+    # The main path's run starts here: every launch count from 0.
+    tatt.flash_attention.launches = 0
+    port = await sidecar.start(0)
+    res: dict = dict(calls={})
+    vectors = {}
+    try:
+        async with grpc.aio.insecure_channel(f"localhost:{port}") as ch:
+            embed = ch.unary_unary(
+                "/ggrmcp.tpu.EmbedService/Embed",
+                request_serializer=serving_pb2.EmbedRequest.SerializeToString,
+                response_deserializer=serving_pb2.EmbedResponse.FromString)
+            info_rpc = ch.unary_unary(
+                "/ggrmcp.tpu.ModelInfoService/GetModelInfo",
+                request_serializer=serving_pb2.ModelInfoRequest
+                .SerializeToString,
+                response_deserializer=serving_pb2.ModelInfoResponse.FromString)
+            requests = [(name, serving_pb2.EmbedRequest(
+                texts=texts, pooling=pooling)) for name, texts, pooling in calls]
+            requests.append(("token_ids_8x256", serving_pb2.EmbedRequest(
+                token_ids=tensors.to_proto(ids))))
+            # Each batch three times: the first call pays the lazy CUDA
+            # set-up of its shapes.
+            for name, req in requests:
+                ms = []
+                for _ in range(3):
+                    before = tatt.flash_attention.launches
+                    resp = await embed(req, timeout=600)
+                    launched = tatt.flash_attention.launches - before
+                    check(launched >= cfg.num_layers,
+                          f"embed {name}: {launched} kernel launches, not "
+                          f">= {cfg.num_layers}")
+                    ms.append(resp.compute_ms)
+                vec = tensors.from_proto(resp.embeddings)
+                n_rows = len(req.texts) or ids.shape[0]
+                check(vec.shape == (n_rows, cfg.hidden_dim)
+                      and vec.dtype == np.float32,
+                      f"embed {name}: {vec.shape} {vec.dtype}")
+                norms = np.linalg.norm(vec, axis=-1)
+                check(bool(np.all(np.abs(norms - 1.0) <= 1e-3)),
+                      f"embed {name}: norms {norms.min()}..{norms.max()}")
+                vectors[name] = vec
+                res["calls"][name] = dict(compute_ms=ms, launches=launched)
+            info = await info_rpc(serving_pb2.ModelInfoRequest())
+            check(info.family == "bert" and info.model_id == EMBED_MODEL
+                  and info.platform == "cuda", f"model info {info}")
+    finally:
+        await sidecar.stop()
+    torch.cuda.synchronize()
+    res["launches"] = tatt.flash_attention.launches
+    res["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["weights_gb"] = engine.weight_bytes() / 1e9
+
+    # The kernel path against the plain float32 path, call by call.
+    token_lists = {name: [sidecar.tokenizer.encode(t) for t in texts]
+                   for name, texts, _ in calls}
+    token_lists["token_ids_8x256"] = [
+        row[: int(np.nonzero(row)[0][-1]) + 1].tolist() for row in ids]
+    poolings = {name: pooling for name, _, pooling in calls}
+    cosines = {}
+    for name, vec in vectors.items():
+        plain = _plain_embed(tatt, bert_mod, engine, token_lists[name],
+                             poolings.get(name, "mean"))
+        cosines[name] = float((vec * plain).sum(-1).min())
+        check(cosines[name] >= EMBED_MIN_COSINE,
+              f"embed {name}: cosine to the float32 plain path "
+              f"{cosines[name]} < {EMBED_MIN_COSINE}")
+    res["min_cosine_to_plain_f32"] = cosines
+    return res
+
+
+# -- phase 7: HF checkpoint ---------------------------------------------------
+
+# llama3-8b's width with the depth cut to 2 layers (about 3.0 GB in
+# bf16), in the HF layout of a Llama-3.1 checkpoint.
+HF_CONFIG = dict(
+    architectures=["LlamaForCausalLM"], _name_or_path="llama3-8b-2-layers",
+    vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+    num_hidden_layers=2, num_attention_heads=32, num_key_value_heads=8,
+    max_position_embeddings=131072, rms_norm_eps=1e-5, rope_theta=500000.0,
+    rope_scaling=dict(rope_type="llama3", factor=8.0, low_freq_factor=1.0,
+                      high_freq_factor=4.0,
+                      original_max_position_embeddings=8192),
+    tie_word_embeddings=False,
+)
+HF_NEW_TOKENS = 8
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """A safetensors file in a few lines (the card has no `safetensors`
+    package): u64 header length, the JSON header (padded to 8 bytes),
+    then each tensor's raw bytes in order. One tensor at a time passes
+    through host memory."""
+    import torch
+
+    names = {torch.bfloat16: "BF16", torch.float16: "F16",
+             torch.float32: "F32"}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = dict(dtype=names[t.dtype], shape=list(t.shape),
+                            data_offsets=[offset, offset + n])
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(blob)))
+        fh.write(blob)
+        for t in tensors.values():
+            fh.write(t.detach().contiguous().cpu().view(torch.uint8).numpy())
+
+
+def hf_tensor_shapes(hf: dict) -> dict:
+    """Name → [out, in] shape of every tensor of an HF Llama checkpoint."""
+    d, f, vocab = hf["hidden_size"], hf["intermediate_size"], hf["vocab_size"]
+    hd = d // hf["num_attention_heads"]
+    q_out = hf["num_attention_heads"] * hd
+    kv_out = hf["num_key_value_heads"] * hd
+    shapes = {"model.embed_tokens.weight": (vocab, d)}
+    for i in range(hf["num_hidden_layers"]):
+        pre = f"model.layers.{i}."
+        shapes.update({
+            pre + "input_layernorm.weight": (d,),
+            pre + "self_attn.q_proj.weight": (q_out, d),
+            pre + "self_attn.k_proj.weight": (kv_out, d),
+            pre + "self_attn.v_proj.weight": (kv_out, d),
+            pre + "self_attn.o_proj.weight": (d, q_out),
+            pre + "post_attention_layernorm.weight": (d,),
+            pre + "mlp.gate_proj.weight": (f, d),
+            pre + "mlp.up_proj.weight": (f, d),
+            pre + "mlp.down_proj.weight": (d, f),
+        })
+    shapes["model.norm.weight"] = (d,)
+    shapes["lm_head.weight"] = (vocab, d)
+    return shapes
+
+
+def write_hf_checkpoint(path: str, hf: dict, torch, dev, seed: int) -> dict:
+    """An HF-layout checkpoint of seeded random bf16 weights (std 0.02;
+    norm weights about 1): config.json and two safetensors files under a
+    model.safetensors.index.json. Returns the written tensors, on `dev`."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tensors = {}
+    for name, shape in hf_tensor_shapes(hf).items():
+        t = torch.randn(shape, generator=gen, device=dev) * 0.02
+        tensors[name] = (t + 1.0 if len(shape) == 1 else t).to(torch.bfloat16)
+    names = list(tensors)
+    half = len(names) // 2
+    weight_map = {}
+    for i, part in enumerate((names[:half], names[half:])):
+        fname = f"model-{i + 1:05d}-of-00002.safetensors"
+        write_safetensors(os.path.join(path, fname),
+                          {n: tensors[n] for n in part})
+        weight_map.update(dict.fromkeys(part, fname))
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as fh:
+        json.dump({"metadata": {}, "weight_map": weight_map}, fh)
+    with open(os.path.join(path, "config.json"), "w") as fh:
+        json.dump(hf, fh)
+    return tensors
+
+
+class PeakRss:
+    """Peak resident set of this process inside a `with` block, sampled
+    from /proc/self/statm every millisecond by a thread (`ru_maxrss`
+    keeps the peak of everything before, the writer's included)."""
+
+    def __init__(self):
+        import threading
+
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self.start = self.peak = 0
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * self._page
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.001):
+            self.peak = max(self.peak, self._rss())
+
+    def __enter__(self) -> "PeakRss":
+        self.start = self.peak = self._rss()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        self.peak = max(self.peak, self._rss())
+
+
+def _check_loaded(torch, params, written, hf: dict) -> None:
+    """Every leaf equals the written bytes, bit for bit, after the
+    transposes and the q/k/v concatenation."""
+    d = hf["hidden_size"]
+    hd = d // hf["num_attention_heads"]
+    q_out = hf["num_attention_heads"] * hd
+    kv_out = hf["num_key_value_heads"] * hd
+    layers = params["layers"]
+    pairs = [(params["embed"], "model.embed_tokens.weight", False),
+             (params["final_norm"], "model.norm.weight", False),
+             (params["lm_head"], "lm_head.weight", True)]
+    for i in range(hf["num_hidden_layers"]):
+        pre = f"model.layers.{i}."
+        qkv = layers["wqkv"][i]
+        pairs += [
+            (layers["attn_norm"][i], pre + "input_layernorm.weight", False),
+            (qkv[:, :q_out], pre + "self_attn.q_proj.weight", True),
+            (qkv[:, q_out:q_out + kv_out], pre + "self_attn.k_proj.weight",
+             True),
+            (qkv[:, q_out + kv_out:], pre + "self_attn.v_proj.weight", True),
+            (layers["wo"][i], pre + "self_attn.o_proj.weight", True),
+            (layers["mlp_norm"][i], pre + "post_attention_layernorm.weight",
+             False),
+            (layers["w_gate"][i], pre + "mlp.gate_proj.weight", True),
+            (layers["w_up"][i], pre + "mlp.up_proj.weight", True),
+            (layers["w_down"][i], pre + "mlp.down_proj.weight", True),
+        ]
+    check(len(pairs) == len(written), "a written tensor is not checked")
+    for leaf, name, transposed in pairs:
+        src = written[name].T if transposed else written[name]
+        check(leaf.dtype == torch.bfloat16 and torch.equal(leaf, src),
+              f"loaded {name} differs from the written bytes")
+
+
+async def hf_phase(torch, tatt, dev) -> dict:
+    import tempfile
+
+    import grpc.aio
+
+    from ggrmcp_tpu_torch.core.config import ServingConfig
+    from ggrmcp_tpu_torch.rpc.pb import serving_pb2
+    from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+    from ggrmcp_tpu_torch.serving.sidecar import Sidecar
+    from ggrmcp_tpu_torch.serving.weights import load_hf_checkpoint
+
+    res: dict = {}
+    with tempfile.TemporaryDirectory(prefix="hf-ckpt-") as path:
+        t = time.perf_counter()
+        written = write_hf_checkpoint(path, HF_CONFIG, torch, dev, SEED + 7)
+        res["write_s"] = time.perf_counter() - t
+        file_bytes = sum(os.path.getsize(os.path.join(path, f))
+                         for f in os.listdir(path) if f.endswith(".safetensors"))
+        largest = max(x.numel() * x.element_size() for x in written.values())
+        gc.collect()
+        with PeakRss() as rss:
+            t = time.perf_counter()
+            cfg, params = load_hf_checkpoint(path, dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t
+        res.update(
+            file_gb=file_bytes / 1e9, load_s=load_s,
+            load_gb_per_s=file_bytes / load_s / 1e9,
+            host_rss_growth_gb=(rss.peak - rss.start) / 1e9,
+            largest_tensor_gb=largest / 1e9)
+        check(cfg.rope_scaling == (8.0, 1.0, 4.0, 8192.0)
+              and cfg.num_layers == 2 and cfg.hidden_dim == 4096,
+              f"config read as {cfg}")
+        _check_loaded(torch, params, written, HF_CONFIG)
+        check(rss.peak - rss.start <= 2 * largest,
+              f"host RSS grew {(rss.peak - rss.start) / 1e9:.2f} GB during "
+              f"the load, more than twice the largest tensor "
+              f"({largest / 1e9:.2f} GB)")
+        del written
+
+        # The sidecar loads the same directory itself; its greedy tokens
+        # must be those of an engine on the params loaded above.
+        prompt = _prompt_text(60, 11)
+        tatt.flash_attention.launches = 0
+        sidecar = Sidecar(ServingConfig(hf_checkpoint_path=path), device=dev)
+        port = await sidecar.start(0)
+        try:
+            async with grpc.aio.insecure_channel(f"localhost:{port}") as ch:
+                generate = ch.unary_unary(
+                    "/ggrmcp.tpu.GenerateService/Generate",
+                    request_serializer=serving_pb2.GenerateRequest
+                    .SerializeToString,
+                    response_deserializer=serving_pb2.GenerateResponse
+                    .FromString)
+                resp = await generate(serving_pb2.GenerateRequest(
+                    prompt=prompt, max_new_tokens=HF_NEW_TOKENS,
+                    return_tokens=True), timeout=600)
+        finally:
+            await sidecar.stop()
+        torch.cuda.synchronize()
+        res["launches"] = tatt.flash_attention.launches
+        check(res["launches"] > 0, "the HF sidecar never launched the kernel")
+        check(torch.equal(sidecar.generation.params["layers"]["wqkv"],
+                          params["layers"]["wqkv"]),
+              "the sidecar's weights differ from the loaded ones")
+        del sidecar
+        tok = [1] + [b + 3 for b in prompt.encode()]
+        ref, _ = GenerationEngine(cfg, params=params, device=dev).generate(
+            [tok], HF_NEW_TOKENS, eos_id=2)
+        res["tokens"] = list(resp.token_ids)
+        check(res["tokens"] == ref[0],
+              f"HF sidecar tokens {res['tokens']} != engine's {ref[0]}")
+    return res
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -518,25 +915,37 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         card = card_line()
-        log(f"[1/5] card: {card}; torch {torch.__version__}, CUDA "
+        log(f"[1/7] card: {card}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
         t = time.perf_counter()
         _build.load("flash_attention")
-        log(f"[2/5] build: flash_attention.cu in "
+        log(f"[2/7] build: flash_attention.cu in "
             f"{time.perf_counter() - t:.1f} s")
         ptxas_report(_build.build_log.get("flash_attention", ""))
 
-        log(f"[3/5] kernel vs plain (|err| <= atol + rtol |plain|: {TOL})")
+        log(f"[3/7] kernel vs plain (|err| <= atol + rtol |plain|: {TOL})")
         cases = kernel_cases(torch, tatt, dev)
 
-        log("[4/5] reference: tiny-llama on the card vs the CPU")
+        log("[4/7] reference: tiny-llama on the card vs the CPU")
         ref = tiny_reference(torch, dev)
         log(f"  {ref}")
 
-        log(f"[5/5] serve: {MODEL} sidecar, default batching")
+        log(f"[5/7] serve: {MODEL} sidecar, default batching")
         serve = asyncio.run(serve_phase(torch, tatt, dev))
         log(f"  {json.dumps(serve)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log(f"[6/7] embed: {EMBED_MODEL} sidecar")
+        embed = asyncio.run(embed_phase(torch, tatt, dev))
+        log(f"  {json.dumps(embed)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log("[7/7] HF checkpoint: llama3-8b width, 2 layers, 2 files")
+        hf = asyncio.run(hf_phase(torch, tatt, dev))
+        log(f"  {json.dumps(hf)}")
     except SmokeError as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
@@ -546,7 +955,8 @@ def main() -> int:
         name="flash_attention", route="cuda",
         source="ggrmcp_tpu_torch/ops/csrc/flash_attention.cu",
         replaces="ggrmcp_tpu/ops/attention.py:286",
-        launches=serve["launches"],
+        launches=serve["launches"], embed_launches=embed["launches"],
+        hf_launches=hf["launches"],
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],

@@ -1,10 +1,13 @@
 """CLI: `python -m ggrmcp_tpu_torch sidecar --model NAME --port N
-[--device cpu] [--seed S]`.
+[--hf-checkpoint DIR] [--tokenizer FILE] [--device cpu] [--seed S]`.
 
-Serves Generate / GenerateStream / GetModelInfo / GetServingStats over
-gRPC with random weights drawn from `--seed` (no checkpoint loading in
-this package yet). Runs on CUDA unless `--device cpu` is given. Put the
-reference gateway in front of it:
+A llama model (or any HF Llama/Mistral checkpoint given by
+`--hf-checkpoint`, which overrides `--model`) serves Generate /
+GenerateStream; a bert model serves Embed. Both serve GetModelInfo /
+GetServingStats over gRPC. Without a checkpoint the weights are random,
+drawn from `--seed`. `--tokenizer` takes a HF tokenizer.json and needs
+the `tokenizers` package. Runs on CUDA unless `--device cpu` is given.
+Put the reference gateway in front of it:
 `python -m ggrmcp_tpu gateway --grpc-port N`.
 """
 
@@ -16,7 +19,7 @@ import logging
 import sys
 
 from ggrmcp_tpu_torch.core.config import ServingConfig
-from ggrmcp_tpu_torch.models.llama import CONFIGS
+from ggrmcp_tpu_torch.models import available_models
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -25,8 +28,18 @@ def build_parser() -> argparse.ArgumentParser:
         description="PyTorch/CUDA serving sidecar (gRPC)",
     )
     sub = parser.add_subparsers(dest="command", required=True)
-    sc = sub.add_parser("sidecar", help="run the generate sidecar")
-    sc.add_argument("--model", default="tiny-llama", choices=sorted(CONFIGS))
+    sc = sub.add_parser("sidecar", help="run the serving sidecar")
+    sc.add_argument("--model", default="tiny-llama",
+                    choices=available_models())
+    sc.add_argument(
+        "--hf-checkpoint", default="",
+        help="HuggingFace Llama/Mistral checkpoint dir (config.json + "
+        "safetensors); overrides --model",
+    )
+    sc.add_argument(
+        "--tokenizer", default="",
+        help="HuggingFace tokenizer.json path (needs `tokenizers`)",
+    )
     sc.add_argument("--port", type=int, default=50051, help="gRPC port")
     sc.add_argument(
         "--device", default=None,
@@ -41,7 +54,11 @@ async def _serve(args: argparse.Namespace) -> None:
     from ggrmcp_tpu_torch.serving.sidecar import Sidecar
 
     sidecar = Sidecar(
-        ServingConfig(model=args.model, port=args.port),
+        ServingConfig(
+            model=args.model, port=args.port,
+            hf_checkpoint_path=args.hf_checkpoint,
+            tokenizer_path=args.tokenizer,
+        ),
         seed=args.seed, device=args.device,
     )
     await sidecar.start()

@@ -95,12 +95,14 @@ class ServingConfig:
     model: str = "tiny-llama"
     batching: BatchingConfig = field(default_factory=BatchingConfig)
     port: int = 50051
+    # HF Llama/Mistral checkpoint directory; overrides `model`.
+    hf_checkpoint_path: str = ""
+    # HF tokenizer.json (needs the `tokenizers` package); "" = bytes.
+    tokenizer_path: str = ""
     # Guards: reference features not ported yet.
     role: str = "mixed"
     uds_path: str = ""
     checkpoint_path: str = ""
-    hf_checkpoint_path: str = ""
-    tokenizer_path: str = ""
     quantize: str = ""
     kv_cache_dtype: str = ""
     synthetic_weights: bool = False
@@ -109,9 +111,8 @@ class ServingConfig:
     failpoints: str = ""
 
     UNSUPPORTED = (
-        "role", "uds_path", "checkpoint_path", "hf_checkpoint_path",
-        "tokenizer_path", "quantize", "kv_cache_dtype", "synthetic_weights",
-        "kv_ring", "speculative_draft", "failpoints",
+        "role", "uds_path", "checkpoint_path", "quantize", "kv_cache_dtype",
+        "synthetic_weights", "kv_ring", "speculative_draft", "failpoints",
     )
 
     def __post_init__(self) -> None:

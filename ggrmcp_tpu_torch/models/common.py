@@ -1,4 +1,5 @@
-"""Shared model building blocks: config base, RMSNorm, initializers.
+"""Shared model building blocks: config base, RMSNorm, LayerNorm,
+initializers.
 
 Port of `ggrmcp_tpu/models/common.py`. Parameters are plain dicts of
 tensors with per-layer weights STACKED along a leading layer axis
@@ -53,6 +54,20 @@ def rms_norm(
     x32 = x.float()
     scale = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
     return (x32 * scale).to(x.dtype) * weight
+
+
+def layer_norm(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+    eps: float = 1e-12,
+) -> torch.Tensor:
+    """LayerNorm with the reference's cast order: normalize in float32
+    with the population variance (`jnp.var`), cast to the input dtype,
+    THEN `* weight + bias`."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    normed = (x32 - mean) * torch.rsqrt(var + eps)
+    return normed.to(x.dtype) * weight + bias
 
 
 def _trunc_normal(

@@ -3,8 +3,9 @@
 `params_from_numpy` takes the reference's parameter tree after the
 caller has turned every leaf into a numpy array (for a JAX tree:
 `jax.tree.map(np.asarray, params)`) and returns this package's dict of
-tensors. Both packages use the same stacked [L, in, out] layout
-(models/llama.py), so no leaf is transposed or reshaped.
+tensors, for either family (a Llama or a BERT tree). Both packages use
+the same stacked [L, in, out] layout (models/llama.py, models/bert.py),
+so no leaf is transposed or reshaped.
 """
 
 from __future__ import annotations

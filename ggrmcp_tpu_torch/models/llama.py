@@ -88,15 +88,6 @@ CONFIGS: dict[str, LlamaConfig] = {
 }
 
 
-def get_config(name: str) -> LlamaConfig:
-    try:
-        return CONFIGS[name]
-    except KeyError:
-        raise ValueError(
-            f"unknown model {name!r}; this package serves {sorted(CONFIGS)}"
-        ) from None
-
-
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------

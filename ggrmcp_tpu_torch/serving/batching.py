@@ -38,7 +38,11 @@ from ggrmcp_tpu_torch.ops.sampling import (
     masked_sample_dynamic,
     trivial_grammar_tables,
 )
-from ggrmcp_tpu_torch.serving.engine import bucket_len, fit_request
+from ggrmcp_tpu_torch.serving.engine import (
+    build_kernels,
+    bucket_len,
+    fit_request,
+)
 
 logger = logging.getLogger("ggrmcp.torch.batching")
 
@@ -294,12 +298,7 @@ class ContinuousBatcher:
     # -- public API ---------------------------------------------------------
 
     def warmup(self) -> None:
-        """Nothing is compiled ahead in eager PyTorch; on a card this
-        builds the attention kernel before traffic arrives."""
-        if self.device.type == "cuda":
-            from ggrmcp_tpu_torch.ops import _build
-
-            _build.load("flash_attention")
+        build_kernels(self.device)
 
     def start(self) -> None:
         if self._task is None:

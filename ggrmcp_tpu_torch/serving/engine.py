@@ -1,6 +1,7 @@
-"""Generation engine: prefill, decode and whole-request generation on
-one device. Port of `ggrmcp_tpu/serving/engine.py::GenerationEngine`
-(dense Llama; no mesh, LoRA, speculative decoding, PP/SP or int8).
+"""Engines on one device. Port of `ggrmcp_tpu/serving/engine.py`:
+`GenerationEngine` (dense Llama prefill, decode and whole-request
+generation; no mesh, LoRA, speculative decoding, PP/SP or int8) and
+`EmbeddingEngine` (BERT embeddings).
 
 The reference compiles one program per shape bucket; PyTorch runs
 eagerly, so the buckets here only bound the shapes the kernels see.
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ggrmcp_tpu_torch.core.config import ServingConfig
+from ggrmcp_tpu_torch.models import bert as bert_mod
 from ggrmcp_tpu_torch.models import llama as llama_mod
 from ggrmcp_tpu_torch.models.common import count_params, param_bytes
 from ggrmcp_tpu_torch.ops.sampling import SamplingConfig, sample
@@ -217,13 +219,99 @@ class GenerationEngine:
                 cur = sample(logits[:, -1], seed, i + 1, sampling)
 
     def model_info(self) -> dict:
-        return {
-            "model_id": self.cfg.name,
-            "family": "llama",
-            "num_params_million": int(count_params(self.params) / 1e6),
-            "max_seq_len": self.cfg.max_seq_len,
-            "dtype": self.cfg.dtype,
-            "mesh": {},
-            "num_devices": 1,
-            "platform": self.device.type,
-        }
+        return _model_info(self, "llama")
+
+
+def build_kernels(device: torch.device) -> None:
+    """Nothing is compiled ahead in eager PyTorch; on a card this builds
+    the attention kernel before traffic arrives."""
+    if device.type == "cuda":
+        from ggrmcp_tpu_torch.ops import _build
+
+        _build.load("flash_attention")
+
+
+class EmbeddingEngine:
+    """BERT-family embeddings on one device: a seq-bucketed batch embed.
+    `params` (this package's dict of tensors) or random weights drawn
+    from `seed`.
+
+    Rows are not bucketed, unlike the reference, which pads the batch to
+    a power of two so that jit compiles few programs: eagerly, padding
+    rows would only cost compute. So every row the kernel sees holds at
+    least one real token."""
+
+    MAX_CHUNK = 4096
+
+    def __init__(
+        self,
+        cfg: bert_mod.BertConfig,
+        params=None,
+        seed: int = 0,
+        device: DeviceLike = None,
+    ):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if params is None:
+            params = bert_mod.init_params(cfg, self.device, seed)
+            logger.info(
+                "initialized %s on %s: %.1fM params", cfg.name, self.device,
+                count_params(params) / 1e6,
+            )
+        self.params = params
+
+    def weight_bytes(self) -> int:
+        return param_bytes(self.params)
+
+    def warmup(self) -> None:
+        build_kernels(self.device)
+
+    def embed(
+        self,
+        token_lists: list[list[int]],
+        pooling: str = "mean",
+        max_length: int = 0,
+    ) -> np.ndarray:
+        """Embed a batch of token lists → float32 [N, D], L2-normalized;
+        batches beyond MAX_CHUNK rows run in chunks."""
+        return np.concatenate([
+            self._embed_chunk(
+                token_lists[i: i + self.MAX_CHUNK], pooling, max_length
+            )
+            for i in range(0, len(token_lists), self.MAX_CHUNK)
+        ], axis=0)
+
+    @torch.no_grad()
+    def _embed_chunk(
+        self, token_lists: list[list[int]], pooling: str, max_length: int
+    ) -> np.ndarray:
+        limit = max_length or self.cfg.max_seq_len
+        longest = min(max(len(t) for t in token_lists), limit)
+        s = bucket_len(longest, maximum=self.cfg.max_seq_len)
+        tokens = np.zeros((len(token_lists), s), dtype=np.int32)
+        mask = np.zeros((len(token_lists), s), dtype=np.int32)
+        for i, ids in enumerate(token_lists):
+            ids = ids[:limit]
+            tokens[i, : len(ids)] = ids
+            mask[i, : len(ids)] = 1
+        out = bert_mod.embed(
+            self.params, self.cfg, torch.from_numpy(tokens).to(self.device),
+            torch.from_numpy(mask).to(self.device), pooling,
+        )
+        return out.cpu().numpy()
+
+    def model_info(self) -> dict:
+        return _model_info(self, "bert")
+
+
+def _model_info(engine, family: str) -> dict:
+    return {
+        "model_id": engine.cfg.name,
+        "family": family,
+        "num_params_million": int(count_params(engine.params) / 1e6),
+        "max_seq_len": engine.cfg.max_seq_len,
+        "dtype": engine.cfg.dtype,
+        "mesh": {},
+        "num_devices": 1,
+        "platform": engine.device.type,
+    }

@@ -1,11 +1,15 @@
-"""The serving sidecar: a gRPC server over the PyTorch generation engine.
+"""The serving sidecar: a gRPC server over the PyTorch engines.
 
-Port of `ggrmcp_tpu/serving/sidecar.py::Sidecar` for the generate path.
-It registers GenerateService (Generate, GenerateStream) and
-ModelInfoService (GetModelInfo, GetServingStats) under the reference's
-service names (`ggrmcp.tpu.*`), plus reflection and health — so the
-reference gateway discovers it by reflection and exposes the same tool
-names as for the JAX sidecar.
+Port of `ggrmcp_tpu/serving/sidecar.py::Sidecar`. The model's family
+picks the engine: a llama model (by name, or any HF checkpoint through
+`serving.hf_checkpoint_path`) gets the generation engine and the
+continuous batcher, a bert model the embedding engine. Registration is
+family-scoped as in the reference: GenerateService (Generate,
+GenerateStream) or EmbedService (Embed), plus ModelInfoService
+(GetModelInfo, GetServingStats), reflection and health, under the
+reference's service names (`ggrmcp.tpu.*`) — so the reference gateway
+discovers it by reflection and exposes the same tool names as for the
+JAX sidecar.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import grpc.aio
 import numpy as np
 
 from ggrmcp_tpu_torch.core.config import ServingConfig
-from ggrmcp_tpu_torch.models import llama as llama_mod
+from ggrmcp_tpu_torch.models import get_model
 from ggrmcp_tpu_torch.ops.sampling import SamplingConfig
 from ggrmcp_tpu_torch.rpc.pb import serving_pb2
 from ggrmcp_tpu_torch.rpc.server_utils import (
@@ -29,29 +33,24 @@ from ggrmcp_tpu_torch.rpc.server_utils import (
     ReflectionService,
     add_service,
 )
+from ggrmcp_tpu_torch.serving import tensors
 from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher, OverloadedError
-from ggrmcp_tpu_torch.serving.engine import GenerationEngine
-from ggrmcp_tpu_torch.serving.tokenizer import ByteTokenizer
+from ggrmcp_tpu_torch.serving.engine import EmbeddingEngine, GenerationEngine
+from ggrmcp_tpu_torch.serving.tokenizer import load_tokenizer
+from ggrmcp_tpu_torch.serving.weights import load_hf_checkpoint
 from ggrmcp_tpu_torch.utils.device import DeviceLike
 
 logger = logging.getLogger("ggrmcp.torch.sidecar")
 
-
-def _prompt_tensor_ids(proto: serving_pb2.Tensor) -> list[int]:
-    """An integer Tensor proto (raw little-endian bytes or int_values)
-    → a flat list of token ids."""
-    if proto.data:
-        dtype = {"int32": np.int32, "int64": np.int64}.get(proto.dtype)
-        if dtype is None:
-            raise ValueError(f"prompt_ids dtype {proto.dtype!r} is not int")
-        return np.frombuffer(proto.data, dtype=dtype).reshape(-1).tolist()
-    return [int(v) for v in proto.int_values]
+POOLINGS = ("mean", "cls", "max")
 
 
 class Sidecar:
-    """Owns the engine, the continuous batcher and the grpc.aio server.
-    `params`: this package's weights (models/convert.py); None draws
-    random weights from `seed` on the device."""
+    """Owns the engine (and, for generation, the continuous batcher) and
+    the grpc.aio server. `params`: this package's weights
+    (models/convert.py) for `serving.model`; None draws random weights
+    from `seed` on the device. With `serving.hf_checkpoint_path` the
+    architecture and the weights come from that checkpoint."""
 
     def __init__(
         self,
@@ -61,25 +60,86 @@ class Sidecar:
         device: DeviceLike = None,
     ):
         self.serving = serving or ServingConfig()
-        self.tokenizer = ByteTokenizer()
-        model_cfg = llama_mod.get_config(self.serving.model)
-        self.generation = GenerationEngine(
-            model_cfg, self.serving, params=params, seed=seed, device=device
-        )
-        self.batcher = ContinuousBatcher(
-            self.generation, self.serving.batching,
-            eos_id=self.tokenizer.eos_id,
-        )
+        self.tokenizer = load_tokenizer(self.serving.tokenizer_path)
+        self.generation: Optional[GenerationEngine] = None
+        self.embedding: Optional[EmbeddingEngine] = None
+        self.batcher: Optional[ContinuousBatcher] = None
+        if self.serving.hf_checkpoint_path:
+            if params is not None:
+                raise ValueError(
+                    "pass params or serving.hf_checkpoint_path, not both"
+                )
+            self.family = "llama"
+            model_cfg, params = load_hf_checkpoint(
+                self.serving.hf_checkpoint_path, device
+            )
+        else:
+            self.family, model_cfg = get_model(self.serving.model)
+        if self.family == "llama":
+            self.generation = GenerationEngine(
+                model_cfg, self.serving, params=params, seed=seed,
+                device=device,
+            )
+            self.batcher = ContinuousBatcher(
+                self.generation, self.serving.batching,
+                eos_id=self.tokenizer.eos_id,
+            )
+        else:
+            self.embedding = EmbeddingEngine(
+                model_cfg, params=params, seed=seed, device=device
+            )
         self.server: Optional[grpc.aio.Server] = None
         self.health = HealthService()
         self.port = 0
         self.target = ""
 
+    # -- EmbedService ---------------------------------------------------
+
+    async def embed(self, request: serving_pb2.EmbedRequest, context):
+        t0 = time.perf_counter()
+        has_token_ids = (
+            request.token_ids.shape
+            or request.token_ids.int_values
+            or request.token_ids.data
+        )
+        if has_token_ids:
+            ids = tensors.from_proto(request.token_ids).astype(np.int32)
+            token_lists = [
+                _strip_trailing_pads(row) for row in np.atleast_2d(ids)
+            ]
+        elif request.texts:
+            token_lists = [self.tokenizer.encode(t) for t in request.texts]
+        else:
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT, "texts or token_ids required"
+            )
+        token_lists = [t or [self.tokenizer.pad_id] for t in token_lists]
+        pooling = request.pooling or "mean"
+        if pooling not in POOLINGS:
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT,
+                f"unknown pooling {pooling!r}",
+            )
+        vectors = await asyncio.get_running_loop().run_in_executor(
+            None,
+            lambda: self.embedding.embed(
+                token_lists, pooling, request.max_length
+            ),
+        )
+        return serving_pb2.EmbedResponse(
+            embeddings=tensors.to_proto(vectors),
+            model_id=self.embedding.cfg.name,
+            compute_ms=(time.perf_counter() - t0) * 1000,
+        )
+
     # -- GenerateService ------------------------------------------------
 
     def _prompt_ids(self, request: serving_pb2.GenerateRequest) -> list[int]:
         if request.prompt_ids.shape or request.prompt_ids.int_values:
-            return _prompt_tensor_ids(request.prompt_ids)
+            return (
+                tensors.from_proto(request.prompt_ids)
+                .astype(np.int32).reshape(-1).tolist()
+            )
         if request.prompt:
             return [self.tokenizer.bos_id] + self.tokenizer.encode(
                 request.prompt
@@ -202,7 +262,7 @@ class Sidecar:
     # -- ModelInfoService -----------------------------------------------
 
     async def get_model_info(self, request, context):
-        info = self.generation.model_info()
+        info = (self.generation or self.embedding).model_info()
         return serving_pb2.ModelInfoResponse(
             model_id=info["model_id"],
             family=info["family"],
@@ -215,9 +275,13 @@ class Sidecar:
         )
 
     async def get_serving_stats(self, request, context):
-        """The batcher's counters; the kwargs construction fails loudly
-        if a stats() key drifts from the proto."""
-        stats = dict(self.batcher.stats())
+        """The batcher's counters; an embed-only sidecar has no batcher
+        and exports its weights' bytes alone. The kwargs construction
+        fails loudly if a stats() key drifts from the proto."""
+        if self.batcher is not None:
+            stats = dict(self.batcher.stats())
+        else:
+            stats = {"memory_weights_bytes": self.embedding.weight_bytes()}
         stats["role"] = "mixed"
         return serving_pb2.ServingStatsResponse(**stats)
 
@@ -225,21 +289,36 @@ class Sidecar:
 
     async def start(self, port: Optional[int] = None) -> int:
         self.server = grpc.aio.server()
-        services = ["ggrmcp.tpu.GenerateService", "ggrmcp.tpu.ModelInfoService"]
-        add_service(
-            self.server, "ggrmcp.tpu.GenerateService",
-            {
-                "Generate": MethodDef(
-                    self.generate,
-                    serving_pb2.GenerateRequest, serving_pb2.GenerateResponse,
-                ),
-                "GenerateStream": MethodDef(
-                    self.generate_stream,
-                    serving_pb2.GenerateRequest, serving_pb2.GenerateChunk,
-                    server_streaming=True,
-                ),
-            },
-        )
+        # Only the services of this model's family: a gateway pooling an
+        # embed sidecar and a generate sidecar must not see colliding
+        # tool names (discovery is name-keyed).
+        services = ["ggrmcp.tpu.ModelInfoService"]
+        if self.embedding is not None:
+            services.append("ggrmcp.tpu.EmbedService")
+            add_service(
+                self.server, "ggrmcp.tpu.EmbedService",
+                {"Embed": MethodDef(
+                    self.embed,
+                    serving_pb2.EmbedRequest, serving_pb2.EmbedResponse,
+                )},
+            )
+        if self.generation is not None:
+            services.append("ggrmcp.tpu.GenerateService")
+            add_service(
+                self.server, "ggrmcp.tpu.GenerateService",
+                {
+                    "Generate": MethodDef(
+                        self.generate,
+                        serving_pb2.GenerateRequest,
+                        serving_pb2.GenerateResponse,
+                    ),
+                    "GenerateStream": MethodDef(
+                        self.generate_stream,
+                        serving_pb2.GenerateRequest, serving_pb2.GenerateChunk,
+                        server_streaming=True,
+                    ),
+                },
+            )
         add_service(
             self.server, "ggrmcp.tpu.ModelInfoService",
             {
@@ -262,19 +341,23 @@ class Sidecar:
         self.target = f"localhost:{self.port}"
         # Build the kernels before accepting traffic (device-bound →
         # executor, not the event loop).
+        engine = self.generation or self.embedding
         await asyncio.get_running_loop().run_in_executor(
-            None, self.batcher.warmup
+            None, self.batcher.warmup if self.batcher else engine.warmup
         )
-        self.batcher.start()
+        if self.batcher is not None:
+            self.batcher.start()
         await self.server.start()
         logger.info(
-            "sidecar serving %s on %s (%s)", self.serving.model, self.target,
-            self.generation.device,
+            "sidecar serving %s (%s) on %s (%s), tokenizer %s",
+            engine.cfg.name, self.family, self.target, engine.device,
+            type(self.tokenizer).__name__,
         )
         return self.port
 
     async def stop(self) -> None:
-        await self.batcher.stop()
+        if self.batcher is not None:
+            await self.batcher.stop()
         if self.server is not None:
             await self.server.stop(grace=2.0)
 
@@ -291,3 +374,11 @@ def _apply_stops(text: str, stops: list[str], finish: str) -> tuple[str, str]:
     if cut >= 0:
         return text[:cut], "stop_string"
     return text, finish
+
+
+def _strip_trailing_pads(row: np.ndarray) -> list[int]:
+    """Strip only TRAILING zeros (padding); interior zeros are real ids."""
+    nonzero = np.nonzero(row)[0]
+    if len(nonzero) == 0:
+        return []
+    return row[: nonzero[-1] + 1].tolist()

@@ -1,7 +1,9 @@
 """The port on the card: the hand-written CUDA FlashAttention kernel
-against its plain PyTorch version, the wrapper's input checks, and the
-tiny-llama engine and continuous batcher on CUDA against the same code
-on the CPU (which takes the plain versions).
+against its plain PyTorch version (at the decoder's shapes and at the
+BERT encoder's), the wrapper's input checks, the tiny-llama engine and
+continuous batcher and the bert-tiny embedding engine on CUDA against
+the same code on the CPU (which takes the plain versions), and the
+safetensors reader and HF loader reading straight to the card.
 
 Every test needs an NVIDIA GPU with `nvcc` (the kernel has no CPU
 mode) and skips without one. This file imports no JAX, so it runs on a
@@ -17,17 +19,22 @@ for its P V product, which near-zero outputs see as atol 1e-2.
 """
 
 import asyncio
+import json
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from ggrmcp_tpu_torch.core.config import BatchingConfig
+from ggrmcp_tpu_torch.models import bert as tb
 from ggrmcp_tpu_torch.models import llama as tl
 from ggrmcp_tpu_torch.ops import attention as tatt
 from ggrmcp_tpu_torch.ops.sampling import SamplingConfig
+from ggrmcp_tpu_torch.serving import safetensors_io
 from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher
-from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+from ggrmcp_tpu_torch.serving.engine import EmbeddingEngine, GenerationEngine
+from ggrmcp_tpu_torch.serving.weights import load_hf_checkpoint
 
 pytestmark = pytest.mark.gpu
 
@@ -249,6 +256,88 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda, problem):
     with pytest.raises(ValueError):
         tatt.flash_attention(q, k, v, **kw)
     assert tatt.flash_attention.launches == before
+
+
+# The BERT encoder's calls: non-causal, D = 64, H = KVH (12 for
+# bert-base, a head count that is no power of two, and 3), per-row
+# kv_len with a dead row (kv_len 0), q/k/v split views of one fused
+# [B, S, 3 H D] projection. (name, b, s, h, kv_len)
+BERT_CASES = [
+    ("base_128", 4, 128, 12, [128, 17, 0, 100]),
+    ("base_300", 3, 300, 12, [300, 129, 0]),
+    ("h3_512", 2, 512, 3, [0, 511]),
+    ("base_32x64", 32, 64, 12, list(range(2, 66, 2))),
+]
+
+
+@pytest.mark.parametrize("name,b,s,h,kv_len", BERT_CASES,
+                         ids=[c[0] for c in BERT_CASES])
+def test_bert_shapes_kernel_matches_plain(cuda, name, b, s, h, kv_len):
+    g = torch.Generator(device="cpu").manual_seed(23)
+    qkv = torch.randn((b, s, 3 * h * 64), generator=g).to(cuda, torch.bfloat16)
+    q, k, v = (t.reshape(b, s, h, 64) for t in qkv.chunk(3, dim=-1))
+    assert not q.is_contiguous()
+    assert all(tatt._kernel_layout_ok(t) for t in (q, k, v))  # no copy
+    kw = dict(causal=False, kv_len=_i32(kv_len, cuda))
+    before = tatt.flash_attention.launches
+    out = tatt.attention(q, k, v, **kw)
+    ref = tatt.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tatt.flash_attention.launches == before + 1
+    _assert_close(out, ref)
+    for row, n in enumerate(kv_len):
+        if n == 0:
+            assert not out[row].any()
+
+
+def test_embedding_engine_on_card_matches_cpu(cuda):
+    """bert-tiny (float32): the CUDA engine, whose encoder runs the
+    kernel once a layer, gives the CPU engine's vectors."""
+    cfg = tb.CONFIGS["bert-tiny"]
+    params = tb.init_params(cfg, torch.device("cpu"), seed=5)
+    rng = np.random.default_rng(5)
+    lists = [rng.integers(1, 30522, n).tolist() for n in (5, 60, 1, 33)]
+    cpu = EmbeddingEngine(cfg, params=params, device="cpu")
+    gpu = EmbeddingEngine(cfg, params=_to(params, cuda), device=cuda)
+    for pooling in ("mean", "cls", "max"):
+        before = tatt.flash_attention.launches
+        out = gpu.embed(lists, pooling)
+        assert tatt.flash_attention.launches == before + cfg.num_layers
+        np.testing.assert_allclose(out, cpu.embed(lists, pooling), atol=1e-4,
+                                   rtol=0)
+
+
+def test_safetensors_read_straight_to_card(cuda, tmp_path):
+    """A bf16 file read onto the card bit for bit, and a small HF
+    checkpoint (two files under an index) loaded onto the card equal to
+    the same load on the CPU."""
+    g = torch.Generator().manual_seed(2)
+    tensors = {"w": torch.randn((64, 48), generator=g).to(torch.bfloat16),
+               "b": torch.randn((48,), generator=g).to(torch.bfloat16)}
+    path = str(tmp_path / "w.safetensors")
+    chip_smoke.write_safetensors(path, tensors)
+    with safetensors_io.SafetensorsFile(path) as f:
+        for name, t in tensors.items():
+            got = f.read(name, cuda)
+            assert got.is_cuda and torch.equal(got.cpu(), t), name
+
+    hf = dict(chip_smoke.HF_CONFIG, vocab_size=512, hidden_size=256,
+              intermediate_size=704, num_attention_heads=8,
+              num_key_value_heads=4)
+    ckpt = tmp_path / "ck"
+    ckpt.mkdir()
+    chip_smoke.write_hf_checkpoint(str(ckpt), hf, torch, cuda, seed=4)
+    with open(ckpt / "model.safetensors.index.json") as fh:
+        assert len(set(json.load(fh)["weight_map"].values())) == 2
+    cfg, on_card = load_hf_checkpoint(str(ckpt), cuda)
+    _, on_cpu = load_hf_checkpoint(str(ckpt), "cpu")
+    assert cfg.rope_scaling == (8.0, 1.0, 4.0, 8192.0)
+    for key, val in on_cpu.items():
+        pairs = val.items() if isinstance(val, dict) else [(key, val)]
+        mine = on_card[key]
+        for name, t in pairs:
+            got = mine[name] if isinstance(val, dict) else mine
+            assert got.is_cuda and torch.equal(got.cpu(), t), name
 
 
 def _to(params, device):

@@ -177,7 +177,7 @@ async def test_overloaded_past_max_pending(engines):
      ("batching", "queue_deadline_ms", 100.0),
      ("batching", "p50_budget_ms", 50.0),
      ("serving", "kv_cache_dtype", "int8"), ("serving", "quantize", "int8"),
-     ("serving", "tokenizer_path", "tok.json")],
+     ("serving", "checkpoint_path", "ckpt")],
 )
 def test_unsupported_config_raises(kind, field, value):
     cls = BatchingConfig if kind == "batching" else ServingConfig
