@@ -35,7 +35,21 @@ Phases, any failure exits non-zero and prints no result:
    written in two safetensors files under an index, loads onto the card
    bit for bit with bounded host memory, and a sidecar started on it
    answers a greedy Generate with the tokens of an engine on the loaded
-   weights.
+   weights; the same with `quantize="int8"`, whose leaves must equal the
+   port's `quantize` of the loaded tensors bit for bit;
+8. int8: (a) llama3-8b's seeded bf16 weights quantized through the
+   engine's path (bytes, peak memory, one layer's `quantize` bitwise
+   against the CPU), a [32, 512] prefill on int8 against bf16 weights
+   (cosine >= 0.999, the reference's bound) and against the int8
+   weights in float32; (b) a sidecar on int8 weights with a bf16 KV
+   cache serves a burst through both admission routes (the kernel must
+   launch); (c) the same with an int8 KV cache (the kernel must not
+   launch; the pool at most 0.52 of the bf16 one; prefill + decode
+   within 5 % of the bf16 cache, the reference's bound); (d) the
+   synthetic-weight engine's init stays below 1.1x its int8 bytes, and a
+   sidecar on synthetic weights serves the same burst; (e) the eager
+   dequantizing GEMM, its int8 -> bf16 cast alone and the decode step
+   against bf16, timed.
 
 The last lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -355,6 +369,7 @@ def full_width_reference(torch, tatt, llama_mod, params, cfg, dev) -> dict:
         kernel_attention = llama_mod.attention
 
         def plain(q, k, v, **kw):
+            kw.pop("use_flash", None)
             if kw.get("k_positions") is None and q.shape[1] > \
                     tatt.GQA_GROUPED_MAX_SQ:
                 kw.pop("k_positions", None)
@@ -815,6 +830,7 @@ async def hf_phase(torch, tatt, dev) -> dict:
     import grpc.aio
 
     from ggrmcp_tpu_torch.core.config import ServingConfig
+    from ggrmcp_tpu_torch.ops import quant as tq
     from ggrmcp_tpu_torch.rpc.pb import serving_pb2
     from ggrmcp_tpu_torch.serving.engine import GenerationEngine
     from ggrmcp_tpu_torch.serving.sidecar import Sidecar
@@ -852,35 +868,430 @@ async def hf_phase(torch, tatt, dev) -> dict:
         # The sidecar loads the same directory itself; its greedy tokens
         # must be those of an engine on the params loaded above.
         prompt = _prompt_text(60, 11)
-        tatt.flash_attention.launches = 0
-        sidecar = Sidecar(ServingConfig(hf_checkpoint_path=path), device=dev)
-        port = await sidecar.start(0)
-        try:
-            async with grpc.aio.insecure_channel(f"localhost:{port}") as ch:
-                generate = ch.unary_unary(
-                    "/ggrmcp.tpu.GenerateService/Generate",
-                    request_serializer=serving_pb2.GenerateRequest
-                    .SerializeToString,
-                    response_deserializer=serving_pb2.GenerateResponse
-                    .FromString)
-                resp = await generate(serving_pb2.GenerateRequest(
-                    prompt=prompt, max_new_tokens=HF_NEW_TOKENS,
-                    return_tokens=True), timeout=600)
-        finally:
-            await sidecar.stop()
-        torch.cuda.synchronize()
-        res["launches"] = tatt.flash_attention.launches
+        tok = [1] + [b + 3 for b in prompt.encode()]
+
+        async def serve(**fields):
+            """Start a sidecar on the directory, one greedy Generate of
+            `prompt`; returns (sidecar, token ids, kernel launches)."""
+            tatt.flash_attention.launches = 0
+            sidecar = Sidecar(ServingConfig(hf_checkpoint_path=path, **fields),
+                              device=dev)
+            port = await sidecar.start(0)
+            try:
+                async with grpc.aio.insecure_channel(
+                        f"localhost:{port}") as ch:
+                    generate = ch.unary_unary(
+                        "/ggrmcp.tpu.GenerateService/Generate",
+                        request_serializer=serving_pb2.GenerateRequest
+                        .SerializeToString,
+                        response_deserializer=serving_pb2.GenerateResponse
+                        .FromString)
+                    resp = await generate(serving_pb2.GenerateRequest(
+                        prompt=prompt, max_new_tokens=HF_NEW_TOKENS,
+                        return_tokens=True), timeout=600)
+            finally:
+                await sidecar.stop()
+            torch.cuda.synchronize()
+            return sidecar, list(resp.token_ids), tatt.flash_attention.launches
+
+        sidecar, res["tokens"], res["launches"] = await serve()
         check(res["launches"] > 0, "the HF sidecar never launched the kernel")
         check(torch.equal(sidecar.generation.params["layers"]["wqkv"],
                           params["layers"]["wqkv"]),
               "the sidecar's weights differ from the loaded ones")
         del sidecar
-        tok = [1] + [b + 3 for b in prompt.encode()]
         ref, _ = GenerationEngine(cfg, params=params, device=dev).generate(
             [tok], HF_NEW_TOKENS, eos_id=2)
-        res["tokens"] = list(resp.token_ids)
         check(res["tokens"] == ref[0],
               f"HF sidecar tokens {res['tokens']} != engine's {ref[0]}")
+
+        # quantize="int8": the loaded weights reach the engine dense and
+        # are quantized there, bit for bit the port's `quantize`.
+        want = tq.quantize_model(params)
+        sidecar, res["int8_tokens"], res["int8_launches"] = await serve(
+            quantize="int8")
+        check(res["int8_launches"] > 0,
+              "the int8 HF sidecar never launched the kernel")
+        _check_quantized(torch, tq, sidecar.generation.params, want)
+        del sidecar, params
+        ref, _ = GenerationEngine(cfg, params=want, device=dev).generate(
+            [tok], HF_NEW_TOKENS, eos_id=2)
+        check(res["int8_tokens"] == ref[0],
+              f"int8 HF sidecar tokens {res['int8_tokens']} != engine's "
+              f"{ref[0]}")
+    return res
+
+
+def _check_quantized(torch, tq, got, want) -> None:
+    """Every leaf of `got` equals `want`'s bit for bit: int8 values and
+    bf16 scales of the quantized leaves, the dense ones as they are."""
+    def leaves(tree, prefix=""):
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                yield from leaves(value, f"{prefix}{key}/")
+            else:
+                yield prefix + key, value
+
+    mine = dict(leaves(got))
+    for name, leaf in leaves(want):
+        other = mine[name]
+        if isinstance(leaf, tq.QuantizedTensor):
+            check(isinstance(other, tq.QuantizedTensor)
+                  and other.q.dtype == torch.int8
+                  and other.scale.dtype == leaf.scale.dtype
+                  and torch.equal(other.q, leaf.q)
+                  and torch.equal(other.scale, leaf.scale),
+                  f"quantized {name} differs from quantize() of the dense "
+                  f"leaf")
+        else:
+            check(torch.equal(other, leaf), f"dense {name} differs")
+
+
+# -- phase 8: int8 ------------------------------------------------------------
+
+# int8 against bf16 weights, last-position logits: the reference's bound
+# (tests/test_quant.py), least row cosine.
+INT8_MIN_COSINE = 0.999
+# int8 against bf16 KV cache: the reference's bound (tests/test_kv_quant.py),
+# max |difference| over max |bf16 logit|.
+INT8_KV_MAX_REL = 0.05
+INT8_PROMPT_TOKENS = (40, 500, 700, 3000)
+INT8_NEW_TOKENS = 16
+# The decode GEMM: 32 slots through llama3-8b's gate projection.
+GEMM_SHAPE = (32, 4096, 14336)
+
+
+def _row_cosine(a, b):
+    a, b = a.double(), b.double()
+    return (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+
+
+def _prefill_last(torch, engine, params, tokens, cache_len: int):
+    """A fresh [B, S] prefill through the engine's admission body: (the
+    last position's logits [B, V], the cache)."""
+    b, s = tokens.shape
+    true_len = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+    with torch.no_grad():
+        return engine._prefill_impl(params, tokens, true_len,
+                                    engine.make_cache(b, cache_len))
+
+
+def _decode_step_ms(torch, engine, params, cache) -> dict:
+    """Device time of one decode step of every row of `cache`, always
+    at the same cache length (median, min, max of 5 runs of 5 steps)."""
+    b = cache.length.shape[0]
+    length = cache.length
+    cur = torch.full((b, 1), 7, dtype=torch.long, device=length.device)
+
+    def step():
+        cache.length = length
+        engine.decode_forward(params, cur, cache)
+
+    with torch.no_grad():
+        return cuda_ms_spread(torch, step, runs=5, reps=5)
+
+
+def int8_weights_phase(torch, dev) -> dict:
+    """(a) llama3-8b's seeded bf16 weights, quantized through the
+    engine's path; bf16 / int8 / float32-int8 prefills compared; (e)'s
+    decode steps."""
+    import dataclasses
+
+    from ggrmcp_tpu_torch.core.config import ServingConfig
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.ops import quant as tq
+    from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+
+    cfg = llama_mod.CONFIGS[MODEL]
+    res: dict = {}
+    params = llama_mod.init_params(cfg, dev, SEED)
+    dense = GenerationEngine(cfg, params=params, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    tokens = torch.randint(3, cfg.vocab_size, (32, 512), generator=gen,
+                           device=dev)
+    last_bf16, cache = _prefill_last(torch, dense, params, tokens, 1024)
+    res["decode_step_ms_bf16"] = _decode_step_ms(torch, dense, params, cache)
+    del cache
+
+    # One layer's w_gate quantized on the card and on the CPU, bit for
+    # bit: as stored (bf16) and widened to float32, whose scales are kept
+    # unrounded.
+    for w in (params["layers"]["w_gate"][0],
+              params["layers"]["w_gate"][0].float()):
+        on_card, on_cpu = tq.quantize(w), tq.quantize(w.cpu())
+        same = bool(torch.equal(on_card.q.cpu(), on_cpu.q)
+                    and torch.equal(on_card.scale.cpu(), on_cpu.scale))
+        res[f"layer_quantize_bitwise_{str(w.dtype)[6:]}"] = same
+        check(same, f"quantize of w_gate[0] ({w.dtype}) on the card "
+              f"differs from the CPU's")
+    del w, on_card, on_cpu
+
+    res["bf16_weight_bytes"] = dense.weight_bytes()
+    del dense
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    engine = GenerationEngine(cfg, ServingConfig(model=MODEL, quantize="int8"),
+                              params=params, device=dev)
+    torch.cuda.synchronize()
+    res["quantize_s"] = time.perf_counter() - t
+    res["quantize_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["quantize_peak_over_start_gb"] = (
+        torch.cuda.max_memory_allocated() - start) / 1e9
+    res["int8_weight_bytes"] = engine.weight_bytes()
+    res["weight_ratio"] = res["int8_weight_bytes"] / res["bf16_weight_bytes"]
+
+    last_int8, cache = _prefill_last(torch, engine, params, tokens, 1024)
+    res["decode_step_ms_int8"] = _decode_step_ms(torch, engine, params, cache)
+    del cache, engine
+
+    # The int8 model in float32 (int8 x bf16 scale is exact in float32),
+    # every attention on the plain path: how far each bf16 run lies from
+    # the int8 weights computed without rounding.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+
+    def widen(leaf):
+        if isinstance(leaf, tq.QuantizedTensor):
+            return leaf.q.float() * leaf.scale.float()
+        return leaf.float()
+
+    params32 = {k: ({n: widen(t) for n, t in v.items()}
+                    if isinstance(v, dict) else widen(v))
+                for k, v in params.items()}
+    del params
+    gc.collect()
+    with torch.no_grad():
+        logits32, _ = llama_mod.forward(params32, cfg32, tokens,
+                                        use_flash=False)
+    last_f32 = logits32[:, -1].clone()
+    del logits32, params32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cos = _row_cosine(last_int8, last_bf16)
+    res["min_cosine_int8_vs_bf16"] = cos.min().item()
+    res["top1_agree_int8_vs_bf16"] = (
+        last_int8.argmax(-1) == last_bf16.argmax(-1)).float().mean().item()
+    res["min_cosine_int8_vs_f32_int8"] = _row_cosine(
+        last_int8, last_f32).min().item()
+    res["min_cosine_bf16_vs_f32_int8"] = _row_cosine(
+        last_bf16, last_f32).min().item()
+    check(bool(torch.isfinite(last_int8).all()), "int8 logits not finite")
+    log(f"  (a) {json.dumps(res)}")
+    check(res["weight_ratio"] <= 0.51,
+          f"int8 weights are {res['weight_ratio']:.4f} of bf16, not <= 0.51")
+    check(res["min_cosine_int8_vs_bf16"] >= INT8_MIN_COSINE,
+          f"int8 vs bf16 logits: least row cosine "
+          f"{res['min_cosine_int8_vs_bf16']} < {INT8_MIN_COSINE}")
+
+    # (e) the eager dequantizing GEMM at the decode shape.
+    m, k, n = GEMM_SHAPE
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((k, n), generator=gen, device=dev) * 0.02).to(
+        torch.bfloat16)
+    qw = tq.quantize(w)
+    int8_t = cuda_ms_spread(torch, lambda: tq.matmul(x, qw))
+    bf16_t = cuda_ms_spread(torch, lambda: x @ w)
+    cast_t = cuda_ms_spread(torch, lambda: qw.q.to(torch.bfloat16))
+    io = 2 * m * k + 2 * m * n  # x read, the output written
+    # int8 path: q read (1 B), its bf16 cast written and read (2 + 2 B).
+    res["gemm"] = dict(
+        shape=list(GEMM_SHAPE), int8=int8_t, bf16=bf16_t, cast=cast_t,
+        cast_bound_ms=3 * k * n / PEAK_BYTES * 1e3,
+        int8_bound_ms=(5 * k * n + io + 2 * n) / PEAK_BYTES * 1e3,
+        bf16_bound_ms=(2 * k * n + io) / PEAK_BYTES * 1e3,
+        flop_bound_ms=2 * m * k * n / PEAK_FLOPS["bfloat16"] * 1e3)
+    log(f"  (e) gemm {json.dumps(res['gemm'])}")
+    del x, w, qw
+    torch.cuda.empty_cache()
+    return res
+
+
+async def _int8_serve(torch, tatt, dev, **fields):
+    """A llama3-8b sidecar with `fields`: TTFT alone at 40 / 500 / 3000
+    tokens, a concurrent burst across both admission routes, a repeated
+    greedy prompt, GetModelInfo and GetServingStats. Returns (results,
+    the stopped sidecar)."""
+    import grpc.aio
+
+    from ggrmcp_tpu_torch.core.config import ServingConfig
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.rpc.pb import serving_pb2
+    from ggrmcp_tpu_torch.serving.sidecar import Sidecar
+
+    vocab = llama_mod.CONFIGS[MODEL].vocab_size
+    torch.cuda.reset_peak_memory_stats()
+    sidecar = Sidecar(ServingConfig(model=MODEL, **fields), seed=SEED,
+                      device=dev)
+    # The main path's run starts here: every launch count from 0.
+    tatt.flash_attention.launches = 0
+    port = await sidecar.start(0)
+    res: dict = dict(weights_gb=sidecar.generation.weight_bytes() / 1e9)
+    try:
+        async with grpc.aio.insecure_channel(f"localhost:{port}") as ch:
+            def unary(method, req, resp):
+                return ch.unary_unary(
+                    method, request_serializer=req.SerializeToString,
+                    response_deserializer=resp.FromString)
+            generate = unary("/ggrmcp.tpu.GenerateService/Generate",
+                             serving_pb2.GenerateRequest,
+                             serving_pb2.GenerateResponse)
+            info_rpc = unary("/ggrmcp.tpu.ModelInfoService/GetModelInfo",
+                             serving_pb2.ModelInfoRequest,
+                             serving_pb2.ModelInfoResponse)
+            stats_rpc = unary("/ggrmcp.tpu.ModelInfoService/GetServingStats",
+                              serving_pb2.ServingStatsRequest,
+                              serving_pb2.ServingStatsResponse)
+
+            def request(n_tokens, seed, max_new=INT8_NEW_TOKENS):
+                return serving_pb2.GenerateRequest(
+                    prompt=_prompt_text(n_tokens, seed),
+                    max_new_tokens=max_new, return_tokens=True)
+
+            async def timed(req):
+                t = time.perf_counter()
+                resp = await generate(req, timeout=600)
+                return resp, (time.perf_counter() - t) * 1e3
+
+            _, res["first_call_ms"] = await timed(request(40, 99, max_new=2))
+            res["ttft_ms"] = {}
+            for n in (40, 500, 3000):
+                _, res["ttft_ms"][n] = await timed(request(n, 100 + n, 1))
+
+            t = time.perf_counter()
+            burst = await asyncio.gather(*(
+                timed(request(n, i)) for i, n in enumerate(INT8_PROMPT_TOKENS)))
+            wall = time.perf_counter() - t
+            tokens = 0
+            for n, (resp, _) in zip(INT8_PROMPT_TOKENS, burst):
+                ids = list(resp.token_ids)
+                check(resp.prompt_tokens == n,
+                      f"prompt of {n} tokens arrived as {resp.prompt_tokens}")
+                check(1 <= len(ids) == resp.completion_tokens
+                      <= INT8_NEW_TOKENS, f"bad completion for {n}: {resp}")
+                check(all(0 <= i < vocab for i in ids),
+                      f"out-of-vocab token for prompt {n}")
+                check(resp.finish_reason in ("length", "stop"),
+                      f"finish {resp.finish_reason!r} for prompt {n}")
+                tokens += len(ids)
+            res["burst"] = dict(
+                wall_s=wall, tokens=tokens, tok_per_s=tokens / wall,
+                latency_ms={n: ms for n, (_, ms) in
+                            zip(INT8_PROMPT_TOKENS, burst)})
+
+            again = [await generate(request(500, 0)) for _ in range(2)]
+            check(list(again[0].token_ids) == list(again[1].token_ids)
+                  and len(again[0].token_ids) > 0,
+                  "the same greedy prompt gave different tokens")
+
+            info = await info_rpc(serving_pb2.ModelInfoRequest())
+            check(info.model_id == MODEL and info.platform == "cuda",
+                  f"model info {info}")
+            res["num_params_million"] = info.num_params_million
+            stats = await stats_rpc(serving_pb2.ServingStatsRequest())
+            res["stats"] = dict(
+                kv_cache_bytes=stats.kv_cache_bytes,
+                memory_weights_bytes=stats.memory_weights_bytes,
+                decode_stall_ms_p50=stats.decode_stall_ms_p50,
+                ticks=stats.ticks, admit_ms_max=stats.admit_ms_max)
+        batcher = sidecar.batcher
+        check(batcher.fused_admissions > 0 and batcher.chunked_admissions > 0,
+              "the burst did not run both admission routes")
+    finally:
+        await sidecar.stop()
+    torch.cuda.synchronize()
+    res["launches"] = tatt.flash_attention.launches
+    res["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res, sidecar
+
+
+def _kv_int8_accuracy(torch, dev, params) -> dict:
+    """One [8, 256] prefill and one decode step through an int8 cache
+    against a bf16 cache, on the same int8 weights."""
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+
+    cfg = llama_mod.CONFIGS[MODEL]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    tokens = torch.randint(3, cfg.vocab_size, (8, 256), generator=gen,
+                           device=dev)
+    step = torch.randint(3, cfg.vocab_size, (8, 1), generator=gen, device=dev)
+    outs = {}
+    with torch.no_grad():
+        for kv in ("", "int8"):
+            cache = llama_mod.KVCache.create(cfg, 8, 512, dev, kv)
+            prefill, cache = llama_mod.forward(params, cfg, tokens, cache)
+            decode, _ = llama_mod.forward(params, cfg, step, cache)
+            outs[kv] = (prefill[:, -1].clone(), decode[:, -1])
+            del prefill, cache
+    rel = [((a - b).abs().max() / a.abs().max()).item()
+           for a, b in zip(outs[""], outs["int8"])]
+    return dict(prefill_rel=rel[0], decode_rel=rel[1])
+
+
+async def int8_phase(torch, tatt, dev) -> dict:
+    from ggrmcp_tpu_torch.core.config import ServingConfig
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+
+    res: dict = dict(weights=int8_weights_phase(torch, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    b, sidecar = await _int8_serve(torch, tatt, dev, quantize="int8")
+    del sidecar
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (b) int8 weights, bf16 KV: {json.dumps(b)}")
+    check(b["launches"] > 0, "(b) never launched the kernel")
+    res["bf16_kv"] = b
+
+    c, sidecar = await _int8_serve(torch, tatt, dev, quantize="int8",
+                                   kv_cache_dtype="int8")
+    params = sidecar.generation.params
+    del sidecar
+    gc.collect()
+    torch.cuda.empty_cache()
+    c["accuracy"] = _kv_int8_accuracy(torch, dev, params)
+    del params
+    c["kv_ratio"] = (c["stats"]["kv_cache_bytes"]
+                     / b["stats"]["kv_cache_bytes"])
+    log(f"  (c) int8 weights, int8 KV: {json.dumps(c)}")
+    check(c["launches"] == 0,
+          f"(c) launched the kernel {c['launches']} times on int8 KV")
+    check(c["kv_ratio"] <= 0.52,
+          f"(c) int8 KV pool is {c['kv_ratio']:.4f} of bf16, not <= 0.52")
+    for key in ("prefill_rel", "decode_rel"):
+        check(c["accuracy"][key] < INT8_KV_MAX_REL,
+              f"(c) int8 vs bf16 cache {key} {c['accuracy'][key]} >= "
+              f"{INT8_KV_MAX_REL}")
+    res["int8_kv"] = c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) synthetic int8 weights: the engine alone (the batcher's pool
+    # would count), then one Generate through a sidecar.
+    synthetic = dict(quantize="int8", synthetic_weights=True)
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    engine = GenerationEngine(llama_mod.CONFIGS[MODEL],
+                              ServingConfig(model=MODEL, **synthetic),
+                              seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    d = dict(init_peak_gb=(torch.cuda.max_memory_allocated() - start) / 1e9,
+             int8_weight_gb=engine.weight_bytes() / 1e9)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    d["peak_over_weights"] = d["init_peak_gb"] / d["int8_weight_gb"]
+    check(d["peak_over_weights"] < 1.1,
+          f"(d) synthetic init peak {d['init_peak_gb']:.3f} GB is "
+          f"{d['peak_over_weights']:.3f}x its int8 weights, not < 1.1x")
+    d["serve"], sidecar = await _int8_serve(torch, tatt, dev, **synthetic)
+    del sidecar
+    log(f"  (d) synthetic: {json.dumps(d)}")
+    res["synthetic"] = d
     return res
 
 
@@ -915,37 +1326,42 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         card = card_line()
-        log(f"[1/7] card: {card}; torch {torch.__version__}, CUDA "
+        log(f"[1/8] card: {card}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
         t = time.perf_counter()
         _build.load("flash_attention")
-        log(f"[2/7] build: flash_attention.cu in "
+        log(f"[2/8] build: flash_attention.cu in "
             f"{time.perf_counter() - t:.1f} s")
         ptxas_report(_build.build_log.get("flash_attention", ""))
 
-        log(f"[3/7] kernel vs plain (|err| <= atol + rtol |plain|: {TOL})")
+        log(f"[3/8] kernel vs plain (|err| <= atol + rtol |plain|: {TOL})")
         cases = kernel_cases(torch, tatt, dev)
 
-        log("[4/7] reference: tiny-llama on the card vs the CPU")
+        log("[4/8] reference: tiny-llama on the card vs the CPU")
         ref = tiny_reference(torch, dev)
         log(f"  {ref}")
 
-        log(f"[5/7] serve: {MODEL} sidecar, default batching")
+        log(f"[5/8] serve: {MODEL} sidecar, default batching")
         serve = asyncio.run(serve_phase(torch, tatt, dev))
         log(f"  {json.dumps(serve)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[6/7] embed: {EMBED_MODEL} sidecar")
+        log(f"[6/8] embed: {EMBED_MODEL} sidecar")
         embed = asyncio.run(embed_phase(torch, tatt, dev))
         log(f"  {json.dumps(embed)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log("[7/7] HF checkpoint: llama3-8b width, 2 layers, 2 files")
+        log("[7/8] HF checkpoint: llama3-8b width, 2 layers, 2 files")
         hf = asyncio.run(hf_phase(torch, tatt, dev))
         log(f"  {json.dumps(hf)}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log(f"[8/8] int8: {MODEL} weights and KV cache")
+        int8 = asyncio.run(int8_phase(torch, tatt, dev))
     except SmokeError as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
@@ -956,7 +1372,9 @@ def main() -> int:
         source="ggrmcp_tpu_torch/ops/csrc/flash_attention.cu",
         replaces="ggrmcp_tpu/ops/attention.py:286",
         launches=serve["launches"], embed_launches=embed["launches"],
-        hf_launches=hf["launches"],
+        hf_launches=hf["launches"], hf_int8_launches=hf["int8_launches"],
+        int8_launches=int8["bf16_kv"]["launches"],
+        int8_kv_launches=int8["int8_kv"]["launches"],
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],

@@ -4,14 +4,20 @@
 reads, under the reference's names and defaults
 (`ggrmcp_tpu/core/config.py`). Fields of features the port does not
 implement yet are carried only as guards: a non-default value raises
-ValueError naming the field, never silently ignored.
+ValueError naming the field, never silently ignored. `load_serving_config`
+reads the reference's JSON config file layout (everything under
+"serving") into these classes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any
+
+# Weight and KV-cache quantization modes ("" = the model dtype).
+QUANTIZE_MODES = ("", "int8")
 
 
 def _check_unsupported(obj: Any, names: tuple[str, ...], where: str) -> None:
@@ -99,23 +105,83 @@ class ServingConfig:
     hf_checkpoint_path: str = ""
     # HF tokenizer.json (needs the `tokenizers` package); "" = bytes.
     tokenizer_path: str = ""
+    # Int8 weights ("" | "int8"), quantized by the engine at load.
+    quantize: str = ""
+    # Int8 KV cache ("" = the model dtype | "int8").
+    kv_cache_dtype: str = ""
+    # Random int8 weights drawn directly (perf staging; needs int8).
+    synthetic_weights: bool = False
     # Guards: reference features not ported yet.
     role: str = "mixed"
     uds_path: str = ""
     checkpoint_path: str = ""
-    quantize: str = ""
-    kv_cache_dtype: str = ""
-    synthetic_weights: bool = False
     kv_ring: bool = False
     speculative_draft: str = ""
     failpoints: str = ""
 
     UNSUPPORTED = (
-        "role", "uds_path", "checkpoint_path", "quantize", "kv_cache_dtype",
-        "synthetic_weights", "kv_ring", "speculative_draft", "failpoints",
+        "role", "uds_path", "checkpoint_path", "kv_ring", "speculative_draft",
+        "failpoints",
     )
 
     def __post_init__(self) -> None:
         _check_unsupported(self, self.UNSUPPORTED, "serving")
         if not isinstance(self.batching, BatchingConfig):
             raise ValueError("serving.batching must be a BatchingConfig")
+        # The reference's checks (Config.validate), at construction.
+        if self.quantize not in QUANTIZE_MODES:
+            raise ValueError(
+                f"unknown serving.quantize {self.quantize!r}; "
+                f"supported: 'int8'"
+            )
+        if self.kv_cache_dtype not in QUANTIZE_MODES:
+            raise ValueError(
+                f"unknown serving.kv_cache_dtype {self.kv_cache_dtype!r}; "
+                f"supported: 'int8'"
+            )
+        if self.synthetic_weights:
+            if self.quantize != "int8":
+                raise ValueError(
+                    "serving.synthetic_weights initializes the int8 weight "
+                    "structure; it requires quantize='int8'"
+                )
+            if self.checkpoint_path or self.hf_checkpoint_path:
+                raise ValueError(
+                    "serving.synthetic_weights is random-weight perf "
+                    "staging; it cannot combine with a checkpoint"
+                )
+
+
+def _from_dict(cls, data: Any, where: str, nested: dict):
+    if not isinstance(data, dict):
+        raise ValueError(f"{where} must be an object, not {data!r}")
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(data) - names)
+    if unknown:
+        raise ValueError(f"{where}: unknown keys {unknown}")
+    kwargs = dict(data)
+    for key, sub in nested.items():
+        if key in kwargs:
+            kwargs[key] = _from_dict(sub, kwargs[key], f"{where}.{key}", {})
+    return cls(**kwargs)
+
+
+def serving_config_from_dict(data: dict) -> ServingConfig:
+    """{"serving": {..., "batching": {...}}} → ServingConfig. Any key
+    these classes do not carry raises ValueError naming it."""
+    if not isinstance(data, dict):
+        raise ValueError("a config file holds one JSON object")
+    unknown = sorted(set(data) - {"serving"})
+    if unknown:
+        raise ValueError(
+            f"config: unknown top-level keys {unknown}; the sidecar's "
+            f"settings nest under \"serving\""
+        )
+    return _from_dict(ServingConfig, data.get("serving", {}), "serving",
+                      {"batching": BatchingConfig})
+
+
+def load_serving_config(path: str) -> ServingConfig:
+    """A JSON config file in the reference's layout → ServingConfig."""
+    with open(path) as fh:
+        return serving_config_from_dict(json.load(fh))

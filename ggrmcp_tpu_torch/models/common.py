@@ -14,6 +14,8 @@ from typing import Any
 
 import torch
 
+from ggrmcp_tpu_torch.ops.quant import QuantizedTensor
+
 Params = dict[str, Any]
 
 _DTYPES = {
@@ -103,9 +105,14 @@ def init_stacked(
 
 
 def _leaves(params: Params):
+    """Every tensor of the tree; a quantized leaf gives its q and its
+    scale, as the reference's pytree leaves do."""
     for value in params.values():
         if isinstance(value, dict):
             yield from _leaves(value)
+        elif isinstance(value, QuantizedTensor):
+            yield value.q
+            yield value.scale
         else:
             yield value
 

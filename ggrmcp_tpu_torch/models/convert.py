@@ -5,7 +5,9 @@ caller has turned every leaf into a numpy array (for a JAX tree:
 `jax.tree.map(np.asarray, params)`) and returns this package's dict of
 tensors, for either family (a Llama or a BERT tree). Both packages use
 the same stacked [L, in, out] layout (models/llama.py, models/bert.py),
-so no leaf is transposed or reshaped.
+so no leaf is transposed or reshaped. A quantized leaf of the reference
+(a namedtuple with fields `q` and `scale`, which `jax.tree.map` keeps)
+becomes a `QuantizedTensor`, its int8 values kept int8.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from ggrmcp_tpu_torch.ops.quant import QuantizedTensor
 
 
 def _leaf(a: Any, device: torch.device, dtype: Optional[torch.dtype]):
@@ -28,16 +32,27 @@ def _leaf(a: Any, device: torch.device, dtype: Optional[torch.dtype]):
     return t.to(device)
 
 
+def _is_quantized(value: Any) -> bool:
+    return isinstance(value, tuple) and getattr(value, "_fields", None) == (
+        "q", "scale"
+    )
+
+
 def params_from_numpy(
     tree: dict, device, dtype: Optional[torch.dtype] = None
 ) -> dict:
     """Nested dict of numpy arrays → the same nesting of tensors on
-    `device`; floating leaves cast to `dtype` when given."""
+    `device`; floating leaves (a quantized leaf's scale too) cast to
+    `dtype` when given."""
     dev = torch.device(device)
-    return {
-        key: (
-            params_from_numpy(value, dev, dtype) if isinstance(value, dict)
-            else _leaf(value, dev, dtype)
-        )
-        for key, value in tree.items()
-    }
+
+    def convert(value):
+        if isinstance(value, dict):
+            return params_from_numpy(value, dev, dtype)
+        if _is_quantized(value):
+            return QuantizedTensor(
+                q=_leaf(value.q, dev, None), scale=_leaf(value.scale, dev, dtype)
+            )
+        return _leaf(value, dev, dtype)
+
+    return {key: convert(value) for key, value in tree.items()}

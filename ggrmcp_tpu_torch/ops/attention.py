@@ -15,7 +15,8 @@ head_dim]; K/V may carry fewer (KV) heads (GQA).
 - `attention` — the dispatcher: every query longer than
   GQA_GROUPED_MAX_SQ without ring positions (every admission prefill
   and chunk) goes to `flash_attention`; decode stays on `attention_ref`,
-  as decode never reaches Pallas in the reference.
+  as decode never reaches Pallas in the reference. `use_flash=False`
+  (the int8 KV cache) sends everything to `attention_ref`.
 """
 
 from __future__ import annotations
@@ -302,13 +303,20 @@ def attention(
     kv_len: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
     k_positions: Optional[torch.Tensor] = None,
+    use_flash: Optional[bool] = None,
 ) -> torch.Tensor:
-    """Prefill-shaped queries (sq > GQA_GROUPED_MAX_SQ) without ring
-    positions take `flash_attention` — the kernel on a CUDA tensor, its
-    plain version on a CPU tensor; everything else takes
+    """`use_flash=None` (auto): prefill-shaped queries (sq >
+    GQA_GROUPED_MAX_SQ) take `flash_attention` — the kernel on a CUDA
+    tensor, its plain version on a CPU tensor; everything else takes
     `attention_ref`. No minimum length: the H100 crossover is not
-    measured yet."""
-    if k_positions is None and q.shape[1] > GQA_GROUPED_MAX_SQ:
+    measured yet. `use_flash=False` forces `attention_ref` (the int8 KV
+    cache's path, as in the reference), True forces `flash_attention`.
+    Ring positions (`k_positions`) always take `attention_ref`."""
+    if k_positions is not None:
+        use_flash = False
+    if use_flash is None:
+        use_flash = q.shape[1] > GQA_GROUPED_MAX_SQ
+    if use_flash:
         return flash_attention(
             q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
             window=window,

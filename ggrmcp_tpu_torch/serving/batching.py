@@ -18,6 +18,9 @@ Device work runs in the default executor (never on the event loop),
 one call at a time. Paged KV, the prefix pool, interleave, speculative
 ticks, grammar, LoRA, the scheduler, SLO accounting and the flight
 recorder are not ported yet (core/config.py rejects their settings).
+Every copy between a mini cache and the pool goes through `quant.kv_map`,
+so an int8 KV cache (the engine's `kv_dtype`) moves values and scales
+alike.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from ggrmcp_tpu_torch.core.config import BatchingConfig, resolve_decode_steps
+from ggrmcp_tpu_torch.ops import quant
 from ggrmcp_tpu_torch.ops.sampling import (
     SamplingConfig,
     masked_sample_dynamic,
@@ -207,6 +211,13 @@ class ContinuousBatcher:
 
     # -- device bodies ----------------------------------------------------
 
+    def _merge(self, merge, mini) -> None:
+        """Copy a mini cache's K/V into the pool in place through
+        `merge(pool_leaf, mini_leaf)`; `kv_map` applies it to an int8
+        cache's values and scales alike."""
+        quant.kv_map(merge, self.cache.k, mini.k)
+        quant.kv_map(merge, self.cache.v, mini.v)
+
     def _admit_full_impl(self, params, tokens, true_len, valid_rows,
                          seeds, temps, ks, ps):
         """Burst admission: `tokens` is a full [B, S] batch with each
@@ -222,8 +233,12 @@ class ContinuousBatcher:
         first = self._sample(last, seeds, 0, temps, ks, ps)
         rows = torch.as_tensor(valid_rows, dtype=torch.long,
                                device=self.device)
-        self.cache.k[:, rows, :s] = mini.k[:, rows, :s]
-        self.cache.v[:, rows, :s] = mini.v[:, rows, :s]
+
+        def merge(pool, m):
+            pool[:, rows, :s] = m[:, rows, :s]
+            return pool
+
+        self._merge(merge, mini)
         self.cache.length[rows] = true_len[rows].to(torch.int32)
         return first
 
@@ -235,8 +250,12 @@ class ContinuousBatcher:
         logits, mini = self.engine.prefill_forward(params, tokens, mini)
         last = logits[:, max(int(true_len[0]) - 1, 0)]
         first = self._sample(last, seeds, 0, temps, ks, ps)
-        self.cache.k[:, slot, :s] = mini.k[:, 0, :s]
-        self.cache.v[:, slot, :s] = mini.v[:, 0, :s]
+
+        def merge(pool, m):
+            pool[:, slot, :s] = m[:, 0, :s]
+            return pool
+
+        self._merge(merge, mini)
         self.cache.length[slot] = true_len[0]
         return first
 
@@ -274,8 +293,12 @@ class ContinuousBatcher:
         first = self._sample(final, seeds, 0, temps, ks, ps)
         src = torch.as_tensor(rows, dtype=torch.long, device=self.device)
         dst = torch.as_tensor(slots, dtype=torch.long, device=self.device)
-        self.cache.k[:, dst] = mini.k[:, src]
-        self.cache.v[:, dst] = mini.v[:, src]
+
+        def merge(pool, m):
+            pool[:, dst] = m[:, src]
+            return pool
+
+        self._merge(merge, mini)
         self.cache.length[dst] = true_len[src].to(torch.int32)
         return first
 
@@ -372,6 +395,7 @@ class ContinuousBatcher:
             request.cancelled = True
 
     def cache_bytes(self) -> int:
+        """K/V bytes of the pool, an int8 cache's scales included."""
         return self.cache.k.nbytes + self.cache.v.nbytes
 
     def stats(self) -> dict:
@@ -471,7 +495,7 @@ class ContinuousBatcher:
     def _recover_after_tick_failure(self) -> None:
         """A failed tick leaves the pool's K/V unknown: replay every
         active request from its prompt + emitted tokens on a fresh
-        cache."""
+        cache (of the engine's KV dtype)."""
         for slot in self.slots:
             if slot.active and slot.request is not None:
                 self._replay_or_fail(slot.request)

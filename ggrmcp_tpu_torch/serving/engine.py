@@ -1,7 +1,7 @@
 """Engines on one device. Port of `ggrmcp_tpu/serving/engine.py`:
 `GenerationEngine` (dense Llama prefill, decode and whole-request
-generation; no mesh, LoRA, speculative decoding, PP/SP or int8) and
-`EmbeddingEngine` (BERT embeddings).
+generation, with int8 weights and the int8 KV cache; no mesh, LoRA,
+speculative decoding or PP/SP) and `EmbeddingEngine` (BERT embeddings).
 
 The reference compiles one program per shape bucket; PyTorch runs
 eagerly, so the buckets here only bound the shapes the kernels see.
@@ -21,6 +21,7 @@ from ggrmcp_tpu_torch.core.config import ServingConfig
 from ggrmcp_tpu_torch.models import bert as bert_mod
 from ggrmcp_tpu_torch.models import llama as llama_mod
 from ggrmcp_tpu_torch.models.common import count_params, param_bytes
+from ggrmcp_tpu_torch.ops import quant
 from ggrmcp_tpu_torch.ops.sampling import SamplingConfig, sample
 from ggrmcp_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -47,9 +48,19 @@ def fit_request(
 
 
 class GenerationEngine:
-    """Dense Llama generation on one device: prefill + decode + fused
+    """Llama generation on one device: prefill + decode + fused
     generate. `params` (this package's dict of tensors, e.g. from
-    models/convert.py) or random weights drawn from `seed`."""
+    models/convert.py or serving/weights.py) or random weights drawn from
+    `seed`.
+
+    `serving.quantize="int8"` quantizes the weights here, IN PLACE: each
+    dense leaf of the given dict is replaced by its QuantizedTensor as
+    soon as it is done, so that it can be freed (the reference donates
+    the dense tree for the same reason); pass a copy of a tree you want
+    to keep dense. `serving.synthetic_weights` draws the int8 structure
+    directly and never makes a dense weight. `serving.kv_cache_dtype=
+    "int8"` gives every cache int8 K/V and pins attention to
+    `attention_ref` (`use_flash` False), as the reference does."""
 
     def __init__(
         self,
@@ -62,15 +73,87 @@ class GenerationEngine:
         self.cfg = cfg
         self.serving = serving or ServingConfig()
         self.device = resolve_device(device)
-        if params is None:
-            t0 = time.monotonic()
-            params = llama_mod.init_params(cfg, self.device, seed)
-            logger.info(
-                "initialized %s on %s: %.1fM params in %.1fs", cfg.name,
-                self.device, count_params(params) / 1e6,
-                time.monotonic() - t0,
-            )
+        self.kv_dtype = self.serving.kv_cache_dtype
+        # An int8 cache is read dequantized by attention_ref: handing the
+        # kernel a bf16 copy of the cache would forfeit the int8 bytes.
+        self.use_flash: Optional[bool] = False if self.kv_dtype else None
+        if params is None and self.serving.synthetic_weights:
+            params = self._synthetic_int8_init(seed)
+        else:
+            if params is None:
+                t0 = time.monotonic()
+                params = llama_mod.init_params(cfg, self.device, seed)
+                logger.info(
+                    "initialized %s on %s: %.1fM params in %.1fs", cfg.name,
+                    self.device, count_params(params) / 1e6,
+                    time.monotonic() - t0,
+                )
+            if self.serving.quantize:
+                params = self._quantize_params(params)
         self.params = params
+
+    def _synthetic_int8_init(self, seed: int):
+        """The int8 weight structure drawn directly (int8 values in
+        [-127, 127], small positive scales and dense leaves), never a
+        dense weight: perf staging at the size of the int8 model. The
+        generated text is meaningless."""
+        if self.serving.quantize != "int8":  # config validation mirrors this
+            raise ValueError("synthetic_weights requires quantize='int8'")
+        t0 = time.monotonic()
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        dtype, dev = self.cfg.torch_dtype, self.device
+        shapes = llama_mod.param_shapes(self.cfg)
+        axes = dict(quant.quantize_targets(shapes))
+
+        def positive(shape):
+            # 0.02 * |N(0, 1)| + 1e-3 in the leaf's dtype.
+            t = torch.randn(shape, generator=gen, dtype=dtype, device=dev)
+            return t.abs_().mul_(0.02).add_(1e-3)
+
+        def leaf(path, shape):
+            if path not in axes:
+                return positive(shape)
+            scale_shape = list(shape)
+            scale_shape[axes[path]] = 1
+            q = torch.randint(-127, 128, shape, generator=gen,
+                              dtype=torch.int8, device=dev)
+            return quant.QuantizedTensor(q=q, scale=positive(scale_shape))
+
+        params = {
+            key: ({name: leaf((key, name), shape)
+                   for name, shape in value.items()}
+                  if isinstance(value, dict) else leaf((key,), value))
+            for key, value in shapes.items()
+        }
+        logger.info(
+            "synthetic int8 init %s: %.1f MB of weights in %.1fs",
+            self.cfg.name, quant.quantized_nbytes(params) / 1e6,
+            time.monotonic() - t0,
+        )
+        return params
+
+    def _quantize_params(self, params):
+        """Int8 weight-only quantization in place, one leaf at a time and
+        each stacked leaf one layer slice at a time, into int8 and scale
+        tensors allocated up front: the float32 copy and quotient stay one
+        layer's size (a whole llama3-8b w_gate would need 7.5 GB of each).
+        Per-channel scales reduce within a layer, so the result is bitwise
+        that of `quant.quantize` on the whole leaf. Each dense leaf is
+        replaced in `params` once done."""
+        if self.serving.quantize != "int8":
+            raise ValueError(
+                f"unknown quantize mode {self.serving.quantize!r}"
+            )
+        before = quant.quantized_nbytes(params)
+        for path, axis in quant.quantize_targets(params):
+            parent = params if len(path) == 1 else params["layers"]
+            parent[path[-1]] = _quantize_by_slice(parent[path[-1]], axis)
+        logger.info(
+            "quantized %s to int8: %.1f → %.1f MB of weights",
+            self.cfg.name, before / 1e6, quant.quantized_nbytes(params) / 1e6,
+        )
+        return params
 
     # -- forwards -------------------------------------------------------
 
@@ -80,10 +163,12 @@ class GenerationEngine:
 
     def decode_forward(self, params, tokens, cache):
         """Forward for decode / extension steps (cache has history)."""
-        return llama_mod.forward(params, self.cfg, tokens, cache)
+        return llama_mod.forward(params, self.cfg, tokens, cache,
+                                 use_flash=self.use_flash)
 
     def make_cache(self, batch: int, max_len: int) -> llama_mod.KVCache:
-        return llama_mod.KVCache.create(self.cfg, batch, max_len, self.device)
+        return llama_mod.KVCache.create(self.cfg, batch, max_len, self.device,
+                                        self.kv_dtype)
 
     def weight_bytes(self) -> int:
         return param_bytes(self.params)
@@ -220,6 +305,25 @@ class GenerationEngine:
 
     def model_info(self) -> dict:
         return _model_info(self, "llama")
+
+
+def _quantize_by_slice(w: torch.Tensor, axis: int) -> quant.QuantizedTensor:
+    """`quant.quantize(w, axis)` computed one leading-axis slice at a time
+    for a stacked [L, K, N] leaf (a 2-D leaf in one piece)."""
+    if w.dim() < 3:
+        return quant.quantize(w, axis=axis)
+    scale_shape = list(w.shape)
+    scale_shape[axis] = 1
+    out = quant.QuantizedTensor(
+        q=torch.empty(w.shape, dtype=torch.int8, device=w.device),
+        scale=torch.empty(scale_shape, dtype=w.dtype, device=w.device),
+    )
+    for i in range(w.shape[0]):
+        part = quant.quantize(w[i], axis=axis)
+        out.q[i] = part.q
+        out.scale[i] = part.scale
+        del part
+    return out
 
 
 def build_kernels(device: torch.device) -> None:

@@ -50,7 +50,10 @@ class Sidecar:
     the grpc.aio server. `params`: this package's weights
     (models/convert.py) for `serving.model`; None draws random weights
     from `seed` on the device. With `serving.hf_checkpoint_path` the
-    architecture and the weights come from that checkpoint."""
+    architecture and the weights come from that checkpoint. With
+    `serving.quantize="int8"` the weights reach the engine dense, loaded
+    or drawn, and the engine quantizes them (the reference's order);
+    `serving.synthetic_weights` draws the int8 weights directly."""
 
     def __init__(
         self,

@@ -2,8 +2,10 @@
 against its plain PyTorch version (at the decoder's shapes and at the
 BERT encoder's), the wrapper's input checks, the tiny-llama engine and
 continuous batcher and the bert-tiny embedding engine on CUDA against
-the same code on the CPU (which takes the plain versions), and the
-safetensors reader and HF loader reading straight to the card.
+the same code on the CPU (which takes the plain versions), int8
+quantization, int8-weight forwards and the int8 KV cache on the card
+against the CPU, and the safetensors reader and HF loader reading
+straight to the card.
 
 Every test needs an NVIDIA GPU with `nvcc` (the kernel has no CPU
 mode) and skips without one. This file imports no JAX, so it runs on a
@@ -16,6 +18,14 @@ order differs). bfloat16 1e-2 / 1.6e-2: both sides round the output to
 bf16, so they may differ by a step of the output's magnitude (rtol 1.6e-2
 is two steps, torch.testing's bf16 rtol), and the kernel rounds P to bf16
 for its P V product, which near-zero outputs see as atol 1e-2.
+
+int8: `quantize` on the card equals the CPU's bit for bit (IEEE float32
+division on both). int8-weight logits, card against CPU: 1e-3, as for
+dense weights (the weights are the same bits; the kernel and the CPU's
+plain version sum in another order). int8-KV logits: 1e-2, because each
+side quantizes its own K/V and a value at a rounding tie of the int8
+grid may land one step apart (tests/test_torch_quant.py states the same
+bound against the JAX package).
 """
 
 import asyncio
@@ -30,6 +40,7 @@ from ggrmcp_tpu_torch.core.config import BatchingConfig
 from ggrmcp_tpu_torch.models import bert as tb
 from ggrmcp_tpu_torch.models import llama as tl
 from ggrmcp_tpu_torch.ops import attention as tatt
+from ggrmcp_tpu_torch.ops import quant as tq
 from ggrmcp_tpu_torch.ops.sampling import SamplingConfig
 from ggrmcp_tpu_torch.serving import safetensors_io
 from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher
@@ -341,9 +352,12 @@ def test_safetensors_read_straight_to_card(cuda, tmp_path):
 
 
 def _to(params, device):
+    def move(t):
+        return tq.kv_map(lambda x: x.to(device), t)
+
     return {
-        key: ({n: t.to(device) for n, t in val.items()}
-              if isinstance(val, dict) else val.to(device))
+        key: ({n: move(t) for n, t in val.items()}
+              if isinstance(val, dict) else move(val))
         for key, val in params.items()
     }
 
@@ -405,3 +419,74 @@ async def test_batcher_on_card_matches_cpu(cuda):
     assert out == ref
     assert batcher.chunked_admissions > 0 and batcher.fused_admissions > 0
     assert tatt.flash_attention.launches > before
+
+
+# -- int8 ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("axis", [-2, -1])
+def test_quantize_on_card_equals_cpu(cuda, dtype, axis):
+    g = torch.Generator().manual_seed(31)
+    w = (torch.randn((3, 512, 384), generator=g) * 0.05).to(dtype)
+    w[0, :, 7] = 0.0
+    w[1, 9, :] = 0.0
+    cpu = tq.quantize(w, axis=axis)
+    card = tq.quantize(w.to(cuda), axis=axis)
+    assert card.q.is_cuda and card.q.dtype == torch.int8
+    assert torch.equal(card.q.cpu(), cpu.q)
+    assert card.scale.dtype == dtype and torch.equal(card.scale.cpu(), cpu.scale)
+
+
+def test_int8_forward_on_card_matches_cpu(cuda):
+    """tiny-llama (float32) on int8 weights: the card's cache-free
+    forward (prefill attention on the kernel) and greedy tokens equal
+    the CPU's; an int8-KV prefill and decode step stay off the kernel
+    and within the int8-KV bound."""
+    cfg = tl.CONFIGS["tiny-llama"]
+    cpu_params = tq.quantize_model(tl.init_params(cfg, torch.device("cpu"),
+                                                  seed=13))
+    gpu_params = _to(cpu_params, cuda)
+    toks = torch.tensor(_prompts()[4][:40])[None]
+    ref, _ = tl.forward(cpu_params, cfg, toks)
+    before = tatt.flash_attention.launches
+    out, _ = tl.forward(gpu_params, cfg, toks.to(cuda))
+    assert tatt.flash_attention.launches == before + cfg.num_layers
+    assert (out.cpu() - ref).abs().max().item() <= 1e-3
+
+    prompts = _prompts()[:3]
+    cpu_eng = GenerationEngine(cfg, params=cpu_params, device="cpu")
+    gpu_eng = GenerationEngine(cfg, params=gpu_params, device=cuda)
+    assert gpu_eng.generate(prompts, 10) == cpu_eng.generate(prompts, 10)
+
+    step = torch.tensor([[17]])
+    logits = {}
+    before = tatt.flash_attention.launches
+    for dev, params in (("cpu", cpu_params), (cuda, gpu_params)):
+        cache = tl.KVCache.create(cfg, 1, 64, torch.device(dev), "int8")
+        prefill, cache = tl.forward(params, cfg, toks.to(dev), cache)
+        decode, _ = tl.forward(params, cfg, step.to(dev), cache)
+        logits[str(dev)] = (prefill.cpu(), decode.cpu())
+    assert tatt.flash_attention.launches == before
+    for a, b in zip(logits["cpu"], logits[str(cuda)]):
+        assert (a - b).abs().max().item() <= 1e-2
+
+
+def test_int8_kv_writes_past_end_land_in_scratch_on_card(cuda):
+    """Values and scales written past S_max land in the scratch position
+    of both leaves on the card; the cache proper keeps its bytes."""
+    cfg = tl.CONFIGS["tiny-llama"]
+    params = _to(tq.quantize_model(tl.init_params(cfg, torch.device("cpu"),
+                                                  seed=3)), cuda)
+    cache = tl.KVCache.create(cfg, 1, 8, cuda, "int8")
+    tl.forward(params, cfg, torch.arange(3, 9, device=cuda)[None], cache)
+    before = (cache.k.q[:, :, :6].clone(), cache.v.scale[:, :, :6].clone())
+    logits, cache = tl.forward(params, cfg,
+                               torch.arange(20, 24, device=cuda)[None], cache)
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits).all()
+    assert torch.equal(cache.k.q[:, :, :6], before[0])
+    assert torch.equal(cache.v.scale[:, :, :6], before[1])
+    assert (cache.k.scale[:, :, 6:] != 0).all()  # 6, 7 and the scratch
+    assert int(cache.length[0]) == 10

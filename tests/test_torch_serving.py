@@ -176,7 +176,7 @@ async def test_overloaded_past_max_pending(engines):
      ("batching", "pipeline_ticks", "on"),
      ("batching", "queue_deadline_ms", 100.0),
      ("batching", "p50_budget_ms", 50.0),
-     ("serving", "kv_cache_dtype", "int8"), ("serving", "quantize", "int8"),
+     ("serving", "kv_cache_dtype", "int4"), ("serving", "quantize", "fp4"),
      ("serving", "checkpoint_path", "ckpt")],
 )
 def test_unsupported_config_raises(kind, field, value):

@@ -376,6 +376,44 @@ async def test_hf_checkpoint_sidecar_matches_reference(tiny_ckpt):
     assert all(ids for ids, _, _, _ in out)
 
 
+async def test_hf_checkpoint_int8_sidecar(checkpoints):
+    """`quantize="int8"` on an HF checkpoint: the weights reach the
+    engine dense and are quantized there, so the sidecar's leaves equal
+    the port's `quantize` of the loaded tensors bit for bit (values and
+    bf16 scales), and greedy Generate gives the tokens of an engine on
+    those weights."""
+    from ggrmcp_tpu_torch.core.config import BatchingConfig
+    from ggrmcp_tpu_torch.ops import quant as tq
+
+    path = checkpoints["llama_bf16"]
+    _, dense = tw.load_hf_checkpoint(path, "cpu")
+    want = tq.quantize_model(dense)
+    side = Sidecar(ServingConfig(
+        hf_checkpoint_path=path, quantize="int8",
+        batching=BatchingConfig(max_batch_size=2, kv_cache_max_seq=128)),
+        device="cpu")
+    got = side.generation.params
+    for key, leaf in _leaves(want):
+        mine = dict(_leaves(got))[key]
+        if isinstance(leaf, tq.QuantizedTensor):
+            assert isinstance(mine, tq.QuantizedTensor), key
+            assert mine.q.dtype == torch.int8, key
+            assert mine.scale.dtype == torch.bfloat16, key
+            assert torch.equal(mine.q, leaf.q), key
+            assert torch.equal(mine.scale, leaf.scale), key
+        else:
+            assert torch.equal(mine, leaf), key
+    port = await side.start(0)
+    try:
+        out = await _generate(f"localhost:{port}", ["a b c d e"])
+    finally:
+        await side.stop()
+    cfg = tw.read_hf_config(path)
+    ref, _ = GenerationEngine(cfg, params=want, device="cpu").generate(
+        [[1] + [b + 3 for b in b"a b c d e"]], 8, eos_id=2)
+    assert out[0][0] == ref[0]
+
+
 def test_params_and_checkpoint_are_exclusive(tiny_ckpt):
     with pytest.raises(ValueError, match="not both"):
         Sidecar(ServingConfig(hf_checkpoint_path=tiny_ckpt[0]),
