@@ -149,6 +149,15 @@ CASES = [
      "bfloat16", "Sq = Sk = 300, no tile multiple"),
     ("f32_tiny_2x256", 2, 256, 256, 8, 4, 32, True, 0, 256, None, "float32",
      "tiny-llama geometry in float32"),
+    # The KV-reuse routes: a prefix-hit wave's suffix step, and an
+    # interleave chunk with its rows at different offsets (row 0 is also
+    # the launch of an idle row: offset 0, kv_len = the chunk).
+    ("pfx_suffix_32x64_at_2048", 32, 64, 4096, 32, 8, 128, True, 2048, 2112,
+     None, "bfloat16",
+     "prefix-pool hit wave: suffix step of R = B rows over a 4097 mini"),
+    ("ilv_4x512_offsets", 4, 512, 4096, 32, 8, 128, True,
+     (0, 512, 1536, 2560), (512, 1024, 2048, 3072), None, "bfloat16",
+     "interleave chunk, per-row offsets, over the carried 4097 mini"),
     # kv_len None: ragged, each row's length drawn from 17 to S.
     ("bert_32x128", 32, 128, 128, 12, 12, 64, False, 0, None, None,
      "bfloat16", "bert-base embed batch, S=128 bucket, ragged rows"),
@@ -191,7 +200,7 @@ def kernel_cases(torch, tatt, dev) -> list[dict]:
             q, k, v = (t.reshape(b, sq, h, d) for t in qkv.chunk(3, dim=-1))
             check(all(tatt._kernel_layout_ok(t) for t in (q, k, v)),
                   f"{name}: the kernel would copy the split q/k/v views")
-        elif name.startswith("chunk"):
+        elif name.startswith(("chunk", "pfx", "ilv")):
             # The model's operand: [:, :S_max] of a [B, S_max + 1, ...]
             # per-layer cache slice (not contiguous).
             kc, vc = (torch.randn((b, sk + 1, kvh, d), generator=gen,
@@ -200,12 +209,14 @@ def kernel_cases(torch, tatt, dev) -> list[dict]:
         else:
             k, v = (torch.randn((b, sk, kvh, d), generator=gen,
                                 device=dev).to(dtype) for _ in range(2))
-        q_offset = torch.full((b,), off, dtype=torch.int32, device=dev)
+        q_offset = torch.tensor(off if isinstance(off, tuple) else
+                                (off,) * b, dtype=torch.int32, device=dev)
         if kvl is None:
             kv_len = torch.randint(17, sk + 1, (b,), generator=gen,
                                    device=dev, dtype=torch.int32)
         else:
-            kv_len = torch.full((b,), kvl, dtype=torch.int32, device=dev)
+            kv_len = torch.tensor(kvl if isinstance(kvl, tuple) else
+                                  (kvl,) * b, dtype=torch.int32, device=dev)
         full = bool((kv_len == sk).all())
         kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len,
                   window=window)
@@ -235,8 +246,8 @@ def kernel_cases(torch, tatt, dev) -> list[dict]:
                            window, dev)
         pairs = int(mask.sum().item())
         keys = int(mask.any(dim=1).sum().item())
-        plain_causal = causal and off == 0 and full and sq == sk and (
-            not window)
+        plain_causal = causal and not q_offset.any().item() and full and (
+            sq == sk and not window)
         sdpa_kw = (dict(is_causal=True) if plain_causal
                    else dict(attn_mask=mask[:, None]) if causal or not full
                    else {})
@@ -1295,6 +1306,378 @@ async def int8_phase(torch, tatt, dev) -> dict:
     return res
 
 
+# -- phase 9: KV reuse --------------------------------------------------------
+
+# A same-preamble wave (the agentic arrival shape): BOS + 2047 bytes of
+# preamble, then a 64-byte question whose first byte differs per request.
+PREAMBLE_TOKENS = 2048
+QUESTION_TOKENS = 64
+WAVE = 16
+WAVE_NEW = 16
+PAGED_NEW = 48
+# First-token logits of a prefix-hit row against a cold chunked prefill of
+# the same prompt, relative L2: the suffix runs as a [1, 64] step instead
+# of inside a [1, 512] chunk, so its GEMMs and attention tiles round in
+# bf16 in another order through 32 layers; the bound is phase 4's
+# kernel-vs-plain bound for a whole prefill.
+HIT_MAX_REL = 2e-2
+ILV_SHORTS = 8
+ILV_SHORT_TOKENS = 40
+ILV_SHORT_NEW = 48
+ILV_LONG_TOKENS = 3000
+# Worst decode stall under interleave against the long admission's
+# duration: the reference's structural bound (tests/test_interleave.py).
+ILV_STALL_BOUND = 0.6
+TINY_ARENA_PAGES = 8
+
+
+def _question(i: int) -> str:
+    return chr(65 + i) + _prompt_text(QUESTION_TOKENS, 910 + i)
+
+
+def pfx_hit_vs_cold(torch, batcher, prompt: list[int]):
+    """Final-position logits of `prompt` admitted as a prefix-pool hit
+    (the entry it matches seeds the mini, one suffix step, as a wave
+    row runs it) and cold (the chunked grid from position 0), through
+    the batcher's own device bodies, without merging into the pool."""
+    import numpy as np
+
+    entry, plen = batcher._pfx_lookup(prompt)
+    start, steps = batcher._pfx_plan(len(prompt), plen)
+    check(len(steps) == 1, f"hit plan {steps} is not one suffix step")
+    width = steps[0][1]
+    params = batcher.engine.params
+    true_len = batcher._t(np.array([len(prompt)]))
+    suffix = np.zeros((1, 1, width), np.int64)
+    suffix[0, 0, : len(prompt) - start] = prompt[start:]
+    c = min(batcher.cfg.prefill_chunk, batcher.max_seq)
+    t_steps = -(-len(prompt) // c)
+    grid = np.zeros((1, t_steps * c), np.int64)
+    grid[0, : len(prompt)] = prompt
+    with torch.no_grad():
+        hit = batcher._chunked_scan(
+            params, batcher._t(suffix), true_len,
+            batcher._pfx_seeded_mini(1, entry, start), start)
+        cold = batcher._chunked_scan(
+            params, batcher._t(grid.reshape(1, t_steps, c)), true_len,
+            batcher._make_mini(1, batcher.max_seq))
+    return hit, cold
+
+
+class _ReuseClient:
+    """gRPC stubs of one sidecar: greedy Generate and GetServingStats."""
+
+    def __init__(self, ch):
+        from ggrmcp_tpu_torch.rpc.pb import serving_pb2
+
+        self.pb = serving_pb2
+        self._gen = ch.unary_unary(
+            "/ggrmcp.tpu.GenerateService/Generate",
+            request_serializer=serving_pb2.GenerateRequest.SerializeToString,
+            response_deserializer=serving_pb2.GenerateResponse.FromString)
+        self._stats = ch.unary_unary(
+            "/ggrmcp.tpu.ModelInfoService/GetServingStats",
+            request_serializer=serving_pb2.ServingStatsRequest
+            .SerializeToString,
+            response_deserializer=serving_pb2.ServingStatsResponse.FromString)
+
+    async def generate(self, text: str, max_new: int):
+        """(token ids, finish reason, client ms)."""
+        t = time.perf_counter()
+        resp = await self._gen(self.pb.GenerateRequest(
+            prompt=text, max_new_tokens=max_new, return_tokens=True),
+            timeout=600)
+        return (list(resp.token_ids), resp.finish_reason,
+                (time.perf_counter() - t) * 1e3)
+
+    async def stats(self):
+        return await self._stats(self.pb.ServingStatsRequest())
+
+    async def wait_active(self, n: int) -> None:
+        t = time.perf_counter()
+        while (await self.stats()).active_slots < n:
+            check(time.perf_counter() - t < 120, f"{n} slots never active")
+            await asyncio.sleep(0.005)
+
+
+def _reuse_sidecar(torch, params, dev, batching: dict, tmp: str):
+    """A llama3-8b sidecar on `params` whose settings come from a
+    {"serving": {"batching": ...}} config file, read as the command line
+    reads `--config FILE`. Its batcher records each request's TTFT
+    (submit to first-token sample, on the server)."""
+    from ggrmcp_tpu_torch import __main__ as cli
+    from ggrmcp_tpu_torch.serving.sidecar import Sidecar
+
+    path = os.path.join(tmp, "serving.json")
+    with open(path, "w") as fh:
+        json.dump({"serving": {"model": MODEL, "batching": batching}}, fh)
+    cfg = cli.serving_config(cli.build_parser().parse_args(
+        ["sidecar", "--config", path]))
+    sidecar = Sidecar(cfg, params=params, device=dev)
+    batcher = sidecar.batcher
+    batcher.ttft_ms = []
+    activate = batcher._activate_slot
+
+    def timed_activate(slot_idx, request, first_tok):
+        batcher.ttft_ms.append(
+            (time.perf_counter() - request.t_submit) * 1e3)
+        return activate(slot_idx, request, first_tok)
+
+    batcher._activate_slot = timed_activate
+    torch.cuda.reset_peak_memory_stats()
+    return sidecar
+
+
+def _ttft(ms: list) -> dict:
+    ordered = sorted(ms)
+    return dict(p50=ordered[(len(ordered) - 1) // 2], max=ordered[-1],
+                n=len(ordered))
+
+
+def _agreement(a: list, b: list) -> dict:
+    """Greedy token agreement of two runs of the same requests."""
+    same = sum(x == y for x, y in zip(a, b))
+    pos = [sum(p == q for p, q in zip(x, y)) for x, y in zip(a, b)]
+    first = sum(bool(x and y and x[0] == y[0]) for x, y in zip(a, b))
+    return dict(identical=same, first_token=first, of=len(a),
+                positions=sum(pos),
+                positions_of=sum(min(len(x), len(y)) for x, y in zip(a, b)))
+
+
+async def _wave_run(torch, tatt, dev, params, batching: dict, tmp: str,
+                    max_new: int, probe: bool = False) -> dict:
+    """(a) and (c): one warm request with the preamble, admitted alone,
+    then a wave of WAVE requests with it; stats around the wave, the
+    wave's TTFT, B1's launches during the wave. `probe` polls
+    GetServingStats while the wave decodes (the kv_pages_shared gauge)."""
+    import grpc.aio
+
+    preamble = _prompt_text(PREAMBLE_TOKENS, 900)
+    sidecar = _reuse_sidecar(torch, params, dev, batching, tmp)
+    batcher = sidecar.batcher
+    # The path's run starts here: every launch count from 0.
+    tatt.flash_attention.launches = 0
+    port = await sidecar.start(0)
+    res: dict = {}
+    try:
+        async with grpc.aio.insecure_channel(f"localhost:{port}") as ch:
+            client = _ReuseClient(ch)
+            warm = await client.generate(preamble + _question(25), max_new)
+            check(warm[1] in ("length", "stop"), f"warm: {warm[1]}")
+            before = await client.stats()
+            batcher.ttft_ms.clear()
+            launched = tatt.flash_attention.launches
+            t = time.perf_counter()
+            wave = asyncio.ensure_future(asyncio.gather(*(
+                client.generate(preamble + _question(i), max_new)
+                for i in range(WAVE))))
+            peak_shared = peak_active = 0
+            while probe and not wave.done():
+                live = await client.stats()
+                peak_shared = max(peak_shared, live.kv_pages_shared)
+                peak_active = max(peak_active, live.active_slots)
+                await asyncio.sleep(0.02)
+            outs = await wave
+            res["wave_s"] = time.perf_counter() - t
+            res["wave_launches"] = tatt.flash_attention.launches - launched
+            after = await client.stats()
+            # The path's count ends here; the logits check below is not
+            # the path.
+            res["launches"] = tatt.flash_attention.launches
+        for ids, reason, _ in outs:
+            check(reason in ("length", "stop") and 1 <= len(ids) <= max_new,
+                  f"wave request ended {reason!r} with {len(ids)} tokens")
+        res["tokens"] = [ids for ids, _, _ in outs]
+        res["ttft_ms"] = _ttft(batcher.ttft_ms)
+        res["client_ms"] = _ttft([ms for _, _, ms in outs])
+        res["stats"] = {k: getattr(after, k) - getattr(before, k) for k in (
+            "prefix_cache_hits", "prefix_cache_misses", "paged_prefix_hits",
+            "paged_cow_copies", "paged_pages_reused", "paged_pages_admitted",
+            "admit_rounds", "ticks")}
+        res["stats"].update(
+            decode_stall_ms_p50=after.decode_stall_ms_p50,
+            decode_stall_ms_max=after.decode_stall_ms_max,
+            kv_cache_bytes=after.kv_cache_bytes,
+            kv_pages_total=after.kv_pages_total)
+        if probe:
+            res.update(peak_kv_pages_shared=peak_shared,
+                       peak_active_slots=peak_active)
+        if batching.get("prefix_cache_entries"):
+            tokens = sidecar._prompt_ids(client.pb.GenerateRequest(
+                prompt=preamble + _question(3)))
+            hit, cold = pfx_hit_vs_cold(torch, batcher, tokens)
+            res["hit_vs_cold"] = dict(
+                rel_l2=((hit - cold).norm() / cold.norm()).item(),
+                max_abs=(hit - cold).abs().max().item(),
+                top1_same=bool(hit.argmax() == cold.argmax()))
+    finally:
+        await sidecar.stop()
+    torch.cuda.synchronize()
+    res["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del sidecar, batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+async def _ilv_run(torch, tatt, dev, params, mode: str, tmp: str) -> dict:
+    """(b): ILV_SHORTS short requests decoding, then two long prompts at
+    once; the long ones ask one token, so their latency is the
+    admission's duration."""
+    import grpc.aio
+
+    sidecar = _reuse_sidecar(torch, params, dev, dict(
+        prefill_interleave=mode, prefill_interleave_rows=4), tmp)
+    batcher = sidecar.batcher
+    tatt.flash_attention.launches = 0
+    port = await sidecar.start(0)
+    res: dict = {}
+    try:
+        async with grpc.aio.insecure_channel(f"localhost:{port}") as ch:
+            client = _ReuseClient(ch)
+            shorts = asyncio.ensure_future(asyncio.gather(*(
+                client.generate(_prompt_text(ILV_SHORT_TOKENS, 950 + i),
+                                ILV_SHORT_NEW)
+                for i in range(ILV_SHORTS))))
+            await client.wait_active(ILV_SHORTS)
+            longs = await asyncio.gather(*(
+                client.generate(_prompt_text(ILV_LONG_TOKENS, 970 + i), 1)
+                for i in range(2)))
+            short_out = await shorts
+            stats = await client.stats()
+        for ids, reason, _ in short_out + longs:
+            check(reason in ("length", "stop") and ids,
+                  f"request ended {reason!r} with {len(ids)} tokens")
+        res["tokens"] = [ids for ids, _, _ in short_out + longs]
+        res["admission_ms"] = max(ms for _, _, ms in longs)
+        res["stats"] = {k: getattr(stats, k) for k in (
+            "interleaved_admissions", "interleaved_chunks",
+            "decode_stall_ms_p50", "decode_stall_ms_p99",
+            "decode_stall_ms_max", "admit_ms_max", "ticks",
+            "kv_cache_bytes")}
+        res["chunked_admissions"] = batcher.chunked_admissions
+    finally:
+        await sidecar.stop()
+    torch.cuda.synchronize()
+    res["launches"] = tatt.flash_attention.launches
+    res["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del sidecar, batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+async def _tiny_arena_shed(torch, dev, params, tmp: str) -> dict:
+    """(c) shed: on an arena of TINY_ARENA_PAGES pages a 500-token prompt
+    is refused RESOURCE_EXHAUSTED while a resident request decodes on to
+    its end."""
+    import grpc
+    import grpc.aio
+
+    sidecar = _reuse_sidecar(torch, params, dev, dict(
+        paged_kv="on", paged_kv_page_size=16,
+        paged_kv_pages=TINY_ARENA_PAGES), tmp)
+    port = await sidecar.start(0)
+    try:
+        async with grpc.aio.insecure_channel(f"localhost:{port}") as ch:
+            client = _ReuseClient(ch)
+            resident = asyncio.ensure_future(
+                client.generate(_prompt_text(40, 990), 32))
+            await client.wait_active(1)
+            code = None
+            try:
+                await client.generate(_prompt_text(500, 991), 8)
+            except grpc.aio.AioRpcError as exc:
+                code = exc.code()
+            ids, reason, _ = await resident
+            stats = await client.stats()
+    finally:
+        await sidecar.stop()
+    check(code == grpc.StatusCode.RESOURCE_EXHAUSTED,
+          f"tiny arena: the 500-token prompt got {code}, not "
+          f"RESOURCE_EXHAUSTED")
+    check(reason in ("length", "stop") and ids,
+          f"tiny arena: the resident request ended {reason!r}")
+    res = dict(code=code.name, resident_reason=reason,
+               resident_tokens=len(ids), shed_requests=stats.shed_requests,
+               kv_pages_total=stats.kv_pages_total)
+    del sidecar
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+async def kv_reuse_phase(torch, tatt, dev) -> dict:
+    """(a) the prefix pool, (b) the interleave, (c) paged KV, each at
+    llama3-8b width through the sidecar, each against its switch off."""
+    import tempfile
+
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+
+    params = llama_mod.init_params(llama_mod.CONFIGS[MODEL], dev, SEED)
+    res: dict = {}
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        pool = dict(prefix_cache_entries=8, prefix_cache_max_seq=2048)
+        a_on = await _wave_run(torch, tatt, dev, params, pool, tmp, WAVE_NEW)
+        a_off = await _wave_run(torch, tatt, dev, params, {}, tmp, WAVE_NEW)
+        check(a_on["stats"]["prefix_cache_hits"] == WAVE,
+              f"(a) the wave hit the pool {a_on['stats']['prefix_cache_hits']}"
+              f" times, not {WAVE}")
+        check(a_on["wave_launches"] > 0, "(a) the hit wave never launched B1")
+        hvc = a_on["hit_vs_cold"]
+        check(hvc["rel_l2"] <= HIT_MAX_REL,
+              f"(a) hit vs cold logits rel {hvc['rel_l2']} > {HIT_MAX_REL}")
+        a_on["agreement_with_off"] = _agreement(a_on["tokens"],
+                                                a_off["tokens"])
+        res["pool"] = dict(on=a_on, off=a_off)
+        log(f"  (a) prefix pool: {json.dumps(_brief(res['pool']))}")
+
+        b_on = await _ilv_run(torch, tatt, dev, params, "on", tmp)
+        b_off = await _ilv_run(torch, tatt, dev, params, "off", tmp)
+        st = b_on["stats"]
+        check(st["interleaved_admissions"] == 2,
+              f"(b) {st['interleaved_admissions']} interleaved admissions")
+        check(st["interleaved_chunks"] >= 12,
+              f"(b) {st['interleaved_chunks']} interleaved chunks, not >= 12")
+        check(b_on["chunked_admissions"] == 0,
+              "(b) a long prompt took the one-call grid under interleave")
+        check(st["decode_stall_ms_max"]
+              < ILV_STALL_BOUND * b_on["admission_ms"],
+              f"(b) worst stall {st['decode_stall_ms_max']} ms >= "
+              f"{ILV_STALL_BOUND} x the admission {b_on['admission_ms']} ms")
+        check(b_on["launches"] > 0, "(b) the interleave never launched B1")
+        b_on["agreement_with_off"] = _agreement(b_on["tokens"],
+                                                b_off["tokens"])
+        res["interleave"] = dict(on=b_on, off=b_off)
+        log(f"  (b) interleave: {json.dumps(_brief(res['interleave']))}")
+
+        c = await _wave_run(torch, tatt, dev, params, dict(
+            paged_kv="on", paged_kv_page_size=16), tmp, PAGED_NEW,
+            probe=True)
+        check(c["stats"]["paged_prefix_hits"] >= WAVE,
+              f"(c) paged_prefix_hits {c['stats']['paged_prefix_hits']}")
+        check(c["peak_kv_pages_shared"] >= PREAMBLE_TOKENS // 16,
+              f"(c) kv_pages_shared peaked at {c['peak_kv_pages_shared']}")
+        check(c["wave_launches"] > 0, "(c) the paged wave never launched B1")
+        c["agreement_with_contiguous"] = _agreement(
+            [t[:WAVE_NEW] for t in c["tokens"]], a_off["tokens"])
+        c["shed"] = await _tiny_arena_shed(torch, dev, params, tmp)
+        res["paged"] = c
+        log(f"  (c) paged: {json.dumps(_brief(c))}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _brief(d):
+    """`d` without its token lists (for the log)."""
+    if isinstance(d, dict):
+        return {k: _brief(v) for k, v in d.items() if k != "tokens"}
+    return d
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -1326,42 +1709,47 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         card = card_line()
-        log(f"[1/8] card: {card}; torch {torch.__version__}, CUDA "
+        log(f"[1/9] card: {card}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
         t = time.perf_counter()
         _build.load("flash_attention")
-        log(f"[2/8] build: flash_attention.cu in "
+        log(f"[2/9] build: flash_attention.cu in "
             f"{time.perf_counter() - t:.1f} s")
         ptxas_report(_build.build_log.get("flash_attention", ""))
 
-        log(f"[3/8] kernel vs plain (|err| <= atol + rtol |plain|: {TOL})")
+        log(f"[3/9] kernel vs plain (|err| <= atol + rtol |plain|: {TOL})")
         cases = kernel_cases(torch, tatt, dev)
 
-        log("[4/8] reference: tiny-llama on the card vs the CPU")
+        log("[4/9] reference: tiny-llama on the card vs the CPU")
         ref = tiny_reference(torch, dev)
         log(f"  {ref}")
 
-        log(f"[5/8] serve: {MODEL} sidecar, default batching")
+        log(f"[5/9] serve: {MODEL} sidecar, default batching")
         serve = asyncio.run(serve_phase(torch, tatt, dev))
         log(f"  {json.dumps(serve)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[6/8] embed: {EMBED_MODEL} sidecar")
+        log(f"[6/9] embed: {EMBED_MODEL} sidecar")
         embed = asyncio.run(embed_phase(torch, tatt, dev))
         log(f"  {json.dumps(embed)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log("[7/8] HF checkpoint: llama3-8b width, 2 layers, 2 files")
+        log("[7/9] HF checkpoint: llama3-8b width, 2 layers, 2 files")
         hf = asyncio.run(hf_phase(torch, tatt, dev))
         log(f"  {json.dumps(hf)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[8/8] int8: {MODEL} weights and KV cache")
+        log(f"[8/9] int8: {MODEL} weights and KV cache")
         int8 = asyncio.run(int8_phase(torch, tatt, dev))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log(f"[9/9] KV reuse: {MODEL} prefix pool, interleave, paged KV")
+        reuse = asyncio.run(kv_reuse_phase(torch, tatt, dev))
     except SmokeError as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1375,6 +1763,9 @@ def main() -> int:
         hf_launches=hf["launches"], hf_int8_launches=hf["int8_launches"],
         int8_launches=int8["bf16_kv"]["launches"],
         int8_kv_launches=int8["int8_kv"]["launches"],
+        pfx_launches=reuse["pool"]["on"]["launches"],
+        ilv_launches=reuse["interleave"]["on"]["launches"],
+        paged_launches=reuse["paged"]["launches"],
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],

@@ -49,22 +49,38 @@ class BatchingConfig:
     max_pending: int = 0
     max_queue_tokens: int = 0
     tick_retry_limit: int = 1
+    # Slot-granular prefix (prompt-KV) pool; 0 entries = off.
+    prefix_cache_entries: int = 0
+    prefix_cache_max_seq: int = 512  # per-entry KV capacity (tokens)
+    prefix_cache_min_seq: int = 64  # don't pool prefixes shorter than this
+    # "on": long prompts arriving mid-decode ride the decode ticks one
+    # [K <= prefill_interleave_rows, prefill_chunk] chunk at a time.
+    prefill_interleave: str = "off"
+    prefill_interleave_rows: int = 4
+    # "on": one page arena + per-slot block tables with refcounted
+    # page-aligned prefix sharing (serving/pages.py); supersedes the
+    # prefix pool. 0 pages = max_batch_size * kv_cache_max_seq / page.
+    paged_kv: str = "off"
+    paged_kv_page_size: int = 16
+    paged_kv_pages: int = 0
     # Guards: features of the reference batcher not ported yet.
     queue_deadline_ms: float = 0.0
     p50_budget_ms: float = 0.0
     kv_tiers: list = field(default_factory=list)
-    paged_kv: str = "off"
-    prefix_cache_entries: int = 0
-    prefill_interleave: str = "off"
     speculative: str = "off"
+    paged_kv_host_bytes: int = 0
+    paged_kv_host_path: str = ""
+    paged_kv_host_file_bytes: int = 0
 
     UNSUPPORTED = (
-        "queue_deadline_ms", "p50_budget_ms", "kv_tiers", "paged_kv",
-        "prefix_cache_entries", "prefill_interleave", "speculative",
+        "queue_deadline_ms", "p50_budget_ms", "kv_tiers", "speculative",
+        "paged_kv_host_bytes", "paged_kv_host_path",
+        "paged_kv_host_file_bytes",
     )
 
     def __post_init__(self) -> None:
         _check_unsupported(self, self.UNSUPPORTED, "batching")
+        self._validate_kv_reuse()
         if self.pipeline_ticks not in ("auto", "off"):
             raise ValueError(
                 f"batching.pipeline_ticks={self.pipeline_ticks!r} is not "
@@ -82,6 +98,46 @@ class BatchingConfig:
             raise ValueError("batching.max_batch_size and prefill_chunk >= 1")
         if self.tick_retry_limit < 0:
             raise ValueError("batching.tick_retry_limit must be >= 0")
+
+    def _validate_kv_reuse(self) -> None:
+        """The reference's checks of these fields (Config.validate)."""
+        if self.prefill_interleave not in ("off", "on"):
+            raise ValueError(
+                "batching.prefill_interleave must be one of off/on"
+            )
+        if self.prefill_interleave_rows < 1:
+            raise ValueError("batching.prefill_interleave_rows must be >= 1")
+        if self.paged_kv not in ("off", "on"):
+            raise ValueError("batching.paged_kv must be 'off' or 'on'")
+        if self.paged_kv_page_size < 1:
+            raise ValueError("batching.paged_kv_page_size must be >= 1")
+        if self.paged_kv_pages < 0:
+            raise ValueError(
+                "batching.paged_kv_pages must be >= 0 (0 = auto-size)"
+            )
+        if self.paged_kv == "on":
+            if self.prefix_cache_entries:
+                raise ValueError(
+                    "batching.paged_kv supersedes the slot-granular "
+                    "prefix pool: set prefix_cache_entries to 0"
+                )
+            page = self.paged_kv_page_size
+            if self.kv_cache_max_seq % page:
+                raise ValueError(
+                    f"batching.paged_kv_page_size ({page}) must divide "
+                    f"kv_cache_max_seq ({self.kv_cache_max_seq}): block "
+                    f"tables map whole pages"
+                )
+        if self.prefix_cache_entries < 0:
+            raise ValueError("batching.prefix_cache_entries must be >= 0")
+        if self.prefix_cache_entries:
+            if self.prefix_cache_min_seq < 1:
+                raise ValueError("batching.prefix_cache_min_seq must be >= 1")
+            if self.prefix_cache_max_seq < self.prefix_cache_min_seq:
+                raise ValueError(
+                    "batching.prefix_cache_max_seq must be >= "
+                    "prefix_cache_min_seq"
+                )
 
 
 # decode_steps_per_tick="auto" on CUDA. One step per tick: the port

@@ -1,8 +1,8 @@
 """Llama-family decoder: GQA + RoPE + SwiGLU over stacked [L, ...]
 weights. Port of `ggrmcp_tpu/models/llama.py` on the cache-free and
-contiguous-cache paths, with int8 weights (any leaf may be a
-`QuantizedTensor`, ops/quant.py) and the int8 KV cache; no ring or paged
-KV in this package yet.
+contiguous-cache and paged-cache paths, with int8 weights (any leaf may
+be a `QuantizedTensor`, ops/quant.py) and the int8 KV cache; no ring KV
+in this package yet.
 
 The reference threads the KV cache functionally through `lax.scan` and
 donates it; here `forward` writes each layer's new K/V into the cache
@@ -188,26 +188,102 @@ class KVCache:
         shape = (
             cfg.num_layers, batch, max_len + 1, cfg.num_kv_heads, cfg.head_dim
         )
-        dtype = cfg.torch_dtype
-        if kv_dtype == "int8":
-            def leaf():
-                return QuantizedTensor(
-                    q=torch.zeros(shape, dtype=torch.int8, device=device),
-                    scale=torch.zeros(shape[:-1] + (1,), dtype=dtype,
-                                      device=device),
-                )
-        elif kv_dtype:
-            raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
-        else:
-            def leaf():
-                return torch.zeros(shape, dtype=dtype, device=device)
         return cls(
-            k=leaf(), v=leaf(),
+            k=_kv_leaf(shape, cfg.torch_dtype, device, kv_dtype),
+            v=_kv_leaf(shape, cfg.torch_dtype, device, kv_dtype),
             length=torch.zeros((batch,), dtype=torch.int32, device=device),
         )
 
     def nbytes(self) -> int:
         return self.k.nbytes + self.v.nbytes + self.length.nbytes
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Paged KV cache (batching.paged_kv): one arena of fixed-size pages
+    per layer plus per-slot block tables. Position j of slot b lives at
+    (table[b, j // P], j % P), so positions, masks and numerics are those
+    of the contiguous cache; only the storage is indirected.
+
+    k/v are [L, n_pages + 1, P, KVH, Dh]: pages 0..n_pages-1 are the
+    arena proper and page n_pages (the table's SENTINEL id) is a SCRATCH
+    page that absorbs every write through a sentinel entry or past the
+    table's width (the reference's scatters drop them). Reads of a
+    sentinel entry clip to page n_pages - 1, a real page, as the
+    reference's gathers do: its values are finite, and `length` masks
+    them. With kv_dtype "int8" k/v are QuantizedTensors whose values and
+    scales both carry the scratch page."""
+
+    k: quant.TensorOrQuant
+    v: quant.TensorOrQuant
+    table: torch.Tensor  # [B, S_max // P] int32 page ids
+    length: torch.Tensor  # [B] int32 — valid prefix length
+
+    @property
+    def n_pages(self) -> int:
+        return self.k.shape[1] - 1
+
+    @classmethod
+    def create(
+        cls, cfg: LlamaConfig, batch: int, max_len: int, n_pages: int,
+        page_size: int, device: torch.device, kv_dtype: str = "",
+    ) -> "PagedKVCache":
+        if max_len % page_size:
+            raise ValueError("page_size must divide max_len")
+        shape = (
+            cfg.num_layers, n_pages + 1, page_size, cfg.num_kv_heads,
+            cfg.head_dim,
+        )
+        return cls(
+            k=_kv_leaf(shape, cfg.torch_dtype, device, kv_dtype),
+            v=_kv_leaf(shape, cfg.torch_dtype, device, kv_dtype),
+            table=torch.full((batch, max_len // page_size), n_pages,
+                             dtype=torch.int32, device=device),
+            length=torch.zeros((batch,), dtype=torch.int32, device=device),
+        )
+
+    def nbytes(self) -> int:
+        return self.k.nbytes + self.v.nbytes + self.length.nbytes
+
+
+def paged_view(arena: quant.TensorOrQuant, table: torch.Tensor):
+    """One layer's [N + 1, P, KVH, Dh] arena + [B, W] tables → the
+    contiguous per-slot view [B, W·P, KVH, Dh] (view position j is
+    absolute position j). Sentinel entries clip to page N - 1; values
+    and scales of an int8 arena gather alike."""
+
+    def gather(a):
+        v = a[torch.clamp(table.long(), max=a.shape[0] - 2)]  # [B, W, P, ...]
+        return v.reshape(table.shape[0], -1, *a.shape[2:])
+
+    return quant.kv_map(gather, arena)
+
+
+def paged_view_layers(arena: quant.TensorOrQuant, table: torch.Tensor,
+                      out: quant.TensorOrQuant):
+    """`paged_view` over a full [L, N + 1, P, KVH, Dh] arena, written into
+    the head of `out` (an [L, B, >= W·P, KVH, Dh] tensor or
+    QuantizedTensor, e.g. an admission mini cache's leaf) one layer at a
+    time, so no [L, B, W·P] temporary is made. Returns `out`."""
+
+    def fill(o, a):
+        width = table.shape[1] * a.shape[2]
+        for layer in range(a.shape[0]):
+            o[layer, :, :width] = paged_view(a[layer], table)
+        return o
+
+    return quant.kv_map(fill, out, arena)
+
+
+def _kv_leaf(shape, dtype, device, kv_dtype: str) -> quant.TensorOrQuant:
+    if kv_dtype == "int8":
+        return QuantizedTensor(
+            q=torch.zeros(shape, dtype=torch.int8, device=device),
+            scale=torch.zeros(shape[:-1] + (1,), dtype=dtype, device=device),
+        )
+    if kv_dtype:
+        raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -224,11 +300,19 @@ def attention_block(
     cache_v: Optional[quant.TensorOrQuant],
     cache_len: Optional[torch.Tensor],  # [B]
     use_flash: Optional[bool] = None,
+    page_table: Optional[torch.Tensor] = None,  # [B, W] paged block table
 ) -> torch.Tensor:
     """Pre-norm GQA attention with residual. With a cache, the step's
     K/V are written at each row's current length and attention reads
     the whole cache prefix (q_offset = cache_len, kv_len = cache_len +
     S); writes past S_max land in the scratch slot.
+
+    With `page_table`, cache_k/v are one layer's page arena [N + 1, P,
+    KVH, Dh] (PagedKVCache): position j of row b is written at (table[b,
+    j // P], j % P) — through a sentinel entry or past the table's width
+    into the scratch page N — and attention reads the table-gathered
+    [B, W·P] view through `attention_ref`, as the reference pins its XLA
+    path there.
 
     An int8 cache (QuantizedTensor leaves): the step's K/V are quantized
     per (position, head), values and scales are written at the same
@@ -246,7 +330,39 @@ def attention_block(
                    cfg.rope_scaling)
     v = v.reshape(b, s, kvh, hd)
 
-    if cache_k is not None:
+    if cache_k is not None and page_table is not None:
+        page = cache_k.shape[1]
+        n_pages = cache_k.shape[0] - 1
+        width = page_table.shape[1]
+        write_pos = cache_len.long()[:, None] + torch.arange(
+            s, device=x.device
+        )[None, :]
+        w_idx = write_pos // page
+        w_page = torch.where(
+            w_idx < width,
+            torch.gather(page_table.long(), 1, torch.clamp(w_idx, max=width - 1)),
+            n_pages,
+        )
+        w_off = write_pos % page
+
+        def put(arena: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+            arena[w_page, w_off] = new.to(arena.dtype)
+            return arena
+
+        if isinstance(cache_k, QuantizedTensor):
+            quant.kv_map(put, cache_k, quant.quantize(k, axis=-1))
+            quant.kv_map(put, cache_v, quant.quantize(v, axis=-1))
+            k_all = quant.dequantize(paged_view(cache_k, page_table))
+            v_all = quant.dequantize(paged_view(cache_v, page_table))
+        else:
+            put(cache_k, k)
+            put(cache_v, v)
+            k_all = paged_view(cache_k, page_table)
+            v_all = paged_view(cache_v, page_table)
+        kv_len = (cache_len + s).to(torch.int32)
+        q_offset = cache_len.to(torch.int32)
+        use_flash = False  # a gathered view: the reference's XLA path
+    elif cache_k is not None:
         cap = cache_k.shape[1] - 1
         write_pos = cache_len.long()[:, None] + torch.arange(
             s, device=x.device
@@ -287,9 +403,10 @@ def _layer(
     cache_k: Optional[quant.TensorOrQuant],
     cache_v: Optional[quant.TensorOrQuant],
     cache_len: Optional[torch.Tensor], use_flash: Optional[bool] = None,
+    page_table: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     x = attention_block(x, lp, cfg, positions, cache_k, cache_v, cache_len,
-                        use_flash)
+                        use_flash, page_table)
     normed = common.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     gate = F.silu(quant.matmul(normed, lp["w_gate"]))
     up = quant.matmul(normed, lp["w_up"])
@@ -305,12 +422,14 @@ def forward(
     params: Params,
     cfg: LlamaConfig,
     tokens: torch.Tensor,  # [B, S]
-    cache: Optional[KVCache] = None,
+    cache: "Optional[KVCache | PagedKVCache]" = None,
     use_flash: Optional[bool] = None,
-) -> tuple[torch.Tensor, Optional[KVCache]]:
+) -> "tuple[torch.Tensor, Optional[KVCache | PagedKVCache]]":
     """Without a cache: plain causal forward. With a cache: tokens are
     appended at each row's cache length (prefill S > 1, decode S = 1);
-    the cache is updated in place and its length advanced by S.
+    the cache is updated in place and its length advanced by S. A
+    `PagedKVCache` threads through the same way, its block table riding
+    into every layer's attention.
     `use_flash`: None = auto (ops/attention.py), False = `attention_ref`
     everywhere (an int8 cache forces it per layer).
     Returns (float32 logits [B, S, V], cache or None)."""
@@ -323,6 +442,7 @@ def forward(
         else steps.expand(b, s)
     )
     layers = params["layers"]
+    table = cache.table if isinstance(cache, PagedKVCache) else None
     for layer in range(cfg.num_layers):
         lp = {name: _at(layer, w) for name, w in layers.items()}
         if cache is None:
@@ -330,7 +450,7 @@ def forward(
         else:
             x = _layer(
                 x, lp, cfg, positions, _at(layer, cache.k),
-                _at(layer, cache.v), cache.length, use_flash,
+                _at(layer, cache.v), cache.length, use_flash, table,
             )
     if cache is not None:
         cache.length = cache.length + s

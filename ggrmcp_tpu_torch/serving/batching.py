@@ -1,8 +1,8 @@
-"""Continuous batching for the generation engine, default path.
+"""Continuous batching for the generation engine.
 
-Port of `ggrmcp_tpu/serving/batching.py::ContinuousBatcher` under the
-default `BatchingConfig`: one contiguous KV slot pool shared by
-`max_batch_size` slots. Requests join free slots between decode ticks:
+Port of `ggrmcp_tpu/serving/batching.py::ContinuousBatcher`: a slot pool
+shares one KV cache (`max_batch_size` slots). Requests join free slots
+between decode ticks:
 
 - a prompt of at most `prefill_chunk` tokens takes FUSED admission —
   a [1, S] (one request) or [B, S] (a burst, rows at their slots'
@@ -14,13 +14,28 @@ default `BatchingConfig`: one contiguous KV slot pool shared by
   steps for the whole pool, sampling through the per-row dynamic path
   with grammar state 0.
 
+KV reuse, each behind the reference's switch and with its semantics:
+
+- `prefix_cache_entries > 0`: a slot-granular pool of prompt prefixes
+  (stored on a trickle admission, learned from a fused burst, upgraded
+  on the serial bridge path); a hit seeds the admission mini cache and
+  prefills only the suffix, a same-preamble wave in ONE group call;
+- `prefill_interleave = "on"`: a long prompt arriving while slots decode
+  holds a reserved slot and rides the decode ticks one [K, C] chunk of
+  a carried mini cache at a time, so no slot stalls for a whole prefill;
+- `paged_kv = "on"`: the pool becomes one page arena with block tables
+  (models/llama.py::PagedKVCache) and a host allocator
+  (serving/pages.py): page-aligned prefix sharing with refcounts,
+  copy-on-write at the divergent page, a typed "overloaded" shed when
+  the arena is exhausted.
+
 Device work runs in the default executor (never on the event loop),
-one call at a time. Paged KV, the prefix pool, interleave, speculative
-ticks, grammar, LoRA, the scheduler, SLO accounting and the flight
+one call at a time; ticks are synchronous. Speculative ticks, grammar,
+LoRA, the scheduler, the host page tier, SLO accounting and the flight
 recorder are not ported yet (core/config.py rejects their settings).
-Every copy between a mini cache and the pool goes through `quant.kv_map`,
-so an int8 KV cache (the engine's `kv_dtype`) moves values and scales
-alike.
+Every copy between a mini cache, the prefix pool and the pool goes
+through `quant.kv_map`, so an int8 KV cache (the engine's `kv_dtype`)
+moves values and scales alike.
 """
 
 from __future__ import annotations
@@ -36,6 +51,7 @@ import numpy as np
 import torch
 
 from ggrmcp_tpu_torch.core.config import BatchingConfig, resolve_decode_steps
+from ggrmcp_tpu_torch.models import llama as llama_mod
 from ggrmcp_tpu_torch.ops import quant
 from ggrmcp_tpu_torch.ops.sampling import (
     SamplingConfig,
@@ -47,6 +63,7 @@ from ggrmcp_tpu_torch.serving.engine import (
     bucket_len,
     fit_request,
 )
+from ggrmcp_tpu_torch.serving.pages import PageAllocator, PageExhaustedError
 
 logger = logging.getLogger("ggrmcp.torch.batching")
 
@@ -114,6 +131,20 @@ class _Slot:
     request: Optional["_Request"] = None
     generated: int = 0
     max_new: int = 0
+    # Held by an interleaved admission in progress: not decoding yet,
+    # not free either (_free_slots skips it until _activate_slot).
+    reserved: bool = False
+
+
+@dataclasses.dataclass
+class _IlvRow:
+    """One admitting row of the interleave mini cache: host-side progress
+    of a long prompt advancing one chunk per tick (prefill_interleave)."""
+
+    request: "_Request"
+    slot: int
+    n: int  # prompt length
+    progress: int = 0  # tokens already written into the mini row
 
 
 @dataclasses.dataclass
@@ -146,7 +177,8 @@ def _pct(values: list[float], q: float) -> float:
 
 
 class ContinuousBatcher:
-    """Slot-based continuous batching over a shared contiguous KV cache."""
+    """Slot-based continuous batching over a shared KV cache (contiguous,
+    or a page arena under paged_kv)."""
 
     def __init__(self, engine, cfg: Optional[BatchingConfig] = None,
                  eos_id: int = 2):
@@ -166,7 +198,36 @@ class ContinuousBatcher:
         # request reserves that much cache (pipelined ticks are off).
         self._reserve = self._steps_per_tick - 1
         self.max_seq = min(self.cfg.kv_cache_max_seq, engine.cfg.max_seq_len)
-        self.cache = engine.make_cache(b, self.max_seq)
+        # Paged KV (paged_kv=on): the shared cache is a page arena with
+        # block tables; the host allocator owns the tables (uploaded to
+        # the device before a tick when dirty).
+        self._paged = self.cfg.paged_kv == "on"
+        if self._paged:
+            # core/config.py mirrors these; a batcher built directly
+            # must hit the same walls.
+            if self.cfg.prefix_cache_entries:
+                raise ValueError(
+                    "paged_kv supersedes the slot-granular prefix pool; "
+                    "set prefix_cache_entries to 0"
+                )
+            page = max(1, int(self.cfg.paged_kv_page_size))
+            if self.max_seq % page:
+                raise ValueError(
+                    f"paged_kv_page_size ({page}) must divide the cache "
+                    f"max_seq ({self.max_seq})"
+                )
+            self._page_size = page
+            self._table_width = self.max_seq // page
+            self._n_pages = (
+                int(self.cfg.paged_kv_pages or 0) or b * self._table_width
+            )
+            self.pages: Optional[PageAllocator] = PageAllocator(
+                self._n_pages, page, slots=b, table_width=self._table_width,
+            )
+            self._tables_dirty = False
+        else:
+            self.pages = None
+        self.cache = self._make_shared_cache()
         # True while a device call that writes the SHARED cache is in
         # flight; admission failure rebuilds the cache only when set.
         self._cache_at_risk = False
@@ -180,6 +241,35 @@ class ContinuousBatcher:
         self._g_allow, self._g_trans = trivial_grammar_tables(
             engine.cfg.vocab_size, self.device
         )
+        # Prefix pool: entries shaped like mini-cache rows, so a hit is
+        # one copy into the admission mini. Host maps (keys, LRU stamps)
+        # are touched only inside the executor calls.
+        pe = self.cfg.prefix_cache_entries
+        self._pfx_max = min(self.cfg.prefix_cache_max_seq, self.max_seq)
+        self._pfx_min = max(1, self.cfg.prefix_cache_min_seq)
+        # A storable prompt needs _pfx_min + 1 tokens AND must be
+        # admissible (fit_request's bound).
+        poolable = self._pfx_min + 1 <= self.max_seq - self._reserve - 2
+        if pe > 0 and poolable:
+            self._pfx_pool = engine.make_cache(pe, self._pfx_max)
+            self._pfx_keys: list[Optional[np.ndarray]] = [None] * pe
+            self._pfx_used = [0] * pe  # LRU stamps
+            self._pfx_clock = 0
+        else:
+            self._pfx_pool = None
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        # Interleave (prefill_interleave=on): K admitting rows of a
+        # carried [K, S_max] mini cache, further long prompts queued.
+        self._ilv_k = (
+            max(1, int(self.cfg.prefill_interleave_rows))
+            if self.cfg.prefill_interleave == "on" else 0
+        )
+        self._ilv_rows: list[Optional[_IlvRow]] = [None] * self._ilv_k
+        self._ilv_pending: deque = deque()
+        self._ilv_mini = None  # lazily _make_mini(K, max_seq)
+        self.interleaved_chunks = 0
+        self.interleaved_admissions = 0
         self.timing = {
             "tick_dispatch_ms": 0.0, "tick_collect_ms": 0.0,
             "admit_ms": 0.0, "admit_ms_max": 0.0,
@@ -209,14 +299,87 @@ class ContinuousBatcher:
         )
         return tokens
 
+    def _make_mini(self, rows: int, length: int) -> llama_mod.KVCache:
+        """Admission mini cache in the engine's KV dtype."""
+        return self.engine.make_cache(rows, length)
+
+    def _make_shared_cache(self):
+        """The shared cache of this batcher's shape: the initial build and
+        every failure rebuild go through here."""
+        if self._paged:
+            return self.engine.make_paged_cache(
+                len(self.slots), self.max_seq, self._n_pages,
+                self._page_size,
+            )
+        return self.engine.make_cache(len(self.slots), self.max_seq)
+
+    def _sync_tables(self) -> None:
+        """Upload the host block tables when they changed since the last
+        upload (a copy: the host tables keep changing). Only the decode
+        tick reads the device tables; admission merges index pages from
+        the host tables directly (_paged_put)."""
+        if self._paged and self._tables_dirty:
+            self.cache.table = torch.tensor(self.pages.tables,
+                                            device=self.device)
+            self._tables_dirty = False
+
     # -- device bodies ----------------------------------------------------
 
-    def _merge(self, merge, mini) -> None:
-        """Copy a mini cache's K/V into the pool in place through
-        `merge(pool_leaf, mini_leaf)`; `kv_map` applies it to an int8
-        cache's values and scales alike."""
-        quant.kv_map(merge, self.cache.k, mini.k)
-        quant.kv_map(merge, self.cache.v, mini.v)
+    def _merge(self, merge, src, dst=None) -> None:
+        """Copy `src`'s K/V into `dst` (the pool by default) in place
+        through `merge(dst_leaf, src_leaf)`; `kv_map` applies it to an
+        int8 cache's values and scales alike."""
+        dst = self.cache if dst is None else dst
+        quant.kv_map(merge, dst.k, src.k)
+        quant.kv_map(merge, dst.v, src.v)
+
+    def _merge_rows(self, mini, rows, slots, lens, start: int = 0) -> None:
+        """The one row merge of every admission route: mini rows `rows`
+        (host list) become the pool's slots `slots` with lengths `lens`.
+        Contiguous: whole rows are copied. Paged: _paged_put writes only
+        positions [start, len) (start > 0 = the paged prefix admission's
+        shared-page boundary). Padding rows of a group are never listed —
+        the reference's out-of-range scatter drops them."""
+        dst = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+        if self._paged:
+            self._paged_put(mini, rows, slots, lens, start)
+        else:
+            src = torch.as_tensor(rows, dtype=torch.long, device=self.device)
+            cap = mini.capacity
+
+            def merge(pool, m):
+                pool[:, dst, :cap] = m[:, src, :cap]
+                return pool
+
+            self._merge(merge, mini)
+        self.cache.length[dst] = self._t(np.asarray(lens, np.int32))
+
+    def _paged_put(self, mini, rows, slots, lens, start: int) -> None:
+        """Paged counterpart of the row merge: write mini row rows[i]'s
+        positions [start, lens[i]) into slot slots[i]'s pages. The
+        positions below `start` are SHARED pages (immutable, refcounted)
+        and are never written. The pages come from the host tables — the
+        authoritative mapping the device tables are a snapshot of."""
+        p = self._page_size
+        src_row, src_pos, dst_page = [], [], []
+        for row, sl, n in zip(rows, slots, lens):
+            pos = np.arange(start, int(n))
+            pages = self.pages.tables[sl, pos // p]
+            keep = pages != self.pages.sentinel
+            src_row.append(np.full(int(keep.sum()), row))
+            src_pos.append(pos[keep])
+            dst_page.append(pages[keep])
+        src_row = self._t(np.concatenate(src_row).astype(np.int64))
+        pos = np.concatenate(src_pos).astype(np.int64)
+        src_pos, dst_off = self._t(pos), self._t(pos % p)
+        dst_page = self._t(np.concatenate(dst_page).astype(np.int64))
+
+        def put(arena, m):
+            arena[:, dst_page, dst_off] = m[:, src_row, src_pos].to(
+                arena.dtype)
+            return arena
+
+        self._merge(put, mini)
 
     def _admit_full_impl(self, params, tokens, true_len, valid_rows,
                          seeds, temps, ks, ps):
@@ -226,51 +389,40 @@ class ContinuousBatcher:
         first-token sample, then the admitted rows' K/V and lengths are
         copied into the pool (other rows keep their state)."""
         r, s = tokens.shape
-        mini = self.engine.make_cache(r, s)
+        mini = self._make_mini(r, s)
         logits, mini = self.engine.prefill_forward(params, tokens, mini)
         idx = torch.clamp(true_len.long() - 1, min=0)
         last = logits[torch.arange(r, device=self.device), idx]
         first = self._sample(last, seeds, 0, temps, ks, ps)
-        rows = torch.as_tensor(valid_rows, dtype=torch.long,
-                               device=self.device)
-
-        def merge(pool, m):
-            pool[:, rows, :s] = m[:, rows, :s]
-            return pool
-
-        self._merge(merge, mini)
-        self.cache.length[rows] = true_len[rows].to(torch.int32)
+        lens = true_len.tolist()
+        self._merge_rows(mini, valid_rows, valid_rows,
+                         [lens[i] for i in valid_rows])
         return first
 
     def _admit_single_impl(self, params, tokens, true_len, slot,
                            seeds, temps, ks, ps):
         """One request (row shapes [1, S]) into slot `slot`."""
-        s = tokens.shape[1]
-        mini = self.engine.make_cache(1, s)
+        mini = self._make_mini(1, tokens.shape[1])
         logits, mini = self.engine.prefill_forward(params, tokens, mini)
-        last = logits[:, max(int(true_len[0]) - 1, 0)]
+        n = int(true_len[0])
+        last = logits[:, max(n - 1, 0)]
         first = self._sample(last, seeds, 0, temps, ks, ps)
-
-        def merge(pool, m):
-            pool[:, slot, :s] = m[:, 0, :s]
-            return pool
-
-        self._merge(merge, mini)
-        self.cache.length[slot] = true_len[0]
+        self._merge_rows(mini, [0], [slot], [n])
         return first
 
-    def _chunked_scan(self, params, tokens, true_len, mini):
-        """Extend `mini` by one [R, C] chunk per grid step and capture
-        each row's logits at its final prompt position as it passes.
-        Rows shorter than the grid process padding chunks whose K/V
-        land past their final length (masked by length on merge; writes
-        past the mini's end land in its scratch slot)."""
+    def _chunked_scan(self, params, tokens, true_len, mini, start: int = 0):
+        """Extend `mini` (which already holds `start` positions per row)
+        by one [R, C] chunk per grid step and capture each row's logits
+        at its final prompt position as it passes. Rows shorter than the
+        grid process padding chunks whose K/V land past their final
+        length (masked by length on merge; writes past the mini's end
+        land in its scratch slot)."""
         r, t_steps, c = tokens.shape
         final = torch.zeros((r, self.engine.cfg.vocab_size),
                             dtype=torch.float32, device=self.device)
         last = true_len.long() - 1
         for t in range(t_steps):
-            off = t * c
+            off = start + t * c
             logits, mini = self.engine.decode_forward(
                 params, tokens[:, t], mini
             )
@@ -280,34 +432,85 @@ class ContinuousBatcher:
             final = torch.where(take[:, None], sel, final)
         return final
 
+    def _chunked_finish(self, mini, rows, slots, true_len, fl,
+                        seeds, temps, ks, ps, start: int = 0):
+        """Sample each row's first token from `fl` and merge the real rows
+        (`rows`, host list) of the [R, S_max] mini into `slots`."""
+        first = self._sample(fl, seeds, 0, temps, ks, ps)
+        lens = true_len.tolist()
+        self._merge_rows(mini, rows, slots, [lens[r] for r in rows], start)
+        return first
+
     def _admit_chunked_impl(self, params, tokens, true_len, rows, slots,
                             seeds, temps, ks, ps):
-        """Chunked admission of a group: the [R, T, C] grid against a
-        full-length [R, S_max] mini cache, first-token sample, then the
-        real rows (`rows`, host list) are copied into the pool at
-        `slots`. Padding rows are never copied — the reference's
-        out-of-range scatter drops them, here they are not indexed."""
-        r = tokens.shape[0]
-        mini = self.engine.make_cache(r, self.max_seq)
-        final = self._chunked_scan(params, tokens, true_len, mini)
-        first = self._sample(final, seeds, 0, temps, ks, ps)
-        src = torch.as_tensor(rows, dtype=torch.long, device=self.device)
-        dst = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+        """Chunked admission of a group (no prefix): the [R, T, C] grid
+        against a full-length [R, S_max] mini cache, then the merge and
+        the first-token sample."""
+        mini = self._make_mini(tokens.shape[0], self.max_seq)
+        fl = self._chunked_scan(params, tokens, true_len, mini)
+        return self._chunked_finish(mini, rows, slots, true_len, fl,
+                                    seeds, temps, ks, ps)
 
-        def merge(pool, m):
-            pool[:, dst] = m[:, src]
-            return pool
+    def _pfx_seeded_mini(self, rows: int, entry: int, start: int):
+        """A full-length [rows, S_max] mini whose every row holds prefix
+        pool entry `entry`, its length set to `start` (the suffix
+        prefill then extends from there)."""
+        mini = self._make_mini(rows, self.max_seq)
+        m = self._pfx_max
 
-        self._merge(merge, mini)
-        self.cache.length[dst] = true_len[src].to(torch.int32)
-        return first
+        def load(mini_leaf, pool_leaf):
+            mini_leaf[:, :, :m] = pool_leaf[:, entry:entry + 1, :m]
+            return mini_leaf
+
+        self._merge(load, self._pfx_pool, dst=mini)
+        mini.length = torch.full((rows,), start, dtype=torch.int32,
+                                 device=self.device)
+        return mini
+
+    def _admit_chunked_pfx_impl(self, params, tokens, true_len, rows, slots,
+                                entry, start, seeds, temps, ks, ps):
+        """Prefix-reuse admission: pool entry `entry` seeds the first
+        `start` positions of EVERY row, then the [R, 1, W] suffix grid
+        runs from `start` — one call admits a same-preamble wave."""
+        mini = self._pfx_seeded_mini(tokens.shape[0], entry, start)
+        fl = self._chunked_scan(params, tokens, true_len, mini, start)
+        return self._chunked_finish(mini, rows, slots, true_len, fl,
+                                    seeds, temps, ks, ps)
+
+    def _paged_gathered_mini(self, gtables: np.ndarray, scan_start: int):
+        """A full-length mini whose rows hold the arena pages of their
+        gather tables (shared prefix, CoW source at the divergent entry),
+        its length set to `scan_start`."""
+        r = gtables.shape[0]
+        mini = self._make_mini(r, self.max_seq)
+        table = self._t(gtables.astype(np.int64))
+        for leaf, arena in ((mini.k, self.cache.k), (mini.v, self.cache.v)):
+            llama_mod.paged_view_layers(arena, table, out=leaf)
+        mini.length = torch.full((r,), scan_start, dtype=torch.int32,
+                                 device=self.device)
+        return mini
+
+    def _admit_paged_pfx_impl(self, params, tokens, true_len, rows, slots,
+                              gtables, scan_start, merge_start,
+                              seeds, temps, ks, ps):
+        """Paged prefix-reuse admission: gather each row's shared prefix
+        into a full-width mini through the host-built gather tables, run
+        the [R, T, C] suffix grid from `scan_start`, and write positions
+        [merge_start, n) into the rows' OWN pages. Shared pages are read,
+        never written; scan_start > merge_start is the copy-on-write case
+        (the overlap's K/V ride the gather into the slot's own page)."""
+        mini = self._paged_gathered_mini(gtables, scan_start)
+        fl = self._chunked_scan(params, tokens, true_len, mini, scan_start)
+        return self._chunked_finish(mini, rows, slots, true_len, fl,
+                                    seeds, temps, ks, ps, start=merge_start)
 
     def _tick_impl(self, params, tokens, seeds, step, temps, ks, ps):
         """`decode_steps_per_tick` decode steps for the whole pool.
         Tokens a slot samples after its EOS / max_new are dropped on
         the host (_emit_chunk); their cache writes are masked by length
         when the slot is reused, and a write past the end of the cache
-        lands in its scratch slot. Returns tokens [B, steps]."""
+        lands in its scratch slot (scratch page when paged). Returns
+        tokens [B, steps]."""
         out = []
         cur = tokens
         for i in range(self._steps_per_tick):
@@ -317,6 +520,240 @@ class ContinuousBatcher:
             cur = self._sample(logits[:, -1], seeds, step + i, temps, ks, ps)
             out.append(cur)
         return torch.stack(out, dim=1)
+
+    def _chunk_extend(self, params, chunk, offs, c_true_len):
+        """Extend the carried [K, S_max] interleave mini by one [K, C]
+        chunk at the host-stamped offsets and gather each row's logits
+        at its final prompt position within this chunk."""
+        mini = self._ilv_mini
+        mini.length = offs.to(torch.int32)
+        c = chunk.shape[1]
+        logits, _ = self.engine.decode_forward(params, chunk, mini)
+        idx = torch.clamp(c_true_len.long() - 1 - offs.long(), 0, c - 1)
+        return logits[torch.arange(chunk.shape[0], device=self.device), idx]
+
+    def _tick_chunk_impl(self, params, tokens, seeds, step, temps, ks, ps,
+                         chunk, offs, c_true_len):
+        """A decode tick for every slot AND one [K, C] prefill chunk for
+        the admitting rows, in one executor call: an active slot's
+        emission gaps by one chunk's compute, never a whole prefill.
+        Idle rows run junk chunks at offset 0 (their next occupant
+        re-stamps the offset). Returns (tokens [B, steps], sel [K, V])."""
+        toks = self._tick_impl(params, tokens, seeds, step, temps, ks, ps)
+        sel = self._chunk_extend(params, chunk, offs, c_true_len)
+        return toks, sel
+
+    def _ilv_finish_impl(self, row, slot, n, sel, seeds, temps, ks, ps):
+        """Final-chunk completion of one interleaved admission: copy mini
+        row `row` into the pool at `slot` with length `n` and sample the
+        first token from that row's final-position logits."""
+        self._merge_rows(self._ilv_mini, [row], [slot], [n])
+        return self._sample(sel[row:row + 1], seeds, 0, temps, ks, ps)
+
+    def _pfx_store_impl(self, src, row: int, entry: int, plen: int) -> None:
+        """Copy the first `_pfx_max` positions of row `row` of `src` (a
+        prefilled mini, or the shared cache: prefix K/V depend only on
+        prefix tokens, so any admitted row holding the prefix is a valid
+        source) into pool entry `entry`."""
+        m = self._pfx_max
+
+        def store(pool, src_leaf):
+            pool[:, entry, :m] = src_leaf[:, row, :m]
+            return pool
+
+        self._merge(store, src, dst=self._pfx_pool)
+        self._pfx_pool.length[entry] = plen
+
+    # -- prefix-pool host side (executor-serialized) -----------------------
+
+    @staticmethod
+    def _lcp(a: np.ndarray, b: np.ndarray, limit: int) -> int:
+        m = min(len(a), len(b), limit)
+        neq = np.nonzero(a[:m] != b[:m])[0]
+        return int(neq[0]) if neq.size else m
+
+    def _pfx_plan(
+        self, n: int, plen: int
+    ) -> tuple[int, list[tuple[int, int]]]:
+        """Prefill step geometry for an n-token prompt whose first `plen`
+        positions are pooled: the reuse point `start` (0 = unusable) and
+        the (offset, width) steps covering [start, n). Every step writes
+        its whole [1, width] block, so offset + width stays inside the
+        mini, and every non-final step is full of real tokens. A short
+        suffix runs as ONE bucketed step whose start is lowered until it
+        fits; a long one takes one bucketed BRIDGE step to the next chunk
+        boundary, then the fixed chunk grid."""
+        c = min(self.cfg.prefill_chunk, self.max_seq)
+        if n - plen <= c:
+            width = bucket_len(n - plen, maximum=self.max_seq)
+            start = max(0, min(plen, self.max_seq - width))
+            return start, [(start, bucket_len(n - start, maximum=self.max_seq))]
+        boundary = (plen // c + 1) * c
+        width = bucket_len(boundary - plen, maximum=self.max_seq)
+        start = boundary - width
+        if start >= 0:
+            return start, [(start, width)] + [
+                (off, c) for off in range(boundary, n, c)
+            ]
+        # Tiny chunk sizes: no alignment possible.
+        return 0, [(off, c) for off in range(0, n, c)]
+
+    def _pfx_lookup(self, prompt: list[int]) -> Optional[tuple[int, int]]:
+        """Entry with the longest common prefix against `prompt` (capped
+        at len(prompt) - 1: one suffix token must run for the sampling
+        logits). A match whose plan start is 0 is not a hit: it neither
+        refreshes the LRU stamp nor diverts the request from fused
+        admission. Returns (entry, prefix_len) or None."""
+        if self._pfx_pool is None or all(
+            key is None for key in self._pfx_keys
+        ):
+            return None
+        arr = np.asarray(prompt[: self._pfx_max], np.int32)
+        limit = len(prompt) - 1
+        best: Optional[tuple[int, int]] = None
+        for e, key in enumerate(self._pfx_keys):
+            if key is None:
+                continue
+            lcp = self._lcp(key, arr, limit)
+            if lcp >= self._pfx_min and (best is None or lcp > best[1]):
+                best = (e, lcp)
+        if best is None or self._pfx_plan(len(prompt), best[1])[0] == 0:
+            return None
+        self._pfx_clock += 1
+        self._pfx_used[best[0]] = self._pfx_clock
+        return best
+
+    def _pfx_covered(self, arr: np.ndarray, length: int) -> bool:
+        """True if a pooled key already covers the first `length` tokens
+        of `arr`."""
+        if self._pfx_pool is None:
+            return False
+        return any(
+            k is not None and len(k) >= length
+            and self._lcp(k, arr, length) == length
+            for k in self._pfx_keys
+        )
+
+    def _pfx_storable(self, prompt: list[int]) -> Optional[np.ndarray]:
+        """The key this prompt's prefix would pool under, or None if too
+        short."""
+        if self._pfx_pool is None:
+            return None
+        plen = min(len(prompt) - 1, self._pfx_max)
+        if plen < self._pfx_min:
+            return None
+        return np.asarray(prompt[:plen], np.int32)
+
+    def _pfx_commit(self, key: np.ndarray, pool_fn) -> None:
+        """Pick the entry (free, else LRU), run `pool_fn(entry)` to write
+        it, evict any entry the new key subsumes. A failed write only
+        skips the caching, and forgets the entry it may have half
+        overwritten (the reference's pool is not donated and survives)."""
+        free = [e for e, k in enumerate(self._pfx_keys) if k is None]
+        entry = free[0] if free else min(
+            range(len(self._pfx_keys)), key=lambda e: self._pfx_used[e]
+        )
+        try:
+            pool_fn(entry)
+            int(self._pfx_pool.length[entry])  # surfaces a device fault
+        except Exception:
+            logger.exception("prefix-pool store failed; entry not cached")
+            self._pfx_keys[entry] = None
+            return
+        self._pfx_keys[entry] = key
+        self._pfx_clock += 1
+        self._pfx_used[entry] = self._pfx_clock
+        for e, other in enumerate(self._pfx_keys):
+            if (
+                e != entry and other is not None
+                and len(other) <= len(key)
+                and self._lcp(other, key, len(key)) == len(other)
+            ):
+                # `key` extends `other`: the shorter entry can never
+                # out-match the new one again.
+                self._pfx_keys[e] = None
+
+    def _pfx_learn_from_burst(
+        self, slots_idx: list[int], batch: list[_Request]
+    ) -> None:
+        """After a fused burst, pool the prefix shared by the most rows,
+        copied from one admitted row's cache slice — one extra device
+        call, only when at least two rows share a poolable prefix (the
+        agentic arrival shape: N sessions with one system prompt)."""
+        if self._pfx_pool is None or len(batch) < 2:
+            return
+        prompts = [
+            np.asarray(r.prompt[: self._pfx_max + 1], np.int32)
+            for r in batch
+        ]
+        best: Optional[tuple[int, int, int]] = None  # (count, lcp, row)
+        for i in range(len(prompts)):
+            for j in range(i + 1, len(prompts)):
+                a, b = prompts[i], prompts[j]
+                # each sharer must keep >= 1 suffix token past the prefix
+                lcp = self._lcp(
+                    a, b, min(len(a) - 1, len(b) - 1, self._pfx_max)
+                )
+                if lcp < self._pfx_min:
+                    continue
+                key = a[:lcp]
+                count = sum(
+                    1 for p in prompts
+                    if len(p) > lcp and np.array_equal(p[:lcp], key)
+                )
+                cand = (count, lcp, i)
+                if best is None or cand[:2] > best[:2]:
+                    best = cand
+        if best is None:
+            return
+        _, lcp, row = best
+        key = prompts[row][:lcp]
+        if self._pfx_covered(key, lcp):
+            return  # an existing entry already covers this prefix
+        slot = slots_idx[row]
+        self._pfx_commit(
+            key, lambda entry: self._pfx_store_impl(
+                self.cache, slot, entry, lcp)
+        )
+
+    def _prefill_chunked(
+        self, slot_idx: int, request: _Request, pfx: tuple[int, int]
+    ) -> None:
+        """The serial BRIDGE path: a prefix hit whose suffix needs more
+        than one step (_pfx_plan). The pooled K/V seed a [1, S_max] mini,
+        the steps run one call each, the mini row is inserted and the
+        first token sampled; a longer prefix than the hit's is pooled
+        from the mini on the way."""
+        prompt = request.prompt
+        n = len(prompt)
+        entry, plen = pfx
+        # Lookup already rejected unusable matches: start > 0 here.
+        start, steps = self._pfx_plan(n, plen)
+        self.prefix_hits += 1
+        mini = self._pfx_seeded_mini(1, entry, start)
+        logits = None
+        for off, width in steps:
+            chunk = np.zeros((1, width), np.int64)
+            piece = prompt[off: off + width]
+            chunk[0, : len(piece)] = piece
+            logits, _ = self.engine.decode_forward(
+                self.engine.params, self._t(chunk), mini)
+        key = self._pfx_storable(prompt)
+        if key is not None and plen < len(key):
+            self._pfx_commit(
+                key, lambda e: self._pfx_store_impl(mini, 0, e, len(key))
+            )
+        self._cache_at_risk = True
+        self._merge_rows(mini, [0], [slot_idx], [n])
+        # The last real token sits at n - last_offset - 1 of the final step.
+        sampling = self._row_params(1, [(0, request)])
+        first = self._sample(
+            logits[:, n - steps[-1][0] - 1], sampling["seeds"], 0,
+            sampling["temps"], sampling["ks"], sampling["ps"],
+        )
+        first_tok = int(first.cpu()[0])
+        self._cache_at_risk = False
+        self._activate_slot(slot_idx, request, first_tok)
 
     # -- public API ---------------------------------------------------------
 
@@ -352,7 +789,8 @@ class ContinuousBatcher:
         pairs, finish_reason set on the final chunk (`unary=True`: one
         terminal chunk with all tokens). The cap check and the enqueue
         run HERE, eagerly. Raises OverloadedError when max_pending or
-        max_queue_tokens would be exceeded."""
+        max_queue_tokens would be exceeded. A paged arena that cannot
+        hold the request at admission finishes it with "overloaded"."""
         prompt, max_new = fit_request(
             prompt, max_new, self.max_seq - self._reserve
         )
@@ -395,8 +833,16 @@ class ContinuousBatcher:
             request.cancelled = True
 
     def cache_bytes(self) -> int:
-        """K/V bytes of the pool, an int8 cache's scales included."""
-        return self.cache.k.nbytes + self.cache.v.nbytes
+        """KV bytes: the pool (or the page arena and its block tables),
+        the prefix pool and the interleave mini once allocated, an int8
+        cache's scales included."""
+        total = self.cache.k.nbytes + self.cache.v.nbytes
+        if self._paged:
+            total += self.cache.table.nbytes
+        for extra in (self._pfx_pool, self._ilv_mini):
+            if extra is not None:
+                total += extra.k.nbytes + extra.v.nbytes
+        return total
 
     def stats(self) -> dict:
         """Counters and latency percentiles for GetServingStats (the
@@ -414,6 +860,16 @@ class ContinuousBatcher:
             "kv_cache_bytes": self.cache_bytes(),
             "memory_kv_arena_bytes": self.cache.nbytes(),
             "memory_weights_bytes": self.engine.weight_bytes(),
+            "prefix_cache_hits": self.prefix_hits,
+            "prefix_cache_misses": self.prefix_misses,
+            "interleaved_chunks": self.interleaved_chunks,
+            "interleaved_admissions": self.interleaved_admissions,
+            **(self.pages.stats() if self._paged else {
+                "kv_pages_total": 0, "kv_pages_in_use": 0,
+                "kv_pages_shared": 0, "paged_prefix_hits": 0,
+                "paged_cow_copies": 0, "paged_pages_reused": 0,
+                "paged_pages_admitted": 0,
+            }),
             "decode_steps": self.step_counter,
             "timed_out": 0,
             "shed_requests": self.shed,
@@ -439,16 +895,27 @@ class ContinuousBatcher:
     # -- the loop -----------------------------------------------------------
 
     def _free_slots(self) -> list[int]:
-        return [i for i, s in enumerate(self.slots) if not s.active]
+        return [
+            i for i, s in enumerate(self.slots)
+            if not s.active and not s.reserved
+        ]
 
     def _active_count(self) -> int:
         return sum(s.active for s in self.slots)
+
+    def _ilv_busy(self) -> bool:
+        """Interleaved admissions in flight (rows chunking or queued for
+        a row): the loop keeps ticking for them even with no active
+        decode slot."""
+        return any(r is not None for r in self._ilv_rows) or bool(
+            self._ilv_pending
+        )
 
     async def _loop(self) -> None:
         loop = asyncio.get_running_loop()
         while not self._stopping:
             await self._admit()
-            if self._active_count() == 0:
+            if self._active_count() == 0 and not self._ilv_busy():
                 # Clear BEFORE checking pending: a submit() landing after
                 # the check still leaves its set() visible to wait().
                 self._wake.clear()
@@ -492,17 +959,36 @@ class ContinuousBatcher:
         self.pending.requeue_front(request)
         self._wake.set()
 
+    def _reset_shared_cache(self) -> None:
+        """Rebuild the shared cache from zeros; a paged arena's host
+        allocator forgets every page and index entry with it (victims
+        replay through admission, which re-maps and re-registers)."""
+        if self._paged:
+            self.pages.reset()
+            self._tables_dirty = True
+        self.cache = self._make_shared_cache()
+
     def _recover_after_tick_failure(self) -> None:
         """A failed tick leaves the pool's K/V unknown: replay every
-        active request from its prompt + emitted tokens on a fresh
-        cache (of the engine's KV dtype)."""
+        active request from its prompt + emitted tokens on a fresh cache
+        (of the engine's KV dtype). In-flight interleaved admissions die
+        with the tick's mini; they have emitted nothing, so they replay
+        from their prompt (and burn a retry, or a poisonous prompt would
+        requeue forever)."""
         for slot in self.slots:
             if slot.active and slot.request is not None:
                 self._replay_or_fail(slot.request)
             slot.active = False
             slot.request = None
+            slot.reserved = False
+        for st in list(self._ilv_rows) + list(self._ilv_pending):
+            if st is not None:
+                self._replay_or_fail(st.request)
+        self._ilv_rows = [None] * self._ilv_k
+        self._ilv_pending.clear()
+        self._ilv_mini = None
         self._slot_last_emit = [None] * len(self.slots)
-        self.cache = self.engine.make_cache(len(self.slots), self.max_seq)
+        self._reset_shared_cache()
 
     async def _admit(self) -> int:
         """Drain pending requests into free slots: one batch per round,
@@ -518,8 +1004,12 @@ class ContinuousBatcher:
                     timeout = deadline - time.monotonic()
                     if timeout <= 0 or admitted + len(batch) >= len(self.slots):
                         break
-                    if self._active_count() > 0 or admitted > 0 or batch:
-                        # Don't stall running decodes for stragglers.
+                    if (
+                        self._active_count() > 0 or admitted > 0 or batch
+                        or self._ilv_busy()
+                    ):
+                        # Don't stall running decodes (or in-flight
+                        # interleaved chunk work) for stragglers.
                         request = self.pending.get_nowait()
                     else:
                         request = await asyncio.wait_for(
@@ -550,10 +1040,24 @@ class ContinuousBatcher:
                 for request in batch:
                     if id(request) not in activated:
                         self._deliver(request, ([], "error"))
+                if self._paged and not cache_dead:
+                    # The arena survived, but the failed rows' tables
+                    # must not leak their pages, and their eagerly
+                    # indexed, never-prefilled pages leave the index.
+                    for sl, request in zip(slots_idx, batch):
+                        if id(request) not in activated:
+                            self.pages.free_slot(sl, discard_index=True)
+                            self._tables_dirty = True
                 if cache_dead:
                     # The pool may be half-written: replay bystanders.
                     self._cache_at_risk = False
-                    self._recover_after_tick_failure()
+                    for slot in self.slots:
+                        if slot.active and slot.request is not None:
+                            self._replay_or_fail(slot.request)
+                        slot.active = False
+                        slot.request = None
+                    self._slot_last_emit = [None] * len(self.slots)
+                    self._reset_shared_cache()
                 continue
             admitted += len(batch)
         return admitted
@@ -562,25 +1066,121 @@ class ContinuousBatcher:
     def _prefill_into_slots(
         self, slots_idx: list[int], batch: list[_Request]
     ) -> None:
-        """Route each admission: prompts of at most prefill_chunk tokens
-        fuse into one prefill call, longer prompts go to one chunked
-        group call."""
+        """Route each admission. Paged mode first builds every row's
+        block table (sharing the longest indexed page-aligned prefix,
+        shedding "overloaded" when the arena cannot hold it); rows with
+        reuse group by suffix geometry into paged prefix calls. The rest:
+        prefix-pool hits group by step geometry into one call each (a
+        multi-step bridge plan takes the serial path), long prompts take
+        the interleave queue while slots decode or one chunked group
+        call, short prompts fuse into one prefill call."""
         t0 = time.perf_counter()
-        fused: list[tuple[int, _Request]] = []
+        fused_slots: list[int] = []
+        fused_batch: list[_Request] = []
+        pfx_groups: dict[tuple, list[tuple[int, _Request]]] = {}
         long_rows: list[tuple[int, _Request]] = []
-        for sl, req in zip(slots_idx, batch):
-            if len(req.prompt) > self.cfg.prefill_chunk:
-                long_rows.append((sl, req))
+        paged_groups: dict[tuple, list] = {}
+        # Interleave only while decode (or earlier chunk work) is in
+        # flight: on an idle pool one chunked call is strictly better.
+        ilv = self._ilv_k > 0 and (
+            self._active_count() > 0 or self._ilv_busy()
+        )
+        trickle = len(batch) == 1
+        rows = list(zip(slots_idx, batch))
+        if self._paged:
+            rows = self._paged_prepass(rows, ilv, paged_groups)
+        for sl, req in rows:
+            pfx = self._pfx_lookup(req.prompt)
+            if pfx is None and self._pfx_pool is not None:
+                # Every pool-enabled miss counts, fused admissions too.
+                self.prefix_misses += 1
+            if pfx is not None:
+                entry, plen = pfx
+                start, steps = self._pfx_plan(len(req.prompt), plen)
+                if len(steps) == 1:
+                    # Bucketed widths: same-preamble waves share a key
+                    # even when question lengths differ.
+                    key = (entry, start, steps[0][1])
+                    pfx_groups.setdefault(key, []).append((sl, req))
+                else:
+                    self._prefill_chunked(sl, req, pfx)
+            elif len(req.prompt) > self.cfg.prefill_chunk:
+                if ilv:
+                    # The slot is held; the prefill rides the ticks.
+                    self.slots[sl].reserved = True
+                    self._ilv_pending.append(
+                        _IlvRow(req, sl, len(req.prompt)))
+                    self.interleaved_admissions += 1
+                else:
+                    long_rows.append((sl, req))
             else:
-                fused.append((sl, req))
+                fused_slots.append(sl)
+                fused_batch.append(req)
         if long_rows:
             self._admit_chunked_group(long_rows)
-        if fused:
-            self._prefill_fused([s for s, _ in fused], [r for _, r in fused])
+        for (entry, start, width), group in pfx_groups.items():
+            self._admit_chunked_group(group, pfx=(entry, start, width))
+        if fused_batch:
+            self._prefill_fused(fused_slots, fused_batch)
+        # Paged groups LAST: a group may gather pages a cold call above
+        # just wrote (eager same-round registration); device work runs
+        # in issue order, so the writes land first.
+        for key, group in paged_groups.items():
+            self._admit_paged_group(group, *key)
+        if trickle and self.slots[slots_idx[0]].request is batch[0]:
+            # First sighting of a poolable prefix on a trickle admission:
+            # pool it from the admitted row's cache slice.
+            req = batch[0]
+            key = self._pfx_storable(req.prompt)
+            if key is not None and not self._pfx_covered(key, len(key)):
+                slot = slots_idx[0]
+                self._pfx_commit(key, lambda entry: self._pfx_store_impl(
+                    self.cache, slot, entry, len(key)))
         dt = (time.perf_counter() - t0) * 1000.0
         self.timing["admit_ms"] += dt
         self.timing["admit_ms_max"] = max(self.timing["admit_ms_max"], dt)
         self.timing["admit_rounds"] += 1
+
+    def _paged_prepass(self, rows, ilv: bool, paged_groups: dict):
+        """Build every row's block table (pages.admit: the longest indexed
+        page-aligned prefix refcount-shared, a copy-on-write source for
+        the divergent page, exclusive pages for prompt + max_new + tick
+        overshoot). Rows with reuse join `paged_groups` by suffix
+        geometry; an exhausted arena sheds the row "overloaded" (admit is
+        all-or-nothing: resident tables are untouched). Cold rows index
+        their full pages NOW (eager register), so same-round rows share
+        them — sound because their calls run before the paged groups,
+        except interleave-bound rows, prefilled over future ticks.
+        Returns the cold rows."""
+        c = min(self.cfg.prefill_chunk, self.max_seq)
+        cold: list[tuple[int, _Request]] = []
+        for sl, req in rows:
+            try:
+                adm = self.pages.admit(
+                    sl, req.prompt,
+                    len(req.prompt) + req.max_new + self._reserve + 1,
+                )
+            except PageExhaustedError:
+                self.shed += 1
+                self._deliver(req, ([], "overloaded"))
+                continue
+            self._tables_dirty = True
+            if adm.scan_start > 0:
+                self.prefix_hits += 1
+                suffix = len(req.prompt) - adm.scan_start
+                if suffix <= c:
+                    t_steps = 1
+                    width = bucket_len(suffix, maximum=self.max_seq)
+                else:
+                    t_steps, width = -(-suffix // c), c
+                key = (adm.merge_start, adm.scan_start, t_steps, width)
+                paged_groups.setdefault(key, []).append((sl, req, adm))
+            else:
+                self.prefix_misses += 1
+                cold.append((sl, req))
+                if not (ilv and len(req.prompt) > self.cfg.prefill_chunk):
+                    self.pages.register(sl, req.prompt)
+        return cold
 
     def _row_params(self, n: int, rows) -> dict:
         """Per-row sampling arrays for an admission call; `rows` pairs
@@ -597,31 +1197,85 @@ class ContinuousBatcher:
         return dict(seeds=self._t(seeds), temps=self._t(temps),
                     ks=self._t(ks), ps=self._t(ps))
 
-    def _admit_chunked_group(self, rows: list[tuple[int, _Request]]) -> None:
-        """ONE chunked call admitting `rows` (slot, request): the full
-        prompts run an [R, T, prefill_chunk] grid from position 0; R is
-        the group size bucketed to a power of two (padding rows run but
-        are never merged)."""
-        b = len(self.slots)
-        c = min(self.cfg.prefill_chunk, self.max_seq)
-        n_max = max(len(req.prompt) for _, req in rows)
-        t_steps = max(1, -(-n_max // c))
-        r = min(b, bucket_len(len(rows), minimum=1))
+    def _group_inputs(self, rows, r: int, t_steps: int, c: int, start: int):
+        """[R, T, C] tokens (each prompt from `start`), true lengths and
+        sampling arrays of a group call; rows past len(rows) pad."""
         tokens = np.zeros((r, t_steps * c), np.int64)
         true_len = np.ones((r,), np.int64)
-        for j, (_, req) in enumerate(rows):
-            tokens[j, : len(req.prompt)] = req.prompt
-            true_len[j] = len(req.prompt)
+        for j, row in enumerate(rows):
+            piece = row[1].prompt[start:]
+            tokens[j, : len(piece)] = piece
+            true_len[j] = len(row[1].prompt)
+        sampling = self._row_params(
+            r, [(j, row[1]) for j, row in enumerate(rows)])
+        return (self._t(tokens.reshape(r, t_steps, c)), self._t(true_len),
+                sampling)
+
+    def _admit_chunked_group(
+        self,
+        rows: list[tuple[int, _Request]],
+        pfx: Optional[tuple[int, int, int]] = None,
+    ) -> None:
+        """ONE chunked call admitting `rows` (slot, request). pfx =
+        (entry, start, width): every row reuses pool entry K/V up to
+        `start` and prefills one [R, 1, width] suffix step, R = 1 (a
+        trickle) or B (a wave); otherwise the full prompts run an [R, T,
+        prefill_chunk] grid from position 0, R the group size bucketed to
+        a power of two. Padding rows run but are never merged."""
+        b = len(self.slots)
+        if pfx is None:
+            c = min(self.cfg.prefill_chunk, self.max_seq)
+            n_max = max(len(req.prompt) for _, req in rows)
+            t_steps = max(1, -(-n_max // c))
+            start = 0
+            r = min(b, bucket_len(len(rows), minimum=1))
+        else:
+            entry, start, c = pfx
+            t_steps = 1
+            r = 1 if len(rows) == 1 else b
+        tokens, true_len, sampling = self._group_inputs(
+            rows, r, t_steps, c, start)
+        real = list(range(len(rows)))
+        slots = [sl for sl, _ in rows]
         self._cache_at_risk = True
-        first = self._admit_chunked_impl(
-            self.engine.params, self._t(tokens.reshape(r, t_steps, c)),
-            self._t(true_len), list(range(len(rows))),
-            [sl for sl, _ in rows],
-            **self._row_params(r, list(enumerate(req for _, req in rows))),
-        ).cpu().numpy()
+        if pfx is None:
+            first = self._admit_chunked_impl(
+                self.engine.params, tokens, true_len, real, slots, **sampling)
+        else:
+            self.prefix_hits += len(rows)
+            first = self._admit_chunked_pfx_impl(
+                self.engine.params, tokens, true_len, real, slots, entry,
+                start, **sampling)
+        first = first.cpu().numpy()
         self._cache_at_risk = False
         self.chunked_admissions += len(rows)
         for j, (sl, req) in enumerate(rows):
+            self._activate_slot(sl, req, int(first[j]))
+
+    def _admit_paged_group(
+        self, rows: list, merge_start: int, scan_start: int, t_steps: int,
+        width: int,
+    ) -> None:
+        """ONE call admitting a group of paged prefix reuses that share
+        suffix geometry (a same-preamble wave lands in one group). Row
+        count bucketed as for chunked groups; padding rows gather through
+        an all-sentinel table and are never merged."""
+        b = len(self.slots)
+        r = min(b, bucket_len(len(rows), minimum=1))
+        gtables = np.full((r, self._table_width), self._n_pages, np.int32)
+        for j, (_, _, adm) in enumerate(rows):
+            gtables[j] = adm.gather_row
+        tokens, true_len, sampling = self._group_inputs(
+            rows, r, t_steps, width, scan_start)
+        self._cache_at_risk = True
+        first = self._admit_paged_pfx_impl(
+            self.engine.params, tokens, true_len, list(range(len(rows))),
+            [sl for sl, _, _ in rows], gtables, scan_start, merge_start,
+            **sampling,
+        ).cpu().numpy()
+        self._cache_at_risk = False
+        self.chunked_admissions += len(rows)
+        for j, (sl, req, _) in enumerate(rows):
             self._activate_slot(sl, req, int(first[j]))
 
     def _prefill_fused(
@@ -629,11 +1283,13 @@ class ContinuousBatcher:
     ) -> None:
         """One fused call: the single-row program for one request (and
         for each of a pair), the full-pool program for a larger burst
-        (row index == slot index)."""
+        (row index == slot index). A burst then pools its most shared
+        prefix (_pfx_learn_from_burst)."""
         if 1 < len(batch) <= 2:
             # Two serial single-row calls beat one full-pool prefill.
             for slot_idx, req in zip(slots_idx, batch):
                 self._prefill_fused([slot_idx], [req])
+            self._pfx_learn_from_burst(slots_idx, batch)
             return
         s = bucket_len(
             max(len(req.prompt) for req in batch), maximum=self.max_seq
@@ -663,6 +1319,8 @@ class ContinuousBatcher:
         self.fused_admissions += len(batch)
         for row, slot_idx, req in zip(rows, slots_idx, batch):
             self._activate_slot(slot_idx, req, int(first[row]))
+        if not single:
+            self._pfx_learn_from_burst(slots_idx, batch)
 
     def _activate_slot(
         self, slot_idx: int, request: _Request, first_tok: int
@@ -672,6 +1330,7 @@ class ContinuousBatcher:
         slot.request = request
         slot.generated = 0
         slot.max_new = request.max_new
+        slot.reserved = False
         request.t_admit = time.perf_counter()
         request.queue_ms = (request.t_admit - request.t_submit) * 1000.0
         self.cur_tokens[slot_idx] = first_tok
@@ -679,26 +1338,99 @@ class ContinuousBatcher:
         self.top_ks[slot_idx] = request.sampling.top_k
         self.top_ps[slot_idx] = request.sampling.top_p
         self.seeds[slot_idx] = request.seed & 0xFFFFFFFF
+        if self._paged:
+            # The prompt's full pages now hold valid K/V: index them
+            # before the emit (a one-token request finishes inside it,
+            # and its pages should stay as reusable cache).
+            self.pages.register(slot_idx, request.prompt)
         self._emit_chunk(slot_idx, [first_tok])
+
+    # -- ticks --------------------------------------------------------------
+
+    def _ilv_fill_rows(self) -> None:
+        """Claim queued chunk work items into free interleave rows."""
+        for r in range(self._ilv_k):
+            if self._ilv_rows[r] is None and self._ilv_pending:
+                self._ilv_rows[r] = self._ilv_pending.popleft()
+
+    def _ilv_chunk_inputs(self):
+        """Host-stamped [K, C] chunk, offsets and prompt lengths of the
+        chunk half of a tick (idle rows: zeros at offset 0, length 1)."""
+        k = self._ilv_k
+        c = min(self.cfg.prefill_chunk, self.max_seq)
+        chunk = np.zeros((k, c), np.int64)
+        offs = np.zeros((k,), np.int64)
+        c_tl = np.ones((k,), np.int64)
+        for r, st in enumerate(self._ilv_rows):
+            if st is None:
+                continue
+            piece = st.request.prompt[st.progress: st.progress + c]
+            chunk[r, : len(piece)] = piece
+            offs[r] = st.progress
+            c_tl[r] = st.n
+        return chunk, offs, c_tl
+
+    def _ilv_advance(self, sel) -> None:
+        """Advance every admitting row by the chunk just run and finish
+        the rows whose final chunk it was."""
+        c = min(self.cfg.prefill_chunk, self.max_seq)
+        done: list[int] = []
+        for r, st in enumerate(self._ilv_rows):
+            if st is None:
+                continue
+            self.interleaved_chunks += 1
+            st.progress += c
+            if st.progress >= st.n:
+                done.append(r)
+        for r in done:
+            self._ilv_finish_row(r, sel)
+
+    def _ilv_finish_row(self, r: int, sel) -> None:
+        """Complete interleave row `r`: merge its mini row into the pool,
+        sample the first token from `sel[r]`, activate the held slot."""
+        st = self._ilv_rows[r]
+        req = st.request
+        sampling = self._row_params(1, [(0, req)])
+        first = self._ilv_finish_impl(r, st.slot, st.n, sel, **sampling)
+        first_tok = int(first.cpu()[0])
+        self._ilv_rows[r] = None
+        self._activate_slot(st.slot, req, first_tok)
 
     @torch.no_grad()
     def _tick_step(self) -> None:
-        """One decode tick: dispatch, pull the tokens, emit them."""
+        """One decode tick (fused with one [K, C] prefill chunk while
+        interleaved admissions are in flight): dispatch, pull the tokens,
+        finish the admitting rows whose last chunk this was, emit."""
         t0 = time.perf_counter()
         step0 = self.step_counter
         self.step_counter += self._steps_per_tick
         owners = [s.request if s.active else None for s in self.slots]
-        toks_dev = self._tick_impl(
+        chunk = self._ilv_busy()
+        if chunk:
+            self._ilv_fill_rows()
+        self._sync_tables()
+        args = (
             self.engine.params, self._t(self.cur_tokens),
             self._t(self.seeds), step0 + 1, self._t(self.temps),
             self._t(self.top_ks), self._t(self.top_ps),
         )
+        sel = None
+        if chunk:
+            if self._ilv_mini is None:
+                self._ilv_mini = self._make_mini(self._ilv_k, self.max_seq)
+            chunk_arr, offs, c_tl = self._ilv_chunk_inputs()
+            toks_dev, sel = self._tick_chunk_impl(
+                *args, self._t(chunk_arr), self._t(offs), self._t(c_tl))
+        else:
+            toks_dev = self._tick_impl(*args)
         t1 = time.perf_counter()
         toks = toks_dev.cpu().numpy()
         t2 = time.perf_counter()
         self.timing["tick_dispatch_ms"] += (t1 - t0) * 1000.0
         self.timing["tick_collect_ms"] += (t2 - t1) * 1000.0
         self.timing["ticks"] += 1
+        if chunk:
+            self._ilv_advance(sel)
         for i, request in enumerate(owners):
             if request is None or self.slots[i].request is not request:
                 continue
@@ -744,6 +1476,13 @@ class ContinuousBatcher:
                 (request.queue_ms, (now - request.t_admit) * 1000.0)
             )
             self.temps[slot_idx] = 0.0
+            if self._paged:
+                # Release the slot's page references (indexed pages stay
+                # resident as evictable reuse cache); its row now maps
+                # to the sentinel, so its junk decode writes land in the
+                # scratch page.
+                self.pages.free_slot(slot_idx)
+                self._tables_dirty = True
         request.acc.extend(ids)
         if request.unary:
             if finished_reason is not None:

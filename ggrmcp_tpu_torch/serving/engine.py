@@ -1,6 +1,7 @@
 """Engines on one device. Port of `ggrmcp_tpu/serving/engine.py`:
 `GenerationEngine` (dense Llama prefill, decode and whole-request
-generation, with int8 weights and the int8 KV cache; no mesh, LoRA,
+generation, with int8 weights, the int8 KV cache and the paged cache
+for the batcher; no mesh, LoRA,
 speculative decoding or PP/SP) and `EmbeddingEngine` (BERT embeddings).
 
 The reference compiles one program per shape bucket; PyTorch runs
@@ -162,13 +163,24 @@ class GenerationEngine:
         return self.decode_forward(params, tokens, cache)
 
     def decode_forward(self, params, tokens, cache):
-        """Forward for decode / extension steps (cache has history)."""
+        """Forward for decode / extension steps (cache has history): a
+        contiguous KVCache or a PagedKVCache."""
         return llama_mod.forward(params, self.cfg, tokens, cache,
                                  use_flash=self.use_flash)
 
     def make_cache(self, batch: int, max_len: int) -> llama_mod.KVCache:
         return llama_mod.KVCache.create(self.cfg, batch, max_len, self.device,
                                         self.kv_dtype)
+
+    def make_paged_cache(
+        self, batch: int, max_len: int, n_pages: int, page_size: int
+    ) -> llama_mod.PagedKVCache:
+        """A page arena of `n_pages` pages (plus the scratch page) with
+        all-sentinel block tables, in the engine's KV dtype."""
+        return llama_mod.PagedKVCache.create(
+            self.cfg, batch, max_len, n_pages, page_size, self.device,
+            self.kv_dtype,
+        )
 
     def weight_bytes(self) -> int:
         return param_bytes(self.params)

@@ -197,6 +197,16 @@ class Sidecar:
                 f"retry in {exc.retry_after_s:g}s",
             )
 
+    @staticmethod
+    async def _abort_overloaded(context) -> None:
+        """A paged arena that cannot hold the request at admission (after
+        submit queued it): the same typed overload as a submit-time
+        shed."""
+        await context.abort(
+            grpc.StatusCode.RESOURCE_EXHAUSTED,
+            "server overloaded (pages): kv page pool exhausted; retry in 1s",
+        )
+
     async def generate(self, request: serving_pb2.GenerateRequest, context):
         t0 = time.perf_counter()
         await self._reject_unsupported(request, context)
@@ -208,6 +218,8 @@ class Sidecar:
             token_ids.extend(chunk_ids)
             if reason:
                 finish = reason
+        if finish == "overloaded":
+            await self._abort_overloaded(context)
         if finish == "error":
             await context.abort(
                 grpc.StatusCode.INTERNAL, "generation failed on the backend"
@@ -253,6 +265,8 @@ class Sidecar:
                 )
                 return
             if final:
+                if reason == "overloaded":
+                    await self._abort_overloaded(context)
                 if reason == "error":
                     await context.abort(
                         grpc.StatusCode.INTERNAL,

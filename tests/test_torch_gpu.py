@@ -4,8 +4,9 @@ BERT encoder's), the wrapper's input checks, the tiny-llama engine and
 continuous batcher and the bert-tiny embedding engine on CUDA against
 the same code on the CPU (which takes the plain versions), int8
 quantization, int8-weight forwards and the int8 KV cache on the card
-against the CPU, and the safetensors reader and HF loader reading
-straight to the card.
+against the CPU, the safetensors reader and HF loader reading
+straight to the card, and the KV-reuse paths (paged forward, the prefix
+pool, paged KV and the interleave through the batcher) against the CPU.
 
 Every test needs an NVIDIA GPU with `nvcc` (the kernel has no CPU
 mode) and skips without one. This file imports no JAX, so it runs on a
@@ -146,6 +147,13 @@ TILE_CASES = [
      None, None, None),
     ("more_tiles_than_sms_d32", (2, 1000, 1000, 16, 8, 32), True, None,
      None, None),
+    # KV reuse: a prefix hit's 32-wide suffix step at per-row offsets,
+    # and an interleave chunk whose rows sit at different offsets (row 0
+    # is an idle row's launch: offset 0, kv_len = the chunk).
+    ("pfx_suffix_sq32", (4, 32, 512, 8, 2, 128), True, [256, 300, 448, 7],
+     [288, 332, 480, 39], None),
+    ("ilv_row_offsets", (4, 64, 512, 8, 2, 128), True, [0, 64, 192, 448],
+     [64, 128, 256, 512], None),
 ]
 
 
@@ -490,3 +498,122 @@ def test_int8_kv_writes_past_end_land_in_scratch_on_card(cuda):
     assert torch.equal(cache.v.scale[:, :, :6], before[1])
     assert (cache.k.scale[:, :, 6:] != 0).all()  # 6, 7 and the scratch
     assert int(cache.length[0]) == 10
+
+
+# -- KV reuse -----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kv_dtype", ["", "int8"])
+def test_paged_forward_on_card_matches_contiguous(cuda, kv_dtype):
+    """A prefill and a decode step through a paged cache with scattered
+    pages equal the contiguous cache's on the card (attention_ref on
+    both), and the CPU's paged forward to 1e-3."""
+    cfg = tl.CONFIGS["tiny-llama"]
+    cpu_params = tl.init_params(cfg, torch.device("cpu"), seed=5)
+    params = _to(cpu_params, cuda)
+    b, s_max, page = 3, 64, 8
+    perm = torch.from_numpy(np.random.default_rng(2).permutation(30)[
+        : b * s_max // page].reshape(b, -1).astype(np.int32))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(3, 500, (b, 20)))
+    outs = []
+    for device in (cuda, cuda, torch.device("cpu")):
+        paged = len(outs) != 0
+        if paged:
+            cache = tl.PagedKVCache.create(cfg, b, s_max, 30, page, device,
+                                           kv_dtype)
+            cache.table = perm.to(device)
+        else:
+            cache = tl.KVCache.create(cfg, b, s_max, device, kv_dtype)
+        p = params if device.type == "cuda" else cpu_params
+        first, _ = tl.forward(p, cfg, toks.to(device), cache, use_flash=False)
+        step, _ = tl.forward(p, cfg, toks[:, :1].to(device) + 1, cache,
+                             use_flash=False)
+        outs.append((first.cpu(), step.cpu()))
+    for flat, paged, cpu in zip(*outs):
+        assert torch.equal(flat, paged)
+        assert (paged - cpu).abs().max().item() <= (1e-2 if kv_dtype else 1e-3)
+
+
+async def _reuse_waves(batcher, waves, late=()):
+    """The waves one after another; the `late` prompts join the last
+    wave once one of its requests has its first token."""
+    started = asyncio.Event()
+
+    async def one(prompt, seed):
+        out = []
+        async for ids, _ in batcher.submit(prompt, 6, SamplingConfig(),
+                                           seed=seed):
+            started.set()
+            out.extend(ids)
+        return out
+
+    async def after_first(prompt, seed):
+        await started.wait()
+        return await one(prompt, seed)
+
+    batcher.start()
+    try:
+        outs = [await asyncio.gather(*(one(p, i) for i, p in enumerate(w)))
+                for w in waves[:-1]]
+        started.clear()
+        last = [one(p, i) for i, p in enumerate(waves[-1])]
+        last += [after_first(p, 50 + i) for i, p in enumerate(late)]
+        return outs + [await asyncio.gather(*last)]
+    finally:
+        await batcher.stop()
+
+
+@pytest.mark.parametrize("switch", [
+    dict(prefix_cache_entries=2, prefix_cache_min_seq=8,
+         prefix_cache_max_seq=64),
+    dict(paged_kv="on", paged_kv_page_size=8),
+    dict(prefill_interleave="on", prefill_interleave_rows=2),
+], ids=["prefix_pool", "paged", "interleave"])
+async def test_kv_reuse_batcher_on_card_matches_cpu(cuda, switch):
+    """Each KV-reuse route on the card gives the CPU batcher's greedy
+    tokens and counters: a warm request, then a same-preamble wave, and
+    a long prompt arriving while the wave decodes (interleaved when
+    that is on)."""
+    cfg = tl.CONFIGS["tiny-llama"]
+    params = tl.init_params(cfg, torch.device("cpu"), seed=11)
+    head = [(i * 13 + 5) % 500 + 1 for i in range(40)]
+    waves = [[head + [401]], [head + [410 + i] for i in range(3)]]
+    small = dict(max_batch_size=4, kv_cache_max_seq=256, prefill_chunk=32,
+                 max_queue_delay_ms=1000.0, **switch)
+    runs = []
+    for device, p in (("cpu", params), (cuda, _to(params, cuda))):
+        batcher = ContinuousBatcher(GenerationEngine(cfg, params=p,
+                                                     device=device),
+                                    BatchingConfig(**small))
+        before = tatt.flash_attention.launches
+        outs = await _reuse_waves(batcher, waves,
+                                  late=[list(range(3, 103))])
+        runs.append((outs, batcher.stats(),
+                     tatt.flash_attention.launches - before))
+    (ref, ref_stats, _), (out, stats, launched) = runs
+    assert out == ref
+    keys = ("prefix_cache_hits", "prefix_cache_misses", "paged_prefix_hits",
+            "kv_pages_in_use", "interleaved_admissions", "interleaved_chunks")
+    assert {k: stats[k] for k in keys} == {k: ref_stats[k] for k in keys}
+    assert launched > 0
+    if "prefill_interleave" in switch:
+        assert stats["interleaved_admissions"] == 1
+    else:
+        assert stats["prefix_cache_hits"] >= 3
+
+
+async def test_wave_hit_logits_match_cold_on_card(cuda):
+    """tiny-llama (float32) on the card: a prefix-pool hit's final logits
+    (pool entry + one suffix step) equal a cold chunked prefill's to
+    1e-3 — chip_smoke.py phase 9's check at llama3-8b width."""
+    cfg = tl.CONFIGS["tiny-llama"]
+    params = _to(tl.init_params(cfg, torch.device("cpu"), seed=13), cuda)
+    batcher = ContinuousBatcher(
+        GenerationEngine(cfg, params=params, device=cuda),
+        BatchingConfig(max_batch_size=4, kv_cache_max_seq=256,
+                       prefill_chunk=32, prefix_cache_entries=2,
+                       prefix_cache_min_seq=8, prefix_cache_max_seq=64))
+    head = [(i * 7 + 3) % 500 + 1 for i in range(64)]
+    await _reuse_waves(batcher, [[head + [9, 8]]])
+    hit, cold = chip_smoke.pfx_hit_vs_cold(torch, batcher, head + [11, 12, 13])
+    assert (hit - cold).abs().max().item() <= 1e-3

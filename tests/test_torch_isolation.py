@@ -38,7 +38,7 @@ print(json.dumps({"modules": names, "bad": bad}))
 PORT_MODULES = (
     "ggrmcp_tpu_torch.models.bert", "ggrmcp_tpu_torch.models.llama",
     "ggrmcp_tpu_torch.ops.attention", "ggrmcp_tpu_torch.ops.quant",
-    "ggrmcp_tpu_torch.serving.engine",
+    "ggrmcp_tpu_torch.serving.engine", "ggrmcp_tpu_torch.serving.pages",
     "ggrmcp_tpu_torch.serving.safetensors_io",
     "ggrmcp_tpu_torch.serving.sidecar", "ggrmcp_tpu_torch.serving.tensors",
     "ggrmcp_tpu_torch.serving.tokenizer", "ggrmcp_tpu_torch.serving.weights",

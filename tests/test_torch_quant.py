@@ -664,7 +664,8 @@ def test_cli_quantize_and_config_parse(tmp_path):
     ({"serving": {"modle": "tiny-llama"}}, "modle"),
     ({"serving": {"batching": {"max_batch": 2}}}, "max_batch"),
     ({"serving": {"kv_cache_dtype": "int4"}}, "kv_cache_dtype"),
-    ({"serving": {"batching": {"paged_kv": "on"}}}, "paged_kv"),
+    ({"serving": {"batching": {"paged_kv_host_bytes": 1}}},
+     "paged_kv_host_bytes"),
 ], ids=["top_level", "serving_key", "batching_key", "bad_value", "guard"])
 def test_config_file_refuses_unknown_keys(tmp_path, data, match):
     path = tmp_path / "bad.json"

@@ -169,9 +169,12 @@ async def test_overloaded_past_max_pending(engines):
 
 @pytest.mark.parametrize(
     "kind,field,value",
-    [("batching", "paged_kv", "on"), ("batching", "speculative", "on"),
-     ("batching", "prefill_interleave", "on"),
-     ("batching", "prefix_cache_entries", 4),
+    [("batching", "paged_kv", "maybe"), ("batching", "speculative", "on"),
+     ("batching", "prefill_interleave", "maybe"),
+     ("batching", "prefix_cache_entries", -1),
+     ("batching", "paged_kv_host_bytes", 1 << 20),
+     ("batching", "paged_kv_host_path", "/tmp/kv.log"),
+     ("batching", "paged_kv_host_file_bytes", 1 << 20),
      ("batching", "kv_tiers", [[128, 2]]),
      ("batching", "pipeline_ticks", "on"),
      ("batching", "queue_deadline_ms", 100.0),
