@@ -49,7 +49,19 @@ Phases, any failure exits non-zero and prints no result:
    synthetic-weight engine's init stays below 1.1x its int8 bytes, and a
    sidecar on synthetic weights serves the same burst; (e) the eager
    dequantizing GEMM, its int8 -> bf16 cast alone and the decode step
-   against bf16, timed.
+   against bf16, timed;
+9. KV reuse: the prefix pool, the interleave and paged KV at llama3-8b
+   width through sidecars configured by a `--config` file, each against
+   its switch off;
+10. grammar: a llama3-8b sidecar with the default GrammarConfig (arena
+   4096 states, jump_max 8) answers a burst of 16 Generate calls, 8 of
+   them constrained by three tool-output schemas (2 sampled), through
+   jump-ahead ticks that launch the kernel; the same burst with jump off
+   and with 4 decode steps per tick (identical tokens to jump off); the
+   arena's device bytes and the first call on a new schema against a
+   warm one; RESOURCE_EXHAUSTED on a full arena, INVALID_ARGUMENT on a
+   `pattern` schema, a constrained GenerateStream; tiny-llama float32
+   constrained tokens identical jump on, jump off and on the CPU.
 
 The last lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -125,6 +137,8 @@ def cuda_ms_spread(torch, fn, runs: int = 5, reps: int = 10) -> dict:
 
 # -- phase 3: kernel vs plain ----------------------------------------------
 
+# Jump-window rows: offsets spread over 64-3000, then one at 4095.
+JUMP_OFFSETS = tuple(64 + (2936 * i) // 30 for i in range(31)) + (4095,)
 # name, b, sq, sk, h, kvh, d, causal, q_offset, kv_len, window, dtype,
 # what it stands for
 CASES = [
@@ -158,6 +172,13 @@ CASES = [
     ("ilv_4x512_offsets", 4, 512, 4096, 32, 8, 128, True,
      (0, 512, 1536, 2560), (512, 1024, 2048, 3072), None, "bfloat16",
      "interleave chunk, per-row offsets, over the carried 4097 mini"),
+    # The jump-ahead tick's window: each row's pending token and forced
+    # run at its own length over the 4097 pool; the last row is a slot
+    # at the cache's end, its window past Sk (the kernel clips).
+    ("jump_window_32x9", 32, 9, 4096, 32, 8, 128, True, JUMP_OFFSETS,
+     tuple(o + 9 for o in JUMP_OFFSETS), None, "bfloat16",
+     "jump tick: [32, 1 + jump_max] window, ragged offsets, the 4097 "
+     "pool; one row's kv_len past Sk by 8"),
     # kv_len None: ragged, each row's length drawn from 17 to S.
     ("bert_32x128", 32, 128, 128, 12, 12, 64, False, 0, None, None,
      "bfloat16", "bert-base embed batch, S=128 bucket, ragged rows"),
@@ -165,6 +186,9 @@ CASES = [
      "bfloat16", "bert-base embed batch, S=512 bucket, ragged rows"),
 ]
 HEADLINE = "fused_32x512"
+# The cases phase 3 also times `attention_ref` on (the dispatcher's other
+# path at the shape).
+REF_TIMED = ("jump_window_32x9",)
 DESIGN = ("bf16: TMA-fed wgmma (m64n128k16 S = Q K^T from shared memory, "
           "P V with P in registers), 1 producer + 2 consumer warpgroups, "
           "128 x 128 tiles, 2-stage mbarrier ring, persistent blocks; "
@@ -200,7 +224,7 @@ def kernel_cases(torch, tatt, dev) -> list[dict]:
             q, k, v = (t.reshape(b, sq, h, d) for t in qkv.chunk(3, dim=-1))
             check(all(tatt._kernel_layout_ok(t) for t in (q, k, v)),
                   f"{name}: the kernel would copy the split q/k/v views")
-        elif name.startswith(("chunk", "pfx", "ilv")):
+        elif name.startswith(("chunk", "pfx", "ilv", "jump")):
             # The model's operand: [:, :S_max] of a [B, S_max + 1, ...]
             # per-layer cache slice (not contiguous).
             kc, vc = (torch.randn((b, sk + 1, kvh, d), generator=gen,
@@ -239,6 +263,11 @@ def kernel_cases(torch, tatt, dev) -> list[dict]:
         plain_ms = cuda_ms(
             torch, lambda: tatt.flash_attention_ref(q, k, v, **kw), 2)
         torch.cuda.empty_cache()
+        ref_ms = None
+        if name in REF_TIMED:
+            ref_ms = cuda_ms(
+                torch, lambda: tatt.attention_ref(q, k, v, **kw), 2)
+            torch.cuda.empty_cache()
 
         # SDPA yardstick on the same function (never called by the port).
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -283,7 +312,7 @@ def kernel_cases(torch, tatt, dev) -> list[dict]:
                        f"ragged {kv_len.min().item()}-{kv_len.max().item()}"),
             max_abs_err=err, atol=atol, rtol=rtol, ms=ms,
             ms_min=kernel_t["min"], ms_max=kernel_t["max"], plain_ms=plain_ms,
-            library_ms=library_ms, library_ms_min=library_t["min"],
+            attention_ref_ms=ref_ms, library_ms=library_ms, library_ms_min=library_t["min"],
             library_ms_max=library_t["max"], bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             gflop=flops / 1e9, mbytes=nbytes / 1e6,
@@ -291,7 +320,9 @@ def kernel_cases(torch, tatt, dev) -> list[dict]:
         )
         log(f"  {name:22s} err {err:.2e} kernel {ms:.4f} ms "
             f"[{kernel_t['min']:.4f}, {kernel_t['max']:.4f}]  plain "
-            f"{plain_ms:9.3f} ms  sdpa {library_ms:.4f} ms "
+            f"{plain_ms:9.3f} ms  "
+            + (f"attention_ref {ref_ms:.3f} ms  " if ref_ms else "")
+            + f"sdpa {library_ms:.4f} ms "
             f"[{library_t['min']:.4f}, {library_t['max']:.4f}]  bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']})  "
             f"{row['tflops']:.1f} TFLOP/s")
@@ -1400,20 +1431,29 @@ class _ReuseClient:
             await asyncio.sleep(0.005)
 
 
-def _reuse_sidecar(torch, params, dev, batching: dict, tmp: str):
+def _config_sidecar(torch, params, dev, serving: dict, tmp: str):
     """A llama3-8b sidecar on `params` whose settings come from a
-    {"serving": {"batching": ...}} config file, read as the command line
-    reads `--config FILE`. Its batcher records each request's TTFT
-    (submit to first-token sample, on the server)."""
+    {"serving": ...} config file, read as the command line reads
+    `--config FILE`; the peak memory count starts after it is built."""
     from ggrmcp_tpu_torch import __main__ as cli
     from ggrmcp_tpu_torch.serving.sidecar import Sidecar
 
     path = os.path.join(tmp, "serving.json")
     with open(path, "w") as fh:
-        json.dump({"serving": {"model": MODEL, "batching": batching}}, fh)
+        json.dump({"serving": dict(model=MODEL, **serving)}, fh)
     cfg = cli.serving_config(cli.build_parser().parse_args(
         ["sidecar", "--config", path]))
     sidecar = Sidecar(cfg, params=params, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    return sidecar
+
+
+def _reuse_sidecar(torch, params, dev, batching: dict, tmp: str):
+    """A `_config_sidecar` with these batching settings whose batcher
+    records each request's TTFT (submit to first-token sample, on the
+    server)."""
+    sidecar = _config_sidecar(torch, params, dev, dict(batching=batching),
+                              tmp)
     batcher = sidecar.batcher
     batcher.ttft_ms = []
     activate = batcher._activate_slot
@@ -1424,7 +1464,6 @@ def _reuse_sidecar(torch, params, dev, batching: dict, tmp: str):
         return activate(slot_idx, request, first_tok)
 
     batcher._activate_slot = timed_activate
-    torch.cuda.reset_peak_memory_stats()
     return sidecar
 
 
@@ -1671,6 +1710,417 @@ async def kv_reuse_phase(torch, tatt, dev) -> dict:
     return res
 
 
+# -- phase 10: grammar ----------------------------------------------------------
+
+# Three tool-output schemas of the kinds MCP tools declare: a flat record
+# (enum, integer, bounded string), a nested call (a bounded-string array
+# under maxItems), and a const-heavy envelope whose states force long
+# runs (the jump tick's case).
+GRAMMAR_SCHEMAS = {
+    "flat": {"type": "object", "properties": {
+        "status": {"enum": ["ok", "degraded", "failed"]},
+        "count": {"type": "integer"},
+        "note": {"type": "string", "maxLength": 6}},
+        "required": ["status", "count", "note"]},
+    "nested": {"type": "object", "properties": {
+        "tool": {"type": "string", "maxLength": 6},
+        "args": {"type": "object", "properties": {
+            "tags": {"type": "array", "maxItems": 2,
+                     "items": {"type": "string", "maxLength": 4}}},
+            "required": ["tags"]}},
+        "required": ["tool", "args"]},
+    "const": {"type": "object", "properties": {
+        "jsonrpc": {"const": "2.0"},
+        "kind": {"const": "structured_tool_result"},
+        "schema_version": {"const": "2025-06-18"},
+        "ok": {"type": "boolean"}},
+        "required": ["jsonrpc", "kind", "schema_version", "ok"]},
+}
+# A schema first seen in (d), and one the compiler refuses (a pattern).
+NEW_SCHEMA = {"type": "object", "properties": {
+    "id": {"type": "integer"}, "done": {"type": "boolean"}},
+    "required": ["id", "done"]}
+PATTERN_SCHEMA = {"type": "string", "pattern": "[a-z]+"}
+# (a): 16 concurrent calls, 8 constrained (schema, sampled) and 8 not.
+GRAMMAR_BURST = [("flat", False), ("nested", False), ("const", False),
+                 ("flat", False), ("nested", False), ("const", False),
+                 ("flat", True), ("nested", True)] + [(None, False)] * 8
+GRAMMAR_PLAIN_NEW = 24
+GRAMMAR_PROMPT_TOKENS = (40, 90, 160, 250)
+
+
+def longest_output(g) -> int:
+    """Tokens on the longest path from the start state to a state with no
+    way on but EOS: the most a constrained request can emit. A bounded
+    schema's DFA is acyclic; a cycle fails the phase."""
+    import numpy as np
+
+    edges = g.allow[:, :256 + 3].copy()
+    edges[:, g.eos_id] = False
+    trans = g.trans[:, :256 + 3]
+    depth = np.full(g.n_states, -1)
+    state = np.zeros(g.n_states, np.int8)  # 0 new, 1 on the stack, 2 done
+    stack = [g.start]
+    while stack:
+        s = stack[-1]
+        nxt = [int(t) for t in trans[s][edges[s]]]
+        if state[s] == 0:
+            state[s] = 1
+            for t in nxt:
+                check(state[t] != 1, "a constrained schema's DFA has a cycle")
+                if state[t] == 0:
+                    stack.append(t)
+            continue
+        stack.pop()
+        if state[s] == 1:
+            depth[s] = 1 + max((depth[t] for t in nxt), default=-1)
+            state[s] = 2
+    return int(depth[g.start])
+
+
+class _GrammarClient(_ReuseClient):
+    """Phase 9's stubs, plus constrained and sampled requests and
+    GenerateStream."""
+
+    def __init__(self, ch):
+        super().__init__(ch)
+        self._stream = ch.unary_stream(
+            "/ggrmcp.tpu.GenerateService/GenerateStream",
+            request_serializer=self.pb.GenerateRequest.SerializeToString,
+            response_deserializer=self.pb.GenerateChunk.FromString)
+
+    def request(self, text, max_new, schema=None, sampled=False, seed=0):
+        sampling = (self.pb.SamplingParams(temperature=0.8, top_p=0.9,
+                                           seed=seed) if sampled
+                    else self.pb.SamplingParams(seed=seed))
+        req = self.pb.GenerateRequest(prompt=text, max_new_tokens=max_new,
+                                      return_tokens=True, sampling=sampling)
+        if schema is not None:
+            req.constraint.json_schema = json.dumps(schema)
+        return req
+
+    async def call(self, req):
+        """(response, client ms)."""
+        t = time.perf_counter()
+        resp = await self._gen(req, timeout=600)
+        return resp, (time.perf_counter() - t) * 1e3
+
+    async def stream(self, req):
+        return [c async for c in self._stream(req, timeout=600)]
+
+
+def _grammar_sidecar(torch, params, dev, serving: dict, tmp: str):
+    """A `_config_sidecar` whose batcher holds the first admission round
+    of a burst until the whole burst is queued (`hold_for`), so on and
+    off runs admit identically, times its tick bodies (synchronised) and
+    counts B1's launches inside jump ticks."""
+    from ggrmcp_tpu_torch.ops import attention as tatt
+
+    sidecar = _config_sidecar(torch, params, dev, serving, tmp)
+    batcher = sidecar.batcher
+    batcher.hold_for = 0
+    batcher.tick_log = {"jump": [], "plain": [], "jump_launches": 0}
+    admit = batcher._admit
+
+    async def held_admit():
+        while batcher.hold_for and batcher.pending.qsize() < batcher.hold_for:
+            await asyncio.sleep(0.001)
+        batcher.hold_for = 0
+        return await admit()
+
+    def timed(kind, body):
+        def run(*args, **kwargs):
+            launched = tatt.flash_attention.launches
+            t = time.perf_counter()
+            out = body(*args, **kwargs)
+            torch.cuda.synchronize()
+            batcher.tick_log[kind].append((time.perf_counter() - t) * 1e3)
+            if kind == "jump":
+                batcher.tick_log["jump_launches"] += (
+                    tatt.flash_attention.launches - launched)
+            return out
+        return run
+
+    batcher._admit = held_admit
+    batcher._tick_jump_impl = timed("jump", batcher._tick_jump_impl)
+    batcher._tick_impl = timed("plain", batcher._tick_impl)
+    return sidecar
+
+
+def _median(values):
+    ordered = sorted(values)
+    return ordered[(len(ordered) - 1) // 2] if ordered else None
+
+
+async def _grammar_burst(torch, batcher, client, grammars, limits) -> dict:
+    """(a)/(b)/(c): the 16-call burst in one admission round; every
+    constrained output parses, its DFA walk ends accepting, and it ends
+    "grammar_complete" or "stop"."""
+    before = await client.stats()
+    log_before = {k: len(v) for k, v in batcher.tick_log.items()
+                  if isinstance(v, list)}
+    batcher.hold_for = len(GRAMMAR_BURST)
+    reqs = []
+    for i, (name, sampled) in enumerate(GRAMMAR_BURST):
+        text = _prompt_text(
+            GRAMMAR_PROMPT_TOKENS[i % len(GRAMMAR_PROMPT_TOKENS)], 1000 + i)
+        reqs.append(client.request(
+            text, limits[name] if name else GRAMMAR_PLAIN_NEW,
+            GRAMMAR_SCHEMAS[name] if name else None, sampled, seed=7 + i))
+    t = time.perf_counter()
+    outs = await asyncio.gather(*(client.call(r) for r in reqs))
+    wall = time.perf_counter() - t
+    after = await client.stats()
+    for (name, _), (resp, _) in zip(GRAMMAR_BURST, outs):
+        ids = list(resp.token_ids)
+        if name is None:
+            check(resp.finish_reason in ("length", "stop") and ids,
+                  f"unconstrained call ended {resp.finish_reason!r}")
+            continue
+        g = grammars[name]
+        check(resp.finish_reason in ("grammar_complete", "stop"),
+              f"{name}: finished {resp.finish_reason!r} after {len(ids)}")
+        json.loads(resp.text)
+        s = g.start
+        for tok in ids:
+            s = g.step(s, tok)
+        check(bool(g.accept[s]), f"{name}: the DFA walk ends in state {s}, "
+              f"not accepting")
+    tick = {k: batcher.tick_log[k][log_before[k]:] for k in ("jump", "plain")}
+    return dict(
+        tokens=[list(resp.token_ids) for resp, _ in outs],
+        finish=[resp.finish_reason for resp, _ in outs],
+        wall_s=wall, client_ms_max=max(ms for _, ms in outs),
+        constrained_tokens=sum(len(resp.token_ids) for (n, _), (resp, _) in
+                               zip(GRAMMAR_BURST, outs) if n),
+        stats={k: getattr(after, k) - getattr(before, k) for k in (
+            "ticks", "grammar_masked_tokens", "grammar_jump_tokens",
+            "grammar_jump_runs", "grammar_jump_fallbacks", "admit_rounds")},
+        decode_stall_ms_p50=after.decode_stall_ms_p50,
+        decode_stall_ms_p99=after.decode_stall_ms_p99,
+        jump_ticks=len(tick["jump"]), plain_ticks=len(tick["plain"]),
+        jump_tick_ms_p50=_median(tick["jump"]),
+        plain_tick_ms_p50=_median(tick["plain"]),
+        memory_grammar_arena_bytes=after.memory_grammar_arena_bytes,
+        grammar_states_in_use=after.grammar_states_in_use)
+
+
+async def _first_schema_cost(client, text) -> dict:
+    """(d): one-token calls (admission + first token): the first schema
+    this sidecar sees (compile, the tables' allocation, its rows'
+    upload), the same schema warm, and a second new schema."""
+    res = {}
+    for key, schema in (("first_schema_ms", NEW_SCHEMA),
+                        ("warm_ms", NEW_SCHEMA),
+                        ("second_new_schema_ms", GRAMMAR_SCHEMAS["flat"]),
+                        ("unconstrained_ms", None)):
+        resp, res[key] = await client.call(client.request(text, 1, schema))
+        check(len(resp.token_ids) == 1, f"(d) {key}: {resp}")
+    stats = await client.stats()
+    res.update(grammar_compiles=stats.grammar_compiles,
+               grammar_cache_hits=stats.grammar_cache_hits,
+               memory_grammar_arena_bytes=stats.memory_grammar_arena_bytes)
+    check(stats.grammar_compiles == 2 and stats.grammar_cache_hits == 1,
+          f"(d) compiles {stats.grammar_compiles}, hits "
+          f"{stats.grammar_cache_hits}")
+    return res
+
+
+async def _typed_refusals(torch, params, dev, grammars, tmp) -> dict:
+    """(e): an arena too small for two live schemas sheds the second
+    RESOURCE_EXHAUSTED while the first decodes; a `pattern` schema is
+    INVALID_ARGUMENT."""
+    import grpc
+    import grpc.aio
+
+    top = max(grammars["flat"].n_states, grammars["nested"].n_states)
+    sidecar = _grammar_sidecar(torch, params, dev, dict(
+        grammar=dict(max_states=top, arena_states=top + 1)), tmp)
+    port = await sidecar.start(0)
+    codes = {}
+    try:
+        async with grpc.aio.insecure_channel(f"localhost:{port}") as ch:
+            client = _GrammarClient(ch)
+            live = asyncio.ensure_future(client.call(client.request(
+                _prompt_text(40, 1100), 64, GRAMMAR_SCHEMAS["nested"])))
+            while not sidecar.batcher.arena._entries:
+                await asyncio.sleep(0.001)
+            for key, schema in (("arena_full", GRAMMAR_SCHEMAS["flat"]),
+                                ("pattern", PATTERN_SCHEMA)):
+                try:
+                    await client.call(client.request(
+                        _prompt_text(40, 1101), 8, schema))
+                    codes[key] = "OK"
+                except grpc.aio.AioRpcError as exc:
+                    codes[key] = exc.code().name
+            resp, _ = await live
+            codes["live_finish"] = resp.finish_reason
+            codes["arena_states"] = top + 1
+    finally:
+        await sidecar.stop()
+    check(codes["arena_full"] == "RESOURCE_EXHAUSTED",
+          f"(e) second schema on a full arena: {codes['arena_full']}")
+    check(codes["pattern"] == "INVALID_ARGUMENT",
+          f"(e) pattern schema: {codes['pattern']}")
+    check(codes["live_finish"] in ("grammar_complete", "stop", "length"),
+          f"(e) the live request ended {codes['live_finish']!r}")
+    del sidecar
+    gc.collect()
+    torch.cuda.empty_cache()
+    return codes
+
+
+async def tiny_jump_identity(torch, dev) -> dict:
+    """(f): tiny-llama (float32) on the card: constrained greedy tokens
+    with jump on equal jump off and the CPU batcher's (the bit-identity
+    the reference promises, at a width where float32 holds it)."""
+    from ggrmcp_tpu_torch.core.config import BatchingConfig, ServingConfig
+    from ggrmcp_tpu_torch.grammar import compile_schema
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.ops.sampling import SamplingConfig
+    from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher
+    from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+
+    cfg = llama_mod.CONFIGS["tiny-llama"]
+    cpu_params = llama_mod.init_params(cfg, torch.device("cpu"), SEED)
+
+    async def run(device, params, jump_max):
+        from ggrmcp_tpu_torch.core.config import GrammarConfig
+
+        engine = GenerationEngine(cfg, ServingConfig(
+            grammar=GrammarConfig(jump_max=jump_max)), params=params,
+            device=device)
+        batcher = ContinuousBatcher(engine, BatchingConfig(
+            max_batch_size=4, kv_cache_max_seq=512, max_queue_delay_ms=1000))
+
+        async def one(i, name):
+            out = []
+            g = compile_schema(GRAMMAR_SCHEMAS[name], cfg.vocab_size)
+            async for ids, _ in batcher.submit([3 + i, 1, 4], 200,
+                                               SamplingConfig(), grammar=g):
+                out.extend(ids)
+            return out
+
+        batcher.start()
+        try:
+            outs = await asyncio.gather(*(one(i, n) for i, n in
+                                          enumerate(GRAMMAR_SCHEMAS)))
+        finally:
+            await batcher.stop()
+        return outs, batcher.grammar_jump_runs
+
+    cpu, _ = await run("cpu", cpu_params, 8)
+    gpu_params = _to(cpu_params, dev)
+    on, runs = await run(dev, gpu_params, 8)
+    off, _ = await run(dev, gpu_params, 0)
+    check(runs > 0, "(f) tiny-llama never jumped")
+    check(on == off == cpu, "(f) tiny-llama float32 constrained greedy "
+          "tokens differ between jump on, jump off and the CPU")
+    return dict(identical=True, jump_runs=runs, rows=len(on))
+
+
+async def _grammar_run(torch, tatt, dev, params, key, serving, grammars,
+                       limits, tmp, res) -> dict:
+    """One sidecar of phase 10 and its burst: "on" also drives a
+    constrained stream and is the main path's launch count, "off" also
+    measures the arena (d)."""
+    import grpc.aio
+
+    sidecar = _grammar_sidecar(torch, params, dev, serving, tmp)
+    batcher = sidecar.batcher
+    if key == "on":
+        # The main path's run starts here: every count from 0.
+        tatt.flash_attention.launches = 0
+    port = await sidecar.start(0)
+    try:
+        async with grpc.aio.insecure_channel(f"localhost:{port}") as ch:
+            client = _GrammarClient(ch)
+            if key == "off":
+                res["arena"] = await _first_schema_cost(
+                    client, _prompt_text(200, 1200))
+            run = await _grammar_burst(torch, batcher, client, grammars,
+                                       limits)
+            if key == "on":
+                run["launches"] = tatt.flash_attention.launches
+                run["jump_launches"] = batcher.tick_log["jump_launches"]
+                chunks = await client.stream(client.request(
+                    _prompt_text(60, 1300), limits["const"],
+                    GRAMMAR_SCHEMAS["const"]))
+                text = "".join(c.text_delta for c in chunks)
+                check(chunks[-1].done and chunks[-1].finish_reason
+                      in ("grammar_complete", "stop"),
+                      f"(e) stream ended {chunks[-1:]}")
+                json.loads(text)
+                res["stream"] = dict(chunks=len(chunks), chars=len(text))
+    finally:
+        await sidecar.stop()
+    torch.cuda.synchronize()
+    run["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del sidecar, batcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run
+
+
+async def grammar_phase(torch, tatt, dev) -> dict:
+    """(a) a mixed burst with jump on (the default GrammarConfig), (b) the
+    same burst with jump off, (c) decode_steps_per_tick=4 with jump off,
+    (d) the arena's bytes and first-schema cost, (e) typed refusals and a
+    constrained stream, (f) tiny-llama float32 identity on the card."""
+    import tempfile
+
+    from ggrmcp_tpu_torch.grammar import compile_schema
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+
+    cfg = llama_mod.CONFIGS[MODEL]
+    t = time.perf_counter()
+    grammars = {k: compile_schema(v, cfg.vocab_size)
+                for k, v in GRAMMAR_SCHEMAS.items()}
+    compile_ms = (time.perf_counter() - t) * 1e3 / len(grammars)
+    limits = {k: longest_output(g) + 1 for k, g in grammars.items()}
+    res: dict = dict(compile_ms_per_schema=compile_ms, max_new=limits,
+                     states={k: g.n_states for k, g in grammars.items()},
+                     forced_run_max={k: int(g.jump_len.max())
+                                     for k, g in grammars.items()})
+    log(f"  schemas: states {res['states']}, max_new {limits}, compile "
+        f"{compile_ms:.0f} ms each at V={cfg.vocab_size}")
+    params = llama_mod.init_params(cfg, dev, SEED)
+    runs = {}
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        for key, serving in (
+                ("on", {}),
+                ("off", dict(grammar=dict(jump_max=0))),
+                ("steps4", dict(grammar=dict(jump_max=0), batching=dict(
+                    decode_steps_per_tick=4)))):
+            runs[key] = await _grammar_run(torch, tatt, dev, params, key,
+                                           serving, grammars, limits, tmp, res)
+            log(f"  ({key}) {json.dumps(_brief(runs[key]))}")
+        on, off, steps4 = runs["on"], runs["off"], runs["steps4"]
+        check(on["launches"] > 0 and on["jump_launches"] > 0,
+              "(a) B1 never launched inside a jump tick")
+        check(on["stats"]["grammar_jump_tokens"] > 0,
+              "(b) no forced token with jump on")
+        check(off["stats"]["grammar_jump_tokens"] == 0
+              and off["jump_ticks"] == 0, "(b) jump ticks with jump off")
+        greedy = [i for i, (n, s) in enumerate(GRAMMAR_BURST) if not s]
+        check(all(on["tokens"][i][:1] == off["tokens"][i][:1]
+                  for i in greedy), "(b) a first token differs on vs off")
+        on["agreement_with_off"] = _agreement(
+            [on["tokens"][i] for i in greedy],
+            [off["tokens"][i] for i in greedy])
+        check(steps4["tokens"] == off["tokens"],
+              "(c) decode_steps_per_tick=4 changed the tokens of the burst")
+        res["refusals"] = await _typed_refusals(torch, params, dev,
+                                                grammars, tmp)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["tiny_f32"] = await tiny_jump_identity(torch, dev)
+    res.update(runs)
+    return res
+
+
 def _brief(d):
     """`d` without its token lists (for the log)."""
     if isinstance(d, dict):
@@ -1709,47 +2159,53 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         card = card_line()
-        log(f"[1/9] card: {card}; torch {torch.__version__}, CUDA "
+        log(f"[1/10] card: {card}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
         t = time.perf_counter()
         _build.load("flash_attention")
-        log(f"[2/9] build: flash_attention.cu in "
+        log(f"[2/10] build: flash_attention.cu in "
             f"{time.perf_counter() - t:.1f} s")
         ptxas_report(_build.build_log.get("flash_attention", ""))
 
-        log(f"[3/9] kernel vs plain (|err| <= atol + rtol |plain|: {TOL})")
+        log(f"[3/10] kernel vs plain (|err| <= atol + rtol |plain|: {TOL})")
         cases = kernel_cases(torch, tatt, dev)
 
-        log("[4/9] reference: tiny-llama on the card vs the CPU")
+        log("[4/10] reference: tiny-llama on the card vs the CPU")
         ref = tiny_reference(torch, dev)
         log(f"  {ref}")
 
-        log(f"[5/9] serve: {MODEL} sidecar, default batching")
+        log(f"[5/10] serve: {MODEL} sidecar, default batching")
         serve = asyncio.run(serve_phase(torch, tatt, dev))
         log(f"  {json.dumps(serve)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[6/9] embed: {EMBED_MODEL} sidecar")
+        log(f"[6/10] embed: {EMBED_MODEL} sidecar")
         embed = asyncio.run(embed_phase(torch, tatt, dev))
         log(f"  {json.dumps(embed)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log("[7/9] HF checkpoint: llama3-8b width, 2 layers, 2 files")
+        log("[7/10] HF checkpoint: llama3-8b width, 2 layers, 2 files")
         hf = asyncio.run(hf_phase(torch, tatt, dev))
         log(f"  {json.dumps(hf)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[8/9] int8: {MODEL} weights and KV cache")
+        log(f"[8/10] int8: {MODEL} weights and KV cache")
         int8 = asyncio.run(int8_phase(torch, tatt, dev))
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[9/9] KV reuse: {MODEL} prefix pool, interleave, paged KV")
+        log(f"[9/10] KV reuse: {MODEL} prefix pool, interleave, paged KV")
         reuse = asyncio.run(kv_reuse_phase(torch, tatt, dev))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log(f"[10/10] grammar: {MODEL} constrained burst, jump on / off")
+        grammar = asyncio.run(grammar_phase(torch, tatt, dev))
+        log(f"  {json.dumps(_brief(grammar))}")
     except SmokeError as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1766,6 +2222,8 @@ def main() -> int:
         pfx_launches=reuse["pool"]["on"]["launches"],
         ilv_launches=reuse["interleave"]["on"]["launches"],
         paged_launches=reuse["paged"]["launches"],
+        grammar_launches=grammar["on"]["launches"],
+        jump_launches=grammar["on"]["jump_launches"],
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],

@@ -11,8 +11,8 @@ the `tokenizers` package. `--quantize int8` serves int8 weights.
 `--config` reads a JSON file in the reference's layout, everything
 nested under "serving" (e.g. `{"serving": {"model": "llama3-8b",
 "quantize": "int8", "kv_cache_dtype": "int8", "batching":
-{"max_batch_size": 16}}}`); a flag given on the command line overrides
-the file. Runs on CUDA unless `--device cpu` is given. Put the
+{"max_batch_size": 16}, "grammar": {"jump_max": 8}}}`); a flag given on
+the command line overrides the file. Runs on CUDA unless `--device cpu` is given. Put the
 reference gateway in front of it:
 `python -m ggrmcp_tpu gateway --grpc-port N`.
 """

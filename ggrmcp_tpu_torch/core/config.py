@@ -153,6 +153,42 @@ def resolve_decode_steps(batching: BatchingConfig) -> int:
 
 
 @dataclass
+class GrammarConfig:
+    """Schema-constrained decoding (ggrmcp_tpu_torch/grammar), the
+    reference's fields, defaults and checks. Disabled, constrained
+    requests are refused INVALID_ARGUMENT and the arena shrinks to the
+    accept-all state."""
+
+    enabled: bool = True
+    # Per-schema DFA state budget (SchemaTooComplexError past it).
+    max_states: int = 1024
+    # Table arena rows shared by all live grammars (state 0 reserved);
+    # device bytes arena_states x vocab x 5 (bool mask + int32 trans).
+    arena_states: int = 4096
+    # Sidecar LRU of compiled DFAs, keyed by canonical schema hash.
+    cache_entries: int = 32
+    # Jump-ahead: up to jump_max forced tokens plus one sampled token in
+    # one [B, 1 + jump_max] forward; 0 = one-token constrained decoding.
+    jump_max: int = 8
+
+    def __post_init__(self) -> None:
+        if self.max_states < 2:
+            raise ValueError("grammar.max_states must be >= 2")
+        if self.arena_states < self.max_states + 1:
+            raise ValueError(
+                "grammar.arena_states must be > grammar.max_states "
+                "(state 0 is the reserved accept-all state)"
+            )
+        if self.cache_entries < 1:
+            raise ValueError("grammar.cache_entries must be >= 1")
+        if not 0 <= self.jump_max <= 16:
+            raise ValueError(
+                "grammar.jump_max must be in [0, 16] (0 disables "
+                "jump-ahead; 16 is the compiler's forced-run cap)"
+            )
+
+
+@dataclass
 class ServingConfig:
     model: str = "tiny-llama"
     batching: BatchingConfig = field(default_factory=BatchingConfig)
@@ -167,6 +203,7 @@ class ServingConfig:
     kv_cache_dtype: str = ""
     # Random int8 weights drawn directly (perf staging; needs int8).
     synthetic_weights: bool = False
+    grammar: GrammarConfig = field(default_factory=GrammarConfig)
     # Guards: reference features not ported yet.
     role: str = "mixed"
     uds_path: str = ""
@@ -184,6 +221,8 @@ class ServingConfig:
         _check_unsupported(self, self.UNSUPPORTED, "serving")
         if not isinstance(self.batching, BatchingConfig):
             raise ValueError("serving.batching must be a BatchingConfig")
+        if not isinstance(self.grammar, GrammarConfig):
+            raise ValueError("serving.grammar must be a GrammarConfig")
         # The reference's checks (Config.validate), at construction.
         if self.quantize not in QUANTIZE_MODES:
             raise ValueError(
@@ -223,7 +262,8 @@ def _from_dict(cls, data: Any, where: str, nested: dict):
 
 
 def serving_config_from_dict(data: dict) -> ServingConfig:
-    """{"serving": {..., "batching": {...}}} → ServingConfig. Any key
+    """{"serving": {..., "batching": {...}, "grammar": {...}}} →
+    ServingConfig. Any key
     these classes do not carry raises ValueError naming it."""
     if not isinstance(data, dict):
         raise ValueError("a config file holds one JSON object")
@@ -234,7 +274,7 @@ def serving_config_from_dict(data: dict) -> ServingConfig:
             f"settings nest under \"serving\""
         )
     return _from_dict(ServingConfig, data.get("serving", {}), "serving",
-                      {"batching": BatchingConfig})
+                      {"batching": BatchingConfig, "grammar": GrammarConfig})
 
 
 def load_serving_config(path: str) -> ServingConfig:

@@ -1,12 +1,14 @@
-"""Token sampling: greedy, temperature, top-k, top-p. Port of
-`ggrmcp_tpu/ops/sampling.py` (grammar state 0 only: the allow /
-transition tables are the trivial one-state tables).
+"""Token sampling: greedy, temperature, top-k, top-p, the grammar mask
+and the forced-run lookup of jump-ahead decoding. Port of
+`ggrmcp_tpu/ops/sampling.py`.
 
-Drawing a token is two separate steps so that tests can feed both
-packages the same uniforms: `counter_uniform` makes one uniform per row
-from a counter-based hash of (seed, step, row), and `_invcdf_pick`
-picks the token from it. The reference draws its uniform with threefry;
-the draws differ, the pick does not.
+A random draw is one float32 uniform per row, made exactly as the
+reference makes it: threefry-2x32 (JAX's partitionable mode) on int64
+tensors masked to 32 bits, so `sample_dynamic` draws
+`uniform(fold_in(prng_key(seed), step))` bit for bit like
+`jax.random.uniform(jax.random.fold_in(jax.random.PRNGKey(seed), step),
+())` on the CPU and on CUDA alike. `_invcdf_pick` then picks the token
+from the uniform as the reference does.
 """
 
 from __future__ import annotations
@@ -23,41 +25,49 @@ class SamplingConfig(NamedTuple):
 
 
 _MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2**32 for int64 x in [0, 2**32): split c in 16-bit
-    halves so no int64 product overflows."""
-    lo = x * (c & 0xFFFF)
-    hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _MASK32
+def _threefry2x32(
+    k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Threefry-2x32, 20 rounds (Salmon et al. 2011, as `jax.random`
+    runs it) on int64 tensors holding 32-bit words."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + k0) & _MASK32
+    x1 = (x1 + k1) & _MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _MASK32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK32
+    return x0, x1
 
 
-def _hash32(x: torch.Tensor) -> torch.Tensor:
-    """lowbias32 integer hash on int64 tensors holding 32-bit values."""
-    x = x & _MASK32
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
+def prng_key(seed: torch.Tensor) -> torch.Tensor:  # [..., 2] int64
+    """`jax.random.PRNGKey` of 32-bit seeds: the key words (0, seed)."""
+    seed = seed.long() & _MASK32
+    return torch.stack([torch.zeros_like(seed), seed], dim=-1)
 
 
-def counter_uniform(
-    seeds: torch.Tensor,  # [B] integer per-row seeds
-    step,  # int or scalar tensor — the decode step
-    rows: Optional[torch.Tensor] = None,  # [B] extra counter (row index)
-) -> torch.Tensor:  # [B] float32 in [0, 1)
-    """One uniform per row from a counter-based hash of (seed, step,
-    row): stateless, identical on every device, independent across
-    rows and steps."""
-    s = seeds.long() & _MASK32
-    x = _hash32(s ^ _hash32(torch.as_tensor(step, device=s.device).long()
-                            + 0x9E3779B9))
-    if rows is not None:
-        x = _hash32(x ^ _hash32(rows.long() + 0x85EBCA6B))
-    x = _hash32(x + 0x27D4EB2F)
-    return (x >> 8).float() * (1.0 / (1 << 24))
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """`jax.random.fold_in`: threefry of the counter (0, data) under
+    `key`. `data` is an int or a tensor; it and the key broadcast."""
+    d = torch.as_tensor(data, device=key.device).long() & _MASK32
+    k0, k1, d = torch.broadcast_tensors(key[..., 0], key[..., 1], d)
+    x0, x1 = _threefry2x32(k0, k1, torch.zeros_like(d), d)
+    return torch.stack([x0, x1], dim=-1)
+
+
+def uniform(key: torch.Tensor) -> torch.Tensor:  # [...] float32 in [0, 1)
+    """`jax.random.uniform(key, ())` per key: the 32 random bits are the
+    xor of threefry's two words at counter (0, 0); their top 23 bits
+    become the mantissa of a float in [1, 2), minus 1."""
+    zero = torch.zeros_like(key[..., 0])
+    b0, b1 = _threefry2x32(key[..., 0], key[..., 1], zero, zero)
+    bits = ((b0 ^ b1) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
 def _invcdf_pick(u: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
@@ -97,8 +107,9 @@ def sample(
     cfg: SamplingConfig,
 ) -> torch.Tensor:  # [B] int32
     """Static-config sampling (the engine's whole-request path). Greedy
-    when temperature <= 0; otherwise temperature → top-k → top-p, one
-    counter uniform per row."""
+    when temperature <= 0; otherwise temperature → top-k → top-p, then
+    row r draws from the step key `fold_in(prng_key(seed), step)` with
+    r folded in, as the reference engine and `sample` draw."""
     if cfg.temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     logits = logits.float() / cfg.temperature
@@ -106,10 +117,9 @@ def sample(
         logits = _mask_top_k(logits, cfg.top_k)
     if cfg.top_p < 1.0:
         logits = _mask_top_p(logits, cfg.top_p)
-    b = logits.shape[0]
-    rows = torch.arange(b, device=logits.device)
-    seeds = torch.full((b,), seed & _MASK32, device=logits.device)
-    return _invcdf_pick(counter_uniform(seeds, step, rows), logits)
+    rows = torch.arange(logits.shape[0], device=logits.device)
+    key = fold_in(prng_key(torch.tensor(seed, device=logits.device)), step)
+    return _invcdf_pick(uniform(fold_in(key, rows)), logits)
 
 
 def dynamic_support_mask(
@@ -156,7 +166,8 @@ def sample_dynamic(
     top_p: torch.Tensor,  # [B]; >= 1 → disabled
 ) -> torch.Tensor:  # [B] int32
     """Per-row sampling with per-row parameters (the continuous batcher
-    path): support mask, then one counter uniform per row."""
+    path): support mask, then row r draws
+    `uniform(fold_in(prng_key(seeds[r]), step))`."""
     logits = logits.float()
     support = dynamic_support_mask(logits, temperature, top_k, top_p)
     safe_temp = torch.clamp(temperature.float(), min=1e-6)[:, None]
@@ -164,16 +175,35 @@ def sample_dynamic(
         support, logits / safe_temp,
         torch.full_like(logits, -float("inf")),
     )
-    sampled = _invcdf_pick(counter_uniform(seeds, step), scaled)
+    u = uniform(fold_in(prng_key(seeds.to(logits.device)), step))
+    sampled = _invcdf_pick(u, scaled)
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     return torch.where(temperature <= 0.0, greedy, sampled)
+
+
+def filtered_logprobs(
+    logits: torch.Tensor,  # [B, V] (grammar-masked rows arrive as -inf)
+    temperature: torch.Tensor,  # [B]
+    top_k: torch.Tensor,  # [B]
+    top_p: torch.Tensor,  # [B]
+) -> torch.Tensor:  # [B, V] float32 log-probs
+    """Log-probs of the temperature → top-k → top-p filtered distribution
+    `sample_dynamic` draws from; tokens outside the support are -inf."""
+    support = dynamic_support_mask(logits, temperature, top_k, top_p)
+    safe_temp = torch.clamp(temperature.float(), min=1e-6)[:, None]
+    return torch.log_softmax(
+        torch.where(support, logits.float() / safe_temp,
+                    torch.full_like(logits, -float("inf"),
+                                    dtype=torch.float32)),
+        dim=-1,
+    )
 
 
 def masked_sample_dynamic(
     logits: torch.Tensor,  # [B, V]
     seeds: torch.Tensor,  # [B]
     step,
-    temperature: torch.Tensor,  # [B]
+    temperature: Optional[torch.Tensor],  # [B]; None = every row greedy
     top_k: torch.Tensor,  # [B]
     top_p: torch.Tensor,  # [B]
     state: torch.Tensor,  # [B] int — per-row grammar state (0 = none)
@@ -183,14 +213,45 @@ def masked_sample_dynamic(
     """Grammar-masked per-row sampling: disallowed tokens become -inf
     before temperature/top-k/top-p, and each row's state advances
     through the transition table. State 0 (accept-all) passes logits
-    through unchanged."""
+    through unchanged. `temperature` None says no row samples (the
+    caller knows it on the host): the tokens are then the masked argmax,
+    `sample_dynamic`'s greedy rows, without its sort and its draw, each
+    of which costs hundreds of small launches on the card."""
+    state = state.long()
     masked = torch.where(
-        allow[state.long()], logits.float(),
+        allow[state], logits.float(),
         torch.full_like(logits, -float("inf"), dtype=torch.float32),
     )
-    tokens = sample_dynamic(masked, seeds, step, temperature, top_k, top_p)
-    nxt = torch.gather(trans[state.long()], -1, tokens.long()[:, None])[:, 0]
-    return tokens, nxt
+    if temperature is None:
+        tokens = torch.argmax(masked, dim=-1).to(torch.int32)
+    else:
+        tokens = sample_dynamic(masked, seeds, step, temperature, top_k,
+                                top_p)
+    return tokens, trans[state, tokens.long()].long()
+
+
+def forced_run_lookup(
+    state: torch.Tensor,  # [B] — per-row grammar state
+    jump_len: torch.Tensor,  # [S] — forced-run length per state
+    jump_tokens: torch.Tensor,  # [S, J] — run token ids
+    jump_states: torch.Tensor,  # [S, J] — absolute states along the run
+    jump_ok: torch.Tensor,  # [B] bool — per-slot jump enable
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-row forced-run gather of the jump-ahead tick: (run_len [B],
+    run_tokens [B, J], landing [B]). run_len is 0 for state 0 and for
+    rows with jump_ok False; landing is the absolute state after the run
+    (the state itself when run_len is 0), which the post-run sample is
+    masked under."""
+    state = state.long()
+    length = torch.where(jump_ok, jump_len[state].long(),
+                         torch.zeros_like(state))
+    run_tokens = jump_tokens[state].long()
+    last = torch.clamp(length - 1, min=0)[:, None]
+    landing = torch.where(
+        length > 0, torch.gather(jump_states[state].long(), 1, last)[:, 0],
+        state,
+    )
+    return length, run_tokens, landing
 
 
 def trivial_grammar_tables(

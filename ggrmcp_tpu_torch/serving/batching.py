@@ -12,7 +12,19 @@ between decode ticks:
   group's slots;
 - every loop turn then runs one decode tick of `decode_steps_per_tick`
   steps for the whole pool, sampling through the per-row dynamic path
-  with grammar state 0.
+  under each row's grammar state.
+
+Schema-constrained decoding (a request submitted with a
+`CompiledGrammar`): the grammar takes a state range in the batcher's
+`GrammarArena`; each slot carries its absolute DFA state (0 =
+unconstrained) on the host, shipped with each tick, and every sample
+(the admission's first token, each tick step) is masked under it and
+advances it by a transition-table gather. While some live slot can jump
+(`grammar.jump_max` > 0), a tick is one [B, 1 + jump_max] forward of
+each row's pending token plus its forced run, then one masked sample.
+The host walks the DFA over every emitted token: the accepting sink
+finishes the request "grammar_complete", a forced run the walk does not
+reproduce degrades the request to one-token decoding and replays it.
 
 KV reuse, each behind the reference's switch and with its semantics:
 
@@ -30,9 +42,9 @@ KV reuse, each behind the reference's switch and with its semantics:
   the arena is exhausted.
 
 Device work runs in the default executor (never on the event loop),
-one call at a time; ticks are synchronous. Speculative ticks, grammar,
-LoRA, the scheduler, the host page tier, SLO accounting and the flight
-recorder are not ported yet (core/config.py rejects their settings).
+one call at a time; ticks are synchronous. Speculative ticks, LoRA, the
+scheduler, the host page tier, SLO accounting and the flight recorder
+are not ported yet (core/config.py rejects their settings).
 Every copy between a mini cache, the prefix pool and the pool goes
 through `quant.kv_map`, so an int8 KV cache (the engine's `kv_dtype`)
 moves values and scales alike.
@@ -50,11 +62,18 @@ from typing import AsyncIterator, Optional
 import numpy as np
 import torch
 
-from ggrmcp_tpu_torch.core.config import BatchingConfig, resolve_decode_steps
+from ggrmcp_tpu_torch.core.config import (
+    BatchingConfig,
+    GrammarConfig,
+    resolve_decode_steps,
+)
+from ggrmcp_tpu_torch.grammar.compiler import CompiledGrammar
+from ggrmcp_tpu_torch.grammar.runtime import GrammarArena, GrammarHandle
 from ggrmcp_tpu_torch.models import llama as llama_mod
 from ggrmcp_tpu_torch.ops import quant
 from ggrmcp_tpu_torch.ops.sampling import (
     SamplingConfig,
+    forced_run_lookup,
     masked_sample_dynamic,
     trivial_grammar_tables,
 )
@@ -165,6 +184,14 @@ class _Request:
     t_admit: float = 0.0
     t_first: float = 0.0
     queue_ms: float = 0.0
+    # Grammar: the arena residency (None = unconstrained), the host DFA
+    # state after the last emitted token, whether the arena reference
+    # was returned, and whether a refused forced run degraded the
+    # request to one-token decoding.
+    grammar: Optional[GrammarHandle] = None
+    gcur: int = 0
+    g_released: bool = False
+    jump_degraded: bool = False
 
 
 def _pct(values: list[float], q: float) -> float:
@@ -193,10 +220,24 @@ class ContinuousBatcher:
         self._wake = asyncio.Event()
         self._stopping = False
         self._steps_per_tick = resolve_decode_steps(self.cfg)
+        gcfg = getattr(engine.serving, "grammar", None) or GrammarConfig()
+        jump_max = int(gcfg.jump_max) if gcfg.enabled else 0
+        # The reference's gates: the jump window does not compose with a
+        # ring cache, and junk window positions would compete for MoE
+        # experts. The port serves neither yet.
+        if jump_max and (engine.serving.kv_ring
+                         or getattr(engine, "fam", llama_mod) is not llama_mod):
+            logger.warning("grammar.jump_max > 0 needs a dense contiguous "
+                           "or paged cache; one-token constrained decoding")
+            jump_max = 0
+        self._jump_max = jump_max
         # A tick may run up to steps_per_tick - 1 positions past a
         # slot's max_new before the host masks the extra tokens: every
-        # request reserves that much cache (pipelined ticks are off).
+        # request reserves that much cache (pipelined ticks are off). A
+        # grammar-carrying request reserves the jump window instead: one
+        # jump tick writes 1 + jump_max positions.
         self._reserve = self._steps_per_tick - 1
+        self._jump_reserve = max(self._steps_per_tick, 1 + jump_max) - 1
         self.max_seq = min(self.cfg.kv_cache_max_seq, engine.cfg.max_seq_len)
         # Paged KV (paged_kv=on): the shared cache is a page arena with
         # block tables; the host allocator owns the tables (uploaded to
@@ -238,9 +279,30 @@ class ContinuousBatcher:
         self.top_ps = np.ones((b,), np.float32)
         self.seeds = np.zeros((b,), np.int64)
         self.step_counter = 0
+        # Grammar: per-slot absolute DFA state (the state the slot's
+        # next sample is masked under) and jump enable, host mirrors
+        # shipped with each tick; the arena's tables and their device
+        # twins (_grammar_tables).
+        self.gstates = np.zeros((b,), np.int64)
+        self.jump_ok = np.zeros((b,), bool)
+        self.arena = GrammarArena(
+            gcfg.arena_states if gcfg.enabled else 2,
+            engine.cfg.vocab_size, jump_max=jump_max,
+        )
         self._g_allow, self._g_trans = trivial_grammar_tables(
             engine.cfg.vocab_size, self.device
         )
+        width = self.arena.jump_tokens.shape[1]
+        self._g_jlen = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        self._g_jtok = torch.zeros((1, width), dtype=torch.int32,
+                                   device=self.device)
+        self._g_jstate = torch.zeros_like(self._g_jtok)
+        self._g_full = False  # the one-state tables until a grammar lands
+        self._g_dev_version = self.arena.version
+        self.grammar_tokens = 0
+        self.grammar_jump_tokens = 0
+        self.grammar_jump_runs = 0
+        self.grammar_jump_fallbacks = 0
         # Prefix pool: entries shaped like mini-cache rows, so a hit is
         # one copy into the admission mini. Host maps (keys, LRU stamps)
         # are touched only inside the executor calls.
@@ -290,14 +352,77 @@ class ContinuousBatcher:
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def _sample(self, logits, seeds, step, temps, ks, ps) -> torch.Tensor:
-        tokens, _ = masked_sample_dynamic(
-            logits, seeds, step, temps, ks, ps,
-            torch.zeros(logits.shape[0], dtype=torch.int64,
-                        device=self.device),
+    def _temps(self, temps: np.ndarray) -> Optional[torch.Tensor]:
+        """Per-row temperatures for a sampling call, or None when no row
+        samples: the all-greedy call skips the draw (the host knows)."""
+        return self._t(temps) if (temps > 0.0).any() else None
+
+    def _sample(self, logits, seeds, step, temps, ks, ps, gs):
+        """Grammar-masked sample of each row under its state `gs`:
+        (tokens [B], next states [B]); `temps` None = all rows greedy."""
+        return masked_sample_dynamic(
+            logits, seeds, step, temps, ks, ps, gs,
             self._g_allow, self._g_trans,
         )
-        return tokens
+
+    def _grammar_tables(self) -> None:
+        """Bring the device tables up to the arena's version. Until the
+        first grammar is resident they are the one-state accept-all
+        tables (no row can hold another state). The first insert
+        allocates the fixed [arena_states, V] tables, zero like the
+        arena's, with row 0 accept-all; from then on only the rows each
+        insert wrote are uploaded (evictions write nothing)."""
+        if self.arena.version == self._g_dev_version:
+            return
+        spans, version = self.arena.take_dirty()
+        if spans and not self._g_full:
+            a = self.arena
+            s, v, w = a.max_states, a.vocab_size, a.jump_tokens.shape[1]
+            dev = self.device
+            self._g_allow = torch.zeros((s, v), dtype=torch.bool, device=dev)
+            self._g_allow[0] = True
+            self._g_trans = torch.zeros((s, v), dtype=torch.int32, device=dev)
+            self._g_jlen = torch.zeros((s,), dtype=torch.int32, device=dev)
+            self._g_jtok = torch.zeros((s, w), dtype=torch.int32, device=dev)
+            self._g_jstate = torch.zeros((s, w), dtype=torch.int32,
+                                         device=dev)
+            self._g_full = True
+        for start, end, *rows in spans:
+            for dst, src in zip(self._grammar_device_tables(), rows):
+                dst[start:end] = torch.from_numpy(src).to(self.device)
+        self._g_dev_version = version
+
+    def _grammar_device_tables(self) -> tuple:
+        """(allow, trans, jump_len, jump_tokens, jump_states) on the
+        device, in `GrammarArena.take_dirty`'s order."""
+        return (self._g_allow, self._g_trans, self._g_jlen, self._g_jtok,
+                self._g_jstate)
+
+    def grammar_table_bytes(self) -> int:
+        return sum(t.nbytes for t in self._grammar_device_tables())
+
+    def _g0(self, request: "_Request") -> int:
+        """The absolute state a (re-)admission samples its first token
+        under: the grammar's start state, walked through the tokens a
+        replay folded into the prompt."""
+        if request.grammar is None:
+            return 0
+        state = request.grammar.start
+        for token in request.acc[:request.absorbed]:
+            state = self.arena.step(state, int(token))
+        return state
+
+    def _grammar_release(self, request: "_Request") -> None:
+        """Return a terminal request's arena reference, once."""
+        if request.grammar is not None and not request.g_released:
+            request.g_released = True
+            self.arena.release(request.grammar)
+
+    def _reserve_for(self, constrained: bool) -> int:
+        """The tick overshoot a request's cache extent must cover: the
+        jump window for a grammar-carrying request, the plain tick's
+        otherwise (equal when jump is off)."""
+        return self._jump_reserve if constrained else self._reserve
 
     def _make_mini(self, rows: int, length: int) -> llama_mod.KVCache:
         """Admission mini cache in the engine's KV dtype."""
@@ -382,7 +507,7 @@ class ContinuousBatcher:
         self._merge(put, mini)
 
     def _admit_full_impl(self, params, tokens, true_len, valid_rows,
-                         seeds, temps, ks, ps):
+                         seeds, temps, ks, ps, gs):
         """Burst admission: `tokens` is a full [B, S] batch with each
         admitted prompt at its slot's row; `valid_rows` (host list) are
         the admitted rows. One [B, S] prefill against a fresh mini cache,
@@ -393,20 +518,20 @@ class ContinuousBatcher:
         logits, mini = self.engine.prefill_forward(params, tokens, mini)
         idx = torch.clamp(true_len.long() - 1, min=0)
         last = logits[torch.arange(r, device=self.device), idx]
-        first = self._sample(last, seeds, 0, temps, ks, ps)
+        first, _ = self._sample(last, seeds, 0, temps, ks, ps, gs)
         lens = true_len.tolist()
         self._merge_rows(mini, valid_rows, valid_rows,
                          [lens[i] for i in valid_rows])
         return first
 
     def _admit_single_impl(self, params, tokens, true_len, slot,
-                           seeds, temps, ks, ps):
+                           seeds, temps, ks, ps, gs):
         """One request (row shapes [1, S]) into slot `slot`."""
         mini = self._make_mini(1, tokens.shape[1])
         logits, mini = self.engine.prefill_forward(params, tokens, mini)
         n = int(true_len[0])
         last = logits[:, max(n - 1, 0)]
-        first = self._sample(last, seeds, 0, temps, ks, ps)
+        first, _ = self._sample(last, seeds, 0, temps, ks, ps, gs)
         self._merge_rows(mini, [0], [slot], [n])
         return first
 
@@ -433,23 +558,23 @@ class ContinuousBatcher:
         return final
 
     def _chunked_finish(self, mini, rows, slots, true_len, fl,
-                        seeds, temps, ks, ps, start: int = 0):
+                        seeds, temps, ks, ps, gs, start: int = 0):
         """Sample each row's first token from `fl` and merge the real rows
         (`rows`, host list) of the [R, S_max] mini into `slots`."""
-        first = self._sample(fl, seeds, 0, temps, ks, ps)
+        first, _ = self._sample(fl, seeds, 0, temps, ks, ps, gs)
         lens = true_len.tolist()
         self._merge_rows(mini, rows, slots, [lens[r] for r in rows], start)
         return first
 
     def _admit_chunked_impl(self, params, tokens, true_len, rows, slots,
-                            seeds, temps, ks, ps):
+                            seeds, temps, ks, ps, gs):
         """Chunked admission of a group (no prefix): the [R, T, C] grid
         against a full-length [R, S_max] mini cache, then the merge and
         the first-token sample."""
         mini = self._make_mini(tokens.shape[0], self.max_seq)
         fl = self._chunked_scan(params, tokens, true_len, mini)
         return self._chunked_finish(mini, rows, slots, true_len, fl,
-                                    seeds, temps, ks, ps)
+                                    seeds, temps, ks, ps, gs)
 
     def _pfx_seeded_mini(self, rows: int, entry: int, start: int):
         """A full-length [rows, S_max] mini whose every row holds prefix
@@ -468,14 +593,14 @@ class ContinuousBatcher:
         return mini
 
     def _admit_chunked_pfx_impl(self, params, tokens, true_len, rows, slots,
-                                entry, start, seeds, temps, ks, ps):
+                                entry, start, seeds, temps, ks, ps, gs):
         """Prefix-reuse admission: pool entry `entry` seeds the first
         `start` positions of EVERY row, then the [R, 1, W] suffix grid
         runs from `start` — one call admits a same-preamble wave."""
         mini = self._pfx_seeded_mini(tokens.shape[0], entry, start)
         fl = self._chunked_scan(params, tokens, true_len, mini, start)
         return self._chunked_finish(mini, rows, slots, true_len, fl,
-                                    seeds, temps, ks, ps)
+                                    seeds, temps, ks, ps, gs)
 
     def _paged_gathered_mini(self, gtables: np.ndarray, scan_start: int):
         """A full-length mini whose rows hold the arena pages of their
@@ -492,7 +617,7 @@ class ContinuousBatcher:
 
     def _admit_paged_pfx_impl(self, params, tokens, true_len, rows, slots,
                               gtables, scan_start, merge_start,
-                              seeds, temps, ks, ps):
+                              seeds, temps, ks, ps, gs):
         """Paged prefix-reuse admission: gather each row's shared prefix
         into a full-width mini through the host-built gather tables, run
         the [R, T, C] suffix grid from `scan_start`, and write positions
@@ -502,24 +627,57 @@ class ContinuousBatcher:
         mini = self._paged_gathered_mini(gtables, scan_start)
         fl = self._chunked_scan(params, tokens, true_len, mini, scan_start)
         return self._chunked_finish(mini, rows, slots, true_len, fl,
-                                    seeds, temps, ks, ps, start=merge_start)
+                                    seeds, temps, ks, ps, gs,
+                                    start=merge_start)
 
-    def _tick_impl(self, params, tokens, seeds, step, temps, ks, ps):
-        """`decode_steps_per_tick` decode steps for the whole pool.
-        Tokens a slot samples after its EOS / max_new are dropped on
-        the host (_emit_chunk); their cache writes are masked by length
-        when the slot is reused, and a write past the end of the cache
-        lands in its scratch slot (scratch page when paged). Returns
-        tokens [B, steps]."""
+    def _tick_impl(self, params, tokens, seeds, step, temps, ks, ps, gs):
+        """`decode_steps_per_tick` decode steps for the whole pool, each
+        sampled under the rows' grammar states, which advance by a
+        transition gather. Tokens a slot samples after its EOS / max_new
+        are dropped on the host (_emit_chunk); their cache writes are
+        masked by length when the slot is reused, and a write past the
+        end of the cache lands in its scratch slot (scratch page when
+        paged). Returns (tokens [B, steps], states [B])."""
         out = []
         cur = tokens
         for i in range(self._steps_per_tick):
             logits, _ = self.engine.decode_forward(
                 params, cur[:, None], self.cache
             )
-            cur = self._sample(logits[:, -1], seeds, step + i, temps, ks, ps)
+            cur, gs = self._sample(logits[:, -1], seeds, step + i, temps,
+                                   ks, ps, gs)
             out.append(cur)
-        return torch.stack(out, dim=1)
+        return torch.stack(out, dim=1), gs
+
+    def _tick_jump_impl(self, params, tokens, seeds, step, temps, ks, ps,
+                        gs, jump_ok):
+        """The jump-ahead tick: ONE forward over a [B, 1 + jump_max]
+        window (each row's pending token, then its forced run), one
+        sample at the run's end masked under its landing state. Rows
+        without a run (state 0, jump_ok False) read position 0, the
+        plain tick's sample, and their other window positions are junk
+        that only the length pointer hides: it advances by count =
+        run_len + 1, the forward wrote 1 + jump_max (writes past the
+        cache land in the scratch slot or page). Returns (emit [B, 1 +
+        jump_max], count [B], states [B]); the host emits emit[i,
+        :count[i]]."""
+        run_len, run_tokens, landing = forced_run_lookup(
+            gs, self._g_jlen, self._g_jtok, self._g_jstate, jump_ok)
+        window = torch.cat([tokens[:, None], run_tokens], dim=1)
+        length0 = self.cache.length
+        logits, _ = self.engine.decode_forward(params, window, self.cache)
+        rows = torch.arange(window.shape[0], device=self.device)
+        nxt, gs = self._sample(logits[rows, run_len], seeds, step, temps, ks,
+                               ps, landing)
+        idx = torch.arange(window.shape[1], device=self.device)[None, :]
+        emit = torch.where(
+            idx < run_len[:, None],
+            torch.cat([run_tokens, torch.zeros_like(run_tokens[:, :1])], 1),
+            torch.where(idx == run_len[:, None], nxt.long()[:, None], 0),
+        )
+        count = run_len + 1
+        self.cache.length = (length0 + count).to(torch.int32)
+        return emit, count, gs
 
     def _chunk_extend(self, params, chunk, offs, c_true_len):
         """Extend the carried [K, S_max] interleave mini by one [K, C]
@@ -533,22 +691,34 @@ class ContinuousBatcher:
         return logits[torch.arange(chunk.shape[0], device=self.device), idx]
 
     def _tick_chunk_impl(self, params, tokens, seeds, step, temps, ks, ps,
-                         chunk, offs, c_true_len):
+                         gs, chunk, offs, c_true_len):
         """A decode tick for every slot AND one [K, C] prefill chunk for
         the admitting rows, in one executor call: an active slot's
         emission gaps by one chunk's compute, never a whole prefill.
         Idle rows run junk chunks at offset 0 (their next occupant
-        re-stamps the offset). Returns (tokens [B, steps], sel [K, V])."""
-        toks = self._tick_impl(params, tokens, seeds, step, temps, ks, ps)
+        re-stamps the offset). Returns (tokens [B, steps], states [B],
+        sel [K, V])."""
+        toks, gs = self._tick_impl(params, tokens, seeds, step, temps, ks,
+                                   ps, gs)
         sel = self._chunk_extend(params, chunk, offs, c_true_len)
-        return toks, sel
+        return toks, gs, sel
 
-    def _ilv_finish_impl(self, row, slot, n, sel, seeds, temps, ks, ps):
+    def _tick_jump_chunk_impl(self, params, tokens, seeds, step, temps, ks,
+                              ps, gs, jump_ok, chunk, offs, c_true_len):
+        """The jump tick fused with one [K, C] interleave chunk, as
+        _tick_chunk_impl fuses the plain tick. Returns (emit, count,
+        states, sel)."""
+        emit, count, gs = self._tick_jump_impl(
+            params, tokens, seeds, step, temps, ks, ps, gs, jump_ok)
+        sel = self._chunk_extend(params, chunk, offs, c_true_len)
+        return emit, count, gs, sel
+
+    def _ilv_finish_impl(self, row, slot, n, sel, seeds, temps, ks, ps, gs):
         """Final-chunk completion of one interleaved admission: copy mini
         row `row` into the pool at `slot` with length `n` and sample the
         first token from that row's final-position logits."""
         self._merge_rows(self._ilv_mini, [row], [slot], [n])
-        return self._sample(sel[row:row + 1], seeds, 0, temps, ks, ps)
+        return self._sample(sel[row:row + 1], seeds, 0, temps, ks, ps, gs)[0]
 
     def _pfx_store_impl(self, src, row: int, entry: int, plen: int) -> None:
         """Copy the first `_pfx_max` positions of row `row` of `src` (a
@@ -747,9 +917,9 @@ class ContinuousBatcher:
         self._merge_rows(mini, [0], [slot_idx], [n])
         # The last real token sits at n - last_offset - 1 of the final step.
         sampling = self._row_params(1, [(0, request)])
-        first = self._sample(
+        first, _ = self._sample(
             logits[:, n - steps[-1][0] - 1], sampling["seeds"], 0,
-            sampling["temps"], sampling["ks"], sampling["ps"],
+            sampling["temps"], sampling["ks"], sampling["ps"], sampling["gs"],
         )
         first_tok = int(first.cpu()[0])
         self._cache_at_risk = False
@@ -784,15 +954,20 @@ class ContinuousBatcher:
         sampling: SamplingConfig,
         seed: int = 0,
         unary: bool = False,
+        grammar: Optional[CompiledGrammar] = None,
     ) -> AsyncIterator[tuple[list[int], Optional[str]]]:
         """Enqueue a request; yields (token_ids_chunk, finish_reason)
         pairs, finish_reason set on the final chunk (`unary=True`: one
         terminal chunk with all tokens). The cap check and the enqueue
         run HERE, eagerly. Raises OverloadedError when max_pending or
         max_queue_tokens would be exceeded. A paged arena that cannot
-        hold the request at admission finishes it with "overloaded"."""
+        hold the request at admission finishes it with "overloaded".
+        `grammar`: every token must satisfy it; the request finishes
+        "grammar_complete" at its accepting sink, and GrammarCapacityError
+        is raised here when the arena cannot host another schema."""
         prompt, max_new = fit_request(
-            prompt, max_new, self.max_seq - self._reserve
+            prompt, max_new,
+            self.max_seq - self._reserve_for(grammar is not None),
         )
         cap = self.cfg.max_pending
         if cap > 0 and self.pending.qsize() >= cap:
@@ -811,9 +986,11 @@ class ContinuousBatcher:
                 f"admission queue token budget full ({tcap} tokens)",
                 reason="tokens",
             )
+        # Arena residency after the caps: a shed request holds no rows.
+        handle = self.arena.acquire(grammar) if grammar is not None else None
         request = _Request(
             prompt=prompt, max_new=max_new, sampling=sampling, seed=seed,
-            unary=unary,
+            unary=unary, grammar=handle,
         )
         request.t_submit = time.perf_counter()
         self.pending.put_nowait(request)
@@ -870,6 +1047,12 @@ class ContinuousBatcher:
                 "paged_cow_copies": 0, "paged_pages_reused": 0,
                 "paged_pages_admitted": 0,
             }),
+            "grammar_masked_tokens": self.grammar_tokens,
+            "grammar_states_in_use": self.arena.states_in_use(),
+            "memory_grammar_arena_bytes": self.grammar_table_bytes(),
+            "grammar_jump_tokens": self.grammar_jump_tokens,
+            "grammar_jump_runs": self.grammar_jump_runs,
+            "grammar_jump_fallbacks": self.grammar_jump_fallbacks,
             "decode_steps": self.step_counter,
             "timed_out": 0,
             "shed_requests": self.shed,
@@ -933,7 +1116,10 @@ class ContinuousBatcher:
             await asyncio.sleep(0)  # noqa: ASYNC115 — let handlers drain queues
 
     def _deliver(self, request: _Request, item) -> None:
-        """Executor → loop edge: asyncio.Queue is not thread-safe."""
+        """Executor → loop edge: asyncio.Queue is not thread-safe. Every
+        terminal chunk passes here, so it returns the arena reference."""
+        if item[1] is not None:
+            self._grammar_release(request)
         self._loop_ref.call_soon_threadsafe(request.out.put_nowait, item)
 
     def _replay_or_fail(self, request: _Request) -> None:
@@ -981,6 +1167,10 @@ class ContinuousBatcher:
             slot.active = False
             slot.request = None
             slot.reserved = False
+        # Grammar states reset with the slots: each victim re-derives
+        # its state from its replay prefix at re-admission (_g0).
+        self.gstates[:] = 0
+        self.jump_ok[:] = False
         for st in list(self._ilv_rows) + list(self._ilv_pending):
             if st is not None:
                 self._replay_or_fail(st.request)
@@ -1018,6 +1208,7 @@ class ContinuousBatcher:
                 except (asyncio.TimeoutError, asyncio.QueueEmpty):
                     break
                 if request.cancelled:
+                    self._grammar_release(request)  # consumer gone
                     continue
                 batch.append(request)
             if not batch:
@@ -1056,6 +1247,8 @@ class ContinuousBatcher:
                             self._replay_or_fail(slot.request)
                         slot.active = False
                         slot.request = None
+                    self.gstates[:] = 0
+                    self.jump_ok[:] = False
                     self._slot_last_emit = [None] * len(self.slots)
                     self._reset_shared_cache()
                 continue
@@ -1075,6 +1268,7 @@ class ContinuousBatcher:
         the interleave queue while slots decode or one chunked group
         call, short prompts fuse into one prefill call."""
         t0 = time.perf_counter()
+        self._grammar_tables()
         fused_slots: list[int] = []
         fused_batch: list[_Request] = []
         pfx_groups: dict[tuple, list[tuple[int, _Request]]] = {}
@@ -1158,7 +1352,8 @@ class ContinuousBatcher:
             try:
                 adm = self.pages.admit(
                     sl, req.prompt,
-                    len(req.prompt) + req.max_new + self._reserve + 1,
+                    len(req.prompt) + req.max_new
+                    + self._reserve_for(req.grammar is not None) + 1,
                 )
             except PageExhaustedError:
                 self.shed += 1
@@ -1183,19 +1378,21 @@ class ContinuousBatcher:
         return cold
 
     def _row_params(self, n: int, rows) -> dict:
-        """Per-row sampling arrays for an admission call; `rows` pairs
-        (row index, request)."""
+        """Per-row sampling arrays and admission grammar states for an
+        admission call; `rows` pairs (row index, request)."""
         seeds = np.zeros((n,), np.int64)
         temps = np.zeros((n,), np.float32)
         ks = np.zeros((n,), np.int64)
         ps = np.ones((n,), np.float32)
+        gs = np.zeros((n,), np.int64)
         for row, req in rows:
             seeds[row] = req.seed & 0xFFFFFFFF
             temps[row] = req.sampling.temperature
             ks[row] = req.sampling.top_k
             ps[row] = req.sampling.top_p
-        return dict(seeds=self._t(seeds), temps=self._t(temps),
-                    ks=self._t(ks), ps=self._t(ps))
+            gs[row] = self._g0(req)
+        return dict(seeds=self._t(seeds), temps=self._temps(temps),
+                    ks=self._t(ks), ps=self._t(ps), gs=self._t(gs))
 
     def _group_inputs(self, rows, r: int, t_steps: int, c: int, start: int):
         """[R, T, C] tokens (each prompt from `start`), true lengths and
@@ -1334,6 +1531,19 @@ class ContinuousBatcher:
         request.t_admit = time.perf_counter()
         request.queue_ms = (request.t_admit - request.t_submit) * 1000.0
         self.cur_tokens[slot_idx] = first_tok
+        # The emit tracker starts at the admission state (_emit_chunk
+        # walks it through first_tok); the slot's next sample is masked
+        # under the state after first_tok.
+        g0 = self._g0(request)
+        request.gcur = g0
+        self.gstates[slot_idx] = (
+            self.arena.step(g0, first_tok) if request.grammar is not None
+            else 0
+        )
+        self.jump_ok[slot_idx] = bool(
+            self._jump_max and request.grammar is not None
+            and not request.jump_degraded
+        )
         self.temps[slot_idx] = request.sampling.temperature
         self.top_ks[slot_idx] = request.sampling.top_k
         self.top_ps[slot_idx] = request.sampling.top_p
@@ -1400,31 +1610,48 @@ class ContinuousBatcher:
     def _tick_step(self) -> None:
         """One decode tick (fused with one [K, C] prefill chunk while
         interleaved admissions are in flight): dispatch, pull the tokens,
-        finish the admitting rows whose last chunk this was, emit."""
+        finish the admitting rows whose last chunk this was, emit. The
+        jump tick replaces the plain one while some live slot can jump;
+        its sample's step advances the counter by 1 + jump_max."""
         t0 = time.perf_counter()
+        jump = bool(self._jump_max and self.jump_ok.any())
         step0 = self.step_counter
-        self.step_counter += self._steps_per_tick
+        self.step_counter += (
+            1 + self._jump_max if jump else self._steps_per_tick
+        )
         owners = [s.request if s.active else None for s in self.slots]
         chunk = self._ilv_busy()
         if chunk:
             self._ilv_fill_rows()
         self._sync_tables()
+        self._grammar_tables()
         args = (
             self.engine.params, self._t(self.cur_tokens),
-            self._t(self.seeds), step0 + 1, self._t(self.temps),
+            self._t(self.seeds), step0 + 1, self._temps(self.temps),
             self._t(self.top_ks), self._t(self.top_ps),
+            self._t(self.gstates),
         )
-        sel = None
+        if jump:
+            args += (self._t(self.jump_ok),)
+        sel = counts_dev = None
         if chunk:
             if self._ilv_mini is None:
                 self._ilv_mini = self._make_mini(self._ilv_k, self.max_seq)
             chunk_arr, offs, c_tl = self._ilv_chunk_inputs()
-            toks_dev, sel = self._tick_chunk_impl(
-                *args, self._t(chunk_arr), self._t(offs), self._t(c_tl))
+            c_args = (self._t(chunk_arr), self._t(offs), self._t(c_tl))
+            if jump:
+                toks_dev, counts_dev, gs_dev, sel = (
+                    self._tick_jump_chunk_impl(*args, *c_args))
+            else:
+                toks_dev, gs_dev, sel = self._tick_chunk_impl(*args, *c_args)
+        elif jump:
+            toks_dev, counts_dev, gs_dev = self._tick_jump_impl(*args)
         else:
-            toks_dev = self._tick_impl(*args)
+            toks_dev, gs_dev = self._tick_impl(*args)
         t1 = time.perf_counter()
         toks = toks_dev.cpu().numpy()
+        counts = None if counts_dev is None else counts_dev.cpu().numpy()
+        gs = gs_dev.cpu().numpy()
         t2 = time.perf_counter()
         self.timing["tick_dispatch_ms"] += (t1 - t0) * 1000.0
         self.timing["tick_collect_ms"] += (t2 - t1) * 1000.0
@@ -1434,8 +1661,44 @@ class ContinuousBatcher:
         for i, request in enumerate(owners):
             if request is None or self.slots[i].request is not request:
                 continue
-            self.cur_tokens[i] = toks[i, -1]
-            self._emit_chunk(i, toks[i])
+            c = toks.shape[1] if counts is None else int(counts[i])
+            if counts is not None and c > 1:
+                if not self._jump_validate(request, toks[i, : c - 1]):
+                    self._jump_degrade(i, request)
+                    continue
+                self.grammar_jump_tokens += c - 1
+                self.grammar_jump_runs += 1
+            self.cur_tokens[i] = toks[i, c - 1]
+            self.gstates[i] = gs[i]
+            self._emit_chunk(i, toks[i, :c])
+
+    def _jump_validate(self, request: _Request, run) -> bool:
+        """A jump tick's forced run for one row must be the run the HOST
+        arena walk gives at the request's current state: a corrupted
+        device table or landing state is caught before a token of it
+        reaches the consumer."""
+        return [int(t) for t in run] == self.arena.forced_run(request.gcur)
+
+    def _jump_degrade(self, slot_idx: int, request: _Request) -> None:
+        """A refused forced run degrades the request, counted, to
+        one-token constrained decoding: its row advanced through the
+        refused run, so the slot parks and the request replays through
+        admission from prompt + delivered tokens with jump_ok False."""
+        self.grammar_jump_fallbacks += 1
+        request.jump_degraded = True
+        logger.warning("jump-ahead: forced run refused for slot %d; "
+                       "replaying it with one-token decoding", slot_idx)
+        slot = self.slots[slot_idx]
+        slot.active = False
+        slot.request = None
+        self.jump_ok[slot_idx] = False
+        self.temps[slot_idx] = 0.0
+        self.gstates[slot_idx] = 0
+        self._slot_last_emit[slot_idx] = None
+        if self._paged:
+            self.pages.free_slot(slot_idx)
+            self._tables_dirty = True
+        self._loop_ref.call_soon_threadsafe(self._replay_or_fail, request)
 
     def _emit_chunk(self, slot_idx: int, tokens) -> None:
         """Deliver a tick's tokens for one slot: truncate at EOS or the
@@ -1449,10 +1712,19 @@ class ContinuousBatcher:
         for raw_token in tokens:
             token = int(raw_token)
             if token == self.eos_id:
+                # Under a grammar EOS is allowed only in accepting states.
                 finished_reason = "stop"
                 break
             ids.append(token)
             slot.generated += 1
+            if request.grammar is not None:
+                # The host DFA walk: the accepting sink (nothing may
+                # follow) ends a constrained generation.
+                request.gcur = self.arena.step(request.gcur, token)
+                self.grammar_tokens += 1
+                if self.arena.is_sink(request.gcur):
+                    finished_reason = "grammar_complete"
+                    break
             if slot.generated >= slot.max_new:
                 finished_reason = "length"
                 break
@@ -1476,6 +1748,8 @@ class ContinuousBatcher:
                 (request.queue_ms, (now - request.t_admit) * 1000.0)
             )
             self.temps[slot_idx] = 0.0
+            self.gstates[slot_idx] = 0
+            self.jump_ok[slot_idx] = False
             if self._paged:
                 # Release the slot's page references (indexed pages stay
                 # resident as evictable reuse cache); its row now maps

@@ -9,7 +9,10 @@ GenerateStream) or EmbedService (Embed), plus ModelInfoService
 (GetModelInfo, GetServingStats), reflection and health, under the
 reference's service names (`ggrmcp.tpu.*`) — so the reference gateway
 discovers it by reflection and exposes the same tool names as for the
-JAX sidecar.
+JAX sidecar. A GenerateRequest's `constraint.json_schema` is compiled
+once per schema (the sidecar's `GrammarCache`) and enforced by the
+batcher; a bad schema is the caller's error (INVALID_ARGUMENT), a full
+grammar arena an overload (RESOURCE_EXHAUSTED).
 """
 
 from __future__ import annotations
@@ -24,6 +27,12 @@ import grpc.aio
 import numpy as np
 
 from ggrmcp_tpu_torch.core.config import ServingConfig
+from ggrmcp_tpu_torch.grammar import (
+    CompiledGrammar,
+    GrammarCache,
+    GrammarCapacityError,
+    GrammarError,
+)
 from ggrmcp_tpu_torch.models import get_model
 from ggrmcp_tpu_torch.ops.sampling import SamplingConfig
 from ggrmcp_tpu_torch.rpc.pb import serving_pb2
@@ -36,7 +45,7 @@ from ggrmcp_tpu_torch.rpc.server_utils import (
 from ggrmcp_tpu_torch.serving import tensors
 from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher, OverloadedError
 from ggrmcp_tpu_torch.serving.engine import EmbeddingEngine, GenerationEngine
-from ggrmcp_tpu_torch.serving.tokenizer import load_tokenizer
+from ggrmcp_tpu_torch.serving.tokenizer import ByteTokenizer, load_tokenizer
 from ggrmcp_tpu_torch.serving.weights import load_hf_checkpoint
 from ggrmcp_tpu_torch.utils.device import DeviceLike
 
@@ -67,6 +76,7 @@ class Sidecar:
         self.generation: Optional[GenerationEngine] = None
         self.embedding: Optional[EmbeddingEngine] = None
         self.batcher: Optional[ContinuousBatcher] = None
+        self.grammar_cache = GrammarCache(self.serving.grammar.cache_entries)
         if self.serving.hf_checkpoint_path:
             if params is not None:
                 raise ValueError(
@@ -166,16 +176,54 @@ class Sidecar:
                 grpc.StatusCode.INVALID_ARGUMENT,
                 "LoRA adapters are not supported by this sidecar",
             )
-        spec = request.constraint
-        if spec.json_schema or spec.tool_output_schema_ref:
-            await context.abort(
-                grpc.StatusCode.INVALID_ARGUMENT,
-                "constrained decoding is not supported by this sidecar",
-            )
         if request.kv_transfer_target:
             await context.abort(
                 grpc.StatusCode.FAILED_PRECONDITION,
                 "kv transfer is not supported by this sidecar",
+            )
+
+    async def _resolve_grammar(
+        self, request: serving_pb2.GenerateRequest, context
+    ) -> Optional[CompiledGrammar]:
+        """GenerateRequest.constraint → compiled DFA (LRU-cached by
+        schema hash). Bad schemas, a disabled grammar, an unresolved
+        tool reference and a tokenizer the DFA cannot align with all
+        abort INVALID_ARGUMENT, as in the reference."""
+        spec = request.constraint
+        if not (spec.json_schema or spec.tool_output_schema_ref):
+            return None
+        if not self.serving.grammar.enabled:
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT,
+                "constrained decoding is disabled (serving.grammar.enabled)",
+            )
+        if not spec.json_schema:
+            # The gateway resolves tool_output_schema_ref into an inline
+            # schema (gateway.structured_output); the sidecar has no
+            # tool registry.
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT,
+                "constraint.tool_output_schema_ref must be resolved to "
+                "an inline json_schema by the gateway",
+            )
+        if not isinstance(self.tokenizer, ByteTokenizer):
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT,
+                "constrained decoding requires the byte-level tokenizer "
+                "(subword DFA alignment is not implemented)",
+            )
+        try:
+            return self.grammar_cache.get(
+                spec.json_schema,
+                vocab_size=self.generation.cfg.vocab_size,
+                eos_id=self.tokenizer.eos_id,
+                max_states=self.serving.grammar.max_states,
+                byte_offset=ByteTokenizer.OFFSET,
+            )
+        except GrammarError as exc:
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT,
+                f"constraint schema rejected: {exc}",
             )
 
     def _max_new(self, request: serving_pb2.GenerateRequest) -> int:
@@ -185,10 +233,11 @@ class Sidecar:
         )
 
     async def _submit(self, request, context, prompt, unary: bool):
+        grammar = await self._resolve_grammar(request, context)
         try:
             return self.batcher.submit(
                 prompt, self._max_new(request), self._sampling(request),
-                request.sampling.seed or 0, unary=unary,
+                request.sampling.seed or 0, unary=unary, grammar=grammar,
             )
         except OverloadedError as exc:
             await context.abort(
@@ -196,6 +245,9 @@ class Sidecar:
                 f"server overloaded ({exc.reason}): {exc}; "
                 f"retry in {exc.retry_after_s:g}s",
             )
+        except GrammarCapacityError as exc:
+            # Too many distinct schemas decoding at once: transient.
+            await context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED, str(exc))
 
     @staticmethod
     async def _abort_overloaded(context) -> None:
@@ -297,6 +349,8 @@ class Sidecar:
         fails loudly if a stats() key drifts from the proto."""
         if self.batcher is not None:
             stats = dict(self.batcher.stats())
+            stats["grammar_compiles"] = self.grammar_cache.compiles
+            stats["grammar_cache_hits"] = self.grammar_cache.hits
         else:
             stats = {"memory_weights_bytes": self.embedding.weight_bytes()}
         stats["role"] = "mixed"

@@ -6,7 +6,10 @@ the same code on the CPU (which takes the plain versions), int8
 quantization, int8-weight forwards and the int8 KV cache on the card
 against the CPU, the safetensors reader and HF loader reading
 straight to the card, and the KV-reuse paths (paged forward, the prefix
-pool, paged KV and the interleave through the batcher) against the CPU.
+pool, paged KV and the interleave through the batcher) against the CPU,
+and constrained decoding (the masked tick and the jump-ahead tick, whose
+[B, 1 + jump_max] window launches the kernel) against the CPU, with the
+threefry draws bit-identical on both.
 
 Every test needs an NVIDIA GPU with `nvcc` (the kernel has no CPU
 mode) and skips without one. This file imports no JAX, so it runs on a
@@ -37,11 +40,13 @@ import pytest
 import torch
 
 import chip_smoke
-from ggrmcp_tpu_torch.core.config import BatchingConfig
+from ggrmcp_tpu_torch.core.config import BatchingConfig, GrammarConfig, ServingConfig
+from ggrmcp_tpu_torch.grammar import compile_schema
 from ggrmcp_tpu_torch.models import bert as tb
 from ggrmcp_tpu_torch.models import llama as tl
 from ggrmcp_tpu_torch.ops import attention as tatt
 from ggrmcp_tpu_torch.ops import quant as tq
+from ggrmcp_tpu_torch.ops import sampling as ts
 from ggrmcp_tpu_torch.ops.sampling import SamplingConfig
 from ggrmcp_tpu_torch.serving import safetensors_io
 from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher
@@ -617,3 +622,99 @@ async def test_wave_hit_logits_match_cold_on_card(cuda):
     await _reuse_waves(batcher, [[head + [9, 8]]])
     hit, cold = chip_smoke.pfx_hit_vs_cold(torch, batcher, head + [11, 12, 13])
     assert (hit - cold).abs().max().item() <= 1e-3
+
+
+# -- grammar ------------------------------------------------------------------
+
+
+GRAMMARS = [
+    {"type": "object", "properties": {"kind": {"const": "structured"},
+                                      "ok": {"type": "boolean"}},
+     "required": ["kind", "ok"]},
+    {"type": "object", "properties": {"mode": {"enum": ["alpha", "beta"]},
+                                      "n": {"type": "integer"}},
+     "required": ["mode", "n"]},
+    {"type": "array", "items": {"type": "string", "maxLength": 3},
+     "maxItems": 2},
+]
+
+
+async def _constrained(batcher, vocab):
+    """Three constrained greedy rows and an unconstrained one at once."""
+    async def one(i, schema):
+        out = []
+        grammar = None if schema is None else compile_schema(schema, vocab)
+        async for ids, _ in batcher.submit([3 + i, 1, 4], 120,
+                                           SamplingConfig(), grammar=grammar):
+            out.extend(ids)
+        return out
+
+    batcher.start()
+    try:
+        return await asyncio.gather(*(
+            one(i, s) for i, s in enumerate(GRAMMARS + [None])))
+    finally:
+        await batcher.stop()
+
+
+@pytest.mark.parametrize("jump_max", [8, 0], ids=["jump", "masked"])
+async def test_constrained_ticks_on_card_match_cpu(cuda, jump_max):
+    """tiny-llama (float32): the masked tick (jump off) and the jump tick
+    on the card give the CPU batcher's constrained greedy tokens; the
+    jump tick's [4, 9] window launches the kernel once a layer."""
+    cfg = tl.CONFIGS["tiny-llama"]
+    params = tl.init_params(cfg, torch.device("cpu"), seed=11)
+    serving = ServingConfig(grammar=GrammarConfig(jump_max=jump_max))
+    small = dict(max_batch_size=4, kv_cache_max_seq=256,
+                 max_queue_delay_ms=1000.0)
+    runs = []
+    for device, p in (("cpu", params), (cuda, _to(params, cuda))):
+        batcher = ContinuousBatcher(
+            GenerationEngine(cfg, serving, params=p, device=device),
+            BatchingConfig(**small))
+        jumped = []
+        if device != "cpu" and jump_max:
+            real = batcher._tick_jump_impl
+
+            def counted(*args, _real=real, **kwargs):
+                before = tatt.flash_attention.launches
+                out = _real(*args, **kwargs)
+                jumped.append(tatt.flash_attention.launches - before)
+                return out
+
+            batcher._tick_jump_impl = counted
+        runs.append((await _constrained(batcher, cfg.vocab_size),
+                     batcher.grammar_jump_runs, jumped))
+    (ref, ref_runs, _), (out, runs_gpu, jumped) = runs
+    assert out == ref
+    assert runs_gpu == ref_runs
+    if jump_max:
+        assert runs_gpu > 0 and jumped
+        assert all(n == cfg.num_layers for n in jumped)
+
+
+async def test_jump_on_equals_off_on_card(cuda):
+    cfg = tl.CONFIGS["tiny-llama"]
+    params = _to(tl.init_params(cfg, torch.device("cpu"), seed=12), cuda)
+    outs = []
+    for jump_max in (8, 0):
+        batcher = ContinuousBatcher(
+            GenerationEngine(cfg, ServingConfig(grammar=GrammarConfig(
+                jump_max=jump_max)), params=params, device=cuda),
+            BatchingConfig(max_batch_size=4, kv_cache_max_seq=256))
+        outs.append(await _constrained(batcher, cfg.vocab_size))
+    assert outs[0] == outs[1]
+
+
+def test_threefry_bits_identical_on_card_and_cpu(cuda):
+    seeds = torch.tensor([0, 1, 2**31 - 1, 2**32 - 1, 123456789, 77])
+    for step in (0, 1, 9, 10**6):
+        cpu = ts.uniform(ts.fold_in(ts.prng_key(seeds), step))
+        gpu = ts.uniform(ts.fold_in(ts.prng_key(seeds.to(cuda)), step))
+        assert torch.equal(gpu.cpu().view(torch.int32),
+                           cpu.view(torch.int32))
+    key = ts.fold_in(ts.prng_key(torch.tensor(5)), 3)
+    rows = torch.arange(32)
+    assert torch.equal(
+        ts.uniform(ts.fold_in(key.to(cuda), rows.to(cuda))).cpu(),
+        ts.uniform(ts.fold_in(key, rows)))

@@ -36,6 +36,8 @@ print(json.dumps({"modules": names, "bad": bad}))
 
 # Modules each slice of the port added; all must be walked and imported.
 PORT_MODULES = (
+    "ggrmcp_tpu_torch.grammar", "ggrmcp_tpu_torch.grammar.compiler",
+    "ggrmcp_tpu_torch.grammar.runtime",
     "ggrmcp_tpu_torch.models.bert", "ggrmcp_tpu_torch.models.llama",
     "ggrmcp_tpu_torch.ops.attention", "ggrmcp_tpu_torch.ops.quant",
     "ggrmcp_tpu_torch.serving.engine", "ggrmcp_tpu_torch.serving.pages",
@@ -54,7 +56,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert res.returncode == 0, res.stderr
     result = json.loads(res.stdout.strip().splitlines()[-1])
     assert set(PORT_MODULES) <= set(result["modules"]), result["modules"]
-    assert len(result["modules"]) >= 25, result  # every module was walked
+    assert len(result["modules"]) >= 28, result  # every module was walked
     assert result["bad"] == [], f"the port loaded {result['bad']}"
 
 

@@ -1,13 +1,14 @@
 """Sampling parity: the PyTorch port's sampling against the reference's
 `ggrmcp_tpu/ops/sampling.py`.
 
-Greedy picks and the support mask must be identical. Random draws
-cannot match (the reference draws its per-row uniform with threefry,
-the port with a counter hash), so `_invcdf_pick` on both sides is fed
-the SAME numpy uniforms and must pick identical tokens under
-temperature, top-k and top-p.
+Greedy picks and the support mask must be identical. The port's
+threefry uniforms must equal `jax.random`'s bit for bit, so sampled
+tokens of `sample` and `sample_dynamic` are identical draw for draw;
+`_invcdf_pick` is also held to the reference on shared numpy uniforms.
+`filtered_logprobs` agrees within 1e-6 and `forced_run_lookup` exactly.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -134,14 +135,139 @@ def test_masked_sample_state_zero_passes_through():
     assert not nxt.any()
 
 
-def test_counter_uniform_range_and_independence():
-    seeds = torch.arange(4096)
-    u = ts.counter_uniform(seeds, 0)
-    assert u.dtype == torch.float32
-    assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
-    assert abs(float(u.mean()) - 0.5) < 0.02
-    assert not torch.equal(u, ts.counter_uniform(seeds, 1))
-    assert torch.equal(u, ts.counter_uniform(seeds, 0))
-    rows = ts.counter_uniform(torch.zeros(64, dtype=torch.long), 0,
-                              torch.arange(64))
-    assert len(set(rows.tolist())) == 64
+SEEDS = [0, 1, 2**31 - 1, 2**32 - 1,
+         int(np.random.default_rng(2024).integers(0, 2**32))]
+
+
+@pytest.mark.parametrize("step", [0, 1, 9, 10**6])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_threefry_uniform_bit_identical(seed, step):
+    """uniform(fold_in(prng_key(seed), step)) is the reference batcher's
+    per-row draw (uint32 seeds) bit for bit."""
+    ref = jax.random.uniform(
+        jax.random.fold_in(jax.random.PRNGKey(jnp.uint32(seed)), step), ())
+    out = ts.uniform(ts.fold_in(ts.prng_key(torch.tensor([seed])), step))
+    assert out.dtype == torch.float32 and 0.0 <= float(out[0]) < 1.0
+    assert out.numpy().view(np.uint32)[0] == np.asarray(ref).view(np.uint32)
+
+
+def test_threefry_row_fold_bit_identical():
+    """The static path's per-row keys: fold_in(step key, row)."""
+    key = jax.random.fold_in(jax.random.PRNGKey(77), 5)
+    keys = jax.vmap(jax.random.fold_in, (None, 0))(key, jnp.arange(64))
+    ref = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, ()))(keys))
+    out = ts.uniform(ts.fold_in(ts.fold_in(ts.prng_key(torch.tensor(77)), 5),
+                                torch.arange(64)))
+    np.testing.assert_array_equal(out.numpy().view(np.uint32),
+                                  ref.view(np.uint32))
+    assert len(set(out.tolist())) == 64
+
+
+@pytest.mark.parametrize("step", [0, 3, 1000])
+@pytest.mark.parametrize(
+    "cfg", [ts.SamplingConfig(0.8, 0, 1.0), ts.SamplingConfig(1.0, 7, 1.0),
+            ts.SamplingConfig(1.2, 0, 0.7), ts.SamplingConfig(0.9, 20, 0.8)],
+    ids=["temperature", "top_k", "top_p", "top_k_top_p"],
+)
+def test_sample_draws_match_reference(cfg, step):
+    """The engine's static path: key fold_in(PRNGKey(seed), step), rows
+    folded in, tokens identical draw for draw."""
+    logits = _logits(30 + step, b=16)
+    key = jax.random.fold_in(jax.random.PRNGKey(42), step)
+    ref = np.asarray(js.sample(jnp.asarray(logits), key,
+                               js.SamplingConfig(*cfg)))
+    out = ts.sample(torch.from_numpy(logits), 42, step, cfg)
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("step", [1, 10, 123457])
+def test_sample_dynamic_draws_match_reference(step):
+    """The batcher's per-row path on greedy, temperature, top-k and
+    top-p rows, uint32 seeds as the reference batcher keeps them."""
+    logits = _logits(40 + step)
+    temp, k, p = ROW_PARAMS
+    seeds = np.array([5, 2**32 - 1, 0, 77, 2**31 + 3, 9], np.uint32)
+    ref = np.asarray(js.sample_dynamic(
+        jnp.asarray(logits), jnp.asarray(seeds), jnp.int32(step),
+        jnp.asarray(temp), jnp.asarray(k), jnp.asarray(p)))
+    out = ts.sample_dynamic(
+        torch.from_numpy(logits), torch.from_numpy(seeds.astype(np.int64)),
+        step, torch.from_numpy(temp), torch.from_numpy(k),
+        torch.from_numpy(p))
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def _grammar_tables(seed, states=5):
+    rng = np.random.default_rng(seed)
+    allow = rng.random((states, V)) < 0.3
+    allow[0] = True
+    trans = rng.integers(0, states, (states, V)).astype(np.int32)
+    return allow, trans
+
+
+def test_masked_sample_dynamic_matches_reference():
+    logits = _logits(50)
+    temp, k, p = ROW_PARAMS
+    allow, trans = _grammar_tables(51)
+    state = np.array([0, 1, 2, 3, 4, 1], np.int32)
+    seeds = np.arange(6, dtype=np.uint32) * 1000
+    ref_tok, ref_next = js.masked_sample_dynamic(
+        jnp.asarray(logits), jnp.asarray(seeds), jnp.int32(7),
+        jnp.asarray(temp), jnp.asarray(k), jnp.asarray(p),
+        jnp.asarray(state), jnp.asarray(allow), jnp.asarray(trans))
+    tok, nxt = ts.masked_sample_dynamic(
+        torch.from_numpy(logits), torch.from_numpy(seeds.astype(np.int64)),
+        7, torch.from_numpy(temp), torch.from_numpy(k), torch.from_numpy(p),
+        torch.from_numpy(state), torch.from_numpy(allow),
+        torch.from_numpy(trans))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(ref_tok))
+    np.testing.assert_array_equal(nxt.numpy(), np.asarray(ref_next))
+    assert allow[state, tok.numpy()].all()
+
+
+def test_filtered_logprobs_match_reference():
+    logits = _logits(60)
+    logits[1, :40] = -np.inf  # a grammar-masked row
+    temp, k, p = ROW_PARAMS
+    ref = np.asarray(js.filtered_logprobs(
+        jnp.asarray(logits), jnp.asarray(temp), jnp.asarray(k),
+        jnp.asarray(p)))
+    out = ts.filtered_logprobs(
+        torch.from_numpy(logits), torch.from_numpy(temp),
+        torch.from_numpy(k), torch.from_numpy(p)).numpy()
+    np.testing.assert_array_equal(np.isinf(out), np.isinf(ref))
+    finite = np.isfinite(ref)
+    np.testing.assert_allclose(out[finite], ref[finite], atol=1e-6, rtol=0)
+
+
+def test_forced_run_lookup_matches_reference():
+    rng = np.random.default_rng(70)
+    s, j = 12, 8
+    jump_len = rng.integers(0, j + 1, s).astype(np.int32)
+    jump_len[0] = 0
+    jump_tokens = rng.integers(3, 259, (s, j)).astype(np.int32)
+    jump_states = rng.integers(0, s, (s, j)).astype(np.int32)
+    state = np.array([0, 3, 5, 7, 11, 2, 9, 4], np.int32)
+    jump_ok = np.array([True, True, False, True, True, True, False, True])
+    ref = js.forced_run_lookup(*(jnp.asarray(a) for a in (
+        state, jump_len, jump_tokens, jump_states, jump_ok)))
+    out = ts.forced_run_lookup(*(torch.from_numpy(a) for a in (
+        state, jump_len, jump_tokens, jump_states, jump_ok)))
+    for o, r in zip(out, ref):
+        np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+
+
+def test_masked_all_greedy_skips_draw_with_greedy_tokens():
+    """`temperature` None (no row samples, known on the host) gives the
+    tokens and next states of all-zero temperatures."""
+    logits = torch.from_numpy(_logits(80))
+    allow, trans = (torch.from_numpy(a) for a in _grammar_tables(81))
+    state = torch.tensor([0, 1, 2, 3, 4, 2])
+    _, k, p = (torch.from_numpy(a) for a in ROW_PARAMS)
+    seeds = torch.arange(6)
+    fast = ts.masked_sample_dynamic(logits, seeds, 3, None, k, p, state,
+                                    allow, trans)
+    full = ts.masked_sample_dynamic(logits, seeds, 3, torch.zeros(6), k, p,
+                                    state, allow, trans)
+    for a, b in zip(fast, full):
+        assert torch.equal(a, b)
