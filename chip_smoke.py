@@ -61,7 +61,22 @@ Phases, any failure exits non-zero and prints no result:
    arena's device bytes and the first call on a new schema against a
    warm one; RESOURCE_EXHAUSTED on a full arena, INVALID_ARGUMENT on a
    `pattern` schema, a constrained GenerateStream; tiny-llama float32
-   constrained tokens identical jump on, jump off and on the CPU.
+   constrained tokens identical jump on, jump off and on the CPU;
+11. control plane, at llama3-8b width through sidecars configured by a
+   `--config` file: (a) phase 5's burst with the flight recorder on and
+   off (tick p50 of both; the median admit / sync / dispatch / wait /
+   host split of a plain decode tick from GetFlightRecord; every tick's
+   phases close on its duration; the histograms count every request);
+   (b) a 1000 ms Profile over gRPC while 32 slots decode (the top 10
+   kernels by device time per tick, the device's busy share; no kernel
+   event fails the phase); (c) GetMemory with reconcile (every
+   component; attributed + unattributed == torch.cuda.memory_allocated);
+   (d) 32 batch-class requests, then 4 interactive ones, with the
+   scheduler on and off (interactive TTFT, preemptions and resumes, the
+   resumed streams' agreement with the uninterrupted ones); (e) a
+   sidecar armed with tick_fail and admit_fail serves phase 5's burst by
+   replay; (f) queue_deadline_ms 200 with 40 requests on 32 slots, and
+   phase 9b's long-prompt wave with p50_budget_ms 500 against 0.
 
 The last lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -1809,6 +1824,22 @@ class _GrammarClient(_ReuseClient):
         return [c async for c in self._stream(req, timeout=600)]
 
 
+def _hold_admission(batcher) -> None:
+    """Set `batcher.hold_for = n` to hold its next admission round until
+    n requests are queued (a burst then lands in one round, whatever the
+    calls' arrival spread)."""
+    batcher.hold_for = 0
+    admit = batcher._admit
+
+    async def held_admit():
+        while batcher.hold_for and batcher.pending.qsize() < batcher.hold_for:
+            await asyncio.sleep(0.001)
+        batcher.hold_for = 0
+        return await admit()
+
+    batcher._admit = held_admit
+
+
 def _grammar_sidecar(torch, params, dev, serving: dict, tmp: str):
     """A `_config_sidecar` whose batcher holds the first admission round
     of a burst until the whole burst is queued (`hold_for`), so on and
@@ -1818,15 +1849,8 @@ def _grammar_sidecar(torch, params, dev, serving: dict, tmp: str):
 
     sidecar = _config_sidecar(torch, params, dev, serving, tmp)
     batcher = sidecar.batcher
-    batcher.hold_for = 0
+    _hold_admission(batcher)
     batcher.tick_log = {"jump": [], "plain": [], "jump_launches": 0}
-    admit = batcher._admit
-
-    async def held_admit():
-        while batcher.hold_for and batcher.pending.qsize() < batcher.hold_for:
-            await asyncio.sleep(0.001)
-        batcher.hold_for = 0
-        return await admit()
 
     def timed(kind, body):
         def run(*args, **kwargs):
@@ -1841,7 +1865,6 @@ def _grammar_sidecar(torch, params, dev, serving: dict, tmp: str):
             return out
         return run
 
-    batcher._admit = held_admit
     batcher._tick_jump_impl = timed("jump", batcher._tick_jump_impl)
     batcher._tick_impl = timed("plain", batcher._tick_impl)
     return sidecar
@@ -2121,6 +2144,428 @@ async def grammar_phase(torch, tatt, dev) -> dict:
     return res
 
 
+# -- phase 11: the control plane ------------------------------------------------
+
+CTRL_SLOTS = 32
+CTRL_NEW = 64
+SCHED_PROMPT_TOKENS = 200
+SCHED_INTERACTIVE = 4
+SCHED_INTERACTIVE_NEW = 8
+FAIL_SPEC = "tick_fail:every=25,admit_fail:times=1"
+DEADLINE_REQUESTS = 40
+DEADLINE_NEW = 16
+# A tick's phases close on its duration_ms (contiguous perf_counter
+# marks; the float sum of five differences).
+PHASE_CLOSE_MS = 0.01
+
+
+class _ControlClient(_ReuseClient):
+    """Phase 9's stubs, plus calls with a QoS class and DebugService."""
+
+    def __init__(self, ch):
+        super().__init__(ch)
+        pb = self.pb
+
+        def unary(method, req, resp):
+            return ch.unary_unary(method,
+                                  request_serializer=req.SerializeToString,
+                                  response_deserializer=resp.FromString)
+
+        self._flight = unary("/ggrmcp.tpu.DebugService/GetFlightRecord",
+                             pb.FlightRecordRequest, pb.FlightRecordResponse)
+        self._memory = unary("/ggrmcp.tpu.DebugService/GetMemory",
+                             pb.MemoryRequest, pb.MemoryResponse)
+        self._profile = unary("/ggrmcp.tpu.DebugService/Profile",
+                              pb.ProfileRequest, pb.ProfileResponse)
+
+    async def generate_as(self, text: str, max_new: int, qos: str):
+        """(token ids, finish reason, client ms) of a call in a class."""
+        t = time.perf_counter()
+        resp = await self._gen(self.pb.GenerateRequest(
+            prompt=text, max_new_tokens=max_new, return_tokens=True),
+            metadata=(("x-qos-class", qos),), timeout=600)
+        return (list(resp.token_ids), resp.finish_reason,
+                (time.perf_counter() - t) * 1e3)
+
+    async def flight(self):
+        return await self._flight(self.pb.FlightRecordRequest(
+            max_ticks=512, max_requests=2048))
+
+    async def memory(self):
+        return await self._memory(self.pb.MemoryRequest(reconcile=True))
+
+    async def profile(self, ms: int, label: str):
+        return await self._profile(self.pb.ProfileRequest(
+            duration_ms=ms, output_dir=label), timeout=120)
+
+
+def _phase_split(ticks) -> dict:
+    """Median of each phase over plain decode ticks (no admission round
+    before them, no interleave chunk)."""
+    plain = [t for t in ticks if t.phase_admit_ms == 0.0
+             and t.interleaved_rows == 0 and t.admitted == 0]
+    split = {p: _median([getattr(t, f"phase_{p}_ms") for t in plain])
+             for p in ("admit", "sync", "dispatch", "wait", "host")}
+    split.update(duration=_median([t.duration_ms for t in plain]),
+                 ticks=len(plain))
+    return split
+
+
+def _trace_summary(path: str, tick_ms: float) -> dict:
+    """Top 10 kernels by device time per tick (`tick_ms` apart), and the
+    device's busy share of the captured window (the union of kernel
+    intervals over the span of every event)."""
+    with open(path) as fh:
+        events = [e for e in json.load(fh).get("traceEvents", [])
+                  if e.get("ph") == "X" and "dur" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    check(kernels, f"the profile {path} holds no CUDA kernel event")
+    start = min(e["ts"] for e in events)
+    window = max(e["ts"] + e["dur"] for e in events) - start
+    busy, end = 0.0, start
+    for e in sorted(kernels, key=lambda e: e["ts"]):
+        lo, hi = max(e["ts"], end), e["ts"] + e["dur"]
+        if hi > lo:
+            busy += hi - lo
+            end = hi
+    by_name: dict = {}
+    for e in kernels:
+        total, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (total + e["dur"], n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    check(tick_ms, "no tick was recorded while the profile ran")
+    per_tick = window / 1e3 / tick_ms  # ticks in the window
+    return dict(
+        window_ms=window / 1e3, kernel_events=len(kernels),
+        busy_share=busy / window if window else 0.0, tick_ms=tick_ms,
+        ticks_in_window=per_tick,
+        device_ms_per_tick=sum(e["dur"] for e in kernels) / 1e3 / per_tick,
+        top10=[dict(name=name[:90], ms_per_tick=total / 1e3 / per_tick,
+                    launches_per_tick=n / per_tick)
+               for name, (total, n) in top])
+
+
+def _burst_requests():
+    return [(_prompt_text(n, i), SERVE_NEW_TOKENS)
+            for i, n in enumerate(SERVE_PROMPT_TOKENS)]
+
+
+async def _ctrl_burst(client) -> list:
+    """Phase 5's burst: 8 concurrent greedy calls through both routes."""
+    outs = await asyncio.gather(*(client.generate(text, n)
+                                  for text, n in _burst_requests()))
+    for ids, reason, _ in outs:
+        check(reason in ("length", "stop") and ids,
+              f"burst request ended {reason!r} with {len(ids)} tokens")
+    return outs
+
+
+async def _observed_run(torch, dev, params, tmp, obs: bool) -> dict:
+    """(a) phase 5's burst with the recorder on or off; on, also (b) a
+    Profile while every slot decodes and (c) GetMemory with reconcile."""
+    import grpc.aio
+
+    serving = {} if obs else dict(observability=dict(enabled=False))
+    sidecar = _config_sidecar(torch, params, dev, serving, tmp)
+    port = await sidecar.start(0)
+    res: dict = {}
+    try:
+        async with grpc.aio.insecure_channel(f"localhost:{port}") as ch:
+            client = _ControlClient(ch)
+            outs = await _ctrl_burst(client)
+            stats = await client.stats()
+            res.update(tokens=[ids for ids, _, _ in outs],
+                       decode_stall_ms_p50=stats.decode_stall_ms_p50,
+                       decode_stall_ms_p99=stats.decode_stall_ms_p99,
+                       ticks=stats.ticks)
+            if obs:
+                res.update(await _observed_extras(torch, dev, sidecar,
+                                                  client, stats, len(outs)))
+            else:
+                check(stats.ttft_ms_count == 0 and stats.tick_phase_wait_ms
+                      == 0, "observability off still recorded")
+    finally:
+        await sidecar.stop()
+    del sidecar
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+async def _observed_extras(torch, dev, sidecar, client, stats,
+                           served: int) -> dict:
+    """(a)'s records of the burst just served, (b) and (c)."""
+    res: dict = {}
+    record = await client.flight()
+    check(stats.ttft_ms_count == stats.e2e_ms_count == served
+          == len(record.requests),
+          f"histograms count {stats.ttft_ms_count} requests, "
+          f"served {served}")
+    worst = max(abs(t.phase_admit_ms + t.phase_sync_ms
+                    + t.phase_dispatch_ms + t.phase_wait_ms
+                    + t.phase_host_ms - t.duration_ms)
+                for t in record.ticks)
+    check(worst <= PHASE_CLOSE_MS,
+          f"a tick's phases miss its duration by {worst} ms")
+    res.update(split=_phase_split(record.ticks),
+               phase_close_worst_ms=worst,
+               tick_records=len(record.ticks))
+    # (b) a 1000 ms Profile while all slots decode.
+    decoding = asyncio.ensure_future(asyncio.gather(*(
+        client.generate(_prompt_text(40, 1200 + i), CTRL_NEW)
+        for i in range(CTRL_SLOTS))))
+    await client.wait_active(CTRL_SLOTS)
+    before = sidecar.batcher.timing["ticks"]
+    prof = await client.profile(1000, "phase11")
+    after = sidecar.batcher.timing["ticks"]
+    done = await decoding
+    check(all(r in ("length", "stop") for _, r, _ in done),
+          "a decoding request failed under the profile")
+    # The window holds window_ms / tick_ms ticks, tick_ms the median
+    # duration of the ticks recorded while the call ran.
+    during = [t.duration_ms for t in (await client.flight()).ticks
+              if before < t.seq <= after]
+    res["profile"] = _trace_summary(prof.output_path, _median(during))
+    # (c) the ledger, reconciled, with the pool idle (no collection runs
+    # between the reconcile and the allocator's count).
+    gc.collect()
+    mem = await client.memory()
+    allocated = torch.cuda.memory_allocated(dev)
+    attributed = sum(c.bytes for c in mem.components)
+    check(attributed + mem.unattributed_bytes == mem.live_bytes
+          == allocated,
+          f"ledger: {attributed} + {mem.unattributed_bytes} vs "
+          f"live {mem.live_bytes}, allocated {allocated}")
+    res["memory"] = dict(
+        components_gb={c.component: c.bytes / 1e9
+                       for c in mem.components},
+        attributed_gb=attributed / 1e9,
+        unattributed_gb=mem.unattributed_bytes / 1e9,
+        unattributed_arrays=mem.unattributed_arrays,
+        memory_allocated_gb=allocated / 1e9)
+    comp = {c.component: c.bytes for c in mem.components}
+    check(comp["weights"] == sidecar.generation.weight_bytes()
+          and comp["kv_arena"] == sidecar.batcher.cache.nbytes(),
+          f"ledger components {comp}")
+    return res
+
+
+async def _sched_run(torch, dev, params, tmp, enabled: bool) -> dict:
+    """(d) every slot holds a batch-class request; once they decode, the
+    interactive ones arrive."""
+    import grpc.aio
+
+    serving = dict(scheduler=dict(enabled=True)) if enabled else {}
+    sidecar = _config_sidecar(torch, params, dev, serving, tmp)
+    port = await sidecar.start(0)
+    try:
+        async with grpc.aio.insecure_channel(f"localhost:{port}") as ch:
+            client = _ControlClient(ch)
+            batch = asyncio.ensure_future(asyncio.gather(*(
+                client.generate_as(_prompt_text(SCHED_PROMPT_TOKENS,
+                                                1100 + i), CTRL_NEW, "batch")
+                for i in range(CTRL_SLOTS))))
+            await client.wait_active(CTRL_SLOTS)
+            start = (await client.stats()).ticks
+            while (await client.stats()).ticks < start + 2:
+                await asyncio.sleep(0.01)
+            inter = await asyncio.gather(*(
+                client.generate_as(_prompt_text(40, 1150 + i),
+                                   SCHED_INTERACTIVE_NEW, "interactive")
+                for i in range(SCHED_INTERACTIVE)))
+            batch_out = await batch
+            stats = await client.stats()
+            record = await client.flight()
+    finally:
+        await sidecar.stop()
+    del sidecar
+    gc.collect()
+    torch.cuda.empty_cache()
+    for ids, reason, _ in batch_out:
+        check(len(ids) == CTRL_NEW or reason == "stop",
+              f"(d) a batch request ended {reason!r} with {len(ids)} tokens")
+    check(all(reason in ("length", "stop") for _, reason, _ in inter),
+          "(d) an interactive request failed")
+    ttft = [r.ttft_ms for r in record.requests if r.qos_class == "interactive"]
+    check(len(ttft) == SCHED_INTERACTIVE, f"(d) {len(ttft)} interactive "
+          f"records")
+    return dict(
+        tokens=[ids for ids, _, _ in batch_out], interactive_ttft_ms=_ttft(
+            ttft), interactive_client_ms=_ttft([ms for _, _, ms in inter]),
+        batch_stops=sum(r == "stop" for _, r, _ in batch_out),
+        **{k: getattr(stats, k) for k in (
+            "sched_preemptions", "sched_resumes", "sched_parked",
+            "sched_preempt_failures", "replayed_requests",
+            "decode_stall_ms_p50")})
+
+
+async def _failpoint_run(torch, dev, params, tmp) -> dict:
+    """(e) a sidecar armed with FAIL_SPEC: its first admission fails (a
+    probe call takes it: INTERNAL), then phase 5's burst completes
+    through tick failures by replay."""
+    import grpc
+    import grpc.aio
+
+    from ggrmcp_tpu_torch.utils import failpoints
+
+    sidecar = _config_sidecar(torch, params, dev, dict(
+        failpoints=FAIL_SPEC, batching=dict(tick_retry_limit=4)), tmp)
+    port = await sidecar.start(0)
+    try:
+        async with grpc.aio.insecure_channel(f"localhost:{port}") as ch:
+            client = _ControlClient(ch)
+            code = None
+            try:
+                await client.generate(_prompt_text(40, 1300), 4)
+            except grpc.aio.AioRpcError as exc:
+                code = exc.code()
+            check(code == grpc.StatusCode.INTERNAL,
+                  f"(e) the probe through admit_fail got {code}")
+            outs = await _ctrl_burst(client)
+            stats = await client.stats()
+    finally:
+        failpoints.registry.disarm()
+        await sidecar.stop()
+    del sidecar
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(stats.replayed_requests > 0, "(e) no tick failure was replayed")
+    return dict(tokens=[ids for ids, _, _ in outs], probe=code.name,
+                replayed_requests=stats.replayed_requests,
+                replay_exhausted=stats.replay_exhausted, ticks=stats.ticks)
+
+
+async def _deadline_run(torch, dev, params, tmp) -> dict:
+    """(f) DEADLINE_REQUESTS requests on CTRL_SLOTS slots with
+    queue_deadline_ms 200, all queued before the first admission round:
+    the ones left queued time out."""
+    import grpc.aio
+
+    sidecar = _config_sidecar(torch, params, dev, dict(
+        batching=dict(queue_deadline_ms=200.0)), tmp)
+    _hold_admission(sidecar.batcher)
+    sidecar.batcher.hold_for = DEADLINE_REQUESTS
+    port = await sidecar.start(0)
+    try:
+        async with grpc.aio.insecure_channel(f"localhost:{port}") as ch:
+            client = _ControlClient(ch)
+            outs = await asyncio.gather(*(
+                client.generate(_prompt_text(40, 1400 + i), DEADLINE_NEW)
+                for i in range(DEADLINE_REQUESTS)))
+            stats = await client.stats()
+    finally:
+        await sidecar.stop()
+    del sidecar
+    gc.collect()
+    torch.cuda.empty_cache()
+    reasons: dict = {}
+    for _, reason, _ in outs:
+        reasons[reason] = reasons.get(reason, 0) + 1
+    check(stats.timed_out == reasons.get("timeout", 0)
+          == DEADLINE_REQUESTS - CTRL_SLOTS,
+          f"(f) timed_out {stats.timed_out}, reasons {reasons}")
+    return dict(timed_out=stats.timed_out, finish_reasons=reasons)
+
+
+async def _budget_run(torch, dev, params, tmp, budget_ms: float) -> dict:
+    """(f) phase 9b's wave (two 3000-token prompts under 8 decoding
+    slots, interleave off) with p50_budget_ms set."""
+    import grpc.aio
+
+    sidecar = _config_sidecar(torch, params, dev, dict(
+        batching=dict(p50_budget_ms=budget_ms)), tmp)
+    port = await sidecar.start(0)
+    try:
+        async with grpc.aio.insecure_channel(f"localhost:{port}") as ch:
+            client = _ControlClient(ch)
+            shorts = asyncio.ensure_future(asyncio.gather(*(
+                client.generate(_prompt_text(ILV_SHORT_TOKENS, 950 + i),
+                                ILV_SHORT_NEW) for i in range(ILV_SHORTS))))
+            await client.wait_active(ILV_SHORTS)
+            longs = await asyncio.gather(*(
+                client.generate(_prompt_text(ILV_LONG_TOKENS, 970 + i), 1)
+                for i in range(2)))
+            short_out = await shorts
+            stats = await client.stats()
+            sidecar_ema = sidecar.batcher._admit_ema_ms
+    finally:
+        await sidecar.stop()
+    del sidecar
+    gc.collect()
+    torch.cuda.empty_cache()
+    for ids, reason, _ in short_out + longs:
+        check(reason in ("length", "stop") and ids,
+              f"(f) request ended {reason!r} with {len(ids)} tokens")
+    return dict(admit_row_cost_estimate_ms=sidecar_ema, **{
+        k: getattr(stats, k) for k in (
+            "decode_stall_ms_p50", "decode_stall_ms_p99",
+            "decode_stall_ms_max", "admit_ms_max", "admit_rounds")})
+
+
+async def control_phase(torch, tatt, dev) -> dict:
+    """(a) tick phases, observability on and off; (b) Profile; (c)
+    GetMemory; (d) the scheduler on and off; (e) failpoints; (f)
+    queue_deadline_ms and p50_budget_ms. All at llama3-8b width through
+    sidecars configured by a `--config` file."""
+    import tempfile
+
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+
+    params = llama_mod.init_params(llama_mod.CONFIGS[MODEL], dev, SEED)
+    res: dict = {}
+    # The path's run starts here: every launch count from 0.
+    tatt.flash_attention.launches = 0
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        off = await _observed_run(torch, dev, params, tmp, obs=False)
+        on = await _observed_run(torch, dev, params, tmp, obs=True)
+        res["observed"] = dict(
+            split=on["split"], tick_records=on["tick_records"],
+            phase_close_worst_ms=on["phase_close_worst_ms"],
+            stall_p50_on=on["decode_stall_ms_p50"],
+            stall_p50_off=off["decode_stall_ms_p50"],
+            stall_p99_on=on["decode_stall_ms_p99"],
+            stall_p99_off=off["decode_stall_ms_p99"],
+            agreement_on_off=_agreement(on["tokens"], off["tokens"]))
+        log(f"  (a) tick phases: {json.dumps(res['observed'])}")
+        res["profile"] = on["profile"]
+        log(f"  (b) profile: {json.dumps(res['profile'])}")
+        res["memory"] = on["memory"]
+        log(f"  (c) memory: {json.dumps(res['memory'])}")
+
+        s_on = await _sched_run(torch, dev, params, tmp, True)
+        s_off = await _sched_run(torch, dev, params, tmp, False)
+        check(s_on["sched_preemptions"] >= 1 and s_on["sched_resumes"]
+              == s_on["sched_preemptions"] and s_on["sched_parked"] == 0,
+              f"(d) preemptions {s_on['sched_preemptions']}, resumes "
+              f"{s_on['sched_resumes']}, parked {s_on['sched_parked']}")
+        check(s_off["sched_preemptions"] == 0, "(d) FIFO preempted")
+        s_on["agreement_with_fifo"] = _agreement(s_on["tokens"],
+                                                 s_off["tokens"])
+        res["scheduler"] = dict(on=s_on, off=s_off)
+        log(f"  (d) scheduler: {json.dumps(_brief(res['scheduler']))}")
+
+        fail = await _failpoint_run(torch, dev, params, tmp)
+        fail["agreement_with_unfailed"] = _agreement(fail["tokens"],
+                                                     on["tokens"])
+        res["failpoints"] = fail
+        log(f"  (e) failpoints: {json.dumps(_brief(fail))}")
+
+        res["deadline"] = await _deadline_run(torch, dev, params, tmp)
+        res["budget"] = {
+            str(ms): await _budget_run(torch, dev, params, tmp, ms)
+            for ms in (500.0, 0.0)}
+        log(f"  (f) deadlines: {json.dumps(res['deadline'])} "
+            f"{json.dumps(res['budget'])}")
+    torch.cuda.synchronize()
+    res["launches"] = tatt.flash_attention.launches
+    check(res["launches"] > 0, "phase 11 never launched B1")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def _brief(d):
     """`d` without its token lists (for the log)."""
     if isinstance(d, dict):
@@ -2159,53 +2604,59 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         card = card_line()
-        log(f"[1/10] card: {card}; torch {torch.__version__}, CUDA "
+        log(f"[1/11] card: {card}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
         t = time.perf_counter()
         _build.load("flash_attention")
-        log(f"[2/10] build: flash_attention.cu in "
+        log(f"[2/11] build: flash_attention.cu in "
             f"{time.perf_counter() - t:.1f} s")
         ptxas_report(_build.build_log.get("flash_attention", ""))
 
-        log(f"[3/10] kernel vs plain (|err| <= atol + rtol |plain|: {TOL})")
+        log(f"[3/11] kernel vs plain (|err| <= atol + rtol |plain|: {TOL})")
         cases = kernel_cases(torch, tatt, dev)
 
-        log("[4/10] reference: tiny-llama on the card vs the CPU")
+        log("[4/11] reference: tiny-llama on the card vs the CPU")
         ref = tiny_reference(torch, dev)
         log(f"  {ref}")
 
-        log(f"[5/10] serve: {MODEL} sidecar, default batching")
+        log(f"[5/11] serve: {MODEL} sidecar, default batching")
         serve = asyncio.run(serve_phase(torch, tatt, dev))
         log(f"  {json.dumps(serve)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[6/10] embed: {EMBED_MODEL} sidecar")
+        log(f"[6/11] embed: {EMBED_MODEL} sidecar")
         embed = asyncio.run(embed_phase(torch, tatt, dev))
         log(f"  {json.dumps(embed)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log("[7/10] HF checkpoint: llama3-8b width, 2 layers, 2 files")
+        log("[7/11] HF checkpoint: llama3-8b width, 2 layers, 2 files")
         hf = asyncio.run(hf_phase(torch, tatt, dev))
         log(f"  {json.dumps(hf)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[8/10] int8: {MODEL} weights and KV cache")
+        log(f"[8/11] int8: {MODEL} weights and KV cache")
         int8 = asyncio.run(int8_phase(torch, tatt, dev))
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[9/10] KV reuse: {MODEL} prefix pool, interleave, paged KV")
+        log(f"[9/11] KV reuse: {MODEL} prefix pool, interleave, paged KV")
         reuse = asyncio.run(kv_reuse_phase(torch, tatt, dev))
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[10/10] grammar: {MODEL} constrained burst, jump on / off")
+        log(f"[10/11] grammar: {MODEL} constrained burst, jump on / off")
         grammar = asyncio.run(grammar_phase(torch, tatt, dev))
         log(f"  {json.dumps(_brief(grammar))}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log(f"[11/11] control plane: {MODEL} tick phases, Profile, "
+            f"GetMemory, scheduler, failpoints, deadlines")
+        control = asyncio.run(control_phase(torch, tatt, dev))
     except SmokeError as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2224,6 +2675,7 @@ def main() -> int:
         paged_launches=reuse["paged"]["launches"],
         grammar_launches=grammar["on"]["launches"],
         jump_launches=grammar["on"]["jump_launches"],
+        control_launches=control["launches"],
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],

@@ -2,9 +2,10 @@
 
 `BatchingConfig` and `ServingConfig` carry the fields this package
 reads, under the reference's names and defaults
-(`ggrmcp_tpu/core/config.py`). Fields of features the port does not
-implement yet are carried only as guards: a non-default value raises
-ValueError naming the field, never silently ignored. `load_serving_config`
+(`ggrmcp_tpu/core/config.py`), with the reference's checks. Fields of
+features the port does not implement yet are carried only as guards: a
+non-default value raises ValueError naming the field, never silently
+ignored. `load_serving_config`
 reads the reference's JSON config file layout (everything under
 "serving") into these classes.
 """
@@ -63,9 +64,13 @@ class BatchingConfig:
     paged_kv: str = "off"
     paged_kv_page_size: int = 16
     paged_kv_pages: int = 0
-    # Guards: features of the reference batcher not ported yet.
+    # A queued request older than this (ms since submit) finishes
+    # "timeout" before admission; 0 = off.
     queue_deadline_ms: float = 0.0
+    # While slots decode, one admission round may stall them by at most
+    # p50_budget_ms / 4 (rows capped by a per-row cost EMA); 0 = off.
     p50_budget_ms: float = 0.0
+    # Guards: features of the reference batcher not ported yet.
     kv_tiers: list = field(default_factory=list)
     speculative: str = "off"
     paged_kv_host_bytes: int = 0
@@ -73,7 +78,7 @@ class BatchingConfig:
     paged_kv_host_file_bytes: int = 0
 
     UNSUPPORTED = (
-        "queue_deadline_ms", "p50_budget_ms", "kv_tiers", "speculative",
+        "kv_tiers", "speculative",
         "paged_kv_host_bytes", "paged_kv_host_path",
         "paged_kv_host_file_bytes",
     )
@@ -98,6 +103,10 @@ class BatchingConfig:
             raise ValueError("batching.max_batch_size and prefill_chunk >= 1")
         if self.tick_retry_limit < 0:
             raise ValueError("batching.tick_retry_limit must be >= 0")
+        if self.p50_budget_ms < 0:
+            raise ValueError("p50_budget_ms must be >= 0 (0 = off)")
+        if self.queue_deadline_ms < 0:
+            raise ValueError("queue_deadline_ms must be >= 0 (0 = off)")
 
     def _validate_kv_reuse(self) -> None:
         """The reference's checks of these fields (Config.validate)."""
@@ -188,6 +197,211 @@ class GrammarConfig:
             )
 
 
+# Latency histogram bucket upper bounds (ms), shared by the ttft, e2e,
+# queue, tick and per-class histograms so that backends aggregate.
+LATENCY_BUCKET_BOUNDS_MS = [
+    1.0, 2.0, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0,
+    1000.0, 2500.0, 5000.0, 10000.0, 30000.0, 60000.0,
+]
+
+
+@dataclass
+class ObservabilityConfig:
+    """The flight recorder (serving/flight_recorder.py) and the memory
+    ledger: bounded rings of tick and request records, fixed-bucket
+    latency histograms. The reference's fields, defaults and checks;
+    disabled, every hook is one attribute check."""
+
+    enabled: bool = True
+    tick_ring: int = 512
+    request_ring: int = 2048
+    # Strictly ascending; values past the last land in an overflow slot.
+    bucket_bounds_ms: list = field(
+        default_factory=lambda: list(LATENCY_BUCKET_BOUNDS_MS)
+    )
+
+    def __post_init__(self) -> None:
+        if self.tick_ring < 1 or self.request_ring < 1:
+            raise ValueError(
+                "observability.tick_ring/request_ring must be >= 1"
+            )
+        try:
+            bounds = [float(b) for b in self.bucket_bounds_ms]
+        except (TypeError, ValueError):
+            raise ValueError("observability.bucket_bounds_ms must be numbers")
+        if not bounds or any(b <= 0 for b in bounds) or bounds != sorted(
+            set(bounds)
+        ):
+            raise ValueError(
+                "observability.bucket_bounds_ms must be strictly "
+                "ascending positive values"
+            )
+
+
+# QoS classes and their p99 objectives (ms): time to first token and
+# time per output token. A request counts toward goodput only when it
+# meets both of its class's targets.
+DEFAULT_SLO_CLASSES = {
+    "interactive": {"ttft_p99_ms": 500.0, "tpot_p99_ms": 100.0},
+    "batch": {"ttft_p99_ms": 5000.0, "tpot_p99_ms": 500.0},
+    "background": {"ttft_p99_ms": 30000.0, "tpot_p99_ms": 2000.0},
+}
+
+
+@dataclass
+class SloConfig:
+    """Per-class goodput and burn rate, per-tenant VTC token accounting
+    (serving/slo.py): pure measurement, fed at every terminal chunk.
+    Needs observability.enabled (the recorder's hook feeds it)."""
+
+    enabled: bool = True
+    # Class of a request that names no (known) class.
+    default_class: str = "interactive"
+    # name -> {"ttft_p99_ms": float, "tpot_p99_ms": float}
+    classes: dict = field(
+        default_factory=lambda: {
+            k: dict(v) for k, v in DEFAULT_SLO_CLASSES.items()
+        }
+    )
+    # Burn-rate windows (s): violation rate over the window / 0.01.
+    burn_windows_s: list = field(default_factory=lambda: [300.0, 3600.0])
+    # At most this many tenants per batcher; the least recently active
+    # folds into "~overflow".
+    tenant_top_k: int = 64
+    # VTC weighted tokens = prompt weight * prompt + decode weight * decode.
+    vtc_prompt_weight: float = 1.0
+    vtc_decode_weight: float = 2.0
+
+    def __post_init__(self) -> None:
+        if not isinstance(self.classes, dict) or not self.classes:
+            raise ValueError(
+                "serving.slo.classes must be a non-empty dict of "
+                "class name -> {ttft_p99_ms, tpot_p99_ms}"
+            )
+        for cname, targets in self.classes.items():
+            if not isinstance(cname, str) or not cname:
+                raise ValueError(
+                    "serving.slo.classes keys must be non-empty class names"
+                )
+            if not isinstance(targets, dict):
+                raise ValueError(
+                    f"serving.slo.classes[{cname!r}] must be a dict "
+                    "with ttft_p99_ms/tpot_p99_ms"
+                )
+            unknown = set(targets) - {"ttft_p99_ms", "tpot_p99_ms"}
+            if unknown:
+                raise ValueError(
+                    f"serving.slo.classes[{cname!r}]: unknown keys "
+                    f"{sorted(unknown)}; supported: ttft_p99_ms, "
+                    "tpot_p99_ms"
+                )
+            for key in ("ttft_p99_ms", "tpot_p99_ms"):
+                try:
+                    val = float(targets.get(key, 0))
+                except (TypeError, ValueError):
+                    val = -1.0
+                if val <= 0:
+                    raise ValueError(
+                        f"serving.slo.classes[{cname!r}].{key} must be "
+                        "a positive number of milliseconds"
+                    )
+        if self.default_class not in self.classes:
+            raise ValueError(
+                f"serving.slo.default_class {self.default_class!r} is not "
+                f"in serving.slo.classes {sorted(self.classes)}"
+            )
+        try:
+            windows = [float(w) for w in self.burn_windows_s]
+        except (TypeError, ValueError):
+            raise ValueError("serving.slo.burn_windows_s must be numbers")
+        if not windows or any(w <= 0 for w in windows) or windows != sorted(
+            set(windows)
+        ):
+            raise ValueError(
+                "serving.slo.burn_windows_s must be strictly ascending "
+                "positive window lengths (seconds)"
+            )
+        if self.tenant_top_k < 1:
+            raise ValueError("serving.slo.tenant_top_k must be >= 1")
+        if self.vtc_prompt_weight < 0 or self.vtc_decode_weight < 0:
+            raise ValueError(
+                "serving.slo.vtc_prompt_weight/vtc_decode_weight must "
+                "be >= 0"
+            )
+
+
+@dataclass
+class SchedulerConfig:
+    """The preemptive SLO-aware scheduler (serving/scheduler.py): class
+    priority lanes with VTC fair share inside a class, demote-don't-kill
+    preemption, a per-round prefill token budget. Off, admission is
+    FIFO; the per-class Retry-After ladder applies either way."""
+
+    enabled: bool = False
+    # Priority order, highest first; names from serving.slo.classes.
+    classes: list = field(
+        default_factory=lambda: ["interactive", "batch", "background"]
+    )
+    preemption: bool = True
+    # Preempt when the top waiter's wait exceeds this fraction of its
+    # class's TTFT target, or its fast-window burn rate reaches the
+    # threshold.
+    preempt_wait_fraction: float = 0.5
+    preempt_burn_threshold: float = 1.0
+    max_preempts_per_turn: int = 1
+    resume_retry_limit: int = 8
+    # Prompt tokens one admission round may prefill while slots decode;
+    # 0 = off.
+    prefill_budget_tokens: int = 0
+    shares_ttl_s: float = 0.05
+    # A shed's Retry-After: base * factor ** (class priority index).
+    retry_after_base_s: float = 1.0
+    retry_after_factor: float = 2.0
+
+    def __post_init__(self) -> None:
+        if not isinstance(self.classes, list) or not self.classes or not all(
+            isinstance(c, str) and c for c in self.classes
+        ):
+            raise ValueError(
+                "serving.scheduler.classes must be a non-empty list of "
+                "class names, highest priority first"
+            )
+        if len(set(self.classes)) != len(self.classes):
+            raise ValueError(
+                "serving.scheduler.classes must not repeat a class name"
+            )
+        if not 0 < self.preempt_wait_fraction <= 10:
+            raise ValueError(
+                "serving.scheduler.preempt_wait_fraction must be in "
+                "(0, 10] (fraction of the class TTFT target)"
+            )
+        if self.preempt_burn_threshold <= 0:
+            raise ValueError(
+                "serving.scheduler.preempt_burn_threshold must be > 0"
+            )
+        if self.max_preempts_per_turn < 0:
+            raise ValueError(
+                "serving.scheduler.max_preempts_per_turn must be >= 0"
+            )
+        if self.resume_retry_limit < 0:
+            raise ValueError(
+                "serving.scheduler.resume_retry_limit must be >= 0"
+            )
+        if self.prefill_budget_tokens < 0:
+            raise ValueError(
+                "serving.scheduler.prefill_budget_tokens must be >= 0 "
+                "(0 disables the per-round prefill budget)"
+            )
+        if self.shares_ttl_s < 0:
+            raise ValueError("serving.scheduler.shares_ttl_s must be >= 0")
+        if self.retry_after_base_s <= 0 or self.retry_after_factor < 1:
+            raise ValueError(
+                "serving.scheduler.retry_after_base_s must be > 0 and "
+                "retry_after_factor >= 1 (lower-priority classes must "
+                "never be told to retry SOONER)"
+            )
+
+
 @dataclass
 class ServingConfig:
     model: str = "tiny-llama"
@@ -204,25 +418,60 @@ class ServingConfig:
     # Random int8 weights drawn directly (perf staging; needs int8).
     synthetic_weights: bool = False
     grammar: GrammarConfig = field(default_factory=GrammarConfig)
+    observability: ObservabilityConfig = field(
+        default_factory=ObservabilityConfig
+    )
+    slo: SloConfig = field(default_factory=SloConfig)
+    scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+    # Fault injection (utils/failpoints.py), e.g. "tick_fail:every=7,
+    # admit_slow:ms=50", armed at engine init; GGRMCP_FAILPOINTS arms the
+    # same registry at import. Chaos testing only.
+    failpoints: str = ""
     # Guards: reference features not ported yet.
     role: str = "mixed"
     uds_path: str = ""
     checkpoint_path: str = ""
     kv_ring: bool = False
     speculative_draft: str = ""
-    failpoints: str = ""
 
     UNSUPPORTED = (
         "role", "uds_path", "checkpoint_path", "kv_ring", "speculative_draft",
-        "failpoints",
     )
 
     def __post_init__(self) -> None:
         _check_unsupported(self, self.UNSUPPORTED, "serving")
         if not isinstance(self.batching, BatchingConfig):
             raise ValueError("serving.batching must be a BatchingConfig")
-        if not isinstance(self.grammar, GrammarConfig):
-            raise ValueError("serving.grammar must be a GrammarConfig")
+        for name, cls in (("grammar", GrammarConfig),
+                          ("observability", ObservabilityConfig),
+                          ("slo", SloConfig),
+                          ("scheduler", SchedulerConfig)):
+            if not isinstance(getattr(self, name), cls):
+                raise ValueError(f"serving.{name} must be a {cls.__name__}")
+        if self.failpoints:
+            from ggrmcp_tpu_torch.utils.failpoints import parse_spec
+
+            try:
+                parse_spec(self.failpoints)
+            except ValueError as exc:
+                # A chaos config with a typo fails here, not by
+                # injecting nothing.
+                raise ValueError(f"serving.failpoints: {exc}")
+        sched = self.scheduler
+        if sched.enabled:
+            unknown = [c for c in sched.classes if c not in self.slo.classes]
+            if unknown:
+                raise ValueError(
+                    f"serving.scheduler.classes {unknown} are not in "
+                    f"serving.slo.classes {sorted(self.slo.classes)}"
+                )
+            if not self.slo.enabled or not self.observability.enabled:
+                raise ValueError(
+                    "serving.scheduler.enabled requires serving.slo."
+                    "enabled and serving.observability.enabled (the "
+                    "scheduler orders by live VTC counters and triggers "
+                    "preemption off burn rate)"
+                )
         # The reference's checks (Config.validate), at construction.
         if self.quantize not in QUANTIZE_MODES:
             raise ValueError(
@@ -262,9 +511,10 @@ def _from_dict(cls, data: Any, where: str, nested: dict):
 
 
 def serving_config_from_dict(data: dict) -> ServingConfig:
-    """{"serving": {..., "batching": {...}, "grammar": {...}}} →
-    ServingConfig. Any key
-    these classes do not carry raises ValueError naming it."""
+    """{"serving": {..., "batching": {...}, "grammar": {...},
+    "observability": {...}, "slo": {...}, "scheduler": {...}}} →
+    ServingConfig. Any key these classes do not carry raises ValueError
+    naming it."""
     if not isinstance(data, dict):
         raise ValueError("a config file holds one JSON object")
     unknown = sorted(set(data) - {"serving"})
@@ -274,7 +524,9 @@ def serving_config_from_dict(data: dict) -> ServingConfig:
             f"settings nest under \"serving\""
         )
     return _from_dict(ServingConfig, data.get("serving", {}), "serving",
-                      {"batching": BatchingConfig, "grammar": GrammarConfig})
+                      {"batching": BatchingConfig, "grammar": GrammarConfig,
+                       "observability": ObservabilityConfig,
+                       "slo": SloConfig, "scheduler": SchedulerConfig})
 
 
 def load_serving_config(path: str) -> ServingConfig:

@@ -1,7 +1,7 @@
 """gRPC server-side building blocks: generic service registration
 without generated stubs, a server-reflection service, and a health
 service. A copy of `ggrmcp_tpu/rpc/server_utils.py` for grpc.aio
-servers only, without its failpoint hooks (this package imports nothing of the reference).
+servers only, with its `health_flap` failpoint hook.
 
 The reference relied on grpc-go's built-in reflection registration
 (examples/hello-service/main.go:43-49); here the reflection *server* is
@@ -20,6 +20,7 @@ import grpc.aio
 from google.protobuf import descriptor_pb2, descriptor_pool
 
 from ggrmcp_tpu_torch.rpc.pb import health_pb2, reflection_pb2
+from ggrmcp_tpu_torch.utils import failpoints
 
 logger = logging.getLogger("ggrmcp.rpc.server")
 
@@ -173,6 +174,7 @@ class ReflectionService:
 # Health service (grpc.health.v1)
 # ---------------------------------------------------------------------------
 
+NOT_SERVING = health_pb2.HealthCheckResponse.NOT_SERVING
 SERVING = health_pb2.HealthCheckResponse.SERVING
 
 
@@ -183,7 +185,19 @@ class HealthService:
     def __init__(self) -> None:
         self._status: dict[str, int] = {"": SERVING}
 
+    @staticmethod
+    def _flapped() -> bool:
+        """Failpoint `health_flap`: a due evaluation makes THIS probe
+        answer NOT_SERVING; armed with every=2 the probe alternates."""
+        try:
+            failpoints.evaluate("health_flap")
+        except failpoints.FailpointError:
+            return True
+        return False
+
     async def check(self, request: health_pb2.HealthCheckRequest, context):
+        if self._flapped():
+            return health_pb2.HealthCheckResponse(status=NOT_SERVING)
         status = self._status.get(request.service)
         if status is None:
             await context.abort(grpc.StatusCode.NOT_FOUND, "unknown service")

@@ -41,13 +41,26 @@ KV reuse, each behind the reference's switch and with its semantics:
   copy-on-write at the divergent page, a typed "overloaded" shed when
   the arena is exhausted.
 
+The control plane, each with the reference's semantics:
+
+- the flight recorder (serving.observability, on by default): a record
+  of every tick, its duration partitioned into admit / sync / dispatch
+  / wait / host, and of every request at its terminal chunk, feeding
+  the latency histograms; the SLO and tenant ledgers (serving.slo) fed
+  from the same terminal hook; the memory ledger's components;
+- the scheduler (serving.scheduler.enabled): class priority lanes with
+  VTC fair share in place of the FIFO queue, demote-don't-kill
+  preemption of lower-class slots and the per-round prefill budget;
+- queue_deadline_ms (a queued request times out) and p50_budget_ms (an
+  admission round's rows capped while slots decode);
+- failpoints (utils/failpoints.py) at the reference's hook sites.
+
 Device work runs in the default executor (never on the event loop),
-one call at a time; ticks are synchronous. Speculative ticks, LoRA, the
-scheduler, the host page tier, SLO accounting and the flight recorder
-are not ported yet (core/config.py rejects their settings).
-Every copy between a mini cache, the prefix pool and the pool goes
-through `quant.kv_map`, so an int8 KV cache (the engine's `kv_dtype`)
-moves values and scales alike.
+one call at a time; ticks are synchronous. Speculative ticks, LoRA and
+the host page tier are not ported yet (core/config.py rejects their
+settings). Every copy between a mini cache, the prefix pool and the
+pool goes through `quant.kv_map`, so an int8 KV cache (the engine's
+`kv_dtype`) moves values and scales alike.
 """
 
 from __future__ import annotations
@@ -82,7 +95,15 @@ from ggrmcp_tpu_torch.serving.engine import (
     bucket_len,
     fit_request,
 )
+from ggrmcp_tpu_torch.serving.flight_recorder import PHASE_NAMES, FlightRecorder
 from ggrmcp_tpu_torch.serving.pages import PageAllocator, PageExhaustedError
+from ggrmcp_tpu_torch.serving.scheduler import (
+    Scheduler,
+    SchedulerQueue,
+    retry_after_for,
+)
+from ggrmcp_tpu_torch.serving.slo import SloAccount, TenantTable
+from ggrmcp_tpu_torch.utils import failpoints
 
 logger = logging.getLogger("ggrmcp.torch.batching")
 
@@ -184,6 +205,18 @@ class _Request:
     t_admit: float = 0.0
     t_first: float = 0.0
     queue_ms: float = 0.0
+    # Flight record: the gateway trace id, the prompt length before any
+    # replay fold, and the first tick the request decoded in (-1 = never
+    # admitted).
+    trace_id: str = ""
+    n_prompt: int = 0
+    first_tick: int = -1
+    # Tenant and QoS class (the SLO ledgers; the scheduler's lanes).
+    tenant: str = ""
+    qos_class: str = ""
+    # True while demoted and parked (a resume completes one preempt
+    # cycle).
+    parked: bool = False
     # Grammar: the arena residency (None = unconstrained), the host DFA
     # state after the last emitted token, whether the arena reference
     # was returned, and whether a refused forced run degraded the
@@ -192,6 +225,13 @@ class _Request:
     gcur: int = 0
     g_released: bool = False
     jump_degraded: bool = False
+
+
+# The ledger components reported as ServingStats memory_*_bytes.
+_LEDGER_COMPONENTS = (
+    "weights", "kv_arena", "block_tables", "prefix_pool", "ilv_mini",
+    "grammar_arena", "tick_state",
+)
 
 
 def _pct(values: list[float], q: float) -> float:
@@ -346,6 +386,44 @@ class ContinuousBatcher:
         # Admission routing counts (fused rows / chunked rows).
         self.fused_admissions = 0
         self.chunked_admissions = 0
+        # EMA of one admitted row's prefill cost (ms), the p50_budget_ms
+        # cap's estimate; pessimistic until measured.
+        self._admit_ema_ms = 50.0
+        self.timed_out = 0
+        serving = engine.serving
+        # The flight recorder, and the SLO and tenant ledgers fed from
+        # the same terminal hook (off with the recorder).
+        self.recorder = FlightRecorder(serving.observability)
+        self.slo = SloAccount(serving.slo, obs_enabled=self.recorder.enabled,
+                              bounds=self.recorder._bounds)
+        self.tenants = TenantTable(serving.slo, enabled=self.slo.enabled)
+        # The scheduler replaces the FIFO queue with its lanes (same
+        # interface) and decides preemption once per loop turn.
+        self.sched_cfg = serving.scheduler
+        self.sched: Optional[Scheduler] = None
+        if self.sched_cfg.enabled:
+            self.sched = Scheduler(self.sched_cfg, slo=self.slo,
+                                   tenants=self.tenants)
+            self.pending = SchedulerQueue(self.sched_cfg,
+                                          tenants=self.tenants)
+        # Tick phases: cumulative ms per phase over recorded ticks, and
+        # the admission time since the last tick (the next tick's admit
+        # phase).
+        self.phase_ms = dict.fromkeys(PHASE_NAMES, 0.0)
+        self._admit_phase_ms = 0.0
+        # The memory ledger's components; suppliers read the live
+        # attributes, so a rebuilt cache is accounted at the next read.
+        ledger = engine.ledger
+        ledger.register("kv_arena", lambda: (
+            self.cache.k, self.cache.v, self.cache.length))
+        ledger.register("block_tables",
+                        lambda: getattr(self.cache, "table", None))
+        ledger.register("prefix_pool", lambda: self._pfx_pool)
+        ledger.register("ilv_mini", lambda: self._ilv_mini)
+        ledger.register("grammar_arena", self._grammar_device_tables)
+        # The tick's token and grammar state ride from the host each
+        # tick: nothing persists on the device.
+        ledger.register("tick_state", lambda: None)
 
     # -- host <-> device helpers -----------------------------------------
 
@@ -955,47 +1033,63 @@ class ContinuousBatcher:
         seed: int = 0,
         unary: bool = False,
         grammar: Optional[CompiledGrammar] = None,
+        trace_id: str = "",
+        tenant: str = "",
+        qos_class: str = "",
     ) -> AsyncIterator[tuple[list[int], Optional[str]]]:
         """Enqueue a request; yields (token_ids_chunk, finish_reason)
         pairs, finish_reason set on the final chunk (`unary=True`: one
         terminal chunk with all tokens). The cap check and the enqueue
         run HERE, eagerly. Raises OverloadedError when max_pending or
-        max_queue_tokens would be exceeded. A paged arena that cannot
-        hold the request at admission finishes it with "overloaded".
-        `grammar`: every token must satisfy it; the request finishes
-        "grammar_complete" at its accepting sink, and GrammarCapacityError
-        is raised here when the arena cannot host another schema."""
+        max_queue_tokens would be exceeded (its `retry_after_s` is the
+        class's). A paged arena that cannot hold the request at admission
+        finishes it with "overloaded". `grammar`: every token must
+        satisfy it; the request finishes "grammar_complete" at its
+        accepting sink, and GrammarCapacityError is raised here when the
+        arena cannot host another schema. `trace_id` joins the request's
+        flight records to the gateway's trace; `tenant` and `qos_class`
+        are its SLO identity (and its scheduler lane)."""
         prompt, max_new = fit_request(
             prompt, max_new,
             self.max_seq - self._reserve_for(grammar is not None),
         )
         cap = self.cfg.max_pending
         if cap > 0 and self.pending.qsize() >= cap:
-            self.shed += 1
+            self._shed_at_submit(tenant, qos_class)
             raise OverloadedError(
                 f"admission queue full ({cap} requests pending)",
                 reason="requests",
+                retry_after_s=retry_after_for(self.sched_cfg, qos_class),
             )
         tcap = self.cfg.max_queue_tokens
         if (
             tcap > 0 and not self.pending.empty()
             and self.pending.token_count + len(prompt) > tcap
         ):
-            self.shed += 1
+            self._shed_at_submit(tenant, qos_class)
             raise OverloadedError(
                 f"admission queue token budget full ({tcap} tokens)",
                 reason="tokens",
+                retry_after_s=retry_after_for(self.sched_cfg, qos_class),
             )
         # Arena residency after the caps: a shed request holds no rows.
         handle = self.arena.acquire(grammar) if grammar is not None else None
         request = _Request(
             prompt=prompt, max_new=max_new, sampling=sampling, seed=seed,
-            unary=unary, grammar=handle,
+            unary=unary, grammar=handle, trace_id=trace_id,
+            n_prompt=len(prompt), tenant=tenant, qos_class=qos_class,
         )
         request.t_submit = time.perf_counter()
         self.pending.put_nowait(request)
         self._wake.set()
         return self._consume(request)
+
+    def _shed_at_submit(self, tenant: str, qos_class: str) -> None:
+        """A submit-time shed: no request exists, but the SLO and tenant
+        ledgers still count it (unevaluated)."""
+        self.shed += 1
+        self.slo.record_shed(qos_class)
+        self.tenants.record_shed(tenant)
 
     async def _consume(
         self, request: _Request
@@ -1022,58 +1116,119 @@ class ContinuousBatcher:
         return total
 
     def stats(self) -> dict:
-        """Counters and latency percentiles for GetServingStats (the
-        reference's field names; fields of unported features stay 0)."""
-        t = self.timing
+        """Counters, latency percentiles, the flight recorder's
+        histograms and the SLO / tenant fragments for GetServingStats
+        (the reference's field names; fields of unported features stay
+        at their defaults)."""
         lat = list(self._lat_records)
         stalls = list(self._stall_records)
         qs = [r[0] for r in lat]
         ss = [r[1] for r in lat]
         return {
+            **self.counter_stats(),
+            "queue_ms_p50": _pct(qs, 0.5), "queue_ms_p99": _pct(qs, 0.99),
+            "service_ms_p50": _pct(ss, 0.5), "service_ms_p99": _pct(ss, 0.99),
+            "decode_stall_ms_p50": _pct(stalls, 0.5),
+            "decode_stall_ms_p99": _pct(stalls, 0.99),
+            "decode_stall_ms_max": round(max(stalls), 2) if stalls else 0.0,
+            **self.recorder.histogram_stats(),
+            **self.slo.stats(),
+            **self.tenants.stats(),
+        }
+
+    def counter_stats(self) -> dict:
+        """The scalar counters of stats()."""
+        t = self.timing
+        return {
+            **self._memory_stats(),
+            "tp_chips": 1,
+            "mesh_devices": 1,
+            "mesh_shape": str(self.device),
+            "mesh_spec_downgrades": 0,
             "active_slots": self._active_count(),
             "total_slots": len(self.slots),
             "queued_requests": self.pending.qsize(),
             "queued_tokens": self.pending.token_count,
             "kv_cache_bytes": self.cache_bytes(),
-            "memory_kv_arena_bytes": self.cache.nbytes(),
-            "memory_weights_bytes": self.engine.weight_bytes(),
             "prefix_cache_hits": self.prefix_hits,
             "prefix_cache_misses": self.prefix_misses,
-            "interleaved_chunks": self.interleaved_chunks,
-            "interleaved_admissions": self.interleaved_admissions,
+            "decode_steps": self.step_counter,
+            "timed_out": self.timed_out,
+            "shed_requests": self.shed,
+            "replayed_requests": self.replayed,
+            "replay_exhausted": self.replay_exhausted,
+            **(
+                self.sched.counter_stats(parked=self.pending.parked_count())
+                if self.sched is not None else {
+                    "sched_preemptions": 0, "sched_resumes": 0,
+                    "sched_preempt_failures": 0, "sched_parked": 0,
+                    "sched_budget_deferrals": 0,
+                }
+            ),
             **(self.pages.stats() if self._paged else {
                 "kv_pages_total": 0, "kv_pages_in_use": 0,
                 "kv_pages_shared": 0, "paged_prefix_hits": 0,
                 "paged_cow_copies": 0, "paged_pages_reused": 0,
                 "paged_pages_admitted": 0,
             }),
+            "interleaved_chunks": self.interleaved_chunks,
+            "interleaved_admissions": self.interleaved_admissions,
             "grammar_masked_tokens": self.grammar_tokens,
             "grammar_states_in_use": self.arena.states_in_use(),
-            "memory_grammar_arena_bytes": self.grammar_table_bytes(),
             "grammar_jump_tokens": self.grammar_jump_tokens,
             "grammar_jump_runs": self.grammar_jump_runs,
             "grammar_jump_fallbacks": self.grammar_jump_fallbacks,
-            "decode_steps": self.step_counter,
-            "timed_out": 0,
-            "shed_requests": self.shed,
-            "replayed_requests": self.replayed,
-            "replay_exhausted": self.replay_exhausted,
             "ticks": t["ticks"],
             "tick_collects": t["ticks"],  # every tick is collected at once
             "admit_rounds": t["admit_rounds"],
             "tick_dispatch_ms": round(t["tick_dispatch_ms"], 2),
             "tick_collect_ms": round(t["tick_collect_ms"], 2),
             "admit_ms": round(t["admit_ms"], 2),
+            # Cumulative ms per tick phase over recorded ticks; the five
+            # sum to the ticks' summed duration_ms.
+            **{
+                f"tick_phase_{p}_ms": round(self.phase_ms[p], 2)
+                for p in PHASE_NAMES
+            },
             "admit_ms_max": round(t["admit_ms_max"], 2),
-            "queue_ms_p50": _pct(qs, 0.5), "queue_ms_p99": _pct(qs, 0.99),
-            "service_ms_p50": _pct(ss, 0.5), "service_ms_p99": _pct(ss, 0.99),
-            "decode_stall_ms_p50": _pct(stalls, 0.5),
-            "decode_stall_ms_p99": _pct(stalls, 0.99),
-            "decode_stall_ms_max": round(max(stalls), 2) if stalls else 0.0,
-            "tp_chips": 1,
-            "mesh_devices": 1,
-            "mesh_shape": str(self.device),
         }
+
+    def _memory_stats(self) -> dict:
+        """ServingStats memory_*_bytes from the ledger (all 0 when it is
+        off)."""
+        comp = self.engine.ledger.component_bytes(max_age_s=1.0)
+        return {
+            f"memory_{name}_bytes": comp.get(("", name), 0)
+            for name in _LEDGER_COMPONENTS
+        }
+
+    def _ledger_tick_snapshot(self) -> dict:
+        """component -> bytes for a tick record (TTL-cached)."""
+        comp = self.engine.ledger.component_bytes(max_age_s=1.0)
+        return {name: b for (_, name), b in comp.items() if b}
+
+    def flight_snapshot(
+        self,
+        max_ticks: int = 128,
+        max_requests: int = 128,
+        trace_id: str = "",
+        tenant: str = "",
+    ) -> tuple[list, list]:
+        """(tick records, request records), oldest first: those a trace
+        id took part in when given; `tenant` narrows the request records
+        (ticks are shared between tenants)."""
+        ticks = self.recorder.tick_snapshot()
+        requests = self.recorder.request_snapshot()
+        if trace_id:
+            ticks = [t for t in ticks if trace_id in t.trace_ids]
+            requests = [r for r in requests if r.trace_id == trace_id]
+        if tenant:
+            requests = [r for r in requests if r.tenant == tenant]
+        return ticks[-max(1, max_ticks):], requests[-max(1, max_requests):]
+
+    def request_record(self, trace_id: str):
+        """The newest request record of a trace id."""
+        return self.recorder.request_record(trace_id)
 
     # -- the loop -----------------------------------------------------------
 
@@ -1097,6 +1252,8 @@ class ContinuousBatcher:
     async def _loop(self) -> None:
         loop = asyncio.get_running_loop()
         while not self._stopping:
+            if self.sched is not None:
+                await self._maybe_preempt(loop)
             await self._admit()
             if self._active_count() == 0 and not self._ilv_busy():
                 # Clear BEFORE checking pending: a submit() landing after
@@ -1117,10 +1274,60 @@ class ContinuousBatcher:
 
     def _deliver(self, request: _Request, item) -> None:
         """Executor → loop edge: asyncio.Queue is not thread-safe. Every
-        terminal chunk passes here, so it returns the arena reference."""
+        terminal chunk passes here, so it records the request's end."""
         if item[1] is not None:
-            self._grammar_release(request)
+            self._record_terminal(request, item[1])
         self._loop_ref.call_soon_threadsafe(request.out.put_nowait, item)
+
+    def _record_terminal(self, request: _Request, reason: str) -> None:
+        """A request's end, on every path that delivers a terminal chunk:
+        return its arena reference, then feed the SLO and tenant ledgers
+        and the flight recorder (all off with the recorder). A request
+        never admitted is unevaluated; TPOT needs two tokens."""
+        self._grammar_release(request)
+        if not self.recorder.enabled:
+            return
+        if request.first_tick >= 0:
+            last_tick = max(request.first_tick, self.timing["ticks"])
+        else:
+            last_tick = -1
+        outcome = ""
+        if self.slo.enabled:
+            now = time.perf_counter()
+            tokens = len(request.acc)
+            admitted = bool(request.t_admit)
+            outcome = self.slo.record_terminal(
+                request.qos_class, reason,
+                admitted=admitted,
+                ttft_ms=(
+                    max(0.0, (request.t_first - request.t_submit) * 1000.0)
+                    if request.t_first else None
+                ),
+                tpot_ms=(
+                    (now - request.t_first) * 1000.0 / (tokens - 1)
+                    if request.t_first and tokens > 1 else None
+                ),
+                e2e_ms=max(0.0, (now - request.t_submit) * 1000.0),
+            )
+            self.tenants.record_terminal(
+                request.tenant,
+                admitted=admitted,
+                prompt_tokens=request.n_prompt,
+                decode_tokens=tokens,
+                queue_ms=(
+                    max(0.0, (request.t_admit - request.t_submit) * 1000.0)
+                    if request.t_admit else 0.0
+                ),
+            )
+        self.recorder.record_request(
+            request.trace_id, request.t_submit, request.t_admit,
+            request.t_first, request.n_prompt, len(request.acc),
+            reason, request.first_tick, last_tick,
+            constrained=request.grammar is not None,
+            tenant=request.tenant,
+            qos_class=request.qos_class,
+            slo_violated=outcome == "violated",
+        )
 
     def _replay_or_fail(self, request: _Request) -> None:
         """One victim of a failed device call: with retry budget left,
@@ -1144,6 +1351,137 @@ class ContinuousBatcher:
         request.t_submit = time.perf_counter()
         self.pending.requeue_front(request)
         self._wake.set()
+
+    # -- preemption (serving/scheduler.py) ----------------------------------
+
+    async def _maybe_preempt(self, loop) -> None:
+        """One scheduling decision per loop turn, on the loop thread: if
+        no slot is free and the highest-priority waiter is at risk
+        (Scheduler.should_preempt), demote the policy's victims in the
+        executor."""
+        if self._free_slots():
+            return
+        head = self.pending.head_waiter()
+        if head is None:
+            return
+        waiter_class, wait_s = head
+        if not self.sched.should_preempt(waiter_class, wait_s):
+            return
+        active = [
+            (i, s.request.qos_class, s.request.tenant)
+            for i, s in enumerate(self.slots)
+            if s.active and s.request is not None
+        ]
+        victims = self.sched.victims(waiter_class, active)
+        if not victims:
+            return
+        try:
+            await loop.run_in_executor(None, self._preempt_slots, victims)
+        except asyncio.CancelledError:
+            raise  # batcher shutdown cancels the loop task
+        except Exception:
+            # _preempt_slots degrades per slot and should never raise;
+            # if it does, the slots' state is unknown: replay them all.
+            logger.exception("preemption failed; recovering")
+            self._recover_after_tick_failure()
+
+    def _park_slot(self, slot_idx: int) -> None:
+        """Free a slot whose request leaves it without finishing."""
+        slot = self.slots[slot_idx]
+        slot.active = False
+        slot.request = None
+        self.jump_ok[slot_idx] = False
+        self.temps[slot_idx] = 0.0
+        self.gstates[slot_idx] = 0
+        self._slot_last_emit[slot_idx] = None
+
+    def _preempt_slots(self, victims: list[int]) -> None:
+        """Demote-don't-kill (executor thread): fold each victim's
+        emitted tokens into its prompt (the replay fold, without burning
+        a retry: preemption is policy, not failure), park its valid
+        pages as evictable cache on the paged arena, free the slot and
+        park the request in its class's resume lane. The grammar handle
+        stays; the resuming admission re-derives the DFA state (_g0), so
+        greedy tokens through a preempt cycle equal the uninterrupted
+        run's. The `sched_preempt_fail` failpoint degrades typed: the
+        victim keeps decoding and sched_preempt_failures counts it."""
+        for sl in victims:
+            slot = self.slots[sl]
+            request = slot.request
+            if not slot.active or request is None or request.cancelled:
+                continue  # finished while the decision was made
+            try:
+                failpoints.evaluate("sched_preempt_fail")
+                fresh = request.acc[request.absorbed:]
+                if fresh:
+                    request.prompt = (
+                        list(request.prompt) + [int(t) for t in fresh]
+                    )
+                    request.max_new -= len(fresh)
+                    request.absorbed = len(request.acc)
+                if self._paged:
+                    self.pages.demote_for_preempt(sl, request.prompt)
+                    self._tables_dirty = True
+            except failpoints.FailpointError:
+                self.sched.preempt_failures += 1
+                logger.warning("preemption failed for slot %d (injected); "
+                               "victim keeps decoding", sl)
+                continue
+            except Exception:
+                # Past the failpoint the work is host bookkeeping only:
+                # an error here leaves the slot's pages untrustworthy,
+                # so the request replays through the failure path.
+                logger.exception("preemption failed for slot %d", sl)
+                self.sched.preempt_failures += 1
+                if self._paged:
+                    self.pages.free_slot(sl)
+                    self._tables_dirty = True
+                self._park_slot(sl)
+                self._loop_ref.call_soon_threadsafe(
+                    self._replay_or_fail, request)
+                continue
+            self._park_slot(sl)
+            request.parked = True
+            # A fresh queue clock: parked time is the scheduler's, and
+            # queue_deadline_ms must not expire an admitted request.
+            request.t_submit = time.perf_counter()
+            self.sched.preemptions += 1
+            self._loop_ref.call_soon_threadsafe(
+                self._park_preempted, request)
+
+    def _park_preempted(self, request: _Request) -> None:
+        """Loop-thread tail of a preemption: the request enters the head
+        of its class's resume lane."""
+        if request.cancelled:
+            self._deliver(request, ([], "cancelled"))
+            return
+        self.pending.park_preempted(request)
+        self._wake.set()
+
+    def _sweep_expired_pending(self) -> None:
+        """Before admission, every loop turn: queued requests older than
+        queue_deadline_ms (since submit, or since their last replay or
+        preemption) finish "timeout"; abandoned ones leave the queue."""
+        ddl = self.cfg.queue_deadline_ms
+        if ddl <= 0 or self.pending.empty():
+            return
+        now = time.perf_counter()
+        keep: list[_Request] = []
+        while True:
+            try:
+                request = self.pending.get_nowait()
+            except asyncio.QueueEmpty:
+                break
+            if request.cancelled:
+                self._grammar_release(request)  # consumer gone
+                continue
+            if (now - request.t_submit) * 1000.0 > ddl:
+                self.timed_out += 1
+                self._deliver(request, ([], "timeout"))
+            else:
+                keep.append(request)
+        for request in keep:  # a full drain and re-put keeps the order
+            self.pending.put_nowait(request)
 
     def _reset_shared_cache(self) -> None:
         """Rebuild the shared cache from zeros; a paged arena's host
@@ -1182,13 +1520,32 @@ class ContinuousBatcher:
 
     async def _admit(self) -> int:
         """Drain pending requests into free slots: one batch per round,
-        capped at the free slots, each round ONE executor call."""
+        capped at the free slots, each round ONE executor call. While
+        slots decode, p50_budget_ms caps a round's rows and the
+        scheduler's prefill budget its prompt tokens (one capped round
+        per call)."""
+        self._sweep_expired_pending()
         admitted = 0
         deadline = time.monotonic() + self.cfg.max_queue_delay_ms / 1000.0
         loop = asyncio.get_running_loop()
-        while self._free_slots():
+        capped = False
+        prefill_budget = (
+            int(self.sched_cfg.prefill_budget_tokens)
+            if self.sched is not None else 0
+        )
+        tok_sum = 0
+        while self._free_slots() and not capped:
             batch: list[_Request] = []
             budget = len(self._free_slots())
+            if self.cfg.p50_budget_ms > 0 and self._active_count() > 0:
+                # A round may stall the decoding slots by at most
+                # p50_budget_ms / 4: as many rows as the per-row cost
+                # estimate fits.
+                stall_ms = self.cfg.p50_budget_ms / 4.0
+                cap = max(1, int(stall_ms / max(self._admit_ema_ms, 1e-3)))
+                if cap < budget:
+                    budget = cap
+                    capped = True
             while len(batch) < budget:
                 try:
                     timeout = deadline - time.monotonic()
@@ -1210,7 +1567,29 @@ class ContinuousBatcher:
                 if request.cancelled:
                     self._grammar_release(request)  # consumer gone
                     continue
+                ddl = self.cfg.queue_deadline_ms
+                if ddl > 0 and (
+                    time.perf_counter() - request.t_submit
+                ) * 1000.0 > ddl:
+                    # Expired in the queue: no prefill for it.
+                    self.timed_out += 1
+                    self._deliver(request, ([], "timeout"))
+                    continue
+                if (
+                    prefill_budget > 0
+                    and self._active_count() > 0
+                    and (batch or admitted)
+                    and tok_sum + len(request.prompt) > prefill_budget
+                ):
+                    # Over this round's budget: it pops first next turn.
+                    # At least one request per call is admitted, so a
+                    # prompt larger than the budget is never starved.
+                    self.pending.requeue_front(request)
+                    self.sched.budget_deferrals += 1
+                    capped = True
+                    break
                 batch.append(request)
+                tok_sum += len(request.prompt)
             if not batch:
                 break
             slots_idx = self._free_slots()[: len(batch)]
@@ -1241,6 +1620,8 @@ class ContinuousBatcher:
                             self._tables_dirty = True
                 if cache_dead:
                     # The pool may be half-written: replay bystanders.
+                    # In-flight interleaved rows are left running, as in
+                    # the reference.
                     self._cache_at_risk = False
                     for slot in self.slots:
                         if slot.active and slot.request is not None:
@@ -1266,7 +1647,13 @@ class ContinuousBatcher:
         prefix-pool hits group by step geometry into one call each (a
         multi-step bridge plan takes the serial path), long prompts take
         the interleave queue while slots decode or one chunked group
-        call, short prompts fuse into one prefill call."""
+        call, short prompts fuse into one prefill call. The round's time
+        becomes the next tick's admit phase and, per prefilled row, the
+        p50_budget_ms cost estimate."""
+        # Failpoints: admission latency (admit_slow, armed with ms=) and
+        # admission failure (admit_fail), before any device call.
+        failpoints.evaluate("admit_slow")
+        failpoints.evaluate("admit_fail")
         t0 = time.perf_counter()
         self._grammar_tables()
         fused_slots: list[int] = []
@@ -1281,8 +1668,11 @@ class ContinuousBatcher:
         )
         trickle = len(batch) == 1
         rows = list(zip(slots_idx, batch))
+        queued = 0  # rows sent to the interleave queue (no prefill here)
         if self._paged:
             rows = self._paged_prepass(rows, ilv, paged_groups)
+        shed_rows = len(batch) - len(rows) - sum(
+            len(g) for g in paged_groups.values())
         for sl, req in rows:
             pfx = self._pfx_lookup(req.prompt)
             if pfx is None and self._pfx_pool is not None:
@@ -1305,6 +1695,7 @@ class ContinuousBatcher:
                     self._ilv_pending.append(
                         _IlvRow(req, sl, len(req.prompt)))
                     self.interleaved_admissions += 1
+                    queued += 1
                 else:
                     long_rows.append((sl, req))
             else:
@@ -1334,6 +1725,12 @@ class ContinuousBatcher:
         self.timing["admit_ms"] += dt
         self.timing["admit_ms_max"] = max(self.timing["admit_ms_max"], dt)
         self.timing["admit_rounds"] += 1
+        self._admit_phase_ms += dt
+        # Interleave-queued and shed rows ran no prefill: their ~zero
+        # cost must not let the p50_budget_ms cap admit larger rounds.
+        prefilled = len(batch) - queued - shed_rows
+        if prefilled:
+            self._admit_ema_ms = 0.7 * self._admit_ema_ms + 0.3 * dt / prefilled
 
     def _paged_prepass(self, rows, ilv: bool, paged_groups: dict):
         """Build every row's block table (pages.admit: the longest indexed
@@ -1350,12 +1747,14 @@ class ContinuousBatcher:
         cold: list[tuple[int, _Request]] = []
         for sl, req in rows:
             try:
+                # Failpoint: page_exhausted forces the exhaustion path.
+                failpoints.evaluate("page_exhausted")
                 adm = self.pages.admit(
                     sl, req.prompt,
                     len(req.prompt) + req.max_new
                     + self._reserve_for(req.grammar is not None) + 1,
                 )
-            except PageExhaustedError:
+            except (PageExhaustedError, failpoints.FailpointError):
                 self.shed += 1
                 self._deliver(req, ([], "overloaded"))
                 continue
@@ -1530,6 +1929,15 @@ class ContinuousBatcher:
         slot.reserved = False
         request.t_admit = time.perf_counter()
         request.queue_ms = (request.t_admit - request.t_submit) * 1000.0
+        if request.parked:
+            # A resume completes one preempt cycle.
+            request.parked = False
+            if self.sched is not None:
+                self.sched.resumes += 1
+        # The first tick this request decodes in is the next one (tick
+        # records count from 1 on the same counter).
+        request.first_tick = self.timing["ticks"] + 1
+        self.recorder.note_admit()
         self.cur_tokens[slot_idx] = first_tok
         # The emit tracker starts at the admission state (_emit_chunk
         # walks it through first_tok); the slot's next sample is masked
@@ -1606,13 +2014,45 @@ class ContinuousBatcher:
         self._ilv_rows[r] = None
         self._activate_slot(st.slot, req, first_tok)
 
+    def _tick_record(self, active: int):
+        """Open this tick's flight record (None with the recorder off),
+        seeded with the admission time since the previous tick as its
+        admit phase; its PhaseTimer starts now."""
+        admit_ms, self._admit_phase_ms = self._admit_phase_ms, 0.0
+        if not self.recorder.enabled:
+            return None
+        trace_ids = list(dict.fromkeys(
+            s.request.trace_id for s in self.slots
+            if s.active and s.request is not None and s.request.trace_id
+        ))
+        return self.recorder.tick_start(
+            seq=self.timing["ticks"] + 1,
+            active=active,
+            interleaved_rows=0,
+            trace_ids=trace_ids,
+            shed=self.shed,
+            replayed=self.replayed,
+            timed_out=self.timed_out,
+            kv_pages_in_use=self.pages.in_use() if self._paged else 0,
+            admit_ms=admit_ms,
+            memory=self._ledger_tick_snapshot(),
+        )
+
     @torch.no_grad()
     def _tick_step(self) -> None:
         """One decode tick (fused with one [K, C] prefill chunk while
         interleaved admissions are in flight): dispatch, pull the tokens,
         finish the admitting rows whose last chunk this was, emit. The
         jump tick replaces the plain one while some live slot can jump;
-        its sample's step advances the counter by 1 + jump_max."""
+        its sample's step advances the counter by 1 + jump_max.
+
+        Its record's phases: sync (host state to the device), dispatch
+        (the eager launches), wait (the blocking pull of the tokens:
+        device time not hidden behind the launches, plus the copy), host
+        (interleave finishes, emission and bookkeeping)."""
+        # Failpoint: a fault here stands for a failed device call; the
+        # loop replays the victims.
+        failpoints.evaluate("tick_fail")
         t0 = time.perf_counter()
         jump = bool(self._jump_max and self.jump_ok.any())
         step0 = self.step_counter
@@ -1620,9 +2060,13 @@ class ContinuousBatcher:
             1 + self._jump_max if jump else self._steps_per_tick
         )
         owners = [s.request if s.active else None for s in self.slots]
+        rec = self._tick_record(sum(r is not None for r in owners))
         chunk = self._ilv_busy()
         if chunk:
             self._ilv_fill_rows()
+            if rec is not None:
+                rec.interleaved_rows = sum(
+                    r is not None for r in self._ilv_rows)
         self._sync_tables()
         self._grammar_tables()
         args = (
@@ -1639,6 +2083,9 @@ class ContinuousBatcher:
                 self._ilv_mini = self._make_mini(self._ilv_k, self.max_seq)
             chunk_arr, offs, c_tl = self._ilv_chunk_inputs()
             c_args = (self._t(chunk_arr), self._t(offs), self._t(c_tl))
+        if rec is not None:
+            rec.phases.mark("sync")
+        if chunk:
             if jump:
                 toks_dev, counts_dev, gs_dev, sel = (
                     self._tick_jump_chunk_impl(*args, *c_args))
@@ -1649,15 +2096,20 @@ class ContinuousBatcher:
         else:
             toks_dev, gs_dev = self._tick_impl(*args)
         t1 = time.perf_counter()
+        if rec is not None:
+            rec.phases.mark("dispatch")
         toks = toks_dev.cpu().numpy()
         counts = None if counts_dev is None else counts_dev.cpu().numpy()
         gs = gs_dev.cpu().numpy()
         t2 = time.perf_counter()
+        if rec is not None:
+            rec.phases.mark("wait")
         self.timing["tick_dispatch_ms"] += (t1 - t0) * 1000.0
         self.timing["tick_collect_ms"] += (t2 - t1) * 1000.0
         self.timing["ticks"] += 1
         if chunk:
             self._ilv_advance(sel)
+        finished = jump_tokens = jump_runs = 0
         for i, request in enumerate(owners):
             if request is None or self.slots[i].request is not request:
                 continue
@@ -1666,17 +2118,31 @@ class ContinuousBatcher:
                 if not self._jump_validate(request, toks[i, : c - 1]):
                     self._jump_degrade(i, request)
                     continue
-                self.grammar_jump_tokens += c - 1
-                self.grammar_jump_runs += 1
+                jump_tokens += c - 1
+                jump_runs += 1
             self.cur_tokens[i] = toks[i, c - 1]
             self.gstates[i] = gs[i]
             self._emit_chunk(i, toks[i, :c])
+            if self.slots[i].request is not request:
+                finished += 1
+        self.grammar_jump_tokens += jump_tokens
+        self.grammar_jump_runs += jump_runs
+        self.recorder.tick_done(rec, finished, jump_tokens=jump_tokens,
+                                jump_runs=jump_runs)
+        if rec is not None:
+            for phase in PHASE_NAMES:
+                self.phase_ms[phase] += getattr(rec, f"phase_{phase}_ms")
 
     def _jump_validate(self, request: _Request, run) -> bool:
         """A jump tick's forced run for one row must be the run the HOST
         arena walk gives at the request's current state: a corrupted
         device table or landing state is caught before a token of it
-        reaches the consumer."""
+        reaches the consumer. The grammar_jump_fail failpoint refuses
+        the run as such a corruption would."""
+        try:
+            failpoints.evaluate("grammar_jump_fail")
+        except failpoints.FailpointError:
+            return False
         return [int(t) for t in run] == self.arena.forced_run(request.gcur)
 
     def _jump_degrade(self, slot_idx: int, request: _Request) -> None:
@@ -1688,13 +2154,7 @@ class ContinuousBatcher:
         request.jump_degraded = True
         logger.warning("jump-ahead: forced run refused for slot %d; "
                        "replaying it with one-token decoding", slot_idx)
-        slot = self.slots[slot_idx]
-        slot.active = False
-        slot.request = None
-        self.jump_ok[slot_idx] = False
-        self.temps[slot_idx] = 0.0
-        self.gstates[slot_idx] = 0
-        self._slot_last_emit[slot_idx] = None
+        self._park_slot(slot_idx)
         if self._paged:
             self.pages.free_slot(slot_idx)
             self._tables_dirty = True

@@ -24,6 +24,8 @@ from ggrmcp_tpu_torch.models import llama as llama_mod
 from ggrmcp_tpu_torch.models.common import count_params, param_bytes
 from ggrmcp_tpu_torch.ops import quant
 from ggrmcp_tpu_torch.ops.sampling import SamplingConfig, sample
+from ggrmcp_tpu_torch.serving.memory_ledger import MemoryLedger
+from ggrmcp_tpu_torch.utils import failpoints
 from ggrmcp_tpu_torch.utils.device import DeviceLike, resolve_device
 
 logger = logging.getLogger("ggrmcp.torch.engine")
@@ -73,6 +75,10 @@ class GenerationEngine:
     ):
         self.cfg = cfg
         self.serving = serving or ServingConfig()
+        if self.serving.failpoints:
+            # Armed at the serving plane's root, as the reference does:
+            # every entry point built on an engine gets the schedule.
+            failpoints.registry.arm_spec(self.serving.failpoints)
         self.device = resolve_device(device)
         self.kv_dtype = self.serving.kv_cache_dtype
         # An int8 cache is read dequantized by attention_ref: handing the
@@ -92,6 +98,12 @@ class GenerationEngine:
             if self.serving.quantize:
                 params = self._quantize_params(params)
         self.params = params
+        # The device-memory ledger: the batchers built over this engine
+        # register their components into it, so one reconcile() covers
+        # the stack. Off with serving.observability.
+        self.ledger = MemoryLedger(self.device,
+                                   self.serving.observability.enabled)
+        self.ledger.register("weights", lambda: self.params)
 
     def _synthetic_int8_init(self, seed: int):
         """The int8 weight structure drawn directly (int8 values in
@@ -365,6 +377,7 @@ class EmbeddingEngine:
         params=None,
         seed: int = 0,
         device: DeviceLike = None,
+        serving: Optional[ServingConfig] = None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -375,6 +388,10 @@ class EmbeddingEngine:
                 count_params(params) / 1e6,
             )
         self.params = params
+        # The embed sidecar's one persistent allocation is its weights.
+        obs = (serving or ServingConfig()).observability
+        self.ledger = MemoryLedger(self.device, obs.enabled)
+        self.ledger.register("weights", lambda: self.params)
 
     def weight_bytes(self) -> int:
         return param_bytes(self.params)

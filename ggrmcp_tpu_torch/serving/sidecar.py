@@ -6,19 +6,26 @@ picks the engine: a llama model (by name, or any HF checkpoint through
 continuous batcher, a bert model the embedding engine. Registration is
 family-scoped as in the reference: GenerateService (Generate,
 GenerateStream) or EmbedService (Embed), plus ModelInfoService
-(GetModelInfo, GetServingStats), reflection and health, under the
-reference's service names (`ggrmcp.tpu.*`) — so the reference gateway
-discovers it by reflection and exposes the same tool names as for the
-JAX sidecar. A GenerateRequest's `constraint.json_schema` is compiled
+(GetModelInfo, GetServingStats), DebugService, reflection and health,
+under the reference's service names (`ggrmcp.tpu.*`) — so the reference
+gateway discovers it by reflection and exposes the same tool names as
+for the JAX sidecar. A GenerateRequest's `constraint.json_schema` is compiled
 once per schema (the sidecar's `GrammarCache`) and enforced by the
 batcher; a bad schema is the caller's error (INVALID_ARGUMENT), a full
-grammar arena an overload (RESOURCE_EXHAUSTED).
+grammar arena an overload (RESOURCE_EXHAUSTED). A request's tenant and
+QoS class come from its fields, else from the `x-tenant-id` /
+`x-qos-class` metadata the gateway forwards. DebugService answers
+Profile (a `torch.profiler` capture), GetFlightRecord and GetMemory,
+which back the gateway's `/debug/*` routes.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
+import re
+import tempfile
 import time
 from typing import Optional
 
@@ -45,8 +52,10 @@ from ggrmcp_tpu_torch.rpc.server_utils import (
 from ggrmcp_tpu_torch.serving import tensors
 from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher, OverloadedError
 from ggrmcp_tpu_torch.serving.engine import EmbeddingEngine, GenerationEngine
+from ggrmcp_tpu_torch.serving.scheduler import retry_after_for
 from ggrmcp_tpu_torch.serving.tokenizer import ByteTokenizer, load_tokenizer
 from ggrmcp_tpu_torch.serving.weights import load_hf_checkpoint
+from ggrmcp_tpu_torch.utils import failpoints, tracing
 from ggrmcp_tpu_torch.utils.device import DeviceLike
 
 logger = logging.getLogger("ggrmcp.torch.sidecar")
@@ -99,9 +108,12 @@ class Sidecar:
             )
         else:
             self.embedding = EmbeddingEngine(
-                model_cfg, params=params, seed=seed, device=device
+                model_cfg, params=params, seed=seed, device=device,
+                serving=self.serving,
             )
         self.server: Optional[grpc.aio.Server] = None
+        # One Profile capture at a time.
+        self._profile_lock = asyncio.Lock()
         self.health = HealthService()
         self.port = 0
         self.target = ""
@@ -232,13 +244,60 @@ class Sidecar:
             self.serving.batching.max_decode_steps,
         )
 
-    async def _submit(self, request, context, prompt, unary: bool):
-        grammar = await self._resolve_grammar(request, context)
+    def _retry_after(self, qos_class: str) -> float:
+        """The class's Retry-After (the scheduler config's ladder, which
+        applies with the scheduler off too)."""
+        return retry_after_for(self.serving.scheduler, qos_class)
+
+    @staticmethod
+    def _maybe_replica_crash() -> None:
+        """Failpoint `replica_crash`: a due evaluation ends the whole
+        process at once (os._exit, as a SIGKILL would: no handler
+        unwinds), the fault a supervisor must notice and restart."""
         try:
-            return self.batcher.submit(
+            failpoints.evaluate("replica_crash")
+        except failpoints.FailpointError as exc:
+            logger.critical("replica_crash failpoint fired: %s", exc)
+            os._exit(86)
+
+    @staticmethod
+    def _tenant_identity(
+        request: serving_pb2.GenerateRequest, context
+    ) -> tuple[str, str]:
+        """(tenant, qos_class) of a call: the request's fields win, else
+        the forwarded metadata, tenant falling back through
+        x-tenant-id, the adapter, x-adapter-id and x-session-id to
+        "default". The class passes unvalidated: the SLO ledger files an
+        unknown class under slo.default_class."""
+        md: dict = {}
+        for key, val in context.invocation_metadata() or ():
+            if isinstance(val, str):
+                md.setdefault(key.lower(), val)
+        tenant = (
+            request.tenant_id
+            or md.get("x-tenant-id")
+            or request.adapter
+            or md.get("x-adapter-id")
+            or md.get("x-session-id")
+            or "default"
+        )
+        qos = request.qos_class or md.get("x-qos-class") or ""
+        return str(tenant), str(qos)
+
+    async def _submit(self, request, context, prompt, unary: bool):
+        """Hand a request to the batcher; returns (its chunk iterator,
+        its QoS class)."""
+        grammar = await self._resolve_grammar(request, context)
+        tenant, qos_class = self._tenant_identity(request, context)
+        trace_id = tracing.trace_id_from_metadata(
+            context.invocation_metadata())
+        try:
+            it = self.batcher.submit(
                 prompt, self._max_new(request), self._sampling(request),
                 request.sampling.seed or 0, unary=unary, grammar=grammar,
+                trace_id=trace_id, tenant=tenant, qos_class=qos_class,
             )
+            return it, qos_class
         except OverloadedError as exc:
             await context.abort(
                 grpc.StatusCode.RESOURCE_EXHAUSTED,
@@ -249,29 +308,31 @@ class Sidecar:
             # Too many distinct schemas decoding at once: transient.
             await context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED, str(exc))
 
-    @staticmethod
-    async def _abort_overloaded(context) -> None:
+    async def _abort_overloaded(self, context, qos_class: str) -> None:
         """A paged arena that cannot hold the request at admission (after
         submit queued it): the same typed overload as a submit-time
         shed."""
         await context.abort(
             grpc.StatusCode.RESOURCE_EXHAUSTED,
-            "server overloaded (pages): kv page pool exhausted; retry in 1s",
+            f"server overloaded (pages): kv page pool exhausted; "
+            f"retry in {self._retry_after(qos_class):g}s",
         )
 
     async def generate(self, request: serving_pb2.GenerateRequest, context):
+        self._maybe_replica_crash()
         t0 = time.perf_counter()
         await self._reject_unsupported(request, context)
         prompt = self._prompt_ids(request)
         token_ids: list[int] = []
         finish = "length"
-        it = await self._submit(request, context, prompt, unary=True)
+        it, qos_class = await self._submit(request, context, prompt,
+                                           unary=True)
         async for chunk_ids, reason in it:
             token_ids.extend(chunk_ids)
             if reason:
                 finish = reason
         if finish == "overloaded":
-            await self._abort_overloaded(context)
+            await self._abort_overloaded(context, qos_class)
         if finish == "error":
             await context.abort(
                 grpc.StatusCode.INTERNAL, "generation failed on the backend"
@@ -291,13 +352,15 @@ class Sidecar:
     async def generate_stream(
         self, request: serving_pb2.GenerateRequest, context
     ):
+        self._maybe_replica_crash()
         await self._reject_unsupported(request, context)
         prompt = self._prompt_ids(request)
         stops = list(request.stop)
         decoder = self.tokenizer.stream_decoder()
         text = ""
         emitted = ""
-        it = await self._submit(request, context, prompt, unary=False)
+        it, qos_class = await self._submit(request, context, prompt,
+                                           unary=False)
         async for chunk_ids, reason in it:
             text += decoder.feed(chunk_ids)
             final = reason is not None
@@ -318,7 +381,7 @@ class Sidecar:
                 return
             if final:
                 if reason == "overloaded":
-                    await self._abort_overloaded(context)
+                    await self._abort_overloaded(context, qos_class)
                 if reason == "error":
                     await context.abort(
                         grpc.StatusCode.INTERNAL,
@@ -352,9 +415,154 @@ class Sidecar:
             stats["grammar_compiles"] = self.grammar_cache.compiles
             stats["grammar_cache_hits"] = self.grammar_cache.hits
         else:
-            stats = {"memory_weights_bytes": self.embedding.weight_bytes()}
+            comp = self.embedding.ledger.component_bytes()
+            stats = {"memory_weights_bytes": comp.get(("", "weights"), 0)}
         stats["role"] = "mixed"
         return serving_pb2.ServingStatsResponse(**stats)
+
+    # -- DebugService ---------------------------------------------------
+
+    async def profile(self, request: serving_pb2.ProfileRequest, context):
+        """A `torch.profiler` capture of `duration_ms` (default 1 s, 10 ms
+        to 60 s), written as a Chrome trace under the server's base
+        directory: the client's `output_dir` is reduced to a
+        [A-Za-z0-9._-] label there, so no caller can write elsewhere.
+        One capture at a time (FAILED_PRECONDITION); a failed capture
+        (on a card: one that saw no kernel) is INTERNAL."""
+        duration_ms = (
+            1000.0 if not request.duration_ms
+            else float(min(max(request.duration_ms, 10), 60_000))
+        )
+        label = re.sub(r"[^A-Za-z0-9._-]", "_", os.path.basename(
+            request.output_dir or ""
+        ))
+        if not label.strip("."):  # "", "." and ".." all escape the base
+            label = f"capture-{int(time.time())}"
+        out = os.path.join(tempfile.gettempdir(), "ggrmcp-profiles", label)
+        if self._profile_lock.locked():
+            await context.abort(
+                grpc.StatusCode.FAILED_PRECONDITION,
+                "a profile capture is already running",
+            )
+        engine = self.generation or self.embedding
+        async with self._profile_lock:
+            try:
+                path = await asyncio.get_running_loop().run_in_executor(
+                    None, tracing.profile_capture, duration_ms, out,
+                    engine.device.type == "cuda",
+                )
+            except asyncio.CancelledError:
+                raise  # a cancelled RPC must not abort() a dead context
+            except Exception as exc:
+                logger.exception("profile capture failed")
+                await context.abort(
+                    grpc.StatusCode.INTERNAL, f"profile capture failed: {exc}"
+                )
+        logger.info("profile capture (%.0f ms) written to %s", duration_ms,
+                    path)
+        return serving_pb2.ProfileResponse(
+            output_path=path, duration_ms=duration_ms
+        )
+
+    async def get_flight_record(
+        self, request: serving_pb2.FlightRecordRequest, context
+    ):
+        """The flight recorder's tick and request records, filtered to
+        one trace id and (requests only) one tenant when given. Host
+        state only. The port compiles nothing at serve time, so
+        `compiles` is empty."""
+        ticks: list = []
+        requests: list = []
+        enabled = False
+        if self.batcher is not None:
+            enabled = self.batcher.recorder.enabled
+            ticks, requests = self.batcher.flight_snapshot(
+                request.max_ticks or 128, request.max_requests or 128,
+                request.trace_id, request.tenant,
+            )
+        return serving_pb2.FlightRecordResponse(
+            ticks=[
+                serving_pb2.TickRecord(
+                    seq=t.seq, t_wall=t.t_wall, t_mono=t.t_mono,
+                    duration_ms=t.duration_ms, active_slots=t.active_slots,
+                    admitted=t.admitted, finished=t.finished,
+                    interleaved_rows=t.interleaved_rows,
+                    shed_total=t.shed_total, replayed_total=t.replayed_total,
+                    timed_out_total=t.timed_out_total,
+                    trace_ids=t.trace_ids, source=t.source,
+                    spec_drafted=t.spec_drafted,
+                    spec_accepted=t.spec_accepted,
+                    kv_pages_in_use=t.kv_pages_in_use,
+                    phase_admit_ms=t.phase_admit_ms,
+                    phase_sync_ms=t.phase_sync_ms,
+                    phase_dispatch_ms=t.phase_dispatch_ms,
+                    phase_wait_ms=t.phase_wait_ms,
+                    phase_host_ms=t.phase_host_ms,
+                    memory_components=list(t.memory),
+                    memory_component_bytes=[int(b) for b in t.memory.values()],
+                )
+                for t in ticks
+            ],
+            requests=[
+                serving_pb2.RequestRecord(
+                    trace_id=r.trace_id, t_submit=r.t_submit,
+                    queue_ms=r.queue_ms, ttft_ms=r.ttft_ms, e2e_ms=r.e2e_ms,
+                    prompt_tokens=r.prompt_tokens, tokens=r.tokens,
+                    finish_reason=r.finish_reason, decode_tps=r.decode_tps,
+                    first_tick=r.first_tick, last_tick=r.last_tick,
+                    source=r.source, constrained=r.constrained,
+                    tenant=r.tenant, qos_class=r.qos_class,
+                    slo_violated=r.slo_violated,
+                )
+                for r in requests
+            ],
+            enabled=enabled,
+        )
+
+    async def get_memory(self, request: serving_pb2.MemoryRequest, context):
+        """The memory ledger: bytes per (scope, component) and, with
+        `reconcile`, the device's live bytes split into attributed and
+        unattributed (attributed + unattributed == live), and the host
+        components. The walks run in the executor. The port compiles
+        nothing at serve time: the `compile_*` fields stay 0."""
+        ledger = (self.generation or self.embedding).ledger
+        components: list = []
+        total = live = unattr_bytes = unattr_arrays = 0
+        if ledger.enabled:
+            loop = asyncio.get_running_loop()
+            if request.reconcile:
+                rec = await loop.run_in_executor(None, ledger.reconcile)
+                live = rec["live_bytes"]
+                unattr_bytes = rec["unattributed_bytes"]
+                unattr_arrays = len(rec["unattributed_arrays"])
+                per = {}
+                for name, b in rec["components"].items():
+                    scope, _, comp = name.rpartition("/")
+                    per[(scope, comp)] = b
+            else:
+                per = await loop.run_in_executor(
+                    None, ledger.component_bytes)
+            for (scope, comp), b in sorted(per.items()):
+                components.append(serving_pb2.MemoryComponent(
+                    component=comp, scope=scope, bytes=int(b)
+                ))
+                total += int(b)
+        host = [
+            serving_pb2.HostMemoryComponent(
+                component=comp, scope=scope, bytes=int(info.get("bytes", 0)),
+                entries=int(info.get("entries", 0)))
+            for (scope, comp), info in sorted(ledger.host_components().items())
+        ]
+        return serving_pb2.MemoryResponse(
+            components=components,
+            total_bytes=total,
+            host=host,
+            host_total_bytes=sum(h.bytes for h in host),
+            live_bytes=live,
+            unattributed_bytes=unattr_bytes,
+            unattributed_arrays=unattr_arrays,
+            enabled=ledger.enabled,
+        )
 
     # -- lifecycle ------------------------------------------------------
 
@@ -402,6 +610,25 @@ class Sidecar:
                     self.get_serving_stats,
                     serving_pb2.ServingStatsRequest,
                     serving_pb2.ServingStatsResponse,
+                ),
+            },
+        )
+        services.append("ggrmcp.tpu.DebugService")
+        add_service(
+            self.server, "ggrmcp.tpu.DebugService",
+            {
+                "Profile": MethodDef(
+                    self.profile,
+                    serving_pb2.ProfileRequest, serving_pb2.ProfileResponse,
+                ),
+                "GetFlightRecord": MethodDef(
+                    self.get_flight_record,
+                    serving_pb2.FlightRecordRequest,
+                    serving_pb2.FlightRecordResponse,
+                ),
+                "GetMemory": MethodDef(
+                    self.get_memory,
+                    serving_pb2.MemoryRequest, serving_pb2.MemoryResponse,
                 ),
             },
         )

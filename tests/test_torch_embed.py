@@ -189,7 +189,7 @@ async def _gateway(target, calls):
 
 
 # Services of the reference sidecar that the port does not serve yet.
-UNPORTED_TOOLS = ("ggrmcp_tpu_debugservice_", "ggrmcp_tpu_kvtransferservice_")
+UNPORTED_TOOLS = ("ggrmcp_tpu_kvtransferservice_",)
 
 
 async def test_embed_sidecar_and_gateway_match_reference():

@@ -718,3 +718,127 @@ def test_threefry_bits_identical_on_card_and_cpu(cuda):
     assert torch.equal(
         ts.uniform(ts.fold_in(key.to(cuda), rows.to(cuda))).cpu(),
         ts.uniform(ts.fold_in(key, rows)))
+
+
+# -- the control plane ----------------------------------------------------------
+
+
+def test_ledger_reconciles_to_the_allocator(cuda):
+    """attributed + unattributed == torch.cuda.memory_allocated(): the
+    ledger's closure holds on the card by construction, with the weights
+    and the KV arena the engine's and the cache's bytes."""
+    cfg = tl.CONFIGS["tiny-llama"]
+    params = _to(tl.init_params(cfg, torch.device("cpu"), seed=11), cuda)
+    engine = GenerationEngine(cfg, params=params, device=cuda)
+    batcher = ContinuousBatcher(engine, BatchingConfig(
+        max_batch_size=4, kv_cache_max_seq=256))
+    rec = engine.ledger.reconcile()
+    assert rec["live_bytes"] == torch.cuda.memory_allocated(cuda)
+    assert rec["attributed_bytes"] + rec["unattributed_bytes"] == (
+        rec["live_bytes"])
+    assert rec["components"]["weights"] == engine.weight_bytes()
+    assert rec["components"]["kv_arena"] == batcher.cache.nbytes()
+    assert rec["unattributed_bytes"] >= 0
+
+
+def test_profile_capture_holds_the_kernel(cuda, tmp_path):
+    """A torch.profiler capture while prefills run on another thread
+    holds CUDA kernel events, the attention kernel's among them."""
+    import threading
+
+    from ggrmcp_tpu_torch.utils import tracing
+
+    cfg = tl.CONFIGS["tiny-llama"]
+    params = _to(tl.init_params(cfg, torch.device("cpu"), seed=11), cuda)
+    toks = torch.tensor(_prompts()[4][:40], device=cuda)[None]
+    tl.forward(params, cfg, toks)  # build and load the kernel first
+    stop = threading.Event()
+
+    def prefills():
+        with torch.no_grad():
+            while not stop.is_set():
+                tl.forward(params, cfg, toks)
+                torch.cuda.synchronize(cuda)
+
+    worker = threading.Thread(target=prefills)
+    worker.start()
+    try:
+        path = tracing.profile_capture(300, str(tmp_path), cuda=True)
+    finally:
+        stop.set()
+        worker.join(60)
+    assert not worker.is_alive()
+    with open(path) as fh:
+        names = {e["name"] for e in tracing.kernel_events(json.load(fh))}
+    assert any("flash_fwd" in n for n in names), sorted(names)[:20]
+
+
+async def _preempt_cycle(batcher, victims, interactive):
+    """Victims decode (each has a token), then the interactive request
+    arrives behind the full pool; outputs in that order."""
+    loop = asyncio.get_running_loop()
+    batcher.start()
+    try:
+        firsts = [loop.create_future() for _ in victims]
+
+        async def one(prompt, max_new, qos, first=None):
+            out = []
+            async for ids, _ in batcher.submit(prompt, max_new,
+                                               SamplingConfig(),
+                                               qos_class=qos):
+                out.extend(ids)
+                if first is not None and not first.done():
+                    first.set_result(None)
+            return out
+
+        tasks = [asyncio.ensure_future(one(p, n, "batch", f))
+                 for (p, n), f in zip(victims, firsts)]
+        await asyncio.wait_for(asyncio.gather(*firsts), timeout=120)
+        late = [await one(*interactive, "interactive")] if interactive else []
+        return [await t for t in tasks] + late
+    finally:
+        await batcher.stop()
+
+
+async def test_preempt_and_tick_fail_on_card_match_cpu(cuda):
+    """tiny-llama float32 on the card: a preempt cycle (one victim
+    demoted, parked and resumed by re-prefill) and a run under
+    tick_fail:every=3 give the tokens of the uninterrupted run on the
+    CPU, bit for bit."""
+    from ggrmcp_tpu_torch.core.config import SchedulerConfig
+    from ggrmcp_tpu_torch.utils import failpoints
+
+    cfg = tl.CONFIGS["tiny-llama"]
+    params = tl.init_params(cfg, torch.device("cpu"), seed=11)
+    victims = [(_prompts()[2], 12), (_prompts()[4], 10)]
+    interactive = (_prompts()[0], 4)
+    small = dict(max_batch_size=2, kv_cache_max_seq=256, prefill_chunk=16)
+    cpu_eng = GenerationEngine(cfg, params=params, device="cpu")
+    base = await _preempt_cycle(
+        ContinuousBatcher(cpu_eng, BatchingConfig(**small)), victims, None)
+    base += await _preempt_cycle(
+        ContinuousBatcher(cpu_eng, BatchingConfig(**small)),
+        [interactive], None)
+    gpu_params = _to(params, cuda)
+    sched = ServingConfig(scheduler=SchedulerConfig(
+        enabled=True, preempt_wait_fraction=1e-6))
+    batcher = ContinuousBatcher(
+        GenerationEngine(cfg, sched, params=gpu_params, device=cuda),
+        BatchingConfig(**small))
+    assert await _preempt_cycle(batcher, victims, interactive) == base
+    stats = batcher.stats()
+    assert stats["sched_preemptions"] == stats["sched_resumes"] == 1
+
+    prompts = _prompts()
+    ref = await _serve(ContinuousBatcher(cpu_eng, BatchingConfig(
+        max_batch_size=4, kv_cache_max_seq=256, prefill_chunk=16)), prompts)
+    failpoints.registry.arm("tick_fail", every=3)
+    try:
+        batcher = ContinuousBatcher(
+            GenerationEngine(cfg, params=gpu_params, device=cuda),
+            BatchingConfig(max_batch_size=4, kv_cache_max_seq=256,
+                           prefill_chunk=16, tick_retry_limit=32))
+        assert await _serve(batcher, prompts) == ref
+    finally:
+        failpoints.registry.disarm()
+    assert batcher.stats()["replayed_requests"] > 0

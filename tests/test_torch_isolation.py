@@ -44,6 +44,11 @@ PORT_MODULES = (
     "ggrmcp_tpu_torch.serving.safetensors_io",
     "ggrmcp_tpu_torch.serving.sidecar", "ggrmcp_tpu_torch.serving.tensors",
     "ggrmcp_tpu_torch.serving.tokenizer", "ggrmcp_tpu_torch.serving.weights",
+    "ggrmcp_tpu_torch.serving.flight_recorder",
+    "ggrmcp_tpu_torch.serving.memory_ledger",
+    "ggrmcp_tpu_torch.serving.scheduler", "ggrmcp_tpu_torch.serving.slo",
+    "ggrmcp_tpu_torch.serving.batching", "ggrmcp_tpu_torch.utils.failpoints",
+    "ggrmcp_tpu_torch.utils.tracing", "ggrmcp_tpu_torch.rpc.server_utils",
 )
 
 
@@ -56,7 +61,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert res.returncode == 0, res.stderr
     result = json.loads(res.stdout.strip().splitlines()[-1])
     assert set(PORT_MODULES) <= set(result["modules"]), result["modules"]
-    assert len(result["modules"]) >= 28, result  # every module was walked
+    assert len(result["modules"]) >= 34, result  # every module was walked
     assert result["bad"] == [], f"the port loaded {result['bad']}"
 
 

@@ -177,12 +177,15 @@ async def test_overloaded_past_max_pending(engines):
      ("batching", "paged_kv_host_file_bytes", 1 << 20),
      ("batching", "kv_tiers", [[128, 2]]),
      ("batching", "pipeline_ticks", "on"),
-     ("batching", "queue_deadline_ms", 100.0),
-     ("batching", "p50_budget_ms", 50.0),
+     ("batching", "queue_deadline_ms", -1.0),
+     ("batching", "p50_budget_ms", -1.0),
+     ("serving", "failpoints", "tick_fail:frequency=7"),
      ("serving", "kv_cache_dtype", "int4"), ("serving", "quantize", "fp4"),
      ("serving", "checkpoint_path", "ckpt")],
 )
 def test_unsupported_config_raises(kind, field, value):
+    """Unported features' settings and values the reference's checks
+    reject both raise, naming the field."""
     cls = BatchingConfig if kind == "batching" else ServingConfig
     with pytest.raises(ValueError, match=field):
         cls(**{field: value})
