@@ -76,7 +76,26 @@ Phases, any failure exits non-zero and prints no result:
    resumed streams' agreement with the uninterrupted ones); (e) a
    sidecar armed with tick_fail and admit_fail serves phase 5's burst by
    replay; (f) queue_deadline_ms 200 with 40 requests on 32 slots, and
-   phase 9b's long-prompt wave with p50_budget_ms 500 against 0.
+   phase 9b's long-prompt wave with p50_budget_ms 500 against 0;
+12. the paged plane's remainder and multi-LoRA, at llama3-8b width
+   through sidecars configured by a `--config` file on one weight set:
+   (a) the host page tier: 16 distinct 2048-token preambles through a
+   1024-page arena with 8 GiB of host pool, twice (the second pass
+   restores), against an arena that holds every page (first tokens
+   identical), the bytes and rates each way, a third pass under
+   host_restore_fail (typed recompute), and a restarted sidecar warming
+   from the file tier; (b) prefill, decode and mixed sidecars: two-leg
+   calls of 1024-3000 tokens (the decode admission reuses every imported
+   full page and launches B1 on the tail only), the transfer's pages,
+   chunks, bytes and times, the int8 cache shipping about half the
+   bytes, kv_transfer_fail (ABORTED) and a page-size mismatch
+   (INVALID_ARGUMENT); (c) a registry of four rank-8 adapters: a burst
+   of 16 mixing base and all four (tick p50 against the burst all base,
+   each stream against its adapter alone, a zero-b adapter equal to
+   base), an adapter'd two-leg call, a churning 2-row arena and
+   adapter_load_fail (ABORTED); (d) phase 11d's scheduler traffic on an
+   arena holding the batch exactly with the host tier attached: the
+   resumes restore the parked pages.
 
 The last lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -1827,12 +1846,16 @@ class _GrammarClient(_ReuseClient):
 def _hold_admission(batcher) -> None:
     """Set `batcher.hold_for = n` to hold its next admission round until
     n requests are queued (a burst then lands in one round, whatever the
-    calls' arrival spread)."""
+    calls' arrival spread). Host ops (an adapter's acquisition) run
+    while it holds; it never holds while a slot decodes."""
     batcher.hold_for = 0
     admit = batcher._admit
 
     async def held_admit():
-        while batcher.hold_for and batcher.pending.qsize() < batcher.hold_for:
+        loop = asyncio.get_running_loop()
+        while (batcher.hold_for and batcher._active_count() == 0
+               and batcher.pending.qsize() < batcher.hold_for):
+            await batcher._drain_host_ops(loop)
             await asyncio.sleep(0.001)
         batcher.hold_for = 0
         return await admit()
@@ -2566,6 +2589,799 @@ async def control_phase(torch, tatt, dev) -> dict:
     return res
 
 
+# -- phase 12: host page tier, TransferKV with roles, multi-LoRA ---------------
+
+# The card's sizes; a smaller spec drives the same code on the CPU.
+P12 = dict(
+    model=MODEL, batching={}, page=16,
+    # (a) the host tier: 16 distinct preambles (128 pages each, 2048 in
+    # all) through a 1024-page arena, twice; the second pass restores.
+    arena_pages=1024, host_bytes=8 << 30, big_arena_pages=4096,
+    preambles=16, preamble_tokens=2048, question_tokens=64, host_new=8,
+    group=4, restart_arena_pages=256, restart_preambles=4,
+    restart_file_bytes=1 << 30,
+    # (b) disaggregation: prefill, decode and mixed sidecars on one
+    # weight set, arenas of 2048 pages.
+    disagg_arena_pages=2048, disagg_prompts=(1024, 1500, 2200, 3000),
+    disagg_new=16, int8_arena_pages=1024,
+    # (c) multi-LoRA: four adapters of rank 8 and a zero-b one; a burst
+    # of 16 calls; the churn arena holds 2 rows.
+    adapters=("a0", "a1", "a2", "a3"), lora_rank=8, lora_rows=4,
+    churn_rows=2, churn_arena_pages=256, lora_burst=16,
+    lora_prompt_tokens=(40, 100, 200, 300), lora_new=16,
+    # (d) phase 11d's scheduler scenario on a paged arena that holds the
+    # 32 batch requests exactly, with the host tier attached; the
+    # interactive prompts are as long as the batch ones (14 pages: more
+    # than a preemption frees, fewer than it frees and parks).
+    sched_slots=CTRL_SLOTS, sched_prompt=SCHED_PROMPT_TOKENS,
+    sched_new=CTRL_NEW, sched_interactive=SCHED_INTERACTIVE,
+    sched_interactive_prompt=SCHED_PROMPT_TOKENS,
+    sched_interactive_new=SCHED_INTERACTIVE_NEW,
+)
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class _P12Client(_ControlClient):
+    """Phase 11's stubs, plus Generate with an adapter, a transfer target
+    or a QoS class, and TransferKV."""
+
+    def __init__(self, ch):
+        super().__init__(ch)
+        pb = self.pb
+        self._xfer = ch.unary_unary(
+            "/ggrmcp.tpu.KVTransferService/TransferKV",
+            request_serializer=pb.KVTransferRequest.SerializeToString,
+            response_deserializer=pb.KVTransferResponse.FromString)
+
+    async def call(self, text: str, max_new: int, **fields):
+        """(token ids, finish reason, client ms)."""
+        metadata = ()
+        if "qos" in fields:
+            metadata = (("x-qos-class", fields.pop("qos")),)
+        t = time.perf_counter()
+        resp = await self._gen(self.pb.GenerateRequest(
+            prompt=text, max_new_tokens=max_new, return_tokens=True,
+            **fields), metadata=metadata, timeout=600)
+        return (list(resp.token_ids), resp.finish_reason,
+                (time.perf_counter() - t) * 1e3)
+
+    async def transfer(self, **fields):
+        return await self._xfer(self.pb.KVTransferRequest(**fields),
+                                timeout=60)
+
+
+def _p12_sidecar(torch, params, dev, serving: dict, tmp: str, spec: dict,
+                 name: str = "serving"):
+    """A sidecar on `params` (a shallow copy: a LoRA engine adds its
+    factor stacks to its own dict) whose settings come from a
+    {"serving": ...} config file, read as the command line reads
+    `--config FILE`."""
+    from ggrmcp_tpu_torch import __main__ as cli
+    from ggrmcp_tpu_torch.serving.sidecar import Sidecar
+
+    serving = dict(serving)
+    serving["batching"] = dict(spec["batching"], **serving.get("batching", {}))
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w") as fh:
+        json.dump({"serving": dict(model=spec["model"], **serving)}, fh)
+    cfg = cli.serving_config(cli.build_parser().parse_args(
+        ["sidecar", "--config", path]))
+    return Sidecar(cfg, params=dict(params), device=dev)
+
+
+def _paged(spec: dict, pages: int, **extra) -> dict:
+    return dict(paged_kv="on", paged_kv_page_size=spec["page"],
+                paged_kv_pages=pages, **extra)
+
+
+class _Traffic:
+    """Bytes and milliseconds through a batcher's page movers, each call
+    synchronised: the device gather to the host (demotion, export), the
+    host write to the device (restore, import), and the host tier's
+    hooks whole (with the page codec)."""
+
+    def __init__(self, torch, dev, batcher):
+        self.log = {k: [0, 0.0] for k in ("d2h", "h2d", "demote", "restore")}
+
+        def timed(key, fn, nbytes):
+            def run(*args, **kwargs):
+                _sync(torch, dev)
+                t = time.perf_counter()
+                out = fn(*args, **kwargs)
+                _sync(torch, dev)
+                self.log[key][0] += nbytes(args, out)
+                self.log[key][1] += (time.perf_counter() - t) * 1e3
+                return out
+            return run
+
+        batcher._gather_pages = timed(
+            "d2h", batcher._gather_pages,
+            lambda a, out: sum(t.nbytes for t in out.values()))
+        batcher._write_arena_pages = timed(
+            "h2d", batcher._write_arena_pages,
+            lambda a, out: sum(t.nbytes for t in a[1:] if t is not None
+                               and hasattr(t, "nbytes")))
+        batcher._demote_fetch = timed(
+            "demote", batcher._demote_fetch,
+            lambda a, out: sum(len(b) for b in out))
+        batcher._restore_write = timed(
+            "restore", batcher._restore_write,
+            lambda a, out: sum(len(b) for b in a[1]))
+        if batcher.pages is not None and batcher.pages.host is not None:
+            batcher.pages._fetch_pages = batcher._demote_fetch
+            batcher.pages._restore_pages = batcher._restore_write
+
+    def summary(self) -> dict:
+        return {k: dict(bytes=b, ms=ms, gbps=b / ms / 1e6 if ms else None)
+                for k, (b, ms) in self.log.items()}
+
+
+def _p12_preamble(i: int, spec: dict) -> str:
+    return _prompt_text(spec["preamble_tokens"], 3000 + i)
+
+
+def _p12_question(rnd: int, i: int, spec: dict) -> str:
+    return chr(65 + rnd) + _prompt_text(spec["question_tokens"],
+                                        5000 + 100 * rnd + i)
+
+
+async def _host_passes(client, batcher, spec, rounds) -> list:
+    """Each round: every preamble with that round's question, `group`
+    calls at a time, each group held into one admission round."""
+    outs = []
+    for rnd in rounds:
+        for g in range(0, spec["preambles"], spec["group"]):
+            # Past the loop's wait for stragglers of the last round.
+            await asyncio.sleep(0.05)
+            batcher.hold_for = spec["group"]
+            outs += await asyncio.gather(*(
+                client.call(_p12_preamble(i, spec)
+                            + _p12_question(rnd, i, spec), spec["host_new"])
+                for i in range(g, g + spec["group"])))
+    for ids, reason, _ in outs:
+        check(reason in ("length", "stop") and ids,
+              f"(a) a call ended {reason!r} with {len(ids)} tokens")
+    return outs
+
+
+_HOST_KEYS = ("kv_host_demotions", "kv_host_restores",
+              "kv_host_bytes_demoted", "kv_host_bytes_restored",
+              "kv_host_restore_failures", "kv_host_entries",
+              "kv_host_bytes_used", "kv_host_file_entries",
+              "kv_host_file_bytes", "paged_prefix_hits",
+              "paged_pages_reused", "paged_pages_admitted", "shed_requests")
+
+
+async def _host_run(torch, dev, params, tmp, spec, host: bool,
+                    fail: bool = False) -> dict:
+    """(a) the two passes on a paged sidecar, with the host tier or with
+    an arena that holds every page; with `fail`, a third pass under
+    host_restore_fail."""
+    import grpc.aio
+
+    from ggrmcp_tpu_torch.utils import failpoints
+
+    batching = (_paged(spec, spec["arena_pages"],
+                       paged_kv_host_bytes=spec["host_bytes"]) if host
+                else _paged(spec, spec["big_arena_pages"]))
+    sidecar = _p12_sidecar(torch, params, dev, dict(batching=batching), tmp,
+                           spec)
+    batcher = sidecar.batcher
+    _hold_admission(batcher)
+    traffic = _Traffic(torch, dev, batcher)
+    ttft: list = []
+    activate = batcher._activate_slot
+
+    def timed_activate(slot_idx, request, first_tok):
+        ttft.append((time.perf_counter() - request.t_submit) * 1e3)
+        return activate(slot_idx, request, first_tok)
+
+    batcher._activate_slot = timed_activate
+    port = await sidecar.start(0)
+    res: dict = {}
+    try:
+        async with grpc.aio.insecure_channel(f"localhost:{port}") as ch:
+            client = _P12Client(ch)
+            passes = []
+            for rnd in (0, 1):
+                before = await client.stats()
+                del ttft[:]
+                outs = await _host_passes(client, batcher, spec, [rnd])
+                after = await client.stats()
+                passes.append(dict(
+                    tokens=[ids for ids, _, _ in outs],
+                    ttft_ms=_ttft(list(ttft)),
+                    stats={k: getattr(after, k) - getattr(before, k)
+                           for k in _HOST_KEYS}))
+            res["passes"] = passes
+            if fail:
+                before = await client.stats()
+                failpoints.registry.arm("host_restore_fail", every=1)
+                try:
+                    outs = await _host_passes(client, batcher, spec, [2])
+                finally:
+                    failpoints.registry.disarm()
+                after = await client.stats()
+                res["restore_fail"] = dict(
+                    completed=len(outs),
+                    **{k: getattr(after, k) - getattr(before, k)
+                       for k in ("kv_host_restore_failures",
+                                 "kv_host_restores", "paged_prefix_hits")})
+            final = await client.stats()
+            res["kv_cache_bytes"] = final.kv_cache_bytes
+            res["kv_host_budget_bytes"] = final.kv_host_budget_bytes
+    finally:
+        await sidecar.stop()
+    res["traffic"] = traffic.summary()
+    del sidecar, batcher
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+async def _restart_run(torch, dev, params, tmp, spec) -> list:
+    """(a) the file tier: a sidecar serves `restart_preambles` preambles
+    one by one through a small arena (demoting to RAM and the file);
+    then a second sidecar on the same file serves them again."""
+    import grpc.aio
+
+    path = os.path.join(tmp, "host-tier.kv")
+    batching = _paged(spec, spec["restart_arena_pages"],
+                      paged_kv_host_bytes=spec["host_bytes"] // 4,
+                      paged_kv_host_path=path,
+                      paged_kv_host_file_bytes=spec["restart_file_bytes"])
+    runs = []
+    for _ in range(2):
+        sidecar = _p12_sidecar(torch, params, dev, dict(batching=batching),
+                               tmp, spec)
+        port = await sidecar.start(0)
+        try:
+            async with grpc.aio.insecure_channel(f"localhost:{port}") as ch:
+                client = _P12Client(ch)
+                outs = [await client.call(
+                    _p12_preamble(i, spec) + _p12_question(0, i, spec),
+                    spec["host_new"])
+                    for i in range(spec["restart_preambles"])]
+                stats = await client.stats()
+        finally:
+            await sidecar.stop()
+        del sidecar
+        gc.collect()
+        runs.append(dict(tokens=[ids for ids, _, _ in outs],
+                         **{k: getattr(stats, k) for k in _HOST_KEYS}))
+    return runs
+
+
+async def host_tier_part(torch, dev, params, tmp, spec) -> dict:
+    """(a): the host tier against an arena holding everything, a restore
+    failure's typed recompute, a warm restart from the file tier."""
+    host = await _host_run(torch, dev, params, tmp, spec, host=True,
+                           fail=True)
+    big = await _host_run(torch, dev, params, tmp, spec, host=False)
+    p1, p2 = host["passes"]
+    check(p2["stats"]["kv_host_restores"] > 0,
+          f"(a) the second pass restored nothing: {p2['stats']}")
+    check(p1["stats"]["kv_host_demotions"] > 0, "(a) nothing was demoted")
+    for rnd in (0, 1):
+        agree = _agreement(host["passes"][rnd]["tokens"],
+                           big["passes"][rnd]["tokens"])
+        host["passes"][rnd]["agreement_with_big_arena"] = agree
+        # A restored page holds the bits the device computed, and each
+        # admission runs the same shapes in both runs.
+        check(agree["first_token"] == agree["of"],
+              f"(a) pass {rnd + 1}: first tokens vs the big arena {agree}")
+    fail = host["restore_fail"]
+    check(fail["kv_host_restore_failures"] > 0
+          and fail["completed"] == spec["preambles"],
+          f"(a) host_restore_fail: {fail}")
+    restart = await _restart_run(torch, dev, params, tmp, spec)
+    check(restart[0]["kv_host_file_entries"] > 0,
+          f"(a) nothing reached the file tier: {restart[0]}")
+    check(restart[1]["kv_host_restores"] > 0,
+          f"(a) the restarted sidecar restored nothing: {restart[1]}")
+    # The restart's admissions restore and run one suffix step where the
+    # first sidecar's ran the whole prompt: other shapes, so bf16 may
+    # round otherwise.
+    warm = _agreement(restart[1]["tokens"], restart[0]["tokens"])
+    check(warm["first_token"] >= warm["of"] - 1,
+          f"(a) restart: first tokens {warm}")
+    return dict(host=host, big_arena=big, restart=dict(
+        first=_brief(restart[0]), second=_brief(restart[1]),
+        agreement=warm))
+
+
+def _write_adapters(path: str, cfg, spec: dict) -> None:
+    """Seeded float32 factors, pre-scaled, in the registry's layout; the
+    "zero" adapter's b is all zero."""
+    import numpy as np
+
+    out = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    r = spec["lora_rank"]
+    for i, name in enumerate(spec["adapters"] + ("zero",)):
+        rng = np.random.default_rng(7000 + i)
+        a = rng.normal(0, 0.02, (cfg.num_layers, cfg.hidden_dim, r))
+        b = (np.zeros((cfg.num_layers, r, out)) if name == "zero"
+             else rng.normal(0, 0.5, (cfg.num_layers, r, out)))
+        np.savez(os.path.join(path, f"{name}.npz"), a=a.astype(np.float32),
+                 b=b.astype(np.float32))
+
+
+def _lora_cfg(spec, registry, rows) -> dict:
+    return dict(registry=registry, rank=spec["lora_rank"], arena_rows=rows)
+
+
+async def _disagg_prompt(tatt, clients, sides, n, spec, page,
+                         adapter: str = "") -> dict:
+    """One two-leg call (prefill leg shipping to the decode sidecar, then
+    the decode leg) and the same call on the mixed sidecar."""
+    p, d, m = clients
+    text = _prompt_text(n, 6000 + n)
+    ship = sides[0].ship_log
+    shipped = len(ship)
+    before_p, before_d = await p.stats(), await d.stats()
+    launched = tatt.flash_attention.launches
+    leg1 = await p.call(text, spec["disagg_new"], adapter=adapter,
+                        kv_transfer_target=sides[1].target)
+    leg1_launches = tatt.flash_attention.launches - launched
+    check(leg1[1] == "transferred", f"(b) leg 1 of {n}: {leg1[1]!r}")
+    launched = tatt.flash_attention.launches
+    leg2 = await d.call(text, spec["disagg_new"], adapter=adapter)
+    leg2_launches = tatt.flash_attention.launches - launched
+    after_p, after_d = await p.stats(), await d.stats()
+    launched = tatt.flash_attention.launches
+    mixed = await m.call(text, spec["disagg_new"], adapter=adapter)
+    mixed_launches = tatt.flash_attention.launches - launched
+    pages = after_p.kv_transfer_pages_sent - before_p.kv_transfer_pages_sent
+    reused = after_d.paged_pages_reused - before_d.paged_pages_reused
+    hits = after_d.paged_prefix_hits - before_d.paged_prefix_hits
+    check(pages == n // page, f"(b) {n} tokens shipped {pages} pages")
+    # The decode admission shares every imported full page up to the
+    # reuse cap (one position must run for the sampling logits).
+    check(hits == 1 and reused == (n - 1) // page,
+          f"(b) {n} tokens: {hits} prefix hits, {reused} pages reused of "
+          f"{pages} imported")
+    check(leg2[1] in ("length", "stop") and mixed[1] in ("length", "stop"),
+          f"(b) {n}: decode {leg2[1]!r}, mixed {mixed[1]!r}")
+    ms = [t for t in ship[shipped:]]
+    return dict(
+        prompt_tokens=n, adapter=adapter, pages=pages,
+        chunks=sum(c for _, c, _, _ in ms),
+        wire_bytes=after_p.kv_transfer_bytes_sent
+        - before_p.kv_transfer_bytes_sent,
+        export_ms=sum(e for e, _, _, _ in ms),
+        ship_ms=sum(s for _, _, s, _ in ms),
+        leg1_ms=leg1[2], leg2_ms=leg2[2], mixed_ms=mixed[2],
+        leg1_launches=leg1_launches, leg2_launches=leg2_launches,
+        mixed_launches=mixed_launches,
+        tokens=leg2[0], mixed_tokens=mixed[0])
+
+
+def _log_shipping(torch, dev, sidecar) -> None:
+    """Record each prefill leg's export and ship: (export ms, chunks,
+    ship ms, wire bytes)."""
+    sidecar.ship_log = []
+    batcher = sidecar.batcher
+    export = batcher.export_prompt_kv
+    timing = {"export": 0.0}
+
+    def timed_export(*args, **kwargs):
+        _sync(torch, dev)
+        t = time.perf_counter()
+        out = export(*args, **kwargs)
+        timing["export"] = (time.perf_counter() - t) * 1e3
+        return out
+
+    batcher.export_prompt_kv = timed_export
+    ship = sidecar._ship_kv
+
+    async def timed_ship(target, prompt, exported, adapter=""):
+        t = time.perf_counter()
+        pages, wire = await ship(target, prompt, exported, adapter=adapter)
+        per_chunk = max(1, sidecar.TRANSFER_CHUNK_BYTES // max(1, sum(
+            a.nbytes for a in exported.values() if hasattr(a, "nbytes"))
+            // pages))
+        sidecar.ship_log.append((timing["export"], -(-pages // per_chunk),
+                                 (time.perf_counter() - t) * 1e3, wire))
+        return pages, wire
+
+    sidecar._ship_kv = timed_ship
+
+
+async def _start_all(sides):
+    for side in sides:
+        await side.start(0)
+
+
+async def _stop_all(sides):
+    for side in sides:
+        await side.stop()
+
+
+async def disagg_lora_parts(torch, tatt, dev, params, tmp, spec, cfg,
+                            registry) -> tuple:
+    """(b) disaggregation and (c) multi-LoRA on prefill, decode and mixed
+    sidecars built once (all LoRA-enabled, one weight set)."""
+    import grpc
+    import grpc.aio
+
+    from ggrmcp_tpu_torch.utils import failpoints
+
+    page = spec["page"]
+    lora = _lora_cfg(spec, registry, spec["lora_rows"])
+    sides = [_p12_sidecar(torch, params, dev, dict(
+        role=role, lora=lora,
+        batching=_paged(spec, spec["disagg_arena_pages"])), tmp, spec, role)
+        for role in ("prefill", "decode", "mixed")]
+    _log_shipping(torch, dev, sides[0])
+    m_batcher = sides[2].batcher
+    _hold_admission(m_batcher)
+    m_batcher.tick_ms = []
+    plain = m_batcher._tick_impl
+
+    def timed_tick(*args, **kwargs):
+        t = time.perf_counter()
+        out = plain(*args, **kwargs)
+        _sync(torch, dev)
+        m_batcher.tick_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    m_batcher._tick_impl = timed_tick
+    await _start_all(sides)
+    chans = [grpc.aio.insecure_channel(s.target) for s in sides]
+    b_res: dict = {}
+    c_res: dict = {}
+    try:
+        clients = [_P12Client(ch) for ch in chans]
+        # (b) two-leg calls, base model.
+        calls = [await _disagg_prompt(tatt, clients, sides, n, spec, page)
+                 for n in spec["disagg_prompts"]]
+        agree = _agreement([c.pop("tokens") for c in calls],
+                           [c.pop("mixed_tokens") for c in calls])
+        check(agree["first_token"] >= agree["of"] - 1,
+              f"(b) decode vs mixed first tokens {agree}")
+        check(all(c["leg1_launches"] > 0 for c in calls),
+              "(b) a prefill leg never launched B1")
+        check(all(0 < c["leg2_launches"] < c["mixed_launches"]
+                  for c in calls),
+              f"(b) decode legs launched B1 "
+              f"{[c['leg2_launches'] for c in calls]} times, mixed "
+              f"{[c['mixed_launches'] for c in calls]}")
+        b_res["calls"] = calls
+        b_res["agreement_with_mixed"] = agree
+        # kv_transfer_fail: the prefill leg fails typed, ABORTED.
+        failpoints.registry.arm("kv_transfer_fail", every=1, times=1)
+        code = None
+        try:
+            await clients[0].call(_prompt_text(1024, 6100), 2,
+                                  kv_transfer_target=sides[1].target)
+        except grpc.aio.AioRpcError as exc:
+            code = exc.code()
+        finally:
+            failpoints.registry.disarm()
+        check(code == grpc.StatusCode.ABORTED,
+              f"(b) kv_transfer_fail gave {code}, not ABORTED")
+        # A page size the decode sidecar does not use: INVALID_ARGUMENT.
+        code = None
+        try:
+            await clients[1].transfer(prompt_ids=[1] * (4 * page),
+                                      page_size=2 * page)
+        except grpc.aio.AioRpcError as exc:
+            code = exc.code()
+        check(code == grpc.StatusCode.INVALID_ARGUMENT,
+              f"(b) page-size mismatch gave {code}, not INVALID_ARGUMENT")
+        b_res["typed"] = dict(kv_transfer_fail="ABORTED",
+                              page_size_mismatch="INVALID_ARGUMENT")
+        p_stats, d_stats = await clients[0].stats(), await clients[1].stats()
+        b_res["stats"] = dict(
+            prefill={k: getattr(p_stats, k) for k in (
+                "role", "kv_transfers_sent", "kv_transfer_pages_sent",
+                "kv_transfer_bytes_sent", "kv_transfer_failures")},
+            decode={k: getattr(d_stats, k) for k in (
+                "role", "kv_transfers_received",
+                "kv_transfer_pages_received", "kv_transfer_bytes_received",
+                "paged_prefix_hits", "paged_pages_reused")})
+        # (c) one adapter'd two-leg call: the pages ship in the adapter's
+        # key domain.
+        c_res["disagg"] = await _disagg_prompt(
+            tatt, clients, sides, spec["disagg_prompts"][1], spec, page,
+            adapter=spec["adapters"][1])
+        c_res["disagg"]["agreement_with_mixed"] = _agreement(
+            [c_res["disagg"].pop("tokens")],
+            [c_res["disagg"].pop("mixed_tokens")])
+        c_res.update(await _lora_burst(torch, dev, clients[2], m_batcher,
+                                       spec))
+    finally:
+        for ch in chans:
+            await ch.close()
+        await _stop_all(sides)
+    del sides, m_batcher
+    gc.collect()
+    b_res["int8"] = await _int8_transfer(torch, tatt, dev, params, tmp, spec)
+    bf16_page = (b_res["stats"]["prefill"]["kv_transfer_bytes_sent"]
+                 / b_res["stats"]["prefill"]["kv_transfer_pages_sent"])
+    b_res["int8"]["bytes_ratio_to_bf16"] = (
+        b_res["int8"]["bytes_per_page"] / bf16_page)
+    check(b_res["int8"]["bytes_ratio_to_bf16"] <= 0.6,
+          f"(b) int8 pages ship {b_res['int8']['bytes_ratio_to_bf16']:.3f}"
+          f" of the bf16 bytes")
+    c_res["churn"] = await _lora_churn(torch, dev, params, tmp, spec,
+                                       registry)
+    return b_res, c_res
+
+
+async def _int8_transfer(torch, tatt, dev, params, tmp, spec) -> dict:
+    """(b) int8 KV: a prefill and a decode sidecar on the int8 cache ship
+    one prompt; bytes per page against the bf16 pages."""
+    import grpc.aio
+
+    sides = [_p12_sidecar(torch, params, dev, dict(
+        role=role, kv_cache_dtype="int8",
+        batching=_paged(spec, spec["int8_arena_pages"])), tmp, spec,
+        f"int8-{role}") for role in ("prefill", "decode")]
+    await _start_all(sides)
+    chans = [grpc.aio.insecure_channel(s.target) for s in sides]
+    try:
+        p, d = [_P12Client(ch) for ch in chans]
+        n = spec["disagg_prompts"][2]
+        text = _prompt_text(n, 6000 + n)
+        leg1 = await p.call(text, spec["disagg_new"],
+                            kv_transfer_target=sides[1].target)
+        check(leg1[1] == "transferred", f"(b) int8 leg 1: {leg1[1]!r}")
+        leg2 = await d.call(text, spec["disagg_new"])
+        p_stats, d_stats = await p.stats(), await d.stats()
+    finally:
+        for ch in chans:
+            await ch.close()
+        await _stop_all(sides)
+    del sides
+    gc.collect()
+    check(leg2[1] in ("length", "stop") and d_stats.paged_prefix_hits == 1,
+          f"(b) int8 decode leg: {leg2[1]!r}, hits "
+          f"{d_stats.paged_prefix_hits}")
+    pages = p_stats.kv_transfer_pages_sent
+    return dict(prompt_tokens=n, pages=pages,
+                wire_bytes=p_stats.kv_transfer_bytes_sent,
+                bytes_per_page=p_stats.kv_transfer_bytes_sent / pages,
+                pages_reused=d_stats.paged_pages_reused)
+
+
+def _burst_names(spec) -> list:
+    names = ("",) + spec["adapters"]
+    return [names[i % len(names)] for i in range(spec["lora_burst"])]
+
+
+def _burst_text(i, spec) -> str:
+    lens = spec["lora_prompt_tokens"]
+    return _prompt_text(lens[i % len(lens)], 6500 + i)
+
+
+async def _lora_burst(torch, dev, client, batcher, spec) -> dict:
+    """(c) the burst mixing base and every adapter, held into one
+    admission round, against the same burst all base (tick p50 of
+    each), each adapter'd stream against its adapter served alone, and
+    a zero-b adapter against base."""
+    names = _burst_names(spec)
+    runs = {}
+    for kind in ("base", "mixed"):
+        del batcher.tick_ms[:]
+        before = await client.stats()
+        await asyncio.sleep(0.05)  # past the loop's wait for stragglers
+        batcher.hold_for = len(names)
+        outs = await asyncio.gather(*(
+            client.call(_burst_text(i, spec), spec["lora_new"],
+                        adapter=name if kind == "mixed" else "")
+            for i, name in enumerate(names)))
+        after = await client.stats()
+        for ids, reason, _ in outs:
+            check(reason in ("length", "stop") and ids,
+                  f"(c) a {kind} burst call ended {reason!r}")
+        runs[kind] = dict(
+            tokens=[ids for ids, _, _ in outs],
+            tick_ms_p50=_median(batcher.tick_ms), ticks=len(batcher.tick_ms),
+            lora={k: getattr(after, k) - getattr(before, k) for k in (
+                "lora_loads", "lora_evictions", "lora_hits")})
+    alone = []
+    for i, name in enumerate(names):
+        if name:
+            ids, reason, _ = await client.call(_burst_text(i, spec),
+                                               spec["lora_new"], adapter=name)
+            alone.append(ids)
+    burst = [t for t, n in zip(runs["mixed"]["tokens"], names) if n]
+    agree = _agreement(burst, alone)
+    check(agree["first_token"] >= agree["of"] - 1,
+          f"(c) adapter'd burst vs alone: {agree}")
+    changed = _agreement(burst, [t for t, n in zip(runs["base"]["tokens"],
+                                                   names) if n])
+    check(changed["identical"] < changed["of"],
+          "(c) every adapter'd stream equals its base stream")
+    # A text no call has sent: both admissions are cold, the same shapes.
+    text = _prompt_text(spec["lora_prompt_tokens"][1], 6700)
+    zero = await client.call(text, spec["lora_new"], adapter="zero")
+    base = await client.call(text, spec["lora_new"])
+    check(zero[0] == base[0], "(c) the zero-b adapter differs from base")
+    stats = await client.stats()
+    return dict(
+        burst=dict(names=names, tick_ms_p50_mixed=runs["mixed"]["tick_ms_p50"],
+                   tick_ms_p50_base=runs["base"]["tick_ms_p50"],
+                   ticks_mixed=runs["mixed"]["ticks"],
+                   ticks_base=runs["base"]["ticks"],
+                   lora=runs["mixed"]["lora"]),
+        agreement_with_alone=agree, agreement_with_base=changed,
+        zero_b_equals_base=True,
+        stats={k: getattr(stats, k) for k in (
+            "lora_adapters_registered", "lora_adapters_resident",
+            "lora_rows_total", "lora_loads", "lora_evictions", "lora_hits",
+            "lora_load_ms", "lora_shed", "memory_lora_bytes")})
+
+
+async def _lora_churn(torch, dev, params, tmp, spec, registry) -> dict:
+    """(c) churn: the adapters in turn through an arena of `churn_rows`
+    rows (each first load past the rows evicts), then adapter_load_fail
+    (ABORTED) and the next call loading."""
+    import grpc
+    import grpc.aio
+
+    from ggrmcp_tpu_torch.utils import failpoints
+
+    sidecar = _p12_sidecar(torch, params, dev, dict(
+        lora=_lora_cfg(spec, registry, spec["churn_rows"]),
+        batching=_paged(spec, spec["churn_arena_pages"])), tmp, spec,
+        "churn")
+    port = await sidecar.start(0)
+    try:
+        async with grpc.aio.insecure_channel(f"localhost:{port}") as ch:
+            client = _P12Client(ch)
+            order = list(spec["adapters"]) * 2
+            outs = [await client.call(_prompt_text(40, 6800 + i), 4,
+                                      adapter=name)
+                    for i, name in enumerate(order)]
+            arena = sidecar.generation.adapter_arena
+            cold = next(n for n in spec["adapters"] if n not in arena._row_of)
+            failpoints.registry.arm("adapter_load_fail", every=1, times=1)
+            code = None
+            try:
+                await client.call(_prompt_text(40, 6900), 4, adapter=cold)
+            except grpc.aio.AioRpcError as exc:
+                code = exc.code()
+            finally:
+                failpoints.registry.disarm()
+            again = await client.call(_prompt_text(40, 6900), 4,
+                                      adapter=cold)
+            stats = await client.stats()
+            arena.check_invariants()
+    finally:
+        await sidecar.stop()
+    del sidecar
+    gc.collect()
+    check(all(r in ("length", "stop") for _, r, _ in outs + [again]),
+          "(c) a churn call failed")
+    check(code == grpc.StatusCode.ABORTED,
+          f"(c) adapter_load_fail gave {code}, not ABORTED")
+    check(stats.lora_evictions > 0, "(c) the churn evicted no row")
+    return dict(adapter_load_fail="ABORTED", **{k: getattr(stats, k) for k in (
+        "lora_loads", "lora_evictions", "lora_hits", "lora_load_ms",
+        "lora_rows_total")})
+
+
+async def _sched_host_run(torch, dev, params, tmp, spec, enabled) -> dict:
+    """(d) phase 11d's traffic on a paged arena holding the batch
+    requests exactly, the host tier attached. An interactive request
+    needs more pages than a preemption frees (the victim's unwritten
+    ones) and no more than it frees and parks, so its admission evicts
+    part of the parked victim's pages and the victim's resume restores
+    them."""
+    import grpc.aio
+
+    page, n = spec["page"], spec["sched_prompt"]
+    per_request = -(-(n + spec["sched_new"] + 1) // page)
+    serving = dict(batching=_paged(
+        spec, spec["sched_slots"] * per_request,
+        paged_kv_host_bytes=spec["host_bytes"]))
+    if enabled:
+        serving["scheduler"] = dict(enabled=True)
+    sidecar = _p12_sidecar(torch, params, dev, serving, tmp, spec, "sched")
+    port = await sidecar.start(0)
+    try:
+        async with grpc.aio.insecure_channel(f"localhost:{port}") as ch:
+            client = _P12Client(ch)
+            batch = asyncio.ensure_future(asyncio.gather(*(
+                client.call(_prompt_text(n, 1100 + i), spec["sched_new"],
+                            qos="batch")
+                for i in range(spec["sched_slots"]))))
+            await client.wait_active(spec["sched_slots"])
+            start = (await client.stats()).ticks
+            while (await client.stats()).ticks < start + 2:
+                await asyncio.sleep(0.01)
+            inter = await asyncio.gather(*(
+                client.call(_prompt_text(spec["sched_interactive_prompt"],
+                                         1150 + i),
+                            spec["sched_interactive_new"], qos="interactive")
+                for i in range(spec["sched_interactive"])))
+            batch_out = await batch
+            stats = await client.stats()
+    finally:
+        await sidecar.stop()
+    del sidecar
+    gc.collect()
+    check(all(r in ("length", "stop") for _, r, _ in batch_out + inter),
+          f"(d) a request failed: "
+          f"{[r for _, r, _ in batch_out + inter]}")
+    return dict(tokens=[ids for ids, _, _ in batch_out],
+                interactive_ms=_ttft([ms for _, _, ms in inter]),
+                arena_pages=spec["sched_slots"] * per_request,
+                **{k: getattr(stats, k) for k in (
+                    "sched_preemptions", "sched_resumes", "sched_parked",
+                    "kv_host_demotions", "kv_host_restores",
+                    "kv_host_restore_failures", "paged_pages_reused",
+                    "shed_requests")})
+
+
+async def paged_lora_phase(torch, tatt, dev, spec=None) -> dict:
+    """Phase 12: (a) the host page tier, (b) disaggregated prefill and
+    decode over TransferKV, (c) multi-LoRA, (d) preemption with the host
+    tier; all through sidecars configured by a `--config` file on one
+    seeded weight set."""
+    import tempfile
+
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+
+    spec = spec or P12
+    cfg = llama_mod.CONFIGS[spec["model"]]
+    params = llama_mod.init_params(cfg, dev, SEED)
+    res: dict = {}
+    # The path's run starts here: every launch count from 0.
+    tatt.flash_attention.launches = 0
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        registry = os.path.join(tmp, "adapters")
+        os.makedirs(registry)
+        _write_adapters(registry, cfg, spec)
+
+        t = time.perf_counter()
+        res["host_tier"] = await host_tier_part(torch, dev, params, tmp,
+                                                spec)
+        res["host_tier"]["launches"] = tatt.flash_attention.launches
+        res["host_tier"]["seconds"] = time.perf_counter() - t
+        log(f"  (a) host tier: {json.dumps(_brief(res['host_tier']))}")
+
+        t = time.perf_counter()
+        launched = tatt.flash_attention.launches
+        res["disagg"], res["lora"] = await disagg_lora_parts(
+            torch, tatt, dev, params, tmp, spec, cfg, registry)
+        res["disagg"]["launches"] = tatt.flash_attention.launches - launched
+        res["disagg"]["seconds"] = time.perf_counter() - t
+        log(f"  (b) disaggregation: {json.dumps(_brief(res['disagg']))}")
+        log(f"  (c) multi-LoRA: {json.dumps(_brief(res['lora']))}")
+
+        t = time.perf_counter()
+        on = await _sched_host_run(torch, dev, params, tmp, spec, True)
+        off = await _sched_host_run(torch, dev, params, tmp, spec, False)
+        check(on["sched_preemptions"] >= 1
+              and on["sched_resumes"] == on["sched_preemptions"]
+              and on["sched_parked"] == 0,
+              f"(d) preemptions {on['sched_preemptions']}, resumes "
+              f"{on['sched_resumes']}, parked {on['sched_parked']}")
+        check(on["kv_host_restores"] > 0,
+              f"(d) the resumes restored nothing: {_brief(on)}")
+        on["agreement_with_fifo"] = _agreement(on["tokens"], off["tokens"])
+        res["preempt"] = dict(on=on, off=off,
+                              seconds=time.perf_counter() - t)
+        log(f"  (d) preemption: {json.dumps(_brief(res['preempt']))}")
+    _sync(torch, dev)
+    res["launches"] = tatt.flash_attention.launches
+    check(res["launches"] > 0, "phase 12 never launched B1")
+    del params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
 def _brief(d):
     """`d` without its token lists (for the log)."""
     if isinstance(d, dict):
@@ -2604,59 +3420,65 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         card = card_line()
-        log(f"[1/11] card: {card}; torch {torch.__version__}, CUDA "
+        log(f"[1/12] card: {card}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
         t = time.perf_counter()
         _build.load("flash_attention")
-        log(f"[2/11] build: flash_attention.cu in "
+        log(f"[2/12] build: flash_attention.cu in "
             f"{time.perf_counter() - t:.1f} s")
         ptxas_report(_build.build_log.get("flash_attention", ""))
 
-        log(f"[3/11] kernel vs plain (|err| <= atol + rtol |plain|: {TOL})")
+        log(f"[3/12] kernel vs plain (|err| <= atol + rtol |plain|: {TOL})")
         cases = kernel_cases(torch, tatt, dev)
 
-        log("[4/11] reference: tiny-llama on the card vs the CPU")
+        log("[4/12] reference: tiny-llama on the card vs the CPU")
         ref = tiny_reference(torch, dev)
         log(f"  {ref}")
 
-        log(f"[5/11] serve: {MODEL} sidecar, default batching")
+        log(f"[5/12] serve: {MODEL} sidecar, default batching")
         serve = asyncio.run(serve_phase(torch, tatt, dev))
         log(f"  {json.dumps(serve)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[6/11] embed: {EMBED_MODEL} sidecar")
+        log(f"[6/12] embed: {EMBED_MODEL} sidecar")
         embed = asyncio.run(embed_phase(torch, tatt, dev))
         log(f"  {json.dumps(embed)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log("[7/11] HF checkpoint: llama3-8b width, 2 layers, 2 files")
+        log("[7/12] HF checkpoint: llama3-8b width, 2 layers, 2 files")
         hf = asyncio.run(hf_phase(torch, tatt, dev))
         log(f"  {json.dumps(hf)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[8/11] int8: {MODEL} weights and KV cache")
+        log(f"[8/12] int8: {MODEL} weights and KV cache")
         int8 = asyncio.run(int8_phase(torch, tatt, dev))
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[9/11] KV reuse: {MODEL} prefix pool, interleave, paged KV")
+        log(f"[9/12] KV reuse: {MODEL} prefix pool, interleave, paged KV")
         reuse = asyncio.run(kv_reuse_phase(torch, tatt, dev))
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[10/11] grammar: {MODEL} constrained burst, jump on / off")
+        log(f"[10/12] grammar: {MODEL} constrained burst, jump on / off")
         grammar = asyncio.run(grammar_phase(torch, tatt, dev))
         log(f"  {json.dumps(_brief(grammar))}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[11/11] control plane: {MODEL} tick phases, Profile, "
+        log(f"[11/12] control plane: {MODEL} tick phases, Profile, "
             f"GetMemory, scheduler, failpoints, deadlines")
         control = asyncio.run(control_phase(torch, tatt, dev))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log(f"[12/12] paged plane and LoRA: {MODEL} host tier, TransferKV "
+            f"with roles, adapter arena, preemption with the host tier")
+        paged = asyncio.run(paged_lora_phase(torch, tatt, dev))
     except SmokeError as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2676,6 +3498,13 @@ def main() -> int:
         grammar_launches=grammar["on"]["launches"],
         jump_launches=grammar["on"]["jump_launches"],
         control_launches=control["launches"],
+        paged_lora_launches=paged["launches"],
+        host_tier_launches=paged["host_tier"]["launches"],
+        disagg_lora_launches=paged["disagg"]["launches"],
+        prefill_leg_launches=sum(
+            c["leg1_launches"] for c in paged["disagg"]["calls"]),
+        decode_leg_launches=sum(
+            c["leg2_launches"] for c in paged["disagg"]["calls"]),
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],

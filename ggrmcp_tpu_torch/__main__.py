@@ -12,9 +12,14 @@ the `tokenizers` package. `--quantize int8` serves int8 weights.
 nested under "serving" (e.g. `{"serving": {"model": "llama3-8b",
 "quantize": "int8", "kv_cache_dtype": "int8", "batching":
 {"max_batch_size": 16}, "grammar": {"jump_max": 8}}}`); a flag given on
-the command line overrides the file. Runs on CUDA unless `--device cpu` is given. Put the
-reference gateway in front of it:
-`python -m ggrmcp_tpu gateway --grpc-port N`.
+the command line overrides the file. The file also takes the replica's
+`role` ("mixed", "prefill", "decode"; a non-mixed role needs
+`"batching": {"paged_kv": "on"}`), multi-LoRA (`"lora": {"registry":
+DIR, "rank": 8, "arena_rows": 8}` or `{"adapters": [...], "path":
+DIR}`) and the host page tier (`"batching": {"paged_kv_host_bytes": N,
+"paged_kv_host_path": FILE}`); an unknown key raises. Runs on CUDA
+unless `--device cpu` is given. Put the reference gateway in front of
+it: `python -m ggrmcp_tpu gateway --grpc-port N`.
 """
 
 from __future__ import annotations

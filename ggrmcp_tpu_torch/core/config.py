@@ -1,13 +1,12 @@
 """The port's serving configuration.
 
-`BatchingConfig` and `ServingConfig` carry the fields this package
-reads, under the reference's names and defaults
+`BatchingConfig`, `ServingConfig` and their sections carry the fields
+this package reads, under the reference's names and defaults
 (`ggrmcp_tpu/core/config.py`), with the reference's checks. Fields of
 features the port does not implement yet are carried only as guards: a
 non-default value raises ValueError naming the field, never silently
-ignored. `load_serving_config`
-reads the reference's JSON config file layout (everything under
-"serving") into these classes.
+ignored. `load_serving_config` reads the reference's JSON config file
+layout (everything under "serving") into these classes.
 """
 
 from __future__ import annotations
@@ -70,18 +69,20 @@ class BatchingConfig:
     # While slots decode, one admission round may stall them by at most
     # p50_budget_ms / 4 (rows capped by a per-row cost EMA); 0 = off.
     p50_budget_ms: float = 0.0
-    # Guards: features of the reference batcher not ported yet.
-    kv_tiers: list = field(default_factory=list)
-    speculative: str = "off"
+    # Host page tier (serving/host_pool.py): arena eviction demotes
+    # refcount-0 indexed pages into this many bytes of host RAM and a
+    # prefix hit restores them instead of recomputing; 0 = no tier.
+    # `paged_kv_host_path` adds the append-only file tier behind it (a
+    # restarted replica warms from it), capped at
+    # `paged_kv_host_file_bytes` (0 = unbounded).
     paged_kv_host_bytes: int = 0
     paged_kv_host_path: str = ""
     paged_kv_host_file_bytes: int = 0
+    # Guards: features of the reference batcher not ported yet.
+    kv_tiers: list = field(default_factory=list)
+    speculative: str = "off"
 
-    UNSUPPORTED = (
-        "kv_tiers", "speculative",
-        "paged_kv_host_bytes", "paged_kv_host_path",
-        "paged_kv_host_file_bytes",
-    )
+    UNSUPPORTED = ("kv_tiers", "speculative")
 
     def __post_init__(self) -> None:
         _check_unsupported(self, self.UNSUPPORTED, "batching")
@@ -137,6 +138,31 @@ class BatchingConfig:
                     f"kv_cache_max_seq ({self.kv_cache_max_seq}): block "
                     f"tables map whole pages"
                 )
+        if self.paged_kv_host_bytes < 0:
+            raise ValueError(
+                "batching.paged_kv_host_bytes must be >= 0 (0 = no "
+                "host tier)"
+            )
+        if self.paged_kv_host_file_bytes < 0:
+            raise ValueError(
+                "batching.paged_kv_host_file_bytes must be >= 0 "
+                "(0 = unbounded log)"
+            )
+        if self.paged_kv_host_bytes and self.paged_kv != "on":
+            raise ValueError(
+                "batching.paged_kv_host_bytes requires paged_kv=on: "
+                "the host tier demotes and restores PAGES"
+            )
+        if self.paged_kv_host_path and not self.paged_kv_host_bytes:
+            raise ValueError(
+                "batching.paged_kv_host_path is the file tier BEHIND "
+                "the host RAM pool: set paged_kv_host_bytes > 0"
+            )
+        if self.paged_kv_host_file_bytes and not self.paged_kv_host_path:
+            raise ValueError(
+                "batching.paged_kv_host_file_bytes caps the file-tier "
+                "log: set paged_kv_host_path"
+            )
         if self.prefix_cache_entries < 0:
             raise ValueError("batching.prefix_cache_entries must be >= 0")
         if self.prefix_cache_entries:
@@ -403,6 +429,45 @@ class SchedulerConfig:
 
 
 @dataclass
+class LoraConfig:
+    """Multi-LoRA serving (ops/lora.py), the reference's fields,
+    defaults and checks. `adapters`: the boot-time adapter names, served
+    as rows 1..N in list order (0 = the base model), their trained
+    factors read from `{path}/{name}.npz` when present. `registry`: the
+    dynamic mode (serving/adapter_arena.py), a directory of
+    `{name}.npz` factor pairs scanned at request time, with
+    `arena_rows` adapters resident on the device at once. Factor files
+    hold float32 `a` [L, D, r] and `b` [L, r, (H + 2 KVH) * Dh],
+    pre-scaled by alpha / r."""
+
+    adapters: list = field(default_factory=list)
+    rank: int = 8
+    path: str = ""
+    registry: str = ""
+    arena_rows: int = 8
+
+    def __post_init__(self) -> None:
+        if self.registry and self.adapters:
+            raise ValueError(
+                "serving.lora.registry (dynamic arena) and lora.adapters "
+                "(boot-time list) are mutually exclusive: move the "
+                "static adapters' .npz files into the registry"
+            )
+        if (self.registry or self.adapters) and self.rank < 1:
+            raise ValueError("serving.lora.rank must be >= 1")
+        if self.arena_rows < 1:
+            raise ValueError("serving.lora.arena_rows must be >= 1")
+
+
+# Replica roles (serving.role). "mixed" serves whole requests;
+# "prefill" replicas admit a long prompt, then ship its finished KV
+# pages to a decode replica (sidecar-to-sidecar TransferKV); "decode"
+# replicas admit those requests over the imported pages and skip their
+# prefill.
+SERVING_ROLES = ("mixed", "prefill", "decode")
+
+
+@dataclass
 class ServingConfig:
     model: str = "tiny-llama"
     batching: BatchingConfig = field(default_factory=BatchingConfig)
@@ -427,15 +492,19 @@ class ServingConfig:
     # admit_slow:ms=50", armed at engine init; GGRMCP_FAILPOINTS arms the
     # same registry at import. Chaos testing only.
     failpoints: str = ""
-    # Guards: reference features not ported yet.
+    # Replica role in a disaggregated fleet (SERVING_ROLES); non-mixed
+    # roles need paged_kv=on (pages are the transfer format) and no
+    # kv_tiers.
     role: str = "mixed"
+    lora: LoraConfig = field(default_factory=LoraConfig)
+    # Guards: reference features not ported yet.
     uds_path: str = ""
     checkpoint_path: str = ""
     kv_ring: bool = False
     speculative_draft: str = ""
 
     UNSUPPORTED = (
-        "role", "uds_path", "checkpoint_path", "kv_ring", "speculative_draft",
+        "uds_path", "checkpoint_path", "kv_ring", "speculative_draft",
     )
 
     def __post_init__(self) -> None:
@@ -445,7 +514,8 @@ class ServingConfig:
         for name, cls in (("grammar", GrammarConfig),
                           ("observability", ObservabilityConfig),
                           ("slo", SloConfig),
-                          ("scheduler", SchedulerConfig)):
+                          ("scheduler", SchedulerConfig),
+                          ("lora", LoraConfig)):
             if not isinstance(getattr(self, name), cls):
                 raise ValueError(f"serving.{name} must be a {cls.__name__}")
         if self.failpoints:
@@ -473,6 +543,24 @@ class ServingConfig:
                     "preemption off burn rate)"
                 )
         # The reference's checks (Config.validate), at construction.
+        if self.role not in SERVING_ROLES:
+            raise ValueError(
+                f"unknown serving.role {self.role!r}; supported: "
+                f"{', '.join(SERVING_ROLES)}"
+            )
+        if self.role != "mixed":
+            if self.batching.paged_kv != "on":
+                raise ValueError(
+                    f"serving.role={self.role!r} requires "
+                    "batching.paged_kv=on: KV pages are the transfer "
+                    "format"
+                )
+            if self.batching.kv_tiers:
+                raise ValueError(
+                    f"serving.role={self.role!r} does not compose with "
+                    "batching.kv_tiers: page import needs ONE arena per "
+                    "replica to land transferred pages in"
+                )
         if self.quantize not in QUANTIZE_MODES:
             raise ValueError(
                 f"unknown serving.quantize {self.quantize!r}; "
@@ -512,7 +600,8 @@ def _from_dict(cls, data: Any, where: str, nested: dict):
 
 def serving_config_from_dict(data: dict) -> ServingConfig:
     """{"serving": {..., "batching": {...}, "grammar": {...},
-    "observability": {...}, "slo": {...}, "scheduler": {...}}} →
+    "observability": {...}, "slo": {...}, "scheduler": {...},
+    "lora": {...}}} →
     ServingConfig. Any key these classes do not carry raises ValueError
     naming it."""
     if not isinstance(data, dict):
@@ -526,7 +615,8 @@ def serving_config_from_dict(data: dict) -> ServingConfig:
     return _from_dict(ServingConfig, data.get("serving", {}), "serving",
                       {"batching": BatchingConfig, "grammar": GrammarConfig,
                        "observability": ObservabilityConfig,
-                       "slo": SloConfig, "scheduler": SchedulerConfig})
+                       "slo": SloConfig, "scheduler": SchedulerConfig,
+                       "lora": LoraConfig})
 
 
 def load_serving_config(path: str) -> ServingConfig:

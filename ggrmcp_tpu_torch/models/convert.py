@@ -7,7 +7,10 @@ tensors, for either family (a Llama or a BERT tree). Both packages use
 the same stacked [L, in, out] layout (models/llama.py, models/bert.py),
 so no leaf is transposed or reshaped. A quantized leaf of the reference
 (a namedtuple with fields `q` and `scale`, which `jax.tree.map` keeps)
-becomes a `QuantizedTensor`, its int8 values kept int8.
+becomes a `QuantizedTensor`, its int8 values kept int8. A tree with
+LoRA factor stacks (`layers["lora_qkv_a"]` [L, N+1, D, r],
+`layers["lora_qkv_b"]` [L, N+1, r, O], ops/lora.py) carries them across
+as it does every other stacked layer leaf.
 """
 
 from __future__ import annotations

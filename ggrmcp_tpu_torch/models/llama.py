@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ggrmcp_tpu_torch.models import common
+from ggrmcp_tpu_torch.ops import lora as lora_mod
 from ggrmcp_tpu_torch.ops import quant
 from ggrmcp_tpu_torch.ops.attention import attention
 from ggrmcp_tpu_torch.ops.quant import QuantizedTensor
@@ -301,6 +302,7 @@ def attention_block(
     cache_len: Optional[torch.Tensor],  # [B]
     use_flash: Optional[bool] = None,
     page_table: Optional[torch.Tensor] = None,  # [B, W] paged block table
+    lora_idx: Optional[torch.Tensor] = None,  # [B] adapter ids
 ) -> torch.Tensor:
     """Pre-norm GQA attention with residual. With a cache, the step's
     K/V are written at each row's current length and attention reads
@@ -318,11 +320,19 @@ def attention_block(
     per (position, head), values and scales are written at the same
     clamped positions, and attention reads the dequantized prefix
     through `attention_ref` (use_flash False), as the reference does —
-    the current step's K/V round-trip through int8 too."""
+    the current step's K/V round-trip through int8 too.
+
+    `lora_idx` with stacked LoRA factors in `lp`: each row's adapter
+    delta (ops/lora.py; row 0 = base) is added to the fused qkv
+    product."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     normed = common.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     qkv = quant.matmul(normed, lp["wqkv"])  # [B, S, (H + 2 KVH) * Dh]
+    if lora_idx is not None and "lora_qkv_a" in lp:
+        qkv = qkv + lora_mod.lora_delta(
+            normed, lp["lora_qkv_a"], lp["lora_qkv_b"], lora_idx
+        )
     q, k, v = qkv.split([h * hd, kvh * hd, kvh * hd], dim=-1)
     q = apply_rope(q.reshape(b, s, h, hd), positions, cfg.rope_theta,
                    cfg.rope_scaling)
@@ -404,9 +414,10 @@ def _layer(
     cache_v: Optional[quant.TensorOrQuant],
     cache_len: Optional[torch.Tensor], use_flash: Optional[bool] = None,
     page_table: Optional[torch.Tensor] = None,
+    lora_idx: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     x = attention_block(x, lp, cfg, positions, cache_k, cache_v, cache_len,
-                        use_flash, page_table)
+                        use_flash, page_table, lora_idx)
     normed = common.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     gate = F.silu(quant.matmul(normed, lp["w_gate"]))
     up = quant.matmul(normed, lp["w_up"])
@@ -424,6 +435,7 @@ def forward(
     tokens: torch.Tensor,  # [B, S]
     cache: "Optional[KVCache | PagedKVCache]" = None,
     use_flash: Optional[bool] = None,
+    lora_idx: Optional[torch.Tensor] = None,
 ) -> "tuple[torch.Tensor, Optional[KVCache | PagedKVCache]]":
     """Without a cache: plain causal forward. With a cache: tokens are
     appended at each row's cache length (prefill S > 1, decode S = 1);
@@ -432,6 +444,8 @@ def forward(
     into every layer's attention.
     `use_flash`: None = auto (ops/attention.py), False = `attention_ref`
     everywhere (an int8 cache forces it per layer).
+    `lora_idx`: [B] per-row adapter ids when `params["layers"]` carries
+    stacked LoRA factors (ops/lora.py); None or absent factors = base.
     Returns (float32 logits [B, S, V], cache or None)."""
     b, s = tokens.shape
     dtype = cfg.torch_dtype
@@ -446,11 +460,13 @@ def forward(
     for layer in range(cfg.num_layers):
         lp = {name: _at(layer, w) for name, w in layers.items()}
         if cache is None:
-            x = _layer(x, lp, cfg, positions, None, None, None, use_flash)
+            x = _layer(x, lp, cfg, positions, None, None, None, use_flash,
+                       lora_idx=lora_idx)
         else:
             x = _layer(
                 x, lp, cfg, positions, _at(layer, cache.k),
                 _at(layer, cache.v), cache.length, use_flash, table,
+                lora_idx,
             )
     if cache is not None:
         cache.length = cache.length + s

@@ -39,7 +39,27 @@ KV reuse, each behind the reference's switch and with its semantics:
   (models/llama.py::PagedKVCache) and a host allocator
   (serving/pages.py): page-aligned prefix sharing with refcounts,
   copy-on-write at the divergent page, a typed "overloaded" shed when
-  the arena is exhausted.
+  the arena is exhausted;
+- `paged_kv_host_bytes > 0`: the host page tier (serving/host_pool.py)
+  behind the arena: eviction demotes page contents to host RAM (one
+  device-to-host gather), a prefix hit on a demoted page restores it
+  (one host-to-device write) instead of recomputing it, and a
+  preempted request's pages are parked there.
+
+The paged arena also exports and imports prompt pages
+(`export_prompt_kv` / `import_prompt_kv`, the TransferKV plane of a
+disaggregated prefill / decode fleet). External work on the arena
+enters through `run_host_op`, a queue the loop drains between ticks in
+its one executor stream, which is what makes an export or an import
+atomic against eviction.
+
+Multi-LoRA (serving.lora): each slot carries its adapter row (0 =
+base), shipped with every forward of every route; the arena's
+residency pin (`adapter_lease`) is held until the request's terminal
+chunk, released at preemption and reacquired at the resume. The
+prefix pool holds base-model K/V only; paged chains key on the stable
+adapter name, so same-adapter requests share pages and different
+adapters never do.
 
 The control plane, each with the reference's semantics:
 
@@ -56,9 +76,9 @@ The control plane, each with the reference's semantics:
 - failpoints (utils/failpoints.py) at the reference's hook sites.
 
 Device work runs in the default executor (never on the event loop),
-one call at a time; ticks are synchronous. Speculative ticks, LoRA and
-the host page tier are not ported yet (core/config.py rejects their
-settings). Every copy between a mini cache, the prefix pool and the
+one call at a time; ticks are synchronous. Speculative ticks are not
+ported yet (core/config.py rejects their settings). Every copy between
+a mini cache, the prefix pool and the
 pool goes through `quant.kv_map`, so an int8 KV cache (the engine's
 `kv_dtype`) moves values and scales alike.
 """
@@ -95,7 +115,10 @@ from ggrmcp_tpu_torch.serving.engine import (
     bucket_len,
     fit_request,
 )
+from ggrmcp_tpu_torch.serving import tensors
+from ggrmcp_tpu_torch.serving.adapter_arena import AdapterExhaustedError
 from ggrmcp_tpu_torch.serving.flight_recorder import PHASE_NAMES, FlightRecorder
+from ggrmcp_tpu_torch.serving.host_pool import HostPagePool
 from ggrmcp_tpu_torch.serving.pages import PageAllocator, PageExhaustedError
 from ggrmcp_tpu_torch.serving.scheduler import (
     Scheduler,
@@ -106,6 +129,13 @@ from ggrmcp_tpu_torch.serving.slo import SloAccount, TenantTable
 from ggrmcp_tpu_torch.utils import failpoints
 
 logger = logging.getLogger("ggrmcp.torch.batching")
+
+
+class KVTransferError(RuntimeError):
+    """A KV page export or import the arena cannot serve (paging off,
+    no indexed pages for the prompt, a geometry or dtype mismatch). The
+    sidecar maps it to a typed gRPC status: the transfer degrades, the
+    request is never served from wrong pages."""
 
 
 class OverloadedError(RuntimeError):
@@ -215,8 +245,18 @@ class _Request:
     tenant: str = ""
     qos_class: str = ""
     # True while demoted and parked (a resume completes one preempt
-    # cycle).
+    # cycle); preemptions so far, and resume attempts that found the
+    # adapter arena full (bounded by scheduler.resume_retry_limit).
     parked: bool = False
+    preempts: int = 0
+    sched_retries: int = 0
+    # LoRA: the adapter row (0 = base), the stable adapter name the
+    # paged chains key on ("" = base; rows are reused after eviction),
+    # and the arena pin held until the terminal chunk (None = boot-time
+    # adapters or base).
+    adapter: int = 0
+    adapter_key: str = ""
+    adapter_lease: object = None
     # Grammar: the arena residency (None = unconstrained), the host DFA
     # state after the last emitted token, whether the arena reference
     # was returned, and whether a refused forced run degraded the
@@ -229,9 +269,30 @@ class _Request:
 
 # The ledger components reported as ServingStats memory_*_bytes.
 _LEDGER_COMPONENTS = (
-    "weights", "kv_arena", "block_tables", "prefix_pool", "ilv_mini",
+    "weights", "lora", "kv_arena", "block_tables", "prefix_pool", "ilv_mini",
     "grammar_arena", "tick_state",
 )
+# counter_stats' host-tier fields while paging is off (the allocator
+# reports them when on).
+_HOST_TIER_ZEROS = {
+    "kv_host_entries": 0, "kv_host_bytes_used": 0,
+    "kv_host_budget_bytes": 0, "kv_host_file_entries": 0,
+    "kv_host_file_bytes": 0, "kv_host_demotions": 0,
+    "kv_host_restores": 0, "kv_host_bytes_demoted": 0,
+    "kv_host_bytes_restored": 0, "kv_host_restore_failures": 0,
+}
+
+
+def _host_tensor(x) -> torch.Tensor:
+    """A host page array (numpy, a bf16 numpy array of the reference's
+    ml_dtypes kind, or a tensor) as a writable CPU tensor."""
+    if isinstance(x, torch.Tensor):
+        return x
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(x.view(np.int16))).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.require(x, requirements=["C", "W"]))
 
 
 def _pct(values: list[float], q: float) -> float:
@@ -309,6 +370,22 @@ class ContinuousBatcher:
         else:
             self.pages = None
         self.cache = self._make_shared_cache()
+        # The host page tier (paged_kv_host_bytes > 0): the allocator
+        # owns placement; _demote_fetch / _restore_write are its device
+        # halves, run inside this batcher's serialized executor stream.
+        self.host_pool: Optional[HostPagePool] = None
+        if self._paged and self.cfg.paged_kv_host_bytes > 0:
+            self.host_pool = HostPagePool(
+                int(self.cfg.paged_kv_host_bytes),
+                geometry=self._kv_page_geometry(),
+                file_path=self.cfg.paged_kv_host_path or "",
+                file_budget_bytes=int(self.cfg.paged_kv_host_file_bytes),
+            )
+            self.pages.attach_host(self.host_pool, self._demote_fetch,
+                                   self._restore_write)
+        # Serialized host ops (run_host_op): (fn, future) pairs the loop
+        # drains between ticks in its one executor stream.
+        self._host_ops: deque = deque()
         # True while a device call that writes the SHARED cache is in
         # flight; admission failure rebuilds the cache only when set.
         self._cache_at_risk = False
@@ -318,6 +395,7 @@ class ContinuousBatcher:
         self.top_ks = np.zeros((b,), np.int64)
         self.top_ps = np.ones((b,), np.float32)
         self.seeds = np.zeros((b,), np.int64)
+        self.adapter_ids = np.zeros((b,), np.int64)  # per-slot LoRA row
         self.step_counter = 0
         # Grammar: per-slot absolute DFA state (the state the slot's
         # next sample is masked under) and jump enable, host mirrors
@@ -424,11 +502,23 @@ class ContinuousBatcher:
         # The tick's token and grammar state ride from the host each
         # tick: nothing persists on the device.
         ledger.register("tick_state", lambda: None)
+        # The host tier's bytes are host memory: the ledger's host side.
+        ledger.register_host("host_pool", lambda: (
+            self.host_pool.memory_info() if self.host_pool is not None
+            else None))
 
     # -- host <-> device helpers -----------------------------------------
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _lora_idx(self, ids: np.ndarray) -> Optional[torch.Tensor]:
+        """Per-row adapter rows for a forward, or None when every row is
+        base (the host knows): the delta of row 0 is exactly zero, so
+        skipping the gather changes no value."""
+        if not self.engine.lora_enabled or not ids.any():
+            return None
+        return self._t(ids)
 
     def _temps(self, temps: np.ndarray) -> Optional[torch.Tensor]:
         """Per-row temperatures for a sampling call, or None when no row
@@ -495,6 +585,14 @@ class ContinuousBatcher:
         if request.grammar is not None and not request.g_released:
             request.g_released = True
             self.arena.release(request.grammar)
+
+    def _release_holds(self, request: "_Request") -> None:
+        """Return what a request that leaves holds: its grammar arena
+        reference and its adapter arena pin (a leaked pin would exempt a
+        row from eviction forever). Both releases are idempotent."""
+        self._grammar_release(request)
+        if request.adapter_lease is not None:
+            self.engine.adapter_arena.release(request.adapter_lease)
 
     def _reserve_for(self, constrained: bool) -> int:
         """The tick overshoot a request's cache extent must cover: the
@@ -584,16 +682,190 @@ class ContinuousBatcher:
 
         self._merge(put, mini)
 
+    # -- KV page export / import (the TransferKV plane) --------------------
+
+    def clamp_prompt(self, prompt: list[int], max_new: int,
+                     constrained: bool = False) -> list[int]:
+        """The prompt exactly as an admission for (prompt, max_new) will
+        see it (fit_request keeps the tail). The prefill leg of a
+        disaggregated call admits and exports THIS prompt, with the
+        request's real max_new and grammar flag, so that its chain is
+        the one the decode replica's identically clamped admission looks
+        up."""
+        clamped, _ = fit_request(
+            prompt, max_new, self.max_seq - self._reserve_for(constrained)
+        )
+        return clamped
+
+    def _arena_leaves(self) -> list[tuple[str, torch.Tensor]]:
+        """(name, [L, N + 1, P, KVH, Dh] leaf) of the page arena: k and
+        v, and an int8 arena's k_scale and v_scale."""
+        out = []
+        for name, leaf in (("k", self.cache.k), ("v", self.cache.v)):
+            if isinstance(leaf, quant.QuantizedTensor):
+                out += [(name, leaf.q), (name + "_scale", leaf.scale)]
+            else:
+                out.append((name, leaf))
+        return out
+
+    def _gather_pages(self, pages: list[int]) -> dict:
+        """One indexed gather per arena leaf, each brought to the host
+        by one copy: {name: [L, n, P, KVH, Dh] CPU tensor}."""
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        return {name: leaf.index_select(1, idx).cpu()
+                for name, leaf in self._arena_leaves()}
+
+    def export_prompt_kv(self, prompt: list[int], adapter: str = "") -> dict:
+        """Gather the indexed full-page KV of `prompt` from the arena to
+        the host (the prefill-role half of disaggregated serving; run
+        via run_host_op, whose serialized stream makes the lookup and
+        the gather atomic against eviction). Returns {pages, page_size,
+        k, v[, k_scale, v_scale]} with [L, n, P, KVH, Dh] CPU tensors
+        (an int8 arena ships values and scales, half the bytes). Raises
+        KVTransferError when paging is off or the index holds no page
+        of this prompt. `adapter`: the key domain the chain was
+        registered under ("" = base)."""
+        if not self._paged:
+            raise KVTransferError("kv export requires batching.paged_kv=on")
+        pages = self.pages.chain_pages(prompt, adapter=adapter)
+        if not pages:
+            raise KVTransferError(
+                "no indexed pages for this prompt (evicted before "
+                "export, or the prompt is shorter than one page)"
+            )
+        return {"pages": len(pages), "page_size": self._page_size,
+                **self._gather_pages(pages)}
+
+    def import_prompt_kv(self, prompt: list[int], start_page: int, k, v,
+                         k_scale=None, v_scale=None,
+                         adapter: str = "") -> tuple[int, int]:
+        """Land one TransferKV chunk in the arena (the decode-role half;
+        run via run_host_op): allocate and index the chunk's pages on
+        the host (pages.import_chain: refcount 0, LRU-stamped,
+        evictable) and write their contents into the arena. Returns
+        (pages imported, pages already present). Raises
+        KVTransferError on a geometry or dtype mismatch and
+        PageExhaustedError when the arena cannot hold the chunk."""
+        if not self._paged:
+            raise KVTransferError("kv import requires batching.paged_kv=on")
+        k, v = _host_tensor(k), _host_tensor(v)
+        self._check_payload(k, v, k_scale)
+        placed = self.pages.import_chain(prompt, start_page,
+                                         int(k.shape[1]), adapter=adapter)
+        present = int(k.shape[1]) - len(placed)
+        if not placed:
+            return 0, present
+        dst = [p for _, p in placed]
+        src = torch.as_tensor([j - start_page for j, _ in placed],
+                              dtype=torch.long)
+        scales = [None if t is None else _host_tensor(t)[:, src]
+                  for t in (k_scale, v_scale)]
+        self._write_arena_pages(dst, k[:, src], v[:, src], *scales)
+        return len(placed), present
+
+    def _check_payload(self, k, v, k_scale) -> None:
+        """Page payloads must match the arena: int8 or not, and [L, P,
+        KVH, Dh] geometry."""
+        arena_k = self.cache.k
+        quantized = isinstance(arena_k, quant.QuantizedTensor)
+        if quantized != (k_scale is not None):
+            raise KVTransferError(
+                "kv dtype mismatch: sender and receiver must both use "
+                "int8 KV or neither (serving.kv_cache_dtype)"
+            )
+        ref = arena_k.q if quantized else arena_k
+        want = (ref.shape[0],) + tuple(ref.shape[2:])  # [L, P, KVH, Dh]
+        got = (k.shape[0],) + tuple(k.shape[2:])
+        if got != want or tuple(v.shape) != tuple(k.shape):
+            raise KVTransferError(
+                f"kv page geometry mismatch: got {got}, arena wants "
+                f"{want} (layers, page_size, kv_heads, head_dim)"
+            )
+
+    def _write_arena_pages(self, dst: list[int], k, v, k_scale=None,
+                           v_scale=None) -> None:
+        """Host-to-device write of [L, n, P, KVH, Dh] page contents into
+        arena pages `dst`: the ONE device write of the TransferKV import
+        and the host-tier restore. Geometry and dtype are checked again
+        here (the restore has no other gate). The copies come from
+        pageable memory on the stream every admission uses, so a later
+        gather reads the new contents."""
+        k, v = _host_tensor(k), _host_tensor(v)
+        self._check_payload(k, v, k_scale)
+        idx = torch.as_tensor(dst, dtype=torch.long, device=self.device)
+        payload = {"k": k, "v": v}
+        if k_scale is not None:
+            payload["k_scale"] = _host_tensor(k_scale)
+            payload["v_scale"] = _host_tensor(v_scale)
+        for name, leaf in self._arena_leaves():
+            leaf.index_copy_(1, idx, payload[name].to(self.device,
+                                                      leaf.dtype))
+
+    # -- host-tier hooks (serving/host_pool.py via pages.attach_host) -----
+
+    def _kv_page_geometry(self) -> str:
+        """Page shape and dtype signature guarding the host pool's file
+        tier, in the reference's spelling ("LxPxKVHxDh:bfloat16", and
+        ":int8" for an int8 arena), so a file written by either package
+        reads as the same geometry in the other."""
+        leaf = self.cache.k
+        quantized = isinstance(leaf, quant.QuantizedTensor)
+        ref = leaf.q if quantized else leaf
+        shape = (ref.shape[0],) + tuple(ref.shape[2:])
+        dtype = str(ref.dtype).replace("torch.", "")
+        return "x".join(str(d) for d in shape) + f":{dtype}" + (
+            ":int8" if quantized else ""
+        )
+
+    def _demote_fetch(self, pages: list[int]) -> list[bytes]:
+        """Device-to-host gather and pack of arena pages about to be
+        evicted (the allocator's demotion half): one gather per leaf for
+        the whole victim set, one packed KVPagePayload per page (the
+        codec TransferKV ships pages with)."""
+        got = self._gather_pages(pages)
+        quantized = "k_scale" in got
+        return [
+            tensors.pack_kv_pages(
+                got["k"][:, i:i + 1], got["v"][:, i:i + 1],
+                got["k_scale"][:, i:i + 1] if quantized else None,
+                got["v_scale"][:, i:i + 1] if quantized else None,
+            )
+            for i in range(len(pages))
+        ]
+
+    def _restore_write(self, pages: list[int], blobs: list[bytes]) -> None:
+        """Unpack and write restored host-tier pages (the allocator's
+        restore half), all in one batched write. Raises on the
+        host_restore_fail failpoint or any unpack or geometry error: the
+        allocator then degrades the admission, typed, to recompute."""
+        failpoints.evaluate("host_restore_fail")
+        parts: dict[str, list] = {"k": [], "v": [], "k_scale": [],
+                                  "v_scale": []}
+        for blob in blobs:
+            for name, arr in zip(parts, tensors.unpack_kv_pages(blob)):
+                if arr is not None:
+                    parts[name].append(_host_tensor(arr))
+        if parts["k_scale"] and len(parts["k_scale"]) != len(parts["k"]):
+            raise KVTransferError(
+                "mixed int8/unquantized payloads in one restore set"
+            )
+        cat = {name: torch.cat(arrs, dim=1) if arrs else None
+               for name, arrs in parts.items()}
+        self._write_arena_pages(pages, cat["k"], cat["v"], cat["k_scale"],
+                                cat["v_scale"])
+
     def _admit_full_impl(self, params, tokens, true_len, valid_rows,
-                         seeds, temps, ks, ps, gs):
+                         seeds, temps, ks, ps, gs, adapters=None):
         """Burst admission: `tokens` is a full [B, S] batch with each
         admitted prompt at its slot's row; `valid_rows` (host list) are
         the admitted rows. One [B, S] prefill against a fresh mini cache,
         first-token sample, then the admitted rows' K/V and lengths are
-        copied into the pool (other rows keep their state)."""
+        copied into the pool (other rows keep their state). `adapters`:
+        each row's LoRA row (None = all base), on every route."""
         r, s = tokens.shape
         mini = self._make_mini(r, s)
-        logits, mini = self.engine.prefill_forward(params, tokens, mini)
+        logits, mini = self.engine.prefill_forward(params, tokens, mini,
+                                                   adapters)
         idx = torch.clamp(true_len.long() - 1, min=0)
         last = logits[torch.arange(r, device=self.device), idx]
         first, _ = self._sample(last, seeds, 0, temps, ks, ps, gs)
@@ -603,17 +875,19 @@ class ContinuousBatcher:
         return first
 
     def _admit_single_impl(self, params, tokens, true_len, slot,
-                           seeds, temps, ks, ps, gs):
+                           seeds, temps, ks, ps, gs, adapters=None):
         """One request (row shapes [1, S]) into slot `slot`."""
         mini = self._make_mini(1, tokens.shape[1])
-        logits, mini = self.engine.prefill_forward(params, tokens, mini)
+        logits, mini = self.engine.prefill_forward(params, tokens, mini,
+                                                   adapters)
         n = int(true_len[0])
         last = logits[:, max(n - 1, 0)]
         first, _ = self._sample(last, seeds, 0, temps, ks, ps, gs)
         self._merge_rows(mini, [0], [slot], [n])
         return first
 
-    def _chunked_scan(self, params, tokens, true_len, mini, start: int = 0):
+    def _chunked_scan(self, params, tokens, true_len, mini, start: int = 0,
+                      adapters=None):
         """Extend `mini` (which already holds `start` positions per row)
         by one [R, C] chunk per grid step and capture each row's logits
         at its final prompt position as it passes. Rows shorter than the
@@ -627,7 +901,7 @@ class ContinuousBatcher:
         for t in range(t_steps):
             off = start + t * c
             logits, mini = self.engine.decode_forward(
-                params, tokens[:, t], mini
+                params, tokens[:, t], mini, adapters
             )
             idx = torch.clamp(last - off, 0, c - 1)
             sel = logits[torch.arange(r, device=self.device), idx]
@@ -645,12 +919,13 @@ class ContinuousBatcher:
         return first
 
     def _admit_chunked_impl(self, params, tokens, true_len, rows, slots,
-                            seeds, temps, ks, ps, gs):
+                            seeds, temps, ks, ps, gs, adapters=None):
         """Chunked admission of a group (no prefix): the [R, T, C] grid
         against a full-length [R, S_max] mini cache, then the merge and
         the first-token sample."""
         mini = self._make_mini(tokens.shape[0], self.max_seq)
-        fl = self._chunked_scan(params, tokens, true_len, mini)
+        fl = self._chunked_scan(params, tokens, true_len, mini,
+                                adapters=adapters)
         return self._chunked_finish(mini, rows, slots, true_len, fl,
                                     seeds, temps, ks, ps, gs)
 
@@ -671,12 +946,14 @@ class ContinuousBatcher:
         return mini
 
     def _admit_chunked_pfx_impl(self, params, tokens, true_len, rows, slots,
-                                entry, start, seeds, temps, ks, ps, gs):
+                                entry, start, seeds, temps, ks, ps, gs,
+                                adapters=None):
         """Prefix-reuse admission: pool entry `entry` seeds the first
         `start` positions of EVERY row, then the [R, 1, W] suffix grid
         runs from `start` — one call admits a same-preamble wave."""
         mini = self._pfx_seeded_mini(tokens.shape[0], entry, start)
-        fl = self._chunked_scan(params, tokens, true_len, mini, start)
+        fl = self._chunked_scan(params, tokens, true_len, mini, start,
+                                adapters)
         return self._chunked_finish(mini, rows, slots, true_len, fl,
                                     seeds, temps, ks, ps, gs)
 
@@ -695,7 +972,7 @@ class ContinuousBatcher:
 
     def _admit_paged_pfx_impl(self, params, tokens, true_len, rows, slots,
                               gtables, scan_start, merge_start,
-                              seeds, temps, ks, ps, gs):
+                              seeds, temps, ks, ps, gs, adapters=None):
         """Paged prefix-reuse admission: gather each row's shared prefix
         into a full-width mini through the host-built gather tables, run
         the [R, T, C] suffix grid from `scan_start`, and write positions
@@ -703,12 +980,14 @@ class ContinuousBatcher:
         never written; scan_start > merge_start is the copy-on-write case
         (the overlap's K/V ride the gather into the slot's own page)."""
         mini = self._paged_gathered_mini(gtables, scan_start)
-        fl = self._chunked_scan(params, tokens, true_len, mini, scan_start)
+        fl = self._chunked_scan(params, tokens, true_len, mini, scan_start,
+                                adapters)
         return self._chunked_finish(mini, rows, slots, true_len, fl,
                                     seeds, temps, ks, ps, gs,
                                     start=merge_start)
 
-    def _tick_impl(self, params, tokens, seeds, step, temps, ks, ps, gs):
+    def _tick_impl(self, params, tokens, seeds, step, temps, ks, ps, gs,
+                   adapters=None):
         """`decode_steps_per_tick` decode steps for the whole pool, each
         sampled under the rows' grammar states, which advance by a
         transition gather. Tokens a slot samples after its EOS / max_new
@@ -720,7 +999,7 @@ class ContinuousBatcher:
         cur = tokens
         for i in range(self._steps_per_tick):
             logits, _ = self.engine.decode_forward(
-                params, cur[:, None], self.cache
+                params, cur[:, None], self.cache, adapters
             )
             cur, gs = self._sample(logits[:, -1], seeds, step + i, temps,
                                    ks, ps, gs)
@@ -728,7 +1007,7 @@ class ContinuousBatcher:
         return torch.stack(out, dim=1), gs
 
     def _tick_jump_impl(self, params, tokens, seeds, step, temps, ks, ps,
-                        gs, jump_ok):
+                        gs, jump_ok, adapters=None):
         """The jump-ahead tick: ONE forward over a [B, 1 + jump_max]
         window (each row's pending token, then its forced run), one
         sample at the run's end masked under its landing state. Rows
@@ -743,7 +1022,8 @@ class ContinuousBatcher:
             gs, self._g_jlen, self._g_jtok, self._g_jstate, jump_ok)
         window = torch.cat([tokens[:, None], run_tokens], dim=1)
         length0 = self.cache.length
-        logits, _ = self.engine.decode_forward(params, window, self.cache)
+        logits, _ = self.engine.decode_forward(params, window, self.cache,
+                                               adapters)
         rows = torch.arange(window.shape[0], device=self.device)
         nxt, gs = self._sample(logits[rows, run_len], seeds, step, temps, ks,
                                ps, landing)
@@ -757,19 +1037,20 @@ class ContinuousBatcher:
         self.cache.length = (length0 + count).to(torch.int32)
         return emit, count, gs
 
-    def _chunk_extend(self, params, chunk, offs, c_true_len):
+    def _chunk_extend(self, params, chunk, offs, c_true_len, c_adapters=None):
         """Extend the carried [K, S_max] interleave mini by one [K, C]
         chunk at the host-stamped offsets and gather each row's logits
         at its final prompt position within this chunk."""
         mini = self._ilv_mini
         mini.length = offs.to(torch.int32)
         c = chunk.shape[1]
-        logits, _ = self.engine.decode_forward(params, chunk, mini)
+        logits, _ = self.engine.decode_forward(params, chunk, mini, c_adapters)
         idx = torch.clamp(c_true_len.long() - 1 - offs.long(), 0, c - 1)
         return logits[torch.arange(chunk.shape[0], device=self.device), idx]
 
     def _tick_chunk_impl(self, params, tokens, seeds, step, temps, ks, ps,
-                         gs, chunk, offs, c_true_len):
+                         gs, chunk, offs, c_true_len, adapters=None,
+                         c_adapters=None):
         """A decode tick for every slot AND one [K, C] prefill chunk for
         the admitting rows, in one executor call: an active slot's
         emission gaps by one chunk's compute, never a whole prefill.
@@ -777,21 +1058,23 @@ class ContinuousBatcher:
         re-stamps the offset). Returns (tokens [B, steps], states [B],
         sel [K, V])."""
         toks, gs = self._tick_impl(params, tokens, seeds, step, temps, ks,
-                                   ps, gs)
-        sel = self._chunk_extend(params, chunk, offs, c_true_len)
+                                   ps, gs, adapters)
+        sel = self._chunk_extend(params, chunk, offs, c_true_len, c_adapters)
         return toks, gs, sel
 
     def _tick_jump_chunk_impl(self, params, tokens, seeds, step, temps, ks,
-                              ps, gs, jump_ok, chunk, offs, c_true_len):
+                              ps, gs, jump_ok, chunk, offs, c_true_len,
+                              adapters=None, c_adapters=None):
         """The jump tick fused with one [K, C] interleave chunk, as
         _tick_chunk_impl fuses the plain tick. Returns (emit, count,
         states, sel)."""
         emit, count, gs = self._tick_jump_impl(
-            params, tokens, seeds, step, temps, ks, ps, gs, jump_ok)
-        sel = self._chunk_extend(params, chunk, offs, c_true_len)
+            params, tokens, seeds, step, temps, ks, ps, gs, jump_ok, adapters)
+        sel = self._chunk_extend(params, chunk, offs, c_true_len, c_adapters)
         return emit, count, gs, sel
 
-    def _ilv_finish_impl(self, row, slot, n, sel, seeds, temps, ks, ps, gs):
+    def _ilv_finish_impl(self, row, slot, n, sel, seeds, temps, ks, ps, gs,
+                         adapters=None):
         """Final-chunk completion of one interleaved admission: copy mini
         row `row` into the pool at `slot` with length `n` and sample the
         first token from that row's final-position logits."""
@@ -930,6 +1213,12 @@ class ContinuousBatcher:
         agentic arrival shape: N sessions with one system prompt)."""
         if self._pfx_pool is None or len(batch) < 2:
             return
+        # Base-model rows only: a cache slice computed under an adapter
+        # must never seed the shared pool.
+        slots_idx = [s for s, r in zip(slots_idx, batch) if r.adapter == 0]
+        batch = [r for r in batch if r.adapter == 0]
+        if len(batch) < 2:
+            return
         prompts = [
             np.asarray(r.prompt[: self._pfx_max + 1], np.int32)
             for r in batch
@@ -985,8 +1274,10 @@ class ContinuousBatcher:
             piece = prompt[off: off + width]
             chunk[0, : len(piece)] = piece
             logits, _ = self.engine.decode_forward(
-                self.engine.params, self._t(chunk), mini)
-        key = self._pfx_storable(prompt)
+                self.engine.params, self._t(chunk), mini,
+                self._lora_idx(np.array([request.adapter], np.int64)))
+        # Base rows only feed the pool (adapter'd K/V never seed it).
+        key = self._pfx_storable(prompt) if request.adapter == 0 else None
         if key is not None and plen < len(key):
             self._pfx_commit(
                 key, lambda e: self._pfx_store_impl(mini, 0, e, len(key))
@@ -1024,6 +1315,70 @@ class ContinuousBatcher:
             except asyncio.CancelledError:
                 pass
             self._task = None
+        # Queued host ops fail loudly: a TransferKV handler awaiting an
+        # import must get an error, not hang on a dead loop's future.
+        while self._host_ops:
+            _, fut = self._host_ops.popleft()
+            if not fut.done():
+                fut.set_exception(RuntimeError("batcher stopped"))
+        # Release the host pool's file tier (appends are flushed per
+        # record, so the warm-restart log is already durable).
+        if self.host_pool is not None:
+            self.host_pool.close()
+
+    async def acquire_adapter(self, name: str):
+        """Resolve an adapter NAME to a pinned arena row (registry mode,
+        serving/adapter_arena.py); a load's factor write runs through
+        the serialized run_host_op stream BETWEEN ticks. Returns the
+        AdapterLease; pass it (and the name, as adapter_key) to
+        submit(), which releases it on every terminal path. Typed
+        failures propagate: UnknownAdapterError, AdapterExhaustedError,
+        AdapterLoadError."""
+        arena = getattr(self.engine, "adapter_arena", None)
+        if arena is None:
+            raise RuntimeError(
+                "no dynamic adapter arena (serving.lora.registry unset); "
+                "resolve names via engine.resolve_adapter"
+            )
+        return await self.run_host_op(lambda: arena.acquire(name))
+
+    def release_adapter(self, lease) -> None:
+        """Return an acquired lease that never reached submit() (a shed
+        or a validation failure on the caller's side). Idempotent."""
+        if lease is not None:
+            self.engine.adapter_arena.release(lease)
+
+    async def run_host_op(self, fn):
+        """Run `fn()` (host and device work) in the batcher's serialized
+        executor stream, between ticks and admission rounds, never
+        concurrent with them: the entry point for external work on the
+        arena (KV page export and import, adapter loads). Returns fn's
+        result or raises its exception. The loop must be running."""
+        if self._task is None or self._stopping:
+            raise RuntimeError("batcher is not running")
+        fut = asyncio.get_running_loop().create_future()
+        self._host_ops.append((fn, fut))
+        self._wake.set()
+        return await fut
+
+    async def _drain_host_ops(self, loop) -> None:
+        """Run the queued host ops in FIFO order, one executor call each.
+        A failure resolves its caller's future and never kills the
+        loop."""
+        while self._host_ops:
+            fn, fut = self._host_ops.popleft()
+            try:
+                result = await loop.run_in_executor(None, fn)
+            except asyncio.CancelledError:
+                if not fut.done():
+                    fut.set_exception(RuntimeError("batcher stopped"))
+                raise  # batcher shutdown cancels the loop task
+            except Exception as exc:  # noqa: BLE001 — delivered, not dropped
+                if not fut.done():
+                    fut.set_exception(exc)
+            else:
+                if not fut.done():
+                    fut.set_result(result)
 
     def submit(
         self,
@@ -1036,6 +1391,9 @@ class ContinuousBatcher:
         trace_id: str = "",
         tenant: str = "",
         qos_class: str = "",
+        adapter: int = 0,
+        adapter_key: str = "",
+        adapter_lease=None,
     ) -> AsyncIterator[tuple[list[int], Optional[str]]]:
         """Enqueue a request; yields (token_ids_chunk, finish_reason)
         pairs, finish_reason set on the final chunk (`unary=True`: one
@@ -1048,7 +1406,34 @@ class ContinuousBatcher:
         accepting sink, and GrammarCapacityError is raised here when the
         arena cannot host another schema. `trace_id` joins the request's
         flight records to the gateway's trace; `tenant` and `qos_class`
-        are its SLO identity (and its scheduler lane)."""
+        are its SLO identity (and its scheduler lane). `adapter`: the
+        LoRA row (0 = base; names resolve through engine.resolve_adapter,
+        or acquire_adapter under the arena, which also yields
+        `adapter_lease`, the pin this request holds until its terminal
+        chunk); `adapter_key`: the stable name the paged chains key
+        on."""
+        # Range-check the row: an index past the factor stacks would
+        # fail inside a tick, not here.
+        n_adapters = self.engine.n_adapter_rows()
+        if not 0 <= adapter <= n_adapters:
+            raise ValueError(
+                f"adapter id {adapter} out of range (0..{n_adapters})"
+            )
+        if adapter and not adapter_key:
+            if adapter_lease is not None:
+                adapter_key = adapter_lease.name
+            elif self.engine.adapter_arena is None:
+                # Boot-time rows are 1:1 with names: a row-derived key is
+                # a stable domain.
+                adapter_key = f"row:{adapter}"
+            else:
+                # Arena rows are reused after eviction: a row-derived
+                # key would alias one tenant's KV to another's.
+                raise ValueError(
+                    "dynamic adapter arena: submit needs adapter_key "
+                    "(or the AdapterLease from acquire_adapter); row "
+                    "ids are not stable KV-keying identities"
+                )
         prompt, max_new = fit_request(
             prompt, max_new,
             self.max_seq - self._reserve_for(grammar is not None),
@@ -1078,6 +1463,8 @@ class ContinuousBatcher:
             prompt=prompt, max_new=max_new, sampling=sampling, seed=seed,
             unary=unary, grammar=handle, trace_id=trace_id,
             n_prompt=len(prompt), tenant=tenant, qos_class=qos_class,
+            adapter=adapter, adapter_key=adapter_key,
+            adapter_lease=adapter_lease,
         )
         request.t_submit = time.perf_counter()
         self.pending.put_nowait(request)
@@ -1141,6 +1528,7 @@ class ContinuousBatcher:
         t = self.timing
         return {
             **self._memory_stats(),
+            **self.engine.lora_stats(),
             "tp_chips": 1,
             "mesh_devices": 1,
             "mesh_shape": str(self.device),
@@ -1169,7 +1557,7 @@ class ContinuousBatcher:
                 "kv_pages_total": 0, "kv_pages_in_use": 0,
                 "kv_pages_shared": 0, "paged_prefix_hits": 0,
                 "paged_cow_copies": 0, "paged_pages_reused": 0,
-                "paged_pages_admitted": 0,
+                "paged_pages_admitted": 0, **_HOST_TIER_ZEROS,
             }),
             "interleaved_chunks": self.interleaved_chunks,
             "interleaved_admissions": self.interleaved_admissions,
@@ -1252,6 +1640,7 @@ class ContinuousBatcher:
     async def _loop(self) -> None:
         loop = asyncio.get_running_loop()
         while not self._stopping:
+            await self._drain_host_ops(loop)
             if self.sched is not None:
                 await self._maybe_preempt(loop)
             await self._admit()
@@ -1259,7 +1648,7 @@ class ContinuousBatcher:
                 # Clear BEFORE checking pending: a submit() landing after
                 # the check still leaves its set() visible to wait().
                 self._wake.clear()
-                if not self.pending.empty():
+                if not self.pending.empty() or self._host_ops:
                     continue
                 await self._wake.wait()
                 continue
@@ -1281,10 +1670,12 @@ class ContinuousBatcher:
 
     def _record_terminal(self, request: _Request, reason: str) -> None:
         """A request's end, on every path that delivers a terminal chunk:
-        return its arena reference, then feed the SLO and tenant ledgers
+        return its grammar arena reference and its adapter arena pin
+        (a leaked pin would exempt a row from eviction forever), then
+        feed the SLO and tenant ledgers
         and the flight recorder (all off with the recorder). A request
         never admitted is unevaluated; TPOT needs two tokens."""
-        self._grammar_release(request)
+        self._release_holds(request)
         if not self.recorder.enabled:
             return
         if request.first_tick >= 0:
@@ -1392,6 +1783,7 @@ class ContinuousBatcher:
         slot.request = None
         self.jump_ok[slot_idx] = False
         self.temps[slot_idx] = 0.0
+        self.adapter_ids[slot_idx] = 0
         self.gstates[slot_idx] = 0
         self._slot_last_emit[slot_idx] = None
 
@@ -1400,7 +1792,8 @@ class ContinuousBatcher:
         emitted tokens into its prompt (the replay fold, without burning
         a retry: preemption is policy, not failure), park its valid
         pages as evictable cache on the paged arena, free the slot and
-        park the request in its class's resume lane. The grammar handle
+        park the request in its class's resume lane, its adapter pin
+        released. The grammar handle
         stays; the resuming admission re-derives the DFA state (_g0), so
         greedy tokens through a preempt cycle equal the uninterrupted
         run's. The `sched_preempt_fail` failpoint degrades typed: the
@@ -1420,7 +1813,10 @@ class ContinuousBatcher:
                     request.max_new -= len(fresh)
                     request.absorbed = len(request.acc)
                 if self._paged:
-                    self.pages.demote_for_preempt(sl, request.prompt)
+                    # With a host tier attached, the parked chain is
+                    # copied to the host, and the resume restores it.
+                    self.pages.demote_for_preempt(
+                        sl, request.prompt, adapter=request.adapter_key)
                     self._tables_dirty = True
             except failpoints.FailpointError:
                 self.sched.preempt_failures += 1
@@ -1440,7 +1836,14 @@ class ContinuousBatcher:
                 self._loop_ref.call_soon_threadsafe(
                     self._replay_or_fail, request)
                 continue
+            # Release the arena pin so the row may evict while the
+            # request is parked; the resume reacquires (maybe another
+            # row: the stable adapter_key keeps the KV domain).
+            if request.adapter_lease is not None:
+                self.engine.adapter_arena.release(request.adapter_lease)
+                request.adapter_lease = None
             self._park_slot(sl)
+            request.preempts += 1
             request.parked = True
             # A fresh queue clock: parked time is the scheduler's, and
             # queue_deadline_ms must not expire an admitted request.
@@ -1458,6 +1861,65 @@ class ContinuousBatcher:
         self.pending.park_preempted(request)
         self._wake.set()
 
+    def _resume_reacquire(
+        self, slots_idx: list[int], batch: list[_Request]
+    ) -> None:
+        """Executor-side pre-pass of _prefill_into_slots (scheduler on):
+        a resuming request whose adapter pin was released at preemption
+        reacquires a row here, inside the serialized stream where the
+        arena's factor write is safe, before any block table is built.
+        Rows that cannot reacquire are FILTERED from the batch in place:
+        a full arena re-parks the request, bounded by
+        scheduler.resume_retry_limit attempts before a typed
+        "overloaded" shed; an adapter that is gone or fails to load
+        ends the request "error"."""
+        arena = getattr(self.engine, "adapter_arena", None)
+        keep_slots: list[int] = []
+        keep_batch: list[_Request] = []
+        for sl, request in zip(slots_idx, batch):
+            if (
+                request.preempts > 0
+                and request.adapter_key
+                and request.adapter_lease is None
+                and arena is not None
+            ):
+                try:
+                    lease = arena.acquire(request.adapter_key)
+                except AdapterExhaustedError:
+                    request.sched_retries += 1
+                    if request.sched_retries > int(
+                        self.sched_cfg.resume_retry_limit
+                    ):
+                        self.shed += 1
+                        self._deliver(request, ([], "overloaded"))
+                    else:
+                        self._loop_ref.call_soon_threadsafe(
+                            self._repark, request)
+                    continue
+                except Exception:
+                    logger.exception("resume: adapter %r reacquire failed",
+                                     request.adapter_key)
+                    self._deliver(request, ([], "error"))
+                    continue
+                request.adapter_lease = lease
+                # The row may differ from the one before the preemption;
+                # adapter_key, not the row, keys the KV chains.
+                request.adapter = lease.row
+            keep_slots.append(sl)
+            keep_batch.append(request)
+        slots_idx[:] = keep_slots
+        batch[:] = keep_batch
+
+    def _repark(self, request: _Request) -> None:
+        """Loop-thread re-park after a failed resume attempt: the BACK
+        of the class's resume lane, so sibling parked requests get their
+        attempt first."""
+        if request.cancelled:
+            self._deliver(request, ([], "cancelled"))
+            return
+        self.pending.put_nowait(request)
+        self._wake.set()
+
     def _sweep_expired_pending(self) -> None:
         """Before admission, every loop turn: queued requests older than
         queue_deadline_ms (since submit, or since their last replay or
@@ -1473,7 +1935,7 @@ class ContinuousBatcher:
             except asyncio.QueueEmpty:
                 break
             if request.cancelled:
-                self._grammar_release(request)  # consumer gone
+                self._release_holds(request)  # consumer gone
                 continue
             if (now - request.t_submit) * 1000.0 > ddl:
                 self.timed_out += 1
@@ -1506,9 +1968,11 @@ class ContinuousBatcher:
             slot.request = None
             slot.reserved = False
         # Grammar states reset with the slots: each victim re-derives
-        # its state from its replay prefix at re-admission (_g0).
+        # its state from its replay prefix at re-admission (_g0). A
+        # victim keeps its adapter row and lease through the replay.
         self.gstates[:] = 0
         self.jump_ok[:] = False
+        self.adapter_ids[:] = 0
         for st in list(self._ilv_rows) + list(self._ilv_pending):
             if st is not None:
                 self._replay_or_fail(st.request)
@@ -1565,7 +2029,7 @@ class ContinuousBatcher:
                 except (asyncio.TimeoutError, asyncio.QueueEmpty):
                     break
                 if request.cancelled:
-                    self._grammar_release(request)  # consumer gone
+                    self._release_holds(request)  # consumer gone
                     continue
                 ddl = self.cfg.queue_deadline_ms
                 if ddl > 0 and (
@@ -1630,6 +2094,7 @@ class ContinuousBatcher:
                         slot.request = None
                     self.gstates[:] = 0
                     self.jump_ok[:] = False
+                    self.adapter_ids[:] = 0
                     self._slot_last_emit = [None] * len(self.slots)
                     self._reset_shared_cache()
                 continue
@@ -1654,6 +2119,12 @@ class ContinuousBatcher:
         # admission failure (admit_fail), before any device call.
         failpoints.evaluate("admit_slow")
         failpoints.evaluate("admit_fail")
+        if self.sched is not None:
+            # Resume pre-pass: reacquire released adapter pins (and drop
+            # the rows that cannot) before any table or row is touched.
+            self._resume_reacquire(slots_idx, batch)
+            if not batch:
+                return
         t0 = time.perf_counter()
         self._grammar_tables()
         fused_slots: list[int] = []
@@ -1674,8 +2145,11 @@ class ContinuousBatcher:
         shed_rows = len(batch) - len(rows) - sum(
             len(g) for g in paged_groups.values())
         for sl, req in rows:
-            pfx = self._pfx_lookup(req.prompt)
-            if pfx is None and self._pfx_pool is not None:
+            # The prefix pool holds base-model K/V only: adapter'd
+            # requests neither consult nor feed it (nor count a miss).
+            base = req.adapter == 0
+            pfx = self._pfx_lookup(req.prompt) if base else None
+            if pfx is None and self._pfx_pool is not None and base:
                 # Every pool-enabled miss counts, fused admissions too.
                 self.prefix_misses += 1
             if pfx is not None:
@@ -1712,7 +2186,8 @@ class ContinuousBatcher:
         # in issue order, so the writes land first.
         for key, group in paged_groups.items():
             self._admit_paged_group(group, *key)
-        if trickle and self.slots[slots_idx[0]].request is batch[0]:
+        if trickle and batch[0].adapter == 0 and (
+                self.slots[slots_idx[0]].request is batch[0]):
             # First sighting of a poolable prefix on a trickle admission:
             # pool it from the admitted row's cache slice.
             req = batch[0]
@@ -1749,10 +2224,13 @@ class ContinuousBatcher:
             try:
                 # Failpoint: page_exhausted forces the exhaustion path.
                 failpoints.evaluate("page_exhausted")
+                # Sharing is scoped to the adapter's key domain: the
+                # chain root folds the stable adapter name.
                 adm = self.pages.admit(
                     sl, req.prompt,
                     len(req.prompt) + req.max_new
                     + self._reserve_for(req.grammar is not None) + 1,
+                    adapter=req.adapter_key,
                 )
             except (PageExhaustedError, failpoints.FailpointError):
                 self.shed += 1
@@ -1773,25 +2251,29 @@ class ContinuousBatcher:
                 self.prefix_misses += 1
                 cold.append((sl, req))
                 if not (ilv and len(req.prompt) > self.cfg.prefill_chunk):
-                    self.pages.register(sl, req.prompt)
+                    self.pages.register(sl, req.prompt,
+                                        adapter=req.adapter_key)
         return cold
 
     def _row_params(self, n: int, rows) -> dict:
-        """Per-row sampling arrays and admission grammar states for an
-        admission call; `rows` pairs (row index, request)."""
+        """Per-row sampling arrays, admission grammar states and adapter
+        rows for an admission call; `rows` pairs (row index, request)."""
         seeds = np.zeros((n,), np.int64)
         temps = np.zeros((n,), np.float32)
         ks = np.zeros((n,), np.int64)
         ps = np.ones((n,), np.float32)
         gs = np.zeros((n,), np.int64)
+        adapters = np.zeros((n,), np.int64)
         for row, req in rows:
             seeds[row] = req.seed & 0xFFFFFFFF
             temps[row] = req.sampling.temperature
             ks[row] = req.sampling.top_k
             ps[row] = req.sampling.top_p
             gs[row] = self._g0(req)
+            adapters[row] = req.adapter
         return dict(seeds=self._t(seeds), temps=self._temps(temps),
-                    ks=self._t(ks), ps=self._t(ps), gs=self._t(gs))
+                    ks=self._t(ks), ps=self._t(ps), gs=self._t(gs),
+                    adapters=self._lora_idx(adapters))
 
     def _group_inputs(self, rows, r: int, t_steps: int, c: int, start: int):
         """[R, T, C] tokens (each prompt from `start`), true lengths and
@@ -1956,11 +2438,14 @@ class ContinuousBatcher:
         self.top_ks[slot_idx] = request.sampling.top_k
         self.top_ps[slot_idx] = request.sampling.top_p
         self.seeds[slot_idx] = request.seed & 0xFFFFFFFF
+        self.adapter_ids[slot_idx] = request.adapter
         if self._paged:
             # The prompt's full pages now hold valid K/V: index them
-            # before the emit (a one-token request finishes inside it,
-            # and its pages should stay as reusable cache).
-            self.pages.register(slot_idx, request.prompt)
+            # (under the request's adapter domain) before the emit (a
+            # one-token request finishes inside it, and its pages should
+            # stay as reusable cache).
+            self.pages.register(slot_idx, request.prompt,
+                                adapter=request.adapter_key)
         self._emit_chunk(slot_idx, [first_tok])
 
     # -- ticks --------------------------------------------------------------
@@ -1972,13 +2457,15 @@ class ContinuousBatcher:
                 self._ilv_rows[r] = self._ilv_pending.popleft()
 
     def _ilv_chunk_inputs(self):
-        """Host-stamped [K, C] chunk, offsets and prompt lengths of the
-        chunk half of a tick (idle rows: zeros at offset 0, length 1)."""
+        """Host-stamped [K, C] chunk, offsets, prompt lengths and adapter
+        rows of the chunk half of a tick (idle rows: zeros at offset 0,
+        length 1, base)."""
         k = self._ilv_k
         c = min(self.cfg.prefill_chunk, self.max_seq)
         chunk = np.zeros((k, c), np.int64)
         offs = np.zeros((k,), np.int64)
         c_tl = np.ones((k,), np.int64)
+        c_adapt = np.zeros((k,), np.int64)
         for r, st in enumerate(self._ilv_rows):
             if st is None:
                 continue
@@ -1986,7 +2473,8 @@ class ContinuousBatcher:
             chunk[r, : len(piece)] = piece
             offs[r] = st.progress
             c_tl[r] = st.n
-        return chunk, offs, c_tl
+            c_adapt[r] = st.request.adapter
+        return chunk, offs, c_tl, c_adapt
 
     def _ilv_advance(self, sel) -> None:
         """Advance every admitting row by the chunk just run and finish
@@ -2077,24 +2565,27 @@ class ContinuousBatcher:
         )
         if jump:
             args += (self._t(self.jump_ok),)
+        lora = {"adapters": self._lora_idx(self.adapter_ids)}
         sel = counts_dev = None
         if chunk:
             if self._ilv_mini is None:
                 self._ilv_mini = self._make_mini(self._ilv_k, self.max_seq)
-            chunk_arr, offs, c_tl = self._ilv_chunk_inputs()
+            chunk_arr, offs, c_tl, c_adapt = self._ilv_chunk_inputs()
             c_args = (self._t(chunk_arr), self._t(offs), self._t(c_tl))
+            lora["c_adapters"] = self._lora_idx(c_adapt)
         if rec is not None:
             rec.phases.mark("sync")
         if chunk:
             if jump:
                 toks_dev, counts_dev, gs_dev, sel = (
-                    self._tick_jump_chunk_impl(*args, *c_args))
+                    self._tick_jump_chunk_impl(*args, *c_args, **lora))
             else:
-                toks_dev, gs_dev, sel = self._tick_chunk_impl(*args, *c_args)
+                toks_dev, gs_dev, sel = self._tick_chunk_impl(
+                    *args, *c_args, **lora)
         elif jump:
-            toks_dev, counts_dev, gs_dev = self._tick_jump_impl(*args)
+            toks_dev, counts_dev, gs_dev = self._tick_jump_impl(*args, **lora)
         else:
-            toks_dev, gs_dev = self._tick_impl(*args)
+            toks_dev, gs_dev = self._tick_impl(*args, **lora)
         t1 = time.perf_counter()
         if rec is not None:
             rec.phases.mark("dispatch")
@@ -2208,6 +2699,7 @@ class ContinuousBatcher:
                 (request.queue_ms, (now - request.t_admit) * 1000.0)
             )
             self.temps[slot_idx] = 0.0
+            self.adapter_ids[slot_idx] = 0
             self.gstates[slot_idx] = 0
             self.jump_ok[slot_idx] = False
             if self._paged:

@@ -1,8 +1,9 @@
 """Engines on one device. Port of `ggrmcp_tpu/serving/engine.py`:
 `GenerationEngine` (dense Llama prefill, decode and whole-request
-generation, with int8 weights, the int8 KV cache and the paged cache
-for the batcher; no mesh, LoRA,
-speculative decoding or PP/SP) and `EmbeddingEngine` (BERT embeddings).
+generation, with int8 weights, the int8 KV cache, the paged cache for
+the batcher and multi-LoRA adapters, boot-time or from a registry
+through the adapter arena; no mesh, speculative decoding or PP/SP) and
+`EmbeddingEngine` (BERT embeddings).
 
 The reference compiles one program per shape bucket; PyTorch runs
 eagerly, so the buckets here only bound the shapes the kernels see.
@@ -22,6 +23,7 @@ from ggrmcp_tpu_torch.core.config import ServingConfig
 from ggrmcp_tpu_torch.models import bert as bert_mod
 from ggrmcp_tpu_torch.models import llama as llama_mod
 from ggrmcp_tpu_torch.models.common import count_params, param_bytes
+from ggrmcp_tpu_torch.ops import lora as lora_ops
 from ggrmcp_tpu_torch.ops import quant
 from ggrmcp_tpu_torch.ops.sampling import SamplingConfig, sample
 from ggrmcp_tpu_torch.serving.memory_ledger import MemoryLedger
@@ -97,13 +99,233 @@ class GenerationEngine:
                 )
             if self.serving.quantize:
                 params = self._quantize_params(params)
-        self.params = params
+        self.params = self._init_lora(params, seed)
         # The device-memory ledger: the batchers built over this engine
         # register their components into it, so one reconcile() covers
-        # the stack. Off with serving.observability.
+        # the stack. Off with serving.observability. LoRA factors are
+        # their own component (`lora`), outside `weights`.
         self.ledger = MemoryLedger(self.device,
                                    self.serving.observability.enabled)
-        self.ledger.register("weights", lambda: self.params)
+        self.ledger.register("weights", self._ledger_weights)
+        if self.adapter_arena is not None:
+            self.adapter_arena.register_ledger(self.ledger)
+        elif self.lora_enabled:
+            self.ledger.register("lora", self._ledger_lora)
+
+    def _ledger_weights(self):
+        """Model parameters without the LoRA factors."""
+        params = self.params
+        if self.lora_enabled:
+            params = {
+                **params,
+                "layers": {
+                    k: v for k, v in params["layers"].items()
+                    if not k.startswith("lora_")
+                },
+            }
+        return params
+
+    def _ledger_lora(self):
+        """The boot-time factor stacks inside params."""
+        return {
+            k: v for k, v in self.params["layers"].items()
+            if k.startswith("lora_")
+        }
+
+    # -- LoRA -----------------------------------------------------------
+
+    def _init_lora(self, params, seed: int):
+        """Multi-LoRA serving (ops/lora.py): the factor stacks go into
+        params["layers"] after quantization (they stay in the model
+        dtype). Row 0 is the base no-op adapter. Two modes, as in the
+        reference (core/config.py LoraConfig): boot-time `adapters`,
+        rows fixed at init and resolved by `resolve_adapter`; or a
+        `registry` served through the adapter arena, resolved per
+        request by `AdapterArena.acquire`."""
+        self.lora_names: dict[str, int] = {}
+        self.adapter_arena = None
+        lcfg = self.serving.lora
+        adapters = list(lcfg.adapters)
+        self.lora_enabled = bool(adapters) or bool(lcfg.registry)
+        if not self.lora_enabled:
+            return params
+        if adapters and lcfg.registry:
+            raise ValueError(
+                "lora.registry and lora.adapters are mutually exclusive"
+            )
+        if self.serving.speculative_draft or (
+                self.serving.batching.speculative == "on"):
+            raise ValueError(
+                "lora does not compose with speculative decoding (the "
+                "draft/verify loop runs the base model; an adapter'd "
+                "request would silently lose its adapter)"
+            )
+        if lcfg.rank < 1:
+            raise ValueError("lora.rank must be >= 1")
+        if lcfg.registry:
+            from ggrmcp_tpu_torch.serving.adapter_arena import AdapterArena
+
+            # params holds the arena's own tensors; a load writes a row
+            # of them in place, so every later forward serves it (the
+            # reference reinstalls new arrays after each load instead).
+            self.adapter_arena = AdapterArena(
+                lcfg.registry, int(lcfg.arena_rows), lcfg.rank, self.cfg,
+                device=self.device,
+            )
+            params["layers"] = {
+                **params["layers"],
+                "lora_qkv_a": self.adapter_arena.a_dev,
+                "lora_qkv_b": self.adapter_arena.b_dev,
+            }
+            logger.info(
+                "lora arena: %d device rows over registry %s (rank %d, "
+                "%d adapter(s) registered, %.1f MB resident)",
+                self.adapter_arena.rows, lcfg.registry, lcfg.rank,
+                len(self.adapter_arena.registered()),
+                (self.adapter_arena.a_dev.nbytes
+                 + self.adapter_arena.b_dev.nbytes) / 1e6,
+            )
+            return params
+        if len(set(adapters)) != len(adapters) or "" in adapters:
+            raise ValueError("lora.adapters must be unique, non-empty names")
+        for name in adapters:
+            # Names become `{lora.path}/{name}.npz`.
+            if "/" in name or "\\" in name or name.startswith("."):
+                raise ValueError(
+                    f"lora adapter name {name!r} must be a plain name "
+                    f"(no path separators or leading dots)"
+                )
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed + 7)
+        factors = lora_ops.init_lora_layers(
+            self.cfg, len(adapters), lcfg.rank, gen, self.device)
+        params["layers"] = {**params["layers"], **factors}
+        self.lora_names = {name: i + 1 for i, name in enumerate(adapters)}
+        logger.info(
+            "lora serving: %d adapter(s) %s, rank %d (%.1f MB of factors)",
+            len(adapters), adapters, lcfg.rank,
+            sum(v.nbytes for v in factors.values()) / 1e6,
+        )
+        if lcfg.path:
+            self.params = params  # set_lora_weights writes through it
+            self._load_lora_dir(lcfg.path)
+        return params
+
+    def _load_lora_dir(self, path: str) -> None:
+        """Trained factors from `{path}/{name}.npz` (arrays `a`, `b`):
+        a missing file leaves that adapter a no-op; a present but wrong
+        file fails loudly."""
+        import os
+
+        for name in self.lora_names:
+            f = os.path.join(path, f"{name}.npz")
+            if not os.path.exists(f):
+                logger.info("lora: no factors at %s (adapter stays no-op)", f)
+                continue
+            with np.load(f) as data:
+                try:
+                    self.set_lora_weights(name, data["a"], data["b"])
+                except (KeyError, ValueError) as exc:
+                    raise ValueError(f"lora factors {f}: {exc}") from exc
+            logger.info("lora: loaded %s", f)
+
+    def n_adapter_rows(self) -> int:
+        """Highest valid per-request adapter row id (0 = base)."""
+        if self.adapter_arena is not None:
+            return self.adapter_arena.rows
+        return len(self.lora_names)
+
+    def resolve_adapter(self, name: str) -> int:
+        """Adapter name → served row id (0 = base; raises on unknown).
+        Boot-time mode only: the arena resolves names through the
+        batcher's serialized acquire stream."""
+        if not name:
+            return 0
+        if self.adapter_arena is not None:
+            raise ValueError(
+                "dynamic adapter arena: resolve adapter names via "
+                "AdapterArena.acquire (batcher.acquire_adapter on "
+                "serving paths), not resolve_adapter"
+            )
+        try:
+            return self.lora_names[name]
+        except KeyError:
+            raise ValueError(
+                f"unknown adapter {name!r}; configured: "
+                f"{sorted(self.lora_names)}"
+            ) from None
+
+    def set_lora_weights(self, name: str, a, b) -> None:
+        """Install trained factors for a boot-time adapter: a [L, D, r],
+        b [L, r, (H+2KVH)*Dh] (pre-scaled by alpha/r), written into its
+        row in place. Row 0 (base) cannot be written."""
+        idx = self.resolve_adapter(name)
+        if idx == 0:
+            raise ValueError("cannot overwrite the base adapter row")
+        layers = self.params["layers"]
+        dtype = self.cfg.torch_dtype
+        a = torch.as_tensor(np.asarray(a, np.float32)).to(dtype)
+        b = torch.as_tensor(np.asarray(b, np.float32)).to(dtype)
+        # Explicit shape checks: an assignment broadcasts, so a single
+        # layer's [D, r] would install identical factors in every layer.
+        want_a = tuple(layers["lora_qkv_a"].shape[0:1]
+                       + layers["lora_qkv_a"].shape[2:])
+        want_b = tuple(layers["lora_qkv_b"].shape[0:1]
+                       + layers["lora_qkv_b"].shape[2:])
+        if tuple(a.shape) != want_a or tuple(b.shape) != want_b:
+            raise ValueError(
+                f"factor shapes {tuple(a.shape)}/{tuple(b.shape)} != "
+                f"expected {want_a}/{want_b}"
+            )
+        layers["lora_qkv_a"][:, idx] = a.to(self.device)
+        layers["lora_qkv_b"][:, idx] = b.to(self.device)
+
+    def lora_stats(self) -> dict:
+        """ServingStats lora_* scalars: the arena's live counters; the
+        boot-time set is both registered and resident; all zero with
+        LoRA off."""
+        if self.adapter_arena is not None:
+            return self.adapter_arena.stats()
+        n = len(self.lora_names)
+        return {
+            "lora_adapters_registered": n,
+            "lora_adapters_resident": n,
+            "lora_rows_total": n,
+            "lora_loads": 0,
+            "lora_evictions": 0,
+            "lora_hits": 0,
+            "lora_load_ms": 0.0,
+            "lora_shed": 0,
+        }
+
+    def adapter_rows(self, names) -> tuple[list[int], list]:
+        """Per-prompt adapter names (or row ids) → (rows, arena leases
+        to release when done): ids are range-checked, names resolve
+        through the arena (pinned) or the boot-time table."""
+        rows, leases = [], []
+        try:
+            for name in names:
+                if isinstance(name, int):
+                    if not 0 <= name <= self.n_adapter_rows():
+                        raise ValueError(
+                            f"adapter id {name} out of range "
+                            f"(0..{self.n_adapter_rows()})"
+                        )
+                    rows.append(name)
+                elif self.adapter_arena is not None:
+                    lease = self.adapter_arena.acquire(name or "")
+                    leases.append(lease)
+                    rows.append(lease.row)
+                else:
+                    rows.append(self.resolve_adapter(name or ""))
+        except Exception:
+            self._release_leases(leases)
+            raise
+        return rows, leases
+
+    def _release_leases(self, leases) -> None:
+        for lease in leases:
+            self.adapter_arena.release(lease)
 
     def _synthetic_int8_init(self, seed: int):
         """The int8 weight structure drawn directly (int8 values in
@@ -170,15 +392,17 @@ class GenerationEngine:
 
     # -- forwards -------------------------------------------------------
 
-    def prefill_forward(self, params, tokens, cache):
+    def prefill_forward(self, params, tokens, cache, lora_idx=None):
         """Forward for a FRESH prefill (cache written from offset 0)."""
-        return self.decode_forward(params, tokens, cache)
+        return self.decode_forward(params, tokens, cache, lora_idx)
 
-    def decode_forward(self, params, tokens, cache):
+    def decode_forward(self, params, tokens, cache, lora_idx=None):
         """Forward for decode / extension steps (cache has history): a
-        contiguous KVCache or a PagedKVCache."""
+        contiguous KVCache or a PagedKVCache. `lora_idx`: [B] adapter
+        rows (None = every row base)."""
         return llama_mod.forward(params, self.cfg, tokens, cache,
-                                 use_flash=self.use_flash)
+                                 use_flash=self.use_flash,
+                                 lora_idx=lora_idx)
 
     def make_cache(self, batch: int, max_len: int) -> llama_mod.KVCache:
         return llama_mod.KVCache.create(self.cfg, batch, max_len, self.device,
@@ -199,11 +423,11 @@ class GenerationEngine:
 
     # -- bodies ---------------------------------------------------------
 
-    def _prefill_impl(self, params, tokens, true_len, cache):
+    def _prefill_impl(self, params, tokens, true_len, cache, lora_idx=None):
         """tokens [B, S] right-padded, true_len [B] → (last-position
         logits [B, V], cache with length = true_len). Logits are
         computed for every position first, as the reference does."""
-        logits, cache = self.prefill_forward(params, tokens, cache)
+        logits, cache = self.prefill_forward(params, tokens, cache, lora_idx)
         idx = torch.clamp(true_len.long() - 1, min=0)
         last = logits[torch.arange(logits.shape[0], device=logits.device), idx]
         cache.length = true_len.to(torch.int32)
@@ -211,18 +435,20 @@ class GenerationEngine:
 
     def _generate_impl(
         self, params, tokens, true_len, max_new: int,
-        sampling: SamplingConfig, seed: int, eos_id: int,
+        sampling: SamplingConfig, seed: int, eos_id: int, lora_idx=None,
     ):
         """Prefill + decode loop. Returns (out_tokens [B, max_new],
         out_len [B]) on the host."""
         b = tokens.shape[0]
         cache = self.make_cache(b, tokens.shape[1] + max_new)
-        last, cache = self._prefill_impl(params, tokens, true_len, cache)
+        last, cache = self._prefill_impl(params, tokens, true_len, cache,
+                                         lora_idx)
         cur = sample(last, seed, 0, sampling)
         done = cur == eos_id
         out = [cur]
         for i in range(max_new - 1):
-            logits, cache = self.decode_forward(params, cur[:, None], cache)
+            logits, cache = self.decode_forward(params, cur[:, None], cache,
+                                                lora_idx)
             nxt = sample(logits[:, -1], seed, i + 1, sampling)
             nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
             done = done | (nxt == eos_id)
@@ -277,15 +503,30 @@ class GenerationEngine:
         sampling: SamplingConfig = SamplingConfig(),
         eos_id: int = 2,
         seed: int = 0,
+        adapters: Optional[list] = None,
     ) -> tuple[list[list[int]], list[str]]:
-        """Batch generation. Returns (token lists, finish reasons)."""
+        """Batch generation. Returns (token lists, finish reasons).
+        `adapters`: per-prompt LoRA adapter names (or row ids); None or
+        "" rows ride the base model (arena rows stay pinned for the
+        call)."""
         tokens, true_len, max_new = self._pack_prompts(
             prompts, max_new_tokens, self.cfg.max_seq_len
         )
-        out, out_len = self._generate_impl(
-            self.params, self._tensor(tokens), self._tensor(true_len),
-            max_new, sampling, seed, eos_id,
-        )
+        if adapters and len(adapters) > len(prompts):
+            raise ValueError(
+                f"{len(adapters)} adapters for {len(prompts)} prompts"
+            )
+        rows, leases = self.adapter_rows(adapters or [])
+        idx = np.zeros((tokens.shape[0],), np.int64)
+        idx[: len(rows)] = rows
+        try:
+            out, out_len = self._generate_impl(
+                self.params, self._tensor(tokens), self._tensor(true_len),
+                max_new, sampling, seed, eos_id,
+                self._tensor(idx) if self.lora_enabled else None,
+            )
+        finally:
+            self._release_leases(leases)
         return self._decode_outputs(out, out_len, eos_id)
 
     def generate_stream(
@@ -295,8 +536,24 @@ class GenerationEngine:
         sampling: SamplingConfig = SamplingConfig(),
         eos_id: int = 2,
         seed: int = 0,
+        adapter: str = "",
     ) -> Iterator[int]:
-        """Single-sequence streaming: yields token ids as sampled."""
+        """Single-sequence streaming: yields token ids as sampled.
+        `adapter`: LoRA adapter name ("" = base; an arena row stays
+        pinned for the stream's life)."""
+        rows, leases = self.adapter_rows([adapter])
+        try:
+            yield from self._stream(prompt, max_new_tokens, sampling, eos_id,
+                                    seed, rows[0])
+        finally:
+            self._release_leases(leases)
+
+    def _stream(self, prompt, max_new_tokens, sampling, eos_id, seed,
+                row: int) -> Iterator[int]:
+        lora_idx = (
+            self._tensor(np.array([row], np.int64)) if self.lora_enabled
+            else None
+        )
         prompt, max_new_tokens = fit_request(
             prompt, max_new_tokens, self.cfg.max_seq_len
         )
@@ -311,7 +568,7 @@ class GenerationEngine:
             cache = self.make_cache(1, max_cache)
             last, cache = self._prefill_impl(
                 self.params, self._tensor(tokens), self._tensor(true_len),
-                cache,
+                cache, lora_idx,
             )
             cur = sample(last, seed, 0, sampling)
         for i in range(max_new_tokens):
@@ -323,7 +580,7 @@ class GenerationEngine:
                 return
             with torch.no_grad():
                 logits, cache = self.decode_forward(
-                    self.params, cur[:, None], cache
+                    self.params, cur[:, None], cache, lora_idx
                 )
                 cur = sample(logits[:, -1], seed, i + 1, sampling)
 

@@ -90,6 +90,7 @@ class MemoryLedger:
         self.device = torch.device(device)
         self.enabled = bool(enabled)
         self._suppliers: dict[tuple[str, str], Callable[[], Any]] = {}
+        self._host_suppliers: dict[tuple[str, str], Callable[[], Any]] = {}
         self._lock = threading.Lock()
         self._cache: tuple[float, dict] = (0.0, {})
 
@@ -99,6 +100,17 @@ class MemoryLedger:
         """Attach a component; re-registering a key replaces it."""
         if self.enabled:
             self._suppliers[(scope, component)] = supplier
+
+    def register_host(
+        self, component: str, supplier: Callable[[], Any], scope: str = ""
+    ) -> None:
+        """Attach a HOST-memory component (the host page pool). The
+        supplier returns a dict with at least `bytes` and `entries`, or
+        None while the component is off. Host bytes are exact by
+        construction (the owner counts what it stores), so they have no
+        reconcile pass; GetMemory reports them as its `host` section."""
+        if self.enabled:
+            self._host_suppliers[(scope, component)] = supplier
 
     # -- queries -------------------------------------------------------------
 
@@ -139,9 +151,13 @@ class MemoryLedger:
 
     def host_components(self) -> dict[tuple[str, str], dict]:
         """(scope, component) -> host-memory info (bytes, entries, ...)
-        of the components kept in host memory: none in the port yet (the
-        host page tier is not ported)."""
-        return {}
+        of every registered host component that is on."""
+        out: dict[tuple[str, str], dict] = {}
+        for key, supplier in self._host_suppliers.items():
+            info = supplier()
+            if info is not None:
+                out[key] = info
+        return out
 
     # -- closure -------------------------------------------------------------
 

@@ -3,8 +3,8 @@
 A copy of `ggrmcp_tpu/serving/pages.py` (the port imports nothing of
 the JAX package); only the logger name differs in the code, so the
 same call sequence through both gives identical tables and counters.
-The host tier (`attach_host`) comes along unused: the port's batcher
-never attaches a host pool (core/config.py guards it).
+The batcher attaches the host tier (`attach_host`) when
+`batching.paged_kv_host_bytes` > 0.
 
 The KV plane's storage manager: the device holds ONE fixed-shape arena
 of `[n_pages, page_size, kv_heads, head_dim]` K/V pages per layer

@@ -17,6 +17,24 @@ QoS class come from its fields, else from the `x-tenant-id` /
 `x-qos-class` metadata the gateway forwards. DebugService answers
 Profile (a `torch.profiler` capture), GetFlightRecord and GetMemory,
 which back the gateway's `/debug/*` routes.
+
+Disaggregated serving (`serving.role`): every generate sidecar serves
+KVTransferService.TransferKV, the receiving half of page shipping. A
+Generate carrying `kv_transfer_target` is the prefill leg of a
+two-leg call: this replica admits the prompt for one token, exports
+its full pages and ships them to the target in in-order TransferKV
+chunks, and answers finish_reason "transferred"; the gateway then
+sends the request to the decode replica, whose admission reuses the
+imported pages. Every transfer failure is typed (ABORTED), so the
+gateway retries the call whole on a mixed replica. The wire format is
+the reference's byte for byte: a replica of either package can ship to
+one of the other.
+
+Multi-LoRA (`serving.lora`): a request's `adapter` names its adapter,
+resolved against the boot-time table or, with a registry, acquired
+from the adapter arena through the batcher's host-op stream (typed:
+INVALID_ARGUMENT for an unknown name, RESOURCE_EXHAUSTED for an arena
+whose rows are all pinned, ABORTED for a failed load).
 """
 
 from __future__ import annotations
@@ -32,6 +50,7 @@ from typing import Optional
 import grpc
 import grpc.aio
 import numpy as np
+import torch
 
 from ggrmcp_tpu_torch.core.config import ServingConfig
 from ggrmcp_tpu_torch.grammar import (
@@ -50,8 +69,18 @@ from ggrmcp_tpu_torch.rpc.server_utils import (
     add_service,
 )
 from ggrmcp_tpu_torch.serving import tensors
-from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher, OverloadedError
+from ggrmcp_tpu_torch.serving.adapter_arena import (
+    AdapterExhaustedError,
+    AdapterLoadError,
+    UnknownAdapterError,
+)
+from ggrmcp_tpu_torch.serving.batching import (
+    ContinuousBatcher,
+    KVTransferError,
+    OverloadedError,
+)
 from ggrmcp_tpu_torch.serving.engine import EmbeddingEngine, GenerationEngine
+from ggrmcp_tpu_torch.serving.pages import PageExhaustedError
 from ggrmcp_tpu_torch.serving.scheduler import retry_after_for
 from ggrmcp_tpu_torch.serving.tokenizer import ByteTokenizer, load_tokenizer
 from ggrmcp_tpu_torch.serving.weights import load_hf_checkpoint
@@ -117,6 +146,26 @@ class Sidecar:
         self.health = HealthService()
         self.port = 0
         self.target = ""
+        # The role rides ServingStats for the gateway's role-aware
+        # router. A non-mixed role needs a paged generate batcher (the
+        # config checks the paging; the model family shows here): it can
+        # neither export nor import pages otherwise.
+        role = self.serving.role
+        if role != "mixed" and (
+            self.batcher is None or self.serving.batching.paged_kv != "on"
+        ):
+            raise ValueError(
+                f"serving.role={role!r} requires a generate model with "
+                "batching.paged_kv=on: KV pages are the transfer format"
+            )
+        self._transfer_stats = dict.fromkeys((
+            "kv_transfers_sent", "kv_transfers_received",
+            "kv_transfer_failures", "kv_transfer_pages_sent",
+            "kv_transfer_pages_received", "kv_transfer_bytes_sent",
+            "kv_transfer_bytes_received",
+        ), 0)
+        # Peer sidecar channels for outbound TransferKV, by target.
+        self._peer_channels: dict[str, grpc.aio.Channel] = {}
 
     # -- EmbedService ---------------------------------------------------
 
@@ -180,19 +229,44 @@ class Sidecar:
             top_p=s.top_p if 0.0 < s.top_p < 1.0 else 1.0,
         )
 
-    async def _reject_unsupported(self, request, context) -> None:
-        """Request features of the reference this package does not serve
-        yet are the caller's error, never silently dropped."""
-        if request.adapter:
+    async def _resolve_adapter(self, request, context):
+        """GenerateRequest.adapter → (served LoRA row, arena lease or
+        None). Boot-time adapters resolve against the engine's table;
+        the arena acquires residency through the batcher's serialized
+        host-op stream (a first sighting loads the factors between
+        ticks), and the lease pins the row until the request's terminal
+        chunk. Unknown names are the caller's error (INVALID_ARGUMENT),
+        an all-pinned arena is overload (RESOURCE_EXHAUSTED), a failed
+        load ABORTED: the request never silently gets base weights."""
+        name = request.adapter
+        if self.generation.adapter_arena is None:
+            try:
+                return self.generation.resolve_adapter(name), None
+            except ValueError as exc:
+                await context.abort(
+                    grpc.StatusCode.INVALID_ARGUMENT, str(exc)
+                )
+        if not name:
+            return 0, None
+        try:
+            lease = await self.batcher.acquire_adapter(name)
+        except UnknownAdapterError as exc:
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(exc))
+        except AdapterExhaustedError as exc:
             await context.abort(
-                grpc.StatusCode.INVALID_ARGUMENT,
-                "LoRA adapters are not supported by this sidecar",
+                grpc.StatusCode.RESOURCE_EXHAUSTED,
+                f"server overloaded (adapters): {exc}; "
+                f"retry in {self._retry_after(''):g}s",
             )
-        if request.kv_transfer_target:
-            await context.abort(
-                grpc.StatusCode.FAILED_PRECONDITION,
-                "kv transfer is not supported by this sidecar",
-            )
+        except AdapterLoadError as exc:
+            await context.abort(grpc.StatusCode.ABORTED, str(exc))
+        return lease.row, lease
+
+    def _release_adapter(self, lease) -> None:
+        """Return a lease whose request never reached the batcher; a
+        submitted request's lease is released at its terminal chunk."""
+        if lease is not None:
+            self.batcher.release_adapter(lease)
 
     async def _resolve_grammar(
         self, request: serving_pb2.GenerateRequest, context
@@ -284,21 +358,33 @@ class Sidecar:
         qos = request.qos_class or md.get("x-qos-class") or ""
         return str(tenant), str(qos)
 
-    async def _submit(self, request, context, prompt, unary: bool):
+    async def _submit(self, request, context, prompt, unary: bool,
+                      prefill_leg: bool = False):
         """Hand a request to the batcher; returns (its chunk iterator,
-        its QoS class)."""
-        grammar = await self._resolve_grammar(request, context)
+        its QoS class). The grammar resolves first (its aborts hold no
+        lease), then the adapter, whose lease returns to the arena if
+        the submit sheds. The prefill leg of a two-leg call admits for
+        one greedy token, unconstrained (the token is discarded)."""
+        grammar = (None if prefill_leg
+                   else await self._resolve_grammar(request, context))
+        adapter, lease = await self._resolve_adapter(request, context)
         tenant, qos_class = self._tenant_identity(request, context)
         trace_id = tracing.trace_id_from_metadata(
             context.invocation_metadata())
         try:
             it = self.batcher.submit(
-                prompt, self._max_new(request), self._sampling(request),
-                request.sampling.seed or 0, unary=unary, grammar=grammar,
-                trace_id=trace_id, tenant=tenant, qos_class=qos_class,
+                prompt,
+                1 if prefill_leg else self._max_new(request),
+                (SamplingConfig(temperature=0.0) if prefill_leg
+                 else self._sampling(request)),
+                0 if prefill_leg else (request.sampling.seed or 0),
+                unary=unary, grammar=grammar, trace_id=trace_id,
+                tenant=tenant, qos_class=qos_class, adapter=adapter,
+                adapter_key=request.adapter, adapter_lease=lease,
             )
             return it, qos_class
         except OverloadedError as exc:
+            self._release_adapter(lease)
             await context.abort(
                 grpc.StatusCode.RESOURCE_EXHAUSTED,
                 f"server overloaded ({exc.reason}): {exc}; "
@@ -306,6 +392,7 @@ class Sidecar:
             )
         except GrammarCapacityError as exc:
             # Too many distinct schemas decoding at once: transient.
+            self._release_adapter(lease)
             await context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED, str(exc))
 
     async def _abort_overloaded(self, context, qos_class: str) -> None:
@@ -321,8 +408,11 @@ class Sidecar:
     async def generate(self, request: serving_pb2.GenerateRequest, context):
         self._maybe_replica_crash()
         t0 = time.perf_counter()
-        await self._reject_unsupported(request, context)
         prompt = self._prompt_ids(request)
+        if request.kv_transfer_target:
+            # The prefill leg of a disaggregated call: prefill only, ship
+            # the pages, answer "transferred".
+            return await self._prefill_and_ship(request, context, prompt, t0)
         token_ids: list[int] = []
         finish = "length"
         it, qos_class = await self._submit(request, context, prompt,
@@ -353,8 +443,15 @@ class Sidecar:
         self, request: serving_pb2.GenerateRequest, context
     ):
         self._maybe_replica_crash()
-        await self._reject_unsupported(request, context)
         prompt = self._prompt_ids(request)
+        if request.kv_transfer_target:
+            # The same prefill leg as unary Generate; the stream carries
+            # one terminal "transferred" chunk.
+            await self._prefill_and_ship(request, context, prompt,
+                                         time.perf_counter())
+            yield serving_pb2.GenerateChunk(
+                finish_reason="transferred", done=True)
+            return
         stops = list(request.stop)
         decoder = self.tokenizer.stream_decoder()
         text = ""
@@ -391,6 +488,187 @@ class Sidecar:
                 return
         yield serving_pb2.GenerateChunk(finish_reason="length", done=True)
 
+    # -- KVTransferService: sidecar-to-sidecar page shipping ----------------
+
+    # Payload bytes per TransferKV chunk: under the default 4 MB gRPC
+    # message cap with the proto's overhead. A llama3-8b page (16
+    # positions, K and V over 32 layers in bf16) is 2 MiB, so one page
+    # rides each call. Each chunk is self-contained (prompt +
+    # start_page): a failed transfer leaves only a valid shorter prefix.
+    TRANSFER_CHUNK_BYTES = 2 << 20
+
+    def _transfer_call(self, target: str):
+        """Cached unary stub for a peer sidecar's TransferKV."""
+        channel = self._peer_channels.get(target)
+        if channel is None:
+            channel = grpc.aio.insecure_channel(target)
+            self._peer_channels[target] = channel
+        return channel.unary_unary(
+            "/ggrmcp.tpu.KVTransferService/TransferKV",
+            request_serializer=serving_pb2.KVTransferRequest.SerializeToString,
+            response_deserializer=serving_pb2.KVTransferResponse.FromString,
+        )
+
+    async def _ship_kv(self, target: str, prompt: list[int], export: dict,
+                       adapter: str = "") -> tuple[int, int]:
+        """Stream one exported prompt's pages to a peer sidecar as
+        in-order TransferKV chunks. Returns (pages, wire bytes); a
+        failure propagates to _prefill_and_ship's typed ABORTED."""
+        n = export["pages"]
+        per_page = max(1, sum(
+            a.nbytes for a in export.values() if isinstance(a, torch.Tensor)
+        ) // n)
+        per_chunk = max(1, self.TRANSFER_CHUNK_BYTES // per_page)
+        call = self._transfer_call(target)
+        quantized = "k_scale" in export
+        sent_bytes = 0
+        for start in range(0, n, per_chunk):
+            end = min(n, start + per_chunk)
+            # The page codec the host tier stores pages with.
+            payload = tensors.kv_pages_to_payload(
+                export["k"][:, start:end],
+                export["v"][:, start:end],
+                export["k_scale"][:, start:end] if quantized else None,
+                export["v_scale"][:, start:end] if quantized else None,
+            )
+            chunk = serving_pb2.KVTransferRequest(
+                prompt_ids=prompt,
+                page_size=export["page_size"],
+                start_page=start,
+                total_pages=n,
+                k_pages=payload.k,
+                v_pages=payload.v,
+                kv_dtype=self.serving.kv_cache_dtype,
+                model_id=self.generation.cfg.name,
+                done=end == n,
+                adapter=adapter,
+            )
+            if quantized:
+                chunk.k_scales.CopyFrom(payload.k_scales)
+                chunk.v_scales.CopyFrom(payload.v_scales)
+            sent_bytes += chunk.ByteSize()
+            await call(chunk, timeout=30.0)
+        return n, sent_bytes
+
+    async def _prefill_and_ship(self, request, context, prompt: list[int],
+                                t0: float):
+        """The prefill-role leg of a disaggregated call: admit the
+        prompt for ONE greedy token (the admission computes and indexes
+        the prompt's page chain; the token is discarded, so the decode
+        replica samples every output token itself), export the chain
+        under the request's adapter domain, ship it to the target.
+        Every failure is typed ABORTED ("kv transfer failed"), so the
+        gateway retries the whole call on a mixed replica."""
+        target = request.kv_transfer_target
+        # Clamp with the request's max_new and grammar flag: the chain
+        # shipped must be the one the decode replica's identically
+        # clamped admission looks up.
+        spec = request.constraint
+        constrained = bool(spec.json_schema or spec.tool_output_schema_ref)
+        prompt = self.batcher.clamp_prompt(
+            prompt, self._max_new(request), constrained=constrained)
+        try:
+            failpoints.evaluate("kv_transfer_fail")
+        except failpoints.FailpointError as exc:
+            self._transfer_stats["kv_transfer_failures"] += 1
+            await context.abort(
+                grpc.StatusCode.ABORTED,
+                f"kv transfer failed (injected): {exc}",
+            )
+        it, _ = await self._submit(request, context, prompt, unary=True,
+                                   prefill_leg=True)
+        finish = "error"
+        async for _ids, reason in it:
+            if reason:
+                finish = reason
+        if finish not in ("stop", "length", "grammar_complete"):
+            self._transfer_stats["kv_transfer_failures"] += 1
+            await context.abort(
+                grpc.StatusCode.ABORTED,
+                f"kv transfer failed: prefill finished {finish!r}",
+            )
+        try:
+            export = await self.batcher.run_host_op(
+                lambda: self.batcher.export_prompt_kv(
+                    prompt, adapter=request.adapter))
+            pages, wire_bytes = await self._ship_kv(
+                target, prompt, export, adapter=request.adapter)
+        except asyncio.CancelledError:
+            raise  # a client disconnect cancels, it is no failure
+        except Exception as exc:  # noqa: BLE001 — typed ABORTED below
+            self._transfer_stats["kv_transfer_failures"] += 1
+            logger.warning("kv transfer to %s failed: %s", target, exc)
+            await context.abort(
+                grpc.StatusCode.ABORTED, f"kv transfer failed: {exc}"
+            )
+        self._transfer_stats["kv_transfers_sent"] += 1
+        self._transfer_stats["kv_transfer_pages_sent"] += pages
+        self._transfer_stats["kv_transfer_bytes_sent"] += wire_bytes
+        logger.info(
+            "kv transfer: %d pages (%d bytes) of a %d-token prompt "
+            "shipped to %s", pages, wire_bytes, len(prompt), target,
+        )
+        return serving_pb2.GenerateResponse(
+            finish_reason="transferred",
+            prompt_tokens=len(prompt),
+            model_id=self.generation.cfg.name,
+            compute_ms=(time.perf_counter() - t0) * 1000,
+        )
+
+    async def transfer_kv(self, request: serving_pb2.KVTransferRequest,
+                          context):
+        """Receive one KV page chunk into this replica's arena. The
+        pages land at refcount 0 in the prefix index (evictable, like a
+        finished request's pages), and the device write runs in the
+        batcher's serialized stream, so no tick or admission sees a
+        half-written page."""
+        batcher = self.batcher
+        if batcher is None or not batcher._paged:
+            await context.abort(
+                grpc.StatusCode.FAILED_PRECONDITION,
+                "kv import requires a paged batcher (batching.paged_kv=on)",
+            )
+        if (request.kv_dtype or "") != (self.serving.kv_cache_dtype or ""):
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT,
+                f"kv dtype mismatch: sender {request.kv_dtype!r} vs "
+                f"receiver {self.serving.kv_cache_dtype!r}",
+            )
+        if request.page_size != batcher._page_size:
+            await context.abort(
+                grpc.StatusCode.INVALID_ARGUMENT,
+                f"page size mismatch: sender {request.page_size} vs "
+                f"receiver {batcher._page_size}",
+            )
+        payload = serving_pb2.KVPagePayload(
+            k=request.k_pages, v=request.v_pages)
+        if request.HasField("k_scales"):
+            payload.k_scales.CopyFrom(request.k_scales)
+            payload.v_scales.CopyFrom(request.v_scales)
+        k, v, k_scale, v_scale = tensors.kv_pages_from_payload(payload)
+        prompt = list(request.prompt_ids)
+        start = int(request.start_page)
+        try:
+            imported, present = await batcher.run_host_op(
+                lambda: batcher.import_prompt_kv(
+                    prompt, start, k, v, k_scale, v_scale,
+                    adapter=request.adapter,
+                )
+            )
+        except PageExhaustedError as exc:
+            # The receiving arena is full even after eviction: the
+            # overload ladder of an admission shed.
+            await context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED, str(exc))
+        except (KVTransferError, ValueError) as exc:
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(exc))
+        self._transfer_stats["kv_transfer_pages_received"] += imported
+        self._transfer_stats["kv_transfer_bytes_received"] += (
+            request.ByteSize())
+        if request.done:
+            self._transfer_stats["kv_transfers_received"] += 1
+        return serving_pb2.KVTransferResponse(
+            pages_imported=imported, pages_present=present)
+
     # -- ModelInfoService -----------------------------------------------
 
     async def get_model_info(self, request, context):
@@ -417,7 +695,10 @@ class Sidecar:
         else:
             comp = self.embedding.ledger.component_bytes()
             stats = {"memory_weights_bytes": comp.get(("", "weights"), 0)}
-        stats["role"] = "mixed"
+        # The role and the transfer plane's counters, which the
+        # gateway's role-aware router reads from the same snapshot.
+        stats["role"] = self.serving.role
+        stats.update(self._transfer_stats)
         return serving_pb2.ServingStatsResponse(**stats)
 
     # -- DebugService ---------------------------------------------------
@@ -550,7 +831,11 @@ class Sidecar:
         host = [
             serving_pb2.HostMemoryComponent(
                 component=comp, scope=scope, bytes=int(info.get("bytes", 0)),
-                entries=int(info.get("entries", 0)))
+                entries=int(info.get("entries", 0)),
+                budget_bytes=int(info.get("budget_bytes", 0)),
+                file_path=str(info.get("file_path", "")),
+                file_bytes=int(info.get("file_bytes", 0)),
+                file_entries=int(info.get("file_entries", 0)))
             for (scope, comp), info in sorted(ledger.host_components().items())
         ]
         return serving_pb2.MemoryResponse(
@@ -597,6 +882,18 @@ class Sidecar:
                         server_streaming=True,
                     ),
                 },
+            )
+            # Every generate replica receives pages: a mixed one too, or
+            # a decode replica's drain would leave transfers nowhere to
+            # land.
+            services.append("ggrmcp.tpu.KVTransferService")
+            add_service(
+                self.server, "ggrmcp.tpu.KVTransferService",
+                {"TransferKV": MethodDef(
+                    self.transfer_kv,
+                    serving_pb2.KVTransferRequest,
+                    serving_pb2.KVTransferResponse,
+                )},
             )
         add_service(
             self.server, "ggrmcp.tpu.ModelInfoService",
@@ -654,6 +951,14 @@ class Sidecar:
         return self.port
 
     async def stop(self) -> None:
+        for channel in self._peer_channels.values():
+            try:
+                await channel.close()
+            except asyncio.CancelledError:
+                raise  # a cancelled shutdown must not swallow itself
+            except Exception:  # noqa: BLE001 — the peer may be gone
+                pass
+        self._peer_channels.clear()
         if self.batcher is not None:
             await self.batcher.stop()
         if self.server is not None:

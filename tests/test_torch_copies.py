@@ -1,6 +1,7 @@
-"""The port's copies of the JAX package's jax-free control-plane modules:
-`utils/failpoints.py`, `serving/flight_recorder.py`, `serving/slo.py`
-and `serving/scheduler.py`. Each equals the reference's text except for
+"""The port's copies of the JAX package's jax-free modules:
+`utils/failpoints.py`, `serving/flight_recorder.py`, `serving/slo.py`,
+`serving/scheduler.py` and `serving/host_pool.py`, and the host half of
+`serving/adapter_arena.py`. Each equals the reference's text except for
 the lines listed here (imports, the logger's name, and comments that
 cite the reference project's issue and PR numbers), and the reference's
 own unit cases for each pass against the port's module: each case's
@@ -18,9 +19,14 @@ import types
 import pytest
 
 import tests.test_chaos as t_chaos
+import tests.test_host_pool as t_host
+import tests.test_lora_arena as t_arena
 import tests.test_observability as t_obs
 import tests.test_scheduler as t_sched
 import tests.test_slo_accounting as t_slo
+from ggrmcp_tpu.serving import adapter_arena as j_arena
+from ggrmcp_tpu_torch.models import llama as tl
+from ggrmcp_tpu_torch.serving import adapter_arena as t_arena_mod
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -43,6 +49,10 @@ ALLOWED = {
          "LatencyHistogram"),
     ],
     "serving/scheduler.py": [],
+    "serving/host_pool.py": [(
+        'logger = logging.getLogger("ggrmcp.serving.host_pool")',
+        'logger = logging.getLogger("ggrmcp.torch.host_pool")',
+    )],
 }
 # Module -> the port's comment lines that drop the reference's citation
 # of its own issue or PR number (the rest of the line may be reworded).
@@ -54,6 +64,10 @@ SCRUBBED = {
         "  the three partition total_requests EXACTLY per class — the same",
         "        # storage and no computation anywhere (the recorder's "
         "contract).",
+    ],
+    "serving/host_pool.py": [
+        "— the thrash cliff the page arena flipped at 3x the working set "
+        "comes back at",
     ],
 }
 CITATION = re.compile(r"\b(?:ISSUE|PR) \d")
@@ -116,6 +130,7 @@ def _port_env(module) -> dict:
         twin = _port_twin(value)
         if twin is not None:
             env[key] = twin
+    env.update(EXTRA.get(module, {}))
     for key, value in vars(module).items():
         if isinstance(value, types.FunctionType) and (
                 value.__globals__ is vars(module)):
@@ -136,7 +151,18 @@ CLASSES = [
     (t_sched, "TestSchedulerQueue", ("SchedulerQueue", "SchedulerConfig")),
     (t_sched, "TestSchedulerPolicy", ("Scheduler", "SchedulerConfig",
                                       "SloAccount", "TenantTable")),
+    (t_host, "TestPageCodec", ("tensors",)),
+    (t_host, "TestHostPagePool", ("HostPagePool", "tensors")),
+    (t_host, "TestAllocatorTwoTier", ("PageAllocator", "HostPagePool")),
+    (t_host, "TestReclaimVictimSelection", ("PageAllocator",)),
+    (t_arena, "TestArenaUnits", ("AdapterArena", "AdapterExhaustedError",
+                                 "AdapterLoadError", "UnknownAdapterError")),
 ]
+# Module-level objects that are no class, function or module: the
+# reference model config the arena units build on becomes the port's.
+EXTRA = {t_arena: {"CFG": tl.CONFIGS["tiny-llama"]}}
+# The fixtures a reference unit case may take.
+FIXTURES = ("self", "tmp_path", "registry")
 # The reference's check of its own Config.validate, held for the port by
 # tests/test_torch_serving.py::test_unsupported_config_raises.
 SKIP = {("TestFailpointRegistry", "test_config_validates_failpoint_spec")}
@@ -149,24 +175,82 @@ def _cases():
         for name, fn in vars(cls).items():
             if not name.startswith("test_") or (cls_name, name) in SKIP:
                 continue
-            assert list(inspect.signature(fn).parameters) == ["self"], (
+            params = list(inspect.signature(fn).parameters)
+            assert set(params) <= set(FIXTURES), (
                 f"{cls_name}.{name} takes a fixture")
             out.append(pytest.param(cls_name, name,
                                     id=f"{cls_name}.{name}"))
     return out
 
 
+@pytest.fixture(scope="module")
+def registry(tmp_path_factory):
+    """The reference arena units' registry of three adapters."""
+    path = str(tmp_path_factory.mktemp("lora-registry"))
+    for i, name in enumerate(("a0", "a1", "a2")):
+        t_arena.save_adapter(path, name, seed=10 + i)
+    return path
+
+
 @pytest.mark.parametrize("cls_name,method", _cases())
-async def test_reference_unit_case_on_port(cls_name, method):
+async def test_reference_unit_case_on_port(cls_name, method, tmp_path,
+                                           registry):
     module, _, bound = next(c for c in CLASSES if c[1] == cls_name)
     env = _port_env(module)
     for name in bound:
-        assert env[name].__module__.startswith("ggrmcp_tpu_torch."), name
+        twin = env[name]
+        where = (twin.__name__ if isinstance(twin, types.ModuleType)
+                 else twin.__module__)
+        assert where.startswith("ggrmcp_tpu_torch."), name
     cls = getattr(module, cls_name)
     port_cls = type(cls_name, (), {
         k: _rebind(v, env) if isinstance(v, types.FunctionType) else v
         for k, v in vars(cls).items() if k not in ("__dict__", "__weakref__")
     })
-    result = getattr(port_cls(), method)()
+    fn = getattr(port_cls(), method)
+    given = {"tmp_path": tmp_path, "registry": registry}
+    result = fn(**{name: given[name]
+                   for name in inspect.signature(fn).parameters})
     if inspect.isawaitable(result):
         await result
+
+
+# The adapter arena's host half: each of these equals the reference's
+# source except for the listed port lines, which drop a docstring's
+# hyphenated cross-reference tag (an upper-case word and a number) of
+# the reference's own history.
+ARENA_HOST_HALF = (
+    "AdapterExhaustedError", "UnknownAdapterError", "AdapterLoadError",
+    "AdapterLease", "AdapterArena.register_ledger",
+    "AdapterArena.attach_commit", "AdapterArena._check_name",
+    "AdapterArena.registered", "AdapterArena.resident",
+    "AdapterArena.acquire", "AdapterArena._take_row_locked",
+    "AdapterArena.release", "AdapterArena.stats",
+    "AdapterArena.check_invariants",
+)
+ARENA_SCRUBBED = {
+    "AdapterExhaustedError": [
+        "    overload ladder) — and resident rows are untouched.\"\"\"",
+    ],
+}
+
+
+@pytest.mark.parametrize("name", ARENA_HOST_HALF)
+def test_adapter_arena_host_half_equals_reference(name):
+    def source(module):
+        obj = module
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        return inspect.getsource(obj).splitlines()
+
+    ref, port = source(j_arena), source(t_arena_mod)
+    assert len(ref) == len(port)
+    scrubbed = []
+    tag = re.compile(r"\b[A-Z]+-\d+ ")
+    for op, i1, i2, j1, j2 in difflib.SequenceMatcher(
+            None, ref, port, autojunk=False).get_opcodes():
+        for old, new in zip(ref[i1:i2], port[j1:j2]):
+            if op != "equal":
+                assert tag.sub("", old, count=1) == new, (old, new)
+                scrubbed.append(new)
+    assert scrubbed == ARENA_SCRUBBED.get(name, [])

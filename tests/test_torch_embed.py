@@ -188,8 +188,9 @@ async def _gateway(target, calls):
         await gw.stop()
 
 
-# Services of the reference sidecar that the port does not serve yet.
-UNPORTED_TOOLS = ("ggrmcp_tpu_kvtransferservice_",)
+# Services of the reference sidecar that the port does not serve: none
+# (it serves KVTransferService too).
+UNPORTED_TOOLS = ()
 
 
 async def test_embed_sidecar_and_gateway_match_reference():

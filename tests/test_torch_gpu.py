@@ -842,3 +842,190 @@ async def test_preempt_and_tick_fail_on_card_match_cpu(cuda):
     finally:
         failpoints.registry.disarm()
     assert batcher.stats()["replayed_requests"] > 0
+
+
+def _seq_prompts():
+    return [[(i * 13 + s * 71 + 5) % 500 + 1 for i in range(32)] + [400 + s]
+            for s in range(4)] * 2
+
+
+async def _serve_seq(batcher, prompts, max_new=4, **kw):
+    """Prompts one after another (deterministic arena pressure); the
+    counters are read before stop (stop closes the host pool)."""
+    batcher.start()
+    try:
+        outs = []
+        for p in prompts:
+            out = []
+            async for ids, _ in batcher.submit(p, max_new, SamplingConfig(),
+                                               **kw):
+                out.extend(ids)
+            outs.append(out)
+        return outs, batcher.stats()
+    finally:
+        await batcher.stop()
+
+
+async def test_host_tier_on_card_matches_cpu(cuda):
+    """tiny-llama float32: the host page tier on the card (pages gathered
+    to the host and written back) gives the CPU's greedy tokens and
+    demotion / restore counters, and so does a preempt cycle whose
+    resume restores the victim's parked pages."""
+    from ggrmcp_tpu_torch.core.config import SchedulerConfig
+
+    cfg = tl.CONFIGS["tiny-llama"]
+    params = tl.init_params(cfg, torch.device("cpu"), seed=11)
+    small = dict(max_batch_size=2, kv_cache_max_seq=128, paged_kv="on",
+                 paged_kv_page_size=8, paged_kv_pages=16,
+                 paged_kv_host_bytes=64 << 20)
+    runs = []
+    for device, p in (("cpu", params), (cuda, _to(params, cuda))):
+        runs.append(await _serve_seq(ContinuousBatcher(
+            GenerationEngine(cfg, params=p, device=device),
+            BatchingConfig(**small)), _seq_prompts()))
+    (ref, ref_stats), (out, stats) = runs
+    assert out == ref
+    keys = ("kv_host_demotions", "kv_host_restores", "kv_host_bytes_demoted",
+            "kv_host_bytes_restored", "paged_pages_reused")
+    assert {k: stats[k] for k in keys} == {k: ref_stats[k] for k in keys}
+    assert stats["kv_host_restores"] > 0
+
+    victims = [([(i * 7 + 3) % 500 + 1 for i in range(40)], 12)]
+    interactive = ([(i * 11 + 2) % 500 + 1 for i in range(56)], 8)
+    one = dict(small, max_batch_size=1, paged_kv_pages=12)
+    cpu_eng = GenerationEngine(cfg, params=params, device="cpu")
+    base = await _preempt_cycle(
+        ContinuousBatcher(cpu_eng, BatchingConfig(**one)), victims, None)
+    base += await _preempt_cycle(
+        ContinuousBatcher(cpu_eng, BatchingConfig(**one)), [interactive],
+        None)
+    sched = ServingConfig(scheduler=SchedulerConfig(
+        enabled=True, preempt_wait_fraction=1e-6))
+    batcher = ContinuousBatcher(
+        GenerationEngine(cfg, sched, params=_to(params, cuda), device=cuda),
+        BatchingConfig(**one))
+    assert await _preempt_cycle(batcher, victims, interactive) == base
+    stats = batcher.stats()
+    assert stats["sched_resumes"] >= 1 and stats["kv_host_restores"] >= 1
+
+
+async def test_kv_export_import_on_card_matches_cpu(cuda):
+    """Pages exported on the card import into another card batcher and
+    into a CPU one (and the reverse), bit for bit through the wire codec;
+    each decode replica gives the one-replica CPU tokens. A bf16 arena's
+    pages round-trip the codec bit for bit."""
+    from ggrmcp_tpu_torch.serving import tensors
+
+    cfg = tl.CONFIGS["tiny-llama"]
+    params = tl.init_params(cfg, torch.device("cpu"), seed=11)
+    small = dict(max_batch_size=2, kv_cache_max_seq=256, paged_kv="on",
+                 paged_kv_page_size=8)
+    prompt = [(i * 13 + 5) % 500 + 1 for i in range(60)]
+    engs = {"cpu": GenerationEngine(cfg, params=params, device="cpu"),
+            "cuda": GenerationEngine(cfg, params=_to(params, cuda),
+                                     device=cuda)}
+
+    def make(where):
+        return ContinuousBatcher(engs[where], BatchingConfig(**small))
+
+    mixed = make("cpu")
+    want, _ = await _serve_seq(mixed, [prompt], max_new=10)
+    for src_at, dst_at in (("cuda", "cuda"), ("cuda", "cpu"), ("cpu", "cuda")):
+        src, dst = make(src_at), make(dst_at)
+        src.start()
+        dst.start()
+        try:
+            async for _ in src.submit(prompt, 1, SamplingConfig()):
+                pass
+            export = await src.run_host_op(lambda: src.export_prompt_kv(prompt))
+            k, v, _, _ = tensors.unpack_kv_pages(
+                tensors.pack_kv_pages(export["k"], export["v"]))
+            imported, _ = await dst.run_host_op(
+                lambda: dst.import_prompt_kv(prompt, 0, k, v))
+            assert imported == export["pages"] == 7
+            again = dst._gather_pages(dst.pages.chain_pages(prompt))
+            assert torch.equal(again["k"], export["k"])
+        finally:
+            await src.stop()
+            await dst.stop()
+        got, stats = await _serve_seq(dst, [prompt], max_new=10)
+        assert got == want, (src_at, dst_at)
+    bf16 = dataclasses_replace(cfg, dtype="bfloat16")
+    eng = GenerationEngine(bf16, params=_to(
+        tl.init_params(bf16, torch.device("cpu"), seed=11), cuda), device=cuda)
+    b = ContinuousBatcher(eng, BatchingConfig(**small))
+    b.start()
+    try:
+        async for _ in b.submit(prompt, 1, SamplingConfig()):
+            pass
+        export = await b.run_host_op(lambda: b.export_prompt_kv(prompt))
+    finally:
+        await b.stop()
+    assert export["k"].dtype == torch.bfloat16
+    k, v, _, _ = tensors.unpack_kv_pages(
+        tensors.pack_kv_pages(export["k"], export["v"]))
+    assert torch.equal(k, export["k"]) and torch.equal(v, export["v"])
+
+
+def dataclasses_replace(cfg, **kw):
+    import dataclasses
+
+    return dataclasses.replace(cfg, **kw)
+
+
+async def test_lora_on_card_matches_cpu(cuda, tmp_path):
+    """Boot-time adapters and the registry arena on the card: a mixed
+    burst of base and adapter'd requests (the arena churning its rows)
+    gives the CPU's greedy tokens; a zero-b adapter equals base bit for
+    bit."""
+    from ggrmcp_tpu_torch.core.config import LoraConfig
+
+    cfg = tl.CONFIGS["tiny-llama"]
+    params = tl.init_params(cfg, torch.device("cpu"), seed=11)
+    out = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    rng = np.random.default_rng(5)
+    for name in ("a0", "a1", "a2"):
+        np.savez(tmp_path / f"{name}.npz",
+                 a=rng.normal(0, 0.25, (cfg.num_layers, cfg.hidden_dim, 4)),
+                 b=rng.normal(0, 0.25, (cfg.num_layers, 4, out)))
+    np.savez(tmp_path / "zero.npz",
+             a=rng.normal(0, 0.25, (cfg.num_layers, cfg.hidden_dim, 4)),
+             b=np.zeros((cfg.num_layers, 4, out)))
+    # Three rows: each wave's three adapters fit; the second wave's
+    # evict the first's.
+    serving = ServingConfig(lora=LoraConfig(registry=str(tmp_path), rank=4,
+                                            arena_rows=3))
+    prompts = _prompts()
+    names = ["a0", "", "a1", "a2", "zero", "a0"]
+    runs = []
+    for device, p in (("cpu", params), (cuda, _to(params, cuda))):
+        eng = GenerationEngine(cfg, serving, params=dict(p, layers=dict(
+            p["layers"])), device=device)
+        batcher = ContinuousBatcher(eng, BatchingConfig(
+            max_batch_size=4, kv_cache_max_seq=256, prefill_chunk=16))
+        batcher.start()
+        try:
+            async def one(prompt, name):
+                kw = {}
+                if name:
+                    lease = await batcher.acquire_adapter(name)
+                    kw = dict(adapter=lease.row, adapter_key=name,
+                              adapter_lease=lease)
+                got = []
+                async for ids, _ in batcher.submit(prompt, 7,
+                                                   SamplingConfig(), **kw):
+                    got.extend(ids)
+                return got
+
+            outs = []
+            for wave in (range(3), range(3, 6)):
+                outs += await asyncio.gather(*(
+                    one(prompts[i], names[i]) for i in wave))
+        finally:
+            await batcher.stop()
+        base = eng.generate([prompts[4]], max_new_tokens=7)[0][0]
+        runs.append((outs, base, eng.lora_stats()))
+    (ref, _, ref_stats), (got, base, stats) = runs
+    assert got == ref
+    assert got[4] == base  # the zero-b adapter is the base model
+    assert stats["lora_evictions"] == ref_stats["lora_evictions"] > 0

@@ -48,17 +48,10 @@ VOCAB = tl.CONFIGS["tiny-llama"].vocab_size
 CFG = dict(max_batch_size=4, kv_cache_max_seq=256, prefill_chunk=16,
            max_queue_delay_ms=1000.0)
 # stats() keys of the reference batcher the port does not export:
-# speculative ticks, LoRA and the host page tier are not ported.
+# speculative ticks are not ported.
 UNPORTED_STATS = {
     "spec_ticks", "spec_drafted", "spec_accepted",
-    "memory_draft_cache_bytes", "memory_lora_bytes",
-    "lora_adapters_registered", "lora_adapters_resident", "lora_rows_total",
-    "lora_loads", "lora_evictions", "lora_hits", "lora_load_ms",
-    "lora_shed",
-    "kv_host_entries", "kv_host_bytes_used", "kv_host_budget_bytes",
-    "kv_host_file_entries", "kv_host_file_bytes", "kv_host_demotions",
-    "kv_host_restores", "kv_host_bytes_demoted", "kv_host_bytes_restored",
-    "kv_host_restore_failures",
+    "memory_draft_cache_bytes",
 }
 # Record fields that must agree (the rest are wall-clock stamps, or tick
 # numbers).
