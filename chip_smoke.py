@@ -95,7 +95,24 @@ Phases, any failure exits non-zero and prints no result:
    base), an adapter'd two-leg call, a churning 2-row arena and
    adapter_load_fail (ABORTED); (d) phase 11d's scheduler traffic on an
    arena holding the batch exactly with the host tier attached: the
-   resumes restore the parked pages.
+   resumes restore the parked pages;
+13. speculative decoding, ring KV and length tiers at mistral-7b width
+   with the llama-1b draft (gamma 4), through sidecars configured by a
+   `--config` file on one weight set: (a) a 16-call burst (8 greedy, 4 at
+   temperature 0.8, 2 top-k, 2 constrained by phase 10's schemas) with
+   `batching.speculative` on and off (tick p50, tokens/s, acceptance,
+   greedy streams on vs off counted, B1 launching once a layer a verify
+   tick, one sampled round's threefry draws timed); (b) a self-draft (the
+   target's own tensors as the draft), 8 greedy calls: acceptance, tokens
+   a row a tick, streams against spec off; (c) the micro-path
+   (`speculative=off` with the draft): the 8 calls' `speculative_calls`
+   against `speculative_requests`, tokens against the batcher's; (d) 8
+   prompts of 5000-7000 tokens through the ring (capacity 4607, 8 slots)
+   and the contiguous windowed cache at 8192 (streams counted, KV bytes
+   from GetMemory, TTFT; the ring never launches B1); (e) tiers [[1024,
+   32], [8192, 4]] against one 28-slot pool at 8192 with 24 short calls
+   and 4 of 6000 tokens together (each tier's admissions, TTFT of each
+   kind, KV bytes).
 
 The last lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -173,6 +190,8 @@ def cuda_ms_spread(torch, fn, runs: int = 5, reps: int = 10) -> dict:
 
 # Jump-window rows: offsets spread over 64-3000, then one at 4095.
 JUMP_OFFSETS = tuple(64 + (2936 * i) // 30 for i in range(31)) + (4095,)
+# Verify-window rows: offsets spread over 64-4000.
+VERIFY_OFFSETS = tuple(64 + (3936 * i) // 31 for i in range(32))
 # name, b, sq, sk, h, kvh, d, causal, q_offset, kv_len, window, dtype,
 # what it stands for
 CASES = [
@@ -213,6 +232,13 @@ CASES = [
      tuple(o + 9 for o in JUMP_OFFSETS), None, "bfloat16",
      "jump tick: [32, 1 + jump_max] window, ragged offsets, the 4097 "
      "pool; one row's kv_len past Sk by 8"),
+    # The speculative verify: each row's pending token and gamma = 4
+    # proposals at its own length over the 4097 pool, mistral-7b's
+    # window.
+    ("verify_window_32x5", 32, 5, 4096, 32, 8, 128, True, VERIFY_OFFSETS,
+     tuple(o + 5 for o in VERIFY_OFFSETS), 4096, "bfloat16",
+     "spec verify: [32, gamma + 1] window, ragged offsets 64-4000, "
+     "mistral-7b's window 4096 over the 4097 pool"),
     # kv_len None: ragged, each row's length drawn from 17 to S.
     ("bert_32x128", 32, 128, 128, 12, 12, 64, False, 0, None, None,
      "bfloat16", "bert-base embed batch, S=128 bucket, ragged rows"),
@@ -222,7 +248,7 @@ CASES = [
 HEADLINE = "fused_32x512"
 # The cases phase 3 also times `attention_ref` on (the dispatcher's other
 # path at the shape).
-REF_TIMED = ("jump_window_32x9",)
+REF_TIMED = ("jump_window_32x9", "verify_window_32x5")
 DESIGN = ("bf16: TMA-fed wgmma (m64n128k16 S = Q K^T from shared memory, "
           "P V with P in registers), 1 producer + 2 consumer warpgroups, "
           "128 x 128 tiles, 2-stage mbarrier ring, persistent blocks; "
@@ -258,7 +284,7 @@ def kernel_cases(torch, tatt, dev) -> list[dict]:
             q, k, v = (t.reshape(b, sq, h, d) for t in qkv.chunk(3, dim=-1))
             check(all(tatt._kernel_layout_ok(t) for t in (q, k, v)),
                   f"{name}: the kernel would copy the split q/k/v views")
-        elif name.startswith(("chunk", "pfx", "ilv", "jump")):
+        elif name.startswith(("chunk", "pfx", "ilv", "jump", "verify")):
             # The model's operand: [:, :S_max] of a [B, S_max + 1, ...]
             # per-layer cache slice (not contiguous).
             kc, vc = (torch.randn((b, sk + 1, kvh, d), generator=gen,
@@ -3382,6 +3408,365 @@ async def paged_lora_phase(torch, tatt, dev, spec=None) -> dict:
     return res
 
 
+# -- phase 13: speculative decoding, ring KV, length tiers ---------------------
+
+# The card's sizes; a smaller spec drives the same code on the CPU.
+P13 = dict(
+    model="mistral-7b", draft="llama-1b", gamma=4,
+    batching=dict(max_batch_size=32), chunk=512,
+    # (a) 16 concurrent calls: 8 greedy, 4 at temperature 0.8, 2 top-k,
+    # 2 constrained by phase 10's schemas.
+    burst_new=32, burst_prompts=(40, 90, 160, 250),
+    # (b) self-draft and (c) the micro-path: 8 greedy calls.
+    greedy_calls=8, greedy_new=64,
+    # (d) the ring (capacity 4096 + 512 - 1 = 4607): 8 prompts of
+    # 5000-7000 tokens, 32 new tokens each, 8 slots; the contiguous
+    # windowed cache at 8192.
+    ring_prompts=tuple(5000 + 2000 * i // 7 for i in range(8)), ring_new=32,
+    ring_slots=8, flat_seq=8192,
+    # (e) tiers [[1024, 32], [8192, 4]] against one 28-slot pool at
+    # 8192: 24 short calls and 4 of 6000 tokens, together.
+    tiers=[[1024, 32], [8192, 4]], tier_short=24, tier_long=4,
+    tier_long_tokens=6000, tier_new=16, flat_slots=28,
+)
+# (a)'s burst: (sampling fields, schema name) per call.
+SPEC_BURST = ([({}, None)] * 8 + [(dict(temperature=0.8), None)] * 4
+              + [(dict(temperature=0.8, top_k=40), None)] * 2
+              + [({}, "flat"), ({}, "const")])
+
+
+def _device_ms(torch, dev, fn, reps: int) -> float:
+    """Mean ms of `fn` over `reps` runs: CUDA events on the card, the
+    host clock (synchronised) elsewhere."""
+    if dev.type == "cuda":
+        return cuda_ms(torch, fn, reps)
+    fn()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t) * 1e3 / reps
+
+
+def _spec_ticks(torch, dev, batcher) -> None:
+    """Time the batcher's tick bodies (synchronised) and count B1's
+    launches inside its spec ticks: `batcher.tick_log`."""
+    from ggrmcp_tpu_torch.ops import attention as tatt
+
+    batcher.tick_log = {"spec": [], "plain": [], "spec_launches": 0}
+
+    def timed(kind, body):
+        def run(*args, **kwargs):
+            launched = tatt.flash_attention.launches
+            t = time.perf_counter()
+            out = body(*args, **kwargs)
+            _sync(torch, dev)
+            batcher.tick_log[kind].append((time.perf_counter() - t) * 1e3)
+            if kind == "spec":
+                batcher.tick_log["spec_launches"] += (
+                    tatt.flash_attention.launches - launched)
+            return out
+        return run
+
+    batcher._tick_spec_impl = timed("spec", batcher._tick_spec_impl)
+    # A plain batcher's ticks: one-token ticks, and jump ticks while a
+    # constrained row can jump.
+    batcher._tick_impl = timed("plain", batcher._tick_impl)
+    batcher._tick_jump_impl = timed("plain", batcher._tick_jump_impl)
+    _hold_admission(batcher)
+
+
+def _ttft_log(batcher) -> None:
+    """Record each request's (prompt tokens, TTFT ms: submit to first-token
+    sample, on the server) in `batcher.ttft_ms`."""
+    batcher.ttft_ms = []
+    activate = batcher._activate_slot
+
+    def timed_activate(slot_idx, request, first_tok):
+        batcher.ttft_ms.append((
+            request.n_prompt, (time.perf_counter() - request.t_submit) * 1e3))
+        return activate(slot_idx, request, first_tok)
+
+    batcher._activate_slot = timed_activate
+
+
+async def _spec_serve(torch, tatt, dev, params, tmp, spec, serving, name,
+                      calls, hold=True):
+    """Start a sidecar, send `calls` ((text, max_new, fields) each)
+    concurrently (`hold`: in one admission round), stop it. Returns the
+    outputs, the stats' deltas, GetMemory's KV bytes, the TTFTs, the
+    tick log and B1's launches."""
+    import grpc.aio
+
+    side = _p12_sidecar(torch, params, dev, serving, tmp, spec, name)
+    if hasattr(side.batcher, "tiers"):
+        for tier in side.batcher.tiers:
+            _ttft_log(tier)
+    else:
+        _spec_ticks(torch, dev, side.batcher)
+        _ttft_log(side.batcher)
+        side.batcher.hold_for = len(calls) if hold else 0
+    launched = tatt.flash_attention.launches
+    await side.start(0)
+    try:
+        async with grpc.aio.insecure_channel(side.target) as ch:
+            client = _P12Client(ch)
+            before = await client.stats()
+            t = time.perf_counter()
+            outs = await asyncio.gather(*(
+                client.call(text, max_new, **fields)
+                for text, max_new, fields in calls))
+            wall = time.perf_counter() - t
+            after = await client.stats()
+            memory = await client.memory()
+    finally:
+        await side.stop()
+    _sync(torch, dev)
+    batchers = getattr(side.batcher, "tiers", [side.batcher])
+    res = dict(
+        tokens=[ids for ids, _, _ in outs],
+        finish=[r for _, r, _ in outs], wall_s=wall,
+        launches=tatt.flash_attention.launches - launched,
+        delta={k: getattr(after, k) - getattr(before, k) for k in (
+            "ticks", "spec_ticks", "spec_drafted", "spec_accepted",
+            "speculative_calls", "speculative_requests",
+            "speculative_drafted", "speculative_accepted", "admit_rounds")},
+        kv_arena_bytes=sum(c.bytes for c in memory.components
+                           if c.component == "kv_arena"),
+        draft_cache_bytes=sum(c.bytes for c in memory.components
+                              if c.component == "draft_cache"),
+        ttft_ms=[ms for b in batchers for ms in getattr(b, "ttft_ms", [])],
+        admissions=[b.fused_admissions + b.chunked_admissions
+                    for b in batchers],
+        tick_log={k: v for k, v in getattr(batchers[0], "tick_log",
+                                           {}).items()},
+    )
+    for ids, reason, _ in outs:
+        check(reason in ("length", "stop", "grammar_complete") and ids,
+              f"13 {name}: a call ended {reason!r} after {len(ids)} tokens")
+    del side
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def _short_ttft(run, spec, long=False) -> dict:
+    """TTFT summary of the short (or the long) calls of a tier run."""
+    cut = spec["tier_long_tokens"]
+    return _ttft([ms for n, ms in run["ttft_ms"] if (n >= cut) == long])
+
+
+def _threefry_round_ms(torch, dev, rows: int, vocab: int, gamma: int):
+    """One sampled round's draws at [rows, vocab]: gamma proposal Gumbels,
+    the accept uniforms and the residual Gumbel (ops/sampling.py's eager
+    threefry)."""
+    from ggrmcp_tpu_torch.ops import sampling as ts
+
+    keys = ts.fold_in(ts.prng_key(torch.arange(rows, device=dev)), 1)
+
+    def draws():
+        for tag in range(1, gamma + 1):
+            ts.gumbel(ts.fold_in(keys, tag), vocab)
+        ts.uniform(ts.fold_in(keys, 700), gamma)
+        ts.gumbel(ts.fold_in(keys, 900), vocab)
+
+    return _device_ms(torch, dev, draws, 5)
+
+
+async def spec_ring_tier_phase(torch, tatt, dev, spec=None) -> dict:
+    """Phase 13: (a) speculative ticks with the draft against plain ticks,
+    (b) a self-draft, (c) the micro-path, (d) the ring against the
+    contiguous windowed cache, (e) length tiers against one pool; all
+    through sidecars configured by a `--config` file on one seeded
+    weight set."""
+    import tempfile
+
+    from ggrmcp_tpu_torch.grammar import compile_schema
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.rpc.pb import serving_pb2 as pb
+
+    spec = spec or P13
+    cfg = llama_mod.CONFIGS[spec["model"]]
+    params = llama_mod.init_params(cfg, dev, SEED)
+    res: dict = {}
+    gamma, layers = spec["gamma"], cfg.num_layers
+    bnew = spec["burst_new"]
+    # The path's run starts here: every launch count from 0.
+    tatt.flash_attention.launches = 0
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        t = time.perf_counter()
+        limits = {name: longest_output(compile_schema(
+            GRAMMAR_SCHEMAS[name], vocab_size=cfg.vocab_size)) + 1
+            for name in ("flat", "const")}
+        burst = []
+        for i, (fields, schema) in enumerate(SPEC_BURST):
+            text = _prompt_text(spec["burst_prompts"][
+                i % len(spec["burst_prompts"])], 1300 + i)
+            f = dict(sampling=pb.SamplingParams(seed=7 + i, **fields))
+            if schema:
+                f["constraint"] = pb.ConstraintSpec(
+                    json_schema=json.dumps(GRAMMAR_SCHEMAS[schema]))
+            burst.append((text, limits[schema] if schema else bnew, f))
+        greedy = [(_prompt_text(spec["burst_prompts"][i % 4], 1400 + i),
+                   spec["greedy_new"], {})
+                  for i in range(spec["greedy_calls"])]
+        base = dict(grammar=dict(jump_max=8))
+        off = await _spec_serve(torch, tatt, dev, params, tmp, spec, base,
+                                "spec_off", burst)
+        off_greedy = await _spec_serve(torch, tatt, dev, params, tmp, spec,
+                                       base, "greedy_off", greedy)
+        on = await _spec_serve(torch, tatt, dev, params, tmp, spec, dict(
+            base, speculative_draft=spec["draft"],
+            speculative_gamma=gamma,
+            batching=dict(speculative="on")), "spec_on", burst)
+        log_on = on["tick_log"]
+        n_spec = len(log_on["spec"])
+        check(n_spec > 0 and on["delta"]["spec_ticks"] == n_spec,
+              f"(a) spec ticks: {on['delta']}, timed {n_spec}")
+        if dev.type == "cuda":
+            check(log_on["spec_launches"] == layers * n_spec,
+                  f"(a) B1 launched {log_on['spec_launches']} times in "
+                  f"{n_spec} spec ticks, not {layers} a verify")
+        gtok = [t for t, (f, s) in zip(on["tokens"], SPEC_BURST)
+                if not f and not s]
+        gref = [t for t, (f, s) in zip(off["tokens"], SPEC_BURST)
+                if not f and not s]
+        d = on["delta"]
+        res["spec"] = dict(
+            tick_ms_p50_on=_median(log_on["spec"]),
+            tick_ms_p50_off=_median(off["tick_log"]["plain"]),
+            ticks_on=n_spec, ticks_off=len(off["tick_log"]["plain"]),
+            tokens_per_s_on=sum(map(len, on["tokens"])) / on["wall_s"],
+            tokens_per_s_off=sum(map(len, off["tokens"])) / off["wall_s"],
+            acceptance=d["spec_accepted"] / max(1, d["spec_drafted"]),
+            drafted=d["spec_drafted"], accepted=d["spec_accepted"],
+            greedy_on_vs_off=_agreement(gtok, gref),
+            finish_on=on["finish"], launches=on["launches"],
+            verify_launches=log_on["spec_launches"],
+            draft_cache_bytes=on["draft_cache_bytes"],
+            threefry_round_ms=_threefry_round_ms(
+                torch, dev, spec["batching"]["max_batch_size"],
+                cfg.vocab_size, gamma),
+            seconds=time.perf_counter() - t)
+        log(f"  (a) spec in the batcher: {json.dumps(_brief(res['spec']))}")
+
+        t = time.perf_counter()
+        real_init = llama_mod.init_params
+
+        def self_draft(c, device, seed=0):
+            # The draft's seeded draw (seed + 1) becomes the target's own
+            # tensors: a draft that proposes what the target would.
+            if c is cfg and seed == SEED + 1:
+                return params
+            return real_init(c, device, seed)
+
+        llama_mod.init_params = self_draft
+        try:
+            selfd = await _spec_serve(
+                torch, tatt, dev, params, tmp, spec, dict(
+                    base, speculative_draft=spec["model"],
+                    speculative_gamma=gamma,
+                    batching=dict(speculative="on")), "self_draft", greedy)
+        finally:
+            llama_mod.init_params = real_init
+        d = selfd["delta"]
+        rows_ticks = d["spec_drafted"] / gamma
+        if dev.type == "cuda":
+            check(selfd["tick_log"]["spec_launches"]
+                  == layers * len(selfd["tick_log"]["spec"]),
+                  "(b) B1 did not launch once a layer a verify")
+        res["self_draft"] = dict(
+            acceptance=d["spec_accepted"] / max(1, d["spec_drafted"]),
+            tokens_per_row_tick=1 + d["spec_accepted"] / max(1, rows_ticks),
+            ticks=d["spec_ticks"],
+            tick_ms_p50=_median(selfd["tick_log"]["spec"]),
+            tick_ms_p50_off=_median(off_greedy["tick_log"]["plain"]),
+            vs_spec_off=_agreement(selfd["tokens"], off_greedy["tokens"]),
+            launches=selfd["launches"], seconds=time.perf_counter() - t)
+        log(f"  (b) self-draft: {json.dumps(_brief(res['self_draft']))}")
+
+        t = time.perf_counter()
+        micro = await _spec_serve(torch, tatt, dev, params, tmp, spec, dict(
+            base, speculative_draft=spec["draft"], speculative_gamma=gamma,
+            batching=dict(max_queue_delay_ms=200.0)), "micro", greedy,
+            hold=False)
+        d = micro["delta"]
+        check(d["speculative_requests"] == len(greedy) and d["ticks"] == 0,
+              f"(c) the micro-path served {d}")
+        res["micro"] = dict(
+            calls=d["speculative_calls"], requests=d["speculative_requests"],
+            acceptance=d["speculative_accepted"]
+            / max(1, d["speculative_drafted"]),
+            vs_batcher=_agreement(micro["tokens"], off_greedy["tokens"]),
+            wall_s=micro["wall_s"], launches=micro["launches"],
+            seconds=time.perf_counter() - t)
+        log(f"  (c) micro-path: {json.dumps(_brief(res['micro']))}")
+
+        t = time.perf_counter()
+        ring_calls = [(_prompt_text(n, 1500 + i), spec["ring_new"], {})
+                      for i, n in enumerate(spec["ring_prompts"])]
+        one = dict(max_batch_size=spec["ring_slots"],
+                   prefill_chunk=spec["chunk"])
+        ring = await _spec_serve(torch, tatt, dev, params, tmp, spec, dict(
+            kv_ring=True, batching=one), "ring", ring_calls)
+        flat = await _spec_serve(torch, tatt, dev, params, tmp, spec, dict(
+            batching=dict(one, kv_cache_max_seq=spec["flat_seq"])),
+            "flat", ring_calls)
+        if dev.type == "cuda":
+            check(ring["launches"] == 0,
+                  f"(d) the ring launched B1 {ring['launches']} times")
+        res["ring"] = dict(
+            vs_contiguous=_agreement(ring["tokens"], flat["tokens"]),
+            kv_bytes_ring=ring["kv_arena_bytes"],
+            kv_bytes_contiguous=flat["kv_arena_bytes"],
+            ttft_ring=_ttft([ms for _, ms in ring["ttft_ms"]]),
+            ttft_flat=_ttft([ms for _, ms in flat["ttft_ms"]]),
+            tick_ms_p50_ring=_median(ring["tick_log"]["plain"]),
+            tick_ms_p50_flat=_median(flat["tick_log"]["plain"]),
+            ring_launches=ring["launches"], flat_launches=flat["launches"],
+            seconds=time.perf_counter() - t)
+        log(f"  (d) ring: {json.dumps(_brief(res['ring']))}")
+
+        t = time.perf_counter()
+        long_calls = [(_prompt_text(spec["tier_long_tokens"], 1600 + i),
+                       spec["tier_new"], {}) for i in range(spec["tier_long"])]
+        short_calls = [(_prompt_text(spec["burst_prompts"][i % 4], 1700 + i),
+                        spec["tier_new"], {})
+                       for i in range(spec["tier_short"])]
+        calls = long_calls + short_calls
+        tiered = await _spec_serve(torch, tatt, dev, params, tmp, spec, dict(
+            batching=dict(kv_tiers=spec["tiers"], max_queue_delay_ms=50.0)),
+            "tiers", calls, hold=False)
+        untiered = await _spec_serve(torch, tatt, dev, params, tmp, spec,
+                                     dict(batching=dict(
+                                         max_batch_size=spec["flat_slots"],
+                                         kv_cache_max_seq=spec["flat_seq"],
+                                         max_queue_delay_ms=50.0)),
+                                     "untiered", calls, hold=False)
+        n_long = spec["tier_long"]
+        check(tiered["admissions"] == [spec["tier_short"], n_long],
+              f"(e) tier admissions {tiered['admissions']}")
+        res["tiers"] = dict(
+            admissions=tiered["admissions"],
+            short_ttft_tiered=_short_ttft(tiered, spec),
+            short_ttft_untiered=_short_ttft(untiered, spec),
+            long_ttft_tiered=_short_ttft(tiered, spec, long=True),
+            long_ttft_untiered=_short_ttft(untiered, spec, long=True),
+            kv_bytes_tiered=tiered["kv_arena_bytes"],
+            kv_bytes_untiered=untiered["kv_arena_bytes"],
+            vs_untiered=_agreement(tiered["tokens"], untiered["tokens"]),
+            launches=tiered["launches"], seconds=time.perf_counter() - t)
+        log(f"  (e) tiers: {json.dumps(_brief(res['tiers']))}")
+    _sync(torch, dev)
+    res["launches"] = tatt.flash_attention.launches
+    del params
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
 def _brief(d):
     """`d` without its token lists (for the log)."""
     if isinstance(d, dict):
@@ -3420,65 +3805,74 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         card = card_line()
-        log(f"[1/12] card: {card}; torch {torch.__version__}, CUDA "
+        log(f"[1/13] card: {card}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
         t = time.perf_counter()
         _build.load("flash_attention")
-        log(f"[2/12] build: flash_attention.cu in "
+        log(f"[2/13] build: flash_attention.cu in "
             f"{time.perf_counter() - t:.1f} s")
         ptxas_report(_build.build_log.get("flash_attention", ""))
 
-        log(f"[3/12] kernel vs plain (|err| <= atol + rtol |plain|: {TOL})")
+        log(f"[3/13] kernel vs plain (|err| <= atol + rtol |plain|: {TOL})")
         cases = kernel_cases(torch, tatt, dev)
 
-        log("[4/12] reference: tiny-llama on the card vs the CPU")
+        log("[4/13] reference: tiny-llama on the card vs the CPU")
         ref = tiny_reference(torch, dev)
         log(f"  {ref}")
 
-        log(f"[5/12] serve: {MODEL} sidecar, default batching")
+        log(f"[5/13] serve: {MODEL} sidecar, default batching")
         serve = asyncio.run(serve_phase(torch, tatt, dev))
         log(f"  {json.dumps(serve)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[6/12] embed: {EMBED_MODEL} sidecar")
+        log(f"[6/13] embed: {EMBED_MODEL} sidecar")
         embed = asyncio.run(embed_phase(torch, tatt, dev))
         log(f"  {json.dumps(embed)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log("[7/12] HF checkpoint: llama3-8b width, 2 layers, 2 files")
+        log("[7/13] HF checkpoint: llama3-8b width, 2 layers, 2 files")
         hf = asyncio.run(hf_phase(torch, tatt, dev))
         log(f"  {json.dumps(hf)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[8/12] int8: {MODEL} weights and KV cache")
+        log(f"[8/13] int8: {MODEL} weights and KV cache")
         int8 = asyncio.run(int8_phase(torch, tatt, dev))
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[9/12] KV reuse: {MODEL} prefix pool, interleave, paged KV")
+        log(f"[9/13] KV reuse: {MODEL} prefix pool, interleave, paged KV")
         reuse = asyncio.run(kv_reuse_phase(torch, tatt, dev))
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[10/12] grammar: {MODEL} constrained burst, jump on / off")
+        log(f"[10/13] grammar: {MODEL} constrained burst, jump on / off")
         grammar = asyncio.run(grammar_phase(torch, tatt, dev))
         log(f"  {json.dumps(_brief(grammar))}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[11/12] control plane: {MODEL} tick phases, Profile, "
+        log(f"[11/13] control plane: {MODEL} tick phases, Profile, "
             f"GetMemory, scheduler, failpoints, deadlines")
         control = asyncio.run(control_phase(torch, tatt, dev))
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[12/12] paged plane and LoRA: {MODEL} host tier, TransferKV "
+        log(f"[12/13] paged plane and LoRA: {MODEL} host tier, TransferKV "
             f"with roles, adapter arena, preemption with the host tier")
         paged = asyncio.run(paged_lora_phase(torch, tatt, dev))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t = time.perf_counter()
+        log(f"[13/13] speculative decoding, ring KV, tiers: "
+            f"{P13['model']} with the {P13['draft']} draft")
+        p13 = asyncio.run(spec_ring_tier_phase(torch, tatt, dev))
+        log(f"  phase 13: {time.perf_counter() - t:.1f} s, "
+            f"{p13['launches']} B1 launches")
     except SmokeError as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3505,6 +3899,12 @@ def main() -> int:
             c["leg1_launches"] for c in paged["disagg"]["calls"]),
         decode_leg_launches=sum(
             c["leg2_launches"] for c in paged["disagg"]["calls"]),
+        spec_launches=p13["spec"]["launches"],
+        verify_launches=p13["spec"]["verify_launches"],
+        self_draft_launches=p13["self_draft"]["launches"],
+        micro_launches=p13["micro"]["launches"],
+        ring_launches=p13["ring"]["ring_launches"],
+        tier_launches=p13["tiers"]["launches"],
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],

@@ -78,15 +78,18 @@ class BatchingConfig:
     paged_kv_host_bytes: int = 0
     paged_kv_host_path: str = ""
     paged_kv_host_file_bytes: int = 0
-    # Guards: features of the reference batcher not ported yet.
+    # Length tiers (serving/tiered.py): [[max_seq, slots] or [max_seq,
+    # slots, prefix_entries], ...] strictly ascending by max_seq, one
+    # ContinuousBatcher per tier; [] = one pool.
     kv_tiers: list = field(default_factory=list)
+    # "on" with serving.speculative_draft: every tick is one draft /
+    # verify round (ops/speculative.py::spec_tick) over the slot pool.
     speculative: str = "off"
 
-    UNSUPPORTED = ("kv_tiers", "speculative")
-
     def __post_init__(self) -> None:
-        _check_unsupported(self, self.UNSUPPORTED, "batching")
         self._validate_kv_reuse()
+        if self.speculative not in ("off", "on"):
+            raise ValueError("batching.speculative must be 'off' or 'on'")
         if self.pipeline_ticks not in ("auto", "off"):
             raise ValueError(
                 f"batching.pipeline_ticks={self.pipeline_ticks!r} is not "
@@ -108,6 +111,50 @@ class BatchingConfig:
             raise ValueError("p50_budget_ms must be >= 0 (0 = off)")
         if self.queue_deadline_ms < 0:
             raise ValueError("queue_deadline_ms must be >= 0 (0 = off)")
+        self._validate_tiers()
+
+    def _validate_tiers(self) -> None:
+        """The reference's kv_tiers checks (Config.validate): entry
+        shape, ascending order, the tick overshoot below the smallest
+        tier, and the page size dividing every tier under paging."""
+        tiers = self.kv_tiers
+        if not tiers:
+            return
+        if not all(
+            isinstance(t, (list, tuple)) and len(t) in (2, 3)
+            and int(t[0]) > 0 and int(t[1]) > 0
+            and (len(t) == 2 or int(t[2]) >= 0)
+            for t in tiers
+        ):
+            raise ValueError(
+                "batching.kv_tiers entries must be [max_seq, slots] "
+                "or [max_seq, slots, prefix_entries] with positive "
+                "max_seq/slots and prefix_entries >= 0"
+            )
+        seqs = [int(t[0]) for t in tiers]
+        if seqs != sorted(seqs) or len(set(seqs)) != len(seqs):
+            raise ValueError(
+                "batching.kv_tiers must be strictly ascending by max_seq"
+            )
+        if resolve_decode_steps(self) >= seqs[0]:
+            raise ValueError(
+                "decode_steps_per_tick must be < the smallest tier's "
+                "max_seq"
+            )
+        if self.paged_kv == "on":
+            page = self.paged_kv_page_size
+            for t in tiers:
+                if int(t[0]) % page:
+                    raise ValueError(
+                        f"batching.paged_kv_page_size ({page}) must "
+                        f"divide every tier max_seq (tier {int(t[0])})"
+                    )
+                if len(t) > 2 and int(t[2]) > 0:
+                    raise ValueError(
+                        "batching.paged_kv supersedes per-tier prefix "
+                        "pools: kv_tiers prefix_entries must be 0 "
+                        "under paging"
+                    )
 
     def _validate_kv_reuse(self) -> None:
         """The reference's checks of these fields (Config.validate)."""
@@ -497,14 +544,24 @@ class ServingConfig:
     # kv_tiers.
     role: str = "mixed"
     lora: LoraConfig = field(default_factory=LoraConfig)
-    # Guards: reference features not ported yet.
+    # Ring-buffer KV for sliding-window models (batcher path): the
+    # shared cache holds window + prefill_chunk - 1 positions and a
+    # request is bounded by the RoPE range, not the cache.
+    kv_ring: bool = False
+    # Speculative decoding: registry name of a dense draft sharing the
+    # target's vocabulary ("" = off), and the tokens it proposes a round.
+    # With batching.speculative=on the draft rides the batcher's tick;
+    # off, draft-eligible unary calls take serving/spec_batcher.py.
+    speculative_draft: str = ""
+    speculative_gamma: int = 4
+    # Guards: reference features not ported yet (the draft checkpoint
+    # restores through Orbax, like checkpoint_path).
     uds_path: str = ""
     checkpoint_path: str = ""
-    kv_ring: bool = False
-    speculative_draft: str = ""
+    speculative_draft_checkpoint: str = ""
 
     UNSUPPORTED = (
-        "uds_path", "checkpoint_path", "kv_ring", "speculative_draft",
+        "uds_path", "checkpoint_path", "speculative_draft_checkpoint",
     )
 
     def __post_init__(self) -> None:
@@ -560,6 +617,32 @@ class ServingConfig:
                     f"serving.role={self.role!r} does not compose with "
                     "batching.kv_tiers: page import needs ONE arena per "
                     "replica to land transferred pages in"
+                )
+        if self.speculative_gamma < 1:
+            raise ValueError("speculative_gamma must be >= 1")
+        if self.batching.speculative == "on" and self.kv_ring:
+            raise ValueError(
+                "batching.speculative does not compose with kv_ring: the "
+                "draft slot-pool cache is contiguous and the (gamma+1)-"
+                "position verify assumes the contiguous length mask"
+            )
+        if self.kv_ring:
+            if self.batching.paged_kv == "on":
+                raise ValueError(
+                    "batching.paged_kv and kv_ring are mutually "
+                    "exclusive: a ring stores positions mod its "
+                    "capacity, a page table maps them — one indirection "
+                    "scheme per cache"
+                )
+            if self.batching.kv_tiers:
+                raise ValueError(
+                    "kv_ring and kv_tiers are mutually exclusive (a "
+                    "ring has ONE capacity: window + prefill_chunk - 1)"
+                )
+            if self.batching.prefix_cache_entries:
+                raise ValueError(
+                    "kv_ring does not compose with the prefix pool "
+                    "(pooled prefixes assume a contiguous layout)"
                 )
         if self.quantize not in QUANTIZE_MODES:
             raise ValueError(

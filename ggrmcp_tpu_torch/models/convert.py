@@ -10,7 +10,9 @@ so no leaf is transposed or reshaped. A quantized leaf of the reference
 becomes a `QuantizedTensor`, its int8 values kept int8. A tree with
 LoRA factor stacks (`layers["lora_qkv_a"]` [L, N+1, D, r],
 `layers["lora_qkv_b"]` [L, N+1, r, O], ops/lora.py) carries them across
-as it does every other stacked layer leaf.
+as it does every other stacked layer leaf. A speculative draft's tree (a
+reference engine's `draft_params`) converts the same way and reaches
+`GenerationEngine` as its `draft_params`.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Llama-family decoder: GQA + RoPE + SwiGLU over stacked [L, ...]
-weights. Port of `ggrmcp_tpu/models/llama.py` on the cache-free and
-contiguous-cache and paged-cache paths, with int8 weights (any leaf may
-be a `QuantizedTensor`, ops/quant.py) and the int8 KV cache; no ring KV
-in this package yet.
+weights. Port of `ggrmcp_tpu/models/llama.py` on the cache-free,
+contiguous-cache, ring-cache and paged-cache paths, with int8 weights
+(any leaf may be a `QuantizedTensor`, ops/quant.py) and the int8 KV
+cache.
 
 The reference threads the KV cache functionally through `lax.scan` and
 donates it; here `forward` writes each layer's new K/V into the cache
@@ -303,6 +303,7 @@ def attention_block(
     use_flash: Optional[bool] = None,
     page_table: Optional[torch.Tensor] = None,  # [B, W] paged block table
     lora_idx: Optional[torch.Tensor] = None,  # [B] adapter ids
+    ring: bool = False,
 ) -> torch.Tensor:
     """Pre-norm GQA attention with residual. With a cache, the step's
     K/V are written at each row's current length and attention reads
@@ -322,6 +323,14 @@ def attention_block(
     through `attention_ref` (use_flash False), as the reference does —
     the current step's K/V round-trip through int8 too.
 
+    `ring` (a sliding-window model's ring cache, docs/kv_ring_design.md):
+    the cache's C positions hold absolute position p at slot p % C;
+    `cache_len` keeps counting every token. The step's K/V are written
+    at (cache_len + i) % C and attention masks each slot by the absolute
+    position it holds (`k_positions`, through `attention_ref`). A step
+    must not clobber a key still in some query's window: C >= window +
+    S - 1 (asserted).
+
     `lora_idx` with stacked LoRA factors in `lp`: each row's adapter
     delta (ops/lora.py; row 0 = base) is added to the fused qkv
     product."""
@@ -339,8 +348,10 @@ def attention_block(
     k = apply_rope(k.reshape(b, s, kvh, hd), positions, cfg.rope_theta,
                    cfg.rope_scaling)
     v = v.reshape(b, s, kvh, hd)
+    k_positions = None
 
     if cache_k is not None and page_table is not None:
+        assert not ring, "paged KV does not compose with kv_ring"
         page = cache_k.shape[1]
         n_pages = cache_k.shape[0] - 1
         width = page_table.shape[1]
@@ -377,7 +388,17 @@ def attention_block(
         write_pos = cache_len.long()[:, None] + torch.arange(
             s, device=x.device
         )[None, :]
-        write_pos = torch.clamp(write_pos, max=cap)  # overflow → scratch
+        if ring:
+            window = cfg.sliding_window
+            assert window is not None, "ring needs a window"
+            assert s <= cap, f"step {s} exceeds ring capacity {cap}"
+            assert cap >= window + s - 1, (
+                f"ring capacity {cap} < window {window} + step {s} - 1 "
+                f"(clobber)"
+            )
+            write_pos = write_pos % cap
+        else:
+            write_pos = torch.clamp(write_pos, max=cap)  # overflow → scratch
         batch_idx = torch.arange(b, device=x.device)[:, None]
 
         def write(cache: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
@@ -398,12 +419,20 @@ def attention_block(
             k_all, v_all = cache_k[:, :cap], cache_v[:, :cap]
         kv_len = (cache_len + s).to(torch.int32)
         q_offset = cache_len.to(torch.int32)
+        if ring:
+            # The absolute position slot j holds: the largest p < kv_len
+            # with p ≡ j (mod C); negative = never written.
+            slots = torch.arange(cap, device=x.device)[None, :]
+            k_positions = slots + cap * torch.div(
+                kv_len.long()[:, None] - 1 - slots, cap,
+                rounding_mode="floor")
     else:
         k_all, v_all, kv_len, q_offset = k, v, None, None
 
     attn_out = attention(
         q, k_all, v_all, causal=True, q_offset=q_offset, kv_len=kv_len,
         window=cfg.sliding_window, use_flash=use_flash,
+        k_positions=k_positions,
     )
     return x + quant.matmul(attn_out.reshape(b, s, h * hd), lp["wo"])
 
@@ -415,9 +444,10 @@ def _layer(
     cache_len: Optional[torch.Tensor], use_flash: Optional[bool] = None,
     page_table: Optional[torch.Tensor] = None,
     lora_idx: Optional[torch.Tensor] = None,
+    ring: bool = False,
 ) -> torch.Tensor:
     x = attention_block(x, lp, cfg, positions, cache_k, cache_v, cache_len,
-                        use_flash, page_table, lora_idx)
+                        use_flash, page_table, lora_idx, ring)
     normed = common.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     gate = F.silu(quant.matmul(normed, lp["w_gate"]))
     up = quant.matmul(normed, lp["w_up"])
@@ -436,6 +466,7 @@ def forward(
     cache: "Optional[KVCache | PagedKVCache]" = None,
     use_flash: Optional[bool] = None,
     lora_idx: Optional[torch.Tensor] = None,
+    ring: bool = False,
 ) -> "tuple[torch.Tensor, Optional[KVCache | PagedKVCache]]":
     """Without a cache: plain causal forward. With a cache: tokens are
     appended at each row's cache length (prefill S > 1, decode S = 1);
@@ -446,6 +477,8 @@ def forward(
     everywhere (an int8 cache forces it per layer).
     `lora_idx`: [B] per-row adapter ids when `params["layers"]` carries
     stacked LoRA factors (ops/lora.py); None or absent factors = base.
+    `ring`: the contiguous cache is a ring of its capacity (the layout of
+    the batcher's caches under serving.kv_ring; attention_block).
     Returns (float32 logits [B, S, V], cache or None)."""
     b, s = tokens.shape
     dtype = cfg.torch_dtype
@@ -466,7 +499,7 @@ def forward(
             x = _layer(
                 x, lp, cfg, positions, _at(layer, cache.k),
                 _at(layer, cache.v), cache.length, use_flash, table,
-                lora_idx,
+                lora_idx, ring,
             )
     if cache is not None:
         cache.length = cache.length + s

@@ -2,13 +2,15 @@
 and the forced-run lookup of jump-ahead decoding. Port of
 `ggrmcp_tpu/ops/sampling.py`.
 
-A random draw is one float32 uniform per row, made exactly as the
-reference makes it: threefry-2x32 (JAX's partitionable mode) on int64
-tensors masked to 32 bits, so `sample_dynamic` draws
-`uniform(fold_in(prng_key(seed), step))` bit for bit like
-`jax.random.uniform(jax.random.fold_in(jax.random.PRNGKey(seed), step),
-())` on the CPU and on CUDA alike. `_invcdf_pick` then picks the token
-from the uniform as the reference does.
+A random draw is made exactly as the reference makes it: threefry-2x32
+(JAX's partitionable mode) on int64 tensors masked to 32 bits, so
+`sample_dynamic` draws `uniform(fold_in(prng_key(seed), step))` bit for
+bit like `jax.random.uniform(jax.random.fold_in(jax.random.PRNGKey(seed),
+step), ())` on the CPU and on CUDA alike. `_invcdf_pick` then picks the
+token from the uniform as the reference does. Vector draws (the
+speculative tick's `uniform(k, (gamma,))` and `gumbel(k, (V,))`) take
+word i from threefry at counter (0, i), as the partitionable layout
+does for shapes of fewer than 2**32 elements.
 """
 
 from __future__ import annotations
@@ -60,14 +62,35 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([x0, x1], dim=-1)
 
 
-def uniform(key: torch.Tensor) -> torch.Tensor:  # [...] float32 in [0, 1)
-    """`jax.random.uniform(key, ())` per key: the 32 random bits are the
-    xor of threefry's two words at counter (0, 0); their top 23 bits
-    become the mantissa of a float in [1, 2), minus 1."""
-    zero = torch.zeros_like(key[..., 0])
-    b0, b1 = _threefry2x32(key[..., 0], key[..., 1], zero, zero)
-    bits = ((b0 ^ b1) >> 9) | 0x3F800000
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
+    """`jax.random.bits(key, (n,))` per key ([..., 2] → [..., n] int64
+    holding 32-bit words): word i is the xor of threefry's two words at
+    counter (0, i)."""
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    k0, k1, x1 = torch.broadcast_tensors(key[..., 0:1], key[..., 1:2], i)
+    b0, b1 = _threefry2x32(k0, k1, torch.zeros_like(x1), x1)
+    return b0 ^ b1
+
+
+def uniform(key: torch.Tensor, n: Optional[int] = None) -> torch.Tensor:
+    """`jax.random.uniform(key, ())` per key ([...] float32 in [0, 1)),
+    or `jax.random.uniform(key, (n,))` ([..., n]): the top 23 bits of
+    each word become the mantissa of a float in [1, 2), minus 1."""
+    bits = (random_bits(key, 1 if n is None else n) >> 9) | 0x3F800000
+    u = bits.to(torch.int32).view(torch.float32) - 1.0
+    return u[..., 0] if n is None else u
+
+
+_TINY = torch.finfo(torch.float32).tiny
+
+
+def gumbel(key: torch.Tensor, n: int) -> torch.Tensor:  # [..., n] float32
+    """`jax.random.gumbel(key, (n,))` per key: -log(-log(u)) of the
+    uniform over [tiny, 1) made as `jax.random._uniform` makes it
+    (u * (1 - tiny) + tiny, at least tiny; float32 rounds 1 - tiny to
+    1). The bits are exact; the logs round as the device's `log` does."""
+    u = torch.clamp(uniform(key, n) * (1.0 - _TINY) + _TINY, min=_TINY)
+    return -torch.log(-torch.log(u))
 
 
 def _invcdf_pick(u: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:

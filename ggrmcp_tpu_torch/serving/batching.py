@@ -75,9 +75,21 @@ The control plane, each with the reference's semantics:
   admission round's rows capped while slots decode);
 - failpoints (utils/failpoints.py) at the reference's hook sites.
 
+Speculative decoding (batching.speculative=on with the engine's draft):
+every tick is one draft / verify round (ops/speculative.py::spec_tick)
+— gamma draft steps against a draft slot pool beside the shared cache,
+one (gamma+1)-position target verify, each row advancing by its
+accepted count plus one. Every admission route prefills the admitted
+rows' prompts into the draft pool too, one position behind the target.
+
+Ring KV (serving.kv_ring, sliding-window models): the shared cache and
+the admission minis hold the engine's ring_capacity positions, every
+cache-extending forward writes them mod that capacity, and a request is
+bounded by the model's RoPE range instead of the cache. Long prompts
+admit in groups of equal chunk count (see _prefill_into_slots).
+
 Device work runs in the default executor (never on the event loop),
-one call at a time; ticks are synchronous. Speculative ticks are not
-ported yet (core/config.py rejects their settings). Every copy between
+one call at a time; ticks are synchronous. Every copy between
 a mini cache, the prefix pool and the
 pool goes through `quant.kv_map`, so an int8 KV cache (the engine's
 `kv_dtype`) moves values and scales alike.
@@ -110,6 +122,7 @@ from ggrmcp_tpu_torch.ops.sampling import (
     masked_sample_dynamic,
     trivial_grammar_tables,
 )
+from ggrmcp_tpu_torch.ops.speculative import spec_tick
 from ggrmcp_tpu_torch.serving.engine import (
     build_kernels,
     bucket_len,
@@ -269,8 +282,8 @@ class _Request:
 
 # The ledger components reported as ServingStats memory_*_bytes.
 _LEDGER_COMPONENTS = (
-    "weights", "lora", "kv_arena", "block_tables", "prefix_pool", "ilv_mini",
-    "grammar_arena", "tick_state",
+    "weights", "lora", "kv_arena", "block_tables", "draft_cache",
+    "prefix_pool", "ilv_mini", "grammar_arena", "tick_state",
 )
 # counter_stats' host-tier fields while paging is off (the allocator
 # reports them when on).
@@ -306,10 +319,21 @@ def _pct(values: list[float], q: float) -> float:
 
 class ContinuousBatcher:
     """Slot-based continuous batching over a shared KV cache (contiguous,
-    or a page arena under paged_kv)."""
+    a ring, or a page arena under paged_kv). `ledger_scope` names this
+    pool's memory-ledger components (a length tier's "tier-<max_seq>")."""
+
+    # counter_stats() keys that merge across tiers by MAX (engine-level
+    # facts every tier reports alike), not by sum.
+    MAX_STAT_KEYS = (
+        "admit_ms_max", "tp_chips", "mesh_devices", "mesh_shape",
+        "mesh_spec_downgrades", "memory_weights_bytes", "memory_lora_bytes",
+        "lora_adapters_registered", "lora_adapters_resident",
+        "lora_rows_total", "lora_loads", "lora_evictions", "lora_hits",
+        "lora_load_ms", "lora_shed",
+    )
 
     def __init__(self, engine, cfg: Optional[BatchingConfig] = None,
-                 eos_id: int = 2):
+                 eos_id: int = 2, ledger_scope: str = ""):
         self.engine = engine
         self.cfg = cfg or BatchingConfig()
         self.eos_id = eos_id
@@ -321,25 +345,68 @@ class ContinuousBatcher:
         self._wake = asyncio.Event()
         self._stopping = False
         self._steps_per_tick = resolve_decode_steps(self.cfg)
+        # Speculative ticks: batching.speculative=on AND a draft on the
+        # engine (on without one logs and runs the plain tick, as the
+        # reference does).
+        spec_mode = self.cfg.speculative == "on"
+        self._spec = spec_mode and getattr(engine, "draft_cfg", None) is not None
+        if spec_mode and not self._spec:
+            logger.warning(
+                "batching.speculative=on but no serving.speculative_draft "
+                "is configured; falling back to the plain tick"
+            )
+        self._gamma = (
+            max(1, int(engine.serving.speculative_gamma)) if self._spec else 0
+        )
+        self._ring = getattr(engine, "ring_capacity", None) is not None
         gcfg = getattr(engine.serving, "grammar", None) or GrammarConfig()
         jump_max = int(gcfg.jump_max) if gcfg.enabled else 0
         # The reference's gates: the jump window does not compose with a
-        # ring cache, and junk window positions would compete for MoE
-        # experts. The port serves neither yet.
-        if jump_max and (engine.serving.kv_ring
+        # ring cache (its clobber bound was sized for the prefill chunk),
+        # and junk window positions would compete for MoE experts.
+        if jump_max and (self._ring
                          or getattr(engine, "fam", llama_mod) is not llama_mod):
             logger.warning("grammar.jump_max > 0 needs a dense contiguous "
                            "or paged cache; one-token constrained decoding")
             jump_max = 0
         self._jump_max = jump_max
-        # A tick may run up to steps_per_tick - 1 positions past a
-        # slot's max_new before the host masks the extra tokens: every
-        # request reserves that much cache (pipelined ticks are off). A
-        # grammar-carrying request reserves the jump window instead: one
-        # jump tick writes 1 + jump_max positions.
-        self._reserve = self._steps_per_tick - 1
-        self._jump_reserve = max(self._steps_per_tick, 1 + jump_max) - 1
-        self.max_seq = min(self.cfg.kv_cache_max_seq, engine.cfg.max_seq_len)
+        # A tick may run up to advance - 1 positions past a slot's
+        # max_new before the host masks the extra tokens: every request
+        # reserves that much cache (pipelined ticks are off). A plain
+        # tick advances steps_per_tick positions; a grammar-carrying
+        # request reserves the jump window instead (1 + jump_max). A
+        # spec tick writes gamma + 1 positions for every request (forced
+        # runs ride the draft's proposal there, not a wider window).
+        if self._spec:
+            advance = jump_advance = self._gamma + 1
+        else:
+            advance = self._steps_per_tick
+            jump_advance = max(advance, 1 + jump_max)
+        self._reserve = advance - 1
+        self._jump_reserve = jump_advance - 1
+        if self._spec and self._ring:
+            # core/config.py mirrors this; a batcher built directly must
+            # hit the same wall.
+            raise ValueError(
+                "batching.speculative does not compose with kv_ring"
+            )
+        if self._ring:
+            engine_chunk = engine.serving.batching.prefill_chunk
+            if self.cfg.prefill_chunk > engine_chunk:
+                # The capacity was sized for the engine config's chunk; a
+                # wider chunk would break the clobber bound mid-admission.
+                raise ValueError(
+                    f"batcher prefill_chunk ({self.cfg.prefill_chunk}) "
+                    f"exceeds the ring engine's ({engine_chunk}); the "
+                    f"ring capacity was sized for the engine's chunk"
+                )
+            self.max_seq = engine.ring_capacity
+            # A request is bounded by the RoPE range, not the ring.
+            self._fit_limit = engine.cfg.max_seq_len
+        else:
+            self.max_seq = min(self.cfg.kv_cache_max_seq,
+                               engine.cfg.max_seq_len)
+            self._fit_limit = self.max_seq
         # Paged KV (paged_kv=on): the shared cache is a page arena with
         # block tables; the host allocator owns the tables (uploaded to
         # the device before a tick when dirty).
@@ -347,6 +414,8 @@ class ContinuousBatcher:
         if self._paged:
             # core/config.py mirrors these; a batcher built directly
             # must hit the same walls.
+            if self._ring:
+                raise ValueError("paged_kv does not compose with kv_ring")
             if self.cfg.prefix_cache_entries:
                 raise ValueError(
                     "paged_kv supersedes the slot-granular prefix pool; "
@@ -370,6 +439,25 @@ class ContinuousBatcher:
         else:
             self.pages = None
         self.cache = self._make_shared_cache()
+        # Spec mode: the draft's slot pool beside the shared cache, and a
+        # request clamps to the draft's RoPE range too. prev_tokens is
+        # each slot's last committed token: a round's first draft feed
+        # is [prev, cur], keeping the draft cache one position behind.
+        if self._spec:
+            self._fit_limit = min(self._fit_limit,
+                                  engine.draft_cfg.max_seq_len)
+            self.dcache = engine.make_draft_cache(b, self.max_seq)
+        else:
+            self.dcache = None
+        self.prev_tokens = np.zeros((b,), np.int64)
+        # True while a draft-pool admission is in flight: a failure then
+        # rebuilds the draft pool.
+        self._dcache_at_risk = False
+        # Spec accounting: ticks, proposals, acceptances (ServingStats
+        # spec_*; accepted / drafted is the realized acceptance rate).
+        self.spec_ticks = 0
+        self.spec_drafted = 0
+        self.spec_accepted = 0
         # The host page tier (paged_kv_host_bytes > 0): the allocator
         # owns placement; _demote_fetch / _restore_write are its device
         # halves, run inside this batcher's serialized executor stream.
@@ -429,7 +517,10 @@ class ContinuousBatcher:
         self._pfx_min = max(1, self.cfg.prefix_cache_min_seq)
         # A storable prompt needs _pfx_min + 1 tokens AND must be
         # admissible (fit_request's bound).
-        poolable = self._pfx_min + 1 <= self.max_seq - self._reserve - 2
+        poolable = (
+            self._pfx_min + 1 <= self.max_seq - self._reserve - 2
+            and not self._ring  # pooled prefixes assume a contiguous layout
+        )
         if pe > 0 and poolable:
             self._pfx_pool = engine.make_cache(pe, self._pfx_max)
             self._pfx_keys: list[Optional[np.ndarray]] = [None] * pe
@@ -492,20 +583,24 @@ class ContinuousBatcher:
         # The memory ledger's components; suppliers read the live
         # attributes, so a rebuilt cache is accounted at the next read.
         ledger = engine.ledger
+        scope = ledger_scope
         ledger.register("kv_arena", lambda: (
-            self.cache.k, self.cache.v, self.cache.length))
+            self.cache.k, self.cache.v, self.cache.length), scope=scope)
         ledger.register("block_tables",
-                        lambda: getattr(self.cache, "table", None))
-        ledger.register("prefix_pool", lambda: self._pfx_pool)
-        ledger.register("ilv_mini", lambda: self._ilv_mini)
-        ledger.register("grammar_arena", self._grammar_device_tables)
+                        lambda: getattr(self.cache, "table", None),
+                        scope=scope)
+        ledger.register("draft_cache", lambda: self.dcache, scope=scope)
+        ledger.register("prefix_pool", lambda: self._pfx_pool, scope=scope)
+        ledger.register("ilv_mini", lambda: self._ilv_mini, scope=scope)
+        ledger.register("grammar_arena", self._grammar_device_tables,
+                        scope=scope)
         # The tick's token and grammar state ride from the host each
         # tick: nothing persists on the device.
-        ledger.register("tick_state", lambda: None)
+        ledger.register("tick_state", lambda: None, scope=scope)
         # The host tier's bytes are host memory: the ledger's host side.
         ledger.register_host("host_pool", lambda: (
             self.host_pool.memory_info() if self.host_pool is not None
-            else None))
+            else None), scope=scope)
 
     # -- host <-> device helpers -----------------------------------------
 
@@ -693,7 +788,7 @@ class ContinuousBatcher:
         the one the decode replica's identically clamped admission looks
         up."""
         clamped, _ = fit_request(
-            prompt, max_new, self.max_seq - self._reserve_for(constrained)
+            prompt, max_new, self._fit_limit - self._reserve_for(constrained)
         )
         return clamped
 
@@ -901,7 +996,7 @@ class ContinuousBatcher:
         for t in range(t_steps):
             off = start + t * c
             logits, mini = self.engine.decode_forward(
-                params, tokens[:, t], mini, adapters
+                params, tokens[:, t], mini, adapters, ring=self._ring
             )
             idx = torch.clamp(last - off, 0, c - 1)
             sel = logits[torch.arange(r, device=self.device), idx]
@@ -999,7 +1094,7 @@ class ContinuousBatcher:
         cur = tokens
         for i in range(self._steps_per_tick):
             logits, _ = self.engine.decode_forward(
-                params, cur[:, None], self.cache, adapters
+                params, cur[:, None], self.cache, adapters, ring=self._ring
             )
             cur, gs = self._sample(logits[:, -1], seeds, step + i, temps,
                                    ks, ps, gs)
@@ -1044,7 +1139,8 @@ class ContinuousBatcher:
         mini = self._ilv_mini
         mini.length = offs.to(torch.int32)
         c = chunk.shape[1]
-        logits, _ = self.engine.decode_forward(params, chunk, mini, c_adapters)
+        logits, _ = self.engine.decode_forward(params, chunk, mini, c_adapters,
+                                               ring=self._ring)
         idx = torch.clamp(c_true_len.long() - 1 - offs.long(), 0, c - 1)
         return logits[torch.arange(chunk.shape[0], device=self.device), idx]
 
@@ -1072,6 +1168,57 @@ class ContinuousBatcher:
             params, tokens, seeds, step, temps, ks, ps, gs, jump_ok, adapters)
         sel = self._chunk_extend(params, chunk, offs, c_true_len, c_adapters)
         return emit, count, gs, sel
+
+    def _tick_spec_impl(self, params, draft_params, prev, tokens, seeds,
+                        step, temps, ks, ps, gs):
+        """The speculative tick: gamma draft steps and one (gamma+1)-
+        position verify for every slot (ops/speculative.spec_tick on this
+        engine's forwards; the verify window through the kernel, see
+        GenerationEngine.verify_flash). The forced-run tables ride along
+        while jump-ahead is on: a forced run seeds the draft's proposal.
+        Returns (emit [B, gamma+1], count [B], states [B])."""
+        jargs = ((self._g_jlen, self._g_jtok) if self._jump_max
+                 else (None, None))
+        emit, count, _, _, gs = spec_tick(
+            lambda t, c: self.engine.verify_forward(params, t, c),
+            lambda t, c: self.engine.draft_forward(draft_params, t, c),
+            prev, tokens, self.cache, self.dcache, self._gamma, seeds, step,
+            temps, ks, ps, gs, self._g_allow, self._g_trans, *jargs,
+        )
+        return emit, count, gs
+
+    def _tick_spec_chunk_impl(self, params, draft_params, prev, tokens,
+                              seeds, step, temps, ks, ps, gs, chunk, offs,
+                              c_true_len):
+        """The speculative tick fused with one [K, C] interleave chunk,
+        as _tick_chunk_impl fuses the plain tick (no adapters: the engine
+        refuses LoRA with a draft). Returns (emit, count, states, sel)."""
+        emit, count, gs = self._tick_spec_impl(
+            params, draft_params, prev, tokens, seeds, step, temps, ks, ps,
+            gs)
+        sel = self._chunk_extend(params, chunk, offs, c_true_len)
+        return emit, count, gs, sel
+
+    def _spec_admit_impl(self, draft_params, tokens, true_len, slots) -> None:
+        """Draft-side admission: a fresh draft prefill of the [R, S]
+        right-padded prompts, the rows of `slots` (host list; padding
+        rows past it are never merged) written into the draft pool at
+        positions [0, S) with length true_len - 1, one position behind
+        the target, so the first round's [prev, cur] feed rewrites the
+        last prompt token's slot (same token, same position)."""
+        r, s = tokens.shape
+        mini = self.engine.make_draft_cache(r, s)
+        self.engine.draft_forward(draft_params, tokens, mini)
+        n = len(slots)
+        dst = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+
+        def put(pool, m):
+            pool[:, dst, :s] = m[:, :n, :s]
+            return pool
+
+        self._merge(put, mini, dst=self.dcache)
+        self.dcache.length[dst] = torch.clamp(
+            true_len[:n].to(torch.int32) - 1, min=0)
 
     def _ilv_finish_impl(self, row, slot, n, sel, seeds, temps, ks, ps, gs,
                          adapters=None):
@@ -1436,7 +1583,7 @@ class ContinuousBatcher:
                 )
         prompt, max_new = fit_request(
             prompt, max_new,
-            self.max_seq - self._reserve_for(grammar is not None),
+            self._fit_limit - self._reserve_for(grammar is not None),
         )
         cap = self.cfg.max_pending
         if cap > 0 and self.pending.qsize() >= cap:
@@ -1492,12 +1639,12 @@ class ContinuousBatcher:
 
     def cache_bytes(self) -> int:
         """KV bytes: the pool (or the page arena and its block tables),
-        the prefix pool and the interleave mini once allocated, an int8
-        cache's scales included."""
+        the prefix pool, the interleave mini once allocated and the draft
+        pool, an int8 cache's scales included."""
         total = self.cache.k.nbytes + self.cache.v.nbytes
         if self._paged:
             total += self.cache.table.nbytes
-        for extra in (self._pfx_pool, self._ilv_mini):
+        for extra in (self._pfx_pool, self._ilv_mini, self.dcache):
             if extra is not None:
                 total += extra.k.nbytes + extra.v.nbytes
         return total
@@ -1507,20 +1654,40 @@ class ContinuousBatcher:
         histograms and the SLO / tenant fragments for GetServingStats
         (the reference's field names; fields of unported features stay
         at their defaults)."""
-        lat = list(self._lat_records)
-        stalls = list(self._stall_records)
-        qs = [r[0] for r in lat]
-        ss = [r[1] for r in lat]
         return {
             **self.counter_stats(),
-            "queue_ms_p50": _pct(qs, 0.5), "queue_ms_p99": _pct(qs, 0.99),
-            "service_ms_p50": _pct(ss, 0.5), "service_ms_p99": _pct(ss, 0.99),
-            "decode_stall_ms_p50": _pct(stalls, 0.5),
-            "decode_stall_ms_p99": _pct(stalls, 0.99),
-            "decode_stall_ms_max": round(max(stalls), 2) if stalls else 0.0,
+            **self.lat_percentiles(self.lat_snapshot()),
+            **self.stall_percentiles(self.stall_snapshot()),
             **self.recorder.histogram_stats(),
             **self.slo.stats(),
             **self.tenants.stats(),
+        }
+
+    def lat_snapshot(self) -> list[tuple[float, float]]:
+        """Recent (queue_ms, service_ms) records (the tiered facade
+        concatenates them across tiers)."""
+        return list(self._lat_records)
+
+    def stall_snapshot(self) -> list[float]:
+        """Recent decode-stall samples (ms between two emissions to a
+        live slot), concatenated across tiers like lat_snapshot."""
+        return list(self._stall_records)
+
+    @staticmethod
+    def stall_percentiles(records: list[float]) -> dict:
+        return {
+            "decode_stall_ms_p50": _pct(records, 0.5),
+            "decode_stall_ms_p99": _pct(records, 0.99),
+            "decode_stall_ms_max": round(max(records), 2) if records else 0.0,
+        }
+
+    @staticmethod
+    def lat_percentiles(records: list[tuple[float, float]]) -> dict:
+        qs = [r[0] for r in records]
+        ss = [r[1] for r in records]
+        return {
+            "queue_ms_p50": _pct(qs, 0.5), "queue_ms_p99": _pct(qs, 0.99),
+            "service_ms_p50": _pct(ss, 0.5), "service_ms_p99": _pct(ss, 0.99),
         }
 
     def counter_stats(self) -> dict:
@@ -1566,6 +1733,9 @@ class ContinuousBatcher:
             "grammar_jump_tokens": self.grammar_jump_tokens,
             "grammar_jump_runs": self.grammar_jump_runs,
             "grammar_jump_fallbacks": self.grammar_jump_fallbacks,
+            "spec_ticks": self.spec_ticks,
+            "spec_drafted": self.spec_drafted,
+            "spec_accepted": self.spec_accepted,
             "ticks": t["ticks"],
             "tick_collects": t["ticks"],  # every tick is collected at once
             "admit_rounds": t["admit_rounds"],
@@ -1981,6 +2151,19 @@ class ContinuousBatcher:
         self._ilv_mini = None
         self._slot_last_emit = [None] * len(self.slots)
         self._reset_shared_cache()
+        if self._spec:
+            # The draft pool is as unknown as the shared cache: every
+            # victim re-prefills its draft row at re-admission.
+            self._new_draft_pool()
+
+    def _new_draft_pool(self) -> None:
+        """A zeroed draft pool (after a failed tick or a failed draft
+        admission). Zero draft rows only cost acceptance: exact match and
+        rejection sampling never emit a token the target would not."""
+        self.prev_tokens[:] = 0
+        self._dcache_at_risk = False
+        self.dcache = self.engine.make_draft_cache(len(self.slots),
+                                                   self.max_seq)
 
     async def _admit(self) -> int:
         """Drain pending requests into free slots: one batch per round,
@@ -2067,6 +2250,8 @@ class ContinuousBatcher:
                 logger.exception("batched prefill failed for slots %s",
                                  slots_idx)
                 cache_dead = self._cache_at_risk
+                if self._dcache_at_risk:
+                    self._new_draft_pool()
                 activated = {
                     id(s.request) for s in self.slots
                     if s.active and s.request is not None
@@ -2175,7 +2360,18 @@ class ContinuousBatcher:
             else:
                 fused_slots.append(sl)
                 fused_batch.append(req)
-        if long_rows:
+        if long_rows and self._ring:
+            # A ring row must not run padding chunks past its own last
+            # chunk: their writes wrap onto positions still inside its
+            # window (capacity W + C - 1 covers one chunk's overshoot,
+            # not several). So ring groups share their chunk count.
+            c = min(self.cfg.prefill_chunk, self.max_seq)
+            by_steps: dict[int, list] = {}
+            for row in long_rows:
+                by_steps.setdefault(-(-len(row[1].prompt) // c), []).append(row)
+            for group in by_steps.values():
+                self._admit_chunked_group(group)
+        elif long_rows:
             self._admit_chunked_group(long_rows)
         for (entry, start, width), group in pfx_groups.items():
             self._admit_chunked_group(group, pfx=(entry, start, width))
@@ -2186,6 +2382,11 @@ class ContinuousBatcher:
         # in issue order, so the writes land first.
         for key, group in paged_groups.items():
             self._admit_paged_group(group, *key)
+        if self._spec:
+            # The draft side of every slot this round activated (fused,
+            # chunked, prefix and paged routes alike; interleave-queued
+            # rows at their final chunk): one call a round.
+            self._spec_admit_rows(list(zip(slots_idx, batch)))
         if trickle and batch[0].adapter == 0 and (
                 self.slots[slots_idx[0]].request is batch[0]):
             # First sighting of a poolable prefix on a trickle admission:
@@ -2254,6 +2455,33 @@ class ContinuousBatcher:
                     self.pages.register(sl, req.prompt,
                                         adapter=req.adapter_key)
         return cold
+
+    def _spec_admit_rows(self, rows: list[tuple[int, _Request]]) -> None:
+        """Draft-side admission of newly activated slots: one bucketed
+        [R, S] draft prefill into the draft pool, then the prev-token
+        mirrors. Runs after the target side in the same executor call, so
+        the next tick sees the draft one position behind the target. A
+        failure here costs acceptance only (the handler rebuilds the pool
+        through _dcache_at_risk)."""
+        rows = [(sl, req) for sl, req in rows
+                if self.slots[sl].request is req]  # still live
+        if not self._spec or not rows:
+            return
+        r = min(len(self.slots), bucket_len(len(rows), minimum=1))
+        s = bucket_len(max(len(req.prompt) for _, req in rows),
+                       maximum=self.max_seq)
+        tokens = np.zeros((r, s), np.int64)
+        true_len = np.ones((r,), np.int64)
+        for j, (_, req) in enumerate(rows):
+            tokens[j, : len(req.prompt)] = req.prompt
+            true_len[j] = len(req.prompt)
+        self._dcache_at_risk = True
+        self._spec_admit_impl(self.engine.draft_params, self._t(tokens),
+                              self._t(true_len), [sl for sl, _ in rows])
+        int(self.dcache.length[0])  # surfaces a device fault here
+        self._dcache_at_risk = False
+        for sl, req in rows:
+            self.prev_tokens[sl] = int(req.prompt[-1])
 
     def _row_params(self, n: int, rows) -> dict:
         """Per-row sampling arrays, admission grammar states and adapter
@@ -2501,6 +2729,8 @@ class ContinuousBatcher:
         first_tok = int(first.cpu()[0])
         self._ilv_rows[r] = None
         self._activate_slot(st.slot, req, first_tok)
+        if self._spec:
+            self._spec_admit_rows([(st.slot, req)])
 
     def _tick_record(self, active: int):
         """Open this tick's flight record (None with the recorder off),
@@ -2542,10 +2772,14 @@ class ContinuousBatcher:
         # loop replays the victims.
         failpoints.evaluate("tick_fail")
         t0 = time.perf_counter()
-        jump = bool(self._jump_max and self.jump_ok.any())
+        spec = self._spec
+        jump = bool(not spec and self._jump_max and self.jump_ok.any())
         step0 = self.step_counter
+        # A spec round processes gamma + 1 target positions; its RNG tag
+        # (step0 + 1) stays unique across ticks.
         self.step_counter += (
-            1 + self._jump_max if jump else self._steps_per_tick
+            self._gamma + 1 if spec
+            else 1 + self._jump_max if jump else self._steps_per_tick
         )
         owners = [s.request if s.active else None for s in self.slots]
         rec = self._tick_record(sum(r is not None for r in owners))
@@ -2563,9 +2797,12 @@ class ContinuousBatcher:
             self._t(self.top_ks), self._t(self.top_ps),
             self._t(self.gstates),
         )
+        lora = {"adapters": self._lora_idx(self.adapter_ids)}
+        if spec:
+            args = (args[0], self.engine.draft_params,
+                    self._t(self.prev_tokens)) + args[1:]
         if jump:
             args += (self._t(self.jump_ok),)
-        lora = {"adapters": self._lora_idx(self.adapter_ids)}
         sel = counts_dev = None
         if chunk:
             if self._ilv_mini is None:
@@ -2576,12 +2813,17 @@ class ContinuousBatcher:
         if rec is not None:
             rec.phases.mark("sync")
         if chunk:
-            if jump:
+            if spec:
+                toks_dev, counts_dev, gs_dev, sel = (
+                    self._tick_spec_chunk_impl(*args, *c_args))
+            elif jump:
                 toks_dev, counts_dev, gs_dev, sel = (
                     self._tick_jump_chunk_impl(*args, *c_args, **lora))
             else:
                 toks_dev, gs_dev, sel = self._tick_chunk_impl(
                     *args, *c_args, **lora)
+        elif spec:
+            toks_dev, counts_dev, gs_dev = self._tick_spec_impl(*args)
         elif jump:
             toks_dev, counts_dev, gs_dev = self._tick_jump_impl(*args, **lora)
         else:
@@ -2598,14 +2840,25 @@ class ContinuousBatcher:
         self.timing["tick_dispatch_ms"] += (t1 - t0) * 1000.0
         self.timing["tick_collect_ms"] += (t2 - t1) * 1000.0
         self.timing["ticks"] += 1
+        if spec:
+            self.spec_ticks += 1
         if chunk:
             self._ilv_advance(sel)
-        finished = jump_tokens = jump_runs = 0
+        finished = jump_tokens = jump_runs = drafted = accepted = 0
         for i, request in enumerate(owners):
-            if request is None or self.slots[i].request is not request:
+            if request is None:
+                continue
+            if spec:
+                drafted += self._gamma
+                accepted += int(counts[i]) - 1
+            if self.slots[i].request is not request:
                 continue
             c = toks.shape[1] if counts is None else int(counts[i])
-            if counts is not None and c > 1:
+            if spec:
+                # The last committed token before the correction.
+                self.prev_tokens[i] = (
+                    toks[i, c - 2] if c >= 2 else self.cur_tokens[i])
+            elif counts is not None and c > 1:
                 if not self._jump_validate(request, toks[i, : c - 1]):
                     self._jump_degrade(i, request)
                     continue
@@ -2618,8 +2871,11 @@ class ContinuousBatcher:
                 finished += 1
         self.grammar_jump_tokens += jump_tokens
         self.grammar_jump_runs += jump_runs
-        self.recorder.tick_done(rec, finished, jump_tokens=jump_tokens,
-                                jump_runs=jump_runs)
+        self.spec_drafted += drafted
+        self.spec_accepted += accepted
+        self.recorder.tick_done(rec, finished, spec_drafted=drafted,
+                                spec_accepted=accepted,
+                                jump_tokens=jump_tokens, jump_runs=jump_runs)
         if rec is not None:
             for phase in PHASE_NAMES:
                 self.phase_ms[phase] += getattr(rec, f"phase_{phase}_ms")

@@ -1,9 +1,9 @@
 """Engines on one device. Port of `ggrmcp_tpu/serving/engine.py`:
 `GenerationEngine` (dense Llama prefill, decode and whole-request
-generation, with int8 weights, the int8 KV cache, the paged cache for
-the batcher and multi-LoRA adapters, boot-time or from a registry
-through the adapter arena; no mesh, speculative decoding or PP/SP) and
-`EmbeddingEngine` (BERT embeddings).
+generation, with int8 weights, the int8 KV cache, the paged and ring
+caches for the batcher, multi-LoRA adapters, boot-time or from a
+registry through the adapter arena, and speculative decoding against a
+draft model; no mesh or PP/SP) and `EmbeddingEngine` (BERT embeddings).
 
 The reference compiles one program per shape bucket; PyTorch runs
 eagerly, so the buckets here only bound the shapes the kernels see.
@@ -65,7 +65,13 @@ class GenerationEngine:
     to keep dense. `serving.synthetic_weights` draws the int8 structure
     directly and never makes a dense weight. `serving.kv_cache_dtype=
     "int8"` gives every cache int8 K/V and pins attention to
-    `attention_ref` (`use_flash` False), as the reference does."""
+    `attention_ref` (`use_flash` False), as the reference does.
+
+    `serving.speculative_draft` builds the draft model: `draft_params`
+    (this package's dict, e.g. a reference draft through
+    models/convert.py) or random weights drawn from `seed + 1`, as the
+    reference draws its draft from the next key. `serving.kv_ring` sets
+    `ring_capacity`, the batcher caches' length."""
 
     def __init__(
         self,
@@ -74,6 +80,7 @@ class GenerationEngine:
         params=None,
         seed: int = 0,
         device: DeviceLike = None,
+        draft_params=None,
     ):
         self.cfg = cfg
         self.serving = serving or ServingConfig()
@@ -86,6 +93,7 @@ class GenerationEngine:
         # An int8 cache is read dequantized by attention_ref: handing the
         # kernel a bf16 copy of the cache would forfeit the int8 bytes.
         self.use_flash: Optional[bool] = False if self.kv_dtype else None
+        self.ring_capacity = self._ring_capacity()
         if params is None and self.serving.synthetic_weights:
             params = self._synthetic_int8_init(seed)
         else:
@@ -100,6 +108,7 @@ class GenerationEngine:
             if self.serving.quantize:
                 params = self._quantize_params(params)
         self.params = self._init_lora(params, seed)
+        self._init_speculative(seed, draft_params)
         # The device-memory ledger: the batchers built over this engine
         # register their components into it, so one reconcile() covers
         # the stack. Off with serving.observability. LoRA factors are
@@ -111,6 +120,142 @@ class GenerationEngine:
             self.adapter_arena.register_ledger(self.ledger)
         elif self.lora_enabled:
             self.ledger.register("lora", self._ledger_lora)
+        if self.draft_cfg is not None:
+            self.ledger.register("draft_weights", lambda: self.draft_params)
+
+    def _ring_capacity(self) -> Optional[int]:
+        """Ring-buffer KV (serving.kv_ring, sliding-window models): the
+        batcher's caches hold window + prefill_chunk - 1 positions, the
+        clobber bound of a chunked step; None without the ring."""
+        if not self.serving.kv_ring:
+            return None
+        window = self.cfg.sliding_window
+        if not window:
+            raise ValueError(
+                f"kv_ring requires a sliding-window model; {self.cfg.name} "
+                f"has none"
+            )
+        chunk = self.serving.batching.prefill_chunk
+        cap = window + chunk - 1
+        if cap > self.cfg.max_seq_len:
+            # Clamping instead would break the clobber bound the model
+            # layer asserts (C >= W + chunk - 1).
+            raise ValueError(
+                f"kv_ring: sliding_window ({window}) + prefill_chunk "
+                f"({chunk}) - 1 = {cap} exceeds max_seq_len "
+                f"({self.cfg.max_seq_len}); lower batching.prefill_chunk"
+            )
+        return cap
+
+    # -- speculative decoding -------------------------------------------
+
+    def _init_speculative(self, seed: int, draft_params) -> None:
+        """The draft model of serving.speculative_draft (None = off),
+        with the reference's rejections: the draft must be a dense llama
+        sharing the target's vocabulary (this package serves no MoE
+        target, the reference's other rejection). It serves the
+        whole-generation micro-path (generate_speculative) and the
+        batcher's spec tick (batching.speculative)."""
+        self.draft_cfg: Optional[llama_mod.LlamaConfig] = None
+        self.draft_params = None
+        name = self.serving.speculative_draft
+        if not name:
+            if draft_params is not None:
+                raise ValueError("draft_params given without "
+                                 "serving.speculative_draft")
+            return
+        from ggrmcp_tpu_torch.models import get_model
+
+        family, dcfg = get_model(name)
+        if family != "llama":
+            raise ValueError("speculative draft must be a dense decoder model")
+        if dcfg.vocab_size != self.cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab {dcfg.vocab_size} != target vocab "
+                f"{self.cfg.vocab_size}"
+            )
+        if draft_params is None:
+            draft_params = llama_mod.init_params(dcfg, self.device, seed + 1)
+        self.draft_cfg = dcfg
+        self.draft_params = draft_params
+
+    def draft_forward(self, params, tokens, cache):
+        """Forward of the draft model (the batcher's spec tick and
+        generate_speculative), under the engine's flash policy."""
+        return llama_mod.forward(params, self.draft_cfg, tokens, cache,
+                                 use_flash=self.use_flash)
+
+    @property
+    def verify_flash(self) -> Optional[bool]:
+        """The flash policy of the (gamma+1)-position verify: the kernel
+        (at gamma 4 the query is 5 wide, under the dispatcher's threshold
+        for B1, where `attention_ref` would cast the whole cache to
+        float32 in every layer), unless the int8 cache pins
+        `attention_ref`."""
+        return False if self.use_flash is False else True
+
+    def verify_forward(self, params, tokens, cache):
+        """Target forward of a speculative verify window."""
+        return llama_mod.forward(params, self.cfg, tokens, cache,
+                                 use_flash=self.verify_flash)
+
+    def make_draft_cache(self, batch: int, max_len: int) -> llama_mod.KVCache:
+        """The batcher's draft slot-pool cache, in the engine's KV dtype."""
+        return llama_mod.KVCache.create(self.draft_cfg, batch, max_len,
+                                        self.device, self.kv_dtype)
+
+    @torch.no_grad()
+    def generate_speculative(
+        self,
+        prompts: list[list[int]],
+        max_new_tokens: int = 128,
+        eos_id: int = 2,
+        temperatures: Optional[list[float]] = None,
+        seeds: Optional[list[int]] = None,
+    ) -> tuple[list[list[int]], list[str], dict]:
+        """Speculative batch generation (needs the draft). With
+        `temperatures=None` the tokens are greedy `generate`'s; a per-row
+        list samples rows > 0 by rejection (distributed as plain
+        sampling). Returns (token lists, finish reasons, stats with the
+        acceptance rate). The decode budget is bucketed like the
+        reference's, the requested cap applied inside it."""
+        if self.draft_cfg is None:
+            raise RuntimeError("speculative decoding not configured")
+        from ggrmcp_tpu_torch.ops.speculative import speculative_generate
+
+        limit = min(self.cfg.max_seq_len, self.draft_cfg.max_seq_len)
+        tokens, true_len, max_new_tokens = self._pack_prompts(
+            prompts, max_new_tokens, limit
+        )
+        budget = bucket_len(max_new_tokens, minimum=8, maximum=limit)
+        temps = seed_arr = None
+        if temperatures is not None:
+            temps = self._tensor(np.asarray(temperatures, np.float32))
+            if not seeds:
+                # Distinct per-row defaults: a shared seed would make the
+                # rows of a sampled batch draw one stream.
+                seeds = list(range(len(prompts)))
+            seed_arr = self._tensor(np.asarray(
+                [(s or 0) & 0xFFFFFFFF for s in seeds], np.int64))
+        res = speculative_generate(
+            self.params, self.cfg, self.draft_params, self.draft_cfg,
+            self._tensor(tokens), self._tensor(true_len), budget,
+            self.serving.speculative_gamma, eos_id, max_new=max_new_tokens,
+            use_flash=self.use_flash, verify_flash=self.verify_flash,
+            kv_dtype=self.kv_dtype, temperature=temps, seeds=seed_arr,
+        )
+        results, reasons = self._decode_outputs(
+            res.tokens.cpu().numpy(), res.out_len.cpu().numpy(), eos_id
+        )
+        stats = {
+            "rounds": res.rounds,
+            "drafted": res.drafted,
+            "accepted": res.accepted,
+            "acceptance_rate": (
+                round(res.accepted / res.drafted, 4) if res.drafted else 0.0
+            ),
+        }
+        return results, reasons, stats
 
     def _ledger_weights(self):
         """Model parameters without the LoRA factors."""
@@ -396,13 +541,16 @@ class GenerationEngine:
         """Forward for a FRESH prefill (cache written from offset 0)."""
         return self.decode_forward(params, tokens, cache, lora_idx)
 
-    def decode_forward(self, params, tokens, cache, lora_idx=None):
+    def decode_forward(self, params, tokens, cache, lora_idx=None,
+                       ring: bool = False):
         """Forward for decode / extension steps (cache has history): a
         contiguous KVCache or a PagedKVCache. `lora_idx`: [B] adapter
-        rows (None = every row base)."""
+        rows (None = every row base). `ring` describes the CACHE (the
+        batcher's ring-capacity caches), not the engine: the engine's
+        own request-sized caches stay contiguous."""
         return llama_mod.forward(params, self.cfg, tokens, cache,
                                  use_flash=self.use_flash,
-                                 lora_idx=lora_idx)
+                                 lora_idx=lora_idx, ring=ring)
 
     def make_cache(self, batch: int, max_len: int) -> llama_mod.KVCache:
         return llama_mod.KVCache.create(self.cfg, batch, max_len, self.device,

@@ -35,6 +35,15 @@ resolved against the boot-time table or, with a registry, acquired
 from the adapter arena through the batcher's host-op stream (typed:
 INVALID_ARGUMENT for an unknown name, RESOURCE_EXHAUSTED for an arena
 whose rows are all pinned, ABORTED for a failed load).
+
+Length tiers (`batching.kv_tiers`): the batcher is a `TieredBatcher`,
+one pool per tier; it refuses TransferKV imports (one arena per replica
+is the transfer format). Speculative decoding
+(`serving.speculative_draft`): with `batching.speculative=on` the
+batcher's ticks draft and verify; off, unary greedy and plain
+temperature calls whose prompts fit in one prefill chunk take the
+micro-batcher (`serving/spec_batcher.py`), whole-generation calls
+coalesced across concurrent requests.
 """
 
 from __future__ import annotations
@@ -80,8 +89,11 @@ from ggrmcp_tpu_torch.serving.batching import (
     OverloadedError,
 )
 from ggrmcp_tpu_torch.serving.engine import EmbeddingEngine, GenerationEngine
+from ggrmcp_tpu_torch.serving.flight_recorder import FlightRecorder
 from ggrmcp_tpu_torch.serving.pages import PageExhaustedError
 from ggrmcp_tpu_torch.serving.scheduler import retry_after_for
+from ggrmcp_tpu_torch.serving.spec_batcher import SpeculativeBatcher
+from ggrmcp_tpu_torch.serving.tiered import TieredBatcher
 from ggrmcp_tpu_torch.serving.tokenizer import ByteTokenizer, load_tokenizer
 from ggrmcp_tpu_torch.serving.weights import load_hf_checkpoint
 from ggrmcp_tpu_torch.utils import failpoints, tracing
@@ -113,7 +125,8 @@ class Sidecar:
         self.tokenizer = load_tokenizer(self.serving.tokenizer_path)
         self.generation: Optional[GenerationEngine] = None
         self.embedding: Optional[EmbeddingEngine] = None
-        self.batcher: Optional[ContinuousBatcher] = None
+        self.batcher: "Optional[ContinuousBatcher | TieredBatcher]" = None
+        self.spec_batcher: Optional[SpeculativeBatcher] = None
         self.grammar_cache = GrammarCache(self.serving.grammar.cache_entries)
         if self.serving.hf_checkpoint_path:
             if params is not None:
@@ -131,10 +144,22 @@ class Sidecar:
                 model_cfg, self.serving, params=params, seed=seed,
                 device=device,
             )
-            self.batcher = ContinuousBatcher(
+            make = (TieredBatcher if self.serving.batching.kv_tiers
+                    else ContinuousBatcher)
+            self.batcher = make(
                 self.generation, self.serving.batching,
                 eos_id=self.tokenizer.eos_id,
             )
+            if (self.generation.draft_cfg is not None
+                    and self.serving.batching.speculative != "on"):
+                # The micro-path is the no-slot-pool fallback: with
+                # speculative=on the batcher's tick drafts and verifies
+                # (top-k, top-p and grammar rows too), and every request
+                # goes there.
+                self.spec_batcher = SpeculativeBatcher(
+                    self.generation, self.serving.batching,
+                    eos_id=self.tokenizer.eos_id,
+                )
         else:
             self.embedding = EmbeddingEngine(
                 model_cfg, params=params, seed=seed, device=device,
@@ -415,12 +440,16 @@ class Sidecar:
             return await self._prefill_and_ship(request, context, prompt, t0)
         token_ids: list[int] = []
         finish = "length"
-        it, qos_class = await self._submit(request, context, prompt,
-                                           unary=True)
-        async for chunk_ids, reason in it:
-            token_ids.extend(chunk_ids)
-            if reason:
-                finish = reason
+        if self._speculative_route(request, prompt):
+            token_ids, finish = await self._generate_speculative(
+                request, context, prompt)
+        else:
+            it, qos_class = await self._submit(request, context, prompt,
+                                               unary=True)
+            async for chunk_ids, reason in it:
+                token_ids.extend(chunk_ids)
+                if reason:
+                    finish = reason
         if finish == "overloaded":
             await self._abort_overloaded(context, qos_class)
         if finish == "error":
@@ -438,6 +467,43 @@ class Sidecar:
             model_id=self.generation.cfg.name,
             compute_ms=(time.perf_counter() - t0) * 1000,
         )
+
+    def _speculative_route(self, request, prompt: list[int]) -> bool:
+        """Whether a unary call takes the micro-batcher: greedy (lossless,
+        bitwise) and plain temperature sampling (rejection sampling,
+        lossless in distribution); its whole-generation program has no
+        top-k / top-p filter and no grammar mask, so those take the
+        batcher, as do prompts longer than one prefill chunk (prefill-
+        bound: the draft would double the prefill and bypass chunked
+        admission). Adapters cannot reach this: the engine refuses LoRA
+        with a draft."""
+        s = request.sampling
+        constraint = request.constraint
+        return (
+            self.spec_batcher is not None
+            and s.top_k <= 0
+            and not 0.0 < s.top_p < 1.0
+            and len(prompt) <= self.serving.batching.prefill_chunk
+            and not (constraint.json_schema
+                     or constraint.tool_output_schema_ref)
+        )
+
+    async def _generate_speculative(self, request, context, prompt):
+        """One unary call through the micro-batcher: (tokens, finish)."""
+        trace_id = tracing.trace_id_from_metadata(
+            context.invocation_metadata())
+        try:
+            ids, finish, _ = await self.spec_batcher.submit(
+                prompt, self._max_new(request),
+                temperature=max(0.0, request.sampling.temperature),
+                seed=request.sampling.seed or 0, trace_id=trace_id,
+            )
+        except asyncio.CancelledError:
+            raise  # a client disconnect must cancel, not "error"
+        except Exception:
+            logger.exception("speculative generation failed")
+            return [], "error"
+        return ids, finish
 
     async def generate_stream(
         self, request: serving_pb2.GenerateRequest, context
@@ -565,8 +631,12 @@ class Sidecar:
         # clamped admission looks up.
         spec = request.constraint
         constrained = bool(spec.json_schema or spec.tool_output_schema_ref)
-        prompt = self.batcher.clamp_prompt(
-            prompt, self._max_new(request), constrained=constrained)
+        clamp = getattr(self.batcher, "clamp_prompt", None)
+        if clamp is not None:
+            # A tiered batcher cannot export: the export below fails
+            # typed (ABORTED).
+            prompt = clamp(prompt, self._max_new(request),
+                           constrained=constrained)
         try:
             failpoints.evaluate("kv_transfer_fail")
         except failpoints.FailpointError as exc:
@@ -623,10 +693,11 @@ class Sidecar:
         batcher's serialized stream, so no tick or admission sees a
         half-written page."""
         batcher = self.batcher
-        if batcher is None or not batcher._paged:
+        if not isinstance(batcher, ContinuousBatcher) or not batcher._paged:
             await context.abort(
                 grpc.StatusCode.FAILED_PRECONDITION,
-                "kv import requires a paged batcher (batching.paged_kv=on)",
+                "kv import requires a paged, non-tiered batcher "
+                "(batching.paged_kv=on)",
             )
         if (request.kv_dtype or "") != (self.serving.kv_cache_dtype or ""):
             await context.abort(
@@ -695,6 +766,21 @@ class Sidecar:
         else:
             comp = self.embedding.ledger.component_bytes()
             stats = {"memory_weights_bytes": comp.get(("", "weights"), 0)}
+        if self.spec_batcher is not None:
+            sb = self.spec_batcher
+            stats["speculative_calls"] = sb.calls
+            stats["speculative_requests"] = sb.requests
+            stats["speculative_drafted"] = sb.drafted
+            stats["speculative_accepted"] = sb.accepted
+            stats["queued_requests"] = (
+                stats.get("queued_requests", 0) + sb.queue.qsize())
+            # Histograms sum by construction: the exported latency
+            # distributions cover both serving paths.
+            spec_hist = sb.recorder.histogram_stats()
+            batch_hist = {k: stats.pop(k) for k in list(spec_hist)
+                          if k in stats}
+            stats.update(FlightRecorder.merge_histogram_stats(
+                [batch_hist, spec_hist]))
         # The role and the transfer plane's counters, which the
         # gateway's role-aware router reads from the same snapshot.
         stats["role"] = self.serving.role
@@ -755,12 +841,26 @@ class Sidecar:
         ticks: list = []
         requests: list = []
         enabled = False
+        max_requests = request.max_requests or 128
         if self.batcher is not None:
-            enabled = self.batcher.recorder.enabled
+            enabled = any(
+                t.recorder.enabled
+                for t in getattr(self.batcher, "tiers", [self.batcher]))
             ticks, requests = self.batcher.flight_snapshot(
-                request.max_ticks or 128, request.max_requests or 128,
+                request.max_ticks or 128, max_requests,
                 request.trace_id, request.tenant,
             )
+        if self.spec_batcher is not None:
+            # The micro-path's request records (one-shot calls, no
+            # ticks), merged by submit time.
+            enabled = enabled or self.spec_batcher.recorder.enabled
+            spec_requests = [
+                r for r in self.spec_batcher.recorder.request_snapshot()
+                if (not request.trace_id or r.trace_id == request.trace_id)
+                and (not request.tenant or r.tenant == request.tenant)
+            ]
+            requests = sorted(requests + spec_requests,
+                              key=lambda r: r.t_submit)[-max_requests:]
         return serving_pb2.FlightRecordResponse(
             ticks=[
                 serving_pb2.TickRecord(
@@ -942,6 +1042,8 @@ class Sidecar:
         )
         if self.batcher is not None:
             self.batcher.start()
+        if self.spec_batcher is not None:
+            self.spec_batcher.start()
         await self.server.start()
         logger.info(
             "sidecar serving %s (%s) on %s (%s), tokenizer %s",
@@ -961,6 +1063,8 @@ class Sidecar:
         self._peer_channels.clear()
         if self.batcher is not None:
             await self.batcher.stop()
+        if self.spec_batcher is not None:
+            await self.spec_batcher.stop()
         if self.server is not None:
             await self.server.stop(grace=2.0)
 

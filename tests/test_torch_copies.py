@@ -1,6 +1,7 @@
 """The port's copies of the JAX package's jax-free modules:
 `utils/failpoints.py`, `serving/flight_recorder.py`, `serving/slo.py`,
-`serving/scheduler.py` and `serving/host_pool.py`, and the host half of
+`serving/scheduler.py`, `serving/host_pool.py`,
+`serving/spec_batcher.py` and `serving/tiered.py`, and the host half of
 `serving/adapter_arena.py`. Each equals the reference's text except for
 the lines listed here (imports, the logger's name, and comments that
 cite the reference project's issue and PR numbers), and the reference's
@@ -53,6 +54,34 @@ ALLOWED = {
         'logger = logging.getLogger("ggrmcp.serving.host_pool")',
         'logger = logging.getLogger("ggrmcp.torch.host_pool")',
     )],
+    "serving/spec_batcher.py": [
+        ("from ggrmcp_tpu.core.config import BatchingConfig",
+         "from ggrmcp_tpu_torch.core.config import BatchingConfig"),
+        ("from ggrmcp_tpu.serving.flight_recorder import FlightRecorder",
+         "from ggrmcp_tpu_torch.serving.flight_recorder import "
+         "FlightRecorder"),
+        ('logger = logging.getLogger("ggrmcp.serving.spec_batcher")',
+         'logger = logging.getLogger("ggrmcp.torch.spec_batcher")'),
+    ],
+    "serving/tiered.py": [
+        ("from ggrmcp_tpu.core.config import BatchingConfig",
+         "from ggrmcp_tpu_torch.core.config import BatchingConfig"),
+        ("from ggrmcp_tpu.ops.sampling import SamplingConfig",
+         "from ggrmcp_tpu_torch.ops.sampling import SamplingConfig"),
+        ("from ggrmcp_tpu.serving.batching import ContinuousBatcher, "
+         "OverloadedError",
+         "from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher, "
+         "OverloadedError"),
+        ('logger = logging.getLogger("ggrmcp.serving.tiered")',
+         'logger = logging.getLogger("ggrmcp.torch.tiered")'),
+        ("        from ggrmcp_tpu.serving.flight_recorder import "
+         "FlightRecorder",
+         "        from ggrmcp_tpu_torch.serving.flight_recorder import "
+         "FlightRecorder"),
+        ("        from ggrmcp_tpu.serving.slo import SloAccount, TenantTable",
+         "        from ggrmcp_tpu_torch.serving.slo import SloAccount, "
+         "TenantTable"),
+    ],
 }
 # Module -> the port's comment lines that drop the reference's citation
 # of its own issue or PR number (the rest of the line may be reworded).

@@ -488,8 +488,7 @@ def test_role_checks_match_reference():
         with pytest.raises(ValueError, match=match):
             cfg.validate()
         with pytest.raises(ValueError, match=match):
-            # kv_tiers is still a guard of the port: it raises first,
-            # naming the field.
+            # The reference's role check, naming the field.
             ServingConfig(role=role, batching=BatchingConfig(**batching))
     assert sidecar_cfg("decode").role == "decode"
     cfg = ServingConfig()

@@ -9,7 +9,9 @@ straight to the card, and the KV-reuse paths (paged forward, the prefix
 pool, paged KV and the interleave through the batcher) against the CPU,
 and constrained decoding (the masked tick and the jump-ahead tick, whose
 [B, 1 + jump_max] window launches the kernel) against the CPU, with the
-threefry draws bit-identical on both.
+threefry draws bit-identical on both, and speculative decoding (the
+[B, gamma + 1] verify window through the kernel, the spec tick against
+the CPU) and the ring cache (whose steps never launch the kernel).
 
 Every test needs an NVIDIA GPU with `nvcc` (the kernel has no CPU
 mode) and skips without one. This file imports no JAX, so it runs on a
@@ -1029,3 +1031,92 @@ async def test_lora_on_card_matches_cpu(cuda, tmp_path):
     assert got == ref
     assert got[4] == base  # the zero-b adapter is the base model
     assert stats["lora_evictions"] == ref_stats["lora_evictions"] > 0
+
+
+# -- speculative decoding and the ring ---------------------------------------
+
+
+async def _drain(batcher, prompt, max_new):
+    out = []
+    async for ids, _ in batcher.submit(prompt, max_new, SamplingConfig()):
+        out.extend(ids)
+    return out
+
+
+def test_verify_window_kernel(cuda):
+    """The speculative verify window through B1: [8, gamma + 1 = 5]
+    queries at ragged offsets over a strided 1025-position pool slice,
+    mistral-7b's head geometry with a window, bf16, against the plain
+    version."""
+    b, sq, sk, h, kvh, d = 8, 5, 1024, 32, 8, 128
+    g = torch.Generator(device="cpu").manual_seed(21)
+    q = torch.randn((b, sq, h, d), generator=g).to(cuda, torch.bfloat16)
+    kc, vc = (torch.randn((b, sk + 1, kvh, d), generator=g).to(
+        cuda, torch.bfloat16) for _ in range(2))
+    k, v = kc[:, :sk], vc[:, :sk]
+    offs = torch.tensor([16 + 120 * i for i in range(b)], dtype=torch.int32,
+                        device=cuda)
+    kw = dict(causal=True, q_offset=offs, kv_len=offs + sq, window=512)
+    before = tatt.flash_attention.launches
+    out = tatt.flash_attention(q, k, v, **kw)
+    assert tatt.flash_attention.launches == before + 1
+    _assert_close(out, tatt.flash_attention_ref(q, k, v, **kw))
+
+
+async def test_spec_tick_on_card_matches_cpu(cuda):
+    """tiny-llama (float32), a tiny-llama draft of other weights: greedy
+    spec-on tokens on the card equal the CPU's and spec-off's, and every
+    verify launches B1 once a layer."""
+    cfg = tl.CONFIGS["tiny-llama"]
+    cpu = torch.device("cpu")
+    params = tl.init_params(cfg, cpu, seed=13)
+    draft = tl.init_params(cfg, cpu, seed=14)
+    serving = ServingConfig(speculative_draft="tiny-llama")
+    prompts = [[3, 1, 4, 1], [2, 7, 1], [5, 5, 5, 5, 5], [9, 9]]
+    outs, launches = [], []
+    for device, spec in (("cpu", "on"), (cuda, "on"), (cuda, "off")):
+        p = params if device == "cpu" else _to(params, cuda)
+        dp = draft if device == "cpu" else _to(draft, cuda)
+        batcher = ContinuousBatcher(
+            GenerationEngine(cfg, serving, params=p, device=device,
+                             draft_params=dp),
+            BatchingConfig(max_batch_size=4, kv_cache_max_seq=256,
+                           speculative=spec, max_queue_delay_ms=1000.0))
+        if device != "cpu" and spec == "on":
+            real = batcher._tick_spec_impl
+
+            def counted(*args, _real=real, **kwargs):
+                before = tatt.flash_attention.launches
+                out = _real(*args, **kwargs)
+                launches.append(tatt.flash_attention.launches - before)
+                return out
+
+            batcher._tick_spec_impl = counted
+        batcher.start()
+        try:
+            outs.append(await asyncio.gather(*(
+                _drain(batcher, pr, 10) for pr in prompts)))
+        finally:
+            await batcher.stop()
+    assert outs[0] == outs[1] == outs[2]
+    assert launches and all(n == cfg.num_layers for n in launches)
+
+
+def test_ring_step_on_card(cuda):
+    """tiny-mistral (float32): chunks through a ring past its capacity on
+    the card equal a contiguous cache's logits, and the ring's steps
+    never launch B1 (its positions take `attention_ref`)."""
+    cfg = tl.CONFIGS["tiny-mistral"]
+    params = _to(tl.init_params(cfg, torch.device("cpu"), seed=15), cuda)
+    rng = np.random.RandomState(0)
+    tokens = torch.from_numpy(rng.randint(1, 500, (2, 48))).to(cuda)
+    ring = tl.KVCache.create(cfg, 2, 24, cuda)
+    flat = tl.KVCache.create(cfg, 2, 64, cuda)
+    for off in range(0, 48, 8):
+        before = tatt.flash_attention.launches
+        r, ring = tl.forward(params, cfg, tokens[:, off:off + 8], ring,
+                             ring=True)
+        assert tatt.flash_attention.launches == before
+        f, flat = tl.forward(params, cfg, tokens[:, off:off + 8], flat,
+                             use_flash=False)
+        torch.testing.assert_close(r[:, -1], f[:, -1], atol=1e-4, rtol=1e-4)

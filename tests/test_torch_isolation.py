@@ -52,6 +52,9 @@ PORT_MODULES = (
     "ggrmcp_tpu_torch.utils.tracing", "ggrmcp_tpu_torch.rpc.server_utils",
     "ggrmcp_tpu_torch.serving.host_pool",
     "ggrmcp_tpu_torch.serving.adapter_arena", "ggrmcp_tpu_torch.ops.lora",
+    "ggrmcp_tpu_torch.ops.speculative", "ggrmcp_tpu_torch.ops.sampling",
+    "ggrmcp_tpu_torch.serving.spec_batcher",
+    "ggrmcp_tpu_torch.serving.tiered",
 )
 
 
@@ -64,7 +67,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert res.returncode == 0, res.stderr
     result = json.loads(res.stdout.strip().splitlines()[-1])
     assert set(PORT_MODULES) <= set(result["modules"]), result["modules"]
-    assert len(result["modules"]) >= 37, result  # every module was walked
+    assert len(result["modules"]) >= 40, result  # every module was walked
     assert result["bad"] == [], f"the port loaded {result['bad']}"
 
 

@@ -272,7 +272,7 @@ def test_engine_gates_and_names(weights):
             GenerationEngine(TCFG, ServingConfig(
                 lora=LoraConfig(adapters=[bad], rank=RANK)), device="cpu")
     cfg = ServingConfig(lora=LoraConfig(adapters=["x"], rank=RANK))
-    cfg.speculative_draft = "tiny-llama"  # the guard bypassed
+    cfg.speculative_draft = "tiny-llama"
     with pytest.raises(ValueError, match="speculative"):
         GenerationEngine(TCFG, cfg, device="cpu")
 

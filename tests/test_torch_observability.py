@@ -47,12 +47,9 @@ CPU = torch.device("cpu")
 VOCAB = tl.CONFIGS["tiny-llama"].vocab_size
 CFG = dict(max_batch_size=4, kv_cache_max_seq=256, prefill_chunk=16,
            max_queue_delay_ms=1000.0)
-# stats() keys of the reference batcher the port does not export:
-# speculative ticks are not ported.
-UNPORTED_STATS = {
-    "spec_ticks", "spec_drafted", "spec_accepted",
-    "memory_draft_cache_bytes",
-}
+# stats() keys of the reference batcher the port does not export (none
+# since speculative ticks were ported).
+UNPORTED_STATS = set()
 # Record fields that must agree (the rest are wall-clock stamps, or tick
 # numbers).
 RECORD_FIELDS = ("tokens", "prompt_tokens", "finish_reason", "constrained",

@@ -169,19 +169,21 @@ async def test_overloaded_past_max_pending(engines):
 
 @pytest.mark.parametrize(
     "kind,field,value",
-    [("batching", "paged_kv", "maybe"), ("batching", "speculative", "on"),
+    [("batching", "paged_kv", "maybe"), ("batching", "speculative", "maybe"),
      ("batching", "prefill_interleave", "maybe"),
      ("batching", "prefix_cache_entries", -1),
      ("batching", "paged_kv_host_bytes", 1 << 20),
      ("batching", "paged_kv_host_path", "/tmp/kv.log"),
      ("batching", "paged_kv_host_file_bytes", 1 << 20),
-     ("batching", "kv_tiers", [[128, 2]]),
+     ("batching", "kv_tiers", [[128, 0]]),
      ("batching", "pipeline_ticks", "on"),
      ("batching", "queue_deadline_ms", -1.0),
      ("batching", "p50_budget_ms", -1.0),
      ("serving", "failpoints", "tick_fail:frequency=7"),
      ("serving", "kv_cache_dtype", "int4"), ("serving", "quantize", "fp4"),
-     ("serving", "checkpoint_path", "ckpt")],
+     ("serving", "checkpoint_path", "ckpt"),
+     ("serving", "speculative_draft_checkpoint", "ckpt"),
+     ("serving", "speculative_gamma", 0)],
 )
 def test_unsupported_config_raises(kind, field, value):
     """Unported features' settings and values the reference's checks
