@@ -112,7 +112,21 @@ Phases, any failure exits non-zero and prints no result:
    from GetMemory, TTFT; the ring never launches B1); (e) tiers [[1024,
    32], [8192, 4]] against one 28-slot pool at 8192 with 24 short calls
    and 4 of 6000 tokens together (each tier's admissions, TTFT of each
-   kind, KV bytes).
+   kind, KV bytes);
+14. sparse MoE at mixtral-8x7b's widths with the depth cut to 16 of 32
+   layers (seeded random bf16 weights): (a) one layer's `moe_ffn` at the
+   [32, 512] admission shape against its float32 one-hot form, a [32,
+   512] prefill with B1 against the same prefill through
+   `flash_attention_ref` (the plain run's routing held to the kernel
+   run's, its own flips counted), tiny-moe float32 on the card against
+   the CPU; (b) a sidecar configured by a `--config` file that sets the
+   depth answers phase 5's burst through fused and chunked admissions
+   and one GenerateStream (GetModelInfo's family and parameter count, B1
+   launches, tick p50, TTFT p50, tokens/s, GetMemory's weights and
+   reconcile, peak memory); (c) each greedy stream of the burst against
+   its prompt alone, counted (expert capacity is batch-global); (d) two
+   constrained calls of phase 10's schemas on one-token masked ticks
+   (jump-ahead is off for MoE: B1 never launches in their ticks).
 
 The last lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -3767,6 +3781,431 @@ async def spec_ring_tier_phase(torch, tatt, dev, spec=None) -> dict:
     return res
 
 
+# -- phase 14: the sparse-MoE family -------------------------------------------
+
+# The card's sizes; a smaller spec drives the same code on the CPU.
+# mixtral-8x7b at its published widths with its depth cut to 16 of 32
+# layers: a layer's bf16 expert banks are 3 · 8 · 4096 · 14336 values,
+# so 32 layers exceed the card's 80 GB; 16 layers and the default pool
+# (32 slots, 4097 positions) fit.
+P14 = dict(model="mixtral-8x7b", layers=16, admit=(32, 512),
+           prompts=SERVE_PROMPT_TOKENS, new=SERVE_NEW_TOKENS, batching={},
+           tiny="tiny-moe")
+# (a) moe_ffn (bf16, by index) against its one-hot form in float32
+# (`route`'s dispatch and combine tensors) on the same inputs and
+# weights. Both take the same routing (the float32 router on the same
+# bf16 input); the bf16 path rounds the expert input, the gate and up
+# products, their SwiGLU product and the output: five roundings of at
+# most 2^-9 each, under 1e-2 in relative L2.
+MOE_FFN_REL = 1e-2
+# (a) The [32, 512] prefill with B1 against the same prefill through
+# flash_attention_ref: phase 4's bound, relative L2 of the logits <=
+# 2e-2, with the plain run's routing held to the kernel run's. Routing
+# is discontinuous: where bf16 attention outputs differ by a rounding
+# step, a near-tie of the router flips an expert, and the position then
+# differs by a routing decision, not by rounding. Those flips (the plain
+# run's own top-2 against the kernel run's) are counted, not bounded.
+MOE_PREFILL_REL = 2e-2
+# (d) Two constrained calls of phase 10's schemas.
+MOE_SCHEMAS = ("flat", "const")
+
+
+def _moe_ffn_check(torch, dev, spec) -> dict:
+    """(a) One layer's moe_ffn at the admission shape against its float32
+    one-hot form; the drops of both are the same."""
+    import dataclasses
+
+    from ggrmcp_tpu_torch.models import moe as moe_mod
+    from ggrmcp_tpu_torch.utils.device import set_float_policy
+
+    set_float_policy()
+    cfg = dataclasses.replace(moe_mod.CONFIGS[spec["model"]], num_layers=1)
+    params = moe_mod.init_params(cfg, dev, SEED + 2)
+    lp = {k: v[0] for k, v in params["layers"].items()}
+    del params
+    b, s = spec["admit"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x = torch.randn((b, s, cfg.hidden_dim), generator=gen, device=dev,
+                    dtype=torch.float32).to(cfg.torch_dtype)
+    with torch.no_grad():
+        out, _ = moe_mod.moe_ffn(x, lp, cfg, aux=False)
+        _sync(torch, dev)
+        ms = _device_ms(torch, dev, lambda: moe_mod.moe_ffn(
+            x, lp, cfg, aux=False), 3)
+        # The decode tick's FFN: one token a slot (T = 32, capacity 16),
+        # every expert's bank read once.
+        step = x[:, :1].contiguous()
+        decode_ms = _device_ms(torch, dev, lambda: moe_mod.moe_ffn(
+            step, lp, cfg, aux=False), 10)
+        bank_bytes = sum(lp[k].numel() * lp[k].element_size()
+                         for k in ("w_gate", "w_up", "w_down"))
+        lp32 = {k: v.float() for k, v in lp.items()}
+        ref, _ = moe_mod.moe_ffn_ref(x.float(), lp32, cfg)
+        t = b * s
+        cap = moe_mod._capacity(cfg, t)
+        dispatch, _, _ = moe_mod.route(x.reshape(t, -1), lp["router"], cfg,
+                                       cap)
+        kept = dispatch.sum().item()
+        del dispatch, lp32
+        rel = ((out.float() - ref).norm() / ref.norm()).item()
+    check(torch.isfinite(out).all().item(), "(a) moe_ffn output not finite")
+    check(rel <= MOE_FFN_REL,
+          f"(a) moe_ffn vs its one-hot form: rel err {rel} > {MOE_FFN_REL}")
+    res = dict(tokens=t, capacity=cap, pairs_kept=int(kept),
+               pairs_dropped=t * cfg.experts_per_token - int(kept),
+               rel_err=rel, max_abs_err=(out.float() - ref).abs().max().item(),
+               ms=ms, bound_ms=_ffn_bound_ms(cfg, int(kept)),
+               decode_ms=decode_ms, decode_bound_ms=bank_bytes / PEAK_BYTES
+               * 1e3)
+    del out, ref, lp, x
+    return res
+
+
+def _ffn_bound_ms(cfg, pairs: int) -> float:
+    """The least time of the FFN's expert products for `pairs` routed
+    (token, k) pairs (this run's data: capacity rows left empty need no
+    work): three [D] x [D, F]-sized products a pair in bf16 over the
+    card's peak, or the banks read once over the memory rate, whichever
+    is larger."""
+    e, d, f = cfg.num_experts, cfg.hidden_dim, cfg.ffn_dim
+    flops = 3 * 2 * pairs * d * f
+    return max(flops / PEAK_FLOPS["bfloat16"],
+               3 * e * d * f * 2 / PEAK_BYTES) * 1e3
+
+
+def _moe_prefill_check(torch, tatt, moe_mod, llama_mod, params, cfg, dev,
+                       spec) -> dict:
+    """(a) A [32, 512] prefill with B1 against the same prefill with every
+    attention through the plain version, the plain run's routing held to
+    the kernel run's (its own top-2 counted against it)."""
+    b, s = spec["admit"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    toks = torch.randint(3, cfg.vocab_size, (b, s), generator=gen,
+                         device=dev)
+    real_assign = moe_mod._assign
+    kernel_attention = llama_mod.attention
+    routes: list = []
+    flips = [0, 0]
+
+    def record(*args, **kwargs):
+        out = real_assign(*args, **kwargs)
+        routes.append(out)
+        return out
+
+    def replay(*args, **kwargs):
+        own = real_assign(*args, **kwargs)
+        pinned = routes[flips[1]]
+        flips[0] += int((own[2] != pinned[2]).any(-1).sum().item())
+        flips[1] += 1
+        return pinned
+
+    def plain(q, k, v, **kw):
+        kw.pop("use_flash", None)
+        kw.pop("k_positions", None)
+        return tatt.flash_attention_ref(q, k, v, **kw)
+
+    launched = tatt.flash_attention.launches
+    with torch.no_grad():
+        moe_mod._assign = record
+        try:
+            out, _ = moe_mod.forward(params, cfg, toks)
+        finally:
+            moe_mod._assign = real_assign
+        launches = tatt.flash_attention.launches - launched
+        moe_mod._assign, llama_mod.attention = replay, plain
+        try:
+            ref, _ = moe_mod.forward(params, cfg, toks)
+        finally:
+            moe_mod._assign = real_assign
+            llama_mod.attention = kernel_attention
+        rel = ((out - ref).norm() / ref.norm()).item()
+        agree = (out.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        finite = torch.isfinite(out).all().item()
+    decisions = b * s * cfg.num_layers
+    del out, ref, routes
+    check(finite, "(a) mixtral logits not finite")
+    if dev.type == "cuda":
+        check(launches == cfg.num_layers,
+              f"(a) the prefill launched B1 {launches} times")
+    check(rel <= MOE_PREFILL_REL,
+          f"(a) mixtral prefill kernel vs plain rel err {rel}")
+    return dict(logits_rel_err=rel, top1_agree=agree, b1_launches=launches,
+                routing_flips=flips[0], routing_decisions=decisions,
+                flip_share=flips[0] / decisions)
+
+
+def _tiny_moe_check(torch, dev, spec) -> dict:
+    """(a) tiny-moe (float32) on the card against the same weights on the
+    CPU: identical greedy tokens."""
+    import numpy as np
+
+    from ggrmcp_tpu_torch.models import moe as moe_mod
+    from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+
+    cfg = moe_mod.CONFIGS[spec["tiny"]]
+    cpu_params = moe_mod.init_params(cfg, torch.device("cpu"), SEED)
+    rng = np.random.default_rng(SEED + 5)
+    toks = torch.from_numpy(rng.integers(3, 500, (2, 100)))
+    ref, _ = moe_mod.forward(cpu_params, cfg, toks)
+    out, _ = moe_mod.forward(_to(cpu_params, dev), cfg, toks.to(dev))
+    err = (out.cpu() - ref).abs().max().item()
+    check(err <= 1e-3, f"(a) tiny-moe logits card vs cpu: {err} > 1e-3")
+    prompts = [rng.integers(3, 500, n).tolist() for n in (7, 33, 90)]
+    cpu_out = GenerationEngine(cfg, params=cpu_params, device="cpu").generate(
+        prompts, 16)
+    dev_out = GenerationEngine(cfg, params=_to(cpu_params, dev),
+                               device=dev).generate(prompts, 16)
+    check(dev_out == cpu_out, "(a) tiny-moe greedy tokens card vs cpu differ")
+    return dict(logits_max_abs_err=err, greedy_identical=True)
+
+
+class _PairTally:
+    """Routed (token, k) pairs of every MoE layer while installed, on the
+    device (no sync): real pairs and the pairs kept within capacity, per
+    kind of forward ("admit" unless a tick body runs)."""
+
+    def __init__(self, torch, dev, moe_mod):
+        self.mod, self.assign = moe_mod, moe_mod._assign
+        self.kind = "admit"
+        self.counts = {kind: torch.zeros(2, dtype=torch.int64, device=dev)
+                       for kind in ("admit", "tick")}
+
+    def install(self) -> None:
+        def counted(x, router, cfg, capacity, valid):
+            out = self.assign(x, router, cfg, capacity, valid)
+            real = x.shape[0] if valid is None else valid.sum()
+            self.counts[self.kind][0] += real * cfg.experts_per_token
+            self.counts[self.kind][1] += out[4].sum()
+            return out
+
+        self.mod._assign = counted
+
+    def remove(self) -> None:
+        self.mod._assign = self.assign
+
+    def read(self, reset: bool = True) -> dict:
+        out = {}
+        for kind, c in self.counts.items():
+            pairs, kept = (int(v) for v in c.tolist())
+            out[kind] = dict(pairs=pairs, dropped=pairs - kept)
+            if reset:
+                c.zero_()
+        return out
+
+
+def _moe_ticks(torch, dev, batcher, tally) -> None:
+    """Time the plain tick body (synchronised), count B1's launches inside
+    it (`batcher.tick_log`) and tally its routed pairs apart; hold
+    admission rounds (`hold_for`)."""
+    from ggrmcp_tpu_torch.ops import attention as tatt
+
+    batcher.tick_log = {"ms": [], "launches": 0}
+    body = batcher._tick_impl
+
+    def timed(*args, **kwargs):
+        launched = tatt.flash_attention.launches
+        tally.kind = "tick"
+        t = time.perf_counter()
+        try:
+            out = body(*args, **kwargs)
+            _sync(torch, dev)
+        finally:
+            tally.kind = "admit"
+        batcher.tick_log["ms"].append((time.perf_counter() - t) * 1e3)
+        batcher.tick_log["launches"] += tatt.flash_attention.launches - launched
+        return out
+
+    batcher._tick_impl = timed
+    _hold_admission(batcher)
+    _ttft_log(batcher)
+
+
+async def moe_phase(torch, tatt, dev, spec=None) -> dict:
+    """Phase 14: (a) the MoE FFN against its one-hot form, a [32, 512]
+    prefill with B1 against the plain version, tiny-moe card vs CPU; (b) a
+    sidecar on the depth-cut model (`num_layers` in its `--config` file)
+    answers phase 5's burst through fused and chunked admissions and one
+    GenerateStream; (c) each greedy stream of the burst against its prompt
+    alone, counted; (d) two constrained calls on one-token masked ticks
+    (jump-ahead is gated off for MoE: no B1 launch in their ticks)."""
+    import dataclasses
+    import tempfile
+
+    import grpc.aio
+
+    from ggrmcp_tpu_torch import __main__ as cli
+    from ggrmcp_tpu_torch.grammar import compile_schema
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.models import moe as moe_mod
+    from ggrmcp_tpu_torch.models.common import param_bytes
+    from ggrmcp_tpu_torch.serving.sidecar import Sidecar
+
+    spec = spec or P14
+    cfg = dataclasses.replace(moe_mod.CONFIGS[spec["model"]],
+                              num_layers=spec["layers"])
+    res: dict = {}
+    t = time.perf_counter()
+    res["ffn"] = _moe_ffn_check(torch, dev, spec)
+    _free(torch, dev)
+    log(f"  (a) moe_ffn vs one-hot: {json.dumps(res['ffn'])}")
+    res["tiny"] = _tiny_moe_check(torch, dev, spec)
+    log(f"  (a) {spec['tiny']} card vs cpu: {json.dumps(res['tiny'])}")
+
+    # The path's run starts here: every launch count from 0.
+    tatt.flash_attention.launches = 0
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        path = os.path.join(tmp, "moe.json")
+        with open(path, "w") as fh:
+            json.dump({"serving": dict(
+                model=spec["model"], num_layers=spec["layers"],
+                batching=spec["batching"])}, fh)
+        serving = cli.serving_config(cli.build_parser().parse_args(
+            ["sidecar", "--config", path]))
+        _sync(torch, dev)
+        t_init = time.perf_counter()
+        side = Sidecar(serving, seed=SEED, device=dev)
+        _sync(torch, dev)
+        res["init_s"] = time.perf_counter() - t_init
+        engine, batcher = side.generation, side.batcher
+        check(engine.cfg == cfg and side.family == "moe",
+              f"(b) the sidecar serves {engine.cfg.name} as {side.family}")
+        check(batcher._is_moe and batcher._jump_max == 0,
+              "(d) jump-ahead was not gated off for MoE")
+        tally = _PairTally(torch, dev, moe_mod)
+        _moe_ticks(torch, dev, batcher, tally)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        texts = [_prompt_text(n, 1800 + i)
+                 for i, n in enumerate(spec["prompts"])]
+        limits = {name: longest_output(compile_schema(
+            GRAMMAR_SCHEMAS[name], vocab_size=cfg.vocab_size)) + 1
+            for name in MOE_SCHEMAS}
+        await side.start(0)
+        tally.install()
+        try:
+            async with grpc.aio.insecure_channel(side.target) as ch:
+                client = _GrammarClient(ch)
+                ctl = _ControlClient(ch)
+                info = await ch.unary_unary(
+                    "/ggrmcp.tpu.ModelInfoService/GetModelInfo",
+                    request_serializer=client.pb.ModelInfoRequest
+                    .SerializeToString,
+                    response_deserializer=client.pb.ModelInfoResponse
+                    .FromString)(client.pb.ModelInfoRequest())
+                check(info.family == "moe" and info.model_id == cfg.name
+                      and info.num_params_million
+                      == moe_mod.num_params(cfg) // 10 ** 6,
+                      f"(b) GetModelInfo {info}")
+
+                # (b) the burst in one admission round.
+                tally.read()
+                batcher.hold_for = len(texts)
+                routes0 = (batcher.fused_admissions,
+                           batcher.chunked_admissions)
+                t_burst = time.perf_counter()
+                burst = await asyncio.gather(*(
+                    client.generate(text, spec["new"]) for text in texts))
+                wall = time.perf_counter() - t_burst
+                burst_pairs = tally.read()
+                routes = (batcher.fused_admissions - routes0[0],
+                          batcher.chunked_admissions - routes0[1])
+                ticks_ms = list(batcher.tick_log["ms"])
+                ttft = [ms for _, ms in batcher.ttft_ms]
+                for n, (ids, reason, _) in zip(spec["prompts"], burst):
+                    check(reason in ("length", "stop") and ids
+                          and all(0 <= i < cfg.vocab_size for i in ids),
+                          f"(b) prompt of {n} tokens: {reason}, {len(ids)}")
+                chunks = await client.stream(client.request(
+                    _prompt_text(spec["prompts"][4], 1900), spec["new"]))
+                check(chunks and chunks[-1].done
+                      and chunks[-1].finish_reason in ("length", "stop"),
+                      f"(b) the stream ended badly: {chunks[-1:]}")
+                memory = await ctl.memory()
+                tokens = sum(len(ids) for ids, _, _ in burst)
+                comps = {c.component: c.bytes for c in memory.components
+                         if not c.scope}
+                check(comps["weights"] == param_bytes(engine.params),
+                      f"(b) GetMemory weights {comps['weights']} != "
+                      f"{param_bytes(engine.params)}")
+                check(memory.total_bytes + memory.unattributed_bytes
+                      == memory.live_bytes, "(b) the ledger does not close")
+                res["serve"] = dict(
+                    requests=len(burst), tokens=tokens, wall_s=wall,
+                    tok_per_s=tokens / wall, tick_ms_p50=_median(ticks_ms),
+                    ticks=len(ticks_ms), ttft=_ttft(ttft),
+                    fused_admissions=routes[0], chunked_admissions=routes[1],
+                    stream_chunks=len(chunks),
+                    weights_bytes=comps["weights"],
+                    kv_arena_bytes=comps.get("kv_arena", 0),
+                    live_bytes=memory.live_bytes,
+                    unattributed_bytes=memory.unattributed_bytes,
+                    num_params_million=info.num_params_million,
+                    routed_pairs=burst_pairs,
+                    launches=tatt.flash_attention.launches)
+                check(res["serve"]["fused_admissions"] > 0
+                      and res["serve"]["chunked_admissions"] > 0,
+                      "(b) the burst did not take both admission routes")
+                log(f"  (b) serve: {json.dumps(res['serve'])}")
+
+                # (c) each burst prompt alone.
+                tally.read()
+                alone = [(await client.generate(text, spec["new"]))[0]
+                         for text in texts]
+                res["batch_dependence"] = dict(_agreement(
+                    [ids for ids, _, _ in burst], alone),
+                    routed_pairs_alone=tally.read())
+                log(f"  (c) burst vs alone: "
+                    f"{json.dumps(res['batch_dependence'])}")
+
+                # (d) two constrained calls on masked one-token ticks.
+                launched = batcher.tick_log["launches"]
+                n_ticks = len(batcher.tick_log["ms"])
+                batcher.hold_for = len(MOE_SCHEMAS)
+                outs = await asyncio.gather(*(client.call(client.request(
+                    texts[i], limits[name], schema=GRAMMAR_SCHEMAS[name]))
+                    for i, name in enumerate(MOE_SCHEMAS)))
+                tick_launches = batcher.tick_log["launches"] - launched
+                for name, (resp, _) in zip(MOE_SCHEMAS, outs):
+                    check(resp.finish_reason in ("grammar_complete", "stop"),
+                          f"(d) {name}: finish {resp.finish_reason!r}")
+                    json.loads(resp.text)
+                res["constrained"] = dict(
+                    finish=[r.finish_reason for r, _ in outs],
+                    tokens=[r.completion_tokens for r, _ in outs],
+                    ticks=len(batcher.tick_log["ms"]) - n_ticks,
+                    tick_launches=tick_launches)
+                check(tick_launches == 0,
+                      f"(d) B1 launched {tick_launches} times in the "
+                      f"constrained calls' ticks")
+                log(f"  (d) constrained: {json.dumps(res['constrained'])}")
+        finally:
+            tally.remove()
+            await side.stop()
+    _sync(torch, dev)
+    res["launches"] = tatt.flash_attention.launches
+    if dev.type == "cuda":
+        check(res["serve"]["launches"] > 0,
+              "(b) the serve never launched the kernel")
+        res["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    params = engine.params
+    del side, engine, batcher
+    _free(torch, dev)
+    res["prefill"] = _moe_prefill_check(torch, tatt, moe_mod, llama_mod,
+                                        params, cfg, dev, spec)
+    log(f"  (a) prefill B1 vs plain: {json.dumps(res['prefill'])}")
+    del params
+    _free(torch, dev)
+    res["seconds"] = time.perf_counter() - t
+    return res
+
+
+def _free(torch, dev) -> None:
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def _brief(d):
     """`d` without its token lists (for the log)."""
     if isinstance(d, dict):
@@ -3805,74 +4244,80 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         card = card_line()
-        log(f"[1/13] card: {card}; torch {torch.__version__}, CUDA "
+        log(f"[1/14] card: {card}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
         t = time.perf_counter()
         _build.load("flash_attention")
-        log(f"[2/13] build: flash_attention.cu in "
+        log(f"[2/14] build: flash_attention.cu in "
             f"{time.perf_counter() - t:.1f} s")
         ptxas_report(_build.build_log.get("flash_attention", ""))
 
-        log(f"[3/13] kernel vs plain (|err| <= atol + rtol |plain|: {TOL})")
+        log(f"[3/14] kernel vs plain (|err| <= atol + rtol |plain|: {TOL})")
         cases = kernel_cases(torch, tatt, dev)
 
-        log("[4/13] reference: tiny-llama on the card vs the CPU")
+        log("[4/14] reference: tiny-llama on the card vs the CPU")
         ref = tiny_reference(torch, dev)
         log(f"  {ref}")
 
-        log(f"[5/13] serve: {MODEL} sidecar, default batching")
+        log(f"[5/14] serve: {MODEL} sidecar, default batching")
         serve = asyncio.run(serve_phase(torch, tatt, dev))
         log(f"  {json.dumps(serve)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[6/13] embed: {EMBED_MODEL} sidecar")
+        log(f"[6/14] embed: {EMBED_MODEL} sidecar")
         embed = asyncio.run(embed_phase(torch, tatt, dev))
         log(f"  {json.dumps(embed)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log("[7/13] HF checkpoint: llama3-8b width, 2 layers, 2 files")
+        log("[7/14] HF checkpoint: llama3-8b width, 2 layers, 2 files")
         hf = asyncio.run(hf_phase(torch, tatt, dev))
         log(f"  {json.dumps(hf)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[8/13] int8: {MODEL} weights and KV cache")
+        log(f"[8/14] int8: {MODEL} weights and KV cache")
         int8 = asyncio.run(int8_phase(torch, tatt, dev))
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[9/13] KV reuse: {MODEL} prefix pool, interleave, paged KV")
+        log(f"[9/14] KV reuse: {MODEL} prefix pool, interleave, paged KV")
         reuse = asyncio.run(kv_reuse_phase(torch, tatt, dev))
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[10/13] grammar: {MODEL} constrained burst, jump on / off")
+        log(f"[10/14] grammar: {MODEL} constrained burst, jump on / off")
         grammar = asyncio.run(grammar_phase(torch, tatt, dev))
         log(f"  {json.dumps(_brief(grammar))}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[11/13] control plane: {MODEL} tick phases, Profile, "
+        log(f"[11/14] control plane: {MODEL} tick phases, Profile, "
             f"GetMemory, scheduler, failpoints, deadlines")
         control = asyncio.run(control_phase(torch, tatt, dev))
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[12/13] paged plane and LoRA: {MODEL} host tier, TransferKV "
+        log(f"[12/14] paged plane and LoRA: {MODEL} host tier, TransferKV "
             f"with roles, adapter arena, preemption with the host tier")
         paged = asyncio.run(paged_lora_phase(torch, tatt, dev))
         gc.collect()
         torch.cuda.empty_cache()
 
         t = time.perf_counter()
-        log(f"[13/13] speculative decoding, ring KV, tiers: "
+        log(f"[13/14] speculative decoding, ring KV, tiers: "
             f"{P13['model']} with the {P13['draft']} draft")
         p13 = asyncio.run(spec_ring_tier_phase(torch, tatt, dev))
         log(f"  phase 13: {time.perf_counter() - t:.1f} s, "
             f"{p13['launches']} B1 launches")
+
+        log(f"[14/14] sparse MoE: {P14['model']} cut to {P14['layers']} "
+            f"layers, bf16")
+        p14 = asyncio.run(moe_phase(torch, tatt, dev))
+        log(f"  phase 14: {p14['seconds']:.1f} s, {p14['launches']} B1 "
+            f"launches, peak {p14['max_memory_allocated_gb']:.2f} GB")
     except SmokeError as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
@@ -3905,6 +4350,8 @@ def main() -> int:
         micro_launches=p13["micro"]["launches"],
         ring_launches=p13["ring"]["ring_launches"],
         tier_launches=p13["tiers"]["launches"],
+        moe_launches=p14["launches"],
+        moe_prefill_rel_err=p14["prefill"]["logits_rel_err"],
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],

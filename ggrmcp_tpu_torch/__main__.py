@@ -2,8 +2,8 @@
 [--hf-checkpoint DIR] [--tokenizer FILE] [--quantize int8]
 [--config FILE] [--device cpu] [--seed S]`.
 
-A llama model (or any HF Llama/Mistral checkpoint given by
-`--hf-checkpoint`, which overrides `--model`) serves Generate /
+A llama or sparse-MoE model (or any HF Llama/Mistral checkpoint given
+by `--hf-checkpoint`, which overrides `--model`) serves Generate /
 GenerateStream; a bert model serves Embed. Both serve GetModelInfo /
 GetServingStats over gRPC. Without a checkpoint the weights are random,
 drawn from `--seed`. `--tokenizer` takes a HF tokenizer.json and needs
@@ -17,7 +17,9 @@ the command line overrides the file. The file also takes the replica's
 `"batching": {"paged_kv": "on"}`), multi-LoRA (`"lora": {"registry":
 DIR, "rank": 8, "arena_rows": 8}` or `{"adapters": [...], "path":
 DIR}`) and the host page tier (`"batching": {"paged_kv_host_bytes": N,
-"paged_kv_host_path": FILE}`); an unknown key raises. Runs on CUDA
+"paged_kv_host_path": FILE}`) and a depth cut of a registry model
+(`"num_layers": 16`: mixtral-8x7b at full width on one 80 GB card); an
+unknown key raises. Runs on CUDA
 unless `--device cpu` is given. Put the reference gateway in front of
 it: `python -m ggrmcp_tpu gateway --grpc-port N`.
 """

@@ -517,6 +517,10 @@ SERVING_ROLES = ("mixed", "prefill", "decode")
 @dataclass
 class ServingConfig:
     model: str = "tiny-llama"
+    # Depth cut of `model`: serve its first N layers at full width (0 =
+    # the registry's depth). Random weights only: a card too small for
+    # the whole stack still runs the published widths.
+    num_layers: int = 0
     batching: BatchingConfig = field(default_factory=BatchingConfig)
     port: int = 50051
     # HF Llama/Mistral checkpoint directory; overrides `model`.
@@ -644,6 +648,14 @@ class ServingConfig:
                     "kv_ring does not compose with the prefix pool "
                     "(pooled prefixes assume a contiguous layout)"
                 )
+        if self.num_layers < 0:
+            raise ValueError("serving.num_layers must be >= 0")
+        if self.num_layers and (self.checkpoint_path
+                                or self.hf_checkpoint_path):
+            raise ValueError(
+                "serving.num_layers cuts a random-weight model; a "
+                "checkpoint brings its own depth"
+            )
         if self.quantize not in QUANTIZE_MODES:
             raise ValueError(
                 f"unknown serving.quantize {self.quantize!r}; "

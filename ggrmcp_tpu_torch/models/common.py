@@ -18,6 +18,10 @@ from ggrmcp_tpu_torch.ops.quant import QuantizedTensor
 
 Params = dict[str, Any]
 
+# Leaves kept in float32 whatever the model dtype: the MoE router, whose
+# routing decisions are precision-sensitive (models/moe.py).
+FLOAT32_LEAVES = frozenset({"router"})
+
 _DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,

@@ -12,7 +12,9 @@ LoRA factor stacks (`layers["lora_qkv_a"]` [L, N+1, D, r],
 `layers["lora_qkv_b"]` [L, N+1, r, O], ops/lora.py) carries them across
 as it does every other stacked layer leaf. A speculative draft's tree (a
 reference engine's `draft_params`) converts the same way and reaches
-`GenerationEngine` as its `draft_params`.
+`GenerationEngine` as its `draft_params`. A MoE tree (models/moe.py)
+crosses the same way; its `router` leaves stay float32 whatever `dtype`
+is, as the reference keeps them (a bf16 router would route otherwise).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ggrmcp_tpu_torch.models.common import FLOAT32_LEAVES
 from ggrmcp_tpu_torch.ops.quant import QuantizedTensor
 
 
@@ -48,16 +51,19 @@ def params_from_numpy(
 ) -> dict:
     """Nested dict of numpy arrays → the same nesting of tensors on
     `device`; floating leaves (a quantized leaf's scale too) cast to
-    `dtype` when given."""
+    `dtype` when given, except the float32 leaves of
+    `common.FLOAT32_LEAVES`."""
     dev = torch.device(device)
 
-    def convert(value):
+    def convert(key, value):
         if isinstance(value, dict):
             return params_from_numpy(value, dev, dtype)
         if _is_quantized(value):
             return QuantizedTensor(
                 q=_leaf(value.q, dev, None), scale=_leaf(value.scale, dev, dtype)
             )
+        if key in FLOAT32_LEAVES:
+            return _leaf(value, dev, torch.float32)
         return _leaf(value, dev, dtype)
 
-    return {key: convert(value) for key, value in tree.items()}
+    return {key: convert(key, value) for key, value in tree.items()}

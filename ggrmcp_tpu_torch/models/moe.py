@@ -1,0 +1,398 @@
+"""Sparse Mixture-of-Experts decoder (Mixtral-style). Port of
+`ggrmcp_tpu/models/moe.py` on one device (expert parallelism over the
+reference's `expert` mesh axis is not ported).
+
+- The attention trunk is `llama.attention_block`, so every cache layout
+  the dense family serves reaches MoE unchanged: contiguous, ring and
+  int8 KV (a paged cache is refused, as the reference's engine refuses
+  it). Weights are stacked [L, ...] like the dense family's; the expert
+  banks are [L, E, D, F] / [L, E, F, D] and the router [L, D, E] stays
+  float32 whatever the model dtype.
+- Routing is the reference's capacity-based top-k: a float32 router,
+  softmax, top-k (ties to the lower expert id, as `lax.top_k`), the k
+  probabilities renormalised; each (token, k) pair takes the exclusive
+  prefix count of its expert in the flattened (token, k) order as its
+  slot, and a pair at or past `capacity` is dropped (zero combine
+  weight: it rides the residual). `valid` zeroes padding before the
+  count, so padding neither takes a slot nor contributes output.
+- `route` and `moe_ffn_ref` keep the reference's one-hot form
+  (dispatch and combine [T, E, C] tensors, four einsums). `moe_ffn`,
+  the serving form, computes the same function by index: each (token,
+  k) pair is copied into its [E, C, D] slot (dropped and padding pairs
+  into a scratch row), the experts run as three batched products, and
+  each token sums its k weighted expert outputs. At a [32, 512]
+  admission of mixtral-8x7b the one-hot tensors would hold 16384 · 8 ·
+  5120 floats each.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ggrmcp_tpu_torch.models import common
+from ggrmcp_tpu_torch.models import llama
+from ggrmcp_tpu_torch.models.llama import KVCache, LlamaConfig  # noqa: F401
+from ggrmcp_tpu_torch.ops import quant
+from ggrmcp_tpu_torch.ops.quant import QuantizedTensor
+
+Params = common.Params
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig(LlamaConfig):
+    name: str = "moe"
+    num_experts: int = 8
+    experts_per_token: int = 2
+    capacity_factor: float = 1.25
+    # Router auxiliary-loss weight (the reference's training path).
+    router_aux_weight: float = 0.01
+
+
+# The reference registry, same names and values.
+CONFIGS: dict[str, MoEConfig] = {
+    "tiny-moe": MoEConfig(
+        name="tiny-moe", vocab_size=512, hidden_dim=256, num_layers=2,
+        num_heads=8, num_kv_heads=4, head_dim=32, ffn_dim=512,
+        max_seq_len=1024, num_experts=4, experts_per_token=2,
+        dtype="float32",
+    ),
+    "moe-2b": MoEConfig(
+        name="moe-2b", vocab_size=32000, hidden_dim=2048, num_layers=12,
+        num_heads=16, num_kv_heads=8, head_dim=128, ffn_dim=2816,
+        max_seq_len=4096, num_experts=8, experts_per_token=2,
+    ),
+    # The published Mixtral-8x7B architecture.
+    "mixtral-8x7b": MoEConfig(
+        name="mixtral-8x7b", vocab_size=32000, hidden_dim=4096,
+        num_layers=32, num_heads=32, num_kv_heads=8, head_dim=128,
+        ffn_dim=14336, max_seq_len=8192, rope_theta=1000000.0,
+        num_experts=8, experts_per_token=2,
+    ),
+    # Windowed MoE (Mixtral-8x7B-v0.1 carried sliding_window=4096): a
+    # 16-key window keeps the ring's wrap testable on the CPU.
+    "tiny-moe-sw": MoEConfig(
+        name="tiny-moe-sw", vocab_size=512, hidden_dim=256, num_layers=2,
+        num_heads=8, num_kv_heads=4, head_dim=32, ffn_dim=512,
+        max_seq_len=1024, num_experts=4, experts_per_token=2,
+        sliding_window=16, dtype="float32",
+    ),
+}
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def param_shapes(cfg: MoEConfig) -> Params:
+    """The shape of every leaf `init_params` makes, in the same tree."""
+    d, n_layers, e, f = (cfg.hidden_dim, cfg.num_layers, cfg.num_experts,
+                         cfg.ffn_dim)
+    qkv_out = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    return {
+        "embed": (cfg.vocab_size, d),
+        "layers": {
+            "attn_norm": (n_layers, d),
+            "wqkv": (n_layers, d, qkv_out),
+            "wo": (n_layers, cfg.num_heads * cfg.head_dim, d),
+            "mlp_norm": (n_layers, d),
+            "router": (n_layers, d, e),
+            "w_gate": (n_layers, e, d, f),
+            "w_up": (n_layers, e, d, f),
+            "w_down": (n_layers, e, f, d),
+        },
+        "final_norm": (d,),
+        "lm_head": (d, cfg.vocab_size),
+    }
+
+
+def init_params(cfg: MoEConfig, device: torch.device, seed: int = 0) -> Params:
+    """Random weights at the reference's init scales, drawn on `device`
+    from a seeded torch.Generator, one layer (one expert of a bank) at a
+    time, so the float32 scratch stays that size. The router is float32;
+    every other leaf is in the model dtype. The values differ from JAX's;
+    parity tests cross weights through models/convert.py instead."""
+    dtype = cfg.torch_dtype
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    d, n_layers = cfg.hidden_dim, cfg.num_layers
+    shapes = param_shapes(cfg)["layers"]
+    kw = dict(generator=gen, device=device)
+
+    def stacked(name: str, fan_in: int, leaf_dtype=dtype):
+        shape = shapes[name]
+        # A 4-D bank draws as L·E stacked [in, out] matrices.
+        return common.init_stacked(
+            shape[0] * shape[1] if len(shape) == 4 else shape[0],
+            shape[-2:], leaf_dtype, scale=fan_in ** -0.5, **kw,
+        ).view(shape)
+
+    return {
+        "embed": common.init_dense(cfg.vocab_size, d, dtype, scale=0.02, **kw),
+        "layers": {
+            "attn_norm": torch.ones((n_layers, d), dtype=dtype, device=device),
+            "wqkv": stacked("wqkv", d),
+            "wo": stacked("wo", cfg.num_heads * cfg.head_dim),
+            "mlp_norm": torch.ones((n_layers, d), dtype=dtype, device=device),
+            # Routing decisions are precision-sensitive.
+            "router": stacked("router", d, torch.float32),
+            "w_gate": stacked("w_gate", d),
+            "w_up": stacked("w_up", d),
+            "w_down": stacked("w_down", cfg.ffn_dim),
+        },
+        "final_norm": torch.ones((d,), dtype=dtype, device=device),
+        "lm_head": common.init_dense(d, cfg.vocab_size, dtype,
+                                     scale=d ** -0.5, **kw),
+    }
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN: capacity-based top-k dispatch
+# ---------------------------------------------------------------------------
+
+
+def _capacity(cfg: MoEConfig, num_tokens: int) -> int:
+    """Per-expert slot count for `num_tokens` routed tokens: max(8,
+    ceil8(capacity_factor · T · k / E))."""
+    cap = int(
+        cfg.capacity_factor * num_tokens * cfg.experts_per_token
+        / cfg.num_experts
+    )
+    return max(8, -(-cap // 8) * 8)
+
+
+def _assign(
+    x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig, capacity: int,
+    valid: Optional[torch.Tensor],
+):
+    """The routing decisions of [T, D] tokens: (probs [T, E] float32,
+    renormalised top-k probabilities [T, K], expert ids [T, K], slots
+    [T, K], kept [T, K]: the pair is a real token's and within
+    capacity)."""
+    t = x.shape[0]
+    e, k = cfg.num_experts, cfg.experts_per_token
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)  # [T, E]
+    # lax.top_k's order: descending, ties to the lower index.
+    topk_p, topk_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topk_p, topk_i = topk_p[:, :k], topk_i[:, :k]
+    topk_p = topk_p / torch.clamp(topk_p.sum(-1, keepdim=True), min=1e-9)
+    onehot = F.one_hot(topk_i, e)  # [T, K, E]
+    if valid is not None:
+        onehot = onehot * valid.long()[:, None, None]
+    # Slot of each (token, k) within its expert: the exclusive prefix
+    # count over the flattened (token-major, k fastest) order.
+    flat = onehot.reshape(t * k, e)
+    pos = torch.cumsum(flat, dim=0) - flat
+    slot = (pos * flat).sum(-1).reshape(t, k)
+    kept = slot < capacity
+    if valid is not None:
+        kept = kept & valid[:, None]
+    return probs, topk_p, topk_i, slot, kept
+
+
+def route(
+    x: torch.Tensor,  # [T, D]
+    router: torch.Tensor,  # [D, E] float32
+    cfg: MoEConfig,
+    capacity: int,
+    valid: Optional[torch.Tensor] = None,  # [T] bool
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference's routing tensors: (dispatch [T, E, C] float32 one-hot,
+    combine [T, E, C] float32, router probabilities [T, E])."""
+    probs, topk_p, topk_i, slot, kept = _assign(x, router, cfg, capacity,
+                                                valid)
+    disp_tke = F.one_hot(topk_i, cfg.num_experts).float() * kept[..., None]
+    # A dropped pair's slot is past C: clamp it into range, its row of
+    # disp_tke is zero.
+    slot_oh = F.one_hot(torch.clamp(slot, max=capacity - 1), capacity).float()
+    dispatch = torch.einsum("tke,tkc->tec", disp_tke, slot_oh)
+    combine = torch.einsum("tk,tke,tkc->tec", topk_p, disp_tke, slot_oh)
+    return dispatch, combine, probs
+
+
+def _aux_loss(probs: torch.Tensor, cfg: MoEConfig,
+              valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """Switch-style load-balance loss E · <fraction routed, mean prob>,
+    over valid tokens only."""
+    top1 = F.one_hot(probs.argmax(-1), cfg.num_experts).float()
+    if valid is not None:
+        w = valid.reshape(-1, 1).float()
+        denom = torch.clamp(w.sum(), min=1.0)
+        frac = (top1 * w).sum(0) / denom
+        mean_prob = (probs * w).sum(0) / denom
+    else:
+        frac = top1.mean(0)
+        mean_prob = probs.mean(0)
+    return cfg.num_experts * torch.sum(frac * mean_prob)
+
+
+def _experts(expert_in: torch.Tensor, lp: Params) -> torch.Tensor:
+    """The routed SwiGLU over [E, C, D] expert batches → [E, C, D]."""
+    gate = F.silu(torch.bmm(expert_in, lp["w_gate"]))
+    up = torch.bmm(expert_in, lp["w_up"])
+    return torch.bmm(gate * up, lp["w_down"])
+
+
+def moe_ffn_ref(
+    x: torch.Tensor,  # [B, S, D] (already normed)
+    lp: Params,
+    cfg: MoEConfig,
+    valid: Optional[torch.Tensor] = None,  # [B, S] bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain one-hot form (the reference's four einsums through
+    `route`'s dispatch and combine tensors), in x's dtype. Returns (out
+    [B, S, D], aux loss)."""
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    vt = valid.reshape(t) if valid is not None else None
+    dispatch, combine, probs = route(xt, lp["router"], cfg,
+                                     _capacity(cfg, t), vt)
+    expert_in = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), xt)
+    out = torch.einsum("tec,ecd->td", combine.to(x.dtype),
+                       _experts(expert_in, lp))
+    return out.reshape(b, s, d), _aux_loss(probs, cfg, vt)
+
+
+def moe_ffn(
+    x: torch.Tensor,  # [B, S, D] (already normed)
+    lp: Params,
+    cfg: MoEConfig,
+    valid: Optional[torch.Tensor] = None,  # [B, S] bool
+    aux: bool = True,
+) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Routed SwiGLU expert bank, by index: `moe_ffn_ref`'s function
+    without its [T, E, C] tensors and with no host sync. Each token's k
+    weighted outputs sum in float32 (the reference casts the combine
+    weights to x's dtype and contracts them in its einsum). Returns (out
+    [B, S, D], aux loss, or None with `aux` False)."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.num_experts, cfg.experts_per_token
+    xt = x.reshape(t, d)
+    vt = valid.reshape(t) if valid is not None else None
+    capacity = _capacity(cfg, t)
+    probs, topk_p, topk_i, slot, kept = _assign(xt, lp["router"], cfg,
+                                                capacity, vt)
+    # Row e·C + slot of the [E·C + 1, D] expert input; dropped and padding
+    # pairs all land in the scratch row E·C, which no output reads.
+    scratch = e * capacity
+    dest = torch.where(kept, topk_i * capacity + slot, scratch).reshape(-1)
+    expert_in = xt.new_zeros((scratch + 1, d))
+    expert_in.index_copy_(0, dest, xt.repeat_interleave(k, dim=0))
+    expert_out = _experts(expert_in[:scratch].view(e, capacity, d), lp)
+    gathered = expert_out.reshape(scratch, d)[
+        torch.clamp(dest, max=scratch - 1)].view(t, k, d)
+    w = torch.where(kept, topk_p, 0.0).to(x.dtype).float()
+    out = (gathered.float() * w[..., None]).sum(1).to(x.dtype)
+    return out.view(b, s, d), _aux_loss(probs, cfg, vt) if aux else None
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _layer(
+    x: torch.Tensor, lp: Params, cfg: MoEConfig, positions: torch.Tensor,
+    cache_k, cache_v, cache_len: Optional[torch.Tensor],
+    valid: Optional[torch.Tensor], use_flash: Optional[bool] = None,
+    ring: bool = False, aux: bool = False,
+):
+    x = llama.attention_block(x, lp, cfg, positions, cache_k, cache_v,
+                              cache_len, use_flash, ring=ring)
+    normed = common.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    out, layer_aux = moe_ffn(normed, lp, cfg, valid, aux)
+    return x + out, layer_aux
+
+
+def forward_with_aux(
+    params: Params,
+    cfg: MoEConfig,
+    tokens: torch.Tensor,  # [B, S]
+    cache: Optional[KVCache] = None,
+    valid: Optional[torch.Tensor] = None,  # [B, S] bool
+    use_flash: Optional[bool] = None,
+    ring: bool = False,
+    aux: bool = True,
+) -> tuple[torch.Tensor, Optional[KVCache], Optional[torch.Tensor]]:
+    """`forward` also returning the mean router load-balance loss over
+    layers (None with `aux` False)."""
+    if isinstance(cache, llama.PagedKVCache):
+        raise ValueError("paged_kv supports dense Llama only")
+    b, s = tokens.shape
+    dtype = cfg.torch_dtype
+    x = quant.embed_lookup(params["embed"], tokens, dtype)
+    steps = torch.arange(s, device=tokens.device)[None, :]
+    positions = (
+        cache.length.long()[:, None] + steps if cache is not None
+        else steps.expand(b, s)
+    )
+    layers = params["layers"]
+    auxes = []
+    for layer in range(cfg.num_layers):
+        lp = {name: llama._at(layer, w) for name, w in layers.items()}
+        if cache is None:
+            x, a = _layer(x, lp, cfg, positions, None, None, None, valid,
+                          use_flash, aux=aux)
+        else:
+            x, a = _layer(x, lp, cfg, positions, llama._at(layer, cache.k),
+                          llama._at(layer, cache.v), cache.length, valid,
+                          use_flash, ring, aux)
+        auxes.append(a)
+    if cache is not None:
+        cache.length = cache.length + s
+    x = common.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["lm_head"]
+    if not isinstance(head, QuantizedTensor):
+        head = head.to(dtype)
+    logits = quant.matmul(x, head)
+    mean_aux = torch.stack(auxes).mean() if aux else None
+    return logits.float(), cache, mean_aux
+
+
+def forward(
+    params: Params,
+    cfg: MoEConfig,
+    tokens: torch.Tensor,  # [B, S]
+    cache: Optional[KVCache] = None,
+    valid: Optional[torch.Tensor] = None,  # [B, S] bool
+    use_flash: Optional[bool] = None,
+    ring: bool = False,
+) -> tuple[torch.Tensor, Optional[KVCache]]:
+    """`llama.forward`'s contract (cache written in place, its length
+    advanced by S; float32 logits [B, S, V]). `valid` marks real tokens:
+    padding and idle rows never compete for expert capacity. No LoRA and
+    no paged cache, as in the reference."""
+    logits, cache, _ = forward_with_aux(params, cfg, tokens, cache, valid,
+                                        use_flash, ring, aux=False)
+    return logits, cache
+
+
+def num_params(cfg: MoEConfig) -> int:
+    d, n_layers, v, e, f = (
+        cfg.hidden_dim, cfg.num_layers, cfg.vocab_size, cfg.num_experts,
+        cfg.ffn_dim,
+    )
+    qkv = d * (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    per_layer = (
+        qkv + cfg.num_heads * cfg.head_dim * d + 2 * d  # attention, norms
+        + d * e  # router
+        + 3 * e * d * f  # expert banks
+    )
+    return v * d * 2 + n_layers * per_layer + d
+
+
+def active_params_per_token(cfg: MoEConfig) -> int:
+    """Parameters one token touches (k of the E experts)."""
+    d, e, f, k = (cfg.hidden_dim, cfg.num_experts, cfg.ffn_dim,
+                  cfg.experts_per_token)
+    qkv = d * (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    per_layer = (
+        qkv + cfg.num_heads * cfg.head_dim * d + 2 * d + d * e + 3 * k * d * f
+    )
+    return cfg.vocab_size * d * 2 + cfg.num_layers * per_layer + d

@@ -359,15 +359,26 @@ class ContinuousBatcher:
             max(1, int(engine.serving.speculative_gamma)) if self._spec else 0
         )
         self._ring = getattr(engine, "ring_capacity", None) is not None
+        # Model family: a MoE forward also takes the validity mask, so
+        # padding, idle slots and idle interleave rows never compete for
+        # expert capacity (routing is batch-global).
+        self._is_moe = getattr(engine, "fam", llama_mod) is not llama_mod
         gcfg = getattr(engine.serving, "grammar", None) or GrammarConfig()
         jump_max = int(gcfg.jump_max) if gcfg.enabled else 0
         # The reference's gates: the jump window does not compose with a
         # ring cache (its clobber bound was sized for the prefill chunk),
         # and junk window positions would compete for MoE experts.
-        if jump_max and (self._ring
-                         or getattr(engine, "fam", llama_mod) is not llama_mod):
-            logger.warning("grammar.jump_max > 0 needs a dense contiguous "
-                           "or paged cache; one-token constrained decoding")
+        if jump_max and self._ring:
+            logger.warning(
+                "grammar.jump_max > 0 does not compose with kv_ring; "
+                "falling back to one-token constrained decoding"
+            )
+            jump_max = 0
+        if jump_max and self._is_moe:
+            logger.warning(
+                "grammar.jump_max > 0 is dense-family only; falling "
+                "back to one-token constrained decoding"
+            )
             jump_max = 0
         self._jump_max = jump_max
         # A tick may run up to advance - 1 positions past a slot's
@@ -606,6 +617,17 @@ class ContinuousBatcher:
 
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _valid(self, true_len: torch.Tensor, offs, width: int):
+        """MoE validity of a [R, width] step at per-row offsets `offs` (an
+        int or an [R] tensor): position < the row's prompt length (0 for
+        padding rows). None for the dense family, which ignores it."""
+        if not self._is_moe:
+            return None
+        if isinstance(offs, torch.Tensor):
+            offs = offs.long()[:, None]
+        pos = offs + torch.arange(width, device=self.device)[None, :]
+        return pos < true_len.long()[:, None]
 
     def _lora_idx(self, ids: np.ndarray) -> Optional[torch.Tensor]:
         """Per-row adapter rows for a forward, or None when every row is
@@ -956,11 +978,12 @@ class ContinuousBatcher:
         the admitted rows. One [B, S] prefill against a fresh mini cache,
         first-token sample, then the admitted rows' K/V and lengths are
         copied into the pool (other rows keep their state). `adapters`:
-        each row's LoRA row (None = all base), on every route."""
+        each row's LoRA row (None = all base), on every route. Rows not
+        admitted have length 0."""
         r, s = tokens.shape
         mini = self._make_mini(r, s)
-        logits, mini = self.engine.prefill_forward(params, tokens, mini,
-                                                   adapters)
+        logits, mini = self.engine.prefill_forward(
+            params, tokens, mini, adapters, self._valid(true_len, 0, s))
         idx = torch.clamp(true_len.long() - 1, min=0)
         last = logits[torch.arange(r, device=self.device), idx]
         first, _ = self._sample(last, seeds, 0, temps, ks, ps, gs)
@@ -973,8 +996,9 @@ class ContinuousBatcher:
                            seeds, temps, ks, ps, gs, adapters=None):
         """One request (row shapes [1, S]) into slot `slot`."""
         mini = self._make_mini(1, tokens.shape[1])
-        logits, mini = self.engine.prefill_forward(params, tokens, mini,
-                                                   adapters)
+        logits, mini = self.engine.prefill_forward(
+            params, tokens, mini, adapters,
+            self._valid(true_len, 0, tokens.shape[1]))
         n = int(true_len[0])
         last = logits[:, max(n - 1, 0)]
         first, _ = self._sample(last, seeds, 0, temps, ks, ps, gs)
@@ -988,7 +1012,7 @@ class ContinuousBatcher:
         at its final prompt position as it passes. Rows shorter than the
         grid process padding chunks whose K/V land past their final
         length (masked by length on merge; writes past the mini's end
-        land in its scratch slot)."""
+        land in its scratch slot). Padding rows have length 0."""
         r, t_steps, c = tokens.shape
         final = torch.zeros((r, self.engine.cfg.vocab_size),
                             dtype=torch.float32, device=self.device)
@@ -996,7 +1020,8 @@ class ContinuousBatcher:
         for t in range(t_steps):
             off = start + t * c
             logits, mini = self.engine.decode_forward(
-                params, tokens[:, t], mini, adapters, ring=self._ring
+                params, tokens[:, t], mini, adapters, ring=self._ring,
+                valid=self._valid(true_len, off, c),
             )
             idx = torch.clamp(last - off, 0, c - 1)
             sel = logits[torch.arange(r, device=self.device), idx]
@@ -1082,19 +1107,22 @@ class ContinuousBatcher:
                                     start=merge_start)
 
     def _tick_impl(self, params, tokens, seeds, step, temps, ks, ps, gs,
-                   adapters=None):
+                   adapters=None, active=None):
         """`decode_steps_per_tick` decode steps for the whole pool, each
         sampled under the rows' grammar states, which advance by a
         transition gather. Tokens a slot samples after its EOS / max_new
         are dropped on the host (_emit_chunk); their cache writes are
         masked by length when the slot is reused, and a write past the
         end of the cache lands in its scratch slot (scratch page when
-        paged). Returns (tokens [B, steps], states [B])."""
+        paged). `active` [B] (MoE): idle slots still compute but take no
+        expert capacity. Returns (tokens [B, steps], states [B])."""
         out = []
         cur = tokens
+        valid = None if active is None else active[:, None]
         for i in range(self._steps_per_tick):
             logits, _ = self.engine.decode_forward(
-                params, cur[:, None], self.cache, adapters, ring=self._ring
+                params, cur[:, None], self.cache, adapters, ring=self._ring,
+                valid=valid,
             )
             cur, gs = self._sample(logits[:, -1], seeds, step + i, temps,
                                    ks, ps, gs)
@@ -1135,18 +1163,20 @@ class ContinuousBatcher:
     def _chunk_extend(self, params, chunk, offs, c_true_len, c_adapters=None):
         """Extend the carried [K, S_max] interleave mini by one [K, C]
         chunk at the host-stamped offsets and gather each row's logits
-        at its final prompt position within this chunk."""
+        at its final prompt position within this chunk (idle rows have
+        length 0)."""
         mini = self._ilv_mini
         mini.length = offs.to(torch.int32)
         c = chunk.shape[1]
-        logits, _ = self.engine.decode_forward(params, chunk, mini, c_adapters,
-                                               ring=self._ring)
+        logits, _ = self.engine.decode_forward(
+            params, chunk, mini, c_adapters, ring=self._ring,
+            valid=self._valid(c_true_len, offs, c))
         idx = torch.clamp(c_true_len.long() - 1 - offs.long(), 0, c - 1)
         return logits[torch.arange(chunk.shape[0], device=self.device), idx]
 
     def _tick_chunk_impl(self, params, tokens, seeds, step, temps, ks, ps,
                          gs, chunk, offs, c_true_len, adapters=None,
-                         c_adapters=None):
+                         c_adapters=None, active=None):
         """A decode tick for every slot AND one [K, C] prefill chunk for
         the admitting rows, in one executor call: an active slot's
         emission gaps by one chunk's compute, never a whole prefill.
@@ -1154,7 +1184,7 @@ class ContinuousBatcher:
         re-stamps the offset). Returns (tokens [B, steps], states [B],
         sel [K, V])."""
         toks, gs = self._tick_impl(params, tokens, seeds, step, temps, ks,
-                                   ps, gs, adapters)
+                                   ps, gs, adapters, active)
         sel = self._chunk_extend(params, chunk, offs, c_true_len, c_adapters)
         return toks, gs, sel
 
@@ -1422,7 +1452,8 @@ class ContinuousBatcher:
             chunk[0, : len(piece)] = piece
             logits, _ = self.engine.decode_forward(
                 self.engine.params, self._t(chunk), mini,
-                self._lora_idx(np.array([request.adapter], np.int64)))
+                self._lora_idx(np.array([request.adapter], np.int64)),
+                valid=self._valid(self._t(np.array([n])), off, width))
         # Base rows only feed the pool (adapter'd K/V never seed it).
         key = self._pfx_storable(prompt) if request.adapter == 0 else None
         if key is not None and plen < len(key):
@@ -2505,9 +2536,10 @@ class ContinuousBatcher:
 
     def _group_inputs(self, rows, r: int, t_steps: int, c: int, start: int):
         """[R, T, C] tokens (each prompt from `start`), true lengths and
-        sampling arrays of a group call; rows past len(rows) pad."""
+        sampling arrays of a group call; rows past len(rows) pad
+        with length 0."""
         tokens = np.zeros((r, t_steps * c), np.int64)
-        true_len = np.ones((r,), np.int64)
+        true_len = np.zeros((r,), np.int64)
         for j, row in enumerate(rows):
             piece = row[1].prompt[start:]
             tokens[j, : len(piece)] = piece
@@ -2604,7 +2636,7 @@ class ContinuousBatcher:
         n = 1 if single else len(self.slots)
         rows = [0] if single else list(slots_idx)
         tokens = np.zeros((n, s), np.int64)
-        true_len = np.ones((n,), np.int64)
+        true_len = np.zeros((n,), np.int64)
         for row, req in zip(rows, batch):
             tokens[row, : len(req.prompt)] = req.prompt
             true_len[row] = len(req.prompt)
@@ -2687,12 +2719,12 @@ class ContinuousBatcher:
     def _ilv_chunk_inputs(self):
         """Host-stamped [K, C] chunk, offsets, prompt lengths and adapter
         rows of the chunk half of a tick (idle rows: zeros at offset 0,
-        length 1, base)."""
+        length 0, base)."""
         k = self._ilv_k
         c = min(self.cfg.prefill_chunk, self.max_seq)
         chunk = np.zeros((k, c), np.int64)
         offs = np.zeros((k,), np.int64)
-        c_tl = np.ones((k,), np.int64)
+        c_tl = np.zeros((k,), np.int64)
         c_adapt = np.zeros((k,), np.int64)
         for r, st in enumerate(self._ilv_rows):
             if st is None:
@@ -2797,7 +2829,10 @@ class ContinuousBatcher:
             self._t(self.top_ks), self._t(self.top_ps),
             self._t(self.gstates),
         )
-        lora = {"adapters": self._lora_idx(self.adapter_ids)}
+        kw = {"adapters": self._lora_idx(self.adapter_ids)}
+        if self._is_moe:
+            # Only the plain tick serves MoE (spec and jump are off).
+            kw["active"] = self._t(np.array([r is not None for r in owners]))
         if spec:
             args = (args[0], self.engine.draft_params,
                     self._t(self.prev_tokens)) + args[1:]
@@ -2809,7 +2844,7 @@ class ContinuousBatcher:
                 self._ilv_mini = self._make_mini(self._ilv_k, self.max_seq)
             chunk_arr, offs, c_tl, c_adapt = self._ilv_chunk_inputs()
             c_args = (self._t(chunk_arr), self._t(offs), self._t(c_tl))
-            lora["c_adapters"] = self._lora_idx(c_adapt)
+            kw["c_adapters"] = self._lora_idx(c_adapt)
         if rec is not None:
             rec.phases.mark("sync")
         if chunk:
@@ -2818,16 +2853,16 @@ class ContinuousBatcher:
                     self._tick_spec_chunk_impl(*args, *c_args))
             elif jump:
                 toks_dev, counts_dev, gs_dev, sel = (
-                    self._tick_jump_chunk_impl(*args, *c_args, **lora))
+                    self._tick_jump_chunk_impl(*args, *c_args, **kw))
             else:
                 toks_dev, gs_dev, sel = self._tick_chunk_impl(
-                    *args, *c_args, **lora)
+                    *args, *c_args, **kw)
         elif spec:
             toks_dev, counts_dev, gs_dev = self._tick_spec_impl(*args)
         elif jump:
-            toks_dev, counts_dev, gs_dev = self._tick_jump_impl(*args, **lora)
+            toks_dev, counts_dev, gs_dev = self._tick_jump_impl(*args, **kw)
         else:
-            toks_dev, gs_dev = self._tick_impl(*args, **lora)
+            toks_dev, gs_dev = self._tick_impl(*args, **kw)
         t1 = time.perf_counter()
         if rec is not None:
             rec.phases.mark("dispatch")
@@ -2840,17 +2875,22 @@ class ContinuousBatcher:
         self.timing["tick_dispatch_ms"] += (t1 - t0) * 1000.0
         self.timing["tick_collect_ms"] += (t2 - t1) * 1000.0
         self.timing["ticks"] += 1
+        drafted = accepted = 0
         if spec:
+            # Counted before any emission: a consumer woken by a terminal
+            # chunk reads counters that include this tick.
+            live = [i for i, r in enumerate(owners) if r is not None]
+            drafted = self._gamma * len(live)
+            accepted = sum(int(counts[i]) - 1 for i in live)
             self.spec_ticks += 1
+            self.spec_drafted += drafted
+            self.spec_accepted += accepted
         if chunk:
             self._ilv_advance(sel)
-        finished = jump_tokens = jump_runs = drafted = accepted = 0
+        finished = jump_tokens = jump_runs = 0
         for i, request in enumerate(owners):
             if request is None:
                 continue
-            if spec:
-                drafted += self._gamma
-                accepted += int(counts[i]) - 1
             if self.slots[i].request is not request:
                 continue
             c = toks.shape[1] if counts is None else int(counts[i])
@@ -2871,8 +2911,6 @@ class ContinuousBatcher:
                 finished += 1
         self.grammar_jump_tokens += jump_tokens
         self.grammar_jump_runs += jump_runs
-        self.spec_drafted += drafted
-        self.spec_accepted += accepted
         self.recorder.tick_done(rec, finished, spec_drafted=drafted,
                                 spec_accepted=accepted,
                                 jump_tokens=jump_tokens, jump_runs=jump_runs)

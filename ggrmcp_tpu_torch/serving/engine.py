@@ -1,6 +1,6 @@
 """Engines on one device. Port of `ggrmcp_tpu/serving/engine.py`:
-`GenerationEngine` (dense Llama prefill, decode and whole-request
-generation, with int8 weights, the int8 KV cache, the paged and ring
+`GenerationEngine` (dense Llama or sparse-MoE prefill, decode and
+whole-request generation, with int8 weights, the int8 KV cache, the paged and ring
 caches for the batcher, multi-LoRA adapters, boot-time or from a
 registry through the adapter arena, and speculative decoding against a
 draft model; no mesh or PP/SP) and `EmbeddingEngine` (BERT embeddings).
@@ -21,7 +21,10 @@ import torch
 
 from ggrmcp_tpu_torch.core.config import ServingConfig
 from ggrmcp_tpu_torch.models import bert as bert_mod
+from ggrmcp_tpu_torch.models import family_module
 from ggrmcp_tpu_torch.models import llama as llama_mod
+from ggrmcp_tpu_torch.models import moe as moe_mod
+from ggrmcp_tpu_torch.models.common import FLOAT32_LEAVES
 from ggrmcp_tpu_torch.models.common import count_params, param_bytes
 from ggrmcp_tpu_torch.ops import lora as lora_ops
 from ggrmcp_tpu_torch.ops import quant
@@ -53,10 +56,13 @@ def fit_request(
 
 
 class GenerationEngine:
-    """Llama generation on one device: prefill + decode + fused
-    generate. `params` (this package's dict of tensors, e.g. from
-    models/convert.py or serving/weights.py) or random weights drawn from
-    `seed`.
+    """Decoder generation on one device (a dense Llama or a sparse MoE,
+    `fam` the family module): prefill + decode + fused generate.
+    `params` (this package's dict of tensors, e.g. from models/convert.py
+    or serving/weights.py) or random weights drawn from `seed`. A MoE
+    forward takes `valid`, the real tokens: padding never competes for
+    expert capacity. MoE refuses a speculative draft, LoRA and the paged
+    cache, as the reference does.
 
     `serving.quantize="int8"` quantizes the weights here, IN PLACE: each
     dense leaf of the given dict is replaced by its QuantizedTensor as
@@ -83,6 +89,7 @@ class GenerationEngine:
         draft_params=None,
     ):
         self.cfg = cfg
+        self.fam = family_module(cfg)
         self.serving = serving or ServingConfig()
         if self.serving.failpoints:
             # Armed at the serving plane's root, as the reference does:
@@ -99,7 +106,7 @@ class GenerationEngine:
         else:
             if params is None:
                 t0 = time.monotonic()
-                params = llama_mod.init_params(cfg, self.device, seed)
+                params = self.fam.init_params(cfg, self.device, seed)
                 logger.info(
                     "initialized %s on %s: %.1fM params in %.1fs", cfg.name,
                     self.device, count_params(params) / 1e6,
@@ -151,9 +158,8 @@ class GenerationEngine:
 
     def _init_speculative(self, seed: int, draft_params) -> None:
         """The draft model of serving.speculative_draft (None = off),
-        with the reference's rejections: the draft must be a dense llama
-        sharing the target's vocabulary (this package serves no MoE
-        target, the reference's other rejection). It serves the
+        with the reference's rejections: the target must be dense and the
+        draft a dense llama sharing its vocabulary. It serves the
         whole-generation micro-path (generate_speculative) and the
         batcher's spec tick (batching.speculative)."""
         self.draft_cfg: Optional[llama_mod.LlamaConfig] = None
@@ -164,6 +170,12 @@ class GenerationEngine:
                 raise ValueError("draft_params given without "
                                  "serving.speculative_draft")
             return
+        if self.fam is moe_mod:
+            raise ValueError(
+                "speculative decoding supports dense decoder targets "
+                "only (MoE routing is batch-global, which breaks the "
+                "lossless verification guarantee)"
+            )
         from ggrmcp_tpu_torch.models import get_model
 
         family, dcfg = get_model(name)
@@ -298,6 +310,8 @@ class GenerationEngine:
             raise ValueError(
                 "lora.registry and lora.adapters are mutually exclusive"
             )
+        if self.fam is not llama_mod:
+            raise ValueError("lora serving supports dense Llama only")
         if self.serving.speculative_draft or (
                 self.serving.batching.speculative == "on"):
             raise ValueError(
@@ -483,15 +497,18 @@ class GenerationEngine:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         dtype, dev = self.cfg.torch_dtype, self.device
-        shapes = llama_mod.param_shapes(self.cfg)
+        shapes = self.fam.param_shapes(self.cfg)
         axes = dict(quant.quantize_targets(shapes))
 
-        def positive(shape):
+        def positive(shape, leaf_dtype=dtype):
             # 0.02 * |N(0, 1)| + 1e-3 in the leaf's dtype.
-            t = torch.randn(shape, generator=gen, dtype=dtype, device=dev)
+            t = torch.randn(shape, generator=gen, dtype=leaf_dtype,
+                            device=dev)
             return t.abs_().mul_(0.02).add_(1e-3)
 
         def leaf(path, shape):
+            if path[-1] in FLOAT32_LEAVES:
+                return positive(shape, torch.float32)
             if path not in axes:
                 return positive(shape)
             scale_shape = list(shape)
@@ -537,17 +554,24 @@ class GenerationEngine:
 
     # -- forwards -------------------------------------------------------
 
-    def prefill_forward(self, params, tokens, cache, lora_idx=None):
+    def prefill_forward(self, params, tokens, cache, lora_idx=None,
+                        valid=None):
         """Forward for a FRESH prefill (cache written from offset 0)."""
-        return self.decode_forward(params, tokens, cache, lora_idx)
+        return self.decode_forward(params, tokens, cache, lora_idx,
+                                   valid=valid)
 
     def decode_forward(self, params, tokens, cache, lora_idx=None,
-                       ring: bool = False):
+                       ring: bool = False, valid=None):
         """Forward for decode / extension steps (cache has history): a
         contiguous KVCache or a PagedKVCache. `lora_idx`: [B] adapter
         rows (None = every row base). `ring` describes the CACHE (the
         batcher's ring-capacity caches), not the engine: the engine's
-        own request-sized caches stay contiguous."""
+        own request-sized caches stay contiguous. `valid` [B, S]: the
+        real tokens, for MoE routing (the dense family ignores it)."""
+        if self.fam is moe_mod:
+            return moe_mod.forward(params, self.cfg, tokens, cache,
+                                   valid=valid, use_flash=self.use_flash,
+                                   ring=ring)
         return llama_mod.forward(params, self.cfg, tokens, cache,
                                  use_flash=self.use_flash,
                                  lora_idx=lora_idx, ring=ring)
@@ -560,7 +584,10 @@ class GenerationEngine:
         self, batch: int, max_len: int, n_pages: int, page_size: int
     ) -> llama_mod.PagedKVCache:
         """A page arena of `n_pages` pages (plus the scratch page) with
-        all-sentinel block tables, in the engine's KV dtype."""
+        all-sentinel block tables, in the engine's KV dtype. Dense Llama
+        only, as in the reference."""
+        if self.fam is not llama_mod:
+            raise ValueError("paged_kv supports dense Llama only")
         return llama_mod.PagedKVCache.create(
             self.cfg, batch, max_len, n_pages, page_size, self.device,
             self.kv_dtype,
@@ -574,8 +601,12 @@ class GenerationEngine:
     def _prefill_impl(self, params, tokens, true_len, cache, lora_idx=None):
         """tokens [B, S] right-padded, true_len [B] → (last-position
         logits [B, V], cache with length = true_len). Logits are
-        computed for every position first, as the reference does."""
-        logits, cache = self.prefill_forward(params, tokens, cache, lora_idx)
+        computed for every position first, as the reference does.
+        Padding is not `valid`: it must not take MoE expert capacity."""
+        valid = (torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+                 < true_len[:, None])
+        logits, cache = self.prefill_forward(params, tokens, cache, lora_idx,
+                                             valid)
         idx = torch.clamp(true_len.long() - 1, min=0)
         last = logits[torch.arange(logits.shape[0], device=logits.device), idx]
         cache.length = true_len.to(torch.int32)
@@ -733,7 +764,7 @@ class GenerationEngine:
                 cur = sample(logits[:, -1], seed, i + 1, sampling)
 
     def model_info(self) -> dict:
-        return _model_info(self, "llama")
+        return _model_info(self, "moe" if self.fam is moe_mod else "llama")
 
 
 def _quantize_by_slice(w: torch.Tensor, axis: int) -> quant.QuantizedTensor:

@@ -2,8 +2,9 @@
 
 Port of `ggrmcp_tpu/serving/sidecar.py::Sidecar`. The model's family
 picks the engine: a llama model (by name, or any HF checkpoint through
-`serving.hf_checkpoint_path`) gets the generation engine and the
-continuous batcher, a bert model the embedding engine. Registration is
+`serving.hf_checkpoint_path`) or a sparse-MoE model gets the generation
+engine and the continuous batcher, a bert model the embedding engine.
+`serving.num_layers` cuts a registry model's depth. Registration is
 family-scoped as in the reference: GenerateService (Generate,
 GenerateStream) or EmbedService (Embed), plus ModelInfoService
 (GetModelInfo, GetServingStats), DebugService, reflection and health,
@@ -49,6 +50,7 @@ coalesced across concurrent requests.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import logging
 import os
 import re
@@ -104,6 +106,18 @@ logger = logging.getLogger("ggrmcp.torch.sidecar")
 POOLINGS = ("mean", "cls", "max")
 
 
+def _cut_depth(cfg, num_layers: int):
+    """`cfg` with its first `num_layers` layers (0 = as registered)."""
+    if not num_layers:
+        return cfg
+    if num_layers > cfg.num_layers:
+        raise ValueError(
+            f"serving.num_layers={num_layers} exceeds {cfg.name}'s "
+            f"{cfg.num_layers} layers"
+        )
+    return dataclasses.replace(cfg, num_layers=num_layers)
+
+
 class Sidecar:
     """Owns the engine (and, for generation, the continuous batcher) and
     the grpc.aio server. `params`: this package's weights
@@ -139,7 +153,8 @@ class Sidecar:
             )
         else:
             self.family, model_cfg = get_model(self.serving.model)
-        if self.family == "llama":
+            model_cfg = _cut_depth(model_cfg, self.serving.num_layers)
+        if self.family in ("llama", "moe"):
             self.generation = GenerationEngine(
                 model_cfg, self.serving, params=params, seed=seed,
                 device=device,

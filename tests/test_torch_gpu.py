@@ -11,7 +11,10 @@ and constrained decoding (the masked tick and the jump-ahead tick, whose
 [B, 1 + jump_max] window launches the kernel) against the CPU, with the
 threefry draws bit-identical on both, and speculative decoding (the
 [B, gamma + 1] verify window through the kernel, the spec tick against
-the CPU) and the ring cache (whose steps never launch the kernel).
+the CPU) and the ring cache (whose steps never launch the kernel), and
+the sparse-MoE family (its FFN on the card against the CPU and, in
+bf16, against its float32 one-hot form; the batcher's routes against
+the CPU).
 
 Every test needs an NVIDIA GPU with `nvcc` (the kernel has no CPU
 mode) and skips without one. This file imports no JAX, so it runs on a
@@ -35,6 +38,7 @@ bound against the JAX package).
 """
 
 import asyncio
+import dataclasses
 import json
 
 import numpy as np
@@ -46,6 +50,7 @@ from ggrmcp_tpu_torch.core.config import BatchingConfig, GrammarConfig, ServingC
 from ggrmcp_tpu_torch.grammar import compile_schema
 from ggrmcp_tpu_torch.models import bert as tb
 from ggrmcp_tpu_torch.models import llama as tl
+from ggrmcp_tpu_torch.models import moe as tm
 from ggrmcp_tpu_torch.ops import attention as tatt
 from ggrmcp_tpu_torch.ops import quant as tq
 from ggrmcp_tpu_torch.ops import sampling as ts
@@ -1120,3 +1125,51 @@ def test_ring_step_on_card(cuda):
         f, flat = tl.forward(params, cfg, tokens[:, off:off + 8], flat,
                              use_flash=False)
         torch.testing.assert_close(r[:, -1], f[:, -1], atol=1e-4, rtol=1e-4)
+
+
+# -- sparse MoE -------------------------------------------------------------
+
+
+def test_moe_ffn_on_card(cuda):
+    """tiny-moe widths at a binding capacity with padding masked: the
+    FFN by index on the card equals the CPU's in float32, and in bf16
+    its float32 one-hot form within chip_smoke.py's phase-14 bound."""
+    cfg = dataclasses.replace(tm.CONFIGS["tiny-moe"], capacity_factor=0.5)
+    params = tm.init_params(cfg, torch.device("cpu"), seed=16)
+    lp = {k: v[0] for k, v in params["layers"].items()}
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((4, 32, cfg.hidden_dim), generator=g)
+    valid = torch.rand((4, 32), generator=g) > 0.2
+    ref, _ = tm.moe_ffn(x, lp, cfg, valid)
+    on_card = {k: v.to(cuda) for k, v in lp.items()}
+    out, _ = tm.moe_ffn(x.to(cuda), on_card, cfg, valid.to(cuda))
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=1e-4)
+    bf16 = {k: v if k == "router" else v.to(torch.bfloat16)
+            for k, v in on_card.items()}
+    xb = x.to(cuda, torch.bfloat16)
+    outb, _ = tm.moe_ffn(xb, bf16, cfg, valid.to(cuda))
+    ref32, _ = tm.moe_ffn_ref(xb.float(), {k: v.float() for k, v in
+                                           bf16.items()}, cfg, valid.to(cuda))
+    rel = ((outb.float() - ref32).norm() / ref32.norm()).item()
+    assert rel <= chip_smoke.MOE_FFN_REL
+
+
+async def test_moe_batcher_on_card_matches_cpu(cuda):
+    """tiny-moe (float32): fused and chunked admissions and the decode
+    ticks on the card give the CPU batcher's greedy tokens; the chunked
+    route launches B1."""
+    cfg = tm.CONFIGS["tiny-moe"]
+    params = tm.init_params(cfg, torch.device("cpu"), seed=17)
+    small = dict(max_batch_size=4, kv_cache_max_seq=256, prefill_chunk=16,
+                 max_queue_delay_ms=1000.0)
+    ref = await _serve(ContinuousBatcher(
+        GenerationEngine(cfg, params=params, device="cpu"),
+        BatchingConfig(**small)), _prompts())
+    before = tatt.flash_attention.launches
+    batcher = ContinuousBatcher(
+        GenerationEngine(cfg, params=_to(params, cuda), device=cuda),
+        BatchingConfig(**small))
+    out = await _serve(batcher, _prompts())
+    assert out == ref
+    assert batcher.chunked_admissions > 0 and batcher.fused_admissions > 0
+    assert tatt.flash_attention.launches > before

@@ -54,7 +54,7 @@ PORT_MODULES = (
     "ggrmcp_tpu_torch.serving.adapter_arena", "ggrmcp_tpu_torch.ops.lora",
     "ggrmcp_tpu_torch.ops.speculative", "ggrmcp_tpu_torch.ops.sampling",
     "ggrmcp_tpu_torch.serving.spec_batcher",
-    "ggrmcp_tpu_torch.serving.tiered",
+    "ggrmcp_tpu_torch.serving.tiered", "ggrmcp_tpu_torch.models.moe",
 )
 
 
@@ -92,3 +92,23 @@ def test_port_sources_name_no_jax_import():
                     offending.append(f"{path}:{n}: {line.strip()}")
     assert not offending, offending
     assert any(p.endswith("safetensors_io.py") for p in paths)
+
+
+def test_moe_family_imports_alone_without_jax():
+    """The MoE family module and the registry that resolves it, imported
+    alone in a fresh interpreter, load no JAX and no module of the JAX
+    package."""
+    code = (
+        "import json, sys\n"
+        "from ggrmcp_tpu_torch.models import family_module, get_model, moe\n"
+        "assert family_module(get_model('mixtral-8x7b')[1]) is moe\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "    if m.split('.')[0] in ('jax', 'jaxlib', 'ggrmcp_tpu'))))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []

@@ -121,26 +121,35 @@ MIX = [(5, 6, 0.0, 1), (8, 4, 0.8, 2), (12, 6, 0.0, 3), (100, 6, 0.0, 4),
 
 
 async def _mix(tiered, sampling_cls):
+    """The whole mix is queued before the tiers' loops start, so the
+    first admission round of each tier sees every request that fits."""
+    its = [
+        tiered.submit([3 + (seed * 7 + i) % 40 for i in range(n)], m,
+                      sampling_cls(temperature=temp, top_k=20 if temp else 0),
+                      seed=seed)
+        for n, m, temp, seed in MIX
+    ]
     tiered.start()
 
-    async def run(n, m, temp, seed):
+    async def run(it):
         ids, reason = [], None
-        async for chunk, reason in tiered.submit(
-                [3 + (seed * 7 + i) % 40 for i in range(n)], m,
-                sampling_cls(temperature=temp, top_k=20 if temp else 0),
-                seed=seed):
+        async for chunk, reason in it:
             ids.extend(chunk)
         return ids, reason
 
     try:
         return await asyncio.wait_for(
-            asyncio.gather(*(run(*r) for r in MIX)), timeout=120)
+            asyncio.gather(*(run(it) for it in its)), timeout=120)
     finally:
         await tiered.stop()
 
 
 async def test_mixed_lengths_match_jax(engines):
-    cfg = dict(kv_tiers=TIERS, max_queue_delay_ms=2.0)
+    # A round's requests must all be popped within the admission delay:
+    # at 2 ms one scheduling stall (a GC pause, a GIL hand-off between
+    # the tiers' threads) split the short tier's first round, and a row
+    # admitted a tick later draws its sampled tokens at other steps.
+    cfg = dict(kv_tiers=TIERS, max_queue_delay_ms=1000.0)
     tiered = TieredBatcher(engines[1], BatchingConfig(**cfg))
     got = await _mix(tiered, SamplingConfig)
     want = await _mix(JTiered(engines[0], JBatching(**cfg)), JSampling)
