@@ -126,7 +126,25 @@ Phases, any failure exits non-zero and prints no result:
    reconcile, peak memory); (c) each greedy stream of the burst against
    its prompt alone, counted (expert capacity is batch-global); (d) two
    constrained calls of phase 10's schemas on one-token masked ticks
-   (jump-ahead is off for MoE: B1 never launches in their ticks).
+   (jump-ahead is off for MoE: B1 never launches in their ticks);
+15. tensor and expert parallelism, every shard on the one card (the
+   mesh's device list names cuda:0 once a shard): (a) B1 at one of two
+   tensor shards of llama3-8b's [32, 512] admission (H 16, KVH 4, D
+   128, bf16) against its plain version, timed with its bound and SDPA;
+   (b) tiny-llama float32 at tensor=2 on the card against tensor=2 on
+   the CPU (logits, greedy tokens), and a [32, 512] llama3-8b prefill at
+   tensor=2 against tensor=1 from one seeded weight tree (relative L2,
+   top-1 agreement); (c) sidecars configured by a `--config` file naming
+   the mesh serve phase 5's burst at tensor=1 and then, on the same tree
+   sharded in place, at tensor=2 (B1 launches twice as often, once a
+   shard a layer an admission forward; GetServingStats' mesh fields;
+   GetMemory reconciled; tick p50 of both; the streams counted against
+   tensor=1's); (d) phase 7's checkpoint loaded whole and sharded
+   (every shard bitwise the whole load's split, the int8 engine's shards
+   the whole quantization's split; host RSS of both loads); (e) one
+   mixtral-8x7b-width layer's FFN at expert=2 x tensor=2 (four shards)
+   against the unsharded one at [32, 512] (the same routing, relative
+   L2). One card shows no speed-up and saves no memory.
 
 The last lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -281,13 +299,13 @@ def _valid_mask(torch, b, sq, sk, causal, q_offset, kv_len, window, dev):
     return mask.expand(b, sq, sk)  # [B, Sq, Sk]
 
 
-def kernel_cases(torch, tatt, dev) -> list[dict]:
+def kernel_cases(torch, tatt, dev, cases=None) -> list[dict]:
     import torch.nn.functional as F
 
     results = []
     gen = torch.Generator(device=dev).manual_seed(SEED)
     for (name, b, sq, sk, h, kvh, d, causal, off, kvl, window, dtype_name,
-         what) in CASES:
+         what) in (cases or CASES):
         dtype = getattr(torch, dtype_name)
         q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(dtype)
         if name.startswith("bert"):
@@ -4200,6 +4218,492 @@ async def moe_phase(torch, tatt, dev, spec=None) -> dict:
     return res
 
 
+# -- phase 15: tensor and expert parallelism -----------------------------------
+
+# One card holds every shard: the mesh's device list names cuda:0 once a
+# shard (the single-controller mesh, parallel/mesh.py). What this shows
+# is the sharded path at real widths (B1 at a shard's head count, the
+# all-reduces and all-gathers at real sizes, the sharded loader's real
+# windows), not a speed-up or a per-card memory saving.
+P15 = dict(model=MODEL, tensor=2, prompts=SERVE_PROMPT_TOKENS,
+           new=SERVE_NEW_TOKENS, prefill=(32, 512), moe="mixtral-8x7b",
+           moe_admit=(32, 512), tiny="tiny-llama", tiny_downgrade=8,
+           hf=HF_CONFIG, batching={})
+# (a) B1 at one of two tensor shards of llama3-8b's [32, 512] admission.
+SHARD_CASE = ("shard_32x512", 32, 512, 512, 16, 4, 128, True, 0, 512, None,
+              "bfloat16", "llama3-8b fused admission [32, 512] on one of "
+              "two tensor shards (H 16, KVH 4)")
+# (b) The [32, 512] prefill at tensor=2 against tensor=1 on the same
+# weights. Each row-parallel product is two float32 partials summed and
+# rounded once to bf16, as the one unsharded GEMM rounds once; what
+# differs is the order of float32 sums (the column-parallel GEMMs take
+# other shapes). 32 random bf16 layers amplify any such reordering to
+# about 1e-2 relative L2 (phase 9a's hit against cold prefill, phase
+# 14's kernel against plain attention), so the bound is relative to a
+# witness measured in the same run on the same weights and tokens:
+# tensor=1 with its plain attention against tensor=1 with B1. Tensor=2
+# may move the logits at most TP_PREFILL_WITNESS times as far; the top-1
+# floor catches a fault that moves few logits far.
+TP_PREFILL_WITNESS = 2.0
+TP_PREFILL_TOP1 = 0.9
+# (b) tiny-llama float32 at tensor=2, card against CPU: float32 sums in
+# another order only (the llama parity bound of the tests).
+TP_TINY_ATOL = 1e-4
+# (e) One mixtral layer's FFN at expert=2 x tensor=2 against the
+# unsharded one (bf16): the same routing; each expert output is the sum
+# of two bf16 partial products over F/2 instead of one over F, so the
+# outputs differ by bf16 rounding of the down projection: at most a
+# rounding step of the output's magnitude (2^-8), under 1e-2 in
+# relative L2.
+EP_FFN_REL = 1e-2
+
+
+def _split_like_engine(torch, cfg, tree, mesh, specs):
+    """`tree` split by `specs` over `mesh` as the engine splits it (the
+    wqkv head-aligned), leaf by leaf: {path: Sharded or (q, scale)}."""
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.ops import quant as tq
+    from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+    from ggrmcp_tpu_torch.parallel.collectives import shard
+
+    out = {}
+    for key, spec in specs.items():
+        group = spec if isinstance(spec, dict) else {key: spec}
+        for name, sp in group.items():
+            leaf = tree["layers"][name] if isinstance(spec, dict) else (
+                tree[name])
+
+            def fn(dim, block, n, name=name):
+                return (llama_mod.qkv_columns(cfg, n, block)
+                        if name == "wqkv" and dim == 2 else None)
+
+            def cut(t):
+                return shard(t, mesh_mod.compatible_spec(sp, t.shape, mesh),
+                             mesh, fn)
+
+            out[name] = (tq.QuantizedTensor(q=cut(leaf.q),
+                                            scale=cut(leaf.scale))
+                         if isinstance(leaf, tq.QuantizedTensor) else cut(leaf))
+    return out
+
+
+def _same_shards(torch, got_tree, want: dict, what: str) -> int:
+    """Every part of every leaf of `got_tree` equals `want`'s, bit for
+    bit and dtype; returns the parts compared."""
+    from ggrmcp_tpu_torch.ops import quant as tq
+
+    n = 0
+    flat = dict(got_tree["layers"])
+    flat.update({k: v for k, v in got_tree.items() if k != "layers"})
+    check(set(flat) == set(want), f"{what}: leaves {sorted(flat)}")
+    for name, ref in want.items():
+        got = flat[name]
+        pairs = ([(got.q, ref.q), (got.scale, ref.scale)]
+                 if isinstance(ref, tq.QuantizedTensor) else [(got, ref)])
+        for g, r in pairs:
+            check(len(g.parts) == len(r.parts), f"{what}: {name} parts")
+            for a, b in zip(g.parts, r.parts):
+                check(a.dtype == b.dtype and torch.equal(a, b),
+                      f"{what}: a shard of {name} differs")
+                n += 1
+    return n
+
+
+def _tiny_tp_check(torch, tatt, dev, spec) -> dict:
+    """(b) tiny-llama float32 on the card against the same mesh on the
+    CPU, same weights: logits, greedy tokens and B1's launches, at
+    tensor=2 and at tensor=8, whose 4 KV heads do not split (every
+    shard's cache holds them all, a counted downgrade, and each shard
+    reads its own group's head through B1)."""
+    import numpy as np
+
+    from ggrmcp_tpu_torch.core.config import MeshConfig
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+    from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+
+    cfg = llama_mod.CONFIGS[spec["tiny"]]
+    cpu = torch.device("cpu")
+    params = llama_mod.init_params(cfg, cpu, SEED + 15)
+    rng = np.random.default_rng(SEED + 15)
+    toks = torch.from_numpy(rng.integers(3, 500, (2, 100)))
+    prompts = [rng.integers(3, 500, n).tolist() for n in (7, 33, 90)]
+    res = {}
+    for t in (spec["tensor"], spec["tiny_downgrade"]):
+        engines = [GenerationEngine(
+            cfg, params=_to(params, d), mesh=mesh_mod.build_mesh(
+                MeshConfig(tensor=t), [d] * t)) for d in (cpu, dev)]
+        logits = []
+        for eng in engines:
+            before = tatt.flash_attention.launches
+            with torch.no_grad():
+                out, _ = eng.prefill_forward(
+                    eng.params, toks.to(eng.device), eng.make_cache(2, 128))
+            launches = tatt.flash_attention.launches - before
+            logits.append(out.cpu())
+        check(dev.type != "cuda" or launches == t * cfg.num_layers,
+              f"(b) {cfg.name} tensor={t}: B1 launched {launches} times in "
+              f"a prefill forward (want {t} a layer)")
+        err = (logits[1] - logits[0]).abs().max().item()
+        check(err <= TP_TINY_ATOL, f"(b) {cfg.name} tensor={t} card vs cpu "
+              f"logits {err} > {TP_TINY_ATOL}")
+        outs = [eng.generate(prompts, 16) for eng in engines]
+        check(outs[1] == outs[0], f"(b) {cfg.name} tensor={t} greedy "
+              f"tokens card vs cpu differ")
+        mesh = engines[1].mesh_stats()
+        check((mesh["mesh_spec_downgrades"] > 0)
+              == (cfg.num_kv_heads % t != 0),
+              f"(b) {cfg.name} tensor={t}: downgrades {mesh}")
+        res[f"tensor={t}"] = dict(
+            logits_max_abs_err=err, greedy_identical=True, launches=launches,
+            mesh=mesh["mesh_shape"],
+            downgrades=mesh["mesh_spec_downgrades"])
+    return res
+
+
+async def _tp_serve(torch, tatt, dev, params, mesh, spec, tmp: str) -> dict:
+    """(c) A sidecar (configured by a `--config` file naming the mesh) on
+    `params` serves phase 5's burst in one admission round, one stream,
+    GetServingStats and GetMemory; returns the run's numbers and tokens.
+    The sidecar's engine shards `params` in place."""
+    import grpc.aio
+
+    from ggrmcp_tpu_torch import __main__ as cli
+    from ggrmcp_tpu_torch.serving.sidecar import Sidecar
+
+    path = os.path.join(tmp, f"tp{mesh.size}.json")
+    with open(path, "w") as fh:
+        json.dump({"serving": dict(
+            model=spec["model"], batching=spec["batching"],
+            mesh=dict(tensor=mesh.shape["tensor"]))}, fh)
+    serving = cli.serving_config(cli.build_parser().parse_args(
+        ["sidecar", "--config", path]))
+    side = Sidecar(serving, params=params, mesh=mesh)
+    batcher = side.batcher
+    vocab = side.generation.cfg.vocab_size
+
+    class _NoTally:
+        kind = "admit"
+
+    _moe_ticks(torch, dev, batcher, _NoTally())
+    # Count the forwards that reach B1 (prefill-shaped queries), so that
+    # the launches are held to t a layer a forward whatever the rounds.
+    engine = side.generation
+    prefills = [0]
+    forward = engine.decode_forward
+
+    def counted(params_, tokens, *args, **kwargs):
+        if tokens.shape[1] > tatt.GQA_GROUPED_MAX_SQ:
+            prefills[0] += 1
+        return forward(params_, tokens, *args, **kwargs)
+
+    engine.decode_forward = counted
+    texts = [_prompt_text(n, i) for i, n in enumerate(spec["prompts"])]
+    tatt.flash_attention.launches = 0
+    await side.start(0)
+    res: dict = {}
+    try:
+        async with grpc.aio.insecure_channel(side.target) as ch:
+            client = _GrammarClient(ch)
+            ctl = _ControlClient(ch)
+            batcher.hold_for = len(texts)
+            t = time.perf_counter()
+            burst = await asyncio.gather(*(
+                client.generate(text, spec["new"]) for text in texts))
+            wall = time.perf_counter() - t
+            burst_launches = tatt.flash_attention.launches
+            burst_prefills = prefills[0]
+            for n, (ids, reason, _) in zip(spec["prompts"], burst):
+                check(reason in ("length", "stop") and ids
+                      and all(0 <= i < vocab for i in ids),
+                      f"(c) prompt of {n} tokens: {reason}, {len(ids)}")
+            chunks = await client.stream(client.request(
+                _prompt_text(spec["prompts"][4], 1500), spec["new"]))
+            check(chunks and chunks[-1].done
+                  and chunks[-1].finish_reason in ("length", "stop"),
+                  f"(c) the stream ended badly: {chunks[-1:]}")
+            stats = await ctl.stats()
+            memory = await ctl.memory()
+            check(memory.total_bytes + memory.unattributed_bytes
+                  == memory.live_bytes, "(c) the ledger does not close")
+            tokens = sum(len(ids) for ids, _, _ in burst)
+            res = dict(
+                tokens_by_prompt=[ids for ids, _, _ in burst],
+                wall_s=wall, tok_per_s=tokens / wall,
+                tick_ms_p50=_median(batcher.tick_log["ms"]),
+                ticks=len(batcher.tick_log["ms"]),
+                ttft=_ttft([ms for _, ms in batcher.ttft_ms]),
+                fused_admissions=batcher.fused_admissions,
+                chunked_admissions=batcher.chunked_admissions,
+                burst_launches=burst_launches, burst_prefills=burst_prefills,
+                admit_rounds=stats.admit_rounds,
+                tick_launches=batcher.tick_log["launches"],
+                stream_chunks=len(chunks),
+                mesh=dict(tp_chips=stats.tp_chips,
+                          mesh_devices=stats.mesh_devices,
+                          mesh_shape=stats.mesh_shape,
+                          mesh_spec_downgrades=stats.mesh_spec_downgrades),
+                weights_bytes={c.component: c.bytes
+                               for c in memory.components
+                               if not c.scope}["weights"],
+                kv_arena_bytes=stats.memory_kv_arena_bytes,
+                live_bytes=memory.live_bytes,
+                unattributed_bytes=memory.unattributed_bytes)
+            if dev.type == "cuda":
+                res["max_memory_allocated_gb"] = (
+                    torch.cuda.max_memory_allocated() / 1e9)
+            check(res["fused_admissions"] > 0 and res["chunked_admissions"] > 0,
+                  "(c) the burst did not take both admission routes")
+    finally:
+        await side.stop()
+    _sync(torch, dev)
+    res["launches"] = tatt.flash_attention.launches
+    res["prefills"] = prefills[0]
+    engine.decode_forward = forward
+    res["engine"] = engine
+    del side, batcher
+    layers = engine.cfg.num_layers
+    t = mesh.shape["tensor"]
+    log(f"  (c) serve at tensor={t}: "
+        f"{json.dumps({k: v for k, v in res.items() if k not in ('engine', 'tokens_by_prompt')})}")
+    check(dev.type != "cuda" or 0 < res["launches"] == (
+        t * layers * res["prefills"]),
+          f"(c) B1 launched {res['launches']} times for {res['prefills']} "
+          f"prefill forwards at tensor={t} (want {t} a layer a forward)")
+    return res
+
+
+def _tp_prefill(torch, engine, toks, use_flash=None):
+    """(b) The engine's [B, S] prefill logits (float32); `use_flash`
+    False runs its plain attention (the witness)."""
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+
+    with torch.no_grad():
+        out, _ = llama_mod.forward(
+            engine.params, engine.cfg, toks, engine.make_cache(*toks.shape),
+            use_flash=engine.use_flash if use_flash is None else use_flash)
+    return out
+
+
+def _rel_top1(torch, got, want) -> tuple[float, float]:
+    rel = ((got - want).norm() / want.norm()).item()
+    return rel, (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+
+
+def _tp_loader_check(torch, dev, spec) -> dict:
+    """(d) Phase 7's 2-layer llama3-8b-width checkpoint loaded whole and
+    sharded at tensor=2: every shard equals the whole load's split bit
+    for bit, and the int8 engine's shards the whole quantization's
+    split; host RSS of both loads."""
+    import tempfile
+
+    from ggrmcp_tpu_torch.core.config import MeshConfig, ServingConfig
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.ops import quant as tq
+    from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+    from ggrmcp_tpu_torch.serving import weights as weights_mod
+    from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+
+    t = spec["tensor"]
+    mesh = mesh_mod.build_mesh(MeshConfig(tensor=t), [dev] * t)
+    res: dict = {}
+    with tempfile.TemporaryDirectory(prefix="hf-tp-") as path:
+        write_hf_checkpoint(path, spec["hf"], torch, dev, SEED + 7)
+        gc.collect()
+        with PeakRss() as rss:
+            cfg, whole = weights_mod.load_hf_checkpoint(path, dev)
+            _sync(torch, dev)
+        res["whole_host_rss_growth_gb"] = (rss.peak - rss.start) / 1e9
+        with PeakRss() as rss:
+            t0 = time.perf_counter()
+            _, sharded = weights_mod.load_hf_checkpoint_sharded(path, mesh)
+            _sync(torch, dev)
+            res["sharded_load_s"] = time.perf_counter() - t0
+        res["sharded_host_rss_growth_gb"] = (rss.peak - rss.start) / 1e9
+        res["bytes_read"] = weights_mod.last_load_stats[
+            "weight_load_bytes_read"]
+    specs = llama_mod.param_specs(cfg)
+    res["parts_bitwise"] = _same_shards(
+        torch, sharded, _split_like_engine(torch, cfg, whole, mesh, specs),
+        "(d) sharded load")
+    qwhole = tq.quantize_model(whole)
+    del whole
+    _free(torch, dev)
+    eng = GenerationEngine(cfg, ServingConfig(quantize="int8"),
+                           params=sharded, mesh=mesh)
+    res["int8_parts_bitwise"] = _same_shards(
+        torch, eng.params, _split_like_engine(torch, cfg, qwhole, mesh,
+                                              specs), "(d) int8 shards")
+    del eng, sharded, qwhole
+    _free(torch, dev)
+    return res
+
+
+def _ep_ffn_check(torch, dev, spec) -> dict:
+    """(e) One mixtral-8x7b-width layer's FFN at expert=2 x tensor=2 (4
+    shards on the card) against the unsharded `moe_ffn` at [32, 512]:
+    the sharded call routes once, and its routing equals the unsharded
+    call's; relative L2 of the outputs."""
+    import dataclasses
+
+    from ggrmcp_tpu_torch.core.config import MeshConfig
+    from ggrmcp_tpu_torch.models import common as common_mod
+    from ggrmcp_tpu_torch.models import moe as moe_mod
+    from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+    from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+
+    cfg = dataclasses.replace(moe_mod.CONFIGS[spec["moe"]], num_layers=1)
+    params = moe_mod.init_params(cfg, dev, SEED + 2)
+    b, s = spec["moe_admit"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x = torch.randn((b, s, cfg.hidden_dim), generator=gen, device=dev,
+                    dtype=torch.float32).to(cfg.torch_dtype)
+    x = common_mod.rms_norm(x, params["layers"]["mlp_norm"][0], cfg.norm_eps)
+    seen = []
+    real = moe_mod._assign
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        seen.append(out)
+        return out
+
+    moe_mod._assign = spy
+    try:
+        with torch.no_grad():
+            lp = {k: v[0] for k, v in params["layers"].items()}
+            ref, _ = moe_mod.moe_ffn(x, lp, cfg, aux=False)
+            del lp
+            mesh = mesh_mod.build_mesh(MeshConfig(expert=2, tensor=2),
+                                       [dev] * 4)
+            eng = GenerationEngine(cfg, params=params, mesh=mesh)
+            del params
+            _sync(torch, dev)
+            out = moe_mod.moe_ffn_sharded(x, eng.params["layers"], 0,
+                                          cfg)[dev]
+            _sync(torch, dev)
+    finally:
+        moe_mod._assign = real
+    with torch.no_grad():
+        ms = _device_ms(torch, dev, lambda: moe_mod.moe_ffn_sharded(
+            x, eng.params["layers"], 0, cfg), 3)
+    check(len(seen) == 2, f"(e) {len(seen)} routings for two FFN calls")
+    (_, _, i0, s0, k0), (_, _, i1, s1, k1) = seen
+    same = bool(torch.equal(i0, i1) and torch.equal(s0, s1)
+                and torch.equal(k0, k1))
+    check(same, "(e) the sharded FFN routed otherwise")
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    check(rel <= EP_FFN_REL, f"(e) EP x TP FFN rel err {rel} > {EP_FFN_REL}")
+    res = dict(mesh=eng.mesh_stats(), routing_identical=same,
+               pairs=int(k0.numel()), dropped=int((~k0).sum().item()),
+               rel_l2=rel, ms=ms)
+    del eng, out, ref, x
+    _free(torch, dev)
+    return res
+
+
+async def tp_phase(torch, tatt, dev, spec=None) -> dict:
+    """Phase 15: (a) B1 at a tensor shard's shape; (b) tiny-llama float32
+    at tensor=2 card = CPU, and a [32, 512] llama3-8b prefill at tensor=2
+    against tensor=1 from one seeded weight tree; (c) phase 5's burst
+    through a sidecar at tensor=1 and then at tensor=2 (two shards on
+    the card): B1 launches, the mesh's stats, GetMemory, tick p50, the
+    streams counted against tensor=1's; (d) the sharded loader; (e) one
+    mixtral layer's FFN at expert=2 x tensor=2."""
+    import tempfile
+
+    from ggrmcp_tpu_torch.core.config import MeshConfig
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+
+    spec = spec or P15
+    t_phase = time.perf_counter()
+    res: dict = {}
+    if dev.type == "cuda":
+        res["kernel"] = kernel_cases(torch, tatt, dev, [SHARD_CASE])[0]
+    res["tiny"] = _tiny_tp_check(torch, tatt, dev, spec)
+    log(f"  (b) {spec['tiny']} card vs cpu: "
+        f"{json.dumps(res['tiny'])}")
+
+    cfg = llama_mod.CONFIGS[spec["model"]]
+    t = spec["tensor"]
+    one = mesh_mod.build_mesh(MeshConfig(tensor=1), [dev])
+    two = mesh_mod.build_mesh(MeshConfig(tensor=t), [dev] * t)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    toks = torch.randint(3, cfg.vocab_size, spec["prefill"], generator=gen,
+                         device=dev)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        # One seeded whole tree (16 GB) serves both meshes.
+        params = llama_mod.init_params(cfg, dev, SEED)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        runs = {}
+        runs[1] = await _tp_serve(torch, tatt, dev, params, one, spec, tmp)
+        # Held on the host while the tensor=2 sidecar runs, so that its
+        # GetMemory reconciles the serving stack alone.
+        engine = runs[1].pop("engine")
+        want = _tp_prefill(torch, engine, toks)
+        witness = _rel_top1(
+            torch, _tp_prefill(torch, engine, toks, use_flash=False), want)
+        want = want.cpu()
+        del engine
+        _free(torch, dev)
+        # The sidecar shards the tree in place: each whole leaf is freed
+        # as soon as its shards exist.
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        runs[t] = await _tp_serve(torch, tatt, dev, params, two, spec, tmp)
+        del params
+        engine = runs[t].pop("engine")
+        got = _tp_prefill(torch, engine, toks)
+        del engine
+        want = want.to(dev)
+    rel, agree = _rel_top1(torch, got, want)
+    check(torch.isfinite(got).all().item(), "(b) tensor=2 logits not finite")
+    bound = TP_PREFILL_WITNESS * witness[0]
+    check(rel <= bound, f"(b) [32, 512] prefill tensor={t} vs 1: rel err "
+          f"{rel} > {TP_PREFILL_WITNESS} x the plain-attention witness's "
+          f"{witness[0]}")
+    check(agree >= TP_PREFILL_TOP1, f"(b) [32, 512] prefill tensor={t} vs "
+          f"1: top-1 agreement {agree} < {TP_PREFILL_TOP1}")
+    del got, want
+    _free(torch, dev)
+    res["prefill"] = dict(logits_rel_err=rel, top1_agree=agree,
+                          bound=bound, witness_rel_err=witness[0],
+                          witness_top1_agree=witness[1])
+    log(f"  (b) [32, 512] prefill tensor={t} vs 1: "
+        f"{json.dumps(res['prefill'])}")
+    a, b = runs[1], runs[t]
+    check(b["mesh"] == dict(tp_chips=t, mesh_devices=t,
+                            mesh_shape=f"tensor={t}",
+                            mesh_spec_downgrades=0),
+          f"(c) GetServingStats mesh {b['mesh']}")
+    check(a["mesh"]["mesh_shape"] == "single", f"(c) tensor=1 {a['mesh']}")
+    check((b["fused_admissions"], b["chunked_admissions"])
+          == (a["fused_admissions"], a["chunked_admissions"]),
+          "(c) the two runs admitted otherwise")
+    # The admission rounds may group the burst otherwise on each side, so
+    # B1 is held per prefill forward of each burst: once a shard a layer.
+    layers = cfg.num_layers
+    for n, run in ((1, a), (t, b)):
+        check(0 < run["burst_launches"] == n * layers * run["burst_prefills"],
+              f"(c) B1 launched {run['burst_launches']} times in the burst "
+              f"at tensor={n} for {run['burst_prefills']} prefill forwards "
+              f"(want {n} a layer a forward)")
+    res["serve"] = {str(k): {x: y for x, y in v.items()
+                             if x != "tokens_by_prompt"}
+                    for k, v in runs.items()}
+    res["streams"] = _agreement(b["tokens_by_prompt"], a["tokens_by_prompt"])
+    res["launches"] = b["launches"]
+    log(f"  (c) streams tensor={t} vs 1: {json.dumps(res['streams'])}")
+    res["loader"] = _tp_loader_check(torch, dev, spec)
+    log(f"  (d) sharded loader: {json.dumps(res['loader'])}")
+    res["ep"] = _ep_ffn_check(torch, dev, spec)
+    log(f"  (e) EP x TP FFN: {json.dumps(res['ep'])}")
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def _free(torch, dev) -> None:
     gc.collect()
     if dev.type == "cuda":
@@ -4244,80 +4748,88 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         card = card_line()
-        log(f"[1/14] card: {card}; torch {torch.__version__}, CUDA "
+        log(f"[1/15] card: {card}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
         t = time.perf_counter()
         _build.load("flash_attention")
-        log(f"[2/14] build: flash_attention.cu in "
+        log(f"[2/15] build: flash_attention.cu in "
             f"{time.perf_counter() - t:.1f} s")
         ptxas_report(_build.build_log.get("flash_attention", ""))
 
-        log(f"[3/14] kernel vs plain (|err| <= atol + rtol |plain|: {TOL})")
+        log(f"[3/15] kernel vs plain (|err| <= atol + rtol |plain|: {TOL})")
         cases = kernel_cases(torch, tatt, dev)
 
-        log("[4/14] reference: tiny-llama on the card vs the CPU")
+        log("[4/15] reference: tiny-llama on the card vs the CPU")
         ref = tiny_reference(torch, dev)
         log(f"  {ref}")
 
-        log(f"[5/14] serve: {MODEL} sidecar, default batching")
+        log(f"[5/15] serve: {MODEL} sidecar, default batching")
         serve = asyncio.run(serve_phase(torch, tatt, dev))
         log(f"  {json.dumps(serve)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[6/14] embed: {EMBED_MODEL} sidecar")
+        log(f"[6/15] embed: {EMBED_MODEL} sidecar")
         embed = asyncio.run(embed_phase(torch, tatt, dev))
         log(f"  {json.dumps(embed)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log("[7/14] HF checkpoint: llama3-8b width, 2 layers, 2 files")
+        log("[7/15] HF checkpoint: llama3-8b width, 2 layers, 2 files")
         hf = asyncio.run(hf_phase(torch, tatt, dev))
         log(f"  {json.dumps(hf)}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[8/14] int8: {MODEL} weights and KV cache")
+        log(f"[8/15] int8: {MODEL} weights and KV cache")
         int8 = asyncio.run(int8_phase(torch, tatt, dev))
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[9/14] KV reuse: {MODEL} prefix pool, interleave, paged KV")
+        log(f"[9/15] KV reuse: {MODEL} prefix pool, interleave, paged KV")
         reuse = asyncio.run(kv_reuse_phase(torch, tatt, dev))
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[10/14] grammar: {MODEL} constrained burst, jump on / off")
+        log(f"[10/15] grammar: {MODEL} constrained burst, jump on / off")
         grammar = asyncio.run(grammar_phase(torch, tatt, dev))
         log(f"  {json.dumps(_brief(grammar))}")
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[11/14] control plane: {MODEL} tick phases, Profile, "
+        log(f"[11/15] control plane: {MODEL} tick phases, Profile, "
             f"GetMemory, scheduler, failpoints, deadlines")
         control = asyncio.run(control_phase(torch, tatt, dev))
         gc.collect()
         torch.cuda.empty_cache()
 
-        log(f"[12/14] paged plane and LoRA: {MODEL} host tier, TransferKV "
+        log(f"[12/15] paged plane and LoRA: {MODEL} host tier, TransferKV "
             f"with roles, adapter arena, preemption with the host tier")
         paged = asyncio.run(paged_lora_phase(torch, tatt, dev))
         gc.collect()
         torch.cuda.empty_cache()
 
         t = time.perf_counter()
-        log(f"[13/14] speculative decoding, ring KV, tiers: "
+        log(f"[13/15] speculative decoding, ring KV, tiers: "
             f"{P13['model']} with the {P13['draft']} draft")
         p13 = asyncio.run(spec_ring_tier_phase(torch, tatt, dev))
         log(f"  phase 13: {time.perf_counter() - t:.1f} s, "
             f"{p13['launches']} B1 launches")
 
-        log(f"[14/14] sparse MoE: {P14['model']} cut to {P14['layers']} "
+        log(f"[14/15] sparse MoE: {P14['model']} cut to {P14['layers']} "
             f"layers, bf16")
         p14 = asyncio.run(moe_phase(torch, tatt, dev))
         log(f"  phase 14: {p14['seconds']:.1f} s, {p14['launches']} B1 "
             f"launches, peak {p14['max_memory_allocated_gb']:.2f} GB")
+        _free(torch, dev)
+
+        log(f"[15/15] tensor and expert parallelism: {P15['model']} at "
+            f"tensor={P15['tensor']} on one card, the sharded loader, "
+            f"{P15['moe']} at expert=2 x tensor=2")
+        p15 = asyncio.run(tp_phase(torch, tatt, dev))
+        log(f"  phase 15: {p15['seconds']:.1f} s, {p15['launches']} B1 "
+            f"launches at tensor={P15['tensor']}")
     except SmokeError as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
@@ -4352,7 +4864,16 @@ def main() -> int:
         tier_launches=p13["tiers"]["launches"],
         moe_launches=p14["launches"],
         moe_prefill_rel_err=p14["prefill"]["logits_rel_err"],
-        max_abs_err=max(c["max_abs_err"] for c in cases),
+        tp_launches=p15["launches"],
+        tp_downgrade_launches=p15["tiny"][
+            f"tensor={P15['tiny_downgrade']}"]["launches"],
+        tp_burst_launches=p15["serve"][str(P15["tensor"])]["burst_launches"],
+        shard_case=p15["kernel"]["name"], shard_ms=p15["kernel"]["ms"],
+        shard_bound_ms=p15["kernel"]["bound_ms"],
+        shard_library_ms=p15["kernel"]["library_ms"],
+        shard_max_abs_err=p15["kernel"]["max_abs_err"],
+        max_abs_err=max([c["max_abs_err"] for c in cases]
+                        + [p15["kernel"]["max_abs_err"]]),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
         ms_min=head["ms_min"], ms_max=head["ms_max"],

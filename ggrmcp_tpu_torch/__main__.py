@@ -17,10 +17,12 @@ the command line overrides the file. The file also takes the replica's
 `"batching": {"paged_kv": "on"}`), multi-LoRA (`"lora": {"registry":
 DIR, "rank": 8, "arena_rows": 8}` or `{"adapters": [...], "path":
 DIR}`) and the host page tier (`"batching": {"paged_kv_host_bytes": N,
-"paged_kv_host_path": FILE}`) and a depth cut of a registry model
-(`"num_layers": 16`: mixtral-8x7b at full width on one 80 GB card); an
-unknown key raises. Runs on CUDA
-unless `--device cpu` is given. Put the reference gateway in front of
+"paged_kv_host_path": FILE}`), a depth cut of a registry model
+(`"num_layers": 16`: mixtral-8x7b at full width on one 80 GB card) and
+the device mesh (`"mesh": {"tensor": 2}`, `{"tensor": 2, "expert": 2}`
+for a MoE model: tensor and expert parallelism over every card, or over
+the CPU repeated with `--device cpu`); an unknown key raises. Runs on
+CUDA unless `--device cpu` is given. Put the reference gateway in front of
 it: `python -m ggrmcp_tpu gateway --grpc-port N`.
 """
 

@@ -506,6 +506,48 @@ class LoraConfig:
             raise ValueError("serving.lora.arena_rows must be >= 1")
 
 
+# Mesh axes the port does not shard yet, and the ROADMAP item that
+# ports each: a resolved size above 1 raises, never replicates.
+UNPORTED_MESH_AXES = {
+    "data": "A18b", "fsdp": "A18b", "sequence": "A19b", "stage": "A19b",
+}
+
+
+@dataclass
+class MeshConfig:
+    """The device mesh of the serving plane (parallel/mesh.py), the
+    reference's fields and defaults. An axis size of 0 means "infer from
+    the devices"; the axes are data / fsdp / tensor / sequence / expert /
+    stage. `allow_cpu_fallback` is accepted and, as in the reference,
+    read nowhere: the port never falls back to the CPU."""
+
+    data: int = 1
+    fsdp: int = 1
+    tensor: int = 0  # 0 -> all remaining devices
+    sequence: int = 1
+    expert: int = 1
+    stage: int = 1
+    allow_cpu_fallback: bool = True
+
+    def __post_init__(self) -> None:
+        for axis in ("data", "fsdp", "tensor", "sequence", "expert", "stage"):
+            if getattr(self, axis) < 0:
+                raise ValueError(f"serving.mesh.{axis} must be >= 0")
+
+
+def check_mesh_axes(sizes: dict) -> None:
+    """Refuse a data, fsdp, sequence or stage axis above 1 (explicit in a
+    config, or resolved by parallel/mesh.py), naming the ROADMAP item
+    that ports it."""
+    for axis, item in UNPORTED_MESH_AXES.items():
+        if sizes.get(axis, 1) > 1:
+            raise ValueError(
+                f"serving.mesh.{axis}={sizes[axis]} is not served by the "
+                f"PyTorch port yet (ROADMAP {item}); it shards over "
+                f"tensor and expert only"
+            )
+
+
 # Replica roles (serving.role). "mixed" serves whole requests;
 # "prefill" replicas admit a long prompt, then ship its finished KV
 # pages to a decode replica (sidecar-to-sidecar TransferKV); "decode"
@@ -548,6 +590,9 @@ class ServingConfig:
     # kv_tiers.
     role: str = "mixed"
     lora: LoraConfig = field(default_factory=LoraConfig)
+    # The device mesh (parallel/mesh.py): tensor and expert parallelism
+    # over an explicit device list.
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     # Ring-buffer KV for sliding-window models (batcher path): the
     # shared cache holds window + prefill_chunk - 1 positions and a
     # request is bounded by the RoPE range, not the cache.
@@ -576,9 +621,11 @@ class ServingConfig:
                           ("observability", ObservabilityConfig),
                           ("slo", SloConfig),
                           ("scheduler", SchedulerConfig),
-                          ("lora", LoraConfig)):
+                          ("lora", LoraConfig),
+                          ("mesh", MeshConfig)):
             if not isinstance(getattr(self, name), cls):
                 raise ValueError(f"serving.{name} must be a {cls.__name__}")
+        check_mesh_axes({a: getattr(self.mesh, a) for a in UNPORTED_MESH_AXES})
         if self.failpoints:
             from ggrmcp_tpu_torch.utils.failpoints import parse_spec
 
@@ -696,7 +743,7 @@ def _from_dict(cls, data: Any, where: str, nested: dict):
 def serving_config_from_dict(data: dict) -> ServingConfig:
     """{"serving": {..., "batching": {...}, "grammar": {...},
     "observability": {...}, "slo": {...}, "scheduler": {...},
-    "lora": {...}}} →
+    "lora": {...}, "mesh": {...}}} →
     ServingConfig. Any key these classes do not carry raises ValueError
     naming it."""
     if not isinstance(data, dict):
@@ -711,7 +758,7 @@ def serving_config_from_dict(data: dict) -> ServingConfig:
                       {"batching": BatchingConfig, "grammar": GrammarConfig,
                        "observability": ObservabilityConfig,
                        "slo": SloConfig, "scheduler": SchedulerConfig,
-                       "lora": LoraConfig})
+                       "lora": LoraConfig, "mesh": MeshConfig})
 
 
 def load_serving_config(path: str) -> ServingConfig:

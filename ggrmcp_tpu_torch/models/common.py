@@ -110,7 +110,8 @@ def init_stacked(
 
 def _leaves(params: Params):
     """Every tensor of the tree; a quantized leaf gives its q and its
-    scale, as the reference's pytree leaves do."""
+    scale, as the reference's pytree leaves do. A mesh leaf (`Sharded`)
+    counts its global elements and its stored bytes."""
     for value in params.values():
         if isinstance(value, dict):
             yield from _leaves(value)
@@ -126,4 +127,4 @@ def count_params(params: Params) -> int:
 
 
 def param_bytes(params: Params) -> int:
-    return sum(t.numel() * t.element_size() for t in _leaves(params))
+    return sum(t.nbytes for t in _leaves(params))

@@ -2,7 +2,7 @@
 weights. Port of `ggrmcp_tpu/models/llama.py` on the cache-free,
 contiguous-cache, ring-cache and paged-cache paths, with int8 weights
 (any leaf may be a `QuantizedTensor`, ops/quant.py) and the int8 KV
-cache.
+cache, on one device or tensor-parallel over a mesh (`forward_tp`).
 
 The reference threads the KV cache functionally through `lax.scan` and
 donates it; here `forward` writes each layer's new K/V into the cache
@@ -21,9 +21,17 @@ import torch.nn.functional as F
 from ggrmcp_tpu_torch.models import common
 from ggrmcp_tpu_torch.ops import lora as lora_mod
 from ggrmcp_tpu_torch.ops import quant
-from ggrmcp_tpu_torch.ops.attention import attention
+from ggrmcp_tpu_torch.ops.attention import attention, flash_shardable
 from ggrmcp_tpu_torch.ops.quant import QuantizedTensor
 from ggrmcp_tpu_torch.ops.rope import apply_rope
+from ggrmcp_tpu_torch.parallel.collectives import (
+    Sharded,
+    all_gather,
+    all_reduce_sum,
+    local,
+    per_device,
+    replicate,
+)
 
 Params = common.Params
 
@@ -154,6 +162,79 @@ def param_shapes(cfg: LlamaConfig) -> Params:
     }
 
 
+def param_specs(cfg: LlamaConfig) -> Params:
+    """The reference's specs over `init_params`' tree: column-parallel
+    in-projections, row-parallel out-projections, embedding and lm_head
+    vocab-sharded. The fused wqkv's `tensor` split is head-aligned here
+    (`qkv_columns`), not a contiguous column window."""
+    return {
+        "embed": ("tensor", None),
+        "layers": {
+            "attn_norm": (None, None),
+            "wqkv": (None, None, "tensor"),
+            "wo": (None, "tensor", None),
+            "mlp_norm": (None, None),
+            "w_gate": (None, None, "tensor"),
+            "w_up": (None, None, "tensor"),
+            "w_down": (None, "tensor", None),
+        },
+        "final_norm": (None,),
+        "lm_head": (None, "tensor"),
+    }
+
+
+def qkv_columns(cfg: LlamaConfig, tensor: int, shard: int) -> torch.Tensor:
+    """The fused [D, (H + 2 KVH) · Dh] wqkv's columns of tensor shard
+    `shard`: its query heads [shard · H/t, (shard + 1) · H/t) and their
+    key and value heads. A contiguous window would cross the q / k / v
+    boundaries. When `tensor` does not divide KVH every shard takes all
+    the key and value heads (the replicated-KV downgrade)."""
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hq = h // tensor
+    q = torch.arange(shard * hq * hd, (shard + 1) * hq * hd)
+    if kvh % tensor:
+        kv = torch.arange(kvh * hd)
+    else:
+        n = kvh // tensor
+        kv = torch.arange(shard * n * hd, (shard + 1) * n * hd)
+    return torch.cat([q, h * hd + kv, (h + kvh) * hd + kv])
+
+
+def shard_kv_heads(cfg: LlamaConfig, tensor: int,
+                   shard: int) -> tuple[int, ...]:
+    """The KV heads tensor shard `shard` reads when its cache holds every
+    KV head (`tensor` does not divide KVH): its query heads' groups as
+    one GQA block where they form one (query head j reading block head
+    j // (H/t / n), as the kernel maps them), else one KV head per query
+    head."""
+    hq = cfg.num_heads // tensor
+    group = cfg.num_heads // cfg.num_kv_heads
+    per_q = [(shard * hq + j) // group for j in range(hq)]
+    block = tuple(range(per_q[0], per_q[-1] + 1))
+    n = len(block)
+    if hq % n == 0 and all(per_q[j] == block[j // (hq // n)]
+                           for j in range(hq)):
+        return block
+    return tuple(per_q)
+
+
+def local_config(cfg: LlamaConfig, tensor: int) -> LlamaConfig:
+    """The geometry one tensor shard computes: H/t query heads, KVH/t
+    key-value heads (all KVH when t does not divide them) and F/t FFN
+    columns."""
+    kvh = cfg.num_kv_heads
+    return dataclasses.replace(
+        cfg, num_heads=cfg.num_heads // tensor,
+        num_kv_heads=kvh // tensor if kvh % tensor == 0 else kvh,
+        ffn_dim=cfg.ffn_dim // tensor,
+    )
+
+
+def is_sharded(params: Params) -> bool:
+    """A tree placed on a mesh of more than one coordinate."""
+    return isinstance(params["layers"]["attn_norm"], Sharded)
+
+
 # ---------------------------------------------------------------------------
 # KV cache
 # ---------------------------------------------------------------------------
@@ -254,7 +335,8 @@ def paged_view(arena: quant.TensorOrQuant, table: torch.Tensor):
     and scales of an int8 arena gather alike."""
 
     def gather(a):
-        v = a[torch.clamp(table.long(), max=a.shape[0] - 2)]  # [B, W, P, ...]
+        idx = torch.clamp(table.long(), max=a.shape[0] - 2).to(a.device)
+        v = a[idx]  # [B, W, P, ...]
         return v.reshape(table.shape[0], -1, *a.shape[2:])
 
     return quant.kv_map(gather, arena)
@@ -274,6 +356,20 @@ def paged_view_layers(arena: quant.TensorOrQuant, table: torch.Tensor,
         return o
 
     return quant.kv_map(fill, out, arena)
+
+
+def cache_specs() -> dict:
+    """KV cache sharding: batch over data, heads over tensor."""
+    spec = (None, ("data", "fsdp"), None, "tensor", None)
+    return {"k": spec, "v": spec, "length": (("data", "fsdp"),)}
+
+
+def paged_cache_specs() -> dict:
+    """Paged arena sharding: heads over tensor only (a page is shared
+    across slots, so the page axis cannot ride a batch axis); the block
+    tables and lengths are replicated."""
+    spec = (None, None, None, "tensor", None)
+    return {"k": spec, "v": spec, "table": (), "length": ()}
 
 
 def _kv_leaf(shape, dtype, device, kv_dtype: str) -> quant.TensorOrQuant:
@@ -305,7 +401,29 @@ def attention_block(
     lora_idx: Optional[torch.Tensor] = None,  # [B] adapter ids
     ring: bool = False,
 ) -> torch.Tensor:
-    """Pre-norm GQA attention with residual. With a cache, the step's
+    """Pre-norm GQA attention with residual: `x + attention_out(norm(x))`."""
+    normed = common.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    return x + attention_out(normed, lp, cfg, positions, cache_k, cache_v,
+                             cache_len, use_flash, page_table, lora_idx, ring)
+
+
+def attention_out(
+    normed: torch.Tensor,  # [B, S, D], after the attention norm
+    lp: Params,
+    cfg: LlamaConfig,
+    positions: torch.Tensor,
+    cache_k: Optional[quant.TensorOrQuant],
+    cache_v: Optional[quant.TensorOrQuant],
+    cache_len: Optional[torch.Tensor],
+    use_flash: Optional[bool] = None,
+    page_table: Optional[torch.Tensor] = None,
+    lora_idx: Optional[torch.Tensor] = None,
+    ring: bool = False,
+    kv_heads: Optional[tuple[int, ...]] = None,  # `shard_kv_heads`
+    out_dtype: Optional[torch.dtype] = None,  # of the `wo` product
+) -> torch.Tensor:
+    """GQA attention through `wo`, without the residual (on a mesh, one
+    tensor shard's row-parallel partial, in `out_dtype`). With a cache, the step's
     K/V are written at each row's current length and attention reads
     the whole cache prefix (q_offset = cache_len, kv_len = cache_len +
     S); writes past S_max land in the scratch slot.
@@ -333,10 +451,15 @@ def attention_block(
 
     `lora_idx` with stacked LoRA factors in `lp`: each row's adapter
     delta (ops/lora.py; row 0 = base) is added to the fused qkv
-    product."""
-    b, s, _ = x.shape
+    product.
+
+    `kv_heads` (a tensor shard whose KV heads are replicated, because
+    the tensor axis does not divide them): the cache holds every KV
+    head, and attention reads the shard's own (`shard_kv_heads`): a
+    head range as a view, else one gathered head per query head."""
+    b, s, _ = normed.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    normed = common.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    dev = normed.device
     qkv = quant.matmul(normed, lp["wqkv"])  # [B, S, (H + 2 KVH) * Dh]
     if lora_idx is not None and "lora_qkv_a" in lp:
         qkv = qkv + lora_mod.lora_delta(
@@ -356,7 +479,7 @@ def attention_block(
         n_pages = cache_k.shape[0] - 1
         width = page_table.shape[1]
         write_pos = cache_len.long()[:, None] + torch.arange(
-            s, device=x.device
+            s, device=dev
         )[None, :]
         w_idx = write_pos // page
         w_page = torch.where(
@@ -386,7 +509,7 @@ def attention_block(
     elif cache_k is not None:
         cap = cache_k.shape[1] - 1
         write_pos = cache_len.long()[:, None] + torch.arange(
-            s, device=x.device
+            s, device=dev
         )[None, :]
         if ring:
             window = cfg.sliding_window
@@ -399,7 +522,7 @@ def attention_block(
             write_pos = write_pos % cap
         else:
             write_pos = torch.clamp(write_pos, max=cap)  # overflow → scratch
-        batch_idx = torch.arange(b, device=x.device)[:, None]
+        batch_idx = torch.arange(b, device=dev)[:, None]
 
         def write(cache: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
             cache[batch_idx, write_pos] = new.to(cache.dtype)
@@ -422,19 +545,35 @@ def attention_block(
         if ring:
             # The absolute position slot j holds: the largest p < kv_len
             # with p ≡ j (mod C); negative = never written.
-            slots = torch.arange(cap, device=x.device)[None, :]
+            slots = torch.arange(cap, device=dev)[None, :]
             k_positions = slots + cap * torch.div(
                 kv_len.long()[:, None] - 1 - slots, cap,
                 rounding_mode="floor")
     else:
         k_all, v_all, kv_len, q_offset = k, v, None, None
 
+    if kv_heads is not None:
+        lo, n = kv_heads[0], len(kv_heads)
+        if kv_heads == tuple(range(lo, lo + n)):
+            k_all, v_all = k_all.narrow(2, lo, n), v_all.narrow(2, lo, n)
+        else:
+            idx = torch.tensor(kv_heads, device=dev)
+            k_all, v_all = k_all.index_select(2, idx), v_all.index_select(2, idx)
     attn_out = attention(
         q, k_all, v_all, causal=True, q_offset=q_offset, kv_len=kv_len,
         window=cfg.sliding_window, use_flash=use_flash,
         k_positions=k_positions,
     )
-    return x + quant.matmul(attn_out.reshape(b, s, h * hd), lp["wo"])
+    return quant.matmul(attn_out.reshape(b, s, h * hd), lp["wo"], out_dtype)
+
+
+def swiglu(normed: torch.Tensor, lp: Params,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The dense FFN after its norm (on a mesh, one shard's partial, in
+    `out_dtype`)."""
+    gate = F.silu(quant.matmul(normed, lp["w_gate"]))
+    return quant.matmul(gate * quant.matmul(normed, lp["w_up"]),
+                        lp["w_down"], out_dtype)
 
 
 def _layer(
@@ -449,9 +588,7 @@ def _layer(
     x = attention_block(x, lp, cfg, positions, cache_k, cache_v, cache_len,
                         use_flash, page_table, lora_idx, ring)
     normed = common.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    gate = F.silu(quant.matmul(normed, lp["w_gate"]))
-    up = quant.matmul(normed, lp["w_up"])
-    return x + quant.matmul(gate * up, lp["w_down"])
+    return x + swiglu(normed, lp)
 
 
 def _at(layer: int, t: quant.TensorOrQuant) -> quant.TensorOrQuant:
@@ -479,7 +616,12 @@ def forward(
     stacked LoRA factors (ops/lora.py); None or absent factors = base.
     `ring`: the contiguous cache is a ring of its capacity (the layout of
     the batcher's caches under serving.kv_ring; attention_block).
+    Params placed on a mesh (`is_sharded`) take `forward_tp`.
     Returns (float32 logits [B, S, V], cache or None)."""
+    if is_sharded(params):
+        if lora_idx is not None:
+            raise ValueError("lora on a mesh is not ported (ROADMAP A18b)")
+        return forward_tp(params, cfg, tokens, cache, use_flash, ring)
     b, s = tokens.shape
     dtype = cfg.torch_dtype
     x = quant.embed_lookup(params["embed"], tokens, dtype)  # [B, S, D]
@@ -509,6 +651,114 @@ def forward(
         head = head.to(dtype)
     logits = quant.matmul(x, head)
     return logits.float(), cache
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel forward (a mesh of more than one coordinate)
+# ---------------------------------------------------------------------------
+
+
+def forward_tp(
+    params: Params,
+    cfg: LlamaConfig,
+    tokens: torch.Tensor,
+    cache: "Optional[KVCache | PagedKVCache]" = None,
+    use_flash: Optional[bool] = None,
+    ring: bool = False,
+    ffn=None,
+) -> "tuple[torch.Tensor, Optional[KVCache | PagedKVCache]]":
+    """`forward` over params sharded by `param_specs` (Megatron layout):
+    each tensor shard runs its query heads' attention, written into its
+    KV heads' cache, and its FFN columns; every row-parallel partial
+    (`wo`, `w_down`) is a float32 product, all-reduced and rounded once
+    to the model dtype before the residual add. The
+    embedding is a masked lookup per vocab shard, summed (exact: one
+    shard holds each row); the lm_head's vocab blocks are all-gathered
+    into whole float32 logits, so sampling and grammar masks see whole
+    rows. Activations are replicated: one tensor per device, computed
+    once per device. Tokens, cache lengths and block tables live on the
+    mesh's first device and are copied to each shard's device per call
+    (a no-op on the same device). Attention runs at the coordinates of
+    expert index 0; `ffn(layer, xs, lps, devs)` replaces the dense FFN
+    (the MoE family's expert-parallel bank) and returns the new
+    activations."""
+    mesh = params["layers"]["attn_norm"].mesh
+    t = mesh.shape["tensor"]
+    coords = [mesh.index(tensor=i) for i in range(t)]
+    devs = [mesh.devices[c] for c in coords]
+    lcfg = local_config(cfg, t)
+    if flash_shardable(t, cfg.num_kv_heads)[0]:
+        kv_heads = [None] * t
+    else:
+        # Replicated KV: every shard reads its query heads' groups.
+        kv_heads = [shard_kv_heads(cfg, t, i) for i in range(t)]
+    b, s = tokens.shape
+    dtype = cfg.torch_dtype
+    xs = _vocab_embed(params["embed"], tokens, dtype, coords, devs)
+    steps = torch.arange(s, device=tokens.device)[None, :]
+    positions = (cache.length.long()[:, None] + steps if cache is not None
+                 else steps.expand(b, s))
+    pos = replicate(positions, devs)
+    none = [None] * t
+    lens = replicate(cache.length, devs) if cache is not None else none
+    tables = (replicate(cache.table, devs)
+              if isinstance(cache, PagedKVCache) else none)
+    layers = params["layers"]
+    eps = cfg.norm_eps
+    for layer in range(cfg.num_layers):
+        lps = [{name: _at(layer, local(w, c)) for name, w in layers.items()}
+               for c in coords]
+        normed = per_device(lambda x, w: common.rms_norm(x, w, eps), xs,
+                            [lp["attn_norm"] for lp in lps])
+        partials = []
+        for i, c in enumerate(coords):
+            ck = cv = None
+            if cache is not None:
+                ck = _at(layer, local(cache.k, c))
+                cv = _at(layer, local(cache.v, c))
+            partials.append(attention_out(
+                normed[i], lps[i], lcfg, pos[i], ck, cv, lens[i], use_flash,
+                tables[i], None, ring, kv_heads[i], torch.float32))
+        xs = per_device(_residual, xs, all_reduce_sum(partials))
+        if ffn is not None:
+            xs = ffn(layer, xs, lps, devs)
+            continue
+        normed = per_device(lambda x, w: common.rms_norm(x, w, eps), xs,
+                            [lp["mlp_norm"] for lp in lps])
+        partials = [swiglu(n, lp, torch.float32) for n, lp in zip(normed, lps)]
+        xs = per_device(_residual, xs, all_reduce_sum(partials))
+    if cache is not None:
+        cache.length = cache.length + s
+    finals = [local(params["final_norm"], c) for c in coords]
+    xs = per_device(lambda x, w: common.rms_norm(x, w, eps), xs, finals)
+    blocks = []
+    for x, c in zip(xs, coords):
+        head = local(params["lm_head"], c)
+        if not isinstance(head, QuantizedTensor):
+            head = head.to(dtype)
+        blocks.append(quant.matmul(x, head))
+    return all_gather(blocks, dim=-1).float(), cache
+
+
+def _residual(x: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
+    """`x` plus a reduced row-parallel product, rounded to x's dtype."""
+    return x + total.to(x.dtype)
+
+
+def _vocab_embed(embed, tokens: torch.Tensor, dtype: torch.dtype,
+                 coords: list[int], devs: list) -> list[torch.Tensor]:
+    """Vocab-parallel embedding: each shard looks up the tokens its row
+    block holds, zeros elsewhere, and the blocks are summed (exactly:
+    one shard holds each row). Returns the activations per shard."""
+    partials = []
+    for i, (c, dev) in enumerate(zip(coords, devs)):
+        table = local(embed, c)
+        rows = table.shape[0]
+        tok = tokens.long().to(dev) - i * rows
+        ok = (tok >= 0) & (tok < rows)
+        e = quant.embed_lookup(table, torch.where(ok, tok, 0), dtype)
+        partials.append(torch.where(ok[..., None], e, torch.zeros_like(e)))
+    return all_reduce_sum(partials)
 
 
 def num_params(cfg: LlamaConfig) -> int:

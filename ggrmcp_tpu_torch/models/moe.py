@@ -1,6 +1,6 @@
 """Sparse Mixture-of-Experts decoder (Mixtral-style). Port of
-`ggrmcp_tpu/models/moe.py` on one device (expert parallelism over the
-reference's `expert` mesh axis is not ported).
+`ggrmcp_tpu/models/moe.py`, on one device or over an expert x tensor
+mesh (`param_specs`, `moe_ffn_sharded`).
 
 - The attention trunk is `llama.attention_block`, so every cache layout
   the dense family serves reaches MoE unchanged: contiguous, ring and
@@ -23,6 +23,13 @@ reference's `expert` mesh axis is not ported).
   each token sums its k weighted expert outputs. At a [32, 512]
   admission of mixtral-8x7b the one-hot tensors would hold 16384 · 8 ·
   5120 floats each.
+- On a mesh the banks shard over `expert` (the expert dim) and
+  `tensor` (the FFN dim); attention is the dense family's tensor
+  parallelism. Routing (`moe_ffn_sharded`) runs ONCE, on the replicated activations: the
+  capacity is batch-global, so per-shard routing could drop other
+  pairs. Each shard runs its experts' rows of the one assignment through
+  its slice of the banks, and one all-reduce over expert x tensor sums
+  the weighted outputs.
 """
 
 from __future__ import annotations
@@ -38,6 +45,11 @@ from ggrmcp_tpu_torch.models import llama
 from ggrmcp_tpu_torch.models.llama import KVCache, LlamaConfig  # noqa: F401
 from ggrmcp_tpu_torch.ops import quant
 from ggrmcp_tpu_torch.ops.quant import QuantizedTensor
+from ggrmcp_tpu_torch.parallel.collectives import (
+    all_reduce_sum,
+    local,
+    per_device,
+)
 
 Params = common.Params
 
@@ -148,6 +160,20 @@ def init_params(cfg: MoEConfig, device: torch.device, seed: int = 0) -> Params:
         "lm_head": common.init_dense(d, cfg.vocab_size, dtype,
                                      scale=d ** -0.5, **kw),
     }
+
+
+def param_specs(cfg: MoEConfig) -> Params:
+    """EP x TP: expert banks sharded over `expert` on the expert dim and
+    `tensor` on the FFN dim; the router is replicated; attention is TP
+    like the dense family's."""
+    specs = llama.param_specs(cfg)
+    specs["layers"].update({
+        "router": (None, None, None),
+        "w_gate": (None, "expert", None, "tensor"),
+        "w_up": (None, "expert", None, "tensor"),
+        "w_down": (None, "expert", "tensor", None),
+    })
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -292,6 +318,57 @@ def moe_ffn(
     return out.view(b, s, d), _aux_loss(probs, cfg, vt) if aux else None
 
 
+def moe_ffn_sharded(
+    x: torch.Tensor,  # [B, S, D] (already normed), replicated
+    layers: Params,  # the mesh's sharded stacked layers
+    layer: int,
+    cfg: MoEConfig,
+    valid: Optional[torch.Tensor] = None,  # [B, S] bool
+    auxes: Optional[list] = None,
+) -> dict:
+    """`moe_ffn` of layer `layer` over an expert x tensor mesh: route
+    ONCE on `x` (capacity is batch-global), build the [E·C + 1, D] expert
+    input once, then every mesh coordinate (e, t) runs experts [e·E/ep,
+    (e+1)·E/ep) on its F/tp bank columns and sums its pairs' weighted
+    outputs in float32; one all-reduce over the mesh combines them.
+    Appends the layer's aux loss to `auxes` when given. Returns {device:
+    output [B, S, D] in x's dtype} for every device of the mesh."""
+    mesh = layers["router"].mesh
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.num_experts, cfg.experts_per_token
+    xt = x.reshape(t, d)
+    vt = valid.reshape(t).to(x.device) if valid is not None else None
+    capacity = _capacity(cfg, t)
+    router = llama._at(layer, local(layers["router"], 0)).to(x.device)
+    probs, topk_p, topk_i, slot, kept = _assign(xt, router, cfg, capacity,
+                                                vt)
+    if auxes is not None:
+        auxes.append(_aux_loss(probs, cfg, vt))
+    scratch = e * capacity
+    dest = torch.where(kept, topk_i * capacity + slot, scratch).reshape(-1)
+    expert_in = xt.new_zeros((scratch + 1, d))
+    expert_in.index_copy_(0, dest, xt.repeat_interleave(k, dim=0))
+    w = torch.where(kept, topk_p, 0.0).to(x.dtype).float()
+    per_shard = e // mesh.shape["expert"]
+    partials = []
+    for c, dev in enumerate(mesh.devices):
+        lo = mesh.coord(c)["expert"] * per_shard * capacity
+        hi = lo + per_shard * capacity
+        banks = {name: llama._at(layer, local(layers[name], c))
+                 for name in ("w_gate", "w_up", "w_down")}
+        rows = expert_in[lo:hi].to(dev).view(per_shard, capacity, d)
+        out = _experts(rows, banks).reshape(hi - lo, d)
+        mine = ((dest >= lo) & (dest < hi)).to(dev)
+        idx = torch.where(mine, dest.to(dev) - lo, 0)
+        gathered = torch.where(mine[:, None], out[idx],
+                               torch.zeros_like(out[:1]))
+        partials.append((gathered.view(t, k, d).float()
+                         * w.to(dev)[..., None]).sum(1))
+    return {p.device: r.to(x.dtype).view(b, s, d)
+            for p, r in zip(partials, all_reduce_sum(partials))}
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -324,6 +401,20 @@ def forward_with_aux(
     layers (None with `aux` False)."""
     if isinstance(cache, llama.PagedKVCache):
         raise ValueError("paged_kv supports dense Llama only")
+    if llama.is_sharded(params):
+        auxes = [] if aux else None
+
+        def ffn(layer, xs, lps, devs):
+            eps = cfg.norm_eps
+            normed = per_device(lambda x, w: common.rms_norm(x, w, eps), xs,
+                                [lp["mlp_norm"] for lp in lps])
+            out = moe_ffn_sharded(normed[0], params["layers"], layer, cfg,
+                                  valid, auxes)
+            return per_device(torch.add, xs, [out[d] for d in devs])
+
+        logits, cache = llama.forward_tp(params, cfg, tokens, cache,
+                                         use_flash, ring, ffn=ffn)
+        return logits, cache, torch.stack(auxes).mean() if aux else None
     b, s = tokens.shape
     dtype = cfg.torch_dtype
     x = quant.embed_lookup(params["embed"], tokens, dtype)

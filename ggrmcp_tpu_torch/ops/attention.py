@@ -17,6 +17,15 @@ head_dim]; K/V may carry fewer (KV) heads (GQA).
   and chunk) goes to `flash_attention`; decode stays on `attention_ref`,
   as decode never reaches Pallas in the reference. `use_flash=False`
   (the int8 KV cache) sends everything to `attention_ref`.
+- `flash_shardable` — the reference's predicate for the kernel per
+  tensor shard (`flash_attention_sharded`): the tensor axis must divide
+  the KV heads, so each shard keeps whole GQA groups. On a mesh the
+  model calls the dispatcher once per shard, on that shard's q / k / v,
+  so the kernel launches once per shard (models/llama.py `forward_tp`).
+  When the predicate fails, every shard's cache holds all KV heads and
+  the shard reads its own groups' heads out of it, still through the
+  dispatcher (the reference falls back to its XLA path there, because
+  `shard_map` cannot split a replicated cache).
 """
 
 from __future__ import annotations
@@ -325,3 +334,14 @@ def attention(
         q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
         window=window, k_positions=k_positions,
     )
+
+
+def flash_shardable(tensor: int, kv_heads: int) -> tuple[bool, str]:
+    """Whether each tensor shard keeps whole GQA groups, so the KV cache
+    splits by head (the reference's `_flash_shardable`; the batch is
+    never split, the port having no data axis). Otherwise the cache is
+    replicated, and the shards still run the dispatcher."""
+    if kv_heads % tensor != 0:
+        return False, (f"kv heads {kv_heads} not divisible by tensor axis "
+                       f"{tensor}")
+    return True, ""

@@ -1,7 +1,7 @@
 """Int8 weight-only quantization and the int8 KV leaf.
 
-Port of `ggrmcp_tpu/ops/quant.py` (its TP-only `quantize_specs` is not
-ported). The scheme, bit for bit the reference's:
+Port of `ggrmcp_tpu/ops/quant.py`. The scheme, bit for bit the
+reference's:
 
 - per-output-channel symmetric int8: `q = round(w / scale)` with
   `scale = max|w| / 127` over the contraction axis, computed in float32;
@@ -17,15 +17,20 @@ ported). The scheme, bit for bit the reference's:
 
 `QuantizedTensor` is a dataclass, not a tuple: indexing it raises
 instead of quietly returning `q`. Ops over both leaves go through
-`kv_map`.
+`kv_map`, which also maps over a mesh's per-shard parts
+(parallel/collectives.py `Sharded`; a sharded quantized leaf holds a
+`Sharded` q and scale). `quantize_sharded` quantizes such a leaf to the
+bits of quantizing the whole one.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Union
+from typing import Any, Callable, Optional, Union
 
 import torch
+
+from ggrmcp_tpu_torch.parallel.collectives import Sharded
 
 
 @dataclasses.dataclass
@@ -60,8 +65,16 @@ def quantize(w: torch.Tensor, axis: int = -2) -> QuantizedTensor:
     equal. The divisor is a tensor on w's device: divided by a Python
     scalar, PyTorch's CUDA kernel multiplies by the scalar's reciprocal,
     one ulp off the CPU's (and the reference's) quotient."""
+    return quantize_with(w, axis, None)
+
+
+def quantize_with(w: torch.Tensor, axis: int,
+                  amax: "torch.Tensor | None") -> QuantizedTensor:
+    """`quantize(w, axis)`, or with a given float32 per-channel max (a
+    sharded leaf's, taken over every shard)."""
     w32 = w.float()
-    amax = w32.abs().amax(dim=axis, keepdim=True)
+    if amax is None:
+        amax = w32.abs().amax(dim=axis, keepdim=True)
     scale = torch.clamp_min(amax, 1e-8) / torch.tensor(
         127.0, dtype=torch.float32, device=w.device)
     q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
@@ -76,23 +89,36 @@ def kv_map(fn: Callable, *kvs: TensorOrQuant) -> TensorOrQuant:
     """Apply a positional op to possibly-quantized tensors. An int8 KV
     cache stores values [.., S, KVH, D] and scales [.., S, KVH, 1];
     every cache bookkeeping op (row copy, slice, layer select) indexes
-    leading axes only, so it applies to q and scale alike. Plain
-    tensors pass straight to `fn`."""
+    leading axes only, so it applies to q and scale alike. A mesh
+    leaf's parts (`Sharded`) are mapped shard by shard, once per stored
+    tensor. Plain tensors pass straight to `fn`."""
     if isinstance(kvs[0], QuantizedTensor):
         return QuantizedTensor(
-            q=fn(*(x.q for x in kvs)),
-            scale=fn(*(x.scale for x in kvs)),
+            q=kv_map(fn, *(x.q for x in kvs)),
+            scale=kv_map(fn, *(x.scale for x in kvs)),
         )
+    if isinstance(kvs[0], Sharded):
+        return kvs[0].map(fn, *kvs[1:])
     return fn(*kvs)
 
 
-def matmul(x: torch.Tensor, w: TensorOrQuant) -> torch.Tensor:
+def matmul(x: torch.Tensor, w: TensorOrQuant,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """`x @ w` for dense or quantized weights: for a QuantizedTensor the
     int8 weight is cast to x's dtype (there is no mixed int8 x bf16
-    product) and the per-column scale multiplies the product."""
+    product) and the per-column scale multiplies the product.
+    `out_dtype` float32 keeps a bf16 product's float32 accumulator
+    unrounded (a row-parallel partial, rounded once after its sum)."""
     if isinstance(w, QuantizedTensor):
-        return (x @ w.q.to(x.dtype)) * w.scale
-    return x @ w
+        return matmul(x, w.q.to(x.dtype), out_dtype) * w.scale
+    if out_dtype is None or out_dtype == x.dtype:
+        return x @ w
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.device.type == "cuda":
+        y = torch.mm(x2, w, out_dtype=out_dtype)
+    else:  # no CPU kernel; the narrower type's products are exact
+        y = x2.to(out_dtype) @ w.to(out_dtype)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
 def embed_lookup(
@@ -117,8 +143,9 @@ _LAYER_MATMULS = ("wqkv", "wo", "w_gate", "w_up", "w_down")
 
 
 def _is_stacked_matmul(leaf: Any) -> bool:
-    """A 3-D stacked weight, given as a tensor or as its shape."""
-    shape = leaf.shape if isinstance(leaf, torch.Tensor) else leaf
+    """A 3-D stacked weight, given as a tensor (a mesh's `Sharded` too)
+    or as its shape."""
+    shape = leaf.shape if isinstance(leaf, (torch.Tensor, Sharded)) else leaf
     return isinstance(shape, tuple) and len(shape) == 3
 
 
@@ -147,6 +174,60 @@ def quantize_model(params: dict[str, Any]) -> dict[str, Any]:
         parent = out if len(path) == 1 else out["layers"]
         parent[path[-1]] = quantize(parent[path[-1]], axis=axis)
     return out
+
+
+def quantize_specs(specs: dict[str, Any]) -> dict[str, Any]:
+    """Mirror `quantize_model` over a spec tree: each quantized leaf's
+    spec applies to its q and its scale alike (the scale's size-1 axis
+    is replicated by `compatible_spec`). 3-D-ness is keyed off the spec
+    length, as in the reference."""
+    out = dict(specs)
+    layers = dict(specs["layers"])
+    for name in _LAYER_MATMULS:
+        if name in layers and len(tuple(layers[name])) == 3:
+            layers[name] = QuantizedTensor(q=layers[name], scale=layers[name])
+    out["layers"] = layers
+    for name in ("lm_head", "embed"):
+        if name in out:
+            out[name] = QuantizedTensor(q=out[name], scale=out[name])
+    return out
+
+
+def quantize_sharded(w: Sharded, axis: int, quantize_part=None
+                     ) -> QuantizedTensor:
+    """`quantize(whole, axis)` of a sharded leaf, shard by shard, to the
+    same bits: where the shards split the reduced axis (a row-parallel
+    weight), the per-channel max is taken over every shard's rows, in
+    float32, before the scale is formed; the scale (one per channel)
+    is then replicated. `quantize_part(t, axis, amax)` quantizes one
+    part (default: whole)."""
+    split = w.factors[axis] > 1
+    amaxes = [p.float().abs().amax(dim=axis, keepdim=True)
+              for p in w.distinct()] if split else None
+    amax = None
+    if split:
+        dev = w.parts[0].device
+        amax = amaxes[0]
+        for a in amaxes[1:]:
+            amax = torch.maximum(amax, a.to(dev))
+    done: dict[int, QuantizedTensor] = {}
+    qs, scales = [], []
+    for p in w.parts:
+        if id(p) not in done:
+            done[id(p)] = (quantize_part or quantize_with)(
+                p, axis, None if amax is None else amax.to(p.device))
+        qs.append(done[id(p)].q)
+        scales.append(done[id(p)].scale)
+    scale_factors = tuple(1 if i == len(w.factors) + axis else f
+                          for i, f in enumerate(w.factors))
+    scale_full = None
+    if w.full is not None:
+        scale_full = list(w.full)
+        scale_full[axis] = 1
+        scale_full = torch.Size(scale_full)
+    return QuantizedTensor(
+        q=Sharded(tuple(qs), w.factors, w.mesh, w.full),
+        scale=Sharded(tuple(scales), scale_factors, w.mesh, scale_full))
 
 
 def quantized_nbytes(params: dict[str, Any]) -> int:

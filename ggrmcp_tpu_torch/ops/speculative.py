@@ -80,10 +80,11 @@ def speculative_generate(
     max_new_budget: int,
     gamma: int,
     eos_id: int,
+    make_cache,  # (batch, length) -> target cache (an engine's)
+    make_draft_cache,  # (batch, length) -> draft cache
     max_new: Optional[int] = None,  # per-call cap <= max_new_budget
     use_flash: Optional[bool] = None,
     verify_flash: Optional[bool] = None,
-    kv_dtype: str = "",
     temperature: Optional[torch.Tensor] = None,  # [B]; None = all greedy
     seeds: Optional[torch.Tensor] = None,  # [B] per-row seeds
 ) -> SpecResult:
@@ -93,7 +94,9 @@ def speculative_generate(
     rows > 0 by rejection and keeps its 0 rows exact-match greedy.
     `use_flash` rides every prefill and draft step, `verify_flash` the
     target's (gamma+1)-wide verify. Each round reads one flag from the
-    device to decide whether another is needed: one sync a round."""
+    device to decide whether another is needed: one sync a round. The
+    caches come from `make_cache` / `make_draft_cache` (an engine's,
+    in its KV dtype and placed on its mesh)."""
     b, s = tokens.shape
     dev = tokens.device
     max_new = min(max_new_budget if max_new is None else max_new,
@@ -112,8 +115,7 @@ def speculative_generate(
             samp = torch.argmax(logits / safe_t + gumbel(keys, vocab), -1)
             return torch.where(is_sampled, samp, torch.argmax(logits, -1))
     budget = s + max_new_budget + gamma + 2  # the verify may overshoot
-    tcache = llama_mod.KVCache.create(target_cfg, b, budget, dev, kv_dtype)
-    dcache = llama_mod.KVCache.create(draft_cfg, b, budget, dev, kv_dtype)
+    tcache, dcache = make_cache(b, budget), make_draft_cache(b, budget)
 
     tlogits, _ = llama_mod.forward(target_params, target_cfg, tokens, tcache,
                                    use_flash=use_flash)

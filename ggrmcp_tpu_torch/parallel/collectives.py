@@ -1,0 +1,215 @@
+"""Sharded leaves and the explicit collectives of the single-controller
+mesh (parallel/mesh.py).
+
+The reference places arrays with `NamedSharding` and lets GSPMD insert
+the collectives. Here one process holds every shard:
+
+- `Sharded` is a leaf of per-coordinate tensors, one per mesh
+  coordinate in the mesh's flat order. Coordinates that hold the same
+  block on the same device share one tensor (a replica costs nothing
+  there); distinct blocks never share storage. `quant.kv_map` maps over
+  its parts as it maps over a `QuantizedTensor`'s values and scales, so
+  the batcher's cache bookkeeping is unchanged. A quantized sharded
+  leaf is a `QuantizedTensor` whose `q` and `scale` are each `Sharded`.
+- `shard` / `unshard` split a tensor by a spec and put it back.
+- `all_reduce_sum` (after every row-parallel product) and `all_gather`
+  (of vocab-sharded logits) move tensors with `.to(device,
+  non_blocking=True)`: a no-op between shards on one device, a peer copy
+  between cards, so shards on distinct cards compute the same result.
+  An NCCL path waits for a machine with more than one card to measure
+  it on.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional
+
+import torch
+
+from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+
+
+@dataclasses.dataclass
+class Sharded:
+    """One leaf as per-coordinate parts. `factors[i]` is how many blocks
+    the dim i places from the END of the shape is split into (aligned
+    right, so ops that index leading axes keep it true); `shape` is the
+    global shape (`full` when given: a split by index, such as the
+    fused wqkv with replicated KV heads, need not tile it evenly)."""
+
+    parts: tuple
+    factors: tuple[int, ...]
+    mesh: Optional[mesh_mod.Mesh] = None
+    full: Optional[torch.Size] = None
+
+    @property
+    def shape(self) -> torch.Size:
+        if self.full is not None:
+            return self.full
+        local = list(self.parts[0].shape)
+        for i, f in enumerate(reversed(self.factors[-len(local):])):
+            local[len(local) - 1 - i] *= f
+        return torch.Size(local)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    def distinct(self) -> list:
+        """The parts, each stored tensor once."""
+        return list({id(p): p for p in self.parts}.values())
+
+    @property
+    def nbytes(self) -> int:
+        return sum(p.nbytes for p in self.distinct())
+
+    def numel(self) -> int:
+        return math.prod(self.shape)
+
+    def map(self, fn: Callable, *others: "Sharded") -> "Sharded":
+        """`fn` over aligned parts, once per distinct tuple of stored
+        tensors (an in-place op on a shared replica runs once)."""
+        done: dict[tuple, Any] = {}
+        out = []
+        for i, part in enumerate(self.parts):
+            args = (part, *(o.parts[i] for o in others))
+            key = tuple(id(a) for a in args)
+            if key not in done:
+                done[key] = fn(*args)
+            out.append(done[key])
+        ndim = out[0].dim()
+        return Sharded(tuple(out), self.factors[-ndim:] if ndim else (),
+                       self.mesh)
+
+
+def _block_slices(t_shape, spec, mesh, coord, index_fn):
+    """The index of coordinate `coord`'s block: one slice per dim, or an
+    index tensor from `index_fn(dim, block, n_blocks)` where it gives
+    one."""
+    idx, key = [], []
+    for dim, (size, entry) in enumerate(zip(t_shape, spec)):
+        n = mesh_mod.axis_product(mesh, entry)
+        b = mesh_mod.block_index(mesh, entry, coord)
+        key.append(b)
+        custom = index_fn(dim, b, n) if (index_fn and n > 1) else None
+        if custom is not None:
+            idx.append(custom)
+        else:
+            step = size // n
+            idx.append(slice(b * step, (b + 1) * step))
+    return tuple(idx), tuple(key)
+
+
+def shard(
+    t: torch.Tensor, spec: tuple, mesh: mesh_mod.Mesh,
+    index_fn: Optional[Callable] = None,
+) -> Sharded:
+    """Split `t` by `spec` (adapted: every named dim divides) over
+    `mesh`, each block copied to its coordinate's device. A dim whose
+    blocks are not contiguous ranges takes its indices from
+    `index_fn(dim, block, n_blocks)` (the fused wqkv's head-aligned
+    columns). A whole, replicated leaf already on a coordinate's device
+    is used as it is there, not copied."""
+    spec = tuple(spec) + (None,) * (t.dim() - len(spec))
+    parts, seen = [], {}
+    for i, dev in enumerate(mesh.devices):
+        idx, key = _block_slices(t.shape, spec, mesh, mesh.coord(i), index_fn)
+        key = (key, dev)
+        if key not in seen:
+            whole = all(
+                isinstance(s, slice) and s == slice(0, n)
+                for s, n in zip(idx, t.shape)
+            )
+            if whole and t.device == dev:
+                seen[key] = t
+            else:
+                block = t[idx]
+                seen[key] = torch.empty(
+                    block.shape, dtype=t.dtype, device=dev
+                ).copy_(block)
+        parts.append(seen[key])
+    factors = tuple(mesh_mod.axis_product(mesh, e) for e in spec)
+    return Sharded(tuple(parts), factors, mesh,
+                   t.shape if index_fn is not None else None)
+
+
+def unshard(
+    sh: Sharded, spec: tuple, index_fn: Optional[Callable] = None,
+    device=None,
+) -> torch.Tensor:
+    """The global tensor of a `shard` result (on `device`, default the
+    first part's)."""
+    mesh = sh.mesh
+    shape = sh.shape
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    device = device or sh.parts[0].device
+    out = torch.empty(shape, dtype=sh.dtype, device=device)
+    for i, part in enumerate(sh.parts):
+        idx, _ = _block_slices(shape, spec, mesh, mesh.coord(i), index_fn)
+        idx = tuple(s.to(device) if isinstance(s, torch.Tensor) else s
+                    for s in idx)
+        out[idx] = part.to(device)
+    return out
+
+
+def local(tree: Any, index: int) -> Any:
+    """Coordinate `index`'s view of a tree of sharded leaves: each
+    `Sharded` gives its part, a `QuantizedTensor` of sharded values and
+    scales gives the pair of parts, anything else passes through."""
+    from ggrmcp_tpu_torch.ops.quant import QuantizedTensor
+
+    if isinstance(tree, Sharded):
+        return tree.parts[index]
+    if isinstance(tree, QuantizedTensor):
+        return QuantizedTensor(q=local(tree.q, index),
+                               scale=local(tree.scale, index))
+    if isinstance(tree, dict):
+        return {k: local(v, index) for k, v in tree.items()}
+    return tree
+
+
+def replicate(t: torch.Tensor, devices) -> list[torch.Tensor]:
+    """`t` on each of `devices`: one copy per distinct device, shared by
+    the coordinates on it (`t` itself on its own device)."""
+    copies: dict[torch.device, torch.Tensor] = {}
+    out = []
+    for dev in devices:
+        if dev not in copies:
+            copies[dev] = t.to(dev, non_blocking=True)
+        out.append(copies[dev])
+    return out
+
+
+def per_device(fn: Callable, *lists) -> list:
+    """`fn` over aligned per-shard argument lists, once per distinct
+    tuple of argument objects: a replicated value shared by two shards
+    on one device is computed once."""
+    done: dict[tuple, Any] = {}
+    out = []
+    for args in zip(*lists):
+        key = tuple(id(a) for a in args)
+        if key not in done:
+            done[key] = fn(*args)
+        out.append(done[key])
+    return out
+
+
+def all_reduce_sum(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Sum of per-shard partials, added in shard order on the first
+    part's device and returned on every part's device (one tensor per
+    distinct device). A row-parallel product hands in float32 partials
+    and rounds the sum once, as one unsharded product rounds once."""
+    dev = parts[0].device
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p.to(dev, non_blocking=True)
+    return replicate(total, [p.device for p in parts])
+
+
+def all_gather(parts: list[torch.Tensor], dim: int) -> torch.Tensor:
+    """Per-shard blocks concatenated along `dim` on the first part's
+    device (the controller, which samples)."""
+    dev = parts[0].device
+    return torch.cat([p.to(dev, non_blocking=True) for p in parts], dim=dim)

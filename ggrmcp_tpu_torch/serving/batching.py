@@ -342,6 +342,9 @@ class ContinuousBatcher:
         self.slots = [_Slot() for _ in range(b)]
         self.pending = _PendingQueue()
         self._task: Optional[asyncio.Task] = None
+        # [(request, chunk)] a tick emits, delivered once its record is
+        # settled (None outside a tick).
+        self._tick_out: Optional[list] = None
         self._wake = asyncio.Event()
         self._stopping = False
         self._steps_per_tick = resolve_decode_steps(self.cfg)
@@ -766,7 +769,9 @@ class ContinuousBatcher:
             cap = mini.capacity
 
             def merge(pool, m):
-                pool[:, dst, :cap] = m[:, src, :cap]
+                # A shard's leaf may sit on another card than the indices.
+                dev = pool.device
+                pool[:, dst.to(dev), :cap] = m[:, src.to(dev), :cap]
                 return pool
 
             self._merge(merge, mini)
@@ -793,8 +798,9 @@ class ContinuousBatcher:
         dst_page = self._t(np.concatenate(dst_page).astype(np.int64))
 
         def put(arena, m):
-            arena[:, dst_page, dst_off] = m[:, src_row, src_pos].to(
-                arena.dtype)
+            dev = arena.device
+            arena[:, dst_page.to(dev), dst_off.to(dev)] = m[
+                :, src_row.to(dev), src_pos.to(dev)].to(arena.dtype)
             return arena
 
         self._merge(put, mini)
@@ -814,9 +820,20 @@ class ContinuousBatcher:
         )
         return clamped
 
+    def _refuse_mesh_pages(self) -> None:
+        if self.engine.mesh.size > 1:
+            raise KVTransferError(
+                "kv page export/import on a mesh is not ported yet "
+                "(ROADMAP A18b): the page codec's [L, P, KVH, Dh] holds "
+                "whole heads")
+
     def _arena_leaves(self) -> list[tuple[str, torch.Tensor]]:
         """(name, [L, N + 1, P, KVH, Dh] leaf) of the page arena: k and
-        v, and an int8 arena's k_scale and v_scale."""
+        v, and an int8 arena's k_scale and v_scale. The page codec holds
+        whole heads: an arena split over a mesh's tensor shards is
+        refused (KVTransferError; the engine refuses the roles and the
+        host tier that would need it)."""
+        self._refuse_mesh_pages()
         out = []
         for name, leaf in (("k", self.cache.k), ("v", self.cache.v)):
             if isinstance(leaf, quant.QuantizedTensor):
@@ -844,6 +861,7 @@ class ContinuousBatcher:
         registered under ("" = base)."""
         if not self._paged:
             raise KVTransferError("kv export requires batching.paged_kv=on")
+        self._refuse_mesh_pages()
         pages = self.pages.chain_pages(prompt, adapter=adapter)
         if not pages:
             raise KVTransferError(
@@ -865,6 +883,7 @@ class ContinuousBatcher:
         PageExhaustedError when the arena cannot hold the chunk."""
         if not self._paged:
             raise KVTransferError("kv import requires batching.paged_kv=on")
+        self._refuse_mesh_pages()
         k, v = _host_tensor(k), _host_tensor(v)
         self._check_payload(k, v, k_scale)
         placed = self.pages.import_chain(prompt, start_page,
@@ -1727,10 +1746,7 @@ class ContinuousBatcher:
         return {
             **self._memory_stats(),
             **self.engine.lora_stats(),
-            "tp_chips": 1,
-            "mesh_devices": 1,
-            "mesh_shape": str(self.device),
-            "mesh_spec_downgrades": 0,
+            **self.engine.mesh_stats(),
             "active_slots": self._active_count(),
             "total_slots": len(self.slots),
             "queued_requests": self.pending.qsize(),
@@ -2788,8 +2804,21 @@ class ContinuousBatcher:
             memory=self._ledger_tick_snapshot(),
         )
 
-    @torch.no_grad()
     def _tick_step(self) -> None:
+        """`_tick_body`, with the chunks it emits delivered after the
+        tick's flight record is settled: a consumer woken by its terminal
+        chunk (and a caller that then stops the batcher) reads histograms
+        that include this tick."""
+        self._tick_out = []
+        try:
+            self._tick_body()
+        finally:
+            out, self._tick_out = self._tick_out, None
+            for request, item in out:
+                self._deliver(request, item)
+
+    @torch.no_grad()
+    def _tick_body(self) -> None:
         """One decode tick (fused with one [K, C] prefill chunk while
         interleaved admissions are in flight): dispatch, pull the tokens,
         finish the admitting rows whose last chunk this was, emit. The
@@ -3005,7 +3034,12 @@ class ContinuousBatcher:
                 self._tables_dirty = True
         request.acc.extend(ids)
         if request.unary:
-            if finished_reason is not None:
-                self._deliver(request, (request.acc, finished_reason))
+            item = (request.acc, finished_reason)
+            if finished_reason is None:
+                return
         else:
-            self._deliver(request, (ids, finished_reason))
+            item = (ids, finished_reason)
+        if self._tick_out is not None:
+            self._tick_out.append((request, item))
+        else:
+            self._deliver(request, item)

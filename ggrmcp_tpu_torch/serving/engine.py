@@ -1,9 +1,10 @@
-"""Engines on one device. Port of `ggrmcp_tpu/serving/engine.py`:
-`GenerationEngine` (dense Llama or sparse-MoE prefill, decode and
-whole-request generation, with int8 weights, the int8 KV cache, the paged and ring
+"""Engines. Port of `ggrmcp_tpu/serving/engine.py`: `GenerationEngine`
+(dense Llama or sparse-MoE prefill, decode and whole-request
+generation, with int8 weights, the int8 KV cache, the paged and ring
 caches for the batcher, multi-LoRA adapters, boot-time or from a
 registry through the adapter arena, and speculative decoding against a
-draft model; no mesh or PP/SP) and `EmbeddingEngine` (BERT embeddings).
+draft model; on one device or tensor- and expert-parallel over a mesh,
+no PP/SP) and `EmbeddingEngine` (BERT embeddings, one device).
 
 The reference compiles one program per shape bucket; PyTorch runs
 eagerly, so the buckets here only bound the shapes the kernels see.
@@ -11,6 +12,7 @@ eagerly, so the buckets here only bound the shapes the kernels see.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import time
@@ -29,6 +31,8 @@ from ggrmcp_tpu_torch.models.common import count_params, param_bytes
 from ggrmcp_tpu_torch.ops import lora as lora_ops
 from ggrmcp_tpu_torch.ops import quant
 from ggrmcp_tpu_torch.ops.sampling import SamplingConfig, sample
+from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+from ggrmcp_tpu_torch.parallel.collectives import Sharded, shard
 from ggrmcp_tpu_torch.serving.memory_ledger import MemoryLedger
 from ggrmcp_tpu_torch.utils import failpoints
 from ggrmcp_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -77,7 +81,21 @@ class GenerationEngine:
     (this package's dict, e.g. a reference draft through
     models/convert.py) or random weights drawn from `seed + 1`, as the
     reference draws its draft from the next key. `serving.kv_ring` sets
-    `ring_capacity`, the batcher caches' length."""
+    `ring_capacity`, the batcher caches' length.
+
+    The mesh (`mesh`, or `serving.mesh` over `device`: that one card
+    unless the config asks for several coordinates, then every card; the
+    CPU repeated) places the weights by the
+    family's `param_specs` and every cache by its cache specs; with one
+    coordinate nothing is sharded and the forward is the one-device
+    path. Weights are drawn or given whole, then sharded IN PLACE (each
+    whole leaf of the given dict is replaced by its shards as soon as
+    they exist), then quantized shard by shard to the bits of the whole
+    leaf's quantization; params already sharded (the sharded loader's)
+    are used as they are. A spec axis that does not divide its dim is
+    counted in `spec_downgrades`: the KV-head case (tensor does not
+    divide KVH) is served with replicated KV; any weight's raises, as do
+    the routes the port does not serve on a mesh (ROADMAP A18b)."""
 
     def __init__(
         self,
@@ -87,6 +105,7 @@ class GenerationEngine:
         seed: int = 0,
         device: DeviceLike = None,
         draft_params=None,
+        mesh: Optional[mesh_mod.Mesh] = None,
     ):
         self.cfg = cfg
         self.fam = family_module(cfg)
@@ -95,23 +114,37 @@ class GenerationEngine:
             # Armed at the serving plane's root, as the reference does:
             # every entry point built on an engine gets the schedule.
             failpoints.registry.arm_spec(self.serving.failpoints)
-        self.device = resolve_device(device)
+        if mesh is None:
+            mesh = mesh_mod.serving_mesh(self.serving.mesh, device)
+        self.mesh = mesh
+        # The controller device: tokens, lengths, tables and logits.
+        self.device = resolve_device(mesh.devices[0])
+        # Sharding downgrades, counted once per (leaf, dim) site, as the
+        # reference's mesh_spec_downgrades gauge.
+        self.spec_downgrades = 0
+        self._downgrades_seen: set = set()
+        self._check_mesh()
         self.kv_dtype = self.serving.kv_cache_dtype
         # An int8 cache is read dequantized by attention_ref: handing the
         # kernel a bf16 copy of the cache would forfeit the int8 bytes.
         self.use_flash: Optional[bool] = False if self.kv_dtype else None
         self.ring_capacity = self._ring_capacity()
+        specs = self.fam.param_specs(cfg)
         if params is None and self.serving.synthetic_weights:
-            params = self._synthetic_int8_init(seed)
+            params = self._shard_params(self._synthetic_int8_init(seed), cfg,
+                                        specs)
         else:
             if params is None:
                 t0 = time.monotonic()
+                # One whole tree from one generator, then sharded: a
+                # per-shard draw would not reproduce across meshes.
                 params = self.fam.init_params(cfg, self.device, seed)
                 logger.info(
                     "initialized %s on %s: %.1fM params in %.1fs", cfg.name,
                     self.device, count_params(params) / 1e6,
                     time.monotonic() - t0,
                 )
+            params = self._shard_params(params, cfg, specs)
             if self.serving.quantize:
                 params = self._quantize_params(params)
         self.params = self._init_lora(params, seed)
@@ -120,7 +153,7 @@ class GenerationEngine:
         # register their components into it, so one reconcile() covers
         # the stack. Off with serving.observability. LoRA factors are
         # their own component (`lora`), outside `weights`.
-        self.ledger = MemoryLedger(self.device,
+        self.ledger = MemoryLedger(self.mesh.distinct_devices(),
                                    self.serving.observability.enabled)
         self.ledger.register("weights", self._ledger_weights)
         if self.adapter_arena is not None:
@@ -129,6 +162,170 @@ class GenerationEngine:
             self.ledger.register("lora", self._ledger_lora)
         if self.draft_cfg is not None:
             self.ledger.register("draft_weights", lambda: self.draft_params)
+
+    # -- the mesh -------------------------------------------------------
+
+    def _check_mesh(self) -> None:
+        """What the port serves on a mesh of more than one coordinate:
+        tensor and expert axes (expert for the MoE family), and none of
+        the routes ROADMAP A18b still has to port. Each refusal raises
+        here, at construction: nothing runs replicated in silence."""
+        mesh_mod.check_serving_mesh(self.mesh)
+        if self.mesh.size == 1:
+            return
+        sizes = self.mesh.shape
+        if sizes["expert"] > 1 and self.fam is not moe_mod:
+            raise ValueError(
+                f"serving.mesh.expert={sizes['expert']} needs a MoE model; "
+                f"{self.cfg.name} has no experts to shard"
+            )
+        if self.cfg.num_heads % sizes["tensor"]:
+            raise ValueError(
+                f"serving.mesh.tensor={sizes['tensor']} does not divide "
+                f"{self.cfg.name}'s {self.cfg.num_heads} query heads"
+            )
+        s, b = self.serving, self.serving.batching
+        refused = [
+            ("lora", bool(s.lora.adapters or s.lora.registry)),
+            ("kv_ring", s.kv_ring),
+            ("batching.kv_tiers", bool(b.kv_tiers)),
+            ("batching.paged_kv_host_bytes (the host page tier)",
+             bool(b.paged_kv_host_bytes)),
+            (f"serving.role={s.role!r} (TransferKV)", s.role != "mixed"),
+        ]
+        for name, on in refused:
+            if on:
+                raise ValueError(
+                    f"{name} on a mesh ({mesh_mod.mesh_shape_str(self.mesh)}"
+                    f") is not ported yet (ROADMAP A18b)"
+                )
+
+    def _note_downgrade(self, where: str, dim: int, entry, size: int,
+                        axis: int) -> None:
+        """compatible_spec dropped a real sharding axis for `where`:
+        count it once per (leaf, dim) site and log it."""
+        key = (where, dim)
+        if key not in self._downgrades_seen:
+            self._downgrades_seen.add(key)
+            self.spec_downgrades += 1
+            logger.warning(
+                "mesh spec downgrade: %s dim %d (size %d) not divisible "
+                "by mesh axis %r (size %d); replicated instead of sharded "
+                "(mesh_spec_downgrades)", where or "<leaf>", dim, size,
+                entry, axis,
+            )
+
+    def _shard_params(self, params, cfg, specs):
+        """Place a whole tree on the mesh by `specs`, IN PLACE, leaf by
+        leaf (a no-op on one coordinate, and for leaves already
+        sharded). The wqkv split is head-aligned (llama.qkv_columns); a
+        quantized leaf takes its q's and its scale's specs from
+        `quant.quantize_specs`. A weight whose spec must downgrade
+        raises: the port splits whole heads, rows and columns only."""
+        mesh = self.mesh
+        if mesh.size == 1:
+            return params
+        if any(isinstance(leaf, quant.QuantizedTensor)
+               for group in (params, params["layers"])
+               for leaf in group.values()):
+            specs = quant.quantize_specs(specs)
+        downgraded = []
+
+        def index_fn(name):
+            if name != "wqkv":
+                return None
+            return lambda dim, block, n: (
+                llama_mod.qkv_columns(cfg, n, block) if dim == 2 else None)
+
+        def cut(x, spec, where, name, observe=True):
+            adapted = mesh_mod.compatible_spec(
+                spec, x.shape, mesh, on_downgrade=(
+                    lambda *a: downgraded.append((where, *a)))
+                if observe else None)
+            return shard(x, adapted, mesh, index_fn(name))
+
+        def place(leaf, spec, where, name):
+            if isinstance(getattr(leaf, "q", leaf), Sharded):
+                return leaf
+            if isinstance(leaf, quant.QuantizedTensor):
+                # The scale's size-1 axis replicates silently.
+                return quant.QuantizedTensor(
+                    q=cut(leaf.q, spec.q, where, name),
+                    scale=cut(leaf.scale, spec.scale, where, name, False))
+            return cut(leaf, spec, where, name)
+
+        for key, spec in specs.items():
+            if isinstance(spec, dict):
+                for name, sub in spec.items():
+                    if name in params[key]:
+                        params[key][name] = place(
+                            params[key][name], sub,
+                            f"['{key}']['{name}']", name)
+            else:
+                params[key] = place(params[key], spec, f"['{key}']", key)
+        for where, dim, entry, size, axis in downgraded:
+            self._note_downgrade(where, dim, entry, size, axis)
+        if downgraded:
+            raise ValueError(
+                f"{cfg.name} on {mesh_mod.mesh_shape_str(mesh)}: "
+                f"{sorted({w for w, *_ in downgraded})} would run "
+                f"replicated (a dim the mesh axis does not divide); the "
+                f"port shards whole heads, rows and columns only "
+                f"(ROADMAP A18b)"
+            )
+        logger.info("sharded %s over %s", cfg.name,
+                    mesh_mod.mesh_shape_str(mesh))
+        return params
+
+    def mesh_stats(self) -> dict:
+        """Mesh identity for ServingStats: tensor shards, mesh
+        coordinates, the shape label and the sharding downgrades (0 =
+        every spec landed as written)."""
+        return {
+            "tp_chips": mesh_mod.axis_size(self.mesh, "tensor"),
+            "mesh_devices": self.mesh.size,
+            "mesh_shape": mesh_mod.mesh_shape_str(self.mesh),
+            "mesh_spec_downgrades": self.spec_downgrades,
+        }
+
+    def _sharded_kv(self, cfg, create, shape, spec, site: str):
+        """A cache whose K/V leaves are split over tensor by `spec` (KV
+        heads, dim 3 of `shape`), built by `create(local_cfg, device)`
+        once per (tensor block, device): coordinates that differ only in
+        their expert index share a block's storage on one device. The
+        KV heads are replicated (counted at `site`) when tensor does not
+        divide them. Lengths and tables stay on the controller device."""
+        mesh = self.mesh
+        adapted = mesh_mod.compatible_spec(
+            spec, shape, mesh,
+            on_downgrade=lambda dim, entry, size, axis: self._note_downgrade(
+                site, dim, entry, size, axis))
+        t = mesh.shape["tensor"]
+        split = adapted[3] is not None
+        lcfg = llama_mod.local_config(cfg, t)
+        built: dict = {}
+        locals_ = []
+        for c, dev in enumerate(mesh.devices):
+            key = (mesh.coord(c)["tensor"] if split else 0, dev)
+            if key not in built:
+                built[key] = create(lcfg, dev)
+            locals_.append(built[key])
+        factors = (1, 1, 1, t if split else 1, 1)
+
+        def leaf(name):
+            parts = [getattr(lc, name) for lc in locals_]
+            if isinstance(parts[0], quant.QuantizedTensor):
+                return quant.QuantizedTensor(
+                    q=Sharded(tuple(p.q for p in parts), factors, mesh),
+                    scale=Sharded(tuple(p.scale for p in parts), factors,
+                                  mesh))
+            return Sharded(tuple(parts), factors, mesh)
+
+        # The lengths (and a paged cache's block tables) on the
+        # controller: a zero-layer cache of the same geometry.
+        base = create(dataclasses.replace(cfg, num_layers=0), self.device)
+        base.k, base.v = leaf("k"), leaf("v")
+        return base
 
     def _ring_capacity(self) -> Optional[int]:
         """Ring-buffer KV (serving.kv_ring, sliding-window models): the
@@ -188,8 +385,15 @@ class GenerationEngine:
             )
         if draft_params is None:
             draft_params = llama_mod.init_params(dcfg, self.device, seed + 1)
+        if self.mesh.size > 1 and dcfg.num_heads % self.mesh.shape["tensor"]:
+            raise ValueError(
+                f"serving.mesh.tensor={self.mesh.shape['tensor']} does not "
+                f"divide the draft {dcfg.name}'s {dcfg.num_heads} query heads"
+            )
         self.draft_cfg = dcfg
-        self.draft_params = draft_params
+        # The draft shares the mesh, sharded by the dense family's specs.
+        self.draft_params = self._shard_params(
+            draft_params, dcfg, llama_mod.param_specs(dcfg))
 
     def draft_forward(self, params, tokens, cache):
         """Forward of the draft model (the batcher's spec tick and
@@ -212,9 +416,9 @@ class GenerationEngine:
                                  use_flash=self.verify_flash)
 
     def make_draft_cache(self, batch: int, max_len: int) -> llama_mod.KVCache:
-        """The batcher's draft slot-pool cache, in the engine's KV dtype."""
-        return llama_mod.KVCache.create(self.draft_cfg, batch, max_len,
-                                        self.device, self.kv_dtype)
+        """The batcher's draft slot-pool cache, in the engine's KV dtype,
+        sharded like the target's."""
+        return self.make_cache(batch, max_len, cfg=self.draft_cfg)
 
     @torch.no_grad()
     def generate_speculative(
@@ -254,7 +458,8 @@ class GenerationEngine:
             self._tensor(tokens), self._tensor(true_len), budget,
             self.serving.speculative_gamma, eos_id, max_new=max_new_tokens,
             use_flash=self.use_flash, verify_flash=self.verify_flash,
-            kv_dtype=self.kv_dtype, temperature=temps, seeds=seed_arr,
+            temperature=temps, seeds=seed_arr,
+            make_cache=self.make_cache, make_draft_cache=self.make_draft_cache,
         )
         results, reasons = self._decode_outputs(
             res.tokens.cpu().numpy(), res.out_len.cpu().numpy(), eos_id
@@ -545,7 +750,11 @@ class GenerationEngine:
         before = quant.quantized_nbytes(params)
         for path, axis in quant.quantize_targets(params):
             parent = params if len(path) == 1 else params["layers"]
-            parent[path[-1]] = _quantize_by_slice(parent[path[-1]], axis)
+            leaf = parent[path[-1]]
+            parent[path[-1]] = (
+                quant.quantize_sharded(leaf, axis, _quantize_by_slice)
+                if isinstance(leaf, Sharded)
+                else _quantize_by_slice(leaf, axis))
         logger.info(
             "quantized %s to int8: %.1f → %.1f MB of weights",
             self.cfg.name, before / 1e6, quant.quantized_nbytes(params) / 1e6,
@@ -576,9 +785,20 @@ class GenerationEngine:
                                  use_flash=self.use_flash,
                                  lora_idx=lora_idx, ring=ring)
 
-    def make_cache(self, batch: int, max_len: int) -> llama_mod.KVCache:
-        return llama_mod.KVCache.create(self.cfg, batch, max_len, self.device,
-                                        self.kv_dtype)
+    def make_cache(self, batch: int, max_len: int,
+                   cfg=None) -> llama_mod.KVCache:
+        """A contiguous cache of `cfg`'s geometry (default the target's),
+        on the mesh: KV heads over tensor by `cache_specs`."""
+        cfg = cfg or self.cfg
+        if self.mesh.size == 1:
+            return llama_mod.KVCache.create(cfg, batch, max_len, self.device,
+                                            self.kv_dtype)
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return self._sharded_kv(
+            cfg, lambda lcfg, dev: llama_mod.KVCache.create(
+                lcfg, batch, max_len, dev, self.kv_dtype),
+            shape, llama_mod.cache_specs()["k"], "kv_cache")
 
     def make_paged_cache(
         self, batch: int, max_len: int, n_pages: int, page_size: int
@@ -588,10 +808,18 @@ class GenerationEngine:
         only, as in the reference."""
         if self.fam is not llama_mod:
             raise ValueError("paged_kv supports dense Llama only")
-        return llama_mod.PagedKVCache.create(
-            self.cfg, batch, max_len, n_pages, page_size, self.device,
-            self.kv_dtype,
-        )
+        if self.mesh.size == 1:
+            return llama_mod.PagedKVCache.create(
+                self.cfg, batch, max_len, n_pages, page_size, self.device,
+                self.kv_dtype,
+            )
+        cfg = self.cfg
+        shape = (cfg.num_layers, n_pages, page_size, cfg.num_kv_heads,
+                 cfg.head_dim)
+        return self._sharded_kv(
+            cfg, lambda lcfg, dev: llama_mod.PagedKVCache.create(
+                lcfg, batch, max_len, n_pages, page_size, dev, self.kv_dtype),
+            shape, llama_mod.paged_cache_specs()["k"], "paged_kv_arena")
 
     def weight_bytes(self) -> int:
         return param_bytes(self.params)
@@ -767,11 +995,14 @@ class GenerationEngine:
         return _model_info(self, "moe" if self.fam is moe_mod else "llama")
 
 
-def _quantize_by_slice(w: torch.Tensor, axis: int) -> quant.QuantizedTensor:
-    """`quant.quantize(w, axis)` computed one leading-axis slice at a time
-    for a stacked [L, K, N] leaf (a 2-D leaf in one piece)."""
+def _quantize_by_slice(w: torch.Tensor, axis: int,
+                       amax: Optional[torch.Tensor] = None
+                       ) -> quant.QuantizedTensor:
+    """`quant.quantize_with(w, axis, amax)` computed one leading-axis
+    slice at a time for a stacked [L, K, N] leaf (a 2-D leaf in one
+    piece). `amax`: the per-channel max of a sharded leaf, or None."""
     if w.dim() < 3:
-        return quant.quantize(w, axis=axis)
+        return quant.quantize_with(w, axis, amax)
     scale_shape = list(w.shape)
     scale_shape[axis] = 1
     out = quant.QuantizedTensor(
@@ -779,7 +1010,8 @@ def _quantize_by_slice(w: torch.Tensor, axis: int) -> quant.QuantizedTensor:
         scale=torch.empty(scale_shape, dtype=w.dtype, device=w.device),
     )
     for i in range(w.shape[0]):
-        part = quant.quantize(w[i], axis=axis)
+        part = quant.quantize_with(w[i], axis,
+                                   None if amax is None else amax[i])
         out.q[i] = part.q
         out.scale[i] = part.scale
         del part
@@ -824,9 +1056,10 @@ class EmbeddingEngine:
                 count_params(params) / 1e6,
             )
         self.params = params
+        self.mesh = mesh_mod.single_device_mesh(self.device)
         # The embed sidecar's one persistent allocation is its weights.
         obs = (serving or ServingConfig()).observability
-        self.ledger = MemoryLedger(self.device, obs.enabled)
+        self.ledger = MemoryLedger([self.device], obs.enabled)
         self.ledger.register("weights", lambda: self.params)
 
     def weight_bytes(self) -> int:
@@ -874,13 +1107,14 @@ class EmbeddingEngine:
 
 
 def _model_info(engine, family: str) -> dict:
+    mesh = engine.mesh
     return {
         "model_id": engine.cfg.name,
         "family": family,
         "num_params_million": int(count_params(engine.params) / 1e6),
         "max_seq_len": engine.cfg.max_seq_len,
         "dtype": engine.cfg.dtype,
-        "mesh": {},
-        "num_devices": 1,
+        "mesh": {a: n for a, n in mesh.shape.items() if n > 1},
+        "num_devices": mesh.size,
         "platform": engine.device.type,
     }

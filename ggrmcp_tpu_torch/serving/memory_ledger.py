@@ -11,9 +11,10 @@ holds. Port of `ggrmcp_tpu/serving/memory_ledger.py` for torch.
   an alias or a tensor reachable twice in one tree counts once, and a
   storage claimed by two components is attributed to the first and
   counted in `double_registered`.
-- `reconcile()` partitions the device's live bytes: `live` is
-  `torch.cuda.memory_allocated(device)` on CUDA and, on the CPU, a
-  census of the live tensors on that device by storage; `unattributed`
+- `reconcile()` partitions the devices' live bytes: `live` is the sum
+  of `torch.cuda.memory_allocated` over the mesh's distinct CUDA
+  devices and, on the CPU, a census of the live tensors there by
+  storage; `unattributed`
   is `live - attributed`, so attributed + unattributed == live by
   construction. Unattributed bytes are what no component claims: a
   tensor nobody registered, and on CUDA the caching allocator's
@@ -67,14 +68,16 @@ def _storage(t: torch.Tensor) -> Optional[tuple[int, int]]:
     return (s.data_ptr(), n) if n else None
 
 
-def _census(device: torch.device) -> dict[int, tuple[int, torch.Tensor]]:
+def _census(devices: list[torch.device]
+            ) -> dict[int, tuple[int, torch.Tensor]]:
     """data pointer -> (bytes, one tensor) of every distinct storage that
-    a live Python-visible tensor on `device` holds."""
+    a live Python-visible tensor on one of `devices` holds."""
     out: dict[int, tuple[int, torch.Tensor]] = {}
     for obj in gc.get_objects():
         # type(), not isinstance(): the latter reads `__class__`, which
         # some deprecated module proxies answer with a warning.
-        if not issubclass(type(obj), torch.Tensor) or obj.device != device:
+        if (not issubclass(type(obj), torch.Tensor)
+                or obj.device not in devices):
             continue
         key = _storage(obj)
         if key is not None and key[0] not in out:
@@ -83,11 +86,15 @@ def _census(device: torch.device) -> dict[int, tuple[int, torch.Tensor]]:
 
 
 class MemoryLedger:
-    """Registry of named persistent allocations for ONE engine on ONE
-    device and the batchers built over it (per-tier scopes)."""
+    """Registry of named persistent allocations for ONE engine on its
+    mesh's devices (one device, or each shard's; a device the mesh
+    names twice counts once) and the batchers built over it (per-tier
+    scopes)."""
 
-    def __init__(self, device: torch.device, enabled: bool = True):
-        self.device = torch.device(device)
+    def __init__(self, devices, enabled: bool = True):
+        if isinstance(devices, (str, torch.device)):
+            devices = [devices]
+        self.devices = list(dict.fromkeys(torch.device(d) for d in devices))
         self.enabled = bool(enabled)
         self._suppliers: dict[tuple[str, str], Callable[[], Any]] = {}
         self._host_suppliers: dict[tuple[str, str], Callable[[], Any]] = {}
@@ -116,13 +123,13 @@ class MemoryLedger:
 
     def component_storages(self) -> dict[tuple[str, str], dict[int, int]]:
         """(scope, component) -> {data pointer: bytes} of the distinct
-        storages on this ledger's device each supplier holds. Supplier
+        storages on this ledger's devices each supplier holds. Supplier
         errors are the owner's bug and propagate."""
         out = {}
         for key, supplier in self._suppliers.items():
             storages: dict[int, int] = {}
             for leaf in tensor_leaves(supplier()):
-                if leaf.device != self.device:
+                if leaf.device not in self.devices:
                     continue
                 st = _storage(leaf)
                 if st is not None:
@@ -178,15 +185,15 @@ class MemoryLedger:
                     continue
                 owner[ptr] = n
                 per_comp[key] += n
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        census = _census(self.device)
+        cuda = [d for d in self.devices if d.type == "cuda"]
+        for dev in cuda:
+            torch.cuda.synchronize(dev)
+        census = _census(self.devices)
         for ptr, n in owner.items():
             # A claimed storage is live whether or not the census saw it.
             census.setdefault(ptr, (n, None))
-        live = (int(torch.cuda.memory_allocated(self.device))
-                if self.device.type == "cuda"
-                else sum(n for n, _ in census.values()))
+        live = (sum(int(torch.cuda.memory_allocated(d)) for d in cuda)
+                if cuda else sum(n for n, _ in census.values()))
         attributed = sum(per_comp.values())
         unattributed = sorted(
             (

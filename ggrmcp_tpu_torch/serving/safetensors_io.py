@@ -6,6 +6,11 @@ JSON mapping each tensor name to `{"dtype", "shape", "data_offsets":
 [begin, end]}` (byte offsets into the data that follows the header),
 plus an optional `"__metadata__"`, then the raw little-endian bytes.
 
+`read_window` reads a [rows, cols] window of a 2-D tensor for a mesh
+shard (serving/weights.py `load_hf_checkpoint_sharded`): a row range
+as one contiguous mapping, a column range row block by row block, so
+the host never maps the whole tensor.
+
 Each read maps just that tensor's bytes copy-on-write
 (`mmap.ACCESS_COPY`, so `torch.frombuffer` reads them in place without a
 read-only warning), copies the tensor to its device and unmaps them
@@ -76,6 +81,12 @@ class SafetensorsFile:
         begin, end = e["data_offsets"]
         if end == begin:
             return torch.empty(e["shape"], dtype=dtype, device=device)
+        return self._read_span(begin, end, dtype, e["shape"],
+                               lambda view: view.to(device, copy=True))
+
+    def _read_span(self, begin: int, end: int, dtype, shape, take):
+        """Map data bytes [begin, end) copy-on-write, view them as
+        `shape`, return `take(view)` (which must copy) and unmap."""
         start = self._base + begin
         lo = start - start % mmap.ALLOCATIONGRANULARITY
         with mmap.mmap(self._fh.fileno(), self._base + end - lo, offset=lo,
@@ -83,10 +94,44 @@ class SafetensorsFile:
             view = torch.frombuffer(
                 mm, dtype=dtype, count=(end - begin) // dtype.itemsize,
                 offset=start - lo,
-            ).view(e["shape"])
-            out = view.to(device, copy=True)
+            ).view(shape)
+            out = take(view)
             del view  # releases the buffer export, so the map can close
         return out
+
+    def read_window(self, name: str, rows: slice, cols: slice, out,
+                    block_bytes: int = 64 << 20) -> int:
+        """Copy window [rows, cols] of 2-D tensor `name` (a 1-D one reads
+        as one row) into `out` (a tensor of the window's shape, any dtype
+        and device, the cast done by `copy_`). Whole rows are one
+        mapping; a column window maps blocks of whole rows of about
+        `block_bytes` each. Returns the bytes mapped."""
+        e = self.entries[name]
+        dtype = _DTYPES[e["dtype"]]
+        n_rows, n_cols = ([1] + e["shape"])[-2:]
+        r0, r1, _ = rows.indices(n_rows)
+        c0, c1, _ = cols.indices(n_cols)
+        row_bytes = n_cols * dtype.itemsize
+        begin = e["data_offsets"][0]
+        if tuple(out.shape) != (r1 - r0, c1 - c0):
+            # Checked before anything is mapped: a failing copy would
+            # leave a traceback holding a view of the unmapped bytes.
+            raise ValueError(
+                f"{name}: window [{r0}:{r1}, {c0}:{c1}] into a tensor of "
+                f"shape {tuple(out.shape)}")
+        if r1 <= r0 or c1 <= c0:
+            return 0
+        step = r1 - r0 if (c0, c1) == (0, n_cols) else max(
+            1, block_bytes // row_bytes)
+        for a in range(r0, r1, step):
+            b = min(a + step, r1)
+            self._read_span(
+                begin + a * row_bytes, begin + b * row_bytes, dtype,
+                (b - a, n_cols),
+                lambda view, a=a, b=b: out[a - r0:b - r0].copy_(
+                    view[:, c0:c1]),
+            )
+        return (r1 - r0) * row_bytes
 
     def close(self) -> None:
         self._fh.close()
@@ -136,6 +181,13 @@ class Checkpoint:
 
     def read(self, name: str, device) -> torch.Tensor:
         return self._files[self.weight_map[name]].read(name, device)
+
+    def shape(self, name: str) -> tuple[int, ...]:
+        return tuple(self._files[self.weight_map[name]].entries[name]["shape"])
+
+    def read_window(self, name: str, rows: slice, cols: slice, out) -> int:
+        return self._files[self.weight_map[name]].read_window(
+            name, rows, cols, out)
 
     def close(self) -> None:
         for f in self._files.values():

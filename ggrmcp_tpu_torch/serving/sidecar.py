@@ -72,6 +72,7 @@ from ggrmcp_tpu_torch.grammar import (
 )
 from ggrmcp_tpu_torch.models import get_model
 from ggrmcp_tpu_torch.ops.sampling import SamplingConfig
+from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
 from ggrmcp_tpu_torch.rpc.pb import serving_pb2
 from ggrmcp_tpu_torch.rpc.server_utils import (
     HealthService,
@@ -97,7 +98,7 @@ from ggrmcp_tpu_torch.serving.scheduler import retry_after_for
 from ggrmcp_tpu_torch.serving.spec_batcher import SpeculativeBatcher
 from ggrmcp_tpu_torch.serving.tiered import TieredBatcher
 from ggrmcp_tpu_torch.serving.tokenizer import ByteTokenizer, load_tokenizer
-from ggrmcp_tpu_torch.serving.weights import load_hf_checkpoint
+from ggrmcp_tpu_torch.serving.weights import load_hf_checkpoint_sharded
 from ggrmcp_tpu_torch.utils import failpoints, tracing
 from ggrmcp_tpu_torch.utils.device import DeviceLike
 
@@ -126,7 +127,12 @@ class Sidecar:
     architecture and the weights come from that checkpoint. With
     `serving.quantize="int8"` the weights reach the engine dense, loaded
     or drawn, and the engine quantizes them (the reference's order);
-    `serving.synthetic_weights` draws the int8 weights directly."""
+    `serving.synthetic_weights` draws the int8 weights directly.
+
+    The mesh (`mesh`, or `serving.mesh` over `device`'s platform) is
+    built first, as in the reference, so that a checkpoint loads each
+    shard straight onto its device (`load_hf_checkpoint_sharded`); the
+    engine shards random or given weights itself."""
 
     def __init__(
         self,
@@ -134,8 +140,11 @@ class Sidecar:
         params=None,
         seed: int = 0,
         device: DeviceLike = None,
+        mesh: Optional[mesh_mod.Mesh] = None,
     ):
         self.serving = serving or ServingConfig()
+        if mesh is None:
+            mesh = mesh_mod.serving_mesh(self.serving.mesh, device)
         self.tokenizer = load_tokenizer(self.serving.tokenizer_path)
         self.generation: Optional[GenerationEngine] = None
         self.embedding: Optional[EmbeddingEngine] = None
@@ -148,8 +157,8 @@ class Sidecar:
                     "pass params or serving.hf_checkpoint_path, not both"
                 )
             self.family = "llama"
-            model_cfg, params = load_hf_checkpoint(
-                self.serving.hf_checkpoint_path, device
+            model_cfg, params = load_hf_checkpoint_sharded(
+                self.serving.hf_checkpoint_path, mesh
             )
         else:
             self.family, model_cfg = get_model(self.serving.model)
@@ -157,7 +166,7 @@ class Sidecar:
         if self.family in ("llama", "moe"):
             self.generation = GenerationEngine(
                 model_cfg, self.serving, params=params, seed=seed,
-                device=device,
+                mesh=mesh,
             )
             make = (TieredBatcher if self.serving.batching.kv_tiers
                     else ContinuousBatcher)
@@ -176,8 +185,12 @@ class Sidecar:
                     eos_id=self.tokenizer.eos_id,
                 )
         else:
+            if mesh.size > 1:
+                raise ValueError(
+                    "the embedding engine on a mesh is not ported yet "
+                    "(ROADMAP A18b)")
             self.embedding = EmbeddingEngine(
-                model_cfg, params=params, seed=seed, device=device,
+                model_cfg, params=params, seed=seed, device=mesh.devices[0],
                 serving=self.serving,
             )
         self.server: Optional[grpc.aio.Server] = None

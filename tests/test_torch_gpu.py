@@ -14,7 +14,9 @@ threefry draws bit-identical on both, and speculative decoding (the
 the CPU) and the ring cache (whose steps never launch the kernel), and
 the sparse-MoE family (its FFN on the card against the CPU and, in
 bf16, against its float32 one-hot form; the batcher's routes against
-the CPU).
+the CPU), and tensor parallelism (the kernel at a tensor shard's head
+count; two shards on one card against one shard; eight, whose cache
+holds every KV head, still launching the kernel a shard).
 
 Every test needs an NVIDIA GPU with `nvcc` (the kernel has no CPU
 mode) and skips without one. This file imports no JAX, so it runs on a
@@ -1172,4 +1174,96 @@ async def test_moe_batcher_on_card_matches_cpu(cuda):
     out = await _serve(batcher, _prompts())
     assert out == ref
     assert batcher.chunked_admissions > 0 and batcher.fused_admissions > 0
+    assert tatt.flash_attention.launches > before
+
+
+def test_kernel_at_a_tensor_shard_shape(cuda):
+    """B1 at one of two tensor shards of llama3-8b (H 16, KVH 4, D 128),
+    bf16, from the shard's strided q view of its fused projection and
+    its own cache slice, against the plain version: one launch."""
+    b, s, h, kvh, d = 4, 256, 16, 4, 128
+    g = torch.Generator(device="cpu").manual_seed(23)
+    qkv = torch.randn((b, s, (h + 2 * kvh) * d), generator=g).to(
+        cuda, torch.bfloat16)
+    q = qkv[..., :h * d].reshape(b, s, h, d)
+    kc, vc = (torch.randn((b, s + 1, kvh, d), generator=g).to(
+        cuda, torch.bfloat16) for _ in range(2))
+    k, v = kc[:, :s], vc[:, :s]
+    kw = dict(causal=True,
+              q_offset=torch.zeros(b, dtype=torch.int32, device=cuda),
+              kv_len=torch.full((b,), s, dtype=torch.int32, device=cuda))
+    before = tatt.flash_attention.launches
+    out = tatt.flash_attention(q, k, v, **kw)
+    assert tatt.flash_attention.launches == before + 1
+    _assert_close(out, tatt.flash_attention_ref(q, k, v, **kw))
+
+
+async def test_tensor2_on_card_matches_tensor1(cuda):
+    """tiny-llama (float32), two tensor shards on one card against one
+    shard: prefill logits within 1e-4, B1 launching once a shard a layer,
+    and the batcher's fused and chunked admissions giving the same greedy
+    tokens; the mesh's identity in the stats."""
+    from ggrmcp_tpu_torch.core.config import MeshConfig
+    from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+
+    cfg = tl.CONFIGS["tiny-llama"]
+    params = tl.init_params(cfg, torch.device("cpu"), seed=29)
+    dev = torch.device("cuda", 0)
+    one = GenerationEngine(cfg, params=_to(params, dev),
+                           mesh=mesh_mod.build_mesh(MeshConfig(tensor=1),
+                                                    [dev]))
+    two = GenerationEngine(cfg, params=_to(params, dev),
+                           mesh=mesh_mod.build_mesh(MeshConfig(tensor=2),
+                                                    [dev, dev]))
+    toks = torch.tensor([_prompts()[4][:40]] * 2, device=dev)
+    want, _ = one.prefill_forward(one.params, toks, one.make_cache(2, 64))
+    before = tatt.flash_attention.launches
+    got, _ = two.prefill_forward(two.params, toks, two.make_cache(2, 64))
+    assert tatt.flash_attention.launches == before + 2 * cfg.num_layers
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    small = dict(max_batch_size=4, kv_cache_max_seq=256, prefill_chunk=16,
+                 max_queue_delay_ms=1000.0)
+    ref = await _serve(ContinuousBatcher(one, BatchingConfig(**small)),
+                       _prompts())
+    batcher = ContinuousBatcher(two, BatchingConfig(**small))
+    assert await _serve(batcher, _prompts()) == ref
+    assert batcher.chunked_admissions > 0 and batcher.fused_admissions > 0
+    stats = batcher.stats()
+    assert (stats["tp_chips"], stats["mesh_devices"], stats["mesh_shape"],
+            stats["mesh_spec_downgrades"]) == (2, 2, "tensor=2", 0)
+
+
+async def test_replicated_kv_shards_launch_the_kernel(cuda):
+    """tiny-llama (float32) at tensor=8 on one card: its 4 KV heads do not
+    split, so every shard's cache holds them all (a counted downgrade),
+    and each shard reads its own group's head through B1: one launch a
+    shard a layer, prefill logits within 1e-4 of one shard, and the
+    batcher's greedy tokens equal."""
+    from ggrmcp_tpu_torch.core.config import MeshConfig
+    from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+
+    cfg = tl.CONFIGS["tiny-llama"]
+    params = tl.init_params(cfg, torch.device("cpu"), seed=31)
+    dev = torch.device("cuda", 0)
+    one = GenerationEngine(cfg, params=_to(params, dev),
+                           mesh=mesh_mod.build_mesh(MeshConfig(tensor=1),
+                                                    [dev]))
+    eight = GenerationEngine(cfg, params=_to(params, dev),
+                             mesh=mesh_mod.build_mesh(MeshConfig(tensor=8),
+                                                      [dev] * 8))
+    toks = torch.tensor([_prompts()[4][:40]] * 2, device=dev)
+    want, _ = one.prefill_forward(one.params, toks, one.make_cache(2, 64))
+    cache = eight.make_cache(2, 64)
+    assert eight.spec_downgrades >= 1
+    before = tatt.flash_attention.launches
+    got, _ = eight.prefill_forward(eight.params, toks, cache)
+    assert tatt.flash_attention.launches == before + 8 * cfg.num_layers
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    small = dict(max_batch_size=4, kv_cache_max_seq=256, prefill_chunk=16,
+                 max_queue_delay_ms=1000.0)
+    ref = await _serve(ContinuousBatcher(one, BatchingConfig(**small)),
+                       _prompts())
+    before = tatt.flash_attention.launches
+    assert await _serve(ContinuousBatcher(eight, BatchingConfig(**small)),
+                        _prompts()) == ref
     assert tatt.flash_attention.launches > before

@@ -55,6 +55,8 @@ PORT_MODULES = (
     "ggrmcp_tpu_torch.ops.speculative", "ggrmcp_tpu_torch.ops.sampling",
     "ggrmcp_tpu_torch.serving.spec_batcher",
     "ggrmcp_tpu_torch.serving.tiered", "ggrmcp_tpu_torch.models.moe",
+    "ggrmcp_tpu_torch.parallel", "ggrmcp_tpu_torch.parallel.mesh",
+    "ggrmcp_tpu_torch.parallel.collectives",
 )
 
 

@@ -191,7 +191,7 @@ async def test_stats_sum_and_merge(engines):
     assert stats["kv_cache_bytes"] == tiered.cache_bytes()
     assert stats["memory_weights_bytes"] == per[0]["memory_weights_bytes"]
     assert stats["ttft_ms_count"] == len(MIX)
-    assert stats["mesh_shape"] == "cpu"
+    assert stats["mesh_shape"] == "single"  # the reference's one-device label
     serving_pb2.ServingStatsResponse(**stats)  # every key is a field
     ticks, requests = tiered.flight_snapshot()
     assert {t.source for t in ticks} == {"tier-64", "tier-256"}
