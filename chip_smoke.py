@@ -144,7 +144,32 @@ Phases, any failure exits non-zero and prints no result:
    the whole quantization's split; host RSS of both loads); (e) one
    mixtral-8x7b-width layer's FFN at expert=2 x tensor=2 (four shards)
    against the unsharded one at [32, 512] (the same routing, relative
-   L2). One card shows no speed-up and saves no memory.
+   L2). One card shows no speed-up and saves no memory;
+16. the co-launch at llama3-8b width (default batching): (a) the
+   sidecar in this process and the unchanged gateway of the JAX package
+   a child over a private unix socket (serving/launcher.py):
+   initialize, tools/list, a burst of 8 greedy tools/calls in one
+   admission round (B1 launches behind MCP; tokens equal to the same
+   burst sent straight to the socket), TTFT and latency through MCP
+   against gRPC; (b) 200 GetModelInfo tools/calls over the socket, then
+   over a pinned TCP port; (c) the sidecar's server stopped: the
+   supervisor's restart, the first good tools/call through the same
+   child, tokens against before, peak memory (one sidecar's); (d)
+   `python3 -m ggrmcp_tpu_torch gateway --model llama3-8b` as a
+   subprocess: seconds to healthy, one tools/call, the socket, SIGTERM
+   (exit 0, the socket and the child gone);
+17. sequence and pipeline parallelism, both shards of each mesh on the
+   card: (c) tiny-llama float32 at sequence 2 and 4 and stage 2 and 4,
+   card = CPU; (a) a 2048-token llama3-8b fresh prefill at sequence=2
+   through ring and Ulysses against sequence=1, held to twice a
+   same-run witness (B1 against the plain attention); (b) phase 5's
+   burst through sidecars at stage=1 and at stage=2 (16 layers a stage)
+   from one seeded tree: streams counted, tick p50, the mesh in
+   GetServingStats, peak memory. The sp attention and a stage's
+   attention are plain, as the reference's are: B1 launches in neither.
+
+`python3 chip_smoke.py --only 16,17` runs the card, the build and those
+phases and prints no result (fault-finding).
 
 The last lines are the kernels JSON line, the card line, and
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -4369,13 +4394,16 @@ async def _tp_serve(torch, tatt, dev, params, mesh, spec, tmp: str) -> dict:
     import grpc.aio
 
     from ggrmcp_tpu_torch import __main__ as cli
+    from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
     from ggrmcp_tpu_torch.serving.sidecar import Sidecar
 
-    path = os.path.join(tmp, f"tp{mesh.size}.json")
+    axes = {a: n for a, n in mesh.shape.items() if n > 1}
+    label = mesh_mod.mesh_shape_str(mesh)
+    path = os.path.join(tmp, f"mesh-{label}.json")
     with open(path, "w") as fh:
         json.dump({"serving": dict(
             model=spec["model"], batching=spec["batching"],
-            mesh=dict(tensor=mesh.shape["tensor"]))}, fh)
+            mesh={"tensor": 1, **axes})}, fh)
     serving = cli.serving_config(cli.build_parser().parse_args(
         ["sidecar", "--config", path]))
     side = Sidecar(serving, params=params, mesh=mesh)
@@ -4464,12 +4492,18 @@ async def _tp_serve(torch, tatt, dev, params, mesh, spec, tmp: str) -> dict:
     del side, batcher
     layers = engine.cfg.num_layers
     t = mesh.shape["tensor"]
-    log(f"  (c) serve at tensor={t}: "
+    log(f"  serve at {label}: "
         f"{json.dumps({k: v for k, v in res.items() if k not in ('engine', 'tokens_by_prompt')})}")
-    check(dev.type != "cuda" or 0 < res["launches"] == (
-        t * layers * res["prefills"]),
-          f"(c) B1 launched {res['launches']} times for {res['prefills']} "
-          f"prefill forwards at tensor={t} (want {t} a layer a forward)")
+    if mesh.shape["stage"] > 1:
+        # A stage's attention is pinned to the plain path.
+        check(res["launches"] == 0, f"B1 launched {res['launches']} times "
+              f"at {label}")
+    else:
+        check(dev.type != "cuda" or 0 < res["launches"] == (
+            t * layers * res["prefills"]),
+              f"(c) B1 launched {res['launches']} times for "
+              f"{res['prefills']} prefill forwards at tensor={t} (want {t} "
+              f"a layer a forward)")
     return res
 
 
@@ -4704,6 +4738,534 @@ async def tp_phase(torch, tatt, dev, spec=None) -> dict:
     return res
 
 
+# -- phase 16: the co-launch ---------------------------------------------------
+
+P16 = dict(model=MODEL, prompts=(64, 100, 200, 300, 500, 700, 1000, 1500),
+           new=SERVE_NEW_TOKENS, ttft_prompts=(64, 500, 1500), ttft_reps=3,
+           hop_calls=200, alone=(100, 1500))
+GENERATE_TOOL = "ggrmcp_tpu_generateservice_generate"
+INFO_TOOL = "ggrmcp_tpu_modelinfoservice_getmodelinfo"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mcp(port: int, method: str, params=None, timeout: float = 600):
+    """One JSON-RPC call to the gateway over urllib: (result, ms)."""
+    import urllib.request
+
+    body = {"jsonrpc": "2.0", "method": method, "id": 1}
+    if params is not None:
+        body["params"] = params
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        data = json.loads(resp.read())
+    ms = (time.perf_counter() - t) * 1e3
+    check("result" in data, f"{method}: {data}")
+    return data["result"], ms
+
+
+def _mcp_generate(port: int, text: str, max_new: int):
+    """(token ids, ms) of a greedy Generate tools/call."""
+    result, ms = _mcp(port, "tools/call", {
+        "name": GENERATE_TOOL, "arguments": {
+            "prompt": text, "maxNewTokens": max_new, "returnTokens": True}})
+    check(not result.get("isError"), f"tools/call failed: {result}")
+    return json.loads(result["content"][0]["text"])["tokenIds"], ms
+
+
+def _healthy(port: int) -> bool:
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health",
+                                    timeout=5) as resp:
+            return json.loads(resp.read()).get("status") == "healthy"
+    except OSError:
+        return False
+
+
+async def _until(pred, timeout: float, what: str) -> float:
+    """Seconds until `pred()` (run in a thread) holds."""
+    t = time.perf_counter()
+    while not await asyncio.to_thread(pred):
+        check(time.perf_counter() - t < timeout, what)
+        await asyncio.sleep(0.1)
+    return time.perf_counter() - t
+
+
+async def _direct(target: str, texts, max_new: int, batcher=None):
+    """Greedy Generates straight to the sidecar's socket, concurrently:
+    [(token ids, ms)]; `batcher` holds the round for the whole burst."""
+    import grpc.aio
+
+    if batcher is not None:
+        batcher.hold_for = len(texts)
+    async with grpc.aio.insecure_channel(target) as ch:
+        client = _ReuseClient(ch)
+        out = await asyncio.gather(*(client.generate(t, max_new)
+                                     for t in texts))
+    return [(ids, ms) for ids, _, ms in out]
+
+
+async def _mcp_burst(port: int, texts, max_new: int, batcher):
+    batcher.hold_for = len(texts)
+    return await asyncio.gather(*(
+        asyncio.to_thread(_mcp_generate, port, t, max_new) for t in texts))
+
+
+async def _hop(port: int, calls: int) -> dict:
+    """`calls` sequential GetModelInfo tools/calls (no model compute)."""
+    ms = []
+    t = time.perf_counter()
+    for _ in range(calls):
+        result, one = await asyncio.to_thread(
+            _mcp, port, "tools/call", {"name": INFO_TOOL, "arguments": {}})
+        check(not result.get("isError"), f"getmodelinfo failed: {result}")
+        ms.append(one)
+    wall = time.perf_counter() - t
+    return dict(calls=calls, calls_per_s=calls / wall, p50_ms=_median(ms),
+                max_ms=max(ms))
+
+
+def _colaunch_factory(torch, dev, serving, params=None):
+    """Sidecars of the co-launch: each one's batcher can hold a burst's
+    admission round (`hold_for`), so the MCP and the direct bursts are
+    admitted alike."""
+    from ggrmcp_tpu_torch.serving.sidecar import Sidecar
+
+    def make():
+        sidecar = Sidecar(serving(), params=params, seed=SEED, device=dev)
+        _hold_admission(sidecar.batcher)
+        return sidecar
+    return make
+
+
+def _gateway_pids(sock: str) -> list[int]:
+    pids = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as fh:
+                cmd = fh.read().split(b"\0")
+        except OSError:
+            continue
+        if b"ggrmcp_tpu" in cmd and f"unix:{sock}".encode() in cmd:
+            pids.append(int(pid))
+    return pids
+
+
+async def _cli_colaunch(torch, dev, spec, want: list, text: str) -> dict:
+    """(d) `python3 -m ggrmcp_tpu_torch gateway --model M --http-port P`
+    as a subprocess: seconds to healthy, one tools/call (the in-process
+    run's tokens: the same seed, the same card), the socket, SIGTERM."""
+    import signal
+    import tempfile
+
+    port = _free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryFile() as err:
+        t = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ggrmcp_tpu_torch", "gateway", "--model",
+             spec["model"], "--http-port", str(port)]
+            + (["--device", "cpu"] if dev.type == "cpu" else []),
+            cwd=here, stdout=subprocess.DEVNULL, stderr=err)
+        sock = os.path.join(tempfile.gettempdir(),
+                            f"ggrmcp-sidecar-{proc.pid}.sock")
+        res: dict = {}
+        try:
+            def ready():
+                if proc.poll() is not None:
+                    err.seek(0)
+                    raise SmokeError("the CLI co-launch died: " + err.read()
+                                     .decode(errors="replace")[-3000:])
+                return _healthy(port)
+            await _until(ready, 600, "(d) the CLI co-launch never healthy")
+            res["healthy_s"] = time.perf_counter() - t
+            ids, res["call_ms"] = await asyncio.to_thread(
+                _mcp_generate, port, text, spec["new"])
+            check(ids == want, "(d) the CLI co-launch's tokens differ from "
+                  "the in-process co-launch's on the same seed")
+            res["socket"] = os.path.exists(sock)
+            check(res["socket"], f"(d) no socket at {sock}")
+            gateways = _gateway_pids(sock)
+            check(len(gateways) == 1, f"(d) gateway processes {gateways}")
+        finally:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+            try:
+                code = proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                code = proc.wait()
+        err.seek(0)
+        check(code == 0, f"(d) exit {code} on SIGTERM: "
+              + err.read().decode(errors="replace")[-2000:])
+    res["exit_code"] = code
+    res["socket_removed"] = not os.path.exists(sock)
+    res["gateways_left"] = len(_gateway_pids(sock))
+    check(res["socket_removed"] and res["gateways_left"] == 0,
+          f"(d) SIGTERM left {res}")
+    return res
+
+
+async def colaunch_phase(torch, tatt, dev, spec=None) -> dict:
+    """Phase 16: (a) the co-launch in this process (the sidecar here,
+    the unchanged gateway a child) over a private socket: initialize,
+    tools/list, a burst of greedy tools/calls (B1 behind the MCP path;
+    tokens equal to the same burst sent straight to the socket), TTFT
+    and latency through MCP against gRPC; (b) the hop: GetModelInfo
+    tools/calls over the socket, then over a pinned TCP port; (c) a
+    sidecar death: restart, time to the first good tools/call through
+    the same child, tokens against before, peak memory; (d) the CLI."""
+    import dataclasses
+
+    from ggrmcp_tpu_torch.core.config import Config, ServingConfig
+    from ggrmcp_tpu_torch.serving import launcher
+
+    spec = spec or P16
+    t_phase = time.perf_counter()
+    res: dict = {}
+    texts = [_prompt_text(n, 1600 + i) for i, n in enumerate(spec["prompts"])]
+    alone = [_prompt_text(n, 1700 + n) for n in spec["alone"]]
+    # The gateway's rate limiter off: (b) makes 200 calls in a row.
+    sections = {"server": {"rate_limit": {"enabled": False}}}
+    cfg = Config(serving=ServingConfig(model=spec["model"]),
+                 sections=sections)
+    port = _free_port()
+    co = launcher.Colaunch(
+        cfg, ["--http-port", str(port)],
+        sidecar_factory=_colaunch_factory(torch, dev, lambda: cfg.serving))
+    launcher.resolve_colaunch_transport(cfg)
+    sock = cfg.serving.uds_path
+    t = time.perf_counter()
+    await co.start()
+    try:
+        res["healthy_s"] = time.perf_counter() - t + await _until(
+            lambda: _healthy(port), 300, "(a) the gateway never healthy")
+        check(co.target == f"unix:{sock}" and os.path.exists(sock),
+              f"(a) sidecar target {co.target}")
+        init, _ = await asyncio.to_thread(_mcp, port, "initialize", {})
+        tools = {x["name"] for x in
+                 (await asyncio.to_thread(_mcp, port, "tools/list"))[0]
+                 ["tools"]}
+        check(GENERATE_TOOL in tools, f"(a) tools/list: {sorted(tools)}")
+        res["tools"] = len(tools)
+        await asyncio.to_thread(_mcp_generate, port, texts[0], 2)  # warm
+
+        # The main path: a burst of greedy tools/calls in one round. (No
+        # local names the batcher: a frame's stale locals could keep the
+        # dead sidecar's engine alive across the restart in (c).)
+        def routes():
+            b = co.sidecar.batcher
+            return b.fused_admissions, b.chunked_admissions
+        tatt.flash_attention.launches = 0
+        fused, chunked = routes()
+        t = time.perf_counter()
+        mcp = await _mcp_burst(port, texts, spec["new"], co.sidecar.batcher)
+        burst_s = time.perf_counter() - t
+        res["colaunch_launches"] = tatt.flash_attention.launches
+        check(res["colaunch_launches"] > 0 or dev.type == "cpu",
+              "(a) B1 never launched behind the MCP burst")
+        check(routes()[0] > fused and routes()[1] > chunked,
+              "(a) the MCP burst did not take both admission routes")
+        direct = await _direct(co.target, texts, spec["new"],
+                               co.sidecar.batcher)
+        same = [m[0] == d[0] for m, d in zip(mcp, direct)]
+        check(all(same), f"(a) MCP tokenIds differ from direct gRPC's "
+              f"for {same.count(False)} of {len(same)} prompts")
+        for ids, _ in mcp:
+            check(1 <= len(ids) <= spec["new"], f"(a) completion {ids}")
+        res["burst"] = dict(
+            requests=len(texts), identical=sum(same),
+            mcp_wall_s=burst_s,
+            mcp_latency_p50_ms=_median(ms for _, ms in mcp),
+            direct_latency_p50_ms=_median(ms for _, ms in direct),
+            tok_per_s=sum(len(ids) for ids, _ in mcp) / burst_s)
+        ttft = {"mcp": {}, "direct": {}}
+        for n in spec["ttft_prompts"]:
+            text = _prompt_text(n, 1800 + n)
+            ttft["mcp"][n] = _median([(await asyncio.to_thread(
+                _mcp_generate, port, text, 1))[1]
+                for _ in range(spec["ttft_reps"])])
+            ttft["direct"][n] = _median([(await _direct(co.target, [text], 1))
+                                      [0][1]
+                                      for _ in range(spec["ttft_reps"])])
+        res["ttft_ms"] = ttft
+        before = [(await asyncio.to_thread(_mcp_generate, port, x,
+                                           spec["new"]))[0] for x in alone]
+        log(f"  (a) {json.dumps(res)}")
+
+        res["hop_uds"] = await _hop(port, spec["hop_calls"])
+        log(f"  (b) UDS hop: {json.dumps(res['hop_uds'])}")
+
+        # (c) A death: the sidecar's server stops under the gateway.
+        held_gb = None
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held_gb = torch.cuda.memory_allocated() / 1e9
+        dead = co.sidecar
+        t = time.perf_counter()
+        await dead.server.stop(None)
+        del dead
+        await _until(lambda: co.restarts == 1, 600,
+                     "(c) the sidecar was never restarted")
+        restart_s = time.perf_counter() - t
+
+        def served():
+            try:
+                return _mcp_generate(port, alone[0], spec["new"])[0]
+            except (OSError, SmokeError):
+                return None
+        await _until(lambda: served() is not None, 300,
+                     "(c) no tools/call succeeded after the restart")
+        recover_s = time.perf_counter() - t
+        after = [(await asyncio.to_thread(_mcp_generate, port, x,
+                                          spec["new"]))[0] for x in alone]
+        check(after == before, "(c) tokens after the restart differ")
+        check(co.child.returncode is None, "(c) the gateway child exited")
+        res["restart"] = dict(
+            restart_s=restart_s, first_good_call_s=recover_s,
+            tokens_equal=after == before, restarts=co.restarts,
+            allocated_before_gb=held_gb,
+            max_memory_allocated_gb=(torch.cuda.max_memory_allocated() / 1e9
+                                     if dev.type == "cuda" else None),
+            backoff_base_s=cfg.fleet.backoff_base_s)
+        if dev.type == "cuda":
+            # The dead engine is freed before the replacement is built:
+            # the restart never holds two models.
+            check(res["restart"]["max_memory_allocated_gb"]
+                  <= 1.25 * held_gb, f"(c) peak across the restart "
+                  f"{res['restart']}: the dead sidecar was not freed")
+        log(f"  (c) {json.dumps(res['restart'])}")
+        params = co.sidecar.generation.params
+    finally:
+        await co.stop()
+    check(not os.path.exists(sock) and co.child.returncode is not None,
+          "(a) stop left the socket or the child")
+
+    # (b) The same hop with the sidecar on a pinned TCP port (the same
+    # weights, no second draw).
+    tcp = Config(serving=dataclasses.replace(cfg.serving, uds_path="",
+                                             port=_free_port()),
+                 sections=sections)
+    port2 = _free_port()
+    co2 = launcher.Colaunch(
+        tcp, ["--http-port", str(port2)],
+        sidecar_factory=_colaunch_factory(torch, dev, lambda: tcp.serving,
+                                          params))
+    launcher.resolve_colaunch_transport(tcp)
+    check(tcp.serving.uds_path == "", "(b) a pinned port took the UDS")
+    await co2.start()
+    try:
+        await _until(lambda: _healthy(port2), 300, "(b) TCP gateway")
+        check(co2.target.startswith("localhost:"), f"(b) {co2.target}")
+        res["hop_tcp"] = await _hop(port2, spec["hop_calls"])
+    finally:
+        await co2.stop()
+    log(f"  (b) TCP hop: {json.dumps(res['hop_tcp'])}")
+    del params
+    _free(torch, dev)
+
+    res["cli"] = await _cli_colaunch(torch, dev, spec, before[0], alone[0])
+    log(f"  (d) {json.dumps(res['cli'])}")
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+# -- phase 17: sequence- and pipeline-parallel serving -------------------------
+
+P17 = dict(model=MODEL, sp_prefill=(1, 2048), sequence=2, stage=2,
+           prompts=SERVE_PROMPT_TOKENS, new=SERVE_NEW_TOKENS, batching={},
+           tiny="tiny-llama", tiny_meshes=(("sequence", 2), ("sequence", 4),
+                                           ("stage", 2), ("stage", 4)))
+# (a) The 2048-token prefill at sequence=2 against sequence=1 with B1,
+# held to twice a same-run witness (sequence=1 through its plain
+# attention against B1), with top-1 agreement >= 0.9: phase 15's rule.
+SP_PREFILL_WITNESS = 2.0
+SP_PREFILL_TOP1 = 0.9
+# (c) tiny-llama float32 on the card against the CPU, same mesh.
+PP_TINY_ATOL = 1e-5
+
+
+def _shallow(params):
+    """A tree of the same tensors in new dicts: an engine that shards its
+    tree in place leaves the caller's whole."""
+    return {k: dict(v) if isinstance(v, dict) else v
+            for k, v in params.items()}
+
+
+def _tiny_sp_pp_check(torch, tatt, dev, spec) -> dict:
+    """(c) tiny-llama float32 on sequence and stage meshes: the card
+    against the CPU (a [2, 128] fresh prefill's logits, greedy tokens)."""
+    import numpy as np
+
+    from ggrmcp_tpu_torch.core.config import MeshConfig, ServingConfig
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+    from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+
+    cfg = llama_mod.CONFIGS[spec["tiny"]]
+    cpu = torch.device("cpu")
+    params = llama_mod.init_params(cfg, cpu, SEED + 17)
+    rng = np.random.default_rng(SEED + 17)
+    toks = torch.from_numpy(rng.integers(3, 500, (2, 128)))
+    prompts = [rng.integers(3, 500, n).tolist() for n in (7, 70, 100)]
+    res = {}
+    for axis, n in spec["tiny_meshes"]:
+        mcfg = MeshConfig(tensor=1, **{axis: n})
+        serving = ServingConfig(mesh=mcfg, sp_prefill_min_seq=64)
+        engines = [GenerationEngine(
+            cfg, serving, params=_to(params, d),
+            mesh=mesh_mod.build_mesh(mcfg, [d] * n)) for d in (cpu, dev)]
+        check(bool(engines[1].sp_prefill) == (axis == "sequence")
+              and engines[1].pp_serving == (axis == "stage"),
+              f"(c) {axis}={n}: sp {engines[1].sp_prefill!r}, pp "
+              f"{engines[1].pp_serving}")
+        logits = []
+        for eng in engines:
+            with torch.no_grad():
+                out, _ = eng.prefill_forward(
+                    eng.params, toks.to(eng.device), eng.make_cache(2, 128))
+            logits.append(out.cpu())
+        err = (logits[1] - logits[0]).abs().max().item()
+        check(err <= PP_TINY_ATOL, f"(c) {cfg.name} {axis}={n} card vs cpu "
+              f"logits {err} > {PP_TINY_ATOL}")
+        outs = [eng.generate(prompts, 16) for eng in engines]
+        check(outs[1] == outs[0], f"(c) {cfg.name} {axis}={n} greedy "
+              f"tokens card vs cpu differ")
+        res[f"{axis}={n}"] = dict(logits_max_abs_err=err,
+                                  greedy_identical=True)
+    return res
+
+
+def _sp_prefill_check(torch, tatt, dev, params, spec) -> dict:
+    """(a) The [1, 2048] fresh prefill at sequence=2 (both shards on the
+    card) through ring and through Ulysses, against sequence=1 with B1,
+    held to twice the witness; each prefill timed (the second of two)."""
+    from ggrmcp_tpu_torch.core.config import MeshConfig, ServingConfig
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+    from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+
+    cfg = llama_mod.CONFIGS[spec["model"]]
+    n = spec["sequence"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    toks = torch.randint(3, cfg.vocab_size, spec["sp_prefill"], generator=gen,
+                         device=dev)
+
+    def prefill(engine, **kw):
+        out = ms = None
+        for _ in range(2):
+            out = None
+            cache = engine.make_cache(*toks.shape)
+            _sync(torch, dev)
+            t = time.perf_counter()
+            with torch.no_grad():
+                if kw:
+                    out, _ = llama_mod.forward(engine.params, cfg, toks,
+                                               cache, **kw)
+                else:
+                    out, _ = engine.prefill_forward(engine.params, toks,
+                                                    cache)
+            _sync(torch, dev)
+            ms = (time.perf_counter() - t) * 1e3
+        return out, ms
+
+    one = GenerationEngine(cfg, params=_shallow(params),
+                           mesh=mesh_mod.build_mesh(MeshConfig(tensor=1),
+                                                    [dev]))
+    want, b1_ms = prefill(one)
+    plain, plain_ms = prefill(one, use_flash=False)
+    witness = _rel_top1(torch, plain, want)
+    del plain, one
+    res = dict(sequence1_b1_ms=b1_ms, sequence1_plain_ms=plain_ms,
+               witness_rel_err=witness[0], witness_top1_agree=witness[1],
+               bound=SP_PREFILL_WITNESS * witness[0])
+    tatt.flash_attention.launches = 0
+    for mode in ("ring", "ulysses"):
+        mcfg = MeshConfig(tensor=1, sequence=n)
+        eng = GenerationEngine(
+            cfg, ServingConfig(mesh=mcfg, sp_prefill=mode),
+            params=_shallow(params),
+            mesh=mesh_mod.build_mesh(mcfg, [dev] * n))
+        check(eng.sp_prefill == mode, f"(a) sp_prefill {eng.sp_prefill!r}")
+        got, ms = prefill(eng)
+        del eng
+        rel, agree = _rel_top1(torch, got, want)
+        del got
+        check(rel <= res["bound"], f"(a) {mode} at sequence={n} vs 1: rel "
+              f"err {rel} > {SP_PREFILL_WITNESS} x the witness's "
+              f"{witness[0]}")
+        check(agree >= SP_PREFILL_TOP1, f"(a) {mode}: top-1 {agree}")
+        res[mode] = dict(ms=ms, logits_rel_err=rel, top1_agree=agree)
+    res["sp_launches"] = tatt.flash_attention.launches
+    del want
+    _free(torch, dev)
+    return res
+
+
+async def sp_pp_phase(torch, tatt, dev, spec=None) -> dict:
+    """Phase 17: (c) tiny-llama float32 at sequence 2 and 4 and stage 2
+    and 4, card = CPU; (a) a 2048-token llama3-8b prefill at sequence=2
+    through ring and Ulysses against sequence=1; (b) phase 5's burst
+    through sidecars at stage=1 and then, on the same seeded tree sharded
+    in place, at stage=2 (16 layers a stage, both on the card)."""
+    import tempfile
+
+    from ggrmcp_tpu_torch.core.config import MeshConfig
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+
+    spec = spec or P17
+    t_phase = time.perf_counter()
+    res: dict = {"tiny": _tiny_sp_pp_check(torch, tatt, dev, spec)}
+    log(f"  (c) {spec['tiny']} card vs cpu: {json.dumps(res['tiny'])}")
+    cfg = llama_mod.CONFIGS[spec["model"]]
+    params = llama_mod.init_params(cfg, dev, SEED)
+    res["sp"] = _sp_prefill_check(torch, tatt, dev, params, spec)
+    log(f"  (a) {json.dumps(res['sp'])}")
+    st = spec["stage"]
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        runs = {}
+        for n in (1, st):
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            mesh = mesh_mod.build_mesh(MeshConfig(tensor=1, stage=n),
+                                       [dev] * n)
+            runs[n] = await _tp_serve(torch, tatt, dev, params, mesh, spec,
+                                      tmp)
+            runs[n].pop("engine")
+            _free(torch, dev)
+        del params
+    a, b = runs[1], runs[st]
+    check(b["mesh"]["mesh_shape"] == f"stage={st}"
+          and a["mesh"]["mesh_shape"] == "single",
+          f"(b) GetServingStats mesh {a['mesh']} / {b['mesh']}")
+    res["pp"] = {str(k): {x: y for x, y in v.items()
+                          if x != "tokens_by_prompt"}
+                 for k, v in runs.items()}
+    res["pp"]["streams"] = _agreement(b["tokens_by_prompt"],
+                                      a["tokens_by_prompt"])
+    res["pp_launches"] = b["launches"]
+    log(f"  (b) streams stage={st} vs 1: {json.dumps(res['pp']['streams'])}")
+    _free(torch, dev)
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def _free(torch, dev) -> None:
     gc.collect()
     if dev.type == "cuda":
@@ -4745,94 +5307,142 @@ def main() -> int:
               file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
+    # `--only 16,17` (fault-finding): the card, the build and those
+    # phases, then no result lines.
+    only = None
+    if sys.argv[1:2] == ["--only"]:
+        only = {int(x) for x in sys.argv[2].split(",")}
+
+    def run(n: int) -> bool:
+        return only is None or n in only
+
+    def tidy() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
     t_start = time.perf_counter()
     try:
         card = card_line()
-        log(f"[1/15] card: {card}; torch {torch.__version__}, CUDA "
+        log(f"[1/17] card: {card}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
         t = time.perf_counter()
         _build.load("flash_attention")
-        log(f"[2/15] build: flash_attention.cu in "
+        log(f"[2/17] build: flash_attention.cu in "
             f"{time.perf_counter() - t:.1f} s")
         ptxas_report(_build.build_log.get("flash_attention", ""))
 
-        log(f"[3/15] kernel vs plain (|err| <= atol + rtol |plain|: {TOL})")
-        cases = kernel_cases(torch, tatt, dev)
+        if run(3):
+            log(f"[3/17] kernel vs plain (|err| <= atol + rtol |plain|: "
+                f"{TOL})")
+            cases = kernel_cases(torch, tatt, dev)
 
-        log("[4/15] reference: tiny-llama on the card vs the CPU")
-        ref = tiny_reference(torch, dev)
-        log(f"  {ref}")
+        if run(4):
+            log("[4/17] reference: tiny-llama on the card vs the CPU")
+            ref = tiny_reference(torch, dev)
+            log(f"  {ref}")
 
-        log(f"[5/15] serve: {MODEL} sidecar, default batching")
-        serve = asyncio.run(serve_phase(torch, tatt, dev))
-        log(f"  {json.dumps(serve)}")
-        gc.collect()
-        torch.cuda.empty_cache()
+        if run(5):
+            log(f"[5/17] serve: {MODEL} sidecar, default batching")
+            serve = asyncio.run(serve_phase(torch, tatt, dev))
+            log(f"  {json.dumps(serve)}")
+            tidy()
 
-        log(f"[6/15] embed: {EMBED_MODEL} sidecar")
-        embed = asyncio.run(embed_phase(torch, tatt, dev))
-        log(f"  {json.dumps(embed)}")
-        gc.collect()
-        torch.cuda.empty_cache()
+        if run(6):
+            log(f"[6/17] embed: {EMBED_MODEL} sidecar")
+            embed = asyncio.run(embed_phase(torch, tatt, dev))
+            log(f"  {json.dumps(embed)}")
+            tidy()
 
-        log("[7/15] HF checkpoint: llama3-8b width, 2 layers, 2 files")
-        hf = asyncio.run(hf_phase(torch, tatt, dev))
-        log(f"  {json.dumps(hf)}")
-        gc.collect()
-        torch.cuda.empty_cache()
+        if run(7):
+            log("[7/17] HF checkpoint: llama3-8b width, 2 layers, 2 files")
+            hf = asyncio.run(hf_phase(torch, tatt, dev))
+            log(f"  {json.dumps(hf)}")
+            tidy()
 
-        log(f"[8/15] int8: {MODEL} weights and KV cache")
-        int8 = asyncio.run(int8_phase(torch, tatt, dev))
-        gc.collect()
-        torch.cuda.empty_cache()
+        if run(8):
+            log(f"[8/17] int8: {MODEL} weights and KV cache")
+            int8 = asyncio.run(int8_phase(torch, tatt, dev))
+            tidy()
 
-        log(f"[9/15] KV reuse: {MODEL} prefix pool, interleave, paged KV")
-        reuse = asyncio.run(kv_reuse_phase(torch, tatt, dev))
-        gc.collect()
-        torch.cuda.empty_cache()
+        if run(9):
+            log(f"[9/17] KV reuse: {MODEL} prefix pool, interleave, "
+                f"paged KV")
+            reuse = asyncio.run(kv_reuse_phase(torch, tatt, dev))
+            tidy()
 
-        log(f"[10/15] grammar: {MODEL} constrained burst, jump on / off")
-        grammar = asyncio.run(grammar_phase(torch, tatt, dev))
-        log(f"  {json.dumps(_brief(grammar))}")
-        gc.collect()
-        torch.cuda.empty_cache()
+        if run(10):
+            log(f"[10/17] grammar: {MODEL} constrained burst, jump on / "
+                f"off")
+            grammar = asyncio.run(grammar_phase(torch, tatt, dev))
+            log(f"  {json.dumps(_brief(grammar))}")
+            tidy()
 
-        log(f"[11/15] control plane: {MODEL} tick phases, Profile, "
-            f"GetMemory, scheduler, failpoints, deadlines")
-        control = asyncio.run(control_phase(torch, tatt, dev))
-        gc.collect()
-        torch.cuda.empty_cache()
+        if run(11):
+            log(f"[11/17] control plane: {MODEL} tick phases, Profile, "
+                f"GetMemory, scheduler, failpoints, deadlines")
+            control = asyncio.run(control_phase(torch, tatt, dev))
+            tidy()
 
-        log(f"[12/15] paged plane and LoRA: {MODEL} host tier, TransferKV "
-            f"with roles, adapter arena, preemption with the host tier")
-        paged = asyncio.run(paged_lora_phase(torch, tatt, dev))
-        gc.collect()
-        torch.cuda.empty_cache()
+        if run(12):
+            log(f"[12/17] paged plane and LoRA: {MODEL} host tier, "
+                f"TransferKV with roles, adapter arena, preemption with "
+                f"the host tier")
+            paged = asyncio.run(paged_lora_phase(torch, tatt, dev))
+            tidy()
 
-        t = time.perf_counter()
-        log(f"[13/15] speculative decoding, ring KV, tiers: "
-            f"{P13['model']} with the {P13['draft']} draft")
-        p13 = asyncio.run(spec_ring_tier_phase(torch, tatt, dev))
-        log(f"  phase 13: {time.perf_counter() - t:.1f} s, "
-            f"{p13['launches']} B1 launches")
+        if run(13):
+            t = time.perf_counter()
+            log(f"[13/17] speculative decoding, ring KV, tiers: "
+                f"{P13['model']} with the {P13['draft']} draft")
+            p13 = asyncio.run(spec_ring_tier_phase(torch, tatt, dev))
+            log(f"  phase 13: {time.perf_counter() - t:.1f} s, "
+                f"{p13['launches']} B1 launches")
 
-        log(f"[14/15] sparse MoE: {P14['model']} cut to {P14['layers']} "
-            f"layers, bf16")
-        p14 = asyncio.run(moe_phase(torch, tatt, dev))
-        log(f"  phase 14: {p14['seconds']:.1f} s, {p14['launches']} B1 "
-            f"launches, peak {p14['max_memory_allocated_gb']:.2f} GB")
-        _free(torch, dev)
+        if run(14):
+            log(f"[14/17] sparse MoE: {P14['model']} cut to "
+                f"{P14['layers']} layers, bf16")
+            p14 = asyncio.run(moe_phase(torch, tatt, dev))
+            log(f"  phase 14: {p14['seconds']:.1f} s, {p14['launches']} B1 "
+                f"launches, peak {p14['max_memory_allocated_gb']:.2f} GB")
+            _free(torch, dev)
 
-        log(f"[15/15] tensor and expert parallelism: {P15['model']} at "
-            f"tensor={P15['tensor']} on one card, the sharded loader, "
-            f"{P15['moe']} at expert=2 x tensor=2")
-        p15 = asyncio.run(tp_phase(torch, tatt, dev))
-        log(f"  phase 15: {p15['seconds']:.1f} s, {p15['launches']} B1 "
-            f"launches at tensor={P15['tensor']}")
+        if run(15):
+            log(f"[15/17] tensor and expert parallelism: {P15['model']} "
+                f"at tensor={P15['tensor']} on one card, the sharded "
+                f"loader, {P15['moe']} at expert=2 x tensor=2")
+            p15 = asyncio.run(tp_phase(torch, tatt, dev))
+            log(f"  phase 15: {p15['seconds']:.1f} s, {p15['launches']} B1 "
+                f"launches at tensor={P15['tensor']}")
+            _free(torch, dev)
+
+        if run(16):
+            log(f"[16/17] co-launch: {P16['model']} sidecar in this "
+                f"process, the unchanged gateway a child, over a private "
+                f"socket")
+            p16 = asyncio.run(colaunch_phase(torch, tatt, dev))
+            log(f"  phase 16: {p16['seconds']:.1f} s, "
+                f"{p16['colaunch_launches']} B1 launches behind MCP")
+            _free(torch, dev)
+
+        if run(17):
+            log(f"[17/17] sequence- and pipeline-parallel serving: "
+                f"{P17['model']} at sequence={P17['sequence']} and "
+                f"stage={P17['stage']}, every shard on one card")
+            p17 = asyncio.run(sp_pp_phase(torch, tatt, dev))
+            log(f"  phase 17: {p17['seconds']:.1f} s; B1 launches: "
+                f"{p17['sp']['sp_launches']} in the sp prefills, "
+                f"{p17['pp_launches']} at stage={P17['stage']} (a stage's "
+                f"attention and the sp attention are plain, as the "
+                f"reference's are)")
+            _free(torch, dev)
     except SmokeError as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
+    if only is not None:
+        log(f"partial run of phases {sorted(only)}: "
+            f"{time.perf_counter() - t_start:.1f} s, no result")
+        return 0
 
     head = next(c for c in cases if c["name"] == HEADLINE)
     kernels = [dict(
@@ -4868,6 +5478,8 @@ def main() -> int:
         tp_downgrade_launches=p15["tiny"][
             f"tensor={P15['tiny_downgrade']}"]["launches"],
         tp_burst_launches=p15["serve"][str(P15["tensor"])]["burst_launches"],
+        colaunch_launches=p16["colaunch_launches"],
+        sp_launches=p17["sp"]["sp_launches"], pp_launches=p17["pp_launches"],
         shard_case=p15["kernel"]["name"], shard_ms=p15["kernel"]["ms"],
         shard_bound_ms=p15["kernel"]["bound_ms"],
         shard_library_ms=p15["kernel"]["library_ms"],

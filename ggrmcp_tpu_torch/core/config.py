@@ -5,16 +5,19 @@ this package reads, under the reference's names and defaults
 (`ggrmcp_tpu/core/config.py`), with the reference's checks. Fields of
 features the port does not implement yet are carried only as guards: a
 non-default value raises ValueError naming the field, never silently
-ignored. `load_serving_config` reads the reference's JSON config file
-layout (everything under "serving") into these classes.
+ignored. `load` reads a whole reference config file (JSON, or YAML with
+PyYAML) and the GGRMCP_SERVING_* / GGRMCP_FLEET_* environment over it:
+`serving` and the fleet's restart knobs into these classes, the
+gateway's sections verbatim.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Optional
 
 # Weight and KV-cache quantization modes ("" = the model dtype).
 QUANTIZE_MODES = ("", "int8")
@@ -508,9 +511,7 @@ class LoraConfig:
 
 # Mesh axes the port does not shard yet, and the ROADMAP item that
 # ports each: a resolved size above 1 raises, never replicates.
-UNPORTED_MESH_AXES = {
-    "data": "A18b", "fsdp": "A18b", "sequence": "A19b", "stage": "A19b",
-}
+UNPORTED_MESH_AXES = {"data": "A18b", "fsdp": "A18b"}
 
 
 @dataclass
@@ -536,15 +537,15 @@ class MeshConfig:
 
 
 def check_mesh_axes(sizes: dict) -> None:
-    """Refuse a data, fsdp, sequence or stage axis above 1 (explicit in a
-    config, or resolved by parallel/mesh.py), naming the ROADMAP item
-    that ports it."""
+    """Refuse a data or fsdp axis above 1 (explicit in a config, or
+    resolved by parallel/mesh.py), naming the ROADMAP item that ports
+    it."""
     for axis, item in UNPORTED_MESH_AXES.items():
         if sizes.get(axis, 1) > 1:
             raise ValueError(
                 f"serving.mesh.{axis}={sizes[axis]} is not served by the "
                 f"PyTorch port yet (ROADMAP {item}); it shards over "
-                f"tensor and expert only"
+                f"tensor, sequence, expert and stage only"
             )
 
 
@@ -603,15 +604,29 @@ class ServingConfig:
     # off, draft-eligible unary calls take serving/spec_batcher.py.
     speculative_draft: str = ""
     speculative_gamma: int = 4
+    # Accepted and read nowhere, as in the reference: the weights' dtype
+    # is the model config's.
+    dtype: str = "bfloat16"
+    # Unix-domain-socket listen path: when set, the sidecar binds
+    # `unix:{uds_path}` only (no TCP socket). The co-launch
+    # (serving/launcher.py) picks a private one unless `colaunch_uds` is
+    # off or `port` is pinned.
+    uds_path: str = ""
+    colaunch_uds: bool = True
+    # With hf_checkpoint_path naming an ABSENT directory: serve `model`
+    # with random weights and a loud warning instead of failing start.
+    hf_checkpoint_optional: bool = False
+    # Sequence-parallel fresh prefill over the mesh's `sequence` axis
+    # ("ring" | "ulysses" | "" = off), for prompts of at least
+    # sp_prefill_min_seq tokens.
+    sp_prefill: str = "ring"
+    sp_prefill_min_seq: int = 1024
     # Guards: reference features not ported yet (the draft checkpoint
     # restores through Orbax, like checkpoint_path).
-    uds_path: str = ""
     checkpoint_path: str = ""
     speculative_draft_checkpoint: str = ""
 
-    UNSUPPORTED = (
-        "uds_path", "checkpoint_path", "speculative_draft_checkpoint",
-    )
+    UNSUPPORTED = ("checkpoint_path", "speculative_draft_checkpoint")
 
     def __post_init__(self) -> None:
         _check_unsupported(self, self.UNSUPPORTED, "serving")
@@ -695,6 +710,18 @@ class ServingConfig:
                     "kv_ring does not compose with the prefix pool "
                     "(pooled prefixes assume a contiguous layout)"
                 )
+        if self.sp_prefill not in ("", "ring", "ulysses"):
+            raise ValueError(
+                f"unknown serving.sp_prefill {self.sp_prefill!r}; "
+                f"supported: 'ring', 'ulysses'"
+            )
+        if len(self.uds_path.encode()) > 100:
+            # AF_UNIX sun_path caps at ~108 bytes: fail at parse time,
+            # not as an opaque bind error after the model loads.
+            raise ValueError(
+                f"serving.uds_path too long for AF_UNIX "
+                f"({len(self.uds_path.encode())} > 100 bytes)"
+            )
         if self.num_layers < 0:
             raise ValueError("serving.num_layers must be >= 0")
         if self.num_layers and (self.checkpoint_path
@@ -740,28 +767,190 @@ def _from_dict(cls, data: Any, where: str, nested: dict):
     return cls(**kwargs)
 
 
-def serving_config_from_dict(data: dict) -> ServingConfig:
-    """{"serving": {..., "batching": {...}, "grammar": {...},
-    "observability": {...}, "slo": {...}, "scheduler": {...},
-    "lora": {...}, "mesh": {...}}} →
-    ServingConfig. Any key these classes do not carry raises ValueError
-    naming it."""
+# Top-level sections of a reference config file that the gateway reads:
+# the co-launch hands them to the gateway process verbatim (it validates
+# them); the sidecar alone ignores them.
+GATEWAY_SECTIONS = ("server", "grpc", "logging", "mcp", "metrics",
+                    "session", "tools", "gateway", "training")
+
+
+@dataclass
+class FleetConfig:
+    """The reference's fleet restart knobs, with its checks: the
+    co-launch's supervisor (serving/launcher.py) restarts a dead sidecar
+    after min(backoff_max_s, backoff_base_s * 2^attempt) * (1 + jitter *
+    U) seconds, at most restart_max_attempts times. The rest of a fleet
+    section is the gateway's (its replica fleet, `enabled`, which the
+    port does not run: a true value raises)."""
+
+    backoff_base_s: float = 1.0
+    backoff_max_s: float = 60.0
+    backoff_jitter: float = 0.2
+    restart_max_attempts: int = 5
+
+    def __post_init__(self) -> None:
+        if self.backoff_base_s <= 0 or self.backoff_max_s < self.backoff_base_s:
+            raise ValueError(
+                "fleet.backoff_base_s must be > 0 and <= fleet.backoff_max_s"
+            )
+        if not (0 <= self.backoff_jitter < 1):
+            raise ValueError("fleet.backoff_jitter must be in [0, 1)")
+        if self.restart_max_attempts < 1:
+            raise ValueError("fleet.restart_max_attempts must be >= 1")
+
+
+@dataclass
+class Config:
+    """A whole reference config file as the port reads it: `serving`
+    and the fleet's restart knobs parsed, the gateway's sections (and
+    the fleet section) kept verbatim in `sections`."""
+
+    serving: ServingConfig = field(default_factory=ServingConfig)
+    fleet: FleetConfig = field(default_factory=FleetConfig)
+    sections: dict = field(default_factory=dict)
+
+
+_SERVING_NESTED = {
+    "batching": BatchingConfig, "grammar": GrammarConfig,
+    "observability": ObservabilityConfig, "slo": SloConfig,
+    "scheduler": SchedulerConfig, "lora": LoraConfig, "mesh": MeshConfig,
+}
+
+
+def config_from_dict(data: dict) -> Config:
+    """A reference config tree → Config. `serving` is parsed strictly
+    (a key these classes do not carry raises, naming it); an unknown
+    top-level section raises."""
     if not isinstance(data, dict):
-        raise ValueError("a config file holds one JSON object")
-    unknown = sorted(set(data) - {"serving"})
+        raise ValueError("a config file holds one object")
+    known = {"serving", "fleet", *GATEWAY_SECTIONS}
+    unknown = sorted(set(data) - known)
     if unknown:
         raise ValueError(
             f"config: unknown top-level keys {unknown}; the sidecar's "
             f"settings nest under \"serving\""
         )
-    return _from_dict(ServingConfig, data.get("serving", {}), "serving",
-                      {"batching": BatchingConfig, "grammar": GrammarConfig,
-                       "observability": ObservabilityConfig,
-                       "slo": SloConfig, "scheduler": SchedulerConfig,
-                       "lora": LoraConfig, "mesh": MeshConfig})
+    fleet = data.get("fleet", {})
+    if not isinstance(fleet, dict):
+        raise ValueError(f"fleet must be an object, not {fleet!r}")
+    if fleet.get("enabled"):
+        raise ValueError(
+            "fleet.enabled: the replica fleet supervisor is not served "
+            "by the PyTorch port (the co-launch supervises its one sidecar)"
+        )
+    knobs = {f.name for f in dataclasses.fields(FleetConfig)}
+    return Config(
+        serving=_from_dict(ServingConfig, data.get("serving", {}), "serving",
+                           _SERVING_NESTED),
+        fleet=FleetConfig(**{k: v for k, v in fleet.items() if k in knobs}),
+        sections={k: v for k, v in data.items() if k != "serving"},
+    )
+
+
+def serving_config_from_dict(data: dict) -> ServingConfig:
+    """{"serving": {..., "batching": {...}, "grammar": {...},
+    "observability": {...}, "slo": {...}, "scheduler": {...},
+    "lora": {...}, "mesh": {...}}, <gateway sections>} → ServingConfig.
+    Any serving key these classes do not carry raises ValueError naming
+    it."""
+    return config_from_dict(data).serving
+
+
+def read_file(path: str) -> dict:
+    """A config file's tree: JSON, or YAML (.yaml / .yml) where PyYAML
+    is installed."""
+    with open(path, encoding="utf-8") as fh:
+        text = fh.read()
+    if path.endswith((".yaml", ".yml")):
+        try:
+            import yaml
+        except ImportError:
+            raise ValueError(
+                f"config file {path} is YAML, and PyYAML is not installed "
+                f"(write it as JSON)"
+            ) from None
+        return yaml.safe_load(text) or {}
+    return json.loads(text or "{}")
 
 
 def load_serving_config(path: str) -> ServingConfig:
-    """A JSON config file in the reference's layout → ServingConfig."""
-    with open(path) as fh:
-        return serving_config_from_dict(json.load(fh))
+    """A config file in the reference's layout → ServingConfig."""
+    return config_from_dict(read_file(path)).serving
+
+
+# The environment layer (the reference's apply_env): GGRMCP_SERVING_* and
+# GGRMCP_FLEET_* set the port's sections; every other GGRMCP_ variable is
+# the gateway's, and GGRMCP_FLEET_WORKER_* is the reference fleet's spawn
+# handshake, never a config path.
+_ENV_SECTIONS = {"serving": ServingConfig, "fleet": FleetConfig}
+_ENV_SKIP_PREFIXES = ("GGRMCP_FLEET_WORKER_",)
+
+
+def apply_env(data: dict, environ: Optional[dict] = None) -> dict:
+    """GGRMCP_SERVING_KEY=value / GGRMCP_FLEET_KEY=value overrides into
+    a config tree, in place: nested paths use single underscores
+    resolved greedily against the config classes, and the raw string is
+    coerced by the type of the value it replaces (the reference's
+    rules)."""
+    environ = dict(os.environ) if environ is None else environ
+    for key, raw in environ.items():
+        if key.startswith(_ENV_SKIP_PREFIXES):
+            continue
+        for section, cls in _ENV_SECTIONS.items():
+            prefix = f"GGRMCP_{section.upper()}_"
+            if key.startswith(prefix):
+                sub = data.setdefault(section, {})
+                if not isinstance(sub, dict):
+                    raise ValueError(f"{section} must be an object")
+                _env_path(cls, sub, key[len(prefix):].lower().split("_"),
+                          raw, key)
+    return data
+
+
+def _env_path(cls, data: dict, parts: list[str], raw: str, orig: str) -> None:
+    defaults = cls()
+    names = {f.name for f in dataclasses.fields(cls)}
+    for take in range(len(parts), 0, -1):
+        attr = "_".join(parts[:take])
+        if attr not in names:
+            continue
+        current = getattr(defaults, attr)
+        rest = parts[take:]
+        if dataclasses.is_dataclass(current):
+            if not rest:
+                raise ValueError(f"{orig}: points at a section, not a value")
+            sub = data.setdefault(attr, {})
+            if not isinstance(sub, dict):
+                raise ValueError(f"{orig}: {attr} must be an object")
+            _env_path(type(current), sub, rest, raw, orig)
+            return
+        if rest:
+            continue  # try a shorter attribute match
+        data[attr] = _coerce(data.get(attr, current), raw, orig)
+        return
+    raise ValueError(f"unknown config env var: {orig}")
+
+
+def _coerce(current: Any, raw: str, orig: str) -> Any:
+    if isinstance(current, bool):
+        if raw.lower() in ("1", "true", "yes", "on"):
+            return True
+        if raw.lower() in ("0", "false", "no", "off"):
+            return False
+        raise ValueError(f"{orig}: expected boolean, got {raw!r}")
+    if isinstance(current, int):
+        return int(raw)
+    if isinstance(current, float):
+        return float(raw)
+    if isinstance(current, list):
+        return [item.strip() for item in raw.split(",") if item.strip()]
+    return raw
+
+
+def load(path: Optional[str] = None,
+         environ: Optional[dict] = None) -> Config:
+    """Defaults → file → environment (`environ`, default os.environ), as
+    the reference loads (command line flags go over the result)."""
+    data = read_file(path) if path else {}
+    apply_env(data, environ)
+    return config_from_dict(data)

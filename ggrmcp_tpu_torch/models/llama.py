@@ -13,6 +13,7 @@ advanced.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -400,11 +401,13 @@ def attention_block(
     page_table: Optional[torch.Tensor] = None,  # [B, W] paged block table
     lora_idx: Optional[torch.Tensor] = None,  # [B] adapter ids
     ring: bool = False,
+    attn_impl=None,
 ) -> torch.Tensor:
     """Pre-norm GQA attention with residual: `x + attention_out(norm(x))`."""
     normed = common.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     return x + attention_out(normed, lp, cfg, positions, cache_k, cache_v,
-                             cache_len, use_flash, page_table, lora_idx, ring)
+                             cache_len, use_flash, page_table, lora_idx, ring,
+                             attn_impl=attn_impl)
 
 
 def attention_out(
@@ -421,6 +424,7 @@ def attention_out(
     ring: bool = False,
     kv_heads: Optional[tuple[int, ...]] = None,  # `shard_kv_heads`
     out_dtype: Optional[torch.dtype] = None,  # of the `wo` product
+    attn_impl=None,
 ) -> torch.Tensor:
     """GQA attention through `wo`, without the residual (on a mesh, one
     tensor shard's row-parallel partial, in `out_dtype`). With a cache, the step's
@@ -456,7 +460,17 @@ def attention_out(
     `kv_heads` (a tensor shard whose KV heads are replicated, because
     the tensor axis does not divide them): the cache holds every KV
     head, and attention reads the shard's own (`shard_kv_heads`): a
-    head range as a view, else one gathered head per query head."""
+    head range as a view, else one gathered head per query head.
+
+    `attn_impl(q, k, v, causal, window)`: the sequence-parallel prefill
+    hook (ops/ring_attention.py), attending this step's keys only, their
+    KV heads repeated to the query heads. Valid ONLY for a fresh prefill
+    (cache_len 0, the cache sized to the step; the engine gates it):
+    then attention over the written prefix equals causal attention over
+    the step. Under the int8 cache it attends the step's K/V as the
+    cache will replay them (quantized and back), so sp and plain prefill
+    carry the same quantization error; the paged path attends the raw
+    step K/V, as the reference does."""
     b, s, _ = normed.shape
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dev = normed.device
@@ -472,6 +486,7 @@ def attention_out(
                    cfg.rope_scaling)
     v = v.reshape(b, s, kvh, hd)
     k_positions = None
+    k_step, v_step = k, v
 
     if cache_k is not None and page_table is not None:
         assert not ring, "paged KV does not compose with kv_ring"
@@ -529,8 +544,10 @@ def attention_out(
             return cache
 
         if isinstance(cache_k, QuantizedTensor):
-            quant.kv_map(write, cache_k, quant.quantize(k, axis=-1))
-            quant.kv_map(write, cache_v, quant.quantize(v, axis=-1))
+            qk, qv = quant.quantize(k, axis=-1), quant.quantize(v, axis=-1)
+            quant.kv_map(write, cache_k, qk)
+            quant.kv_map(write, cache_v, qv)
+            k_step, v_step = quant.dequantize(qk), quant.dequantize(qv)
             k_all = quant.dequantize(
                 quant.kv_map(lambda t: t[:, :cap], cache_k))
             v_all = quant.dequantize(
@@ -555,15 +572,27 @@ def attention_out(
     if kv_heads is not None:
         lo, n = kv_heads[0], len(kv_heads)
         if kv_heads == tuple(range(lo, lo + n)):
-            k_all, v_all = k_all.narrow(2, lo, n), v_all.narrow(2, lo, n)
+            def pick(t):
+                return t.narrow(2, lo, n)
         else:
             idx = torch.tensor(kv_heads, device=dev)
-            k_all, v_all = k_all.index_select(2, idx), v_all.index_select(2, idx)
-    attn_out = attention(
-        q, k_all, v_all, causal=True, q_offset=q_offset, kv_len=kv_len,
-        window=cfg.sliding_window, use_flash=use_flash,
-        k_positions=k_positions,
-    )
+
+            def pick(t):
+                return t.index_select(2, idx)
+        k_all, v_all = pick(k_all), pick(v_all)
+        k_step, v_step = pick(k_step), pick(v_step)
+    if attn_impl is not None:
+        reps = h // k_step.shape[2]
+        attn_out = attn_impl(
+            q, k_step.repeat_interleave(reps, dim=2),
+            v_step.repeat_interleave(reps, dim=2), causal=True,
+            window=cfg.sliding_window)
+    else:
+        attn_out = attention(
+            q, k_all, v_all, causal=True, q_offset=q_offset, kv_len=kv_len,
+            window=cfg.sliding_window, use_flash=use_flash,
+            k_positions=k_positions,
+        )
     return quant.matmul(attn_out.reshape(b, s, h * hd), lp["wo"], out_dtype)
 
 
@@ -584,9 +613,10 @@ def _layer(
     page_table: Optional[torch.Tensor] = None,
     lora_idx: Optional[torch.Tensor] = None,
     ring: bool = False,
+    attn_impl=None,
 ) -> torch.Tensor:
     x = attention_block(x, lp, cfg, positions, cache_k, cache_v, cache_len,
-                        use_flash, page_table, lora_idx, ring)
+                        use_flash, page_table, lora_idx, ring, attn_impl)
     normed = common.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     return x + swiglu(normed, lp)
 
@@ -604,6 +634,7 @@ def forward(
     use_flash: Optional[bool] = None,
     lora_idx: Optional[torch.Tensor] = None,
     ring: bool = False,
+    attn_impl=None,
 ) -> "tuple[torch.Tensor, Optional[KVCache | PagedKVCache]]":
     """Without a cache: plain causal forward. With a cache: tokens are
     appended at each row's cache length (prefill S > 1, decode S = 1);
@@ -616,12 +647,16 @@ def forward(
     stacked LoRA factors (ops/lora.py); None or absent factors = base.
     `ring`: the contiguous cache is a ring of its capacity (the layout of
     the batcher's caches under serving.kv_ring; attention_block).
+    `attn_impl`: the sequence-parallel fresh-prefill hook
+    (`attention_out`; on a mesh it also takes `coord`, the tensor
+    shard's coordinate).
     Params placed on a mesh (`is_sharded`) take `forward_tp`.
     Returns (float32 logits [B, S, V], cache or None)."""
     if is_sharded(params):
         if lora_idx is not None:
             raise ValueError("lora on a mesh is not ported (ROADMAP A18b)")
-        return forward_tp(params, cfg, tokens, cache, use_flash, ring)
+        return forward_tp(params, cfg, tokens, cache, use_flash, ring,
+                          attn_impl=attn_impl)
     b, s = tokens.shape
     dtype = cfg.torch_dtype
     x = quant.embed_lookup(params["embed"], tokens, dtype)  # [B, S, D]
@@ -636,12 +671,12 @@ def forward(
         lp = {name: _at(layer, w) for name, w in layers.items()}
         if cache is None:
             x = _layer(x, lp, cfg, positions, None, None, None, use_flash,
-                       lora_idx=lora_idx)
+                       lora_idx=lora_idx, attn_impl=attn_impl)
         else:
             x = _layer(
                 x, lp, cfg, positions, _at(layer, cache.k),
                 _at(layer, cache.v), cache.length, use_flash, table,
-                lora_idx, ring,
+                lora_idx, ring, attn_impl,
             )
     if cache is not None:
         cache.length = cache.length + s
@@ -666,6 +701,7 @@ def forward_tp(
     use_flash: Optional[bool] = None,
     ring: bool = False,
     ffn=None,
+    attn_impl=None,
 ) -> "tuple[torch.Tensor, Optional[KVCache | PagedKVCache]]":
     """`forward` over params sharded by `param_specs` (Megatron layout):
     each tensor shard runs its query heads' attention, written into its
@@ -679,33 +715,66 @@ def forward_tp(
     once per device. Tokens, cache lengths and block tables live on the
     mesh's first device and are copied to each shard's device per call
     (a no-op on the same device). Attention runs at the coordinates of
-    expert index 0; `ffn(layer, xs, lps, devs)` replaces the dense FFN
-    (the MoE family's expert-parallel bank) and returns the new
-    activations."""
+    index 0 on every other axis (a sequence axis runs inside
+    `attn_impl`, which takes each shard's `coord`); `ffn(layer, xs,
+    lps, devs)` replaces the dense FFN (the MoE family's expert-parallel
+    bank) and returns the new activations."""
     mesh = params["layers"]["attn_norm"].mesh
-    t = mesh.shape["tensor"]
-    coords = [mesh.index(tensor=i) for i in range(t)]
-    devs = [mesh.devices[c] for c in coords]
+    coords, devs = tensor_coords(mesh)
+    b, s = tokens.shape
+    xs = _vocab_embed(params["embed"], tokens, cfg.torch_dtype, coords, devs)
+    steps = torch.arange(s, device=tokens.device)[None, :]
+    positions = (cache.length.long()[:, None] + steps if cache is not None
+                 else steps.expand(b, s))
+    none = [None] * len(coords)
+    lens = replicate(cache.length, devs) if cache is not None else none
+    tables = (replicate(cache.table, devs)
+              if isinstance(cache, PagedKVCache) else none)
+    xs = tp_layers(params["layers"], cfg, xs, coords,
+                   range(cfg.num_layers), replicate(positions, devs), lens,
+                   tables, cache, use_flash=use_flash, ring=ring, ffn=ffn,
+                   attn_impl=attn_impl)
+    if cache is not None:
+        cache.length = cache.length + s
+    return tp_head(params, cfg, xs, coords), cache
+
+
+def tensor_coords(mesh, **fixed: int) -> tuple[list[int], list]:
+    """The flat coordinates of the tensor shards at index `fixed` (0 for
+    any axis not named) on every other axis, and their devices."""
+    coords = [mesh.index(**{**fixed, "tensor": i})
+              for i in range(mesh.shape["tensor"])]
+    return coords, [mesh.devices[c] for c in coords]
+
+
+def tp_layers(layers, cfg: LlamaConfig, xs: list, coords: list[int],
+              layer_ids, pos: list, lens: list, tables: list, cache=None,
+              rows: Optional[slice] = None, use_flash=None, ring=False,
+              ffn=None, attn_impl=None) -> list:
+    """Layers `layer_ids` (indices into each coordinate's local stack) of
+    the tensor-parallel forward over per-shard activations `xs`, the
+    cache's parts at `coords` written in place (batch `rows` of them
+    when given: a pipeline microbatch). Returns the new activations."""
+    t = len(coords)
+    devs = [x.device for x in xs]
     lcfg = local_config(cfg, t)
     if flash_shardable(t, cfg.num_kv_heads)[0]:
         kv_heads = [None] * t
     else:
         # Replicated KV: every shard reads its query heads' groups.
         kv_heads = [shard_kv_heads(cfg, t, i) for i in range(t)]
-    b, s = tokens.shape
-    dtype = cfg.torch_dtype
-    xs = _vocab_embed(params["embed"], tokens, dtype, coords, devs)
-    steps = torch.arange(s, device=tokens.device)[None, :]
-    positions = (cache.length.long()[:, None] + steps if cache is not None
-                 else steps.expand(b, s))
-    pos = replicate(positions, devs)
-    none = [None] * t
-    lens = replicate(cache.length, devs) if cache is not None else none
-    tables = (replicate(cache.table, devs)
-              if isinstance(cache, PagedKVCache) else none)
-    layers = params["layers"]
+    impls = [None if attn_impl is None else
+             functools.partial(attn_impl, coord={"tensor": i})
+             for i in range(t)]
+
+    def cache_at(leaf, layer: int, c: int):
+        part = _at(layer, local(leaf, c))
+        if rows is not None:
+            part = quant.kv_map(lambda x: x[rows], part)
+        return part
+
     eps = cfg.norm_eps
-    for layer in range(cfg.num_layers):
+    for layer in layer_ids:
         lps = [{name: _at(layer, local(w, c)) for name, w in layers.items()}
                for c in coords]
         normed = per_device(lambda x, w: common.rms_norm(x, w, eps), xs,
@@ -714,11 +783,12 @@ def forward_tp(
         for i, c in enumerate(coords):
             ck = cv = None
             if cache is not None:
-                ck = _at(layer, local(cache.k, c))
-                cv = _at(layer, local(cache.v, c))
+                ck = cache_at(cache.k, layer, c)
+                cv = cache_at(cache.v, layer, c)
             partials.append(attention_out(
                 normed[i], lps[i], lcfg, pos[i], ck, cv, lens[i], use_flash,
-                tables[i], None, ring, kv_heads[i], torch.float32))
+                tables[i], None, ring, kv_heads[i], torch.float32,
+                attn_impl=impls[i]))
         xs = per_device(_residual, xs, all_reduce_sum(partials))
         if ffn is not None:
             xs = ffn(layer, xs, lps, devs)
@@ -727,17 +797,23 @@ def forward_tp(
                             [lp["mlp_norm"] for lp in lps])
         partials = [swiglu(n, lp, torch.float32) for n, lp in zip(normed, lps)]
         xs = per_device(_residual, xs, all_reduce_sum(partials))
-    if cache is not None:
-        cache.length = cache.length + s
+    return xs
+
+
+def tp_head(params: Params, cfg: LlamaConfig, xs: list,
+            coords: list[int]) -> torch.Tensor:
+    """The final norm and the vocab-parallel lm_head at `coords`: whole
+    float32 logits on the first shard's device."""
     finals = [local(params["final_norm"], c) for c in coords]
-    xs = per_device(lambda x, w: common.rms_norm(x, w, eps), xs, finals)
+    xs = per_device(lambda x, w: common.rms_norm(x, w, cfg.norm_eps), xs,
+                    finals)
     blocks = []
     for x, c in zip(xs, coords):
         head = local(params["lm_head"], c)
         if not isinstance(head, QuantizedTensor):
-            head = head.to(dtype)
+            head = head.to(cfg.torch_dtype)
         blocks.append(quant.matmul(x, head))
-    return all_gather(blocks, dim=-1).float(), cache
+    return all_gather(blocks, dim=-1).float()
 
 
 def _residual(x: torch.Tensor, total: torch.Tensor) -> torch.Tensor:

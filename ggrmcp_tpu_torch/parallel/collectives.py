@@ -12,8 +12,10 @@ the collectives. Here one process holds every shard:
   the batcher's cache bookkeeping is unchanged. A quantized sharded
   leaf is a `QuantizedTensor` whose `q` and `scale` are each `Sharded`.
 - `shard` / `unshard` split a tensor by a spec and put it back.
-- `all_reduce_sum` (after every row-parallel product) and `all_gather`
-  (of vocab-sharded logits) move tensors with `.to(device,
+- `all_reduce_sum` (after every row-parallel product), `all_gather`
+  (of vocab-sharded logits), `ppermute` (the ring shift of ring
+  attention's K/V and of a pipeline's activations) and `all_to_all`
+  (Ulysses' sequence/head re-shard) move tensors with `.to(device,
   non_blocking=True)`: a no-op between shards on one device, a peer copy
   between cards, so shards on distinct cards compute the same result.
   An NCCL path waits for a machine with more than one card to measure
@@ -213,3 +215,26 @@ def all_gather(parts: list[torch.Tensor], dim: int) -> torch.Tensor:
     device (the controller, which samples)."""
     dev = parts[0].device
     return torch.cat([p.to(dev, non_blocking=True) for p in parts], dim=dim)
+
+
+def ppermute(parts: list, devices: Optional[list] = None) -> list:
+    """The ring shift `jax.lax.ppermute` with perm [(i, (i + 1) % n)]:
+    shard i receives shard (i - 1) mod n's tensor, on shard i's device
+    (`devices[i]`, default the part's own). A None part (a pipeline
+    stage with nothing to send this tick) arrives as None."""
+    n = len(parts)
+    devices = devices or [p.device for p in parts]
+    return [None if parts[(i - 1) % n] is None
+            else parts[(i - 1) % n].to(devices[i], non_blocking=True)
+            for i in range(n)]
+
+
+def all_to_all(parts: list, split_dim: int, concat_dim: int) -> list:
+    """The tiled `jax.lax.all_to_all`: each shard's tensor is split into
+    n blocks along `split_dim`; shard j receives block j of every shard,
+    concatenated in shard order along `concat_dim`, on its own device."""
+    n = len(parts)
+    blocks = [p.chunk(n, dim=split_dim) for p in parts]
+    return [torch.cat([blocks[i][j].to(parts[j].device, non_blocking=True)
+                       for i in range(n)], dim=concat_dim)
+            for j in range(n)]

@@ -163,8 +163,8 @@ def single_device_mesh(device: torch.device) -> Mesh:
 
 
 def check_serving_mesh(mesh: Mesh) -> None:
-    """Refuse a resolved data, fsdp, sequence or stage axis above 1 (the
-    port shards over tensor and expert only)."""
+    """Refuse a resolved data or fsdp axis above 1 (the port shards
+    over tensor, sequence, expert and stage)."""
     check_mesh_axes(mesh.shape)
 
 

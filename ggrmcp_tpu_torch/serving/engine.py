@@ -3,8 +3,10 @@
 generation, with int8 weights, the int8 KV cache, the paged and ring
 caches for the batcher, multi-LoRA adapters, boot-time or from a
 registry through the adapter arena, and speculative decoding against a
-draft model; on one device or tensor- and expert-parallel over a mesh,
-no PP/SP) and `EmbeddingEngine` (BERT embeddings, one device).
+draft model; on one device or over a mesh: tensor- and expert-parallel,
+sequence-parallel fresh prefill (ring / Ulysses attention) and
+pipeline-parallel serving over `stage`) and `EmbeddingEngine` (BERT
+embeddings, one device).
 
 The reference compiles one program per shape bucket; PyTorch runs
 eagerly, so the buckets here only bound the shapes the kernels see.
@@ -30,8 +32,10 @@ from ggrmcp_tpu_torch.models.common import FLOAT32_LEAVES
 from ggrmcp_tpu_torch.models.common import count_params, param_bytes
 from ggrmcp_tpu_torch.ops import lora as lora_ops
 from ggrmcp_tpu_torch.ops import quant
+from ggrmcp_tpu_torch.ops import ring_attention as ring_mod
 from ggrmcp_tpu_torch.ops.sampling import SamplingConfig, sample
 from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+from ggrmcp_tpu_torch.parallel import pipeline as pp_mod
 from ggrmcp_tpu_torch.parallel.collectives import Sharded, shard
 from ggrmcp_tpu_torch.serving.memory_ledger import MemoryLedger
 from ggrmcp_tpu_torch.utils import failpoints
@@ -95,7 +99,14 @@ class GenerationEngine:
     are used as they are. A spec axis that does not divide its dim is
     counted in `spec_downgrades`: the KV-head case (tensor does not
     divide KVH) is served with replicated KV; any weight's raises, as do
-    the routes the port does not serve on a mesh (ROADMAP A18b)."""
+    the routes the port does not serve on a mesh (ROADMAP A18b).
+
+    A `sequence` axis above 1 sends fresh prefills of at least
+    `serving.sp_prefill_min_seq` tokens through ring or Ulysses attention
+    (`serving.sp_prefill`); a `stage` axis above 1 shards the layer stack
+    and every cache over stages and runs prefill and decode through the
+    staged forward (parallel/pipeline.py), with the reference's
+    refusals."""
 
     def __init__(
         self,
@@ -129,7 +140,8 @@ class GenerationEngine:
         # kernel a bf16 copy of the cache would forfeit the int8 bytes.
         self.use_flash: Optional[bool] = False if self.kv_dtype else None
         self.ring_capacity = self._ring_capacity()
-        specs = self.fam.param_specs(cfg)
+        specs = (pp_mod.param_specs_pp(cfg) if self.pp_serving
+                 else self.fam.param_specs(cfg))
         if params is None and self.serving.synthetic_weights:
             params = self._shard_params(self._synthetic_int8_init(seed), cfg,
                                         specs)
@@ -171,6 +183,8 @@ class GenerationEngine:
         the routes ROADMAP A18b still has to port. Each refusal raises
         here, at construction: nothing runs replicated in silence."""
         mesh_mod.check_serving_mesh(self.mesh)
+        self._init_sp_prefill()
+        self._init_pp_serving()
         if self.mesh.size == 1:
             return
         sizes = self.mesh.shape
@@ -199,6 +213,72 @@ class GenerationEngine:
                     f"{name} on a mesh ({mesh_mod.mesh_shape_str(self.mesh)}"
                     f") is not ported yet (ROADMAP A18b)"
                 )
+
+    def _init_sp_prefill(self) -> None:
+        """Sequence-parallel prefill: with a `sequence` axis above 1,
+        fresh prefills of at least sp_prefill_min_seq tokens run their
+        attention through ring (K/V rotation) or Ulysses (the all-to-all
+        head re-shard) instead of the local path (`prefill_forward`).
+        The int8 cache composes (the hook attends the round-tripped step
+        K/V), a sliding window too; the ring cache does not."""
+        self._sp_n = mesh_mod.axis_size(self.mesh, "sequence")
+        mode = self.serving.sp_prefill
+        if mode and self.serving.kv_ring and self._sp_n > 1:
+            raise ValueError(
+                "sp_prefill does not compose with kv_ring: ring-capacity "
+                "caches break the fresh-prefill cache-sized-to-chunk "
+                "contract (chunked admission serves long prompts instead)"
+            )
+        self.sp_prefill = mode if (self._sp_n > 1 and mode) else ""
+        self.sp_min_seq = self.serving.sp_prefill_min_seq
+        self._sp_attn = None
+        if not self.sp_prefill:
+            return
+        if mode == "ulysses" and self.cfg.num_heads % self._sp_n != 0:
+            raise ValueError(
+                f"ulysses sp_prefill needs heads ({self.cfg.num_heads}) "
+                f"divisible by the sequence axis ({self._sp_n})"
+            )
+        impl = (ring_mod.ring_attention if mode == "ring"
+                else ring_mod.ulysses_attention)
+        mesh = self.mesh
+
+        def sp_attn(q, k, v, causal=True, window=None, coord=None):
+            return impl(q, k, v, mesh, causal=causal, window=window,
+                        coord=coord)
+
+        self._sp_attn = sp_attn
+
+    def _init_pp_serving(self) -> None:
+        """Pipeline-parallel serving: with a `stage` axis above 1,
+        prefill and decode run the staged cached forward
+        (parallel/pipeline.py) with the layer stack and the KV cache
+        sharded over `stage`. Dense Llama only."""
+        self._pp_n = mesh_mod.axis_size(self.mesh, "stage")
+        self.pp_serving = self._pp_n > 1 and self.fam is llama_mod
+        if self._pp_n > 1 and self.fam is not llama_mod:
+            raise ValueError(
+                "pipeline-parallel serving supports dense Llama only "
+                "(MoE expert dispatch is batch-global per layer block)"
+            )
+        if self.pp_serving and self.cfg.num_layers % self._pp_n != 0:
+            raise ValueError(
+                f"{self.cfg.num_layers} layers not divisible by "
+                f"stage={self._pp_n}"
+            )
+        if self.pp_serving and (self.serving.lora.adapters
+                                or self.serving.lora.registry):
+            raise ValueError(
+                "lora does not compose with pipeline-parallel serving "
+                "yet (the staged layer loop would need per-stage idx "
+                "threading)"
+            )
+        if self.pp_serving and self.sp_prefill:
+            # One manual-collective scheme at a time: the staged forward
+            # owns the layer loop.
+            logger.warning("sp_prefill disabled under pipeline serving")
+            self.sp_prefill = ""
+            self._sp_attn = None
 
     def _note_downgrade(self, where: str, dim: int, entry, size: int,
                         axis: int) -> None:
@@ -302,15 +382,21 @@ class GenerationEngine:
                 site, dim, entry, size, axis))
         t = mesh.shape["tensor"]
         split = adapted[3] is not None
+        # A staged cache: each stage's coordinates hold its layers.
+        stages = mesh_mod.axis_product(mesh, adapted[0])
         lcfg = llama_mod.local_config(cfg, t)
+        lcfg = dataclasses.replace(lcfg,
+                                   num_layers=cfg.num_layers // stages)
         built: dict = {}
         locals_ = []
         for c, dev in enumerate(mesh.devices):
-            key = (mesh.coord(c)["tensor"] if split else 0, dev)
+            coord = mesh.coord(c)
+            key = (coord["tensor"] if split else 0,
+                   coord["stage"] if stages > 1 else 0, dev)
             if key not in built:
                 built[key] = create(lcfg, dev)
             locals_.append(built[key])
-        factors = (1, 1, 1, t if split else 1, 1)
+        factors = (stages, 1, 1, t if split else 1, 1)
 
         def leaf(name):
             parts = [getattr(lc, name) for lc in locals_]
@@ -367,6 +453,12 @@ class GenerationEngine:
                 raise ValueError("draft_params given without "
                                  "serving.speculative_draft")
             return
+        if self.pp_serving:
+            raise ValueError(
+                "speculative decoding is not supported under "
+                "pipeline-parallel serving (the draft/verify loop would "
+                "run the layer scan against stage-sharded weights)"
+            )
         if self.fam is moe_mod:
             raise ValueError(
                 "speculative decoding supports dense decoder targets "
@@ -765,7 +857,20 @@ class GenerationEngine:
 
     def prefill_forward(self, params, tokens, cache, lora_idx=None,
                         valid=None):
-        """Forward for a FRESH prefill (cache written from offset 0)."""
+        """Forward for a FRESH prefill (cache written from offset 0, sized
+        to the step: the batcher's admission mini caches and the
+        engine's own). The staged forward under PP; the sequence-parallel
+        attention for a dense Llama prompt of at least sp_prefill_min_seq
+        tokens that the sequence axis divides; else `decode_forward`."""
+        if self.pp_serving:
+            return pp_mod.pipeline_forward_cached(params, self.cfg, tokens,
+                                                  cache, self.mesh)
+        s = tokens.shape[1]
+        if (self._sp_attn is not None and self.fam is llama_mod
+                and s >= self.sp_min_seq and s % self._sp_n == 0):
+            return llama_mod.forward(params, self.cfg, tokens, cache,
+                                     attn_impl=self._sp_attn,
+                                     lora_idx=lora_idx)
         return self.decode_forward(params, tokens, cache, lora_idx,
                                    valid=valid)
 
@@ -776,7 +881,12 @@ class GenerationEngine:
         rows (None = every row base). `ring` describes the CACHE (the
         batcher's ring-capacity caches), not the engine: the engine's
         own request-sized caches stay contiguous. `valid` [B, S]: the
-        real tokens, for MoE routing (the dense family ignores it)."""
+        real tokens, for MoE routing (the dense family ignores it). The
+        staged forward under PP."""
+        if self.pp_serving:
+            return pp_mod.pipeline_forward_cached(params, self.cfg, tokens,
+                                                  cache, self.mesh,
+                                                  ring=ring)
         if self.fam is moe_mod:
             return moe_mod.forward(params, self.cfg, tokens, cache,
                                    valid=valid, use_flash=self.use_flash,
@@ -789,23 +899,31 @@ class GenerationEngine:
                    cfg=None) -> llama_mod.KVCache:
         """A contiguous cache of `cfg`'s geometry (default the target's),
         on the mesh: KV heads over tensor by `cache_specs`."""
+        other = cfg is not None
         cfg = cfg or self.cfg
         if self.mesh.size == 1:
             return llama_mod.KVCache.create(cfg, batch, max_len, self.device,
                                             self.kv_dtype)
         shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
                  cfg.head_dim)
+        specs = (pp_mod.cache_specs_pp() if self.pp_serving and not other
+                 else llama_mod.cache_specs())
         return self._sharded_kv(
             cfg, lambda lcfg, dev: llama_mod.KVCache.create(
                 lcfg, batch, max_len, dev, self.kv_dtype),
-            shape, llama_mod.cache_specs()["k"], "kv_cache")
+            shape, specs["k"], "kv_cache")
 
     def make_paged_cache(
         self, batch: int, max_len: int, n_pages: int, page_size: int
     ) -> llama_mod.PagedKVCache:
         """A page arena of `n_pages` pages (plus the scratch page) with
         all-sentinel block tables, in the engine's KV dtype. Dense Llama
-        only, as in the reference."""
+        only, as in the reference; not under PP."""
+        if self.pp_serving:
+            raise ValueError(
+                "paged_kv does not compose with pipeline-parallel "
+                "serving (the staged forward has no block-table path)"
+            )
         if self.fam is not llama_mod:
             raise ValueError("paged_kv supports dense Llama only")
         if self.mesh.size == 1:

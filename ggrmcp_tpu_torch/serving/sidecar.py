@@ -45,6 +45,12 @@ batcher's ticks draft and verify; off, unary greedy and plain
 temperature calls whose prompts fit in one prefill chunk take the
 micro-batcher (`serving/spec_batcher.py`), whole-generation calls
 coalesced across concurrent requests.
+
+Transport: `serving.uds_path` binds a unix socket only (target
+`unix:{path}`, port 0; `stop()` removes the file), the co-launch's
+private hop (serving/launcher.py). `serving.hf_checkpoint_optional`
+serves `serving.model` with random weights, loudly, when the checkpoint
+directory is absent.
 """
 
 from __future__ import annotations
@@ -151,15 +157,26 @@ class Sidecar:
         self.batcher: "Optional[ContinuousBatcher | TieredBatcher]" = None
         self.spec_batcher: Optional[SpeculativeBatcher] = None
         self.grammar_cache = GrammarCache(self.serving.grammar.cache_entries)
-        if self.serving.hf_checkpoint_path:
+        hf_path = self.serving.hf_checkpoint_path
+        if hf_path and not os.path.isdir(hf_path) and (
+            self.serving.hf_checkpoint_optional
+        ):
+            # Only under the explicit opt-in: a config naming absent
+            # weights otherwise fails start, never quietly serves noise.
+            logger.warning(
+                "hf checkpoint %s unobtainable; falling back to "
+                "random-init %s (hf_checkpoint_optional=true — outputs "
+                "are meaningless, geometry/tokenizer are real)",
+                hf_path, self.serving.model,
+            )
+            hf_path = ""
+        if hf_path:
             if params is not None:
                 raise ValueError(
                     "pass params or serving.hf_checkpoint_path, not both"
                 )
             self.family = "llama"
-            model_cfg, params = load_hf_checkpoint_sharded(
-                self.serving.hf_checkpoint_path, mesh
-            )
+            model_cfg, params = load_hf_checkpoint_sharded(hf_path, mesh)
         else:
             self.family, model_cfg = get_model(self.serving.model)
             model_cfg = _cut_depth(model_cfg, self.serving.num_layers)
@@ -1059,9 +1076,18 @@ class Sidecar:
         )
         ReflectionService(services).attach(self.server)
         self.health.attach(self.server)
-        bind = port if port is not None else self.serving.port
-        self.port = self.server.add_insecure_port(f"0.0.0.0:{bind}")
-        self.target = f"localhost:{self.port}"
+        uds = self.serving.uds_path
+        if uds:
+            # A unix socket only, no TCP listener. gRPC returns 1 for a
+            # successful unix bind, so `port` stays 0.
+            if self.server.add_insecure_port(f"unix:{uds}") == 0:
+                raise OSError(f"failed to bind unix:{uds}")
+            self.port = 0
+            self.target = f"unix:{uds}"
+        else:
+            bind = port if port is not None else self.serving.port
+            self.port = self.server.add_insecure_port(f"0.0.0.0:{bind}")
+            self.target = f"localhost:{self.port}"
         # Build the kernels before accepting traffic (device-bound →
         # executor, not the event loop).
         engine = self.generation or self.embedding
@@ -1095,6 +1121,11 @@ class Sidecar:
             await self.spec_batcher.stop()
         if self.server is not None:
             await self.server.stop(grace=2.0)
+        if self.serving.uds_path:
+            try:
+                os.unlink(self.serving.uds_path)
+            except FileNotFoundError:
+                pass
 
 
 def _apply_stops(text: str, stops: list[str], finish: str) -> tuple[str, str]:

@@ -1267,3 +1267,116 @@ async def test_replicated_kv_shards_launch_the_kernel(cuda):
     assert await _serve(ContinuousBatcher(eight, BatchingConfig(**small)),
                         _prompts()) == ref
     assert tatt.flash_attention.launches > before
+
+
+def test_ring_and_ulysses_on_card_match_cpu(cuda):
+    """Ring and Ulysses attention over two and four sequence shards on
+    one card against the same on the CPU (float32, 1e-5): causal,
+    non-causal and windowed."""
+    from ggrmcp_tpu_torch.core.config import MeshConfig
+    from ggrmcp_tpu_torch.ops import ring_attention as tring
+    from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+
+    cpu, dev = torch.device("cpu"), torch.device("cuda", 0)
+    q, k, v = _qkv(41, 2, 64, 64, 4, 4, 32, cpu, torch.float32)
+    for n in (2, 4):
+        meshes = [mesh_mod.build_mesh(MeshConfig(tensor=1, sequence=n),
+                                      [d] * n) for d in (cpu, dev)]
+        for fn in (tring.ring_attention, tring.ulysses_attention):
+            for causal, window in ((True, None), (False, None), (True, 9)):
+                want = fn(q, k, v, meshes[0], causal=causal, window=window)
+                got = fn(q.to(dev), k.to(dev), v.to(dev), meshes[1],
+                         causal=causal, window=window)
+                torch.testing.assert_close(got.cpu(), want, atol=1e-5,
+                                           rtol=1e-5)
+
+
+def test_pp_and_sp_forwards_on_card_match_cpu(cuda):
+    """tiny-llama (float32) at stage=2 and at sequence=2 (sp prefill on)
+    on one card against the same meshes on the CPU: prefill logits within
+    1e-5 and greedy tokens equal; a stage's attention never launches the
+    kernel, as the reference pins its plain path."""
+    from ggrmcp_tpu_torch.core.config import MeshConfig
+    from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+
+    cfg = tl.CONFIGS["tiny-llama"]
+    params = tl.init_params(cfg, torch.device("cpu"), seed=43)
+    toks = torch.tensor([_prompts()[4][:40] + [7] * 24] * 2)
+    for axis in ("stage", "sequence"):
+        mcfg = MeshConfig(tensor=1, **{axis: 2})
+        serving = ServingConfig(mesh=mcfg, sp_prefill_min_seq=64)
+        engines = [GenerationEngine(
+            cfg, serving, params=_to(params, d),
+            mesh=mesh_mod.build_mesh(mcfg, [d, d]))
+            for d in (torch.device("cpu"), torch.device("cuda", 0))]
+        logits = []
+        for eng in engines:
+            before = tatt.flash_attention.launches
+            out, _ = eng.prefill_forward(eng.params, toks.to(eng.device),
+                                         eng.make_cache(2, 64))
+            assert tatt.flash_attention.launches == before
+            logits.append(out.cpu())
+        torch.testing.assert_close(logits[1], logits[0], atol=1e-5, rtol=0)
+        outs = [eng.generate(_prompts()[:3], 8) for eng in engines]
+        assert outs[1] == outs[0]
+
+
+async def test_colaunch_on_card(cuda):
+    """The co-launch at tiny width on the card: the sidecar here, the
+    gateway a child over a private socket; a greedy Generate tools/call
+    answers the tokens of the same request sent by gRPC straight to the
+    socket (each alone, so both take the same admission)."""
+    import importlib.util
+    import socket
+    import urllib.request
+
+    import grpc
+
+    from ggrmcp_tpu_torch.rpc.pb import serving_pb2
+
+    if importlib.util.find_spec("aiohttp") is None:
+        pytest.skip("the gateway child needs aiohttp, absent here")
+    from ggrmcp_tpu_torch.core.config import Config
+    from ggrmcp_tpu_torch.serving import launcher
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cfg = Config(serving=ServingConfig(batching=BatchingConfig(
+        max_batch_size=4, kv_cache_max_seq=256)))
+    co = launcher.Colaunch(cfg, ["--http-port", str(port)],
+                           device="cuda", seed=47)
+    await co.start()
+    try:
+        body = json.dumps({"jsonrpc": "2.0", "method": "tools/call", "id": 1,
+                           "params": {"name": "ggrmcp_tpu_generateservice_"
+                                      "generate", "arguments": {
+                                          "prompt": "hi", "maxNewTokens": 6,
+                                          "returnTokens": True}}}).encode()
+
+        def call():
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/", data=body,
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                return json.loads(resp.read())
+        for _ in range(120):
+            try:
+                data = await asyncio.to_thread(call)
+                break
+            except OSError:
+                assert co.child.returncode is None, co.log_tail()
+                await asyncio.sleep(0.5)
+        ids = json.loads(data["result"]["content"][0]["text"])["tokenIds"]
+        async with grpc.aio.insecure_channel(co.target) as ch:
+            resp = await ch.unary_unary(
+                "/ggrmcp.tpu.GenerateService/Generate",
+                request_serializer=serving_pb2.GenerateRequest
+                .SerializeToString,
+                response_deserializer=serving_pb2.GenerateResponse.FromString,
+            )(serving_pb2.GenerateRequest(prompt="hi", max_new_tokens=6,
+                                          return_tokens=True))
+        assert ids == list(resp.token_ids) and len(ids) == 6
+        assert co.target == f"unix:{cfg.serving.uds_path}"
+    finally:
+        await co.stop()

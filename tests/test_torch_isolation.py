@@ -1,11 +1,13 @@
 """The PyTorch port stands alone: importing every module of
 `ggrmcp_tpu_torch`, and then `chip_smoke` (whose work runs only under
 its `__main__` guard), loads neither JAX nor any module of the JAX
-package `ggrmcp_tpu`, nor `safetensors`, `tokenizers`, `transformers`
-or `ml_dtypes` (the machine with the card has none of them;
-`tokenizers` is imported only when a tokenizer file is loaded; bf16
-pages decode through torch, serving/tensors.py). Checked in a fresh
-interpreter, since this test process itself has JAX loaded."""
+package `ggrmcp_tpu`, nor `safetensors`, `tokenizers`, `transformers`,
+`ml_dtypes` or `aiohttp` (`tokenizers` is imported only when a
+tokenizer file is loaded; bf16 pages decode through torch,
+serving/tensors.py; `aiohttp` belongs to the co-launched gateway, a
+child process, and the port speaks HTTP through `urllib` only).
+Checked in a fresh interpreter, since this test process itself has JAX
+loaded."""
 
 import json
 import os
@@ -29,7 +31,7 @@ bad = sorted(
     m for m in sys.modules
     if m.split(".")[0] in (
         "jax", "jaxlib", "ggrmcp_tpu", "safetensors", "tokenizers",
-        "transformers", "ml_dtypes",
+        "transformers", "ml_dtypes", "aiohttp",
     )
 )
 print(json.dumps({"modules": names, "bad": bad}))
@@ -57,6 +59,8 @@ PORT_MODULES = (
     "ggrmcp_tpu_torch.serving.tiered", "ggrmcp_tpu_torch.models.moe",
     "ggrmcp_tpu_torch.parallel", "ggrmcp_tpu_torch.parallel.mesh",
     "ggrmcp_tpu_torch.parallel.collectives",
+    "ggrmcp_tpu_torch.serving.launcher", "ggrmcp_tpu_torch.ops.ring_attention",
+    "ggrmcp_tpu_torch.parallel.pipeline",
 )
 
 

@@ -4,9 +4,10 @@ downgrade observer, the shape label and the device layout, over a table
 of `MeshConfig`s and shapes (the error cases included), each case its
 own test. The JAX side runs on the suite's forced 8-device CPU platform
 (`jax.devices()[:n]`); the port's device list is the CPU repeated n
-times. Also `serving.mesh` through a `--config` file, and the axes the
-port refuses (data, fsdp, sequence, stage above 1). Exact equality
-throughout."""
+times. Also `serving.mesh` through a `--config` file, the axes the
+port refuses (data, fsdp above 1) and the ones it serves since
+sequence- and pipeline-parallel serving were ported (sequence, stage).
+Exact equality throughout."""
 
 import json
 
@@ -161,9 +162,7 @@ def test_mesh_from_a_config_file(tmp_path):
         k: getattr(JMesh(), k) for k in MeshConfig.__dataclass_fields__})
 
 
-@pytest.mark.parametrize("axis,item", [("data", "A18b"), ("fsdp", "A18b"),
-                                       ("sequence", "A19b"),
-                                       ("stage", "A19b")])
+@pytest.mark.parametrize("axis,item", [("data", "A18b"), ("fsdp", "A18b")])
 def test_unported_axes_are_refused(axis, item):
     with pytest.raises(ValueError, match=f"ROADMAP {item}"):
         ServingConfig(mesh=MeshConfig(tensor=1, **{axis: 2}))
@@ -171,6 +170,16 @@ def test_unported_axes_are_refused(axis, item):
     mesh = tmesh.build_mesh(MeshConfig(tensor=2, **{axis: 0}), [CPU] * 4)
     with pytest.raises(ValueError, match=f"ROADMAP {item}"):
         GenerationEngine(tl.CONFIGS["tiny-llama"], mesh=mesh)
+
+
+@pytest.mark.parametrize("axis", ["sequence", "stage"])
+def test_sequence_and_stage_axes_are_served(axis):
+    assert ServingConfig(mesh=MeshConfig(tensor=1, **{axis: 2})).mesh
+    mesh = tmesh.build_mesh(MeshConfig(tensor=2, **{axis: 0}), [CPU] * 4)
+    engine = GenerationEngine(tl.CONFIGS["tiny-llama"], mesh=mesh)
+    assert engine.mesh_stats()["mesh_shape"] == f"tensor=2,{axis}=2"
+    assert (engine.pp_serving, bool(engine.sp_prefill)) == (
+        (True, False) if axis == "stage" else (False, True))
 
 
 def test_negative_axis_refused():
