@@ -166,7 +166,22 @@ Phases, any failure exits non-zero and prints no result:
    burst through sidecars at stage=1 and at stage=2 (16 layers a stage)
    from one seeded tree: streams counted, tick p50, the mesh in
    GetServingStats, peak memory. The sp attention and a stage's
-   attention are plain, as the reference's are: B1 launches in neither.
+   attention are plain, as the reference's are: B1 launches in neither;
+18. training: (a) B1 under autograd at the training step's [8, 1023]
+   (llama-1b heads, bf16, causal; windowed and ragged too): the output
+   and dq / dk / dv against autograd of the plain version at TOL, timed
+   (B1's forward, the backward recompute, SDPA forward + backward, the
+   bounds), and one llama-1b layer's gradients through B1 against the
+   plain attention; (b) tiny-llama float32, 3 AdamW steps on the card
+   against the CPU at tensor 1, tensor 2 and stage 2; (c) `python3 -m
+   ggrmcp_tpu_torch train --model llama-1b` (full width, 16 layers) for
+   20 steps of [8, 1024] on a text file the script writes, saving every
+   10 (losses falling, step time p50 over steps 3-20, tokens/s, the
+   model-FLOPs share, peak memory, B1 launches and recomputes a step),
+   then again to step 30, resuming from step 20; (d) a llama-1b sidecar
+   with `serving.checkpoint_path` at step 30's params answers a greedy
+   Generate with the tokens of an engine on the loaded tensors; an
+   Orbax tree is refused at start.
 
 `python3 chip_smoke.py --only 16,17` runs the card, the build and those
 phases and prints no result (fault-finding).
@@ -180,6 +195,7 @@ from __future__ import annotations
 import asyncio
 import gc
 import json
+import math
 import os
 import re
 import struct
@@ -5266,6 +5282,417 @@ async def sp_pp_phase(torch, tatt, dev, spec=None) -> dict:
     return res
 
 
+# -- phase 18: training --------------------------------------------------
+
+P18 = dict(
+    model="llama-1b", tiny="tiny-llama", batch=8, seq_len=1024, steps=20,
+    resume_to=30, save_every=10, timed_from=3, serve_new=16,
+    # (a) B1 under autograd at the training step's attention shape
+    # ([8, 1023]: seq_len 1024 less the shifted target), llama-1b heads.
+    attn=[("train_8x1023", None, False), ("train_8x1023_window", 256, False),
+          ("train_8x1023_ragged", None, True)],
+    tiny_meshes=[("tensor", 1), ("tensor", 2), ("stage", 2)],
+)
+P18_TEXT = ("The quick brown fox jumps over the lazy dog. A port trains on "
+            "the card what the reference trained on its chip. ")
+# (a) one llama-1b layer's wqkv gradient through B1 against the plain
+# attention (bf16 model: the kernel and the plain version round their
+# outputs to bf16 differently, the rest of the layer is the same ops).
+TRAIN_LAYER_REL = 1e-2
+# (b) tiny-llama float32, card against CPU after 3 AdamW steps: losses at
+# rtol 1e-4; each leaf elementwise within 1e-4 of its largest entry, save
+# at most one entry in 10^4, each of those within one learning rate
+# (3e-4) a step (an entry whose gradient sits at summation noise may take
+# AdamW's step another way on each device; one such entry of the
+# embedding is 7e-5 of its L2 norm, so a norm would measure AdamW).
+TRAIN_TINY_REL = 1e-4
+TRAIN_LR = 3e-4
+
+
+def _train_attention(torch, tatt, dev, spec) -> dict:
+    """(a) B1 forward under autograd at [8, 1023] (H 32, KVH 8, D 64,
+    bf16, causal), windowed and ragged too: output and dq / dk / dv
+    against autograd of `flash_attention_ref` at TOL; the causal case
+    timed: B1's forward, the backward recompute, the plain forward, SDPA
+    forward and forward + backward, with the bounds."""
+    import torch.nn.functional as F
+
+    cfg = _llama_cfg(spec["model"])
+    b, sq = spec["batch"], spec["seq_len"] - 1
+    h, kvh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    atol, rtol = TOL["bfloat16"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    res: dict = {"cases": []}
+    for name, window, ragged in spec["attn"]:
+        q0 = torch.randn((b, sq, h, d), generator=gen, device=dev).bfloat16()
+        k0, v0 = (torch.randn((b, sq, kvh, d), generator=gen,
+                              device=dev).bfloat16() for _ in range(2))
+        dout = torch.randn((b, sq, h, d), generator=gen,
+                           device=dev).bfloat16()
+        kv_len = (torch.randint(sq // 2, sq + 1, (b,), generator=gen,
+                                device=dev, dtype=torch.int32)
+                  if ragged else None)
+        kw = dict(causal=True, kv_len=kv_len, window=window)
+        outs = []
+        for fn in (tatt.flash_attention, tatt.flash_attention_ref):
+            q, k, v = (t.clone().requires_grad_(True) for t in (q0, k0, v0))
+            out = fn(q, k, v, **kw)
+            check(out.grad_fn is not None,
+                  f"(a) {name}: {fn.__name__} gave no graph")
+            out.backward(dout)
+            outs.append([out.detach(), q.grad, k.grad, v.grad])
+        errs = {}
+        for what, got, want in zip(("out", "dq", "dk", "dv"), *outs):
+            diff = (got.float() - want.float()).abs()
+            excess = (diff - rtol * want.float().abs()).max().item()
+            check(excess <= atol and want.abs().max().item() > 0,
+                  f"(a) {name} {what}: |err| exceeds {atol} + {rtol}|ref| "
+                  f"by {excess - atol}")
+            errs[what] = diff.max().item()
+        res["cases"].append(dict(name=name, window=window, ragged=ragged,
+                                 max_abs_err=errs))
+        del outs
+        if name != spec["attn"][0][0]:
+            continue
+        q, k, v = (t.clone().requires_grad_(True) for t in (q0, k0, v0))
+        with torch.no_grad():
+            fwd = cuda_ms_spread(torch, lambda: tatt.flash_attention(
+                q, k, v, **kw))
+            plain_ms = cuda_ms(torch, lambda: tatt.flash_attention_ref(
+                q, k, v, **kw), 2)
+        out = tatt.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.autograd.grad(out, (q, k, v), dout, retain_graph=True)
+        recompute_peak = torch.cuda.max_memory_allocated() - base
+        bwd = cuda_ms_spread(torch, lambda: torch.autograd.grad(
+            out, (q, k, v), dout, retain_graph=True))
+        del out
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
+                      for t in (q0, k0, v0))
+        dt = dout.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+        with torch.no_grad():
+            lib_fwd = cuda_ms_spread(torch, sdpa)
+        lib = cuda_ms_spread(torch, lambda: torch.autograd.grad(
+            sdpa(), (qt, kt, vt), dt))
+        pairs = b * sq * (sq + 1) // 2
+        es = 2
+        io = b * sq * h * d + 2 * b * sq * kvh * d  # q, k, v elements
+        t_bytes = (es * (io + b * sq * h * d) + 8 * b) / PEAK_BYTES * 1e3
+        t_ops = 4.0 * pairs * h * d / PEAK_FLOPS["bfloat16"] * 1e3
+        # Forward + backward: q, k, v, dout read, out, dq, dk, dv written;
+        # 4 D flops a valid pair forward, 8 D backward (dV, dP, dQ, dK).
+        fb_bytes = es * (2 * io + 2 * b * sq * h * d) / PEAK_BYTES * 1e3
+        fb_ops = 12.0 * pairs * h * d / PEAK_FLOPS["bfloat16"] * 1e3
+        res.update(
+            case=name, ms=fwd["ms"], ms_min=fwd["min"], ms_max=fwd["max"],
+            backward_ms=bwd["ms"], backward_ms_min=bwd["min"],
+            backward_ms_max=bwd["max"], plain_ms=plain_ms,
+            library_fwd_ms=lib_fwd["ms"], library_ms=lib["ms"],
+            library_ms_min=lib["min"], library_ms_max=lib["max"],
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            fwd_bwd_bound_ms=max(fb_bytes, fb_ops),
+            fwd_bwd_bound_by="bytes" if fb_bytes >= fb_ops else "operations",
+            recompute_peak_gb=recompute_peak / 1e9)
+        del qt, kt, vt
+        _free(torch, dev)
+    res["max_abs_err"] = max(max(c["max_abs_err"].values())
+                             for c in res["cases"])
+    return res
+
+
+def _llama_cfg(name: str):
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+
+    return llama_mod.CONFIGS[name]
+
+
+def _train_layer_check(torch, tatt, dev, spec) -> dict:
+    """(a) One llama-1b layer (bf16, seeded): the loss's gradients through
+    B1 (one launch, one recompute) against the same layer with the plain
+    attention (`flash_attention_ref` through the `attn_impl` hook)."""
+    import dataclasses
+
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.models import training
+
+    cfg = dataclasses.replace(_llama_cfg(spec["model"]), num_layers=1)
+    params = llama_mod.init_params(cfg, dev, SEED + 18)
+    for t in training.stored_tensors(params):
+        t.requires_grad_(True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    toks = torch.randint(3, cfg.vocab_size, (spec["batch"], spec["seq_len"]),
+                         generator=gen, device=dev)
+
+    def plain(q, k, v, causal=True, window=None):
+        return tatt.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+    grads = []
+    counts = []
+    for impl in (None, plain):
+        for t in training.stored_tensors(params):
+            t.grad = None
+        before = (tatt.flash_attention.launches,
+                  tatt.flash_attention.backward_recomputes)
+        logits, _ = llama_mod.forward(params, cfg, toks[:, :-1],
+                                      attn_impl=impl)
+        training.next_token_xent(logits, toks[:, 1:]).backward()
+        del logits
+        counts.append((tatt.flash_attention.launches - before[0],
+                       tatt.flash_attention.backward_recomputes - before[1]))
+        grads.append({n: params["layers"][n].grad.float().clone()
+                      for n in ("wqkv", "attn_norm")})
+    check(counts == [(1, 1), (0, 0)],
+          f"(a) one layer: (launches, recomputes) B1 / plain {counts}")
+    rel = {}
+    for n in grads[0]:
+        got, want = grads[0][n], grads[1][n]
+        check(got.abs().max().item() > 0, f"(a) {n}.grad is zero through B1")
+        rel[n] = ((got - want).norm() / want.norm()).item()
+        check(rel[n] <= TRAIN_LAYER_REL, f"(a) {n}.grad through B1 vs plain: "
+              f"relative L2 {rel[n]} > {TRAIN_LAYER_REL}")
+    del params, grads
+    _free(torch, dev)
+    return dict(grad_rel_err=rel, bound=TRAIN_LAYER_REL)
+
+
+def _tiny_train_check(torch, tatt, dev, spec) -> dict:
+    """(b) tiny-llama float32: 3 AdamW steps on the card and on the CPU
+    from one seeded tree, at tensor 1, tensor 2 and stage 2 (both shards
+    of a mesh on the card)."""
+    import numpy as np
+
+    from ggrmcp_tpu_torch.core.config import MeshConfig
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.models import trainer, training
+    from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+    from ggrmcp_tpu_torch.parallel import pipeline
+
+    cfg = _llama_cfg(spec["tiny"])
+    cpu = torch.device("cpu")
+    whole = llama_mod.init_params(cfg, cpu, SEED + 18)
+    rng = np.random.default_rng(SEED + 18)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 65)))
+               for _ in range(3)]
+    res = {}
+    for axis, n in spec["tiny_meshes"]:
+        runs = []
+        for d in (cpu, dev):
+            mcfg = MeshConfig(**{"tensor": 1, axis: n})
+            mesh = mesh_mod.build_mesh(mcfg, [d] * n)
+            # A copy on either device: training updates its tree in place.
+            tree = {k: ({n: t.clone().to(d) for n, t in v.items()}
+                        if isinstance(v, dict) else v.clone().to(d))
+                    for k, v in whole.items()}
+            state = training.make_train_state(tree, cfg, mesh=mesh)
+            step = (pipeline.make_pipeline_train_step(cfg, mesh)
+                    if axis == "stage" and n > 1 else
+                    lambda st, t: training.train_step(st, t, cfg))
+            tatt.flash_attention.launches = 0
+            losses = []
+            for batch in batches:
+                state, loss = step(state, batch.to(d))
+                losses.append(loss.item())
+            runs.append((losses, trainer.state_tensors(state, cfg)[0],
+                         tatt.flash_attention.launches))
+            del state
+        (cl, cp, _), (gl, gp, launches) = runs
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+        check(loss_err <= TRAIN_TINY_REL, f"(b) {axis}={n}: card losses {gl} "
+              f"vs cpu {cl}")
+        leaf_rel = leaf_abs = off_frac = 0.0
+        for name, want in cp.items():
+            diff = (gp[name].cpu() - want).abs()
+            off = int((diff > TRAIN_TINY_REL * want.abs().max()).sum())
+            off_frac = max(off_frac, off / diff.numel())
+            leaf_rel = max(leaf_rel, (diff.norm() / want.norm()).item())
+            leaf_abs = max(leaf_abs, diff.max().item())
+        check(off_frac <= TRAIN_TINY_REL and leaf_abs <= 3 * TRAIN_LR,
+              f"(b) {axis}={n}: {off_frac} of a leaf's entries beyond "
+              f"{TRAIN_TINY_REL} of its largest, max abs {leaf_abs}")
+        check(launches == 3 * cfg.num_layers * 2 if n > 1
+              else launches == 3 * cfg.num_layers,
+              f"(b) {axis}={n}: {launches} B1 launches in 3 steps")
+        res[f"{axis}={n}"] = dict(loss_rel_err=loss_err, leaf_rel_l2=leaf_rel,
+                                  leaf_max_abs=leaf_abs,
+                                  leaf_off_fraction=off_frac,
+                                  launches=launches, losses=gl)
+    return res
+
+
+_STEP_LINE = re.compile(
+    r"step (\d+)/(\d+) loss=(\S+) \(\S+ steps/s, (\S+) ms/step\)")
+_SUMMARY = re.compile(
+    r"trained steps (\d+)-(\d+): attention kernel launches (\d+), backward "
+    r"recomputes (\d+), peak device memory (\S+) GB")
+
+
+def _train_cli(argv: list, tmp: str, what: str) -> dict:
+    """One `python3 -m ggrmcp_tpu_torch train` subprocess: its step lines,
+    its summary (B1 launches and recomputes of the run, peak memory) and
+    its wall time; the log goes to a file under `tmp`."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    log_path = os.path.join(tmp, f"{what}.log")
+    t = time.perf_counter()
+    with open(log_path, "w") as fh:
+        proc = subprocess.run(
+            [sys.executable, "-m", "ggrmcp_tpu_torch", "train", *argv],
+            cwd=here, stdout=fh, stderr=subprocess.STDOUT, timeout=900)
+    seconds = time.perf_counter() - t
+    with open(log_path) as fh:
+        text = fh.read()
+    check(proc.returncode == 0, f"(c) {what}: exit {proc.returncode}; "
+          f"{text[-2000:]}")
+    steps = [(int(m[1]), float(m[3]), float(m[4]))
+             for m in _STEP_LINE.finditer(text)]
+    summary = _SUMMARY.search(text)
+    check(summary is not None, f"(c) {what}: no summary line")
+    return dict(text=text, steps=steps, seconds=seconds,
+                launches=int(summary[3]), recomputes=int(summary[4]),
+                peak_gb=float(summary[5]))
+
+
+async def train_phase(torch, tatt, dev, spec=None) -> dict:
+    """Phase 18: (a) B1 under autograd at the training shape and one
+    llama-1b layer's gradients; (b) tiny-llama card = CPU after 3 AdamW
+    steps at tensor 1 and 2 and stage 2; (c) the `train` CLI at llama-1b
+    width, 20 steps then a resume to 30; (d) the trained weights served
+    by `serving.checkpoint_path`, an Orbax tree refused."""
+    import shutil
+    import tempfile
+
+    import grpc
+
+    from ggrmcp_tpu_torch.core.config import ServingConfig
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.rpc.pb import serving_pb2
+    from ggrmcp_tpu_torch.serving import checkpoint
+    from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+    from ggrmcp_tpu_torch.serving.sidecar import Sidecar
+
+    spec = spec or P18
+    t_phase = time.perf_counter()
+    res: dict = {"attention": _train_attention(torch, tatt, dev, spec)}
+    log(f"  (a) {json.dumps(res['attention'])}")
+    res["layer"] = _train_layer_check(torch, tatt, dev, spec)
+    log(f"  (a) one layer: {json.dumps(res['layer'])}")
+    res["tiny"] = _tiny_train_check(torch, tatt, dev, spec)
+    log(f"  (b) {json.dumps(res['tiny'])}")
+    cfg = _llama_cfg(spec["model"])
+    n_params = llama_mod.num_params(cfg)
+    tokens = spec["batch"] * (spec["seq_len"] - 1)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        data = os.path.join(tmp, "corpus.txt")
+        with open(data, "w") as fh:
+            fh.write(P18_TEXT * 200)
+        conf = os.path.join(tmp, "train.json")
+        with open(conf, "w") as fh:
+            json.dump({"training": {"log_every_steps": 1}}, fh)
+        ck = os.path.join(tmp, "ck")
+        argv = ["--model", spec["model"], "--batch-size", str(spec["batch"]),
+                "--seq-len", str(spec["seq_len"]), "--data", data,
+                "--checkpoint-dir", ck, "--save-every",
+                str(spec["save_every"]), "--config", conf]
+        tatt.flash_attention.launches = 0
+        tatt.flash_attention.backward_recomputes = 0
+        run = _train_cli(["--steps", str(spec["steps"]), *argv], tmp, "train")
+        steps = run.pop("steps")
+        check([s for s, _, _ in steps] == list(range(1, spec["steps"] + 1)),
+              f"(c) step lines {[s for s, _, _ in steps]}")
+        losses = [loss for _, loss, _ in steps]
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"(c) losses {losses} not finite and falling")
+        per_step = cfg.num_layers * spec["steps"]
+        check(run["launches"] == per_step and run["recomputes"] == per_step,
+              f"(c) B1 launches {run['launches']}, recomputes "
+              f"{run['recomputes']} in {spec['steps']} steps (want "
+              f"{cfg.num_layers} a step each)")
+        timed = sorted(ms for s, _, ms in steps if s >= spec["timed_from"])
+        p50 = timed[len(timed) // 2]
+        run.pop("text")
+        res["cli"] = dict(
+            run, loss_first=losses[0], loss_last=losses[-1], losses=losses,
+            step_ms_p50=p50, step_ms_min=timed[0], step_ms_max=timed[-1],
+            tokens_per_s=tokens / (p50 / 1e3), n_params=n_params,
+            mfu=6 * n_params * tokens / (p50 / 1e3) / PEAK_FLOPS["bfloat16"],
+            flops_floor_ms=6 * n_params * tokens / PEAK_FLOPS["bfloat16"]
+            * 1e3, launches_per_step=run["launches"] / spec["steps"],
+            recomputes_per_step=run["recomputes"] / spec["steps"])
+        log(f"  (c) {json.dumps(res['cli'])}")
+        shutil.rmtree(os.path.join(ck, f"step_{spec['save_every']}"))
+        resumed = _train_cli(["--steps", str(spec["resume_to"]), *argv], tmp,
+                             "resume")
+        check(f"resumed from step {spec['steps']}" in resumed["text"],
+              "(c) the second run did not resume from step "
+              f"{spec['steps']}")
+        rsteps = resumed.pop("steps")
+        resumed.pop("text")
+        check([s for s, _, _ in rsteps] == list(range(spec["steps"] + 1,
+                                                     spec["resume_to"] + 1))
+              and all(math.isfinite(x) for _, x, _ in rsteps),
+              f"(c) resumed steps {rsteps}")
+        res["resume"] = dict(resumed, losses=[x for _, x, _ in rsteps])
+        log(f"  (c) resume: {json.dumps(res['resume'])}")
+
+        # (d) the trained weights served.
+        path = os.path.join(ck, f"step_{spec['resume_to']}", "params")
+        prompt = P18_TEXT[:40]
+        tok = [1] + [b + 3 for b in prompt.encode()]
+        tatt.flash_attention.launches = 0
+        sidecar = Sidecar(ServingConfig(model=spec["model"],
+                                        checkpoint_path=path), device=dev)
+        port = await sidecar.start(0)
+        try:
+            async with grpc.aio.insecure_channel(f"localhost:{port}") as ch:
+                generate = ch.unary_unary(
+                    "/ggrmcp.tpu.GenerateService/Generate",
+                    request_serializer=serving_pb2.GenerateRequest
+                    .SerializeToString,
+                    response_deserializer=serving_pb2.GenerateResponse
+                    .FromString)
+                resp = await generate(serving_pb2.GenerateRequest(
+                    prompt=prompt, max_new_tokens=spec["serve_new"],
+                    return_tokens=True), timeout=600)
+        finally:
+            await sidecar.stop()
+        served = list(resp.token_ids)
+        serve_launches = tatt.flash_attention.launches
+        del sidecar
+        _free(torch, dev)
+        weights = checkpoint.load_params(path, dev, spec["model"])
+        ref, _ = GenerationEngine(cfg, params=weights, device=dev).generate(
+            [tok], spec["serve_new"], eos_id=2)
+        del weights
+        check(served == ref[0] and len(served) > 0,
+              f"(d) sidecar tokens {served} != engine's {ref[0]}")
+        orbax = os.path.join(tmp, "orbax")
+        os.makedirs(orbax)
+        for marker in ("_CHECKPOINT_METADATA", "manifest.ocdbt"):
+            open(os.path.join(orbax, marker), "w").close()
+        try:
+            Sidecar(ServingConfig(model=spec["model"], checkpoint_path=orbax),
+                    device=dev)
+            refused = ""
+        except ValueError as exc:
+            refused = str(exc)
+        check("Orbax" in refused, f"(d) an Orbax tree was not refused: "
+              f"{refused!r}")
+        res["serve"] = dict(tokens=served, launches=serve_launches,
+                            refused=refused)
+        log(f"  (d) {json.dumps(res['serve'])}")
+    _free(torch, dev)
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def _free(torch, dev) -> None:
     gc.collect()
     if dev.type == "cuda":
@@ -5323,69 +5750,69 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         card = card_line()
-        log(f"[1/17] card: {card}; torch {torch.__version__}, CUDA "
+        log(f"[1/18] card: {card}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
         t = time.perf_counter()
         _build.load("flash_attention")
-        log(f"[2/17] build: flash_attention.cu in "
+        log(f"[2/18] build: flash_attention.cu in "
             f"{time.perf_counter() - t:.1f} s")
         ptxas_report(_build.build_log.get("flash_attention", ""))
 
         if run(3):
-            log(f"[3/17] kernel vs plain (|err| <= atol + rtol |plain|: "
+            log(f"[3/18] kernel vs plain (|err| <= atol + rtol |plain|: "
                 f"{TOL})")
             cases = kernel_cases(torch, tatt, dev)
 
         if run(4):
-            log("[4/17] reference: tiny-llama on the card vs the CPU")
+            log("[4/18] reference: tiny-llama on the card vs the CPU")
             ref = tiny_reference(torch, dev)
             log(f"  {ref}")
 
         if run(5):
-            log(f"[5/17] serve: {MODEL} sidecar, default batching")
+            log(f"[5/18] serve: {MODEL} sidecar, default batching")
             serve = asyncio.run(serve_phase(torch, tatt, dev))
             log(f"  {json.dumps(serve)}")
             tidy()
 
         if run(6):
-            log(f"[6/17] embed: {EMBED_MODEL} sidecar")
+            log(f"[6/18] embed: {EMBED_MODEL} sidecar")
             embed = asyncio.run(embed_phase(torch, tatt, dev))
             log(f"  {json.dumps(embed)}")
             tidy()
 
         if run(7):
-            log("[7/17] HF checkpoint: llama3-8b width, 2 layers, 2 files")
+            log("[7/18] HF checkpoint: llama3-8b width, 2 layers, 2 files")
             hf = asyncio.run(hf_phase(torch, tatt, dev))
             log(f"  {json.dumps(hf)}")
             tidy()
 
         if run(8):
-            log(f"[8/17] int8: {MODEL} weights and KV cache")
+            log(f"[8/18] int8: {MODEL} weights and KV cache")
             int8 = asyncio.run(int8_phase(torch, tatt, dev))
             tidy()
 
         if run(9):
-            log(f"[9/17] KV reuse: {MODEL} prefix pool, interleave, "
+            log(f"[9/18] KV reuse: {MODEL} prefix pool, interleave, "
                 f"paged KV")
             reuse = asyncio.run(kv_reuse_phase(torch, tatt, dev))
             tidy()
 
         if run(10):
-            log(f"[10/17] grammar: {MODEL} constrained burst, jump on / "
+            log(f"[10/18] grammar: {MODEL} constrained burst, jump on / "
                 f"off")
             grammar = asyncio.run(grammar_phase(torch, tatt, dev))
             log(f"  {json.dumps(_brief(grammar))}")
             tidy()
 
         if run(11):
-            log(f"[11/17] control plane: {MODEL} tick phases, Profile, "
+            log(f"[11/18] control plane: {MODEL} tick phases, Profile, "
                 f"GetMemory, scheduler, failpoints, deadlines")
             control = asyncio.run(control_phase(torch, tatt, dev))
             tidy()
 
         if run(12):
-            log(f"[12/17] paged plane and LoRA: {MODEL} host tier, "
+            log(f"[12/18] paged plane and LoRA: {MODEL} host tier, "
                 f"TransferKV with roles, adapter arena, preemption with "
                 f"the host tier")
             paged = asyncio.run(paged_lora_phase(torch, tatt, dev))
@@ -5393,14 +5820,14 @@ def main() -> int:
 
         if run(13):
             t = time.perf_counter()
-            log(f"[13/17] speculative decoding, ring KV, tiers: "
+            log(f"[13/18] speculative decoding, ring KV, tiers: "
                 f"{P13['model']} with the {P13['draft']} draft")
             p13 = asyncio.run(spec_ring_tier_phase(torch, tatt, dev))
             log(f"  phase 13: {time.perf_counter() - t:.1f} s, "
                 f"{p13['launches']} B1 launches")
 
         if run(14):
-            log(f"[14/17] sparse MoE: {P14['model']} cut to "
+            log(f"[14/18] sparse MoE: {P14['model']} cut to "
                 f"{P14['layers']} layers, bf16")
             p14 = asyncio.run(moe_phase(torch, tatt, dev))
             log(f"  phase 14: {p14['seconds']:.1f} s, {p14['launches']} B1 "
@@ -5408,7 +5835,7 @@ def main() -> int:
             _free(torch, dev)
 
         if run(15):
-            log(f"[15/17] tensor and expert parallelism: {P15['model']} "
+            log(f"[15/18] tensor and expert parallelism: {P15['model']} "
                 f"at tensor={P15['tensor']} on one card, the sharded "
                 f"loader, {P15['moe']} at expert=2 x tensor=2")
             p15 = asyncio.run(tp_phase(torch, tatt, dev))
@@ -5417,7 +5844,7 @@ def main() -> int:
             _free(torch, dev)
 
         if run(16):
-            log(f"[16/17] co-launch: {P16['model']} sidecar in this "
+            log(f"[16/18] co-launch: {P16['model']} sidecar in this "
                 f"process, the unchanged gateway a child, over a private "
                 f"socket")
             p16 = asyncio.run(colaunch_phase(torch, tatt, dev))
@@ -5426,7 +5853,7 @@ def main() -> int:
             _free(torch, dev)
 
         if run(17):
-            log(f"[17/17] sequence- and pipeline-parallel serving: "
+            log(f"[17/18] sequence- and pipeline-parallel serving: "
                 f"{P17['model']} at sequence={P17['sequence']} and "
                 f"stage={P17['stage']}, every shard on one card")
             p17 = asyncio.run(sp_pp_phase(torch, tatt, dev))
@@ -5435,6 +5862,19 @@ def main() -> int:
                 f"{p17['pp_launches']} at stage={P17['stage']} (a stage's "
                 f"attention and the sp attention are plain, as the "
                 f"reference's are)")
+            _free(torch, dev)
+
+        if run(18):
+            log(f"[18/18] training: {P18['model']} through the train CLI "
+                f"({P18['steps']} steps at [{P18['batch']}, "
+                f"{P18['seq_len']}], a resume to {P18['resume_to']}), B1 "
+                f"under autograd, {P18['tiny']} card = CPU at tensor and "
+                f"stage 2, the trained weights served")
+            p18 = asyncio.run(train_phase(torch, tatt, dev))
+            log(f"  phase 18: {p18['seconds']:.1f} s, "
+                f"{p18['cli']['launches']} B1 launches and "
+                f"{p18['cli']['recomputes']} backward recomputes in "
+                f"{P18['steps']} steps")
             _free(torch, dev)
     except SmokeError as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
@@ -5480,12 +5920,27 @@ def main() -> int:
         tp_burst_launches=p15["serve"][str(P15["tensor"])]["burst_launches"],
         colaunch_launches=p16["colaunch_launches"],
         sp_launches=p17["sp"]["sp_launches"], pp_launches=p17["pp_launches"],
+        train_launches=p18["cli"]["launches"],
+        train_recomputes=p18["cli"]["recomputes"],
+        train_launches_per_step=p18["cli"]["launches_per_step"],
+        resume_launches=p18["resume"]["launches"],
+        train_serve_launches=p18["serve"]["launches"],
+        train_case=p18["attention"]["case"], train_ms=p18["attention"]["ms"],
+        train_backward_ms=p18["attention"]["backward_ms"],
+        train_plain_ms=p18["attention"]["plain_ms"],
+        train_library_ms=p18["attention"]["library_ms"],
+        train_library_fwd_ms=p18["attention"]["library_fwd_ms"],
+        train_bound_ms=p18["attention"]["bound_ms"],
+        train_bound_by=p18["attention"]["bound_by"],
+        train_fwd_bwd_bound_ms=p18["attention"]["fwd_bwd_bound_ms"],
+        train_max_abs_err=p18["attention"]["max_abs_err"],
         shard_case=p15["kernel"]["name"], shard_ms=p15["kernel"]["ms"],
         shard_bound_ms=p15["kernel"]["bound_ms"],
         shard_library_ms=p15["kernel"]["library_ms"],
         shard_max_abs_err=p15["kernel"]["max_abs_err"],
         max_abs_err=max([c["max_abs_err"] for c in cases]
-                        + [p15["kernel"]["max_abs_err"]]),
+                        + [p15["kernel"]["max_abs_err"],
+                           p18["attention"]["max_abs_err"]]),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
         ms_min=head["ms_min"], ms_max=head["ms_max"],

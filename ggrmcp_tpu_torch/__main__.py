@@ -1,4 +1,4 @@
-"""CLI: `python -m ggrmcp_tpu_torch [gateway|sidecar] ...`.
+"""CLI: `python -m ggrmcp_tpu_torch [gateway|sidecar|train] ...`.
 
 `gateway` (also what bare flags mean, as in the reference CLI) is the
 one-process-tree entry: it serves the sidecar in this process and
@@ -12,7 +12,13 @@ or GGRMCP_GRPC_* variable); `--model`, `--quantize`, `--hf-checkpoint`,
 `--tokenizer` and `--speculative-draft` configure the sidecar; `--tpu`
 is accepted and implied (this gateway always co-launches; run `python -m
 ggrmcp_tpu gateway` for a plain one); `--workers` above 1 is refused.
-`train` waits for the port of training (ROADMAP A19c).
+
+`train` runs the training loop (models/trainer.py) with the reference's
+flags (`--model`, `--steps`, `--batch-size`, `--seq-len`,
+`--learning-rate`, `--checkpoint-dir`, `--save-every`, `--no-resume`,
+`--data`, `--config`, `--log-level`) over the config file's `training`
+section; its checkpoints (`<dir>/step_N/params`) are what
+`serving.checkpoint_path` serves.
 
 `sidecar` serves the sidecar alone over gRPC (`--port`, TCP; or a
 `serving.uds_path` socket): a llama or sparse-MoE model (or any HF
@@ -49,7 +55,7 @@ from ggrmcp_tpu_torch.core import config as cfgmod
 from ggrmcp_tpu_torch.core.config import QUANTIZE_MODES
 from ggrmcp_tpu_torch.models import available_models
 
-SUBCOMMANDS = ("gateway", "sidecar")
+SUBCOMMANDS = ("gateway", "sidecar", "train")
 
 
 def _sidecar_flags(p: argparse.ArgumentParser) -> None:
@@ -79,8 +85,8 @@ def _sidecar_flags(p: argparse.ArgumentParser) -> None:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="ggrmcp_tpu_torch",
-        description="PyTorch/CUDA serving sidecar and its co-launched MCP "
-        "gateway (training: not ported yet, ROADMAP A19c)",
+        description="PyTorch/CUDA serving sidecar, its co-launched MCP "
+        "gateway, and the trainer",
     )
     sub = parser.add_subparsers(dest="command")
     gw = sub.add_parser(
@@ -114,7 +120,40 @@ def build_parser() -> argparse.ArgumentParser:
                     help="gRPC port (default 50051)")
     sc.add_argument("--log-level", default="info")
     _sidecar_flags(sc)
+    tr = sub.add_parser(
+        SUBCOMMANDS[2], help="train a decoder model (checkpoint/resume)")
+    tr.add_argument("--model", default=None, choices=available_models(),
+                    help="model registry key")
+    tr.add_argument("--steps", type=int, default=None)
+    tr.add_argument("--batch-size", type=int, default=None)
+    tr.add_argument("--seq-len", type=int, default=None)
+    tr.add_argument("--learning-rate", type=float, default=None)
+    tr.add_argument("--checkpoint-dir", default=None,
+                    help="root for step_N/{state,params} checkpoints")
+    tr.add_argument("--save-every", type=int, default=None)
+    tr.add_argument("--no-resume", action="store_true",
+                    help="start fresh even if checkpoints exist")
+    tr.add_argument("--data", default=None, help="raw text file to train on")
+    tr.add_argument("--config", default=None,
+                    help="reference config file (JSON, or YAML with PyYAML)")
+    tr.add_argument("--log-level", default=None)
+    tr.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' only when asked)")
     return parser
+
+
+def training_config(args: argparse.Namespace,
+                    environ: dict | None = None) -> cfgmod.TrainingConfig:
+    """The `training` section of defaults → `--config` file →
+    GGRMCP_TRAINING_* environment → the train flags given."""
+    tc = cfgmod.load(args.config, environ=environ).training
+    flags = dict(
+        model=args.model, steps=args.steps, batch_size=args.batch_size,
+        seq_len=args.seq_len, learning_rate=args.learning_rate,
+        checkpoint_dir=args.checkpoint_dir, save_every_steps=args.save_every,
+        data_path=args.data, resume=False if args.no_resume else None)
+    return dataclasses.replace(
+        tc, **{k: v for k, v in flags.items() if v is not None})
 
 
 def load_config(args: argparse.Namespace,
@@ -221,6 +260,11 @@ def main(argv=None) -> int:
     )
     if args.command == "sidecar":
         asyncio.run(_serve(args))
+        return 0
+    if args.command == "train":
+        from ggrmcp_tpu_torch.models.trainer import train
+
+        train(training_config(args), device=args.device)
         return 0
     cfg = load_config(args)
     if _workers(args, cfg) > 1:

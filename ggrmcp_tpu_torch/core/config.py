@@ -1,14 +1,14 @@
-"""The port's serving configuration.
+"""The port's serving and training configuration.
 
-`BatchingConfig`, `ServingConfig` and their sections carry the fields
-this package reads, under the reference's names and defaults
-(`ggrmcp_tpu/core/config.py`), with the reference's checks. Fields of
-features the port does not implement yet are carried only as guards: a
-non-default value raises ValueError naming the field, never silently
-ignored. `load` reads a whole reference config file (JSON, or YAML with
-PyYAML) and the GGRMCP_SERVING_* / GGRMCP_FLEET_* environment over it:
-`serving` and the fleet's restart knobs into these classes, the
-gateway's sections verbatim.
+`BatchingConfig`, `ServingConfig`, `TrainingConfig` and their sections
+carry the fields this package reads, under the reference's names and
+defaults (`ggrmcp_tpu/core/config.py`), with the reference's checks. A
+value the port does not serve raises ValueError naming the field, never
+silently ignored. `load` reads a whole reference config file (JSON, or
+YAML with PyYAML) and the GGRMCP_SERVING_* / GGRMCP_FLEET_* /
+GGRMCP_TRAINING_* environment over it: `serving`, `training` and the
+fleet's restart knobs into these classes, the gateway's sections
+verbatim.
 """
 
 from __future__ import annotations
@@ -21,21 +21,6 @@ from typing import Any, Optional
 
 # Weight and KV-cache quantization modes ("" = the model dtype).
 QUANTIZE_MODES = ("", "int8")
-
-
-def _check_unsupported(obj: Any, names: tuple[str, ...], where: str) -> None:
-    for f in dataclasses.fields(obj):
-        if f.name not in names:
-            continue
-        default = (
-            f.default_factory() if f.default_factory is not dataclasses.MISSING
-            else f.default
-        )
-        if getattr(obj, f.name) != default:
-            raise ValueError(
-                f"{where}.{f.name}={getattr(obj, f.name)!r} is not supported "
-                f"by the PyTorch port yet (only the default {default!r})"
-            )
 
 
 @dataclass
@@ -549,6 +534,42 @@ def check_mesh_axes(sizes: dict) -> None:
             )
 
 
+@dataclass
+class TrainingConfig:
+    """`python -m ggrmcp_tpu_torch train` (models/trainer.py): the
+    reference's fields, defaults and checks. `mesh` takes tensor (and
+    expert for MoE, stage for the pipeline) as serving does."""
+
+    model: str = "tiny-llama"
+    steps: int = 100
+    batch_size: int = 8
+    seq_len: int = 128
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.01
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    # Checkpoint root ("" = no persistence): each save writes
+    # <dir>/step_N/state (the resume target) and <dir>/step_N/params
+    # (what serving.checkpoint_path serves).
+    checkpoint_dir: str = ""
+    save_every_steps: int = 100
+    resume: bool = True
+    data_path: str = ""  # raw text file ("" = a synthetic token stream)
+    log_every_steps: int = 10
+    seed: int = 0
+
+    def __post_init__(self) -> None:
+        if not isinstance(self.mesh, MeshConfig):
+            raise ValueError("training.mesh must be a MeshConfig")
+        if self.steps < 1 or self.batch_size < 1:
+            raise ValueError("training steps/batch_size must be >= 1")
+        if self.seq_len < 2:
+            raise ValueError(
+                "training seq_len must be >= 2 (shift-by-one loss)")
+        if self.log_every_steps < 1 or self.save_every_steps < 1:
+            raise ValueError(
+                "training log_every_steps/save_every_steps must be >= 1")
+
+
 # Replica roles (serving.role). "mixed" serves whole requests;
 # "prefill" replicas admit a long prompt, then ship its finished KV
 # pages to a decode replica (sidecar-to-sidecar TransferKV); "decode"
@@ -621,15 +642,19 @@ class ServingConfig:
     # sp_prefill_min_seq tokens.
     sp_prefill: str = "ring"
     sp_prefill_min_seq: int = 1024
-    # Guards: reference features not ported yet (the draft checkpoint
-    # restores through Orbax, like checkpoint_path).
+    # Weights of `model` (and of the draft) from a checkpoint in the
+    # port's own format (serving/checkpoint.py: what `python -m
+    # ggrmcp_tpu_torch train` writes, e.g. <dir>/step_N/params); an
+    # Orbax tree of the JAX package is refused here, at construction.
     checkpoint_path: str = ""
     speculative_draft_checkpoint: str = ""
 
-    UNSUPPORTED = ("checkpoint_path", "speculative_draft_checkpoint")
-
     def __post_init__(self) -> None:
-        _check_unsupported(self, self.UNSUPPORTED, "serving")
+        for name in ("checkpoint_path", "speculative_draft_checkpoint"):
+            if getattr(self, name):
+                from ggrmcp_tpu_torch.serving.checkpoint import read_meta
+
+                read_meta(getattr(self, name), f"serving.{name}")
         if not isinstance(self.batching, BatchingConfig):
             raise ValueError("serving.batching must be a BatchingConfig")
         for name, cls in (("grammar", GrammarConfig),
@@ -769,7 +794,8 @@ def _from_dict(cls, data: Any, where: str, nested: dict):
 
 # Top-level sections of a reference config file that the gateway reads:
 # the co-launch hands them to the gateway process verbatim (it validates
-# them); the sidecar alone ignores them.
+# them); the sidecar alone ignores them. "training" is also parsed here,
+# strictly, for the train subcommand.
 GATEWAY_SECTIONS = ("server", "grpc", "logging", "mcp", "metrics",
                     "session", "tools", "gateway", "training")
 
@@ -801,12 +827,14 @@ class FleetConfig:
 
 @dataclass
 class Config:
-    """A whole reference config file as the port reads it: `serving`
-    and the fleet's restart knobs parsed, the gateway's sections (and
-    the fleet section) kept verbatim in `sections`."""
+    """A whole reference config file as the port reads it: `serving`,
+    `training` and the fleet's restart knobs parsed, the gateway's
+    sections (training and the fleet section among them) kept verbatim
+    in `sections`."""
 
     serving: ServingConfig = field(default_factory=ServingConfig)
     fleet: FleetConfig = field(default_factory=FleetConfig)
+    training: TrainingConfig = field(default_factory=TrainingConfig)
     sections: dict = field(default_factory=dict)
 
 
@@ -843,6 +871,8 @@ def config_from_dict(data: dict) -> Config:
         serving=_from_dict(ServingConfig, data.get("serving", {}), "serving",
                            _SERVING_NESTED),
         fleet=FleetConfig(**{k: v for k, v in fleet.items() if k in knobs}),
+        training=_from_dict(TrainingConfig, data.get("training", {}),
+                            "training", {"mesh": MeshConfig}),
         sections={k: v for k, v in data.items() if k != "serving"},
     )
 
@@ -878,16 +908,17 @@ def load_serving_config(path: str) -> ServingConfig:
     return config_from_dict(read_file(path)).serving
 
 
-# The environment layer (the reference's apply_env): GGRMCP_SERVING_* and
-# GGRMCP_FLEET_* set the port's sections; every other GGRMCP_ variable is
-# the gateway's, and GGRMCP_FLEET_WORKER_* is the reference fleet's spawn
-# handshake, never a config path.
-_ENV_SECTIONS = {"serving": ServingConfig, "fleet": FleetConfig}
+# The environment layer (the reference's apply_env): GGRMCP_SERVING_*,
+# GGRMCP_FLEET_* and GGRMCP_TRAINING_* set the port's sections; every
+# other GGRMCP_ variable is the gateway's, and GGRMCP_FLEET_WORKER_* is
+# the reference fleet's spawn handshake, never a config path.
+_ENV_SECTIONS = {"serving": ServingConfig, "fleet": FleetConfig,
+                 "training": TrainingConfig}
 _ENV_SKIP_PREFIXES = ("GGRMCP_FLEET_WORKER_",)
 
 
 def apply_env(data: dict, environ: Optional[dict] = None) -> dict:
-    """GGRMCP_SERVING_KEY=value / GGRMCP_FLEET_KEY=value overrides into
+    """GGRMCP_{SERVING,FLEET,TRAINING}_KEY=value overrides into
     a config tree, in place: nested paths use single underscores
     resolved greedily against the config classes, and the raw string is
     coerced by the type of the value it replaces (the reference's

@@ -15,6 +15,11 @@ reference engine's `draft_params`) converts the same way and reaches
 `GenerationEngine` as its `draft_params`. A MoE tree (models/moe.py)
 crosses the same way; its `router` leaves stay float32 whatever `dtype`
 is, as the reference keeps them (a bf16 router would route otherwise).
+
+`train_state_from_numpy` carries a reference `TrainState` across: its
+params as above, and optax's `ScaleByAdamState` (`mu`, `nu`, `count`)
+as the port's AdamW state (`exp_avg`, `exp_avg_sq`, `step`), leaf by
+leaf through the same mapping, so a JAX run can continue in the port.
 """
 
 from __future__ import annotations
@@ -67,3 +72,41 @@ def params_from_numpy(
         return _leaf(value, dev, dtype)
 
     return {key: convert(key, value) for key, value in tree.items()}
+
+
+def _adam_state(opt_state: Any):
+    """The `ScaleByAdamState` (a namedtuple with `mu`, `nu`, `count`) in
+    an optax state: itself, or an element of the chain's tuple."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    for sub in opt_state if isinstance(opt_state, tuple) else ():
+        found = _adam_state(sub)
+        if found is not None:
+            return found
+    return None
+
+
+def train_state_from_numpy(
+    params_np: dict, opt_state_np: Any, step: int, cfg, device,
+    dtype: Optional[torch.dtype] = None, learning_rate: float = 3e-4,
+    weight_decay: float = 0.01, mesh=None,
+):
+    """A reference TrainState (its leaves turned into numpy arrays, as
+    for `params_from_numpy`; `step` its step) → `training.TrainState` of
+    model config `cfg` on `device`, sharded onto `mesh` when given. The
+    AdamW step of every leaf is optax's `count`, which equals `step`."""
+    from ggrmcp_tpu_torch.models import training
+
+    adam = _adam_state(opt_state_np)
+    if adam is None:
+        raise ValueError("no optax ScaleByAdamState (mu, nu, count) in "
+                         "the optimizer state")
+    count = int(np.asarray(adam.count))
+    if count != int(step):
+        raise ValueError(f"TrainState.step {int(step)} != the optimizer's "
+                         f"count {count}")
+    params, mu, nu = (params_from_numpy(t, device, dtype)
+                      for t in (params_np, adam.mu, adam.nu))
+    return training.make_train_state(params, cfg, learning_rate,
+                                     weight_decay, mesh, step=count,
+                                     moments=(mu, nu))

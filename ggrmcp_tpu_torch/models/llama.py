@@ -25,6 +25,7 @@ from ggrmcp_tpu_torch.ops import quant
 from ggrmcp_tpu_torch.ops.attention import attention, flash_shardable
 from ggrmcp_tpu_torch.ops.quant import QuantizedTensor
 from ggrmcp_tpu_torch.ops.rope import apply_rope
+from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
 from ggrmcp_tpu_torch.parallel.collectives import (
     Sharded,
     all_gather,
@@ -32,6 +33,7 @@ from ggrmcp_tpu_torch.parallel.collectives import (
     local,
     per_device,
     replicate,
+    shard,
 )
 
 Params = common.Params
@@ -199,6 +201,58 @@ def qkv_columns(cfg: LlamaConfig, tensor: int, shard: int) -> torch.Tensor:
         n = kvh // tensor
         kv = torch.arange(shard * n * hd, (shard + 1) * n * hd)
     return torch.cat([q, h * hd + kv, (h + kvh) * hd + kv])
+
+
+def shard_index_fn(cfg: LlamaConfig, name: str):
+    """`shard`'s index_fn for leaf `name`: the fused wqkv's tensor split
+    is head-aligned (`qkv_columns`), every other leaf's blocks are
+    contiguous (None)."""
+    if name != "wqkv":
+        return None
+    return lambda dim, block, n: (qkv_columns(cfg, n, block) if dim == 2
+                                  else None)
+
+
+def shard_params(params: Params, cfg: LlamaConfig, mesh, specs: Params,
+                 on_downgrade=None) -> Params:
+    """Place a whole tree (either decoder family's) on `mesh` by `specs`,
+    IN PLACE, leaf by leaf: each whole leaf of `params` is replaced by
+    its shards as soon as they exist; leaves already sharded are kept. A
+    quantized leaf takes its q's and its scale's specs from
+    `quant.quantize_specs`. `compatible_spec` adapts every spec;
+    `on_downgrade(where, dim, entry, size, axis)` hears of each weight
+    dim it had to replicate (a scale's size-1 axis replicates silently).
+    """
+    if any(isinstance(leaf, QuantizedTensor)
+           for group in (params, params["layers"])
+           for leaf in group.values()):
+        specs = quant.quantize_specs(specs)
+
+    def cut(x, spec, where, name, observe=True):
+        adapted = mesh_mod.compatible_spec(
+            spec, x.shape, mesh, on_downgrade=(
+                (lambda *a: on_downgrade(where, *a))
+                if observe and on_downgrade else None))
+        return shard(x, adapted, mesh, shard_index_fn(cfg, name))
+
+    def place(leaf, spec, where, name):
+        if isinstance(getattr(leaf, "q", leaf), Sharded):
+            return leaf
+        if isinstance(leaf, QuantizedTensor):
+            return QuantizedTensor(
+                q=cut(leaf.q, spec.q, where, name),
+                scale=cut(leaf.scale, spec.scale, where, name, False))
+        return cut(leaf, spec, where, name)
+
+    for key, spec in specs.items():
+        if isinstance(spec, dict):
+            for name, sub in spec.items():
+                if name in params[key]:
+                    params[key][name] = place(
+                        params[key][name], sub, f"['{key}']['{name}']", name)
+        else:
+            params[key] = place(params[key], spec, f"['{key}']", key)
+    return params
 
 
 def shard_kv_heads(cfg: LlamaConfig, tensor: int,

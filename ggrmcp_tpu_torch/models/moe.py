@@ -325,22 +325,26 @@ def moe_ffn_sharded(
     cfg: MoEConfig,
     valid: Optional[torch.Tensor] = None,  # [B, S] bool
     auxes: Optional[list] = None,
+    coords: Optional[list[int]] = None,
 ) -> dict:
     """`moe_ffn` of layer `layer` over an expert x tensor mesh: route
     ONCE on `x` (capacity is batch-global), build the [E·C + 1, D] expert
     input once, then every mesh coordinate (e, t) runs experts [e·E/ep,
     (e+1)·E/ep) on its F/tp bank columns and sums its pairs' weighted
     outputs in float32; one all-reduce over the mesh combines them.
-    Appends the layer's aux loss to `auxes` when given. Returns {device:
-    output [B, S, D] in x's dtype} for every device of the mesh."""
+    `coords`: the flat coordinates that hold the layer (default every
+    one; a pipeline stage's expert x tensor block). Appends the layer's
+    aux loss to `auxes` when given. Returns {device: output [B, S, D] in
+    x's dtype} for every device of those coordinates."""
     mesh = layers["router"].mesh
+    coords = list(range(mesh.size)) if coords is None else coords
     b, s, d = x.shape
     t = b * s
     e, k = cfg.num_experts, cfg.experts_per_token
     xt = x.reshape(t, d)
     vt = valid.reshape(t).to(x.device) if valid is not None else None
     capacity = _capacity(cfg, t)
-    router = llama._at(layer, local(layers["router"], 0)).to(x.device)
+    router = llama._at(layer, local(layers["router"], coords[0])).to(x.device)
     probs, topk_p, topk_i, slot, kept = _assign(xt, router, cfg, capacity,
                                                 vt)
     if auxes is not None:
@@ -352,7 +356,8 @@ def moe_ffn_sharded(
     w = torch.where(kept, topk_p, 0.0).to(x.dtype).float()
     per_shard = e // mesh.shape["expert"]
     partials = []
-    for c, dev in enumerate(mesh.devices):
+    for c in coords:
+        dev = mesh.devices[c]
         lo = mesh.coord(c)["expert"] * per_shard * capacity
         hi = lo + per_shard * capacity
         banks = {name: llama._at(layer, local(layers[name], c))
@@ -367,6 +372,25 @@ def moe_ffn_sharded(
                          * w.to(dev)[..., None]).sum(1))
     return {p.device: r.to(x.dtype).view(b, s, d)
             for p, r in zip(partials, all_reduce_sum(partials))}
+
+
+def sharded_ffn(layers: Params, cfg: MoEConfig,
+                valid: Optional[torch.Tensor] = None,
+                auxes: Optional[list] = None,
+                coords: Optional[list[int]] = None):
+    """`llama.tp_layers`' `ffn` hook for the expert bank: the MoE norm
+    and residual around `moe_ffn_sharded` over `coords` (default the
+    whole mesh), appending each layer's aux loss to `auxes`."""
+
+    def ffn(layer, xs, lps, devs):
+        eps = cfg.norm_eps
+        normed = per_device(lambda x, w: common.rms_norm(x, w, eps), xs,
+                            [lp["mlp_norm"] for lp in lps])
+        out = moe_ffn_sharded(normed[0], layers, layer, cfg, valid, auxes,
+                              coords)
+        return per_device(torch.add, xs, [out[d] for d in devs])
+
+    return ffn
 
 
 # ---------------------------------------------------------------------------
@@ -403,15 +427,7 @@ def forward_with_aux(
         raise ValueError("paged_kv supports dense Llama only")
     if llama.is_sharded(params):
         auxes = [] if aux else None
-
-        def ffn(layer, xs, lps, devs):
-            eps = cfg.norm_eps
-            normed = per_device(lambda x, w: common.rms_norm(x, w, eps), xs,
-                                [lp["mlp_norm"] for lp in lps])
-            out = moe_ffn_sharded(normed[0], params["layers"], layer, cfg,
-                                  valid, auxes)
-            return per_device(torch.add, xs, [out[d] for d in devs])
-
+        ffn = sharded_ffn(params["layers"], cfg, valid, auxes)
         logits, cache = llama.forward_tp(params, cfg, tokens, cache,
                                          use_flash, ring, ffn=ffn)
         return logits, cache, torch.stack(auxes).mean() if aux else None

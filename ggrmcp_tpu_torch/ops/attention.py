@@ -11,7 +11,13 @@ head_dim]; K/V may carry fewer (KV) heads (GQA).
   function (float32 throughout, rows with no valid key → 0).
 - `flash_attention` — the wrapper of the hand-written CUDA kernel
   (`csrc/flash_attention.cu`). A CPU tensor takes `flash_attention_ref`;
-  a CUDA tensor launches the kernel or raises — never a fallback.
+  a CUDA tensor launches the kernel or raises — never a fallback. When a
+  gradient is wanted (grad enabled and q, k or v requiring it) the
+  launch goes through `FlashAttentionFn`, whose backward recomputes
+  `flash_attention_ref` on the saved inputs and differentiates it: the
+  kernel's forward with the plain version's gradient (training). The
+  JAX package has no backward kernel either; it differentiates XLA's
+  attention.
 - `attention` — the dispatcher: every query longer than
   GQA_GROUPED_MAX_SQ without ring positions (every admission prefill
   and chunk) goes to `flash_attention`; decode stays on `attention_ref`,
@@ -215,29 +221,10 @@ def _kernel_fn():
     return fn
 
 
-def flash_attention(
-    q: torch.Tensor,  # [B, Sq, H, D]
-    k: torch.Tensor,  # [B, Sk, KVH, D]
-    v: torch.Tensor,  # [B, Sk, KVH, D]
-    causal: bool = True,
-    q_offset: Optional[torch.Tensor] = None,  # [B] int32
-    kv_len: Optional[torch.Tensor] = None,  # [B] int32
-    window: Optional[int] = None,
-) -> torch.Tensor:
-    """FlashAttention over [B, S, H, D] with native GQA. CPU tensors run
-    `flash_attention_ref`. CUDA tensors launch the kernel on the current
-    stream and bump `flash_attention.launches`; anything the kernel does
-    not take raises.
-
-    Strides: q/k/v are passed as strided views — the per-layer slice of
-    a [L, B, S_max + 1, KVH, D] cache is not contiguous. A view that
-    `_kernel_layout_ok` refuses (for bfloat16, one that TMA cannot
-    address) is copied first."""
-    if q.device.type == "cpu":
-        return flash_attention_ref(
-            q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
-            window=window,
-        )
+def _checked_operands(q, k, v, causal, q_offset, kv_len, window):
+    """The kernel's operands after its checks: q, k, v as it reads them
+    (a view `_kernel_layout_ok` refuses is copied) and the int32
+    q_offset / kv_len, defaulted."""
     if window is not None and not causal:
         raise ValueError("sliding window requires causal")
     if q.device.type != "cuda":
@@ -271,7 +258,6 @@ def flash_attention(
             raise ValueError(
                 f"flash_attention: {name} must be int32 [{b}] on {q.device}"
             )
-    q_offset, kv_len = q_offset.contiguous(), kv_len.contiguous()
     # A refused view is copied (a contiguous one too: its base may be
     # misaligned, which .contiguous() would keep).
     q, k, v = (
@@ -279,6 +265,15 @@ def flash_attention(
         else t.clone(memory_format=torch.contiguous_format)
         for t in (q, k, v)
     )
+    return q, k, v, q_offset.contiguous(), kv_len.contiguous()
+
+
+def _launch(q, k, v, causal: bool, q_offset, kv_len,
+            window: Optional[int]) -> torch.Tensor:
+    """One launch of the kernel on checked operands (`_checked_operands`)
+    on the current stream; bumps `flash_attention.launches`."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if sq == 0:
         return out
@@ -300,7 +295,87 @@ def flash_attention(
     return out
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """`flash_attention` with a gradient. Forward: the kernel on a CUDA
+    tensor (its plain version on a CPU one), saving the q / k / v it
+    read. Backward: `flash_attention_ref` recomputed on them under
+    autograd and differentiated for q, k and v (offsets, lengths and the
+    window get none), counted in `flash_attention.backward_recomputes`.
+    The recompute holds float32 [B, H, Sq, Sk] scores for one layer at a
+    time."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, kv_len, window):
+        if q.device.type == "cpu":
+            out = flash_attention_ref(q, k, v, causal=causal,
+                                      q_offset=q_offset, kv_len=kv_len,
+                                      window=window)
+        else:
+            q, k, v, q_offset, kv_len = _checked_operands(
+                q, k, v, causal, q_offset, kv_len, window)
+            out = _launch(q, k, v, causal, q_offset, kv_len, window)
+        ctx.save_for_backward(q, k, v, q_offset, kv_len)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_offset, kv_len = ctx.saved_tensors
+        wanted = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(w) for t, w in zip((q, k, v),
+                                                                wanted)]
+            out = flash_attention_ref(*ins, causal=ctx.causal,
+                                      q_offset=q_offset, kv_len=kv_len,
+                                      window=ctx.window)
+            grads = iter(torch.autograd.grad(
+                out, [t for t in ins if t.requires_grad], dout))
+        flash_attention.backward_recomputes += 1
+        dq, dk, dv = (next(grads) if w else None for w in wanted)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, Sq, H, D]
+    k: torch.Tensor,  # [B, Sk, KVH, D]
+    v: torch.Tensor,  # [B, Sk, KVH, D]
+    causal: bool = True,
+    q_offset: Optional[torch.Tensor] = None,  # [B] int32
+    kv_len: Optional[torch.Tensor] = None,  # [B] int32
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """FlashAttention over [B, S, H, D] with native GQA. CPU tensors run
+    `flash_attention_ref`. CUDA tensors launch the kernel on the current
+    stream and bump `flash_attention.launches`; anything the kernel does
+    not take raises. When a gradient is wanted the launch goes through
+    `FlashAttentionFn`; a result without a graph then raises, never a
+    silently constant attention.
+
+    Strides: q/k/v are passed as strided views — the per-layer slice of
+    a [L, B, S_max + 1, KVH, D] cache is not contiguous. A view that
+    `_kernel_layout_ok` refuses (for bfloat16, one that TMA cannot
+    address) is copied first."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(
+            q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
+            window=window,
+        )
+    if torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        out = FlashAttentionFn.apply(q, k, v, causal, q_offset, kv_len,
+                                     window)
+        if out.grad_fn is None:
+            raise RuntimeError(
+                "flash_attention: a gradient was wanted and the kernel's "
+                "output has no graph")
+        return out
+    q, k, v, q_offset, kv_len = _checked_operands(q, k, v, causal, q_offset,
+                                                  kv_len, window)
+    return _launch(q, k, v, causal, q_offset, kv_len, window)
+
+
 flash_attention.launches = 0
+flash_attention.backward_recomputes = 0
 
 
 def attention(

@@ -114,9 +114,12 @@ def matmul(x: torch.Tensor, w: TensorOrQuant,
     if out_dtype is None or out_dtype == x.dtype:
         return x @ w
     x2 = x.reshape(-1, x.shape[-1])
-    if x.device.type == "cuda":
+    graph = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    if x.device.type == "cuda" and not graph:
         y = torch.mm(x2, w, out_dtype=out_dtype)
-    else:  # no CPU kernel; the narrower type's products are exact
+    else:
+        # mm's out_dtype has no CPU kernel and no derivative; the
+        # narrower type's products are exact in the wider one.
         y = x2.to(out_dtype) @ w.to(out_dtype)
     return y.reshape(*x.shape[:-1], w.shape[-1])
 

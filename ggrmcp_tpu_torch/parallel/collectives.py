@@ -156,6 +156,49 @@ def unshard(
     return out
 
 
+def sum_tied_grads(sh: Sharded, spec: tuple,
+                   index_fn: Optional[Callable] = None) -> None:
+    """Give each stored part of a trained leaf the whole gradient of the
+    blocks it holds. Parts whose blocks overlap (a replica of one block
+    on another device; the replicated KV columns every tensor shard of
+    the fused wqkv holds when tensor does not divide the KV heads) each
+    got only the gradient of their own uses: their `.grad`s are summed
+    into the global shape in float32 on the first part's device, in
+    shard order, and each part reads its block back. A part no forward
+    read has no `.grad` and adds nothing. Parts sharing one stored
+    tensor already accumulated into it; disjoint parts are left as they
+    are. `spec` is the adapted spec the leaf was sharded by."""
+    mesh, shape = sh.mesh, sh.shape
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    held: dict[int, tuple] = {}
+    for i, part in enumerate(sh.parts):
+        if id(part) not in held:
+            held[id(part)] = (part, _block_slices(shape, spec, mesh,
+                                                  mesh.coord(i), index_fn))
+    keys = {key for _, (_, key) in held.values()}
+    overlap = len(keys) < len(held)
+    if not overlap and index_fn is not None:
+        picked = [i for _, (idx, _) in held.values() for i in idx
+                  if isinstance(i, torch.Tensor)]
+        if picked:
+            every = torch.cat([i.flatten() for i in picked])
+            overlap = torch.unique(every).numel() < every.numel()
+    if not overlap:
+        return
+    dev = sh.parts[0].device
+    total = torch.zeros(shape, dtype=torch.float32, device=dev)
+
+    def on(idx, device):
+        return tuple(i.to(device) if isinstance(i, torch.Tensor) else i
+                     for i in idx)
+
+    for part, (idx, _) in held.values():
+        if part.grad is not None:
+            total[on(idx, dev)] += part.grad.float().to(dev)
+    for part, (idx, _) in held.values():
+        part.grad = total[on(idx, dev)].to(part.device, part.dtype)
+
+
 def local(tree: Any, index: int) -> Any:
     """Coordinate `index`'s view of a tree of sharded leaves: each
     `Sharded` gives its part, a `QuantizedTensor` of sharded values and

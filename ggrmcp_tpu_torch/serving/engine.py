@@ -36,7 +36,8 @@ from ggrmcp_tpu_torch.ops import ring_attention as ring_mod
 from ggrmcp_tpu_torch.ops.sampling import SamplingConfig, sample
 from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
 from ggrmcp_tpu_torch.parallel import pipeline as pp_mod
-from ggrmcp_tpu_torch.parallel.collectives import Sharded, shard
+from ggrmcp_tpu_torch.parallel.collectives import Sharded
+from ggrmcp_tpu_torch.serving import checkpoint
 from ggrmcp_tpu_torch.serving.memory_ledger import MemoryLedger
 from ggrmcp_tpu_torch.utils import failpoints
 from ggrmcp_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -296,53 +297,17 @@ class GenerationEngine:
             )
 
     def _shard_params(self, params, cfg, specs):
-        """Place a whole tree on the mesh by `specs`, IN PLACE, leaf by
-        leaf (a no-op on one coordinate, and for leaves already
-        sharded). The wqkv split is head-aligned (llama.qkv_columns); a
-        quantized leaf takes its q's and its scale's specs from
-        `quant.quantize_specs`. A weight whose spec must downgrade
-        raises: the port splits whole heads, rows and columns only."""
+        """Place a whole tree on the mesh by `specs`, IN PLACE
+        (`llama.shard_params`; a no-op on one coordinate, and for leaves
+        already sharded). A weight whose spec must downgrade raises: the
+        port splits whole heads, rows and columns only."""
         mesh = self.mesh
         if mesh.size == 1:
             return params
-        if any(isinstance(leaf, quant.QuantizedTensor)
-               for group in (params, params["layers"])
-               for leaf in group.values()):
-            specs = quant.quantize_specs(specs)
         downgraded = []
-
-        def index_fn(name):
-            if name != "wqkv":
-                return None
-            return lambda dim, block, n: (
-                llama_mod.qkv_columns(cfg, n, block) if dim == 2 else None)
-
-        def cut(x, spec, where, name, observe=True):
-            adapted = mesh_mod.compatible_spec(
-                spec, x.shape, mesh, on_downgrade=(
-                    lambda *a: downgraded.append((where, *a)))
-                if observe else None)
-            return shard(x, adapted, mesh, index_fn(name))
-
-        def place(leaf, spec, where, name):
-            if isinstance(getattr(leaf, "q", leaf), Sharded):
-                return leaf
-            if isinstance(leaf, quant.QuantizedTensor):
-                # The scale's size-1 axis replicates silently.
-                return quant.QuantizedTensor(
-                    q=cut(leaf.q, spec.q, where, name),
-                    scale=cut(leaf.scale, spec.scale, where, name, False))
-            return cut(leaf, spec, where, name)
-
-        for key, spec in specs.items():
-            if isinstance(spec, dict):
-                for name, sub in spec.items():
-                    if name in params[key]:
-                        params[key][name] = place(
-                            params[key][name], sub,
-                            f"['{key}']['{name}']", name)
-            else:
-                params[key] = place(params[key], spec, f"['{key}']", key)
+        params = llama_mod.shard_params(
+            params, cfg, mesh, specs,
+            on_downgrade=lambda *site: downgraded.append(site))
         for where, dim, entry, size, axis in downgraded:
             self._note_downgrade(where, dim, entry, size, axis)
         if downgraded:
@@ -475,7 +440,12 @@ class GenerationEngine:
                 f"draft vocab {dcfg.vocab_size} != target vocab "
                 f"{self.cfg.vocab_size}"
             )
-        if draft_params is None:
+        path = self.serving.speculative_draft_checkpoint
+        if draft_params is None and path:
+            draft_params = checkpoint.load_params(
+                path, self.device, name, llama_mod.param_shapes(dcfg),
+                "serving.speculative_draft_checkpoint")
+        elif draft_params is None:
             draft_params = llama_mod.init_params(dcfg, self.device, seed + 1)
         if self.mesh.size > 1 and dcfg.num_heads % self.mesh.shape["tensor"]:
             raise ValueError(

@@ -1,5 +1,5 @@
-"""A safetensors reader written from the format itself (the machine with
-the card has no `safetensors` package).
+"""A safetensors reader and writer written from the format itself (the
+machine with the card has no `safetensors` package).
 
 A file is 8 bytes of little-endian u64 header length N, then N bytes of
 JSON mapping each tensor name to `{"dtype", "shape", "data_offsets":
@@ -18,6 +18,11 @@ again: reading a checkpoint tensor by tensor keeps about one tensor's
 pages resident on the host. (Dropping the pages of one long-lived map
 with `madvise` does not release them under every kernel; unmapping
 does.) No numpy on the way: numpy has no bfloat16.
+
+`write_file` writes a file of this format (the port's own checkpoints,
+serving/checkpoint.py): bf16 as its raw 16-bit words, each tensor
+copied to the host and written in turn, so the host holds one tensor at
+a time.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import struct
 import torch
 
 _DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16, "F32": torch.float32}
+_NAMES = {dtype: name for name, dtype in _DTYPES.items()}
 INDEX = "model.safetensors.index.json"
 
 
@@ -47,6 +53,35 @@ def _check_entry(path: str, name: str, e: dict, data_bytes: int) -> None:
         end - begin != numel * _DTYPES[e["dtype"]].itemsize
     ):
         raise ValueError(f"{path}: bad data_offsets for {name}")
+
+
+def write_file(path: str, tensors: dict, metadata: dict | None = None) -> int:
+    """Write `tensors` (name -> tensor on any device, of a dtype in
+    `_DTYPES`) to one safetensors file at `path`, in the dict's order,
+    with string `metadata` under `__metadata__`. Returns the data bytes
+    written."""
+    header: dict = {}
+    offset = 0
+    for name, t in tensors.items():
+        if t.dtype not in _NAMES:
+            raise ValueError(f"{name}: dtype {t.dtype} has no safetensors "
+                             f"name here ({sorted(_DTYPES)})")
+        size = t.numel() * t.element_size()
+        header[name] = {"dtype": _NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + size]}
+        offset += size
+    if metadata:
+        header["__metadata__"] = {k: str(v) for k, v in metadata.items()}
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)  # the data starts 8-byte aligned
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(blob)))
+        fh.write(blob)
+        for t in tensors.values():
+            host = t.detach().to("cpu").contiguous()
+            if host.numel():
+                fh.write(host.reshape(-1).view(torch.uint8).numpy().data)
+    return offset
 
 
 class SafetensorsFile:

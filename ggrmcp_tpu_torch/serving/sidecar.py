@@ -76,7 +76,7 @@ from ggrmcp_tpu_torch.grammar import (
     GrammarCapacityError,
     GrammarError,
 )
-from ggrmcp_tpu_torch.models import get_model
+from ggrmcp_tpu_torch.models import family_module, get_model
 from ggrmcp_tpu_torch.ops.sampling import SamplingConfig
 from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
 from ggrmcp_tpu_torch.rpc.pb import serving_pb2
@@ -86,7 +86,7 @@ from ggrmcp_tpu_torch.rpc.server_utils import (
     ReflectionService,
     add_service,
 )
-from ggrmcp_tpu_torch.serving import tensors
+from ggrmcp_tpu_torch.serving import checkpoint, tensors
 from ggrmcp_tpu_torch.serving.adapter_arena import (
     AdapterExhaustedError,
     AdapterLoadError,
@@ -130,7 +130,11 @@ class Sidecar:
     the grpc.aio server. `params`: this package's weights
     (models/convert.py) for `serving.model`; None draws random weights
     from `seed` on the device. With `serving.hf_checkpoint_path` the
-    architecture and the weights come from that checkpoint. With
+    architecture and the weights come from that checkpoint; with
+    `serving.checkpoint_path` the weights of `serving.model` come from a
+    checkpoint of the port's format (serving/checkpoint.py, what the
+    trainer writes), loaded whole onto the mesh's first device and
+    sharded by the engine. With
     `serving.quantize="int8"` the weights reach the engine dense, loaded
     or drawn, and the engine quantizes them (the reference's order);
     `serving.synthetic_weights` draws the int8 weights directly.
@@ -180,6 +184,15 @@ class Sidecar:
         else:
             self.family, model_cfg = get_model(self.serving.model)
             model_cfg = _cut_depth(model_cfg, self.serving.num_layers)
+            if self.serving.checkpoint_path:
+                if params is not None:
+                    raise ValueError(
+                        "pass params or serving.checkpoint_path, not both")
+                shapes = (family_module(model_cfg).param_shapes(model_cfg)
+                          if self.family in ("llama", "moe") else None)
+                params = checkpoint.load_params(
+                    self.serving.checkpoint_path, mesh.devices[0],
+                    self.serving.model, shapes, "serving.checkpoint_path")
         if self.family in ("llama", "moe"):
             self.generation = GenerationEngine(
                 model_cfg, self.serving, params=params, seed=seed,

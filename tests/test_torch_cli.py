@@ -1,7 +1,9 @@
 """The port's CLI and config loading against the reference's
 (`tests/test_cli.py`, `ggrmcp_tpu/core/config.py::load`): parser flags,
-the precedence defaults → file → environment → flags, bare flags
-implying `gateway`, `--workers` refused with the co-launch, the
+`train` on the CPU (CUDA asked for without `--device cpu`) with the
+reference's training section, the precedence defaults → file →
+environment → flags, bare flags implying `gateway`, `--workers` refused
+with the co-launch, the
 reference's rule for external backends, and whole reference config files
 (gateway sections included) loading as JSON and as YAML, with every
 serving key the reference also reads taking the reference's value and an
@@ -83,9 +85,22 @@ class TestParser:
         assert cli.parse_args(argv).command == "gateway"
 
     def test_train_is_not_ported(self):
-        with pytest.raises(SystemExit):
-            cli.parse_args(["train", "--steps", "5"])
-        assert "A19c" in cli.build_parser().description
+        """Training was the last subcommand left to port (ROADMAP A19c):
+        `train` now parses the reference's flags, and the help no longer
+        names it as missing."""
+        args = cli.parse_args(["train", "--steps", "5", "--batch-size", "2",
+                               "--seq-len", "16", "--learning-rate", "0.1",
+                               "--checkpoint-dir", "ck", "--save-every", "2",
+                               "--no-resume", "--data", "d.txt",
+                               "--model", "tiny-moe", "--device", "cpu",
+                               "--log-level", "debug"])
+        assert args.command == "train" and args.steps == 5
+        assert "A19c" not in cli.build_parser().description
+        tc = cli.training_config(args, environ={})
+        assert (tc.model, tc.steps, tc.batch_size, tc.seq_len,
+                tc.learning_rate, tc.checkpoint_dir, tc.save_every_steps,
+                tc.resume, tc.data_path) == (
+            "tiny-moe", 5, 2, 16, 0.1, "ck", 2, False, "d.txt")
 
     @pytest.mark.parametrize("how", ["flag", "file"])
     def test_workers_refused_with_colaunch(self, how, tmp_path, capsys):
@@ -172,6 +187,8 @@ class TestWholeFiles:
         ({"fleet": {"enabled": True}}, "fleet.enabled"),
         ({"fleet": {"backoff_jitter": 1.5}}, "backoff_jitter"),
         ({"serving": {"sp_prefill": "zigzag"}}, "sp_prefill"),
+        ({"training": {"stepz": 3}}, "stepz"),
+        ({"training": {"seq_len": 1}}, "seq_len"),
     ])
     def test_unknown_or_bad_keys_raise(self, data, match, tmp_path):
         path = tmp_path / "bad.json"
@@ -219,3 +236,42 @@ def test_serving_config_flags_over_file(tmp_path):
     assert (cfg.quantize, cfg.port, cfg.batching.max_batch_size) == (
         "int8", 7, 2)
     assert isinstance(args, argparse.Namespace)
+
+
+class TestTrain:
+    def test_train_on_cpu_writes_checkpoints(self, tmp_path):
+        path = tmp_path / "t.json"
+        path.write_text(json.dumps({"training": {
+            "log_every_steps": 1, "seed": 4, "weight_decay": 0.0}}))
+        ref = jcfg.load(str(path), env=False).training
+        args = cli.parse_args(["train", "--config", str(path)])
+        ours = cli.training_config(args, environ={})
+        for key in ("model", "steps", "batch_size", "seq_len",
+                    "learning_rate", "weight_decay", "checkpoint_dir",
+                    "save_every_steps", "resume", "data_path",
+                    "log_every_steps", "seed"):
+            assert getattr(ours, key) == getattr(ref, key), key
+        ck = tmp_path / "ck"
+        assert cli.main(["train", "--model", "tiny-llama", "--steps", "2",
+                         "--batch-size", "2", "--seq-len", "16",
+                         "--device", "cpu", "--checkpoint-dir", str(ck),
+                         "--save-every", "2", "--config", str(path)]) == 0
+        assert sorted(p.name for p in ck.iterdir()) == ["step_2"]
+        assert sorted(p.name for p in (ck / "step_2").iterdir()) == [
+            "params", "state"]
+
+    def test_train_asks_for_cuda(self):
+        import torch
+
+        if torch.cuda.is_available():
+            pytest.skip("a card is present")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(["train", "--steps", "1", "--seq-len", "8"])
+
+    def test_training_env_under_flags(self):
+        env = {"GGRMCP_TRAINING_STEPS": "7", "GGRMCP_TRAINING_SEED": "9"}
+        ours = cli.training_config(cli.parse_args(["train"]), environ=env)
+        assert (ours.steps, ours.seed) == (7, 9)
+        ours = cli.training_config(cli.parse_args(["train", "--steps", "2"]),
+                                   environ=env)
+        assert ours.steps == 2

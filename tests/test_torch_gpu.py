@@ -16,7 +16,12 @@ the sparse-MoE family (its FFN on the card against the CPU and, in
 bf16, against its float32 one-hot form; the batcher's routes against
 the CPU), and tensor parallelism (the kernel at a tensor shard's head
 count; two shards on one card against one shard; eight, whose cache
-holds every KV head, still launching the kernel a shard).
+holds every KV head, still launching the kernel a shard), and training
+(the kernel's forward under autograd with the plain version's gradient:
+its output carries a graph, its dq / dk / dv equal autograd's through
+the plain version; three AdamW steps of tiny-llama on the card against
+the CPU: losses at rtol 1e-4, each leaf within 1e-4 of its largest
+entry save at most one entry in 10^4).
 
 Every test needs an NVIDIA GPU with `nvcc` (the kernel has no CPU
 mode) and skips without one. This file imports no JAX, so it runs on a
@@ -1380,3 +1385,86 @@ async def test_colaunch_on_card(cuda):
         assert co.target == f"unix:{cfg.serving.uds_path}"
     finally:
         await co.stop()
+
+
+@pytest.mark.parametrize("shape", [
+    dict(b=2, sq=300, sk=300, h=8, kvh=4, d=64, window=None, ragged=False),
+    dict(b=2, sq=256, sk=256, h=32, kvh=8, d=64, window=64, ragged=True),
+], ids=["causal", "window_ragged"])
+def test_kernel_under_autograd_gives_plain_grads(cuda, shape):
+    """A regression test for a silent zero gradient: on CUDA inputs that
+    require grad, `flash_attention` launches the kernel and returns a
+    tensor with a graph, whose backward (the plain version recomputed)
+    gives autograd's dq / dk / dv of `flash_attention_ref`."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    b, sq, sk, h, kvh, d = (shape[k] for k in ("b", "sq", "sk", "h", "kvh",
+                                                "d"))
+    q0 = torch.randn((b, sq, h, d), generator=gen, device=cuda).bfloat16()
+    k0, v0 = (torch.randn((b, sk, kvh, d), generator=gen,
+                          device=cuda).bfloat16() for _ in range(2))
+    dout = torch.randn((b, sq, h, d), generator=gen, device=cuda).bfloat16()
+    kv_len = (torch.tensor([sk, sk - 37], dtype=torch.int32, device=cuda)
+              if shape["ragged"] else None)
+    kw = dict(causal=True, kv_len=kv_len, window=shape["window"])
+    launches = tatt.flash_attention.launches
+    recomputes = tatt.flash_attention.backward_recomputes
+    got, want = [], []
+    for fn, into in ((tatt.flash_attention, got),
+                     (tatt.flash_attention_ref, want)):
+        q, k, v = (t.clone().requires_grad_(True) for t in (q0, k0, v0))
+        out = fn(q, k, v, **kw)
+        assert out.grad_fn is not None
+        out.backward(dout)
+        into.extend([out.detach(), q.grad, k.grad, v.grad])
+    assert tatt.flash_attention.launches == launches + 1
+    assert tatt.flash_attention.backward_recomputes == recomputes + 1
+    _assert_close(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert g.abs().max() > 0
+        _assert_close(g, w)
+
+
+def test_no_grad_path_unchanged(cuda):
+    """Serving (no grad) keeps the plain launch: no graph, no recompute."""
+    q = torch.randn((1, 64, 8, 64), device=cuda).bfloat16()
+    k = v = torch.randn((1, 64, 4, 64), device=cuda).bfloat16()
+    with torch.no_grad():
+        out = tatt.flash_attention(q.requires_grad_(True), k, v)
+    assert out.grad_fn is None
+
+
+def test_three_adamw_steps_on_card_match_cpu(cuda):
+    from ggrmcp_tpu_torch.models import trainer
+    from ggrmcp_tpu_torch.models import training
+
+    cfg = tl.CONFIGS["tiny-llama"]
+    cpu = torch.device("cpu")
+    whole = tl.init_params(cfg, cpu, 11)
+    rng = np.random.default_rng(11)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 65)))
+               for _ in range(3)]
+    results = []
+    for dev in (cpu, cuda):
+        state = training.make_train_state(  # a copy: trained in place
+            {k: ({n: t.clone().to(dev) for n, t in v.items()}
+                 if isinstance(v, dict) else v.clone().to(dev))
+             for k, v in whole.items()}, cfg)
+        launches = tatt.flash_attention.launches
+        losses = []
+        for batch in batches:
+            state, loss = training.train_step(state, batch.to(dev), cfg)
+            losses.append(loss.item())
+        if dev.type == "cuda":
+            assert (tatt.flash_attention.launches - launches
+                    == 3 * cfg.num_layers)
+        params = trainer.state_tensors(state, cfg)[0]
+        results.append((losses, {n: t.cpu() for n, t in params.items()}))
+    np.testing.assert_allclose(results[1][0], results[0][0], rtol=1e-4)
+    # Each leaf within 1e-4 of its largest entry, save at most one entry
+    # in 10^4, each within one learning rate a step (AdamW steps an entry
+    # whose gradient sits at summation noise by up to lr either way).
+    for name, want in results[0][1].items():
+        diff = (results[1][1][name] - want).abs()
+        off = int((diff > 1e-4 * want.abs().max()).sum())
+        assert off <= diff.numel() * 1e-4, (name, off)
+        assert diff.max() <= 3 * 3e-4, name

@@ -61,6 +61,8 @@ PORT_MODULES = (
     "ggrmcp_tpu_torch.parallel.collectives",
     "ggrmcp_tpu_torch.serving.launcher", "ggrmcp_tpu_torch.ops.ring_attention",
     "ggrmcp_tpu_torch.parallel.pipeline",
+    "ggrmcp_tpu_torch.models.training", "ggrmcp_tpu_torch.models.trainer",
+    "ggrmcp_tpu_torch.serving.checkpoint",
 )
 
 

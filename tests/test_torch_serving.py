@@ -187,7 +187,9 @@ async def test_overloaded_past_max_pending(engines):
 )
 def test_unsupported_config_raises(kind, field, value):
     """Unported features' settings and values the reference's checks
-    reject both raise, naming the field."""
+    reject both raise, naming the field. A checkpoint path must name a
+    checkpoint of the port's own format (serving/checkpoint.py); "ckpt"
+    names none."""
     cls = BatchingConfig if kind == "batching" else ServingConfig
     with pytest.raises(ValueError, match=field):
         cls(**{field: value})
