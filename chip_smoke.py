@@ -181,7 +181,27 @@ Phases, any failure exits non-zero and prints no result:
    then again to step 30, resuming from step 20; (d) a llama-1b sidecar
    with `serving.checkpoint_path` at step 30's params answers a greedy
    Generate with the tokens of an engine on the loaded tensors; an
-   Orbax tree is refused at start.
+   Orbax tree is refused at start;
+19. the data axes and the routes once refused on a mesh, every shard on
+   the card: (a) B1 at a data block's share of llama3-8b's [32, 512]
+   admission ([16, 512], H 32 / KVH 8) and at a data block x tensor
+   shard's (H 16 / KVH 4) against the plain version at TOL, with SDPA
+   and the bound; (b) tiny-llama float32 card = CPU at data=2, fsdp=2,
+   data=2 x tensor=2 and data=2 x stage=2 (B1 once a layer, block and
+   shard; none under stage), tiny-moe at data=2 x expert=2 routing pair
+   for pair as data=1; (c) phase 5's burst through sidecars configured
+   by a `--config` file at data=1 and data=2 on one seeded llama3-8b
+   tree (weights once on the card): B1 launches, tick p50, the streams
+   counted, a [32, 512] prefill held to twice a same-run witness,
+   GetMemory reconciled, peak memory; (d) bert-base at tensor=2 against
+   tensor=1 (phase 6's cosine); (e) LoRA through the arena, (f) two-leg
+   TransferKV calls from tensor=2 to tensor=1 and back (the landed pages
+   bit for bit the shipped ones) and the host tier, (g) the ring and the
+   tiers, each at tensor=2 against tensor=1 at llama3-8b's or
+   mistral-7b's widths cut to 4 layers; (h) llama-1b, 20 AdamW steps of
+   [8, 1024] at data=2 against data=1 (losses step by step, step p50,
+   tokens/s, peak memory), and tiny-llama's 3 steps card = CPU at
+   data=2 and data=2 x tensor=2.
 
 `python3 chip_smoke.py --only 16,17` runs the card, the build and those
 phases and prints no result (fault-finding).
@@ -4431,14 +4451,16 @@ async def _tp_serve(torch, tatt, dev, params, mesh, spec, tmp: str) -> dict:
 
     _moe_ticks(torch, dev, batcher, _NoTally())
     # Count the forwards that reach B1 (prefill-shaped queries), so that
-    # the launches are held to t a layer a forward whatever the rounds.
+    # the launches are held to t a layer a forward whatever the rounds;
+    # on data blocks, a forward counts once a block (one block when the
+    # blocks do not divide its batch).
     engine = side.generation
     prefills = [0]
     forward = engine.decode_forward
 
     def counted(params_, tokens, *args, **kwargs):
         if tokens.shape[1] > tatt.GQA_GROUPED_MAX_SQ:
-            prefills[0] += 1
+            prefills[0] += len(mesh_mod.data_blocks(mesh, tokens.shape[0]))
         return forward(params_, tokens, *args, **kwargs)
 
     engine.decode_forward = counted
@@ -4628,14 +4650,14 @@ def _ep_ffn_check(torch, dev, spec) -> dict:
             eng = GenerationEngine(cfg, params=params, mesh=mesh)
             del params
             _sync(torch, dev)
-            out = moe_mod.moe_ffn_sharded(x, eng.params["layers"], 0,
-                                          cfg)[dev]
+            out = moe_mod.moe_ffn_sharded([x], eng.params["layers"], 0,
+                                          cfg)[0][dev]
             _sync(torch, dev)
     finally:
         moe_mod._assign = real
     with torch.no_grad():
         ms = _device_ms(torch, dev, lambda: moe_mod.moe_ffn_sharded(
-            x, eng.params["layers"], 0, cfg), 3)
+            [x], eng.params["layers"], 0, cfg), 3)
     check(len(seen) == 2, f"(e) {len(seen)} routings for two FFN calls")
     (_, _, i0, s0, k0), (_, _, i1, s1, k1) = seen
     same = bool(torch.equal(i0, i1) and torch.equal(s0, s1)
@@ -5465,8 +5487,9 @@ def _train_layer_check(torch, tatt, dev, spec) -> dict:
 
 def _tiny_train_check(torch, tatt, dev, spec) -> dict:
     """(b) tiny-llama float32: 3 AdamW steps on the card and on the CPU
-    from one seeded tree, at tensor 1, tensor 2 and stage 2 (both shards
-    of a mesh on the card)."""
+    from one seeded tree, on each mesh of `spec["tiny_meshes"]` ((axis,
+    size) or a dict of axes; every shard of a mesh on the card). B1
+    launches once a layer, tensor shard, data block and microbatch."""
     import numpy as np
 
     from ggrmcp_tpu_torch.core.config import MeshConfig
@@ -5482,10 +5505,13 @@ def _tiny_train_check(torch, tatt, dev, spec) -> dict:
     batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 65)))
                for _ in range(3)]
     res = {}
-    for axis, n in spec["tiny_meshes"]:
+    for entry in spec["tiny_meshes"]:
+        axes = entry if isinstance(entry, dict) else {entry[0]: entry[1]}
+        n = math.prod(axes.values())
+        label = ",".join(f"{a}={k}" for a, k in axes.items())
         runs = []
         for d in (cpu, dev):
-            mcfg = MeshConfig(**{"tensor": 1, axis: n})
+            mcfg = MeshConfig(**{"tensor": 1, **axes})
             mesh = mesh_mod.build_mesh(mcfg, [d] * n)
             # A copy on either device: training updates its tree in place.
             tree = {k: ({n: t.clone().to(d) for n, t in v.items()}
@@ -5493,7 +5519,7 @@ def _tiny_train_check(torch, tatt, dev, spec) -> dict:
                     for k, v in whole.items()}
             state = training.make_train_state(tree, cfg, mesh=mesh)
             step = (pipeline.make_pipeline_train_step(cfg, mesh)
-                    if axis == "stage" and n > 1 else
+                    if axes.get("stage", 1) > 1 else
                     lambda st, t: training.train_step(st, t, cfg))
             tatt.flash_attention.launches = 0
             losses = []
@@ -5505,7 +5531,7 @@ def _tiny_train_check(torch, tatt, dev, spec) -> dict:
             del state
         (cl, cp, _), (gl, gp, launches) = runs
         loss_err = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
-        check(loss_err <= TRAIN_TINY_REL, f"(b) {axis}={n}: card losses {gl} "
+        check(loss_err <= TRAIN_TINY_REL, f"(b) {label}: card losses {gl} "
               f"vs cpu {cl}")
         leaf_rel = leaf_abs = off_frac = 0.0
         for name, want in cp.items():
@@ -5515,12 +5541,12 @@ def _tiny_train_check(torch, tatt, dev, spec) -> dict:
             leaf_rel = max(leaf_rel, (diff.norm() / want.norm()).item())
             leaf_abs = max(leaf_abs, diff.max().item())
         check(off_frac <= TRAIN_TINY_REL and leaf_abs <= 3 * TRAIN_LR,
-              f"(b) {axis}={n}: {off_frac} of a leaf's entries beyond "
+              f"(b) {label}: {off_frac} of a leaf's entries beyond "
               f"{TRAIN_TINY_REL} of its largest, max abs {leaf_abs}")
-        check(launches == 3 * cfg.num_layers * 2 if n > 1
-              else launches == 3 * cfg.num_layers,
-              f"(b) {axis}={n}: {launches} B1 launches in 3 steps")
-        res[f"{axis}={n}"] = dict(loss_rel_err=loss_err, leaf_rel_l2=leaf_rel,
+        # A stage's microbatches (one a stage) each launch once a layer.
+        check(dev.type != "cuda" or launches == 3 * cfg.num_layers * n,
+              f"(b) {label}: {launches} B1 launches in 3 steps")
+        res[label] = dict(loss_rel_err=loss_err, leaf_rel_l2=leaf_rel,
                                   leaf_max_abs=leaf_abs,
                                   leaf_off_fraction=off_frac,
                                   launches=launches, losses=gl)
@@ -5693,6 +5719,762 @@ async def train_phase(torch, tatt, dev, spec=None) -> dict:
     return res
 
 
+# -- phase 19: the data axes and the routes on a mesh ---------------------------
+
+# Every shard on the one card, as in phases 15 and 17: the mesh's device
+# list names cuda:0 once a coordinate. What this shows is each path at
+# real widths (B1 at a data block's and a data block x tensor shard's
+# shapes, the blocks' caches, the sharded routes), not a speed-up.
+P19 = dict(
+    model=MODEL, data=2, prompts=SERVE_PROMPT_TOKENS, new=SERVE_NEW_TOKENS,
+    prefill=(32, 512), batching={}, tiny="tiny-llama", tiny_moe="tiny-moe",
+    tiny_meshes=[dict(data=2), dict(fsdp=2), dict(data=2, tensor=2),
+                 dict(data=2, stage=2)],
+    embed=EMBED_MODEL, embed_rows=32, embed_longest=512,
+    # (e)-(g) at the published widths cut in depth (serving.num_layers).
+    depth=4, page=16, lora_rank=8, adapters=("a0", "a1", "a2", "a3"),
+    lora_prompts=(40, 100, 200, 300), lora_new=16,
+    disagg_prompts=(1024, 2200), disagg_new=16, disagg_arena_pages=512,
+    host_arena_pages=320, host_preambles=8, host_preamble_tokens=1024,
+    host_new=8, ring_model="mistral-7b", ring_prompts=(5000, 6500),
+    ring_new=32, ring_chunk=512, ring_probe=(2, 5120),
+    tiers=[[1024, 8], [8192, 2]],
+    tier_prompts=(40, 90, 160, 250, 400, 600, 6000, 7000), tier_new=16,
+    train="llama-1b", train_steps=20, train_batch=8, train_seq=1024,
+    train_tiny_meshes=[dict(data=2), dict(data=2, tensor=2)],
+)
+# (a) B1 at the shards of llama3-8b's [32, 512] admission on data=2 and
+# on data=2 x tensor=2.
+DP_CASES = [
+    ("dp_16x512", 16, 512, 512, 32, 8, 128, True, 0, 512, None, "bfloat16",
+     "llama3-8b fused admission [32, 512] on one of two data blocks "
+     "(H 32, KVH 8)"),
+    ("dp_tp_16x512", 16, 512, 512, 16, 4, 128, True, 0, 512, None,
+     "bfloat16", "llama3-8b fused admission [32, 512] on one data block x "
+     "tensor shard of data=2 x tensor=2 (H 16, KVH 4)"),
+]
+# (g) The ring at tensor=2 against tensor=1: the last chunk's logits of
+# a chunked prefill past the window (`ring_probe`), held to twice a
+# same-run witness, phase 15's rule with its top-1 floor: tensor=1's
+# contiguous cache through B1 against its ring through the plain
+# attention, the same function by another valid route.
+# (h) llama-1b at data=2 against data=1, bf16, step by step: the weight
+# gradients are the blocks' products summed (two bf16 accumulations into
+# one `.grad` on the card) where data=1 reduces one product over both
+# blocks' rows, so the updates differ by bf16 rounding and the losses
+# drift apart (3.4e-4 to 1.4e-3 over 20 steps on an H100). A planted
+# fault runs beside it every time: data=1 updated from one data block's
+# rows only (a per-block mean over one block; AdamW ignores the
+# gradient's scale), its loss read on the whole batch before each step
+# (0.106). The bound sits near the two readings' geometric mean, and the
+# fault must exceed it.
+TRAIN_DP_REL = 1e-2
+
+
+def _mesh_of(axes: dict, dev):
+    from ggrmcp_tpu_torch.core.config import MeshConfig
+    from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+
+    return mesh_mod.build_mesh(MeshConfig(**{"tensor": 1, **axes}),
+                               [dev] * math.prod(axes.values() or [1]))
+
+
+def _label(axes: dict) -> str:
+    return ",".join(f"{a}={n}" for a, n in axes.items()) or "single"
+
+
+def _tiny_dp_check(torch, tatt, dev, spec) -> dict:
+    """(b) tiny-llama float32 on the card against the same mesh on the
+    CPU, one seeded tree: logits of a [4, 100] prefill, greedy tokens and
+    B1's launches (once a layer, data block and tensor shard; none under
+    stage) on each data mesh; tiny-moe at data=2 x expert=2 routing pair
+    for pair as data=1."""
+    import numpy as np
+
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.models import moe as moe_mod
+    from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+
+    cfg = llama_mod.CONFIGS[spec["tiny"]]
+    cpu = torch.device("cpu")
+    params = llama_mod.init_params(cfg, cpu, SEED + 19)
+    rng = np.random.default_rng(SEED + 19)
+    toks = torch.from_numpy(rng.integers(3, 500, (4, 100)))
+    prompts = [rng.integers(3, 500, n).tolist() for n in (7, 33, 90, 12)]
+    res = {}
+    for axes in spec["tiny_meshes"]:
+        label = _label(axes)
+        engines = [GenerationEngine(cfg, params=_to(params, d),
+                                    mesh=_mesh_of(axes, d))
+                   for d in (cpu, dev)]
+        logits = []
+        for eng in engines:
+            before = tatt.flash_attention.launches
+            with torch.no_grad():
+                out, _ = eng.prefill_forward(
+                    eng.params, toks.to(eng.device), eng.make_cache(4, 128))
+            launches = tatt.flash_attention.launches - before
+            logits.append(out.cpu())
+        shards = axes.get("data", 1) * axes.get("fsdp", 1) * axes.get(
+            "tensor", 1)
+        want = 0 if axes.get("stage", 1) > 1 else shards * cfg.num_layers
+        check(dev.type != "cuda" or launches == want,
+              f"(b) {label}: B1 launched {launches} times in a prefill "
+              f"forward (want {want})")
+        err = (logits[1] - logits[0]).abs().max().item()
+        check(err <= TP_TINY_ATOL, f"(b) {label} card vs cpu logits {err} "
+              f"> {TP_TINY_ATOL}")
+        outs = [eng.generate(prompts, 16) for eng in engines]
+        check(outs[1] == outs[0], f"(b) {label} greedy tokens card vs cpu "
+              f"differ")
+        stats = engines[1].mesh_stats()
+        check(stats["mesh_shape"] == label, f"(b) {label}: mesh {stats}")
+        res[label] = dict(logits_max_abs_err=err, greedy_identical=True,
+                          launches=launches, mesh=stats["mesh_shape"])
+        del engines
+    # tiny-moe: the routing of every layer at data=2 x expert=2 against
+    # expert=2 alone, on the card.
+    mcfg = moe_mod.CONFIGS[spec["tiny_moe"]]
+    mparams = moe_mod.init_params(mcfg, cpu, SEED + 19)
+    seen: list = []
+    real = moe_mod._assign
+
+    def spy(*args, **kwargs):
+        out = real(*args, **kwargs)
+        seen.append([t.clone() for t in out[2:]])
+        return out
+
+    routes, logits = [], []
+    moe_mod._assign = spy
+    try:
+        for axes in (dict(data=2, expert=2), dict(expert=2)):
+            seen.clear()
+            eng = GenerationEngine(mcfg, params=_to(mparams, dev),
+                                   mesh=_mesh_of(axes, dev))
+            with torch.no_grad():
+                out, _ = eng.prefill_forward(
+                    eng.params, toks.to(dev), eng.make_cache(4, 128))
+            routes.append(list(seen))
+            logits.append(out.cpu())
+            del eng
+    finally:
+        moe_mod._assign = real
+    pairs = sum(int(r[2].sum()) for r in routes[0])
+    check(len(routes[0]) == len(routes[1]) == mcfg.num_layers,
+          f"(b) {mcfg.name}: {len(routes[0])} routings for "
+          f"{mcfg.num_layers} layers")
+    check(all(torch.equal(a, b) for ra, rb in zip(*routes)
+              for a, b in zip(ra, rb)),
+          f"(b) {mcfg.name}: data=2 routed otherwise than data=1")
+    err = (logits[0] - logits[1]).abs().max().item()
+    check(err <= TP_TINY_ATOL, f"(b) {mcfg.name} data=2 vs 1 logits {err}")
+    res["moe"] = dict(pairs_kept=pairs, routing_identical=True,
+                      logits_max_abs_err=err)
+    return res
+
+
+async def _dp_serve(torch, tatt, dev, spec, tmp) -> dict:
+    """(c) llama3-8b: phase 5's burst through a sidecar configured by a
+    `--config` file at data=1 and then at data=2 on one seeded tree (the
+    replicated weights used in place: one copy on the card), the [32,
+    512] prefill at data=2 against data=1 held to twice a same-run
+    witness (data=1's plain attention against its B1), and the streams
+    counted against data=1's."""
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+
+    cfg = llama_mod.CONFIGS[spec["model"]]
+    d = spec["data"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    toks = torch.randint(3, cfg.vocab_size, spec["prefill"], generator=gen,
+                         device=dev)
+    params = llama_mod.init_params(cfg, dev, SEED)
+    runs = {}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    runs[1] = await _tp_serve(torch, tatt, dev, params, _mesh_of({}, dev),
+                              spec, tmp)
+    engine = runs[1].pop("engine")
+    want = _tp_prefill(torch, engine, toks)
+    witness = _rel_top1(torch, _tp_prefill(torch, engine, toks,
+                                           use_flash=False), want)
+    # Held on the host while the data=2 sidecar runs, so that its
+    # GetMemory and peak see the serving stack alone.
+    want = want.cpu()
+    del engine
+    _free(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    runs[d] = await _tp_serve(torch, tatt, dev, params,
+                              _mesh_of(dict(data=d), dev), spec, tmp)
+    del params
+    engine = runs[d].pop("engine")
+    downgrades = sorted(engine._downgrades_seen)
+    before = tatt.flash_attention.launches
+    got = _tp_prefill(torch, engine, toks)
+    prefill_launches = tatt.flash_attention.launches - before
+    del engine
+    _free(torch, dev)
+    want = want.to(dev)
+    rel, agree = _rel_top1(torch, got, want)
+    check(torch.isfinite(got).all().item(), "(c) data=2 logits not finite")
+    check(dev.type != "cuda"
+          or prefill_launches == d * cfg.num_layers,
+          f"(c) the [32, 512] prefill at data={d} launched B1 "
+          f"{prefill_launches} times (want {d} a layer)")
+    bound = TP_PREFILL_WITNESS * witness[0]
+    check(rel <= bound, f"(c) [32, 512] prefill data={d} vs 1: rel err "
+          f"{rel} > {TP_PREFILL_WITNESS} x the witness's {witness[0]}")
+    check(agree >= TP_PREFILL_TOP1, f"(c) [32, 512] prefill data={d}: "
+          f"top-1 agreement {agree}")
+    a, b = runs[1], runs[d]
+    # The one downgrade a data mesh may count: a KV cache whose batch
+    # the blocks do not divide (an admission group of an odd row count),
+    # as the reference's `_observe_cache_spec` counts it.
+    check(b["mesh"] == dict(tp_chips=1, mesh_devices=d,
+                            mesh_shape=f"data={d}",
+                            mesh_spec_downgrades=len(downgrades))
+          and all(dim == 1 for _, dim in downgrades),
+          f"(c) GetServingStats mesh {b['mesh']}, downgrades {downgrades}")
+    check(b["weights_bytes"] == a["weights_bytes"],
+          f"(c) weights counted {b['weights_bytes']} at data={d}, "
+          f"{a['weights_bytes']} at data=1")
+    for n, run in ((1, a), (d, b)):
+        check(dev.type != "cuda" or 0 < run["burst_launches"]
+              == cfg.num_layers * run["burst_prefills"],
+              f"(c) B1 launched {run['burst_launches']} times in the burst "
+              f"at data={n} for {run['burst_prefills']} block prefills")
+    streams = _agreement(b["tokens_by_prompt"], a["tokens_by_prompt"])
+    return dict(
+        prefill=dict(logits_rel_err=rel, top1_agree=agree, bound=bound,
+                     witness_rel_err=witness[0],
+                     witness_top1_agree=witness[1],
+                     launches=prefill_launches),
+        serve={str(k): {x: y for x, y in v.items()
+                        if x != "tokens_by_prompt"} for k, v in runs.items()},
+        streams=streams)
+
+
+def _dp_embed(torch, tatt, dev, spec) -> dict:
+    """(d) bert-base at tensor=2 against tensor=1 on one seeded tree:
+    the vectors' cosine (phase 6's bound) and B1's launches (once a
+    layer and shard)."""
+    import numpy as np
+
+    from ggrmcp_tpu_torch.models import bert as bert_mod
+    from ggrmcp_tpu_torch.serving.engine import EmbeddingEngine
+
+    cfg = bert_mod.CONFIGS[spec["embed"]]
+    params = bert_mod.init_params(cfg, dev, SEED)
+    rng = np.random.default_rng(SEED + 19)
+    lists = [rng.integers(1000, cfg.vocab_size,
+                          int(rng.integers(17, spec["embed_longest"] + 1))
+                          ).tolist() for _ in range(spec["embed_rows"])]
+    lists[0] = lists[0][:1] * spec["embed_longest"]
+    out, launches, ms = {}, {}, {}
+    for t in (1, 2):
+        tree = {k: (dict(v) if isinstance(v, dict) else v)
+                for k, v in params.items()}
+        eng = EmbeddingEngine(cfg, params=tree,
+                              mesh=_mesh_of(dict(tensor=t), dev))
+        eng.embed(lists[:2])
+        _sync(torch, dev)
+        before = tatt.flash_attention.launches
+        t0 = time.perf_counter()
+        out[t] = eng.embed(lists, "mean")
+        _sync(torch, dev)
+        ms[t] = (time.perf_counter() - t0) * 1e3
+        launches[t] = tatt.flash_attention.launches - before
+        del eng, tree
+    cos = float(np.min(np.sum(out[1] * out[2], axis=-1)))
+    check(np.isfinite(out[2]).all() and cos >= EMBED_MIN_COSINE,
+          f"(d) {cfg.name} tensor=2 vs 1: min cosine {cos}")
+    for t in (1, 2):
+        check(dev.type != "cuda" or launches[t] == t * cfg.num_layers,
+              f"(d) {cfg.name} tensor={t}: {launches[t]} B1 launches in an "
+              f"Embed of {len(lists)} rows (want {t} a layer)")
+    return dict(min_cosine=cos, launches=launches, embed_ms=ms,
+                rows=len(lists))
+
+
+def _cut(name: str, depth: int):
+    import dataclasses
+
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+
+    return dataclasses.replace(llama_mod.CONFIGS[name], num_layers=depth)
+
+
+def _tree_copy(params):
+    return {k: (dict(v) if isinstance(v, dict) else v)
+            for k, v in params.items()}
+
+
+async def _burst(batcher, calls, new, held=True):
+    """`calls` of (token ids, submit fields) through a running batcher,
+    one admission round when `held`; the token lists."""
+    from ggrmcp_tpu_torch.ops.sampling import SamplingConfig
+
+    async def one(ids, fields):
+        out = []
+        async for chunk, reason in batcher.submit(ids, new, SamplingConfig(),
+                                                  **fields):
+            out.extend(chunk)
+        check(reason in ("length", "stop") and out,
+              f"a call ended {reason!r} with {len(out)} tokens")
+        return out
+
+    if held:
+        batcher.hold_for = len(calls)
+    return await asyncio.gather(*(one(ids, f) for ids, f in calls))
+
+
+async def _lease_fields(batcher, name: str) -> dict:
+    if not name:
+        return {}
+    lease = await batcher.acquire_adapter(name)
+    return dict(adapter=lease.row, adapter_key=name, adapter_lease=lease)
+
+
+async def _dp_lora(torch, tatt, dev, spec, params, cfg, tmp) -> dict:
+    """(e) phase 12c's four-adapter burst (a registry of rank-8 adapters
+    and a zero-b one, through the arena) at tensor=2 against tensor=1:
+    each stream against its adapter served alone on the same engine,
+    the zero-b adapter against base, tensor=2 against tensor=1."""
+    from ggrmcp_tpu_torch.core.config import (
+        BatchingConfig,
+        LoraConfig,
+        ServingConfig,
+    )
+    from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher
+    from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+
+    registry = os.path.join(tmp, "lora")
+    os.makedirs(registry, exist_ok=True)
+    _write_adapters(registry, cfg, spec)
+    names = list(spec["adapters"]) + ["zero", ""]
+    prompts = [_prompt_ids(n, 7100 + i) for i, n in
+               enumerate(spec["lora_prompts"] * 2)][:len(names)]
+    res, streams = {}, {}
+    for t in (1, 2):
+        eng = GenerationEngine(cfg, ServingConfig(
+            model=spec["model"], num_layers=spec["depth"],
+            lora=LoraConfig(registry=registry, rank=spec["lora_rank"],
+                            arena_rows=len(names) - 1)),
+            params=_tree_copy(params), mesh=_mesh_of(dict(tensor=t), dev))
+        batcher = ContinuousBatcher(eng, BatchingConfig(max_batch_size=8))
+        _hold_admission(batcher)
+        batcher.start()
+        try:
+            before = tatt.flash_attention.launches
+            fields = [await _lease_fields(batcher, n) for n in names]
+            burst = await _burst(batcher, list(zip(prompts, fields)),
+                                 spec["lora_new"])
+            launches = tatt.flash_attention.launches - before
+            alone = []
+            for ids, n in zip(prompts, names):
+                alone += await _burst(
+                    batcher, [(ids, await _lease_fields(batcher, n))],
+                    spec["lora_new"], held=False)
+            base = (await _burst(batcher, [(prompts[4], {})],
+                                 spec["lora_new"], held=False))[0]
+        finally:
+            await batcher.stop()
+        agree = _agreement(burst, alone)
+        check(agree["first_token"] >= agree["of"] - 1,
+              f"(e) tensor={t}: burst vs alone {agree}")
+        check(alone[4] == base, f"(e) tensor={t}: the zero-b adapter's "
+              f"stream differs from base")
+        check(len({tuple(x) for x in alone[:4]}) > 1,
+              f"(e) tensor={t}: the adapters gave one stream")
+        check(dev.type != "cuda" or launches > 0,
+              f"(e) tensor={t}: the burst never launched B1")
+        res[f"tensor={t}"] = dict(burst_vs_alone=agree, launches=launches,
+                                  zero_b_is_base=True,
+                                  lora_loads=eng.lora_stats()["lora_loads"])
+        streams[t] = alone
+        del eng, batcher
+        _free(torch, dev)
+    res["tensor2_vs_1"] = _agreement(streams[2], streams[1])
+    check(res["tensor2_vs_1"]["first_token"] >= len(names) - 1,
+          f"(e) tensor=2 vs 1 {res['tensor2_vs_1']}")
+    return res
+
+
+def _prompt_ids(n: int, seed: int) -> list[int]:
+    """`n` token ids of a seeded text (the byte tokenizer's ids)."""
+    return list(_prompt_text(n, seed).encode("utf-8"))[:n]
+
+
+def _p19_sidecar(torch, params, dev, serving: dict, tmp: str, spec: dict,
+                 mesh_axes: dict, name: str):
+    """`_p12_sidecar` at `spec`'s depth on a mesh of `mesh_axes` (every
+    coordinate on the card)."""
+    from ggrmcp_tpu_torch import __main__ as cli
+    from ggrmcp_tpu_torch.serving.sidecar import Sidecar
+
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w") as fh:
+        json.dump({"serving": dict(
+            model=spec["model"], num_layers=spec["depth"],
+            mesh={"tensor": 1, **mesh_axes}, **serving)}, fh)
+    cfg = cli.serving_config(cli.build_parser().parse_args(
+        ["sidecar", "--config", path]))
+    return Sidecar(cfg, params=_tree_copy(params), mesh=_mesh_of(mesh_axes,
+                                                                  dev))
+
+
+async def _dp_pages(torch, tatt, dev, spec, params, tmp) -> dict:
+    """(f) two-leg calls from a prefill sidecar at tensor=2 to a decode
+    sidecar at tensor=1 (and a mixed one), then the other way round: the
+    pages land in the decode arena as the codec's bytes of the prefill
+    side's export, bit for bit, with every KV head; the decode legs'
+    first tokens against the mixed sidecar's."""
+    import grpc.aio
+
+    page = spec["page"]
+    batching = _paged(spec, spec["disagg_arena_pages"])
+    res = {}
+    for pt, dt in ((2, 1), (1, 2)):
+        sides = [_p19_sidecar(torch, params, dev, dict(
+            role=role, batching=batching), tmp, spec, dict(tensor=t),
+            f"{role}-{pt}{dt}")
+            for role, t in (("prefill", pt), ("decode", dt),
+                            ("mixed", dt))]
+        _log_shipping(torch, dev, sides[0])
+        shipped = []
+        ship = sides[0]._ship_kv
+
+        async def capture(target, prompt, exported, adapter=""):
+            shipped.append((list(prompt), exported))
+            return await ship(target, prompt, exported, adapter=adapter)
+
+        sides[0]._ship_kv = capture
+        await _start_all(sides)
+        chans = [grpc.aio.insecure_channel(s.target) for s in sides]
+        try:
+            clients = [_P12Client(ch) for ch in chans]
+            calls = []
+            for n in spec["disagg_prompts"]:
+                calls.append(await _disagg_prompt(tatt, clients, sides, n,
+                                                  spec, page))
+                prompt, exported = shipped[-1]
+                decode = sides[1].batcher
+                landed = await decode.run_host_op(
+                    lambda: decode._gather_pages(
+                        decode.pages.chain_pages(prompt)))
+                for key in ("k", "v"):
+                    check(tuple(exported[key].shape[3:]) == (
+                        sides[0].generation.cfg.num_kv_heads,
+                        sides[0].generation.cfg.head_dim)
+                        and torch.equal(landed[key], exported[key]),
+                        f"(f) tensor={pt} to {dt}, {n} tokens: the landed "
+                        f"{key} pages differ from the shipped ones")
+        finally:
+            for ch in chans:
+                await ch.close()
+            await _stop_all(sides)
+        agree = _agreement([c.pop("tokens") for c in calls],
+                           [c.pop("mixed_tokens") for c in calls])
+        check(agree["first_token"] >= agree["of"] - 1,
+              f"(f) tensor={pt} to {dt}: decode vs mixed {agree}")
+        res[f"tensor={pt}_to_{dt}"] = dict(calls=calls, agreement=agree,
+                                           landed_bitwise=True)
+        del sides
+        _free(torch, dev)
+    res["host_tier"] = await _dp_host_tier(torch, tatt, dev, spec, params)
+    return res
+
+
+async def _dp_host_tier(torch, tatt, dev, spec, params) -> dict:
+    """(f) phase 12a's traffic cut in depth: preambles through an arena
+    that holds about half of them, twice, with the host tier at tensor=2
+    and at tensor=1: demotions in the first pass, restores in the
+    second, the streams counted against tensor=1's."""
+    from ggrmcp_tpu_torch.core.config import BatchingConfig, ServingConfig
+    from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher
+    from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+
+    cfg = _paged(spec, spec["host_arena_pages"],
+                 paged_kv_host_bytes=4 << 30, max_batch_size=4)
+    prompts = [_prompt_ids(spec["host_preamble_tokens"], 3000 + i)
+               + _prompt_ids(32, 5000 + 100 * r + i)
+               for r in range(2) for i in range(spec["host_preambles"])]
+    out, res = {}, {}
+    for t in (2, 1):
+        eng = GenerationEngine(
+            _cut(spec["model"], spec["depth"]),
+            ServingConfig(model=spec["model"], num_layers=spec["depth"]),
+            params=_tree_copy(params), mesh=_mesh_of(dict(tensor=t), dev))
+        batcher = ContinuousBatcher(eng, BatchingConfig(**cfg))
+        _hold_admission(batcher)
+        batcher.start()
+        try:
+            outs = []
+            for g in range(0, len(prompts), 4):
+                outs += await _burst(batcher, [(p, {}) for p in
+                                               prompts[g:g + 4]],
+                                     spec["host_new"])
+            stats = batcher.stats()
+        finally:
+            await batcher.stop()
+        batcher.pages.check_invariants()
+        check(stats["kv_host_demotions"] > 0 and stats["kv_host_restores"]
+              > 0, f"(f) host tier at tensor={t}: {stats['kv_host_demotions']}"
+              f" demotions, {stats['kv_host_restores']} restores")
+        out[t] = outs
+        res[f"tensor={t}"] = {k: stats[k] for k in _HOST_KEYS}
+        del eng, batcher
+        _free(torch, dev)
+    res["tensor2_vs_1"] = _agreement(out[2], out[1])
+    check(res["tensor2_vs_1"]["first_token"] >= len(prompts) - 1,
+          f"(f) host tier tensor=2 vs 1: {res['tensor2_vs_1']}")
+    return res
+
+
+async def _dp_ring_tiers(torch, tatt, dev, spec) -> dict:
+    """(g) phase 13d/e's traffic at tensor=2 against tensor=1 on
+    mistral-7b's widths cut in depth: the ring cache (capacity window +
+    chunk - 1) with prompts past the window, which never takes B1, and
+    the length tiers with short and long calls together."""
+    from ggrmcp_tpu_torch.core.config import BatchingConfig, ServingConfig
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher
+    from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+    from ggrmcp_tpu_torch.serving.tiered import TieredBatcher
+
+    name = spec["ring_model"]
+    cfg = _cut(name, spec["depth"])
+    params = llama_mod.init_params(cfg, dev, SEED + 13)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    probe = torch.randint(3, cfg.vocab_size, spec["ring_probe"],
+                          generator=gen, device=dev)
+    res, out, logits = {}, {"ring": {}, "tiers": {}}, {}
+    for t in (2, 1):
+        mesh = _mesh_of(dict(tensor=t), dev)
+        ring = GenerationEngine(cfg, ServingConfig(
+            model=name, num_layers=spec["depth"], kv_ring=True,
+            batching=BatchingConfig(prefill_chunk=spec["ring_chunk"])),
+            params=_tree_copy(params), mesh=mesh)
+        batcher = ContinuousBatcher(ring, BatchingConfig(
+            max_batch_size=len(spec["ring_prompts"]),
+            prefill_chunk=spec["ring_chunk"]))
+        _hold_admission(batcher)
+        batcher.start()
+        try:
+            before = tatt.flash_attention.launches
+            out["ring"][t] = await _burst(
+                batcher, [(_prompt_ids(n, 1300 + n), {})
+                          for n in spec["ring_prompts"]], spec["ring_new"])
+            launches = tatt.flash_attention.launches - before
+        finally:
+            await batcher.stop()
+        check(launches == 0, f"(g) the ring at tensor={t} launched B1 "
+              f"{launches} times")
+        check(ring.ring_capacity == cfg.sliding_window
+              + spec["ring_chunk"] - 1, f"(g) ring capacity "
+              f"{ring.ring_capacity}")
+        res[f"ring_tensor={t}"] = dict(launches=launches,
+                                       capacity=ring.ring_capacity,
+                                       kv_bytes=batcher.cache_bytes())
+        logits[t] = _chunked_logits(torch, ring, probe, spec["ring_chunk"],
+                                    ring=True)
+        if t == 1:
+            witness = _rel_top1(torch, _chunked_logits(
+                torch, ring, probe, spec["ring_chunk"], ring=False),
+                logits[1])
+        del ring, batcher
+        _free(torch, dev)
+        eng = GenerationEngine(cfg, ServingConfig(
+            model=name, num_layers=spec["depth"]),
+            params=_tree_copy(params), mesh=mesh)
+        tiered = TieredBatcher(eng, BatchingConfig(kv_tiers=spec["tiers"],
+                                                   max_queue_delay_ms=200.0))
+        tiered.start()
+        try:
+            out["tiers"][t] = await _burst(
+                tiered, [(_prompt_ids(n, 1400 + n), {})
+                         for n in spec["tier_prompts"]], spec["tier_new"],
+                held=False)
+            stats = tiered.stats()
+        finally:
+            await tiered.stop()
+        res[f"tiers_tensor={t}"] = dict(mesh=stats["mesh_shape"],
+                                        kv_bytes=tiered.cache_bytes())
+        del eng, tiered
+        _free(torch, dev)
+    rel, agree = _rel_top1(torch, logits[2], logits[1])
+    bound = TP_PREFILL_WITNESS * witness[0]
+    res["ring_logits_tensor2_vs_1"] = dict(
+        rel_err=rel, top1_agree=agree, bound=bound,
+        witness_rel_err=witness[0], witness_top1_agree=witness[1])
+    check(torch.isfinite(logits[2]).all().item(),
+          "(g) ring tensor=2 logits not finite")
+    check(rel <= bound, f"(g) ring tensor=2 vs 1: rel err {rel} > "
+          f"{TP_PREFILL_WITNESS} x the witness's {witness[0]}")
+    check(agree >= TP_PREFILL_TOP1,
+          f"(g) ring tensor=2 vs 1: top-1 agreement {agree}")
+    for key in ("ring", "tiers"):
+        agree = _agreement(out[key][2], out[key][1])
+        check(agree["first_token"] >= agree["of"] - 1,
+              f"(g) {key} tensor=2 vs 1: {agree}")
+        res[f"{key}_tensor2_vs_1"] = agree
+    return res
+
+
+def _chunked_logits(torch, engine, toks, chunk: int, ring: bool):
+    """(g) The last chunk's float32 logits of `toks` [B, S] prefilled
+    `chunk` positions a call into a cache of the engine's ring capacity
+    (`ring`) or a contiguous one of S."""
+    b, s = toks.shape
+    cache = engine.make_cache(b, engine.ring_capacity if ring else s)
+    with torch.no_grad():
+        for i in range(0, s, chunk):
+            out, cache = engine.decode_forward(
+                engine.params, toks[:, i:i + chunk], cache, ring=ring)
+    return out
+
+
+def _dp_train(torch, tatt, dev, spec, tmp: str) -> dict:
+    """(h) llama-1b: `train_steps` AdamW steps of [batch, seq] on the
+    trainer's stream of phase 18's text at data=1 and at data=2 from one
+    seeded tree: each step's loss, step p50, tokens/s and peak
+    memory."""
+    from ggrmcp_tpu_torch.core.config import TrainingConfig
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.models import trainer, training
+
+    cfg = llama_mod.CONFIGS[spec["train"]]
+    data = os.path.join(tmp, "train.txt")
+    with open(data, "w") as fh:
+        fh.write(P18_TEXT * 200)
+    tcfg = TrainingConfig(model=spec["train"], steps=spec["train_steps"],
+                          batch_size=spec["train_batch"],
+                          seq_len=spec["train_seq"], seed=SEED,
+                          data_path=data)
+    runs = {}
+    for d in (1, spec["data"]):
+        params = llama_mod.init_params(cfg, dev, SEED + 18)
+        state = training.make_train_state(
+            params, cfg, mesh=_mesh_of(dict(data=d) if d > 1 else {}, dev))
+        stream = trainer._data_stream(tcfg, cfg.vocab_size, 0)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        tatt.flash_attention.launches = 0
+        losses, ms = [], []
+        for _ in range(spec["train_steps"]):
+            batch = torch.from_numpy(next(stream)).to(dev)
+            _sync(torch, dev)
+            t = time.perf_counter()
+            state, loss = training.train_step(state, batch, cfg)
+            losses.append(loss.item())
+            ms.append((time.perf_counter() - t) * 1e3)
+        steady = sorted(ms[2:])
+        p50 = steady[(len(steady) - 1) // 2]
+        runs[d] = dict(
+            losses=losses, step_ms_p50=p50,
+            tok_per_s=spec["train_batch"] * (spec["train_seq"] - 1)
+            / (p50 / 1e3),
+            launches=tatt.flash_attention.launches,
+            peak_gb=(torch.cuda.max_memory_allocated() / 1e9
+                     if dev.type == "cuda" else None))
+        check(all(math.isfinite(x) for x in losses),
+              f"(h) data={d}: non-finite loss {losses}")
+        check(dev.type != "cuda" or runs[d]["launches"]
+              == spec["train_steps"] * cfg.num_layers * d,
+              f"(h) data={d}: {runs[d]['launches']} B1 launches")
+        del state, params
+        _free(torch, dev)
+    a, b = runs[1]["losses"], runs[spec["data"]]["losses"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(b, a))
+    fault = _dp_train_fault(torch, dev, spec, cfg, tcfg)
+    fault_rel = max(abs(x - y) / abs(y) for x, y in zip(fault, a))
+    log(f"  (h) loss rel data={spec['data']} vs 1 {rel}, one block's rows "
+        f"only vs 1 {fault_rel}, bound {TRAIN_DP_REL}")
+    check(rel <= TRAIN_DP_REL, f"(h) data={spec['data']} losses {b} vs "
+          f"data=1 {a}: rel {rel} > {TRAIN_DP_REL}")
+    check(fault_rel > TRAIN_DP_REL, f"(h) the planted fault's losses "
+          f"{fault} vs data=1 {a}: rel {fault_rel} <= {TRAIN_DP_REL}, the "
+          f"bound cannot fail it")
+    res = dict(runs=runs, loss_max_rel=rel, fault_losses=fault,
+               fault_loss_max_rel=fault_rel)
+    res["tiny"] = _tiny_train_check(torch, tatt, dev, dict(
+        tiny=spec["tiny"], tiny_meshes=spec["train_tiny_meshes"]))
+    return res
+
+
+def _dp_train_fault(torch, dev, spec, cfg, tcfg) -> list:
+    """(h) The planted fault: data=1 from the same seeded tree and
+    stream, each step's update from the first data block's rows only,
+    its loss read on the whole batch before the step."""
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.models import trainer, training
+
+    state = training.make_train_state(
+        llama_mod.init_params(cfg, dev, SEED + 18), cfg,
+        mesh=_mesh_of({}, dev))
+    stream = trainer._data_stream(tcfg, cfg.vocab_size, 0)
+    rows = spec["train_batch"] // spec["data"]
+    losses = []
+    for _ in range(spec["train_steps"]):
+        batch = torch.from_numpy(next(stream)).to(dev)
+        with torch.no_grad():
+            losses.append(training.lm_loss(state.params, cfg, batch).item())
+        state, _ = training.train_step(state, batch[:rows], cfg)
+    del state
+    _free(torch, dev)
+    return losses
+
+
+async def dp_phase(torch, tatt, dev, spec=None) -> dict:
+    """Phase 19: the data axes and the routes once refused on a mesh,
+    every shard on the card: (a) B1 at the new shard shapes; (b)
+    tiny-llama card = CPU on the data meshes, tiny-moe's routing at
+    data=2; (c) llama3-8b's burst at data=2 against data=1; (d) bert-base
+    at tensor=2; (e) LoRA, (f) TransferKV across meshes and the host
+    tier, (g) the ring and the tiers at tensor=2 (widths cut in depth);
+    (h) llama-1b data-parallel training."""
+    import tempfile
+
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+
+    spec = spec or P19
+    t_phase = time.perf_counter()
+    res: dict = {}
+    if dev.type == "cuda":
+        res["kernels"] = kernel_cases(torch, tatt, dev, DP_CASES)
+    res["tiny"] = _tiny_dp_check(torch, tatt, dev, spec)
+    log(f"  (b) {json.dumps(res['tiny'])}")
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        t = time.perf_counter()
+        res["serve"] = await _dp_serve(torch, tatt, dev, spec, tmp)
+        res["serve"]["seconds"] = time.perf_counter() - t
+        log(f"  (c) {json.dumps(res['serve'])}")
+        _free(torch, dev)
+        res["embed"] = _dp_embed(torch, tatt, dev, spec)
+        log(f"  (d) {json.dumps(res['embed'])}")
+        cfg = _cut(spec["model"], spec["depth"])
+        params = llama_mod.init_params(cfg, dev, SEED)
+        t = time.perf_counter()
+        res["lora"] = await _dp_lora(torch, tatt, dev, spec, params, cfg,
+                                     tmp)
+        log(f"  (e) {json.dumps(res['lora'])}")
+        res["pages"] = await _dp_pages(torch, tatt, dev, spec, params, tmp)
+        res["pages"]["seconds"] = time.perf_counter() - t
+        log(f"  (f) {json.dumps(res['pages'])}")
+        del params
+        _free(torch, dev)
+        res["ring_tiers"] = await _dp_ring_tiers(torch, tatt, dev, spec)
+        log(f"  (g) {json.dumps(res['ring_tiers'])}")
+        t = time.perf_counter()
+        res["train"] = _dp_train(torch, tatt, dev, spec, tmp)
+        res["train"]["seconds"] = time.perf_counter() - t
+        log(f"  (h) {json.dumps(res['train'])}")
+    res["launches"] = res["serve"]["serve"][str(spec["data"])]["launches"]
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def _free(torch, dev) -> None:
     gc.collect()
     if dev.type == "cuda":
@@ -5750,69 +6532,69 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         card = card_line()
-        log(f"[1/18] card: {card}; torch {torch.__version__}, CUDA "
+        log(f"[1/19] card: {card}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
         t = time.perf_counter()
         _build.load("flash_attention")
-        log(f"[2/18] build: flash_attention.cu in "
+        log(f"[2/19] build: flash_attention.cu in "
             f"{time.perf_counter() - t:.1f} s")
         ptxas_report(_build.build_log.get("flash_attention", ""))
 
         if run(3):
-            log(f"[3/18] kernel vs plain (|err| <= atol + rtol |plain|: "
+            log(f"[3/19] kernel vs plain (|err| <= atol + rtol |plain|: "
                 f"{TOL})")
             cases = kernel_cases(torch, tatt, dev)
 
         if run(4):
-            log("[4/18] reference: tiny-llama on the card vs the CPU")
+            log("[4/19] reference: tiny-llama on the card vs the CPU")
             ref = tiny_reference(torch, dev)
             log(f"  {ref}")
 
         if run(5):
-            log(f"[5/18] serve: {MODEL} sidecar, default batching")
+            log(f"[5/19] serve: {MODEL} sidecar, default batching")
             serve = asyncio.run(serve_phase(torch, tatt, dev))
             log(f"  {json.dumps(serve)}")
             tidy()
 
         if run(6):
-            log(f"[6/18] embed: {EMBED_MODEL} sidecar")
+            log(f"[6/19] embed: {EMBED_MODEL} sidecar")
             embed = asyncio.run(embed_phase(torch, tatt, dev))
             log(f"  {json.dumps(embed)}")
             tidy()
 
         if run(7):
-            log("[7/18] HF checkpoint: llama3-8b width, 2 layers, 2 files")
+            log("[7/19] HF checkpoint: llama3-8b width, 2 layers, 2 files")
             hf = asyncio.run(hf_phase(torch, tatt, dev))
             log(f"  {json.dumps(hf)}")
             tidy()
 
         if run(8):
-            log(f"[8/18] int8: {MODEL} weights and KV cache")
+            log(f"[8/19] int8: {MODEL} weights and KV cache")
             int8 = asyncio.run(int8_phase(torch, tatt, dev))
             tidy()
 
         if run(9):
-            log(f"[9/18] KV reuse: {MODEL} prefix pool, interleave, "
+            log(f"[9/19] KV reuse: {MODEL} prefix pool, interleave, "
                 f"paged KV")
             reuse = asyncio.run(kv_reuse_phase(torch, tatt, dev))
             tidy()
 
         if run(10):
-            log(f"[10/18] grammar: {MODEL} constrained burst, jump on / "
+            log(f"[10/19] grammar: {MODEL} constrained burst, jump on / "
                 f"off")
             grammar = asyncio.run(grammar_phase(torch, tatt, dev))
             log(f"  {json.dumps(_brief(grammar))}")
             tidy()
 
         if run(11):
-            log(f"[11/18] control plane: {MODEL} tick phases, Profile, "
+            log(f"[11/19] control plane: {MODEL} tick phases, Profile, "
                 f"GetMemory, scheduler, failpoints, deadlines")
             control = asyncio.run(control_phase(torch, tatt, dev))
             tidy()
 
         if run(12):
-            log(f"[12/18] paged plane and LoRA: {MODEL} host tier, "
+            log(f"[12/19] paged plane and LoRA: {MODEL} host tier, "
                 f"TransferKV with roles, adapter arena, preemption with "
                 f"the host tier")
             paged = asyncio.run(paged_lora_phase(torch, tatt, dev))
@@ -5820,14 +6602,14 @@ def main() -> int:
 
         if run(13):
             t = time.perf_counter()
-            log(f"[13/18] speculative decoding, ring KV, tiers: "
+            log(f"[13/19] speculative decoding, ring KV, tiers: "
                 f"{P13['model']} with the {P13['draft']} draft")
             p13 = asyncio.run(spec_ring_tier_phase(torch, tatt, dev))
             log(f"  phase 13: {time.perf_counter() - t:.1f} s, "
                 f"{p13['launches']} B1 launches")
 
         if run(14):
-            log(f"[14/18] sparse MoE: {P14['model']} cut to "
+            log(f"[14/19] sparse MoE: {P14['model']} cut to "
                 f"{P14['layers']} layers, bf16")
             p14 = asyncio.run(moe_phase(torch, tatt, dev))
             log(f"  phase 14: {p14['seconds']:.1f} s, {p14['launches']} B1 "
@@ -5835,7 +6617,7 @@ def main() -> int:
             _free(torch, dev)
 
         if run(15):
-            log(f"[15/18] tensor and expert parallelism: {P15['model']} "
+            log(f"[15/19] tensor and expert parallelism: {P15['model']} "
                 f"at tensor={P15['tensor']} on one card, the sharded "
                 f"loader, {P15['moe']} at expert=2 x tensor=2")
             p15 = asyncio.run(tp_phase(torch, tatt, dev))
@@ -5844,7 +6626,7 @@ def main() -> int:
             _free(torch, dev)
 
         if run(16):
-            log(f"[16/18] co-launch: {P16['model']} sidecar in this "
+            log(f"[16/19] co-launch: {P16['model']} sidecar in this "
                 f"process, the unchanged gateway a child, over a private "
                 f"socket")
             p16 = asyncio.run(colaunch_phase(torch, tatt, dev))
@@ -5853,7 +6635,7 @@ def main() -> int:
             _free(torch, dev)
 
         if run(17):
-            log(f"[17/18] sequence- and pipeline-parallel serving: "
+            log(f"[17/19] sequence- and pipeline-parallel serving: "
                 f"{P17['model']} at sequence={P17['sequence']} and "
                 f"stage={P17['stage']}, every shard on one card")
             p17 = asyncio.run(sp_pp_phase(torch, tatt, dev))
@@ -5865,7 +6647,7 @@ def main() -> int:
             _free(torch, dev)
 
         if run(18):
-            log(f"[18/18] training: {P18['model']} through the train CLI "
+            log(f"[18/19] training: {P18['model']} through the train CLI "
                 f"({P18['steps']} steps at [{P18['batch']}, "
                 f"{P18['seq_len']}], a resume to {P18['resume_to']}), B1 "
                 f"under autograd, {P18['tiny']} card = CPU at tensor and "
@@ -5875,6 +6657,16 @@ def main() -> int:
                 f"{p18['cli']['launches']} B1 launches and "
                 f"{p18['cli']['recomputes']} backward recomputes in "
                 f"{P18['steps']} steps")
+            _free(torch, dev)
+
+        if run(19):
+            log(f"[19/19] the data axes and the routes on a mesh: "
+                f"{P19['model']} at data={P19['data']}, {P19['embed']}, "
+                f"LoRA, TransferKV, the host tier, the ring and tiers at "
+                f"tensor=2, {P19['train']} training at data={P19['data']}")
+            p19 = asyncio.run(dp_phase(torch, tatt, dev))
+            log(f"  phase 19: {p19['seconds']:.1f} s, {p19['launches']} B1 "
+                f"launches at data={P19['data']}")
             _free(torch, dev)
     except SmokeError as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
@@ -5934,11 +6726,22 @@ def main() -> int:
         train_bound_by=p18["attention"]["bound_by"],
         train_fwd_bwd_bound_ms=p18["attention"]["fwd_bwd_bound_ms"],
         train_max_abs_err=p18["attention"]["max_abs_err"],
+        dp_launches=p19["launches"],
+        dp_burst_launches=p19["serve"]["serve"][str(P19["data"])][
+            "burst_launches"],
+        dp_embed_launches=p19["embed"]["launches"][2],
+        dp_lora_launches=p19["lora"]["tensor=2"]["launches"],
+        dp_ring_launches=p19["ring_tiers"]["ring_tensor=2"]["launches"],
+        dp_train_launches=p19["train"]["runs"][P19["data"]]["launches"],
+        dp_cases=[{k: c[k] for k in (
+            "name", "ms", "ms_min", "ms_max", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "max_abs_err")}
+            for c in p19["kernels"]],
         shard_case=p15["kernel"]["name"], shard_ms=p15["kernel"]["ms"],
         shard_bound_ms=p15["kernel"]["bound_ms"],
         shard_library_ms=p15["kernel"]["library_ms"],
         shard_max_abs_err=p15["kernel"]["max_abs_err"],
-        max_abs_err=max([c["max_abs_err"] for c in cases]
+        max_abs_err=max([c["max_abs_err"] for c in cases + p19["kernels"]]
                         + [p15["kernel"]["max_abs_err"],
                            p18["attention"]["max_abs_err"]]),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],

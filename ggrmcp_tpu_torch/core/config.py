@@ -494,11 +494,6 @@ class LoraConfig:
             raise ValueError("serving.lora.arena_rows must be >= 1")
 
 
-# Mesh axes the port does not shard yet, and the ROADMAP item that
-# ports each: a resolved size above 1 raises, never replicates.
-UNPORTED_MESH_AXES = {"data": "A18b", "fsdp": "A18b"}
-
-
 @dataclass
 class MeshConfig:
     """The device mesh of the serving plane (parallel/mesh.py), the
@@ -521,24 +516,12 @@ class MeshConfig:
                 raise ValueError(f"serving.mesh.{axis} must be >= 0")
 
 
-def check_mesh_axes(sizes: dict) -> None:
-    """Refuse a data or fsdp axis above 1 (explicit in a config, or
-    resolved by parallel/mesh.py), naming the ROADMAP item that ports
-    it."""
-    for axis, item in UNPORTED_MESH_AXES.items():
-        if sizes.get(axis, 1) > 1:
-            raise ValueError(
-                f"serving.mesh.{axis}={sizes[axis]} is not served by the "
-                f"PyTorch port yet (ROADMAP {item}); it shards over "
-                f"tensor, sequence, expert and stage only"
-            )
-
-
 @dataclass
 class TrainingConfig:
     """`python -m ggrmcp_tpu_torch train` (models/trainer.py): the
-    reference's fields, defaults and checks. `mesh` takes tensor (and
-    expert for MoE, stage for the pipeline) as serving does."""
+    reference's fields, defaults and checks. `mesh` takes data, fsdp,
+    tensor (and expert for MoE, stage for the pipeline) as serving
+    does; the batch splits over data x fsdp."""
 
     model: str = "tiny-llama"
     steps: int = 100
@@ -612,8 +595,9 @@ class ServingConfig:
     # kv_tiers.
     role: str = "mixed"
     lora: LoraConfig = field(default_factory=LoraConfig)
-    # The device mesh (parallel/mesh.py): tensor and expert parallelism
-    # over an explicit device list.
+    # The device mesh (parallel/mesh.py): the batch over data x fsdp,
+    # tensor, expert, sequence and stage parallelism over an explicit
+    # device list.
     mesh: MeshConfig = field(default_factory=MeshConfig)
     # Ring-buffer KV for sliding-window models (batcher path): the
     # shared cache holds window + prefill_chunk - 1 positions and a
@@ -665,7 +649,6 @@ class ServingConfig:
                           ("mesh", MeshConfig)):
             if not isinstance(getattr(self, name), cls):
                 raise ValueError(f"serving.{name} must be a {cls.__name__}")
-        check_mesh_axes({a: getattr(self.mesh, a) for a in UNPORTED_MESH_AXES})
         if self.failpoints:
             from ggrmcp_tpu_torch.utils.failpoints import parse_spec
 

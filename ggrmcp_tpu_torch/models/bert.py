@@ -9,6 +9,12 @@ card runs the FlashAttention kernel (non-causal, per-row kv_len). One
 difference from the reference's `attention_xla`: a row with no real
 token (kv_len 0) comes out of the kernel as zeros where the reference
 spreads uniform weights; such rows exist only as padding.
+
+On a mesh (`param_specs`, `shard_params`) `encode` splits the batch
+over the data blocks, each block's rows on its tensor shards
+(head-aligned q / k / v columns, row-parallel `wo` and `w_out`
+all-reduced in float32 within the block, the vocab-parallel
+embedding), the kernel once per (data block x tensor shard).
 """
 
 from __future__ import annotations
@@ -20,7 +26,18 @@ import torch
 import torch.nn.functional as F
 
 from ggrmcp_tpu_torch.models import common
+from ggrmcp_tpu_torch.ops import quant
 from ggrmcp_tpu_torch.ops.attention import attention
+from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+from ggrmcp_tpu_torch.parallel.collectives import (
+    Sharded,
+    all_reduce_sum,
+    gather_batch,
+    local,
+    per_device,
+    replicate,
+    shard,
+)
 
 Params = common.Params
 
@@ -91,43 +108,144 @@ def init_params(
     }
 
 
+def param_specs(cfg: BertConfig) -> Params:
+    """The reference's specs: column-parallel wqkv and w_in,
+    row-parallel wo and w_out, the embedding vocab-sharded, the rest
+    replicated. The fused wqkv's split is head-aligned here
+    (`qkv_columns`)."""
+    return {
+        "embed": ("tensor", None),
+        "pos_embed": (None, None),
+        "embed_norm_w": (None,),
+        "embed_norm_b": (None,),
+        "layers": {
+            "wqkv": (None, None, "tensor"),
+            "wo": (None, "tensor", None),
+            "attn_norm_w": (None, None),
+            "attn_norm_b": (None, None),
+            "w_in": (None, None, "tensor"),
+            "w_out": (None, "tensor", None),
+            "mlp_norm_w": (None, None),
+            "mlp_norm_b": (None, None),
+        },
+    }
+
+
+def qkv_columns(cfg: BertConfig, tensor: int, shard_: int) -> torch.Tensor:
+    """The fused [D, 3 · H · Dh] wqkv's columns of tensor shard `shard_`:
+    its heads' q, k and v columns, in that order."""
+    width = cfg.num_heads // tensor * cfg.head_dim
+    own = torch.arange(shard_ * width, (shard_ + 1) * width)
+    d = cfg.num_heads * cfg.head_dim
+    return torch.cat([own, d + own, 2 * d + own])
+
+
+def shard_params(params: Params, cfg: BertConfig, mesh) -> Params:
+    """Place a whole tree on `mesh` by `param_specs`, IN PLACE. A dim the
+    mesh does not divide raises: the port splits whole heads, rows and
+    columns only (the reference replicates it)."""
+
+    def cut(x, spec, name):
+        def refuse(dim, entry, size, axis):
+            raise ValueError(
+                f"{cfg.name} on {mesh_mod.mesh_shape_str(mesh)}: {name} "
+                f"dim {dim} (size {size}) is not divisible by mesh axis "
+                f"{entry!r} ({axis}) (ROADMAP A18b)")
+
+        adapted = mesh_mod.compatible_spec(spec, x.shape, mesh, refuse)
+        index_fn = None
+        if name == "wqkv":
+            def index_fn(dim, block, n):
+                return qkv_columns(cfg, n, block) if dim == 2 else None
+        return shard(x, adapted, mesh, index_fn)
+
+    for key, spec in param_specs(cfg).items():
+        if isinstance(spec, dict):
+            for name, sub in spec.items():
+                params[key][name] = cut(params[key][name], sub, name)
+        else:
+            params[key] = cut(params[key], spec, key)
+    return params
+
+
+def is_sharded(params: Params) -> bool:
+    return isinstance(params["layers"]["wqkv"], Sharded)
+
+
 def encode(
     params: Params,
     cfg: BertConfig,
     tokens: torch.Tensor,  # [B, S]
     attention_mask: Optional[torch.Tensor] = None,  # [B, S] 1 = real
 ) -> torch.Tensor:  # [B, S, D] final hidden states, model dtype
+    """The encoder over one device's params, or over params placed by
+    `shard_params`: each data block's rows on its tensor shards, the
+    blocks' hidden states back in batch order on the mesh's first
+    device."""
     b, s = tokens.shape
     if attention_mask is None:
         attention_mask = (tokens != cfg.pad_token_id).to(torch.int32)
-    x = params["embed"].to(cfg.torch_dtype)[tokens.long()]
-    x = x + params["pos_embed"][None, :s]
-    x = common.layer_norm(
-        x, params["embed_norm_w"], params["embed_norm_b"], cfg.norm_eps
-    )
     # Pads are trailing (the tokenizer's contract): a per-row key length
     # masks them.
     kv_len = attention_mask.sum(dim=-1).to(torch.int32)  # [B]
-    h, hd = cfg.num_heads, cfg.head_dim
-    layers = params["layers"]
+    if not is_sharded(params):
+        x = params["embed"].to(cfg.torch_dtype)[tokens.long()]
+        return _encode_shards(cfg, [params], [x], [kv_len])
+    from ggrmcp_tpu_torch.models import llama
+
+    mesh = params["layers"]["wqkv"].mesh
+    outs = []
+    for rows, at in mesh_mod.data_blocks(mesh, b):
+        coords, devs = llama.tensor_coords(mesh, **at)
+        xs = llama._vocab_embed(params["embed"], tokens[rows],
+                                cfg.torch_dtype, coords, devs)
+        outs.append(_encode_shards(cfg, [local(params, c) for c in coords],
+                                   xs, replicate(kv_len[rows], devs)))
+    return gather_batch(outs)
+
+
+def _encode_shards(cfg: BertConfig, shards: list, xs: list,
+                   lens: list) -> torch.Tensor:
+    """The positional add, the embedding LayerNorm and every layer over
+    one block's tensor shards: per shard its params, its embedded rows
+    and their key lengths. Every row-parallel partial of more than one
+    shard is a float32 product, all-reduced within the block and
+    rounded once before the residual add and its LayerNorm. Returns the
+    first shard's hidden states."""
+    t = len(shards)
+    b, s = xs[0].shape[:2]
+    h, hd, eps = cfg.num_heads // t, cfg.head_dim, cfg.norm_eps
+    partial = torch.float32 if t > 1 else None
+
+    def add_norm(xs, totals, lps, name):
+        return per_device(
+            lambda x, tot, w, bias: common.layer_norm(
+                x + tot.to(x.dtype), w, bias, eps),
+            xs, totals, [lp[f"{name}_w"] for lp in lps],
+            [lp[f"{name}_b"] for lp in lps])
+
+    xs = per_device(
+        lambda x, pe, w, bias: common.layer_norm(x + pe[None, :s], w, bias,
+                                                 eps),
+        xs, *([p[k] for p in shards]
+              for k in ("pos_embed", "embed_norm_w", "embed_norm_b")))
     for layer in range(cfg.num_layers):
-        lp = {name: w[layer] for name, w in layers.items()}
-        # q, k, v stay strided views of the fused projection; the kernel
-        # reads them in place.
-        q, k, v = (
-            t.reshape(b, s, h, hd)
-            for t in (x @ lp["wqkv"]).chunk(3, dim=-1)
-        )
-        attn = attention(q, k, v, causal=False, kv_len=kv_len)
-        attn = attn.reshape(b, s, h * hd) @ lp["wo"]
-        x = common.layer_norm(
-            x + attn, lp["attn_norm_w"], lp["attn_norm_b"], cfg.norm_eps
-        )
-        mlp = F.gelu(x @ lp["w_in"], approximate="tanh") @ lp["w_out"]
-        x = common.layer_norm(
-            x + mlp, lp["mlp_norm_w"], lp["mlp_norm_b"], cfg.norm_eps
-        )
-    return x
+        lps = [{n: w[layer] for n, w in p["layers"].items()} for p in shards]
+        partials = []
+        for x, lp, kl in zip(xs, lps, lens):
+            # q, k, v stay strided views of the fused projection; the
+            # kernel reads them in place.
+            q, k, v = (u.reshape(b, s, h, hd)
+                       for u in (x @ lp["wqkv"]).chunk(3, dim=-1))
+            attn = attention(q, k, v, causal=False, kv_len=kl)
+            partials.append(quant.matmul(attn.reshape(b, s, h * hd),
+                                         lp["wo"], partial))
+        xs = add_norm(xs, all_reduce_sum(partials), lps, "attn_norm")
+        partials = [quant.matmul(F.gelu(x @ lp["w_in"], approximate="tanh"),
+                                 lp["w_out"], partial)
+                    for x, lp in zip(xs, lps)]
+        xs = add_norm(xs, all_reduce_sum(partials), lps, "mlp_norm")
+    return xs[0]
 
 
 def embed(
@@ -140,7 +258,7 @@ def embed(
     if attention_mask is None:
         attention_mask = (tokens != cfg.pad_token_id).to(torch.int32)
     hidden = encode(params, cfg, tokens, attention_mask).float()
-    mask = attention_mask[..., None].float()  # [B, S, 1]
+    mask = attention_mask[..., None].float().to(hidden.device)
     if pooling == "cls":
         pooled = hidden[:, 0]
     elif pooling == "max":

@@ -2,7 +2,8 @@
 weights. Port of `ggrmcp_tpu/models/llama.py` on the cache-free,
 contiguous-cache, ring-cache and paged-cache paths, with int8 weights
 (any leaf may be a `QuantizedTensor`, ops/quant.py) and the int8 KV
-cache, on one device or tensor-parallel over a mesh (`forward_tp`).
+cache, on one device or over a mesh (`forward_tp`: the batch over data
+blocks, heads and FFN columns over tensor shards).
 
 The reference threads the KV cache functionally through `lax.scan` and
 donates it; here `forward` writes each layer's new K/V into the cache
@@ -30,6 +31,7 @@ from ggrmcp_tpu_torch.parallel.collectives import (
     Sharded,
     all_gather,
     all_reduce_sum,
+    gather_batch,
     local,
     per_device,
     replicate,
@@ -203,14 +205,63 @@ def qkv_columns(cfg: LlamaConfig, tensor: int, shard: int) -> torch.Tensor:
     return torch.cat([q, h * hd + kv, (h + kvh) * hd + kv])
 
 
+# The leaves whose tensor split is head-aligned, and the dim of their
+# fused q / k / v columns.
+_QKV_DIM = {"wqkv": 2, "lora_qkv_b": 3}
+
+
 def shard_index_fn(cfg: LlamaConfig, name: str):
     """`shard`'s index_fn for leaf `name`: the fused wqkv's tensor split
-    is head-aligned (`qkv_columns`), every other leaf's blocks are
+    and the LoRA `b` factor's, whose columns extend wqkv's, are
+    head-aligned (`qkv_columns`); every other leaf's blocks are
     contiguous (None)."""
-    if name != "wqkv":
+    if name not in _QKV_DIM:
         return None
-    return lambda dim, block, n: (qkv_columns(cfg, n, block) if dim == 2
+    at = _QKV_DIM[name]
+    return lambda dim, block, n: (qkv_columns(cfg, n, block) if dim == at
                                   else None)
+
+
+def lora_specs() -> dict:
+    """The LoRA factor stacks on a mesh: `a` [L, N+1, D, r] replicated,
+    `b` [L, N+1, r, (H + 2 KVH) · Dh] split over tensor by wqkv's
+    head-aligned columns, so each shard adds the delta of its own heads
+    to its qkv product, before its RoPE."""
+    return {"lora_qkv_a": (None, None, None, None),
+            "lora_qkv_b": (None, None, None, "tensor")}
+
+
+def shard_lora(factors: dict, cfg: LlamaConfig, mesh) -> dict:
+    """Whole factor stacks placed on `mesh` by `lora_specs` (one
+    coordinate: unchanged)."""
+    if mesh.size == 1:
+        return factors
+    specs = lora_specs()
+    return {name: shard(t, mesh_mod.compatible_spec(specs[name], t.shape,
+                                                    mesh),
+                        mesh, shard_index_fn(cfg, name))
+            for name, t in factors.items()}
+
+
+def set_lora_row(leaf, row: int, value: torch.Tensor,
+                 cfg: LlamaConfig) -> None:
+    """Write adapter row `row` of a factor stack in place from its whole
+    [L, ...] value: every stored part of a sharded stack takes its own
+    columns (`b`'s head-aligned ones)."""
+    if not isinstance(leaf, Sharded):
+        leaf[:, row].copy_(value.to(leaf.device, leaf.dtype))
+        return
+    t = leaf.factors[-1]
+    done = set()
+    for i, part in enumerate(leaf.parts):
+        if id(part) in done:
+            continue
+        done.add(id(part))
+        block = value
+        if t > 1:
+            shard_ = leaf.mesh.coord(i)["tensor"]
+            block = value[..., qkv_columns(cfg, t, shard_)]
+        part[:, row].copy_(block.to(part.device, part.dtype))
 
 
 def shard_params(params: Params, cfg: LlamaConfig, mesh, specs: Params,
@@ -414,14 +465,17 @@ def paged_view_layers(arena: quant.TensorOrQuant, table: torch.Tensor,
 
 
 def cache_specs() -> dict:
-    """KV cache sharding: batch over data, heads over tensor."""
-    spec = (None, ("data", "fsdp"), None, "tensor", None)
-    return {"k": spec, "v": spec, "length": (("data", "fsdp"),)}
+    """KV cache sharding: batch over data x fsdp (each data block holds
+    its slots' rows), heads over tensor. The lengths stay whole on the
+    controller, which schedules every slot."""
+    spec = (None, mesh_mod.BATCH_AXES, None, "tensor", None)
+    return {"k": spec, "v": spec, "length": (mesh_mod.BATCH_AXES,)}
 
 
 def paged_cache_specs() -> dict:
     """Paged arena sharding: heads over tensor only (a page is shared
-    across slots, so the page axis cannot ride a batch axis); the block
+    across slots, so the page axis cannot ride a batch axis: the data
+    blocks' rows read and write one arena per tensor block); the block
     tables and lengths are replicated."""
     spec = (None, None, None, "tensor", None)
     return {"k": spec, "v": spec, "table": (), "length": ()}
@@ -707,10 +761,8 @@ def forward(
     Params placed on a mesh (`is_sharded`) take `forward_tp`.
     Returns (float32 logits [B, S, V], cache or None)."""
     if is_sharded(params):
-        if lora_idx is not None:
-            raise ValueError("lora on a mesh is not ported (ROADMAP A18b)")
         return forward_tp(params, cfg, tokens, cache, use_flash, ring,
-                          attn_impl=attn_impl)
+                          attn_impl=attn_impl, lora_idx=lora_idx)
     b, s = tokens.shape
     dtype = cfg.torch_dtype
     x = quant.embed_lookup(params["embed"], tokens, dtype)  # [B, S, D]
@@ -756,41 +808,94 @@ def forward_tp(
     ring: bool = False,
     ffn=None,
     attn_impl=None,
+    lora_idx: Optional[torch.Tensor] = None,
 ) -> "tuple[torch.Tensor, Optional[KVCache | PagedKVCache]]":
-    """`forward` over params sharded by `param_specs` (Megatron layout):
-    each tensor shard runs its query heads' attention, written into its
-    KV heads' cache, and its FFN columns; every row-parallel partial
-    (`wo`, `w_down`) is a float32 product, all-reduced and rounded once
-    to the model dtype before the residual add. The
-    embedding is a masked lookup per vocab shard, summed (exact: one
-    shard holds each row); the lm_head's vocab blocks are all-gathered
-    into whole float32 logits, so sampling and grammar masks see whole
-    rows. Activations are replicated: one tensor per device, computed
-    once per device. Tokens, cache lengths and block tables live on the
-    mesh's first device and are copied to each shard's device per call
-    (a no-op on the same device). Attention runs at the coordinates of
-    index 0 on every other axis (a sequence axis runs inside
-    `attn_impl`, which takes each shard's `coord`); `ffn(layer, xs,
-    lps, devs)` replaces the dense FFN (the MoE family's expert-parallel
-    bank) and returns the new activations."""
+    """`forward` over params sharded by `param_specs` (Megatron layout),
+    the batch split over the data blocks (`mesh.data_blocks`): each data
+    block's rows run on its own tensor shards, each shard running its
+    query heads' attention, written into its KV heads' cache, and its FFN
+    columns; every row-parallel partial (`wo`, `w_down`) of more than one
+    tensor shard is a float32 product, all-reduced within the block and
+    rounded once to the model dtype before the residual add. The embedding is a masked lookup per
+    vocab shard, summed (exact: one shard holds each row); the lm_head's
+    vocab blocks are all-gathered into whole float32 logits, and the
+    blocks' logits come back in batch order, so sampling and grammar
+    masks see whole rows of every slot. Activations are replicated over
+    a block's shards: one tensor per device, computed once per device.
+    Tokens, cache lengths and block tables live on the mesh's first
+    device and are copied to each shard's device per call (a no-op on
+    the same device). A contiguous cache split by slot (`cache_specs`)
+    gives each block its own rows; a paged arena is one per tensor
+    block, which every block's rows share. A batch the data blocks do
+    not divide runs as one block, its attention through `use_flash` as
+    any block's (the reference's dispatcher takes XLA for it: one
+    controller has no divisibility to keep). Attention runs at index 0
+    of the sequence, expert and stage axes (a sequence axis runs inside
+    `attn_impl`, which takes each shard's `coord`); `ffn(layer, blocks,
+    lps)` replaces the dense FFN (the MoE family's expert-parallel bank,
+    which routes every block's rows at once) and sets each block's
+    activations. `lora_idx` [B]: each row's adapter (the factors split
+    like wqkv's columns)."""
     mesh = params["layers"]["attn_norm"].mesh
-    coords, devs = tensor_coords(mesh)
     b, s = tokens.shape
-    xs = _vocab_embed(params["embed"], tokens, cfg.torch_dtype, coords, devs)
+    splits = mesh_mod.data_blocks(mesh, b)
     steps = torch.arange(s, device=tokens.device)[None, :]
     positions = (cache.length.long()[:, None] + steps if cache is not None
                  else steps.expand(b, s))
-    none = [None] * len(coords)
-    lens = replicate(cache.length, devs) if cache is not None else none
-    tables = (replicate(cache.table, devs)
-              if isinstance(cache, PagedKVCache) else none)
-    xs = tp_layers(params["layers"], cfg, xs, coords,
-                   range(cfg.num_layers), replicate(positions, devs), lens,
-                   tables, cache, use_flash=use_flash, ring=ring, ffn=ffn,
-                   attn_impl=attn_impl)
+    paged = isinstance(cache, PagedKVCache)
+    whole = (cache is not None and not paged and len(splits) > 1
+             and cache_batch_blocks(cache) == 1)
+    blocks = []
+    for rows, at in splits:
+        coords, devs = tensor_coords(mesh, **at)
+
+        def each(t):
+            return ([None] * len(devs) if t is None
+                    else replicate(t[rows], devs))
+
+        blocks.append(Block(
+            at, coords,
+            _vocab_embed(params["embed"], tokens[rows], cfg.torch_dtype,
+                         coords, devs),
+            each(positions), each(None if cache is None else cache.length),
+            each(cache.table if paged else None), each(lora_idx),
+            rows if whole else None))
+    blocks = tp_layers(params["layers"], cfg, blocks, range(cfg.num_layers),
+                       cache, use_flash=use_flash, ring=ring, ffn=ffn,
+                       attn_impl=attn_impl)
     if cache is not None:
         cache.length = cache.length + s
-    return tp_head(params, cfg, xs, coords), cache
+    return gather_batch([tp_head(params, cfg, blk.xs, blk.coords)
+                         for blk in blocks]), cache
+
+
+def cache_batch_blocks(cache) -> int:
+    """How many data blocks a contiguous (or staged) cache's slots are
+    split into: 1 when its parts hold every slot."""
+    leaf = cache.k.q if isinstance(cache.k, QuantizedTensor) else cache.k
+    if not isinstance(leaf, Sharded) or leaf.bases is None:
+        return 1
+    return leaf.factors[leaf.batch_dim]
+
+
+@dataclasses.dataclass
+class Block:
+    """One data block's share of a tensor-parallel forward: `at` its
+    data (and stage) coordinate, `coords` its tensor shards' flat
+    coordinates, and per shard its activations, positions, cache
+    lengths, block tables and adapter ids (None entries where absent).
+    `rows`: the rows of the cache's parts it reads and writes when those
+    parts hold more than its rows (a pipeline microbatch, a cache the
+    data blocks do not split); None = the whole part."""
+
+    at: dict
+    coords: list[int]
+    xs: list
+    pos: list
+    lens: list
+    tables: list
+    lora: list
+    rows: Optional[slice] = None
 
 
 def tensor_coords(mesh, **fixed: int) -> tuple[list[int], list]:
@@ -801,57 +906,61 @@ def tensor_coords(mesh, **fixed: int) -> tuple[list[int], list]:
     return coords, [mesh.devices[c] for c in coords]
 
 
-def tp_layers(layers, cfg: LlamaConfig, xs: list, coords: list[int],
-              layer_ids, pos: list, lens: list, tables: list, cache=None,
-              rows: Optional[slice] = None, use_flash=None, ring=False,
-              ffn=None, attn_impl=None) -> list:
+def tp_layers(layers, cfg: LlamaConfig, blocks: list[Block], layer_ids,
+              cache=None, use_flash=None, ring=False, ffn=None,
+              attn_impl=None) -> list[Block]:
     """Layers `layer_ids` (indices into each coordinate's local stack) of
-    the tensor-parallel forward over per-shard activations `xs`, the
-    cache's parts at `coords` written in place (batch `rows` of them
-    when given: a pipeline microbatch). Returns the new activations."""
-    t = len(coords)
-    devs = [x.device for x in xs]
+    the tensor-parallel forward over every block's per-shard
+    activations, the cache's parts at each block's coordinates written
+    in place (`Block.rows` of them when given). The all-reduces stay
+    within a block. Sets and returns the blocks."""
+    t = len(blocks[0].coords)
     lcfg = local_config(cfg, t)
+    # Row-parallel partials in float32, summed and rounded once; one
+    # tensor shard's product is whole and rounds as `forward`'s does.
+    partial = torch.float32 if t > 1 else None
     if flash_shardable(t, cfg.num_kv_heads)[0]:
         kv_heads = [None] * t
     else:
         # Replicated KV: every shard reads its query heads' groups.
         kv_heads = [shard_kv_heads(cfg, t, i) for i in range(t)]
-    impls = [None if attn_impl is None else
-             functools.partial(attn_impl, coord={"tensor": i})
-             for i in range(t)]
 
-    def cache_at(leaf, layer: int, c: int):
+    def cache_at(leaf, layer: int, c: int, rows):
         part = _at(layer, local(leaf, c))
         if rows is not None:
             part = quant.kv_map(lambda x: x[rows], part)
         return part
 
-    eps = cfg.norm_eps
+    def norm(xs, lps, name):
+        return per_device(lambda x, w: common.rms_norm(x, w, cfg.norm_eps),
+                          xs, [lp[name] for lp in lps])
+
     for layer in layer_ids:
-        lps = [{name: _at(layer, local(w, c)) for name, w in layers.items()}
-               for c in coords]
-        normed = per_device(lambda x, w: common.rms_norm(x, w, eps), xs,
-                            [lp["attn_norm"] for lp in lps])
-        partials = []
-        for i, c in enumerate(coords):
-            ck = cv = None
-            if cache is not None:
-                ck = cache_at(cache.k, layer, c)
-                cv = cache_at(cache.v, layer, c)
-            partials.append(attention_out(
-                normed[i], lps[i], lcfg, pos[i], ck, cv, lens[i], use_flash,
-                tables[i], None, ring, kv_heads[i], torch.float32,
-                attn_impl=impls[i]))
-        xs = per_device(_residual, xs, all_reduce_sum(partials))
+        lps = [[{name: _at(layer, local(w, c)) for name, w in layers.items()}
+                for c in blk.coords] for blk in blocks]
+        for blk, lp in zip(blocks, lps):
+            normed = norm(blk.xs, lp, "attn_norm")
+            partials = []
+            for i, c in enumerate(blk.coords):
+                ck = cv = None
+                if cache is not None:
+                    ck = cache_at(cache.k, layer, c, blk.rows)
+                    cv = cache_at(cache.v, layer, c, blk.rows)
+                impl = (None if attn_impl is None else functools.partial(
+                    attn_impl, coord={**blk.at, "tensor": i}))
+                partials.append(attention_out(
+                    normed[i], lp[i], lcfg, blk.pos[i], ck, cv, blk.lens[i],
+                    use_flash, blk.tables[i], blk.lora[i], ring, kv_heads[i],
+                    partial, attn_impl=impl))
+            blk.xs = per_device(_residual, blk.xs, all_reduce_sum(partials))
         if ffn is not None:
-            xs = ffn(layer, xs, lps, devs)
+            ffn(layer, blocks, lps)
             continue
-        normed = per_device(lambda x, w: common.rms_norm(x, w, eps), xs,
-                            [lp["mlp_norm"] for lp in lps])
-        partials = [swiglu(n, lp, torch.float32) for n, lp in zip(normed, lps)]
-        xs = per_device(_residual, xs, all_reduce_sum(partials))
-    return xs
+        for blk, lp in zip(blocks, lps):
+            partials = [swiglu(n, w, partial)
+                        for n, w in zip(norm(blk.xs, lp, "mlp_norm"), lp)]
+            blk.xs = per_device(_residual, blk.xs, all_reduce_sum(partials))
+    return blocks
 
 
 def tp_head(params: Params, cfg: LlamaConfig, xs: list,

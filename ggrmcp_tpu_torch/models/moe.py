@@ -25,11 +25,12 @@ mesh (`param_specs`, `moe_ffn_sharded`).
   5120 floats each.
 - On a mesh the banks shard over `expert` (the expert dim) and
   `tensor` (the FFN dim); attention is the dense family's tensor
-  parallelism. Routing (`moe_ffn_sharded`) runs ONCE, on the replicated activations: the
-  capacity is batch-global, so per-shard routing could drop other
-  pairs. Each shard runs its experts' rows of the one assignment through
-  its slice of the banks, and one all-reduce over expert x tensor sums
-  the weighted outputs.
+  parallelism. Routing (`moe_ffn_sharded`) runs ONCE, over every data
+  block's rows in batch order: the capacity is batch-global, so
+  per-shard or per-block routing could drop other pairs. Each block's
+  shards run their experts' rows of the one assignment, for the block's
+  own tokens, through their slice of the banks, and one all-reduce over
+  the block's expert x tensor coordinates sums the weighted outputs.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from ggrmcp_tpu_torch.ops import quant
 from ggrmcp_tpu_torch.ops.quant import QuantizedTensor
 from ggrmcp_tpu_torch.parallel.collectives import (
     all_reduce_sum,
+    gather_batch,
     local,
     per_device,
 )
@@ -319,76 +321,96 @@ def moe_ffn(
 
 
 def moe_ffn_sharded(
-    x: torch.Tensor,  # [B, S, D] (already normed), replicated
+    xs: list,  # per data block: [B_i, S, D] (already normed)
     layers: Params,  # the mesh's sharded stacked layers
     layer: int,
     cfg: MoEConfig,
-    valid: Optional[torch.Tensor] = None,  # [B, S] bool
+    valid: Optional[torch.Tensor] = None,  # [B, S] bool, blocks in order
     auxes: Optional[list] = None,
-    coords: Optional[list[int]] = None,
-) -> dict:
-    """`moe_ffn` of layer `layer` over an expert x tensor mesh: route
-    ONCE on `x` (capacity is batch-global), build the [E·C + 1, D] expert
-    input once, then every mesh coordinate (e, t) runs experts [e·E/ep,
-    (e+1)·E/ep) on its F/tp bank columns and sums its pairs' weighted
-    outputs in float32; one all-reduce over the mesh combines them.
-    `coords`: the flat coordinates that hold the layer (default every
-    one; a pipeline stage's expert x tensor block). Appends the layer's
-    aux loss to `auxes` when given. Returns {device: output [B, S, D] in
-    x's dtype} for every device of those coordinates."""
+    ats: Optional[list[dict]] = None,
+) -> list[dict]:
+    """`moe_ffn` of layer `layer` over an expert x tensor mesh, for the
+    rows of every data block at once: route ONCE over all of them in
+    batch order (capacity is batch-global, so a block routed on its own
+    would keep and drop other pairs), build the [E·C + 1, D] expert
+    input, then each block's coordinates (e, t) (its `ats` entry fixes
+    the data and stage indices; default index 0) run experts [e·E/ep,
+    (e+1)·E/ep) on their F/tp bank columns for the pairs of the block's
+    own tokens and sum those pairs' weighted outputs in float32; one
+    all-reduce over the block's coordinates combines them. Appends the
+    layer's aux loss (over every block's tokens) to `auxes` when given.
+    Returns, per block, {device: output [B_i, S, D] in x's dtype} for
+    every device of its coordinates."""
     mesh = layers["router"].mesh
-    coords = list(range(mesh.size)) if coords is None else coords
+    ats = ats or [{}] * len(xs)
+    x = gather_batch(xs)
     b, s, d = x.shape
     t = b * s
     e, k = cfg.num_experts, cfg.experts_per_token
     xt = x.reshape(t, d)
     vt = valid.reshape(t).to(x.device) if valid is not None else None
     capacity = _capacity(cfg, t)
-    router = llama._at(layer, local(layers["router"], coords[0])).to(x.device)
+    first = mesh.index(**ats[0])
+    router = llama._at(layer, local(layers["router"], first)).to(x.device)
     probs, topk_p, topk_i, slot, kept = _assign(xt, router, cfg, capacity,
                                                 vt)
     if auxes is not None:
         auxes.append(_aux_loss(probs, cfg, vt))
     scratch = e * capacity
-    dest = torch.where(kept, topk_i * capacity + slot, scratch).reshape(-1)
-    expert_in = xt.new_zeros((scratch + 1, d))
-    expert_in.index_copy_(0, dest, xt.repeat_interleave(k, dim=0))
     w = torch.where(kept, topk_p, 0.0).to(x.dtype).float()
     per_shard = e // mesh.shape["expert"]
-    partials = []
-    for c in coords:
-        dev = mesh.devices[c]
-        lo = mesh.coord(c)["expert"] * per_shard * capacity
-        hi = lo + per_shard * capacity
-        banks = {name: llama._at(layer, local(layers[name], c))
-                 for name in ("w_gate", "w_up", "w_down")}
-        rows = expert_in[lo:hi].to(dev).view(per_shard, capacity, d)
-        out = _experts(rows, banks).reshape(hi - lo, d)
-        mine = ((dest >= lo) & (dest < hi)).to(dev)
-        idx = torch.where(mine, dest.to(dev) - lo, 0)
-        gathered = torch.where(mine[:, None], out[idx],
-                               torch.zeros_like(out[:1]))
-        partials.append((gathered.view(t, k, d).float()
-                         * w.to(dev)[..., None]).sum(1))
-    return {p.device: r.to(x.dtype).view(b, s, d)
-            for p, r in zip(partials, all_reduce_sum(partials))}
+    token = torch.arange(t, device=x.device)[:, None]
+    outs, lo_t = [], 0
+    for xb, at in zip(xs, ats):
+        hi_t = lo_t + xb.shape[0] * s
+        mine_t = kept & (token >= lo_t) & (token < hi_t)
+        dest = torch.where(mine_t, topk_i * capacity + slot,
+                           scratch).reshape(-1)
+        expert_in = xt.new_zeros((scratch + 1, d))
+        expert_in.index_copy_(0, dest, xt.repeat_interleave(k, dim=0))
+        dest = dest[lo_t * k:hi_t * k]
+        wb = w[lo_t:hi_t]
+        partials = []
+        for ex in range(mesh.shape["expert"]):
+            for tt in range(mesh.shape["tensor"]):
+                c = mesh.index(**{**at, "expert": ex, "tensor": tt})
+                dev = mesh.devices[c]
+                lo = ex * per_shard * capacity
+                hi = lo + per_shard * capacity
+                banks = {name: llama._at(layer, local(layers[name], c))
+                         for name in ("w_gate", "w_up", "w_down")}
+                rows = expert_in[lo:hi].to(dev).view(per_shard, capacity, d)
+                out = _experts(rows, banks).reshape(hi - lo, d)
+                mine = ((dest >= lo) & (dest < hi)).to(dev)
+                idx = torch.where(mine, dest.to(dev) - lo, 0)
+                gathered = torch.where(mine[:, None], out[idx],
+                                       torch.zeros_like(out[:1]))
+                partials.append((gathered.view(hi_t - lo_t, k, d).float()
+                                 * wb.to(dev)[..., None]).sum(1))
+        outs.append({p.device: r.to(x.dtype).view(xb.shape[0], s, d)
+                     for p, r in zip(partials, all_reduce_sum(partials))})
+        lo_t = hi_t
+    return outs
 
 
 def sharded_ffn(layers: Params, cfg: MoEConfig,
                 valid: Optional[torch.Tensor] = None,
-                auxes: Optional[list] = None,
-                coords: Optional[list[int]] = None):
+                auxes: Optional[list] = None):
     """`llama.tp_layers`' `ffn` hook for the expert bank: the MoE norm
-    and residual around `moe_ffn_sharded` over `coords` (default the
-    whole mesh), appending each layer's aux loss to `auxes`."""
+    and residual around `moe_ffn_sharded` over every block's rows, each
+    block's bank at its own coordinates (`Block.at`), appending each
+    layer's aux loss to `auxes`."""
 
-    def ffn(layer, xs, lps, devs):
+    def ffn(layer, blocks, lps):
         eps = cfg.norm_eps
-        normed = per_device(lambda x, w: common.rms_norm(x, w, eps), xs,
-                            [lp["mlp_norm"] for lp in lps])
-        out = moe_ffn_sharded(normed[0], layers, layer, cfg, valid, auxes,
-                              coords)
-        return per_device(torch.add, xs, [out[d] for d in devs])
+        normed = [per_device(lambda x, w: common.rms_norm(x, w, eps),
+                             blk.xs, [lp["mlp_norm"] for lp in lp_b])[0]
+                  for blk, lp_b in zip(blocks, lps)]
+        outs = moe_ffn_sharded(normed, layers, layer, cfg, valid, auxes,
+                               [blk.at for blk in blocks])
+        for blk, out in zip(blocks, outs):
+            blk.xs = per_device(torch.add, blk.xs,
+                                [out[x.device] for x in blk.xs])
 
     return ffn
 

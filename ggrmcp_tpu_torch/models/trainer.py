@@ -3,8 +3,8 @@ ggrmcp_tpu_torch train`. Port of `ggrmcp_tpu/models/trainer.py`.
 
 The loop drives models/training.py's step on the device (CUDA unless
 the caller asks for the CPU), on a mesh when `TrainingConfig.mesh` asks
-for more than one coordinate (tensor, expert for MoE, stage through
-parallel/pipeline.py; data and fsdp stay refused, ROADMAP A18b), and
+for more than one coordinate (the batch over data x fsdp, tensor,
+expert for MoE, stage through parallel/pipeline.py), and
 persists through serving/checkpoint.py, in the port's own format:
 
     <checkpoint_dir>/step_N/state    params, AdamW moments, step (resume)
@@ -86,7 +86,6 @@ def latest_step(checkpoint_dir: str) -> Optional[int]:
 
 def _mesh(cfg: TrainingConfig, device: DeviceLike) -> mesh_mod.Mesh:
     mesh = mesh_mod.serving_mesh(cfg.mesh, device)
-    mesh_mod.check_serving_mesh(mesh)
     if mesh.shape["sequence"] > 1:
         raise ValueError(
             "training.mesh.sequence > 1: sequence-parallel training is "

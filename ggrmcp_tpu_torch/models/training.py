@@ -21,6 +21,15 @@
   replicated KV columns of the fused wqkv) get the sum of their
   gradients (`collectives.sum_tied_grads`), so replicas never drift
   apart. A `stage` axis above 1 trains through parallel/pipeline.py.
+- With data blocks (`data` x `fsdp` above 1) the [B, S] batch splits
+  over them (`mesh.data_blocks`): each block's rows run on its own
+  coordinates, whose weights are the replicated leaves (on one device
+  one stored tensor, which accumulates every block's gradient; on
+  several, parts `sum_tied_grads` adds up). The blocks' logits come
+  back in batch order and the loss is ONE mean over the global batch's
+  tokens (a MoE aux term over the global batch's routing), so the
+  blocks' gradients sum to the unsharded gradient. `fsdp` shards the
+  batch as `data` does: the reference's specs shard no weight over it.
 - `TrainState` is mutable: `train_step` advances it in place.
 """
 

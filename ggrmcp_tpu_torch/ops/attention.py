@@ -23,11 +23,12 @@ head_dim]; K/V may carry fewer (KV) heads (GQA).
   and chunk) goes to `flash_attention`; decode stays on `attention_ref`,
   as decode never reaches Pallas in the reference. `use_flash=False`
   (the int8 KV cache) sends everything to `attention_ref`.
-- `flash_shardable` — the reference's predicate for the kernel per
-  tensor shard (`flash_attention_sharded`): the tensor axis must divide
-  the KV heads, so each shard keeps whole GQA groups. On a mesh the
-  model calls the dispatcher once per shard, on that shard's q / k / v,
-  so the kernel launches once per shard (models/llama.py `forward_tp`).
+- `flash_shardable` — the tensor half of the reference's predicate for
+  the kernel per shard (`flash_attention_sharded`): the tensor axis
+  must divide the KV heads, so each shard keeps whole GQA groups. On a
+  mesh the model calls the dispatcher once per (data block x tensor
+  shard), on that block's rows and that shard's q / k / v, so the
+  kernel launches once per pair (models/llama.py `forward_tp`).
   When the predicate fails, every shard's cache holds all KV heads and
   the shard reads its own groups' heads out of it, still through the
   dispatcher (the reference falls back to its XLA path there, because
@@ -413,9 +414,14 @@ def attention(
 
 def flash_shardable(tensor: int, kv_heads: int) -> tuple[bool, str]:
     """Whether each tensor shard keeps whole GQA groups, so the KV cache
-    splits by head (the reference's `_flash_shardable`; the batch is
-    never split, the port having no data axis). Otherwise the cache is
-    replicated, and the shards still run the dispatcher."""
+    splits by head (the tensor half of the reference's
+    `_flash_shardable`). Otherwise the cache is replicated, and the
+    shards still run the dispatcher. Its batch half, the data product
+    dividing the batch, is `parallel/mesh.py::data_blocks`: the kernel
+    runs once per (data block x tensor shard), and once per tensor shard
+    on a batch the blocks do not divide (one block: the reference's
+    dispatcher takes XLA for it, which `shard_map` forces there and one
+    controller does not)."""
     if kv_heads % tensor != 0:
         return False, (f"kv heads {kv_heads} not divisible by tensor axis "
                        f"{tensor}")

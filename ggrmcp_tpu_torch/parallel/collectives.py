@@ -11,7 +11,9 @@ the collectives. Here one process holds every shard:
   its parts as it maps over a `QuantizedTensor`'s values and scales, so
   the batcher's cache bookkeeping is unchanged. A quantized sharded
   leaf is a `QuantizedTensor` whose `q` and `scale` are each `Sharded`.
-- `shard` / `unshard` split a tensor by a spec and put it back.
+- `shard` / `unshard` split a tensor by a spec and put it back;
+  `gather_batch` puts the data blocks' rows (`mesh.data_blocks`) back
+  in batch order.
 - `all_reduce_sum` (after every row-parallel product), `all_gather`
   (of vocab-sharded logits), `ppermute` (the ring shift of ring
   attention's K/V and of a pipeline's activations) and `all_to_all`
@@ -45,6 +47,12 @@ class Sharded:
     factors: tuple[int, ...]
     mesh: Optional[mesh_mod.Mesh] = None
     full: Optional[torch.Size] = None
+    # A leaf split by rows into views of whole storages (a cache split
+    # by slot over data blocks): per coordinate, the storage its part is
+    # a view of, and the dim the views cut, counted from the end as
+    # `factors` is (None otherwise).
+    bases: Optional[tuple] = None
+    batch_dim: Optional[int] = None
 
     @property
     def shape(self) -> torch.Size:
@@ -72,18 +80,25 @@ class Sharded:
 
     def map(self, fn: Callable, *others: "Sharded") -> "Sharded":
         """`fn` over aligned parts, once per distinct tuple of stored
-        tensors (an in-place op on a shared replica runs once)."""
+        tensors (an in-place op on a shared replica runs once). A leaf
+        with `bases` gives its whole-batch storages instead, so a row
+        index means a global slot."""
         done: dict[tuple, Any] = {}
         out = []
         for i, part in enumerate(self.parts):
-            args = (part, *(o.parts[i] for o in others))
+            args = tuple(x.bases[i] if x.bases is not None else x.parts[i]
+                         for x in (self, *others))
             key = tuple(id(a) for a in args)
             if key not in done:
                 done[key] = fn(*args)
             out.append(done[key])
         ndim = out[0].dim()
-        return Sharded(tuple(out), self.factors[-ndim:] if ndim else (),
-                       self.mesh)
+        factors = self.factors[-ndim:] if ndim else ()
+        if self.bases is not None:
+            # Mapped over whole storages: the dim the views cut is whole.
+            factors = tuple(1 if n - ndim == self.batch_dim else f
+                            for n, f in enumerate(factors))
+        return Sharded(tuple(out), factors, self.mesh)
 
 
 def _block_slices(t_shape, spec, mesh, coord, index_fn):
@@ -197,6 +212,15 @@ def sum_tied_grads(sh: Sharded, spec: tuple,
             total[on(idx, dev)] += part.grad.float().to(dev)
     for part, (idx, _) in held.values():
         part.grad = total[on(idx, dev)].to(part.device, part.dtype)
+
+
+def gather_batch(blocks: list[torch.Tensor], dim: int = 0) -> torch.Tensor:
+    """Data blocks' rows put back in batch order on the first block's
+    device (the controller, which samples and takes the loss)."""
+    if len(blocks) == 1:
+        return blocks[0]
+    dev = blocks[0].device
+    return torch.cat([b.to(dev, non_blocking=True) for b in blocks], dim=dim)
 
 
 def local(tree: Any, index: int) -> Any:

@@ -23,13 +23,16 @@ from typing import Optional, Sequence
 
 import torch
 
-from ggrmcp_tpu_torch.core.config import MeshConfig, check_mesh_axes
+from ggrmcp_tpu_torch.core.config import MeshConfig
 from ggrmcp_tpu_torch.utils.device import DeviceLike, resolve_device
 
 logger = logging.getLogger("ggrmcp.torch.parallel.mesh")
 
 # Canonical axis order; axes of size 1 are still present.
 AXES = ("data", "fsdp", "tensor", "sequence", "expert", "stage")
+# The batch dim's spec entry (the reference's `shard_batch`): rows split
+# over data x fsdp, data major.
+BATCH_AXES = ("data", "fsdp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,10 +165,53 @@ def single_device_mesh(device: torch.device) -> Mesh:
     return build_mesh(MeshConfig(tensor=1), [device])
 
 
-def check_serving_mesh(mesh: Mesh) -> None:
-    """Refuse a resolved data or fsdp axis above 1 (the port shards
-    over tensor, sequence, expert and stage)."""
-    check_mesh_axes(mesh.shape)
+def data_size(mesh: Mesh) -> int:
+    """The number of data blocks a batch splits into (data x fsdp)."""
+    return mesh.shape["data"] * mesh.shape["fsdp"]
+
+
+def data_coord(mesh: Mesh, block: int) -> dict[str, int]:
+    """The data and fsdp indices of data block `block` (the flat index
+    over data x fsdp, data major, as a tuple entry orders its axes)."""
+    fsdp = mesh.shape["fsdp"]
+    return {"data": block // fsdp, "fsdp": block % fsdp}
+
+
+def data_block(mesh: Mesh, index: int) -> int:
+    """The data block flat coordinate `index` belongs to."""
+    return block_index(mesh, BATCH_AXES, mesh.coord(index))
+
+
+def data_blocks(mesh: Mesh, batch: int) -> list[tuple[slice, dict]]:
+    """(rows, data coordinate) of every data block of a [batch] call, in
+    batch order. A batch the data product does not divide runs as one
+    block at data index 0 (the reference's `shard_map` needs the split
+    to divide, so its dispatcher takes the unsharded path; one
+    controller has no such limit and keeps the kernel)."""
+    n = data_size(mesh)
+    if n == 1 or batch % n:
+        return [(slice(0, batch), {})]
+    per = batch // n
+    return [(slice(i * per, (i + 1) * per), data_coord(mesh, i))
+            for i in range(n)]
+
+
+def check_data_placement(mesh: Mesh) -> None:
+    """Refuse data blocks on distinct devices for serving: the batcher
+    moves cache rows between blocks (admission merges, the prefix pool,
+    the draft pool) through one storage per device, which needs every
+    block of a coordinate on one device; across cards that is the
+    exchange of ROADMAP A18b item 3."""
+    if data_size(mesh) == 1:
+        return
+    for i, dev in enumerate(mesh.devices):
+        home = mesh.index(**{**mesh.coord(i), "data": 0, "fsdp": 0})
+        if mesh.devices[home] != dev:
+            raise ValueError(
+                f"serving on {mesh_shape_str(mesh)}: data blocks on "
+                f"distinct devices ({mesh.devices[home]}, {dev}) need the "
+                f"multi-card row exchange (ROADMAP A18b item 3); build "
+                f"the mesh over one device repeated")
 
 
 def axis_size(mesh: Mesh, name: str) -> int:

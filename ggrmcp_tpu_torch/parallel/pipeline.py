@@ -18,6 +18,10 @@ serving half and its training half.
 - A stage's attention is pinned to the plain path (`use_flash=False`),
   as the reference pins its XLA path (`_run_block_cached`), so B1 does
   not launch under PP.
+- With data blocks (`data` x `fsdp` above 1) each block runs its own
+  schedule over its rows on its own coordinates, its microbatches cut
+  from its rows; the staged cache is split by slot like the unstaged
+  one.
 
 Dense Llama serving only (the engine refuses the rest).
 
@@ -27,7 +31,8 @@ without a cache, for either decoder family: M microbatches (default one
 a stage; the batch must divide), each stage's block of layers through
 `llama.tp_layers` (a MoE layer's bank over the stage's expert x tensor
 coordinates, `moe.sharded_ffn`, routing each microbatch on its own as
-the reference does), activations moved by `ppermute`, which autograd
+the reference does; with data blocks, each block's microbatches on
+their own), activations moved by `ppermute`, which autograd
 carries back stage to stage. Its attention is the dispatcher's (B1 on
 the card), as the reference's training block leaves its attention on
 auto. The router's load-balance loss is the mean over every live
@@ -46,7 +51,12 @@ from ggrmcp_tpu_torch.models import family_module
 from ggrmcp_tpu_torch.models import llama as llama_mod
 from ggrmcp_tpu_torch.models import moe as moe_mod
 from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
-from ggrmcp_tpu_torch.parallel.collectives import local, ppermute, replicate
+from ggrmcp_tpu_torch.parallel.collectives import (
+    gather_batch,
+    local,
+    ppermute,
+    replicate,
+)
 
 
 def stage_count(mesh: mesh_mod.Mesh) -> int:
@@ -66,20 +76,27 @@ def param_specs_pp(cfg: llama_mod.LlamaConfig) -> dict:
 def cache_specs_pp() -> dict:
     """The staged KV cache: layer dim over `stage`, batch over data,
     heads over tensor."""
-    spec = ("stage", ("data", "fsdp"), None, "tensor", None)
-    return {"k": spec, "v": spec, "length": (("data", "fsdp"),)}
+    spec = ("stage", mesh_mod.BATCH_AXES, None, "tensor", None)
+    return {"k": spec, "v": spec, "length": (mesh_mod.BATCH_AXES,)}
 
 
-def _run_block_cached(layers, cfg, xs, coords, pos, lens, cache, rows,
-                      ring: bool) -> list:
-    """This stage's local layer block (at `coords`, its tensor shards)
-    on one microbatch's activations, threading the stage's cache rows
-    `rows`; attention pinned to the plain path."""
-    n_local = layers["attn_norm"].parts[coords[0]].shape[0]
+def _block(at: dict, coords, xs, pos, lens=None, rows=None):
     none = [None] * len(coords)
-    return llama_mod.tp_layers(layers, cfg, xs, coords, range(n_local), pos,
-                               lens, none, cache, rows=rows,
-                               use_flash=False, ring=ring)
+    return llama_mod.Block(at, list(coords), xs, pos, lens or none, none,
+                           none, rows)
+
+
+def _run_block_cached(layers, cfg, xs, at, coords, pos, lens, cache, rows,
+                      ring: bool) -> list:
+    """This stage's local layer block (at `coords`, its tensor shards;
+    `at` its stage and data coordinate) on one microbatch's activations,
+    threading the stage's cache rows `rows`; attention pinned to the
+    plain path."""
+    n_local = layers["attn_norm"].parts[coords[0]].shape[0]
+    blk, = llama_mod.tp_layers(
+        layers, cfg, [_block(at, coords, xs, pos, lens, rows)],
+        range(n_local), cache, use_flash=False, ring=ring)
+    return blk.xs
 
 
 def _gpipe(n_stages: int, m_count: int, devs, inputs, block) -> list:
@@ -130,35 +147,43 @@ def pipeline_forward_cached(
     if n_stages == 1:
         return llama_mod.forward(params, cfg, tokens, cache, ring=ring)
     b, s = tokens.shape
-    m_count = n_stages if b % n_stages == 0 else 1
     if cfg.num_layers % n_stages != 0:
         raise ValueError(
             f"{cfg.num_layers} layers not divisible by {n_stages} stages")
-    mb = b // m_count
-    coords, devs = zip(*(llama_mod.tensor_coords(mesh, stage=st)
-                         for st in range(n_stages)))
     lcfg = dataclasses.replace(cfg, num_layers=cfg.num_layers // n_stages)
     steps = torch.arange(s, device=tokens.device)[None, :]
     positions = cache.length.long()[:, None] + steps
-    x0 = llama_mod._vocab_embed(params["embed"], tokens, cfg.torch_dtype,
-                                coords[0], devs[0])
-    rows = [slice(m * mb, (m + 1) * mb) for m in range(m_count)]
+    splits = mesh_mod.data_blocks(mesh, b)
+    whole = llama_mod.cache_batch_blocks(cache) == 1
     layers = params["layers"]
+    outs = []
+    for block_rows, at in splits:
+        start, bd = block_rows.start, block_rows.stop - block_rows.start
+        m_count = n_stages if bd % n_stages == 0 else 1
+        mb = bd // m_count
+        coords, devs = zip(*(llama_mod.tensor_coords(mesh, **at, stage=st)
+                             for st in range(n_stages)))
+        x0 = llama_mod._vocab_embed(params["embed"], tokens[block_rows],
+                                    cfg.torch_dtype, coords[0], devs[0])
+        # Cache rows are the block's own when the cache is split by slot.
+        off = start if whole else 0
 
-    def block(st, m, xs):
-        return _run_block_cached(
-            layers, lcfg, xs, coords[st],
-            replicate(positions[rows[m]], devs[st]),
-            replicate(cache.length[rows[m]], devs[st]), cache, rows[m],
-            ring)
+        def block(st, m, xs):
+            rows = slice(start + m * mb, start + (m + 1) * mb)
+            return _run_block_cached(
+                layers, lcfg, xs, {**at, "stage": st}, coords[st],
+                replicate(positions[rows], devs[st]),
+                replicate(cache.length[rows], devs[st]), cache,
+                slice(rows.start - start + off, rows.stop - start + off),
+                ring)
 
-    out = _gpipe(n_stages, m_count, devs,
-                 lambda m: [x[rows[m]] for x in x0], block)
-    xs = [torch.cat([o[i] for o in out], dim=0)
-          for i in range(len(coords[-1]))]
-    logits = llama_mod.tp_head(params, cfg, xs, coords[-1])
+        out = _gpipe(n_stages, m_count, devs,
+                     lambda m: [x[m * mb:(m + 1) * mb] for x in x0], block)
+        xs = [torch.cat([o[i] for o in out], dim=0)
+              for i in range(len(coords[-1]))]
+        outs.append(llama_mod.tp_head(params, cfg, xs, coords[-1]))
     cache.length = cache.length + s
-    return logits.to(tokens.device), cache
+    return gather_batch(outs).to(tokens.device), cache
 
 
 # ---------------------------------------------------------------------------
@@ -173,30 +198,23 @@ def shard_params_pp(params: dict, cfg: llama_mod.LlamaConfig,
     return llama_mod.shard_params(params, cfg, mesh, param_specs_pp(cfg))
 
 
-def _run_block(layers, cfg, xs: list, coords: list[int], pos: list,
-               moe_coords: Optional[list[int]]):
+def _run_block(layers, cfg, xs: list, at: dict, coords: list[int],
+               pos: list, moe: bool):
     """This stage's local layer block on one microbatch's per-shard
-    activations, no cache (the training path). Returns (activations,
-    the block's mean router aux loss, or None for a dense model)."""
+    activations, no cache (the training path; `at` the stage and data
+    coordinate, a MoE bank over its expert x tensor coordinates).
+    Returns (activations, the block's mean router aux loss, or None for
+    a dense model)."""
     n_local = local(layers["attn_norm"], coords[0]).shape[0]
-    none = [None] * len(coords)
     auxes: list = []
-    ffn = (None if moe_coords is None else
-           moe_mod.sharded_ffn(layers, cfg, None, auxes, moe_coords))
-    xs = llama_mod.tp_layers(layers, cfg, xs, coords, range(n_local), pos,
-                             none, none, ffn=ffn)
+    ffn = moe_mod.sharded_ffn(layers, cfg, None, auxes) if moe else None
+    blk, = llama_mod.tp_layers(layers, cfg, [_block(at, coords, xs, pos)],
+                               range(n_local), ffn=ffn)
     aux = None
-    if moe_coords is not None:
-        dev = xs[0].device
+    if moe:
+        dev = blk.xs[0].device
         aux = torch.stack([a.to(dev) for a in auxes]).mean()
-    return xs, aux
-
-
-def _moe_coords(mesh: mesh_mod.Mesh, stage: int) -> list[int]:
-    """Stage `stage`'s expert x tensor coordinates (the others at 0)."""
-    return [mesh.index(stage=stage, expert=e, tensor=t)
-            for e in range(mesh.shape["expert"])
-            for t in range(mesh.shape["tensor"])]
+    return blk.xs, aux
 
 
 def pipeline_layers(
@@ -206,11 +224,13 @@ def pipeline_layers(
     positions: torch.Tensor,  # [B, S]
     mesh: mesh_mod.Mesh,
     num_microbatches: Optional[int] = None,
+    at: Optional[dict] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The stacked layer block through the stage pipeline: (activations
-    [B, S, D] on the last stage's first device, the mean router aux loss
-    (0 for dense)). B must divide into `num_microbatches` (default the
-    stage count) and the layers into the stages."""
+    """The stacked layer block through the stage pipeline at data
+    coordinate `at` (default index 0): (activations [B, S, D] on the
+    last stage's first device, the mean router aux loss (0 for dense)).
+    B must divide into `num_microbatches` (default the stage count) and
+    the layers into the stages."""
     n_stages = stage_count(mesh)
     m_count = num_microbatches or n_stages
     b = x.shape[0]
@@ -222,7 +242,8 @@ def pipeline_layers(
             f"{cfg.num_layers} layers not divisible by {n_stages} stages")
     moe = isinstance(cfg, moe_mod.MoEConfig)
     mb = b // m_count
-    coords, devs = zip(*(llama_mod.tensor_coords(mesh, stage=st)
+    at = at or {}
+    coords, devs = zip(*(llama_mod.tensor_coords(mesh, **at, stage=st)
                          for st in range(n_stages)))
     lcfg = dataclasses.replace(cfg, num_layers=cfg.num_layers // n_stages)
     rows = [slice(m * mb, (m + 1) * mb) for m in range(m_count)]
@@ -230,9 +251,8 @@ def pipeline_layers(
 
     def block(st, m, xs):
         y, aux = _run_block(
-            layers, lcfg, xs, coords[st],
-            replicate(positions[rows[m]], devs[st]),
-            _moe_coords(mesh, st) if moe else None)
+            layers, lcfg, xs, {**at, "stage": st}, coords[st],
+            replicate(positions[rows[m]], devs[st]), moe)
         if aux is not None:
             auxes.append(aux)
         return y
@@ -256,7 +276,8 @@ def pipeline_forward_with_aux(
     """The full forward (embed at stage 0, the staged layers, the final
     norm and lm_head at the last stage) for training and scoring: (float32
     logits [B, S, V] on tokens' device, the mean router aux loss). One
-    stage is the family's own forward."""
+    stage is the family's own forward. Each data block pipelines its own
+    rows; the aux loss is the mean over every block's."""
     b, s = tokens.shape
     if stage_count(mesh) == 1:
         if isinstance(cfg, moe_mod.MoEConfig):
@@ -264,16 +285,22 @@ def pipeline_forward_with_aux(
             return logits, aux.to(logits.device)
         logits, _ = llama_mod.forward(params, cfg, tokens)
         return logits, torch.zeros((), device=logits.device)
-    first, first_devs = llama_mod.tensor_coords(mesh, stage=0)
-    last, last_devs = llama_mod.tensor_coords(
-        mesh, stage=stage_count(mesh) - 1)
-    x = llama_mod._vocab_embed(params["embed"], tokens, cfg.torch_dtype,
-                               first, first_devs)[0]
-    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    x, aux = pipeline_layers(params["layers"], cfg, x, positions, mesh,
-                             num_microbatches)
-    logits = llama_mod.tp_head(params, cfg, replicate(x, last_devs), last)
-    return logits.to(tokens.device), aux.to(tokens.device)
+    logits, auxes = [], []
+    for rows, at in mesh_mod.data_blocks(mesh, b):
+        first, first_devs = llama_mod.tensor_coords(mesh, **at, stage=0)
+        last, last_devs = llama_mod.tensor_coords(
+            mesh, **at, stage=stage_count(mesh) - 1)
+        x = llama_mod._vocab_embed(params["embed"], tokens[rows],
+                                   cfg.torch_dtype, first, first_devs)[0]
+        positions = torch.arange(s, device=x.device)[None, :].expand(
+            x.shape[0], s)
+        x, aux = pipeline_layers(params["layers"], cfg, x, positions, mesh,
+                                 num_microbatches, at)
+        logits.append(llama_mod.tp_head(params, cfg,
+                                        replicate(x, last_devs), last))
+        auxes.append(aux.to(tokens.device))
+    return (gather_batch(logits).to(tokens.device),
+            torch.stack(auxes).mean())
 
 
 def pipeline_forward(

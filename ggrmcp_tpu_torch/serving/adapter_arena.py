@@ -97,6 +97,7 @@ class AdapterArena:
         device=None,
         ledger=None,
         ledger_scope: str = "",
+        mesh=None,
     ):
         if rows < 1:
             raise ValueError("adapter arena needs at least 1 row")
@@ -110,6 +111,7 @@ class AdapterArena:
         self._cfg = cfg
         self._device = torch.device(device) if device is not None else (
             torch.device("cpu"))
+        self._mesh = mesh
         self._commit: Optional[Callable[[], None]] = None
         self._lock = threading.Lock()
         # name <-> row maps (the "hash index": resident names resolve
@@ -136,7 +138,10 @@ class AdapterArena:
         """The fixed-shape device working set: all-zero rows (every row
         starts as an exact no-op, b == 0). ONE allocation for the
         arena's whole lifetime; loads only ever write a row in place,
-        never reallocate."""
+        never reallocate. On a mesh `b` splits by wqkv's head-aligned
+        columns over tensor and `a` is replicated (`llama.lora_specs`)."""
+        from ggrmcp_tpu_torch.models import llama
+
         cfg = self._cfg
         qkv_out = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
         dtype = cfg.torch_dtype
@@ -148,6 +153,12 @@ class AdapterArena:
             (cfg.num_layers, self.rows + 1, self.rank, qkv_out),
             dtype=dtype, device=self._device,
         )
+        if self._mesh is not None:
+            placed = llama.shard_lora(
+                {"lora_qkv_a": self.a_dev, "lora_qkv_b": self.b_dev}, cfg,
+                self._mesh)
+            self.a_dev, self.b_dev = (placed["lora_qkv_a"],
+                                      placed["lora_qkv_b"])
 
     def register_ledger(self, ledger, scope: str = "") -> None:
         """Register the arena arrays as the engine ledger's `lora`
@@ -264,8 +275,11 @@ class AdapterArena:
     def _load(self, name: str, row: int, path: str) -> None:
         """Read `{name}.npz` and install its factors into arena `row`:
         one all-layer host-to-device copy per factor, written in place
-        (`a_dev[:, row].copy_(...)`), so the tensors every caller holds
+        (`a_dev[:, row].copy_(...)`; every shard its own columns on a
+        mesh, `llama.set_lora_row`), so the tensors every caller holds
         serve the new row at the next forward."""
+        from ggrmcp_tpu_torch.models import llama
+
         t0 = time.perf_counter()
         # Failpoint adapter_load_fail: an injected fault IS a failed
         # load, the same typed path as a corrupt file; the reserved row
@@ -296,10 +310,9 @@ class AdapterArena:
             )
         dtype = cfg.torch_dtype
         try:
-            self.a_dev[:, row].copy_(torch.from_numpy(
-                np.ascontiguousarray(a, np.float32)).to(dtype))
-            self.b_dev[:, row].copy_(torch.from_numpy(
-                np.ascontiguousarray(b, np.float32)).to(dtype))
+            for leaf, value in ((self.a_dev, a), (self.b_dev, b)):
+                llama.set_lora_row(leaf, row, torch.from_numpy(
+                    np.ascontiguousarray(value, np.float32)).to(dtype), cfg)
         except Exception as exc:  # noqa: BLE001 — typed AdapterLoadError
             raise AdapterLoadError(
                 f"adapter {name!r}: device install failed: {exc}"

@@ -123,6 +123,7 @@ from ggrmcp_tpu_torch.ops.sampling import (
     trivial_grammar_tables,
 )
 from ggrmcp_tpu_torch.ops.speculative import spec_tick
+from ggrmcp_tpu_torch.parallel.collectives import Sharded
 from ggrmcp_tpu_torch.serving.engine import (
     build_kernels,
     bucket_len,
@@ -306,6 +307,44 @@ def _host_tensor(x) -> torch.Tensor:
         return torch.from_numpy(np.array(x.view(np.int16))).view(
             torch.bfloat16)
     return torch.from_numpy(np.require(x, requirements=["C", "W"]))
+
+
+def _head_blocks(leaf: Sharded) -> list[tuple[torch.Tensor, slice]]:
+    """(stored part, the KV heads it holds) of every distinct part of a
+    page-arena leaf sharded over tensor: [L, N + 1, P, KVH/t, Dh] blocks
+    in head order, or the whole heads of a replicated one."""
+    t = leaf.factors[-2]
+    per = leaf.shape[3] // t
+    out, seen = [], set()
+    for i, part in enumerate(leaf.parts):
+        if id(part) not in seen:
+            seen.add(id(part))
+            blk = leaf.mesh.coord(i)["tensor"] if t > 1 else 0
+            out.append((part, slice(blk * per, (blk + 1) * per)))
+    return out
+
+
+def _arena_gather(leaf, idx: torch.Tensor) -> torch.Tensor:
+    """Arena pages `idx` of one leaf to the host as the page codec's
+    [L, n, P, KVH, Dh]: a sharded arena's KV heads concatenated in head
+    order (every head once)."""
+    if not isinstance(leaf, Sharded):
+        return leaf.index_select(1, idx.to(leaf.device)).cpu()
+    blocks = {hs.start: part for part, hs in _head_blocks(leaf)}
+    return torch.cat([blocks[h].index_select(1, idx.to(blocks[h].device))
+                      .cpu() for h in sorted(blocks)], dim=3)
+
+
+def _arena_write(leaf, idx: torch.Tensor, payload: torch.Tensor) -> None:
+    """Write [L, n, P, KVH, Dh] host pages into arena pages `idx` of one
+    leaf: each part of a sharded arena takes its own KV heads."""
+    if not isinstance(leaf, Sharded):
+        leaf.index_copy_(1, idx.to(leaf.device),
+                         payload.to(leaf.device, leaf.dtype))
+        return
+    for part, heads in _head_blocks(leaf):
+        part.index_copy_(1, idx.to(part.device),
+                         payload[:, :, :, heads].to(part.device, part.dtype))
 
 
 def _pct(values: list[float], q: float) -> float:
@@ -721,8 +760,9 @@ class ContinuousBatcher:
         return self._jump_reserve if constrained else self._reserve
 
     def _make_mini(self, rows: int, length: int) -> llama_mod.KVCache:
-        """Admission mini cache in the engine's KV dtype."""
-        return self.engine.make_cache(rows, length)
+        """Admission mini cache in the engine's KV dtype (its spec
+        downgrades uncounted, as the reference's unsharded one)."""
+        return self.engine.make_cache(rows, length, site=None)
 
     def _make_shared_cache(self):
         """The shared cache of this batcher's shape: the initial build and
@@ -820,20 +860,11 @@ class ContinuousBatcher:
         )
         return clamped
 
-    def _refuse_mesh_pages(self) -> None:
-        if self.engine.mesh.size > 1:
-            raise KVTransferError(
-                "kv page export/import on a mesh is not ported yet "
-                "(ROADMAP A18b): the page codec's [L, P, KVH, Dh] holds "
-                "whole heads")
-
     def _arena_leaves(self) -> list[tuple[str, torch.Tensor]]:
         """(name, [L, N + 1, P, KVH, Dh] leaf) of the page arena: k and
-        v, and an int8 arena's k_scale and v_scale. The page codec holds
-        whole heads: an arena split over a mesh's tensor shards is
-        refused (KVTransferError; the engine refuses the roles and the
-        host tier that would need it)."""
-        self._refuse_mesh_pages()
+        v, and an int8 arena's k_scale and v_scale. On a mesh a leaf is
+        `Sharded` over tensor by KV head; `_arena_gather` and
+        `_arena_write` move whole heads in and out of it."""
         out = []
         for name, leaf in (("k", self.cache.k), ("v", self.cache.v)):
             if isinstance(leaf, quant.QuantizedTensor):
@@ -846,7 +877,7 @@ class ContinuousBatcher:
         """One indexed gather per arena leaf, each brought to the host
         by one copy: {name: [L, n, P, KVH, Dh] CPU tensor}."""
         idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
-        return {name: leaf.index_select(1, idx).cpu()
+        return {name: _arena_gather(leaf, idx)
                 for name, leaf in self._arena_leaves()}
 
     def export_prompt_kv(self, prompt: list[int], adapter: str = "") -> dict:
@@ -861,7 +892,6 @@ class ContinuousBatcher:
         registered under ("" = base)."""
         if not self._paged:
             raise KVTransferError("kv export requires batching.paged_kv=on")
-        self._refuse_mesh_pages()
         pages = self.pages.chain_pages(prompt, adapter=adapter)
         if not pages:
             raise KVTransferError(
@@ -883,7 +913,6 @@ class ContinuousBatcher:
         PageExhaustedError when the arena cannot hold the chunk."""
         if not self._paged:
             raise KVTransferError("kv import requires batching.paged_kv=on")
-        self._refuse_mesh_pages()
         k, v = _host_tensor(k), _host_tensor(v)
         self._check_payload(k, v, k_scale)
         placed = self.pages.import_chain(prompt, start_page,
@@ -934,8 +963,7 @@ class ContinuousBatcher:
             payload["k_scale"] = _host_tensor(k_scale)
             payload["v_scale"] = _host_tensor(v_scale)
         for name, leaf in self._arena_leaves():
-            leaf.index_copy_(1, idx, payload[name].to(self.device,
-                                                      leaf.dtype))
+            _arena_write(leaf, idx, payload[name])
 
     # -- host-tier hooks (serving/host_pool.py via pages.attach_host) -----
 
@@ -1256,7 +1284,7 @@ class ContinuousBatcher:
         the target, so the first round's [prev, cur] feed rewrites the
         last prompt token's slot (same token, same position)."""
         r, s = tokens.shape
-        mini = self.engine.make_draft_cache(r, s)
+        mini = self.engine.make_draft_cache(r, s, site=None)
         self.engine.draft_forward(draft_params, tokens, mini)
         n = len(slots)
         dst = torch.as_tensor(slots, dtype=torch.long, device=self.device)

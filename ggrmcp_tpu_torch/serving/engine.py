@@ -3,10 +3,10 @@
 generation, with int8 weights, the int8 KV cache, the paged and ring
 caches for the batcher, multi-LoRA adapters, boot-time or from a
 registry through the adapter arena, and speculative decoding against a
-draft model; on one device or over a mesh: tensor- and expert-parallel,
-sequence-parallel fresh prefill (ring / Ulysses attention) and
-pipeline-parallel serving over `stage`) and `EmbeddingEngine` (BERT
-embeddings, one device).
+draft model; on one device or over a mesh: the batch over data x fsdp,
+tensor- and expert-parallel, sequence-parallel fresh prefill (ring /
+Ulysses attention) and pipeline-parallel serving over `stage`) and
+`EmbeddingEngine` (BERT embeddings, on one device or over a mesh).
 
 The reference compiles one program per shape bucket; PyTorch runs
 eagerly, so the buckets here only bound the shapes the kernels see.
@@ -99,8 +99,10 @@ class GenerationEngine:
     leaf's quantization; params already sharded (the sharded loader's)
     are used as they are. A spec axis that does not divide its dim is
     counted in `spec_downgrades`: the KV-head case (tensor does not
-    divide KVH) is served with replicated KV; any weight's raises, as do
-    the routes the port does not serve on a mesh (ROADMAP A18b).
+    divide KVH) is served with replicated KV; any weight's raises
+    (ROADMAP A18b). With data blocks (`data` x `fsdp` above 1) each
+    block's rows run on its own coordinates and every cache is split by
+    slot over the blocks (`_sharded_kv`).
 
     A `sequence` axis above 1 sends fresh prefills of at least
     `serving.sp_prefill_min_seq` tokens through ring or Ulysses attention
@@ -180,14 +182,16 @@ class GenerationEngine:
 
     def _check_mesh(self) -> None:
         """What the port serves on a mesh of more than one coordinate:
-        tensor and expert axes (expert for the MoE family), and none of
-        the routes ROADMAP A18b still has to port. Each refusal raises
-        here, at construction: nothing runs replicated in silence."""
-        mesh_mod.check_serving_mesh(self.mesh)
+        the batch over data x fsdp (every data block of a coordinate on
+        one device, `mesh.check_data_placement`), tensor and expert axes
+        (expert for the MoE family), sequence and stage, with the
+        reference's refusals. Each refusal raises here, at
+        construction: nothing runs replicated in silence."""
         self._init_sp_prefill()
         self._init_pp_serving()
         if self.mesh.size == 1:
             return
+        mesh_mod.check_data_placement(self.mesh)
         sizes = self.mesh.shape
         if sizes["expert"] > 1 and self.fam is not moe_mod:
             raise ValueError(
@@ -199,21 +203,6 @@ class GenerationEngine:
                 f"serving.mesh.tensor={sizes['tensor']} does not divide "
                 f"{self.cfg.name}'s {self.cfg.num_heads} query heads"
             )
-        s, b = self.serving, self.serving.batching
-        refused = [
-            ("lora", bool(s.lora.adapters or s.lora.registry)),
-            ("kv_ring", s.kv_ring),
-            ("batching.kv_tiers", bool(b.kv_tiers)),
-            ("batching.paged_kv_host_bytes (the host page tier)",
-             bool(b.paged_kv_host_bytes)),
-            (f"serving.role={s.role!r} (TransferKV)", s.role != "mixed"),
-        ]
-        for name, on in refused:
-            if on:
-                raise ValueError(
-                    f"{name} on a mesh ({mesh_mod.mesh_shape_str(self.mesh)}"
-                    f") is not ported yet (ROADMAP A18b)"
-                )
 
     def _init_sp_prefill(self) -> None:
         """Sequence-parallel prefill: with a `sequence` axis above 1,
@@ -333,27 +322,41 @@ class GenerationEngine:
             "mesh_spec_downgrades": self.spec_downgrades,
         }
 
-    def _sharded_kv(self, cfg, create, shape, spec, site: str):
+    def _sharded_kv(self, cfg, create, shape, spec, site: Optional[str]):
         """A cache whose K/V leaves are split over tensor by `spec` (KV
-        heads, dim 3 of `shape`), built by `create(local_cfg, device)`
-        once per (tensor block, device): coordinates that differ only in
-        their expert index share a block's storage on one device. The
-        KV heads are replicated (counted at `site`) when tensor does not
-        divide them. Lengths and tables stay on the controller device."""
+        heads, dim 3 of `shape`), over stage when the spec names it
+        (layers, dim 0), and by slot over the data blocks when the data
+        product divides the batch (dim 1). A block is keyed by (data
+        block, tensor block, stage, device): `create(local_cfg, device)`
+        builds one whole-batch storage per (tensor block, stage, device)
+        and each data block's part is the view of its rows in it, so
+        the batcher's row moves, which index slots globally, reach every
+        block (`Sharded.bases`; `mesh.check_data_placement` keeps a
+        coordinate's data blocks on one device). Coordinates that differ
+        only in their expert or sequence index share a block's storage.
+        The KV heads are replicated when tensor does not divide them, a
+        batch the data blocks do not divide is kept whole in every part,
+        and each such downgrade is counted at `site` (the reference's
+        `_observe_cache_spec`; None counts nothing). Lengths and tables stay on the controller
+        device."""
         mesh = self.mesh
+
         adapted = mesh_mod.compatible_spec(
             spec, shape, mesh,
-            on_downgrade=lambda dim, entry, size, axis: self._note_downgrade(
-                site, dim, entry, size, axis))
+            on_downgrade=None if site is None else (
+                lambda dim, entry, size, axis: self._note_downgrade(
+                    site, dim, entry, size, axis)))
         t = mesh.shape["tensor"]
         split = adapted[3] is not None
         # A staged cache: each stage's coordinates hold its layers.
         stages = mesh_mod.axis_product(mesh, adapted[0])
+        data = mesh_mod.axis_product(mesh, adapted[1])
+        per = shape[1] // data
         lcfg = llama_mod.local_config(cfg, t)
         lcfg = dataclasses.replace(lcfg,
                                    num_layers=cfg.num_layers // stages)
         built: dict = {}
-        locals_ = []
+        locals_, blocks = [], []
         for c, dev in enumerate(mesh.devices):
             coord = mesh.coord(c)
             key = (coord["tensor"] if split else 0,
@@ -361,16 +364,27 @@ class GenerationEngine:
             if key not in built:
                 built[key] = create(lcfg, dev)
             locals_.append(built[key])
-        factors = (stages, 1, 1, t if split else 1, 1)
+            blocks.append(mesh_mod.data_block(mesh, c) if data > 1 else 0)
+        factors = (stages, data, 1, t if split else 1, 1)
+
+        def sharded(parts):
+            if data == 1:
+                return Sharded(tuple(parts), factors, mesh)
+            views: dict = {}
+            rows = []
+            for p, blk in zip(parts, blocks):
+                rows.append(views.setdefault(
+                    (id(p), blk), p[:, blk * per:(blk + 1) * per]))
+            return Sharded(tuple(rows), factors, mesh, bases=tuple(parts),
+                           batch_dim=1 - len(shape))
 
         def leaf(name):
             parts = [getattr(lc, name) for lc in locals_]
             if isinstance(parts[0], quant.QuantizedTensor):
                 return quant.QuantizedTensor(
-                    q=Sharded(tuple(p.q for p in parts), factors, mesh),
-                    scale=Sharded(tuple(p.scale for p in parts), factors,
-                                  mesh))
-            return Sharded(tuple(parts), factors, mesh)
+                    q=sharded([p.q for p in parts]),
+                    scale=sharded([p.scale for p in parts]))
+            return sharded(parts)
 
         # The lengths (and a paged cache's block tables) on the
         # controller: a zero-layer cache of the same geometry.
@@ -477,10 +491,12 @@ class GenerationEngine:
         return llama_mod.forward(params, self.cfg, tokens, cache,
                                  use_flash=self.verify_flash)
 
-    def make_draft_cache(self, batch: int, max_len: int) -> llama_mod.KVCache:
+    def make_draft_cache(self, batch: int, max_len: int,
+                         site: Optional[str] = "kv_cache"
+                         ) -> llama_mod.KVCache:
         """The batcher's draft slot-pool cache, in the engine's KV dtype,
-        sharded like the target's."""
-        return self.make_cache(batch, max_len, cfg=self.draft_cfg)
+        sharded like the target's (`site` as `make_cache`'s)."""
+        return self.make_cache(batch, max_len, cfg=self.draft_cfg, site=site)
 
     @torch.no_grad()
     def generate_speculative(
@@ -596,7 +612,7 @@ class GenerationEngine:
             # reference reinstalls new arrays after each load instead).
             self.adapter_arena = AdapterArena(
                 lcfg.registry, int(lcfg.arena_rows), lcfg.rank, self.cfg,
-                device=self.device,
+                device=self.device, mesh=self.mesh,
             )
             params["layers"] = {
                 **params["layers"],
@@ -623,8 +639,9 @@ class GenerationEngine:
                 )
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed + 7)
-        factors = lora_ops.init_lora_layers(
-            self.cfg, len(adapters), lcfg.rank, gen, self.device)
+        factors = llama_mod.shard_lora(lora_ops.init_lora_layers(
+            self.cfg, len(adapters), lcfg.rank, gen, self.device), self.cfg,
+            self.mesh)
         params["layers"] = {**params["layers"], **factors}
         self.lora_names = {name: i + 1 for i, name in enumerate(adapters)}
         logger.info(
@@ -703,8 +720,8 @@ class GenerationEngine:
                 f"factor shapes {tuple(a.shape)}/{tuple(b.shape)} != "
                 f"expected {want_a}/{want_b}"
             )
-        layers["lora_qkv_a"][:, idx] = a.to(self.device)
-        layers["lora_qkv_b"][:, idx] = b.to(self.device)
+        for name, value in (("lora_qkv_a", a), ("lora_qkv_b", b)):
+            llama_mod.set_lora_row(layers[name], idx, value, self.cfg)
 
     def lora_stats(self) -> dict:
         """ServingStats lora_* scalars: the arena's live counters; the
@@ -865,10 +882,13 @@ class GenerationEngine:
                                  use_flash=self.use_flash,
                                  lora_idx=lora_idx, ring=ring)
 
-    def make_cache(self, batch: int, max_len: int,
-                   cfg=None) -> llama_mod.KVCache:
+    def make_cache(self, batch: int, max_len: int, cfg=None,
+                   site: Optional[str] = "kv_cache") -> llama_mod.KVCache:
         """A contiguous cache of `cfg`'s geometry (default the target's),
-        on the mesh: KV heads over tensor by `cache_specs`."""
+        on the mesh: KV heads over tensor by `cache_specs`. `site` names
+        where a spec downgrade is counted; None for an admission's mini
+        cache, which the reference builds inside its jitted prefill,
+        where no downgrade is observed."""
         other = cfg is not None
         cfg = cfg or self.cfg
         if self.mesh.size == 1:
@@ -881,7 +901,7 @@ class GenerationEngine:
         return self._sharded_kv(
             cfg, lambda lcfg, dev: llama_mod.KVCache.create(
                 lcfg, batch, max_len, dev, self.kv_dtype),
-            shape, specs["k"], "kv_cache")
+            shape, specs["k"], site)
 
     def make_paged_cache(
         self, batch: int, max_len: int, n_pages: int, page_size: int
@@ -1116,9 +1136,13 @@ def build_kernels(device: torch.device) -> None:
 
 
 class EmbeddingEngine:
-    """BERT-family embeddings on one device: a seq-bucketed batch embed.
-    `params` (this package's dict of tensors) or random weights drawn
-    from `seed`.
+    """BERT-family embeddings: a seq-bucketed batch embed. `params`
+    (this package's dict of tensors) or random weights drawn from
+    `seed`. The mesh (`mesh`, or `serving.mesh` over `device`, as the
+    generation engine builds it) places the weights by
+    `bert.param_specs`; with more than one coordinate `bert.encode`
+    runs over it (the batch over data x fsdp, heads and FFN columns
+    over tensor, the kernel once per data block x tensor shard).
 
     Rows are not bucketed, unlike the reference, which pads the batch to
     a power of two so that jit compiles few programs: eagerly, padding
@@ -1134,20 +1158,30 @@ class EmbeddingEngine:
         seed: int = 0,
         device: DeviceLike = None,
         serving: Optional[ServingConfig] = None,
+        mesh: Optional[mesh_mod.Mesh] = None,
     ):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        serving = serving or ServingConfig()
+        if mesh is None:
+            mesh = mesh_mod.serving_mesh(serving.mesh, device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.devices[0])
         if params is None:
             params = bert_mod.init_params(cfg, self.device, seed)
             logger.info(
                 "initialized %s on %s: %.1fM params", cfg.name, self.device,
                 count_params(params) / 1e6,
             )
+        if mesh.size > 1:
+            if cfg.num_heads % mesh.shape["tensor"]:
+                raise ValueError(
+                    f"serving.mesh.tensor={mesh.shape['tensor']} does not "
+                    f"divide {cfg.name}'s {cfg.num_heads} heads")
+            params = bert_mod.shard_params(params, cfg, mesh)
         self.params = params
-        self.mesh = mesh_mod.single_device_mesh(self.device)
         # The embed sidecar's one persistent allocation is its weights.
-        obs = (serving or ServingConfig()).observability
-        self.ledger = MemoryLedger([self.device], obs.enabled)
+        self.ledger = MemoryLedger(mesh.distinct_devices(),
+                                   serving.observability.enabled)
         self.ledger.register("weights", lambda: self.params)
 
     def weight_bytes(self) -> int:

@@ -215,13 +215,9 @@ class Sidecar:
                     eos_id=self.tokenizer.eos_id,
                 )
         else:
-            if mesh.size > 1:
-                raise ValueError(
-                    "the embedding engine on a mesh is not ported yet "
-                    "(ROADMAP A18b)")
             self.embedding = EmbeddingEngine(
-                model_cfg, params=params, seed=seed, device=mesh.devices[0],
-                serving=self.serving,
+                model_cfg, params=params, seed=seed, serving=self.serving,
+                mesh=mesh,
             )
         self.server: Optional[grpc.aio.Server] = None
         # One Profile capture at a time.

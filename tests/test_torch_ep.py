@@ -129,8 +129,8 @@ def test_routing_exact_and_ffn_close_to_reference(jeng, teng, monkeypatch):
     monkeypatch.setattr(tm, "_assign", spy)
     x_in = tcommon.rms_norm(torch.from_numpy(x),
                             torch.ones(CFG.hidden_dim), cfg.norm_eps)
-    out = tm.moe_ffn_sharded(x_in, teng.params["layers"], 0, cfg,
-                             torch.from_numpy(valid))[CPU]
+    out = tm.moe_ffn_sharded([x_in], teng.params["layers"], 0, cfg,
+                             torch.from_numpy(valid))[0][CPU]
     (routed_x, (_, topk_p, topk_i, slot, kept)), = seen
     assert torch.equal(routed_x, x_in.reshape(-1, CFG.hidden_dim))
     cap = tm._capacity(cfg, 24)

@@ -1468,3 +1468,124 @@ def test_three_adamw_steps_on_card_match_cpu(cuda):
         off = int((diff > 1e-4 * want.abs().max()).sum())
         assert off <= diff.numel() * 1e-4, (name, off)
         assert diff.max() <= 3 * 3e-4, name
+
+
+# -- the data axes and the routes on a mesh -------------------------------------
+
+
+def _card_mesh(**axes):
+    from ggrmcp_tpu_torch.core.config import MeshConfig
+    from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+
+    dev = torch.device("cuda", 0)
+    n = int(np.prod(list(axes.values())))
+    return mesh_mod.build_mesh(MeshConfig(**{"tensor": 1, **axes}), [dev] * n)
+
+
+@pytest.mark.parametrize("axes", [dict(data=2), dict(data=2, tensor=2)],
+                         ids=["data2", "data2_tensor2"])
+async def test_data_blocks_on_card_match_one_device(cuda, axes):
+    """tiny-llama (float32) on data blocks on one card against one
+    device: prefill logits within 1e-4, B1 launching once a layer, block
+    and shard on the block's rows; the batcher's greedy tokens equal."""
+    cfg = tl.CONFIGS["tiny-llama"]
+    params = tl.init_params(cfg, torch.device("cpu"), seed=37)
+    one = GenerationEngine(cfg, params=_to(params, cuda),
+                           mesh=_card_mesh())
+    many = GenerationEngine(cfg, params=_to(params, cuda),
+                            mesh=_card_mesh(**axes))
+    toks = torch.tensor([_prompts()[4][:40]] * 4, device=cuda)
+    want, _ = one.prefill_forward(one.params, toks, one.make_cache(4, 64))
+    before = tatt.flash_attention.launches
+    got, _ = many.prefill_forward(many.params, toks, many.make_cache(4, 64))
+    shards = int(np.prod(list(axes.values())))
+    assert tatt.flash_attention.launches == before + shards * cfg.num_layers
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    small = dict(max_batch_size=4, kv_cache_max_seq=256, prefill_chunk=16,
+                 max_queue_delay_ms=1000.0)
+    ref = await _serve(ContinuousBatcher(one, BatchingConfig(**small)),
+                       _prompts())
+    batcher = ContinuousBatcher(many, BatchingConfig(**small))
+    assert await _serve(batcher, _prompts()) == ref
+    assert batcher.stats()["mesh_shape"] == ",".join(
+        f"{a}={n}" for a, n in axes.items())
+
+
+def test_embedding_engine_at_tensor2_on_card(cuda):
+    """bert-tiny at tensor=2 on one card against one device: vectors
+    within 1e-5, B1 once a layer and shard."""
+    cfg = tb.CONFIGS["bert-tiny"]
+    params = tb.init_params(cfg, torch.device("cpu"), 3)
+    one = EmbeddingEngine(cfg, params=_to(params, cuda), mesh=_card_mesh())
+    two = EmbeddingEngine(cfg, params=_to(params, cuda),
+                          mesh=_card_mesh(tensor=2))
+    lists = [list(range(5, 5 + n)) for n in (40, 17, 64)]
+    want = one.embed(lists)
+    before = tatt.flash_attention.launches
+    got = two.embed(lists)
+    assert tatt.flash_attention.launches == before + 2 * cfg.num_layers
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+async def test_pages_across_tensor_meshes_on_card(cuda):
+    """A page arena at tensor=2 on one card: pages written by an
+    admission come out as the codec's whole heads, and land in a
+    tensor=1 arena bit for bit."""
+    cfg = tl.CONFIGS["tiny-llama"]
+    params = tl.init_params(cfg, torch.device("cpu"), seed=41)
+    paged = dict(max_batch_size=2, kv_cache_max_seq=128, paged_kv="on",
+                 paged_kv_page_size=8)
+    src = ContinuousBatcher(GenerationEngine(
+        cfg, params=_to(params, cuda), mesh=_card_mesh(tensor=2)),
+        BatchingConfig(**paged))
+    dst = ContinuousBatcher(GenerationEngine(
+        cfg, params=_to(params, cuda), mesh=_card_mesh()),
+        BatchingConfig(**paged))
+    prompt = _prompts()[4][:40]
+    src.start()
+    dst.start()
+    try:
+        async for _ in src.submit(prompt, 1, SamplingConfig()):
+            pass
+        export = await src.run_host_op(lambda: src.export_prompt_kv(prompt))
+        placed = await dst.run_host_op(lambda: dst.import_prompt_kv(
+            prompt, 0, export["k"], export["v"]))
+        landed = await dst.run_host_op(lambda: dst._gather_pages(
+            dst.pages.chain_pages(prompt)))
+    finally:
+        await src.stop()
+        await dst.stop()
+    assert export["k"].shape[3] == cfg.num_kv_heads
+    assert placed == (export["pages"], 0)
+    assert torch.equal(landed["k"], export["k"])
+    assert torch.equal(landed["v"], export["v"])
+
+
+def test_data_parallel_train_steps_on_card_match_cpu(cuda):
+    """tiny-llama (float32), 3 AdamW steps at data=2 on one card against
+    one device on the CPU: losses at rtol 1e-4, B1 once a layer and
+    block a step."""
+    from ggrmcp_tpu_torch.models import training
+
+    cfg = tl.CONFIGS["tiny-llama"]
+    cpu = torch.device("cpu")
+    whole = tl.init_params(cfg, cpu, 13)
+    rng = np.random.default_rng(13)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 65)))
+               for _ in range(3)]
+    losses = {}
+    for dev, mesh in ((cpu, None), (cuda, _card_mesh(data=2))):
+        state = training.make_train_state(
+            {k: ({n: t.clone().to(dev) for n, t in v.items()}
+                 if isinstance(v, dict) else v.clone().to(dev))
+             for k, v in whole.items()}, cfg, mesh=mesh)
+        launches = tatt.flash_attention.launches
+        run = []
+        for batch in batches:
+            state, loss = training.train_step(state, batch.to(dev), cfg)
+            run.append(loss.item())
+        if dev.type == "cuda":
+            assert (tatt.flash_attention.launches - launches
+                    == 3 * 2 * cfg.num_layers)
+        losses[dev.type] = run
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

@@ -162,14 +162,19 @@ def test_mesh_from_a_config_file(tmp_path):
         k: getattr(JMesh(), k) for k in MeshConfig.__dataclass_fields__})
 
 
-@pytest.mark.parametrize("axis,item", [("data", "A18b"), ("fsdp", "A18b")])
-def test_unported_axes_are_refused(axis, item):
-    with pytest.raises(ValueError, match=f"ROADMAP {item}"):
-        ServingConfig(mesh=MeshConfig(tensor=1, **{axis: 2}))
-    # Resolved above 1 (inferred), at the engine.
+# The ids keep the ROADMAP item that once refused each axis.
+@pytest.mark.parametrize("axis", ["data", "fsdp"],
+                         ids=["data-A18b", "fsdp-A18b"])
+def test_unported_axes_are_refused(axis):
+    """The data axes, once refused, are served: accepted in a config,
+    inferred from the devices (0) as the reference's
+    `resolve_axis_sizes` does, and the batch split over them."""
+    assert ServingConfig(mesh=MeshConfig(tensor=1, **{axis: 2})).mesh
     mesh = tmesh.build_mesh(MeshConfig(tensor=2, **{axis: 0}), [CPU] * 4)
-    with pytest.raises(ValueError, match=f"ROADMAP {item}"):
-        GenerationEngine(tl.CONFIGS["tiny-llama"], mesh=mesh)
+    engine = GenerationEngine(tl.CONFIGS["tiny-llama"], mesh=mesh)
+    assert engine.mesh_stats()["mesh_shape"] == f"{axis}=2,tensor=2"
+    assert tmesh.data_size(mesh) == 2
+    assert engine.make_cache(4, 16).k.factors[1] == 2
 
 
 @pytest.mark.parametrize("axis", ["sequence", "stage"])

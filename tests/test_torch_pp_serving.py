@@ -8,8 +8,8 @@ tiny-llama, the same weights crossed through numpy); the engine's greedy
 tokens and the batcher's (fused and chunked admissions) on stage meshes
 equal to the JAX single-device engine's, with int8 weights and with the
 int8 KV cache; and the reference's refusals under PP (speculative
-decoding, indivisible layers, MoE, paged KV, LoRA), plus the ring cache,
-which the port serves on no mesh yet (ROADMAP A18b)."""
+decoding, indivisible layers, MoE, paged KV, LoRA); the ring cache
+under stage is served (its parity: tests/test_torch_mesh_routes.py)."""
 
 import asyncio
 import functools
@@ -168,16 +168,25 @@ async def test_int8_on_pp_mesh_matches_single_device(host, jparams, serving):
     ("tiny-moe", {}, "pipeline-parallel serving supports dense Llama only"),
     (NAME, dict(lora=LoraConfig(adapters=["a"])), "lora does not compose "
      "with pipeline-parallel serving"),
-    ("tiny-mistral", dict(kv_ring=True),
-     r"kv_ring on a mesh \(stage=2\) is not ported yet \(ROADMAP A18b\)"),
+    ("tiny-mistral", dict(kv_ring=True), None),
 ], ids=["speculative", "moe", "lora", "ring"])
 def test_refusals_under_pp(model, serving, match):
+    """The reference's refusals under PP; the ring cache (`match` None)
+    is served, as the reference's staged ring is."""
     from ggrmcp_tpu_torch.models import get_model
 
+    def build():
+        return GenerationEngine(
+            get_model(model)[1],
+            ServingConfig(mesh=MeshConfig(stage=2, tensor=1), **serving),
+            mesh=_tmesh(2))
+
+    if match is None:
+        engine = build()
+        assert engine.pp_serving and engine.ring_capacity
+        return
     with pytest.raises(ValueError, match=match):
-        GenerationEngine(get_model(model)[1],
-                         ServingConfig(mesh=MeshConfig(stage=2, tensor=1),
-                                       **serving), mesh=_tmesh(2))
+        build()
 
 
 def test_indivisible_layers_and_paged_refused(host):

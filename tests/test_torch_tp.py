@@ -19,8 +19,9 @@ What is held:
   reference's values and formats, at one device too, and the downgrade
   gauge: 0 at tensor=2, the reference's count at tensor=8, where the
   KV heads are replicated;
-- every route the port does not serve on a mesh raises naming ROADMAP
-  A18b.
+- the routes once refused on a mesh (LoRA, the ring, tiers, the host
+  tier, roles, embeddings) start at tensor=2, and a page exported from a
+  tensor=2 arena imports into a tensor=1 one.
 """
 
 import asyncio
@@ -486,7 +487,7 @@ def test_query_heads_must_split(jparams):
                          device="cpu")
 
 
-# -- routes the port does not serve on a mesh ----------------------------------
+# -- the routes served on a mesh ---------------------------------------------
 
 REFUSED = {
     "lora": dict(lora=LoraConfig(adapters=["a"])),
@@ -503,21 +504,50 @@ REFUSED = {
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unported_routes_raise_at_construction(name):
+    """The routes ROADMAP A18b once refused on a mesh start at tensor=2
+    (their parity with the JAX package: tests/test_torch_mesh_routes.py);
+    an expert axis on a dense model still raises."""
     kw = dict(REFUSED[name])
     mesh = kw.pop("mesh", MeshConfig(tensor=2))
-    with pytest.raises(ValueError, match="ROADMAP A18b|needs a MoE model"):
-        Sidecar(ServingConfig(mesh=mesh, **kw), device="cpu")
+    if name == "expert_on_dense":
+        with pytest.raises(ValueError, match="needs a MoE model"):
+            Sidecar(ServingConfig(mesh=mesh, **kw), device="cpu")
+        return
+    side = Sidecar(ServingConfig(mesh=mesh, **kw), device="cpu")
+    engine = side.generation or side.embedding
+    assert engine.mesh.shape["tensor"] == 2
+    if side.batcher is not None:
+        assert side.batcher.stats()["mesh_shape"] == "tensor=2"
 
 
-def test_page_transfer_on_a_mesh_raises_typed(teng2):
-    batcher = ContinuousBatcher(teng2, _bcfg(BatchingConfig, paged_kv="on",
-                                             paged_kv_page_size=8))
-    with pytest.raises(KVTransferError, match="ROADMAP A18b"):
-        batcher.export_prompt_kv(PRE)
-    k = torch.zeros((CFG.num_layers, 1, 8, CFG.num_kv_heads, CFG.head_dim))
-    with pytest.raises(KVTransferError, match="ROADMAP A18b"):
-        batcher.import_prompt_kv(PRE, 0, k, k)
-    assert batcher.pages.in_use() == 0
+async def test_page_transfer_on_a_mesh_raises_typed(teng2, teng1):
+    """Page export and import on a tensor-sharded arena (once a typed
+    refusal): the codec's whole heads out of the tensor=2 arena, into a
+    tensor=1 one, bit for bit, and the decode leg's tokens equal a mixed
+    replica's."""
+    cfg = _bcfg(BatchingConfig, paged_kv="on", paged_kv_page_size=8)
+    src, dst, mixed = (ContinuousBatcher(e, cfg)
+                       for e in (teng2, teng1, teng2))
+    for b in (src, dst, mixed):
+        b.start()
+    try:
+        await _consume(src.submit(PRE, 1, SamplingConfig()))
+        export = await src.run_host_op(lambda: src.export_prompt_kv(PRE))
+        assert export["k"].shape == (CFG.num_layers, 3, 8, CFG.num_kv_heads,
+                                     CFG.head_dim)
+        placed = await dst.run_host_op(lambda: dst.import_prompt_kv(
+            PRE, 0, export["k"], export["v"]))
+        assert placed == (3, 0)
+        again = dst._gather_pages(dst.pages.chain_pages(PRE))
+        assert torch.equal(again["k"], export["k"])
+        got = await _consume(dst.submit(PRE, 6, SamplingConfig()))
+        want = await _consume(mixed.submit(PRE, 6, SamplingConfig()))
+    finally:
+        for b in (src, dst, mixed):
+            await b.stop()
+    assert got == want
+    with pytest.raises(KVTransferError, match="no indexed pages"):
+        src.export_prompt_kv([1, 2, 3])
 
 
 # -- the sidecar over gRPC -----------------------------------------------------

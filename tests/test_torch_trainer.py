@@ -80,9 +80,21 @@ class TestLoop:
             _train(tcfg(steps=3, learning_rate=1e20,
                         mesh=MeshConfig(tensor=1)))
 
-    def test_data_and_fsdp_refused(self):
-        with pytest.raises(ValueError, match="A18b"):
-            _train(tcfg(mesh=MeshConfig(tensor=1, data=2)))
+    def test_data_and_fsdp_refused(self, caplog):
+        """Once refused (ROADMAP A18b), the data axes train: the batch
+        splits over them and the logged losses are data=1's."""
+        logs = []
+        for mesh in (MeshConfig(tensor=1, data=2), MeshConfig(tensor=1),
+                     MeshConfig(tensor=1, fsdp=2)):
+            caplog.clear()
+            with caplog.at_level(logging.INFO, logger="ggrmcp.torch.models"):
+                assert _train(tcfg(mesh=mesh)).step == 3
+            logs.append([float(r.getMessage().split("loss=")[1].split()[0])
+                         for r in caplog.records
+                         if "loss=" in r.getMessage()])
+        assert len(logs[0]) == 3
+        np.testing.assert_allclose(logs[0], logs[1], rtol=1e-5)
+        np.testing.assert_allclose(logs[2], logs[1], rtol=1e-5)
 
 
 class TestDataStream:
