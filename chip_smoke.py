@@ -201,7 +201,18 @@ Phases, any failure exits non-zero and prints no result:
    mistral-7b's widths cut to 4 layers; (h) llama-1b, 20 AdamW steps of
    [8, 1024] at data=2 against data=1 (losses step by step, step p50,
    tokens/s, peak memory), and tiny-llama's 3 steps card = CPU at
-   data=2 and data=2 x tensor=2.
+   data=2 and data=2 x tensor=2;
+20. the meshes the axes do not divide, every shard on the card: (a)
+   llama-1b at tensor=3 (32 heads, wo, the FFN and the vocabulary do
+   not split 3 ways: every block whole, computed once) from one seeded
+   tree as tensor=1: `mesh_spec_downgrades` against the reference's
+   rule, a [32, 512] prefill held to twice a same-run witness, B1 once
+   a layer, greedy streams; (b) bert-base at tensor=4 (the embedding
+   replicated and counted once) against tensor=1; (c) two llama-1b
+   AdamW steps at tensor=3 and at sequence=2 against tensor=1's losses;
+   (d) a sidecar in a fresh process: phase 5's burst, then the compile
+   watcher's fields in GetServingStats and GetMemory and its ring in
+   GetFlightRecord (B1's library counted at warmup, none after).
 
 `python3 chip_smoke.py --only 16,17` runs the card, the build and those
 phases and prints no result (fault-finding).
@@ -5954,10 +5965,10 @@ async def _dp_serve(torch, tatt, dev, spec, tmp) -> dict:
         streams=streams)
 
 
-def _dp_embed(torch, tatt, dev, spec) -> dict:
-    """(d) bert-base at tensor=2 against tensor=1 on one seeded tree:
-    the vectors' cosine (phase 6's bound) and B1's launches (once a
-    layer and shard)."""
+def _dp_embed(torch, tatt, dev, spec, tensor: int = 2) -> dict:
+    """(d) bert-base at `tensor` against tensor=1 on one seeded tree:
+    the vectors' cosine (phase 6's bound), B1's launches (once a layer
+    and shard) and the engine's sharding downgrades."""
     import numpy as np
 
     from ggrmcp_tpu_torch.models import bert as bert_mod
@@ -5970,12 +5981,13 @@ def _dp_embed(torch, tatt, dev, spec) -> dict:
                           int(rng.integers(17, spec["embed_longest"] + 1))
                           ).tolist() for _ in range(spec["embed_rows"])]
     lists[0] = lists[0][:1] * spec["embed_longest"]
-    out, launches, ms = {}, {}, {}
-    for t in (1, 2):
+    out, launches, ms, downgrades = {}, {}, {}, {}
+    for t in (1, tensor):
         tree = {k: (dict(v) if isinstance(v, dict) else v)
                 for k, v in params.items()}
         eng = EmbeddingEngine(cfg, params=tree,
                               mesh=_mesh_of(dict(tensor=t), dev))
+        downgrades[t] = eng.spec_downgrades
         eng.embed(lists[:2])
         _sync(torch, dev)
         before = tatt.flash_attention.launches
@@ -5985,15 +5997,15 @@ def _dp_embed(torch, tatt, dev, spec) -> dict:
         ms[t] = (time.perf_counter() - t0) * 1e3
         launches[t] = tatt.flash_attention.launches - before
         del eng, tree
-    cos = float(np.min(np.sum(out[1] * out[2], axis=-1)))
-    check(np.isfinite(out[2]).all() and cos >= EMBED_MIN_COSINE,
-          f"(d) {cfg.name} tensor=2 vs 1: min cosine {cos}")
-    for t in (1, 2):
+    cos = float(np.min(np.sum(out[1] * out[tensor], axis=-1)))
+    check(np.isfinite(out[tensor]).all() and cos >= EMBED_MIN_COSINE,
+          f"(d) {cfg.name} tensor={tensor} vs 1: min cosine {cos}")
+    for t in (1, tensor):
         check(dev.type != "cuda" or launches[t] == t * cfg.num_layers,
               f"(d) {cfg.name} tensor={t}: {launches[t]} B1 launches in an "
               f"Embed of {len(lists)} rows (want {t} a layer)")
     return dict(min_cosine=cos, launches=launches, embed_ms=ms,
-                rows=len(lists))
+                rows=len(lists), downgrades=downgrades)
 
 
 def _cut(name: str, depth: int):
@@ -6475,6 +6487,260 @@ async def dp_phase(torch, tatt, dev, spec=None) -> dict:
     return res
 
 
+# Phase 20: the meshes whose axes do not divide a weight dim or the query
+# heads (the leaf replicated and counted; its block held whole on every
+# tensor shard and computed once per device), the sequence axis in
+# training, and the compile watcher over the kernel build.
+P20 = dict(
+    model="llama-1b", tensor=3, prefill=(32, 512), prompts=(40, 200, 500,
+                                                            1500),
+    new=16, embed=EMBED_MODEL, embed_tensor=4, embed_rows=32,
+    embed_longest=512, train_steps=2, train_batch=8, train_seq=1024,
+    train_meshes=[dict(tensor=3), dict(sequence=2)], watch_depth=2,
+)
+
+
+def _reference_downgrades(cfg, fam, axes: dict) -> int:
+    """The (leaf, dim) sites where the reference's `compatible_spec`
+    replicates on a mesh of `axes` (a dim its entry's axis product does
+    not divide), over the weights and the KV cache's heads: the count
+    its `mesh_spec_downgrades` reaches once a cache is built."""
+    sizes = {"tensor": 1, **axes}
+
+    def sites(specs, shapes):
+        if isinstance(specs, dict):
+            return sum(sites(specs[k], shapes[k]) for k in specs)
+        n = 0
+        for dim, entry in zip(shapes, specs):
+            names = (entry if isinstance(entry, tuple)
+                     else () if entry is None else (entry,))
+            prod = math.prod(sizes.get(a, 1) for a in names)
+            n += prod > 1 and dim % prod != 0
+        return n
+
+    return (sites(fam.param_specs(cfg), fam.param_shapes(cfg))
+            + (cfg.num_kv_heads % sizes["tensor"] != 0))
+
+
+def _whole_serve(torch, tatt, dev, spec) -> dict:
+    """(a) llama-1b at tensor=3, every shard on the card, from one seeded
+    tree as tensor=1: 32 heads do not split 3 ways, nor do wo, the FFN or
+    the vocabulary, so every block is whole, its storage shared by the
+    three coordinates of the card and computed once. The downgrade count
+    against the reference's rule, a [32, 512] prefill's logits against
+    tensor=1's held to twice a same-run witness (tensor=1's plain
+    attention against its B1), B1's launches (once a layer), and greedy
+    streams against tensor=1's."""
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.models.common import param_bytes
+    from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+
+    cfg = llama_mod.CONFIGS[spec["model"]]
+    t = spec["tensor"]
+    params = llama_mod.init_params(cfg, dev, SEED + 20)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    toks = torch.randint(3, cfg.vocab_size, spec["prefill"], generator=gen,
+                         device=dev)
+    prompts = [_prompt_ids(n, i) for i, n in enumerate(spec["prompts"])]
+    one = GenerationEngine(cfg, params=_tree_copy(params),
+                           mesh=_mesh_of({}, dev))
+    want = _tp_prefill(torch, one, toks)
+    witness = _rel_top1(torch, _tp_prefill(torch, one, toks,
+                                           use_flash=False), want)
+    streams_one = one.generate(prompts, spec["new"])[0]
+    del one
+    _free(torch, dev)
+    eng = GenerationEngine(cfg, params=_tree_copy(params),
+                           mesh=_mesh_of(dict(tensor=t), dev))
+    del params
+    whole = sorted(llama_mod.whole_blocks(cfg, t))
+    weights_gb = param_bytes(eng.params) / 1e9
+    tatt.flash_attention.launches = 0
+    got = _tp_prefill(torch, eng, toks)
+    launches = tatt.flash_attention.launches
+    rel, top1 = _rel_top1(torch, got, want)
+    streams = eng.generate(prompts, spec["new"])[0]
+    expect = _reference_downgrades(cfg, llama_mod, dict(tensor=t))
+    res = dict(whole=whole, downgrades=eng.spec_downgrades,
+               reference_downgrades=expect, weights_gb=weights_gb,
+               prefill_rel=rel, prefill_top1=top1, bitwise=bool(
+                   torch.equal(got, want)),
+               witness_rel=witness[0], witness_top1=witness[1],
+               prefill_launches=launches,
+               first_tokens=sum(a[:1] == b[:1]
+                                for a, b in zip(streams, streams_one)),
+               whole_streams=sum(a == b for a, b in zip(streams,
+                                                        streams_one)),
+               streams=len(prompts))
+    del eng, got, want
+    _free(torch, dev)
+    check(whole == ["attn", "ffn", "vocab"],
+          f"(a) {cfg.name} at tensor={t}: whole blocks {whole}")
+    check(res["downgrades"] == expect,
+          f"(a) mesh_spec_downgrades {res['downgrades']}, the reference's "
+          f"rule gives {expect}")
+    check(math.isfinite(rel) and rel <= TP_PREFILL_WITNESS * witness[0]
+          and top1 >= TP_PREFILL_TOP1,
+          f"(a) tensor={t} prefill vs tensor=1: rel {rel}, top-1 {top1} "
+          f"(witness {witness})")
+    check(dev.type != "cuda" or launches == cfg.num_layers,
+          f"(a) {launches} B1 launches in a tensor={t} prefill (want "
+          f"{cfg.num_layers}: a whole attention block once a layer)")
+    check(res["first_tokens"] == len(prompts),
+          f"(a) first tokens {res['first_tokens']} of {len(prompts)} equal "
+          f"tensor=1's")
+    return res
+
+
+def _whole_train(torch, tatt, dev, spec, tmp: str) -> dict:
+    """(c) llama-1b: `train_steps` AdamW steps of [batch, seq] on phase
+    18's text at tensor=1, tensor=3 (every block whole) and sequence=2
+    (replicated, as the reference's trainer places it) from one seeded
+    tree: the losses against tensor=1's (phase 19's bound), B1's
+    launches (once a layer a step) and the step time."""
+    from ggrmcp_tpu_torch.core.config import TrainingConfig
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.models import trainer, training
+
+    cfg = llama_mod.CONFIGS[spec["model"]]
+    data = os.path.join(tmp, "train.txt")
+    with open(data, "w") as fh:
+        fh.write(P18_TEXT * 200)
+    tcfg = TrainingConfig(model=spec["model"], steps=spec["train_steps"],
+                          batch_size=spec["train_batch"],
+                          seq_len=spec["train_seq"], seed=SEED,
+                          data_path=data)
+    runs = {}
+    for axes in [{}] + spec["train_meshes"]:
+        state = training.make_train_state(
+            llama_mod.init_params(cfg, dev, SEED + 18), cfg,
+            mesh=_mesh_of(axes, dev))
+        stream = trainer._data_stream(tcfg, cfg.vocab_size, 0)
+        tatt.flash_attention.launches = 0
+        losses, ms = [], []
+        for _ in range(spec["train_steps"]):
+            batch = torch.from_numpy(next(stream)).to(dev)
+            _sync(torch, dev)
+            t = time.perf_counter()
+            state, loss = training.train_step(state, batch, cfg)
+            losses.append(loss.item())
+            ms.append((time.perf_counter() - t) * 1e3)
+        runs[_label(axes)] = dict(losses=losses, step_ms=ms,
+                                  launches=tatt.flash_attention.launches)
+        del state
+        _free(torch, dev)
+    base = runs["single"]["losses"]
+    for label, run in runs.items():
+        rel = max(abs(x - y) / abs(y) for x, y in zip(run["losses"], base))
+        run["loss_max_rel"] = rel
+        check(all(math.isfinite(x) for x in run["losses"])
+              and rel <= TRAIN_DP_REL,
+              f"(c) {label}: losses {run['losses']} vs tensor=1 {base}")
+        check(dev.type != "cuda" or run["launches"]
+              == spec["train_steps"] * cfg.num_layers,
+              f"(c) {label}: {run['launches']} B1 launches")
+    return runs
+
+
+_WATCH_CODE = r"""
+import asyncio, json, sys
+sys.path.insert(0, sys.argv[1])
+import grpc.aio
+import chip_smoke as cs
+from ggrmcp_tpu_torch.core.config import ServingConfig
+from ggrmcp_tpu_torch.ops import attention as tatt
+from ggrmcp_tpu_torch.serving.sidecar import Sidecar
+
+
+async def main():
+    side = Sidecar(ServingConfig(model=sys.argv[2],
+                                 num_layers=int(sys.argv[3])),
+                   device="cuda:0")
+    await side.start(0)
+    tatt.flash_attention.launches = 0
+    async with grpc.aio.insecure_channel(side.target) as ch:
+        client = cs._ControlClient(ch)
+        await cs._ctrl_burst(client)
+        stats = await client.stats()
+        rec = await client.flight()
+        mem = await client.memory()
+    await side.stop()
+    fields = ("compile_count", "compile_ms", "compile_cache_hits",
+              "compile_cache_misses", "compile_post_warmup")
+    print(json.dumps(dict(
+        stats={f: getattr(stats, f) for f in fields},
+        memory={f: getattr(mem, f) for f in fields},
+        compiles=[dict(fn_name=c.fn_name, duration_ms=c.duration_ms,
+                       post_warmup=c.post_warmup) for c in rec.compiles],
+        launches=tatt.flash_attention.launches)))
+
+
+asyncio.run(main())
+"""
+
+
+def _watch_check(spec) -> dict:
+    """(d) A sidecar in a fresh process (this one loaded the kernel in
+    phase 2, and a process loads a library once): `model` cut to
+    `watch_depth` layers, phase 5's burst through gRPC, then
+    GetServingStats, GetFlightRecord and GetMemory: the warmup's load of
+    B1's library counted (found under its hash after phase 2's build: a
+    cache hit), no compile after warmup, the ring naming it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _WATCH_CODE, here, spec["model"],
+         str(spec["watch_depth"])],
+        capture_output=True, text=True, timeout=600, cwd=here)
+    check(proc.returncode == 0, f"(d) the watcher's sidecar exited "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    res["seconds"] = time.perf_counter() - t
+    stats = res["stats"]
+    check(stats["compile_count"] >= 1 and stats["compile_post_warmup"] == 0
+          and stats == res["memory"],
+          f"(d) compile fields {stats}, GetMemory {res['memory']}")
+    check(any(c["fn_name"] == "flash_attention" for c in res["compiles"])
+          and not any(c["post_warmup"] for c in res["compiles"]),
+          f"(d) compile ring {res['compiles']}")
+    check(res["launches"] > 0, f"(d) the burst launched B1 "
+          f"{res['launches']} times")
+    return res
+
+
+async def whole_phase(torch, tatt, dev, spec=None) -> dict:
+    """Phase 20: (a) llama-1b at tensor=3, every block whole; (b)
+    bert-base at tensor=4 (the embedding replicated and counted); (c)
+    llama-1b training at tensor=3 and at sequence=2; (d) the compile
+    watcher's fields after a burst."""
+    import tempfile
+
+    spec = spec or P20
+    t_phase = time.perf_counter()
+    res: dict = {}
+    t = time.perf_counter()
+    res["serve"] = _whole_serve(torch, tatt, dev, spec)
+    res["serve"]["seconds"] = time.perf_counter() - t
+    log(f"  (a) {json.dumps(res['serve'])}")
+    res["embed"] = _dp_embed(torch, tatt, dev, spec, spec["embed_tensor"])
+    check(res["embed"]["downgrades"][spec["embed_tensor"]] == 1,
+          f"(b) {spec['embed']} at tensor={spec['embed_tensor']}: "
+          f"{res['embed']['downgrades']} downgrades (want the embedding's "
+          f"one)")
+    log(f"  (b) {json.dumps(res['embed'])}")
+    _free(torch, dev)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        t = time.perf_counter()
+        res["train"] = _whole_train(torch, tatt, dev, spec, tmp)
+        res["train_seconds"] = time.perf_counter() - t
+    log(f"  (c) {json.dumps(res['train'])}")
+    res["watch"] = _watch_check(spec)
+    log(f"  (d) {json.dumps(res['watch'])}")
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def _free(torch, dev) -> None:
     gc.collect()
     if dev.type == "cuda":
@@ -6532,69 +6798,69 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         card = card_line()
-        log(f"[1/19] card: {card}; torch {torch.__version__}, CUDA "
+        log(f"[1/20] card: {card}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
         t = time.perf_counter()
         _build.load("flash_attention")
-        log(f"[2/19] build: flash_attention.cu in "
+        log(f"[2/20] build: flash_attention.cu in "
             f"{time.perf_counter() - t:.1f} s")
         ptxas_report(_build.build_log.get("flash_attention", ""))
 
         if run(3):
-            log(f"[3/19] kernel vs plain (|err| <= atol + rtol |plain|: "
+            log(f"[3/20] kernel vs plain (|err| <= atol + rtol |plain|: "
                 f"{TOL})")
             cases = kernel_cases(torch, tatt, dev)
 
         if run(4):
-            log("[4/19] reference: tiny-llama on the card vs the CPU")
+            log("[4/20] reference: tiny-llama on the card vs the CPU")
             ref = tiny_reference(torch, dev)
             log(f"  {ref}")
 
         if run(5):
-            log(f"[5/19] serve: {MODEL} sidecar, default batching")
+            log(f"[5/20] serve: {MODEL} sidecar, default batching")
             serve = asyncio.run(serve_phase(torch, tatt, dev))
             log(f"  {json.dumps(serve)}")
             tidy()
 
         if run(6):
-            log(f"[6/19] embed: {EMBED_MODEL} sidecar")
+            log(f"[6/20] embed: {EMBED_MODEL} sidecar")
             embed = asyncio.run(embed_phase(torch, tatt, dev))
             log(f"  {json.dumps(embed)}")
             tidy()
 
         if run(7):
-            log("[7/19] HF checkpoint: llama3-8b width, 2 layers, 2 files")
+            log("[7/20] HF checkpoint: llama3-8b width, 2 layers, 2 files")
             hf = asyncio.run(hf_phase(torch, tatt, dev))
             log(f"  {json.dumps(hf)}")
             tidy()
 
         if run(8):
-            log(f"[8/19] int8: {MODEL} weights and KV cache")
+            log(f"[8/20] int8: {MODEL} weights and KV cache")
             int8 = asyncio.run(int8_phase(torch, tatt, dev))
             tidy()
 
         if run(9):
-            log(f"[9/19] KV reuse: {MODEL} prefix pool, interleave, "
+            log(f"[9/20] KV reuse: {MODEL} prefix pool, interleave, "
                 f"paged KV")
             reuse = asyncio.run(kv_reuse_phase(torch, tatt, dev))
             tidy()
 
         if run(10):
-            log(f"[10/19] grammar: {MODEL} constrained burst, jump on / "
+            log(f"[10/20] grammar: {MODEL} constrained burst, jump on / "
                 f"off")
             grammar = asyncio.run(grammar_phase(torch, tatt, dev))
             log(f"  {json.dumps(_brief(grammar))}")
             tidy()
 
         if run(11):
-            log(f"[11/19] control plane: {MODEL} tick phases, Profile, "
+            log(f"[11/20] control plane: {MODEL} tick phases, Profile, "
                 f"GetMemory, scheduler, failpoints, deadlines")
             control = asyncio.run(control_phase(torch, tatt, dev))
             tidy()
 
         if run(12):
-            log(f"[12/19] paged plane and LoRA: {MODEL} host tier, "
+            log(f"[12/20] paged plane and LoRA: {MODEL} host tier, "
                 f"TransferKV with roles, adapter arena, preemption with "
                 f"the host tier")
             paged = asyncio.run(paged_lora_phase(torch, tatt, dev))
@@ -6602,14 +6868,14 @@ def main() -> int:
 
         if run(13):
             t = time.perf_counter()
-            log(f"[13/19] speculative decoding, ring KV, tiers: "
+            log(f"[13/20] speculative decoding, ring KV, tiers: "
                 f"{P13['model']} with the {P13['draft']} draft")
             p13 = asyncio.run(spec_ring_tier_phase(torch, tatt, dev))
             log(f"  phase 13: {time.perf_counter() - t:.1f} s, "
                 f"{p13['launches']} B1 launches")
 
         if run(14):
-            log(f"[14/19] sparse MoE: {P14['model']} cut to "
+            log(f"[14/20] sparse MoE: {P14['model']} cut to "
                 f"{P14['layers']} layers, bf16")
             p14 = asyncio.run(moe_phase(torch, tatt, dev))
             log(f"  phase 14: {p14['seconds']:.1f} s, {p14['launches']} B1 "
@@ -6617,7 +6883,7 @@ def main() -> int:
             _free(torch, dev)
 
         if run(15):
-            log(f"[15/19] tensor and expert parallelism: {P15['model']} "
+            log(f"[15/20] tensor and expert parallelism: {P15['model']} "
                 f"at tensor={P15['tensor']} on one card, the sharded "
                 f"loader, {P15['moe']} at expert=2 x tensor=2")
             p15 = asyncio.run(tp_phase(torch, tatt, dev))
@@ -6626,7 +6892,7 @@ def main() -> int:
             _free(torch, dev)
 
         if run(16):
-            log(f"[16/19] co-launch: {P16['model']} sidecar in this "
+            log(f"[16/20] co-launch: {P16['model']} sidecar in this "
                 f"process, the unchanged gateway a child, over a private "
                 f"socket")
             p16 = asyncio.run(colaunch_phase(torch, tatt, dev))
@@ -6635,7 +6901,7 @@ def main() -> int:
             _free(torch, dev)
 
         if run(17):
-            log(f"[17/19] sequence- and pipeline-parallel serving: "
+            log(f"[17/20] sequence- and pipeline-parallel serving: "
                 f"{P17['model']} at sequence={P17['sequence']} and "
                 f"stage={P17['stage']}, every shard on one card")
             p17 = asyncio.run(sp_pp_phase(torch, tatt, dev))
@@ -6647,7 +6913,7 @@ def main() -> int:
             _free(torch, dev)
 
         if run(18):
-            log(f"[18/19] training: {P18['model']} through the train CLI "
+            log(f"[18/20] training: {P18['model']} through the train CLI "
                 f"({P18['steps']} steps at [{P18['batch']}, "
                 f"{P18['seq_len']}], a resume to {P18['resume_to']}), B1 "
                 f"under autograd, {P18['tiny']} card = CPU at tensor and "
@@ -6660,13 +6926,25 @@ def main() -> int:
             _free(torch, dev)
 
         if run(19):
-            log(f"[19/19] the data axes and the routes on a mesh: "
+            log(f"[19/20] the data axes and the routes on a mesh: "
                 f"{P19['model']} at data={P19['data']}, {P19['embed']}, "
                 f"LoRA, TransferKV, the host tier, the ring and tiers at "
                 f"tensor=2, {P19['train']} training at data={P19['data']}")
             p19 = asyncio.run(dp_phase(torch, tatt, dev))
             log(f"  phase 19: {p19['seconds']:.1f} s, {p19['launches']} B1 "
                 f"launches at data={P19['data']}")
+            _free(torch, dev)
+
+        if run(20):
+            log(f"[20/20] meshes the axes do not divide: {P20['model']} at "
+                f"tensor={P20['tensor']} (every block whole), "
+                f"{P20['embed']} at tensor={P20['embed_tensor']}, "
+                f"{P20['model']} training at tensor={P20['tensor']} and "
+                f"sequence=2, the compile watcher")
+            p20 = asyncio.run(whole_phase(torch, tatt, dev))
+            log(f"  phase 20: {p20['seconds']:.1f} s, "
+                f"{p20['serve']['prefill_launches']} B1 launches in a "
+                f"tensor={P20['tensor']} prefill")
             _free(torch, dev)
     except SmokeError as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
@@ -6733,6 +7011,11 @@ def main() -> int:
         dp_lora_launches=p19["lora"]["tensor=2"]["launches"],
         dp_ring_launches=p19["ring_tiers"]["ring_tensor=2"]["launches"],
         dp_train_launches=p19["train"]["runs"][P19["data"]]["launches"],
+        whole_launches=p20["serve"]["prefill_launches"],
+        whole_embed_launches=p20["embed"]["launches"][P20["embed_tensor"]],
+        whole_train_launches={k: r["launches"]
+                              for k, r in p20["train"].items()},
+        watch_launches=p20["watch"]["launches"],
         dp_cases=[{k: c[k] for k in (
             "name", "ms", "ms_min", "ms_max", "plain_ms", "library_ms",
             "bound_ms", "bound_by", "max_abs_err")}

@@ -20,24 +20,27 @@ embedding), the kernel once per (data block x tensor shard).
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from ggrmcp_tpu_torch.models import common
+from ggrmcp_tpu_torch.models import common, llama
 from ggrmcp_tpu_torch.ops import quant
 from ggrmcp_tpu_torch.ops.attention import attention
 from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
 from ggrmcp_tpu_torch.parallel.collectives import (
     Sharded,
-    all_reduce_sum,
+    block_product,
     gather_batch,
     local,
     per_device,
     replicate,
     shard,
 )
+
+logger = logging.getLogger("ggrmcp.torch.models.bert")
 
 Params = common.Params
 
@@ -140,19 +143,47 @@ def qkv_columns(cfg: BertConfig, tensor: int, shard_: int) -> torch.Tensor:
     return torch.cat([own, d + own, 2 * d + own])
 
 
-def shard_params(params: Params, cfg: BertConfig, mesh) -> Params:
-    """Place a whole tree on `mesh` by `param_specs`, IN PLACE. A dim the
-    mesh does not divide raises: the port splits whole heads, rows and
-    columns only (the reference replicates it)."""
+# The leaves the tensor axis splits together (`llama.BLOCKS`' rule).
+BLOCKS = {"attn": ("wqkv", "wo"), "ffn": ("w_in", "w_out"),
+          "vocab": ("embed",)}
 
-    def cut(x, spec, name):
-        def refuse(dim, entry, size, axis):
-            raise ValueError(
-                f"{cfg.name} on {mesh_mod.mesh_shape_str(mesh)}: {name} "
-                f"dim {dim} (size {size}) is not divisible by mesh axis "
-                f"{entry!r} ({axis}) (ROADMAP A18b)")
 
-        adapted = mesh_mod.compatible_spec(spec, x.shape, mesh, refuse)
+def whole_blocks(cfg: BertConfig, tensor: int) -> frozenset:
+    """The blocks held whole on every coordinate of a `tensor`-way axis:
+    those with a dim `tensor` does not divide, and attention when it does
+    not divide the heads (`llama.whole_blocks`)."""
+    if tensor == 1:
+        return frozenset()
+    out = set()
+    if cfg.num_heads % tensor:
+        out.add("attn")
+    if cfg.ffn_dim % tensor:
+        out.add("ffn")
+    if cfg.vocab_size % tensor:
+        out.add("vocab")
+    return frozenset(out)
+
+
+def shard_params(params: Params, cfg: BertConfig, mesh,
+                 on_downgrade=None) -> Params:
+    """Place a whole tree on `mesh` by `param_specs`, IN PLACE.
+    `on_downgrade(where, dim, entry, size, axis)` hears of each dim
+    `compatible_spec` replicates (the reference's count); the leaves of
+    a block `whole_blocks` names are then replicated over tensor."""
+    tensor = mesh.shape["tensor"]
+    whole = whole_blocks(cfg, tensor)
+    if "attn" in whole and 3 * cfg.num_heads * cfg.head_dim % tensor == 0:
+        logger.warning(
+            "%s at tensor=%d: %d heads do not split %d ways; the attention "
+            "block is held whole on every shard (the reference splits "
+            "wqkv's columns; not a mesh_spec_downgrades site)", cfg.name,
+            tensor, cfg.num_heads, tensor)
+    strip = {name for b in whole for name in BLOCKS[b]}
+
+    def cut(x, spec, where, name):
+        adapted = llama.placed_spec(spec, x.shape, mesh, name in strip, (
+            None if on_downgrade is None
+            else lambda *a: on_downgrade(where, *a)))
         index_fn = None
         if name == "wqkv":
             def index_fn(dim, block, n):
@@ -162,9 +193,10 @@ def shard_params(params: Params, cfg: BertConfig, mesh) -> Params:
     for key, spec in param_specs(cfg).items():
         if isinstance(spec, dict):
             for name, sub in spec.items():
-                params[key][name] = cut(params[key][name], sub, name)
+                params[key][name] = cut(params[key][name], sub,
+                                        f"['{key}']['{name}']", name)
         else:
-            params[key] = cut(params[key], spec, key)
+            params[key] = cut(params[key], spec, f"['{key}']", key)
     return params
 
 
@@ -191,8 +223,6 @@ def encode(
     if not is_sharded(params):
         x = params["embed"].to(cfg.torch_dtype)[tokens.long()]
         return _encode_shards(cfg, [params], [x], [kv_len])
-    from ggrmcp_tpu_torch.models import llama
-
     mesh = params["layers"]["wqkv"].mesh
     outs = []
     for rows, at in mesh_mod.data_blocks(mesh, b):
@@ -208,14 +238,20 @@ def _encode_shards(cfg: BertConfig, shards: list, xs: list,
                    lens: list) -> torch.Tensor:
     """The positional add, the embedding LayerNorm and every layer over
     one block's tensor shards: per shard its params, its embedded rows
-    and their key lengths. Every row-parallel partial of more than one
-    shard is a float32 product, all-reduced within the block and
-    rounded once before the residual add and its LayerNorm. Returns the
-    first shard's hidden states."""
+    and their key lengths. Every row-parallel partial of a split block
+    is a float32 product, all-reduced within the block and rounded once
+    before the residual add and its LayerNorm; a block held whole
+    (`whole_blocks`) is computed once per device. Returns the first
+    shard's hidden states."""
     t = len(shards)
     b, s = xs[0].shape[:2]
-    h, hd, eps = cfg.num_heads // t, cfg.head_dim, cfg.norm_eps
-    partial = torch.float32 if t > 1 else None
+    layers = shards[0]["layers"]
+    split_attn = layers["wo"].shape[1] < cfg.num_heads * cfg.head_dim
+    split_ffn = layers["w_out"].shape[1] < cfg.ffn_dim
+    h = cfg.num_heads // t if split_attn else cfg.num_heads
+    hd, eps = cfg.head_dim, cfg.norm_eps
+    partial_attn = torch.float32 if split_attn else None
+    partial_ffn = torch.float32 if split_ffn else None
 
     def add_norm(xs, totals, lps, name):
         return per_device(
@@ -231,20 +267,21 @@ def _encode_shards(cfg: BertConfig, shards: list, xs: list,
               for k in ("pos_embed", "embed_norm_w", "embed_norm_b")))
     for layer in range(cfg.num_layers):
         lps = [{n: w[layer] for n, w in p["layers"].items()} for p in shards]
-        partials = []
-        for x, lp, kl in zip(xs, lps, lens):
+
+        def attn(i):
             # q, k, v stay strided views of the fused projection; the
             # kernel reads them in place.
             q, k, v = (u.reshape(b, s, h, hd)
-                       for u in (x @ lp["wqkv"]).chunk(3, dim=-1))
-            attn = attention(q, k, v, causal=False, kv_len=kl)
-            partials.append(quant.matmul(attn.reshape(b, s, h * hd),
-                                         lp["wo"], partial))
-        xs = add_norm(xs, all_reduce_sum(partials), lps, "attn_norm")
-        partials = [quant.matmul(F.gelu(x @ lp["w_in"], approximate="tanh"),
-                                 lp["w_out"], partial)
-                    for x, lp in zip(xs, lps)]
-        xs = add_norm(xs, all_reduce_sum(partials), lps, "mlp_norm")
+                       for u in (xs[i] @ lps[i]["wqkv"]).chunk(3, dim=-1))
+            out = attention(q, k, v, causal=False, kv_len=lens[i])
+            return quant.matmul(out.reshape(b, s, h * hd), lps[i]["wo"],
+                                partial_attn)
+
+        xs = add_norm(xs, block_product(xs, split_attn, attn), lps,
+                      "attn_norm")
+        xs = add_norm(xs, block_product(xs, split_ffn, lambda i: quant.matmul(
+            F.gelu(xs[i] @ lps[i]["w_in"], approximate="tanh"),
+            lps[i]["w_out"], partial_ffn)), lps, "mlp_norm")
     return xs[0]
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
 from typing import Optional
 
 import torch
@@ -31,12 +32,16 @@ from ggrmcp_tpu_torch.parallel.collectives import (
     Sharded,
     all_gather,
     all_reduce_sum,
+    block_product,
     gather_batch,
+    is_split,
     local,
     per_device,
     replicate,
     shard,
 )
+
+logger = logging.getLogger("ggrmcp.torch.models.llama")
 
 Params = common.Params
 
@@ -232,13 +237,14 @@ def lora_specs() -> dict:
 
 
 def shard_lora(factors: dict, cfg: LlamaConfig, mesh) -> dict:
-    """Whole factor stacks placed on `mesh` by `lora_specs` (one
+    """Whole factor stacks placed on `mesh` by `lora_specs`, `b` whole on
+    every shard when the attention block is (`whole_blocks`; one
     coordinate: unchanged)."""
     if mesh.size == 1:
         return factors
     specs = lora_specs()
-    return {name: shard(t, mesh_mod.compatible_spec(specs[name], t.shape,
-                                                    mesh),
+    whole = "attn" in whole_blocks(cfg, mesh.shape["tensor"])
+    return {name: shard(t, placed_spec(specs[name], t.shape, mesh, whole),
                         mesh, shard_index_fn(cfg, name))
             for name, t in factors.items()}
 
@@ -264,6 +270,50 @@ def set_lora_row(leaf, row: int, value: torch.Tensor,
         part[:, row].copy_(block.to(part.device, part.dtype))
 
 
+# The leaves the tensor axis splits together (either decoder family's;
+# a MoE bank's FFN columns too): the attention block (its KV cache
+# heads with it), the FFN block and the vocabulary.
+BLOCKS = {
+    "attn": ("wqkv", "wo", "lora_qkv_b"),
+    "ffn": ("w_gate", "w_up", "w_down"),
+    "vocab": ("embed", "lm_head"),
+}
+
+
+def whole_blocks(cfg: LlamaConfig, tensor: int) -> frozenset:
+    """The blocks (`BLOCKS`) held whole on every coordinate of a
+    `tensor`-way axis and computed whole, with no row-parallel reduce:
+    those with a leaf whose split dim `tensor` does not divide (the
+    reference replicates that leaf and counts it), and the attention
+    block when `tensor` does not divide the query heads (the port splits
+    wqkv by whole heads, where the reference splits its columns)."""
+    if tensor == 1:
+        return frozenset()
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    out = set()
+    if h % tensor or (h + 2 * kvh) * hd % tensor:
+        out.add("attn")
+    if cfg.ffn_dim % tensor:
+        out.add("ffn")
+    if cfg.vocab_size % tensor:
+        out.add("vocab")
+    return frozenset(out)
+
+
+def whole_leaves(cfg: LlamaConfig, tensor: int) -> set:
+    """The leaf names of `whole_blocks`."""
+    return {name for b in whole_blocks(cfg, tensor) for name in BLOCKS[b]}
+
+
+def placed_spec(spec: tuple, shape, mesh, whole: bool,
+                on_downgrade=None) -> tuple:
+    """The spec a leaf is placed by: `compatible_spec`'s (which tells
+    `on_downgrade(dim, entry, size, axis)` of each dim it replicates),
+    without the tensor axis for a leaf of a whole block."""
+    adapted = mesh_mod.compatible_spec(spec, shape, mesh, on_downgrade)
+    return mesh_mod.drop_axis(adapted, "tensor") if whole else adapted
+
+
 def shard_params(params: Params, cfg: LlamaConfig, mesh, specs: Params,
                  on_downgrade=None) -> Params:
     """Place a whole tree (either decoder family's) on `mesh` by `specs`,
@@ -273,21 +323,37 @@ def shard_params(params: Params, cfg: LlamaConfig, mesh, specs: Params,
     `quant.quantize_specs`. `compatible_spec` adapts every spec;
     `on_downgrade(where, dim, entry, size, axis)` hears of each weight
     dim it had to replicate (a scale's size-1 axis replicates silently).
+    The leaves of a block `whole_blocks` names are then replicated over
+    tensor, uncounted beyond their own downgrades.
     """
     if any(isinstance(leaf, QuantizedTensor)
            for group in (params, params["layers"])
            for leaf in group.values()):
         specs = quant.quantize_specs(specs)
+    tensor = mesh.shape["tensor"]
+    whole = whole_leaves(cfg, tensor)
+    h, hd = cfg.num_heads, cfg.head_dim
+    if ("wo" in whole and h * hd % tensor == 0
+            and (h + 2 * cfg.num_kv_heads) * hd % tensor == 0):
+        logger.warning(
+            "%s at tensor=%d: %d query heads do not split %d ways; the "
+            "attention block is held whole on every shard (the reference "
+            "splits wqkv's columns; not a mesh_spec_downgrades site)",
+            cfg.name, tensor, h, tensor)
+
+    def adapt(shape, spec, where, name, observe=True):
+        return placed_spec(spec, shape, mesh, name in whole, (
+            (lambda *a: on_downgrade(where, *a))
+            if observe and on_downgrade else None))
 
     def cut(x, spec, where, name, observe=True):
-        adapted = mesh_mod.compatible_spec(
-            spec, x.shape, mesh, on_downgrade=(
-                (lambda *a: on_downgrade(where, *a))
-                if observe and on_downgrade else None))
-        return shard(x, adapted, mesh, shard_index_fn(cfg, name))
+        return shard(x, adapt(x.shape, spec, where, name, observe), mesh,
+                     shard_index_fn(cfg, name))
 
     def place(leaf, spec, where, name):
         if isinstance(getattr(leaf, "q", leaf), Sharded):
+            # Placed already (the sharded loader): counted here.
+            adapt(leaf.shape, getattr(spec, "q", spec), where, name)
             return leaf
         if isinstance(leaf, QuantizedTensor):
             return QuantizedTensor(
@@ -325,9 +391,9 @@ def shard_kv_heads(cfg: LlamaConfig, tensor: int,
 
 
 def local_config(cfg: LlamaConfig, tensor: int) -> LlamaConfig:
-    """The geometry one tensor shard computes: H/t query heads, KVH/t
-    key-value heads (all KVH when t does not divide them) and F/t FFN
-    columns."""
+    """The geometry one tensor shard of a split attention block computes:
+    H/t query heads, KVH/t key-value heads (all KVH when t does not
+    divide them) and F/t FFN columns."""
     kvh = cfg.num_kv_heads
     return dataclasses.replace(
         cfg, num_heads=cfg.num_heads // tensor,
@@ -816,7 +882,9 @@ def forward_tp(
     query heads' attention, written into its KV heads' cache, and its FFN
     columns; every row-parallel partial (`wo`, `w_down`) of more than one
     tensor shard is a float32 product, all-reduced within the block and
-    rounded once to the model dtype before the residual add. The embedding is a masked lookup per
+    rounded once to the model dtype before the residual add. A block
+    held whole on every shard (`whole_blocks`) is computed once per
+    device instead, with no reduce. The embedding is a masked lookup per
     vocab shard, summed (exact: one shard holds each row); the lm_head's
     vocab blocks are all-gathered into whole float32 logits, and the
     blocks' logits come back in batch order, so sampling and grammar
@@ -915,11 +983,15 @@ def tp_layers(layers, cfg: LlamaConfig, blocks: list[Block], layer_ids,
     in place (`Block.rows` of them when given). The all-reduces stay
     within a block. Sets and returns the blocks."""
     t = len(blocks[0].coords)
-    lcfg = local_config(cfg, t)
-    # Row-parallel partials in float32, summed and rounded once; one
-    # tensor shard's product is whole and rounds as `forward`'s does.
-    partial = torch.float32 if t > 1 else None
-    if flash_shardable(t, cfg.num_kv_heads)[0]:
+    # A block held whole (`whole_blocks`) is computed whole.
+    split_attn = is_split(layers["wo"], -2)
+    split_ffn = "w_down" in layers and is_split(layers["w_down"], -2)
+    lcfg = local_config(cfg, t) if split_attn else cfg
+    # Row-parallel partials in float32, summed and rounded once; a whole
+    # product rounds as `forward`'s does.
+    partial_attn = torch.float32 if split_attn else None
+    partial_ffn = torch.float32 if split_ffn else None
+    if not split_attn or flash_shardable(t, cfg.num_kv_heads)[0]:
         kv_heads = [None] * t
     else:
         # Replicated KV: every shard reads its query heads' groups.
@@ -940,33 +1012,40 @@ def tp_layers(layers, cfg: LlamaConfig, blocks: list[Block], layer_ids,
                 for c in blk.coords] for blk in blocks]
         for blk, lp in zip(blocks, lps):
             normed = norm(blk.xs, lp, "attn_norm")
-            partials = []
-            for i, c in enumerate(blk.coords):
+
+            def attn(i):
+                c = blk.coords[i]
                 ck = cv = None
                 if cache is not None:
                     ck = cache_at(cache.k, layer, c, blk.rows)
                     cv = cache_at(cache.v, layer, c, blk.rows)
                 impl = (None if attn_impl is None else functools.partial(
                     attn_impl, coord={**blk.at, "tensor": i}))
-                partials.append(attention_out(
+                return attention_out(
                     normed[i], lp[i], lcfg, blk.pos[i], ck, cv, blk.lens[i],
                     use_flash, blk.tables[i], blk.lora[i], ring, kv_heads[i],
-                    partial, attn_impl=impl))
-            blk.xs = per_device(_residual, blk.xs, all_reduce_sum(partials))
+                    partial_attn, attn_impl=impl)
+
+            blk.xs = per_device(_residual, blk.xs,
+                                block_product(blk.xs, split_attn, attn))
         if ffn is not None:
             ffn(layer, blocks, lps)
             continue
         for blk, lp in zip(blocks, lps):
-            partials = [swiglu(n, w, partial)
-                        for n, w in zip(norm(blk.xs, lp, "mlp_norm"), lp)]
-            blk.xs = per_device(_residual, blk.xs, all_reduce_sum(partials))
+            normed = norm(blk.xs, lp, "mlp_norm")
+            blk.xs = per_device(_residual, blk.xs, block_product(
+                blk.xs, split_ffn,
+                lambda i: swiglu(normed[i], lp[i], partial_ffn)))
     return blocks
 
 
 def tp_head(params: Params, cfg: LlamaConfig, xs: list,
             coords: list[int]) -> torch.Tensor:
     """The final norm and the vocab-parallel lm_head at `coords`: whole
-    float32 logits on the first shard's device."""
+    float32 logits on the first shard's device (a whole lm_head's, of
+    the first shard alone)."""
+    if not is_split(params["lm_head"], -1):
+        coords, xs = coords[:1], xs[:1]
     finals = [local(params["final_norm"], c) for c in coords]
     xs = per_device(lambda x, w: common.rms_norm(x, w, cfg.norm_eps), xs,
                     finals)
@@ -988,7 +1067,12 @@ def _vocab_embed(embed, tokens: torch.Tensor, dtype: torch.dtype,
                  coords: list[int], devs: list) -> list[torch.Tensor]:
     """Vocab-parallel embedding: each shard looks up the tokens its row
     block holds, zeros elsewhere, and the blocks are summed (exactly:
-    one shard holds each row). Returns the activations per shard."""
+    one shard holds each row). A whole table is looked up once, by the
+    first shard, and replicated. Returns the activations per shard."""
+    if not is_split(embed, -2):
+        table = local(embed, coords[0])
+        return replicate(quant.embed_lookup(
+            table, tokens.long().to(devs[0]), dtype), devs)
     partials = []
     for i, (c, dev) in enumerate(zip(coords, devs)):
         table = local(embed, c)

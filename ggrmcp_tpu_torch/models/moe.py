@@ -51,6 +51,7 @@ from ggrmcp_tpu_torch.parallel.collectives import (
     gather_batch,
     local,
     per_device,
+    replicate,
 )
 
 Params = common.Params
@@ -339,8 +340,10 @@ def moe_ffn_sharded(
     own tokens and sum those pairs' weighted outputs in float32; one
     all-reduce over the block's coordinates combines them. Appends the
     layer's aux loss (over every block's tokens) to `auxes` when given.
-    Returns, per block, {device: output [B_i, S, D] in x's dtype} for
-    every device of its coordinates."""
+    A bank held whole over expert or tensor (`llama.whole_blocks`: the
+    axis does not divide its expert or FFN dim) runs at that axis' index
+    0 alone. Returns, per block, {device: output [B_i, S, D] in x's
+    dtype} for every device of its tensor shards."""
     mesh = layers["router"].mesh
     ats = ats or [{}] * len(xs)
     x = gather_batch(xs)
@@ -358,7 +361,11 @@ def moe_ffn_sharded(
         auxes.append(_aux_loss(probs, cfg, vt))
     scratch = e * capacity
     w = torch.where(kept, topk_p, 0.0).to(x.dtype).float()
-    per_shard = e // mesh.shape["expert"]
+    # A bank the expert axis (tensor) does not split is held whole over
+    # it (`llama.whole_blocks`), and computed at its index 0 alone.
+    gate = getattr(layers["w_gate"], "q", layers["w_gate"])
+    n_ex, n_t = gate.factors[-3], gate.factors[-1]
+    per_shard = e // n_ex
     token = torch.arange(t, device=x.device)[:, None]
     outs, lo_t = [], 0
     for xb, at in zip(xs, ats):
@@ -371,8 +378,8 @@ def moe_ffn_sharded(
         dest = dest[lo_t * k:hi_t * k]
         wb = w[lo_t:hi_t]
         partials = []
-        for ex in range(mesh.shape["expert"]):
-            for tt in range(mesh.shape["tensor"]):
+        for ex in range(n_ex):
+            for tt in range(n_t):
                 c = mesh.index(**{**at, "expert": ex, "tensor": tt})
                 dev = mesh.devices[c]
                 lo = ex * per_shard * capacity
@@ -387,8 +394,10 @@ def moe_ffn_sharded(
                                        torch.zeros_like(out[:1]))
                 partials.append((gathered.view(hi_t - lo_t, k, d).float()
                                  * wb.to(dev)[..., None]).sum(1))
-        outs.append({p.device: r.to(x.dtype).view(xb.shape[0], s, d)
-                     for p, r in zip(partials, all_reduce_sum(partials))})
+        total = all_reduce_sum(partials)[0].to(x.dtype).view(
+            xb.shape[0], s, d)
+        devs = llama.tensor_coords(mesh, **at)[1]
+        outs.append(dict(zip(devs, replicate(total, devs))))
         lo_t = hi_t
     return outs
 

@@ -84,15 +84,6 @@ def latest_step(checkpoint_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def _mesh(cfg: TrainingConfig, device: DeviceLike) -> mesh_mod.Mesh:
-    mesh = mesh_mod.serving_mesh(cfg.mesh, device)
-    if mesh.shape["sequence"] > 1:
-        raise ValueError(
-            "training.mesh.sequence > 1: sequence-parallel training is "
-            "not ported (the port's sequence axis serves fresh prefills)")
-    return mesh
-
-
 def train(cfg: TrainingConfig, device: DeviceLike = None
           ) -> training.TrainState:
     """Run the loop (on `device`: CUDA unless the CPU is asked for);
@@ -100,7 +91,14 @@ def train(cfg: TrainingConfig, device: DeviceLike = None
     family, model_cfg = get_model(cfg.model)
     if family == "bert":
         raise ValueError("training targets decoder models")
-    mesh = _mesh(cfg, device)
+    # A `sequence` axis replicates, as the reference's trainer places
+    # it: no param spec names it and the batch splits over data x fsdp
+    # only (the port's sequence axis serves fresh prefills; there is no
+    # ring or Ulysses in training). On one controller its replicas would
+    # compute the same thing, so the step computes once, at sequence
+    # index 0 (`llama.forward_tp`), and the replicas on other devices
+    # take the summed gradient (`collectives.sum_tied_grads`).
+    mesh = mesh_mod.serving_mesh(cfg.mesh, device)
     dev = resolve_device(mesh.devices[0])
     if mesh.shape["expert"] > 1 and family != "moe":
         raise ValueError(

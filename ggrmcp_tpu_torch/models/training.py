@@ -129,13 +129,6 @@ def mesh_specs(cfg: llama_mod.LlamaConfig,
     return family_module(cfg).param_specs(cfg)
 
 
-def _refuse_downgrade(where, dim, entry, size, axis) -> None:
-    raise ValueError(
-        f"training: {where} dim {dim} (size {size}) is not divisible by "
-        f"mesh axis {entry!r} ({axis}); the port shards whole heads, rows "
-        f"and columns only")
-
-
 def make_train_state(
     params: Params,
     cfg: llama_mod.LlamaConfig,
@@ -152,8 +145,7 @@ def make_train_state(
     count of updates they hold (a resumed or carried state)."""
     specs = mesh_specs(cfg, mesh)
     if specs is not None:
-        params = llama_mod.shard_params(params, cfg, mesh, specs,
-                                        _refuse_downgrade)
+        params = llama_mod.shard_params(params, cfg, mesh, specs)
     for t in stored_tensors(params):
         t.requires_grad_(True)
     optimizer = make_optimizer(params, learning_rate, weight_decay)
@@ -191,14 +183,20 @@ def init_train_state(
 
 def _tie_grads(params: Params, specs: Params,
                cfg: llama_mod.LlamaConfig) -> None:
+    """Sum the gradients of every leaf's replicas (`sum_tied_grads`). A
+    whole block's leaf is computed once per device, so each replica
+    holds the gradient of its own device's uses, and the sum is the
+    whole gradient, not a multiple of it."""
     for key, spec in specs.items():
         group = (params[key].items() if isinstance(spec, dict)
                  else [(key, params[key])])
         subs = spec if isinstance(spec, dict) else {key: spec}
         for name, leaf in group:
             if isinstance(leaf, Sharded):
-                adapted = mesh_mod.compatible_spec(subs[name], leaf.shape,
-                                                   leaf.mesh)
+                whole = llama_mod.whole_leaves(cfg,
+                                               leaf.mesh.shape["tensor"])
+                adapted = llama_mod.placed_spec(subs[name], leaf.shape,
+                                                leaf.mesh, name in whole)
                 sum_tied_grads(leaf, adapted,
                                llama_mod.shard_index_fn(cfg, name))
 

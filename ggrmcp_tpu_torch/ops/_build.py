@@ -7,7 +7,9 @@ name carries a hash of the source, of every header under `csrc/` (what
 a source may include) and of the flags (include and link flags among
 them), so an edited source or header is rebuilt and a stale library is
 never loaded. Nothing here runs at import time: the first wrapper call
-on a CUDA tensor builds.
+on a CUDA tensor builds. Every library loaded is reported to
+`listeners` (the serving compile watcher): built by nvcc (a cache
+miss) or found under its hash (a hit), with the seconds it took.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
+from typing import Callable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -34,6 +38,9 @@ _loaded: dict[str, ctypes.CDLL] = {}
 # What nvcc printed for each library loaded in this process (ptxas
 # resource usage), kept beside the library as `<library>.log`.
 build_log: dict[str, str] = {}
+# Called as listener(name, seconds, hit) once per library loaded in this
+# process: `hit` when it was found under its hash, not built.
+listeners: list[Callable[[str, float, bool], None]] = []
 
 
 def _nvcc() -> str:
@@ -95,9 +102,14 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
+            t0 = time.perf_counter()
+            hit = library_path(name).exists()
             path = build(name)
             if name not in build_log and _log_path(path).exists():
                 build_log[name] = _log_path(path).read_text()
             lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
+            secs = time.perf_counter() - t0
+            for listener in list(listeners):
+                listener(name, secs, hit)
         return lib

@@ -265,6 +265,26 @@ def per_device(fn: Callable, *lists) -> list:
     return out
 
 
+def is_split(leaf, dim: int) -> bool:
+    """Whether a placed leaf's dim `dim` is split over its mesh (the
+    leaves of a whole block hold every row and column everywhere)."""
+    leaf = getattr(leaf, "q", leaf)
+    return isinstance(leaf, Sharded) and leaf.factors[dim] > 1
+
+
+def block_product(xs: list, split: bool, product) -> list:
+    """A block's output per shard: `product(i)` of every shard i, summed
+    (a split block's row-parallel partials), or of a whole block once
+    per device, by the first shard on it, with no reduce."""
+    if split:
+        return all_reduce_sum([product(i) for i in range(len(xs))])
+    done: dict = {}
+    for i, x in enumerate(xs):
+        if x.device not in done:
+            done[x.device] = product(i)
+    return [done[x.device] for x in xs]
+
+
 def all_reduce_sum(parts: list[torch.Tensor]) -> list[torch.Tensor]:
     """Sum of per-shard partials, added in shard order on the first
     part's device and returned on every part's device (one tensor per

@@ -266,6 +266,17 @@ def compatible_spec(
     return tuple(out)
 
 
+def drop_axis(spec: tuple, name: str) -> tuple:
+    """`spec` with axis `name` taken out of every entry (that dim is no
+    longer split over it)."""
+    out = []
+    for entry in spec:
+        rest = tuple(n for n in _entry_names(entry) if n != name)
+        out.append(None if not rest else
+                   rest if isinstance(entry, tuple) else rest[0])
+    return tuple(out)
+
+
 def mesh_shape_str(mesh: Mesh) -> str:
     """Human-readable mesh shape ("tensor=8", "tensor=2,expert=2", or
     "single" for one device): the ServingStats `mesh_shape` label."""

@@ -38,6 +38,7 @@ from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
 from ggrmcp_tpu_torch.parallel import pipeline as pp_mod
 from ggrmcp_tpu_torch.parallel.collectives import Sharded
 from ggrmcp_tpu_torch.serving import checkpoint
+from ggrmcp_tpu_torch.serving.compile_watcher import watcher
 from ggrmcp_tpu_torch.serving.memory_ledger import MemoryLedger
 from ggrmcp_tpu_torch.utils import failpoints
 from ggrmcp_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -177,6 +178,7 @@ class GenerationEngine:
             self.ledger.register("lora", self._ledger_lora)
         if self.draft_cfg is not None:
             self.ledger.register("draft_weights", lambda: self.draft_params)
+        _watch_compiles(self.serving)
 
     # -- the mesh -------------------------------------------------------
 
@@ -186,7 +188,8 @@ class GenerationEngine:
         one device, `mesh.check_data_placement`), tensor and expert axes
         (expert for the MoE family), sequence and stage, with the
         reference's refusals. Each refusal raises here, at
-        construction: nothing runs replicated in silence."""
+        construction. A weight dim an axis does not divide is placed
+        replicated and counted (`_shard_params`)."""
         self._init_sp_prefill()
         self._init_pp_serving()
         if self.mesh.size == 1:
@@ -197,11 +200,6 @@ class GenerationEngine:
             raise ValueError(
                 f"serving.mesh.expert={sizes['expert']} needs a MoE model; "
                 f"{self.cfg.name} has no experts to shard"
-            )
-        if self.cfg.num_heads % sizes["tensor"]:
-            raise ValueError(
-                f"serving.mesh.tensor={sizes['tensor']} does not divide "
-                f"{self.cfg.name}'s {self.cfg.num_heads} query heads"
             )
 
     def _init_sp_prefill(self) -> None:
@@ -288,27 +286,18 @@ class GenerationEngine:
     def _shard_params(self, params, cfg, specs):
         """Place a whole tree on the mesh by `specs`, IN PLACE
         (`llama.shard_params`; a no-op on one coordinate, and for leaves
-        already sharded). A weight whose spec must downgrade raises: the
-        port splits whole heads, rows and columns only."""
+        already sharded). A weight dim the mesh does not divide is
+        replicated and counted, and its block held whole on every
+        tensor shard (`llama.whole_blocks`)."""
         mesh = self.mesh
         if mesh.size == 1:
             return params
-        downgraded = []
-        params = llama_mod.shard_params(
-            params, cfg, mesh, specs,
-            on_downgrade=lambda *site: downgraded.append(site))
-        for where, dim, entry, size, axis in downgraded:
-            self._note_downgrade(where, dim, entry, size, axis)
-        if downgraded:
-            raise ValueError(
-                f"{cfg.name} on {mesh_mod.mesh_shape_str(mesh)}: "
-                f"{sorted({w for w, *_ in downgraded})} would run "
-                f"replicated (a dim the mesh axis does not divide); the "
-                f"port shards whole heads, rows and columns only "
-                f"(ROADMAP A18b)"
-            )
-        logger.info("sharded %s over %s", cfg.name,
-                    mesh_mod.mesh_shape_str(mesh))
+        params = llama_mod.shard_params(params, cfg, mesh, specs,
+                                        on_downgrade=self._note_downgrade)
+        logger.info("sharded %s over %s (whole on every tensor shard: %s)",
+                    cfg.name, mesh_mod.mesh_shape_str(mesh),
+                    sorted(llama_mod.whole_blocks(
+                        cfg, mesh.shape["tensor"])) or "none")
         return params
 
     def mesh_stats(self) -> dict:
@@ -347,7 +336,10 @@ class GenerationEngine:
                 lambda dim, entry, size, axis: self._note_downgrade(
                     site, dim, entry, size, axis)))
         t = mesh.shape["tensor"]
-        split = adapted[3] is not None
+        # A whole attention block computes every KV head on every shard.
+        if "attn" in llama_mod.whole_blocks(cfg, t):
+            t = 1
+        split = adapted[3] is not None and t > 1
         # A staged cache: each stage's coordinates hold its layers.
         stages = mesh_mod.axis_product(mesh, adapted[0])
         data = mesh_mod.axis_product(mesh, adapted[1])
@@ -461,11 +453,6 @@ class GenerationEngine:
                 "serving.speculative_draft_checkpoint")
         elif draft_params is None:
             draft_params = llama_mod.init_params(dcfg, self.device, seed + 1)
-        if self.mesh.size > 1 and dcfg.num_heads % self.mesh.shape["tensor"]:
-            raise ValueError(
-                f"serving.mesh.tensor={self.mesh.shape['tensor']} does not "
-                f"divide the draft {dcfg.name}'s {dcfg.num_heads} query heads"
-            )
         self.draft_cfg = dcfg
         # The draft shares the mesh, sharded by the dense family's specs.
         self.draft_params = self._shard_params(
@@ -1126,9 +1113,19 @@ def _quantize_by_slice(w: torch.Tensor, axis: int,
     return out
 
 
+def _watch_compiles(serving: ServingConfig) -> None:
+    """With serving.observability on, the compile watcher counts kernel
+    builds and loads; a fresh engine opens a new warmup era (its cold
+    compiles are expected; the sidecar marks warm after its warmup)."""
+    if serving.observability.enabled:
+        watcher.install()
+        watcher.mark_cold()
+
+
 def build_kernels(device: torch.device) -> None:
-    """Nothing is compiled ahead in eager PyTorch; on a card this builds
-    the attention kernel before traffic arrives."""
+    """Eager PyTorch traces no program ahead; on a card this builds (or
+    loads from `build/kernels/`) the attention kernel's library before
+    traffic arrives, a compile the watcher counts."""
     if device.type == "cuda":
         from ggrmcp_tpu_torch.ops import _build
 
@@ -1172,17 +1169,20 @@ class EmbeddingEngine:
                 "initialized %s on %s: %.1fM params", cfg.name, self.device,
                 count_params(params) / 1e6,
             )
+        # Sharding downgrades, counted as the generation engine counts.
+        self.spec_downgrades = 0
+        self._downgrades_seen: set = set()
         if mesh.size > 1:
-            if cfg.num_heads % mesh.shape["tensor"]:
-                raise ValueError(
-                    f"serving.mesh.tensor={mesh.shape['tensor']} does not "
-                    f"divide {cfg.name}'s {cfg.num_heads} heads")
-            params = bert_mod.shard_params(params, cfg, mesh)
+            params = bert_mod.shard_params(
+                params, cfg, mesh, on_downgrade=self._note_downgrade)
         self.params = params
         # The embed sidecar's one persistent allocation is its weights.
         self.ledger = MemoryLedger(mesh.distinct_devices(),
                                    serving.observability.enabled)
         self.ledger.register("weights", lambda: self.params)
+        _watch_compiles(serving)
+
+    _note_downgrade = GenerationEngine._note_downgrade
 
     def weight_bytes(self) -> int:
         return param_bytes(self.params)

@@ -97,6 +97,7 @@ from ggrmcp_tpu_torch.serving.batching import (
     KVTransferError,
     OverloadedError,
 )
+from ggrmcp_tpu_torch.serving.compile_watcher import watcher
 from ggrmcp_tpu_torch.serving.engine import EmbeddingEngine, GenerationEngine
 from ggrmcp_tpu_torch.serving.flight_recorder import FlightRecorder
 from ggrmcp_tpu_torch.serving.pages import PageExhaustedError
@@ -111,6 +112,13 @@ from ggrmcp_tpu_torch.utils.device import DeviceLike
 logger = logging.getLogger("ggrmcp.torch.sidecar")
 
 POOLINGS = ("mean", "cls", "max")
+
+
+def _compile_records(limit: int = watcher.RING) -> list:
+    """The compile watcher's newest `limit` events as CompileRecords."""
+    return [serving_pb2.CompileRecord(
+        fn_name=c.fn_name, t_wall=c.t_wall, duration_ms=c.duration_ms,
+        post_warmup=c.post_warmup) for c in watcher.snapshot(limit)]
 
 
 def _cut_depth(cfg, num_layers: int):
@@ -839,6 +847,9 @@ class Sidecar:
         # gateway's role-aware router reads from the same snapshot.
         stats["role"] = self.serving.role
         stats.update(self._transfer_stats)
+        # The compile watcher's process-level counters (fields 101-105,
+        # gateway_backend_compile_*): the port's kernel builds and loads.
+        stats.update(watcher.stats())
         return serving_pb2.ServingStatsResponse(**stats)
 
     # -- DebugService ---------------------------------------------------
@@ -889,9 +900,8 @@ class Sidecar:
         self, request: serving_pb2.FlightRecordRequest, context
     ):
         """The flight recorder's tick and request records, filtered to
-        one trace id and (requests only) one tenant when given. Host
-        state only. The port compiles nothing at serve time, so
-        `compiles` is empty."""
+        one trace id and (requests only) one tenant when given, and the
+        compile watcher's ring (newest last). Host state only."""
         ticks: list = []
         requests: list = []
         enabled = False
@@ -916,6 +926,9 @@ class Sidecar:
             requests = sorted(requests + spec_requests,
                               key=lambda r: r.t_submit)[-max_requests:]
         return serving_pb2.FlightRecordResponse(
+            # Kernel builds and loads ride the flight record, so the
+            # timeline renders each as an instant beside the ticks.
+            compiles=_compile_records(request.max_ticks or 128),
             ticks=[
                 serving_pb2.TickRecord(
                     seq=t.seq, t_wall=t.t_wall, t_mono=t.t_mono,
@@ -958,8 +971,8 @@ class Sidecar:
         """The memory ledger: bytes per (scope, component) and, with
         `reconcile`, the device's live bytes split into attributed and
         unattributed (attributed + unattributed == live), and the host
-        components. The walks run in the executor. The port compiles
-        nothing at serve time: the `compile_*` fields stay 0."""
+        components, and the compile watcher's counters and ring. The
+        walks run in the executor."""
         ledger = (self.generation or self.embedding).ledger
         components: list = []
         total = live = unattr_bytes = unattr_arrays = 0
@@ -1001,6 +1014,8 @@ class Sidecar:
             unattributed_bytes=unattr_bytes,
             unattributed_arrays=unattr_arrays,
             enabled=ledger.enabled,
+            **watcher.stats(),
+            compiles=_compile_records(),
         )
 
     # -- lifecycle ------------------------------------------------------
@@ -1107,6 +1122,10 @@ class Sidecar:
             self.batcher.start()
         if self.spec_batcher is not None:
             self.spec_batcher.start()
+        # Warmup is over: from here every kernel build or load is a
+        # steady-state compile — counted, WARNING-logged and a timeline
+        # instant (serving/compile_watcher.py).
+        watcher.mark_warm()
         await self.server.start()
         logger.info(
             "sidecar serving %s (%s) on %s (%s), tokenizer %s",

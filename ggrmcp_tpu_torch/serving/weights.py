@@ -185,8 +185,9 @@ def load_hf_checkpoint_sharded(
     segment (q, k and v rows of the shard's heads, `llama.qkv_columns`).
     The values are those of `load_hf_checkpoint` split by the specs, bit
     for bit. A spec that does not divide its dim is reported to
-    `on_downgrade(where, dim, entry, size, axis)` and raises (the port
-    splits whole heads, rows and columns only). A one-coordinate mesh
+    `on_downgrade(where, dim, entry, size, axis)` (the reference's
+    count) and the leaf read whole; so is every leaf of its block
+    (`llama.whole_blocks`), once per device. A one-coordinate mesh
     loads whole. `last_load_stats` records the wall time, the bytes
     read and the host RSS before and at peak."""
     global last_load_stats  # noqa: PLW0603 (the reference's export)
@@ -199,14 +200,10 @@ def load_hf_checkpoint_sharded(
     n, d, f = cfg.num_layers, cfg.hidden_dim, cfg.ffn_dim
     h, kvh, hd, vocab = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                          cfg.vocab_size)
-    t = mesh.shape["tensor"]
-    if h % t:
-        raise ValueError(
-            f"{path}: tensor={t} does not divide {h} query heads")
     specs = llama_mod.param_specs(cfg)
     shapes = llama_mod.param_shapes(cfg)
+    whole = llama_mod.whole_leaves(cfg, mesh.shape["tensor"])
     bytes_read = 0
-    downgraded = []
 
     with Checkpoint(path) as ckpt:
         def check(name: str, want: tuple):
@@ -254,9 +251,9 @@ def load_hf_checkpoint_sharded(
                 at += hi - lo
 
         def place(key: str, where: str, spec, shape):
-            adapted = mesh_mod.compatible_spec(
-                spec, shape, mesh,
-                on_downgrade=lambda *a: downgraded.append((where, *a)))
+            adapted = llama_mod.placed_spec(
+                spec, shape, mesh, key in whole, None if on_downgrade is None
+                else lambda *a: on_downgrade(where, *a))
             stacked = key in ("attn_norm", "wqkv", "wo", "mlp_norm",
                               "w_gate", "w_up", "w_down")
             parts, seen = [], {}
@@ -340,15 +337,6 @@ def load_hf_checkpoint_sharded(
                         shapes["layers"][name])
             else:
                 params[key] = place(key, f"['{key}']", spec, shapes[key])
-    for where, dim, entry, size, axis in downgraded:
-        if on_downgrade is not None:
-            on_downgrade(where, dim, entry, size, axis)
-    if downgraded:
-        raise ValueError(
-            f"{path}: {sorted({w for w, *_ in downgraded})} would load "
-            f"replicated on {mesh_mod.mesh_shape_str(mesh)}; the port "
-            f"shards whole heads, rows and columns only (ROADMAP A18b)"
-        )
     last_load_stats = {
         "weight_load_s": round(time.monotonic() - t0, 2),
         "weight_load_bytes_read": bytes_read,

@@ -24,6 +24,7 @@ import torch
 from ggrmcp_tpu.ops.attention import attention_xla
 from ggrmcp_tpu.ops.attention import flash_attention as jax_flash
 from ggrmcp_tpu_torch.ops import attention as tatt
+from tests import torch_threads  # noqa: F401
 
 ATOL = RTOL = 1e-5
 

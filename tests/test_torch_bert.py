@@ -27,6 +27,7 @@ from ggrmcp_tpu_torch.models import bert as tb
 from ggrmcp_tpu_torch.models import common as tcommon
 from ggrmcp_tpu_torch.models.convert import params_from_numpy
 from ggrmcp_tpu_torch.ops import attention as tatt
+from tests import torch_threads  # noqa: F401
 
 ATOL = 1e-5
 CPU = torch.device("cpu")

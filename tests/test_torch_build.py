@@ -8,6 +8,7 @@ from pathlib import Path
 import pytest
 
 from ggrmcp_tpu_torch.ops import _build
+from tests import torch_threads  # noqa: F401
 
 
 @pytest.fixture

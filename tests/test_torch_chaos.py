@@ -44,6 +44,7 @@ from ggrmcp_tpu_torch.serving.sidecar import Sidecar
 from ggrmcp_tpu_torch.utils import failpoints
 from tests.test_grammar_jump import SCHEMAS
 from tests.test_torch_observability import VOCAB, engines  # noqa: F401
+from tests import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHORT = [5, 6, 7]

@@ -18,6 +18,7 @@ import pytest
 from ggrmcp_tpu.core import config as jcfg
 from ggrmcp_tpu_torch import __main__ as cli
 from ggrmcp_tpu_torch.core import config as tcfg
+from tests import torch_threads  # noqa: F401
 
 # A reference config file: gateway sections, the fleet's knobs and a
 # serving section of keys both packages read.

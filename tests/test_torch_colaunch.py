@@ -33,6 +33,7 @@ from ggrmcp_tpu_torch.core.config import BatchingConfig, Config, ServingConfig
 from ggrmcp_tpu_torch.models.convert import params_from_numpy
 from ggrmcp_tpu_torch.serving import launcher
 from ggrmcp_tpu_torch.serving.sidecar import Sidecar
+from tests import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GENERATE = "ggrmcp_tpu_generateservice_generate"

@@ -28,6 +28,7 @@ import tests.test_slo_accounting as t_slo
 from ggrmcp_tpu.serving import adapter_arena as j_arena
 from ggrmcp_tpu_torch.models import llama as tl
 from ggrmcp_tpu_torch.serving import adapter_arena as t_arena_mod
+from tests import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -29,6 +29,7 @@ from ggrmcp_tpu_torch.rpc.pb import serving_pb2
 from ggrmcp_tpu_torch.serving.memory_ledger import MemoryLedger
 from ggrmcp_tpu_torch.serving.sidecar import Sidecar
 from ggrmcp_tpu_torch.utils import tracing
+from tests import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 BASE = os.path.join(tempfile.gettempdir(), "ggrmcp-profiles")

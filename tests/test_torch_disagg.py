@@ -54,6 +54,7 @@ from ggrmcp_tpu_torch.serving.pages import PageExhaustedError
 from ggrmcp_tpu_torch.serving.sidecar import Sidecar
 from ggrmcp_tpu_torch.utils import failpoints
 from tests.test_torch_observability import engines  # noqa: F401
+from tests import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 GEN_TOOL = "ggrmcp_tpu_generateservice_generate"

@@ -62,6 +62,7 @@ from ggrmcp_tpu_torch.rpc.pb import serving_pb2
 from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher
 from ggrmcp_tpu_torch.serving.engine import GenerationEngine
 from ggrmcp_tpu_torch.serving.sidecar import Sidecar
+from tests import torch_threads  # noqa: F401
 
 ATOL, RTOL = 1e-5, 1e-4
 CPU = torch.device("cpu")

@@ -40,6 +40,7 @@ from ggrmcp_tpu_torch.models.convert import train_state_from_numpy
 from ggrmcp_tpu_torch.parallel import mesh as tmesh
 from ggrmcp_tpu_torch.parallel import pipeline as tpipe
 from ggrmcp_tpu_torch.parallel.collectives import Sharded
+from tests import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 LR = 3e-4  # make_optimizer's default in both packages
@@ -102,9 +103,13 @@ def _steps(jstate, jstep, jmesh_, state, step, batches):
 
 @pytest.mark.parametrize("axes", [
     dict(data=2), dict(fsdp=2), dict(data=2, tensor=2),
-    dict(data=2, stage=2),
-], ids=["data2", "fsdp2", "data2_tensor2", "data2_stage2"])
+    dict(data=2, stage=2), dict(tensor=3), dict(sequence=2),
+], ids=["data2", "fsdp2", "data2_tensor2", "data2_stage2", "tensor3",
+        "sequence2"])
 def test_three_steps_match_jax(axes):
+    """tensor=3 splits no dim of tiny-llama (every block whole: a replica
+    computed once per device must not multiply its gradient); sequence=2
+    replicates, as the reference's trainer places it."""
     name = "tiny-llama"
     jcfg, cfg = jl.CONFIGS[name], tl.CONFIGS[name]
     jmesh_, mesh = _meshes(axes)

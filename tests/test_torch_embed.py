@@ -32,6 +32,7 @@ from ggrmcp_tpu_torch.rpc.pb import serving_pb2
 from ggrmcp_tpu_torch.serving import tensors
 from ggrmcp_tpu_torch.serving.engine import EmbeddingEngine
 from ggrmcp_tpu_torch.serving.sidecar import Sidecar
+from tests import torch_threads  # noqa: F401
 
 ATOL = 1e-5
 CPU = torch.device("cpu")

@@ -1274,6 +1274,68 @@ async def test_replicated_kv_shards_launch_the_kernel(cuda):
     assert tatt.flash_attention.launches > before
 
 
+async def test_whole_blocks_launch_the_kernel_once_a_layer(cuda):
+    """tiny-llama (float32) at tensor=3 on one card: no split dim divides
+    by 3, so every block is whole, its storage shared by the three
+    coordinates and computed once: B1 once a layer, the downgrade count
+    the reference's (7 weight dims, the KV heads), prefill logits within
+    1e-4 of one shard's and the batcher's greedy tokens equal."""
+    from ggrmcp_tpu_torch.core.config import MeshConfig
+    from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+
+    cfg = tl.CONFIGS["tiny-llama"]
+    params = tl.init_params(cfg, torch.device("cpu"), seed=32)
+    dev = torch.device("cuda", 0)
+    one = GenerationEngine(cfg, params=_to(params, dev),
+                           mesh=mesh_mod.build_mesh(MeshConfig(tensor=1),
+                                                    [dev]))
+    three = GenerationEngine(cfg, params=_to(params, dev),
+                             mesh=mesh_mod.build_mesh(MeshConfig(tensor=3),
+                                                      [dev] * 3))
+    assert tl.whole_blocks(cfg, 3) == {"attn", "ffn", "vocab"}
+    toks = torch.tensor([_prompts()[4][:40]] * 2, device=dev)
+    want, _ = one.prefill_forward(one.params, toks, one.make_cache(2, 64))
+    cache = three.make_cache(2, 64)
+    assert three.spec_downgrades == 8
+    before = tatt.flash_attention.launches
+    got, _ = three.prefill_forward(three.params, toks, cache)
+    assert tatt.flash_attention.launches == before + cfg.num_layers
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    small = dict(max_batch_size=4, kv_cache_max_seq=256, prefill_chunk=16,
+                 max_queue_delay_ms=1000.0)
+    ref = await _serve(ContinuousBatcher(one, BatchingConfig(**small)),
+                       _prompts())
+    assert await _serve(ContinuousBatcher(three, BatchingConfig(**small)),
+                        _prompts()) == ref
+
+
+def test_compile_watcher_counts_the_kernel_library(cuda):
+    """In a fresh process (a process loads a library once), the watcher
+    installed, B1's library loaded: one compile named flash_attention,
+    a hit or a miss as the build directory holds it, none after
+    warmup."""
+    import subprocess
+    import sys
+
+    code = (
+        "import json\n"
+        "from ggrmcp_tpu_torch.ops import _build\n"
+        "from ggrmcp_tpu_torch.serving.compile_watcher import watcher\n"
+        "watcher.install(); watcher.mark_cold()\n"
+        "_build.load('flash_attention'); watcher.mark_warm()\n"
+        "_build.load('flash_attention')\n"
+        "print(json.dumps(dict(stats=watcher.stats(), names=[\n"
+        "    e.fn_name for e in watcher.snapshot()])))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    stats = res["stats"]
+    assert res["names"] == ["flash_attention"]
+    assert stats["compile_count"] == 1 and stats["compile_post_warmup"] == 0
+    assert stats["compile_cache_hits"] + stats["compile_cache_misses"] == 1
+    assert stats["compile_ms"] > 0
+
+
 def test_ring_and_ulysses_on_card_match_cpu(cuda):
     """Ring and Ulysses attention over two and four sequence shards on
     one card against the same on the CPU (float32, 1e-5): causal,

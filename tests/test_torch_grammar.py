@@ -66,6 +66,7 @@ from ggrmcp_tpu_torch.serving.sidecar import Sidecar
 from ggrmcp_tpu_torch.serving.tokenizer import ByteTokenizer
 from tests.test_grammar import SUITE, validate
 from tests.test_grammar_jump import SCHEMAS as JUMP_SCHEMAS
+from tests import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 TOK = ByteTokenizer()

@@ -45,6 +45,7 @@ from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher
 from ggrmcp_tpu_torch.serving.engine import GenerationEngine
 from ggrmcp_tpu_torch.serving.tokenizer import ByteTokenizer
 from tests.test_grammar_jump import SCHEMAS
+from tests import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 TOK = ByteTokenizer()

@@ -47,6 +47,7 @@ from ggrmcp_tpu_torch.serving.engine import GenerationEngine
 from ggrmcp_tpu_torch.serving.sidecar import Sidecar
 from ggrmcp_tpu_torch.utils import failpoints
 from tests.test_torch_observability import engines, serving_view  # noqa: F401
+from tests import torch_threads  # noqa: F401
 
 HOST_KEYS = (
     "kv_host_demotions", "kv_host_restores", "kv_host_bytes_demoted",

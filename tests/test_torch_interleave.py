@@ -30,6 +30,7 @@ from ggrmcp_tpu_torch.ops.sampling import SamplingConfig
 from ggrmcp_tpu_torch.rpc.pb import serving_pb2
 from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher
 from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+from tests import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 # No eos token (2) anywhere: parity compares full-length streams.

@@ -13,6 +13,7 @@ import json
 import os
 import subprocess
 import sys
+from tests import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -63,6 +64,7 @@ PORT_MODULES = (
     "ggrmcp_tpu_torch.parallel.pipeline",
     "ggrmcp_tpu_torch.models.training", "ggrmcp_tpu_torch.models.trainer",
     "ggrmcp_tpu_torch.serving.checkpoint",
+    "ggrmcp_tpu_torch.serving.compile_watcher",
 )
 
 

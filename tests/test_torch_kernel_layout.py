@@ -11,6 +11,7 @@ import torch
 
 from ggrmcp_tpu_torch.ops import attention as tatt
 from ggrmcp_tpu_torch.ops.rope import apply_rope
+from tests import torch_threads  # noqa: F401
 
 BF16 = torch.bfloat16
 

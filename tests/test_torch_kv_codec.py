@@ -24,6 +24,7 @@ from ggrmcp_tpu.rpc.pb import serving_pb2 as jpb
 from ggrmcp_tpu.serving import tensors as jt
 from ggrmcp_tpu_torch.rpc.pb import serving_pb2
 from ggrmcp_tpu_torch.serving import tensors as tt
+from tests import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPE = (2, 3, 8, 2, 16)  # [L, n, P, KVH, Dh]

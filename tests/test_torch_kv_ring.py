@@ -37,6 +37,7 @@ from ggrmcp_tpu_torch.models.convert import params_from_numpy
 from ggrmcp_tpu_torch.ops.sampling import SamplingConfig
 from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher
 from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+from tests import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 CFG = tl.CONFIGS["tiny-mistral"]  # sliding_window = 16

@@ -26,6 +26,7 @@ from ggrmcp_tpu.serving import launcher as jlauncher
 from ggrmcp_tpu_torch.core.config import Config, FleetConfig, ServingConfig
 from ggrmcp_tpu_torch.serving import launcher
 from tests.backend_utils import InProcessBackend
+from tests import torch_threads  # noqa: F401
 
 HELLO_TOOL = "hello_helloservice_sayhello"
 

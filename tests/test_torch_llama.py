@@ -22,6 +22,7 @@ from ggrmcp_tpu_torch.models import common as tcommon
 from ggrmcp_tpu_torch.models import llama as tl
 from ggrmcp_tpu_torch.models.convert import params_from_numpy
 from ggrmcp_tpu_torch.ops import rope as trope
+from tests import torch_threads  # noqa: F401
 
 ATOL = 2e-4
 CPU = torch.device("cpu")

@@ -63,6 +63,7 @@ from ggrmcp_tpu_torch.serving.engine import GenerationEngine
 from ggrmcp_tpu_torch.serving.sidecar import Sidecar
 from ggrmcp_tpu_torch.utils import failpoints
 from tests.test_torch_observability import serving_view
+from tests import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 JCFG = jl.CONFIGS["tiny-llama"]

@@ -26,6 +26,7 @@ from ggrmcp_tpu_torch.core.config import (
 from ggrmcp_tpu_torch.models import llama as tl
 from ggrmcp_tpu_torch.parallel import mesh as tmesh
 from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+from tests import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -59,6 +59,7 @@ from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher
 from ggrmcp_tpu_torch.serving.engine import EmbeddingEngine, GenerationEngine
 from ggrmcp_tpu_torch.serving.sidecar import Sidecar
 from ggrmcp_tpu_torch.serving.tiered import TieredBatcher
+from tests import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 NAME = "tiny-llama"

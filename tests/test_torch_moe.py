@@ -57,6 +57,7 @@ from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher
 from ggrmcp_tpu_torch.serving.engine import GenerationEngine
 from ggrmcp_tpu_torch.serving.sidecar import Sidecar
 from ggrmcp_tpu_torch.serving.tiered import TieredBatcher
+from tests import torch_threads  # noqa: F401
 
 ATOL = 2e-4
 ROUTE_TOL = 1e-6

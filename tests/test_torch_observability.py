@@ -42,6 +42,7 @@ from ggrmcp_tpu_torch.serving.engine import GenerationEngine
 from ggrmcp_tpu_torch.serving.flight_recorder import PHASE_NAMES
 from ggrmcp_tpu_torch.serving.sidecar import Sidecar
 from tests.test_grammar_jump import SCHEMAS
+from tests import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 VOCAB = tl.CONFIGS["tiny-llama"].vocab_size

@@ -39,6 +39,7 @@ from ggrmcp_tpu_torch.parallel import pipeline as tpipe
 from ggrmcp_tpu_torch.parallel.collectives import unshard
 from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher
 from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+from tests import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 NAME = "tiny-llama"

@@ -45,6 +45,7 @@ from ggrmcp_tpu_torch.models.convert import (
 )
 from ggrmcp_tpu_torch.parallel import mesh as tmesh
 from ggrmcp_tpu_torch.parallel import pipeline as tpipe
+from tests import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 NAME = "tiny-llama"  # 4 layers, float32

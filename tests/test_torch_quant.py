@@ -57,6 +57,7 @@ from ggrmcp_tpu_torch.ops import quant as tq
 from ggrmcp_tpu_torch.ops.sampling import SamplingConfig
 from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher
 from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+from tests import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 ATOL_WEIGHTS = 2e-4

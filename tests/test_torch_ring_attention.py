@@ -32,6 +32,7 @@ from ggrmcp_tpu_torch.ops.sampling import SamplingConfig
 from ggrmcp_tpu_torch.parallel import mesh as tmesh
 from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher
 from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+from tests import torch_threads  # noqa: F401
 
 ATOL = 1e-5
 CPU = torch.device("cpu")

@@ -16,6 +16,7 @@ import torch
 
 from ggrmcp_tpu.ops import sampling as js
 from ggrmcp_tpu_torch.ops import sampling as ts
+from tests import torch_threads  # noqa: F401
 
 V = 300
 

@@ -26,6 +26,7 @@ from ggrmcp_tpu_torch.ops.sampling import SamplingConfig
 from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher
 from ggrmcp_tpu_torch.utils import failpoints
 from tests.test_torch_observability import engines, serving_view  # noqa: F401
+from tests import torch_threads  # noqa: F401
 
 SCHED = dict(enabled=True, preempt_wait_fraction=1e-6)
 ROUTES = {

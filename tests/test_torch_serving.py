@@ -33,6 +33,7 @@ from ggrmcp_tpu_torch.rpc.pb import serving_pb2
 from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher, OverloadedError
 from ggrmcp_tpu_torch.serving.engine import GenerationEngine
 from ggrmcp_tpu_torch.serving.sidecar import Sidecar
+from tests import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 SMALL = dict(max_batch_size=4, kv_cache_max_seq=256, prefill_chunk=16)

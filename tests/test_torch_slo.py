@@ -28,6 +28,7 @@ from ggrmcp_tpu_torch.rpc.pb import serving_pb2
 from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher, OverloadedError
 from ggrmcp_tpu_torch.serving.sidecar import Sidecar
 from tests.test_torch_observability import engines, serving_view  # noqa: F401
+from tests import torch_threads  # noqa: F401
 
 CLASSES = {
     "fast": {"ttft_p99_ms": 1e-3, "tpot_p99_ms": 1e-3},

@@ -46,6 +46,7 @@ from ggrmcp_tpu_torch.serving.engine import GenerationEngine
 from ggrmcp_tpu_torch.serving.sidecar import Sidecar
 from ggrmcp_tpu_torch.serving.tokenizer import ByteTokenizer
 from ggrmcp_tpu_torch.utils import failpoints
+from tests import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 CFG = jl.CONFIGS["tiny-llama"]

@@ -38,6 +38,7 @@ from ggrmcp_tpu_torch.models.convert import params_from_numpy
 from ggrmcp_tpu_torch.ops import sampling as ts
 from ggrmcp_tpu_torch.ops import speculative as tspec
 from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+from tests import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 CFG = jl.CONFIGS["tiny-llama"]

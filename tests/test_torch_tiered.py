@@ -41,6 +41,7 @@ from ggrmcp_tpu_torch.serving.batching import OverloadedError
 from ggrmcp_tpu_torch.serving.engine import GenerationEngine
 from ggrmcp_tpu_torch.serving.sidecar import Sidecar
 from ggrmcp_tpu_torch.serving.tiered import TieredBatcher
+from tests import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 TIERS = [[64, 3], [256, 1]]

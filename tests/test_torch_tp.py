@@ -61,6 +61,7 @@ from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher, KVTransferError
 from ggrmcp_tpu_torch.serving.engine import GenerationEngine
 from ggrmcp_tpu_torch.serving.sidecar import Sidecar
 from ggrmcp_tpu_torch.utils import failpoints as tfail
+from tests import torch_threads  # noqa: F401
 
 ATOL = 1e-4
 CPU = torch.device("cpu")
@@ -481,10 +482,24 @@ def test_replicated_kv_per_query_head_matches_tensor1():
                                    rtol=0)
 
 
-def test_query_heads_must_split(jparams):
-    with pytest.raises(ValueError, match="does not divide"):
-        GenerationEngine(CFG, ServingConfig(mesh=MeshConfig(tensor=16)),
-                         device="cpu")
+def test_query_heads_must_split(jparams, teng1):
+    """8 query heads do not split over tensor=16: the attention block is
+    held whole on every shard (the reference splits wqkv's 512 columns,
+    32 a shard: ROADMAP §C), which counts no site; the FFN and the
+    vocabulary still split. Logits within 1e-4 of tensor=1's."""
+    teng = GenerationEngine(CFG, _serving(16), params=_cross(jparams),
+                            device="cpu")
+    assert teng.spec_downgrades == 0
+    layers = teng.params["layers"]
+    assert layers["wqkv"].factors[-1] == layers["wo"].factors[-2] == 1
+    assert layers["w_down"].factors[-2] == 16
+    assert teng.params["lm_head"].factors[-1] == 16
+    tokens = torch.from_numpy(
+        np.random.default_rng(4).integers(3, 500, (2, 24)).astype(np.int32))
+    want, _ = teng1.prefill_forward(teng1.params, tokens,
+                                    teng1.make_cache(2, 64))
+    got, _ = teng.prefill_forward(teng.params, tokens, teng.make_cache(2, 64))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=0)
 
 
 # -- the routes served on a mesh ---------------------------------------------

@@ -35,6 +35,7 @@ from ggrmcp_tpu_torch.serving import safetensors_io  # noqa: E402
 from ggrmcp_tpu_torch.serving import weights as tw  # noqa: E402
 from ggrmcp_tpu_torch.serving.engine import GenerationEngine  # noqa: E402
 from ggrmcp_tpu_torch.serving.sidecar import Sidecar  # noqa: E402
+from tests import torch_threads  # noqa: F401, E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -99,7 +100,9 @@ def _mesh(tensor):
 
 
 def _split(cfg, tree, mesh):
-    """The whole tree split by the specs, as the engine splits it."""
+    """The whole tree split by the specs, as the engine splits it (the
+    leaves of a block `whole_blocks` names replicated over tensor)."""
+    whole = tl.whole_leaves(cfg, mesh.shape["tensor"])
     out = {"layers": {}}
     for key, spec in tl.param_specs(cfg).items():
         group = spec if isinstance(spec, dict) else {key: spec}
@@ -110,8 +113,8 @@ def _split(cfg, tree, mesh):
             if name == "wqkv":
                 def fn(dim, block, n):
                     return tl.qkv_columns(cfg, n, block) if dim == 2 else None
-            sh = shard(leaf, tmesh.compatible_spec(sp, leaf.shape, mesh),
-                       mesh, fn)
+            sh = shard(leaf, tl.placed_spec(sp, leaf.shape, mesh,
+                                            name in whole), mesh, fn)
             (out["layers"] if isinstance(spec, dict) else out)[name] = sh
     return out
 
@@ -136,13 +139,15 @@ def _equal(a, b):
     return torch.equal(a, b) and a.dtype == b.dtype
 
 
-@pytest.mark.parametrize("tensor", [2, 4])
+@pytest.mark.parametrize("tensor", [2, 3, 4])
 @pytest.mark.parametrize("name", sorted(CHECKPOINTS))
 def test_sharded_load_equals_the_split_of_the_whole_load(checkpoints, name,
                                                          tensor):
     path = checkpoints[name]
     cfg, whole = tw.load_hf_checkpoint(path, CPU)
-    mesh = _mesh(tensor)  # at 4 the 2 KV heads load replicated
+    # At 4 the 2 KV heads load replicated; at 3 no split dim divides and
+    # every leaf loads whole onto each shard.
+    mesh = _mesh(tensor)
     cfg2, params = tw.load_hf_checkpoint_sharded(path, mesh)
     assert cfg2 == cfg
     want = dict(_leaves(_split(cfg, whole, mesh)))
@@ -165,9 +170,20 @@ def test_int8_shards_equal_the_split_of_the_whole_quantization(checkpoints,
     """Loaded sharded, then quantized by the engine on its shards: every
     shard's int8 values and scales equal the whole quantization's
     split, the row-parallel leaves' (wo, w_down) scales included."""
-    path = checkpoints[name]
+    _check_int8(checkpoints[name], 2)
+
+
+def test_int8_whole_blocks_equal_the_whole_quantization(checkpoints):
+    """At tensor=3 no split dim of the tiny checkpoint divides: every
+    leaf is loaded whole onto each shard and quantized there, to the
+    whole quantization's bits."""
+    _check_int8(checkpoints["tiny_script"], 3)
+
+
+def _check_int8(path, tensor):
     cfg, whole = tw.load_hf_checkpoint(path, CPU)
-    mesh = _mesh(2)
+    mesh = _mesh(tensor)
+    placed = tl.whole_leaves(cfg, tensor)
     qwhole = quant.quantize_model(whole)
     _, params = tw.load_hf_checkpoint_sharded(path, mesh)
     eng = GenerationEngine(cfg, ServingConfig(quantize="int8"), params=params,
@@ -186,17 +202,18 @@ def test_int8_shards_equal_the_split_of_the_whole_quantization(checkpoints,
         if key.endswith("wqkv"):
             def fn(dim, block, n):
                 return tl.qkv_columns(cfg, n, block) if dim == 2 else None
+        name = key.split(".")[-1]
         for field in ("q", "scale"):
             t = getattr(ref, field)
-            sh = shard(t, tmesh.compatible_spec(spec, t.shape, mesh), mesh,
-                       fn)
+            sh = shard(t, tl.placed_spec(spec, t.shape, mesh,
+                                         name in placed), mesh, fn)
             for a, b in zip(getattr(leaf, field).parts, sh.parts):
                 assert _equal(a, b), (key, field)
         # The shards put back together give the whole quantization.
         if not key.endswith("wqkv"):
             assert torch.equal(unshard(
-                leaf.q, tmesh.compatible_spec(spec, ref.q.shape, mesh)),
-                ref.q)
+                leaf.q, tl.placed_spec(spec, ref.q.shape, mesh,
+                                       name in placed)), ref.q)
 
 
 def test_window_reads_equal_whole_reads(checkpoints):
@@ -221,9 +238,17 @@ def test_window_reads_equal_whole_reads(checkpoints):
 
 
 def test_sharded_load_refuses_what_it_cannot_split(checkpoints, tmp_path):
-    with pytest.raises(ValueError, match="does not divide"):
-        tw.load_hf_checkpoint_sharded(checkpoints["f32"], _mesh(8))
+    """Once refused, what the mesh cannot split loads whole: 4 query heads
+    at tensor=8 hold attention whole (no dim to count: the reference
+    splits wqkv's 128 columns); a 129-row vocabulary at tensor=2 loads
+    embed and lm_head whole onto each shard, counted at both leaves, the
+    layers split. Every part equals the whole load's."""
     seen = []
+    cfg, params = tw.load_hf_checkpoint_sharded(
+        checkpoints["f32"], _mesh(8), on_downgrade=lambda *a: seen.append(a))
+    assert seen == []
+    assert params["layers"]["wqkv"].factors[-1] == 1
+    assert params["layers"]["w_down"].factors[-2] == 8
     path = _hf(tmp_path / "odd")
     # A vocabulary that tensor=2 cannot split: 129 rows.
     tensors = st.load_file(os.path.join(path, "model.safetensors"))
@@ -236,10 +261,19 @@ def test_sharded_load_refuses_what_it_cannot_split(checkpoints, tmp_path):
     hf["vocab_size"] = 129
     with open(os.path.join(path, "config.json"), "w") as fh:
         json.dump(hf, fh)
-    with pytest.raises(ValueError, match="ROADMAP A18b"):
-        tw.load_hf_checkpoint_sharded(path, _mesh(2),
-                                      on_downgrade=lambda *a: seen.append(a))
-    assert ("['embed']", 0, "tensor", 129, 2) in seen
+    cfg, params = tw.load_hf_checkpoint_sharded(
+        path, _mesh(2), on_downgrade=lambda *a: seen.append(a))
+    assert seen == [("['embed']", 0, "tensor", 129, 2),
+                    ("['lm_head']", 1, "tensor", 129, 2)]
+    _, whole = tw.load_hf_checkpoint(path, CPU)
+    for key, leaf in _leaves(params):
+        ref = whole
+        for part in key.split("."):
+            ref = ref[part]
+        if key in ("embed", "lm_head"):
+            assert leaf.factors == (1, 1)
+            assert all(torch.equal(p, ref) for p in leaf.parts), key
+    assert params["layers"]["w_gate"].factors[-1] == 2
 
 
 async def test_sidecar_serves_a_checkpoint_on_the_mesh(checkpoints):

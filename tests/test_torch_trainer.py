@@ -26,6 +26,7 @@ from ggrmcp_tpu_torch.models import trainer
 from ggrmcp_tpu_torch.serving import checkpoint
 from ggrmcp_tpu_torch.serving.engine import GenerationEngine
 from ggrmcp_tpu_torch.serving.sidecar import Sidecar
+from tests import torch_threads  # noqa: F401
 
 
 def tcfg(tmp_path=None, **kw) -> TrainingConfig:
@@ -82,10 +83,12 @@ class TestLoop:
 
     def test_data_and_fsdp_refused(self, caplog):
         """Once refused (ROADMAP A18b), the data axes train: the batch
-        splits over them and the logged losses are data=1's."""
+        splits over them and the logged losses are data=1's; so does a
+        sequence axis, replicated (once refused too)."""
         logs = []
         for mesh in (MeshConfig(tensor=1, data=2), MeshConfig(tensor=1),
-                     MeshConfig(tensor=1, fsdp=2)):
+                     MeshConfig(tensor=1, fsdp=2),
+                     MeshConfig(tensor=1, sequence=2)):
             caplog.clear()
             with caplog.at_level(logging.INFO, logger="ggrmcp.torch.models"):
                 assert _train(tcfg(mesh=mesh)).step == 3
@@ -95,6 +98,7 @@ class TestLoop:
         assert len(logs[0]) == 3
         np.testing.assert_allclose(logs[0], logs[1], rtol=1e-5)
         np.testing.assert_allclose(logs[2], logs[1], rtol=1e-5)
+        np.testing.assert_allclose(logs[3], logs[1], rtol=1e-5)
 
 
 class TestDataStream:

@@ -50,6 +50,7 @@ from ggrmcp_tpu_torch.models.convert import (
 from ggrmcp_tpu_torch.ops import attention as tatt
 from ggrmcp_tpu_torch.parallel import mesh as tmesh
 from ggrmcp_tpu_torch.parallel.collectives import Sharded, sum_tied_grads
+from tests import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 

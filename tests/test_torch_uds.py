@@ -32,6 +32,7 @@ from ggrmcp_tpu_torch.core.config import (
 from ggrmcp_tpu_torch.models.convert import params_from_numpy
 from ggrmcp_tpu_torch.rpc.pb import serving_pb2
 from ggrmcp_tpu_torch.serving.sidecar import Sidecar
+from tests import torch_threads  # noqa: F401
 
 CPU = torch.device("cpu")
 SMALL = dict(max_batch_size=4, kv_cache_max_seq=256, prefill_chunk=16)

@@ -41,6 +41,7 @@ from ggrmcp_tpu_torch.serving import tokenizer as ttok  # noqa: E402
 from ggrmcp_tpu_torch.serving import weights as tw  # noqa: E402
 from ggrmcp_tpu_torch.serving.engine import GenerationEngine  # noqa: E402
 from ggrmcp_tpu_torch.serving.sidecar import Sidecar  # noqa: E402
+from tests import torch_threads  # noqa: F401, E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-5
