@@ -212,7 +212,39 @@ Phases, any failure exits non-zero and prints no result:
    AdamW steps at tensor=3 and at sequence=2 against tensor=1's losses;
    (d) a sidecar in a fresh process: phase 5's burst, then the compile
    watcher's fields in GetServingStats and GetMemory and its ring in
-   GetFlightRecord (B1's library counted at warmup, none after).
+   GetFlightRecord (B1's library counted at warmup, none after);
+21. the replica fleet at llama3-8b width (seeded random bf16 weights,
+   8 slots): (a) the co-launch with `fleet.enabled` (min_replicas 1,
+   max_replicas 2): the unchanged gateway child spawns the port's worker
+   (`python -m ggrmcp_tpu_torch.serving.fleet`, its command line read
+   from /proc), /admin/fleet lists it, each prompt's greedy tokens from
+   the replica equal the co-launched sidecar's (one seed), a burst of
+   tools/calls over both while the supervisor's health probe of the
+   worker is timed (every one answered within its 2 s timeout), B1 in
+   the worker (its kernels in a profile of the worker, taken last, with
+   the probes and flap edges the capture costs; its compile watcher's
+   load); (b) at the reference's flap threshold, the worker SIGKILLed
+   mid-burst: the flap edges before the kill, every call typed or
+   complete, the supervisor's process-exit restart in the action log,
+   seconds to the new replica's first good call, the card's memory
+   before, during and after; (c) the workers armed with replica_crash:
+   the worker dies at its Nth call and is healed, and an armed worker's
+   exit code is 86; (d) after stop() no worker is left and the card's
+   memory has returned;
+22. processes on the one card: (a) two processes of tiny-llama (float32)
+   join by `parallel/distributed.py`'s `initialize` over 127.0.0.1
+   (gloo: a named card is shared): their cross-process sum is exact and
+   three AdamW steps at global data=2 equal the single-process data=2
+   steps on the card (losses, final params); (b) llama-1b at full width,
+   10 AdamW steps of a global [8, 1024] batch split over two processes
+   on cuda:0 against the single-process data=2 run from one seeded tree,
+   held to twice a same-run witness (that run through the plain
+   attention against B1), with a planted fault (three steps with the
+   gradients' reduce skipped) outside that bound: losses, the
+   gradients' reduce time, step time p50 of both, each process's
+   peak memory, B1 launches a step, the backend; B1 at one process's
+   [4, 1023] block against its plain version, timed with SDPA and the
+   bound.
 
 `python3 chip_smoke.py --only 16,17` runs the card, the build and those
 phases and prints no result (fault-finding).
@@ -6741,6 +6773,836 @@ async def whole_phase(torch, tatt, dev, spec=None) -> dict:
     return res
 
 
+# -- phase 21: the replica fleet --------------------------------------------------
+
+# llama3-8b with 8 slots: 16.06 GB of bf16 weights and 8 x 4096 x 131,072
+# B of KV cache, about 20.4 GB a replica, so the co-launched sidecar and
+# two workers (max_replicas) fit in 80 GB and a third would not. The
+# SLO target is out of reach so that the pool stays at its floor of one
+# worker unless a burst sheds. The flap settings are the reference's
+# defaults (3 edges in 60 s). The worker's profile comes last: the
+# profiler's stop holds the GIL for as long as the capture's kernels
+# take to process (seconds on a busy card, scripts/profile_stop_cost.py),
+# the supervisor's probe waits as long, and the two edges it counts
+# would turn (b)'s process-exit heal into a flap heal.
+P21 = dict(model=MODEL, slots=8, prompts=(40, 300, 700, 1500), new=16,
+           burst=8, profile_ms=3000, crash_every=64, tiny="tiny-llama",
+           tiny_crash_every=2, probe_timeout_ms=2000.0,
+           fleet=dict(enabled=True, min_replicas=1, max_replicas=2,
+                      slo_ttft_p99_ms=600000.0, decide_interval_s=0.5,
+                      backoff_base_s=0.5, backoff_max_s=2.0,
+                      backoff_jitter=0.0, max_actions_per_window=10,
+                      action_window_s=10.0))
+FLEET_WORKER = "ggrmcp_tpu_torch.serving.fleet"
+
+
+def _fleet_status(port: int) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/admin/fleet?action=status", data=b"",
+        method="POST")
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        return json.loads(resp.read())["fleet"]
+
+
+def _worker_pids(gateway: int) -> dict:
+    """Live children of the gateway process: pid -> command line."""
+    out = {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as fh:
+                stat = fh.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{name}/cmdline", "rb") as fh:
+                cmd = [a.decode() for a in fh.read().split(b"\0") if a]
+        except OSError:
+            continue
+        if int(stat[1]) == gateway and stat[0] != "Z":
+            out[int(name)] = cmd
+    return out
+
+
+def _alive(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            return fh.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def _card_memory(torch) -> dict:
+    """The card's free and used GB (every process's), what this process's
+    allocator holds, and the compute processes nvidia-smi lists."""
+    free, total = torch.cuda.mem_get_info()
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    return dict(free_gb=free / 1e9, used_gb=(total - free) / 1e9,
+                reserved_gb=torch.cuda.memory_reserved() / 1e9,
+                apps=[a.strip() for a in apps.splitlines() if a.strip()])
+
+
+class _UsedSampler:
+    """The card's used GB every 0.1 s while it runs (a heal's low point:
+    the dead worker's memory back before the new one takes its own)."""
+
+    def __init__(self, torch):
+        self.torch, self.samples, self._task = torch, [], None
+
+    async def _run(self):
+        t = time.perf_counter()
+        while True:
+            free, total = self.torch.cuda.mem_get_info()
+            self.samples.append((time.perf_counter() - t,
+                                 (total - free) / 1e9))
+            await asyncio.sleep(0.1)
+
+    def __enter__(self):
+        self._task = asyncio.ensure_future(self._run())
+        return self
+
+    def __exit__(self, *exc):
+        self._task.cancel()
+
+    def low(self) -> dict:
+        s, gb = min(self.samples, key=lambda x: x[1])
+        return dict(min_used_gb=gb, at_s=s, samples=len(self.samples))
+
+
+class _ProbeSampler:
+    """The supervisor's health probe of a replica, a ServerReflection
+    ListServices round trip (what the gateway's backend health check
+    sends), every 0.1 s on a channel of its own while it runs: the
+    round trips' milliseconds by `label` (None for a failed probe), so
+    that a probe the supervisor would miss (over its 2 s timeout) is
+    seen beside what the worker was doing."""
+
+    def __init__(self, target: str):
+        self.target, self.label, self.ms, self._task = target, "", {}, None
+
+    async def _run(self):
+        import grpc.aio
+
+        from ggrmcp_tpu_torch.rpc.pb import reflection_pb2
+
+        async with grpc.aio.insecure_channel(self.target) as ch:
+            stream = ch.stream_stream(
+                "/grpc.reflection.v1alpha.ServerReflection/"
+                "ServerReflectionInfo",
+                request_serializer=reflection_pb2.ServerReflectionRequest
+                .SerializeToString,
+                response_deserializer=reflection_pb2.ServerReflectionResponse
+                .FromString)
+            while True:
+                t = time.perf_counter()
+                call = stream(timeout=30)
+                try:
+                    await call.write(reflection_pb2.ServerReflectionRequest(
+                        list_services=""))
+                    await call.done_writing()
+                    await call.read()
+                    ms = (time.perf_counter() - t) * 1e3
+                except grpc.aio.AioRpcError:
+                    ms = None
+                finally:
+                    call.cancel()
+                self.ms.setdefault(self.label, []).append(ms)
+                await asyncio.sleep(0.1)
+
+    def __enter__(self):
+        self._task = asyncio.ensure_future(self._run())
+        return self
+
+    def __exit__(self, *exc):
+        self._task.cancel()
+
+    def summary(self) -> dict:
+        out = {}
+        for label, ms in self.ms.items():
+            ok = sorted(m for m in ms if m is not None)
+            out[label] = dict(probes=len(ms), failed=len(ms) - len(ok),
+                              p50_ms=_median(ok) if ok else None,
+                              max_ms=ok[-1] if ok else None,
+                              over_2s=sum(m > 2000.0 for m in ok))
+        return out
+
+
+async def _serving_replica(port: int, timeout: float, what: str,
+                           restarts: int = 0, not_target: str = "") -> dict:
+    """/admin/fleet's status once a replica other than `not_target`
+    serves and the supervisor has counted `restarts` restarts."""
+    def ready():
+        try:
+            st = _fleet_status(port)
+        except OSError:
+            return None
+        reps = [r for r in st["replicas"]
+                if r["state"] == "serving" and r["target"] != not_target]
+        return st if reps and st["counters"]["restarts"] >= restarts else None
+    t = time.perf_counter()
+    while True:
+        st = await asyncio.to_thread(ready)
+        if st is not None:
+            return st
+        check(time.perf_counter() - t < timeout, what)
+        await asyncio.sleep(0.2)
+
+
+async def _replica_profile(target: str, texts, new: int, ms: int) -> dict:
+    """B1 in the worker: a `torch.profiler` capture of the worker (the
+    DebugService Profile RPC) while it answers `texts` in turn until the
+    capture ends (the profiler's start-up takes part of the window); the
+    trace's B1 kernels counted by name."""
+    import grpc.aio
+
+    from ggrmcp_tpu_torch.rpc.pb import serving_pb2
+
+    async with grpc.aio.insecure_channel(target) as ch:
+        profile = ch.unary_unary(
+            "/ggrmcp.tpu.DebugService/Profile",
+            request_serializer=serving_pb2.ProfileRequest.SerializeToString,
+            response_deserializer=serving_pb2.ProfileResponse.FromString)
+        task = asyncio.ensure_future(profile(serving_pb2.ProfileRequest(
+            duration_ms=ms, output_dir="p21-worker"), timeout=120))
+        client = _ReuseClient(ch)
+        calls = 0
+        while not task.done():
+            await client.generate(texts[calls % len(texts)], new)
+            calls += 1
+            await asyncio.sleep(0.2)
+        resp = await task
+        stats = await client.stats()
+    with open(resp.output_path) as fh:
+        events = [e for e in json.load(fh).get("traceEvents", [])
+                  if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    b1 = [e for e in events if "flash_fwd" in e.get("name", "")]
+    return dict(trace=resp.output_path, calls=calls, kernels=len(events),
+                b1_launches=len(b1), b1_ms=sum(e["dur"] for e in b1) / 1e3,
+                compile_count=stats.compile_count,
+                compile_cache_hits=stats.compile_cache_hits,
+                compile_cache_misses=stats.compile_cache_misses,
+                compile_post_warmup=stats.compile_post_warmup)
+
+
+async def _tiny_crash(spec, dev) -> dict:
+    """(c) A standalone worker of `tiny` on `dev` armed with
+    replica_crash:every=N: the Nth Generate ends the process with 86."""
+    import grpc.aio
+
+    from ggrmcp_tpu_torch.core.config import ServingConfig
+    from ggrmcp_tpu_torch.serving import fleet
+
+    env = {**os.environ, **fleet.handshake_environ(
+        ServingConfig(model=spec["tiny"]), str(dev), SEED),
+        "GGRMCP_FAILPOINTS": f"replica_crash:every={spec['tiny_crash_every']}"}
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", FLEET_WORKER, env=env, cwd=here,
+        stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.DEVNULL)
+    try:
+        line = (await asyncio.wait_for(proc.stdout.readline(), 300)).decode()
+        check(line.startswith("TARGET="), f"(c) worker said {line!r}")
+        outcomes = []
+        async with grpc.aio.insecure_channel(
+                line.strip().removeprefix("TARGET=")) as ch:
+            client = _ReuseClient(ch)
+            for i in range(spec["tiny_crash_every"]):
+                try:
+                    outcomes.append(len((await client.generate(
+                        f"crash {i}", 4))[0]))
+                except grpc.aio.AioRpcError as exc:
+                    outcomes.append(exc.code().name)
+        code = await asyncio.wait_for(proc.wait(), 60)
+    finally:
+        if proc.returncode is None:
+            proc.kill()
+            await proc.wait()
+    check(code == 86 and isinstance(outcomes[-1], str),
+          f"(c) the armed worker exited {code} after {outcomes}")
+    return dict(exit_code=code, outcomes=outcomes)
+
+
+async def fleet_phase(torch, tatt, dev, spec=None) -> dict:
+    """Phase 21: (a) the co-launch with `fleet.enabled`: the unchanged
+    gateway child spawns the port's worker (its command line), lists it
+    in /admin/fleet, each prompt's greedy tokens alone from the replica
+    and from the co-launched sidecar are equal (one seed), a burst of
+    tools/calls over both with the worker's health probes timed, B1 in
+    the worker (a profile of it, taken after (c), its compile watcher);
+    (b) the worker SIGKILLed mid-burst: every call typed or complete, the
+    supervisor's process-exit restart, seconds to the new replica's
+    first good call, card memory before, during and after; (c) the
+    workers armed with replica_crash: one dies at its Nth call and is
+    healed, and an armed worker's exit code is 86; (d) after stop() no
+    worker is left and the card's memory has returned."""
+    import signal
+
+    import grpc.aio
+
+    from ggrmcp_tpu_torch.core.config import config_from_dict
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.serving import launcher
+    from ggrmcp_tpu_torch.utils import failpoints  # noqa: F401 — armed now
+
+    spec = spec or P21
+    t_phase = time.perf_counter()
+    res: dict = {}
+    texts = [_prompt_text(n, 2100 + i) for i, n in enumerate(spec["prompts"])]
+    cfg = config_from_dict({
+        "serving": {"model": spec["model"],
+                    "batching": {"max_batch_size": spec["slots"]}},
+        "fleet": spec["fleet"],
+        "server": {"rate_limit": {"enabled": False}},
+    })
+    port = _free_port()
+    co = launcher.Colaunch(cfg, ["--http-port", str(port)], device=dev,
+                           seed=SEED)
+    res["memory_before"] = _card_memory(torch)
+    # Every worker the child spawns inherits the failpoint (the sidecar
+    # of this process armed its registry when it was imported, unarmed).
+    os.environ["GGRMCP_FAILPOINTS"] = (
+        f"replica_crash:every={spec['crash_every']}")
+    t = time.perf_counter()
+    try:
+        await co.start()
+    finally:
+        del os.environ["GGRMCP_FAILPOINTS"]
+    pids: set = set()
+    try:
+        await _until(lambda: _healthy(port), 300, "(a) gateway never healthy")
+        status = await _serving_replica(port, 600, "(a) no replica served")
+        res["boot_s"] = time.perf_counter() - t
+        workers = _worker_pids(co.child.pid)
+        pids |= set(workers)
+        check(len(workers) == 1 and all(
+            cmd[1:] == ["-m", FLEET_WORKER] for cmd in workers.values()),
+            f"(a) the gateway's children {workers}")
+        target = status["replicas"][0]["target"]
+        res["memory_serving"] = _card_memory(torch)
+        log(f"  (a) boot {res['boot_s']:.1f} s, worker {workers}, "
+            f"{json.dumps(res['memory_serving'])}")
+        # The supervisor's flap edges after each step, and the worker's
+        # probe round trips during it.
+        edges = {"boot": status["replicas"][0]["flap_edges"]}
+
+        async def edges_after(step: str) -> None:
+            st = await asyncio.to_thread(_fleet_status, port)
+            edges[step] = st["replicas"][0]["flap_edges"]
+        probes = _ProbeSampler(target)
+        probes.__enter__()
+        probes.label = "alone"
+
+        async def alone(tgt):
+            async with grpc.aio.insecure_channel(tgt) as ch:
+                client = _ReuseClient(ch)
+                return [(await client.generate(x, spec["new"]))[0]
+                        for x in texts]
+        want = await alone(co.target)
+        got = await alone(target)
+        check(got == want, "(a) the replica's greedy tokens differ from the "
+              "co-launched sidecar's on the same seed")
+        res["alone_identical"] = len(texts)
+        await edges_after("alone")
+
+        burst = [texts[i % len(texts)] for i in range(spec["burst"])]
+        tatt.flash_attention.launches = 0
+        probes.label = "burst"
+        t = time.perf_counter()
+        out = await asyncio.gather(*(
+            asyncio.to_thread(_mcp_generate, port, x, spec["new"])
+            for x in burst))
+        await edges_after("burst")
+        res["burst"] = dict(
+            calls=len(burst), wall_s=time.perf_counter() - t,
+            identical=sum(ids == want[texts.index(x)]
+                          for (ids, _), x in zip(out, burst)),
+            latency_p50_ms=_median(ms for _, ms in out),
+            sidecar_launches=tatt.flash_attention.launches)
+        check(all(len(ids) == spec["new"] for ids, _ in out),
+              f"(a) burst completions {[len(i) for i, _ in out]}")
+        log(f"  (a) {json.dumps(res)}")
+
+        # (b) SIGKILL the worker while a burst is in flight.
+        probes.label = "before_kill"
+        await asyncio.sleep(1.0)
+        probes.__exit__()
+        before = await asyncio.to_thread(_fleet_status, port)
+        res["probes"] = probes.summary()
+        res["flap_edges"] = edges
+        log(f"  (a) the worker's probes {json.dumps(res['probes'])}, the "
+            f"supervisor's flap edges after each step {json.dumps(edges)}")
+        # A worker busy with the burst answers every probe within the
+        # supervisor's timeout.
+        check(all(p["failed"] == 0 and p["max_ms"] < spec["probe_timeout_ms"]
+                  for p in res["probes"].values()),
+              f"(a) the worker's probes {res['probes']}")
+        (victim,) = _worker_pids(co.child.pid)
+        (target,) = [r["target"] for r in before["replicas"]]
+        calls = [asyncio.ensure_future(asyncio.to_thread(
+            _mcp, port, "tools/call", {
+                "name": GENERATE_TOOL, "arguments": {
+                    "prompt": x, "maxNewTokens": spec["new"],
+                    "returnTokens": True}}))
+            for x in burst]
+        await asyncio.sleep(0.3)
+        t = time.perf_counter()
+        with _UsedSampler(torch) as sampler:
+            os.kill(victim, signal.SIGKILL)
+            healed = await _serving_replica(
+                port, 600, "(b) never restarted",
+                before["counters"]["restarts"] + 1, target)
+        during = sampler.low()
+        # The adapter kills, then spawns: the dead worker's memory is back
+        # before its replacement allocates (a replica holds 16+ GB).
+        check(during["min_used_gb"]
+              <= res["memory_serving"]["used_gb"] - 10.0,
+              f"(b) the card never dropped below {during} during the heal "
+              f"from {res['memory_serving']['used_gb']} GB serving")
+        (new,) = [r["target"] for r in healed["replicas"]]
+        first = None
+        while first is None:
+            try:
+                async with grpc.aio.insecure_channel(new) as ch:
+                    first = (await _ReuseClient(ch).generate(
+                        texts[0], spec["new"]))[0]
+            except grpc.aio.AioRpcError:
+                check(time.perf_counter() - t < 600, "(b) no good call")
+                await asyncio.sleep(0.2)
+        first_good_s = time.perf_counter() - t
+        check(first == want[0], "(b) the new replica's tokens differ")
+        results = await asyncio.gather(*calls, return_exceptions=True)
+        typed = complete = identical = 0
+        for x, r in zip(burst, results):
+            if isinstance(r, BaseException):
+                check(isinstance(r, (OSError, SmokeError)),
+                      f"(b) untyped loss {r!r}")
+                typed += 1
+                continue
+            result, _ = r
+            if result.get("isError"):
+                typed += 1
+                continue
+            ids = json.loads(result["content"][0]["text"])["tokenIds"]
+            check(len(ids) == spec["new"], f"(b) a short completion {ids}")
+            complete += 1
+            identical += ids == want[texts.index(x)]
+        check(typed + complete == len(burst), "(b) a call was lost")
+        restarts = [a for a in healed["actions"]
+                    if a["kind"] == "restart" and a["target"] == target]
+        check(restarts and "process exited" in restarts[0]["reason"],
+              f"(b) action log {healed['actions']}")
+        healed_workers = _worker_pids(co.child.pid)
+        pids |= set(healed_workers)
+        check(victim not in healed_workers and len(healed_workers) == 1,
+              f"(b) children after the heal {healed_workers}")
+        res["kill"] = dict(
+            flap_edges_before=before["replicas"][0]["flap_edges"],
+            typed=typed, complete=complete, identical=identical,
+            restart_action=restarts[0], first_good_call_s=first_good_s,
+            memory_during=during, memory_after=_card_memory(torch))
+        log(f"  (b) {json.dumps(res['kill'])}")
+
+        # (c) The armed failpoint: the new worker dies at its Nth call.
+        (doomed,) = healed_workers
+        restarts_before = (await asyncio.to_thread(
+            _fleet_status, port))["counters"]["restarts"]
+        t = time.perf_counter()
+        # Calls straight to the worker until one fails: its count started
+        # at its spawn, and (b)'s first good call was one of them.
+        outcomes = []
+        async with grpc.aio.insecure_channel(new) as ch:
+            client = _ReuseClient(ch)
+            for i in range(spec["crash_every"]):
+                try:
+                    outcomes.append(len((await client.generate(
+                        f"crash {i}", 2))[0]))
+                except grpc.aio.AioRpcError as exc:
+                    outcomes.append(exc.code().name)
+                    break
+        check(isinstance(outcomes[-1], str)
+              and all(isinstance(o, int) for o in outcomes[:-1]),
+              f"(c) the armed worker's calls {outcomes}")
+        await _until(lambda: not _alive(doomed), 60, "(c) still alive")
+        healed2 = await _serving_replica(port, 600, "(c) never healed",
+                                         restarts_before + 1, new)
+        res["crash"] = dict(
+            calls=outcomes, heal_s=time.perf_counter() - t,
+            restarts=healed2["counters"]["restarts"])
+        pids |= set(_worker_pids(co.child.pid))
+        async with grpc.aio.insecure_channel(
+                healed2["replicas"][0]["target"]) as ch:
+            check((await _ReuseClient(ch).generate(
+                texts[0], spec["new"]))[0] == want[0],
+                "(c) the healed replica's tokens differ")
+        res["crash"]["standalone"] = await _tiny_crash(spec, dev)
+        log(f"  (c) {json.dumps(res['crash'])}")
+        res["status"] = {k: healed2[k] for k in ("counters", "replicas")}
+
+        # (a, last) B1 in the worker: a profile of the healed replica,
+        # its probes and the flap edges the capture's stop costs.
+        target = healed2["replicas"][0]["target"]
+        with _ProbeSampler(target) as probes:
+            probes.label = "profile"
+            res["profile"] = await _replica_profile(
+                target, texts[1:3], 4, spec["profile_ms"])
+            probes.label = "after"
+            await asyncio.sleep(1.0)
+        st = await asyncio.to_thread(_fleet_status, port)
+        res["profile"].update(probes=probes.summary(), flap_edges=[
+            r["flap_edges"] for r in st["replicas"] if r["target"] == target])
+        log(f"  (a) the worker's profile {json.dumps(res['profile'])}")
+        layers = llama_mod.CONFIGS[spec["model"]].num_layers
+        check(res["profile"]["b1_launches"] >= layers
+              and res["profile"]["compile_count"] >= 1
+              and res["profile"]["compile_post_warmup"] == 0,
+              f"(a) B1 in the worker: {res['profile']}")
+    finally:
+        await co.stop()
+    _free(torch, dev)
+    left = [p for p in pids if _alive(p)]
+    res["memory_stopped"] = _card_memory(torch)
+    check(not left, f"(d) workers left after stop(): {left}")
+    # Back to before, but for what this process still holds: its
+    # allocator's blocks and its context's growth from the first GEMMs
+    # and kernels it loaded (under 3 GB; a worker held 16+ GB).
+    before, after = res["memory_before"], res["memory_stopped"]
+    grown = after["used_gb"] - before["used_gb"]
+    check(len(after["apps"]) <= len(before["apps"])
+          and grown <= after["reserved_gb"] - before["reserved_gb"] + 3.0,
+          f"(d) the card's memory did not return: before {before}, after "
+          f"{after}")
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"  (d) no worker left; {json.dumps(res['memory_stopped'])}")
+    return res
+
+
+# -- phase 22: processes on the one card ---------------------------------------
+
+# (b) B1 at one process's block of the llama-1b train step: [4, 1023]
+# at llama-1b's heads, D 64, bf16, causal.
+P22_CASES = [
+    ("dist_4x1023", 4, 1023, 1023, 32, 8, 64, True, 0, 1023, None,
+     "bfloat16", "llama-1b train step [8, 1024] over two processes: one "
+     "process's [4, 1023] block (H 32, KVH 8, D 64)"),
+]
+P22 = dict(tiny="tiny-llama", tiny_steps=3, tiny_batch=4, tiny_seq=65,
+           model="llama-1b", steps=10, batch=8, seq=1024, processes=2,
+           fault_steps=3)
+# (a) tiny-llama float32, two processes against one: the CPU test's
+# tolerances (tests/test_torch_distributed.py).
+DIST_TINY_RTOL = 1e-4
+# (b) llama-1b bf16: the two-process losses against the single-process
+# data=2 run's, held to twice a same-run witness (that run through the
+# plain attention against it through B1), phase 19's rule.
+DIST_WITNESS = 2.0
+
+
+def _dist_process(spec_json: str) -> int:
+    """One process of phase 22 (`chip_smoke.py --dist-process SPEC`): joins
+    the group through GGRMCP_COORDINATOR / _NUM_PROCESSES / _PROCESS_ID,
+    sums a range over the data axis across processes, takes the AdamW
+    steps over the global mesh on its rows, and writes what it measured
+    to SPEC's `out`."""
+    import numpy as np
+    import torch
+
+    from ggrmcp_tpu_torch.core.config import MeshConfig
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.models import trainer, training
+    from ggrmcp_tpu_torch.ops import attention as tatt
+    from ggrmcp_tpu_torch.parallel import collectives, distributed
+
+    spec = json.loads(spec_json)
+    check(distributed.initialize(device=spec["device"]), "no process group")
+    dist = torch.distributed
+    rank = dist.get_rank()
+    dev = distributed.local_device()
+    mesh = distributed.global_mesh(MeshConfig(data=0, tensor=1))
+    parts = [torch.tensor(float(i), device=mesh.devices[i])
+             for i in mesh.local_indices()]
+    total = collectives.process_sum(
+        collectives.all_reduce_sum(parts)[0]).item()
+    cfg = llama_mod.CONFIGS[spec["model"]]
+    state = training.make_train_state(
+        llama_mod.init_params(cfg, dev, spec["seed"]), cfg, mesh=mesh)
+    batches = np.load(spec["batches"])
+    cuda = dev.type == "cuda"
+    # The gradients' trip over the group, timed on its own: packing,
+    # staging through host memory (gloo) and the all-reduce.
+    # Of it, the all-reduces alone (gloo's on host buffers, synchronous).
+    reduce_ms, gloo_ms, reduced = [], [], sum(
+        t.numel() for t in training.stored_tensors(state.params))
+    reduce_grads, all_reduce = training.all_reduce_grads, dist.all_reduce
+
+    def timed_all_reduce(t, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = all_reduce(t, *args, **kwargs)
+        gloo_ms[-1] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def timed_reduce(tensors):
+        _sync(torch, dev)
+        gloo_ms.append(0.0)
+        dist.all_reduce = timed_all_reduce
+        t0 = time.perf_counter()
+        try:
+            reduce_grads(tensors)
+            _sync(torch, dev)
+        finally:
+            dist.all_reduce = all_reduce
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    training.all_reduce_grads = timed_reduce
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    tatt.flash_attention.launches = 0
+    losses, ms = [], []
+    for batch in batches:
+        tokens = torch.from_numpy(batch).to(dev)
+        _sync(torch, dev)
+        t = time.perf_counter()
+        state, loss = training.train_step(state, tokens, cfg)
+        losses.append(loss.item())
+        ms.append((time.perf_counter() - t) * 1e3)
+    out = dict(rank=rank, backend=dist.get_backend(), device=str(dev),
+               total=total, sizes=list(mesh.sizes), owners=list(mesh.owners),
+               losses=losses, step_ms=ms, reduce_ms=reduce_ms,
+               all_reduce_ms=gloo_ms,
+               reduce_gb=4 * reduced / 1e9,
+               launches=tatt.flash_attention.launches,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda
+               else None)
+    if spec.get("params"):
+        flat = trainer.state_tensors(state, cfg)[0]
+        np.savez(f"{spec['out']}{rank}.npz",
+                 **{k: v.float().cpu().numpy() for k, v in flat.items()})
+    if spec.get("fault_steps"):
+        # The planted fault: the first steps again from the same tree
+        # with the gradients' reduce skipped, each process training on
+        # its own rows; the phase holds its losses outside the bound.
+        del state
+        _free(torch, dev)
+        state = training.make_train_state(
+            llama_mod.init_params(cfg, dev, spec["seed"]), cfg, mesh=mesh)
+        training.all_reduce_grads = lambda tensors: None
+        out["fault_losses"] = []
+        for batch in batches[:spec["fault_steps"]]:
+            state, loss = training.train_step(
+                state, torch.from_numpy(batch).to(dev), cfg)
+            out["fault_losses"].append(loss.item())
+    with open(f"{spec['out']}{rank}.json", "w") as fh:
+        json.dump(out, fh)
+    dist.destroy_process_group()
+    return 0
+
+
+def _dist_run(spec: dict, tmp: str, timeout: float) -> list:
+    """Two processes of `_dist_process` on SPEC's device over a local
+    coordinator; each one's readings."""
+    here = os.path.abspath(__file__)
+    env = {**os.environ, "GGRMCP_COORDINATOR": f"127.0.0.1:{_free_port()}",
+           "GGRMCP_NUM_PROCESSES": str(P22["processes"])}
+    logs = [open(os.path.join(tmp, f"p{r}.log"), "w+b")
+            for r in range(P22["processes"])]
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--dist-process", json.dumps(spec)],
+        env={**env, "GGRMCP_PROCESS_ID": str(r)}, cwd=os.path.dirname(here),
+        stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(P22["processes"])]
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, fh) in enumerate(zip(procs, logs)):
+        fh.seek(0)
+        tail = fh.read().decode(errors="replace")[-3000:]
+        fh.close()
+        check(p.returncode == 0, f"process {r} exited {p.returncode}: "
+              f"{tail}")
+    out = []
+    for r in range(P22["processes"]):
+        with open(f"{spec['out']}{r}.json") as fh:
+            out.append(json.load(fh))
+    return out
+
+
+def _single_steps(torch, tatt, dev, cfg, seed, batches, loss_fn=None):
+    """The single-process data=2 run on the card from the same seeded
+    tree: losses, step ms, B1 launches, peak memory, the final state."""
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.models import training
+
+    state = training.make_train_state(
+        llama_mod.init_params(cfg, dev, seed), cfg,
+        mesh=_mesh_of(dict(data=2), dev))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tatt.flash_attention.launches = 0
+    losses, ms = [], []
+    for batch in batches:
+        tokens = torch.from_numpy(batch).to(dev)
+        _sync(torch, dev)
+        t = time.perf_counter()
+        state, loss = training.train_step(state, tokens, cfg, loss_fn)
+        losses.append(loss.item())
+        ms.append((time.perf_counter() - t) * 1e3)
+    return dict(losses=losses, step_ms=ms,
+                launches=tatt.flash_attention.launches,
+                peak_gb=(torch.cuda.max_memory_allocated() / 1e9
+                         if dev.type == "cuda" else None)), state
+
+
+def _p50(ms: list) -> float:
+    steady = sorted(ms[2:] or ms)
+    return steady[(len(steady) - 1) // 2]
+
+
+def dist_phase(torch, tatt, dev, spec=None) -> dict:
+    """Phase 22: (a) two processes of tiny-llama (float32) on cuda:0
+    join by `initialize`: their cross-process sum is exact, three AdamW
+    steps at global data=2 equal the single-process data=2 steps on the
+    card (losses and final params); (b) llama-1b at full width, `steps`
+    AdamW steps of a global [batch, seq] split over the two processes
+    against the single-process data=2 run from one seeded tree, held to
+    twice a same-run witness, and a planted fault (the first steps with
+    the gradients' reduce skipped) outside that bound; B1 at one
+    process's block shape."""
+    import tempfile
+
+    import numpy as np
+
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.models import trainer, training
+
+    spec = spec or P22
+    t_phase = time.perf_counter()
+    res: dict = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here) as tmp:
+        # (a) tiny-llama float32.
+        cfg = llama_mod.CONFIGS[spec["tiny"]]
+        rng = np.random.default_rng(SEED + 22)
+        batches = rng.integers(0, cfg.vocab_size, (
+            spec["tiny_steps"], spec["tiny_batch"], spec["tiny_seq"]))
+        path = os.path.join(tmp, "tiny.npy")
+        np.save(path, batches)
+        one, state = _single_steps(torch, tatt, dev, cfg, SEED + 22, batches)
+        want = {k: v.float().cpu().numpy()
+                for k, v in trainer.state_tensors(state, cfg)[0].items()}
+        del state
+        _free(torch, dev)
+        t = time.perf_counter()
+        procs = _dist_run(dict(model=spec["tiny"], seed=SEED + 22,
+                               device=str(dev), batches=path,
+                               out=os.path.join(tmp, "tiny"), params=True),
+                          tmp, 300)
+        tiny = dict(seconds=time.perf_counter() - t,
+                    backend=[p["backend"] for p in procs],
+                    totals=[p["total"] for p in procs], single=one,
+                    processes=procs)
+        check(all(p["total"] == 1.0 for p in procs),
+              f"(a) cross-process sums {tiny['totals']} (want 0 + 1)")
+        check(all(p["backend"] == "gloo" for p in procs),
+              f"(a) backends {tiny['backend']} on a shared card")
+        worst = 0.0
+        for p in procs:
+            check(dev.type != "cuda"
+                  or p["launches"] == spec["tiny_steps"] * cfg.num_layers,
+                  f"(a) process {p['rank']}: {p['launches']} B1 launches")
+            np.testing.assert_allclose(p["losses"], one["losses"],
+                                       rtol=DIST_TINY_RTOL)
+            with np.load(os.path.join(tmp, f"tiny{p['rank']}.npz")) as got:
+                for name, w in want.items():
+                    rel = float(np.abs(got[name] - w).max()
+                                / np.abs(w).max())
+                    worst = max(worst, rel)
+        check(worst <= DIST_TINY_RTOL, f"(a) final params {worst} of the "
+              f"largest magnitude from the single process's")
+        tiny["params_max_rel"] = worst
+        res["tiny"] = tiny
+        log(f"  (a) {json.dumps(tiny)}")
+
+        # (b) llama-1b at full width.
+        case = kernel_cases(torch, tatt, dev, P22_CASES)[0]
+        res["kernel"] = case
+        cfg = llama_mod.CONFIGS[spec["model"]]
+        rng = np.random.default_rng(SEED + 23)
+        batches = rng.integers(0, cfg.vocab_size, (
+            spec["steps"], spec["batch"], spec["seq"]))
+        path = os.path.join(tmp, "llama.npy")
+        np.save(path, batches)
+
+        def plain_loss(params, cfg_, tokens):
+            logits, _ = llama_mod.forward(params, cfg_, tokens[:, :-1],
+                                          use_flash=False)
+            return training.next_token_xent(logits, tokens[:, 1:])
+
+        single, state = _single_steps(torch, tatt, dev, cfg, SEED + 23,
+                                      batches)
+        del state
+        _free(torch, dev)
+        plain, state = _single_steps(torch, tatt, dev, cfg, SEED + 23,
+                                     batches, plain_loss)
+        del state
+        _free(torch, dev)
+        check(plain["launches"] == 0, "(b) the witness run launched B1")
+        t = time.perf_counter()
+        procs = _dist_run(dict(model=spec["model"], seed=SEED + 23,
+                               device=str(dev), batches=path,
+                               out=os.path.join(tmp, "llama"),
+                               fault_steps=spec["fault_steps"]), tmp, 600)
+        seconds = time.perf_counter() - t
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    witness = rel(plain["losses"], single["losses"])
+    bound = DIST_WITNESS * witness
+    got = rel(procs[0]["losses"], single["losses"])
+    fault = rel(procs[0]["fault_losses"], single["losses"])
+    res["llama"] = dict(
+        seconds=seconds, backend=[p["backend"] for p in procs],
+        losses=procs[0]["losses"], single_losses=single["losses"],
+        plain_losses=plain["losses"], loss_max_rel=got,
+        witness_max_rel=witness, bound=bound,
+        fault_losses=procs[0]["fault_losses"], fault_max_rel=fault,
+        step_ms_p50=_p50(procs[0]["step_ms"]),
+        step_ms_p50_by_process=[_p50(p["step_ms"]) for p in procs],
+        reduce_ms_p50=[_p50(p["reduce_ms"]) for p in procs],
+        all_reduce_ms_p50=[_p50(p["all_reduce_ms"]) for p in procs],
+        reduce_gb=procs[0]["reduce_gb"],
+        single_step_ms_p50=_p50(single["step_ms"]),
+        peak_gb=[p["peak_gb"] for p in procs],
+        single_peak_gb=single["peak_gb"],
+        launches_per_step=[p["launches"] / spec["steps"] for p in procs],
+        single_launches_per_step=single["launches"] / spec["steps"])
+    log(f"  (b) {json.dumps(res['llama'])}")
+    check(all(p["backend"] == "gloo" for p in procs),
+          f"(b) backends {res['llama']['backend']}")
+    check(all(p["losses"] == procs[0]["losses"] for p in procs),
+          "(b) the processes report different losses")
+    check(all(math.isfinite(x) for x in procs[0]["losses"]),
+          f"(b) non-finite losses {procs[0]['losses']}")
+    check(dev.type != "cuda" or all(
+        p["launches"] == spec["steps"] * cfg.num_layers for p in procs),
+          f"(b) B1 launches {[p['launches'] for p in procs]} (want one a "
+          f"layer a step in each process)")
+    check(got <= bound, f"(b) two-process losses {procs[0]['losses']} vs "
+          f"one process {single['losses']}: rel {got} > {DIST_WITNESS} x "
+          f"the witness's {witness}")
+    check(fault > bound, f"(b) the planted fault (no gradient reduce) "
+          f"stays within the bound: rel {fault} <= {bound}")
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def _free(torch, dev) -> None:
     gc.collect()
     if dev.type == "cuda":
@@ -6768,6 +7630,9 @@ def card_line() -> str:
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--dist-process"]:
+        # One process of phase 22, on the device its spec names.
+        return _dist_process(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -6798,69 +7663,69 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         card = card_line()
-        log(f"[1/20] card: {card}; torch {torch.__version__}, CUDA "
+        log(f"[1/22] card: {card}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
         t = time.perf_counter()
         _build.load("flash_attention")
-        log(f"[2/20] build: flash_attention.cu in "
+        log(f"[2/22] build: flash_attention.cu in "
             f"{time.perf_counter() - t:.1f} s")
         ptxas_report(_build.build_log.get("flash_attention", ""))
 
         if run(3):
-            log(f"[3/20] kernel vs plain (|err| <= atol + rtol |plain|: "
+            log(f"[3/22] kernel vs plain (|err| <= atol + rtol |plain|: "
                 f"{TOL})")
             cases = kernel_cases(torch, tatt, dev)
 
         if run(4):
-            log("[4/20] reference: tiny-llama on the card vs the CPU")
+            log("[4/22] reference: tiny-llama on the card vs the CPU")
             ref = tiny_reference(torch, dev)
             log(f"  {ref}")
 
         if run(5):
-            log(f"[5/20] serve: {MODEL} sidecar, default batching")
+            log(f"[5/22] serve: {MODEL} sidecar, default batching")
             serve = asyncio.run(serve_phase(torch, tatt, dev))
             log(f"  {json.dumps(serve)}")
             tidy()
 
         if run(6):
-            log(f"[6/20] embed: {EMBED_MODEL} sidecar")
+            log(f"[6/22] embed: {EMBED_MODEL} sidecar")
             embed = asyncio.run(embed_phase(torch, tatt, dev))
             log(f"  {json.dumps(embed)}")
             tidy()
 
         if run(7):
-            log("[7/20] HF checkpoint: llama3-8b width, 2 layers, 2 files")
+            log("[7/22] HF checkpoint: llama3-8b width, 2 layers, 2 files")
             hf = asyncio.run(hf_phase(torch, tatt, dev))
             log(f"  {json.dumps(hf)}")
             tidy()
 
         if run(8):
-            log(f"[8/20] int8: {MODEL} weights and KV cache")
+            log(f"[8/22] int8: {MODEL} weights and KV cache")
             int8 = asyncio.run(int8_phase(torch, tatt, dev))
             tidy()
 
         if run(9):
-            log(f"[9/20] KV reuse: {MODEL} prefix pool, interleave, "
+            log(f"[9/22] KV reuse: {MODEL} prefix pool, interleave, "
                 f"paged KV")
             reuse = asyncio.run(kv_reuse_phase(torch, tatt, dev))
             tidy()
 
         if run(10):
-            log(f"[10/20] grammar: {MODEL} constrained burst, jump on / "
+            log(f"[10/22] grammar: {MODEL} constrained burst, jump on / "
                 f"off")
             grammar = asyncio.run(grammar_phase(torch, tatt, dev))
             log(f"  {json.dumps(_brief(grammar))}")
             tidy()
 
         if run(11):
-            log(f"[11/20] control plane: {MODEL} tick phases, Profile, "
+            log(f"[11/22] control plane: {MODEL} tick phases, Profile, "
                 f"GetMemory, scheduler, failpoints, deadlines")
             control = asyncio.run(control_phase(torch, tatt, dev))
             tidy()
 
         if run(12):
-            log(f"[12/20] paged plane and LoRA: {MODEL} host tier, "
+            log(f"[12/22] paged plane and LoRA: {MODEL} host tier, "
                 f"TransferKV with roles, adapter arena, preemption with "
                 f"the host tier")
             paged = asyncio.run(paged_lora_phase(torch, tatt, dev))
@@ -6868,14 +7733,14 @@ def main() -> int:
 
         if run(13):
             t = time.perf_counter()
-            log(f"[13/20] speculative decoding, ring KV, tiers: "
+            log(f"[13/22] speculative decoding, ring KV, tiers: "
                 f"{P13['model']} with the {P13['draft']} draft")
             p13 = asyncio.run(spec_ring_tier_phase(torch, tatt, dev))
             log(f"  phase 13: {time.perf_counter() - t:.1f} s, "
                 f"{p13['launches']} B1 launches")
 
         if run(14):
-            log(f"[14/20] sparse MoE: {P14['model']} cut to "
+            log(f"[14/22] sparse MoE: {P14['model']} cut to "
                 f"{P14['layers']} layers, bf16")
             p14 = asyncio.run(moe_phase(torch, tatt, dev))
             log(f"  phase 14: {p14['seconds']:.1f} s, {p14['launches']} B1 "
@@ -6883,7 +7748,7 @@ def main() -> int:
             _free(torch, dev)
 
         if run(15):
-            log(f"[15/20] tensor and expert parallelism: {P15['model']} "
+            log(f"[15/22] tensor and expert parallelism: {P15['model']} "
                 f"at tensor={P15['tensor']} on one card, the sharded "
                 f"loader, {P15['moe']} at expert=2 x tensor=2")
             p15 = asyncio.run(tp_phase(torch, tatt, dev))
@@ -6892,7 +7757,7 @@ def main() -> int:
             _free(torch, dev)
 
         if run(16):
-            log(f"[16/20] co-launch: {P16['model']} sidecar in this "
+            log(f"[16/22] co-launch: {P16['model']} sidecar in this "
                 f"process, the unchanged gateway a child, over a private "
                 f"socket")
             p16 = asyncio.run(colaunch_phase(torch, tatt, dev))
@@ -6901,7 +7766,7 @@ def main() -> int:
             _free(torch, dev)
 
         if run(17):
-            log(f"[17/20] sequence- and pipeline-parallel serving: "
+            log(f"[17/22] sequence- and pipeline-parallel serving: "
                 f"{P17['model']} at sequence={P17['sequence']} and "
                 f"stage={P17['stage']}, every shard on one card")
             p17 = asyncio.run(sp_pp_phase(torch, tatt, dev))
@@ -6913,7 +7778,7 @@ def main() -> int:
             _free(torch, dev)
 
         if run(18):
-            log(f"[18/20] training: {P18['model']} through the train CLI "
+            log(f"[18/22] training: {P18['model']} through the train CLI "
                 f"({P18['steps']} steps at [{P18['batch']}, "
                 f"{P18['seq_len']}], a resume to {P18['resume_to']}), B1 "
                 f"under autograd, {P18['tiny']} card = CPU at tensor and "
@@ -6926,7 +7791,7 @@ def main() -> int:
             _free(torch, dev)
 
         if run(19):
-            log(f"[19/20] the data axes and the routes on a mesh: "
+            log(f"[19/22] the data axes and the routes on a mesh: "
                 f"{P19['model']} at data={P19['data']}, {P19['embed']}, "
                 f"LoRA, TransferKV, the host tier, the ring and tiers at "
                 f"tensor=2, {P19['train']} training at data={P19['data']}")
@@ -6936,7 +7801,7 @@ def main() -> int:
             _free(torch, dev)
 
         if run(20):
-            log(f"[20/20] meshes the axes do not divide: {P20['model']} at "
+            log(f"[20/22] meshes the axes do not divide: {P20['model']} at "
                 f"tensor={P20['tensor']} (every block whole), "
                 f"{P20['embed']} at tensor={P20['embed_tensor']}, "
                 f"{P20['model']} training at tensor={P20['tensor']} and "
@@ -6945,6 +7810,26 @@ def main() -> int:
             log(f"  phase 20: {p20['seconds']:.1f} s, "
                 f"{p20['serve']['prefill_launches']} B1 launches in a "
                 f"tensor={P20['tensor']} prefill")
+            _free(torch, dev)
+
+        if run(21):
+            log(f"[21/22] the replica fleet: {P21['model']} workers of the "
+                f"port behind the unchanged supervisor, a SIGKILL and a "
+                f"failpoint healed")
+            p21 = asyncio.run(fleet_phase(torch, tatt, dev))
+            log(f"  phase 21: {p21['seconds']:.1f} s, "
+                f"{p21['profile']['b1_launches']} B1 launches in the "
+                f"worker's profile")
+            _free(torch, dev)
+
+        if run(22):
+            log(f"[22/22] processes on the one card: {P22['tiny']} and "
+                f"{P22['model']} data-parallel over "
+                f"{P22['processes']} processes")
+            p22 = dist_phase(torch, tatt, dev)
+            log(f"  phase 22: {p22['seconds']:.1f} s, "
+                f"{p22['llama']['launches_per_step']} B1 launches a step "
+                f"in each process")
             _free(torch, dev)
     except SmokeError as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
@@ -7016,6 +7901,19 @@ def main() -> int:
         whole_train_launches={k: r["launches"]
                               for k, r in p20["train"].items()},
         watch_launches=p20["watch"]["launches"],
+        fleet_worker_launches=p21["profile"]["b1_launches"],
+        fleet_sidecar_launches=p21["burst"]["sidecar_launches"],
+        dist_tiny_launches=[p["launches"]
+                            for p in p22["tiny"]["processes"]],
+        dist_launches_per_step=p22["llama"]["launches_per_step"],
+        dist_case=p22["kernel"]["name"], dist_ms=p22["kernel"]["ms"],
+        dist_ms_min=p22["kernel"]["ms_min"],
+        dist_ms_max=p22["kernel"]["ms_max"],
+        dist_plain_ms=p22["kernel"]["plain_ms"],
+        dist_library_ms=p22["kernel"]["library_ms"],
+        dist_bound_ms=p22["kernel"]["bound_ms"],
+        dist_bound_by=p22["kernel"]["bound_by"],
+        dist_max_abs_err=p22["kernel"]["max_abs_err"],
         dp_cases=[{k: c[k] for k in (
             "name", "ms", "ms_min", "ms_max", "plain_ms", "library_ms",
             "bound_ms", "bound_by", "max_abs_err")}
@@ -7026,7 +7924,8 @@ def main() -> int:
         shard_max_abs_err=p15["kernel"]["max_abs_err"],
         max_abs_err=max([c["max_abs_err"] for c in cases + p19["kernels"]]
                         + [p15["kernel"]["max_abs_err"],
-                           p18["attention"]["max_abs_err"]]),
+                           p18["attention"]["max_abs_err"],
+                           p22["kernel"]["max_abs_err"]]),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
         ms_min=head["ms_min"], ms_max=head["ms_max"],

@@ -33,7 +33,13 @@ serves int8 weights.
 PyYAML is installed: "serving" is parsed strictly (an unknown key
 raises), "fleet" gives the supervisor's restart backoff, and the
 gateway's sections (server, grpc, logging, mcp, metrics, session, tools,
-gateway, training) go to the gateway child verbatim. E.g. `{"serving":
+gateway, training, and fleet too) go to the gateway child verbatim.
+With `{"fleet": {"enabled": true, "min_replicas": 1, "max_replicas":
+2}}` (or GGRMCP_FLEET_ENABLED=1) `gateway` also runs the reference's
+replica fleet: the child's supervisor spawns, heals and scales workers
+of this port (`python -m ggrmcp_tpu_torch.serving.fleet`), each serving
+the same `serving` section, `--device`, `--seed` and serving flags as
+the co-launched sidecar, which stays a static backend beside them. E.g. `{"serving":
 {"model": "llama3-8b", "quantize": "int8", "kv_cache_dtype": "int8",
 "batching": {"max_batch_size": 16}, "mesh": {"tensor": 2}}, "grpc":
 {"reconnect": {"watchdog_interval_s": 2}}}`. GGRMCP_SERVING_* and
@@ -92,6 +98,11 @@ def build_parser() -> argparse.ArgumentParser:
     gw = sub.add_parser(
         SUBCOMMANDS[0],
         help="co-launch the MCP gateway over a supervised sidecar",
+        description="Serve the sidecar here and the MCP gateway as a "
+        "child over it. With fleet.enabled in --config (or "
+        "GGRMCP_FLEET_ENABLED=1) the gateway's fleet supervisor also "
+        "runs replica workers of this port; --device, --seed and the "
+        "serving flags reach the workers as they reach the sidecar.",
     )
     gw.add_argument("--grpc-host", default=None, help="external backend host")
     gw.add_argument("--grpc-port", type=int, default=None,

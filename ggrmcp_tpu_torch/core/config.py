@@ -7,8 +7,8 @@ value the port does not serve raises ValueError naming the field, never
 silently ignored. `load` reads a whole reference config file (JSON, or
 YAML with PyYAML) and the GGRMCP_SERVING_* / GGRMCP_FLEET_* /
 GGRMCP_TRAINING_* environment over it: `serving`, `training` and the
-fleet's restart knobs into these classes, the gateway's sections
-verbatim.
+fleet section into these classes, the gateway's sections (the fleet
+section among them) verbatim.
 """
 
 from __future__ import annotations
@@ -785,17 +785,33 @@ GATEWAY_SECTIONS = ("server", "grpc", "logging", "mcp", "metrics",
 
 @dataclass
 class FleetConfig:
-    """The reference's fleet restart knobs, with its checks: the
-    co-launch's supervisor (serving/launcher.py) restarts a dead sidecar
-    after min(backoff_max_s, backoff_base_s * 2^attempt) * (1 + jitter *
-    U) seconds, at most restart_max_attempts times. The rest of a fleet
-    section is the gateway's (its replica fleet, `enabled`, which the
-    port does not run: a true value raises)."""
+    """A reference config's fleet section (the reference's fields and
+    defaults). The co-launch's supervisor (serving/launcher.py) uses the
+    restart knobs, with the reference's checks: it restarts a dead
+    sidecar after min(backoff_max_s, backoff_base_s * 2^attempt) * (1 +
+    jitter * U) seconds, at most restart_max_attempts times. The rest
+    are the replica fleet's (`enabled`: the gateway child supervises
+    workers of this port, serving/fleet.py): they reach the child in its
+    config file, whose own FleetConfig checks them."""
 
+    enabled: bool = False
+    min_replicas: int = 1
+    max_replicas: int = 4
+    slo_ttft_p99_ms: float = 2000.0
+    shed_hold_s: float = 6.0
+    scale_up_sustain_s: float = 10.0
+    scale_down_sustain_s: float = 60.0
+    flap_threshold: int = 3
+    flap_window_s: float = 60.0
+    max_actions_per_window: int = 4
+    action_window_s: float = 60.0
     backoff_base_s: float = 1.0
     backoff_max_s: float = 60.0
     backoff_jitter: float = 0.2
     restart_max_attempts: int = 5
+    decide_interval_s: float = 2.0
+    drain_grace_s: float = 10.0
+    action_log: int = 256
 
     def __post_init__(self) -> None:
         if self.backoff_base_s <= 0 or self.backoff_max_s < self.backoff_base_s:
@@ -811,7 +827,7 @@ class FleetConfig:
 @dataclass
 class Config:
     """A whole reference config file as the port reads it: `serving`,
-    `training` and the fleet's restart knobs parsed, the gateway's
+    `training` and the fleet section parsed, the gateway's
     sections (training and the fleet section among them) kept verbatim
     in `sections`."""
 
@@ -844,11 +860,6 @@ def config_from_dict(data: dict) -> Config:
     fleet = data.get("fleet", {})
     if not isinstance(fleet, dict):
         raise ValueError(f"fleet must be an object, not {fleet!r}")
-    if fleet.get("enabled"):
-        raise ValueError(
-            "fleet.enabled: the replica fleet supervisor is not served "
-            "by the PyTorch port (the co-launch supervises its one sidecar)"
-        )
     knobs = {f.name for f in dataclasses.fields(FleetConfig)}
     return Config(
         serving=_from_dict(ServingConfig, data.get("serving", {}), "serving",
@@ -894,7 +905,7 @@ def load_serving_config(path: str) -> ServingConfig:
 # The environment layer (the reference's apply_env): GGRMCP_SERVING_*,
 # GGRMCP_FLEET_* and GGRMCP_TRAINING_* set the port's sections; every
 # other GGRMCP_ variable is the gateway's, and GGRMCP_FLEET_WORKER_* is
-# the reference fleet's spawn handshake, never a config path.
+# the fleet's spawn handshake (serving/fleet.py), never a config path.
 _ENV_SECTIONS = {"serving": ServingConfig, "fleet": FleetConfig,
                  "training": TrainingConfig}
 _ENV_SKIP_PREFIXES = ("GGRMCP_FLEET_WORKER_",)

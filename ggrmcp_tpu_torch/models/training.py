@@ -30,6 +30,18 @@
   tokens (a MoE aux term over the global batch's routing), so the
   blocks' gradients sum to the unsharded gradient. `fsdp` shards the
   batch as `data` does: the reference's specs shard no weight over it.
+- On a mesh over several processes (parallel/distributed.py
+  `global_mesh`), each process places the params on its own coordinates
+  (`Mesh.local()`) and runs the forward and backward of its rows of the
+  global batch (`mesh.process_rows`), its loss that of its rows' tokens
+  over the global batch's token count. Its gradients, tied within the
+  process first, are then summed over the processes
+  (`collectives.all_reduce_grads`), so every process's AdamW sees the
+  same gradients, those of one mean over the global batch's tokens, and
+  its replica stays the others'; the loss returned is the global one.
+  The sparse-MoE family's aux term is a function of the global batch's
+  routing, which no process sees: it is refused there, as is a stage
+  axis (the pipeline's own step reduces nothing across processes).
 - `TrainState` is mutable: `train_step` advances it in place.
 """
 
@@ -45,7 +57,12 @@ from ggrmcp_tpu_torch.models import family_module
 from ggrmcp_tpu_torch.models import llama as llama_mod
 from ggrmcp_tpu_torch.models import moe as moe_mod
 from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
-from ggrmcp_tpu_torch.parallel.collectives import Sharded, sum_tied_grads
+from ggrmcp_tpu_torch.parallel.collectives import (
+    Sharded,
+    all_reduce_grads,
+    process_sum,
+    sum_tied_grads,
+)
 
 Params = common.Params
 
@@ -53,12 +70,15 @@ Params = common.Params
 @dataclasses.dataclass
 class TrainState:
     """Params, their optimizer and the count of steps taken. `specs`:
-    the spec tree the params were sharded by (None on one device)."""
+    the spec tree the params were sharded by (None on one device);
+    `mesh`: the mesh the state was made for (None on one device), which
+    may span processes."""
 
     params: Params
     optimizer: torch.optim.Optimizer
     step: int = 0
     specs: Optional[Params] = None
+    mesh: Optional[mesh_mod.Mesh] = None
 
 
 def next_token_xent(logits: torch.Tensor,
@@ -142,7 +162,19 @@ def make_train_state(
     (when it has more than one coordinate), every stored tensor made a
     leaf that requires grad, AdamW built over them. `moments`: whole
     (exp_avg, exp_avg_sq) trees of the tree's shapes, with `step` the
-    count of updates they hold (a resumed or carried state)."""
+    count of updates they hold (a resumed or carried state). On a mesh
+    over processes, this process's coordinates only."""
+    whole_mesh = mesh
+    if mesh is not None and mesh.spans_processes:
+        if isinstance(cfg, moe_mod.MoEConfig):
+            raise ValueError(
+                f"{cfg.name} over {len(set(mesh.owners))} processes: the "
+                f"router's aux loss is a function of the global batch's "
+                f"routing, which no process sees")
+        mesh = mesh.local()
+        if mesh_mod.axis_size(mesh, "stage") > 1:
+            raise ValueError("a stage axis over processes: the pipeline's "
+                             "step reduces no gradient across processes")
     specs = mesh_specs(cfg, mesh)
     if specs is not None:
         params = llama_mod.shard_params(params, cfg, mesh, specs)
@@ -165,7 +197,7 @@ def make_train_state(
                     "exp_avg": a.to(p.device, p.dtype),
                     "exp_avg_sq": sq.to(p.device, p.dtype),
                 }
-    return TrainState(params, optimizer, step, specs)
+    return TrainState(params, optimizer, step, specs, whole_mesh)
 
 
 def init_train_state(
@@ -208,13 +240,27 @@ def train_step(
     loss_fn: Optional[Callable] = None,
 ) -> tuple[TrainState, torch.Tensor]:
     """One optimization step, in place: `loss_fn(params, cfg, tokens)`
-    (default `lm_loss`), its gradients (tied across replicas on a mesh),
-    one AdamW update. Returns (the state, the loss, detached)."""
+    (default `lm_loss`), its gradients (tied across replicas on a mesh,
+    and over processes on a mesh that spans them, where each process
+    takes its rows of the global `tokens`), one AdamW update. Returns
+    (the state, the loss over all of `tokens`, detached)."""
     state.optimizer.zero_grad(set_to_none=True)
-    loss = (loss_fn or lm_loss)(state.params, cfg, tokens)
+    mesh = state.mesh
+    spans = mesh is not None and mesh.spans_processes
+    if spans:
+        rows = mesh_mod.process_rows(mesh, tokens.shape[0])
+        # Its rows' mean over the global batch: every row has as many
+        # tokens, so the processes' losses add up to the global mean.
+        share = (rows.stop - rows.start) / tokens.shape[0]
+        loss = (loss_fn or lm_loss)(state.params, cfg, tokens[rows]) * share
+    else:
+        loss = (loss_fn or lm_loss)(state.params, cfg, tokens)
     loss.backward()
     if state.specs is not None:
         _tie_grads(state.params, state.specs, cfg)
+    if spans:
+        all_reduce_grads(stored_tensors(state.params))
+        loss = process_sum(loss)
     state.optimizer.step()
     state.step += 1
     return state, loss.detach()

@@ -1,8 +1,8 @@
-"""Sharded leaves and the explicit collectives of the single-controller
-mesh (parallel/mesh.py).
+"""Sharded leaves and the explicit collectives of the mesh
+(parallel/mesh.py).
 
 The reference places arrays with `NamedSharding` and lets GSPMD insert
-the collectives. Here one process holds every shard:
+the collectives. Here one process holds every shard of its coordinates:
 
 - `Sharded` is a leaf of per-coordinate tensors, one per mesh
   coordinate in the mesh's flat order. Coordinates that hold the same
@@ -20,8 +20,18 @@ the collectives. Here one process holds every shard:
   (Ulysses' sequence/head re-shard) move tensors with `.to(device,
   non_blocking=True)`: a no-op between shards on one device, a peer copy
   between cards, so shards on distinct cards compute the same result.
-  An NCCL path waits for a machine with more than one card to measure
-  it on.
+- Across processes (a mesh of parallel/distributed.py's `global_mesh`,
+  split along the data axes) the collectives are `torch.distributed`'s:
+  a reduction over an axis that crosses processes reduces this
+  process's parts as above, then all-reduces the sum over the process
+  group (`process_sum`; `all_reduce_grads` for a train step's
+  gradients, in float32 buckets). Under gloo, whose collectives take
+  host tensors, a CUDA tensor is staged through host memory explicitly
+  (the gradients through one pinned bucket kept from step to step):
+  that is the design for processes sharing a card, not a fallback.
+  NCCL (one card a process) reduces on the card. Between cards of one
+  process a collective is still a peer copy; NCCL there waits for a
+  machine with more than one card to measure it on.
 """
 
 from __future__ import annotations
@@ -295,6 +305,96 @@ def all_reduce_sum(parts: list[torch.Tensor]) -> list[torch.Tensor]:
     for p in parts[1:]:
         total = total + p.to(dev, non_blocking=True)
     return replicate(total, [p.device for p in parts])
+
+
+def _staged(t: torch.Tensor) -> bool:
+    """Whether `t` goes through host memory for the group's collectives
+    (gloo's take host tensors)."""
+    return (t.device.type == "cuda"
+            and torch.distributed.get_backend() == "gloo")
+
+
+def process_sum(t: torch.Tensor) -> torch.Tensor:
+    """`t` summed over every process of the group, in float32 (staged
+    through host memory under gloo), returned in `t`'s dtype on its
+    device."""
+    buf = t.detach().float()
+    buf = buf.cpu() if _staged(t) else buf.clone()
+    torch.distributed.all_reduce(buf)
+    return buf.to(t.device, t.dtype)
+
+
+# Elements of one float32 bucket of `all_reduce_grads` (256 MiB).
+GRAD_BUCKET = 1 << 26
+
+# (device, staged) -> the float32 bucket buffer `all_reduce_grads` reuses
+# from step to step: pinned host memory when staged, so that the copies
+# to and from the card are DMA and no step allocates one.
+_buckets: dict = {}
+
+
+def _bucket_buffer(n: int, device: torch.device,
+                   staged: bool) -> torch.Tensor:
+    key = (str(device), staged)
+    buf = _buckets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(n, dtype=torch.float32,
+                          device="cpu" if staged else device,
+                          pin_memory=staged)
+        _buckets[key] = buf
+    return buf
+
+
+def all_reduce_grads(tensors: list[torch.Tensor]) -> None:
+    """Sum the `.grad` of each tensor over the process group, in place.
+    The grads, in order, are read as one stream of float32 elements
+    through a bucket buffer of GRAD_BUCKET elements (a grad may span
+    buckets), kept from call to call; each full bucket is all-reduced
+    once and written back into the grads in their own dtype. Under gloo
+    the buffer is pinned host memory (the staging of CUDA grads); on the
+    CPU, or under NCCL, it lies on the grads' device. Every process
+    passes the same tensors in the same order; a tensor without a grad
+    (none in any process, the same program running everywhere) is left
+    out."""
+    grads = [t.grad for t in tensors if t.grad is not None]
+    if not grads:
+        return
+    staged = _staged(grads[0])
+    flats = [g.view(-1) if g.is_contiguous() else g.contiguous().view(-1)
+             for g in grads]
+    size = min(sum(f.numel() for f in flats), GRAD_BUCKET)
+    buf = _bucket_buffer(size, grads[0].device, staged)[:size]
+    pieces: list = []  # (flat, start, bucket offset, length)
+    used = 0
+    for flat in flats:
+        start = 0
+        while start < flat.numel():
+            n = min(flat.numel() - start, buf.numel() - used)
+            buf[used:used + n].copy_(flat[start:start + n],
+                                     non_blocking=staged)
+            pieces.append((flat, start, used, n))
+            used, start = used + n, start + n
+            if used == buf.numel():
+                _reduce_bucket(buf, used, pieces, staged)
+                pieces, used = [], 0
+    if used:
+        _reduce_bucket(buf, used, pieces, staged)
+    for g, flat in zip(grads, flats):
+        if flat.data_ptr() != g.data_ptr():
+            g.copy_(flat.view_as(g))
+
+
+def _reduce_bucket(buf: torch.Tensor, used: int, pieces: list,
+                   staged: bool) -> None:
+    """All-reduce the bucket's first `used` elements and copy each piece
+    back. Staged: the copies into the pinned buffer are waited for
+    before gloo reads it; the copies back are queued on the stream, which
+    orders them before the next bucket's copies into the buffer."""
+    if staged:
+        torch.cuda.current_stream(pieces[0][0].device).synchronize()
+    torch.distributed.all_reduce(buf[:used])
+    for flat, start, off, n in pieces:
+        flat[start:start + n].copy_(buf[off:off + n], non_blocking=staged)
 
 
 def all_gather(parts: list[torch.Tensor], dim: int) -> torch.Tensor:

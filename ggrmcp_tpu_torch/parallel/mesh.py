@@ -9,6 +9,14 @@ coordinate (the reference's single-controller model), so the device
 list may name one device more than once: two tensor shards on one card,
 or any number on the CPU.
 
+A mesh over several processes (parallel/distributed.py's `global_mesh`,
+the reference's multi-controller mesh) also names the process that owns
+each coordinate. Processes split it along the batch axes only (data x
+fsdp, the leading axes, so each process owns whole data blocks in a
+row), and each builds, places and computes its own coordinates:
+`Mesh.local()` is its share as a mesh of its own, `process_rows` its
+rows of a global batch. A mesh of one process behaves as before.
+
 A spec is a tuple with one entry per array dim: None (replicated), an
 axis name, or a tuple of axis names (the dim split over their product),
 the entries of a `PartitionSpec`.
@@ -42,10 +50,39 @@ class Mesh:
 
     sizes: tuple[int, ...]
     devices: tuple[torch.device, ...]
+    # The process (rank) owning each coordinate, and this process's rank;
+    # None: this process owns every coordinate.
+    owners: Optional[tuple[int, ...]] = None
+    rank: int = 0
 
     @property
     def shape(self) -> dict[str, int]:
         return dict(zip(AXES, self.sizes))
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.owners is not None and len(set(self.owners)) > 1
+
+    def is_local(self, index: int) -> bool:
+        return self.owners is None or self.owners[index] == self.rank
+
+    def local_indices(self) -> list[int]:
+        """The flat coordinates this process owns, in order."""
+        return [i for i in range(self.size) if self.is_local(i)]
+
+    def local(self) -> "Mesh":
+        """This process's coordinates as a mesh of one process: the same
+        axes, its data blocks in place of all of them (itself when it
+        owns every coordinate)."""
+        if not self.spans_processes:
+            return self
+        mine = self.local_indices()
+        blocks = len(mine) * data_size(self) // self.size
+        fsdp = self.shape["fsdp"]
+        data, fsdp = ((blocks // fsdp, fsdp) if blocks % fsdp == 0
+                      else (1, blocks))
+        return Mesh((data, fsdp, *self.sizes[2:]),
+                    tuple(self.devices[i] for i in mine))
 
     @property
     def size(self) -> int:
@@ -67,7 +104,9 @@ class Mesh:
         return flat
 
     def distinct_devices(self) -> list[torch.device]:
-        return list(dict.fromkeys(self.devices))
+        """This process's devices, each once."""
+        return list(dict.fromkeys(self.devices[i]
+                                  for i in self.local_indices()))
 
 
 def resolve_axis_sizes(
@@ -143,21 +182,77 @@ def serving_mesh(cfg: Optional[MeshConfig], device: DeviceLike = None) -> Mesh:
 def build_mesh(
     cfg: Optional[MeshConfig] = None,
     devices: Optional[Sequence] = None,
+    owners: Optional[Sequence[int]] = None,
+    rank: int = 0,
 ) -> Mesh:
-    """The mesh of `cfg` over `devices` (default: every CUDA card)."""
+    """The mesh of `cfg` over `devices` (default: every CUDA card).
+    `owners`: the process owning each device's coordinate (every one of
+    them `rank`'s when None), which must split the mesh into whole,
+    consecutive data blocks, as many for each process."""
     cfg = cfg or MeshConfig()
     devs = ([torch.device(d) for d in devices] if devices is not None
             else _cards())
     if not devs:
         raise ValueError("build_mesh: no devices")
     sizes = resolve_axis_sizes(cfg, len(devs))
-    mesh = Mesh(tuple(sizes[a] for a in AXES), tuple(devs))
+    mesh = Mesh(tuple(sizes[a] for a in AXES), tuple(devs),
+                None if owners is None else tuple(owners), rank)
+    if owners is not None:
+        _check_owners(mesh)
     logger.info(
-        "mesh: %s over %d coordinate(s) on %s",
+        "mesh: %s over %d coordinate(s) on %s%s",
         {a: s for a, s in sizes.items() if s > 1} or {"(single)": 1},
         len(devs), ", ".join(str(d) for d in mesh.distinct_devices()),
+        f" (process {rank} of {len(set(owners))})" if owners else "",
     )
     return mesh
+
+
+def _check_owners(mesh: Mesh) -> None:
+    """Processes own whole data blocks, in block order, the same count
+    each, and `rank` is one of them."""
+    owners = mesh.owners
+    if len(owners) != mesh.size:
+        raise ValueError(f"mesh owners: {len(owners)} for {mesh.size} "
+                         f"coordinates")
+    procs = sorted(set(owners))
+    if procs != list(range(len(procs))) or mesh.rank not in procs:
+        raise ValueError(f"mesh owners {procs} and rank {mesh.rank}: "
+                         f"processes are ranks 0..n-1, this one among them")
+    per_block = mesh.size // data_size(mesh)
+    blocks = [owners[b * per_block:(b + 1) * per_block]
+              for b in range(data_size(mesh))]
+    order = [b[0] for b in blocks]
+    if (any(len(set(b)) > 1 for b in blocks) or order != sorted(order)
+            or len(set(order.count(p) for p in procs)) > 1):
+        raise ValueError(
+            f"mesh {mesh_shape_str(mesh)} over processes {list(owners)}: "
+            f"processes split a mesh along its data and fsdp axes only, "
+            f"each owning as many whole data blocks, in order")
+    blocks_each = data_size(mesh) // len(procs)
+    fsdp = mesh.shape["fsdp"]
+    if blocks_each % fsdp and fsdp % blocks_each:
+        raise ValueError(
+            f"mesh {mesh_shape_str(mesh)}: {blocks_each} data blocks a "
+            f"process neither hold whole fsdp rows nor divide one")
+
+
+def process_rows(mesh: Mesh, batch: int) -> slice:
+    """The rows of a global [batch] that this process's data blocks
+    hold (all of them on a mesh of one process). The data blocks must
+    divide the batch: across processes there is no single block."""
+    if not mesh.spans_processes:
+        return slice(0, batch)
+    n = data_size(mesh)
+    if batch % n:
+        raise ValueError(f"a batch of {batch} rows over {n} data blocks "
+                         f"on {len(set(mesh.owners))} processes: the blocks "
+                         f"must divide it")
+    mine = mesh.local_indices()
+    per_block = mesh.size // n
+    first, last = mine[0] // per_block, mine[-1] // per_block + 1
+    per = batch // n
+    return slice(first * per, last * per)
 
 
 def single_device_mesh(device: torch.device) -> Mesh:
@@ -201,9 +296,15 @@ def check_data_placement(mesh: Mesh) -> None:
     moves cache rows between blocks (admission merges, the prefix pool,
     the draft pool) through one storage per device, which needs every
     block of a coordinate on one device; across cards that is the
-    exchange of ROADMAP A18b item 3."""
+    exchange of ROADMAP A18b item 3. Data blocks of other processes are
+    refused too: serving is one process."""
     if data_size(mesh) == 1:
         return
+    if mesh.spans_processes:
+        raise ValueError(
+            f"serving on {mesh_shape_str(mesh)} across "
+            f"{len(set(mesh.owners))} processes: a sidecar is one process "
+            f"(the multi-process mesh is for training)")
     for i, dev in enumerate(mesh.devices):
         home = mesh.index(**{**mesh.coord(i), "data": 0, "fsdp": 0})
         if mesh.devices[home] != dev:

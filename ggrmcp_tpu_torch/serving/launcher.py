@@ -30,6 +30,13 @@ module path and never imported here.
   process group, and on Linux PR_SET_PDEATHSIG so that it never outlives
   this process. If it exits, the sidecar is stopped and
   `GatewayExitedError` carries its exit code and the tail of its log.
+- The replica fleet (`fleet.enabled`): the child's supervisor spawns
+  this port's worker (serving/fleet.py) in place of the reference's,
+  through a stub that sets the worker command in the child's memory,
+  and the workers take `serving`, the device and the seed from the
+  child's environment. The co-launched sidecar stays a static backend
+  outside the supervisor's pool, as in the reference. The workers share
+  the child's process group, so ending the child ends them too.
 """
 
 from __future__ import annotations
@@ -62,6 +69,23 @@ _PDEATHSIG_EXEC = (
     "if os.getppid() != int(sys.argv[1]):\n"
     "    sys.exit(1)\n"
     "os.execv(sys.executable, [sys.executable, *sys.argv[2:]])\n"
+)
+
+# The gateway of a co-launch with `fleet.enabled`: in the child's own
+# memory, the reference's worker command (`default_worker_argv`, which
+# its `ProcessReplicaFactory` looks up when the fleet starts and
+# documents as the override for another worker) becomes this port's
+# worker; then `python -m ggrmcp_tpu` runs with the same arguments. The
+# gateway's pid goes into the environment its workers inherit, for their
+# PR_SET_PDEATHSIG check (serving/fleet.py).
+_FLEET_GATEWAY = (
+    "import os, runpy, sys\n"
+    "import ggrmcp_tpu.serving.fleet as fleet\n"
+    "fleet.default_worker_argv = lambda: [\n"
+    "    sys.executable, '-m', 'ggrmcp_tpu_torch.serving.fleet']\n"
+    "os.environ['GGRMCP_FLEET_WORKER_TORCH_PARENT'] = str(os.getpid())\n"
+    "sys.argv = ['ggrmcp_tpu', *sys.argv[1:]]\n"
+    "runpy.run_module('ggrmcp_tpu', run_name='__main__', alter_sys=True)\n"
 )
 
 # Seconds a child gateway gets to exit on SIGTERM before SIGKILL.
@@ -107,26 +131,37 @@ def resolve_colaunch_transport(cfg: Config) -> None:
         cfg.serving = dataclasses.replace(serving, uds_path=path)
 
 
-def gateway_environ() -> dict:
+def gateway_environ(cfg: Optional[Config] = None, device=None,
+                    seed: int = 0) -> dict:
     """The child's environment: ours without GGRMCP_SERVING_* (port-only
     serving keys would fail the reference's checks), with the repository
     root on PYTHONPATH so that `-m ggrmcp_tpu` resolves wherever we were
-    started."""
+    started. With `cfg.fleet.enabled`, the fleet workers' handshake
+    (serving/fleet.py): `cfg.serving`, `device` and `seed`, which every
+    worker inherits from the child, so replicas serve what the co-launched
+    sidecar serves."""
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("GGRMCP_SERVING_")}
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (root, env.get("PYTHONPATH", "")) if p)
+    if cfg is not None and cfg.fleet.enabled:
+        from ggrmcp_tpu_torch.serving.fleet import handshake_environ
+
+        env.update(handshake_environ(cfg.serving, device, seed))
     return env
 
 
 def gateway_command(targets: Sequence[str], config_path: str,
-                    flags: Sequence[str] = ()) -> list[str]:
+                    flags: Sequence[str] = (),
+                    fleet: bool = False) -> list[str]:
     """`python -m ggrmcp_tpu gateway` over `targets` (the sidecar first),
-    reading `config_path`, with the caller's gateway flags; on Linux
-    behind the PR_SET_PDEATHSIG exec stub."""
-    cmd = ["-m", "ggrmcp_tpu", "gateway", "--config", config_path]
+    reading `config_path`, with the caller's gateway flags (with `fleet`,
+    through the stub that makes its fleet spawn this port's workers); on
+    Linux behind the PR_SET_PDEATHSIG exec stub."""
+    cmd = ["-c", _FLEET_GATEWAY] if fleet else ["-m", "ggrmcp_tpu"]
+    cmd += ["gateway", "--config", config_path]
     for target in targets:
         cmd += ["--backend", target]
     cmd += list(flags)
@@ -172,6 +207,8 @@ class Colaunch:
                 return Sidecar(cfg.serving, seed=seed, device=device)
 
         self._factory = sidecar_factory
+        self._device = device
+        self._seed = seed
         self._flags = list(gateway_flags)
         self._extra = list(extra_targets)
         self.sidecar = None
@@ -198,9 +235,11 @@ class Colaunch:
         self._log = tempfile.NamedTemporaryFile(
             prefix="ggrmcp-gateway-", suffix=".log", delete=False)
         self.child = await asyncio.create_subprocess_exec(
-            *gateway_command(targets, self._config_path, self._flags),
+            *gateway_command(targets, self._config_path, self._flags,
+                             self.cfg.fleet.enabled),
             stdin=asyncio.subprocess.DEVNULL, stdout=self._log,
-            stderr=asyncio.subprocess.STDOUT, env=gateway_environ(),
+            stderr=asyncio.subprocess.STDOUT,
+            env=gateway_environ(self.cfg, self._device, self._seed),
             start_new_session=True,
         )
         logger.info(

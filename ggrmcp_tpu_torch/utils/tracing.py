@@ -8,8 +8,8 @@ the capture behind DebugService.Profile, on `torch.profiler` instead of
 
 from __future__ import annotations
 
-import json
 import os
+import re
 import time
 
 import torch
@@ -53,10 +53,23 @@ def profile_capture(duration_ms: float, out: str, cuda: bool) -> str:
         if cuda:
             torch.cuda.synchronize()
     prof.export_chrome_trace(path)
-    if cuda:
-        with open(path) as fh:
-            if not kernel_events(json.load(fh)):
-                raise RuntimeError(
-                    f"the CUDA profile {path} holds no kernel event"
-                )
+    if cuda and not _holds_kernel(path):
+        raise RuntimeError(f"the CUDA profile {path} holds no kernel event")
     return path
+
+
+_KERNEL_CAT = re.compile(rb'"cat"\s*:\s*"kernel"')
+
+
+def _holds_kernel(path: str) -> bool:
+    """Whether the Chrome trace at `path` holds a kernel event, read in
+    4 MiB chunks: the serving loop's thread runs between them, where a
+    whole-file `json.load` of a busy card's trace held the GIL for
+    seconds (a health probe waits as long)."""
+    tail = b""
+    with open(path, "rb") as fh:
+        while chunk := fh.read(1 << 22):
+            if _KERNEL_CAT.search(tail + chunk):
+                return True
+            tail = chunk[-64:]
+    return False

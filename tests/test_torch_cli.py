@@ -10,6 +10,7 @@ serving key the reference also reads taking the reference's value and an
 unknown serving key still refused."""
 
 import argparse
+import dataclasses
 import json
 import sys
 
@@ -185,7 +186,6 @@ class TestWholeFiles:
         ({"serving": {"modle": "x"}}, "modle"),
         ({"serving": {"batching": {"max_batch": 2}}}, "max_batch"),
         ({"servr": {}}, "top-level"),
-        ({"fleet": {"enabled": True}}, "fleet.enabled"),
         ({"fleet": {"backoff_jitter": 1.5}}, "backoff_jitter"),
         ({"serving": {"sp_prefill": "zigzag"}}, "sp_prefill"),
         ({"training": {"stepz": 3}}, "stepz"),
@@ -196,6 +196,32 @@ class TestWholeFiles:
         path.write_text(json.dumps(data))
         with pytest.raises(ValueError, match=match):
             tcfg.load(str(path), environ={})
+
+    @pytest.mark.parametrize("how", ["file", "env"])
+    def test_fleet_enabled_accepted_and_forwarded(self, how, tmp_path):
+        """`fleet.enabled` (once refused) runs the gateway's replica
+        fleet over workers of the port: the section parses to the
+        reference's values, field by field, and reaches the child's
+        config verbatim."""
+        fleet = {"enabled": True, "min_replicas": 1, "max_replicas": 2,
+                 "decide_interval_s": 0.5, "backoff_base_s": 0.2}
+        path = tmp_path / "fleet.json"
+        if how == "file":
+            path.write_text(json.dumps({"fleet": fleet}))
+            environ = {}
+        else:
+            path.write_text("{}")
+            environ = {f"GGRMCP_FLEET_{k.upper()}": str(v).lower()
+                       if isinstance(v, bool) else str(v)
+                       for k, v in fleet.items()}
+        cfg = tcfg.load(str(path), environ=environ)
+        assert cfg.sections["fleet"] == fleet
+        ref = jcfg.load_file(str(path))
+        jcfg.apply_env(ref, environ)
+        assert ref.fleet.enabled
+        for f in dataclasses.fields(tcfg.FleetConfig):
+            assert getattr(cfg.fleet, f.name) == getattr(ref.fleet, f.name), (
+                f.name)
 
 
 @pytest.mark.parametrize("argv,sections,env", [

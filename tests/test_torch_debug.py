@@ -220,3 +220,23 @@ def test_ledger_counts_storages_once():
     off = MemoryLedger(CPU, enabled=False)
     off.register("a", lambda: base)
     assert off.component_bytes() == {} and off.reconcile()["components"] == {}
+
+
+@pytest.mark.parametrize("where", ["none", "first", "straddling"])
+def test_capture_check_scans_the_trace_in_chunks(tmp_path, where):
+    """The capture's kernel check reads the trace in 4 MiB chunks (no
+    whole-file parse holding the GIL) and finds a kernel event whose
+    text straddles two chunks."""
+    head, event = b'{"traceEvents": [', b'{"ph": "X", "cat": "kernel"}'
+    body = bytearray(b" " * ((1 << 22) + 4096))
+    at = {"none": None, "first": 100,
+          # `"cat": "kernel"` from 5 bytes before the first chunk's end
+          "straddling": (1 << 22) - 5 - len(head) - event.index(b'"cat"')}
+    if at[where] is not None:
+        body[at[where]:at[where] + len(event)] = event
+    text = head + bytes(body) + b"]}"
+    if where == "straddling":
+        assert text.index(b'"cat"') == (1 << 22) - 5
+    path = tmp_path / "trace.json"
+    path.write_bytes(text)
+    assert tracing._holds_kernel(str(path)) == (where != "none")

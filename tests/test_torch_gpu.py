@@ -1651,3 +1651,124 @@ def test_data_parallel_train_steps_on_card_match_cpu(cuda):
                     == 3 * 2 * cfg.num_layers)
         losses[dev.type] = run
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+async def test_fleet_worker_handshake_on_card(cuda):
+    """The fleet's worker (`python -m ggrmcp_tpu_torch.serving.fleet`)
+    told cuda:0 by the co-launch's handshake: it prints TARGET=, loads
+    the kernel's library (the compile watcher counts it) and answers a
+    greedy Generate with the tokens of a sidecar on the same seed here."""
+    import os
+    import subprocess
+    import sys
+
+    import grpc
+
+    from ggrmcp_tpu_torch.rpc.pb import serving_pb2
+    from ggrmcp_tpu_torch.serving import fleet
+    from ggrmcp_tpu_torch.serving.sidecar import Sidecar
+
+    serving = ServingConfig(batching=BatchingConfig(max_batch_size=4,
+                                                    kv_cache_max_seq=256))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", "ggrmcp_tpu_torch.serving.fleet",
+        env={**os.environ, **fleet.handshake_environ(serving, "cuda:0", 47)},
+        cwd=repo, stdout=asyncio.subprocess.PIPE,
+        stderr=subprocess.DEVNULL)
+    here = Sidecar(serving, seed=47, device="cuda:0")
+    try:
+        line = (await asyncio.wait_for(proc.stdout.readline(), 300)).decode()
+        assert line.startswith("TARGET="), line
+        port = await here.start(0)
+
+        async def ask(target, method, req, resp):
+            async with grpc.aio.insecure_channel(target) as ch:
+                return await ch.unary_unary(
+                    method, request_serializer=type(req).SerializeToString,
+                    response_deserializer=resp.FromString)(req, timeout=120)
+        gen = serving_pb2.GenerateRequest(prompt="fleet on the card",
+                                          max_new_tokens=6,
+                                          return_tokens=True)
+        method = "/ggrmcp.tpu.GenerateService/Generate"
+        got = await ask(line.strip().removeprefix("TARGET="), method, gen,
+                        serving_pb2.GenerateResponse)
+        want = await ask(f"localhost:{port}", method, gen,
+                         serving_pb2.GenerateResponse)
+        assert list(got.token_ids) == list(want.token_ids)
+        assert len(got.token_ids) == 6
+        stats = await ask(line.strip().removeprefix("TARGET="),
+                          "/ggrmcp.tpu.ModelInfoService/GetServingStats",
+                          serving_pb2.ServingStatsRequest(),
+                          serving_pb2.ServingStatsResponse)
+        assert stats.compile_count >= 1 and stats.compile_post_warmup == 0
+    finally:
+        proc.kill()
+        await proc.wait()
+        await here.stop()
+
+
+def test_two_processes_share_the_card(cuda):
+    """Two processes on cuda:0 (gloo, by the backend rule: a named card is
+    shared) train tiny-llama (float32) 3 AdamW steps over a global data=2
+    mesh: each launches B1 once a layer a step, and the losses and final
+    params equal the single-process data=2 run on the card from the same
+    seeded tree (losses rtol 1e-4, leaves within 1e-4 of their largest
+    magnitude)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    import tempfile
+
+    from ggrmcp_tpu_torch.models import trainer, training
+
+    cfg = tl.CONFIGS["tiny-llama"]
+    rng = np.random.default_rng(13)
+    batches = rng.integers(0, cfg.vocab_size, (3, 4, 65)).astype(np.int64)
+    state = training.make_train_state(tl.init_params(cfg, cuda, 13), cfg,
+                                      mesh=_card_mesh(data=2))
+    want = []
+    for batch in batches:
+        state, loss = training.train_step(state, torch.from_numpy(batch)
+                                          .to(cuda), cfg)
+        want.append(loss.item())
+    params = {k: v.float().cpu().numpy()
+              for k, v in trainer.state_tensors(state, cfg)[0].items()}
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with tempfile.TemporaryDirectory() as tmp, socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        np.save(os.path.join(tmp, "batches.npy"), batches)
+        spec = dict(model="tiny-llama", device="cuda:0", coords=1, seed=13,
+                    batches=os.path.join(tmp, "batches.npy"),
+                    out=os.path.join(tmp, "out"))
+        env = {**os.environ, "GGRMCP_COORDINATOR": f"127.0.0.1:{port}",
+               "GGRMCP_NUM_PROCESSES": "2"}
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(repo, "tests",
+                                          "torch_distributed_worker.py"),
+             json.dumps(spec)],
+            env={**env, "GGRMCP_PROCESS_ID": str(pid)}, cwd=repo,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for pid in (0, 1)]
+        try:
+            outs = [p.communicate(timeout=300)[0].decode(errors="replace")
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, out in zip(procs, outs):
+            assert p.returncode == 0, out[-3000:]
+        for rank in (0, 1):
+            with np.load(os.path.join(tmp, f"out{rank}.npz")) as got:
+                seen = json.loads(str(got["seen"]))
+                assert seen["backend"] == "gloo"
+                assert seen["launches"] == 3 * cfg.num_layers
+                np.testing.assert_allclose(got["losses"], want, rtol=1e-4)
+                for name, w in params.items():
+                    diff = np.abs(got[f"p.{name}"] - w)
+                    assert diff.max() <= 1e-4 * np.abs(w).max(), name
