@@ -51,8 +51,9 @@ Phases, any failure exits non-zero and prints no result:
    dequantizing GEMM, its int8 -> bf16 cast alone and the decode step
    against bf16, timed;
 9. KV reuse: the prefix pool, the interleave and paged KV at llama3-8b
-   width through sidecars configured by a `--config` file, each against
-   its switch off;
+   width (phases 9-13 and 19's llama3-8b / mistral-7b cut to 8 of 32
+   layers, CUT_DEPTH) through sidecars configured by a `--config` file,
+   each against its switch off;
 10. grammar: a llama3-8b sidecar with the default GrammarConfig (arena
    4096 states, jump_max 8) answers a burst of 16 Generate calls, 8 of
    them constrained by three tool-output schemas (2 sampled), through
@@ -113,8 +114,8 @@ Phases, any failure exits non-zero and prints no result:
    32], [8192, 4]] against one 28-slot pool at 8192 with 24 short calls
    and 4 of 6000 tokens together (each tier's admissions, TTFT of each
    kind, KV bytes);
-14. sparse MoE at mixtral-8x7b's widths with the depth cut to 16 of 32
-   layers (seeded random bf16 weights): (a) one layer's `moe_ffn` at the
+14. sparse MoE at mixtral-8x7b's widths with the depth cut to 8 of 32
+   layers (CUT_DEPTH; seeded random bf16 weights): (a) one layer's `moe_ffn` at the
    [32, 512] admission shape against its float32 one-hot form, a [32,
    512] prefill with B1 against the same prefill through
    `flash_attention_ref` (the plain run's routing held to the kernel
@@ -128,7 +129,8 @@ Phases, any failure exits non-zero and prints no result:
    constrained calls of phase 10's schemas on one-token masked ticks
    (jump-ahead is off for MoE: B1 never launches in their ticks);
 15. tensor and expert parallelism, every shard on the one card (the
-   mesh's device list names cuda:0 once a shard): (a) B1 at one of two
+   mesh's device list names cuda:0 once a shard; llama3-8b at CUT_DEPTH
+   in (b)-(c)): (a) B1 at one of two
    tensor shards of llama3-8b's [32, 512] admission (H 16, KVH 4, D
    128, bf16) against its plain version, timed with its bound and SDPA;
    (b) tiny-llama float32 at tensor=2 on the card against tensor=2 on
@@ -145,25 +147,27 @@ Phases, any failure exits non-zero and prints no result:
    mixtral-8x7b-width layer's FFN at expert=2 x tensor=2 (four shards)
    against the unsharded one at [32, 512] (the same routing, relative
    L2). One card shows no speed-up and saves no memory;
-16. the co-launch at llama3-8b width (default batching): (a) the
-   sidecar in this process and the unchanged gateway of the JAX package
-   a child over a private unix socket (serving/launcher.py):
-   initialize, tools/list, a burst of 8 greedy tools/calls in one
-   admission round (B1 launches behind MCP; tokens equal to the same
-   burst sent straight to the socket), TTFT and latency through MCP
-   against gRPC; (b) 200 GetModelInfo tools/calls over the socket, then
-   over a pinned TCP port; (c) the sidecar's server stopped: the
-   supervisor's restart, the first good tools/call through the same
-   child, tokens against before, peak memory (one sidecar's); (d)
-   `python3 -m ggrmcp_tpu_torch gateway --model llama3-8b` as a
-   subprocess: seconds to healthy, one tools/call, the socket, SIGTERM
-   (exit 0, the socket and the child gone);
+16. the co-launch at llama3-8b width (default batching, every layer):
+   (a) the port's sidecar and gateway on one event loop in this process
+   over a private unix socket (serving/launcher.py): initialize,
+   tools/list, one traced call (the gateway's span and the sidecar's
+   share its trace id), a burst of 8 greedy tools/calls in one admission
+   round (B1 launches behind MCP; tokens equal to the same burst sent
+   straight to the socket), TTFT and latency through MCP against gRPC;
+   (b) 200 GetModelInfo tools/calls over the socket, then over a pinned
+   TCP port; (c) the sidecar's server stopped: the supervisor's restart
+   and its nudge of the discoverer, the first good tools/call through
+   the same gateway, tokens against before, peak memory (one
+   sidecar's); (d) `python3 -m ggrmcp_tpu_torch gateway --tpu --model
+   llama3-8b` as one process (no child, no process running the JAX
+   package): seconds to healthy, one tools/call, the socket, SIGTERM
+   (exit 0, the socket gone);
 17. sequence and pipeline parallelism, both shards of each mesh on the
-   card: (c) tiny-llama float32 at sequence 2 and 4 and stage 2 and 4,
+   card (llama3-8b at CUT_DEPTH): (c) tiny-llama float32 at sequence 2 and 4 and stage 2 and 4,
    card = CPU; (a) a 2048-token llama3-8b fresh prefill at sequence=2
    through ring and Ulysses against sequence=1, held to twice a
    same-run witness (B1 against the plain attention); (b) phase 5's
-   burst through sidecars at stage=1 and at stage=2 (16 layers a stage)
+   burst through sidecars at stage=1 and at stage=2 (4 layers a stage)
    from one seeded tree: streams counted, tick p50, the mesh in
    GetServingStats, peak memory. The sp attention and a stage's
    attention are plain, as the reference's are: B1 launches in neither;
@@ -175,11 +179,11 @@ Phases, any failure exits non-zero and prints no result:
    plain attention; (b) tiny-llama float32, 3 AdamW steps on the card
    against the CPU at tensor 1, tensor 2 and stage 2; (c) `python3 -m
    ggrmcp_tpu_torch train --model llama-1b` (full width, 16 layers) for
-   20 steps of [8, 1024] on a text file the script writes, saving every
-   10 (losses falling, step time p50 over steps 3-20, tokens/s, the
+   8 steps of [8, 1024] on a text file the script writes, saving at
+   step 8 (losses falling, step time p50 over steps 3-8, tokens/s, the
    model-FLOPs share, peak memory, B1 launches and recomputes a step),
-   then again to step 30, resuming from step 20; (d) a llama-1b sidecar
-   with `serving.checkpoint_path` at step 30's params answers a greedy
+   then again to step 12, resuming from step 8; (d) a llama-1b sidecar
+   with `serving.checkpoint_path` at step 12's params answers a greedy
    Generate with the tokens of an engine on the loaded tensors; an
    Orbax tree is refused at start;
 19. the data axes and the routes once refused on a mesh, every shard on
@@ -191,14 +195,15 @@ Phases, any failure exits non-zero and prints no result:
    shard; none under stage), tiny-moe at data=2 x expert=2 routing pair
    for pair as data=1; (c) phase 5's burst through sidecars configured
    by a `--config` file at data=1 and data=2 on one seeded llama3-8b
-   tree (weights once on the card): B1 launches, tick p50, the streams
-   counted, a [32, 512] prefill held to twice a same-run witness,
+   tree at CUT_DEPTH (weights once on the card): B1 launches, tick p50,
+   the streams counted, a [32, 512] prefill held to twice a same-run
+   witness,
    GetMemory reconciled, peak memory; (d) bert-base at tensor=2 against
    tensor=1 (phase 6's cosine); (e) LoRA through the arena, (f) two-leg
    TransferKV calls from tensor=2 to tensor=1 and back (the landed pages
    bit for bit the shipped ones) and the host tier, (g) the ring and the
    tiers, each at tensor=2 against tensor=1 at llama3-8b's or
-   mistral-7b's widths cut to 4 layers; (h) llama-1b, 20 AdamW steps of
+   mistral-7b's widths cut to 4 layers; (h) llama-1b, 4 AdamW steps of
    [8, 1024] at data=2 against data=1 (losses step by step, step p50,
    tokens/s, peak memory), and tiny-llama's 3 steps card = CPU at
    data=2 and data=2 x tensor=2;
@@ -215,7 +220,8 @@ Phases, any failure exits non-zero and prints no result:
    GetFlightRecord (B1's library counted at warmup, none after);
 21. the replica fleet at llama3-8b width (seeded random bf16 weights,
    8 slots): (a) the co-launch with `fleet.enabled` (min_replicas 1,
-   max_replicas 2): the unchanged gateway child spawns the port's worker
+   max_replicas 2): the port's gateway and supervisor, in this process,
+   spawn the port's worker
    (`python -m ggrmcp_tpu_torch.serving.fleet`, its command line read
    from /proc), /admin/fleet lists it, each prompt's greedy tokens from
    the replica equal the co-launched sidecar's (one seed), a burst of
@@ -235,8 +241,9 @@ Phases, any failure exits non-zero and prints no result:
    join by `parallel/distributed.py`'s `initialize` over 127.0.0.1
    (gloo: a named card is shared): their cross-process sum is exact and
    three AdamW steps at global data=2 equal the single-process data=2
-   steps on the card (losses, final params); (b) llama-1b at full width,
-   10 AdamW steps of a global [8, 1024] batch split over two processes
+   steps on the card (losses, final params); (b) llama-1b at full width
+   cut to 8 of 16 layers, 4 AdamW steps of a global [8, 1024] batch
+   split over two processes
    on cuda:0 against the single-process data=2 run from one seeded tree,
    held to twice a same-run witness (that run through the plain
    attention against B1), with a planted fault (three steps with the
@@ -244,7 +251,21 @@ Phases, any failure exits non-zero and prints no result:
    gradients' reduce time, step time p50 of both, each process's
    peak memory, B1 launches a step, the backend; B1 at one process's
    [4, 1023] block against its plain version, timed with SDPA and the
-   bound.
+   bound;
+23. the plain gateway: `python3 -m ggrmcp_tpu_torch gateway --backend
+   unix:SOCK` (no --tpu) as a subprocess before a co-launch's llama3-8b
+   sidecar (every layer): tools/list equal to the co-launch gateway's,
+   a greedy tools/call's tokens equal to the same prompt over gRPC (B1
+   launches behind it), /metrics and /debug/ticks 200; with `--workers
+   2`, traced tools/calls answered by each worker process.
+
+Every command line the script starts of the port's CLI runs with
+`ggrmcp_tpu` unimportable, and at the end no module of the JAX package
+is in this process's `sys.modules`. Each phase runs under a limit
+(PHASE_LIMIT_S, twice its time on the card): past it the script dumps
+every thread's stack, prints `chip_smoke FAILED: phase N over its
+limit` and exits non-zero. The seconds of every phase are printed on one
+line before the kernels line.
 
 `python3 chip_smoke.py --only 16,17` runs the card, the build and those
 phases and prints no result (fault-finding).
@@ -256,6 +277,7 @@ The last lines are the kernels JSON line, the card line, and
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import gc
 import json
 import math
@@ -264,6 +286,7 @@ import re
 import struct
 import subprocess
 import sys
+import threading
 import time
 
 SEED = 0
@@ -280,6 +303,10 @@ PEAK_BYTES = 3.35e12
 # P V product, which near-zero outputs see as atol 1e-2.
 TOL = {"bfloat16": (1e-2, 1.6e-2), "float32": (1e-4, 1e-4)}
 SERVE_PROMPT_TOKENS = (40, 100, 200, 300, 500, 700, 1500, 3000)
+# Phases 9-13 and 19 serve the published widths cut to this many layers
+# (serving.num_layers): their checks hold at any depth, and their time
+# goes with it. Phases 3-5 and 16, 21 and 23 keep every layer.
+CUT_DEPTH = 8
 SERVE_NEW_TOKENS = 32
 
 
@@ -289,6 +316,77 @@ class SmokeError(RuntimeError):
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# -- the clock ------------------------------------------------------------------
+
+# Each phase's limit in seconds: twice its longest time on an NVIDIA
+# H100 80GB HBM3 at 700 W, at least 60 s (PERF.md §6). A phase
+# over its limit dumps every thread's stack and ends the script
+# (`phase`).
+PHASE_LIMIT_S = {
+    1: 60, 2: 60, 3: 60, 4: 60, 5: 60, 6: 60, 7: 60, 8: 90, 9: 60, 10: 60,
+    11: 115, 12: 130, 13: 105, 14: 60, 15: 60, 16: 130, 17: 60, 18: 225,
+    19: 125, 20: 60, 21: 245, 22: 145, 23: 60,
+}
+# The running phase and when its limit falls (monotonic clock; None
+# outside a phase, as in the script's helper processes).
+_PHASE = {"n": None, "deadline": None}
+# A wait outside any phase.
+WAIT_S = 600.0
+# Seconds each phase took, in order.
+PHASE_SECONDS: dict = {}
+
+
+def phase_left() -> float:
+    """Seconds left before the running phase's limit (WAIT_S outside a
+    phase): a wait inside a phase never outlasts the phase."""
+    if _PHASE["deadline"] is None:
+        return WAIT_S
+    return max(1.0, _PHASE["deadline"] - time.monotonic())
+
+
+def _over_limit(n: int, limit: float) -> None:
+    """The watchdog's verdict: name the phase, dump every thread's stack,
+    end the processes this one started, exit non-zero (no result)."""
+    import faulthandler
+    import signal
+
+    msg = f"chip_smoke FAILED: phase {n} over its limit ({limit:.0f} s)"
+    print(msg, flush=True)
+    print(msg, file=sys.stderr, flush=True)
+    faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+    _kill_descendants(os.getpid(), signal.SIGKILL)
+    os._exit(3)
+
+
+def _kill_descendants(pid: int, sig) -> None:
+    todo = [pid]
+    while todo:
+        for child in _children(todo.pop()):
+            todo.append(child)
+            try:
+                os.kill(child, sig)
+            except ProcessLookupError:
+                pass
+
+
+@contextlib.contextmanager
+def phase(n: int):
+    """Run phase `n` under its limit (PHASE_LIMIT_S) and record its
+    seconds."""
+    limit = PHASE_LIMIT_S[n]
+    _PHASE.update(n=n, deadline=time.monotonic() + limit)
+    timer = threading.Timer(limit, _over_limit, (n, limit))
+    timer.daemon = True
+    timer.start()
+    t = time.perf_counter()
+    try:
+        yield
+    finally:
+        timer.cancel()
+        PHASE_SECONDS[n] = round(time.perf_counter() - t, 1)
+        _PHASE.update(n=None, deadline=None)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -690,7 +788,7 @@ async def serve_phase(torch, tatt, dev) -> dict:
 
             async def timed(req):
                 t = time.perf_counter()
-                resp = await generate(req, timeout=600)
+                resp = await generate(req, timeout=phase_left())
                 return resp, (time.perf_counter() - t) * 1e3
 
             # The first call pays the process's lazy CUDA set-up (library
@@ -739,7 +837,7 @@ async def serve_phase(torch, tatt, dev) -> dict:
             # random model mostly picks ids outside the byte range, so
             # the check is that the stream ends cleanly.
             t = time.perf_counter()
-            chunks = [c async for c in stream(request(500, 7), timeout=600)]
+            chunks = [c async for c in stream(request(500, 7), timeout=phase_left())]
             res["stream"] = dict(chunks=len(chunks),
                                  ms=(time.perf_counter() - t) * 1e3)
             check(chunks and chunks[-1].done and chunks[-1].finish_reason in
@@ -862,7 +960,7 @@ async def embed_phase(torch, tatt, dev) -> dict:
                 ms = []
                 for _ in range(3):
                     before = tatt.flash_attention.launches
-                    resp = await embed(req, timeout=600)
+                    resp = await embed(req, timeout=phase_left())
                     launched = tatt.flash_attention.launches - before
                     check(launched >= cfg.num_layers,
                           f"embed {name}: {launched} kernel launches, not "
@@ -1126,7 +1224,7 @@ async def hf_phase(torch, tatt, dev) -> dict:
                         .FromString)
                     resp = await generate(serving_pb2.GenerateRequest(
                         prompt=prompt, max_new_tokens=HF_NEW_TOKENS,
-                        return_tokens=True), timeout=600)
+                        return_tokens=True), timeout=phase_left())
             finally:
                 await sidecar.stop()
             torch.cuda.synchronize()
@@ -1390,7 +1488,7 @@ async def _int8_serve(torch, tatt, dev, **fields):
 
             async def timed(req):
                 t = time.perf_counter()
-                resp = await generate(req, timeout=600)
+                resp = await generate(req, timeout=phase_left())
                 return resp, (time.perf_counter() - t) * 1e3
 
             _, res["first_call_ms"] = await timed(request(40, 99, max_new=2))
@@ -1613,7 +1711,7 @@ class _ReuseClient:
         t = time.perf_counter()
         resp = await self._gen(self.pb.GenerateRequest(
             prompt=text, max_new_tokens=max_new, return_tokens=True),
-            timeout=600)
+            timeout=phase_left())
         return (list(resp.token_ids), resp.finish_reason,
                 (time.perf_counter() - t) * 1e3)
 
@@ -1628,15 +1726,17 @@ class _ReuseClient:
 
 
 def _config_sidecar(torch, params, dev, serving: dict, tmp: str):
-    """A llama3-8b sidecar on `params` whose settings come from a
-    {"serving": ...} config file, read as the command line reads
-    `--config FILE`; the peak memory count starts after it is built."""
+    """A llama3-8b sidecar (CUT_DEPTH layers) on `params` whose settings
+    come from a {"serving": ...} config file, read as the command line
+    reads `--config FILE`; the peak memory count starts after it is
+    built."""
     from ggrmcp_tpu_torch import __main__ as cli
     from ggrmcp_tpu_torch.serving.sidecar import Sidecar
 
     path = os.path.join(tmp, "serving.json")
     with open(path, "w") as fh:
-        json.dump({"serving": dict(model=MODEL, **serving)}, fh)
+        json.dump({"serving": dict(model=MODEL, num_layers=CUT_DEPTH,
+                                   **serving)}, fh)
     cfg = cli.serving_config(cli.build_parser().parse_args(
         ["sidecar", "--config", path]))
     sidecar = Sidecar(cfg, params=params, device=dev)
@@ -1849,7 +1949,7 @@ async def kv_reuse_phase(torch, tatt, dev) -> dict:
 
     from ggrmcp_tpu_torch.models import llama as llama_mod
 
-    params = llama_mod.init_params(llama_mod.CONFIGS[MODEL], dev, SEED)
+    params = llama_mod.init_params(_cut(MODEL, CUT_DEPTH), dev, SEED)
     res: dict = {}
     with tempfile.TemporaryDirectory(dir=os.path.dirname(
             os.path.abspath(__file__))) as tmp:
@@ -1998,11 +2098,11 @@ class _GrammarClient(_ReuseClient):
     async def call(self, req):
         """(response, client ms)."""
         t = time.perf_counter()
-        resp = await self._gen(req, timeout=600)
+        resp = await self._gen(req, timeout=phase_left())
         return resp, (time.perf_counter() - t) * 1e3
 
     async def stream(self, req):
-        return [c async for c in self._stream(req, timeout=600)]
+        return [c async for c in self._stream(req, timeout=phase_left())]
 
 
 def _hold_admission(batcher) -> None:
@@ -2292,7 +2392,7 @@ async def grammar_phase(torch, tatt, dev) -> dict:
                                      for k, g in grammars.items()})
     log(f"  schemas: states {res['states']}, max_new {limits}, compile "
         f"{compile_ms:.0f} ms each at V={cfg.vocab_size}")
-    params = llama_mod.init_params(cfg, dev, SEED)
+    params = llama_mod.init_params(_cut(MODEL, CUT_DEPTH), dev, SEED)
     runs = {}
     with tempfile.TemporaryDirectory(dir=os.path.dirname(
             os.path.abspath(__file__))) as tmp:
@@ -2368,7 +2468,7 @@ class _ControlClient(_ReuseClient):
         t = time.perf_counter()
         resp = await self._gen(self.pb.GenerateRequest(
             prompt=text, max_new_tokens=max_new, return_tokens=True),
-            metadata=(("x-qos-class", qos),), timeout=600)
+            metadata=(("x-qos-class", qos),), timeout=phase_left())
         return (list(resp.token_ids), resp.finish_reason,
                 (time.perf_counter() - t) * 1e3)
 
@@ -2495,15 +2595,27 @@ async def _observed_extras(torch, dev, sidecar, client, stats,
     res.update(split=_phase_split(record.ticks),
                phase_close_worst_ms=worst,
                tick_records=len(record.ticks))
-    # (b) a 1000 ms Profile while all slots decode.
+    # (b) a 1000 ms Profile while all slots decode: each slot takes a new
+    # request as its last one ends until the capture returns, since the
+    # profiler may take longer to start than a request takes to decode.
+    captured = asyncio.Event()
+
+    async def decode(i: int) -> list:
+        outs = [await client.generate(_prompt_text(40, 1200 + i), CTRL_NEW)]
+        while not captured.is_set():
+            outs.append(await client.generate(_prompt_text(40, 1200 + i),
+                                              CTRL_NEW))
+        return outs
     decoding = asyncio.ensure_future(asyncio.gather(*(
-        client.generate(_prompt_text(40, 1200 + i), CTRL_NEW)
-        for i in range(CTRL_SLOTS))))
+        decode(i) for i in range(CTRL_SLOTS))))
     await client.wait_active(CTRL_SLOTS)
     before = sidecar.batcher.timing["ticks"]
-    prof = await client.profile(1000, "phase11")
+    try:
+        prof = await client.profile(1000, "phase11")
+    finally:
+        captured.set()
     after = sidecar.batcher.timing["ticks"]
-    done = await decoding
+    done = [out for outs in await decoding for out in outs]
     check(all(r in ("length", "stop") for _, r, _ in done),
           "a decoding request failed under the profile")
     # The window holds window_ms / tick_ms ticks, tick_ms the median
@@ -2696,7 +2808,7 @@ async def control_phase(torch, tatt, dev) -> dict:
 
     from ggrmcp_tpu_torch.models import llama as llama_mod
 
-    params = llama_mod.init_params(llama_mod.CONFIGS[MODEL], dev, SEED)
+    params = llama_mod.init_params(_cut(MODEL, CUT_DEPTH), dev, SEED)
     res: dict = {}
     # The path's run starts here: every launch count from 0.
     tatt.flash_attention.launches = 0
@@ -2755,7 +2867,7 @@ async def control_phase(torch, tatt, dev) -> dict:
 
 # The card's sizes; a smaller spec drives the same code on the CPU.
 P12 = dict(
-    model=MODEL, batching={}, page=16,
+    model=MODEL, depth=CUT_DEPTH, batching={}, page=16,
     # (a) the host tier: 16 distinct preambles (128 pages each, 2048 in
     # all) through a 1024-page arena, twice; the second pass restores.
     arena_pages=1024, host_bytes=8 << 30, big_arena_pages=4096,
@@ -2807,7 +2919,7 @@ class _P12Client(_ControlClient):
         t = time.perf_counter()
         resp = await self._gen(self.pb.GenerateRequest(
             prompt=text, max_new_tokens=max_new, return_tokens=True,
-            **fields), metadata=metadata, timeout=600)
+            **fields), metadata=metadata, timeout=phase_left())
         return (list(resp.token_ids), resp.finish_reason,
                 (time.perf_counter() - t) * 1e3)
 
@@ -2818,10 +2930,10 @@ class _P12Client(_ControlClient):
 
 def _p12_sidecar(torch, params, dev, serving: dict, tmp: str, spec: dict,
                  name: str = "serving"):
-    """A sidecar on `params` (a shallow copy: a LoRA engine adds its
-    factor stacks to its own dict) whose settings come from a
-    {"serving": ...} config file, read as the command line reads
-    `--config FILE`."""
+    """A sidecar of `spec`'s model at its depth on `params` (a shallow
+    copy: a LoRA engine adds its factor stacks to its own dict) whose
+    settings come from a {"serving": ...} config file, read as the
+    command line reads `--config FILE`."""
     from ggrmcp_tpu_torch import __main__ as cli
     from ggrmcp_tpu_torch.serving.sidecar import Sidecar
 
@@ -2829,7 +2941,8 @@ def _p12_sidecar(torch, params, dev, serving: dict, tmp: str, spec: dict,
     serving["batching"] = dict(spec["batching"], **serving.get("batching", {}))
     path = os.path.join(tmp, f"{name}.json")
     with open(path, "w") as fh:
-        json.dump({"serving": dict(model=spec["model"], **serving)}, fh)
+        json.dump({"serving": dict(model=spec["model"],
+                                   num_layers=spec["depth"], **serving)}, fh)
     cfg = cli.serving_config(cli.build_parser().parse_args(
         ["sidecar", "--config", path]))
     return Sidecar(cfg, params=dict(params), device=dev)
@@ -3493,7 +3606,7 @@ async def paged_lora_phase(torch, tatt, dev, spec=None) -> dict:
     from ggrmcp_tpu_torch.models import llama as llama_mod
 
     spec = spec or P12
-    cfg = llama_mod.CONFIGS[spec["model"]]
+    cfg = _cut(spec["model"], spec["depth"])
     params = llama_mod.init_params(cfg, dev, SEED)
     res: dict = {}
     # The path's run starts here: every launch count from 0.
@@ -3548,7 +3661,7 @@ async def paged_lora_phase(torch, tatt, dev, spec=None) -> dict:
 
 # The card's sizes; a smaller spec drives the same code on the CPU.
 P13 = dict(
-    model="mistral-7b", draft="llama-1b", gamma=4,
+    model="mistral-7b", depth=CUT_DEPTH, draft="llama-1b", gamma=4,
     batching=dict(max_batch_size=32), chunk=512,
     # (a) 16 concurrent calls: 8 greedy, 4 at temperature 0.8, 2 top-k,
     # 2 constrained by phase 10's schemas.
@@ -3722,7 +3835,7 @@ async def spec_ring_tier_phase(torch, tatt, dev, spec=None) -> dict:
     from ggrmcp_tpu_torch.rpc.pb import serving_pb2 as pb
 
     spec = spec or P13
-    cfg = llama_mod.CONFIGS[spec["model"]]
+    cfg = _cut(spec["model"], spec["depth"])
     params = llama_mod.init_params(cfg, dev, SEED)
     res: dict = {}
     gamma, layers = spec["gamma"], cfg.num_layers
@@ -3788,7 +3901,9 @@ async def spec_ring_tier_phase(torch, tatt, dev, spec=None) -> dict:
         log(f"  (a) spec in the batcher: {json.dumps(_brief(res['spec']))}")
 
         t = time.perf_counter()
-        real_init = llama_mod.init_params
+        import ggrmcp_tpu_torch.models as models_mod
+
+        real_init, real_get = llama_mod.init_params, models_mod.get_model
 
         def self_draft(c, device, seed=0):
             # The draft's seeded draw (seed + 1) becomes the target's own
@@ -3797,7 +3912,12 @@ async def spec_ring_tier_phase(torch, tatt, dev, spec=None) -> dict:
                 return params
             return real_init(c, device, seed)
 
+        def draft_model(name):
+            # The draft named as the target is the target at its depth.
+            return ("llama", cfg) if name == spec["model"] else real_get(name)
+
         llama_mod.init_params = self_draft
+        models_mod.get_model = draft_model
         try:
             selfd = await _spec_serve(
                 torch, tatt, dev, params, tmp, spec, dict(
@@ -3806,6 +3926,7 @@ async def spec_ring_tier_phase(torch, tatt, dev, spec=None) -> dict:
                     batching=dict(speculative="on")), "self_draft", greedy)
         finally:
             llama_mod.init_params = real_init
+            models_mod.get_model = real_get
         d = selfd["delta"]
         rows_ticks = d["spec_drafted"] / gamma
         if dev.type == "cuda":
@@ -3906,11 +4027,12 @@ async def spec_ring_tier_phase(torch, tatt, dev, spec=None) -> dict:
 # -- phase 14: the sparse-MoE family -------------------------------------------
 
 # The card's sizes; a smaller spec drives the same code on the CPU.
-# mixtral-8x7b at its published widths with its depth cut to 16 of 32
-# layers: a layer's bf16 expert banks are 3 · 8 · 4096 · 14336 values,
-# so 32 layers exceed the card's 80 GB; 16 layers and the default pool
-# (32 slots, 4097 positions) fit.
-P14 = dict(model="mixtral-8x7b", layers=16, admit=(32, 512),
+# mixtral-8x7b at its published widths with its depth cut to CUT_DEPTH
+# of 32 layers: a layer's bf16 expert banks are 3 · 8 · 4096 · 14336
+# values, so 32 layers exceed the card's 80 GB (16 layers and the
+# default pool, 32 slots of 4097 positions, fit; this phase ran 16
+# before the budget).
+P14 = dict(model="mixtral-8x7b", layers=CUT_DEPTH, admit=(32, 512),
            prompts=SERVE_PROMPT_TOKENS, new=SERVE_NEW_TOKENS, batching={},
            tiny="tiny-moe")
 # (a) moe_ffn (bf16, by index) against its one-hot form in float32
@@ -4329,7 +4451,8 @@ async def moe_phase(torch, tatt, dev, spec=None) -> dict:
 # is the sharded path at real widths (B1 at a shard's head count, the
 # all-reduces and all-gathers at real sizes, the sharded loader's real
 # windows), not a speed-up or a per-card memory saving.
-P15 = dict(model=MODEL, tensor=2, prompts=SERVE_PROMPT_TOKENS,
+P15 = dict(model=MODEL, serve_depth=CUT_DEPTH, tensor=2,
+           prompts=SERVE_PROMPT_TOKENS,
            new=SERVE_NEW_TOKENS, prefill=(32, 512), moe="mixtral-8x7b",
            moe_admit=(32, 512), tiny="tiny-llama", tiny_downgrade=8,
            hf=HF_CONFIG, batching={})
@@ -4481,8 +4604,8 @@ async def _tp_serve(torch, tatt, dev, params, mesh, spec, tmp: str) -> dict:
     path = os.path.join(tmp, f"mesh-{label}.json")
     with open(path, "w") as fh:
         json.dump({"serving": dict(
-            model=spec["model"], batching=spec["batching"],
-            mesh={"tensor": 1, **axes})}, fh)
+            model=spec["model"], num_layers=spec.get("serve_depth", 0),
+            batching=spec["batching"], mesh={"tensor": 1, **axes})}, fh)
     serving = cli.serving_config(cli.build_parser().parse_args(
         ["sidecar", "--config", path]))
     side = Sidecar(serving, params=params, mesh=mesh)
@@ -4739,7 +4862,7 @@ async def tp_phase(torch, tatt, dev, spec=None) -> dict:
     log(f"  (b) {spec['tiny']} card vs cpu: "
         f"{json.dumps(res['tiny'])}")
 
-    cfg = llama_mod.CONFIGS[spec["model"]]
+    cfg = _cut(spec["model"], spec["serve_depth"])
     t = spec["tensor"]
     one = mesh_mod.build_mesh(MeshConfig(tensor=1), [dev])
     two = mesh_mod.build_mesh(MeshConfig(tensor=t), [dev] * t)
@@ -4748,7 +4871,7 @@ async def tp_phase(torch, tatt, dev, spec=None) -> dict:
                          device=dev)
     with tempfile.TemporaryDirectory(dir=os.path.dirname(
             os.path.abspath(__file__))) as tmp:
-        # One seeded whole tree (16 GB) serves both meshes.
+        # One seeded whole tree serves both meshes.
         params = llama_mod.init_params(cfg, dev, SEED)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -4836,10 +4959,12 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _mcp(port: int, method: str, params=None, timeout: float = 600):
-    """One JSON-RPC call to the gateway over urllib: (result, ms)."""
+def _mcp(port: int, method: str, params=None, timeout: float = None):
+    """One JSON-RPC call to the gateway over urllib: (result, ms); it
+    waits until the phase's limit unless given a `timeout`."""
     import urllib.request
 
+    timeout = timeout or phase_left()
     body = {"jsonrpc": "2.0", "method": method, "id": 1}
     if params is not None:
         body["params"] = params
@@ -4861,6 +4986,37 @@ def _mcp_generate(port: int, text: str, max_new: int):
             "prompt": text, "maxNewTokens": max_new, "returnTokens": True}})
     check(not result.get("isError"), f"tools/call failed: {result}")
     return json.loads(result["content"][0]["text"])["tokenIds"], ms
+
+
+def _get(port: int, path: str):
+    """GET `path` from the gateway: (status, body text)."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=phase_left()) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode()
+
+
+def _traced_generate(port: int, text: str, trace_id: str) -> set:
+    """One greedy tools/call sent with `X-Trace-Id`, then the names of
+    the spans of that trace in the gateway's /debug/traces."""
+    import urllib.request
+
+    body = {"jsonrpc": "2.0", "method": "tools/call", "id": 1, "params": {
+        "name": GENERATE_TOOL, "arguments": {"prompt": text,
+                                             "maxNewTokens": 2}}}
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", "X-Trace-Id": trace_id})
+    with urllib.request.urlopen(req, timeout=phase_left()) as resp:
+        check("result" in json.loads(resp.read()), "traced tools/call")
+    _, text = _get(port, "/debug/traces")
+    return {x["name"] for x in json.loads(text)["spans"]
+            if x["traceId"] == trace_id}
 
 
 def _healthy(port: int) -> bool:
@@ -4930,25 +5086,74 @@ def _colaunch_factory(torch, dev, serving, params=None):
     return make
 
 
-def _gateway_pids(sock: str) -> list[int]:
-    pids = []
-    for pid in os.listdir("/proc"):
-        if not pid.isdigit():
-            continue
+# The JAX package: no process of the port's may load or run it.
+REFERENCE_PACKAGE = "ggrmcp_tpu"
+# The port's CLI with the JAX package made unimportable: every command
+# line the smoke starts runs through it (`_port_cli`).
+_NO_REFERENCE = (
+    "import sys\n"
+    "sys.modules['ggrmcp_tpu'] = None\n"
+    "from ggrmcp_tpu_torch.__main__ import main\n"
+    "sys.exit(main(sys.argv[1:]))\n"
+)
+
+
+def _port_cli(*args: str) -> list[str]:
+    """`python -m ggrmcp_tpu_torch ARGS` with `ggrmcp_tpu` unimportable."""
+    return [sys.executable, "-c", _NO_REFERENCE, *args]
+
+
+def _reference_processes() -> dict:
+    """Live processes that run a module of the JAX package (`-m
+    ggrmcp_tpu...`): pid -> command line."""
+    out = {}
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        cmd = _cmdline(int(pid))
+        if any(a == "-m" and b.split(".")[0] == REFERENCE_PACKAGE
+               for a, b in zip(cmd, cmd[1:])):
+            out[int(pid)] = cmd
+    return out
+
+
+def _cmdline(pid: int) -> list[str]:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as fh:
+            return [a.decode(errors="replace")
+                    for a in fh.read().split(b"\0") if a]
+    except OSError:
+        return []
+
+
+def _children(pid: int) -> list[int]:
+    """The child processes of `pid`, each once. The kernel's lists may
+    also name a child's threads, which are no processes (their Tgid is
+    another id)."""
+    out = set()
+    for tid in os.listdir(f"/proc/{pid}/task"):
         try:
-            with open(f"/proc/{pid}/cmdline", "rb") as fh:
-                cmd = fh.read().split(b"\0")
+            with open(f"/proc/{pid}/task/{tid}/children") as fh:
+                out.update(int(c) for c in fh.read().split())
         except OSError:
             continue
-        if b"ggrmcp_tpu" in cmd and f"unix:{sock}".encode() in cmd:
-            pids.append(int(pid))
-    return pids
+    return sorted(c for c in out if _tgid(c) == c)
+
+
+def _tgid(pid: int):
+    try:
+        with open(f"/proc/{pid}/status") as fh:
+            for line in fh:
+                if line.startswith("Tgid:"):
+                    return int(line.split()[1])
+    except OSError:
+        return None
 
 
 async def _cli_colaunch(torch, dev, spec, want: list, text: str) -> dict:
-    """(d) `python3 -m ggrmcp_tpu_torch gateway --model M --http-port P`
-    as a subprocess: seconds to healthy, one tools/call (the in-process
-    run's tokens: the same seed, the same card), the socket, SIGTERM."""
+    """(d) `python3 -m ggrmcp_tpu_torch gateway --tpu --model M
+    --http-port P` as one process (`ggrmcp_tpu` unimportable in it):
+    seconds to healthy, one tools/call (the in-process run's tokens: the
+    same seed, the same card), the socket, no child and no process of
+    the JAX package, SIGTERM."""
     import signal
     import tempfile
 
@@ -4957,8 +5162,8 @@ async def _cli_colaunch(torch, dev, spec, want: list, text: str) -> dict:
     with tempfile.TemporaryFile() as err:
         t = time.perf_counter()
         proc = subprocess.Popen(
-            [sys.executable, "-m", "ggrmcp_tpu_torch", "gateway", "--model",
-             spec["model"], "--http-port", str(port)]
+            _port_cli("gateway", "--tpu", "--model", spec["model"],
+                      "--http-port", str(port))
             + (["--device", "cpu"] if dev.type == "cpu" else []),
             cwd=here, stdout=subprocess.DEVNULL, stderr=err)
         sock = os.path.join(tempfile.gettempdir(),
@@ -4971,7 +5176,8 @@ async def _cli_colaunch(torch, dev, spec, want: list, text: str) -> dict:
                     raise SmokeError("the CLI co-launch died: " + err.read()
                                      .decode(errors="replace")[-3000:])
                 return _healthy(port)
-            await _until(ready, 600, "(d) the CLI co-launch never healthy")
+            await _until(ready, phase_left(), "(d) the CLI co-launch never "
+                         "healthy")
             res["healthy_s"] = time.perf_counter() - t
             ids, res["call_ms"] = await asyncio.to_thread(
                 _mcp_generate, port, text, spec["new"])
@@ -4979,8 +5185,10 @@ async def _cli_colaunch(torch, dev, spec, want: list, text: str) -> dict:
                   "the in-process co-launch's on the same seed")
             res["socket"] = os.path.exists(sock)
             check(res["socket"], f"(d) no socket at {sock}")
-            gateways = _gateway_pids(sock)
-            check(len(gateways) == 1, f"(d) gateway processes {gateways}")
+            res["children"] = _children(proc.pid)
+            res["reference_processes"] = _reference_processes()
+            check(res["children"] == [] and res["reference_processes"] == {},
+                  f"(d) the co-launch is not one process of the port: {res}")
         finally:
             if proc.poll() is None:
                 proc.send_signal(signal.SIGTERM)
@@ -4994,21 +5202,20 @@ async def _cli_colaunch(torch, dev, spec, want: list, text: str) -> dict:
               + err.read().decode(errors="replace")[-2000:])
     res["exit_code"] = code
     res["socket_removed"] = not os.path.exists(sock)
-    res["gateways_left"] = len(_gateway_pids(sock))
-    check(res["socket_removed"] and res["gateways_left"] == 0,
-          f"(d) SIGTERM left {res}")
+    check(res["socket_removed"], f"(d) SIGTERM left {res}")
     return res
 
 
 async def colaunch_phase(torch, tatt, dev, spec=None) -> dict:
-    """Phase 16: (a) the co-launch in this process (the sidecar here,
-    the unchanged gateway a child) over a private socket: initialize,
+    """Phase 16: (a) the co-launch in this process (the port's gateway
+    and sidecar on this event loop) over a private socket: initialize,
     tools/list, a burst of greedy tools/calls (B1 behind the MCP path;
     tokens equal to the same burst sent straight to the socket), TTFT
     and latency through MCP against gRPC; (b) the hop: GetModelInfo
     tools/calls over the socket, then over a pinned TCP port; (c) a
-    sidecar death: restart, time to the first good tools/call through
-    the same child, tokens against before, peak memory; (d) the CLI."""
+    sidecar death: restart, the discoverer nudged, time to the first
+    good tools/call through the same gateway, tokens against before,
+    peak memory; (d) the CLI as one process."""
     import dataclasses
 
     from ggrmcp_tpu_torch.core.config import Config, ServingConfig
@@ -5019,21 +5226,21 @@ async def colaunch_phase(torch, tatt, dev, spec=None) -> dict:
     res: dict = {}
     texts = [_prompt_text(n, 1600 + i) for i, n in enumerate(spec["prompts"])]
     alone = [_prompt_text(n, 1700 + n) for n in spec["alone"]]
+    cfg = Config(serving=ServingConfig(model=spec["model"]))
     # The gateway's rate limiter off: (b) makes 200 calls in a row.
-    sections = {"server": {"rate_limit": {"enabled": False}}}
-    cfg = Config(serving=ServingConfig(model=spec["model"]),
-                 sections=sections)
-    port = _free_port()
+    cfg.server.rate_limit.enabled = False
+    cfg.server.port = port = _free_port()
     co = launcher.Colaunch(
-        cfg, ["--http-port", str(port)],
-        sidecar_factory=_colaunch_factory(torch, dev, lambda: cfg.serving))
+        cfg, sidecar_factory=_colaunch_factory(torch, dev,
+                                               lambda: cfg.serving))
     launcher.resolve_colaunch_transport(cfg)
     sock = cfg.serving.uds_path
     t = time.perf_counter()
     await co.start()
     try:
         res["healthy_s"] = time.perf_counter() - t + await _until(
-            lambda: _healthy(port), 300, "(a) the gateway never healthy")
+            lambda: _healthy(port), phase_left(),
+            "(a) the gateway never healthy")
         check(co.target == f"unix:{sock}" and os.path.exists(sock),
               f"(a) sidecar target {co.target}")
         init, _ = await asyncio.to_thread(_mcp, port, "initialize", {})
@@ -5043,6 +5250,12 @@ async def colaunch_phase(torch, tatt, dev, spec=None) -> dict:
         check(GENERATE_TOOL in tools, f"(a) tools/list: {sorted(tools)}")
         res["tools"] = len(tools)
         await asyncio.to_thread(_mcp_generate, port, texts[0], 2)  # warm
+        # One process, one tracer: the gateway's span and the sidecar's
+        # (the reference's spans) share the call's trace id.
+        res["spans"] = sorted(await asyncio.to_thread(
+            _traced_generate, port, texts[0], f"smoke-16-{os.getpid()}"))
+        check({"gateway.tools/call", "sidecar.generate"} <= set(res["spans"]),
+              f"(a) spans of the traced call: {res['spans']}")
 
         # The main path: a burst of greedy tools/calls in one round. (No
         # local names the batcher: a frame's stale locals could keep the
@@ -5100,24 +5313,34 @@ async def colaunch_phase(torch, tatt, dev, spec=None) -> dict:
         t = time.perf_counter()
         await dead.server.stop(None)
         del dead
-        await _until(lambda: co.restarts == 1, 600,
+        await _until(lambda: co.restarts == 1, phase_left(),
                      "(c) the sidecar was never restarted")
         restart_s = time.perf_counter() - t
 
+        # Each attempt's start after the death and its time, to split the
+        # recovery into routing again and the new sidecar's first call.
+        attempts = []
+
         def served():
+            t0 = time.perf_counter()
             try:
-                return _mcp_generate(port, alone[0], spec["new"])[0]
+                ids = _mcp_generate(port, alone[0], spec["new"])[0]
             except (OSError, SmokeError):
-                return None
-        await _until(lambda: served() is not None, 300,
+                ids = None
+            attempts.append((t0 - t, time.perf_counter() - t0, ids))
+            return ids
+        await _until(lambda: served() is not None, phase_left(),
                      "(c) no tools/call succeeded after the restart")
         recover_s = time.perf_counter() - t
+        good_at, good_s, _ = attempts[-1]
         after = [(await asyncio.to_thread(_mcp_generate, port, x,
                                           spec["new"]))[0] for x in alone]
         check(after == before, "(c) tokens after the restart differ")
-        check(co.child.returncode is None, "(c) the gateway child exited")
+        check(co.gateway is not None, "(c) the gateway stopped")
         res["restart"] = dict(
             restart_s=restart_s, first_good_call_s=recover_s,
+            first_good_sent_s=good_at, first_good_call_ms=good_s * 1e3,
+            failed_calls=len(attempts) - 1,
             tokens_equal=after == before, restarts=co.restarts,
             allocated_before_gb=held_gb,
             max_memory_allocated_gb=(torch.cuda.max_memory_allocated() / 1e9
@@ -5133,24 +5356,23 @@ async def colaunch_phase(torch, tatt, dev, spec=None) -> dict:
         params = co.sidecar.generation.params
     finally:
         await co.stop()
-    check(not os.path.exists(sock) and co.child.returncode is not None,
-          "(a) stop left the socket or the child")
+    check(not os.path.exists(sock) and co.gateway is None,
+          "(a) stop left the socket or the gateway")
 
     # (b) The same hop with the sidecar on a pinned TCP port (the same
     # weights, no second draw).
     tcp = Config(serving=dataclasses.replace(cfg.serving, uds_path="",
-                                             port=_free_port()),
-                 sections=sections)
-    port2 = _free_port()
+                                             port=_free_port()))
+    tcp.server.rate_limit.enabled = False
+    tcp.server.port = port2 = _free_port()
     co2 = launcher.Colaunch(
-        tcp, ["--http-port", str(port2)],
-        sidecar_factory=_colaunch_factory(torch, dev, lambda: tcp.serving,
-                                          params))
+        tcp, sidecar_factory=_colaunch_factory(torch, dev,
+                                               lambda: tcp.serving, params))
     launcher.resolve_colaunch_transport(tcp)
     check(tcp.serving.uds_path == "", "(b) a pinned port took the UDS")
     await co2.start()
     try:
-        await _until(lambda: _healthy(port2), 300, "(b) TCP gateway")
+        await _until(lambda: _healthy(port2), phase_left(), "(b) TCP gateway")
         check(co2.target.startswith("localhost:"), f"(b) {co2.target}")
         res["hop_tcp"] = await _hop(port2, spec["hop_calls"])
     finally:
@@ -5167,7 +5389,8 @@ async def colaunch_phase(torch, tatt, dev, spec=None) -> dict:
 
 # -- phase 17: sequence- and pipeline-parallel serving -------------------------
 
-P17 = dict(model=MODEL, sp_prefill=(1, 2048), sequence=2, stage=2,
+P17 = dict(model=MODEL, serve_depth=CUT_DEPTH, sp_prefill=(1, 2048),
+           sequence=2, stage=2,
            prompts=SERVE_PROMPT_TOKENS, new=SERVE_NEW_TOKENS, batching={},
            tiny="tiny-llama", tiny_meshes=(("sequence", 2), ("sequence", 4),
                                            ("stage", 2), ("stage", 4)))
@@ -5240,7 +5463,7 @@ def _sp_prefill_check(torch, tatt, dev, params, spec) -> dict:
     from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
     from ggrmcp_tpu_torch.serving.engine import GenerationEngine
 
-    cfg = llama_mod.CONFIGS[spec["model"]]
+    cfg = _cut(spec["model"], spec["serve_depth"])
     n = spec["sequence"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 18)
     toks = torch.randint(3, cfg.vocab_size, spec["sp_prefill"], generator=gen,
@@ -5313,7 +5536,7 @@ async def sp_pp_phase(torch, tatt, dev, spec=None) -> dict:
     t_phase = time.perf_counter()
     res: dict = {"tiny": _tiny_sp_pp_check(torch, tatt, dev, spec)}
     log(f"  (c) {spec['tiny']} card vs cpu: {json.dumps(res['tiny'])}")
-    cfg = llama_mod.CONFIGS[spec["model"]]
+    cfg = _cut(spec["model"], spec["serve_depth"])
     params = llama_mod.init_params(cfg, dev, SEED)
     res["sp"] = _sp_prefill_check(torch, tatt, dev, params, spec)
     log(f"  (a) {json.dumps(res['sp'])}")
@@ -5350,8 +5573,8 @@ async def sp_pp_phase(torch, tatt, dev, spec=None) -> dict:
 # -- phase 18: training --------------------------------------------------
 
 P18 = dict(
-    model="llama-1b", tiny="tiny-llama", batch=8, seq_len=1024, steps=20,
-    resume_to=30, save_every=10, timed_from=3, serve_new=16,
+    model="llama-1b", tiny="tiny-llama", batch=8, seq_len=1024, steps=8,
+    resume_to=12, save_every=8, timed_from=3, serve_new=16,
     # (a) B1 under autograd at the training step's attention shape
     # ([8, 1023]: seq_len 1024 less the shifted target), llama-1b heads.
     attn=[("train_8x1023", None, False), ("train_8x1023_window", 256, False),
@@ -5604,16 +5827,17 @@ _SUMMARY = re.compile(
 
 
 def _train_cli(argv: list, tmp: str, what: str) -> dict:
-    """One `python3 -m ggrmcp_tpu_torch train` subprocess: its step lines,
-    its summary (B1 launches and recomputes of the run, peak memory) and
-    its wall time; the log goes to a file under `tmp`."""
+    """One `python3 -m ggrmcp_tpu_torch train` subprocess (`_port_cli`):
+    its step lines, its summary (B1 launches and recomputes of the run,
+    peak memory) and its wall time; the log goes to a file under
+    `tmp`."""
     here = os.path.dirname(os.path.abspath(__file__))
     log_path = os.path.join(tmp, f"{what}.log")
     t = time.perf_counter()
     with open(log_path, "w") as fh:
         proc = subprocess.run(
-            [sys.executable, "-m", "ggrmcp_tpu_torch", "train", *argv],
-            cwd=here, stdout=fh, stderr=subprocess.STDOUT, timeout=900)
+            _port_cli("train", *argv), cwd=here, stdout=fh,
+            stderr=subprocess.STDOUT, timeout=phase_left())
     seconds = time.perf_counter() - t
     with open(log_path) as fh:
         text = fh.read()
@@ -5632,9 +5856,9 @@ async def train_phase(torch, tatt, dev, spec=None) -> dict:
     """Phase 18: (a) B1 under autograd at the training shape and one
     llama-1b layer's gradients; (b) tiny-llama card = CPU after 3 AdamW
     steps at tensor 1 and 2 and stage 2; (c) the `train` CLI at llama-1b
-    width, 20 steps then a resume to 30; (d) the trained weights served
-    by `serving.checkpoint_path`, an Orbax tree refused."""
-    import shutil
+    width, P18's steps then a resume to `resume_to`; (d) the trained
+    weights served by `serving.checkpoint_path`, an Orbax tree
+    refused."""
     import tempfile
 
     import grpc
@@ -5696,7 +5920,6 @@ async def train_phase(torch, tatt, dev, spec=None) -> dict:
             * 1e3, launches_per_step=run["launches"] / spec["steps"],
             recomputes_per_step=run["recomputes"] / spec["steps"])
         log(f"  (c) {json.dumps(res['cli'])}")
-        shutil.rmtree(os.path.join(ck, f"step_{spec['save_every']}"))
         resumed = _train_cli(["--steps", str(spec["resume_to"]), *argv], tmp,
                              "resume")
         check(f"resumed from step {spec['steps']}" in resumed["text"],
@@ -5729,7 +5952,7 @@ async def train_phase(torch, tatt, dev, spec=None) -> dict:
                     .FromString)
                 resp = await generate(serving_pb2.GenerateRequest(
                     prompt=prompt, max_new_tokens=spec["serve_new"],
-                    return_tokens=True), timeout=600)
+                    return_tokens=True), timeout=phase_left())
         finally:
             await sidecar.stop()
         served = list(resp.token_ids)
@@ -5769,8 +5992,9 @@ async def train_phase(torch, tatt, dev, spec=None) -> dict:
 # real widths (B1 at a data block's and a data block x tensor shard's
 # shapes, the blocks' caches, the sharded routes), not a speed-up.
 P19 = dict(
-    model=MODEL, data=2, prompts=SERVE_PROMPT_TOKENS, new=SERVE_NEW_TOKENS,
-    prefill=(32, 512), batching={}, tiny="tiny-llama", tiny_moe="tiny-moe",
+    model=MODEL, serve_depth=CUT_DEPTH, data=2, prompts=SERVE_PROMPT_TOKENS,
+    new=SERVE_NEW_TOKENS, prefill=(32, 512), batching={}, tiny="tiny-llama",
+    tiny_moe="tiny-moe",
     tiny_meshes=[dict(data=2), dict(fsdp=2), dict(data=2, tensor=2),
                  dict(data=2, stage=2)],
     embed=EMBED_MODEL, embed_rows=32, embed_longest=512,
@@ -5783,7 +6007,7 @@ P19 = dict(
     ring_new=32, ring_chunk=512, ring_probe=(2, 5120),
     tiers=[[1024, 8], [8192, 2]],
     tier_prompts=(40, 90, 160, 250, 400, 600, 6000, 7000), tier_new=16,
-    train="llama-1b", train_steps=20, train_batch=8, train_seq=1024,
+    train="llama-1b", train_steps=4, train_batch=8, train_seq=1024,
     train_tiny_meshes=[dict(data=2), dict(data=2, tensor=2)],
 )
 # (a) B1 at the shards of llama3-8b's [32, 512] admission on data=2 and
@@ -5925,7 +6149,7 @@ async def _dp_serve(torch, tatt, dev, spec, tmp) -> dict:
     counted against data=1's."""
     from ggrmcp_tpu_torch.models import llama as llama_mod
 
-    cfg = llama_mod.CONFIGS[spec["model"]]
+    cfg = _cut(spec["model"], spec["serve_depth"])
     d = spec["data"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 19)
     toks = torch.randint(3, cfg.vocab_size, spec["prefill"], generator=gen,
@@ -6786,7 +7010,7 @@ async def whole_phase(torch, tatt, dev, spec=None) -> dict:
 # the supervisor's probe waits as long, and the two edges it counts
 # would turn (b)'s process-exit heal into a flap heal.
 P21 = dict(model=MODEL, slots=8, prompts=(40, 300, 700, 1500), new=16,
-           burst=8, profile_ms=3000, crash_every=64, tiny="tiny-llama",
+           burst=8, profile_ms=1500, crash_every=32, tiny="tiny-llama",
            tiny_crash_every=2, probe_timeout_ms=2000.0,
            fleet=dict(enabled=True, min_replicas=1, max_replicas=2,
                       slo_ttft_p99_ms=600000.0, decide_interval_s=0.5,
@@ -6807,7 +7031,7 @@ def _fleet_status(port: int) -> dict:
 
 
 def _worker_pids(gateway: int) -> dict:
-    """Live children of the gateway process: pid -> command line."""
+    """Live children of the gateway's process: pid -> command line."""
     out = {}
     for name in os.listdir("/proc"):
         if not name.isdigit():
@@ -7026,8 +7250,9 @@ async def _tiny_crash(spec, dev) -> dict:
 
 
 async def fleet_phase(torch, tatt, dev, spec=None) -> dict:
-    """Phase 21: (a) the co-launch with `fleet.enabled`: the unchanged
-    gateway child spawns the port's worker (its command line), lists it
+    """Phase 21: (a) the co-launch with `fleet.enabled`: the port's
+    supervisor, in this process, spawns the port's worker (its command
+    line, a child of this process), lists it
     in /admin/fleet, each prompt's greedy tokens alone from the replica
     and from the co-launched sidecar are equal (one seed), a burst of
     tools/calls over both with the worker's health probes timed, B1 in
@@ -7051,18 +7276,18 @@ async def fleet_phase(torch, tatt, dev, spec=None) -> dict:
     t_phase = time.perf_counter()
     res: dict = {}
     texts = [_prompt_text(n, 2100 + i) for i, n in enumerate(spec["prompts"])]
+    port = _free_port()
     cfg = config_from_dict({
         "serving": {"model": spec["model"],
                     "batching": {"max_batch_size": spec["slots"]}},
         "fleet": spec["fleet"],
-        "server": {"rate_limit": {"enabled": False}},
+        "server": {"port": port, "rate_limit": {"enabled": False}},
     })
-    port = _free_port()
-    co = launcher.Colaunch(cfg, ["--http-port", str(port)], device=dev,
-                           seed=SEED)
+    co = launcher.Colaunch(cfg, device=dev, seed=SEED)
     res["memory_before"] = _card_memory(torch)
-    # Every worker the child spawns inherits the failpoint (the sidecar
-    # of this process armed its registry when it was imported, unarmed).
+    # Every worker the supervisor spawns inherits the failpoint (it takes
+    # its workers' environment when the gateway starts; this process's
+    # registry was armed when it was imported, unarmed).
     os.environ["GGRMCP_FAILPOINTS"] = (
         f"replica_crash:every={spec['crash_every']}")
     t = time.perf_counter()
@@ -7072,10 +7297,12 @@ async def fleet_phase(torch, tatt, dev, spec=None) -> dict:
         del os.environ["GGRMCP_FAILPOINTS"]
     pids: set = set()
     try:
-        await _until(lambda: _healthy(port), 300, "(a) gateway never healthy")
-        status = await _serving_replica(port, 600, "(a) no replica served")
+        await _until(lambda: _healthy(port), phase_left(),
+                     "(a) gateway never healthy")
+        status = await _serving_replica(port, phase_left(),
+                                        "(a) no replica served")
         res["boot_s"] = time.perf_counter() - t
-        workers = _worker_pids(co.child.pid)
+        workers = _worker_pids(os.getpid())
         pids |= set(workers)
         check(len(workers) == 1 and all(
             cmd[1:] == ["-m", FLEET_WORKER] for cmd in workers.values()),
@@ -7139,7 +7366,7 @@ async def fleet_phase(torch, tatt, dev, spec=None) -> dict:
         check(all(p["failed"] == 0 and p["max_ms"] < spec["probe_timeout_ms"]
                   for p in res["probes"].values()),
               f"(a) the worker's probes {res['probes']}")
-        (victim,) = _worker_pids(co.child.pid)
+        (victim,) = _worker_pids(os.getpid())
         (target,) = [r["target"] for r in before["replicas"]]
         calls = [asyncio.ensure_future(asyncio.to_thread(
             _mcp, port, "tools/call", {
@@ -7152,7 +7379,7 @@ async def fleet_phase(torch, tatt, dev, spec=None) -> dict:
         with _UsedSampler(torch) as sampler:
             os.kill(victim, signal.SIGKILL)
             healed = await _serving_replica(
-                port, 600, "(b) never restarted",
+                port, phase_left(), "(b) never restarted",
                 before["counters"]["restarts"] + 1, target)
         during = sampler.low()
         # The adapter kills, then spawns: the dead worker's memory is back
@@ -7169,7 +7396,7 @@ async def fleet_phase(torch, tatt, dev, spec=None) -> dict:
                     first = (await _ReuseClient(ch).generate(
                         texts[0], spec["new"]))[0]
             except grpc.aio.AioRpcError:
-                check(time.perf_counter() - t < 600, "(b) no good call")
+                check(phase_left() > 1, "(b) no good call")
                 await asyncio.sleep(0.2)
         first_good_s = time.perf_counter() - t
         check(first == want[0], "(b) the new replica's tokens differ")
@@ -7194,7 +7421,7 @@ async def fleet_phase(torch, tatt, dev, spec=None) -> dict:
                     if a["kind"] == "restart" and a["target"] == target]
         check(restarts and "process exited" in restarts[0]["reason"],
               f"(b) action log {healed['actions']}")
-        healed_workers = _worker_pids(co.child.pid)
+        healed_workers = _worker_pids(os.getpid())
         pids |= set(healed_workers)
         check(victim not in healed_workers and len(healed_workers) == 1,
               f"(b) children after the heal {healed_workers}")
@@ -7226,12 +7453,13 @@ async def fleet_phase(torch, tatt, dev, spec=None) -> dict:
               and all(isinstance(o, int) for o in outcomes[:-1]),
               f"(c) the armed worker's calls {outcomes}")
         await _until(lambda: not _alive(doomed), 60, "(c) still alive")
-        healed2 = await _serving_replica(port, 600, "(c) never healed",
+        healed2 = await _serving_replica(port, phase_left(),
+                                         "(c) never healed",
                                          restarts_before + 1, new)
         res["crash"] = dict(
             calls=outcomes, heal_s=time.perf_counter() - t,
             restarts=healed2["counters"]["restarts"])
-        pids |= set(_worker_pids(co.child.pid))
+        pids |= set(_worker_pids(os.getpid()))
         async with grpc.aio.insecure_channel(
                 healed2["replicas"][0]["target"]) as ch:
             check((await _ReuseClient(ch).generate(
@@ -7289,8 +7517,8 @@ P22_CASES = [
      "process's [4, 1023] block (H 32, KVH 8, D 64)"),
 ]
 P22 = dict(tiny="tiny-llama", tiny_steps=3, tiny_batch=4, tiny_seq=65,
-           model="llama-1b", steps=10, batch=8, seq=1024, processes=2,
-           fault_steps=3)
+           model="llama-1b", depth=CUT_DEPTH, steps=4, batch=8, seq=1024,
+           processes=2, fault_steps=3)
 # (a) tiny-llama float32, two processes against one: the CPU test's
 # tolerances (tests/test_torch_distributed.py).
 DIST_TINY_RTOL = 1e-4
@@ -7325,7 +7553,8 @@ def _dist_process(spec_json: str) -> int:
              for i in mesh.local_indices()]
     total = collectives.process_sum(
         collectives.all_reduce_sum(parts)[0]).item()
-    cfg = llama_mod.CONFIGS[spec["model"]]
+    cfg = (_cut(spec["model"], spec["depth"]) if spec.get("depth")
+           else llama_mod.CONFIGS[spec["model"]])
     state = training.make_train_state(
         llama_mod.init_params(cfg, dev, spec["seed"]), cfg, mesh=mesh)
     batches = np.load(spec["batches"])
@@ -7533,7 +7762,7 @@ def dist_phase(torch, tatt, dev, spec=None) -> dict:
         # (b) llama-1b at full width.
         case = kernel_cases(torch, tatt, dev, P22_CASES)[0]
         res["kernel"] = case
-        cfg = llama_mod.CONFIGS[spec["model"]]
+        cfg = _cut(spec["model"], spec["depth"])
         rng = np.random.default_rng(SEED + 23)
         batches = rng.integers(0, cfg.vocab_size, (
             spec["steps"], spec["batch"], spec["seq"]))
@@ -7555,10 +7784,11 @@ def dist_phase(torch, tatt, dev, spec=None) -> dict:
         _free(torch, dev)
         check(plain["launches"] == 0, "(b) the witness run launched B1")
         t = time.perf_counter()
-        procs = _dist_run(dict(model=spec["model"], seed=SEED + 23,
-                               device=str(dev), batches=path,
-                               out=os.path.join(tmp, "llama"),
-                               fault_steps=spec["fault_steps"]), tmp, 600)
+        procs = _dist_run(dict(model=spec["model"], depth=spec["depth"],
+                               seed=SEED + 23, device=str(dev),
+                               batches=path, out=os.path.join(tmp, "llama"),
+                               fault_steps=spec["fault_steps"]), tmp,
+                          phase_left())
         seconds = time.perf_counter() - t
 
     def rel(a, b):
@@ -7599,6 +7829,155 @@ def dist_phase(torch, tatt, dev, spec=None) -> dict:
           f"the witness's {witness}")
     check(fault > bound, f"(b) the planted fault (no gradient reduce) "
           f"stays within the bound: rel {fault} <= {bound}")
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+# -- phase 23: the plain gateway -------------------------------------------------
+
+P23 = dict(model=MODEL, prompt=300, new=16, workers=2, worker_calls=16)
+
+
+def _start_gateway(argv: list, port: int) -> tuple:
+    """The port's CLI `gateway ARGV --http-port PORT` as a subprocess
+    (`ggrmcp_tpu` unimportable in it), its stderr to a file: (process,
+    file)."""
+    import tempfile
+
+    err = tempfile.TemporaryFile()
+    proc = subprocess.Popen(
+        _port_cli("gateway", *argv, "--http-port", str(port)),
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.DEVNULL, stderr=err)
+    return proc, err
+
+
+def _stop_gateway(proc, err, what: str) -> int:
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        code = proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        code = proc.wait()
+    err.seek(0)
+    tail = err.read().decode(errors="replace")[-2000:]
+    err.close()
+    check(code == 0, f"{what} exit {code} on SIGTERM: {tail}")
+    return code
+
+
+async def _gateway_ready(proc, err, port: int, what: str) -> float:
+    def ready():
+        if proc.poll() is not None:
+            err.seek(0)
+            raise SmokeError(f"{what} died: " + err.read().decode(
+                errors="replace")[-3000:])
+        return _healthy(port)
+    return await _until(ready, phase_left(), f"{what} never healthy")
+
+
+def _worker_spans(port: int, calls: int) -> list:
+    """The sets of traced tools/calls that each answer of /debug/traces
+    saw: every gateway worker keeps its own span ring, so the distinct
+    sets are the workers that answered."""
+    seen = set()
+    for _ in range(calls):
+        _, text = _get(port, "/debug/traces")
+        seen.add(frozenset(
+            x["traceId"] for x in json.loads(text)["spans"]
+            if x["name"] == "gateway.tools/call"
+            and x["traceId"].startswith("smoke-23-")))
+    return [sorted(x) for x in seen if x]
+
+
+async def plain_gateway_phase(torch, tatt, dev, spec=None) -> dict:
+    """Phase 23: the plain gateway, `gateway --backend unix:SOCK` with no
+    --tpu, as a subprocess in front of the co-launch's llama3-8b sidecar
+    (this process; every layer): its tools/list equals the co-launch
+    gateway's, a greedy tools/call's tokens equal the same prompt's over
+    gRPC, B1 launches behind it, /metrics and /debug/ticks answer 200;
+    then `--workers 2` answers traced tools/calls through each of its
+    worker processes."""
+    from ggrmcp_tpu_torch.core.config import Config, ServingConfig
+    from ggrmcp_tpu_torch.serving import launcher
+
+    spec = spec or P23
+    t_phase = time.perf_counter()
+    res: dict = {}
+    text = _prompt_text(spec["prompt"], 2300)
+    cfg = Config(serving=ServingConfig(model=spec["model"]))
+    cfg.server.rate_limit.enabled = False
+    cfg.server.port = co_port = _free_port()
+    co = launcher.Colaunch(cfg, sidecar_factory=_colaunch_factory(
+        torch, dev, lambda: cfg.serving))
+    launcher.resolve_colaunch_transport(cfg)
+    await co.start()
+    try:
+        await _until(lambda: _healthy(co_port), phase_left(),
+                     "the co-launch never healthy")
+        want_tools, _ = await asyncio.to_thread(_mcp, co_port, "tools/list")
+        want = (await _direct(co.target, [text], spec["new"]))[0][0]
+
+        port = _free_port()
+        proc, err = _start_gateway(["--backend", co.target], port)
+        try:
+            res["healthy_s"] = await _gateway_ready(proc, err, port,
+                                                    "the plain gateway")
+            tools, _ = await asyncio.to_thread(_mcp, port, "tools/list")
+            check(tools == want_tools, "tools/list differs from the "
+                  "co-launch's")
+            res["tools"] = len(tools["tools"])
+            tatt.flash_attention.launches = 0
+            ids, res["call_ms"] = await asyncio.to_thread(
+                _mcp_generate, port, text, spec["new"])
+            res["launches"] = tatt.flash_attention.launches
+            check(ids == want, f"the plain gateway's tokens {ids} differ "
+                  f"from gRPC's {want}")
+            check(res["launches"] > 0 or dev.type == "cpu",
+                  "B1 never launched behind the plain gateway")
+            res["metrics"], body = await asyncio.to_thread(
+                _get, port, "/metrics")
+            res["debug_ticks"], _ = await asyncio.to_thread(
+                _get, port, "/debug/ticks")
+            check(res["metrics"] == 200 and res["debug_ticks"] == 200
+                  and "gateway_http_requests_total" in body,
+                  f"/metrics {res['metrics']}, /debug/ticks "
+                  f"{res['debug_ticks']}")
+            res["children"] = _children(proc.pid)
+            check(res["children"] == [], f"children {res['children']}")
+        finally:
+            res["exit_code"] = _stop_gateway(proc, err, "the plain gateway")
+
+        port = _free_port()
+        proc, err = _start_gateway(
+            ["--backend", co.target, "--workers", str(spec["workers"])],
+            port)
+        try:
+            await _gateway_ready(proc, err, port, "--workers 2")
+            workers = [pid for pid in _children(proc.pid)
+                       if "spawn_main" in " ".join(_cmdline(pid))]
+            for i in range(spec["worker_calls"]):
+                # Each on a new connection: the kernel spreads them.
+                await asyncio.to_thread(_traced_generate, port, text,
+                                        f"smoke-23-{i}")
+            answered = await asyncio.to_thread(
+                _worker_spans, port, 4 * spec["worker_calls"])
+            res["workers"] = dict(processes=len(workers),
+                                  calls_by_worker=[len(x) for x in answered])
+            check(len(workers) == spec["workers"] and len(answered) == (
+                spec["workers"]) and sum(len(x) for x in answered) == (
+                spec["worker_calls"]),
+                  f"--workers {spec['workers']}: {res['workers']}")
+        finally:
+            _stop_gateway(proc, err, "--workers 2")
+        res["reference_processes"] = _reference_processes()
+        check(res["reference_processes"] == {},
+              f"processes of the JAX package: {res['reference_processes']}")
+    finally:
+        await co.stop()
     res["seconds"] = time.perf_counter() - t_phase
     return res
 
@@ -7662,178 +8041,216 @@ def main() -> int:
 
     t_start = time.perf_counter()
     try:
-        card = card_line()
-        log(f"[1/22] card: {card}; torch {torch.__version__}, CUDA "
-            f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+        with phase(1):
+            card = card_line()
+            log(f"[1/23] card: {card}; torch {torch.__version__}, CUDA "
+                f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-        t = time.perf_counter()
-        _build.load("flash_attention")
-        log(f"[2/22] build: flash_attention.cu in "
-            f"{time.perf_counter() - t:.1f} s")
-        ptxas_report(_build.build_log.get("flash_attention", ""))
+        with phase(2):
+            t = time.perf_counter()
+            _build.load("flash_attention")
+            log(f"[2/23] build: flash_attention.cu in "
+                f"{time.perf_counter() - t:.1f} s")
+            ptxas_report(_build.build_log.get("flash_attention", ""))
 
         if run(3):
-            log(f"[3/22] kernel vs plain (|err| <= atol + rtol |plain|: "
-                f"{TOL})")
-            cases = kernel_cases(torch, tatt, dev)
+            with phase(3):
+                log(f"[3/23] kernel vs plain (|err| <= atol + rtol |plain|: "
+                    f"{TOL})")
+                cases = kernel_cases(torch, tatt, dev)
 
         if run(4):
-            log("[4/22] reference: tiny-llama on the card vs the CPU")
-            ref = tiny_reference(torch, dev)
-            log(f"  {ref}")
+            with phase(4):
+                log("[4/23] reference: tiny-llama on the card vs the CPU")
+                ref = tiny_reference(torch, dev)
+                log(f"  {ref}")
 
         if run(5):
-            log(f"[5/22] serve: {MODEL} sidecar, default batching")
-            serve = asyncio.run(serve_phase(torch, tatt, dev))
-            log(f"  {json.dumps(serve)}")
-            tidy()
+            with phase(5):
+                log(f"[5/23] serve: {MODEL} sidecar, default batching")
+                serve = asyncio.run(serve_phase(torch, tatt, dev))
+                log(f"  {json.dumps(serve)}")
+                tidy()
 
         if run(6):
-            log(f"[6/22] embed: {EMBED_MODEL} sidecar")
-            embed = asyncio.run(embed_phase(torch, tatt, dev))
-            log(f"  {json.dumps(embed)}")
-            tidy()
+            with phase(6):
+                log(f"[6/23] embed: {EMBED_MODEL} sidecar")
+                embed = asyncio.run(embed_phase(torch, tatt, dev))
+                log(f"  {json.dumps(embed)}")
+                tidy()
 
         if run(7):
-            log("[7/22] HF checkpoint: llama3-8b width, 2 layers, 2 files")
-            hf = asyncio.run(hf_phase(torch, tatt, dev))
-            log(f"  {json.dumps(hf)}")
-            tidy()
+            with phase(7):
+                log("[7/23] HF checkpoint: llama3-8b width, 2 layers, 2 files")
+                hf = asyncio.run(hf_phase(torch, tatt, dev))
+                log(f"  {json.dumps(hf)}")
+                tidy()
 
         if run(8):
-            log(f"[8/22] int8: {MODEL} weights and KV cache")
-            int8 = asyncio.run(int8_phase(torch, tatt, dev))
-            tidy()
+            with phase(8):
+                log(f"[8/23] int8: {MODEL} weights and KV cache")
+                int8 = asyncio.run(int8_phase(torch, tatt, dev))
+                tidy()
 
         if run(9):
-            log(f"[9/22] KV reuse: {MODEL} prefix pool, interleave, "
-                f"paged KV")
-            reuse = asyncio.run(kv_reuse_phase(torch, tatt, dev))
-            tidy()
+            with phase(9):
+                log(f"[9/23] KV reuse: {MODEL} prefix pool, interleave, "
+                    f"paged KV")
+                reuse = asyncio.run(kv_reuse_phase(torch, tatt, dev))
+                tidy()
 
         if run(10):
-            log(f"[10/22] grammar: {MODEL} constrained burst, jump on / "
-                f"off")
-            grammar = asyncio.run(grammar_phase(torch, tatt, dev))
-            log(f"  {json.dumps(_brief(grammar))}")
-            tidy()
+            with phase(10):
+                log(f"[10/23] grammar: {MODEL} constrained burst, jump on / "
+                    f"off")
+                grammar = asyncio.run(grammar_phase(torch, tatt, dev))
+                log(f"  {json.dumps(_brief(grammar))}")
+                tidy()
 
         if run(11):
-            log(f"[11/22] control plane: {MODEL} tick phases, Profile, "
-                f"GetMemory, scheduler, failpoints, deadlines")
-            control = asyncio.run(control_phase(torch, tatt, dev))
-            tidy()
+            with phase(11):
+                log(f"[11/23] control plane: {MODEL} tick phases, Profile, "
+                    f"GetMemory, scheduler, failpoints, deadlines")
+                control = asyncio.run(control_phase(torch, tatt, dev))
+                tidy()
 
         if run(12):
-            log(f"[12/22] paged plane and LoRA: {MODEL} host tier, "
-                f"TransferKV with roles, adapter arena, preemption with "
-                f"the host tier")
-            paged = asyncio.run(paged_lora_phase(torch, tatt, dev))
-            tidy()
+            with phase(12):
+                log(f"[12/23] paged plane and LoRA: {MODEL} host tier, "
+                    f"TransferKV with roles, adapter arena, preemption with "
+                    f"the host tier")
+                paged = asyncio.run(paged_lora_phase(torch, tatt, dev))
+                tidy()
 
         if run(13):
-            t = time.perf_counter()
-            log(f"[13/22] speculative decoding, ring KV, tiers: "
-                f"{P13['model']} with the {P13['draft']} draft")
-            p13 = asyncio.run(spec_ring_tier_phase(torch, tatt, dev))
-            log(f"  phase 13: {time.perf_counter() - t:.1f} s, "
-                f"{p13['launches']} B1 launches")
+            with phase(13):
+                t = time.perf_counter()
+                log(f"[13/23] speculative decoding, ring KV, tiers: "
+                    f"{P13['model']} with the {P13['draft']} draft")
+                p13 = asyncio.run(spec_ring_tier_phase(torch, tatt, dev))
+                log(f"  phase 13: {time.perf_counter() - t:.1f} s, "
+                    f"{p13['launches']} B1 launches")
 
         if run(14):
-            log(f"[14/22] sparse MoE: {P14['model']} cut to "
-                f"{P14['layers']} layers, bf16")
-            p14 = asyncio.run(moe_phase(torch, tatt, dev))
-            log(f"  phase 14: {p14['seconds']:.1f} s, {p14['launches']} B1 "
-                f"launches, peak {p14['max_memory_allocated_gb']:.2f} GB")
-            _free(torch, dev)
+            with phase(14):
+                log(f"[14/23] sparse MoE: {P14['model']} cut to "
+                    f"{P14['layers']} layers, bf16")
+                p14 = asyncio.run(moe_phase(torch, tatt, dev))
+                log(f"  phase 14: {p14['seconds']:.1f} s, {p14['launches']} B1 "
+                    f"launches, peak {p14['max_memory_allocated_gb']:.2f} GB")
+                _free(torch, dev)
 
         if run(15):
-            log(f"[15/22] tensor and expert parallelism: {P15['model']} "
-                f"at tensor={P15['tensor']} on one card, the sharded "
-                f"loader, {P15['moe']} at expert=2 x tensor=2")
-            p15 = asyncio.run(tp_phase(torch, tatt, dev))
-            log(f"  phase 15: {p15['seconds']:.1f} s, {p15['launches']} B1 "
-                f"launches at tensor={P15['tensor']}")
-            _free(torch, dev)
+            with phase(15):
+                log(f"[15/23] tensor and expert parallelism: {P15['model']} "
+                    f"at tensor={P15['tensor']} on one card, the sharded "
+                    f"loader, {P15['moe']} at expert=2 x tensor=2")
+                p15 = asyncio.run(tp_phase(torch, tatt, dev))
+                log(f"  phase 15: {p15['seconds']:.1f} s, {p15['launches']} B1 "
+                    f"launches at tensor={P15['tensor']}")
+                _free(torch, dev)
 
         if run(16):
-            log(f"[16/22] co-launch: {P16['model']} sidecar in this "
-                f"process, the unchanged gateway a child, over a private "
-                f"socket")
-            p16 = asyncio.run(colaunch_phase(torch, tatt, dev))
-            log(f"  phase 16: {p16['seconds']:.1f} s, "
-                f"{p16['colaunch_launches']} B1 launches behind MCP")
-            _free(torch, dev)
+            with phase(16):
+                log(f"[16/23] co-launch: {P16['model']} sidecar and the "
+                    f"port's gateway on one event loop in this process, "
+                    f"over a private socket")
+                p16 = asyncio.run(colaunch_phase(torch, tatt, dev))
+                log(f"  phase 16: {p16['seconds']:.1f} s, "
+                    f"{p16['colaunch_launches']} B1 launches behind MCP")
+                _free(torch, dev)
 
         if run(17):
-            log(f"[17/22] sequence- and pipeline-parallel serving: "
-                f"{P17['model']} at sequence={P17['sequence']} and "
-                f"stage={P17['stage']}, every shard on one card")
-            p17 = asyncio.run(sp_pp_phase(torch, tatt, dev))
-            log(f"  phase 17: {p17['seconds']:.1f} s; B1 launches: "
-                f"{p17['sp']['sp_launches']} in the sp prefills, "
-                f"{p17['pp_launches']} at stage={P17['stage']} (a stage's "
-                f"attention and the sp attention are plain, as the "
-                f"reference's are)")
-            _free(torch, dev)
+            with phase(17):
+                log(f"[17/23] sequence- and pipeline-parallel serving: "
+                    f"{P17['model']} at sequence={P17['sequence']} and "
+                    f"stage={P17['stage']}, every shard on one card")
+                p17 = asyncio.run(sp_pp_phase(torch, tatt, dev))
+                log(f"  phase 17: {p17['seconds']:.1f} s; B1 launches: "
+                    f"{p17['sp']['sp_launches']} in the sp prefills, "
+                    f"{p17['pp_launches']} at stage={P17['stage']} (a stage's "
+                    f"attention and the sp attention are plain, as the "
+                    f"reference's are)")
+                _free(torch, dev)
 
         if run(18):
-            log(f"[18/22] training: {P18['model']} through the train CLI "
-                f"({P18['steps']} steps at [{P18['batch']}, "
-                f"{P18['seq_len']}], a resume to {P18['resume_to']}), B1 "
-                f"under autograd, {P18['tiny']} card = CPU at tensor and "
-                f"stage 2, the trained weights served")
-            p18 = asyncio.run(train_phase(torch, tatt, dev))
-            log(f"  phase 18: {p18['seconds']:.1f} s, "
-                f"{p18['cli']['launches']} B1 launches and "
-                f"{p18['cli']['recomputes']} backward recomputes in "
-                f"{P18['steps']} steps")
-            _free(torch, dev)
+            with phase(18):
+                log(f"[18/23] training: {P18['model']} through the train CLI "
+                    f"({P18['steps']} steps at [{P18['batch']}, "
+                    f"{P18['seq_len']}], a resume to {P18['resume_to']}), B1 "
+                    f"under autograd, {P18['tiny']} card = CPU at tensor and "
+                    f"stage 2, the trained weights served")
+                p18 = asyncio.run(train_phase(torch, tatt, dev))
+                log(f"  phase 18: {p18['seconds']:.1f} s, "
+                    f"{p18['cli']['launches']} B1 launches and "
+                    f"{p18['cli']['recomputes']} backward recomputes in "
+                    f"{P18['steps']} steps")
+                _free(torch, dev)
 
         if run(19):
-            log(f"[19/22] the data axes and the routes on a mesh: "
-                f"{P19['model']} at data={P19['data']}, {P19['embed']}, "
-                f"LoRA, TransferKV, the host tier, the ring and tiers at "
-                f"tensor=2, {P19['train']} training at data={P19['data']}")
-            p19 = asyncio.run(dp_phase(torch, tatt, dev))
-            log(f"  phase 19: {p19['seconds']:.1f} s, {p19['launches']} B1 "
-                f"launches at data={P19['data']}")
-            _free(torch, dev)
+            with phase(19):
+                log(f"[19/23] the data axes and the routes on a mesh: "
+                    f"{P19['model']} at data={P19['data']}, {P19['embed']}, "
+                    f"LoRA, TransferKV, the host tier, the ring and tiers at "
+                    f"tensor=2, {P19['train']} training at data={P19['data']}")
+                p19 = asyncio.run(dp_phase(torch, tatt, dev))
+                log(f"  phase 19: {p19['seconds']:.1f} s, {p19['launches']} B1 "
+                    f"launches at data={P19['data']}")
+                _free(torch, dev)
 
         if run(20):
-            log(f"[20/22] meshes the axes do not divide: {P20['model']} at "
-                f"tensor={P20['tensor']} (every block whole), "
-                f"{P20['embed']} at tensor={P20['embed_tensor']}, "
-                f"{P20['model']} training at tensor={P20['tensor']} and "
-                f"sequence=2, the compile watcher")
-            p20 = asyncio.run(whole_phase(torch, tatt, dev))
-            log(f"  phase 20: {p20['seconds']:.1f} s, "
-                f"{p20['serve']['prefill_launches']} B1 launches in a "
-                f"tensor={P20['tensor']} prefill")
-            _free(torch, dev)
+            with phase(20):
+                log(f"[20/23] meshes the axes do not divide: {P20['model']} at "
+                    f"tensor={P20['tensor']} (every block whole), "
+                    f"{P20['embed']} at tensor={P20['embed_tensor']}, "
+                    f"{P20['model']} training at tensor={P20['tensor']} and "
+                    f"sequence=2, the compile watcher")
+                p20 = asyncio.run(whole_phase(torch, tatt, dev))
+                log(f"  phase 20: {p20['seconds']:.1f} s, "
+                    f"{p20['serve']['prefill_launches']} B1 launches in a "
+                    f"tensor={P20['tensor']} prefill")
+                _free(torch, dev)
 
         if run(21):
-            log(f"[21/22] the replica fleet: {P21['model']} workers of the "
-                f"port behind the unchanged supervisor, a SIGKILL and a "
-                f"failpoint healed")
-            p21 = asyncio.run(fleet_phase(torch, tatt, dev))
-            log(f"  phase 21: {p21['seconds']:.1f} s, "
-                f"{p21['profile']['b1_launches']} B1 launches in the "
-                f"worker's profile")
-            _free(torch, dev)
+            with phase(21):
+                log(f"[21/23] the replica fleet: {P21['model']} workers of "
+                    f"the port behind the port's supervisor, a SIGKILL and "
+                    f"a failpoint healed")
+                p21 = asyncio.run(fleet_phase(torch, tatt, dev))
+                log(f"  phase 21: {p21['seconds']:.1f} s, "
+                    f"{p21['profile']['b1_launches']} B1 launches in the "
+                    f"worker's profile")
+                _free(torch, dev)
 
         if run(22):
-            log(f"[22/22] processes on the one card: {P22['tiny']} and "
-                f"{P22['model']} data-parallel over "
-                f"{P22['processes']} processes")
-            p22 = dist_phase(torch, tatt, dev)
-            log(f"  phase 22: {p22['seconds']:.1f} s, "
-                f"{p22['llama']['launches_per_step']} B1 launches a step "
-                f"in each process")
-            _free(torch, dev)
+            with phase(22):
+                log(f"[22/23] processes on the one card: {P22['tiny']} and "
+                    f"{P22['model']} data-parallel over "
+                    f"{P22['processes']} processes")
+                p22 = dist_phase(torch, tatt, dev)
+                log(f"  phase 22: {p22['seconds']:.1f} s, "
+                    f"{p22['llama']['launches_per_step']} B1 launches a step "
+                    f"in each process")
+                _free(torch, dev)
+
+        if run(23):
+            with phase(23):
+                log(f"[23/23] the plain gateway: `gateway --backend` (no "
+                    f"--tpu) as a subprocess before a {P23['model']} "
+                    f"sidecar, then with --workers {P23['workers']}")
+                p23 = asyncio.run(plain_gateway_phase(torch, tatt, dev))
+                log(f"  phase 23: {p23['seconds']:.1f} s, {json.dumps(p23)}")
+                _free(torch, dev)
+
+        # No module of the JAX package ran in this process either.
+        loaded = sorted(m for m, mod in sys.modules.items()
+                        if mod is not None
+                        and m.split(".")[0] == REFERENCE_PACKAGE)
+        check(loaded == [], f"modules of the JAX package loaded: {loaded}")
     except SmokeError as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
+    log(json.dumps({"phase_seconds": PHASE_SECONDS}))
     if only is not None:
         log(f"partial run of phases {sorted(only)}: "
             f"{time.perf_counter() - t_start:.1f} s, no result")
@@ -7903,6 +8320,7 @@ def main() -> int:
         watch_launches=p20["watch"]["launches"],
         fleet_worker_launches=p21["profile"]["b1_launches"],
         fleet_sidecar_launches=p21["burst"]["sidecar_launches"],
+        plain_gateway_launches=p23["launches"],
         dist_tiny_launches=[p["launches"]
                             for p in p22["tiny"]["processes"]],
         dist_launches_per_step=p22["llama"]["launches_per_step"],

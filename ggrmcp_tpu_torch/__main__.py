@@ -1,17 +1,27 @@
 """CLI: `python -m ggrmcp_tpu_torch [gateway|sidecar|train] ...`.
 
-`gateway` (also what bare flags mean, as in the reference CLI) is the
-one-process-tree entry: it serves the sidecar in this process and
-co-launches the unchanged MCP gateway of the JAX package as a child
-(`python -m ggrmcp_tpu gateway`, which loads no JAX) over a private unix
-socket, supervising the sidecar (serving/launcher.py). It takes the
-reference's flags: `--http-port`, `--log-level`, `--dev` and
-`--descriptor` go to the gateway; `--grpc-host/--grpc-port/--backend`
-add external backends to its pool (only when given, by flag, config file
-or GGRMCP_GRPC_* variable); `--model`, `--quantize`, `--hf-checkpoint`,
-`--tokenizer` and `--speculative-draft` configure the sidecar; `--tpu`
-is accepted and implied (this gateway always co-launches; run `python -m
-ggrmcp_tpu gateway` for a plain one); `--workers` above 1 is refused.
+`gateway` (also what bare flags mean, as in the reference CLI) runs the
+port's MCP gateway (gateway/app.py) with the reference's flags and their
+meanings (`ggrmcp_tpu/__main__.py`):
+- without `--tpu`, the plain gateway over `--backend` targets (repeat
+  for a pool) or `--grpc-host` / `--grpc-port`; `--workers N` runs N
+  gateway processes on one port (SO_REUSEPORT). This path loads no
+  torch.
+- with `--tpu`, the co-launch (serving/launcher.py): the gateway and the
+  port's sidecar on one event loop in this process, over a private unix
+  socket, the sidecar supervised; `--model`, `--quantize`,
+  `--hf-checkpoint`, `--tokenizer` and `--speculative-draft` configure
+  the sidecar, and an external backend joins the pool only when one was
+  given (by flag, config file or GGRMCP_GRPC_* variable). `--workers`
+  above 1 is refused, as in the reference.
+`--http-port`, `--log-level`, `--dev` and `--descriptor` set the
+gateway. `--device` (default the card; 'cpu' only when asked) and
+`--seed` (random weights) apply to the co-launched sidecar and to the
+workers of the replica fleet: with `{"fleet": {"enabled": true,
+"min_replicas": 1, "max_replicas": 2}}` (or GGRMCP_FLEET_ENABLED=1) the
+gateway's supervisor spawns, heals and scales workers of this port
+(`python -m ggrmcp_tpu_torch.serving.fleet`), each serving the
+`serving` section, device and seed.
 
 `train` runs the training loop (models/trainer.py) with the reference's
 flags (`--model`, `--steps`, `--batch-size`, `--seq-len`,
@@ -30,21 +40,11 @@ tokenizer.json and needs the `tokenizers` package. `--quantize int8`
 serves int8 weights.
 
 `--config` takes a whole reference config file, JSON, or YAML where
-PyYAML is installed: "serving" is parsed strictly (an unknown key
-raises), "fleet" gives the supervisor's restart backoff, and the
-gateway's sections (server, grpc, logging, mcp, metrics, session, tools,
-gateway, training, and fleet too) go to the gateway child verbatim.
-With `{"fleet": {"enabled": true, "min_replicas": 1, "max_replicas":
-2}}` (or GGRMCP_FLEET_ENABLED=1) `gateway` also runs the reference's
-replica fleet: the child's supervisor spawns, heals and scales workers
-of this port (`python -m ggrmcp_tpu_torch.serving.fleet`), each serving
-the same `serving` section, `--device`, `--seed` and serving flags as
-the co-launched sidecar, which stays a static backend beside them. E.g. `{"serving":
-{"model": "llama3-8b", "quantize": "int8", "kv_cache_dtype": "int8",
-"batching": {"max_batch_size": 16}, "mesh": {"tensor": 2}}, "grpc":
-{"reconnect": {"watchdog_interval_s": 2}}}`. GGRMCP_SERVING_* and
-GGRMCP_FLEET_* variables go over the file, and flags over both. Runs on
-CUDA unless `--device cpu` is given.
+PyYAML is installed: every section is parsed, "serving" and "training"
+strictly (an unknown key raises). E.g. `{"serving": {"model":
+"llama3-8b", "quantize": "int8", "batching": {"max_batch_size": 16},
+"mesh": {"tensor": 2}}, "grpc": {"reconnect": {"watchdog_interval_s":
+2}}}`. GGRMCP_* variables go over the file, and flags over both.
 """
 
 from __future__ import annotations
@@ -53,19 +53,36 @@ import argparse
 import asyncio
 import dataclasses
 import logging
-import os
-import signal
 import sys
 
 from ggrmcp_tpu_torch.core import config as cfgmod
 from ggrmcp_tpu_torch.core.config import QUANTIZE_MODES
-from ggrmcp_tpu_torch.models import available_models
 
 SUBCOMMANDS = ("gateway", "sidecar", "train")
 
 
+class _ModelNames:
+    """The registry's model names as `--model`'s choices, read when a
+    name is checked (never while the parser is built: `--model` names
+    its metavar): the registry imports torch, which the plain gateway
+    never loads."""
+
+    @staticmethod
+    def _names() -> list[str]:
+        from ggrmcp_tpu_torch.models import available_models
+
+        return available_models()
+
+    def __contains__(self, name) -> bool:
+        return name in self._names()
+
+    def __iter__(self):
+        return iter(self._names())
+
+
 def _sidecar_flags(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--model", default=None, choices=available_models(),
+    p.add_argument("--model", default=None, choices=_ModelNames(),
+                   metavar="MODEL",
                    help="model registry key (default tiny-llama)")
     p.add_argument(
         "--hf-checkpoint", default="",
@@ -91,40 +108,42 @@ def _sidecar_flags(p: argparse.ArgumentParser) -> None:
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="ggrmcp_tpu_torch",
-        description="PyTorch/CUDA serving sidecar, its co-launched MCP "
-        "gateway, and the trainer",
+        description="The MCP gateway, the PyTorch/CUDA serving sidecar "
+        "it co-launches, and the trainer",
     )
     sub = parser.add_subparsers(dest="command")
     gw = sub.add_parser(
-        SUBCOMMANDS[0],
-        help="co-launch the MCP gateway over a supervised sidecar",
-        description="Serve the sidecar here and the MCP gateway as a "
-        "child over it. With fleet.enabled in --config (or "
-        "GGRMCP_FLEET_ENABLED=1) the gateway's fleet supervisor also "
-        "runs replica workers of this port; --device, --seed and the "
-        "serving flags reach the workers as they reach the sidecar.",
+        SUBCOMMANDS[0], help="run the MCP gateway",
+        description="The MCP gateway over gRPC backends; with --tpu it "
+        "also serves a supervised sidecar of this port in its process. "
+        "With fleet.enabled in --config (or GGRMCP_FLEET_ENABLED=1) its "
+        "fleet supervisor runs replica workers of this port; --device, "
+        "--seed and the serving flags reach the workers as they reach "
+        "the sidecar.",
     )
-    gw.add_argument("--grpc-host", default=None, help="external backend host")
+    gw.add_argument("--grpc-host", default=None, help="backend gRPC host")
     gw.add_argument("--grpc-port", type=int, default=None,
-                    help="external backend port")
-    gw.add_argument("--backend", action="append", default=None,
-                    metavar="HOST:PORT",
-                    help="external backend; repeat for a pool")
+                    help="backend gRPC port")
     gw.add_argument("--http-port", type=int, default=None,
-                    help="gateway HTTP listen port")
+                    help="HTTP listen port")
     gw.add_argument("--log-level", default=None,
                     help="debug|info|warning|error")
     gw.add_argument("--dev", action="store_true", help="development mode")
     gw.add_argument("--descriptor", default=None,
                     help="FileDescriptorSet (.binpb) path")
+    gw.add_argument("--backend", action="append", default=None,
+                    metavar="HOST:PORT",
+                    help="backend target; repeat for a pool (overrides "
+                    "--grpc-host/port)")
     gw.add_argument("--tpu", action="store_true",
-                    help="accepted and implied: this gateway always "
-                    "co-launches the sidecar")
+                    help="co-launch the port's serving sidecar in this "
+                    "process and register it")
     gw.add_argument("--speculative-draft", default=None,
-                    help="sidecar draft model for speculative decoding")
+                    help="sidecar draft model for speculative decoding "
+                    "(with --tpu)")
     gw.add_argument("--workers", type=int, default=None,
-                    help="refused above 1 (each worker would co-launch "
-                    "its own sidecar)")
+                    help="gateway worker processes sharing the port "
+                    "(SO_REUSEPORT)")
     _sidecar_flags(gw)
     sc = sub.add_parser(SUBCOMMANDS[1], help="run the serving sidecar only")
     sc.add_argument("--port", type=int, default=None,
@@ -133,8 +152,8 @@ def build_parser() -> argparse.ArgumentParser:
     _sidecar_flags(sc)
     tr = sub.add_parser(
         SUBCOMMANDS[2], help="train a decoder model (checkpoint/resume)")
-    tr.add_argument("--model", default=None, choices=available_models(),
-                    help="model registry key")
+    tr.add_argument("--model", default=None, choices=_ModelNames(),
+                    metavar="MODEL", help="model registry key")
     tr.add_argument("--steps", type=int, default=None)
     tr.add_argument("--batch-size", type=int, default=None)
     tr.add_argument("--seq-len", type=int, default=None)
@@ -169,9 +188,24 @@ def training_config(args: argparse.Namespace,
 
 def load_config(args: argparse.Namespace,
                 environ: dict | None = None) -> cfgmod.Config:
-    """Defaults → `--config` file → GGRMCP_SERVING_* / GGRMCP_FLEET_*
-    environment → the flags given on the command line."""
-    cfg = cfgmod.load(args.config, environ=environ)
+    """Defaults (development ones with `--dev`) → `--config` file →
+    GGRMCP_* environment → the flags given on the command line, as the
+    reference's `load_config` applies them."""
+    cfg = cfgmod.load(args.config, environ=environ,
+                      dev=getattr(args, "dev", False))
+    if getattr(args, "grpc_host", None):
+        cfg.grpc.host = args.grpc_host
+    if getattr(args, "grpc_port", None):
+        cfg.grpc.port = args.grpc_port
+    if getattr(args, "http_port", None):
+        cfg.server.port = args.http_port
+    if getattr(args, "log_level", None):
+        cfg.logging.level = args.log_level
+    if getattr(args, "descriptor", None):
+        cfg.grpc.descriptor_set.enabled = True
+        cfg.grpc.descriptor_set.path = args.descriptor
+    if getattr(args, "workers", None):
+        cfg.server.workers = args.workers
     flags = dict(
         model=args.model, port=getattr(args, "port", None),
         quantize=args.quantize,
@@ -181,6 +215,7 @@ def load_config(args: argparse.Namespace,
     )
     cfg.serving = dataclasses.replace(
         cfg.serving, **{k: v for k, v in flags.items() if v is not None})
+    cfg.validate()
     return cfg
 
 
@@ -188,46 +223,18 @@ def serving_config(args: argparse.Namespace) -> cfgmod.ServingConfig:
     return load_config(args).serving
 
 
-def external_backends(args: argparse.Namespace, cfg: cfgmod.Config,
-                      environ: dict | None = None) -> list[str]:
-    """The gateway pool's external backends, by the reference's rule:
-    only when one was given explicitly — `--backend`, `--grpc-host` /
-    `--grpc-port`, or a config file or GGRMCP_GRPC_HOST / _PORT that
-    moves grpc's target off its built-in placeholder."""
-    if args.backend:
-        return list(args.backend)
-    environ = os.environ if environ is None else environ
-    grpc_cfg = cfg.sections.get("grpc", {})
-    host = (args.grpc_host or environ.get("GGRMCP_GRPC_HOST")
-            or grpc_cfg.get("host", "localhost"))
-    port = (args.grpc_port or environ.get("GGRMCP_GRPC_PORT")
-            or grpc_cfg.get("port", 50051))
-    target = f"{host}:{port}"
-    explicit = bool(args.grpc_host or args.grpc_port
-                    or target != "localhost:50051")
-    return [target] if explicit else []
-
-
-def gateway_flags(args: argparse.Namespace) -> list[str]:
-    """The flags the gateway child takes from ours."""
-    out: list[str] = []
-    if args.http_port is not None:
-        out += ["--http-port", str(args.http_port)]
-    if args.log_level:
-        out += ["--log-level", args.log_level]
-    if args.dev:
-        out.append("--dev")
-    if args.descriptor:
-        out += ["--descriptor", args.descriptor]
-    return out
-
-
-def _workers(args: argparse.Namespace, cfg: cfgmod.Config) -> int:
-    if args.workers is not None:
-        return args.workers
-    env = os.environ.get("GGRMCP_SERVER_WORKERS")
-    return int(env) if env else int(
-        cfg.sections.get("server", {}).get("workers", 1))
+def external_backends(args: argparse.Namespace,
+                      cfg: cfgmod.Config) -> list[str]:
+    """The co-launched pool's external backends, by the reference's
+    rule: only when one was given explicitly — `--backend`,
+    `--grpc-host` / `--grpc-port`, or a config file or GGRMCP_GRPC_HOST
+    / _PORT that moves grpc's target off its built-in placeholder
+    (`cfg` carries the flags already)."""
+    explicit = bool(args.backend or args.grpc_host or args.grpc_port
+                    or cfg.grpc.target != cfgmod.GRPCConfig().target)
+    if not explicit:
+        return []
+    return list(args.backend) if args.backend else [cfg.grpc.target]
 
 
 async def _serve(args: argparse.Namespace) -> None:
@@ -241,19 +248,6 @@ async def _serve(args: argparse.Namespace) -> None:
         await sidecar.stop()
 
 
-async def _colaunch(args: argparse.Namespace, cfg: cfgmod.Config) -> None:
-    from ggrmcp_tpu_torch.serving.launcher import Colaunch, run_colaunch
-
-    stop = asyncio.Event()
-    loop = asyncio.get_running_loop()
-    for sig in (signal.SIGTERM, signal.SIGINT):
-        loop.add_signal_handler(sig, stop.set)
-    colaunch = Colaunch(cfg, gateway_flags(args),
-                        external_backends(args, cfg),
-                        device=args.device, seed=args.seed)
-    await run_colaunch(colaunch, stop)
-
-
 def parse_args(argv) -> argparse.Namespace:
     """The reference CLI's rule: bare flags (or none) imply `gateway`."""
     argv = list(argv)
@@ -264,29 +258,46 @@ def parse_args(argv) -> argparse.Namespace:
 
 def main(argv=None) -> int:
     args = parse_args(sys.argv[1:] if argv is None else argv)
-    logging.basicConfig(
-        level=getattr(logging, (args.log_level or "info").upper(),
-                      logging.INFO),
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
-    )
     if args.command == "sidecar":
+        _basic_logging(args.log_level)
         asyncio.run(_serve(args))
         return 0
     if args.command == "train":
         from ggrmcp_tpu_torch.models.trainer import train
 
+        _basic_logging(args.log_level)
         train(training_config(args), device=args.device)
         return 0
     cfg = load_config(args)
-    if _workers(args, cfg) > 1:
-        raise SystemExit(
-            "--workers > 1 is incompatible with the co-launched sidecar "
-            "(each worker would co-launch its own); run the sidecar "
-            "separately and point `python -m ggrmcp_tpu gateway "
-            "--backend` at it"
-        )
-    asyncio.run(_colaunch(args, cfg))
+    targets = args.backend if args.backend else [cfg.grpc.target]
+    if cfg.server.workers > 1:
+        if args.tpu:
+            raise SystemExit(
+                "--workers > 1 is incompatible with --tpu (each worker "
+                "would co-launch its own sidecar); run the sidecar "
+                "separately and point --backend at it"
+            )
+        from ggrmcp_tpu_torch.gateway.app import run_multiworker
+
+        run_multiworker(cfg, targets)
+        return 0
+    if args.tpu:
+        from ggrmcp_tpu_torch.serving.launcher import run_gateway_with_sidecar
+
+        run_gateway_with_sidecar(cfg, external_backends(args, cfg),
+                                 device=args.device, seed=args.seed)
+    else:
+        from ggrmcp_tpu_torch.gateway.app import run
+
+        run(cfg, targets, worker_device=args.device, worker_seed=args.seed)
     return 0
+
+
+def _basic_logging(level) -> None:
+    logging.basicConfig(
+        level=getattr(logging, (level or "info").upper(), logging.INFO),
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+    )
 
 
 if __name__ == "__main__":

@@ -1,14 +1,15 @@
-"""The port's serving and training configuration.
+"""The port's configuration tree.
 
-`BatchingConfig`, `ServingConfig`, `TrainingConfig` and their sections
-carry the fields this package reads, under the reference's names and
-defaults (`ggrmcp_tpu/core/config.py`), with the reference's checks. A
-value the port does not serve raises ValueError naming the field, never
-silently ignored. `load` reads a whole reference config file (JSON, or
-YAML with PyYAML) and the GGRMCP_SERVING_* / GGRMCP_FLEET_* /
-GGRMCP_TRAINING_* environment over it: `serving`, `training` and the
-fleet section into these classes, the gateway's sections (the fleet
-section among them) verbatim.
+The gateway's sections (`ServerConfig` through `ToolsConfig`,
+`RoutingConfig`, `GatewayConfig`, `LoggingConfig`, `MetricsConfig`) are
+the reference's classes (`ggrmcp_tpu/core/config.py`), copied with their
+fields, defaults and checks. `BatchingConfig`, `ServingConfig`,
+`TrainingConfig` and their sections carry the fields this package reads,
+under the reference's names and defaults, with the reference's checks.
+A value the port does not serve raises ValueError naming the field,
+never silently ignored. `load` reads a whole reference config file
+(JSON, or YAML with PyYAML) and the GGRMCP_* environment over it, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -761,6 +762,359 @@ class ServingConfig:
                 )
 
 
+# ---------------------------------------------------------------------------
+# Server / HTTP
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SecurityConfig:
+    enable_security_headers: bool = True
+    hsts: bool = True
+    content_security_policy: str = "default-src 'none'"
+
+
+@dataclass
+class CORSConfig:
+    enabled: bool = True
+    allowed_origins: list[str] = field(default_factory=lambda: ["*"])
+    allowed_methods: list[str] = field(
+        default_factory=lambda: ["GET", "POST", "OPTIONS"]
+    )
+    allowed_headers: list[str] = field(
+        default_factory=lambda: ["Content-Type", "Mcp-Session-Id", "Authorization"]
+    )
+    exposed_headers: list[str] = field(default_factory=lambda: ["Mcp-Session-Id"])
+
+
+@dataclass
+class RateLimitConfig:
+    enabled: bool = True
+    requests_per_second: float = 100.0
+    burst: int = 200
+
+
+@dataclass
+class ServerConfig:
+    host: str = "0.0.0.0"
+    port: int = 50053
+    read_timeout_s: float = 15.0
+    write_timeout_s: float = 15.0
+    idle_timeout_s: float = 60.0
+    request_timeout_s: float = 30.0
+    max_request_bytes: int = 1 << 20  # 1 MB
+    shutdown_grace_s: float = 30.0
+    # Worker processes sharing the listen port via SO_REUSEPORT. The Go
+    # reference used every core through goroutines; asyncio is
+    # single-core, so >1 scales the gateway across cores. Sessions are
+    # worker-local (kernel hashing keeps a keep-alive connection on one
+    # worker; use 1 worker or a sticky LB if cross-connection session
+    # continuity matters). Requires a fixed port.
+    workers: int = 1
+    # HTTP server implementation: "fastlane" (raw asyncio.Protocol hot
+    # path, gateway/fastlane.py — the default; ~framework-free
+    # per-request cost) or "aiohttp" (the web.Application stack).
+    # Identical served surface and gate semantics either way.
+    http_impl: str = "fastlane"
+    allowed_content_types: list[str] = field(
+        default_factory=lambda: ["application/json"]
+    )
+    security: SecurityConfig = field(default_factory=SecurityConfig)
+    cors: CORSConfig = field(default_factory=CORSConfig)
+    rate_limit: RateLimitConfig = field(default_factory=RateLimitConfig)
+
+
+# ---------------------------------------------------------------------------
+# gRPC upstream(s)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class KeepAliveConfig:
+    time_s: float = 10.0
+    timeout_s: float = 5.0
+    permit_without_stream: bool = True
+
+
+@dataclass
+class ReconnectConfig:
+    """Background reconnect policy.
+
+    The reference defined Reconnect (pkg/grpc/discovery.go:187-235) but
+    never invoked it at runtime; here a background watchdog actually
+    drives it (SURVEY.md §5.3 'deliberately fix').
+    """
+
+    enabled: bool = True
+    max_attempts: int = 5
+    interval_s: float = 5.0
+    watchdog_interval_s: float = 10.0
+
+
+@dataclass
+class HeaderForwardingConfig:
+    enabled: bool = True
+    forward_all: bool = False
+    case_insensitive: bool = True
+    allowed_headers: list[str] = field(
+        default_factory=lambda: [
+            "authorization",
+            "x-trace-id",
+            "x-request-id",
+            "x-user-id",
+            "x-session-id",
+            "x-adapter-id",
+            "x-tenant-id",
+            "x-qos-class",
+            "x-api-key",
+            "user-agent",
+            "accept-language",
+        ]
+    )
+    blocked_headers: list[str] = field(
+        default_factory=lambda: [
+            "cookie",
+            "set-cookie",
+            "host",
+            "content-length",
+            "content-type",
+            "connection",
+            "upgrade",
+            "proxy-authorization",
+            "proxy-authenticate",
+            "te",
+            "trailer",
+            "transfer-encoding",
+            "mcp-session-id",
+        ]
+    )
+
+
+@dataclass
+class DescriptorSetConfig:
+    enabled: bool = False
+    path: str = ""
+    prefer_over_reflection: bool = True
+    include_source_info: bool = True
+
+
+@dataclass
+class GRPCConfig:
+    host: str = "localhost"
+    port: int = 50051
+    max_message_bytes: int = 4 << 20  # 4 MB
+    connect_timeout_s: float = 5.0
+    call_timeout_s: float = 30.0
+    use_tls: bool = False
+    keepalive: KeepAliveConfig = field(default_factory=KeepAliveConfig)
+    reconnect: ReconnectConfig = field(default_factory=ReconnectConfig)
+    header_forwarding: HeaderForwardingConfig = field(
+        default_factory=HeaderForwardingConfig
+    )
+    descriptor_set: DescriptorSetConfig = field(default_factory=DescriptorSetConfig)
+
+    @property
+    def target(self) -> str:
+        return f"{self.host}:{self.port}"
+
+
+# ---------------------------------------------------------------------------
+# MCP protocol
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ValidationConfig:
+    max_method_length: int = 1024
+    max_tool_name_length: int = 128
+    max_nesting_depth: int = 10
+    max_request_bytes: int = 1 << 20
+
+
+@dataclass
+class MCPConfig:
+    protocol_version: str = "2024-11-05"
+    server_name: str = "ggrmcp-tpu"
+    # Default comes from the package metadata (ggrmcp_tpu.__version__)
+    # so `initialize` reports the real installed version — reference
+    # parity with handler.go:160-179 ("ggRMCP/1.0.0"), minus its
+    # hardcoding. field(default_factory=...) defers the import.
+    server_version: str = field(
+        default_factory=lambda: __import__("ggrmcp_tpu_torch").__version__
+    )
+    validation: ValidationConfig = field(default_factory=ValidationConfig)
+
+
+# ---------------------------------------------------------------------------
+# Sessions
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SessionRateLimitConfig:
+    """Per-session fixed-window limit — and unlike the reference
+    (pkg/session/manager.go:178, never called), the handler enforces it."""
+
+    enabled: bool = True
+    requests_per_minute: int = 100
+
+
+@dataclass
+class SessionConfig:
+    ttl_s: float = 1800.0  # 30 min
+    cleanup_interval_s: float = 300.0  # 5 min
+    max_sessions: int = 10_000
+    rate_limit: SessionRateLimitConfig = field(default_factory=SessionRateLimitConfig)
+
+
+# ---------------------------------------------------------------------------
+# Tools / schema generation
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SchemaCacheConfig:
+    """Schema cache — configured AND implemented (the reference declared
+    this but never wired it; pkg/tools/builder.go:18)."""
+
+    enabled: bool = True
+    max_entries: int = 4096
+
+
+@dataclass
+class ToolsConfig:
+    max_schema_depth: int = 10
+    emit_output_schema: bool = True
+    include_comments: bool = True
+    tensor_extensions: bool = True  # x-tensor dtype/shape hints in schemas
+    # Expose server-streaming methods as tools (the reference rejected
+    # all streaming, pkg/tools/builder.go:129-134; the gateway here
+    # serves them aggregated or over SSE). Client streaming stays out.
+    streaming_tools: bool = True
+    cache: SchemaCacheConfig = field(default_factory=SchemaCacheConfig)
+
+# Replica-routing policies (gateway.routing.policy) — the single source
+# of truth for config.validate() and rpc/router.py.
+ROUTING_POLICIES = ("round_robin", "least_loaded", "affinity")
+
+
+@dataclass
+class RoutingConfig:
+    """Load-aware replica routing over DP replica pools
+    (rpc/router.py, docs/routing.md). Applies whenever several
+    discovered backends serve the SAME method full name — the gateway
+    then chooses the serving replica per call instead of pinning to
+    one upstream (the reference's single-target limitation)."""
+
+    # "round_robin" — per-tool cursors over the healthy replica set
+    #   (the historical default; bitwise behavior-compatible with the
+    #   pre-router path).
+    # "least_loaded" — score each replica from the background
+    #   ServingStats snapshot (pending queue depth + EWMA TTFT) and
+    #   place on the cheapest one; routing never blocks on a gRPC
+    #   fan-out, and a stale/wedged snapshot degrades LOUDLY to
+    #   round-robin, never to a stall.
+    # "affinity" — rendezvous(HRW)-hash a stable per-call key
+    #   (x-session-id header, else tool name + the serialized-request
+    #   preamble) over the healthy replica set, so one replica
+    #   accumulates a session's paged-KV prefix pages instead of every
+    #   replica cold-prefilling them (docs/paged_kv.md). Affinity is a
+    #   PREFERENCE: an overloaded home replica spills to the least
+    #   loaded one (spill_threshold).
+    policy: str = "round_robin"
+    # Affinity key fallback: first N bytes of the canonically
+    # serialized arguments (sorted-key JSON), hashed with the tool
+    # name. Big enough to span a system-prompt preamble, small enough
+    # that the key derivation stays off the hot path's flamegraph.
+    affinity_preamble_bytes: int = 256
+    # Spill when the affinity-chosen replica's load score exceeds this
+    # (score units: 1.0 per queued request + EWMA TTFT / 100 ms).
+    # 0 disables spilling (strict affinity).
+    spill_threshold: float = 8.0
+    # DEPRECATED heuristic (off by default), superseded by real
+    # prefill/decode disaggregation (serving.role + the disagg knobs
+    # below): steer requests whose estimated prefill work exceeds
+    # steer_prefill_min_tokens toward replicas whose cumulative
+    # tick-phase attribution shows the smallest admit-phase (prefill)
+    # share. Only consulted when no affinity key applies. The moment
+    # any replica declares a non-"mixed" serving.role, steer_prefill=on
+    # is rejected with a typed error naming the migration — the two
+    # mechanisms must not fight over placement (docs/routing.md).
+    steer_prefill: str = "off"  # off | on
+    steer_prefill_min_tokens: int = 1024
+    # Prefill/decode disaggregation (serving.role, docs/routing.md).
+    # "auto" (default): the two-leg prefill→TransferKV→decode placement
+    # engages as soon as the ServingStats snapshot shows a prefill-role
+    # replica AND a decode-capable one — a pure-mixed fleet routes
+    # exactly as before, bit-for-bit. "off": never split, even with
+    # roles declared (prefill replicas are then simply excluded from
+    # short-request placement).
+    disagg: str = "auto"  # auto | off
+    # Requests whose estimated prefill work (prompt bytes; exact for
+    # the byte tokenizer, ~4x high for BPE) is below this never take
+    # the two-leg path — a short prompt's prefill costs less than the
+    # transfer round-trip it would save.
+    disagg_min_prompt_tokens: int = 1024
+    # ServingStats snapshots older than this are considered wedged:
+    # score-based policies fall back to round-robin (with a warning)
+    # until the background refresh recovers.
+    stale_stats_max_age_s: float = 30.0
+
+
+@dataclass
+class GatewayConfig:
+    """Gateway-side behavior knobs (no reference analogue)."""
+
+    # Replica routing policy + affinity/drain knobs (rpc/router.py).
+    routing: RoutingConfig = field(default_factory=RoutingConfig)
+    # Per-tool structured-output opt-in: MCP tool name → source of the
+    # schema to enforce on that tool's generated text. "self" (or "")
+    # enforces the tool's OWN output schema; any other value names a
+    # discovered tool whose output schema to enforce. The gateway
+    # inlines the resolved schema into GenerateRequest.constraint on
+    # every call to the tool; only tools whose input message carries a
+    # `constraint` field (the TPU Generate surface) are eligible.
+    # Callers can also pass `constraint.toolOutputSchemaRef` per call —
+    # the gateway resolves it the same way.
+    structured_output: dict = field(default_factory=dict)
+    # Per-MCP-tool settings: tool name → {"adapter": <name>}. The
+    # adapter binding injects `adapter=<name>` into every call of that
+    # tool whose input message carries an `adapter` field (the TPU
+    # Generate surface), so one pod serves a thousand fine-tunes
+    # behind one tool list (docs/multi_lora.md). Per-call/per-session
+    # override: the forwarded `x-adapter-id` header beats the binding;
+    # an explicit `adapter` argument beats both.
+    tools: dict = field(default_factory=dict)
+
+
+# ---------------------------------------------------------------------------
+# Logging / observability
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class LoggingConfig:
+    level: str = "info"
+    development: bool = False
+    json_output: bool = True
+    # "json" switches gateway AND sidecar logging to structured
+    # one-line JSON records (utils/jsonlog.JsonFormatter): every line
+    # is parseable json.dumps output carrying ts/level/logger/msg plus
+    # the current trace id from the tracing contextvar, so process
+    # logs join /debug/traces, /debug/requests, and /debug/timeline by
+    # trace id. "" keeps the legacy format strings above (json_output
+    # interpolates into a JSON-shaped template without escaping —
+    # greppable, not parseable). GGRMCP_LOG_JSON=1 is the config-free
+    # opt-in for both processes.
+    format: str = ""  # "" | "json"
+
+
+@dataclass
+class MetricsConfig:
+    enabled: bool = True
+    prometheus: bool = True  # real text-format metrics, not a JSON stub
+
+
 def _from_dict(cls, data: Any, where: str, nested: dict):
     if not isinstance(data, dict):
         raise ValueError(f"{where} must be an object, not {data!r}")
@@ -775,24 +1129,16 @@ def _from_dict(cls, data: Any, where: str, nested: dict):
     return cls(**kwargs)
 
 
-# Top-level sections of a reference config file that the gateway reads:
-# the co-launch hands them to the gateway process verbatim (it validates
-# them); the sidecar alone ignores them. "training" is also parsed here,
-# strictly, for the train subcommand.
-GATEWAY_SECTIONS = ("server", "grpc", "logging", "mcp", "metrics",
-                    "session", "tools", "gateway", "training")
-
-
 @dataclass
 class FleetConfig:
     """A reference config's fleet section (the reference's fields and
-    defaults). The co-launch's supervisor (serving/launcher.py) uses the
-    restart knobs, with the reference's checks: it restarts a dead
-    sidecar after min(backoff_max_s, backoff_base_s * 2^attempt) * (1 +
-    jitter * U) seconds, at most restart_max_attempts times. The rest
-    are the replica fleet's (`enabled`: the gateway child supervises
-    workers of this port, serving/fleet.py): they reach the child in its
-    config file, whose own FleetConfig checks them."""
+    defaults, checked by `Config.validate` as the reference checks
+    them). The co-launch's supervisor (serving/launcher.py) uses the
+    restart knobs: it restarts a dead sidecar after
+    min(backoff_max_s, backoff_base_s * 2^attempt) * (1 + jitter * U)
+    seconds, at most restart_max_attempts times. With `enabled` the
+    gateway's replica fleet (serving/fleet.py) spawns, heals and scales
+    workers of this port."""
 
     enabled: bool = False
     min_replicas: int = 1
@@ -813,62 +1159,252 @@ class FleetConfig:
     drain_grace_s: float = 10.0
     action_log: int = 256
 
-    def __post_init__(self) -> None:
-        if self.backoff_base_s <= 0 or self.backoff_max_s < self.backoff_base_s:
-            raise ValueError(
-                "fleet.backoff_base_s must be > 0 and <= fleet.backoff_max_s"
-            )
-        if not (0 <= self.backoff_jitter < 1):
-            raise ValueError("fleet.backoff_jitter must be in [0, 1)")
-        if self.restart_max_attempts < 1:
-            raise ValueError("fleet.restart_max_attempts must be >= 1")
-
 
 @dataclass
 class Config:
-    """A whole reference config file as the port reads it: `serving`,
-    `training` and the fleet section parsed, the gateway's
-    sections (training and the fleet section among them) kept verbatim
-    in `sections`."""
+    """A whole reference config file: the gateway's sections (the
+    reference's classes), `serving` and `training` (the port's, checked
+    as they are built) and `fleet`."""
 
+    server: ServerConfig = field(default_factory=ServerConfig)
+    grpc: GRPCConfig = field(default_factory=GRPCConfig)
+    mcp: MCPConfig = field(default_factory=MCPConfig)
+    session: SessionConfig = field(default_factory=SessionConfig)
+    tools: ToolsConfig = field(default_factory=ToolsConfig)
+    gateway: GatewayConfig = field(default_factory=GatewayConfig)
     serving: ServingConfig = field(default_factory=ServingConfig)
     fleet: FleetConfig = field(default_factory=FleetConfig)
     training: TrainingConfig = field(default_factory=TrainingConfig)
-    sections: dict = field(default_factory=dict)
+    logging: LoggingConfig = field(default_factory=LoggingConfig)
+    metrics: MetricsConfig = field(default_factory=MetricsConfig)
+
+    def validate(self) -> None:
+        """The reference's checks of the gateway's sections, the fleet
+        and the serving keys that span sections; `serving` and
+        `training` check themselves when built."""
+        if not (0 < self.server.port < 65536):
+            raise ValueError(f"invalid HTTP port: {self.server.port}")
+        if self.server.workers < 1:
+            raise ValueError("server.workers must be >= 1")
+        if self.server.http_impl not in ("fastlane", "aiohttp"):
+            raise ValueError(
+                f"unknown server.http_impl {self.server.http_impl!r}; "
+                "supported: 'fastlane', 'aiohttp'"
+            )
+        if not (0 < self.grpc.port < 65536):
+            raise ValueError(f"invalid gRPC port: {self.grpc.port}")
+        if self.server.request_timeout_s <= 0:
+            raise ValueError("request timeout must be positive")
+        if self.grpc.connect_timeout_s <= 0:
+            raise ValueError("gRPC connect timeout must be positive")
+        if self.grpc.max_message_bytes <= 0:
+            raise ValueError("gRPC max message size must be positive")
+        if self.session.max_sessions <= 0:
+            raise ValueError("session capacity must be positive")
+        if self.tools.max_schema_depth <= 0:
+            raise ValueError("schema depth must be positive")
+        if self.grpc.descriptor_set.enabled and not self.grpc.descriptor_set.path:
+            raise ValueError("descriptor set enabled but no path given")
+        so = self.gateway.structured_output
+        if not isinstance(so, dict) or not all(
+            isinstance(k, str) and isinstance(v, str)
+            for k, v in so.items()
+        ):
+            raise ValueError(
+                "gateway.structured_output must map tool names to "
+                "'self' (or '') or another tool name"
+            )
+        tools_cfg = self.gateway.tools
+        if not isinstance(tools_cfg, dict):
+            raise ValueError(
+                "gateway.tools must map tool names to per-tool settings"
+            )
+        for tool, entry in tools_cfg.items():
+            if not isinstance(tool, str) or not isinstance(entry, dict):
+                raise ValueError(
+                    "gateway.tools must map tool names to settings dicts "
+                    "(e.g. {\"adapter\": \"acme\"})"
+                )
+            unknown = set(entry) - {"adapter"}
+            if unknown:
+                raise ValueError(
+                    f"gateway.tools[{tool!r}]: unknown keys "
+                    f"{sorted(unknown)}; supported: 'adapter'"
+                )
+            adapter = entry.get("adapter", "")
+            if not isinstance(adapter, str) or not adapter:
+                raise ValueError(
+                    f"gateway.tools[{tool!r}].adapter must be a "
+                    "non-empty adapter name"
+                )
+        routing = self.gateway.routing
+        if routing.policy not in ROUTING_POLICIES:
+            raise ValueError(
+                f"unknown gateway.routing.policy {routing.policy!r}; "
+                f"supported: {', '.join(ROUTING_POLICIES)}"
+            )
+        if routing.affinity_preamble_bytes < 1:
+            raise ValueError(
+                "gateway.routing.affinity_preamble_bytes must be >= 1"
+            )
+        if routing.spill_threshold < 0:
+            raise ValueError(
+                "gateway.routing.spill_threshold must be >= 0 "
+                "(0 = strict affinity, never spill)"
+            )
+        if routing.steer_prefill not in ("off", "on"):
+            raise ValueError(
+                "gateway.routing.steer_prefill must be 'off' or 'on' "
+                "(experimental — docs/routing.md)"
+            )
+        if routing.steer_prefill_min_tokens < 1:
+            raise ValueError(
+                "gateway.routing.steer_prefill_min_tokens must be >= 1"
+            )
+        if routing.stale_stats_max_age_s <= 0:
+            raise ValueError(
+                "gateway.routing.stale_stats_max_age_s must be > 0"
+            )
+        if routing.disagg not in ("auto", "off"):
+            raise ValueError(
+                f"unknown gateway.routing.disagg {routing.disagg!r}; "
+                "supported: 'auto', 'off'"
+            )
+        if routing.disagg_min_prompt_tokens < 1:
+            raise ValueError(
+                "gateway.routing.disagg_min_prompt_tokens must be >= 1"
+            )
+        fleet = self.fleet
+        if fleet.min_replicas < 1:
+            raise ValueError("fleet.min_replicas must be >= 1")
+        if fleet.max_replicas < fleet.min_replicas:
+            raise ValueError(
+                "fleet.max_replicas must be >= fleet.min_replicas"
+            )
+        if fleet.slo_ttft_p99_ms <= 0:
+            raise ValueError("fleet.slo_ttft_p99_ms must be > 0")
+        if fleet.scale_up_sustain_s <= 0 or fleet.scale_down_sustain_s <= 0:
+            raise ValueError(
+                "fleet.scale_up_sustain_s/scale_down_sustain_s must be > 0"
+            )
+        if not (0 <= fleet.shed_hold_s < fleet.scale_up_sustain_s):
+            raise ValueError(
+                "fleet.shed_hold_s must be >= 0 and < scale_up_sustain_s "
+                "(a single shed rise must never fake a sustained episode)"
+            )
+        if fleet.flap_threshold < 2:
+            raise ValueError("fleet.flap_threshold must be >= 2")
+        if fleet.flap_window_s <= 0 or fleet.action_window_s <= 0:
+            raise ValueError(
+                "fleet.flap_window_s/action_window_s must be > 0"
+            )
+        if fleet.max_actions_per_window < 1:
+            raise ValueError("fleet.max_actions_per_window must be >= 1")
+        if fleet.backoff_base_s <= 0 or fleet.backoff_max_s < fleet.backoff_base_s:
+            raise ValueError(
+                "fleet.backoff_base_s must be > 0 and <= fleet.backoff_max_s"
+            )
+        if not (0 <= fleet.backoff_jitter < 1):
+            raise ValueError("fleet.backoff_jitter must be in [0, 1)")
+        if fleet.restart_max_attempts < 1:
+            raise ValueError("fleet.restart_max_attempts must be >= 1")
+        if fleet.decide_interval_s <= 0:
+            raise ValueError("fleet.decide_interval_s must be > 0")
+        if fleet.drain_grace_s < 0:
+            raise ValueError("fleet.drain_grace_s must be >= 0 (0 = kill "
+                             "immediately after drain)")
+        if fleet.action_log < 1:
+            raise ValueError("fleet.action_log must be >= 1")
+        if self.serving.role != "mixed" and routing.steer_prefill == "on":
+            raise ValueError(
+                "gateway.routing.steer_prefill=on is superseded by "
+                "replica roles: a non-'mixed' serving.role does the "
+                "real prefill/decode split (page-granular KV "
+                "shipping). Migrate to serving.role + "
+                "gateway.routing.disagg and drop steer_prefill "
+                "(docs/routing.md role-split runbook)"
+            )
+        if self.logging.format not in ("", "json"):
+            raise ValueError(
+                f"unknown logging.format {self.logging.format!r}; "
+                "supported: 'json' (or '' for the legacy formats)"
+            )
 
 
+def default() -> Config:
+    return Config()
+
+
+def development() -> Config:
+    """Development overrides (the reference's `development`)."""
+    cfg = Config()
+    cfg.logging.level = "debug"
+    cfg.logging.development = True
+    cfg.logging.json_output = False
+    cfg.server.rate_limit.enabled = False
+    return cfg
+
+
+# The sections the port builds from the whole section (checked as they
+# are built); every other section merges key by key over its defaults,
+# by the reference's `_merge`.
 _SERVING_NESTED = {
     "batching": BatchingConfig, "grammar": GrammarConfig,
     "observability": ObservabilityConfig, "slo": SloConfig,
     "scheduler": SchedulerConfig, "lora": LoraConfig, "mesh": MeshConfig,
 }
+_BUILT = {"serving": (ServingConfig, _SERVING_NESTED),
+          "training": (TrainingConfig, {"mesh": MeshConfig})}
 
 
-def config_from_dict(data: dict) -> Config:
-    """A reference config tree → Config. `serving` is parsed strictly
-    (a key these classes do not carry raises, naming it); an unknown
+def _merge(obj: Any, data: dict[str, Any], path: str = "") -> None:
+    """The reference's merge: `data` over the dataclass `obj`, key by
+    key; an unknown key or a value of another type raises."""
+    for key, value in data.items():
+        attr = key.replace("-", "_")
+        if not hasattr(obj, attr):
+            raise ValueError(f"unknown config key: {path}{key}")
+        current = getattr(obj, attr)
+        if dataclasses.is_dataclass(current) and isinstance(value, dict):
+            _merge(current, value, f"{path}{key}.")
+        else:
+            if current is not None and not isinstance(value, type(current)):
+                # Allow int→float promotion, nothing else silently.
+                if isinstance(current, float) and isinstance(value, int):
+                    value = float(value)
+                elif isinstance(current, bool) != isinstance(value, bool):
+                    raise ValueError(
+                        f"config key {path}{key}: expected "
+                        f"{type(current).__name__}, got {type(value).__name__}"
+                    )
+            setattr(obj, attr, value)
+
+
+def config_from_dict(data: dict, base: Optional[Config] = None) -> Config:
+    """A reference config tree over `base` (default: the defaults) →
+    Config, validated. `serving` and `training` are parsed strictly (a
+    key these classes do not carry raises, naming it); an unknown
     top-level section raises."""
     if not isinstance(data, dict):
         raise ValueError("a config file holds one object")
-    known = {"serving", "fleet", *GATEWAY_SECTIONS}
-    unknown = sorted(set(data) - known)
+    cfg = base or default()
+    names = {f.name for f in dataclasses.fields(Config)}
+    unknown = sorted(set(data) - names)
     if unknown:
         raise ValueError(
             f"config: unknown top-level keys {unknown}; the sidecar's "
             f"settings nest under \"serving\""
         )
-    fleet = data.get("fleet", {})
-    if not isinstance(fleet, dict):
-        raise ValueError(f"fleet must be an object, not {fleet!r}")
-    knobs = {f.name for f in dataclasses.fields(FleetConfig)}
-    return Config(
-        serving=_from_dict(ServingConfig, data.get("serving", {}), "serving",
-                           _SERVING_NESTED),
-        fleet=FleetConfig(**{k: v for k, v in fleet.items() if k in knobs}),
-        training=_from_dict(TrainingConfig, data.get("training", {}),
-                            "training", {"mesh": MeshConfig}),
-        sections={k: v for k, v in data.items() if k != "serving"},
-    )
+    for name, section in data.items():
+        if name in _BUILT:
+            cls, nested = _BUILT[name]
+            setattr(cfg, name, _from_dict(cls, section, name, nested))
+        elif isinstance(section, dict):
+            _merge(getattr(cfg, name), section, f"{name}.")
+        else:
+            raise ValueError(f"{name} must be an object, not {section!r}")
+    cfg.validate()
+    return cfg
 
 
 def serving_config_from_dict(data: dict) -> ServingConfig:
@@ -902,33 +1438,61 @@ def load_serving_config(path: str) -> ServingConfig:
     return config_from_dict(read_file(path)).serving
 
 
-# The environment layer (the reference's apply_env): GGRMCP_SERVING_*,
-# GGRMCP_FLEET_* and GGRMCP_TRAINING_* set the port's sections; every
-# other GGRMCP_ variable is the gateway's, and GGRMCP_FLEET_WORKER_* is
-# the fleet's spawn handshake (serving/fleet.py), never a config path.
-_ENV_SECTIONS = {"serving": ServingConfig, "fleet": FleetConfig,
-                 "training": TrainingConfig}
-_ENV_SKIP_PREFIXES = ("GGRMCP_FLEET_WORKER_",)
+# The environment layer (the reference's apply_env): GGRMCP_SECTION_KEY
+# sets a key of any section. GGRMCP_-prefixed control variables that are
+# not config paths are skipped, as the reference skips them: the chaos
+# registry's GGRMCP_FAILPOINTS, GGRMCP_LOG_JSON (gateway/app.py), bench
+# knobs, the fleet's spawn handshake (serving/fleet.py) and the
+# multi-process runtime's GGRMCP_COORDINATOR / _NUM_PROCESSES /
+# _PROCESS_ID (parallel/distributed.py).
+_ENV_PREFIX = "GGRMCP_"
+_ENV_SKIP = frozenset({"GGRMCP_FAILPOINTS", "GGRMCP_LOG_JSON",
+                       "GGRMCP_COORDINATOR", "GGRMCP_NUM_PROCESSES",
+                       "GGRMCP_PROCESS_ID"})
+_ENV_SKIP_PREFIXES = ("GGRMCP_BENCH_", "GGRMCP_FLEET_WORKER_")
 
 
-def apply_env(data: dict, environ: Optional[dict] = None) -> dict:
-    """GGRMCP_{SERVING,FLEET,TRAINING}_KEY=value overrides into
-    a config tree, in place: nested paths use single underscores
-    resolved greedily against the config classes, and the raw string is
-    coerced by the type of the value it replaces (the reference's
-    rules)."""
+def apply_env(cfg: Config, environ: Optional[dict] = None) -> Config:
+    """Apply GGRMCP_SECTION_KEY=value overrides to `cfg`, in place (the
+    reference's signature): nested paths use single underscores resolved
+    greedily against the config classes, and the raw string is coerced
+    by the type of the value it replaces. `serving` and `training` are
+    rebuilt with the overrides, so their checks run again."""
+    for name, section in _env_tree(environ).items():
+        if name in _BUILT:
+            cls, nested = _BUILT[name]
+            tree = dataclasses.asdict(getattr(cfg, name))
+            for key, value in section.items():
+                if isinstance(value, dict):
+                    tree[key].update(value)
+                else:
+                    tree[key] = value
+            setattr(cfg, name, _from_dict(cls, tree, name, nested))
+        else:
+            _merge(getattr(cfg, name), section, f"{name}.")
+    return cfg
+
+
+def _env_tree(environ: Optional[dict]) -> dict:
+    """The GGRMCP_* variables of `environ` (default os.environ) as a
+    config tree of coerced values."""
     environ = dict(os.environ) if environ is None else environ
+    sections = {f.name: f.default_factory for f in dataclasses.fields(Config)}
+    data: dict = {}
     for key, raw in environ.items():
-        if key.startswith(_ENV_SKIP_PREFIXES):
+        if not key.startswith(_ENV_PREFIX):
             continue
-        for section, cls in _ENV_SECTIONS.items():
-            prefix = f"GGRMCP_{section.upper()}_"
-            if key.startswith(prefix):
-                sub = data.setdefault(section, {})
-                if not isinstance(sub, dict):
-                    raise ValueError(f"{section} must be an object")
-                _env_path(cls, sub, key[len(prefix):].lower().split("_"),
-                          raw, key)
+        if key in _ENV_SKIP or key.startswith(_ENV_SKIP_PREFIXES):
+            continue
+        parts = key[len(_ENV_PREFIX):].lower().split("_")
+        for take in range(len(parts) - 1, 0, -1):
+            section = "_".join(parts[:take])
+            if section in sections:
+                _env_path(sections[section], data.setdefault(section, {}),
+                          parts[take:], raw, key)
+                break
+        else:
+            raise ValueError(f"unknown config env var: {key}")
     return data
 
 
@@ -973,9 +1537,12 @@ def _coerce(current: Any, raw: str, orig: str) -> Any:
 
 
 def load(path: Optional[str] = None,
-         environ: Optional[dict] = None) -> Config:
-    """Defaults → file → environment (`environ`, default os.environ), as
-    the reference loads (command line flags go over the result)."""
-    data = read_file(path) if path else {}
-    apply_env(data, environ)
-    return config_from_dict(data)
+         environ: Optional[dict] = None, dev: bool = False) -> Config:
+    """Defaults (`development()` with `dev`) → file → environment
+    (`environ`, default os.environ), as the reference loads (command
+    line flags go over the result)."""
+    cfg = config_from_dict(read_file(path) if path else {},
+                           development() if dev else None)
+    apply_env(cfg, environ)
+    cfg.validate()
+    return cfg

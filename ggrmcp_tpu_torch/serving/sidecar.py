@@ -281,12 +281,19 @@ class Sidecar:
                 grpc.StatusCode.INVALID_ARGUMENT,
                 f"unknown pooling {pooling!r}",
             )
-        vectors = await asyncio.get_running_loop().run_in_executor(
-            None,
-            lambda: self.embedding.embed(
-                token_lists, pooling, request.max_length
-            ),
-        )
+        with tracing.tracer.span(
+            "sidecar.embed",
+            trace_id=tracing.trace_id_from_metadata(
+                context.invocation_metadata()
+            ) or None,
+            model=self.embedding.cfg.name, batch=len(token_lists),
+        ):
+            vectors = await asyncio.get_running_loop().run_in_executor(
+                None,
+                lambda: self.embedding.embed(
+                    token_lists, pooling, request.max_length
+                ),
+            )
         return serving_pb2.EmbedResponse(
             embeddings=tensors.to_proto(vectors),
             model_id=self.embedding.cfg.name,
@@ -502,16 +509,25 @@ class Sidecar:
             return await self._prefill_and_ship(request, context, prompt, t0)
         token_ids: list[int] = []
         finish = "length"
-        if self._speculative_route(request, prompt):
-            token_ids, finish = await self._generate_speculative(
-                request, context, prompt)
-        else:
-            it, qos_class = await self._submit(request, context, prompt,
-                                               unary=True)
-            async for chunk_ids, reason in it:
-                token_ids.extend(chunk_ids)
-                if reason:
-                    finish = reason
+        trace_id = tracing.trace_id_from_metadata(
+            context.invocation_metadata())
+        with tracing.tracer.span(
+            "sidecar.generate", trace_id=trace_id or None,
+            model=self.generation.cfg.name, prompt_tokens=len(prompt),
+        ) as span:
+            speculative = self._speculative_route(request, prompt)
+            if speculative:
+                token_ids, finish = await self._generate_speculative(
+                    request, context, prompt)
+            else:
+                it, qos_class = await self._submit(request, context, prompt,
+                                                   unary=True)
+                async for chunk_ids, reason in it:
+                    token_ids.extend(chunk_ids)
+                    if reason:
+                        finish = reason
+            span.set(completion_tokens=len(token_ids), finish=finish)
+            self._attribute_span(span, trace_id, speculative)
         if finish == "overloaded":
             await self._abort_overloaded(context, qos_class)
         if finish == "error":
@@ -528,6 +544,24 @@ class Sidecar:
             completion_tokens=len(token_ids),
             model_id=self.generation.cfg.name,
             compute_ms=(time.perf_counter() - t0) * 1000,
+        )
+
+    def _attribute_span(self, span, trace_id: str, speculative: bool) -> None:
+        """Stamp the flight recorder's lifecycle of this call onto its
+        span (ttft_ms, queue_ms and the tick range), so one trace id
+        walks span → request record → tick records."""
+        if not trace_id:
+            return
+        source = (self.spec_batcher.recorder if speculative
+                  else self.batcher)
+        rec = source.request_record(trace_id)
+        if rec is None:
+            return
+        span.set(
+            ttft_ms=round(rec.ttft_ms, 3),
+            queue_ms=round(rec.queue_ms, 3),
+            first_tick=rec.first_tick,
+            last_tick=rec.last_tick,
         )
 
     def _speculative_route(self, request, prompt: list[int]) -> bool:

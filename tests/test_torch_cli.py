@@ -3,11 +3,10 @@
 `train` on the CPU (CUDA asked for without `--device cpu`) with the
 reference's training section, the precedence defaults → file →
 environment → flags, bare flags implying `gateway`, `--workers` refused
-with the co-launch, the
-reference's rule for external backends, and whole reference config files
-(gateway sections included) loading as JSON and as YAML, with every
-serving key the reference also reads taking the reference's value and an
-unknown serving key still refused."""
+with `--tpu`, the reference's rule for external backends, and whole
+reference config files (gateway sections included) loading as JSON and
+as YAML, with every key the reference also reads taking the reference's
+value and an unknown serving key still refused."""
 
 import argparse
 import dataclasses
@@ -72,9 +71,18 @@ class TestParser:
         assert (args.grpc_host, args.grpc_port, args.http_port) == ("h", 9, 8)
         assert args.backend == ["a:1", "b:2"] and args.dev
         assert (args.device, args.seed, args.config) == ("cpu", 3, "c.json")
-        assert cli.gateway_flags(args) == [
-            "--http-port", "8", "--log-level", "debug", "--dev",
-            "--descriptor", "d.binpb"]
+        # The gateway's flags land where the reference's load_config
+        # puts them.
+        args.config = None
+        cfg = cli.load_config(args, environ={})
+        ref = jcfg.development()
+        assert (cfg.grpc.host, cfg.grpc.port, cfg.server.port) == ("h", 9, 8)
+        assert cfg.logging.level == "debug"
+        assert cfg.server.rate_limit.enabled == ref.server.rate_limit.enabled
+        assert cfg.logging.json_output == ref.logging.json_output
+        assert (cfg.grpc.descriptor_set.enabled,
+                cfg.grpc.descriptor_set.path) == (True, "d.binpb")
+        assert cfg.server.workers == 1
 
     def test_sidecar_flags(self):
         args = cli.parse_args(["sidecar", "--port", "7", "--model",
@@ -106,7 +114,7 @@ class TestParser:
 
     @pytest.mark.parametrize("how", ["flag", "file"])
     def test_workers_refused_with_colaunch(self, how, tmp_path, capsys):
-        argv = ["gateway", "--device", "cpu"]
+        argv = ["gateway", "--tpu", "--device", "cpu"]
         if how == "flag":
             argv += ["--workers", "2"]
         else:
@@ -172,8 +180,10 @@ class TestWholeFiles:
         cfg = tcfg.load(str(path), environ={})
         ref = jcfg.load(str(path), env=False)  # the reference takes it too
         _assert_matches_reference(cfg, ref)
-        assert cfg.sections == {k: v for k, v in WHOLE.items()
-                                if k != "serving"}
+        for name in WHOLE:
+            if name not in ("serving", "training"):
+                assert (dataclasses.asdict(getattr(cfg, name))
+                        == dataclasses.asdict(getattr(ref, name))), name
 
     def test_yaml_without_pyyaml_names_the_file(self, tmp_path, monkeypatch):
         path = tmp_path / "ref.yml"
@@ -201,8 +211,7 @@ class TestWholeFiles:
     def test_fleet_enabled_accepted_and_forwarded(self, how, tmp_path):
         """`fleet.enabled` (once refused) runs the gateway's replica
         fleet over workers of the port: the section parses to the
-        reference's values, field by field, and reaches the child's
-        config verbatim."""
+        reference's values, field by field."""
         fleet = {"enabled": True, "min_replicas": 1, "max_replicas": 2,
                  "decide_interval_s": 0.5, "backoff_base_s": 0.2}
         path = tmp_path / "fleet.json"
@@ -215,7 +224,7 @@ class TestWholeFiles:
                        if isinstance(v, bool) else str(v)
                        for k, v in fleet.items()}
         cfg = tcfg.load(str(path), environ=environ)
-        assert cfg.sections["fleet"] == fleet
+        assert {k: getattr(cfg.fleet, k) for k in fleet} == fleet
         ref = jcfg.load_file(str(path))
         jcfg.apply_env(ref, environ)
         assert ref.fleet.enabled
@@ -234,13 +243,16 @@ class TestWholeFiles:
     ([], {}, {"GGRMCP_GRPC_HOST": "envhost"}),
 ])
 def test_external_backends_follow_reference_rule(argv, sections, env,
-                                                 monkeypatch):
+                                                 monkeypatch, tmp_path):
     """The reference's `explicit` rule (ggrmcp_tpu/__main__.py): an
     external backend joins the co-launched pool only when given."""
     for k in ("GGRMCP_GRPC_HOST", "GGRMCP_GRPC_PORT"):
         monkeypatch.delenv(k, raising=False)
     args = cli.parse_args(["gateway", *argv])
-    got = cli.external_backends(args, tcfg.Config(sections=sections), env)
+    path = tmp_path / "s.json"
+    path.write_text(json.dumps(sections))
+    args.config = str(path)
+    got = cli.external_backends(args, cli.load_config(args, environ=env))
     ref = jcfg.default()
     jcfg._merge(ref, sections)
     jcfg.apply_env(ref, env)

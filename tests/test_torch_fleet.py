@@ -1,5 +1,5 @@
-"""The replica fleet over the port's worker (ggrmcp_tpu_torch/serving/
-fleet.py) against the reference's worker and supervisor
+"""The replica fleet of the port (ggrmcp_tpu_torch/serving/fleet.py: the
+supervisor and the worker) against the reference's worker
 (ggrmcp_tpu/serving/fleet.py, tests/test_fleet.py), on the CPU:
 
 - `worker_serving_config` gives the settings the reference's
@@ -9,12 +9,12 @@ fleet.py) against the reference's worker and supervisor
   and answers GetModelInfo; a worker serving a port checkpoint of the
   JAX package's tiny-llama params answers a greedy Generate with the JAX
   engine's tokens on those params (exact);
-- a co-launch with `fleet.enabled`: the unchanged gateway child spawns
-  the port's worker, lists it in /admin/fleet and its metrics, the
-  replica's greedy tokens equal the co-launched sidecar's (one seed), a
-  SIGKILLed worker is restarted by the reference's supervisor and serves
-  again, and `stop()` leaves no worker alive;
-- the reference's supervisor over the port's worker armed with
+- a co-launch with `fleet.enabled`: the port's gateway, in this
+  process, spawns the port's worker, lists it in /admin/fleet and its
+  metrics, the replica's greedy tokens equal the co-launched sidecar's
+  (one seed), a SIGKILLed worker is restarted by the port's supervisor
+  and serves again, and `stop()` leaves no worker alive;
+- the port's supervisor over the port's worker armed with
   `replica_crash`: the worker exits 86 and is healed.
 """
 
@@ -33,14 +33,14 @@ import numpy as np
 import pytest
 import torch
 
-from ggrmcp_tpu.core import config as jcfg
 from ggrmcp_tpu.core.config import MeshConfig as JMesh
 from ggrmcp_tpu.core.config import ServingConfig as JServing
 from ggrmcp_tpu.parallel import mesh as jmesh_mod
-from ggrmcp_tpu.rpc.discovery import ServiceDiscoverer
 from ggrmcp_tpu.serving import fleet as jfleet
+from ggrmcp_tpu_torch.core import config as tcfg
 from ggrmcp_tpu_torch.core.config import BatchingConfig, ServingConfig
 from ggrmcp_tpu_torch.core.config import config_from_dict
+from ggrmcp_tpu_torch.rpc.discovery import ServiceDiscoverer
 from ggrmcp_tpu_torch.models.convert import params_from_numpy
 from ggrmcp_tpu_torch.rpc.pb import serving_pb2
 from ggrmcp_tpu_torch.serving import checkpoint, fleet, launcher
@@ -296,20 +296,20 @@ async def test_worker_serves_a_checkpoint_of_jax_params(jax_tiny, tmp_path):
 
 async def _fleet_scenario() -> dict:
     """One co-launch with the fleet on (one replica): what the gateway
-    child spawned, /admin/fleet and /metrics, tokens of the replica, of
-    the sidecar and through MCP, a SIGKILLed worker's heal, and what is
-    left after stop()."""
+    spawned, /admin/fleet and /metrics, tokens of the replica, of the
+    sidecar and through MCP, a SIGKILLed worker's heal, and what is left
+    after stop()."""
+    port = _free_port()
     cfg = config_from_dict({
         "serving": {"model": "tiny-llama", "batching": SMALL},
         "fleet": {"enabled": True, "min_replicas": 1, "max_replicas": 1,
                   "decide_interval_s": 0.3, "backoff_base_s": 0.2,
                   "backoff_max_s": 1.0, "backoff_jitter": 0.0,
                   "max_actions_per_window": 10, "action_window_s": 5.0},
-        "server": {"host": "127.0.0.1", "rate_limit": {"enabled": False}},
+        "server": {"host": "127.0.0.1", "port": port,
+                   "rate_limit": {"enabled": False}},
     })
-    port = _free_port()
-    co = launcher.Colaunch(cfg, ["--http-port", str(port)], device="cpu",
-                           seed=0)
+    co = launcher.Colaunch(cfg, device="cpu", seed=0)
     out: dict = {}
     await co.start()
     try:
@@ -323,7 +323,7 @@ async def _fleet_scenario() -> dict:
 
         status = await _until(serving, 120, "no replica ever served")
         out["status"] = status
-        out["workers"] = _children(co.child.pid)
+        out["workers"] = _children(os.getpid())
         target = status["replicas"][0]["target"]
         out["replica"] = [await _generate(target, p) for p in PROMPTS]
         out["sidecar"] = [await _generate(co.target, p) for p in PROMPTS]
@@ -341,12 +341,12 @@ async def _fleet_scenario() -> dict:
 
         healed_status = await _until(healed, 120, "never healed")
         out["healed_status"] = healed_status
-        out["healed_workers"] = _children(co.child.pid)
+        out["healed_workers"] = _children(os.getpid())
         new = healed_status["replicas"][0]["target"]
         out["healed"] = [await _generate(new, p) for p in PROMPTS]
-        out["gateway_alive"] = co.child.returncode is None
+        out["gateway_alive"] = co.gateway is not None
     finally:
-        pids = set(_children(co.child.pid)) | set(out.get("workers", {}))
+        pids = set(_children(os.getpid())) | set(out.get("workers", {}))
         await co.stop()
     out["left"] = [pid for pid in pids if _alive(pid)]
     return out
@@ -393,20 +393,20 @@ def test_stop_leaves_no_worker(scenario):
 
 async def test_replica_crash_exits_86_and_is_healed():
     """The reference's drill (tests/test_fleet.py) over the port's
-    worker: armed with replica_crash:every=3, the worker aborts on its
-    third call with exit code 86; the reference's supervisor restarts it
-    and the replacement serves with a fresh count."""
-    cfg = jcfg.default()
+    supervisor and worker: armed with replica_crash:every=3, the worker
+    aborts on its third call with exit code 86; the supervisor restarts
+    it and the replacement serves with a fresh count."""
+    cfg = tcfg.default()
     cfg.grpc.reconnect.enabled = False
     cfg.grpc.call_timeout_s = 60.0
     disc = ServiceDiscoverer([], cfg.grpc)
     env = {**os.environ, fleet.ENV_DEVICE: "cpu",
            "GGRMCP_FAILPOINTS": "replica_crash:every=3",
            fleet.ENV_SERVING: json.dumps({"batching": SMALL})}
-    adapter = jfleet.GatewayFleetAdapter(disc, jfleet.ProcessReplicaFactory(
-        argv=WORKER, env=env, cwd=REPO, ready_timeout_s=120.0))
-    sup = jfleet.FleetSupervisor(
-        jcfg.FleetConfig(min_replicas=1, max_replicas=1,
+    adapter = fleet.GatewayFleetAdapter(disc, fleet.ProcessReplicaFactory(
+        env=env, cwd=REPO, ready_timeout_s=120.0))
+    sup = fleet.FleetSupervisor(
+        tcfg.FleetConfig(min_replicas=1, max_replicas=1,
                          backoff_base_s=0.1, backoff_max_s=0.5,
                          backoff_jitter=0.0, max_actions_per_window=10,
                          action_window_s=5.0),

@@ -1389,10 +1389,11 @@ def test_pp_and_sp_forwards_on_card_match_cpu(cuda):
 
 
 async def test_colaunch_on_card(cuda):
-    """The co-launch at tiny width on the card: the sidecar here, the
-    gateway a child over a private socket; a greedy Generate tools/call
-    answers the tokens of the same request sent by gRPC straight to the
-    socket (each alone, so both take the same admission)."""
+    """The co-launch at tiny width on the card: the sidecar and the
+    port's gateway in this process over a private socket; a greedy
+    Generate tools/call answers the tokens of the same request sent by
+    gRPC straight to the socket (each alone, so both take the same
+    admission)."""
     import importlib.util
     import socket
     import urllib.request
@@ -1402,7 +1403,7 @@ async def test_colaunch_on_card(cuda):
     from ggrmcp_tpu_torch.rpc.pb import serving_pb2
 
     if importlib.util.find_spec("aiohttp") is None:
-        pytest.skip("the gateway child needs aiohttp, absent here")
+        pytest.skip("the gateway needs aiohttp, absent here")
     from ggrmcp_tpu_torch.core.config import Config
     from ggrmcp_tpu_torch.serving import launcher
 
@@ -1411,8 +1412,8 @@ async def test_colaunch_on_card(cuda):
         port = s.getsockname()[1]
     cfg = Config(serving=ServingConfig(batching=BatchingConfig(
         max_batch_size=4, kv_cache_max_seq=256)))
-    co = launcher.Colaunch(cfg, ["--http-port", str(port)],
-                           device="cuda", seed=47)
+    cfg.server.port = port
+    co = launcher.Colaunch(cfg, device="cuda", seed=47)
     await co.start()
     try:
         body = json.dumps({"jsonrpc": "2.0", "method": "tools/call", "id": 1,
@@ -1432,7 +1433,6 @@ async def test_colaunch_on_card(cuda):
                 data = await asyncio.to_thread(call)
                 break
             except OSError:
-                assert co.child.returncode is None, co.log_tail()
                 await asyncio.sleep(0.5)
         ids = json.loads(data["result"]["content"][0]["text"])["tokenIds"]
         async with grpc.aio.insecure_channel(co.target) as ch:

@@ -1,19 +1,19 @@
 """The port's co-launch supervisor (serving/launcher.py) against the
 reference's (`ggrmcp_tpu/serving/launcher.py`, tests/test_fleet.py's
 launcher tests): the transport rule agrees with the reference function
-on the four cases of tests/test_distributed.py; a sidecar death is
-restarted on the same socket with the fleet's backoff and a `tools/call`
-through the same gateway child succeeds again; an exhausted budget
-raises `SidecarSupervisionError` with the child gone; a child gateway
-that exits stops the sidecar and raises with its exit code; a clean
+on the four cases of tests/test_distributed.py; the gateway and the
+sidecar serve from this process, with no child; a sidecar death is
+restarted on the same socket with the fleet's backoff and the
+discoverer nudged, so a `tools/call` through the same gateway succeeds
+again long before its discovery watchdog would have run; an exhausted
+budget raises `SidecarSupervisionError` and the gateway stops; a clean
 stop leaves no socket file and no child. The sidecar here is a fake
-(the hello backend of tests/backend_utils.py on a unix socket); the
-gateway child is the real, unchanged `python -m ggrmcp_tpu gateway`."""
+(the hello backend of tests/backend_utils.py on a unix socket) behind
+the port's gateway."""
 
 import asyncio
 import json
 import os
-import signal
 import socket
 import tempfile
 import time
@@ -105,22 +105,20 @@ async def _call_ok(port: int) -> bool:
     return "result" in data and not data["result"].get("isError", False)
 
 
-async def _until(pred, timeout: float, what: str, colaunch) -> None:
+async def _until(pred, timeout: float, what: str) -> None:
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         if await pred():
             return
-        assert colaunch.child.returncode is None, colaunch.log_tail()
-        await asyncio.sleep(0.2)
-    raise AssertionError(f"{what}; gateway log:\n{colaunch.log_tail()}")
+        await asyncio.sleep(0.05)
+    raise AssertionError(what)
 
 
-def _gone(pid: int) -> bool:
-    try:
-        os.kill(pid, 0)
-    except ProcessLookupError:
-        return True
-    return False
+def _children() -> list[int]:
+    """This process's child processes (Linux)."""
+    pid = os.getpid()
+    with open(f"/proc/{pid}/task/{pid}/children") as fh:
+        return [int(p) for p in fh.read().split()]
 
 
 def _colaunch(made: list, path: str, attempts: int = 4, fail_after: int = 0):
@@ -132,15 +130,13 @@ def _colaunch(made: list, path: str, attempts: int = 4, fail_after: int = 0):
 
     cfg = Config(
         fleet=FleetConfig(backoff_base_s=0.05, backoff_max_s=0.2,
-                          backoff_jitter=0.0, restart_max_attempts=attempts),
-        # A short discovery watchdog: the child rediscovers the restarted
-        # sidecar on its own (the launcher cannot reach its discoverer).
-        sections={"grpc": {"reconnect": {"watchdog_interval_s": 0.5}},
-                  "server": {"host": "127.0.0.1"}},
-    )
-    port = _free_port()
-    return launcher.Colaunch(cfg, ["--http-port", str(port)],
-                             sidecar_factory=factory), port
+                          backoff_jitter=0.0, restart_max_attempts=attempts))
+    # A discovery watchdog far longer than any wait here: the restarted
+    # sidecar is found by the supervisor's nudge, not by the watchdog.
+    cfg.grpc.reconnect.watchdog_interval_s = 600.0
+    cfg.server.host = "127.0.0.1"
+    cfg.server.port = port = _free_port()
+    return launcher.Colaunch(cfg, sidecar_factory=factory), port
 
 
 def _sock(name: str) -> str:
@@ -154,51 +150,51 @@ async def test_sidecar_death_is_restarted_and_served_again():
     co, port = _colaunch(made, path)
     await co.start()
     try:
-        await _until(lambda: _call_ok(port), 60, "gateway never ready", co)
+        await _until(lambda: _call_ok(port), 30, "gateway never ready")
         await made[0].backend.server.stop(None)  # the sidecar dies
-        await _until(lambda: _call_ok(port) if co.restarts else _false(),
-                     60, "gateway never recovered the sidecar", co)
+        await _until(lambda: _restarted(co), 30, "the sidecar never restarted")
+        # Nudged: the first call after the restart succeeds.
+        assert await _call_ok(port)
         assert co.restarts == 1 and len(made) == 2
         assert made[0].stopped and co.sidecar is made[1]
         assert co.target == f"unix:{path}"
     finally:
         await co.stop()
-    assert not os.path.exists(path) and _gone(co.child.pid)
+    assert not os.path.exists(path) and not _children()
 
 
-async def _false() -> bool:
-    return False
+async def _restarted(co) -> bool:
+    return co.restarts > 0
 
 
-async def test_exhausted_budget_raises_typed_and_ends_child():
+async def test_exhausted_budget_raises_typed_and_stops_gateway():
     made: list = []
     co, port = _colaunch(made, _sock("giveup"), attempts=2, fail_after=1)
-    await co.start()
-    try:
-        await _until(lambda: _call_ok(port), 60, "gateway never ready", co)
-        await made[0].backend.server.stop(None)
-        with pytest.raises(launcher.SidecarSupervisionError,
-                           match="2 restart attempts failed"):
-            await asyncio.wait_for(co.wait(), 30)
-    finally:
-        await co.stop()
+    stop = asyncio.Event()
+    task = asyncio.create_task(launcher.run_colaunch(co, stop))
+    await _until(lambda: _call_ok(port), 30, "gateway never ready")
+    await made[0].backend.server.stop(None)
+    with pytest.raises(launcher.SidecarSupervisionError,
+                       match="2 restart attempts failed"):
+        await asyncio.wait_for(task, 30)
     assert len(made) == 3  # the original and two failed replacements
-    assert co.child.returncode is not None and _gone(co.child.pid)
+    assert co.gateway is None and not await _call_ok(port)
 
 
-async def test_gateway_exit_stops_sidecar_and_raises():
+async def test_gateway_and_sidecar_serve_from_this_process():
+    """The reference's layout: one event loop, no child process; the
+    gateway's discoverer holds the sidecar's target."""
     made: list = []
-    co, port = _colaunch(made, _sock("gwexit"))
+    co, port = _colaunch(made, _sock("inproc"))
     await co.start()
     try:
-        await _until(lambda: _call_ok(port), 60, "gateway never ready", co)
-        os.killpg(co.child.pid, signal.SIGKILL)
-        with pytest.raises(launcher.GatewayExitedError) as err:
-            await asyncio.wait_for(co.wait(), 30)
-        assert err.value.code == -signal.SIGKILL
+        await _until(lambda: _call_ok(port), 30, "gateway never ready")
+        assert not _children()
+        assert [b.target for b in co.gateway.discoverer.backends] == [
+            co.target]
+        assert co.port == port
     finally:
         await co.stop()
-    assert made[0].stopped and len(made) == 1
 
 
 async def test_clean_stop_leaves_no_socket_and_no_child():
@@ -207,13 +203,12 @@ async def test_clean_stop_leaves_no_socket_and_no_child():
     co, port = _colaunch(made, path)
     stop = asyncio.Event()
     task = asyncio.create_task(launcher.run_colaunch(co, stop))
-    deadline = time.monotonic() + 60
+    deadline = time.monotonic() + 30
     while not await _call_ok(port):
         assert time.monotonic() < deadline and not task.done()
-        await asyncio.sleep(0.2)
+        await asyncio.sleep(0.05)
     assert os.path.exists(path)
     stop.set()
     await asyncio.wait_for(task, 30)  # returns, no error
-    assert not os.path.exists(path)
-    assert co.child.returncode is not None and _gone(co.child.pid)
-    assert co.restarts == 0 and made[0].stopped
+    assert not os.path.exists(path) and not _children()
+    assert co.restarts == 0 and made[0].stopped and co.gateway is None
