@@ -51,8 +51,9 @@ Phases, any failure exits non-zero and prints no result:
    dequantizing GEMM, its int8 -> bf16 cast alone and the decode step
    against bf16, timed;
 9. KV reuse: the prefix pool, the interleave and paged KV at llama3-8b
-   width (phases 9-13 and 19's llama3-8b / mistral-7b cut to 8 of 32
-   layers, CUT_DEPTH) through sidecars configured by a `--config` file,
+   width (phases 9-15, 17, 19, 23 and 24's serving models cut to 4 of
+   32 layers, CUT_DEPTH; 12's (b) and (c) to 8) through sidecars
+   configured by a `--config` file,
    each against its switch off;
 10. grammar: a llama3-8b sidecar with the default GrammarConfig (arena
    4096 states, jump_max 8) answers a burst of 16 Generate calls, 8 of
@@ -114,7 +115,7 @@ Phases, any failure exits non-zero and prints no result:
    32], [8192, 4]] against one 28-slot pool at 8192 with 24 short calls
    and 4 of 6000 tokens together (each tier's admissions, TTFT of each
    kind, KV bytes);
-14. sparse MoE at mixtral-8x7b's widths with the depth cut to 8 of 32
+14. sparse MoE at mixtral-8x7b's widths with the depth cut to 4 of 32
    layers (CUT_DEPTH; seeded random bf16 weights): (a) one layer's `moe_ffn` at the
    [32, 512] admission shape against its float32 one-hot form, a [32,
    512] prefill with B1 against the same prefill through
@@ -218,7 +219,7 @@ Phases, any failure exits non-zero and prints no result:
    (d) a sidecar in a fresh process: phase 5's burst, then the compile
    watcher's fields in GetServingStats and GetMemory and its ring in
    GetFlightRecord (B1's library counted at warmup, none after);
-21. the replica fleet at llama3-8b width (seeded random bf16 weights,
+21. the replica fleet at llama3-8b width (seeded random weights on int8,
    8 slots): (a) the co-launch with `fleet.enabled` (min_replicas 1,
    max_replicas 2): the port's gateway and supervisor, in this process,
    spawn the port's worker
@@ -235,14 +236,20 @@ Phases, any failure exits non-zero and prints no result:
    seconds to the new replica's first good call, the card's memory
    before, during and after; (c) the workers armed with replica_crash:
    the worker dies at its Nth call and is healed, and an armed worker's
-   exit code is 86; (d) after stop() no worker is left and the card's
+   exit code is 86; (g) the healed worker paused past the probe's
+   timeout and resumed, in turns: the supervisor's flap heal (a restart
+   in place), seconds to the next good call; (e) a burst of 32 calls to
+   the worker past the TTFT SLO: a second worker spawned, listed, both
+   answering with the sidecar's tokens, the card's memory with three
+   processes; (f) idle: one worker retired, its memory back, the floor
+   of one kept; (d) after stop() no worker is left and the card's
    memory has returned;
 22. processes on the one card: (a) two processes of tiny-llama (float32)
    join by `parallel/distributed.py`'s `initialize` over 127.0.0.1
    (gloo: a named card is shared): their cross-process sum is exact and
    three AdamW steps at global data=2 equal the single-process data=2
    steps on the card (losses, final params); (b) llama-1b at full width
-   cut to 8 of 16 layers, 4 AdamW steps of a global [8, 1024] batch
+   cut to 4 of 16 layers, 3 AdamW steps of a global [8, 1024] batch
    split over two processes
    on cuda:0 against the single-process data=2 run from one seeded tree,
    held to twice a same-run witness (that run through the plain
@@ -254,10 +261,35 @@ Phases, any failure exits non-zero and prints no result:
    bound;
 23. the plain gateway: `python3 -m ggrmcp_tpu_torch gateway --backend
    unix:SOCK` (no --tpu) as a subprocess before a co-launch's llama3-8b
-   sidecar (every layer): tools/list equal to the co-launch gateway's,
+   sidecar (CUT_DEPTH): tools/list equal to the co-launch gateway's,
    a greedy tools/call's tokens equal to the same prompt over gRPC (B1
    launches behind it), /metrics and /debug/ticks 200; with `--workers
-   2`, traced tools/calls answered by each worker process.
+   2`, traced tools/calls answered by each worker process;
+24. compositions: (a) tests/test_composition.py's maximal sidecar
+   (tiny-llama float32: int8 weights and KV cache, tiers [[64, 3], [256,
+   2]], the prefix pool, a speculative draft, tensor=2 with both shards
+   on the card) over gRPC, its calls (the two long ones in turn) and the
+   greedy repeat: greedy tokens card = CPU in this process, the stats of
+   that test's checks; (b) the maximal config at published widths:
+   mistral-7b (CUT_DEPTH) with the llama-1b draft, int8 weights and
+   cache, tensor=2, tiers [[1024, 24], [8192, 4]], the prefix pool:
+   greedy calls on the micro-path, top-k calls in the short tier, four
+   long prompts sharing a 2048-token preamble in the long tier (prefix
+   hits), the greedy repeat identical; the stats, GetMemory reconciled,
+   peak memory, TTFT by kind; the greedy calls without the draft
+   (greedy first tokens identical, the rest counted); (c) phase 12a's
+   host tier on the int8 cache (8 preambles through an arena of half
+   their pages, twice) against an int8 arena that holds every page
+   (first tokens identical), bytes a page against bf16's, the codec's
+   GB/s, a pass under host_restore_fail; (d) phase 12c's adapters on
+   int8 weights with the bf16 cache (each stream against its adapter
+   alone, a zero-b adapter equal to base, B1 launches); (e) the ring on
+   the int8 cache against the contiguous windowed int8 cache; (f) the
+   spec tick on the int8 cache against spec off, then under tick_fail
+   (every call completes by replay; first tokens identical, the rest
+   counted); (g) mixtral-8x7b on int8 weights (banks and router dense)
+   with the int8 cache against the bf16 cache: phase 14b's burst,
+   GetMemory reconciled, tick p50. B1 never launches on the int8 cache.
 
 Every command line the script starts of the port's CLI runs with
 `ggrmcp_tpu` unimportable, and at the end no module of the JAX package
@@ -303,10 +335,13 @@ PEAK_BYTES = 3.35e12
 # P V product, which near-zero outputs see as atol 1e-2.
 TOL = {"bfloat16": (1e-2, 1.6e-2), "float32": (1e-4, 1e-4)}
 SERVE_PROMPT_TOKENS = (40, 100, 200, 300, 500, 700, 1500, 3000)
-# Phases 9-13 and 19 serve the published widths cut to this many layers
-# (serving.num_layers): their checks hold at any depth, and their time
-# goes with it. Phases 3-5 and 16, 21 and 23 keep every layer.
-CUT_DEPTH = 8
+# Phases 9-15, 17, 19, 22-24 serve (or train) the published widths cut
+# to this many layers (serving.num_layers): their checks hold at any
+# depth, and their time goes with it; 12's (b) and (c) serve 8 (P12).
+# Phases 3-5 and 16 and 21 keep every layer (16's memory bound across a
+# restart, 1.25 times the model's, holds only at full depth: at 4
+# layers the warmup's transients reached 1.33 times).
+CUT_DEPTH = 4
 SERVE_NEW_TOKENS = 32
 
 
@@ -327,7 +362,7 @@ def log(msg: str) -> None:
 PHASE_LIMIT_S = {
     1: 60, 2: 60, 3: 60, 4: 60, 5: 60, 6: 60, 7: 60, 8: 90, 9: 60, 10: 60,
     11: 115, 12: 130, 13: 105, 14: 60, 15: 60, 16: 130, 17: 60, 18: 225,
-    19: 125, 20: 60, 21: 245, 22: 145, 23: 60,
+    19: 125, 20: 60, 21: 315, 22: 145, 23: 60, 24: 130,
 }
 # The running phase and when its limit falls (monotonic clock; None
 # outside a phase, as in the script's helper processes).
@@ -356,6 +391,11 @@ def _over_limit(n: int, limit: float) -> None:
     print(msg, flush=True)
     print(msg, file=sys.stderr, flush=True)
     faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+    # And every pending asyncio task's: a phase's event loop waits in
+    # select while a task waits on what never comes.
+    for task in [t for t in gc.get_objects()
+                 if isinstance(t, asyncio.Task) and not t.done()]:
+        task.print_stack(file=sys.stderr)
     _kill_descendants(os.getpid(), signal.SIGKILL)
     os._exit(3)
 
@@ -2867,7 +2907,9 @@ async def control_phase(torch, tatt, dev) -> dict:
 
 # The card's sizes; a smaller spec drives the same code on the CPU.
 P12 = dict(
-    model=MODEL, depth=CUT_DEPTH, batching={}, page=16,
+    # (b) and (c) at 8 layers, not CUT_DEPTH: at 4, (c)'s zero-b adapter
+    # stream differed from base's at its 16th token (PERF.md §7).
+    model=MODEL, depth=CUT_DEPTH, lora_depth=8, batching={}, page=16,
     # (a) the host tier: 16 distinct preambles (128 pages each, 2048 in
     # all) through a 1024-page arena, twice; the second pass restores.
     arena_pages=1024, host_bytes=8 << 30, big_arena_pages=4096,
@@ -2930,8 +2972,9 @@ class _P12Client(_ControlClient):
 
 def _p12_sidecar(torch, params, dev, serving: dict, tmp: str, spec: dict,
                  name: str = "serving"):
-    """A sidecar of `spec`'s model at its depth on `params` (a shallow
-    copy: a LoRA engine adds its factor stacks to its own dict) whose
+    """A sidecar of `spec`'s model at its depth on `params` (a copy of
+    its dicts: a LoRA engine adds its factor stacks to its own, int8
+    replaces the matmuls in its own) whose
     settings come from a {"serving": ...} config file, read as the
     command line reads `--config FILE`."""
     from ggrmcp_tpu_torch import __main__ as cli
@@ -2945,7 +2988,7 @@ def _p12_sidecar(torch, params, dev, serving: dict, tmp: str, spec: dict,
                                    num_layers=spec["depth"], **serving)}, fh)
     cfg = cli.serving_config(cli.build_parser().parse_args(
         ["sidecar", "--config", path]))
-    return Sidecar(cfg, params=dict(params), device=dev)
+    return Sidecar(cfg, params=_tree_copy(params), device=dev)
 
 
 def _paged(spec: dict, pages: int, **extra) -> dict:
@@ -3032,10 +3075,10 @@ _HOST_KEYS = ("kv_host_demotions", "kv_host_restores",
 
 
 async def _host_run(torch, dev, params, tmp, spec, host: bool,
-                    fail: bool = False) -> dict:
+                    fail: bool = False, serving=None) -> dict:
     """(a) the two passes on a paged sidecar, with the host tier or with
     an arena that holds every page; with `fail`, a third pass under
-    host_restore_fail."""
+    host_restore_fail. `serving`: more settings of the sidecar."""
     import grpc.aio
 
     from ggrmcp_tpu_torch.utils import failpoints
@@ -3043,8 +3086,8 @@ async def _host_run(torch, dev, params, tmp, spec, host: bool,
     batching = (_paged(spec, spec["arena_pages"],
                        paged_kv_host_bytes=spec["host_bytes"]) if host
                 else _paged(spec, spec["big_arena_pages"]))
-    sidecar = _p12_sidecar(torch, params, dev, dict(batching=batching), tmp,
-                           spec)
+    sidecar = _p12_sidecar(torch, params, dev, dict(
+        serving or {}, batching=batching), tmp, spec)
     batcher = sidecar.batcher
     _hold_admission(batcher)
     traffic = _Traffic(torch, dev, batcher)
@@ -3267,6 +3310,22 @@ def _log_shipping(torch, dev, sidecar) -> None:
     sidecar._ship_kv = timed_ship
 
 
+def _time_ticks(torch, dev, batcher) -> None:
+    """Each plain tick's milliseconds (synchronised) in
+    `batcher.tick_ms`."""
+    batcher.tick_ms = []
+    plain = batcher._tick_impl
+
+    def timed_tick(*args, **kwargs):
+        t = time.perf_counter()
+        out = plain(*args, **kwargs)
+        _sync(torch, dev)
+        batcher.tick_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    batcher._tick_impl = timed_tick
+
+
 async def _start_all(sides):
     for side in sides:
         await side.start(0)
@@ -3295,17 +3354,7 @@ async def disagg_lora_parts(torch, tatt, dev, params, tmp, spec, cfg,
     _log_shipping(torch, dev, sides[0])
     m_batcher = sides[2].batcher
     _hold_admission(m_batcher)
-    m_batcher.tick_ms = []
-    plain = m_batcher._tick_impl
-
-    def timed_tick(*args, **kwargs):
-        t = time.perf_counter()
-        out = plain(*args, **kwargs)
-        _sync(torch, dev)
-        m_batcher.tick_ms.append((time.perf_counter() - t) * 1e3)
-        return out
-
-    m_batcher._tick_impl = timed_tick
+    _time_ticks(torch, dev, m_batcher)
     await _start_all(sides)
     chans = [grpc.aio.insecure_channel(s.target) for s in sides]
     b_res: dict = {}
@@ -3478,7 +3527,8 @@ async def _lora_burst(torch, dev, client, batcher, spec) -> dict:
     text = _prompt_text(spec["lora_prompt_tokens"][1], 6700)
     zero = await client.call(text, spec["lora_new"], adapter="zero")
     base = await client.call(text, spec["lora_new"])
-    check(zero[0] == base[0], "(c) the zero-b adapter differs from base")
+    check(zero[0] == base[0], f"(c) the zero-b adapter differs from base: "
+          f"{zero[0]} against {base[0]}")
     stats = await client.stats()
     return dict(
         burst=dict(names=names, tick_ms_p50_mixed=runs["mixed"]["tick_ms_p50"],
@@ -3608,6 +3658,8 @@ async def paged_lora_phase(torch, tatt, dev, spec=None) -> dict:
     spec = spec or P12
     cfg = _cut(spec["model"], spec["depth"])
     params = llama_mod.init_params(cfg, dev, SEED)
+    lspec = dict(spec, depth=spec["lora_depth"])
+    lcfg = _cut(spec["model"], lspec["depth"])
     res: dict = {}
     # The path's run starts here: every launch count from 0.
     tatt.flash_attention.launches = 0
@@ -3615,7 +3667,7 @@ async def paged_lora_phase(torch, tatt, dev, spec=None) -> dict:
             os.path.abspath(__file__))) as tmp:
         registry = os.path.join(tmp, "adapters")
         os.makedirs(registry)
-        _write_adapters(registry, cfg, spec)
+        _write_adapters(registry, lcfg, spec)
 
         t = time.perf_counter()
         res["host_tier"] = await host_tier_part(torch, dev, params, tmp,
@@ -3626,8 +3678,10 @@ async def paged_lora_phase(torch, tatt, dev, spec=None) -> dict:
 
         t = time.perf_counter()
         launched = tatt.flash_attention.launches
+        lparams = llama_mod.init_params(lcfg, dev, SEED)
         res["disagg"], res["lora"] = await disagg_lora_parts(
-            torch, tatt, dev, params, tmp, spec, cfg, registry)
+            torch, tatt, dev, lparams, tmp, lspec, lcfg, registry)
+        del lparams
         res["disagg"]["launches"] = tatt.flash_attention.launches - launched
         res["disagg"]["seconds"] = time.perf_counter() - t
         log(f"  (b) disaggregation: {json.dumps(_brief(res['disagg']))}")
@@ -3739,11 +3793,12 @@ def _ttft_log(batcher) -> None:
 
 
 async def _spec_serve(torch, tatt, dev, params, tmp, spec, serving, name,
-                      calls, hold=True):
+                      calls, hold=True, probe=None):
     """Start a sidecar, send `calls` ((text, max_new, fields) each)
     concurrently (`hold`: in one admission round), stop it. Returns the
-    outputs, the stats' deltas, GetMemory's KV bytes, the TTFTs, the
-    tick log and B1's launches."""
+    outputs, the stats' deltas, GetMemory's KV bytes and whether it
+    closes, the TTFTs, the tick log, B1's launches and `probe(sidecar)`
+    when given."""
     import grpc.aio
 
     side = _p12_sidecar(torch, params, dev, serving, tmp, spec, name)
@@ -3778,9 +3833,14 @@ async def _spec_serve(torch, tatt, dev, params, tmp, spec, serving, name,
         delta={k: getattr(after, k) - getattr(before, k) for k in (
             "ticks", "spec_ticks", "spec_drafted", "spec_accepted",
             "speculative_calls", "speculative_requests",
-            "speculative_drafted", "speculative_accepted", "admit_rounds")},
+            "speculative_drafted", "speculative_accepted", "admit_rounds",
+            "replayed_requests", "replay_exhausted")},
         kv_arena_bytes=sum(c.bytes for c in memory.components
                            if c.component == "kv_arena"),
+        live_bytes=memory.live_bytes,
+        unattributed_bytes=memory.unattributed_bytes,
+        memory_closes=memory.total_bytes + memory.unattributed_bytes
+        == memory.live_bytes,
         draft_cache_bytes=sum(c.bytes for c in memory.components
                               if c.component == "draft_cache"),
         ttft_ms=[ms for b in batchers for ms in getattr(b, "ttft_ms", [])],
@@ -3791,7 +3851,9 @@ async def _spec_serve(torch, tatt, dev, params, tmp, spec, serving, name,
     )
     for ids, reason, _ in outs:
         check(reason in ("length", "stop", "grammar_complete") and ids,
-              f"13 {name}: a call ended {reason!r} after {len(ids)} tokens")
+              f"{name}: a call ended {reason!r} after {len(ids)} tokens")
+    if probe is not None:
+        res["probed"] = probe(side)
     del side
     gc.collect()
     if dev.type == "cuda":
@@ -6999,24 +7061,32 @@ async def whole_phase(torch, tatt, dev, spec=None) -> dict:
 
 # -- phase 21: the replica fleet --------------------------------------------------
 
-# llama3-8b with 8 slots: 16.06 GB of bf16 weights and 8 x 4096 x 131,072
-# B of KV cache, about 20.4 GB a replica, so the co-launched sidecar and
-# two workers (max_replicas) fit in 80 GB and a third would not. The
-# SLO target is out of reach so that the pool stays at its floor of one
-# worker unless a burst sheds. The flap settings are the reference's
+# llama3-8b on int8 weights with 8 slots: a bf16 replica held 26.5 GB
+# of the card (PERF.md §6), so two did not fit beside the co-launched
+# sidecar; an int8 worker held 15.0-18.0 GB serving (its context and
+# allocator cache included), and the sidecar's process and two workers
+# 63.5-64.4 GB, so they (max_replicas) do. The SLO (TTFT over 5 s, the histogram's bucket
+# above it) holds for (a)-(d)'s traffic (its MCP burst's calls took 3 s
+# each) and not for (e)'s burst of 32 calls to one 8-slot worker, whose
+# last admissions wait for three rounds of 16 ticks. The flap settings
+# are the reference's
 # defaults (3 edges in 60 s). The worker's profile comes last: the
 # profiler's stop holds the GIL for as long as the capture's kernels
 # take to process (seconds on a busy card, scripts/profile_stop_cost.py),
 # the supervisor's probe waits as long, and the two edges it counts
 # would turn (b)'s process-exit heal into a flap heal.
-P21 = dict(model=MODEL, slots=8, prompts=(40, 300, 700, 1500), new=16,
-           burst=8, profile_ms=1500, crash_every=32, tiny="tiny-llama",
-           tiny_crash_every=2, probe_timeout_ms=2000.0,
+P21 = dict(model=MODEL, quantize="int8", slots=8,
+           prompts=(40, 300, 700, 1500), new=16, burst=8, profile_ms=1500,
+           crash_every=32, tiny="tiny-llama", tiny_crash_every=2,
+           probe_timeout_ms=2000.0, flap_pause_s=2.5, flap_pauses=4,
+           pressure_calls=32, pressure_new=16, answer_prompts=(0,),
            fleet=dict(enabled=True, min_replicas=1, max_replicas=2,
-                      slo_ttft_p99_ms=600000.0, decide_interval_s=0.5,
-                      backoff_base_s=0.5, backoff_max_s=2.0,
-                      backoff_jitter=0.0, max_actions_per_window=10,
-                      action_window_s=10.0))
+                      slo_ttft_p99_ms=5000.0, shed_hold_s=0.5,
+                      scale_up_sustain_s=1.0,
+                      scale_down_sustain_s=3.0, drain_grace_s=2.0,
+                      decide_interval_s=0.5, backoff_base_s=0.5,
+                      backoff_max_s=2.0, backoff_jitter=0.0,
+                      max_actions_per_window=10, action_window_s=10.0))
 FLEET_WORKER = "ggrmcp_tpu_torch.serving.fleet"
 
 
@@ -7154,6 +7224,19 @@ class _ProbeSampler:
         return out
 
 
+async def _action(port: int, pred, what: str) -> dict:
+    """The supervisor's newest action for which `pred` holds, once one
+    does."""
+    t = time.perf_counter()
+    while True:
+        st = await asyncio.to_thread(_fleet_status, port)
+        hits = [a for a in st["actions"] if pred(a)]
+        if hits:
+            return hits[0]
+        check(time.perf_counter() - t < phase_left(), what)
+        await asyncio.sleep(0.2)
+
+
 async def _serving_replica(port: int, timeout: float, what: str,
                            restarts: int = 0, not_target: str = "") -> dict:
     """/admin/fleet's status once a replica other than `not_target`
@@ -7250,19 +7333,25 @@ async def _tiny_crash(spec, dev) -> dict:
 
 
 async def fleet_phase(torch, tatt, dev, spec=None) -> dict:
-    """Phase 21: (a) the co-launch with `fleet.enabled`: the port's
-    supervisor, in this process, spawns the port's worker (its command
-    line, a child of this process), lists it
-    in /admin/fleet, each prompt's greedy tokens alone from the replica
-    and from the co-launched sidecar are equal (one seed), a burst of
-    tools/calls over both with the worker's health probes timed, B1 in
-    the worker (a profile of it, taken after (c), its compile watcher);
-    (b) the worker SIGKILLed mid-burst: every call typed or complete, the
-    supervisor's process-exit restart, seconds to the new replica's
-    first good call, card memory before, during and after; (c) the
-    workers armed with replica_crash: one dies at its Nth call and is
-    healed, and an armed worker's exit code is 86; (d) after stop() no
-    worker is left and the card's memory has returned."""
+    """Phase 21, every replica and the sidecar on int8 weights: (a) the
+    co-launch with `fleet.enabled`: the port's supervisor, in this
+    process, spawns the port's worker (its command line, a child of this
+    process), lists it in /admin/fleet, each prompt's greedy tokens
+    alone from the replica and from the co-launched sidecar are equal
+    (one seed), a burst of tools/calls over both with the worker's
+    health probes timed, B1 in the worker (a profile of it, taken last,
+    its compile watcher); (b) the worker SIGKILLed mid-burst: every call
+    typed or complete, the supervisor's process-exit restart, seconds to
+    the new replica's first good call, card memory before, during and
+    after; (c) the workers armed with replica_crash: one dies at its Nth
+    call and is healed, and an armed worker's exit code is 86; (g) that
+    heal's replacement paused and resumed in turns (SIGSTOP, SIGCONT):
+    healed by flap, seconds to the next good call; (e) a burst past the
+    TTFT SLO: a second
+    worker spawned, both answering with the sidecar's tokens, the card's
+    memory with three processes; (f) idle: one worker retired, its
+    memory back, the floor kept; (d) after stop() no worker is left and
+    the card's memory has returned."""
     import signal
 
     import grpc.aio
@@ -7278,7 +7367,7 @@ async def fleet_phase(torch, tatt, dev, spec=None) -> dict:
     texts = [_prompt_text(n, 2100 + i) for i, n in enumerate(spec["prompts"])]
     port = _free_port()
     cfg = config_from_dict({
-        "serving": {"model": spec["model"],
+        "serving": {"model": spec["model"], "quantize": spec["quantize"],
                     "batching": {"max_batch_size": spec["slots"]}},
         "fleet": spec["fleet"],
         "server": {"port": port, "rate_limit": {"enabled": False}},
@@ -7291,6 +7380,8 @@ async def fleet_phase(torch, tatt, dev, spec=None) -> dict:
     os.environ["GGRMCP_FAILPOINTS"] = (
         f"replica_crash:every={spec['crash_every']}")
     t = time.perf_counter()
+    # (c)'s standalone armed worker boots beside the fleet's first one.
+    standalone = asyncio.ensure_future(_tiny_crash(spec, dev))
     try:
         await co.start()
     finally:
@@ -7302,6 +7393,7 @@ async def fleet_phase(torch, tatt, dev, spec=None) -> dict:
         status = await _serving_replica(port, phase_left(),
                                         "(a) no replica served")
         res["boot_s"] = time.perf_counter() - t
+        crashed = await standalone
         workers = _worker_pids(os.getpid())
         pids |= set(workers)
         check(len(workers) == 1 and all(
@@ -7459,19 +7551,143 @@ async def fleet_phase(torch, tatt, dev, spec=None) -> dict:
         res["crash"] = dict(
             calls=outcomes, heal_s=time.perf_counter() - t,
             restarts=healed2["counters"]["restarts"])
-        pids |= set(_worker_pids(os.getpid()))
-        async with grpc.aio.insecure_channel(
-                healed2["replicas"][0]["target"]) as ch:
+        # The workers spawned from here on are unarmed: (e)'s burst sends
+        # more calls than replica_crash's period.
+        del co.gateway._fleet_adapter.factory.env["GGRMCP_FAILPOINTS"]
+        res["crash"]["standalone"] = crashed
+        log(f"  (c) {json.dumps(res['crash'])}")
+
+        # (g) A flapping worker. The supervisor probes a replica by a
+        # reflection round trip, never by the gRPC health service that
+        # the health_flap failpoint answers, so the flap is a worker that
+        # stops answering, in turns: paused (SIGSTOP) past the probe's
+        # timeout, then resumed. The edges reach the threshold and the
+        # supervisor heals by flap (a restart in place at the floor);
+        # seconds from the first pause to the next good call.
+        (flapper,) = _worker_pids(os.getpid())
+        pids.add(flapper)
+        flapping = healed2["replicas"][0]["target"]
+        t = time.perf_counter()
+        pauses = 0
+        while True:
+            st = await asyncio.to_thread(_fleet_status, port)
+            heals = [a for a in st["actions"] if a["kind"] == "restart"
+                     and a["target"] == flapping]
+            if heals or not _alive(flapper):
+                break
+            check(pauses < spec["flap_pauses"],
+                  f"(g) no heal after {pauses} pauses: {st['replicas']}")
+            os.kill(flapper, signal.SIGSTOP)
+            await asyncio.sleep(spec["flap_pause_s"])
+            os.kill(flapper, signal.SIGCONT)
+            pauses += 1
+            await asyncio.sleep(spec["flap_pause_s"] / 2)
+        if _alive(flapper):
+            os.kill(flapper, signal.SIGCONT)
+        heal = await _action(
+            port, lambda a: a["kind"] == "restart"
+            and a["target"] == flapping and a["result"],
+            "(g) the flapping worker was never replaced")
+        check(heal["reason"].startswith("heal: health flapped"),
+              f"(g) the restart's reason {heal['reason']!r}")
+        healed3 = await _serving_replica(port, phase_left(),
+                                         "(g) no replica after the heal",
+                                         restarts_before + 2, flapping)
+        target = heal["result"]
+        async with grpc.aio.insecure_channel(target) as ch:
             check((await _ReuseClient(ch).generate(
                 texts[0], spec["new"]))[0] == want[0],
-                "(c) the healed replica's tokens differ")
-        res["crash"]["standalone"] = await _tiny_crash(spec, dev)
-        log(f"  (c) {json.dumps(res['crash'])}")
-        res["status"] = {k: healed2[k] for k in ("counters", "replicas")}
+                "(c, g) the healed replica's tokens differ")
+        res["flap"] = dict(
+            pauses=pauses, pause_s=spec["flap_pause_s"],
+            restart_action=heal,
+            flap_heals=healed3["counters"]["flap_heals"],
+            next_good_call_s=time.perf_counter() - t)
+        check(res["flap"]["flap_heals"] >= 1, f"(g) {healed3['counters']}")
+        await _until(lambda: not _alive(flapper), 60,
+                     "(g) the flapping worker still runs")
+        pids |= set(_worker_pids(os.getpid()))
+        log(f"  (g) {json.dumps(res['flap'])}")
 
-        # (a, last) B1 in the worker: a profile of the healed replica,
-        # its probes and the flap edges the capture's stop costs.
-        target = healed2["replicas"][0]["target"]
+        # (e) Scale-up: a burst straight to the worker whose TTFT p99
+        # passes the SLO, sustained, makes the supervisor spawn a second
+        # worker; both answer with the sidecar's tokens.
+        res["memory_one_worker"] = _card_memory(torch)
+        t = time.perf_counter()
+        async with grpc.aio.insecure_channel(target) as ch:
+            client = _ReuseClient(ch)
+            burst = asyncio.ensure_future(asyncio.gather(*(
+                client.generate(texts[i % len(texts)], spec["pressure_new"])
+                for i in range(spec["pressure_calls"]))))
+            status = await _serving_replica(
+                port, phase_left(), "(e) no second worker served", 0, target)
+            res["scale_up"] = dict(spawn_s=time.perf_counter() - t)
+            out = await burst
+        check(all(len(ids) == spec["pressure_new"] for ids, _, _ in out),
+              "(e) a burst call ended short")
+        workers = _worker_pids(os.getpid())
+        pids |= set(workers)
+        targets = sorted(r["target"] for r in status["replicas"])
+        check(len(workers) == 2 and len(targets) == 2,
+              f"(e) workers {workers}, replicas {status['replicas']}")
+        res["memory_two_workers"] = _card_memory(torch)
+        spawned = [a for a in status["actions"] if a["kind"] == "spawn"
+                   and a["reason"].startswith("sustained")]
+        check(spawned, f"(e) action log {status['actions']}")
+        # The burst's calls are past the window; the calls below give
+        # each replica a window under the SLO.
+        await asyncio.sleep(2.5)
+        for tgt in targets:
+            async with grpc.aio.insecure_channel(tgt) as ch:
+                client = _ReuseClient(ch)
+                got = [(await client.generate(texts[i], spec["new"]))[0]
+                       for i in spec["answer_prompts"]]
+            check(got == [want[i] for i in spec["answer_prompts"]],
+                  f"(e) {tgt}'s tokens differ from the sidecar's")
+        used = (res["memory_two_workers"]["used_gb"]
+                - res["memory_one_worker"]["used_gb"])
+        res["scale_up"].update(
+            spawn_action=spawned[0], burst_calls=len(out),
+            burst_s=time.perf_counter() - t, replicas=targets,
+            answered_by=len(targets), second_worker_gb=used)
+        log(f"  (e) {json.dumps(res['scale_up'])}, "
+            f"{json.dumps(res['memory_two_workers'])}")
+
+        # (f) Idle drain: no traffic for scale_down_sustain_s retires a
+        # worker (drain, then kill); its memory comes back and the floor
+        # of one worker stays.
+        t = time.perf_counter()
+        retire = await _action(
+            port, lambda a: a["kind"] == "kill"
+            and a["reason"].startswith("retire"), "(f) no worker retired")
+        retired = retire["target"]
+        await _until(lambda: len(_worker_pids(os.getpid())) == 1, 60,
+                     "(f) the retired worker still runs")
+        left = await _serving_replica(port, phase_left(),
+                                      "(f) the floor replica is gone")
+        check([r["target"] for r in left["replicas"]]
+              == [x for x in targets if x != retired],
+              f"(f) replicas after the retire {left['replicas']}")
+        # The card gets back at least a replica's weights (the
+        # co-launched sidecar's: the same serving section) once the
+        # driver has torn the retired worker's context down.
+        weights_gb = co.sidecar.generation.weight_bytes() / 1e9
+        two = res["memory_two_workers"]["used_gb"]
+        returned_s = await _until(
+            lambda: two - _card_memory(torch)["used_gb"] >= weights_gb, 30,
+            f"(f) less than a replica's {weights_gb:.2f} GB of weights came "
+            f"back")
+        res["memory_after_retire"] = _card_memory(torch)
+        res["idle_drain"] = dict(
+            retire_action=retire, retire_s=time.perf_counter() - t,
+            memory_back_gb=two - res["memory_after_retire"]["used_gb"],
+            memory_back_s=returned_s, counters=left["counters"])
+        log(f"  (f) {json.dumps(res['idle_drain'])}")
+        res["status"] = {k: left[k] for k in ("counters", "replicas")}
+
+        # (a, last) B1 in the worker: a profile of the floor replica, its
+        # probes and the flap edges the capture's stop costs.
+        target = left["replicas"][0]["target"]
         with _ProbeSampler(target) as probes:
             probes.label = "profile"
             res["profile"] = await _replica_profile(
@@ -7488,6 +7704,7 @@ async def fleet_phase(torch, tatt, dev, spec=None) -> dict:
               and res["profile"]["compile_post_warmup"] == 0,
               f"(a) B1 in the worker: {res['profile']}")
     finally:
+        standalone.cancel()
         await co.stop()
     _free(torch, dev)
     left = [p for p in pids if _alive(p)]
@@ -7517,7 +7734,7 @@ P22_CASES = [
      "process's [4, 1023] block (H 32, KVH 8, D 64)"),
 ]
 P22 = dict(tiny="tiny-llama", tiny_steps=3, tiny_batch=4, tiny_seq=65,
-           model="llama-1b", depth=CUT_DEPTH, steps=4, batch=8, seq=1024,
+           model="llama-1b", depth=CUT_DEPTH, steps=3, batch=8, seq=1024,
            processes=2, fault_steps=3)
 # (a) tiny-llama float32, two processes against one: the CPU test's
 # tolerances (tests/test_torch_distributed.py).
@@ -7835,7 +8052,8 @@ def dist_phase(torch, tatt, dev, spec=None) -> dict:
 
 # -- phase 23: the plain gateway -------------------------------------------------
 
-P23 = dict(model=MODEL, prompt=300, new=16, workers=2, worker_calls=16)
+P23 = dict(model=MODEL, depth=CUT_DEPTH, prompt=300, new=16, workers=2,
+           worker_calls=16)
 
 
 def _start_gateway(argv: list, port: int) -> tuple:
@@ -7908,7 +8126,8 @@ async def plain_gateway_phase(torch, tatt, dev, spec=None) -> dict:
     t_phase = time.perf_counter()
     res: dict = {}
     text = _prompt_text(spec["prompt"], 2300)
-    cfg = Config(serving=ServingConfig(model=spec["model"]))
+    cfg = Config(serving=ServingConfig(model=spec["model"],
+                                       num_layers=spec["depth"]))
     cfg.server.rate_limit.enabled = False
     cfg.server.port = co_port = _free_port()
     co = launcher.Colaunch(cfg, sidecar_factory=_colaunch_factory(
@@ -7982,6 +8201,570 @@ async def plain_gateway_phase(torch, tatt, dev, spec=None) -> dict:
     return res
 
 
+# -- phase 24: compositions ---------------------------------------------------------
+
+# The maximal sidecar: every serving feature at once (int8 weights, the
+# int8 KV cache, length tiers, the prefix pool, a speculative draft at
+# tensor=2, every shard on the card), and the int8 routes held on the
+# card. The card's sizes; a smaller spec drives the same code on the
+# CPU.
+P24 = dict(
+    # (a) tests/test_composition.py's maximal config and traffic,
+    # tiny-llama float32: the card against the CPU in this process.
+    tiny=dict(model="tiny-llama", quantize="int8", kv_cache_dtype="int8",
+              speculative_draft="tiny-llama", mesh=dict(tensor=2),
+              batching=dict(max_batch_size=4, kv_cache_max_seq=256,
+                            kv_tiers=[[64, 3], [256, 2]], prefill_chunk=32,
+                            prefix_cache_entries=2, prefix_cache_min_seq=8,
+                            prefix_cache_max_seq=32)),
+    tiny_long="shared system preamble " * 4, tiny_new=5,
+    # (b) the maximal config at published widths: mistral-7b at the
+    # phase's depth with the whole llama-1b draft (phase 13's pair).
+    # Greedy calls take the micro-path (5 new tokens, as in the
+    # reference's test: on random weights no draft token is accepted,
+    # and a round took 0.8 s), top-k calls
+    # the short tier, four long prompts sharing a 2048-token preamble
+    # the long tier (the first stores it in the prefix pool, the rest
+    # hit).
+    model="mistral-7b", depth=CUT_DEPTH, draft="llama-1b", gamma=4,
+    batching={}, tensor=2, tiers=[[1024, 24], [8192, 4]],
+    prefix=dict(prefix_cache_entries=2, prefix_cache_min_seq=512,
+                prefix_cache_max_seq=2048),
+    greedy_prompts=(40, 90, 160, 250) * 2, greedy_new=5,
+    sampled_prompts=(40, 90, 160, 250), sampled_new=16, top_k=40,
+    preamble_tokens=2048, long_prompts=(2500, 3700, 4800, 6000),
+    long_new=16,
+    # (c) phase 12a's host tier on the int8 cache at half its traffic: 8
+    # preambles (1024 pages) through an arena of half their pages, twice,
+    # two calls an admission round (four would need 532 pages).
+    paged=dict(P12, preambles=8, arena_pages=512, big_arena_pages=2048,
+               group=2),
+    # (d) phase 12c's four rank-8 adapters and a zero-b one, a burst of 8,
+    # on int8 weights and the bf16 cache.
+    lora=dict(P12, lora_burst=8),
+    # (e) the ring on the int8 cache (capacity 4096 + 512 - 1 = 4607)
+    # against the contiguous windowed int8 cache at 8192.
+    ring_prompts=(5000, 5666, 6333, 7000), ring_new=32, ring_slots=4,
+    chunk=512, flat_seq=8192,
+    # (f) the spec tick on the int8 cache, then under tick_fail.
+    spec_calls=8, spec_new=16, fail_every=3, retry_limit=64,
+    # (g) mixtral-8x7b on int8 weights (its banks and router stay dense,
+    # as the reference keeps them) with the int8 cache, phase 14b's
+    # burst.
+    moe="mixtral-8x7b", moe_prompts=SERVE_PROMPT_TOKENS,
+    moe_new=SERVE_NEW_TOKENS,
+)
+# GetServingStats fields of tests/test_composition.py's checks.
+_COMPOSITION_STATS = ("total_slots", "kv_cache_bytes", "speculative_calls",
+                      "speculative_requests", "speculative_drafted",
+                      "speculative_accepted", "decode_steps",
+                      "prefix_cache_hits", "prefix_cache_misses")
+
+
+def _composition_sidecar(torch, dev, serving: dict, params, tmp: str,
+                         name: str, draft=None):
+    """A sidecar of `serving` (a {"serving": ...} config file read as the
+    command line reads `--config FILE`) on a copy of `params`, on a mesh
+    of its `mesh` axes with every coordinate on `dev`; `draft` (when
+    given) replaces the draft model's seeded draw."""
+    from ggrmcp_tpu_torch import __main__ as cli
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.serving.sidecar import Sidecar
+
+    path = os.path.join(tmp, f"{name}.json")
+    with open(path, "w") as fh:
+        json.dump({"serving": serving}, fh)
+    cfg = cli.serving_config(cli.build_parser().parse_args(
+        ["sidecar", "--config", path]))
+    real = llama_mod.init_params
+
+    def seeded(c, device, seed=0):
+        if draft is not None and seed == SEED + 1:
+            return _to(draft, device)
+        return real(c, device, seed)
+
+    llama_mod.init_params = seeded
+    try:
+        return Sidecar(cfg, params=_tree_copy(params),
+                       mesh=_mesh_of(serving.get("mesh") or {}, dev))
+    finally:
+        llama_mod.init_params = real
+
+
+async def _composition_traffic(torch, dev, side, calls, long_groups) -> dict:
+    """`calls` ((kind, text, max_new, sampling fields) each) concurrently
+    beside `long_groups` (lists of the same), each group concurrent and
+    the groups in turn; then the first call again. Outputs in order,
+    the repeat, the stats of test_composition.py's checks, GetMemory
+    reconciled, TTFT on the server for the tiers' calls."""
+    import grpc.aio
+
+    from ggrmcp_tpu_torch.rpc.pb import serving_pb2 as pb
+
+    tiers = getattr(side.batcher, "tiers", [side.batcher])
+    for tier in tiers:
+        _ttft_log(tier)
+    await side.start(0)
+    try:
+        async with grpc.aio.insecure_channel(side.target) as ch:
+            client = _P12Client(ch)
+
+            def send(call):
+                _, text, new, fields = call
+                return client.call(text, new, sampling=pb.SamplingParams(
+                    **fields))
+
+            async def in_turn():
+                out = []
+                for group in long_groups:
+                    out += await asyncio.gather(*(send(c) for c in group))
+                return out
+
+            *short, longs = await asyncio.gather(
+                *(send(c) for c in calls), in_turn())
+            again = await send(calls[0])
+            stats = await client.stats()
+            memory = await client.memory()
+    finally:
+        await side.stop()
+    _sync(torch, dev)
+    kinds = [c[0] for c in calls] + [c[0] for g in long_groups for c in g]
+    outs = short + longs
+    for kind, (ids, reason, _) in zip(kinds, outs + [again]):
+        check(reason in ("length", "stop") and ids,
+              f"a {kind} call ended {reason!r} after {len(ids)} tokens")
+    check(memory.total_bytes + memory.unattributed_bytes == memory.live_bytes,
+          "GetMemory does not close")
+    return dict(
+        kinds=kinds, tokens=[ids for ids, _, _ in outs],
+        client_ms=[ms for _, _, ms in outs], repeat=again[0],
+        stats={k: getattr(stats, k) for k in _COMPOSITION_STATS},
+        memory=dict(live_bytes=memory.live_bytes,
+                    unattributed_bytes=memory.unattributed_bytes,
+                    kv_arena_bytes=sum(c.bytes for c in memory.components
+                                       if c.component == "kv_arena")),
+        tier_ttft_ms=[[ms for _, ms in t.ttft_ms] for t in tiers])
+
+
+def _same_kind(run: dict, kind: str) -> list:
+    return [t for t, k in zip(run["tokens"], run["kinds"]) if k == kind]
+
+
+async def _composition_tiny(torch, dev, spec, tmp) -> dict:
+    """(a) tests/test_composition.py's sidecar and traffic (the two long
+    calls in turn, so that their draws are the same on both sides) on
+    the card and on the CPU, the same target and draft weights."""
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+
+    cpu = torch.device("cpu")
+    cfg = llama_mod.CONFIGS[spec["tiny"]["model"]]
+    params = llama_mod.init_params(cfg, cpu, SEED)
+    draft = llama_mod.init_params(cfg, cpu, SEED + 1)
+    new, long = spec["tiny_new"], spec["tiny_long"]
+    calls = [("greedy", "greedy one", new, {}),
+             ("greedy", "greedy two", new, {}),
+             ("sampled", "sampled", new, dict(temperature=0.9, seed=7))]
+    longs = [[("long", long + q, new, dict(temperature=0.9, seed=7))]
+             for q in ("q1", "q2")]
+    runs = {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        side = _composition_sidecar(torch, d, spec["tiny"], _to(params, d),
+                                    tmp, f"tiny-{where}", draft=draft)
+        check(side.spec_batcher is not None
+              and hasattr(side.batcher, "tiers"),
+              "(a) the maximal sidecar has no micro-path or no tiers")
+        runs[where] = await _composition_traffic(torch, d, side, calls, longs)
+        del side
+    card, ref = runs["card"], runs["cpu"]
+    check(_same_kind(card, "greedy") == _same_kind(ref, "greedy")
+          and card["repeat"] == ref["repeat"] == card["tokens"][0],
+          "(a) greedy tokens card vs cpu differ")
+    check(card["stats"]["total_slots"] == 5
+          and card["stats"]["speculative_requests"] >= 3
+          and card["stats"]["decode_steps"] >= 1
+          and card["stats"]["prefix_cache_hits"] >= 1,
+          f"(a) the card's stats {card['stats']}")
+    _free(torch, dev)
+    return dict(greedy_identical=True,
+                all_identical=card["tokens"] == ref["tokens"],
+                sampled_vs_cpu=_agreement(
+                    [t for t, k in zip(card["tokens"], card["kinds"])
+                     if k != "greedy"],
+                    [t for t, k in zip(ref["tokens"], ref["kinds"])
+                     if k != "greedy"]),
+                stats_card=card["stats"], stats_cpu=ref["stats"])
+
+
+def _maximal_serving(spec, draft: bool) -> dict:
+    serving = dict(
+        model=spec["model"], num_layers=spec["depth"], quantize="int8",
+        kv_cache_dtype="int8", mesh=dict(tensor=spec["tensor"]),
+        batching=dict(spec["batching"], kv_tiers=spec["tiers"],
+                      prefill_chunk=spec["chunk"], max_queue_delay_ms=50.0,
+                      **spec["prefix"]))
+    if draft:
+        serving.update(speculative_draft=spec["draft"],
+                       speculative_gamma=spec["gamma"])
+    return serving
+
+
+async def _composition_maximal(torch, tatt, dev, spec, params, tmp) -> dict:
+    """(b) the maximal config at published widths with its traffic;
+    then its greedy calls on the same sidecar without the draft."""
+    calls = [("greedy", _prompt_text(n, 2400 + i), spec["greedy_new"], {})
+             for i, n in enumerate(spec["greedy_prompts"])]
+    calls += [("sampled", _prompt_text(n, 2450 + i), spec["sampled_new"],
+               dict(temperature=0.8, top_k=spec["top_k"], seed=7 + i))
+              for i, n in enumerate(spec["sampled_prompts"])]
+    preamble = _prompt_text(spec["preamble_tokens"], 2480)
+    longs = [("long", preamble + _prompt_text(
+        n - spec["preamble_tokens"], 2490 + i), spec["long_new"],
+        dict(temperature=0.8, seed=17 + i))
+        for i, n in enumerate(spec["long_prompts"])]
+    greedy = [c for c in calls if c[0] == "greedy"]
+    runs = {}
+    # Without the draft, the greedy calls alone: their streams are the
+    # comparison.
+    for name, draft, sent, groups in (
+            ("maximal", True, calls, [longs[:1], longs[1:]]),
+            ("no_draft", False, greedy, [])):
+        launched = tatt.flash_attention.launches
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        side = _composition_sidecar(torch, dev, _maximal_serving(spec, draft),
+                                    params, tmp, name)
+        check((side.spec_batcher is not None) == draft,
+              f"(b) {name}: micro-path {side.spec_batcher}")
+        runs[name] = run = await _composition_traffic(torch, dev, side,
+                                                      sent, groups)
+        run["launches"] = tatt.flash_attention.launches - launched
+        if dev.type == "cuda":
+            run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del side
+        _free(torch, dev)
+    on, off = runs["maximal"], runs["no_draft"]
+    st = on["stats"]
+    n_greedy = len(spec["greedy_prompts"])
+    check(on["repeat"] == on["tokens"][0], "(b) the greedy repeat differs")
+    check(st["total_slots"] == sum(s for _, s in spec["tiers"])
+          and st["speculative_requests"] == n_greedy + 1
+          and st["prefix_cache_hits"] >= 1 and st["decode_steps"] >= 1,
+          f"(b) stats {st}")
+    check(off["stats"]["speculative_requests"] == 0,
+          f"(b) without the draft: {off['stats']}")
+    if dev.type == "cuda":
+        check(on["launches"] == off["launches"] == 0,
+              f"(b) B1 launched on the int8 cache: {on['launches']}, "
+              f"{off['launches']}")
+    agree = _agreement(_same_kind(on, "greedy"), _same_kind(off, "greedy"))
+    # The micro-path's prefill and the tier's admission are the same
+    # computation at other shapes; bf16 promises the first token only.
+    check(agree["first_token"] == agree["of"],
+          f"(b) greedy micro-path vs the tiers: {agree}")
+
+    def ttft(run, kind):
+        tier = 0 if kind != "long" else 1
+        return _ttft(run["tier_ttft_ms"][tier]) if run[
+            "tier_ttft_ms"][tier] else None
+
+    return dict(
+        stats=st, stats_no_draft=off["stats"], memory=on["memory"],
+        peak_gb=on.get("peak_gb"), peak_gb_no_draft=off.get("peak_gb"),
+        micro_call_ms=_ttft([ms for ms, k in zip(on["client_ms"],
+                                                 on["kinds"])
+                             if k == "greedy"]),
+        short_tier_ttft=ttft(on, "sampled"), long_tier_ttft=ttft(on, "long"),
+        greedy_vs_no_draft=agree,
+        launches=on["launches"] + off["launches"])
+
+
+def _page_bytes(cfg, page: int, kv_dtype: str) -> int:
+    """One page of K and V over every layer: int8 values and a float32
+    scale a (position, head), or the model dtype."""
+    per = cfg.head_dim + 4 if kv_dtype == "int8" else cfg.head_dim * 2
+    return 2 * cfg.num_layers * page * cfg.num_kv_heads * per
+
+
+async def _composition_host(torch, dev, spec, tmp) -> dict:
+    """(c) the paged arena (its prefix sharing) and the host tier on the
+    int8 cache: two passes through an arena of half the pages, against
+    an int8 arena that holds every page, and a pass under
+    host_restore_fail."""
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+
+    ps = dict(spec["paged"], depth=spec["depth"])
+    cfg = _cut(ps["model"], ps["depth"])
+    params = llama_mod.init_params(cfg, dev, SEED)
+    int8 = dict(kv_cache_dtype="int8")
+    host = await _host_run(torch, dev, params, tmp, ps, host=True, fail=True,
+                           serving=int8)
+    big = await _host_run(torch, dev, params, tmp, ps, host=False,
+                          serving=int8)
+    del params
+    _free(torch, dev)
+    p1, p2 = host["passes"]
+    check(p1["stats"]["kv_host_demotions"] > 0
+          and p2["stats"]["kv_host_restores"] > 0,
+          f"(c) demotions {p1['stats']}, restores {p2['stats']}")
+    agree = []
+    for rnd in (0, 1):
+        a = _agreement(host["passes"][rnd]["tokens"],
+                       big["passes"][rnd]["tokens"])
+        agree.append(a)
+        check(a["first_token"] == a["of"],
+              f"(c) pass {rnd + 1}: first tokens vs the whole arena {a}")
+    fail = host["restore_fail"]
+    check(fail["kv_host_restore_failures"] > 0
+          and fail["completed"] == ps["preambles"],
+          f"(c) host_restore_fail: {fail}")
+    # The codec's bytes a page, the first pass's demotions (the second
+    # pass's count pages whose bytes the host tier already holds) and
+    # the second's restores: the int8 values and their scales, about half
+    # the bf16 page's.
+    demoted = (p1["stats"]["kv_host_bytes_demoted"]
+               / p1["stats"]["kv_host_demotions"])
+    restored = (p2["stats"]["kv_host_bytes_restored"]
+                / p2["stats"]["kv_host_restores"])
+    bf16 = _page_bytes(cfg, ps["page"], "")
+    check(max(demoted, restored) <= 0.6 * bf16,
+          f"(c) {demoted:.0f} B a demoted and {restored:.0f} B a restored "
+          f"int8 page against {bf16} B a bf16 page")
+    return dict(
+        passes=[dict(ttft_ms=p["ttft_ms"], stats=p["stats"],
+                     agreement_with_whole_arena=a)
+                for p, a in zip(host["passes"], agree)],
+        restore_fail=fail, bytes_per_demoted_page=demoted,
+        bytes_per_restored_page=restored,
+        int8_page_bytes=_page_bytes(cfg, ps["page"], "int8"),
+        bf16_page_bytes=bf16, ratio_to_bf16=demoted / bf16,
+        traffic=host["traffic"], kv_cache_bytes=host["kv_cache_bytes"],
+        kv_cache_bytes_whole=big["kv_cache_bytes"])
+
+
+async def _composition_lora(torch, tatt, dev, spec, tmp) -> dict:
+    """(d) phase 12c's burst on int8 weights with the bf16 cache: each
+    adapter'd stream against its adapter alone, a zero-b adapter against
+    base; B1 launches (the phase's kernel path)."""
+    import grpc.aio
+
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+
+    ls = dict(spec["lora"], depth=spec["depth"])
+    cfg = _cut(ls["model"], ls["depth"])
+    params = llama_mod.init_params(cfg, dev, SEED)
+    registry = os.path.join(tmp, "adapters")
+    os.makedirs(registry, exist_ok=True)
+    _write_adapters(registry, cfg, ls)
+    side = _p12_sidecar(torch, params, dev, dict(
+        quantize="int8", lora=_lora_cfg(ls, registry, ls["lora_rows"])),
+        tmp, ls, "lora-int8")
+    batcher = side.batcher
+    _hold_admission(batcher)
+    _time_ticks(torch, dev, batcher)
+    launched = tatt.flash_attention.launches
+    await side.start(0)
+    try:
+        async with grpc.aio.insecure_channel(side.target) as ch:
+            res = await _lora_burst(torch, dev, _P12Client(ch), batcher, ls)
+    finally:
+        await side.stop()
+    _sync(torch, dev)
+    res["launches"] = tatt.flash_attention.launches - launched
+    if dev.type == "cuda":
+        check(res["launches"] > 0, "(d) B1 never launched")
+    del side, batcher, params
+    _free(torch, dev)
+    return res
+
+
+def _mistral_spec(spec) -> dict:
+    """The spec `_spec_serve` builds phase 13's sidecars from, at this
+    phase's depth."""
+    return dict(model=spec["model"], depth=spec["depth"],
+                batching=spec["batching"])
+
+
+async def _composition_ring(torch, tatt, dev, spec, params, tmp) -> dict:
+    """(e) the ring on the int8 cache against the contiguous windowed
+    int8 cache: streams counted, KV bytes, TTFT; B1 never launches."""
+    ms = _mistral_spec(spec)
+    calls = [(_prompt_text(n, 2500 + i), spec["ring_new"], {})
+             for i, n in enumerate(spec["ring_prompts"])]
+    one = dict(max_batch_size=spec["ring_slots"], prefill_chunk=spec["chunk"])
+    ring = await _spec_serve(torch, tatt, dev, params, tmp, ms, dict(
+        kv_ring=True, kv_cache_dtype="int8", batching=one), "ring-int8",
+        calls)
+    flat = await _spec_serve(torch, tatt, dev, params, tmp, ms, dict(
+        kv_cache_dtype="int8", batching=dict(
+            one, kv_cache_max_seq=spec["flat_seq"])), "flat-int8", calls)
+    if dev.type == "cuda":
+        check(ring["launches"] == flat["launches"] == 0,
+              f"(e) B1 launched on the int8 cache: {ring['launches']}, "
+              f"{flat['launches']}")
+    cfg = _cut(spec["model"], spec["depth"])
+    cap = cfg.sliding_window + spec["chunk"] - 1
+    bf16 = 2 * cfg.num_layers * spec["ring_slots"] * (cap + 1) * (
+        cfg.num_kv_heads * cfg.head_dim * 2)
+    return dict(
+        vs_contiguous=_agreement(ring["tokens"], flat["tokens"]),
+        kv_bytes_ring=ring["kv_arena_bytes"],
+        kv_bytes_contiguous=flat["kv_arena_bytes"],
+        ring_bf16_bytes=bf16, ratio_to_bf16=ring["kv_arena_bytes"] / bf16,
+        ttft_ring=_ttft([m for _, m in ring["ttft_ms"]]),
+        ttft_flat=_ttft([m for _, m in flat["ttft_ms"]]),
+        tick_ms_p50_ring=_median(ring["tick_log"]["plain"]),
+        launches=ring["launches"] + flat["launches"])
+
+
+async def _composition_spec(torch, tatt, dev, spec, params, tmp) -> dict:
+    """(f) the spec tick on the int8 cache against spec off on the same
+    cache; then under tick_fail every `fail_every`-th tick."""
+    from ggrmcp_tpu_torch.utils import failpoints
+
+    ms = _mistral_spec(spec)
+    calls = [(_prompt_text(n, 2600 + i), spec["spec_new"], {})
+             for i, n in enumerate(spec["greedy_prompts"][:spec["spec_calls"]])]
+    draft = dict(speculative_draft=spec["draft"],
+                 speculative_gamma=spec["gamma"])
+    on_cfg = dict(kv_cache_dtype="int8", batching=dict(
+        speculative="on", tick_retry_limit=spec["retry_limit"]), **draft)
+    on = await _spec_serve(torch, tatt, dev, params, tmp, ms, on_cfg,
+                           "spec-int8", calls)
+    off = await _spec_serve(torch, tatt, dev, params, tmp, ms, dict(
+        kv_cache_dtype="int8"), "nospec-int8", calls)
+    failpoints.registry.arm("tick_fail", every=spec["fail_every"])
+    try:
+        armed = await _spec_serve(torch, tatt, dev, params, tmp, ms, on_cfg,
+                                  "spec-int8-fail", calls)
+    finally:
+        failpoints.registry.disarm()
+    n_spec = len(on["tick_log"]["spec"])
+    check(n_spec > 0 and on["delta"]["spec_ticks"] == n_spec,
+          f"(f) spec ticks {on['delta']}")
+    vs_off = _agreement(on["tokens"], off["tokens"])
+    check(vs_off["first_token"] == vs_off["of"],
+          f"(f) spec on vs off first tokens {vs_off}")
+    d = armed["delta"]
+    check(d["replayed_requests"] > 0 and d["replay_exhausted"] == 0,
+          f"(f) tick_fail: {d}")
+    replay = _agreement(armed["tokens"], on["tokens"])
+    check(replay["first_token"] == replay["of"],
+          f"(f) the replayed calls' first tokens {replay}")
+    if dev.type == "cuda":
+        check(on["launches"] == off["launches"] == armed["launches"] == 0,
+              "(f) B1 launched on the int8 cache")
+    return dict(
+        vs_spec_off=vs_off, replayed_vs_unarmed=replay,
+        replayed_requests=d["replayed_requests"],
+        replay_exhausted=d["replay_exhausted"],
+        spec_ticks=n_spec, tick_ms_p50_on=_median(on["tick_log"]["spec"]),
+        tick_ms_p50_off=_median(off["tick_log"]["plain"]),
+        acceptance=on["delta"]["spec_accepted"]
+        / max(1, on["delta"]["spec_drafted"]),
+        draft_cache_bytes=on["draft_cache_bytes"],
+        launches=on["launches"] + off["launches"] + armed["launches"])
+
+
+async def _composition_moe(torch, tatt, dev, spec, tmp) -> dict:
+    """(g) mixtral on int8 weights with the int8 cache against the bf16
+    cache: phase 14b's burst in one admission round, GetMemory
+    reconciled, tick p50; B1 never launches on the int8 cache."""
+    import dataclasses
+
+    from ggrmcp_tpu_torch.models import moe as moe_mod
+    from ggrmcp_tpu_torch.ops import quant
+
+    cfg = dataclasses.replace(moe_mod.CONFIGS[spec["moe"]],
+                              num_layers=spec["depth"])
+    params = moe_mod.init_params(cfg, dev, SEED)
+    ms = dict(model=spec["moe"], depth=spec["depth"], batching={})
+    calls = [(_prompt_text(n, 2700 + i), spec["moe_new"], {})
+             for i, n in enumerate(spec["moe_prompts"])]
+    runs = {}
+    for name, kv in (("int8", "int8"), ("bf16", "")):
+        runs[name] = await _spec_serve(
+            torch, tatt, dev, params, tmp, ms,
+            dict(quantize="int8", kv_cache_dtype=kv), f"moe-{name}", calls,
+            probe=lambda side: side.generation.params)
+    del params
+    _free(torch, dev)
+    q = runs["int8"]
+    leaves = q.pop("probed")
+    runs["bf16"].pop("probed")
+    dense = [k for k in ("router", "w_gate", "w_up", "w_down")
+             if not isinstance(leaves["layers"][k], quant.QuantizedTensor)]
+    check(isinstance(leaves["layers"]["wqkv"], quant.QuantizedTensor)
+          and len(dense) == 4, f"(g) dense leaves {dense}")
+    check(q["memory_closes"] and runs["bf16"]["memory_closes"],
+          "(g) GetMemory does not close")
+    if dev.type == "cuda":
+        check(q["launches"] == 0,
+              f"(g) B1 launched {q['launches']} times on the int8 cache")
+    return dict(
+        vs_bf16_cache=_agreement(q["tokens"], runs["bf16"]["tokens"]),
+        tick_ms_p50_int8=_median(q["tick_log"]["plain"]),
+        tick_ms_p50_bf16=_median(runs["bf16"]["tick_log"]["plain"]),
+        kv_bytes_int8=q["kv_arena_bytes"],
+        kv_bytes_bf16=runs["bf16"]["kv_arena_bytes"],
+        live_bytes=q["live_bytes"], unattributed_bytes=q["unattributed_bytes"],
+        ttft=_ttft([m for _, m in q["ttft_ms"]]),
+        launches_int8=q["launches"], launches_bf16=runs["bf16"]["launches"])
+
+
+async def composition_phase(torch, tatt, dev, spec=None) -> dict:
+    """Phase 24: (a) the maximal sidecar of tests/test_composition.py on
+    the card against the CPU; (b) the maximal config at published
+    widths; (c) the host tier, (d) LoRA, (e) the ring, (f) the spec
+    tick and (g) MoE on int8; sidecars configured by a `--config` file,
+    one seeded weight set where parts share a model."""
+    import tempfile
+
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+
+    spec = spec or P24
+    t_phase = time.perf_counter()
+    res: dict = {}
+    # The path's run starts here: every launch count from 0.
+    tatt.flash_attention.launches = 0
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(
+            os.path.abspath(__file__))) as tmp:
+        parts = [("tiny", "(a) the maximal sidecar, card vs cpu",
+                  lambda: _composition_tiny(torch, dev, spec, tmp))]
+        cfg = _cut(spec["model"], spec["depth"])
+        params = llama_mod.init_params(cfg, dev, SEED)
+        parts += [
+            ("maximal", "(b) the maximal config at published widths",
+             lambda: _composition_maximal(torch, tatt, dev, spec, params,
+                                          tmp)),
+            ("ring", "(e) the ring on the int8 cache",
+             lambda: _composition_ring(torch, tatt, dev, spec, params, tmp)),
+            ("spec", "(f) the spec tick on the int8 cache",
+             lambda: _composition_spec(torch, tatt, dev, spec, params, tmp)),
+        ]
+        for key, what, part in parts:
+            t = time.perf_counter()
+            res[key] = await part()
+            res[key]["seconds"] = time.perf_counter() - t
+            log(f"  {what}: {json.dumps(_brief(res[key]))}")
+        del params
+        _free(torch, dev)
+        for key, what, part in (
+                ("host", "(c) the host tier on the int8 cache",
+                 lambda: _composition_host(torch, dev, spec, tmp)),
+                ("lora", "(d) LoRA on int8 weights",
+                 lambda: _composition_lora(torch, tatt, dev, spec, tmp)),
+                ("moe", "(g) MoE on int8 weights and cache",
+                 lambda: _composition_moe(torch, tatt, dev, spec, tmp))):
+            t = time.perf_counter()
+            res[key] = await part()
+            res[key]["seconds"] = time.perf_counter() - t
+            log(f"  {what}: {json.dumps(_brief(res[key]))}")
+    _sync(torch, dev)
+    res["launches"] = tatt.flash_attention.launches
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
 def _free(torch, dev) -> None:
     gc.collect()
     if dev.type == "cuda":
@@ -8043,65 +8826,65 @@ def main() -> int:
     try:
         with phase(1):
             card = card_line()
-            log(f"[1/23] card: {card}; torch {torch.__version__}, CUDA "
+            log(f"[1/24] card: {card}; torch {torch.__version__}, CUDA "
                 f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
         with phase(2):
             t = time.perf_counter()
             _build.load("flash_attention")
-            log(f"[2/23] build: flash_attention.cu in "
+            log(f"[2/24] build: flash_attention.cu in "
                 f"{time.perf_counter() - t:.1f} s")
             ptxas_report(_build.build_log.get("flash_attention", ""))
 
         if run(3):
             with phase(3):
-                log(f"[3/23] kernel vs plain (|err| <= atol + rtol |plain|: "
+                log(f"[3/24] kernel vs plain (|err| <= atol + rtol |plain|: "
                     f"{TOL})")
                 cases = kernel_cases(torch, tatt, dev)
 
         if run(4):
             with phase(4):
-                log("[4/23] reference: tiny-llama on the card vs the CPU")
+                log("[4/24] reference: tiny-llama on the card vs the CPU")
                 ref = tiny_reference(torch, dev)
                 log(f"  {ref}")
 
         if run(5):
             with phase(5):
-                log(f"[5/23] serve: {MODEL} sidecar, default batching")
+                log(f"[5/24] serve: {MODEL} sidecar, default batching")
                 serve = asyncio.run(serve_phase(torch, tatt, dev))
                 log(f"  {json.dumps(serve)}")
                 tidy()
 
         if run(6):
             with phase(6):
-                log(f"[6/23] embed: {EMBED_MODEL} sidecar")
+                log(f"[6/24] embed: {EMBED_MODEL} sidecar")
                 embed = asyncio.run(embed_phase(torch, tatt, dev))
                 log(f"  {json.dumps(embed)}")
                 tidy()
 
         if run(7):
             with phase(7):
-                log("[7/23] HF checkpoint: llama3-8b width, 2 layers, 2 files")
+                log("[7/24] HF checkpoint: llama3-8b width, 2 layers, 2 files")
                 hf = asyncio.run(hf_phase(torch, tatt, dev))
                 log(f"  {json.dumps(hf)}")
                 tidy()
 
         if run(8):
             with phase(8):
-                log(f"[8/23] int8: {MODEL} weights and KV cache")
+                log(f"[8/24] int8: {MODEL} weights and KV cache")
                 int8 = asyncio.run(int8_phase(torch, tatt, dev))
                 tidy()
 
         if run(9):
             with phase(9):
-                log(f"[9/23] KV reuse: {MODEL} prefix pool, interleave, "
+                log(f"[9/24] KV reuse: {MODEL} prefix pool, interleave, "
                     f"paged KV")
                 reuse = asyncio.run(kv_reuse_phase(torch, tatt, dev))
                 tidy()
 
         if run(10):
             with phase(10):
-                log(f"[10/23] grammar: {MODEL} constrained burst, jump on / "
+                log(f"[10/24] grammar: {MODEL} constrained burst, jump on / "
                     f"off")
                 grammar = asyncio.run(grammar_phase(torch, tatt, dev))
                 log(f"  {json.dumps(_brief(grammar))}")
@@ -8109,14 +8892,14 @@ def main() -> int:
 
         if run(11):
             with phase(11):
-                log(f"[11/23] control plane: {MODEL} tick phases, Profile, "
+                log(f"[11/24] control plane: {MODEL} tick phases, Profile, "
                     f"GetMemory, scheduler, failpoints, deadlines")
                 control = asyncio.run(control_phase(torch, tatt, dev))
                 tidy()
 
         if run(12):
             with phase(12):
-                log(f"[12/23] paged plane and LoRA: {MODEL} host tier, "
+                log(f"[12/24] paged plane and LoRA: {MODEL} host tier, "
                     f"TransferKV with roles, adapter arena, preemption with "
                     f"the host tier")
                 paged = asyncio.run(paged_lora_phase(torch, tatt, dev))
@@ -8125,7 +8908,7 @@ def main() -> int:
         if run(13):
             with phase(13):
                 t = time.perf_counter()
-                log(f"[13/23] speculative decoding, ring KV, tiers: "
+                log(f"[13/24] speculative decoding, ring KV, tiers: "
                     f"{P13['model']} with the {P13['draft']} draft")
                 p13 = asyncio.run(spec_ring_tier_phase(torch, tatt, dev))
                 log(f"  phase 13: {time.perf_counter() - t:.1f} s, "
@@ -8133,7 +8916,7 @@ def main() -> int:
 
         if run(14):
             with phase(14):
-                log(f"[14/23] sparse MoE: {P14['model']} cut to "
+                log(f"[14/24] sparse MoE: {P14['model']} cut to "
                     f"{P14['layers']} layers, bf16")
                 p14 = asyncio.run(moe_phase(torch, tatt, dev))
                 log(f"  phase 14: {p14['seconds']:.1f} s, {p14['launches']} B1 "
@@ -8142,7 +8925,7 @@ def main() -> int:
 
         if run(15):
             with phase(15):
-                log(f"[15/23] tensor and expert parallelism: {P15['model']} "
+                log(f"[15/24] tensor and expert parallelism: {P15['model']} "
                     f"at tensor={P15['tensor']} on one card, the sharded "
                     f"loader, {P15['moe']} at expert=2 x tensor=2")
                 p15 = asyncio.run(tp_phase(torch, tatt, dev))
@@ -8152,7 +8935,7 @@ def main() -> int:
 
         if run(16):
             with phase(16):
-                log(f"[16/23] co-launch: {P16['model']} sidecar and the "
+                log(f"[16/24] co-launch: {P16['model']} sidecar and the "
                     f"port's gateway on one event loop in this process, "
                     f"over a private socket")
                 p16 = asyncio.run(colaunch_phase(torch, tatt, dev))
@@ -8162,7 +8945,7 @@ def main() -> int:
 
         if run(17):
             with phase(17):
-                log(f"[17/23] sequence- and pipeline-parallel serving: "
+                log(f"[17/24] sequence- and pipeline-parallel serving: "
                     f"{P17['model']} at sequence={P17['sequence']} and "
                     f"stage={P17['stage']}, every shard on one card")
                 p17 = asyncio.run(sp_pp_phase(torch, tatt, dev))
@@ -8175,7 +8958,7 @@ def main() -> int:
 
         if run(18):
             with phase(18):
-                log(f"[18/23] training: {P18['model']} through the train CLI "
+                log(f"[18/24] training: {P18['model']} through the train CLI "
                     f"({P18['steps']} steps at [{P18['batch']}, "
                     f"{P18['seq_len']}], a resume to {P18['resume_to']}), B1 "
                     f"under autograd, {P18['tiny']} card = CPU at tensor and "
@@ -8189,7 +8972,7 @@ def main() -> int:
 
         if run(19):
             with phase(19):
-                log(f"[19/23] the data axes and the routes on a mesh: "
+                log(f"[19/24] the data axes and the routes on a mesh: "
                     f"{P19['model']} at data={P19['data']}, {P19['embed']}, "
                     f"LoRA, TransferKV, the host tier, the ring and tiers at "
                     f"tensor=2, {P19['train']} training at data={P19['data']}")
@@ -8200,7 +8983,7 @@ def main() -> int:
 
         if run(20):
             with phase(20):
-                log(f"[20/23] meshes the axes do not divide: {P20['model']} at "
+                log(f"[20/24] meshes the axes do not divide: {P20['model']} at "
                     f"tensor={P20['tensor']} (every block whole), "
                     f"{P20['embed']} at tensor={P20['embed_tensor']}, "
                     f"{P20['model']} training at tensor={P20['tensor']} and "
@@ -8213,7 +8996,7 @@ def main() -> int:
 
         if run(21):
             with phase(21):
-                log(f"[21/23] the replica fleet: {P21['model']} workers of "
+                log(f"[21/24] the replica fleet: {P21['model']} workers of "
                     f"the port behind the port's supervisor, a SIGKILL and "
                     f"a failpoint healed")
                 p21 = asyncio.run(fleet_phase(torch, tatt, dev))
@@ -8224,7 +9007,7 @@ def main() -> int:
 
         if run(22):
             with phase(22):
-                log(f"[22/23] processes on the one card: {P22['tiny']} and "
+                log(f"[22/24] processes on the one card: {P22['tiny']} and "
                     f"{P22['model']} data-parallel over "
                     f"{P22['processes']} processes")
                 p22 = dist_phase(torch, tatt, dev)
@@ -8235,11 +9018,24 @@ def main() -> int:
 
         if run(23):
             with phase(23):
-                log(f"[23/23] the plain gateway: `gateway --backend` (no "
+                log(f"[23/24] the plain gateway: `gateway --backend` (no "
                     f"--tpu) as a subprocess before a {P23['model']} "
                     f"sidecar, then with --workers {P23['workers']}")
                 p23 = asyncio.run(plain_gateway_phase(torch, tatt, dev))
                 log(f"  phase 23: {p23['seconds']:.1f} s, {json.dumps(p23)}")
+                _free(torch, dev)
+
+        if run(24):
+            with phase(24):
+                log(f"[24/24] compositions: the maximal sidecar (tiny-llama "
+                    f"card vs cpu, then {P24['model']} with the "
+                    f"{P24['draft']} draft at tensor={P24['tensor']}), the "
+                    f"host tier, LoRA, the ring, the spec tick and "
+                    f"{P24['moe']} on int8")
+                p24 = asyncio.run(composition_phase(torch, tatt, dev))
+                log(f"  phase 24: {p24['seconds']:.1f} s, "
+                    f"{p24['lora']['launches']} B1 launches in (d), "
+                    f"{p24['launches']} in the phase")
                 _free(torch, dev)
 
         # No module of the JAX package ran in this process either.
@@ -8319,6 +9115,8 @@ def main() -> int:
                               for k, r in p20["train"].items()},
         watch_launches=p20["watch"]["launches"],
         fleet_worker_launches=p21["profile"]["b1_launches"],
+        composition_lora_launches=p24["lora"]["launches"],
+        composition_int8_launches=p24["launches"] - p24["lora"]["launches"],
         fleet_sidecar_launches=p21["burst"]["sidecar_launches"],
         plain_gateway_launches=p23["launches"],
         dist_tiny_launches=[p["launches"]

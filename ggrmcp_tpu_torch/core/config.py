@@ -165,7 +165,9 @@ class BatchingConfig:
             if self.prefix_cache_entries:
                 raise ValueError(
                     "batching.paged_kv supersedes the slot-granular "
-                    "prefix pool: set prefix_cache_entries to 0"
+                    "prefix pool: set prefix_cache_entries to 0 "
+                    "(page-aligned prefix sharing is built into the "
+                    "paged allocator — docs/paged_kv.md)"
                 )
             page = self.paged_kv_page_size
             if self.kv_cache_max_seq % page:
@@ -200,14 +202,13 @@ class BatchingConfig:
                 "log: set paged_kv_host_path"
             )
         if self.prefix_cache_entries < 0:
-            raise ValueError("batching.prefix_cache_entries must be >= 0")
+            raise ValueError("prefix_cache_entries must be >= 0")
         if self.prefix_cache_entries:
             if self.prefix_cache_min_seq < 1:
-                raise ValueError("batching.prefix_cache_min_seq must be >= 1")
+                raise ValueError("prefix_cache_min_seq must be >= 1")
             if self.prefix_cache_max_seq < self.prefix_cache_min_seq:
                 raise ValueError(
-                    "batching.prefix_cache_max_seq must be >= "
-                    "prefix_cache_min_seq"
+                    "prefix_cache_max_seq must be >= prefix_cache_min_seq"
                 )
 
 
@@ -685,7 +686,7 @@ class ServingConfig:
                 raise ValueError(
                     f"serving.role={self.role!r} requires "
                     "batching.paged_kv=on: KV pages are the transfer "
-                    "format"
+                    "format (docs/paged_kv.md 'pages over the wire')"
                 )
             if self.batching.kv_tiers:
                 raise ValueError(

@@ -141,6 +141,7 @@ from ggrmcp_tpu_torch.serving.scheduler import (
 )
 from ggrmcp_tpu_torch.serving.slo import SloAccount, TenantTable
 from ggrmcp_tpu_torch.utils import failpoints
+from ggrmcp_tpu_torch.utils.stats import pct
 
 logger = logging.getLogger("ggrmcp.torch.batching")
 
@@ -345,15 +346,6 @@ def _arena_write(leaf, idx: torch.Tensor, payload: torch.Tensor) -> None:
     for part, heads in _head_blocks(leaf):
         part.index_copy_(1, idx.to(part.device),
                          payload[:, :, :, heads].to(part.device, part.dtype))
-
-
-def _pct(values: list[float], q: float) -> float:
-    """Nearest-rank percentile (ceil-based), 0.0 for no samples."""
-    if not values:
-        return 0.0
-    ordered = sorted(values)
-    rank = max(1, int(np.ceil(q * len(ordered))))
-    return round(ordered[rank - 1], 2)
 
 
 class ContinuousBatcher:
@@ -1754,8 +1746,8 @@ class ContinuousBatcher:
     @staticmethod
     def stall_percentiles(records: list[float]) -> dict:
         return {
-            "decode_stall_ms_p50": _pct(records, 0.5),
-            "decode_stall_ms_p99": _pct(records, 0.99),
+            "decode_stall_ms_p50": pct(records, 0.5),
+            "decode_stall_ms_p99": pct(records, 0.99),
             "decode_stall_ms_max": round(max(records), 2) if records else 0.0,
         }
 
@@ -1764,8 +1756,8 @@ class ContinuousBatcher:
         qs = [r[0] for r in records]
         ss = [r[1] for r in records]
         return {
-            "queue_ms_p50": _pct(qs, 0.5), "queue_ms_p99": _pct(qs, 0.99),
-            "service_ms_p50": _pct(ss, 0.5), "service_ms_p99": _pct(ss, 0.99),
+            "queue_ms_p50": pct(qs, 0.5), "queue_ms_p99": pct(qs, 0.99),
+            "service_ms_p50": pct(ss, 0.5), "service_ms_p99": pct(ss, 0.99),
         }
 
     def counter_stats(self) -> dict:

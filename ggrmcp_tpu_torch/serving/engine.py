@@ -825,6 +825,11 @@ class GenerationEngine:
             "quantized %s to int8: %.1f → %.1f MB of weights",
             self.cfg.name, before / 1e6, quant.quantized_nbytes(params) / 1e6,
         )
+        if any(d.type == "cuda" for d in self.mesh.distinct_devices()):
+            # The dense leaves this engine drew are free now: hand their
+            # blocks back to the card (other processes share it), not
+            # to this process's allocator cache.
+            torch.cuda.empty_cache()
         return params
 
     # -- forwards -------------------------------------------------------

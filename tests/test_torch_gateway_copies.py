@@ -5,7 +5,8 @@ types, headers and sessions, the MCP types and validation, the schema
 builder, the gRPC connection, descriptors, reflection client, discovery
 and router, the timeline, the gateway's metrics, middleware, handler,
 fast lane and app, the tracer, the JSON log formatter and the asyncio
-shim; the supervisor half of `serving/fleet.py`) equals the reference's
+shim; the supervisor half of `serving/fleet.py`; the demo backends'
+generated messages and the percentile math) equals the reference's
 text except for the lines listed here: imports that name the port's
 package (checked line by line), the listed blocks that point the
 gateway's fleet at the port's worker, and three comments that drop the
@@ -45,6 +46,10 @@ ALLOWED = {
     "gateway/__init__.py": [], "gateway/metrics.py": [],
     "gateway/middleware.py": [], "gateway/handler.py": [],
     "gateway/fastlane.py": [],
+    # The demo backends' messages (generated, byte for byte) and the
+    # percentile math.
+    "rpc/pb/hello_pb2.py": [], "rpc/pb/complex_pb2.py": [],
+    "utils/stats.py": [],
     # The fleet's workers take the port's handshake: their device and
     # seed, through the Gateway and `run`.
     "gateway/app.py": [
@@ -155,6 +160,16 @@ def test_copy_equals_reference_text(path):
         blocks.append((old, new))
     assert blocks == ALLOWED[path]
     assert scrubbed == SCRUBBED.get(path, [])
+
+
+@pytest.mark.parametrize("path", ["rpc/pb/hello_pb2.py",
+                                  "rpc/pb/complex_pb2.py"])
+def test_generated_messages_are_the_reference_bytes(path):
+    """Byte for byte: their descriptors equal the reference's."""
+    with open(os.path.join(REPO, "ggrmcp_tpu", path), "rb") as fh:
+        want = fh.read()
+    with open(os.path.join(REPO, "ggrmcp_tpu_torch", path), "rb") as fh:
+        assert fh.read() == want
 
 
 # The reference's gateway config classes, copied source and all.

@@ -86,7 +86,8 @@ PORT_MODULES = (
     "ggrmcp_tpu_torch.gateway.metrics", "ggrmcp_tpu_torch.gateway.middleware",
     "ggrmcp_tpu_torch.gateway.handler", "ggrmcp_tpu_torch.gateway.fastlane",
     "ggrmcp_tpu_torch.gateway.app", "ggrmcp_tpu_torch.utils.jsonlog",
-    "ggrmcp_tpu_torch.utils.aio_compat",
+    "ggrmcp_tpu_torch.utils.aio_compat", "ggrmcp_tpu_torch.utils.stats",
+    "ggrmcp_tpu_torch.rpc.pb.hello_pb2", "ggrmcp_tpu_torch.rpc.pb.complex_pb2",
 )
 
 
@@ -363,3 +364,65 @@ async def test_plain_gateway_workers_share_the_port():
     assert "workers" in answer["result"]["content"][0]["text"], answer
     assert len(workers) >= 2 and code == 0 and loaded == []
     assert left == []
+
+
+# Loads the port's hello backend with the JAX package unimportable,
+# prints which of torch / JAX / the JAX package it loaded, then serves
+# on a free port (it prints TARGET=...).
+_HELLO_STUB = (
+    "import asyncio, importlib.util, json, sys\n"
+    "sys.modules['ggrmcp_tpu'] = None\n"
+    "spec = importlib.util.spec_from_file_location(\n"
+    "    'hello_server_torch', 'examples/hello_server_torch.py')\n"
+    "hello = importlib.util.module_from_spec(spec)\n"
+    "spec.loader.exec_module(hello)\n"
+    "print(json.dumps(sorted(m for m, mod in sys.modules.items()\n"
+    "    if mod is not None\n"
+    "    and m.split('.')[0] in ('torch', 'jax', 'ggrmcp_tpu'))),"
+    " flush=True)\n"
+    "asyncio.run(hello.serve(0))\n"
+)
+
+
+def test_port_hello_backend_behind_the_plain_gateway():
+    """The quick start on the port alone: `examples/hello_server_torch.py`
+    and the plain gateway before it, both with `ggrmcp_tpu`
+    unimportable. tools/list names SayHello and a tools/call answers
+    "Hello, X!"; neither process loads torch or JAX."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = tempfile.TemporaryFile()
+    backend = subprocess.Popen([sys.executable, "-c", _HELLO_STUB], cwd=REPO,
+                               env=env, stdout=out, stderr=subprocess.DEVNULL)
+    try:
+        deadline = time.monotonic() + 60
+        lines = []
+        while not any(ln.startswith("TARGET=") for ln in lines):
+            assert backend.poll() is None and time.monotonic() < deadline
+            time.sleep(0.2)
+            out.seek(0)
+            lines = out.read().decode().splitlines()
+        backend_loaded = json.loads(lines[0])
+        target = lines[1].split("=", 1)[1]
+        port = _free_port()
+
+        def answered(_proc):
+            tools = _post(port, "/", {"jsonrpc": "2.0", "method": "tools/list",
+                                      "id": 1})["result"]["tools"]
+            if not tools:
+                return None
+            return tools, _post(port, "/", {
+                "jsonrpc": "2.0", "method": "tools/call", "id": 2, "params": {
+                    "name": "hello_helloservice_sayhello",
+                    "arguments": {"name": "port"}}})
+
+        (tools, call), code, loaded, _ = _run_cli(
+            ["gateway", "--backend", target, "--http-port", str(port)],
+            answered)
+    finally:
+        backend.terminate()
+        backend.wait(timeout=30)
+    assert backend_loaded == []
+    assert "hello_helloservice_sayhello" in [t["name"] for t in tools]
+    assert json.loads(call["result"]["content"][0]["text"]) == {
+        "message": "Hello, port!"}, call
+    assert code == 0 and loaded == []
