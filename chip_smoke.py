@@ -163,15 +163,36 @@ Phases, any failure exits non-zero and prints no result:
    llama3-8b` as one process (no child, no process running the JAX
    package): seconds to healthy, one tools/call, the socket, SIGTERM
    (exit 0, the socket gone);
-17. sequence and pipeline parallelism, both shards of each mesh on the
-   card (llama3-8b at CUT_DEPTH): (c) tiny-llama float32 at sequence 2 and 4 and stage 2 and 4,
-   card = CPU; (a) a 2048-token llama3-8b fresh prefill at sequence=2
-   through ring and Ulysses against sequence=1, held to twice a
-   same-run witness (B1 against the plain attention); (b) phase 5's
-   burst through sidecars at stage=1 and at stage=2 (4 layers a stage)
-   from one seeded tree: streams counted, tick p50, the mesh in
-   GetServingStats, peak memory. The sp attention and a stage's
-   attention are plain, as the reference's are: B1 launches in neither;
+17. sequence and pipeline parallelism, plain and composed, every shard
+   of each mesh on the card (llama3-8b at CUT_DEPTH, one seeded tree
+   sharded in place from mesh to mesh): (c) tiny-llama float32 at
+   sequence 2 and 4 and stage 2 and 4 and (d) their compositions (ring
+   and Ulysses on int8 weights, Ulysses on the int8 cache, tensor=2 x
+   sequence=2, tensor=2 x stage=2 on int8 weights and on the int8 cache,
+   the prefix pool at tensor=2 x stage=2 with a stored prompt and a
+   hit), card = CPU; (a) a 2048-token llama3-8b fresh prefill at
+   sequence=2 through ring and Ulysses against sequence=1, held to
+   twice a same-run witness (B1 against the plain attention), then (f)
+   at tensor=2 x sequence=2 (four shards) and (h) on int8 weights and on
+   int8 weights with the int8 cache (against sequence=1 on the same int8
+   tree, within twice the bf16 witness; B1 never on the int8 cache);
+   then sidecars configured by a `--config` file (8 slots,
+   `prefill_chunk` 1024, `sp_prefill_min_seq` 1024) serve phase 5's
+   burst at stage=1, the baseline, and on the same tree (e) at
+   sequence=2 through ring and through Ulysses (the fused [8, 1024]
+   admission through the sp
+   attention, once a layer; B1 for the admissions under the threshold),
+   (f) at tensor=2 x sequence=2, (b) at stage=2, (i) at tensor=2 x
+   stage=2, at stage=2 on int8 weights and on the int8 cache against
+   stage=1 on each: streams and first tokens counted against the
+   baseline, tick p50, TTFT p50 by prompt length, the mesh in
+   GetServingStats, GetMemory reconciled, peak memory; (i) phase 9a's
+   wave through the prefix pool at stage=2 against the pool off (16
+   hits, the hits' first tokens the pool-off run's); (g) mistral-7b
+   (window 4096) takes a 6144-token fresh prefill at sequence=2 through
+   ring and Ulysses against sequence=1 through windowed B1, within
+   twice that run's witness. The sp attention and a stage's attention
+   are plain, as the reference's are: B1 launches in neither;
 18. training: (a) B1 under autograd at the training step's [8, 1023]
    (llama-1b heads, bf16, causal; windowed and ragged too): the output
    and dq / dk / dv against autograd of the plain version at TOL, timed
@@ -249,16 +270,16 @@ Phases, any failure exits non-zero and prints no result:
    (gloo: a named card is shared): their cross-process sum is exact and
    three AdamW steps at global data=2 equal the single-process data=2
    steps on the card (losses, final params); (b) llama-1b at full width
-   cut to 4 of 16 layers, 3 AdamW steps of a global [8, 1024] batch
+   cut to 4 of 16 layers, 2 AdamW steps of a global [8, 1024] batch
    split over two processes
    on cuda:0 against the single-process data=2 run from one seeded tree,
    held to twice a same-run witness (that run through the plain
-   attention against B1), with a planted fault (three steps with the
+   attention against B1), with a planted fault (two steps with the
    gradients' reduce skipped) outside that bound: losses, the
    gradients' reduce time, step time p50 of both, each process's
    peak memory, B1 launches a step, the backend; B1 at one process's
    [4, 1023] block against its plain version, timed with SDPA and the
-   bound;
+   bound. One pair of processes takes (a)'s steps, then (b)'s;
 23. the plain gateway: `python3 -m ggrmcp_tpu_torch gateway --backend
    unix:SOCK` (no --tpu) as a subprocess before a co-launch's llama3-8b
    sidecar (CUT_DEPTH): tools/list equal to the co-launch gateway's,
@@ -361,7 +382,7 @@ def log(msg: str) -> None:
 # (`phase`).
 PHASE_LIMIT_S = {
     1: 60, 2: 60, 3: 60, 4: 60, 5: 60, 6: 60, 7: 60, 8: 90, 9: 60, 10: 60,
-    11: 115, 12: 130, 13: 105, 14: 60, 15: 60, 16: 130, 17: 60, 18: 225,
+    11: 115, 12: 130, 13: 105, 14: 60, 15: 60, 16: 130, 17: 100, 18: 225,
     19: 125, 20: 60, 21: 315, 22: 145, 23: 60, 24: 130,
 }
 # The running phase and when its limit falls (monotonic clock; None
@@ -391,13 +412,37 @@ def _over_limit(n: int, limit: float) -> None:
     print(msg, flush=True)
     print(msg, file=sys.stderr, flush=True)
     faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
-    # And every pending asyncio task's: a phase's event loop waits in
-    # select while a task waits on what never comes.
+    # And every pending asyncio task's chain of awaits, down to the
+    # future it waits on: a phase's event loop waits in select while a
+    # task waits on what never comes.
     for task in [t for t in gc.get_objects()
                  if isinstance(t, asyncio.Task) and not t.done()]:
-        task.print_stack(file=sys.stderr)
+        try:
+            print(f"pending {task.get_name()}: "
+                  f"{' -> '.join(_await_chain(task.get_coro()))} waiting on "
+                  f"{getattr(task, '_fut_waiter', None)!r}", file=sys.stderr,
+                  flush=True)
+        except Exception as exc:  # noqa: BLE001 — the dump goes on
+            print(f"pending {task!r}: {exc!r}", file=sys.stderr, flush=True)
     _kill_descendants(os.getpid(), signal.SIGKILL)
     os._exit(3)
+
+
+def _await_chain(coro) -> list:
+    """Each coroutine (or generator) a pending task's awaits pass
+    through, with its file and line, innermost last."""
+    out = []
+    while coro is not None:
+        frame = (getattr(coro, "cr_frame", None)
+                 or getattr(coro, "gi_frame", None)
+                 or getattr(coro, "ag_frame", None))
+        name = getattr(coro, "__qualname__", type(coro).__name__)
+        out.append(f"{name} ({frame.f_code.co_filename}:{frame.f_lineno})"
+                   if frame is not None else name)
+        coro = (getattr(coro, "cr_await", None)
+                or getattr(coro, "gi_yieldfrom", None)
+                or getattr(coro, "ag_await", None))
+    return out
 
 
 def _kill_descendants(pid: int, sig) -> None:
@@ -3719,13 +3764,13 @@ P13 = dict(
     batching=dict(max_batch_size=32), chunk=512,
     # (a) 16 concurrent calls: 8 greedy, 4 at temperature 0.8, 2 top-k,
     # 2 constrained by phase 10's schemas.
-    burst_new=32, burst_prompts=(40, 90, 160, 250),
-    # (b) self-draft and (c) the micro-path: 8 greedy calls.
-    greedy_calls=8, greedy_new=64,
+    burst_new=16, burst_prompts=(40, 90, 160, 250),
+    # (b) self-draft and (c) the micro-path: 8 greedy calls of 32 tokens.
+    greedy_calls=8, greedy_new=32,
     # (d) the ring (capacity 4096 + 512 - 1 = 4607): 8 prompts of
-    # 5000-7000 tokens, 32 new tokens each, 8 slots; the contiguous
+    # 5000-7000 tokens, 16 new tokens each, 8 slots; the contiguous
     # windowed cache at 8192.
-    ring_prompts=tuple(5000 + 2000 * i // 7 for i in range(8)), ring_new=32,
+    ring_prompts=tuple(5000 + 2000 * i // 7 for i in range(8)), ring_new=16,
     ring_slots=8, flat_seq=8192,
     # (e) tiers [[1024, 32], [8192, 4]] against one 28-slot pool at
     # 8192: 24 short calls and 4 of 6000 tokens, together.
@@ -4650,11 +4695,16 @@ def _tiny_tp_check(torch, tatt, dev, spec) -> dict:
     return res
 
 
-async def _tp_serve(torch, tatt, dev, params, mesh, spec, tmp: str) -> dict:
-    """(c) A sidecar (configured by a `--config` file naming the mesh) on
-    `params` serves phase 5's burst in one admission round, one stream,
-    GetServingStats and GetMemory; returns the run's numbers and tokens.
-    The sidecar's engine shards `params` in place."""
+async def _tp_serve(torch, tatt, dev, params, mesh, spec, tmp: str,
+                    settings: dict = None) -> dict:
+    """(c) A sidecar (configured by a `--config` file naming the mesh and
+    the serving `settings`) on `params` serves phase 5's burst in one
+    admission round, one stream, GetServingStats and GetMemory; returns
+    the run's numbers and tokens. The sidecar's engine shards `params`
+    in place (and quantizes them, on int8 weights). On a sequence mesh
+    each prefill that takes the sp attention must call it once a tensor
+    shard a layer, and B1 launches for the rest; on the int8 cache and
+    under a stage B1 never launches."""
     import grpc.aio
 
     from ggrmcp_tpu_torch import __main__ as cli
@@ -4667,7 +4717,8 @@ async def _tp_serve(torch, tatt, dev, params, mesh, spec, tmp: str) -> dict:
     with open(path, "w") as fh:
         json.dump({"serving": dict(
             model=spec["model"], num_layers=spec.get("serve_depth", 0),
-            batching=spec["batching"], mesh={"tensor": 1, **axes})}, fh)
+            batching=spec["batching"], mesh={"tensor": 1, **axes},
+            **(settings or {}))}, fh)
     serving = cli.serving_config(cli.build_parser().parse_args(
         ["sidecar", "--config", path]))
     side = Sidecar(serving, params=params, mesh=mesh)
@@ -4692,6 +4743,23 @@ async def _tp_serve(torch, tatt, dev, params, mesh, spec, tmp: str) -> dict:
         return forward(params_, tokens, *args, **kwargs)
 
     engine.decode_forward = counted
+    # The prefills that took the sequence-parallel attention, each held to
+    # one call a tensor shard a layer.
+    sp_forwards = [0]
+    prefill_forward = engine.prefill_forward
+
+    def sp_counted(*args, **kwargs):
+        before = engine.sp_calls
+        out = prefill_forward(*args, **kwargs)
+        if engine.sp_calls != before:
+            sp_forwards[0] += 1
+            check(engine.sp_calls - before == (
+                mesh.shape["tensor"] * engine.cfg.num_layers),
+                  f"(c) one sp prefill called the sp attention "
+                  f"{engine.sp_calls - before} times at {label}")
+        return out
+
+    engine.prefill_forward = sp_counted
     texts = [_prompt_text(n, i) for i, n in enumerate(spec["prompts"])]
     tatt.flash_attention.launches = 0
     await side.start(0)
@@ -4707,6 +4775,7 @@ async def _tp_serve(torch, tatt, dev, params, mesh, spec, tmp: str) -> dict:
             wall = time.perf_counter() - t
             burst_launches = tatt.flash_attention.launches
             burst_prefills = prefills[0]
+            burst_sp = sp_forwards[0]
             for n, (ids, reason, _) in zip(spec["prompts"], burst):
                 check(reason in ("length", "stop") and ids
                       and all(0 <= i < vocab for i in ids),
@@ -4727,9 +4796,12 @@ async def _tp_serve(torch, tatt, dev, params, mesh, spec, tmp: str) -> dict:
                 tick_ms_p50=_median(batcher.tick_log["ms"]),
                 ticks=len(batcher.tick_log["ms"]),
                 ttft=_ttft([ms for _, ms in batcher.ttft_ms]),
+                ttft_by_prompt={n: ms for n, ms in batcher.ttft_ms[
+                    :len(texts)]},
                 fused_admissions=batcher.fused_admissions,
                 chunked_admissions=batcher.chunked_admissions,
                 burst_launches=burst_launches, burst_prefills=burst_prefills,
+                burst_sp_prefills=burst_sp, sp_calls=engine.sp_calls,
                 admit_rounds=stats.admit_rounds,
                 tick_launches=batcher.tick_log["launches"],
                 stream_chunks=len(chunks),
@@ -4753,17 +4825,20 @@ async def _tp_serve(torch, tatt, dev, params, mesh, spec, tmp: str) -> dict:
     _sync(torch, dev)
     res["launches"] = tatt.flash_attention.launches
     res["prefills"] = prefills[0]
+    res["sp_prefills"] = sp_forwards[0]
     engine.decode_forward = forward
+    engine.prefill_forward = prefill_forward
     res["engine"] = engine
     del side, batcher
     layers = engine.cfg.num_layers
     t = mesh.shape["tensor"]
-    log(f"  serve at {label}: "
+    log(f"  serve at {label}{' ' + json.dumps(settings) if settings else ''}: "
         f"{json.dumps({k: v for k, v in res.items() if k not in ('engine', 'tokens_by_prompt')})}")
-    if mesh.shape["stage"] > 1:
-        # A stage's attention is pinned to the plain path.
+    if mesh.shape["stage"] > 1 or engine.kv_dtype:
+        # A stage's attention is pinned to the plain path, and so is
+        # attention on the int8 cache.
         check(res["launches"] == 0, f"B1 launched {res['launches']} times "
-              f"at {label}")
+              f"at {label} {settings}")
     else:
         check(dev.type != "cuda" or 0 < res["launches"] == (
             t * layers * res["prefills"]),
@@ -5449,20 +5524,52 @@ async def colaunch_phase(torch, tatt, dev, spec=None) -> dict:
     return res
 
 
-# -- phase 17: sequence- and pipeline-parallel serving -------------------------
+# -- phase 17: sequence- and pipeline-parallel serving, plain and composed -----
 
 P17 = dict(model=MODEL, serve_depth=CUT_DEPTH, sp_prefill=(1, 2048),
-           sequence=2, stage=2,
-           prompts=SERVE_PROMPT_TOKENS, new=SERVE_NEW_TOKENS, batching={},
-           tiny="tiny-llama", tiny_meshes=(("sequence", 2), ("sequence", 4),
-                                           ("stage", 2), ("stage", 4)))
+           sequence=2, stage=2, tensor=2,
+           # Phase 5's prompts, 16 new tokens each (the budget).
+           prompts=SERVE_PROMPT_TOKENS, new=16,
+           # Every sidecar of the phase (stage=1 the baseline of each):
+           # a fused admission buckets to at most prefill_chunk, so the
+           # burst's fused [8, 1024] forward (8 slots, the burst's size)
+           # reaches sp_prefill_min_seq on a sequence mesh; the 1500-
+           # and 3000-token prompts take chunked admissions and the
+           # 500-token stream a fused one under the threshold (B1 on
+           # both).
+           batching={"prefill_chunk": 1024, "max_batch_size": 8},
+           serving={"sp_prefill_min_seq": 1024},
+           tiny="tiny-llama", tiny_meshes=(
+               ({"sequence": 2}, {}), ({"sequence": 4}, {}),
+               ({"stage": 2}, {}), ({"stage": 4}, {}),
+               # (d) the compositions, after one device on the int8
+               # cache (the witness of their tolerance).
+               ({}, {"kv_cache_dtype": "int8"}),
+               ({"sequence": 2}, {"sp_prefill": "ring", "quantize": "int8"}),
+               ({"sequence": 2}, {"sp_prefill": "ulysses",
+                                  "quantize": "int8"}),
+               ({"sequence": 2}, {"sp_prefill": "ulysses",
+                                  "kv_cache_dtype": "int8"}),
+               ({"tensor": 2, "sequence": 2}, {}),
+               ({"tensor": 2, "stage": 2}, {"quantize": "int8"}),
+               ({"tensor": 2, "stage": 2}, {"kv_cache_dtype": "int8"})),
+           tiny_pool=dict(prefix_cache_entries=4, prefix_cache_min_seq=16,
+                          prefix_cache_max_seq=128),
+           window_model="mistral-7b", window_prefill=(1, 6144),
+           pool=dict(prefix_cache_entries=8, prefix_cache_max_seq=2048))
 # (a) The 2048-token prefill at sequence=2 against sequence=1 with B1,
 # held to twice a same-run witness (sequence=1 through its plain
 # attention against B1), with top-1 agreement >= 0.9: phase 15's rule.
+# (f), (g), (h) hold their prefills the same way.
 SP_PREFILL_WITNESS = 2.0
 SP_PREFILL_TOP1 = 0.9
-# (c) tiny-llama float32 on the card against the CPU, same mesh.
+# (c), (d) tiny-llama float32 on the card against the CPU, same mesh.
 PP_TINY_ATOL = 1e-5
+# On the int8 cache each forward quantizes its K/V, and the card's
+# float32 reordering (about 5e-6) flips an int8 rounding now and then:
+# tests/test_torch_quant.py's int8-KV tolerance, the device itself its
+# witness (one device, no mesh, card against the CPU).
+PP_TINY_INT8_KV_ATOL = 1e-2
 
 
 def _shallow(params):
@@ -5472,15 +5579,36 @@ def _shallow(params):
             for k, v in params.items()}
 
 
-def _tiny_sp_pp_check(torch, tatt, dev, spec) -> dict:
-    """(c) tiny-llama float32 on sequence and stage meshes: the card
-    against the CPU (a [2, 128] fresh prefill's logits, greedy tokens)."""
-    import numpy as np
+def _label_of(axes: dict, serving: dict) -> str:
+    return (",".join(f"{a}={n}" for a, n in axes.items()) or "single") + (
+        "".join(f" {k}={v}" for k, v in serving.items()))
 
+
+def _mesh_engine(torch, dev, cfg, params, axes: dict, serving: dict):
+    """An engine on the mesh `axes` (every coordinate on `dev`) over a
+    shallow copy of `params` (sharded, and quantized on int8 weights, in
+    the copy)."""
     from ggrmcp_tpu_torch.core.config import MeshConfig, ServingConfig
-    from ggrmcp_tpu_torch.models import llama as llama_mod
     from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
     from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+
+    mcfg = MeshConfig(**{"tensor": 1, **axes})
+    n = math.prod(axes.values()) if axes else 1
+    return GenerationEngine(cfg, ServingConfig(mesh=mcfg, **serving),
+                            params=_shallow(params),
+                            mesh=mesh_mod.build_mesh(mcfg, [dev] * n))
+
+
+def _tiny_sp_pp_check(torch, tatt, dev, spec) -> dict:
+    """(c) tiny-llama float32 on sequence and stage meshes and (d) their
+    compositions (sp on int8 weights and the int8 cache, tensor x
+    sequence, tensor x stage on int8 weights and the int8 cache): the
+    card against the CPU (a [2, 128] fresh prefill's logits, greedy
+    tokens; the sp attention once a tensor shard a layer). Returns the
+    results and the CPU weights."""
+    import numpy as np
+
+    from ggrmcp_tpu_torch.models import llama as llama_mod
 
     cfg = llama_mod.CONFIGS[spec["tiny"]]
     cpu = torch.device("cpu")
@@ -5489,15 +5617,15 @@ def _tiny_sp_pp_check(torch, tatt, dev, spec) -> dict:
     toks = torch.from_numpy(rng.integers(3, 500, (2, 128)))
     prompts = [rng.integers(3, 500, n).tolist() for n in (7, 70, 100)]
     res = {}
-    for axis, n in spec["tiny_meshes"]:
-        mcfg = MeshConfig(tensor=1, **{axis: n})
-        serving = ServingConfig(mesh=mcfg, sp_prefill_min_seq=64)
-        engines = [GenerationEngine(
-            cfg, serving, params=_to(params, d),
-            mesh=mesh_mod.build_mesh(mcfg, [d] * n)) for d in (cpu, dev)]
-        check(bool(engines[1].sp_prefill) == (axis == "sequence")
-              and engines[1].pp_serving == (axis == "stage"),
-              f"(c) {axis}={n}: sp {engines[1].sp_prefill!r}, pp "
+    for axes, serving in spec["tiny_meshes"]:
+        label = _label_of(axes, serving)
+        serving = dict(sp_prefill_min_seq=64, **serving)
+        engines = [_mesh_engine(torch, d, cfg, _to(params, d), axes, serving)
+                   for d in (cpu, dev)]
+        sp = "sequence" in axes
+        check(bool(engines[1].sp_prefill) == sp
+              and engines[1].pp_serving == ("stage" in axes),
+              f"(c) {label}: sp {engines[1].sp_prefill!r}, pp "
               f"{engines[1].pp_serving}")
         logits = []
         for eng in engines:
@@ -5505,89 +5633,216 @@ def _tiny_sp_pp_check(torch, tatt, dev, spec) -> dict:
                 out, _ = eng.prefill_forward(
                     eng.params, toks.to(eng.device), eng.make_cache(2, 128))
             logits.append(out.cpu())
+            check(eng.sp_calls == (sp and axes.get("tensor", 1)
+                                   * cfg.num_layers),
+                  f"(c) {label}: {eng.sp_calls} sp attention calls")
         err = (logits[1] - logits[0]).abs().max().item()
-        check(err <= PP_TINY_ATOL, f"(c) {cfg.name} {axis}={n} card vs cpu "
-              f"logits {err} > {PP_TINY_ATOL}")
+        atol = (PP_TINY_INT8_KV_ATOL if serving.get("kv_cache_dtype")
+                else PP_TINY_ATOL)
+        check(err <= atol, f"(c) {cfg.name} {label} card vs cpu "
+              f"logits {err} > {atol}")
         outs = [eng.generate(prompts, 16) for eng in engines]
-        check(outs[1] == outs[0], f"(c) {cfg.name} {axis}={n} greedy "
+        check(outs[1] == outs[0], f"(c) {cfg.name} {label} greedy "
               f"tokens card vs cpu differ")
-        res[f"{axis}={n}"] = dict(logits_max_abs_err=err,
-                                  greedy_identical=True)
-    return res
+        res[label] = dict(logits_max_abs_err=err, greedy_identical=True)
+    return res, params
 
 
-def _sp_prefill_check(torch, tatt, dev, params, spec) -> dict:
-    """(a) The [1, 2048] fresh prefill at sequence=2 (both shards on the
-    card) through ring and through Ulysses, against sequence=1 with B1,
-    held to twice the witness; each prefill timed (the second of two)."""
-    from ggrmcp_tpu_torch.core.config import MeshConfig, ServingConfig
+async def _tiny_pp_pool(torch, dev, params, spec) -> dict:
+    """(d) The prefix pool at stage=2 x tensor=2 on the card and on the
+    CPU: a stored prompt, then a hit that extends it; tokens card = CPU,
+    one hit each."""
+    from ggrmcp_tpu_torch.core.config import BatchingConfig
     from ggrmcp_tpu_torch.models import llama as llama_mod
-    from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
-    from ggrmcp_tpu_torch.serving.engine import GenerationEngine
+    from ggrmcp_tpu_torch.ops.sampling import SamplingConfig
+    from ggrmcp_tpu_torch.serving.batching import ContinuousBatcher
 
-    cfg = _cut(spec["model"], spec["serve_depth"])
-    n = spec["sequence"]
+    cfg = llama_mod.CONFIGS[spec["tiny"]]
+    pre = [3 + (i * 13 % 490) for i in range(40)]
+    prompts = [pre + [7, 8], pre + [9]]
+    out, hits = [], []
+    for d in (torch.device("cpu"), dev):
+        batcher = ContinuousBatcher(
+            _mesh_engine(torch, d, cfg, _to(params, d),
+                         {"tensor": 2, "stage": 2}, {}),
+            BatchingConfig(max_batch_size=4, prefill_chunk=16,
+                           **spec["tiny_pool"]))
+        batcher.start()
+        got = []
+        try:
+            for prompt in prompts:
+                ids = []
+                async for chunk, _ in batcher.submit(prompt, 8,
+                                                     SamplingConfig(),
+                                                     seed=0):
+                    ids.extend(chunk)
+                got.append(ids)
+        finally:
+            await batcher.stop()
+        out.append(got)
+        hits.append(batcher.prefix_hits)
+    check(hits == [1, 1] and out[0] == out[1] and all(out[1]),
+          f"(d) the pool at tensor=2,stage=2: hits {hits}, tokens card = "
+          f"cpu {out[0] == out[1]}")
+    return dict(prefix_hits=hits[1], greedy_identical=True)
+
+
+def _fresh_prefill(torch, dev, engine, toks, use_flash=None):
+    """The engine's fresh prefill of `toks` (`prefill_forward`; with
+    `use_flash` given, `llama.forward` with it), run twice: the second's
+    logits and ms."""
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+
+    out = ms = None
+    for _ in range(2):
+        out = None
+        cache = engine.make_cache(*toks.shape)
+        _sync(torch, dev)
+        t = time.perf_counter()
+        with torch.no_grad():
+            if use_flash is not None:
+                out, _ = llama_mod.forward(engine.params, engine.cfg, toks,
+                                           cache, use_flash=use_flash)
+            else:
+                out, _ = engine.prefill_forward(engine.params, toks, cache)
+        _sync(torch, dev)
+        ms = (time.perf_counter() - t) * 1e3
+    return out, ms
+
+
+def _sp_prefill_check(torch, tatt, dev, cfg, params, runs, what: str,
+                      spec, serving: dict = None, witness=None) -> dict:
+    """A [1, S] fresh prefill (`spec`'s `sp_prefill`, or `window_prefill`
+    for a windowed model) through each mesh of `runs` ((name, axes,
+    sp mode) each, every shard on the card) against sequence=1 with its
+    attention's route (B1 on the model's cache, the plain one on the
+    int8 cache), held to twice the witness: sequence=1 through the plain
+    attention against B1, from this run unless `witness` (rel err, top-1)
+    is given. `serving` sets int8 weights or the int8 cache in every
+    engine. Each prefill timed (the second of two); B1's launches in the
+    sp runs must be 0, and the sp attention once a tensor shard a layer
+    a prefill."""
+    serving = dict(spec["serving"], **(serving or {}))
+    shape = (spec["window_prefill"] if cfg.sliding_window
+             else spec["sp_prefill"])
     gen = torch.Generator(device=dev).manual_seed(SEED + 18)
-    toks = torch.randint(3, cfg.vocab_size, spec["sp_prefill"], generator=gen,
-                         device=dev)
-
-    def prefill(engine, **kw):
-        out = ms = None
-        for _ in range(2):
-            out = None
-            cache = engine.make_cache(*toks.shape)
-            _sync(torch, dev)
-            t = time.perf_counter()
-            with torch.no_grad():
-                if kw:
-                    out, _ = llama_mod.forward(engine.params, cfg, toks,
-                                               cache, **kw)
-                else:
-                    out, _ = engine.prefill_forward(engine.params, toks,
-                                                    cache)
-            _sync(torch, dev)
-            ms = (time.perf_counter() - t) * 1e3
-        return out, ms
-
-    one = GenerationEngine(cfg, params=_shallow(params),
-                           mesh=mesh_mod.build_mesh(MeshConfig(tensor=1),
-                                                    [dev]))
-    want, b1_ms = prefill(one)
-    plain, plain_ms = prefill(one, use_flash=False)
-    witness = _rel_top1(torch, plain, want)
-    del plain, one
-    res = dict(sequence1_b1_ms=b1_ms, sequence1_plain_ms=plain_ms,
-               witness_rel_err=witness[0], witness_top1_agree=witness[1],
+    toks = torch.randint(3, cfg.vocab_size, shape, generator=gen, device=dev)
+    one = _mesh_engine(torch, dev, cfg, params, {}, serving)
+    tatt.flash_attention.launches = 0
+    want, b1_ms = _fresh_prefill(torch, dev, one, toks)
+    res = dict(shape=list(shape), sequence1_ms=b1_ms,
+               sequence1_launches=tatt.flash_attention.launches)
+    int8_kv = bool(serving.get("kv_cache_dtype"))
+    serving.pop("sp_prefill", None)
+    check(res["sequence1_launches"] == (
+        0 if int8_kv or dev.type != "cuda" else 2 * cfg.num_layers),
+          f"{what} sequence=1 {serving}: B1 launched "
+          f"{res['sequence1_launches']} times in two prefills")
+    if witness is None:
+        plain, res["sequence1_plain_ms"] = _fresh_prefill(
+            torch, dev, one, toks, use_flash=False)
+        witness = _rel_top1(torch, plain, want)
+        del plain
+    del one
+    res.update(witness_rel_err=witness[0], witness_top1_agree=witness[1],
                bound=SP_PREFILL_WITNESS * witness[0])
     tatt.flash_attention.launches = 0
-    for mode in ("ring", "ulysses"):
-        mcfg = MeshConfig(tensor=1, sequence=n)
-        eng = GenerationEngine(
-            cfg, ServingConfig(mesh=mcfg, sp_prefill=mode),
-            params=_shallow(params),
-            mesh=mesh_mod.build_mesh(mcfg, [dev] * n))
-        check(eng.sp_prefill == mode, f"(a) sp_prefill {eng.sp_prefill!r}")
-        got, ms = prefill(eng)
+    for name, axes, mode in runs:
+        eng = _mesh_engine(torch, dev, cfg, params, axes,
+                           dict(serving, sp_prefill=mode))
+        check(eng.sp_prefill == mode, f"{what} sp_prefill {eng.sp_prefill!r}")
+        got, ms = _fresh_prefill(torch, dev, eng, toks)
+        calls = eng.sp_calls
         del eng
         rel, agree = _rel_top1(torch, got, want)
         del got
-        check(rel <= res["bound"], f"(a) {mode} at sequence={n} vs 1: rel "
-              f"err {rel} > {SP_PREFILL_WITNESS} x the witness's "
+        check(calls == 2 * axes.get("tensor", 1) * cfg.num_layers,
+              f"{what} {name}: {calls} sp attention calls in two prefills")
+        check(rel <= res["bound"], f"{what} {name} {serving} vs sequence=1: "
+              f"rel err {rel} > {SP_PREFILL_WITNESS} x the witness's "
               f"{witness[0]}")
-        check(agree >= SP_PREFILL_TOP1, f"(a) {mode}: top-1 {agree}")
-        res[mode] = dict(ms=ms, logits_rel_err=rel, top1_agree=agree)
+        check(agree >= SP_PREFILL_TOP1, f"{what} {name}: top-1 {agree}")
+        res[name] = dict(ms=ms, logits_rel_err=rel, top1_agree=agree,
+                         sp_calls=calls)
     res["sp_launches"] = tatt.flash_attention.launches
+    check(res["sp_launches"] == 0, f"{what}: B1 launched "
+          f"{res['sp_launches']} times in the sp prefills")
     del want
+    _free(torch, dev)
+    return res
+
+
+async def _pp_pool_wave(torch, tatt, dev, params, mesh, spec, batching: dict,
+                        tmp: str) -> dict:
+    """(i) Phase 9a's wave through a sidecar on `mesh` configured by a
+    `--config` file: one warm request with the 2048-token preamble, then
+    WAVE requests with it in one round; the pool's hits, the wave's first
+    tokens and TTFT, B1's launches (none under a stage)."""
+    import grpc.aio
+
+    from ggrmcp_tpu_torch import __main__ as cli
+    from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+    from ggrmcp_tpu_torch.serving.sidecar import Sidecar
+
+    axes = {a: n for a, n in mesh.shape.items() if n > 1}
+    path = os.path.join(tmp, "pool.json")
+    with open(path, "w") as fh:
+        json.dump({"serving": dict(
+            model=spec["model"], num_layers=spec["serve_depth"],
+            batching=batching, mesh={"tensor": 1, **axes})}, fh)
+    side = Sidecar(cli.serving_config(cli.build_parser().parse_args(
+        ["sidecar", "--config", path])), params=params, mesh=mesh)
+    batcher = side.batcher
+    _hold_admission(batcher)
+    _ttft_log(batcher)
+    preamble = _prompt_text(PREAMBLE_TOKENS, 900)
+    tatt.flash_attention.launches = 0
+    await side.start(0)
+    try:
+        async with grpc.aio.insecure_channel(side.target) as ch:
+            client = _ReuseClient(ch)
+            warm = await client.generate(preamble + _question(25), WAVE_NEW)
+            check(warm[1] in ("length", "stop"), f"(i) warm: {warm[1]}")
+            before = await client.stats()
+            batcher.ttft_ms.clear()
+            batcher.hold_for = WAVE
+            t = time.perf_counter()
+            outs = await asyncio.gather(*(
+                client.generate(preamble + _question(i), WAVE_NEW)
+                for i in range(WAVE)))
+            wave_s = time.perf_counter() - t
+            after = await client.stats()
+    finally:
+        await side.stop()
+    for ids, reason, _ in outs:
+        check(reason in ("length", "stop") and ids,
+              f"(i) a wave request ended {reason!r} with {len(ids)} tokens")
+    res = dict(
+        mesh=mesh_mod.mesh_shape_str(mesh), wave_s=wave_s,
+        tokens=[ids for ids, _, _ in outs],
+        ttft=_ttft([ms for _, ms in batcher.ttft_ms]),
+        prefix_cache_hits=(after.prefix_cache_hits
+                           - before.prefix_cache_hits),
+        launches=tatt.flash_attention.launches)
+    if dev.type == "cuda":
+        res["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del side, batcher
     _free(torch, dev)
     return res
 
 
 async def sp_pp_phase(torch, tatt, dev, spec=None) -> dict:
     """Phase 17: (c) tiny-llama float32 at sequence 2 and 4 and stage 2
-    and 4, card = CPU; (a) a 2048-token llama3-8b prefill at sequence=2
-    through ring and Ulysses against sequence=1; (b) phase 5's burst
-    through sidecars at stage=1 and then, on the same seeded tree sharded
-    in place, at stage=2 (16 layers a stage, both on the card)."""
+    and 4 and (d) their compositions, card = CPU; (a) a 2048-token
+    llama3-8b prefill at sequence=2 through ring and Ulysses against
+    sequence=1, (f) the same at tensor=2 x sequence=2 and (h) on int8
+    weights and on the int8 cache; then on the same seeded tree, sharded
+    in place, sidecars serving phase 5's burst: stage=1 (the baseline),
+    (e) sequence=2 ring and Ulysses, (f) tensor=2 x sequence=2, (b)
+    stage=2, (i) tensor=2 x stage=2, and stage=1 against stage=2 on int8
+    weights and on the int8 cache, and phase 9a's wave through the prefix
+    pool at stage=2 against the pool off; (g) the windowed sp prefill at
+    mistral-7b's widths."""
     import tempfile
 
     from ggrmcp_tpu_torch.core.config import MeshConfig
@@ -5596,38 +5851,131 @@ async def sp_pp_phase(torch, tatt, dev, spec=None) -> dict:
 
     spec = spec or P17
     t_phase = time.perf_counter()
-    res: dict = {"tiny": _tiny_sp_pp_check(torch, tatt, dev, spec)}
-    log(f"  (c) {spec['tiny']} card vs cpu: {json.dumps(res['tiny'])}")
+    tiny, tiny_params = _tiny_sp_pp_check(torch, tatt, dev, spec)
+    tiny["pool"] = await _tiny_pp_pool(torch, dev, tiny_params, spec)
+    res: dict = {"tiny": tiny}
+    # Each part's seconds, in order.
+    marks = {"tiny": time.perf_counter() - t_phase}
+    log(f"  (c), (d) {spec['tiny']} card vs cpu: {json.dumps(tiny)}")
     cfg = _cut(spec["model"], spec["serve_depth"])
     params = llama_mod.init_params(cfg, dev, SEED)
-    res["sp"] = _sp_prefill_check(torch, tatt, dev, params, spec)
+    n, t, st = spec["sequence"], spec["tensor"], spec["stage"]
+    res["sp"] = _sp_prefill_check(
+        torch, tatt, dev, cfg, params,
+        [(mode, {"sequence": n}, mode) for mode in ("ring", "ulysses")],
+        "(a)", spec)
     log(f"  (a) {json.dumps(res['sp'])}")
-    st = spec["stage"]
+    witness = (res["sp"]["witness_rel_err"], res["sp"]["witness_top1_agree"])
+    res["sp_tensor"] = _sp_prefill_check(
+        torch, tatt, dev, cfg, params,
+        [(mode, {"tensor": t, "sequence": n}, mode)
+         for mode in ("ring", "ulysses")], "(f)", spec, witness=witness)
+    log(f"  (f) tensor={t} x sequence={n}: {json.dumps(res['sp_tensor'])}")
+    res["sp_int8"] = {}
+    for key, serving in (("int8_weights", {"quantize": "int8"}),
+                         ("int8_kv", {"quantize": "int8",
+                                      "kv_cache_dtype": "int8"})):
+        res["sp_int8"][key] = _sp_prefill_check(
+            torch, tatt, dev, cfg, params,
+            [(mode, {"sequence": n}, mode) for mode in ("ring", "ulysses")],
+            "(h)", spec, serving, witness=witness)
+        log(f"  (h) {key}: {json.dumps(res['sp_int8'][key])}")
+    marks["prefills"] = time.perf_counter() - t_phase - sum(marks.values())
+
+    def mesh_of(axes):
+        k = math.prod(axes.values()) if axes else 1
+        return mesh_mod.build_mesh(MeshConfig(**{"tensor": 1, **axes}),
+                                   [dev] * k)
+
+    int8w = {"quantize": "int8"}
+    int8kv = {"quantize": "int8", "kv_cache_dtype": "int8"}
+    # name, mesh axes, serving settings, the run its streams are held to.
+    plan = [("single", {}, {}, None)]
+    plan += [(f"sequence={n} {m}", {"sequence": n}, {"sp_prefill": m},
+              "single") for m in ("ring", "ulysses")]
+    plan += [
+        (f"tensor={t},sequence={n} ring", {"tensor": t, "sequence": n},
+         {"sp_prefill": "ring"}, "single"),
+        (f"stage={st}", {"stage": st}, {}, "single"),
+        (f"tensor={t},stage={st}", {"tensor": t, "stage": st}, {}, "single"),
+        ("single int8_weights", {}, int8w, None),
+        (f"stage={st} int8_weights", {"stage": st}, int8w,
+         "single int8_weights"),
+        ("single int8_kv", {}, int8kv, None),
+        (f"stage={st} int8_kv", {"stage": st}, int8kv, "single int8_kv")]
+    runs = {}
     with tempfile.TemporaryDirectory(dir=os.path.dirname(
             os.path.abspath(__file__))) as tmp:
-        runs = {}
-        for n in (1, st):
+        for name, axes, serving, _ in plan:
             if dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats()
-            mesh = mesh_mod.build_mesh(MeshConfig(tensor=1, stage=n),
-                                       [dev] * n)
-            runs[n] = await _tp_serve(torch, tatt, dev, params, mesh, spec,
-                                      tmp)
-            runs[n].pop("engine")
+            k = math.prod(axes.values()) if axes else 1
+            mesh = mesh_mod.build_mesh(MeshConfig(**{"tensor": 1, **axes}),
+                                       [dev] * k)
+            runs[name] = await _tp_serve(
+                torch, tatt, dev, _shallow(params), mesh, spec, tmp,
+                dict(spec["serving"], **serving))
+            runs[name].pop("engine")
             _free(torch, dev)
-        del params
-    a, b = runs[1], runs[st]
-    check(b["mesh"]["mesh_shape"] == f"stage={st}"
-          and a["mesh"]["mesh_shape"] == "single",
-          f"(b) GetServingStats mesh {a['mesh']} / {b['mesh']}")
-    res["pp"] = {str(k): {x: y for x, y in v.items()
-                          if x != "tokens_by_prompt"}
-                 for k, v in runs.items()}
-    res["pp"]["streams"] = _agreement(b["tokens_by_prompt"],
-                                      a["tokens_by_prompt"])
-    res["pp_launches"] = b["launches"]
-    log(f"  (b) streams stage={st} vs 1: {json.dumps(res['pp']['streams'])}")
+        marks["serve"] = time.perf_counter() - t_phase - sum(marks.values())
+        pool = {}
+        for on in ("on", "off"):
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            pool[on] = await _pp_pool_wave(
+                torch, tatt, dev, _shallow(params), mesh_mod.build_mesh(
+                    MeshConfig(tensor=1, stage=st), [dev] * st),
+                spec, spec["pool"] if on == "on" else {}, tmp)
+    del params
     _free(torch, dev)
+    marks["pool"] = time.perf_counter() - t_phase - sum(marks.values())
+
+    res["serve"] = {}
+    for name, axes, serving, ref in plan:
+        run = runs[name]
+        check(run["mesh"]["mesh_shape"] == name.split(" ")[0],
+              f"GetServingStats mesh {run['mesh']} for {name}")
+        if "sequence" in axes:
+            check(run["burst_sp_prefills"] >= 1,
+                  f"(e) {name}: no admission took the sp attention")
+        out = {x: y for x, y in run.items() if x != "tokens_by_prompt"}
+        if ref is not None:
+            out["streams"] = _agreement(run["tokens_by_prompt"],
+                                        runs[ref]["tokens_by_prompt"])
+            log(f"  streams {name} vs {ref}: {json.dumps(out['streams'])}")
+        res["serve"][name] = out
+    pool_on, pool_off = pool["on"], pool["off"]
+    check(pool_on["prefix_cache_hits"] >= WAVE,
+          f"(i) the wave hit the pool {pool_on['prefix_cache_hits']} times "
+          f"at stage={st}, not {WAVE}")
+    check(pool_off["prefix_cache_hits"] == 0, "(i) hits with the pool off")
+    check(pool_on["launches"] == pool_off["launches"] == 0,
+          f"(i) B1 launched under a stage: {pool_on['launches']}, "
+          f"{pool_off['launches']}")
+    first = _agreement(pool_on.pop("tokens"), pool_off.pop("tokens"))
+    check(first["first_token"] == WAVE,
+          f"(i) the hits' first tokens against the pool off: {first}")
+    res["pool"] = dict(on=pool_on, off=pool_off, agreement=first)
+    log(f"  (i) the pool at stage={st}: {json.dumps(res['pool'])}")
+    res["pp_launches"] = runs[f"stage={st}"]["launches"]
+    res["sp_serve_launches"] = {m: runs[f"sequence={n} {m}"]["launches"]
+                                for m in ("ring", "ulysses")}
+    res["sp_tensor_serve_launches"] = runs[
+        f"tensor={t},sequence={n} ring"]["launches"]
+
+    wcfg = _cut(spec["window_model"], spec["serve_depth"])
+    wparams = llama_mod.init_params(wcfg, dev, SEED)
+    res["window"] = _sp_prefill_check(
+        torch, tatt, dev, wcfg, wparams,
+        [(mode, {"sequence": n}, mode) for mode in ("ring", "ulysses")],
+        "(g)", spec)
+    log(f"  (g) {wcfg.name} window {wcfg.sliding_window}: "
+        f"{json.dumps(res['window'])}")
+    del wparams
+    _free(torch, dev)
+    marks["window"] = time.perf_counter() - t_phase - sum(marks.values())
+    res["part_seconds"] = marks
+    log(f"  part seconds {json.dumps(marks)}")
     res["seconds"] = time.perf_counter() - t_phase
     return res
 
@@ -7079,7 +7427,12 @@ P21 = dict(model=MODEL, quantize="int8", slots=8,
            prompts=(40, 300, 700, 1500), new=16, burst=8, profile_ms=1500,
            crash_every=32, tiny="tiny-llama", tiny_crash_every=2,
            probe_timeout_ms=2000.0, flap_pause_s=2.5, flap_pauses=4,
-           pressure_calls=32, pressure_new=16, answer_prompts=(0,),
+           # (e) 32 calls on 8 slots queue four waves deep: the fourth
+           # wave's TTFT passes the 5 s SLO only where a wave takes more
+           # than 1.7 s. At 16 new tokens a fast card's waves did not
+           # (no spawn, the phase at its limit); 48 makes each wave's
+           # decode three times as long.
+           pressure_calls=32, pressure_new=48, answer_prompts=(0,),
            fleet=dict(enabled=True, min_replicas=1, max_replicas=2,
                       slo_ttft_p99_ms=5000.0, shed_hold_s=0.5,
                       scale_up_sustain_s=1.0,
@@ -7734,8 +8087,8 @@ P22_CASES = [
      "process's [4, 1023] block (H 32, KVH 8, D 64)"),
 ]
 P22 = dict(tiny="tiny-llama", tiny_steps=3, tiny_batch=4, tiny_seq=65,
-           model="llama-1b", depth=CUT_DEPTH, steps=3, batch=8, seq=1024,
-           processes=2, fault_steps=3)
+           model="llama-1b", depth=CUT_DEPTH, steps=2, batch=8, seq=1024,
+           processes=2, fault_steps=2)
 # (a) tiny-llama float32, two processes against one: the CPU test's
 # tolerances (tests/test_torch_distributed.py).
 DIST_TINY_RTOL = 1e-4
@@ -7746,30 +8099,44 @@ DIST_WITNESS = 2.0
 
 
 def _dist_process(spec_json: str) -> int:
-    """One process of phase 22 (`chip_smoke.py --dist-process SPEC`): joins
-    the group through GGRMCP_COORDINATOR / _NUM_PROCESSES / _PROCESS_ID,
-    sums a range over the data axis across processes, takes the AdamW
-    steps over the global mesh on its rows, and writes what it measured
-    to SPEC's `out`."""
-    import numpy as np
+    """One process of phase 22 (`chip_smoke.py --dist-process SPECS`, a
+    list of runs): joins the group through GGRMCP_COORDINATOR /
+    _NUM_PROCESSES / _PROCESS_ID, sums a range over the data axis across
+    processes, then for each run takes its AdamW steps over the global
+    mesh on its rows and writes what it measured to the run's `out`."""
     import torch
 
     from ggrmcp_tpu_torch.core.config import MeshConfig
-    from ggrmcp_tpu_torch.models import llama as llama_mod
-    from ggrmcp_tpu_torch.models import trainer, training
-    from ggrmcp_tpu_torch.ops import attention as tatt
     from ggrmcp_tpu_torch.parallel import collectives, distributed
 
-    spec = json.loads(spec_json)
-    check(distributed.initialize(device=spec["device"]), "no process group")
-    dist = torch.distributed
-    rank = dist.get_rank()
+    specs = json.loads(spec_json)
+    check(distributed.initialize(device=specs[0]["device"]),
+          "no process group")
     dev = distributed.local_device()
     mesh = distributed.global_mesh(MeshConfig(data=0, tensor=1))
     parts = [torch.tensor(float(i), device=mesh.devices[i])
              for i in mesh.local_indices()]
     total = collectives.process_sum(
         collectives.all_reduce_sum(parts)[0]).item()
+    for spec in specs:
+        _dist_steps(spec, dev, mesh, total)
+        _free(torch, dev)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _dist_steps(spec: dict, dev, mesh, total: float) -> None:
+    """One run of `_dist_process`: the run's steps (and its planted fault)
+    on this process's rows of the global mesh."""
+    import numpy as np
+    import torch
+
+    from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.models import trainer, training
+    from ggrmcp_tpu_torch.ops import attention as tatt
+
+    dist = torch.distributed
+    rank = dist.get_rank()
     cfg = (_cut(spec["model"], spec["depth"]) if spec.get("depth")
            else llama_mod.CONFIGS[spec["model"]])
     state = training.make_train_state(
@@ -7838,22 +8205,22 @@ def _dist_process(spec_json: str) -> int:
             state, loss = training.train_step(
                 state, torch.from_numpy(batch).to(dev), cfg)
             out["fault_losses"].append(loss.item())
+    training.all_reduce_grads = reduce_grads
     with open(f"{spec['out']}{rank}.json", "w") as fh:
         json.dump(out, fh)
-    dist.destroy_process_group()
-    return 0
 
 
-def _dist_run(spec: dict, tmp: str, timeout: float) -> list:
-    """Two processes of `_dist_process` on SPEC's device over a local
-    coordinator; each one's readings."""
+def _dist_run(specs: list, tmp: str, timeout: float) -> list:
+    """Two processes of `_dist_process` on the runs' device over a local
+    coordinator, each taking `specs` in turn: for each run, each
+    process's readings."""
     here = os.path.abspath(__file__)
     env = {**os.environ, "GGRMCP_COORDINATOR": f"127.0.0.1:{_free_port()}",
            "GGRMCP_NUM_PROCESSES": str(P22["processes"])}
     logs = [open(os.path.join(tmp, f"p{r}.log"), "w+b")
             for r in range(P22["processes"])]
     procs = [subprocess.Popen(
-        [sys.executable, here, "--dist-process", json.dumps(spec)],
+        [sys.executable, here, "--dist-process", json.dumps(specs)],
         env={**env, "GGRMCP_PROCESS_ID": str(r)}, cwd=os.path.dirname(here),
         stdout=logs[r], stderr=subprocess.STDOUT)
         for r in range(P22["processes"])]
@@ -7874,9 +8241,11 @@ def _dist_run(spec: dict, tmp: str, timeout: float) -> list:
         check(p.returncode == 0, f"process {r} exited {p.returncode}: "
               f"{tail}")
     out = []
-    for r in range(P22["processes"]):
-        with open(f"{spec['out']}{r}.json") as fh:
-            out.append(json.load(fh))
+    for spec in specs:
+        out.append([])
+        for r in range(P22["processes"]):
+            with open(f"{spec['out']}{r}.json") as fh:
+                out[-1].append(json.load(fh))
     return out
 
 
@@ -7933,50 +8302,21 @@ def dist_phase(torch, tatt, dev, spec=None) -> dict:
     res: dict = {}
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(dir=here) as tmp:
-        # (a) tiny-llama float32.
-        cfg = llama_mod.CONFIGS[spec["tiny"]]
+        # The single-process runs of (a) and (b) first, then one pair of
+        # processes takes (a)'s steps and then (b)'s.
+        tcfg = llama_mod.CONFIGS[spec["tiny"]]
         rng = np.random.default_rng(SEED + 22)
-        batches = rng.integers(0, cfg.vocab_size, (
+        batches = rng.integers(0, tcfg.vocab_size, (
             spec["tiny_steps"], spec["tiny_batch"], spec["tiny_seq"]))
-        path = os.path.join(tmp, "tiny.npy")
-        np.save(path, batches)
-        one, state = _single_steps(torch, tatt, dev, cfg, SEED + 22, batches)
+        tiny_path = os.path.join(tmp, "tiny.npy")
+        np.save(tiny_path, batches)
+        one, state = _single_steps(torch, tatt, dev, tcfg, SEED + 22,
+                                   batches)
         want = {k: v.float().cpu().numpy()
-                for k, v in trainer.state_tensors(state, cfg)[0].items()}
+                for k, v in trainer.state_tensors(state, tcfg)[0].items()}
         del state
         _free(torch, dev)
-        t = time.perf_counter()
-        procs = _dist_run(dict(model=spec["tiny"], seed=SEED + 22,
-                               device=str(dev), batches=path,
-                               out=os.path.join(tmp, "tiny"), params=True),
-                          tmp, 300)
-        tiny = dict(seconds=time.perf_counter() - t,
-                    backend=[p["backend"] for p in procs],
-                    totals=[p["total"] for p in procs], single=one,
-                    processes=procs)
-        check(all(p["total"] == 1.0 for p in procs),
-              f"(a) cross-process sums {tiny['totals']} (want 0 + 1)")
-        check(all(p["backend"] == "gloo" for p in procs),
-              f"(a) backends {tiny['backend']} on a shared card")
-        worst = 0.0
-        for p in procs:
-            check(dev.type != "cuda"
-                  or p["launches"] == spec["tiny_steps"] * cfg.num_layers,
-                  f"(a) process {p['rank']}: {p['launches']} B1 launches")
-            np.testing.assert_allclose(p["losses"], one["losses"],
-                                       rtol=DIST_TINY_RTOL)
-            with np.load(os.path.join(tmp, f"tiny{p['rank']}.npz")) as got:
-                for name, w in want.items():
-                    rel = float(np.abs(got[name] - w).max()
-                                / np.abs(w).max())
-                    worst = max(worst, rel)
-        check(worst <= DIST_TINY_RTOL, f"(a) final params {worst} of the "
-              f"largest magnitude from the single process's")
-        tiny["params_max_rel"] = worst
-        res["tiny"] = tiny
-        log(f"  (a) {json.dumps(tiny)}")
 
-        # (b) llama-1b at full width.
         case = kernel_cases(torch, tatt, dev, P22_CASES)[0]
         res["kernel"] = case
         cfg = _cut(spec["model"], spec["depth"])
@@ -8001,12 +8341,44 @@ def dist_phase(torch, tatt, dev, spec=None) -> dict:
         _free(torch, dev)
         check(plain["launches"] == 0, "(b) the witness run launched B1")
         t = time.perf_counter()
-        procs = _dist_run(dict(model=spec["model"], depth=spec["depth"],
-                               seed=SEED + 23, device=str(dev),
-                               batches=path, out=os.path.join(tmp, "llama"),
-                               fault_steps=spec["fault_steps"]), tmp,
-                          phase_left())
+        procs, lprocs = _dist_run([
+            dict(model=spec["tiny"], seed=SEED + 22, device=str(dev),
+                 batches=tiny_path, out=os.path.join(tmp, "tiny"),
+                 params=True),
+            dict(model=spec["model"], depth=spec["depth"], seed=SEED + 23,
+                 device=str(dev), batches=path,
+                 out=os.path.join(tmp, "llama"),
+                 fault_steps=spec["fault_steps"])], tmp, phase_left())
+        # One pair of processes ran both: its seconds in each's readings.
         seconds = time.perf_counter() - t
+        tiny = dict(seconds=seconds,
+                    backend=[p["backend"] for p in procs],
+                    totals=[p["total"] for p in procs], single=one,
+                    processes=procs)
+        check(all(p["total"] == 1.0 for p in procs),
+              f"(a) cross-process sums {tiny['totals']} (want 0 + 1)")
+        check(all(p["backend"] == "gloo" for p in procs),
+              f"(a) backends {tiny['backend']} on a shared card")
+        worst = 0.0
+        for p in procs:
+            check(dev.type != "cuda"
+                  or p["launches"] == spec["tiny_steps"] * tcfg.num_layers,
+                  f"(a) process {p['rank']}: {p['launches']} B1 launches")
+            np.testing.assert_allclose(p["losses"], one["losses"],
+                                       rtol=DIST_TINY_RTOL)
+            with np.load(os.path.join(tmp, f"tiny{p['rank']}.npz")) as got:
+                for name, w in want.items():
+                    rel = float(np.abs(got[name] - w).max()
+                                / np.abs(w).max())
+                    worst = max(worst, rel)
+        check(worst <= DIST_TINY_RTOL, f"(a) final params {worst} of the "
+              f"largest magnitude from the single process's")
+        tiny["params_max_rel"] = worst
+        res["tiny"] = tiny
+        log(f"  (a) {json.dumps(tiny)}")
+
+    # (b) llama-1b at full width, cut in depth.
+    procs = lprocs
 
     def rel(a, b):
         return max(abs(x - y) / abs(y) for x, y in zip(a, b))
@@ -8244,7 +8616,7 @@ P24 = dict(
     lora=dict(P12, lora_burst=8),
     # (e) the ring on the int8 cache (capacity 4096 + 512 - 1 = 4607)
     # against the contiguous windowed int8 cache at 8192.
-    ring_prompts=(5000, 5666, 6333, 7000), ring_new=32, ring_slots=4,
+    ring_prompts=(5000, 5666, 6333, 7000), ring_new=16, ring_slots=4,
     chunk=512, flat_seq=8192,
     # (f) the spec tick on the int8 cache, then under tick_fail.
     spec_calls=8, spec_new=16, fail_every=3, retry_limit=64,
@@ -8945,15 +9317,23 @@ def main() -> int:
 
         if run(17):
             with phase(17):
-                log(f"[17/24] sequence- and pipeline-parallel serving: "
-                    f"{P17['model']} at sequence={P17['sequence']} and "
-                    f"stage={P17['stage']}, every shard on one card")
+                log(f"[17/24] sequence- and pipeline-parallel serving, plain "
+                    f"and composed: {P17['model']} at sequence="
+                    f"{P17['sequence']} and stage={P17['stage']}, each with "
+                    f"tensor={P17['tensor']}, int8 weights, the int8 cache "
+                    f"and the prefix pool, sidecars on sequence meshes, "
+                    f"{P17['window_model']}'s windowed sp prefill, every "
+                    f"shard on one card")
                 p17 = asyncio.run(sp_pp_phase(torch, tatt, dev))
                 log(f"  phase 17: {p17['seconds']:.1f} s; B1 launches: "
                     f"{p17['sp']['sp_launches']} in the sp prefills, "
                     f"{p17['pp_launches']} at stage={P17['stage']} (a stage's "
                     f"attention and the sp attention are plain, as the "
-                    f"reference's are)")
+                    f"reference's are), {p17['sp_serve_launches']} behind "
+                    f"the sequence=2 sidecars and "
+                    f"{p17['sp_tensor_serve_launches']} behind tensor="
+                    f"{P17['tensor']} x sequence={P17['sequence']} (the "
+                    f"admissions under sp_prefill_min_seq)")
                 _free(torch, dev)
 
         if run(18):
@@ -9088,6 +9468,14 @@ def main() -> int:
         tp_burst_launches=p15["serve"][str(P15["tensor"])]["burst_launches"],
         colaunch_launches=p16["colaunch_launches"],
         sp_launches=p17["sp"]["sp_launches"], pp_launches=p17["pp_launches"],
+        sp_serve_launches=p17["sp_serve_launches"],
+        sp_tensor_serve_launches=p17["sp_tensor_serve_launches"],
+        sp_int8_launches={k: r["sequence1_launches"] + r["sp_launches"]
+                          for k, r in p17["sp_int8"].items()},
+        pp_composed_launches={k: r["launches"]
+                              for k, r in p17["serve"].items()
+                              if "stage" in k},
+        sp_window_launches=p17["window"]["sp_launches"],
         train_launches=p18["cli"]["launches"],
         train_recomputes=p18["cli"]["recomputes"],
         train_launches_per_step=p18["cli"]["launches_per_step"],

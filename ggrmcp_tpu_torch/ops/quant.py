@@ -30,6 +30,7 @@ from typing import Any, Callable, Optional, Union
 
 import torch
 
+from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
 from ggrmcp_tpu_torch.parallel.collectives import Sharded
 
 
@@ -200,25 +201,27 @@ def quantize_sharded(w: Sharded, axis: int, quantize_part=None
                      ) -> QuantizedTensor:
     """`quantize(whole, axis)` of a sharded leaf, shard by shard, to the
     same bits: where the shards split the reduced axis (a row-parallel
-    weight), the per-channel max is taken over every shard's rows, in
-    float32, before the scale is formed; the scale (one per channel)
-    is then replicated. `quantize_part(t, axis, amax)` quantizes one
-    part (default: whole)."""
-    split = w.factors[axis] > 1
-    amaxes = [p.float().abs().amax(dim=axis, keepdim=True)
-              for p in w.distinct()] if split else None
-    amax = None
-    if split:
-        dev = w.parts[0].device
-        amax = amaxes[0]
-        for a in amaxes[1:]:
-            amax = torch.maximum(amax, a.to(dev))
+    weight), the per-channel max is taken, in float32, over the shards
+    that hold the same block of every other dim (a stage's layers, say)
+    before the scale is formed; the scale (one per channel) is then
+    replicated over the reduced axis. `quantize_part(t, axis, amax)`
+    quantizes one part (default: whole)."""
+    groups = _reduction_groups(w, axis)
+    amax: dict[int, torch.Tensor] = {}
+    for group in groups.values():
+        dev = w.parts[group[0]].device
+        m = None
+        for p in {id(w.parts[i]): w.parts[i] for i in group}.values():
+            a = p.float().abs().amax(dim=axis, keepdim=True).to(dev)
+            m = a if m is None else torch.maximum(m, a)
+        for i in group:
+            amax[i] = m
     done: dict[int, QuantizedTensor] = {}
     qs, scales = [], []
-    for p in w.parts:
+    for i, p in enumerate(w.parts):
         if id(p) not in done:
             done[id(p)] = (quantize_part or quantize_with)(
-                p, axis, None if amax is None else amax.to(p.device))
+                p, axis, amax[i].to(p.device) if i in amax else None)
         qs.append(done[id(p)].q)
         scales.append(done[id(p)].scale)
     scale_factors = tuple(1 if i == len(w.factors) + axis else f
@@ -228,9 +231,36 @@ def quantize_sharded(w: Sharded, axis: int, quantize_part=None
         scale_full = list(w.full)
         scale_full[axis] = 1
         scale_full = torch.Size(scale_full)
+    scale_spec = None
+    if w.spec is not None:
+        scale_spec = list(w.spec)
+        scale_spec[axis] = None
+        scale_spec = tuple(scale_spec)
     return QuantizedTensor(
-        q=Sharded(tuple(qs), w.factors, w.mesh, w.full),
-        scale=Sharded(tuple(scales), scale_factors, w.mesh, scale_full))
+        q=Sharded(tuple(qs), w.factors, w.mesh, w.full, spec=w.spec),
+        scale=Sharded(tuple(scales), scale_factors, w.mesh, scale_full,
+                      spec=scale_spec))
+
+
+def _reduction_groups(w: Sharded, axis: int) -> dict:
+    """The coordinates whose parts one per-channel max spans, by the
+    block they hold of every dim but `axis`, read from the spec the
+    leaf was placed by ({} when no shard splits `axis`: each part is
+    reduced whole)."""
+    if w.factors[axis] == 1:
+        return {}
+    if w.spec is None:
+        raise ValueError("quantize_sharded: a leaf split on its reduced "
+                         "axis needs its placement spec (Sharded.spec)")
+    mesh = w.mesh
+    dim = len(w.spec) + axis if axis < 0 else axis
+    groups: dict = {}
+    for i in range(len(w.parts)):
+        coord = mesh.coord(i)
+        key = tuple(mesh_mod.block_index(mesh, e, coord)
+                    for d, e in enumerate(w.spec) if d != dim)
+        groups.setdefault(key, []).append(i)
+    return groups
 
 
 def quantized_nbytes(params: dict[str, Any]) -> int:

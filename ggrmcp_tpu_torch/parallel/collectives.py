@@ -63,6 +63,9 @@ class Sharded:
     # `factors` is (None otherwise).
     bases: Optional[tuple] = None
     batch_dim: Optional[int] = None
+    # The adapted spec the leaf was placed by (one entry a dim, the mesh
+    # axes that split it), where its placer knows it.
+    spec: Optional[tuple] = None
 
     @property
     def shape(self) -> torch.Size:
@@ -159,7 +162,7 @@ def shard(
         parts.append(seen[key])
     factors = tuple(mesh_mod.axis_product(mesh, e) for e in spec)
     return Sharded(tuple(parts), factors, mesh,
-                   t.shape if index_fn is not None else None)
+                   t.shape if index_fn is not None else None, spec=spec)
 
 
 def unshard(

@@ -220,6 +220,9 @@ class GenerationEngine:
         self.sp_prefill = mode if (self._sp_n > 1 and mode) else ""
         self.sp_min_seq = self.serving.sp_prefill_min_seq
         self._sp_attn = None
+        # Calls of the sequence-parallel attention: one a layer (a tensor
+        # shard a layer on a tensor axis) for each prefill that took it.
+        self.sp_calls = 0
         if not self.sp_prefill:
             return
         if mode == "ulysses" and self.cfg.num_heads % self._sp_n != 0:
@@ -232,6 +235,7 @@ class GenerationEngine:
         mesh = self.mesh
 
         def sp_attn(q, k, v, causal=True, window=None, coord=None):
+            self.sp_calls += 1
             return impl(q, k, v, mesh, causal=causal, window=window,
                         coord=coord)
 

@@ -20,7 +20,10 @@ backend.
   its watchdog; after `restart_max_attempts` failed restarts it raises
   `SidecarSupervisionError`. On top of the reference's rules, the dead
   sidecar's engine is dropped (and the card's cache emptied) before the
-  replacement is built, so a restart never needs two models' memory.
+  replacement is built, so a restart never needs two models' memory,
+  and the discoverer's watchdog pauses from the death to the nudge: its
+  own reconnect of the backend could close the channel under the
+  nudge's reflection call, which then never returns.
 - The replica fleet (`fleet.enabled`): the gateway's own supervisor
   spawns workers of this port (serving/fleet.py) on the co-launch's
   device and seed; the co-launched sidecar stays a static backend
@@ -161,37 +164,50 @@ class Colaunch:
                 "restarting (max %d attempts)",
                 self.sidecar.target, fleet.restart_max_attempts,
             )
-            last_error = "unknown"
-            for attempt in range(fleet.restart_max_attempts):
-                delay = min(
-                    fleet.backoff_max_s,
-                    fleet.backoff_base_s * (2.0 ** attempt),
-                ) * (1.0 + fleet.backoff_jitter * rng.random())
-                await asyncio.sleep(delay)
-                try:
-                    await self._drop_sidecar(dead=True)
-                    replacement = self._factory()
-                    await replacement.start()
-                    self.sidecar = replacement
-                    await self._nudge(replacement.target)
-                    self.restarts += 1
-                    logger.warning(
-                        "co-launched sidecar restarted on %s (attempt "
-                        "%d/%d)", replacement.target, attempt + 1,
-                        fleet.restart_max_attempts,
-                    )
-                    break
-                except asyncio.CancelledError:
-                    raise
-                except Exception as exc:  # noqa: BLE001 — retried, typed below
-                    last_error = str(exc)
-                    logger.error(
-                        "sidecar restart attempt %d/%d failed: %s",
-                        attempt + 1, fleet.restart_max_attempts, exc,
-                    )
-            else:
-                raise SidecarSupervisionError(
-                    fleet.restart_max_attempts, last_error)
+            # The discoverer's watchdog pauses until the replacement is
+            # nudged: its reconnect of the same backend would close the
+            # channel under the nudge's reflection call, whose write then
+            # waits forever for metadata the closed call never sends.
+            discoverer = self.gateway.discoverer
+            await discoverer.stop_watchdog()
+            try:
+                await self._restart(fleet, rng)
+            finally:
+                discoverer.start_watchdog()
+
+    async def _restart(self, fleet, rng: random.Random) -> None:
+        """Replace the dead sidecar, with backoff, and nudge the
+        discoverer; raises SidecarSupervisionError when every attempt
+        failed."""
+        last_error = "unknown"
+        for attempt in range(fleet.restart_max_attempts):
+            delay = min(
+                fleet.backoff_max_s,
+                fleet.backoff_base_s * (2.0 ** attempt),
+            ) * (1.0 + fleet.backoff_jitter * rng.random())
+            await asyncio.sleep(delay)
+            try:
+                await self._drop_sidecar(dead=True)
+                replacement = self._factory()
+                await replacement.start()
+                self.sidecar = replacement
+                await self._nudge(replacement.target)
+                self.restarts += 1
+                logger.warning(
+                    "co-launched sidecar restarted on %s (attempt "
+                    "%d/%d)", replacement.target, attempt + 1,
+                    fleet.restart_max_attempts,
+                )
+                return
+            except asyncio.CancelledError:
+                raise
+            except Exception as exc:  # noqa: BLE001 — retried, typed below
+                last_error = str(exc)
+                logger.error(
+                    "sidecar restart attempt %d/%d failed: %s",
+                    attempt + 1, fleet.restart_max_attempts, exc,
+                )
+        raise SidecarSupervisionError(fleet.restart_max_attempts, last_error)
 
     async def _nudge(self, target: str) -> None:
         """Reconnect the backend on the (unchanged) target and

@@ -268,7 +268,8 @@ def load_hf_checkpoint_sharded(
                 parts.append(seen[(blocks, dev)])
             return Sharded(tuple(parts), tuple(
                 mesh_mod.axis_product(mesh, e) for e in adapted), mesh,
-                torch.Size(shape) if key == "wqkv" else None)
+                torch.Size(shape) if key == "wqkv" else None,
+                spec=tuple(adapted))
 
         def rng(size: int, block: int, n_blocks: int) -> slice:
             step = size // n_blocks

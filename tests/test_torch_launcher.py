@@ -5,7 +5,9 @@ on the four cases of tests/test_distributed.py; the gateway and the
 sidecar serve from this process, with no child; a sidecar death is
 restarted on the same socket with the fleet's backoff and the
 discoverer nudged, so a `tools/call` through the same gateway succeeds
-again long before its discovery watchdog would have run; an exhausted
+again long before its discovery watchdog would have run (and with a
+watchdog reconnecting every few milliseconds, which pauses until the
+nudge); an exhausted
 budget raises `SidecarSupervisionError` and the gateway stops; a clean
 stop leaves no socket file and no child. The sidecar here is a fake
 (the hello backend of tests/backend_utils.py on a unix socket) behind
@@ -165,6 +167,55 @@ async def test_sidecar_death_is_restarted_and_served_again():
 
 async def _restarted(co) -> bool:
     return co.restarts > 0
+
+
+async def test_restart_with_a_busy_watchdog_is_served_again():
+    """Deaths while the discoverer's watchdog reconnects the backend every
+    few milliseconds: the watchdog pauses from the death to the nudge,
+    so its reconnect cannot close the channel under the nudge's
+    reflection call (which then waited forever: the restart never
+    finished, the card's phase 16 twice). Each death is restarted and
+    served again."""
+    made: list = []
+    co, port = _colaunch(made, _sock("busywatch"), attempts=5)
+    co.cfg.fleet.backoff_base_s = 0.2
+    co.cfg.grpc.reconnect.watchdog_interval_s = 0.01
+    co.cfg.grpc.reconnect.interval_s = 0.01
+    co.cfg.grpc.connect_timeout_s = 0.5
+    await co.start()
+    discoverer = co.gateway.discoverer
+    (backend,) = discoverer.backends
+    # Each reconnect the watchdog makes, and whether a death was then
+    # not yet restarted.
+    deaths, during = [0], []
+    connect = backend.connect
+
+    async def spy_connect(*args, **kwargs):
+        if asyncio.current_task() is discoverer._watchdog_task:
+            during.append(co.restarts < deaths[0])
+        return await connect(*args, **kwargs)
+
+    backend.connect = spy_connect
+    try:
+        await _until(lambda: _call_ok(port), 30, "gateway never ready")
+        for death in range(1, 6):
+            deaths[0] = death
+            await made[-1].backend.server.stop(None)
+            await _until(lambda: _restarts(co, death), 30,
+                         f"death {death} was never restarted")
+            await _until(lambda: _call_ok(port), 30,
+                         f"no call served after death {death}")
+        assert co.restarts == 5
+        assert discoverer._watchdog_task is not None
+        assert not any(during), (
+            f"{sum(during)} of {len(during)} watchdog reconnects ran "
+            f"between a death and its restart")
+    finally:
+        await co.stop()
+
+
+async def _restarts(co, n: int) -> bool:
+    return co.restarts >= n
 
 
 async def test_exhausted_budget_raises_typed_and_stops_gateway():
