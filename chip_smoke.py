@@ -91,10 +91,11 @@ Phases, any failure exits non-zero and prints no result:
    full page and launches B1 on the tail only), the transfer's pages,
    chunks, bytes and times, the int8 cache shipping about half the
    bytes, kv_transfer_fail (ABORTED) and a page-size mismatch
-   (INVALID_ARGUMENT); (c) a registry of four rank-8 adapters: a burst
-   of 16 mixing base and all four (tick p50 against the burst all base,
-   each stream against its adapter alone, a zero-b adapter equal to
-   base), an adapter'd two-leg call, a churning 2-row arena and
+   (INVALID_ARGUMENT); (c) a registry of four rank-8 adapters: a zero-b
+   adapter equal to base (the sidecar's first two calls, both cold), a
+   burst of 16 mixing base and all four (tick p50 against the burst all
+   base, each stream against its adapter alone), an adapter'd two-leg
+   call, a churning 2-row arena and
    adapter_load_fail (ABORTED); (d) phase 11d's scheduler traffic on an
    arena holding the batch exactly with the host tier attached: the
    resumes restore the parked pages;
@@ -279,7 +280,15 @@ Phases, any failure exits non-zero and prints no result:
    gradients' reduce time, step time p50 of both, each process's
    peak memory, B1 launches a step, the backend; B1 at one process's
    [4, 1023] block against its plain version, timed with SDPA and the
-   bound. One pair of processes takes (a)'s steps, then (b)'s;
+   bound; (c)-(e) llama-1b at tensor=2, moe-2b at data=2 and at
+   expert=2, llama-1b at stage=2 across the two processes (4 layers, 2
+   steps) against one process of the same mesh: tensor, expert and
+   stage equal (losses within 1e-7, every block both processes store
+   bitwise equal by a checksum of its bits), moe-2b data=2 within twice its witness; planted
+   faults, the tensor backward's sum skipped (losses outside) and the
+   stage group's reduce skipped (the replicated blocks apart); B1 at a
+   process's [8, 1023] tensor shard. One pair of processes takes (a)'s
+   steps, then (b)'s, then (c)-(e)'s;
 23. the plain gateway: `python3 -m ggrmcp_tpu_torch gateway --backend
    unix:SOCK` (no --tpu) as a subprocess before a co-launch's llama3-8b
    sidecar (CUT_DEPTH): tools/list equal to the co-launch gateway's,
@@ -356,12 +365,12 @@ PEAK_BYTES = 3.35e12
 # P V product, which near-zero outputs see as atol 1e-2.
 TOL = {"bfloat16": (1e-2, 1.6e-2), "float32": (1e-4, 1e-4)}
 SERVE_PROMPT_TOKENS = (40, 100, 200, 300, 500, 700, 1500, 3000)
-# Phases 9-15, 17, 19, 22-24 serve (or train) the published widths cut
+# Phases 8-15, 17, 19, 22-24 serve (or train) the published widths cut
 # to this many layers (serving.num_layers): their checks hold at any
-# depth, and their time goes with it; 12's (b) and (c) serve 8 (P12).
-# Phases 3-5 and 16 and 21 keep every layer (16's memory bound across a
-# restart, 1.25 times the model's, holds only at full depth: at 4
-# layers the warmup's transients reached 1.33 times).
+# depth, and their time goes with it.
+# Phases 3-5 and 21 keep every layer, 16 half of them (its memory bound
+# across a restart, 1.25 times the model's, does not hold at 4 layers:
+# the warmup's transients reached 1.33 times).
 CUT_DEPTH = 4
 SERVE_NEW_TOKENS = 32
 
@@ -383,7 +392,7 @@ def log(msg: str) -> None:
 PHASE_LIMIT_S = {
     1: 60, 2: 60, 3: 60, 4: 60, 5: 60, 6: 60, 7: 60, 8: 90, 9: 60, 10: 60,
     11: 115, 12: 130, 13: 105, 14: 60, 15: 60, 16: 130, 17: 100, 18: 225,
-    19: 125, 20: 60, 21: 315, 22: 145, 23: 60, 24: 130,
+    19: 125, 20: 60, 21: 315, 22: 155, 23: 60, 24: 130,
 }
 # The running phase and when its limit falls (monotonic clock; None
 # outside a phase, as in the script's helper processes).
@@ -1372,6 +1381,8 @@ def _check_quantized(torch, tq, got, want) -> None:
 
 # int8 against bf16 weights, last-position logits: the reference's bound
 # (tests/test_quant.py), least row cosine.
+# Phase 8 serves and quantizes llama3-8b's published widths cut in depth.
+P8 = dict(depth=CUT_DEPTH)
 INT8_MIN_COSINE = 0.999
 # int8 against bf16 KV cache: the reference's bound (tests/test_kv_quant.py),
 # max |difference| over max |bf16 logit|.
@@ -1423,7 +1434,7 @@ def int8_weights_phase(torch, dev) -> dict:
     from ggrmcp_tpu_torch.ops import quant as tq
     from ggrmcp_tpu_torch.serving.engine import GenerationEngine
 
-    cfg = llama_mod.CONFIGS[MODEL]
+    cfg = _cut(MODEL, P8["depth"])
     res: dict = {}
     params = llama_mod.init_params(cfg, dev, SEED)
     dense = GenerationEngine(cfg, params=params, device=dev)
@@ -1454,8 +1465,9 @@ def int8_weights_phase(torch, dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated()
     t = time.perf_counter()
-    engine = GenerationEngine(cfg, ServingConfig(model=MODEL, quantize="int8"),
-                              params=params, device=dev)
+    engine = GenerationEngine(cfg, ServingConfig(
+        model=MODEL, num_layers=P8["depth"], quantize="int8"),
+        params=params, device=dev)
     torch.cuda.synchronize()
     res["quantize_s"] = time.perf_counter() - t
     res["quantize_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -1544,8 +1556,8 @@ async def _int8_serve(torch, tatt, dev, **fields):
 
     vocab = llama_mod.CONFIGS[MODEL].vocab_size
     torch.cuda.reset_peak_memory_stats()
-    sidecar = Sidecar(ServingConfig(model=MODEL, **fields), seed=SEED,
-                      device=dev)
+    sidecar = Sidecar(ServingConfig(model=MODEL, num_layers=P8["depth"],
+                                    **fields), seed=SEED, device=dev)
     # The main path's run starts here: every launch count from 0.
     tatt.flash_attention.launches = 0
     port = await sidecar.start(0)
@@ -1633,7 +1645,7 @@ def _kv_int8_accuracy(torch, dev, params) -> dict:
     against a bf16 cache, on the same int8 weights."""
     from ggrmcp_tpu_torch.models import llama as llama_mod
 
-    cfg = llama_mod.CONFIGS[MODEL]
+    cfg = _cut(MODEL, P8["depth"])
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     tokens = torch.randint(3, cfg.vocab_size, (8, 256), generator=gen,
                            device=dev)
@@ -1696,8 +1708,10 @@ async def int8_phase(torch, tatt, dev) -> dict:
     synthetic = dict(quantize="int8", synthetic_weights=True)
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated()
-    engine = GenerationEngine(llama_mod.CONFIGS[MODEL],
-                              ServingConfig(model=MODEL, **synthetic),
+    engine = GenerationEngine(_cut(MODEL, P8["depth"]),
+                              ServingConfig(model=MODEL,
+                                            num_layers=P8["depth"],
+                                            **synthetic),
                               seed=SEED, device=dev)
     torch.cuda.synchronize()
     d = dict(init_peak_gb=(torch.cuda.max_memory_allocated() - start) / 1e9,
@@ -2952,9 +2966,7 @@ async def control_phase(torch, tatt, dev) -> dict:
 
 # The card's sizes; a smaller spec drives the same code on the CPU.
 P12 = dict(
-    # (b) and (c) at 8 layers, not CUT_DEPTH: at 4, (c)'s zero-b adapter
-    # stream differed from base's at its 16th token (PERF.md §7).
-    model=MODEL, depth=CUT_DEPTH, lora_depth=8, batching={}, page=16,
+    model=MODEL, depth=CUT_DEPTH, batching={}, page=16,
     # (a) the host tier: 16 distinct preambles (128 pages each, 2048 in
     # all) through a 1024-page arena, twice; the second pass restores.
     arena_pages=1024, host_bytes=8 << 30, big_arena_pages=4096,
@@ -3406,6 +3418,8 @@ async def disagg_lora_parts(torch, tatt, dev, params, tmp, spec, cfg,
     c_res: dict = {}
     try:
         clients = [_P12Client(ch) for ch in chans]
+        # (c)'s zero-b adapter against base first, before any call.
+        c_res["zero_b"] = await _zero_b_pair(clients[2], spec)
         # (b) two-leg calls, base model.
         calls = [await _disagg_prompt(tatt, clients, sides, n, spec, page)
                  for n in spec["disagg_prompts"]]
@@ -3532,8 +3546,8 @@ def _burst_text(i, spec) -> str:
 async def _lora_burst(torch, dev, client, batcher, spec) -> dict:
     """(c) the burst mixing base and every adapter, held into one
     admission round, against the same burst all base (tick p50 of
-    each), each adapter'd stream against its adapter served alone, and
-    a zero-b adapter against base."""
+    each), and each adapter'd stream against its adapter served
+    alone."""
     names = _burst_names(spec)
     runs = {}
     for kind in ("base", "mixed"):
@@ -3568,12 +3582,6 @@ async def _lora_burst(torch, dev, client, batcher, spec) -> dict:
                                                    names) if n])
     check(changed["identical"] < changed["of"],
           "(c) every adapter'd stream equals its base stream")
-    # A text no call has sent: both admissions are cold, the same shapes.
-    text = _prompt_text(spec["lora_prompt_tokens"][1], 6700)
-    zero = await client.call(text, spec["lora_new"], adapter="zero")
-    base = await client.call(text, spec["lora_new"])
-    check(zero[0] == base[0], f"(c) the zero-b adapter differs from base: "
-          f"{zero[0]} against {base[0]}")
     stats = await client.stats()
     return dict(
         burst=dict(names=names, tick_ms_p50_mixed=runs["mixed"]["tick_ms_p50"],
@@ -3582,11 +3590,32 @@ async def _lora_burst(torch, dev, client, batcher, spec) -> dict:
                    ticks_base=runs["base"]["ticks"],
                    lora=runs["mixed"]["lora"]),
         agreement_with_alone=agree, agreement_with_base=changed,
-        zero_b_equals_base=True,
         stats={k: getattr(stats, k) for k in (
             "lora_adapters_registered", "lora_adapters_resident",
             "lora_rows_total", "lora_loads", "lora_evictions", "lora_hits",
             "lora_load_ms", "lora_shed", "memory_lora_bytes")})
+
+
+async def _zero_b_pair(client, spec) -> dict:
+    """(c) a zero-b adapter against base on one text, as the sidecar's
+    first two calls: neither call's key domain holds a page, so both are
+    cold fused admissions of one shape (no paged prefix hit, no copy on
+    write), and the adapter adds exact zeros, so the tokens are equal.
+    After other base calls a base admission shares their BOS page and
+    takes the chunked route, which rounds differently in bf16: the two
+    routes agree, they are not identical."""
+    text = _prompt_text(spec["lora_prompt_tokens"][1], 6700)
+    before = await client.stats()
+    zero = await client.call(text, spec["lora_new"], adapter="zero")
+    base = await client.call(text, spec["lora_new"])
+    after = await client.stats()
+    routes = {k: getattr(after, k) - getattr(before, k)
+              for k in ("paged_prefix_hits", "paged_cow_copies")}
+    check(not any(routes.values()),
+          f"(c) the zero-b / base pair was not admitted cold: {routes}")
+    check(zero[0] == base[0], f"(c) the zero-b adapter differs from base: "
+          f"{zero[0]} against {base[0]}")
+    return dict(zero_b_equals_base=True, tokens=len(base[0]), **routes)
 
 
 async def _lora_churn(torch, dev, params, tmp, spec, registry) -> dict:
@@ -3703,8 +3732,6 @@ async def paged_lora_phase(torch, tatt, dev, spec=None) -> dict:
     spec = spec or P12
     cfg = _cut(spec["model"], spec["depth"])
     params = llama_mod.init_params(cfg, dev, SEED)
-    lspec = dict(spec, depth=spec["lora_depth"])
-    lcfg = _cut(spec["model"], lspec["depth"])
     res: dict = {}
     # The path's run starts here: every launch count from 0.
     tatt.flash_attention.launches = 0
@@ -3712,7 +3739,7 @@ async def paged_lora_phase(torch, tatt, dev, spec=None) -> dict:
             os.path.abspath(__file__))) as tmp:
         registry = os.path.join(tmp, "adapters")
         os.makedirs(registry)
-        _write_adapters(registry, lcfg, spec)
+        _write_adapters(registry, cfg, spec)
 
         t = time.perf_counter()
         res["host_tier"] = await host_tier_part(torch, dev, params, tmp,
@@ -3723,10 +3750,8 @@ async def paged_lora_phase(torch, tatt, dev, spec=None) -> dict:
 
         t = time.perf_counter()
         launched = tatt.flash_attention.launches
-        lparams = llama_mod.init_params(lcfg, dev, SEED)
         res["disagg"], res["lora"] = await disagg_lora_parts(
-            torch, tatt, dev, lparams, tmp, lspec, lcfg, registry)
-        del lparams
+            torch, tatt, dev, params, tmp, spec, cfg, registry)
         res["disagg"]["launches"] = tatt.flash_attention.launches - launched
         res["disagg"]["seconds"] = time.perf_counter() - t
         log(f"  (b) disaggregation: {json.dumps(_brief(res['disagg']))}")
@@ -5081,7 +5106,10 @@ async def tp_phase(torch, tatt, dev, spec=None) -> dict:
 
 # -- phase 16: the co-launch ---------------------------------------------------
 
-P16 = dict(model=MODEL, prompts=(64, 100, 200, 300, 500, 700, 1000, 1500),
+# Half of llama3-8b's layers: at 4 the restart's memory bound (1.25
+# times the model held) read 1.33 (the warmup's transients).
+P16 = dict(model=MODEL, depth=16,
+           prompts=(64, 100, 200, 300, 500, 700, 1000, 1500),
            new=SERVE_NEW_TOKENS, ttft_prompts=(64, 500, 1500), ttft_reps=3,
            hop_calls=200, alone=(100, 1500))
 GENERATE_TOOL = "ggrmcp_tpu_generateservice_generate"
@@ -5287,7 +5315,7 @@ def _tgid(pid: int):
 
 async def _cli_colaunch(torch, dev, spec, want: list, text: str) -> dict:
     """(d) `python3 -m ggrmcp_tpu_torch gateway --tpu --model M
-    --http-port P` as one process (`ggrmcp_tpu` unimportable in it):
+    --http-port P --config F` (F: the phase's depth) as one process (`ggrmcp_tpu` unimportable in it):
     seconds to healthy, one tools/call (the in-process run's tokens: the
     same seed, the same card), the socket, no child and no process of
     the JAX package, SIGTERM."""
@@ -5296,11 +5324,14 @@ async def _cli_colaunch(torch, dev, spec, want: list, text: str) -> dict:
 
     port = _free_port()
     here = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryFile() as err:
+    with tempfile.TemporaryFile() as err, tempfile.NamedTemporaryFile(
+            "w", suffix=".json", dir=here) as conf:
+        json.dump({"serving": {"num_layers": spec["depth"]}}, conf)
+        conf.flush()
         t = time.perf_counter()
         proc = subprocess.Popen(
             _port_cli("gateway", "--tpu", "--model", spec["model"],
-                      "--http-port", str(port))
+                      "--http-port", str(port), "--config", conf.name)
             + (["--device", "cpu"] if dev.type == "cpu" else []),
             cwd=here, stdout=subprocess.DEVNULL, stderr=err)
         sock = os.path.join(tempfile.gettempdir(),
@@ -5363,7 +5394,8 @@ async def colaunch_phase(torch, tatt, dev, spec=None) -> dict:
     res: dict = {}
     texts = [_prompt_text(n, 1600 + i) for i, n in enumerate(spec["prompts"])]
     alone = [_prompt_text(n, 1700 + n) for n in spec["alone"]]
-    cfg = Config(serving=ServingConfig(model=spec["model"]))
+    cfg = Config(serving=ServingConfig(model=spec["model"],
+                                       num_layers=spec["depth"]))
     # The gateway's rate limiter off: (b) makes 200 calls in a row.
     cfg.server.rate_limit.enabled = False
     cfg.server.port = port = _free_port()
@@ -6678,8 +6710,10 @@ def _cut(name: str, depth: int):
     import dataclasses
 
     from ggrmcp_tpu_torch.models import llama as llama_mod
+    from ggrmcp_tpu_torch.models import moe as moe_mod
 
-    return dataclasses.replace(llama_mod.CONFIGS[name], num_layers=depth)
+    cfgs = moe_mod.CONFIGS if name in moe_mod.CONFIGS else llama_mod.CONFIGS
+    return dataclasses.replace(cfgs[name], num_layers=depth)
 
 
 def _tree_copy(params):
@@ -8080,22 +8114,54 @@ async def fleet_phase(torch, tatt, dev, spec=None) -> dict:
 # -- phase 22: processes on the one card ---------------------------------------
 
 # (b) B1 at one process's block of the llama-1b train step: [4, 1023]
-# at llama-1b's heads, D 64, bf16, causal.
+# at llama-1b's heads, D 64, bf16, causal; (c) at one process's tensor
+# shard of it at tensor=2: [8, 1023] at H 16, KVH 4.
 P22_CASES = [
     ("dist_4x1023", 4, 1023, 1023, 32, 8, 64, True, 0, 1023, None,
      "bfloat16", "llama-1b train step [8, 1024] over two processes: one "
      "process's [4, 1023] block (H 32, KVH 8, D 64)"),
+    ("dist_tp_8x1023", 8, 1023, 1023, 16, 4, 64, True, 0, 1023, None,
+     "bfloat16", "llama-1b train step [8, 1024] at tensor=2 over two "
+     "processes: one process's tensor shard (H 16, KVH 4, D 64)"),
+]
+# (c)-(e): an axis across the two processes, each run `axes_steps` steps
+# of a global [axes_batch, seq] batch at full width and `depth` layers;
+# the last field says whether the run equals one process exactly
+# (DIST_EXACT_RTOL) or within twice its witness (DIST_WITNESS).
+P22_AXES = [
+    ("tensor", "llama-1b", dict(tensor=2), True),
+    ("moe_data", "moe-2b", dict(data=2), False),
+    ("moe_expert", "moe-2b", dict(expert=2), True),
+    ("stage", "llama-1b", dict(stage=2), True),
 ]
 P22 = dict(tiny="tiny-llama", tiny_steps=3, tiny_batch=4, tiny_seq=65,
            model="llama-1b", depth=CUT_DEPTH, steps=2, batch=8, seq=1024,
-           processes=2, fault_steps=2)
+           processes=2, fault_steps=2, axes_steps=2, axes_batch=8)
 # (a) tiny-llama float32, two processes against one: the CPU test's
 # tolerances (tests/test_torch_distributed.py).
 DIST_TINY_RTOL = 1e-4
-# (b) llama-1b bf16: the two-process losses against the single-process
-# data=2 run's, held to twice a same-run witness (that run through the
-# plain attention against it through B1), phase 19's rule.
+# (b) and (d)'s moe-2b data=2, bf16: the two-process losses against the
+# single-process run of the same mesh, held to twice a same-run witness
+# (that run through the plain attention, `lm_loss(use_flash=False)`,
+# against it through B1), phase 19's rule: the processes hold different
+# rows, so the gradients' and the router aux's sums reassociate.
 DIST_WITNESS = 2.0
+# (c), (d)'s expert=2 and (e): each process computes what one process
+# computes for its coordinates, and every sum across the two is of two
+# addends, so the losses equal one process's (rel 0.0 on every card run
+# so far) up to this limit, and every block both processes hold is
+# bitwise equal on both.
+DIST_EXACT_RTOL = 1e-7
+
+
+def _axes_step(cfg, mesh):
+    """The train step of a mesh: the pipeline's under a stage axis."""
+    from ggrmcp_tpu_torch.models import training
+    from ggrmcp_tpu_torch.parallel import pipeline
+
+    if mesh.shape["stage"] > 1:
+        return pipeline.make_pipeline_train_step(cfg, mesh)
+    return lambda state, tokens: training.train_step(state, tokens, cfg)
 
 
 def _dist_process(spec_json: str) -> int:
@@ -8127,20 +8193,28 @@ def _dist_process(spec_json: str) -> int:
 
 def _dist_steps(spec: dict, dev, mesh, total: float) -> None:
     """One run of `_dist_process`: the run's steps (and its planted fault)
-    on this process's rows of the global mesh."""
+    on this process's share of the global mesh (the data mesh, or the
+    run's `axes` over the processes)."""
     import numpy as np
     import torch
 
-    from ggrmcp_tpu_torch.models import llama as llama_mod
-    from ggrmcp_tpu_torch.models import trainer, training
+    from ggrmcp_tpu_torch.core.config import MeshConfig
+    from ggrmcp_tpu_torch.models import family_module, trainer, training
     from ggrmcp_tpu_torch.ops import attention as tatt
+    from ggrmcp_tpu_torch.parallel import collectives, distributed
 
     dist = torch.distributed
     rank = dist.get_rank()
+    if spec.get("axes"):
+        axes = {"data": 1, "tensor": 1, **spec["axes"]}
+        mesh = distributed.global_mesh(MeshConfig(**axes), [dev] * (
+            math.prod(axes.values()) // dist.get_world_size()))
     cfg = (_cut(spec["model"], spec["depth"]) if spec.get("depth")
-           else llama_mod.CONFIGS[spec["model"]])
+           else _llama_cfg(spec["model"]))
+    fam = family_module(cfg)
     state = training.make_train_state(
-        llama_mod.init_params(cfg, dev, spec["seed"]), cfg, mesh=mesh)
+        fam.init_params(cfg, dev, spec["seed"]), cfg, mesh=mesh)
+    step = _axes_step(cfg, mesh)
     batches = np.load(spec["batches"])
     cuda = dev.type == "cuda"
     # The gradients' trip over the group, timed on its own: packing,
@@ -8156,37 +8230,53 @@ def _dist_steps(spec: dict, dev, mesh, total: float) -> None:
         gloo_ms[-1] += (time.perf_counter() - t0) * 1e3
         return out
 
-    def timed_reduce(tensors):
+    def timed_reduce(tensors, group=None):
         _sync(torch, dev)
         gloo_ms.append(0.0)
         dist.all_reduce = timed_all_reduce
         t0 = time.perf_counter()
         try:
-            reduce_grads(tensors)
+            reduce_grads(tensors, group)
             _sync(torch, dev)
         finally:
             dist.all_reduce = all_reduce
         reduce_ms.append((time.perf_counter() - t0) * 1e3)
     training.all_reduce_grads = timed_reduce
+    copy_back = collectives._CopyIn.backward
+    if spec.get("fault") == "tensor_backward":
+        # The planted fault: the tensor group's gradient sum skipped.
+        collectives._CopyIn.backward = staticmethod(
+            lambda ctx, grad: (grad, None))
+    if spec.get("fault") == "stage_reduce":
+        # The planted fault: the gradient reduces across processes
+        # skipped, at data=1 the stage group's sum of the leaves the
+        # stages replicate (embedding, final norm, head).
+        training.all_reduce_grads = lambda tensors, group=None: None
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     tatt.flash_attention.launches = 0
     losses, ms = [], []
-    for batch in batches:
-        tokens = torch.from_numpy(batch).to(dev)
-        _sync(torch, dev)
-        t = time.perf_counter()
-        state, loss = training.train_step(state, tokens, cfg)
-        losses.append(loss.item())
-        ms.append((time.perf_counter() - t) * 1e3)
+    try:
+        for batch in batches:
+            tokens = torch.from_numpy(batch).to(dev)
+            _sync(torch, dev)
+            t = time.perf_counter()
+            state, loss = step(state, tokens)
+            losses.append(loss.item())
+            ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        collectives._CopyIn.backward = copy_back
     out = dict(rank=rank, backend=dist.get_backend(), device=str(dev),
                total=total, sizes=list(mesh.sizes), owners=list(mesh.owners),
+               local_sizes=list(mesh.local().sizes),
                losses=losses, step_ms=ms, reduce_ms=reduce_ms,
                all_reduce_ms=gloo_ms,
                reduce_gb=4 * reduced / 1e9,
                launches=tatt.flash_attention.launches,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda
                else None)
+    if spec.get("axes"):
+        out["held"] = _held_digests(torch, state.params, mesh)
     if spec.get("params"):
         flat = trainer.state_tensors(state, cfg)[0]
         np.savez(f"{spec['out']}{rank}.npz",
@@ -8198,8 +8288,8 @@ def _dist_steps(spec: dict, dev, mesh, total: float) -> None:
         del state
         _free(torch, dev)
         state = training.make_train_state(
-            llama_mod.init_params(cfg, dev, spec["seed"]), cfg, mesh=mesh)
-        training.all_reduce_grads = lambda tensors: None
+            fam.init_params(cfg, dev, spec["seed"]), cfg, mesh=mesh)
+        training.all_reduce_grads = lambda tensors, group=None: None
         out["fault_losses"] = []
         for batch in batches[:spec["fault_steps"]]:
             state, loss = training.train_step(
@@ -8210,10 +8300,54 @@ def _dist_steps(spec: dict, dev, mesh, total: float) -> None:
         json.dump(out, fh)
 
 
-def _dist_run(specs: list, tmp: str, timeout: float) -> list:
-    """Two processes of `_dist_process` on the runs' device over a local
-    coordinator, each taking `specs` in turn: for each run, each
-    process's readings."""
+def _held_digests(torch, params, mesh) -> dict:
+    """A checksum of the bits of each block this process stores that
+    another process stores too, keyed by leaf and block index."""
+    from ggrmcp_tpu_torch.models import training
+    from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
+
+    out = {}
+    for name, leaf in training.named_leaves(params):
+        keys = [name + "." + "-".join(
+            str(mesh_mod.block_index(mesh, e, mesh.coord(i)))
+            for e in leaf.spec) for i in range(mesh.size)]
+        holders: dict = {}
+        for key, owner in zip(keys, mesh.owners):
+            holders.setdefault(key, set()).add(owner)
+        for key, part in zip(keys, leaf.parts):
+            if part is not None and len(holders[key]) > 1 and key not in out:
+                out[key] = _bits_checksum(torch, part)
+    return out
+
+
+def _bits_checksum(torch, t) -> str:
+    """The sum of a tensor's elements' bit patterns, and that sum with
+    each weighted by its position, in int64 on the tensor's device
+    (wrapping): equal tensors give equal checksums, and a tensor that
+    differs in any element's bits gives another weighted sum save by a
+    coincidence."""
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    bits = t.detach().contiguous().view(-1).view(ints[t.element_size()])
+    total = torch.zeros(2, dtype=torch.int64, device=t.device)
+    chunk = 1 << 24
+    for start in range(0, bits.numel(), chunk):
+        c = bits[start:start + chunk].to(torch.int64)
+        pos = torch.arange(start + 1, start + 1 + c.numel(),
+                           dtype=torch.int64, device=t.device)
+        total += torch.stack([c.sum(), (c * pos).sum()])
+    return ":".join(str(x) for x in total.tolist())
+
+
+def _held_apart(procs: list) -> list:
+    """The blocks both processes store whose bits differ."""
+    a, b = (p["held"] for p in procs)
+    return sorted(k for k in a if k in b and a[k] != b[k])
+
+
+def _dist_start(specs: list, tmp: str) -> tuple:
+    """Start two processes of `_dist_process` on the runs' device over a
+    local coordinator, each to take `specs` in turn; (processes, logs)
+    for `_dist_collect`."""
     here = os.path.abspath(__file__)
     env = {**os.environ, "GGRMCP_COORDINATOR": f"127.0.0.1:{_free_port()}",
            "GGRMCP_NUM_PROCESSES": str(P22["processes"])}
@@ -8224,6 +8358,13 @@ def _dist_run(specs: list, tmp: str, timeout: float) -> list:
         env={**env, "GGRMCP_PROCESS_ID": str(r)}, cwd=os.path.dirname(here),
         stdout=logs[r], stderr=subprocess.STDOUT)
         for r in range(P22["processes"])]
+    return procs, logs
+
+
+def _dist_collect(procs: list, logs: list, specs: list,
+                  timeout: float) -> list:
+    """Wait for `_dist_start`'s processes (killing them at `timeout`):
+    for each run, each process's readings."""
     try:
         for p in procs:
             p.wait(timeout=timeout)
@@ -8249,15 +8390,18 @@ def _dist_run(specs: list, tmp: str, timeout: float) -> list:
     return out
 
 
-def _single_steps(torch, tatt, dev, cfg, seed, batches, loss_fn=None):
-    """The single-process data=2 run on the card from the same seeded
-    tree: losses, step ms, B1 launches, peak memory, the final state."""
-    from ggrmcp_tpu_torch.models import llama as llama_mod
-    from ggrmcp_tpu_torch.models import training
+def _single_steps(torch, tatt, dev, cfg, seed, batches, loss_fn=None,
+                  axes=None):
+    """The single-process run of `axes` (default data=2) on the card from
+    the same seeded tree: losses, step ms, B1 launches, peak memory, the
+    final state."""
+    from ggrmcp_tpu_torch.models import family_module, training
 
+    mesh = _mesh_of(axes or dict(data=2), dev)
     state = training.make_train_state(
-        llama_mod.init_params(cfg, dev, seed), cfg,
-        mesh=_mesh_of(dict(data=2), dev))
+        family_module(cfg).init_params(cfg, dev, seed), cfg, mesh=mesh)
+    step = (_axes_step(cfg, mesh) if loss_fn is None else
+            lambda st, tok: training.train_step(st, tok, cfg, loss_fn))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     tatt.flash_attention.launches = 0
@@ -8266,7 +8410,7 @@ def _single_steps(torch, tatt, dev, cfg, seed, batches, loss_fn=None):
         tokens = torch.from_numpy(batch).to(dev)
         _sync(torch, dev)
         t = time.perf_counter()
-        state, loss = training.train_step(state, tokens, cfg, loss_fn)
+        state, loss = step(state, tokens)
         losses.append(loss.item())
         ms.append((time.perf_counter() - t) * 1e3)
     return dict(losses=losses, step_ms=ms,
@@ -8275,9 +8419,9 @@ def _single_steps(torch, tatt, dev, cfg, seed, batches, loss_fn=None):
                          if dev.type == "cuda" else None)), state
 
 
-def _p50(ms: list) -> float:
+def _p50(ms: list):
     steady = sorted(ms[2:] or ms)
-    return steady[(len(steady) - 1) // 2]
+    return steady[(len(steady) - 1) // 2] if steady else None
 
 
 def dist_phase(torch, tatt, dev, spec=None) -> dict:
@@ -8289,7 +8433,18 @@ def dist_phase(torch, tatt, dev, spec=None) -> dict:
     against the single-process data=2 run from one seeded tree, held to
     twice a same-run witness, and a planted fault (the first steps with
     the gradients' reduce skipped) outside that bound; B1 at one
-    process's block shape."""
+    process's block shape; then (c)-(e) `P22_AXES`, one axis across the
+    processes each (llama-1b at tensor=2, moe-2b at data=2 and at
+    expert=2, llama-1b at stage=2), at full width and `depth` layers,
+    against the single-process run of the same mesh from one seeded
+    tree: tensor, expert and stage equal to DIST_EXACT_RTOL with every
+    block both processes store bitwise equal, moe-2b data=2 within twice
+    a same-run witness; B1 once a layer a step in each process; two
+    planted faults, (c) with the tensor backward's sum skipped (losses
+    outside the limit) and (e) with the stage group's reduce skipped
+    (the stages' copies of the replicated leaves apart); B1 at a
+    process's tensor shard of the llama-1b step."""
+    import functools
     import tempfile
 
     import numpy as np
@@ -8298,58 +8453,110 @@ def dist_phase(torch, tatt, dev, spec=None) -> dict:
     from ggrmcp_tpu_torch.models import trainer, training
 
     spec = spec or P22
+    # The witness's loss: every attention through the plain version.
+    plain_loss = functools.partial(training.lm_loss, use_flash=False)
     t_phase = time.perf_counter()
     res: dict = {}
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(dir=here) as tmp:
-        # The single-process runs of (a) and (b) first, then one pair of
-        # processes takes (a)'s steps and then (b)'s.
+        # B1 timed alone on the card first; then one pair of processes
+        # takes (a)'s steps, (b)'s and (c)-(e)'s, while this process runs
+        # their single-process references (the pair's time is gloo's
+        # exchange through host memory, so the two overlap; B1's launches
+        # are counted per process).
+        case, tp_case = kernel_cases(torch, tatt, dev, P22_CASES)
+        res["kernel"] = case
         tcfg = llama_mod.CONFIGS[spec["tiny"]]
         rng = np.random.default_rng(SEED + 22)
-        batches = rng.integers(0, tcfg.vocab_size, (
+        tiny_batches = rng.integers(0, tcfg.vocab_size, (
             spec["tiny_steps"], spec["tiny_batch"], spec["tiny_seq"]))
         tiny_path = os.path.join(tmp, "tiny.npy")
-        np.save(tiny_path, batches)
-        one, state = _single_steps(torch, tatt, dev, tcfg, SEED + 22,
-                                   batches)
-        want = {k: v.float().cpu().numpy()
-                for k, v in trainer.state_tensors(state, tcfg)[0].items()}
-        del state
-        _free(torch, dev)
-
-        case = kernel_cases(torch, tatt, dev, P22_CASES)[0]
-        res["kernel"] = case
+        np.save(tiny_path, tiny_batches)
         cfg = _cut(spec["model"], spec["depth"])
         rng = np.random.default_rng(SEED + 23)
         batches = rng.integers(0, cfg.vocab_size, (
             spec["steps"], spec["batch"], spec["seq"]))
         path = os.path.join(tmp, "llama.npy")
         np.save(path, batches)
-
-        def plain_loss(params, cfg_, tokens):
-            logits, _ = llama_mod.forward(params, cfg_, tokens[:, :-1],
-                                          use_flash=False)
-            return training.next_token_xent(logits, tokens[:, 1:])
-
-        single, state = _single_steps(torch, tatt, dev, cfg, SEED + 23,
-                                      batches)
-        del state
-        _free(torch, dev)
-        plain, state = _single_steps(torch, tatt, dev, cfg, SEED + 23,
-                                     batches, plain_loss)
-        del state
-        _free(torch, dev)
-        check(plain["launches"] == 0, "(b) the witness run launched B1")
-        t = time.perf_counter()
-        procs, lprocs = _dist_run([
+        axes_paths = {}
+        for key, model, axes, _ in P22_AXES:
+            if model not in axes_paths:
+                rng = np.random.default_rng(SEED + 24)
+                axes_paths[model] = os.path.join(tmp, f"{model}.npy")
+                np.save(axes_paths[model], rng.integers(
+                    0, _cut(model, spec["depth"]).vocab_size,
+                    (spec["axes_steps"], spec["axes_batch"], spec["seq"])))
+        axes_specs = [dict(model=model, depth=spec["depth"], seed=SEED + 24,
+                           device=str(dev), batches=axes_paths[model],
+                           out=os.path.join(tmp, key), axes=axes)
+                      for key, model, axes, _ in P22_AXES]
+        # The planted faults: (c) the tensor group's gradient sum of
+        # `copy_in`'s backward skipped, (e) the stage group's reduce.
+        axes_specs += [
+            dict(axes_specs[0], out=os.path.join(tmp, "fault"),
+                 fault="tensor_backward"),
+            dict(axes_specs[-1], out=os.path.join(tmp, "stage_fault"),
+                 fault="stage_reduce")]
+        specs = [
             dict(model=spec["tiny"], seed=SEED + 22, device=str(dev),
                  batches=tiny_path, out=os.path.join(tmp, "tiny"),
                  params=True),
             dict(model=spec["model"], depth=spec["depth"], seed=SEED + 23,
                  device=str(dev), batches=path,
                  out=os.path.join(tmp, "llama"),
-                 fault_steps=spec["fault_steps"])], tmp, phase_left())
-        # One pair of processes ran both: its seconds in each's readings.
+                 fault_steps=spec["fault_steps"])] + axes_specs
+        t = time.perf_counter()
+        procs_logs = _dist_start(specs, tmp)
+        try:
+            one, state = _single_steps(torch, tatt, dev, tcfg, SEED + 22,
+                                       tiny_batches)
+            want = {k: v.float().cpu().numpy()
+                    for k, v in trainer.state_tensors(state, tcfg)[0].items()}
+            del state
+            _free(torch, dev)
+            single, state = _single_steps(torch, tatt, dev, cfg, SEED + 23,
+                                          batches)
+            del state
+            _free(torch, dev)
+            plain, state = _single_steps(torch, tatt, dev, cfg, SEED + 23,
+                                         batches, plain_loss)
+            del state
+            _free(torch, dev)
+            check(plain["launches"] == 0, "(b) the witness run launched B1")
+
+            # (c)-(e): each run's single-process run of the same mesh
+            # through B1, and through the plain attention (the witness)
+            # where the run is held to a witness.
+            t_single = time.perf_counter()
+            axes_ref = {}
+            for key, model, axes, exact in P22_AXES:
+                acfg = _cut(model, spec["depth"])
+                abatches = np.load(axes_paths[model])
+                one_run, state = _single_steps(torch, tatt, dev, acfg, SEED + 24,
+                                               abatches, axes=axes)
+                del state
+                _free(torch, dev)
+                witness_run = None
+                if not exact:
+                    witness_run, state = _single_steps(
+                        torch, tatt, dev, acfg, SEED + 24, abatches,
+                        plain_loss, axes=axes)
+                    del state
+                    _free(torch, dev)
+                    check(witness_run["launches"] == 0,
+                          f"({key}) the witness run launched B1")
+                axes_ref[key] = (one_run, witness_run)
+            single_seconds = time.perf_counter() - t_single
+            procs, lprocs, *aprocs = _dist_collect(*procs_logs, specs,
+                                                   phase_left())
+        except BaseException:
+            for p in procs_logs[0]:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            raise
+        # One pair of processes ran them all: its seconds in each's
+        # readings.
         seconds = time.perf_counter() - t
         tiny = dict(seconds=seconds,
                     backend=[p["backend"] for p in procs],
@@ -8418,6 +8625,81 @@ def dist_phase(torch, tatt, dev, spec=None) -> dict:
           f"the witness's {witness}")
     check(fault > bound, f"(b) the planted fault (no gradient reduce) "
           f"stays within the bound: rel {fault} <= {bound}")
+
+    # (c)-(e): an axis across the processes against one process.
+    res["kernel_tp"] = tp_case
+    res["axes"] = {"single_seconds": single_seconds}
+    steps, depth = spec["axes_steps"], spec["depth"]
+    for (key, model, axes, exact), procs in zip(P22_AXES, aprocs):
+        one_run, witness_run = axes_ref[key]
+        got = rel(procs[0]["losses"], one_run["losses"])
+        if exact:
+            limit, witness = DIST_EXACT_RTOL, None
+        else:
+            witness = rel(witness_run["losses"], one_run["losses"])
+            limit = DIST_WITNESS * witness
+        apart = _held_apart(procs)
+        row = dict(
+            model=model, axes=axes, losses=procs[0]["losses"],
+            single_losses=one_run["losses"],
+            plain_losses=witness_run and witness_run["losses"],
+            loss_max_rel=got, witness_max_rel=witness, bound=limit,
+            held_by_both=len([k for k in procs[0]["held"]
+                              if k in procs[1]["held"]]),
+            held_apart=len(apart),
+            local_sizes=[p["local_sizes"] for p in procs],
+            step_ms_p50_by_process=[_p50(p["step_ms"]) for p in procs],
+            reduce_ms_p50=[_p50(p["reduce_ms"]) for p in procs],
+            all_reduce_ms_p50=[_p50(p["all_reduce_ms"]) for p in procs],
+            single_step_ms_p50=_p50(one_run["step_ms"]),
+            peak_gb=[p["peak_gb"] for p in procs],
+            single_peak_gb=one_run["peak_gb"],
+            launches_per_step=[p["launches"] / steps for p in procs],
+            single_launches_per_step=one_run["launches"] / steps)
+        res["axes"][key] = row
+        log(f"  ({key}) {json.dumps(row)}")
+        check(all(p["backend"] == "gloo" for p in procs),
+              f"({key}) backends {[p['backend'] for p in procs]}")
+        check(all(p["losses"] == procs[0]["losses"] for p in procs),
+              f"({key}) the processes report different losses")
+        check(all(math.isfinite(x) for x in procs[0]["losses"]),
+              f"({key}) non-finite losses {procs[0]['losses']}")
+        check(any(s < n for p in procs for s, n in zip(
+            p["local_sizes"], p["sizes"])),
+              f"({key}) no axis crosses the processes: {procs[0]['sizes']}")
+        # One B1 launch a layer a step in each process: a tensor shard, a
+        # data block, the replica an expert group's processes compute, a
+        # stage's layers over two microbatches.
+        check(dev.type != "cuda" or all(
+            p["launches"] == steps * depth for p in procs),
+              f"({key}) B1 launches {[p['launches'] for p in procs]} "
+              f"(want {steps * depth} in each process)")
+        check(got <= limit,
+              f"({key}) two-process losses {procs[0]['losses']} vs one "
+              f"process {one_run['losses']}: rel {got} > "
+              + (f"{limit}" if exact else
+                 f"{DIST_WITNESS} x the witness's {witness}"))
+        check(row["held_by_both"] > 0 and not apart,
+              f"({key}) of {row['held_by_both']} blocks both processes "
+              f"store, {apart[:8]} differ")
+    faulty, stage_faulty = aprocs[-2:]
+    fault = rel(faulty[0]["losses"], axes_ref["tensor"][0]["losses"])
+    res["axes"]["tensor"].update(fault_losses=faulty[0]["losses"],
+                                 fault_max_rel=fault)
+    log(f"  (c) planted fault: losses {faulty[0]['losses']}, rel {fault} "
+        f"against the limit {DIST_EXACT_RTOL}")
+    check(fault > DIST_EXACT_RTOL, f"(c) the planted fault (the tensor "
+          f"backward's sum skipped) stays within the limit: rel {fault} <= "
+          f"{DIST_EXACT_RTOL}")
+    apart = _held_apart(stage_faulty)
+    fault = rel(stage_faulty[0]["losses"], axes_ref["stage"][0]["losses"])
+    res["axes"]["stage"].update(fault_losses=stage_faulty[0]["losses"],
+                                fault_max_rel=fault,
+                                fault_held_apart=apart)
+    log(f"  (e) planted fault: losses {stage_faulty[0]['losses']}, rel "
+        f"{fault}; blocks apart {apart}")
+    check(apart, "(e) the planted fault (the stage group's reduce skipped) "
+          "leaves every block both processes store equal")
     res["seconds"] = time.perf_counter() - t_phase
     return res
 
@@ -8914,9 +9196,10 @@ async def _composition_host(torch, dev, spec, tmp) -> dict:
 
 
 async def _composition_lora(torch, tatt, dev, spec, tmp) -> dict:
-    """(d) phase 12c's burst on int8 weights with the bf16 cache: each
-    adapter'd stream against its adapter alone, a zero-b adapter against
-    base; B1 launches (the phase's kernel path)."""
+    """(d) phase 12c's zero-b adapter against base (the sidecar's first
+    two calls) and its burst on int8 weights with the bf16 cache: each
+    adapter'd stream against its adapter alone; B1 launches (the phase's
+    kernel path)."""
     import grpc.aio
 
     from ggrmcp_tpu_torch.models import llama as llama_mod
@@ -8937,7 +9220,10 @@ async def _composition_lora(torch, tatt, dev, spec, tmp) -> dict:
     await side.start(0)
     try:
         async with grpc.aio.insecure_channel(side.target) as ch:
-            res = await _lora_burst(torch, dev, _P12Client(ch), batcher, ls)
+            client = _P12Client(ch)
+            zero_b = await _zero_b_pair(client, ls)
+            res = await _lora_burst(torch, dev, client, batcher, ls)
+            res["zero_b"] = zero_b
     finally:
         await side.stop()
     _sync(torch, dev)
@@ -9389,11 +9675,16 @@ def main() -> int:
             with phase(22):
                 log(f"[22/24] processes on the one card: {P22['tiny']} and "
                     f"{P22['model']} data-parallel over "
-                    f"{P22['processes']} processes")
+                    f"{P22['processes']} processes, then each of tensor, "
+                    f"expert ({P22_AXES[1][1]}), data ({P22_AXES[1][1]}) "
+                    f"and stage across them")
                 p22 = dist_phase(torch, tatt, dev)
                 log(f"  phase 22: {p22['seconds']:.1f} s, "
                     f"{p22['llama']['launches_per_step']} B1 launches a step "
-                    f"in each process")
+                    f"in each process at data=2; across: " + ", ".join(
+                        f"{k} {r['launches_per_step']}"
+                        for k, r in p22["axes"].items()
+                        if isinstance(r, dict)))
                 _free(torch, dev)
 
         if run(23):
@@ -9518,6 +9809,18 @@ def main() -> int:
         dist_bound_ms=p22["kernel"]["bound_ms"],
         dist_bound_by=p22["kernel"]["bound_by"],
         dist_max_abs_err=p22["kernel"]["max_abs_err"],
+        dist_tp_case=p22["kernel_tp"]["name"],
+        dist_tp_ms=p22["kernel_tp"]["ms"],
+        dist_tp_ms_min=p22["kernel_tp"]["ms_min"],
+        dist_tp_ms_max=p22["kernel_tp"]["ms_max"],
+        dist_tp_plain_ms=p22["kernel_tp"]["plain_ms"],
+        dist_tp_library_ms=p22["kernel_tp"]["library_ms"],
+        dist_tp_bound_ms=p22["kernel_tp"]["bound_ms"],
+        dist_tp_bound_by=p22["kernel_tp"]["bound_by"],
+        dist_tp_max_abs_err=p22["kernel_tp"]["max_abs_err"],
+        dist_axes_launches_per_step={
+            k: r["launches_per_step"] for k, r in p22["axes"].items()
+            if isinstance(r, dict)},
         dp_cases=[{k: c[k] for k in (
             "name", "ms", "ms_min", "ms_max", "plain_ms", "library_ms",
             "bound_ms", "bound_by", "max_abs_err")}
@@ -9529,7 +9832,8 @@ def main() -> int:
         max_abs_err=max([c["max_abs_err"] for c in cases + p19["kernels"]]
                         + [p15["kernel"]["max_abs_err"],
                            p18["attention"]["max_abs_err"],
-                           p22["kernel"]["max_abs_err"]]),
+                           p22["kernel"]["max_abs_err"],
+                           p22["kernel_tp"]["max_abs_err"]]),
         ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
         bound_by=head["bound_by"], library_ms=head["library_ms"],
         ms_min=head["ms_min"], ms_max=head["ms_max"],

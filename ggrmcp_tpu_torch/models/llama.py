@@ -33,6 +33,8 @@ from ggrmcp_tpu_torch.parallel.collectives import (
     all_gather,
     all_reduce_sum,
     block_product,
+    coords_group,
+    copy_in,
     gather_batch,
     is_split,
     local,
@@ -903,7 +905,15 @@ def forward_tp(
     lps)` replaces the dense FFN (the MoE family's expert-parallel bank,
     which routes every block's rows at once) and sets each block's
     activations. `lora_idx` [B]: each row's adapter (the factors split
-    like wqkv's columns)."""
+    like wqkv's columns).
+
+    On a mesh over processes (training) `tokens` are this process's
+    rows (`mesh.process_rows`) and it computes its own coordinates only:
+    its data blocks, its tensor shards of each (a block's `group` the
+    processes holding the others, reached by the collectives), and an
+    axis it replicates (sequence, a dense model's expert) at its own
+    index of it (`Mesh.home`): each process computes its replica and
+    reduces nothing over that axis."""
     mesh = params["layers"]["attn_norm"].mesh
     b, s = tokens.shape
     splits = mesh_mod.data_blocks(mesh, b)
@@ -916,6 +926,7 @@ def forward_tp(
     blocks = []
     for rows, at in splits:
         coords, devs = tensor_coords(mesh, **at)
+        group = coords_group(mesh, coords)
 
         def each(t):
             return ([None] * len(devs) if t is None
@@ -924,16 +935,16 @@ def forward_tp(
         blocks.append(Block(
             at, coords,
             _vocab_embed(params["embed"], tokens[rows], cfg.torch_dtype,
-                         coords, devs),
+                         coords, devs, group),
             each(positions), each(None if cache is None else cache.length),
             each(cache.table if paged else None), each(lora_idx),
-            rows if whole else None))
+            rows if whole else None, group))
     blocks = tp_layers(params["layers"], cfg, blocks, range(cfg.num_layers),
                        cache, use_flash=use_flash, ring=ring, ffn=ffn,
                        attn_impl=attn_impl)
     if cache is not None:
         cache.length = cache.length + s
-    return gather_batch([tp_head(params, cfg, blk.xs, blk.coords)
+    return gather_batch([tp_head(params, cfg, blk.xs, blk.coords, blk.group)
                          for blk in blocks]), cache
 
 
@@ -954,7 +965,9 @@ class Block:
     lengths, block tables and adapter ids (None entries where absent).
     `rows`: the rows of the cache's parts it reads and writes when those
     parts hold more than its rows (a pipeline microbatch, a cache the
-    data blocks do not split); None = the whole part."""
+    data blocks do not split); None = the whole part. `group`: the
+    other processes holding tensor shards of the block (None: this
+    process holds them all); the entries of their shards are None."""
 
     at: dict
     coords: list[int]
@@ -964,14 +977,24 @@ class Block:
     tables: list
     lora: list
     rows: Optional[slice] = None
+    group: Optional[object] = None
 
 
 def tensor_coords(mesh, **fixed: int) -> tuple[list[int], list]:
-    """The flat coordinates of the tensor shards at index `fixed` (0 for
-    any axis not named) on every other axis, and their devices."""
-    coords = [mesh.index(**{**fixed, "tensor": i})
+    """The flat coordinates of the tensor shards at index `fixed` on
+    every other axis (this process's own index, `Mesh.home`, for any
+    axis not named: 0 on a mesh of one process), and their devices
+    (None for another process's shard)."""
+    at = {**mesh.home, **fixed}
+    coords = [mesh.index(**{**at, "tensor": i})
               for i in range(mesh.shape["tensor"])]
-    return coords, [mesh.devices[c] for c in coords]
+    return coords, [mesh.devices[c] if mesh.is_local(c) else None
+                    for c in coords]
+
+
+def _first(xs: list) -> int:
+    """The index of the first entry this process holds."""
+    return next(i for i, x in enumerate(xs) if x is not None)
 
 
 def tp_layers(layers, cfg: LlamaConfig, blocks: list[Block], layer_ids,
@@ -1003,15 +1026,39 @@ def tp_layers(layers, cfg: LlamaConfig, blocks: list[Block], layer_ids,
             part = quant.kv_map(lambda x: x[rows], part)
         return part
 
-    def norm(xs, lps, name):
-        return per_device(lambda x, w: common.rms_norm(x, w, cfg.norm_eps),
-                          xs, [lp[name] for lp in lps])
+    def norm(xs, lps, name, group=None):
+        out = per_device(lambda x, w: common.rms_norm(x, w, cfg.norm_eps),
+                         xs, [None if lp is None else lp[name] for lp in lps])
+        if group is None:
+            return out
+        # A split block's input over processes: the shards this process
+        # holds share its one device, so one tensor, whose gradient the
+        # group sums (`copy_in`).
+        y = copy_in(out[_first(out)], group)
+        return [None if o is None else y for o in out]
+
+    def at_layer(layer, c, views):
+        if local(layers["attn_norm"], c) is None:
+            return None  # another process's coordinate
+        # One view a stored tensor: the shards on a device share their
+        # replicated leaves' views, so `per_device` computes a norm once
+        # a device and its gradient reaches the leaf once.
+        out = {}
+        for name, w in layers.items():
+            part = local(w, c)
+            key = (name, id(getattr(part, "q", part)))
+            if key not in views:
+                views[key] = _at(layer, part)
+            out[name] = views[key]
+        return out
 
     for layer in layer_ids:
-        lps = [[{name: _at(layer, local(w, c)) for name, w in layers.items()}
-                for c in blk.coords] for blk in blocks]
+        views: dict = {}
+        lps = [[at_layer(layer, c, views) for c in blk.coords]
+               for blk in blocks]
         for blk, lp in zip(blocks, lps):
-            normed = norm(blk.xs, lp, "attn_norm")
+            normed = norm(blk.xs, lp, "attn_norm",
+                          blk.group if split_attn else None)
 
             def attn(i):
                 c = blk.coords[i]
@@ -1026,36 +1073,49 @@ def tp_layers(layers, cfg: LlamaConfig, blocks: list[Block], layer_ids,
                     use_flash, blk.tables[i], blk.lora[i], ring, kv_heads[i],
                     partial_attn, attn_impl=impl)
 
-            blk.xs = per_device(_residual, blk.xs,
-                                block_product(blk.xs, split_attn, attn))
+            blk.xs = per_device(_residual, blk.xs, block_product(
+                blk.xs, split_attn, attn, blk.group))
         if ffn is not None:
             ffn(layer, blocks, lps)
             continue
         for blk, lp in zip(blocks, lps):
-            normed = norm(blk.xs, lp, "mlp_norm")
+            normed = norm(blk.xs, lp, "mlp_norm",
+                          blk.group if split_ffn else None)
+            # A view a shard: the gradients of a shard's two products sum
+            # before the shards' do, in one process as across processes.
             blk.xs = per_device(_residual, blk.xs, block_product(
                 blk.xs, split_ffn,
-                lambda i: swiglu(normed[i], lp[i], partial_ffn)))
+                lambda i: swiglu(normed[i].view_as(normed[i]), lp[i],
+                                 partial_ffn), blk.group))
     return blocks
 
 
 def tp_head(params: Params, cfg: LlamaConfig, xs: list,
-            coords: list[int]) -> torch.Tensor:
+            coords: list[int], group=None) -> torch.Tensor:
     """The final norm and the vocab-parallel lm_head at `coords`: whole
     float32 logits on the first shard's device (a whole lm_head's, of
-    the first shard alone)."""
+    the first shard alone; over processes, of the first shard this
+    process holds). `group`: the processes holding the other shards,
+    whose vocab blocks are gathered."""
     if not is_split(params["lm_head"], -1):
-        coords, xs = coords[:1], xs[:1]
+        i = _first(xs)
+        coords, xs, group = coords[i:i + 1], xs[i:i + 1], None
     finals = [local(params["final_norm"], c) for c in coords]
     xs = per_device(lambda x, w: common.rms_norm(x, w, cfg.norm_eps), xs,
                     finals)
+    if group is not None:
+        y = copy_in(xs[_first(xs)], group)
+        xs = [None if x is None else y for x in xs]
     blocks = []
     for x, c in zip(xs, coords):
+        if x is None:
+            blocks.append(None)
+            continue
         head = local(params["lm_head"], c)
         if not isinstance(head, QuantizedTensor):
             head = head.to(cfg.torch_dtype)
         blocks.append(quant.matmul(x, head))
-    return all_gather(blocks, dim=-1).float()
+    return all_gather(blocks, dim=-1, group=group).float()
 
 
 def _residual(x: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
@@ -1064,24 +1124,31 @@ def _residual(x: torch.Tensor, total: torch.Tensor) -> torch.Tensor:
 
 
 def _vocab_embed(embed, tokens: torch.Tensor, dtype: torch.dtype,
-                 coords: list[int], devs: list) -> list[torch.Tensor]:
+                 coords: list[int], devs: list,
+                 group=None) -> list[torch.Tensor]:
     """Vocab-parallel embedding: each shard looks up the tokens its row
     block holds, zeros elsewhere, and the blocks are summed (exactly:
-    one shard holds each row). A whole table is looked up once, by the
-    first shard, and replicated. Returns the activations per shard."""
+    one shard holds each row; over `group` too when other processes
+    hold shards). A whole table is looked up once, by the first shard
+    this process holds, and replicated. Returns the activations per
+    shard (None for another process's)."""
     if not is_split(embed, -2):
-        table = local(embed, coords[0])
+        i = _first(devs)
+        table = local(embed, coords[i])
         return replicate(quant.embed_lookup(
-            table, tokens.long().to(devs[0]), dtype), devs)
+            table, tokens.long().to(devs[i]), dtype), devs)
     partials = []
     for i, (c, dev) in enumerate(zip(coords, devs)):
+        if dev is None:
+            partials.append(None)
+            continue
         table = local(embed, c)
         rows = table.shape[0]
         tok = tokens.long().to(dev) - i * rows
         ok = (tok >= 0) & (tok < rows)
         e = quant.embed_lookup(table, torch.where(ok, tok, 0), dtype)
         partials.append(torch.where(ok[..., None], e, torch.zeros_like(e)))
-    return all_reduce_sum(partials)
+    return all_reduce_sum(partials, group)
 
 
 def num_params(cfg: LlamaConfig) -> int:

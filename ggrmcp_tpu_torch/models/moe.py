@@ -31,6 +31,19 @@ mesh (`param_specs`, `moe_ffn_sharded`).
   shards run their experts' rows of the one assignment, for the block's
   own tokens, through their slice of the banks, and one all-reduce over
   the block's expert x tensor coordinates sums the weighted outputs.
+- Over processes (training on a mesh of parallel/distributed.py's
+  `global_mesh`) the routing stays batch-global: a process routes its
+  own rows, each pair's slot counts the pairs of the processes before it
+  in batch order (an all-gather of their per-expert counts over the
+  batch axes' group), the capacity is that of the global token count,
+  and the aux loss takes its fractions and mean probabilities over the
+  global batch (sums over that group; the mean probability's gradient
+  summed back over it, each process's loss carrying its rows' share).
+  A bank split over processes (expert, or expert x tensor) runs each
+  process's experts on the block's tokens, which every process of the
+  block holds, and one all-reduce over their group sums the weighted
+  outputs; the tokens and the combine weights enter it by `copy_in`, so
+  each process holds the whole gradient of both.
 """
 
 from __future__ import annotations
@@ -46,12 +59,19 @@ from ggrmcp_tpu_torch.models import llama
 from ggrmcp_tpu_torch.models.llama import KVCache, LlamaConfig  # noqa: F401
 from ggrmcp_tpu_torch.ops import quant
 from ggrmcp_tpu_torch.ops.quant import QuantizedTensor
+from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
 from ggrmcp_tpu_torch.parallel.collectives import (
     all_reduce_sum,
+    axis_group,
+    coords_group,
+    copy_in,
     gather_batch,
     local,
     per_device,
+    process_gather,
+    process_sum,
     replicate,
+    sum_across,
 )
 
 Params = common.Params
@@ -196,12 +216,13 @@ def _capacity(cfg: MoEConfig, num_tokens: int) -> int:
 
 def _assign(
     x: torch.Tensor, router: torch.Tensor, cfg: MoEConfig, capacity: int,
-    valid: Optional[torch.Tensor],
+    valid: Optional[torch.Tensor], group=None,
 ):
     """The routing decisions of [T, D] tokens: (probs [T, E] float32,
     renormalised top-k probabilities [T, K], expert ids [T, K], slots
     [T, K], kept [T, K]: the pair is a real token's and within
-    capacity)."""
+    capacity). `group`: the processes holding the batch's other rows,
+    whose pairs before this process's count in every slot."""
     t = x.shape[0]
     e, k = cfg.num_experts, cfg.experts_per_token
     probs = torch.softmax(x.float() @ router.float(), dim=-1)  # [T, E]
@@ -216,6 +237,10 @@ def _assign(
     # count over the flattened (token-major, k fastest) order.
     flat = onehot.reshape(t * k, e)
     pos = torch.cumsum(flat, dim=0) - flat
+    if group is not None:
+        counts = process_gather(flat.sum(0), group)  # [ranks, E]
+        mine = torch.distributed.get_rank(group)
+        pos = pos + counts[:mine].sum(0)
     slot = (pos * flat).sum(-1).reshape(t, k)
     kept = slot < capacity
     if valid is not None:
@@ -244,10 +269,18 @@ def route(
 
 
 def _aux_loss(probs: torch.Tensor, cfg: MoEConfig,
-              valid: Optional[torch.Tensor]) -> torch.Tensor:
+              valid: Optional[torch.Tensor], group=None) -> torch.Tensor:
     """Switch-style load-balance loss E · <fraction routed, mean prob>,
-    over valid tokens only."""
+    over valid tokens only. `group`: the processes holding the batch's
+    other rows; the fractions and means are then the global batch's."""
     top1 = F.one_hot(probs.argmax(-1), cfg.num_experts).float()
+    if group is not None:
+        w = (torch.ones_like(probs[:, :1]) if valid is None
+             else valid.reshape(-1, 1).float())
+        denom = torch.clamp(process_sum((w.sum()), group), min=1.0)
+        frac = process_sum((top1 * w).sum(0), group) / denom
+        mean_prob = sum_across((probs * w).sum(0), group) / denom
+        return cfg.num_experts * torch.sum(frac * mean_prob)
     if valid is not None:
         w = valid.reshape(-1, 1).float()
         denom = torch.clamp(w.sum(), min=1.0)
@@ -352,13 +385,19 @@ def moe_ffn_sharded(
     e, k = cfg.num_experts, cfg.experts_per_token
     xt = x.reshape(t, d)
     vt = valid.reshape(t).to(x.device) if valid is not None else None
-    capacity = _capacity(cfg, t)
-    first = mesh.index(**ats[0])
+    # Over processes the batch's other rows are other processes' (the
+    # same count each): routing counts them through this group.
+    rows = (axis_group(mesh, mesh_mod.BATCH_AXES) if mesh.spans_processes
+            else None)
+    n_rows = 1 if rows is None else torch.distributed.get_world_size(rows)
+    capacity = _capacity(cfg, t * n_rows)
+    home = mesh.home
+    first = mesh.index(**{**home, **ats[0]})
     router = llama._at(layer, local(layers["router"], first)).to(x.device)
     probs, topk_p, topk_i, slot, kept = _assign(xt, router, cfg, capacity,
-                                                vt)
+                                                vt, rows)
     if auxes is not None:
-        auxes.append(_aux_loss(probs, cfg, vt))
+        auxes.append(_aux_loss(probs, cfg, vt, rows))
     scratch = e * capacity
     w = torch.where(kept, topk_p, 0.0).to(x.dtype).float()
     # A bank the expert axis (tensor) does not split is held whole over
@@ -370,34 +409,41 @@ def moe_ffn_sharded(
     outs, lo_t = [], 0
     for xb, at in zip(xs, ats):
         hi_t = lo_t + xb.shape[0] * s
+        coords = [mesh.index(**{**home, **at, "expert": ex, "tensor": tt})
+                  for ex in range(n_ex) for tt in range(n_t)]
+        group = coords_group(mesh, coords)
+        xin, wb = copy_in(xt, group), copy_in(w[lo_t:hi_t], group)
         mine_t = kept & (token >= lo_t) & (token < hi_t)
         dest = torch.where(mine_t, topk_i * capacity + slot,
                            scratch).reshape(-1)
         expert_in = xt.new_zeros((scratch + 1, d))
-        expert_in.index_copy_(0, dest, xt.repeat_interleave(k, dim=0))
+        expert_in.index_copy_(0, dest, xin.repeat_interleave(k, dim=0))
         dest = dest[lo_t * k:hi_t * k]
-        wb = w[lo_t:hi_t]
         partials = []
-        for ex in range(n_ex):
-            for tt in range(n_t):
-                c = mesh.index(**{**at, "expert": ex, "tensor": tt})
-                dev = mesh.devices[c]
-                lo = ex * per_shard * capacity
-                hi = lo + per_shard * capacity
-                banks = {name: llama._at(layer, local(layers[name], c))
-                         for name in ("w_gate", "w_up", "w_down")}
-                rows = expert_in[lo:hi].to(dev).view(per_shard, capacity, d)
-                out = _experts(rows, banks).reshape(hi - lo, d)
-                mine = ((dest >= lo) & (dest < hi)).to(dev)
-                idx = torch.where(mine, dest.to(dev) - lo, 0)
-                gathered = torch.where(mine[:, None], out[idx],
-                                       torch.zeros_like(out[:1]))
-                partials.append((gathered.view(hi_t - lo_t, k, d).float()
-                                 * wb.to(dev)[..., None]).sum(1))
-        total = all_reduce_sum(partials)[0].to(x.dtype).view(
+        for c in coords:
+            if not mesh.is_local(c):
+                partials.append(None)
+                continue
+            dev = mesh.devices[c]
+            ex = mesh.coord(c)["expert"]
+            lo = ex * per_shard * capacity
+            hi = lo + per_shard * capacity
+            banks = {name: llama._at(layer, local(layers[name], c))
+                     for name in ("w_gate", "w_up", "w_down")}
+            rows_in = expert_in[lo:hi].to(dev).view(per_shard, capacity, d)
+            out = _experts(rows_in, banks).reshape(hi - lo, d)
+            mine = ((dest >= lo) & (dest < hi)).to(dev)
+            idx = torch.where(mine, dest.to(dev) - lo, 0)
+            gathered = torch.where(mine[:, None], out[idx],
+                                   torch.zeros_like(out[:1]))
+            partials.append((gathered.view(hi_t - lo_t, k, d).float()
+                             * wb.to(dev)[..., None]).sum(1))
+        summed = all_reduce_sum(partials, group)
+        total = summed[llama._first(summed)].to(x.dtype).view(
             xb.shape[0], s, d)
         devs = llama.tensor_coords(mesh, **at)[1]
-        outs.append(dict(zip(devs, replicate(total, devs))))
+        outs.append({dev: out for dev, out in zip(devs, replicate(total, devs))
+                     if dev is not None})
         lo_t = hi_t
     return outs
 
@@ -412,14 +458,18 @@ def sharded_ffn(layers: Params, cfg: MoEConfig,
 
     def ffn(layer, blocks, lps):
         eps = cfg.norm_eps
-        normed = [per_device(lambda x, w: common.rms_norm(x, w, eps),
-                             blk.xs, [lp["mlp_norm"] for lp in lp_b])[0]
-                  for blk, lp_b in zip(blocks, lps)]
+        normed = []
+        for blk, lp_b in zip(blocks, lps):
+            each = per_device(lambda x, w: common.rms_norm(x, w, eps),
+                              blk.xs, [None if lp is None else lp["mlp_norm"]
+                                       for lp in lp_b])
+            normed.append(each[llama._first(each)])
         outs = moe_ffn_sharded(normed, layers, layer, cfg, valid, auxes,
                                [blk.at for blk in blocks])
         for blk, out in zip(blocks, outs):
             blk.xs = per_device(torch.add, blk.xs,
-                                [out[x.device] for x in blk.xs])
+                                [None if x is None else out[x.device]
+                                 for x in blk.xs])
 
     return ffn
 

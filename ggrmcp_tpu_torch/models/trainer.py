@@ -205,8 +205,8 @@ def state_tensors(state: training.TrainState, cfg) -> tuple[dict, dict]:
         params[name] = _whole(leaf, name, spec, cfg)
         parts = leaf.parts if isinstance(leaf, Sharded) else (leaf,)
         for m in checkpoint.MOMENTS:
-            held = tuple(state.optimizer.state[p].get(m, torch.zeros_like(p))
-                         for p in parts)
+            held = tuple(None if p is None else state.optimizer.state[p].get(
+                m, torch.zeros_like(p)) for p in parts)
             moment = (Sharded(held, leaf.factors, leaf.mesh, leaf.full)
                       if isinstance(leaf, Sharded) else held[0])
             moments[f"{m}.{name}"] = _whole(moment, name, spec, cfg)

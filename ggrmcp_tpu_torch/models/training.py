@@ -31,17 +31,27 @@
   blocks' gradients sum to the unsharded gradient. `fsdp` shards the
   batch as `data` does: the reference's specs shard no weight over it.
 - On a mesh over several processes (parallel/distributed.py
-  `global_mesh`), each process places the params on its own coordinates
-  (`Mesh.local()`) and runs the forward and backward of its rows of the
-  global batch (`mesh.process_rows`), its loss that of its rows' tokens
-  over the global batch's token count. Its gradients, tied within the
-  process first, are then summed over the processes
-  (`collectives.all_reduce_grads`), so every process's AdamW sees the
-  same gradients, those of one mean over the global batch's tokens, and
-  its replica stays the others'; the loss returned is the global one.
-  The sparse-MoE family's aux term is a function of the global batch's
-  routing, which no process sees: it is refused there, as is a stage
-  axis (the pipeline's own step reduces nothing across processes).
+  `global_mesh`), where any axis may cross processes, each process
+  places the params on its own coordinates and runs the forward and
+  backward of its rows of the global batch (`mesh.process_rows`) at
+  them; the collectives reach the other processes' coordinates
+  (parallel/collectives.py). Its loss is that of its rows' tokens over
+  the global batch's token count (the MoE aux term, a function of the
+  global batch's routing, times the same share), so the losses of the
+  processes holding different rows add up to the global mean. A tensor
+  or expert group's processes hold the same rows and the same loss:
+  their split products give each of them the whole gradient of what
+  they replicate (`copy_in`). The sequence axis (and a dense model's
+  expert axis) is computed once per process, at its own index: each
+  process computes its replica and reduces nothing over it. The
+  gradients are then summed over the processes holding other rows (the
+  batch axes' group, `collectives.all_reduce_grads`), and a leaf the
+  stage axis replicates (the embedding, the final norm, the lm_head,
+  which one stage computes) over the stages' processes too; so every
+  process's AdamW sees the gradient of one mean over the global batch's
+  tokens and its replicas stay the others'. The loss returned is the
+  global one, on every process. A stage axis over processes is the
+  pipeline's hops as sends and receives (parallel/pipeline.py).
 - `TrainState` is mutable: `train_step` advances it in place.
 """
 
@@ -60,8 +70,11 @@ from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
 from ggrmcp_tpu_torch.parallel.collectives import (
     Sharded,
     all_reduce_grads,
+    axis_group,
+    group_for,
     process_sum,
     sum_tied_grads,
+    wait_sends,
 )
 
 Params = common.Params
@@ -92,14 +105,19 @@ def next_token_xent(logits: torch.Tensor,
 
 
 def lm_loss(params: Params, cfg: llama_mod.LlamaConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
+            tokens: torch.Tensor,
+            use_flash: Optional[bool] = None) -> torch.Tensor:
     """Next-token cross entropy over [B, S] with shift-by-one targets,
-    plus the MoE router's weighted load-balance loss."""
+    plus the MoE router's weighted load-balance loss. `use_flash`: the
+    forward's attention choice (None = auto, False = the plain
+    attention)."""
     if isinstance(cfg, moe_mod.MoEConfig):
-        logits, _, aux = moe_mod.forward_with_aux(params, cfg, tokens[:, :-1])
+        logits, _, aux = moe_mod.forward_with_aux(
+            params, cfg, tokens[:, :-1], use_flash=use_flash)
         return (next_token_xent(logits, tokens[:, 1:])
                 + cfg.router_aux_weight * aux.to(logits.device))
-    logits, _ = llama_mod.forward(params, cfg, tokens[:, :-1])
+    logits, _ = llama_mod.forward(params, cfg, tokens[:, :-1],
+                                  use_flash=use_flash)
     return next_token_xent(logits, tokens[:, 1:])
 
 
@@ -164,17 +182,8 @@ def make_train_state(
     (exp_avg, exp_avg_sq) trees of the tree's shapes, with `step` the
     count of updates they hold (a resumed or carried state). On a mesh
     over processes, this process's coordinates only."""
-    whole_mesh = mesh
     if mesh is not None and mesh.spans_processes:
-        if isinstance(cfg, moe_mod.MoEConfig):
-            raise ValueError(
-                f"{cfg.name} over {len(set(mesh.owners))} processes: the "
-                f"router's aux loss is a function of the global batch's "
-                f"routing, which no process sees")
-        mesh = mesh.local()
-        if mesh_mod.axis_size(mesh, "stage") > 1:
-            raise ValueError("a stage axis over processes: the pipeline's "
-                             "step reduces no gradient across processes")
+        check_across(cfg, mesh)
     specs = mesh_specs(cfg, mesh)
     if specs is not None:
         params = llama_mod.shard_params(params, cfg, mesh, specs)
@@ -197,7 +206,23 @@ def make_train_state(
                     "exp_avg": a.to(p.device, p.dtype),
                     "exp_avg_sq": sq.to(p.device, p.dtype),
                 }
-    return TrainState(params, optimizer, step, specs, whole_mesh)
+    return TrainState(params, optimizer, step, specs, mesh)
+
+
+def check_across(cfg: llama_mod.LlamaConfig, mesh: mesh_mod.Mesh) -> None:
+    """Refuse what a mesh over processes cannot train, the same on every
+    process: the replicated KV heads of a tensor axis that does not
+    divide them, split over processes (each shard's gradient of those
+    columns is summed within one process only)."""
+    t = mesh.shape["tensor"]
+    if (t > 1 and cfg.num_kv_heads % t
+            and "attn" not in llama_mod.whole_blocks(cfg, t)
+            and len(mesh_mod.axis_ranks(mesh, ("tensor",))) > 1):
+        raise ValueError(
+            f"{cfg.name} at tensor={t} over processes: {cfg.num_kv_heads} "
+            f"KV heads replicated on every shard, whose gradients are tied "
+            f"across processes; keep the tensor axis in one process or "
+            f"make it divide the KV heads")
 
 
 def init_train_state(
@@ -250,17 +275,52 @@ def train_step(
     if spans:
         rows = mesh_mod.process_rows(mesh, tokens.shape[0])
         # Its rows' mean over the global batch: every row has as many
-        # tokens, so the processes' losses add up to the global mean.
+        # tokens, so the losses of the processes holding different rows
+        # add up to the global mean.
         share = (rows.stop - rows.start) / tokens.shape[0]
         loss = (loss_fn or lm_loss)(state.params, cfg, tokens[rows]) * share
     else:
         loss = (loss_fn or lm_loss)(state.params, cfg, tokens)
     loss.backward()
+    if spans:
+        wait_sends()
     if state.specs is not None:
         _tie_grads(state.params, state.specs, cfg)
     if spans:
-        all_reduce_grads(stored_tensors(state.params))
-        loss = process_sum(loss)
+        _reduce_across(state.params, mesh)
+        group = axis_group(mesh, _LOSS_AXES)
+        if group is not None:
+            loss = process_sum(loss, group)
     state.optimizer.step()
     state.step += 1
     return state, loss.detach()
+
+
+# The processes whose losses add up to the global one: those holding
+# other rows, and other stages (the loss is formed on the last).
+_LOSS_AXES = (*mesh_mod.BATCH_AXES, "stage")
+
+
+def _reduce_across(params: Params, mesh: mesh_mod.Mesh) -> None:
+    """Sum each stored tensor's gradient over the processes that hold
+    its block and computed a different part of it: the batch axes'
+    group, and for a leaf the stage axis replicates (one stage uses it)
+    the stages' processes too. A tensor no backward reached takes a zero
+    gradient, so every process of a group reduces the same buckets."""
+    by_group: dict = {}
+    for _, leaf in named_leaves(params):
+        staged = isinstance(leaf, Sharded) and "stage" in {
+            n for e in (leaf.spec or ()) if e is not None
+            for n in (e if isinstance(e, tuple) else (e,))}
+        axes = mesh_mod.BATCH_AXES if staged else _LOSS_AXES
+        ranks = mesh_mod.axis_ranks(mesh, axes)
+        for t in _parts(leaf):
+            if t.grad is None:
+                t.grad = torch.zeros_like(t)
+            by_group.setdefault(ranks, {})[id(t)] = t
+    # The wider group first: every process then meets its groups in one
+    # order (a batch group lies inside its batch-and-stage group).
+    for ranks in sorted(by_group, key=lambda r: (-len(r), r)):
+        if len(ranks) > 1:
+            all_reduce_grads(list(by_group[ranks].values()),
+                             group_for(mesh, ranks))

@@ -2,13 +2,18 @@
 `ggrmcp_tpu/parallel/distributed.py`.
 
 The reference joins JAX's multi-controller runtime and builds a mesh
-over every process's devices. Here `initialize` joins a
+over every process's devices, and XLA inserts the collectives for any
+axis that crosses processes. Here `initialize` joins a
 `torch.distributed` process group, and `global_mesh` builds the port's
 mesh (parallel/mesh.py) over every process's devices, each coordinate
-tagged with the process that owns it; training over it
-(models/training.py `train_step`) sums the gradients over processes
-(parallel/collectives.py `process_sum`, `all_reduce_grads`). Like the
-reference, neither the `train` CLI nor the sidecar calls `initialize`.
+tagged with the process that owns it, then forms one process group per
+set of processes a collective spans (`mesh.axis_ranks` along the batch
+axes, tensor, expert, expert x tensor, sequence and stage, and the batch
+axes with stage), created in one order on every process. Training over
+it (models/training.py `train_step`) runs each process's coordinates
+and reaches the others' through those groups (parallel/collectives.py).
+Like the reference, neither the `train` CLI nor the sidecar calls
+`initialize`.
 
 The backend follows from where a process computes, decided before the
 group forms and the same in every process:
@@ -19,11 +24,15 @@ group forms and the same in every process:
   card index (`device=None` or "cuda") takes `cuda:<process_id>` of its
   host, which must exist.
 A group that cannot form raises; nothing drops to another backend or to
-the CPU.
+the CPU. Every collective, of the default group and of every group
+`global_mesh` forms, waits at most `TIMEOUT_S`, so a process whose peer
+died raises instead of hanging.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import datetime
 import logging
 import os
 from typing import Optional, Sequence
@@ -38,6 +47,15 @@ logger = logging.getLogger("ggrmcp.torch.parallel.distributed")
 
 # The device this process computes on once `initialize` joined a group.
 _device: Optional[torch.device] = None
+
+# Seconds a collective of any group waits before it raises.
+TIMEOUT_S = 600.0
+
+# The axis sets whose collectives may cross processes, in the order
+# `global_mesh` forms their groups.
+GROUP_AXES = (mesh_mod.BATCH_AXES, ("tensor",), ("expert",),
+              ("expert", "tensor"), ("sequence",), ("stage",),
+              (*mesh_mod.BATCH_AXES, "stage"))
 
 
 def placement(device: DeviceLike, process_id: int) -> tuple[str, str]:
@@ -101,7 +119,8 @@ def initialize(
         torch.cuda.set_device(dev)
     torch.distributed.init_process_group(
         backend=backend, init_method=f"tcp://{coordinator_address}",
-        world_size=num_processes, rank=process_id)
+        world_size=num_processes, rank=process_id,
+        timeout=datetime.timedelta(seconds=TIMEOUT_S))
     _device = dev
     logger.info("joined the process group: process %d/%d on %s, %s",
                 process_id, num_processes, dev, backend)
@@ -120,19 +139,52 @@ def global_mesh(cfg: Optional[MeshConfig] = None,
     """Mesh over every process's devices, sized by the global count, with
     the reference's axis layout: `devices` are this process's (default
     its `initialize` device; every card without a group), gathered from
-    every process in rank order. Processes own whole data blocks, so the
-    inferred axis, data, crosses them."""
+    every process in rank order, so processes own consecutive
+    coordinates and any axis may cross them. The configuration and the
+    layout are checked on every process before the first collective
+    (the same arguments give the same refusal everywhere); then the
+    groups of `GROUP_AXES` form (`Mesh.groups`)."""
     dist = torch.distributed
     if not (dist.is_available() and dist.is_initialized()):
         return mesh_mod.build_mesh(cfg, devices)
     mine = [str(torch.device(d)) for d in
             (devices if devices is not None else [local_device()])]
-    everyone: list = [None] * dist.get_world_size()
+    world, rank = dist.get_world_size(), dist.get_rank()
+    sizes = mesh_mod.resolve_axis_sizes(cfg or MeshConfig(),
+                                        world * len(mine))
+    mesh_mod.check_owners([sizes[a] for a in mesh_mod.AXES],
+                          [p for p in range(world) for _ in mine])
+    everyone: list = [None] * world
     dist.all_gather_object(everyone, mine)
     if len({len(ds) for ds in everyone}) > 1:
         raise ValueError(f"processes hold different device counts: "
                          f"{everyone}")
-    return mesh_mod.build_mesh(
+    mesh = mesh_mod.build_mesh(
         cfg, [d for ds in everyone for d in ds],
-        owners=[p for p, ds in enumerate(everyone) for _ in ds],
-        rank=dist.get_rank())
+        owners=[p for p, ds in enumerate(everyone) for _ in ds], rank=rank)
+    return dataclasses.replace(mesh, groups=form_groups(mesh))
+
+
+def form_groups(mesh: mesh_mod.Mesh) -> dict:
+    """One process group per set of processes a collective over an axis
+    set of `GROUP_AXES` spans, each created once, in one order, on every
+    process (`new_group` is collective: a process outside a group takes
+    part in its creation too), each with the default group's timeout;
+    the whole world is the default group.
+    Returns ranks -> group for this process's groups."""
+    dist = torch.distributed
+    world = tuple(range(dist.get_world_size()))
+    sets = set()
+    for axes in GROUP_AXES:
+        for p in world:
+            ranks = mesh_mod.axis_ranks(
+                dataclasses.replace(mesh, rank=p), axes)
+            if 1 < len(ranks) < len(world):
+                sets.add(ranks)
+    groups = {world: dist.group.WORLD}
+    for ranks in sorted(sets):
+        group = dist.new_group(
+            list(ranks), timeout=datetime.timedelta(seconds=TIMEOUT_S))
+        if mesh.rank in ranks:
+            groups[ranks] = group
+    return groups

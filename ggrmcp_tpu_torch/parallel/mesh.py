@@ -11,11 +11,16 @@ or any number on the CPU.
 
 A mesh over several processes (parallel/distributed.py's `global_mesh`,
 the reference's multi-controller mesh) also names the process that owns
-each coordinate. Processes split it along the batch axes only (data x
-fsdp, the leading axes, so each process owns whole data blocks in a
-row), and each builds, places and computes its own coordinates:
-`Mesh.local()` is its share as a mesh of its own, `process_rows` its
-rows of a global batch. A mesh of one process behaves as before.
+each coordinate. Processes own consecutive flat coordinates, as many
+each (the reference's process-major reshape of `jax.devices()`), so a
+process holds a box of the mesh: one index on each axis before the one
+its share splits, a run of that axis, every index of the axes after it.
+Any axis may cross processes. Each process builds, places and computes
+its own coordinates only, one device a process: `Mesh.home` is the
+corner of its box (where it computes an axis it replicates), `local()`
+its box as a mesh of its own, `process_rows` its rows of a global
+batch, `axis_ranks` the processes a collective over some axes spans. A
+mesh of one process behaves as before.
 
 A spec is a tuple with one entry per array dim: None (replicated), an
 axis name, or a tuple of axis names (the dim split over their product),
@@ -54,6 +59,10 @@ class Mesh:
     # None: this process owns every coordinate.
     owners: Optional[tuple[int, ...]] = None
     rank: int = 0
+    # Ranks -> the process group of those processes, for this process's
+    # collectives (parallel/distributed.py `global_mesh`).
+    groups: Optional[dict] = dataclasses.field(default=None, compare=False,
+                                               repr=False)
 
     @property
     def shape(self) -> dict[str, int]:
@@ -70,19 +79,30 @@ class Mesh:
         """The flat coordinates this process owns, in order."""
         return [i for i in range(self.size) if self.is_local(i)]
 
+    @property
+    def home(self) -> dict[str, int]:
+        """The first coordinate this process owns (the corner of its
+        box; index 0 on every axis for a mesh of one process)."""
+        if self.owners is None:
+            return dict.fromkeys(AXES, 0)
+        return self.coord(self.owners.index(self.rank))
+
+    def box(self, rank: int) -> tuple[tuple[int, int], ...]:
+        """The [first, last] index on each axis of process `rank`'s
+        coordinates."""
+        first = self.owners.index(rank)
+        last = len(self.owners) - 1 - self.owners[::-1].index(rank)
+        lo, hi = self.coord(first), self.coord(last)
+        return tuple((lo[a], hi[a]) for a in AXES)
+
     def local(self) -> "Mesh":
-        """This process's coordinates as a mesh of one process: the same
-        axes, its data blocks in place of all of them (itself when it
-        owns every coordinate)."""
+        """This process's coordinates as a mesh of one process: its box,
+        the axes in order (itself when it owns every coordinate)."""
         if not self.spans_processes:
             return self
-        mine = self.local_indices()
-        blocks = len(mine) * data_size(self) // self.size
-        fsdp = self.shape["fsdp"]
-        data, fsdp = ((blocks // fsdp, fsdp) if blocks % fsdp == 0
-                      else (1, blocks))
-        return Mesh((data, fsdp, *self.sizes[2:]),
-                    tuple(self.devices[i] for i in mine))
+        box = self.box(self.rank)
+        return Mesh(tuple(hi - lo + 1 for lo, hi in box),
+                    tuple(self.devices[i] for i in self.local_indices()))
 
     @property
     def size(self) -> int:
@@ -187,8 +207,8 @@ def build_mesh(
 ) -> Mesh:
     """The mesh of `cfg` over `devices` (default: every CUDA card).
     `owners`: the process owning each device's coordinate (every one of
-    them `rank`'s when None), which must split the mesh into whole,
-    consecutive data blocks, as many for each process."""
+    them `rank`'s when None): consecutive coordinates, as many for each
+    process, a box of the mesh each, on one device each."""
     cfg = cfg or MeshConfig()
     devs = ([torch.device(d) for d in devices] if devices is not None
             else _cards())
@@ -198,7 +218,18 @@ def build_mesh(
     mesh = Mesh(tuple(sizes[a] for a in AXES), tuple(devs),
                 None if owners is None else tuple(owners), rank)
     if owners is not None:
-        _check_owners(mesh)
+        check_owners(mesh.sizes, mesh.owners)
+        if rank not in mesh.owners:
+            raise ValueError(f"rank {rank} owns no coordinate of "
+                             f"{list(mesh.owners)}")
+        for p in sorted(set(mesh.owners)):
+            held = {mesh.devices[i] for i in range(mesh.size)
+                    if mesh.owners[i] == p}
+            if len(held) > 1:
+                raise ValueError(
+                    f"process {p} holds coordinates on {sorted(map(str, held))}:"
+                    f" across processes each computes on one device (one "
+                    f"process a card)")
     logger.info(
         "mesh: %s over %d coordinate(s) on %s%s",
         {a: s for a, s in sizes.items() if s > 1} or {"(single)": 1},
@@ -208,51 +239,71 @@ def build_mesh(
     return mesh
 
 
-def _check_owners(mesh: Mesh) -> None:
-    """Processes own whole data blocks, in block order, the same count
-    each, and `rank` is one of them."""
-    owners = mesh.owners
-    if len(owners) != mesh.size:
-        raise ValueError(f"mesh owners: {len(owners)} for {mesh.size} "
-                         f"coordinates")
+def check_owners(sizes: Sequence[int], owners: Sequence[int]) -> None:
+    """Processes 0..n-1 own consecutive flat coordinates, as many each,
+    and each one's share is a box of the mesh: a run of one axis times
+    every index of the axes after it (the reference's process-major
+    reshape gives no other). Reads nothing but its arguments, so every
+    process refuses the same layouts before any collective."""
+    owners = list(owners)
+    if len(owners) != math.prod(sizes):
+        raise ValueError(f"mesh owners: {len(owners)} for "
+                         f"{math.prod(sizes)} coordinates")
     procs = sorted(set(owners))
-    if procs != list(range(len(procs))) or mesh.rank not in procs:
-        raise ValueError(f"mesh owners {procs} and rank {mesh.rank}: "
-                         f"processes are ranks 0..n-1, this one among them")
-    per_block = mesh.size // data_size(mesh)
-    blocks = [owners[b * per_block:(b + 1) * per_block]
-              for b in range(data_size(mesh))]
-    order = [b[0] for b in blocks]
-    if (any(len(set(b)) > 1 for b in blocks) or order != sorted(order)
-            or len(set(order.count(p) for p in procs)) > 1):
+    n = len(owners) // len(procs)
+    shape = ",".join(f"{a}={s}" for a, s in zip(AXES, sizes) if s > 1)
+    if (procs != list(range(len(procs)))
+            or owners != [p for p in procs for _ in range(n)]):
         raise ValueError(
-            f"mesh {mesh_shape_str(mesh)} over processes {list(owners)}: "
-            f"processes split a mesh along its data and fsdp axes only, "
-            f"each owning as many whole data blocks, in order")
-    blocks_each = data_size(mesh) // len(procs)
-    fsdp = mesh.shape["fsdp"]
-    if blocks_each % fsdp and fsdp % blocks_each:
-        raise ValueError(
-            f"mesh {mesh_shape_str(mesh)}: {blocks_each} data blocks a "
-            f"process neither hold whole fsdp rows nor divide one")
+            f"mesh {shape} over processes {owners}: processes 0..n-1 own "
+            f"consecutive coordinates, as many each")
+    inner = 1
+    for axis, size in reversed(list(zip(AXES, sizes))):
+        if n <= inner * size:
+            if n % inner or size % (n // inner):
+                raise ValueError(
+                    f"mesh {shape} over processes {owners}: {n} "
+                    f"coordinates a process straddle the {axis} axis "
+                    f"(a share is a run of one axis times every index of "
+                    f"the axes after it)")
+            return
+        inner *= size
+
+
+def axis_ranks(mesh: Mesh, axes: Sequence[str]) -> tuple[int, ...]:
+    """The processes a collective over `axes` spans from this process:
+    those whose boxes match this one's on every other axis (this
+    process alone on a mesh of one)."""
+    if not mesh.spans_processes:
+        return (mesh.rank,)
+    keep = [i for i, a in enumerate(AXES) if a not in axes]
+    mine = mesh.box(mesh.rank)
+    return tuple(p for p in sorted(set(mesh.owners))
+                 if all(mesh.box(p)[i] == mine[i] for i in keep))
+
+
+def coord_ranks(mesh: Mesh, coords: Sequence[int]) -> tuple[int, ...]:
+    """The processes owning `coords`, in rank order."""
+    if mesh.owners is None:
+        return (mesh.rank,)
+    return tuple(sorted({mesh.owners[c] for c in coords}))
 
 
 def process_rows(mesh: Mesh, batch: int) -> slice:
     """The rows of a global [batch] that this process's data blocks
-    hold (all of them on a mesh of one process). The data blocks must
-    divide the batch: across processes there is no single block."""
-    if not mesh.spans_processes:
-        return slice(0, batch)
+    hold (all of them on a mesh of one process, or when the data axes
+    stay in one process). The data blocks must divide the batch when
+    they cross processes: there is no single block there."""
     n = data_size(mesh)
+    if not mesh.spans_processes or len(axis_ranks(mesh, BATCH_AXES)) == 1:
+        return slice(0, batch)
     if batch % n:
         raise ValueError(f"a batch of {batch} rows over {n} data blocks "
                          f"on {len(set(mesh.owners))} processes: the blocks "
                          f"must divide it")
-    mine = mesh.local_indices()
-    per_block = mesh.size // n
-    first, last = mine[0] // per_block, mine[-1] // per_block + 1
+    blocks = [data_block(mesh, i) for i in mesh.local_indices()]
     per = batch // n
-    return slice(first * per, last * per)
+    return slice(min(blocks) * per, (max(blocks) + 1) * per)
 
 
 def single_device_mesh(device: torch.device) -> Mesh:
@@ -282,12 +333,18 @@ def data_blocks(mesh: Mesh, batch: int) -> list[tuple[slice, dict]]:
     batch order. A batch the data product does not divide runs as one
     block at data index 0 (the reference's `shard_map` needs the split
     to divide, so its dispatcher takes the unsharded path; one
-    controller has no such limit and keeps the kernel)."""
+    controller has no such limit and keeps the kernel). On a mesh over
+    processes `batch` is this process's rows (`process_rows`), split
+    over the data blocks it holds."""
     n = data_size(mesh)
-    if n == 1 or batch % n:
+    first = 0
+    if mesh.spans_processes and len(axis_ranks(mesh, BATCH_AXES)) > 1:
+        blocks = sorted({data_block(mesh, i) for i in mesh.local_indices()})
+        first, n = blocks[0], len(blocks)
+    if data_size(mesh) == 1 or batch % n:
         return [(slice(0, batch), {})]
     per = batch // n
-    return [(slice(i * per, (i + 1) * per), data_coord(mesh, i))
+    return [(slice(i * per, (i + 1) * per), data_coord(mesh, first + i))
             for i in range(n)]
 
 
@@ -296,15 +353,16 @@ def check_data_placement(mesh: Mesh) -> None:
     moves cache rows between blocks (admission merges, the prefix pool,
     the draft pool) through one storage per device, which needs every
     block of a coordinate on one device; across cards that is the
-    exchange of ROADMAP A18b item 3. Data blocks of other processes are
-    refused too: serving is one process."""
-    if data_size(mesh) == 1:
-        return
+    exchange of ROADMAP A18b item 3. A mesh over processes is refused,
+    whatever axis crosses them: serving is one process (the reference's
+    sidecar never joins a multi-controller runtime either)."""
     if mesh.spans_processes:
         raise ValueError(
             f"serving on {mesh_shape_str(mesh)} across "
             f"{len(set(mesh.owners))} processes: a sidecar is one process "
             f"(the multi-process mesh is for training)")
+    if data_size(mesh) == 1:
+        return
     for i, dev in enumerate(mesh.devices):
         home = mesh.index(**{**mesh.coord(i), "data": 0, "fsdp": 0})
         if mesh.devices[home] != dev:

@@ -37,6 +37,13 @@ carries back stage to stage. Its attention is the dispatcher's (B1 on
 the card), as the reference's training block leaves its attention on
 auto. The router's load-balance loss is the mean over every live
 (stage, microbatch) block, the reference's psum / (S·M).
+
+With stages on several processes (a mesh of parallel/distributed.py's
+`global_mesh`), `_lm_loss_across` runs the same schedule with the
+stages each process holds: a hop between processes is a send and a
+receive, whose backward sends the activation's gradient back; the
+loss is formed on the last stage's process, and `train_step` sums it
+over the stage group.
 """
 
 from __future__ import annotations
@@ -52,10 +59,13 @@ from ggrmcp_tpu_torch.models import llama as llama_mod
 from ggrmcp_tpu_torch.models import moe as moe_mod
 from ggrmcp_tpu_torch.parallel import mesh as mesh_mod
 from ggrmcp_tpu_torch.parallel.collectives import (
+    coords_group,
     gather_batch,
     local,
     ppermute,
+    recv,
     replicate,
+    send,
 )
 
 
@@ -80,10 +90,10 @@ def cache_specs_pp() -> dict:
     return {"k": spec, "v": spec, "length": (mesh_mod.BATCH_AXES,)}
 
 
-def _block(at: dict, coords, xs, pos, lens=None, rows=None):
+def _block(at: dict, coords, xs, pos, lens=None, rows=None, group=None):
     none = [None] * len(coords)
     return llama_mod.Block(at, list(coords), xs, pos, lens or none, none,
-                           none, rows)
+                           none, rows, group)
 
 
 def _run_block_cached(layers, cfg, xs, at, coords, pos, lens, cache, rows,
@@ -99,27 +109,39 @@ def _run_block_cached(layers, cfg, xs, at, coords, pos, lens, cache, rows,
     return blk.xs
 
 
-def _gpipe(n_stages: int, m_count: int, devs, inputs, block) -> list:
+def _gpipe(n_stages: int, m_count: int, devs, inputs, block,
+           hop=None) -> list:
     """The GPipe schedule: S + M - 1 ticks; at tick t each stage s with a
     live microbatch m = t - s runs `block(s, m, xs)` on its per-shard
     activations (stage 0 on `inputs(m)`), then the activations move one
     hop along the stage ring, tensor shard by tensor shard (`devs[s]`
     are stage s's shard devices; the last stage sends nothing). The
     reference computes and discards the fill / drain ticks; here they
-    are skipped. Returns the last stage's outputs per microbatch."""
+    are skipped. Over processes a stage of other processes (its devices
+    all None) is not run here, and `hop(s, m, ys)` moves stage s's
+    outputs of microbatch m to stage s + 1 (sends and receives),
+    returning that stage's inputs where this process holds it. Returns
+    the last stage's outputs per microbatch (None where this process
+    does not hold it)."""
     state: list = [None] * n_stages  # each stage's input, per tensor shard
     out: list = [None] * m_count
     for tick in range(n_stages + m_count - 1):
         produced: list = [None] * n_stages
         for st in range(n_stages):
             m = tick - st
-            if not 0 <= m < m_count:
+            if not 0 <= m < m_count or all(d is None for d in devs[st]):
                 continue
             y = block(st, m, inputs(m) if st == 0 else state[st])
             if st == n_stages - 1:
                 out[m] = y
             else:
                 produced[st] = y
+        if hop is not None:
+            state = [None] + [
+                hop(st, tick - st, produced[st])
+                if 0 <= tick - st < m_count else None
+                for st in range(n_stages - 1)]
+            continue
         hops = [ppermute([None if y is None else y[i] for y in produced],
                          [d[i] for d in devs])
                 for i in range(len(devs[0]))]
@@ -199,20 +221,24 @@ def shard_params_pp(params: dict, cfg: llama_mod.LlamaConfig,
 
 
 def _run_block(layers, cfg, xs: list, at: dict, coords: list[int],
-               pos: list, moe: bool):
+               pos: list, moe: bool, group=None):
     """This stage's local layer block on one microbatch's per-shard
     activations, no cache (the training path; `at` the stage and data
-    coordinate, a MoE bank over its expert x tensor coordinates).
+    coordinate, a MoE bank over its expert x tensor coordinates;
+    `group` the processes holding the stage's other tensor shards).
     Returns (activations, the block's mean router aux loss, or None for
     a dense model)."""
-    n_local = local(layers["attn_norm"], coords[0]).shape[0]
+    held = next(c for c in coords if local(layers["attn_norm"], c)
+                is not None)
+    n_local = local(layers["attn_norm"], held).shape[0]
     auxes: list = []
     ffn = moe_mod.sharded_ffn(layers, cfg, None, auxes) if moe else None
-    blk, = llama_mod.tp_layers(layers, cfg, [_block(at, coords, xs, pos)],
-                               range(n_local), ffn=ffn)
+    blk, = llama_mod.tp_layers(
+        layers, cfg, [_block(at, coords, xs, pos, group=group)],
+        range(n_local), ffn=ffn)
     aux = None
     if moe:
-        dev = blk.xs[0].device
+        dev = blk.xs[llama_mod._first(blk.xs)].device
         aux = torch.stack([a.to(dev) for a in auxes]).mean()
     return blk.xs, aux
 
@@ -319,8 +345,13 @@ def pipeline_forward(
 def pipeline_lm_loss(params: dict, cfg: llama_mod.LlamaConfig,
                      tokens: torch.Tensor, mesh: mesh_mod.Mesh,
                      num_microbatches: Optional[int] = None) -> torch.Tensor:
-    """`training.lm_loss` through the pipeline."""
+    """`training.lm_loss` through the pipeline (over processes when the
+    stage axis crosses them: `_lm_loss_across`)."""
     from ggrmcp_tpu_torch.models.training import next_token_xent
+
+    if (mesh.spans_processes
+            and len(mesh_mod.axis_ranks(mesh, ("stage",))) > 1):
+        return _lm_loss_across(params, cfg, tokens, mesh, num_microbatches)
 
     logits, aux = pipeline_forward_with_aux(params, cfg, tokens[:, :-1],
                                             mesh, num_microbatches)
@@ -328,6 +359,117 @@ def pipeline_lm_loss(params: dict, cfg: llama_mod.LlamaConfig,
     if isinstance(cfg, moe_mod.MoEConfig):
         loss = loss + cfg.router_aux_weight * aux
     return loss
+
+
+def _lm_loss_across(params: dict, cfg: llama_mod.LlamaConfig,
+                    tokens: torch.Tensor, mesh: mesh_mod.Mesh,
+                    num_microbatches: Optional[int] = None) -> torch.Tensor:
+    """`pipeline_lm_loss` with stages on several processes, this
+    process's share of it: each of its data blocks (`tokens` are its
+    rows) runs the GPipe schedule with the stages it holds; a hop to or
+    from another process's stage is a send or a receive (`collectives
+    .send` / `recv`, tagged by block, stage and microbatch), whose
+    backward carries the activation's gradient back. The embedding runs
+    where stage 0 is, the final norm, the lm_head and the cross entropy
+    where the last stage is (the reference runs them outside the staged
+    block: one stage's process computes each, and the leaves stay
+    replicated over stage). Returns the process's part of the loss: the
+    cross entropy of its blocks' rows on the last stage's process, its
+    stages' router aux losses over the S·M live blocks of every block,
+    and the zero each send adds so that backward reaches it; the parts
+    of the stage group's processes add up to the loss."""
+    from ggrmcp_tpu_torch.models.training import next_token_xent
+
+    n_stages = stage_count(mesh)
+    m_count = num_microbatches or n_stages
+    if cfg.num_layers % n_stages != 0:
+        raise ValueError(
+            f"{cfg.num_layers} layers not divisible by {n_stages} stages")
+    moe = isinstance(cfg, moe_mod.MoEConfig)
+    lcfg = dataclasses.replace(cfg, num_layers=cfg.num_layers // n_stages)
+    layers = params["layers"]
+    b, s = tokens.shape[0], tokens.shape[1] - 1
+    blocks = mesh_mod.data_blocks(mesh, b)
+    parts, auxes, sent = [], [], []
+    for k, (rows, at) in enumerate(blocks):
+        bd = rows.stop - rows.start
+        if bd % m_count != 0:
+            raise ValueError(
+                f"batch {bd} not divisible by {m_count} microbatches")
+        mb = bd // m_count
+        coords, devs = zip(*(llama_mod.tensor_coords(mesh, **at, stage=st)
+                             for st in range(n_stages)))
+        # The tensor groups of the stages this process holds (another
+        # stage's shards may form a group this process is not in).
+        groups = [coords_group(mesh, c) if any(d is not None for d in ds)
+                  else None for c, ds in zip(coords, devs)]
+        dev = next(d for ds in devs for d in ds if d is not None)
+        x0 = None
+        if any(d is not None for d in devs[0]):
+            x0 = llama_mod._vocab_embed(params["embed"], tokens[rows, :-1],
+                                        cfg.torch_dtype, coords[0], devs[0],
+                                        groups[0])
+        positions = torch.arange(s, device=dev)[None, :].expand(mb, s)
+        anchor = torch.zeros((), device=dev, requires_grad=True)
+        like = (anchor, (mb, s, cfg.hidden_dim), cfg.torch_dtype)
+
+        def block(st, m, xs):
+            y, aux = _run_block(layers, lcfg, xs, {**at, "stage": st},
+                                coords[st], replicate(positions, devs[st]),
+                                moe, groups[st])
+            if aux is not None:
+                auxes.append(aux)
+            return y
+
+        def hop(st, m, ys):
+            return _hop_across(mesh, coords[st], coords[st + 1],
+                               devs[st + 1], ys, like,
+                               (k * n_stages + st) * m_count + m, sent)
+
+        out = _gpipe(n_stages, m_count, devs,
+                     lambda m: [None if x is None else x[m * mb:(m + 1) * mb]
+                                for x in x0], block, hop)
+        if out[0] is None:
+            continue
+        xs = [None if o is None else torch.cat([y[i] for y in out], dim=0)
+              for i, o in enumerate(out[0])]
+        logits = llama_mod.tp_head(params, cfg, xs, coords[-1], groups[-1])
+        parts.append(next_token_xent(logits, tokens[rows, 1:]) * (bd / b))
+    loss = torch.zeros((), device=dev)
+    for part in parts:
+        loss = loss + part.to(dev)
+    if moe and auxes:
+        loss = loss + cfg.router_aux_weight * torch.stack(
+            [a.to(dev) for a in auxes]).sum() / (
+                n_stages * m_count * len(blocks))
+    for zero in sent:
+        loss = loss + zero.to(dev)
+    return loss
+
+
+def _hop_across(mesh, src, dst, dst_devs, ys, like, tag, sent) -> list:
+    """One pipeline hop of a microbatch from the stage at coordinates
+    `src` to the stage at `dst` (a tensor shard each): within this
+    process a copy, to another process a send (once to each process; its
+    zero into `sent`), from another process a receive of `like` = (the
+    anchor its gradient hangs on, shape, dtype), shared by the shards
+    this process holds. Returns the next stage's inputs per shard, None
+    where this process holds none of it."""
+    anchor, shape, dtype = like
+    out: list = [None] * len(dst)
+    to, got = set(), {}
+    for i, (sc, dc) in enumerate(zip(src, dst)):
+        a, b = mesh.owners[sc], mesh.owners[dc]
+        if a == b == mesh.rank:
+            out[i] = ys[i].to(dst_devs[i], non_blocking=True)
+        elif a == mesh.rank and b not in to:
+            to.add(b)
+            sent.append(send(ys[i], b, tag))
+        elif b == mesh.rank:
+            if a not in got:
+                got[a] = recv(anchor, shape, dtype, a, tag)
+            out[i] = got[a]
+    return out if any(o is not None for o in out) else None
 
 
 def make_pipeline_train_step(cfg: llama_mod.LlamaConfig,

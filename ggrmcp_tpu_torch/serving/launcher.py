@@ -119,6 +119,9 @@ class Colaunch:
         self.sidecar = None
         self.gateway: Optional[Gateway] = None
         self.restarts = 0
+        # True from the watchdog's pause to the end of the nudge: the
+        # window in which no watchdog reconnect may run.
+        self.restart_window = False
         self._supervisor: Optional[asyncio.Task] = None
 
     @property
@@ -170,9 +173,11 @@ class Colaunch:
             # waits forever for metadata the closed call never sends.
             discoverer = self.gateway.discoverer
             await discoverer.stop_watchdog()
+            self.restart_window = True
             try:
                 await self._restart(fleet, rng)
             finally:
+                self.restart_window = False
                 discoverer.start_watchdog()
 
     async def _restart(self, fleet, rng: random.Random) -> None:
@@ -192,6 +197,7 @@ class Colaunch:
                 await replacement.start()
                 self.sidecar = replacement
                 await self._nudge(replacement.target)
+                self.restart_window = False
                 self.restarts += 1
                 logger.warning(
                     "co-launched sidecar restarted on %s (attempt "

@@ -22,6 +22,7 @@ rates (tests/test_torch_dp_training.py's tolerances), and the two
 processes' params bitwise equal.
 """
 
+import datetime
 import json
 import os
 import socket
@@ -40,9 +41,6 @@ from ggrmcp_tpu.models import llama as jl
 from ggrmcp_tpu.models import training as jtrain
 from ggrmcp_tpu.parallel import mesh as jmesh
 from ggrmcp_tpu_torch.core.config import MeshConfig
-from ggrmcp_tpu_torch.models import llama as tl
-from ggrmcp_tpu_torch.models import moe as tm
-from ggrmcp_tpu_torch.models import training as ttrain
 from ggrmcp_tpu_torch.parallel import collectives, distributed
 from ggrmcp_tpu_torch.parallel import mesh as tmesh
 from tests import torch_threads  # noqa: F401
@@ -97,7 +95,9 @@ class TestInitialize:
         monkeypatch.setenv("GGRMCP_PROCESS_ID", "1")
         assert distributed.initialize(device="cpu") is True
         assert seen == {"backend": "gloo", "init_method": "tcp://coord:1234",
-                        "world_size": 2, "rank": 1}
+                        "world_size": 2, "rank": 1,
+                        "timeout": datetime.timedelta(
+                            seconds=distributed.TIMEOUT_S)}
         assert distributed.local_device() == CPU
 
     def test_explicit_args_beat_env(self, monkeypatch):
@@ -157,7 +157,11 @@ class TestMesh:
         (dict(data=2, tensor=2), 0, dict(data=1, tensor=2), slice(0, 4)),
         (dict(data=2, fsdp=2), 1, dict(data=1, fsdp=2), slice(4, 8)),
         (dict(fsdp=4), 1, dict(fsdp=2), slice(4, 8)),
-    ], ids=["data4", "data2-tensor2", "data2-fsdp2", "fsdp4"])
+        (dict(tensor=4), 1, dict(tensor=2), slice(0, 8)),
+        (dict(expert=4), 1, dict(expert=2), slice(0, 8)),
+        (dict(sequence=2, stage=2), 1, dict(stage=2), slice(0, 8)),
+    ], ids=["data4", "data2-tensor2", "data2-fsdp2", "fsdp4", "tensor4",
+            "expert4", "sequence2-stage2"])
     def test_a_process_holds_its_blocks(self, axes, rank, local, rows):
         mesh = tmesh.build_mesh(MeshConfig(**{"tensor": 1, **axes}),
                                 [CPU] * 4, owners=[0, 0, 1, 1], rank=rank)
@@ -173,11 +177,10 @@ class TestMesh:
             tmesh.check_data_placement(mesh)
 
     @pytest.mark.parametrize("axes,owners", [
-        (dict(tensor=4), [0, 0, 1, 1]),
         (dict(data=4), [0, 1, 0, 1]),
         (dict(data=4), [0, 0, 0, 1]),
         (dict(data=2, fsdp=3), [0, 0, 1, 1, 2, 2]),
-    ], ids=["tensor", "interleaved", "uneven", "fsdp-straddled"])
+    ], ids=["interleaved", "uneven", "fsdp-straddled"])
     def test_other_splits_are_refused(self, axes, owners):
         with pytest.raises(ValueError, match="process"):
             tmesh.build_mesh(MeshConfig(**{"tensor": 1, **axes}),
@@ -189,19 +192,26 @@ class TestMesh:
         with pytest.raises(ValueError, match="divide"):
             tmesh.process_rows(mesh, 6)
 
-    def test_moe_and_stages_are_refused_across_processes(self):
-        mesh = tmesh.build_mesh(MeshConfig(data=2, tensor=1), [CPU] * 2,
-                                owners=[0, 1])
-        cfg = tm.CONFIGS["tiny-moe"]
-        with pytest.raises(ValueError, match="routing"):
-            ttrain.make_train_state(tm.init_params(cfg, CPU, 0), cfg,
-                                    mesh=mesh)
-        staged = tmesh.build_mesh(MeshConfig(data=2, stage=2, tensor=1),
-                                  [CPU] * 4, owners=[0, 0, 1, 1])
-        cfg = tl.CONFIGS["tiny-llama"]
-        with pytest.raises(ValueError, match="stage"):
-            ttrain.make_train_state(tl.init_params(cfg, CPU, 0), cfg,
-                                    mesh=staged)
+    def test_every_group_takes_the_timeout(self, monkeypatch):
+        """`form_groups` over four processes at data=2 x tensor=2, one
+        coordinate each: the batch and tensor pairs, created in one order
+        on every process, each with the default group's timeout; this
+        process keeps its own."""
+        made = []
+        monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 4)
+        monkeypatch.setattr(
+            torch.distributed, "new_group",
+            lambda ranks, timeout: made.append((tuple(ranks), timeout))
+            or tuple(ranks))
+        mesh = tmesh.build_mesh(MeshConfig(data=2, tensor=2), [CPU] * 4,
+                                owners=[0, 1, 2, 3], rank=1)
+        groups = distributed.form_groups(mesh)
+        assert [ranks for ranks, _ in made] == [(0, 1), (0, 2), (1, 3),
+                                                (2, 3)]
+        assert {t for _, t in made} == {
+            datetime.timedelta(seconds=distributed.TIMEOUT_S)}
+        assert {r: g for r, g in groups.items() if len(r) < 4} == {
+            (0, 1): (0, 1), (1, 3): (1, 3)}
 
     def test_one_process_reduces_nothing_across(self):
         """A mesh of one process spans none: it is its own local mesh,
