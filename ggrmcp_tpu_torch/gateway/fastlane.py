@@ -681,7 +681,21 @@ class FastLaneServer:
     ) -> int:
         """POST /: the hot path. Mirrors MCPHandler.handle_post's
         framing (parse errors and notifications handled here, at the
-        transport) around the shared dispatch core."""
+        transport) around the shared dispatch core, in one `gateway.http`
+        span from the complete body to the written response."""
+        with self.handler.http_span(
+                headers.get(tracing.TRACE_HEADER)) as trace_id_in:
+            return await self._post_body(conn, headers, pairs, body,
+                                         trace_id_in)
+
+    async def _post_body(
+        self,
+        conn: FastLaneProtocol,
+        headers: dict[str, str],
+        pairs: list[tuple[str, str]],
+        body: bytes,
+        trace_id_in: str,
+    ) -> int:
         try:
             data = json.loads(body)
         except (json.JSONDecodeError, UnicodeDecodeError) as exc:
@@ -705,7 +719,7 @@ class FastLaneServer:
         resp_dict, session, trace_id = await self.handler.dispatch(
             data,
             lambda: self._session(headers, pairs),
-            trace_id_in=headers.get(tracing.TRACE_HEADER),
+            trace_id_in=trace_id_in,
             sse=sse,
         )
         if resp_dict is None and sse is not None and sse.started:

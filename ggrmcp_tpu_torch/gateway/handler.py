@@ -19,6 +19,7 @@ accepted per JSON-RPC instead of rejected; streaming tools are served
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import logging
 import re
@@ -146,6 +147,17 @@ class MCPHandler:
     # HTTP entry points
     # ------------------------------------------------------------------
 
+    @staticmethod
+    @contextlib.contextmanager
+    def http_span(trace_id_in: Optional[str]):
+        """`gateway.http`: one POST from its complete body to its written
+        response (aiohttp: handed back for aiohttp to write), under the
+        caller's trace id or a new one, which it yields; `dispatch` names
+        its method on it."""
+        trace_id = trace_id_in or tracing.new_id()
+        with tracing.tracer.span("gateway.http", trace_id=trace_id):
+            yield trace_id
+
     async def handle_get(self, request: web.Request) -> web.Response:
         """GET / → capability discovery (handler.go:61-78)."""
         session = self._session_for(request)
@@ -162,8 +174,14 @@ class MCPHandler:
         """POST / → JSON-RPC dispatch (handler.go:81-157): the aiohttp
         wrapper over the transport-agnostic `dispatch` core (shared with
         the raw-protocol fast lane, gateway/fastlane.py)."""
+        body = await request.read()
+        with self.http_span(request.headers.get(tracing.TRACE_HEADER)) as trace_id:
+            return await self._post(request, body, trace_id)
+
+    async def _post(
+        self, request: web.Request, body: bytes, trace_id_in: str
+    ) -> web.StreamResponse:
         try:
-            body = await request.read()
             data = json.loads(body)
         except (json.JSONDecodeError, UnicodeDecodeError) as exc:
             return web.json_response(
@@ -185,7 +203,7 @@ class MCPHandler:
         resp_dict, session, trace_id = await self.dispatch(
             data,
             lambda: self._session_for(request),
-            trace_id_in=request.headers.get(tracing.TRACE_HEADER),
+            trace_id_in=trace_id_in,
             sse=sse,
         )
         if resp_dict is None and sse is not None and sse.response is not None:
@@ -262,34 +280,33 @@ class MCPHandler:
                 None,
             )
 
-        # One span per request; the incoming x-trace-id header (if any)
-        # continues the caller's trace, and the id is echoed back.
+        # One span per request, the transport's `gateway.http`: the
+        # incoming x-trace-id header (if any) continues the caller's
+        # trace, and the id is echoed back.
         trace_id = trace_id_in or tracing.new_id()
+        tracing.tracer.current().set(method=method, session=session.id[:8])
         try:
-            with tracing.tracer.span(
-                f"gateway.{method}", trace_id=trace_id, session=session.id[:8]
-            ):
-                if method == "initialize":
-                    result = self._handle_initialize()
-                elif method == "ping":
-                    result = {}
-                elif method == "tools/list":
-                    result = self._handle_tools_list()
-                elif method == "tools/call":
-                    if sse is not None:
-                        await self._stream_tool_call(
-                            request_id, session, params, sse, trace_id
-                        )
-                        return None, session, trace_id
-                    result = await self._handle_tools_call(session, params)
-                elif method == "prompts/list":
-                    result = {"prompts": []}
-                elif method == "resources/list":
-                    result = {"resources": []}
-                else:
-                    raise mcp.MCPError(
-                        mcp.METHOD_NOT_FOUND, f"method not found: {method}"
+            if method == "initialize":
+                result = self._handle_initialize()
+            elif method == "ping":
+                result = {}
+            elif method == "tools/list":
+                result = self._handle_tools_list()
+            elif method == "tools/call":
+                if sse is not None:
+                    await self._stream_tool_call(
+                        request_id, session, params, sse, trace_id
                     )
+                    return None, session, trace_id
+                result = await self._handle_tools_call(session, params)
+            elif method == "prompts/list":
+                result = {"prompts": []}
+            elif method == "resources/list":
+                result = {"resources": []}
+            else:
+                raise mcp.MCPError(
+                    mcp.METHOD_NOT_FOUND, f"method not found: {method}"
+                )
             self.metrics.observe_rpc(method, "ok")
             return mcp.make_response(request_id, result), session, trace_id
         except mcp.MCPError as exc:
@@ -498,19 +515,21 @@ class MCPHandler:
             if method.is_server_streaming:
                 # Aggregate the stream for plain tools/call clients.
                 chunks = []
-                async for chunk in self.discoverer.invoke_stream_by_tool(
-                    tool_name, arguments, headers, timeout
-                ):
-                    chunks.append(chunk)
+                with tracing.tracer.span("gateway.invoke", tool=tool_name):
+                    async for chunk in self.discoverer.invoke_stream_by_tool(
+                        tool_name, arguments, headers, timeout
+                    ):
+                        chunks.append(chunk)
                 content = [
                     mcp.text_content(json.dumps(c, ensure_ascii=False))
                     for c in chunks
                 ]
                 result = mcp.tool_call_result(content)
             else:
-                payload = await self.discoverer.invoke_by_tool(
-                    tool_name, arguments, headers, timeout
-                )
+                with tracing.tracer.span("gateway.invoke", tool=tool_name):
+                    payload = await self.discoverer.invoke_by_tool(
+                        tool_name, arguments, headers, timeout
+                    )
                 result = mcp.tool_call_result(
                     [mcp.text_content(json.dumps(payload, ensure_ascii=False))]
                 )
@@ -602,14 +621,15 @@ class MCPHandler:
         chunks: list[dict[str, Any]] = []
         outcome = "ok"
         try:
-            async for chunk in self.discoverer.invoke_stream_by_tool(
-                tool_name, arguments, headers, self.cfg.server.request_timeout_s
-            ):
-                chunks.append(chunk)
-                await sse.event(
-                    "chunk",
-                    {"content": mcp.text_content(json.dumps(chunk, ensure_ascii=False))},
-                )
+            with tracing.tracer.span("gateway.invoke", tool=tool_name):
+                async for chunk in self.discoverer.invoke_stream_by_tool(
+                    tool_name, arguments, headers, self.cfg.server.request_timeout_s
+                ):
+                    chunks.append(chunk)
+                    await sse.event(
+                        "chunk",
+                        {"content": mcp.text_content(json.dumps(chunk, ensure_ascii=False))},
+                    )
             content = [
                 mcp.text_content(json.dumps(c, ensure_ascii=False)) for c in chunks
             ]
@@ -845,7 +865,8 @@ class MCPHandler:
             n = int(n_raw)
         except ValueError:
             n = 100
-        return {"spans": tracing.tracer.recent(max(1, min(n, 512)))}
+        return {"spans": tracing.tracer.recent(
+            max(1, min(n, tracing.tracer.capacity)))}
 
     async def handle_traces(self, request: web.Request) -> web.Response:
         return web.json_response(
@@ -999,7 +1020,7 @@ class MCPHandler:
             max_ticks=n, max_requests=n
         )
         return build_timeline(
-            tracing.tracer.recent(min(n, 512)), entries
+            tracing.tracer.recent(min(n, tracing.tracer.capacity)), entries
         )
 
     async def handle_debug_timeline(

@@ -53,6 +53,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.autograd import profiler as _profiler
 
 from ggrmcp_tpu_torch.models import common
 from ggrmcp_tpu_torch.models import llama
@@ -73,6 +74,7 @@ from ggrmcp_tpu_torch.parallel.collectives import (
     replicate,
     sum_across,
 )
+from ggrmcp_tpu_torch.utils import regions
 
 Params = common.Params
 
@@ -331,7 +333,14 @@ def moe_ffn(
     without its [T, E, C] tensors and with no host sync. Each token's k
     weighted outputs sum in float32 (the reference casts the combine
     weights to x's dtype and contracts them in its einsum). Returns (out
-    [B, S, D], aux loss, or None with `aux` False)."""
+    [B, S, D], aux loss, or None with `aux` False). While a profiler
+    records, the region `moe.ffn` (utils/regions.py)."""
+    if _profiler._is_profiler_enabled:
+        return regions.timed("moe.ffn", _moe_ffn)(x, lp, cfg, valid, aux)
+    return _moe_ffn(x, lp, cfg, valid, aux)
+
+
+def _moe_ffn(x, lp, cfg, valid, aux):
     b, s, d = x.shape
     t = b * s
     e, k = cfg.num_experts, cfg.experts_per_token

@@ -41,8 +41,10 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch.autograd import profiler as _profiler
 
 from ggrmcp_tpu_torch.ops import _build
+from ggrmcp_tpu_torch.utils import regions
 
 NEG_INF = -1e30
 
@@ -396,7 +398,9 @@ def attention(
     `attention_ref`. No minimum length: the H100 crossover is not
     measured yet. `use_flash=False` forces `attention_ref` (the int8 KV
     cache's path, as in the reference), True forces `flash_attention`.
-    Ring positions (`k_positions`) always take `attention_ref`."""
+    Ring positions (`k_positions`) always take `attention_ref`.
+    While a profiler records, decode-shaped `attention_ref` calls are the
+    region `attn.decode` (utils/regions.py)."""
     if k_positions is not None:
         use_flash = False
     if use_flash is None:
@@ -406,7 +410,10 @@ def attention(
             q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
             window=window,
         )
-    return attention_ref(
+    ref = attention_ref
+    if _profiler._is_profiler_enabled and q.shape[1] <= GQA_GROUPED_MAX_SQ:
+        ref = regions.timed("attn.decode", attention_ref)
+    return ref(
         q, k, v, causal=causal, q_offset=q_offset, kv_len=kv_len,
         window=window, k_positions=k_positions,
     )

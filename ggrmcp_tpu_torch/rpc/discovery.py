@@ -33,7 +33,7 @@ from ggrmcp_tpu_torch.rpc.router import (
     derive_affinity_key,
     estimate_prefill_tokens,
 )
-from ggrmcp_tpu_torch.utils import failpoints
+from ggrmcp_tpu_torch.utils import failpoints, tracing
 
 logger = logging.getLogger("ggrmcp.rpc.discovery")
 
@@ -463,7 +463,11 @@ class ServiceDiscoverer:
         fault here IS a replica dying out from under a routed call —
         the call fails with the same typed error a dead channel raises
         and the backend drops out of the candidate set until the
-        watchdog revives it."""
+        watchdog revives it. Every placement passes here: the call's
+        span (the gateway's `gateway.invoke`) gets its target."""
+        span = tracing.tracer.current()
+        if span is not None:
+            span.set(target=backend.target)
         try:
             failpoints.evaluate("backend_down")
         except failpoints.FailpointError as exc:

@@ -115,6 +115,7 @@ from ggrmcp_tpu_torch.core.config import (
 from ggrmcp_tpu_torch.grammar.compiler import CompiledGrammar
 from ggrmcp_tpu_torch.grammar.runtime import GrammarArena, GrammarHandle
 from ggrmcp_tpu_torch.models import llama as llama_mod
+from ggrmcp_tpu_torch.ops import attention as attention_mod
 from ggrmcp_tpu_torch.ops import quant
 from ggrmcp_tpu_torch.ops.sampling import (
     SamplingConfig,
@@ -131,7 +132,11 @@ from ggrmcp_tpu_torch.serving.engine import (
 )
 from ggrmcp_tpu_torch.serving import tensors
 from ggrmcp_tpu_torch.serving.adapter_arena import AdapterExhaustedError
-from ggrmcp_tpu_torch.serving.flight_recorder import PHASE_NAMES, FlightRecorder
+from ggrmcp_tpu_torch.serving.flight_recorder import (
+    PHASE_NAMES,
+    FlightRecorder,
+    PhaseTimer,
+)
 from ggrmcp_tpu_torch.serving.host_pool import HostPagePool
 from ggrmcp_tpu_torch.serving.pages import PageAllocator, PageExhaustedError
 from ggrmcp_tpu_torch.serving.scheduler import (
@@ -140,7 +145,7 @@ from ggrmcp_tpu_torch.serving.scheduler import (
     retry_after_for,
 )
 from ggrmcp_tpu_torch.serving.slo import SloAccount, TenantTable
-from ggrmcp_tpu_torch.utils import failpoints
+from ggrmcp_tpu_torch.utils import failpoints, regions, tracing
 from ggrmcp_tpu_torch.utils.stats import pct
 
 logger = logging.getLogger("ggrmcp.torch.batching")
@@ -280,6 +285,41 @@ class _Request:
     gcur: int = 0
     g_released: bool = False
     jump_degraded: bool = False
+
+
+class _Turn:
+    """One serving-loop turn: from a tick's end (its record's last
+    phase mark), or the loop's start, to the next tick's dispatch. Its
+    children (`batcher.yield`, `batcher.host_ops`, `batcher.admit`,
+    `batcher.wait_work`) are perf_counter stamps, put on the wall axis
+    through the (t_wall, t_mono) pair the turn starts from when the next
+    tick's record opens; the rest of the turn is executor hops."""
+
+    __slots__ = ("p0", "wall", "mono", "after", "children")
+    MAX_CHILDREN = 256  # past it, a turn's children are not kept
+
+    def __init__(self, p0: float, wall: float, mono: float, after: int):
+        self.p0, self.wall, self.mono, self.after = p0, wall, mono, after
+        self.children: list = []
+
+    @classmethod
+    def now(cls, after: int) -> "_Turn":
+        mono = time.perf_counter()
+        return cls(mono, time.time(), mono, after)
+
+    def child(self, name: str, p0: float, p1: float, **attrs) -> None:
+        if len(self.children) < self.MAX_CHILDREN:
+            self.children.append((name, p0, p1, attrs))
+
+    def record(self, p_end: float) -> None:
+        """Keep the turn, ending at `p_end`, and its children."""
+        tracer = tracing.tracer
+        turn = tracer.record(
+            "batcher.turn", self.wall + (self.p0 - self.mono),
+            (p_end - self.p0) * 1e3, after_tick=self.after)
+        for name, p0, p1, attrs in self.children:
+            tracer.record(name, self.wall + (p0 - self.mono),
+                          (p1 - p0) * 1e3, parent_id=turn.span_id, **attrs)
 
 
 # The ledger components reported as ServingStats memory_*_bytes.
@@ -519,6 +559,11 @@ class ContinuousBatcher:
         # Serialized host ops (run_host_op): (fn, future) pairs the loop
         # drains between ticks in its one executor stream.
         self._host_ops: deque = deque()
+        # The loop's current turn (None with the recorder off), and the
+        # routes of the admission round a span is kept for (None when
+        # none is).
+        self._turn: Optional[_Turn] = None
+        self._admit_routes: Optional[dict] = None
         # True while a device call that writes the SHARED cache is in
         # flight; admission failure rebuilds the cache only when set.
         self._cache_at_risk = False
@@ -1876,8 +1921,13 @@ class ContinuousBatcher:
 
     async def _loop(self) -> None:
         loop = asyncio.get_running_loop()
+        if self.recorder.enabled:
+            self._turn = _Turn.now(self.timing["ticks"])
         while not self._stopping:
-            await self._drain_host_ops(loop)
+            if self._host_ops:
+                p0 = time.perf_counter()
+                await self._drain_host_ops(loop)
+                self._turn_child("batcher.host_ops", p0)
             if self.sched is not None:
                 await self._maybe_preempt(loop)
             await self._admit()
@@ -1887,7 +1937,7 @@ class ContinuousBatcher:
                 self._wake.clear()
                 if not self.pending.empty() or self._host_ops:
                     continue
-                await self._wake.wait()
+                await self._waiting(self._wake.wait())
                 continue
             try:
                 await loop.run_in_executor(None, self._tick_step)
@@ -1896,7 +1946,26 @@ class ContinuousBatcher:
             except Exception:
                 logger.exception("decode tick failed; replaying active slots")
                 self._recover_after_tick_failure()
+                if self.recorder.enabled:
+                    self._turn = _Turn.now(self.timing["ticks"])
+            p0 = time.perf_counter()
             await asyncio.sleep(0)  # noqa: ASYNC115 — let handlers drain queues
+            self._turn_child("batcher.yield", p0)
+
+    def _turn_child(self, name: str, p0: float, **attrs) -> None:
+        """A child of the current turn, from `p0` to now."""
+        turn = self._turn
+        if turn is not None:
+            turn.child(name, p0, time.perf_counter(), **attrs)
+
+    async def _waiting(self, awaitable):
+        """`await awaitable` with nothing to decode: the turn's
+        `batcher.wait_work`."""
+        p0 = time.perf_counter()
+        try:
+            return await awaitable
+        finally:
+            self._turn_child("batcher.wait_work", p0)
 
     def _deliver(self, request: _Request, item) -> None:
         """Executor → loop edge: asyncio.Queue is not thread-safe. Every
@@ -2273,9 +2342,9 @@ class ContinuousBatcher:
                         # interleaved chunk work) for stragglers.
                         request = self.pending.get_nowait()
                     else:
-                        request = await asyncio.wait_for(
+                        request = await self._waiting(asyncio.wait_for(
                             self.pending.get(), timeout=timeout
-                        )
+                        ))
                 except (asyncio.TimeoutError, asyncio.QueueEmpty):
                     break
                 if request.cancelled:
@@ -2309,7 +2378,7 @@ class ContinuousBatcher:
             slots_idx = self._free_slots()[: len(batch)]
             try:
                 await loop.run_in_executor(
-                    None, self._prefill_into_slots, slots_idx, batch
+                    None, self._admit_round, slots_idx, batch
                 )
             except asyncio.CancelledError:
                 raise  # batcher shutdown cancels the loop task
@@ -2353,6 +2422,46 @@ class ContinuousBatcher:
             admitted += len(batch)
         return admitted
 
+    def _admit_round(
+        self, slots_idx: list[int], batch: list[_Request]
+    ) -> None:
+        """One admission round, `_prefill_into_slots`, kept as the turn's
+        `batcher.admit` span: its rows, their prompts' lengths, the routes
+        (`_admit_routes`) and the attention kernel's launches; while a
+        profiler records, the round's `moe.ffn` regions."""
+        turn = self._turn
+        window = regions.open_window(("moe.ffn",)) if self._is_moe else None
+        if turn is None and window is None:
+            return self._prefill_into_slots(slots_idx, batch)
+        lens = [len(r.prompt) for r in batch]
+        launches = attention_mod.flash_attention.launches
+        self._admit_routes = routes = {}
+        profiled = tracing.profiler_range("batcher.admit")
+        p0 = time.perf_counter()
+        try:
+            self._prefill_into_slots(slots_idx, batch)
+        finally:
+            self._admit_routes = None
+            if profiled is not None:
+                profiled.__exit__(None, None, None)
+            if turn is not None:
+                turn.child(
+                    "batcher.admit", p0, time.perf_counter(),
+                    rows=len(batch), lens=lens,
+                    launches=attention_mod.flash_attention.launches
+                    - launches,
+                    **routes)
+            if window is not None:
+                window.close({"moe.ffn": self._moe_attrs(
+                    routes.get("tokens", 0))})
+
+    def _moe_attrs(self, tokens: int) -> dict:
+        """A `moe.ffn` span's work, from host lengths: the valid tokens
+        a layer routes and the (token, expert) pairs of every layer."""
+        cfg = self.engine.cfg
+        return dict(tokens=tokens, pairs=tokens * cfg.experts_per_token
+                    * cfg.num_layers)
+
     @torch.no_grad()
     def _prefill_into_slots(
         self, slots_idx: list[int], batch: list[_Request]
@@ -2392,6 +2501,7 @@ class ContinuousBatcher:
         trickle = len(batch) == 1
         rows = list(zip(slots_idx, batch))
         queued = 0  # rows sent to the interleave queue (no prefill here)
+        bridged: list[int] = []  # prompt tokens past a multi-step prefix
         if self._paged:
             rows = self._paged_prepass(rows, ilv, paged_groups)
         shed_rows = len(batch) - len(rows) - sum(
@@ -2413,6 +2523,7 @@ class ContinuousBatcher:
                     key = (entry, start, steps[0][1])
                     pfx_groups.setdefault(key, []).append((sl, req))
                 else:
+                    bridged.append(len(req.prompt) - plen)
                     self._prefill_chunked(sl, req, pfx)
             elif len(req.prompt) > self.cfg.prefill_chunk:
                 if ilv:
@@ -2464,6 +2575,20 @@ class ContinuousBatcher:
                 slot = slots_idx[0]
                 self._pfx_commit(key, lambda entry: self._pfx_store_impl(
                     self.cache, slot, entry, len(key)))
+        if self._admit_routes is not None:
+            # The round's routes, and the prompt tokens it computed:
+            # whole prompts fused or chunked, the suffix past a prefix.
+            pfx_rows = [len(r.prompt) - start for (_, start, _), g
+                        in pfx_groups.items() for _, r in g] + bridged
+            paged_rows = [len(r.prompt) - scan for (_, scan, _, _), g
+                          in paged_groups.items() for _, r, _ in g]
+            self._admit_routes.update(
+                fused=len(fused_batch), chunked=len(long_rows),
+                prefix=len(pfx_rows), paged=len(paged_rows), queued=queued,
+                shed=shed_rows,
+                tokens=sum(len(r.prompt) for r in fused_batch)
+                + sum(len(r.prompt) for _, r in long_rows)
+                + sum(pfx_rows) + sum(paged_rows))
         dt = (time.perf_counter() - t0) * 1000.0
         self.timing["admit_ms"] += dt
         self.timing["admit_ms_max"] = max(self.timing["admit_ms_max"], dt)
@@ -2803,7 +2928,8 @@ class ContinuousBatcher:
     def _tick_record(self, active: int):
         """Open this tick's flight record (None with the recorder off),
         seeded with the admission time since the previous tick as its
-        admit phase; its PhaseTimer starts now."""
+        admit phase; its PhaseTimer starts now, and ends the loop's
+        turn."""
         admit_ms, self._admit_phase_ms = self._admit_phase_ms, 0.0
         if not self.recorder.enabled:
             return None
@@ -2811,7 +2937,7 @@ class ContinuousBatcher:
             s.request.trace_id for s in self.slots
             if s.active and s.request is not None and s.request.trace_id
         ))
-        return self.recorder.tick_start(
+        rec = self.recorder.tick_start(
             seq=self.timing["ticks"] + 1,
             active=active,
             interleaved_rows=0,
@@ -2823,6 +2949,30 @@ class ContinuousBatcher:
             admit_ms=admit_ms,
             memory=self._ledger_tick_snapshot(),
         )
+        turn, self._turn = self._turn, None
+        if turn is not None:
+            turn.record(rec.t_mono)
+        return rec
+
+    def _decode_window(self, owners: list, offs=None, c_tl=None):
+        """While a profiler records, the tick's region window and the
+        attributes its spans carry, from the host's state: each live
+        row's cached length (prompt + generated) for `attn.decode`, the
+        valid tokens (live rows, and those of the interleave chunk at
+        `offs`..`c_tl`) for `moe.ffn`. (None, None) otherwise."""
+        window = regions.open_window(("attn.decode", "moe.ffn"))
+        if window is None:
+            return None, None
+        lengths = [len(r.prompt) + self.slots[i].generated
+                   for i, r in enumerate(owners) if r is not None]
+        attrs = {"attn.decode": dict(lengths=lengths)}
+        if self._is_moe:
+            tokens = len(lengths) * self._steps_per_tick
+            if offs is not None:
+                c = min(self.cfg.prefill_chunk, self.max_seq)
+                tokens += int(np.clip(c_tl - offs, 0, c).sum())
+            attrs["moe.ffn"] = self._moe_attrs(tokens)
+        return window, attrs
 
     def _tick_step(self) -> None:
         """`_tick_body`, with the chunks it emits delivered after the
@@ -2852,7 +3002,6 @@ class ContinuousBatcher:
         # Failpoint: a fault here stands for a failed device call; the
         # loop replays the victims.
         failpoints.evaluate("tick_fail")
-        t0 = time.perf_counter()
         spec = self._spec
         jump = bool(not spec and self._jump_max and self.jump_ok.any())
         step0 = self.step_counter
@@ -2864,6 +3013,9 @@ class ContinuousBatcher:
         )
         owners = [s.request if s.active else None for s in self.slots]
         rec = self._tick_record(sum(r is not None for r in owners))
+        # The launch and collect counters read these marks, recorded or
+        # not.
+        phases = rec.phases if rec is not None else PhaseTimer()
         chunk = self._ilv_busy()
         if chunk:
             self._ilv_fill_rows()
@@ -2887,15 +3039,15 @@ class ContinuousBatcher:
                     self._t(self.prev_tokens)) + args[1:]
         if jump:
             args += (self._t(self.jump_ok),)
-        sel = counts_dev = None
+        sel = counts_dev = offs = c_tl = None
         if chunk:
             if self._ilv_mini is None:
                 self._ilv_mini = self._make_mini(self._ilv_k, self.max_seq)
             chunk_arr, offs, c_tl, c_adapt = self._ilv_chunk_inputs()
             c_args = (self._t(chunk_arr), self._t(offs), self._t(c_tl))
             kw["c_adapters"] = self._lora_idx(c_adapt)
-        if rec is not None:
-            rec.phases.mark("sync")
+        window, window_attrs = self._decode_window(owners, offs, c_tl)
+        phases.mark("sync")
         if chunk:
             if spec:
                 toks_dev, counts_dev, gs_dev, sel = (
@@ -2912,17 +3064,16 @@ class ContinuousBatcher:
             toks_dev, counts_dev, gs_dev = self._tick_jump_impl(*args, **kw)
         else:
             toks_dev, gs_dev = self._tick_impl(*args, **kw)
-        t1 = time.perf_counter()
-        if rec is not None:
-            rec.phases.mark("dispatch")
+        phases.mark("dispatch")
         toks = toks_dev.cpu().numpy()
         counts = None if counts_dev is None else counts_dev.cpu().numpy()
         gs = gs_dev.cpu().numpy()
-        t2 = time.perf_counter()
-        if rec is not None:
-            rec.phases.mark("wait")
-        self.timing["tick_dispatch_ms"] += (t1 - t0) * 1000.0
-        self.timing["tick_collect_ms"] += (t2 - t1) * 1000.0
+        phases.mark("wait")
+        self.timing["tick_dispatch_ms"] += (
+            phases.acc["sync"] + phases.acc["dispatch"])
+        self.timing["tick_collect_ms"] += phases.acc["wait"]
+        if window is not None:
+            window.close(window_attrs)
         self.timing["ticks"] += 1
         drafted = accepted = 0
         if spec:
@@ -2966,6 +3117,8 @@ class ContinuousBatcher:
         if rec is not None:
             for phase in PHASE_NAMES:
                 self.phase_ms[phase] += getattr(rec, f"phase_{phase}_ms")
+            self._turn = _Turn(rec.phases.last, rec.t_wall, rec.t_mono,
+                               rec.seq)
 
     def _jump_validate(self, request: _Request, run) -> bool:
         """A jump tick's forced run for one row must be the run the HOST

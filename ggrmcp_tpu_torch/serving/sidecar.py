@@ -112,6 +112,11 @@ from ggrmcp_tpu_torch.utils.device import DeviceLike
 logger = logging.getLogger("ggrmcp.torch.sidecar")
 
 POOLINGS = ("mean", "cls", "max")
+# The process's span ring holds this many spans for each record the tick
+# ring holds, so both cover one stretch: a loop turn and its children,
+# the admissions, each call's gateway, invoke and sidecar spans, the
+# profiled slice's regions.
+SPANS_PER_TICK = 4
 
 
 def _compile_records(limit: int = watcher.RING) -> list:
@@ -161,6 +166,8 @@ class Sidecar:
         mesh: Optional[mesh_mod.Mesh] = None,
     ):
         self.serving = serving or ServingConfig()
+        tracing.tracer.reserve(
+            SPANS_PER_TICK * self.serving.observability.tick_ring)
         if mesh is None:
             mesh = mesh_mod.serving_mesh(self.serving.mesh, device)
         self.tokenizer = load_tokenizer(self.serving.tokenizer_path)

@@ -6,7 +6,9 @@ merging the stack's three existing rings — gateway spans
 `GET /debug/timeline` on both HTTP implementations.
 
 Layout: the gateway is one process row (pid 1) with one thread per
-trace id, so concurrent calls never overlap on a track; each backend is
+trace id, so concurrent calls never overlap on a track; spans of no call
+(the co-launched batcher's turns and admissions, its device regions)
+sit on the first backend's "<family> spans" threads; each backend is
 its own process row with one "ticks" thread per source batcher (flat
 pool / KV tier), one row per request lifecycle, and instant markers for
 lifecycle events (shed / replay / queue timeout, derived from the
@@ -50,6 +52,9 @@ _LIFECYCLE = (
 _FAILURE_REASONS = {"timeout", "cancelled", "error", "overloaded"}
 
 _PID_GATEWAY = 1
+# The first "<family> spans" thread of a backend's row: past its tick
+# sources, before its compile (999) and request (1000+) rows.
+_TID_BATCHER = 900
 
 
 def _f(value: Any, default: float = 0.0) -> float:
@@ -72,14 +77,27 @@ def _meta(pid: int, tid: int, kind: str, name: str) -> dict:
     }
 
 
-def _span_events(spans: list, events: list) -> None:
+def _span_events(spans: list, events: list, batcher_pid: int) -> None:
     """Gateway spans → complete ("X") slices, one thread per trace id
     (concurrent calls must not overlap on one track; spans of the same
-    trace nest by containment)."""
+    trace nest by containment). A span of no call (empty trace id) goes
+    to `batcher_pid`'s thread of its family (the name's first part)."""
     tids: dict[str, int] = {}
+    families: dict[str, int] = {}
     for span in sorted(spans, key=lambda s: _f(s.get("startUnix"))):
-        trace_id = str(span.get("traceId", "")) or "-"
-        tid = tids.get(trace_id)
+        name = str(span.get("name", "span"))
+        trace_id = str(span.get("traceId", ""))
+        pid = _PID_GATEWAY
+        if not trace_id:
+            family = name.split(".")[0]
+            pid, tid = batcher_pid, families.get(family)
+            if tid is None:
+                tid = families[family] = _TID_BATCHER + len(families)
+                events.append(_meta(pid, tid, "thread_name",
+                                    f"{family} spans"))
+            trace_id = "-"
+        else:
+            tid = tids.get(trace_id)
         if tid is None:
             tid = tids[trace_id] = len(tids) + 1
             events.append(_meta(
@@ -87,10 +105,10 @@ def _span_events(spans: list, events: list) -> None:
             ))
         events.append({
             "ph": "X", "cat": "span",
-            "name": str(span.get("name", "span")),
+            "name": name,
             "ts": _us(_f(span.get("startUnix"))),
             "dur": _us(_f(span.get("durationMs")) / 1000.0),
-            "pid": _PID_GATEWAY, "tid": tid,
+            "pid": pid, "tid": tid,
             "args": {
                 "traceId": trace_id,
                 "spanId": span.get("spanId", ""),
@@ -286,7 +304,9 @@ def build_timeline(
     (pid, tid) track — the schema Perfetto's JSON importer expects."""
     events: list[dict] = []
     events.append(_meta(_PID_GATEWAY, 0, "process_name", "gateway"))
-    _span_events(spans or [], events)
+    live = [i for i, e in enumerate(backends or []) if "error" not in e]
+    _span_events(spans or [], events,
+                 _PID_GATEWAY + 1 + live[0] if live else _PID_GATEWAY)
     skipped: list[str] = []
     for i, entry in enumerate(backends or []):
         pid = _PID_GATEWAY + 1 + i

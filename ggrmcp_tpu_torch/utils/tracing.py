@@ -14,8 +14,14 @@ without external dependencies:
   mirrored to debug logs.
 - the device layer is covered two ways: span attributes carry the
   engine's compute timings, and the sidecar's DebugService.Profile RPC
-  captures a real JAX profiler trace (TensorBoard/XProf-loadable) on
+  captures a `torch.profiler` Chrome trace (Perfetto-loadable) on
   demand — the deep-dive path when a span shows a slow hop.
+- work timed where no `with` block fits (a serving-loop turn, a device
+  region resolved after the tick's sync) is kept after the fact
+  (`Tracer.record`), its start in wall seconds on the tick records'
+  axis; spans of no call carry an empty trace id. The ring keeps the
+  latest end among the spans it drops, so a reader of an interval can
+  tell it is whole.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import dataclasses
 import logging
 import os
 import re
+import sys
 import threading
 import time
 from collections import deque
@@ -78,6 +85,46 @@ class Tracer:
         self._current: contextvars.ContextVar[Optional[Span]] = (
             contextvars.ContextVar("ggrmcp_current_span", default=None)
         )
+        # The latest wall end among the spans the full ring pushed out:
+        # every span that ends after it is still in the ring.
+        self.dropped_until = 0.0
+
+    @property
+    def capacity(self) -> int:
+        return self._finished.maxlen
+
+    def reserve(self, capacity: int) -> None:
+        """Grow the ring to hold `capacity` spans (it never shrinks)."""
+        with self._lock:
+            if capacity > self._finished.maxlen:
+                self._finished = deque(self._finished, maxlen=capacity)
+
+    def _keep(self, span: Span) -> None:
+        with self._lock:
+            ring = self._finished
+            if len(ring) == ring.maxlen:
+                old = ring[0]
+                self.dropped_until = max(
+                    self.dropped_until,
+                    old.start_unix + old.duration_ms / 1000.0)
+            ring.append(span)
+
+    def record(
+        self,
+        name: str,
+        start_unix: float,
+        duration_ms: float,
+        trace_id: str = "",
+        parent_id: str = "",
+        **attrs: Any,
+    ) -> Span:
+        """Keep a span timed elsewhere: its start in wall seconds and
+        its duration. An empty trace id marks work of no call."""
+        span = Span(trace_id=trace_id, span_id=new_id(), parent_id=parent_id,
+                    name=name, start_unix=start_unix,
+                    duration_ms=duration_ms, attrs=attrs)
+        self._keep(span)
+        return span
 
     @contextlib.contextmanager
     def span(
@@ -99,6 +146,7 @@ class Tracer:
             attrs=dict(attrs),
         )
         token = self._current.set(span)
+        profiled = profiler_range(name)
         t0 = time.perf_counter()
         try:
             yield span
@@ -107,9 +155,10 @@ class Tracer:
             raise
         finally:
             span.duration_ms = (time.perf_counter() - t0) * 1000
+            if profiled is not None:
+                profiled.__exit__(None, None, None)
             self._current.reset(token)
-            with self._lock:
-                self._finished.append(span)
+            self._keep(span)
             logger.debug(
                 "span %s trace=%s %.2fms %s",
                 span.name, span.trace_id, span.duration_ms, span.attrs,
@@ -128,9 +177,15 @@ class Tracer:
             spans = list(self._finished)
         return [s.to_dict() for s in reversed(spans[-n:])]
 
+    def snapshot(self) -> tuple[list[Span], float]:
+        """The ring's spans, oldest kept first, and `dropped_until`."""
+        with self._lock:
+            return list(self._finished), self.dropped_until
+
     def clear(self) -> None:
         with self._lock:
             self._finished.clear()
+            self.dropped_until = 0.0
 
 
 # Process-wide default tracer: the gateway and the sidecar each run in
@@ -145,6 +200,19 @@ def trace_id_from_metadata(metadata) -> str:
         if key.lower() == TRACE_HEADER:
             return value
     return ""
+
+
+def profiler_range(name: str):
+    """While a torch profiler records, an entered `record_function(name)`
+    range (the caller exits it when the work ends), so that a capture on
+    this thread shows the span; None otherwise. torch is looked up, never
+    imported: the gateway runs without it."""
+    profiler = sys.modules.get("torch.autograd.profiler")
+    if profiler is None or not profiler._is_profiler_enabled:
+        return None
+    rf = profiler.record_function(name)
+    rf.__enter__()
+    return rf
 
 
 def kernel_events(trace: dict) -> list[dict]:

@@ -9,7 +9,9 @@ shim; the supervisor half of `serving/fleet.py`; the demo backends'
 generated messages and the percentile math) equals the reference's
 text except for the lines listed here: imports that name the port's
 package (checked line by line), the listed blocks that point the
-gateway's fleet at the port's worker, and three comments that drop the
+gateway's fleet at the port's worker and those of the port's spans (the
+tracer's ring, the gateway's `gateway.http` and `gateway.invoke`, the
+timeline's tracks of spans of no call), and three comments that drop the
 reference's citation of its own issue and PR numbers. The gateway's config classes
 equal the reference's source, and `Config.validate` refuses what the
 reference refuses with the same message. Then the reference's own unit
@@ -42,10 +44,8 @@ ALLOWED = {
     "mcp/types.py": [], "mcp/validation.py": [], "schema/__init__.py": [],
     "schema/builder.py": [], "rpc/connection.py": [],
     "rpc/descriptors.py": [], "rpc/reflection_client.py": [],
-    "rpc/discovery.py": [], "rpc/router.py": [], "serving/timeline.py": [],
-    "gateway/__init__.py": [], "gateway/metrics.py": [],
-    "gateway/middleware.py": [], "gateway/handler.py": [],
-    "gateway/fastlane.py": [],
+    "rpc/router.py": [], "gateway/__init__.py": [],
+    "gateway/metrics.py": [], "gateway/middleware.py": [],
     # The demo backends' messages (generated, byte for byte) and the
     # percentile math.
     "rpc/pb/hello_pb2.py": [], "rpc/pb/complex_pb2.py": [],
@@ -80,8 +80,477 @@ ALLOWED = {
           "                      worker_seed=worker_seed)"]),
     ],
     # The tracer, up to the reference's JAX profile capture (the port's
-    # capture on torch.profiler follows it).
-    "utils/tracing.py": [([], ["import re"])],
+    # capture on torch.profiler follows it): its ring keeps the end of
+    # what it drops and spans timed elsewhere (`record`, `snapshot`,
+    # `reserve`), and the docstring names the port's capture.
+    "utils/tracing.py": [
+        (
+            [
+                '  captures a real JAX profiler trace (TensorBoard/XProf-loadable) on',
+            ],
+            [
+                '  captures a `torch.profiler` Chrome trace (Perfetto-loadable) on',
+            ],
+        ),
+        (
+            [],
+            [
+                '- work timed where no `with` block fits (a serving-loop turn, a device',
+                "  region resolved after the tick's sync) is kept after the fact",
+                "  (`Tracer.record`), its start in wall seconds on the tick records'",
+                '  axis; spans of no call carry an empty trace id. The ring keeps the',
+                '  latest end among the spans it drops, so a reader of an interval can',
+                '  tell it is whole.',
+            ],
+        ),
+        (
+            [],
+            [
+                'import re',
+                'import sys',
+            ],
+        ),
+        (
+            [],
+            [
+                '        # The latest wall end among the spans the full ring pushed out:',
+                '        # every span that ends after it is still in the ring.',
+                '        self.dropped_until = 0.0',
+                '',
+                '    @property',
+                '    def capacity(self) -> int:',
+                '        return self._finished.maxlen',
+                '',
+                '    def reserve(self, capacity: int) -> None:',
+                '        """Grow the ring to hold `capacity` spans (it never shrinks)."""',
+                '        with self._lock:',
+                '            if capacity > self._finished.maxlen:',
+                '                self._finished = deque(self._finished, maxlen=capacity)',
+                '',
+                '    def _keep(self, span: Span) -> None:',
+                '        with self._lock:',
+                '            ring = self._finished',
+                '            if len(ring) == ring.maxlen:',
+                '                old = ring[0]',
+                '                self.dropped_until = max(',
+                '                    self.dropped_until,',
+                '                    old.start_unix + old.duration_ms / 1000.0)',
+                '            ring.append(span)',
+                '',
+                '    def record(',
+                '        self,',
+                '        name: str,',
+                '        start_unix: float,',
+                '        duration_ms: float,',
+                '        trace_id: str = "",',
+                '        parent_id: str = "",',
+                '        **attrs: Any,',
+                '    ) -> Span:',
+                '        """Keep a span timed elsewhere: its start in wall seconds and',
+                '        its duration. An empty trace id marks work of no call."""',
+                '        span = Span(trace_id=trace_id, span_id=new_id(), parent_id=parent_id,',
+                '                    name=name, start_unix=start_unix,',
+                '                    duration_ms=duration_ms, attrs=attrs)',
+                '        self._keep(span)',
+                '        return span',
+            ],
+        ),
+        (
+            [],
+            [
+                '        profiled = profiler_range(name)',
+            ],
+        ),
+        (
+            [],
+            [
+                '            if profiled is not None:',
+                '                profiled.__exit__(None, None, None)',
+            ],
+        ),
+        (
+            [
+                '            with self._lock:',
+                '                self._finished.append(span)',
+            ],
+            [
+                '            self._keep(span)',
+            ],
+        ),
+        (
+            [],
+            [
+                '    def snapshot(self) -> tuple[list[Span], float]:',
+                '        """The ring\'s spans, oldest kept first, and `dropped_until`."""',
+                '        with self._lock:',
+                '            return list(self._finished), self.dropped_until',
+                '',
+            ],
+        ),
+        (
+            [],
+            [
+                '            self.dropped_until = 0.0',
+            ],
+        ),
+        (
+            [],
+            [
+                'def profiler_range(name: str):',
+                '    """While a torch profiler records, an entered `record_function(name)`',
+                '    range (the caller exits it when the work ends), so that a capture on',
+                '    this thread shows the span; None otherwise. torch is looked up, never',
+                '    imported: the gateway runs without it."""',
+                '    profiler = sys.modules.get("torch.autograd.profiler")',
+                '    if profiler is None or not profiler._is_profiler_enabled:',
+                '        return None',
+                '    rf = profiler.record_function(name)',
+                '    rf.__enter__()',
+                '    return rf',
+                '',
+                '',
+            ],
+        ),
+    ],
+    # The port's spans on the wall axis: `gateway.http` in both HTTP
+    # servers (the complete body to the written response), opened by
+    # the transports and named by dispatch, `gateway.invoke` around the
+    # backend call with the placement's `target`, the debug endpoints'
+    # caps at the ring's capacity, and the timeline's tracks for spans
+    # of no call.
+    "gateway/fastlane.py": [
+        (
+            [
+                '        transport) around the shared dispatch core."""',
+            ],
+            [
+                '        transport) around the shared dispatch core, in one `gateway.http`',
+                '        span from the complete body to the written response."""',
+                '        with self.handler.http_span(',
+                '                headers.get(tracing.TRACE_HEADER)) as trace_id_in:',
+                '            return await self._post_body(conn, headers, pairs, body,',
+                '                                         trace_id_in)',
+                '',
+                '    async def _post_body(',
+                '        self,',
+                '        conn: FastLaneProtocol,',
+                '        headers: dict[str, str],',
+                '        pairs: list[tuple[str, str]],',
+                '        body: bytes,',
+                '        trace_id_in: str,',
+                '    ) -> int:',
+            ],
+        ),
+        (
+            [
+                '            trace_id_in=headers.get(tracing.TRACE_HEADER),',
+            ],
+            [
+                '            trace_id_in=trace_id_in,',
+            ],
+        ),
+    ],
+    "gateway/handler.py": [
+        (
+            [],
+            [
+                'import contextlib',
+            ],
+        ),
+        (
+            [],
+            [
+                '    @staticmethod',
+                '    @contextlib.contextmanager',
+                '    def http_span(trace_id_in: Optional[str]):',
+                '        """`gateway.http`: one POST from its complete body to its written',
+                '        response (aiohttp: handed back for aiohttp to write), under the',
+                "        caller's trace id or a new one, which it yields; `dispatch` names",
+                '        its method on it."""',
+                '        trace_id = trace_id_in or tracing.new_id()',
+                '        with tracing.tracer.span("gateway.http", trace_id=trace_id):',
+                '            yield trace_id',
+                '',
+            ],
+        ),
+        (
+            [],
+            [
+                '        body = await request.read()',
+                '        with self.http_span(request.headers.get(tracing.TRACE_HEADER)) as trace_id:',
+                '            return await self._post(request, body, trace_id)',
+                '',
+                '    async def _post(',
+                '        self, request: web.Request, body: bytes, trace_id_in: str',
+                '    ) -> web.StreamResponse:',
+            ],
+        ),
+        (
+            [
+                '            body = await request.read()',
+            ],
+            [],
+        ),
+        (
+            [
+                '            trace_id_in=request.headers.get(tracing.TRACE_HEADER),',
+            ],
+            [
+                '            trace_id_in=trace_id_in,',
+            ],
+        ),
+        (
+            [
+                '        # One span per request; the incoming x-trace-id header (if any)',
+                "        # continues the caller's trace, and the id is echoed back.",
+            ],
+            [
+                "        # One span per request, the transport's `gateway.http`: the",
+                "        # incoming x-trace-id header (if any) continues the caller's",
+                '        # trace, and the id is echoed back.',
+            ],
+        ),
+        (
+            [],
+            [
+                '        tracing.tracer.current().set(method=method, session=session.id[:8])',
+            ],
+        ),
+        (
+            [
+                '            with tracing.tracer.span(',
+                '                f"gateway.{method}", trace_id=trace_id, session=session.id[:8]',
+                '            ):',
+                '                if method == "initialize":',
+                '                    result = self._handle_initialize()',
+                '                elif method == "ping":',
+                '                    result = {}',
+                '                elif method == "tools/list":',
+                '                    result = self._handle_tools_list()',
+                '                elif method == "tools/call":',
+                '                    if sse is not None:',
+                '                        await self._stream_tool_call(',
+                '                            request_id, session, params, sse, trace_id',
+                '                        )',
+                '                        return None, session, trace_id',
+                '                    result = await self._handle_tools_call(session, params)',
+                '                elif method == "prompts/list":',
+                '                    result = {"prompts": []}',
+                '                elif method == "resources/list":',
+                '                    result = {"resources": []}',
+                '                else:',
+                '                    raise mcp.MCPError(',
+                '                        mcp.METHOD_NOT_FOUND, f"method not found: {method}"',
+            ],
+            [
+                '            if method == "initialize":',
+                '                result = self._handle_initialize()',
+                '            elif method == "ping":',
+                '                result = {}',
+                '            elif method == "tools/list":',
+                '                result = self._handle_tools_list()',
+                '            elif method == "tools/call":',
+                '                if sse is not None:',
+                '                    await self._stream_tool_call(',
+                '                        request_id, session, params, sse, trace_id',
+            ],
+        ),
+        (
+            [],
+            [
+                '                    return None, session, trace_id',
+                '                result = await self._handle_tools_call(session, params)',
+                '            elif method == "prompts/list":',
+                '                result = {"prompts": []}',
+                '            elif method == "resources/list":',
+                '                result = {"resources": []}',
+                '            else:',
+                '                raise mcp.MCPError(',
+                '                    mcp.METHOD_NOT_FOUND, f"method not found: {method}"',
+                '                )',
+            ],
+        ),
+        (
+            [
+                '                async for chunk in self.discoverer.invoke_stream_by_tool(',
+                '                    tool_name, arguments, headers, timeout',
+                '                ):',
+                '                    chunks.append(chunk)',
+            ],
+            [
+                '                with tracing.tracer.span("gateway.invoke", tool=tool_name):',
+                '                    async for chunk in self.discoverer.invoke_stream_by_tool(',
+                '                        tool_name, arguments, headers, timeout',
+                '                    ):',
+                '                        chunks.append(chunk)',
+            ],
+        ),
+        (
+            [
+                '                payload = await self.discoverer.invoke_by_tool(',
+                '                    tool_name, arguments, headers, timeout',
+                '                )',
+            ],
+            [
+                '                with tracing.tracer.span("gateway.invoke", tool=tool_name):',
+                '                    payload = await self.discoverer.invoke_by_tool(',
+                '                        tool_name, arguments, headers, timeout',
+                '                    )',
+            ],
+        ),
+        (
+            [
+                '            async for chunk in self.discoverer.invoke_stream_by_tool(',
+                '                tool_name, arguments, headers, self.cfg.server.request_timeout_s',
+                '            ):',
+                '                chunks.append(chunk)',
+                '                await sse.event(',
+                '                    "chunk",',
+                '                    {"content": mcp.text_content(json.dumps(chunk, ensure_ascii=False))},',
+                '                )',
+            ],
+            [
+                '            with tracing.tracer.span("gateway.invoke", tool=tool_name):',
+                '                async for chunk in self.discoverer.invoke_stream_by_tool(',
+                '                    tool_name, arguments, headers, self.cfg.server.request_timeout_s',
+                '                ):',
+                '                    chunks.append(chunk)',
+                '                    await sse.event(',
+                '                        "chunk",',
+                '                        {"content": mcp.text_content(json.dumps(chunk, ensure_ascii=False))},',
+                '                    )',
+            ],
+        ),
+        (
+            [
+                '        return {"spans": tracing.tracer.recent(max(1, min(n, 512)))}',
+            ],
+            [
+                '        return {"spans": tracing.tracer.recent(',
+                '            max(1, min(n, tracing.tracer.capacity)))}',
+            ],
+        ),
+        (
+            [
+                '            tracing.tracer.recent(min(n, 512)), entries',
+            ],
+            [
+                '            tracing.tracer.recent(min(n, tracing.tracer.capacity)), entries',
+            ],
+        ),
+    ],
+    "rpc/discovery.py": [
+        (
+            [
+                'from ggrmcp_tpu.utils import failpoints',
+            ],
+            [
+                'from ggrmcp_tpu_torch.utils import failpoints, tracing',
+            ],
+        ),
+        (
+            [
+                '        watchdog revives it."""',
+            ],
+            [
+                "        watchdog revives it. Every placement passes here: the call's",
+                '        span (the gateway\'s `gateway.invoke`) gets its target."""',
+                '        span = tracing.tracer.current()',
+                '        if span is not None:',
+                '            span.set(target=backend.target)',
+            ],
+        ),
+    ],
+    "serving/timeline.py": [
+        (
+            [
+                'trace id, so concurrent calls never overlap on a track; each backend is',
+            ],
+            [
+                'trace id, so concurrent calls never overlap on a track; spans of no call',
+                "(the co-launched batcher's turns and admissions, its device regions)",
+                'sit on the first backend\'s "<family> spans" threads; each backend is',
+            ],
+        ),
+        (
+            [],
+            [
+                '# The first "<family> spans" thread of a backend\'s row: past its tick',
+                '# sources, before its compile (999) and request (1000+) rows.',
+                '_TID_BATCHER = 900',
+            ],
+        ),
+        (
+            [
+                'def _span_events(spans: list, events: list) -> None:',
+            ],
+            [
+                'def _span_events(spans: list, events: list, batcher_pid: int) -> None:',
+            ],
+        ),
+        (
+            [
+                '    trace nest by containment)."""',
+            ],
+            [
+                '    trace nest by containment). A span of no call (empty trace id) goes',
+                '    to `batcher_pid`\'s thread of its family (the name\'s first part)."""',
+            ],
+        ),
+        (
+            [],
+            [
+                '    families: dict[str, int] = {}',
+            ],
+        ),
+        (
+            [
+                '        trace_id = str(span.get("traceId", "")) or "-"',
+                '        tid = tids.get(trace_id)',
+            ],
+            [
+                '        name = str(span.get("name", "span"))',
+                '        trace_id = str(span.get("traceId", ""))',
+                '        pid = _PID_GATEWAY',
+                '        if not trace_id:',
+                '            family = name.split(".")[0]',
+                '            pid, tid = batcher_pid, families.get(family)',
+                '            if tid is None:',
+                '                tid = families[family] = _TID_BATCHER + len(families)',
+                '                events.append(_meta(pid, tid, "thread_name",',
+                '                                    f"{family} spans"))',
+                '            trace_id = "-"',
+                '        else:',
+                '            tid = tids.get(trace_id)',
+            ],
+        ),
+        (
+            [
+                '            "name": str(span.get("name", "span")),',
+            ],
+            [
+                '            "name": name,',
+            ],
+        ),
+        (
+            [
+                '            "pid": _PID_GATEWAY, "tid": tid,',
+            ],
+            [
+                '            "pid": pid, "tid": tid,',
+            ],
+        ),
+        (
+            [
+                '    _span_events(spans or [], events)',
+            ],
+            [
+                '    live = [i for i, e in enumerate(backends or []) if "error" not in e]',
+                '    _span_events(spans or [], events,',
+                '                 _PID_GATEWAY + 1 + live[0] if live else _PID_GATEWAY)',
+            ],
+        ),
+    ],
     # The supervisor half, up to the worker: the imports the port's
     # worker takes, and the worker command.
     "serving/fleet.py": [

@@ -338,8 +338,13 @@ async def test_ring_on_the_mesh_matches_reference(monkeypatch, axes):
     assert teng.ring_capacity == jeng.ring_capacity
     calls = []
     real = tatt.flash_attention
-    monkeypatch.setattr(tatt, "flash_attention",
-                        lambda *a, **k: calls.append(1) or real(*a, **k))
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    spy.launches = 0  # the batcher's admission spans read the counter
+    monkeypatch.setattr(tatt, "flash_attention", spy)
     prompts = [prompt_of(6, salt=1), prompt_of(40, salt=2)]
 
     async def run(batcher, reference=False):
